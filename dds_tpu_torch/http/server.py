@@ -1,0 +1,433 @@
+"""REST proxy: the encrypted query engine, ported for the SumAll path.
+
+Trimmed copy of `dds_tpu/http/server.py` serving three routes with the
+reference's parameters, JSON shapes and status codes:
+
+- `POST /PutSet`            quorum write of a record, keyed by its content hash;
+- `GET  /GetSet/<key>`      quorum read of one record;
+- `GET  /SumAll?position=p&nsqr=n2`  the homomorphic sum of column p over
+  every stored record: the modular product of the Paillier ciphertexts
+  mod n^2, folded on the configured backend (the `cuda` backend runs the
+  Hopper Montgomery-multiply kernel).
+
+Every other route answers 404. The aggregate path keeps the reference's
+tag-validated cache and audit exactly: ONE batched tag-only quorum round
+validates every cached record per aggregate, a random sample of
+cache-served keys is re-read through full quorums, and a non-corroborated
+mismatch flushes the cache. The proxy sees ciphertexts and public
+parameters only, never keys. The resident, storage and search planes of
+the reference are not ported yet; the proxy refuses to start with one
+enabled rather than serve without it.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import contextvars
+import logging
+import random
+from dataclasses import dataclass
+from typing import Optional
+
+from dds_tpu_torch.core.errors import ByzantineError
+from dds_tpu_torch.core.quorum_client import AbdClient
+from dds_tpu_torch.http import json_protocol as J
+from dds_tpu_torch.http.miniserver import HttpServer, Request, Response
+from dds_tpu_torch.models.backend import CryptoBackend, get_backend
+from dds_tpu_torch.obs import context as obs_context
+from dds_tpu_torch.utils import sigs
+from dds_tpu_torch.utils.retry import (
+    Deadline,
+    DeadlineExceededError,
+    RetryPolicy,
+    retry_deadline,
+)
+from dds_tpu_torch.utils.trace import tracer
+from dds_tpu_torch.utils.trust import NoTrustedNodesError
+
+log = logging.getLogger("dds_torch.rest")
+
+# the per-request time budget, minted once in handle() and read by every
+# nested storage helper
+_REQ_DEADLINE: contextvars.ContextVar = contextvars.ContextVar(
+    "dds_torch_request_deadline", default=None
+)
+
+# transient storage-layer failures worth retrying; anything else (a
+# programming error, a bad request) propagates immediately
+_RETRYABLE = (ByzantineError, asyncio.TimeoutError, NoTrustedNodesError, OSError)
+
+
+@dataclass
+class ProxyConfig:
+    host: str = "127.0.0.1"
+    port: int = 0
+    # one overall budget per request, minted at the REST edge; quorum
+    # attempts and full-jitter backoffs retry inside it, and exhaustion
+    # degrades to 503 + Retry-After
+    request_budget: float = 8.0
+    retry_backoff: float = 0.3
+    retry_max_delay: float = 2.0
+    retry_attempts: int = 0            # > 0 caps attempts on top of the budget
+    retry_after_hint: float = 1.0
+    handler_timeout: float = 0.0
+    crypto_backend: str = "cuda"
+    device: str = "cuda"
+    min_device_batch: Optional[int] = None
+    # tag-validated aggregate cache: one batched tag-only quorum round
+    # validates all cached records per aggregate instead of K full reads
+    aggregate_cache: bool = True
+    # cache-served keys re-read through a full quorum per aggregate; a
+    # non-corroborated mismatch flushes the cache (bounds how long a
+    # Byzantine coordinator's forged value can persist)
+    aggregate_cache_audit: int = 2
+    # reference planes not ported yet: True refuses to start
+    resident: bool = False
+    storage: bool = False
+    search: bool = False
+
+
+def _make_backend(cfg: ProxyConfig) -> CryptoBackend:
+    if cfg.crypto_backend == "cuda":
+        return get_backend("cuda", device=cfg.device,
+                           min_device_batch=cfg.min_device_batch)
+    return get_backend(cfg.crypto_backend)
+
+
+class DDSRestServer:
+    def __init__(self, abd: AbdClient, config: ProxyConfig | None = None):
+        self.abd = abd
+        self.cfg = config or ProxyConfig()
+        for plane in ("resident", "storage", "search"):
+            if getattr(self.cfg, plane):
+                raise NotImplementedError(
+                    f"the {plane} plane is not ported to dds_tpu_torch yet"
+                )
+        self.backend: CryptoBackend = _make_backend(self.cfg)
+        self.stored_keys: set[str] = set()
+        # key -> (tag, value): every entry comes from a COMPLETED quorum op,
+        # so value@tag is written to a full quorum — the invariant the
+        # tag-validation read path relies on for linearizability
+        self._cache: dict[str, tuple] = {}
+        # versions + memos for the aggregate hot path: between writes the
+        # per-request O(K) bookkeeping is identical, so it is computed once
+        # per (stored_keys, cache) state. The tag round and the audit still
+        # run on EVERY aggregate.
+        self._stored_version = 0
+        self._cache_version = 0
+        self._agg_memo: tuple | None = None
+        self._pairs_memo: tuple | None = None
+        self._operand_memo: tuple | None = None
+        self._http = HttpServer(self.cfg.host, self.cfg.port, self.handle,
+                                handler_timeout=self.cfg.handler_timeout)
+
+    async def start(self) -> None:
+        await self._http.start()
+        self.cfg.port = self._http.port  # resolve OS-assigned port 0
+
+    async def stop(self) -> None:
+        await self._http.stop()
+
+    # ----------------------------------------------------------- ABD access
+
+    def _request_deadline(self) -> Deadline:
+        dl = _REQ_DEADLINE.get()
+        return dl if dl is not None else Deadline(self.cfg.request_budget)
+
+    async def _retry(self, f, deadline: Deadline):
+        attempts = self.cfg.retry_attempts
+        policy = RetryPolicy(
+            base=self.cfg.retry_backoff,
+            max_delay=self.cfg.retry_max_delay,
+            max_attempts=(attempts + 1) if attempts > 0 else None,
+        )
+        return await retry_deadline(f, deadline, policy, retry_on=_RETRYABLE)
+
+    def _cache_put(self, key: str, tag, value) -> None:
+        """Remember a completed op's (tag, value); newest tag wins."""
+        if tag is None or not self.cfg.aggregate_cache:
+            return
+        cur = self._cache.get(key)
+        if cur is None or cur[0] < tag:
+            self._cache[key] = (tag, value)
+            self._cache_version += 1
+
+    def _flush_cache(self) -> None:
+        self._cache.clear()
+        self._cache_version += 1
+
+    def _note_stored(self, key: str) -> None:
+        if key not in self.stored_keys:
+            self.stored_keys.add(key)
+            self._stored_version += 1
+
+    def _agg_state(self):
+        """(state, keys, cached, digest, fingerprint, cached_tags) for the
+        current aggregate view, memoized per (stored, cache) version."""
+        state = (self._stored_version, self._cache_version)
+        memo = self._agg_memo
+        if memo is not None and memo[0] == state:
+            return memo
+        keys = sorted(self.stored_keys)
+        cached = [k for k in keys if k in self._cache]
+        cached_tags = [self._cache[k][0] for k in cached]
+        digest = sigs.key_from_set(cached)
+        fp = sigs.tags_fingerprint(cached_tags)
+        self._agg_memo = (state, keys, cached, digest, fp, cached_tags)
+        return self._agg_memo
+
+    async def _fetch_tagged(self, key: str, exclude=()):
+        dl = self._request_deadline()
+        value, tag, coord = await self._retry(
+            lambda: self.abd.fetch_set_attributed(key, exclude, deadline=dl), dl
+        )
+        self._cache_put(key, tag, value)
+        return value, tag, coord
+
+    async def _write(self, key: str, value):
+        dl = self._request_deadline()
+        k, tag = await self._retry(
+            lambda: self.abd.write_set_tagged(key, value, deadline=dl), dl
+        )
+        self._cache_put(key, tag, value)
+        return k
+
+    async def _fetch_stored(self) -> list[tuple[str, list]]:
+        """Every stored (key, value), for the aggregate route.
+
+        With the aggregate cache on, ONE batched tag-only quorum round
+        (`AbdClient.read_tags`) validates all cached entries: a cached
+        value is served only when the quorum-max tag EQUALS its cached tag,
+        which is linearizable because cached values come from completed
+        ops and any completed later write shows a higher tag in every
+        quorum. Keys that fail validation (or were never cached) take the
+        full ABD read, refilling the cache; the audit below bounds how long
+        a forged cached value can persist."""
+        with tracer.span("proxy.fetch_stored"):
+            return await self._fetch_stored_traced()
+
+    async def _fetch_stored_traced(self) -> list[tuple[str, list]]:
+        state, keys, cached, digest, fp, cached_tags = self._agg_state()
+        if not keys:
+            return []
+        fresh: dict[str, object] = {}
+        fresh_tags: dict[str, object] = {}
+        if self.cfg.aggregate_cache and cached:
+            try:
+                dl = self._request_deadline()
+                tags = await self._retry(
+                    lambda: self.abd.read_tags(
+                        cached, digest=digest, fingerprint=fp,
+                        cached_tags=cached_tags, deadline=dl,
+                    ),
+                    dl,
+                )
+                if tags is cached_tags:
+                    # every vote said "unchanged": the whole cache is fresh.
+                    # With memoized pairs for this exact state only the
+                    # audit remains.
+                    pm = self._pairs_memo
+                    if pm is not None and pm[0] == state:
+                        if await self._audit_cached(cached):
+                            return pm[1]
+                        # audit flushed the cache: rebuild from quorum reads
+                    else:
+                        for k in cached:
+                            ct, cv = self._cache[k]
+                            fresh[k] = cv
+                            fresh_tags[k] = ct
+                else:
+                    for k, t in zip(cached, tags):
+                        ct, cv = self._cache[k]
+                        if t == ct:
+                            fresh[k] = cv
+                            fresh_tags[k] = ct
+            except Exception as e:  # validation trouble => plain full fetch
+                log.debug("tag validation failed (%s); full refetch", e)
+
+        # audit sample: re-read a few cache-served keys through full quorums
+        audit = random.sample(
+            sorted(fresh), min(self.cfg.aggregate_cache_audit, len(fresh))
+        )
+        stale = [k for k in keys if k not in fresh or k in audit]
+        results = await asyncio.gather(
+            *(self._fetch_tagged(k) for k in stale), return_exceptions=True
+        )
+        fetched = {}
+        for k, r in zip(stale, results):
+            if isinstance(r, Exception):
+                raise r
+            fetched[k] = r  # (value, tag, coordinator)
+        pre = {k: (fresh_tags[k], fresh[k]) for k in audit}
+        if await self._audit_verdict(audit, pre, fetched):
+            log.warning("aggregate cache audit mismatch: flushing cache")
+            self._flush_cache()
+            fresh.clear()  # serve only quorum-read data this round
+            remaining = [k for k in keys if k not in fetched]
+            more = await asyncio.gather(
+                *(self._fetch_tagged(k) for k in remaining),
+                return_exceptions=True,
+            )
+            for k, r in zip(remaining, more):
+                if isinstance(r, Exception):
+                    raise r
+                fetched[k] = r
+        out = []
+        for k in keys:
+            v = fetched[k][0] if k in fetched else fresh[k]
+            if v is not None:
+                out.append((k, v))
+        # memoize only if the (stored, cache) state did not move meanwhile
+        if (self._stored_version, self._cache_version) == state:
+            self._pairs_memo = (state, out)
+        return out
+
+    async def _audit_verdict(self, audit: list[str], pre: dict,
+                             fetched: dict) -> list[str]:
+        """Forged/suspect classification shared by both audit paths.
+
+        `pre[k] = (tag, value)` is what the cache served; `fetched[k] =
+        (value, tag, coordinator)` the audit's full quorum re-read. A value
+        mismatch at the cached tag or below is a forgery. A strictly newer
+        (value, tag) is usually a benign concurrent write, but its tag came
+        from the audited read itself, so it is corroborated by one more
+        full read through a DIFFERENT coordinator; a failed corroboration
+        counts as forged (the conservative flush)."""
+        forged, suspect = [], []
+        for k in audit:
+            value, tag, _coord = fetched[k]
+            pre_tag, pre_value = pre[k]
+            if value == pre_value:
+                continue
+            if tag is None or tag <= pre_tag:
+                forged.append(k)
+            else:
+                suspect.append(k)
+        if suspect:
+            checks = await asyncio.gather(
+                *(self._fetch_tagged(k, exclude=(fetched[k][2],)) for k in suspect),
+                return_exceptions=True,
+            )
+            for k, r in zip(suspect, checks):
+                if isinstance(r, Exception) or r[:2] != fetched[k][:2]:
+                    forged.append(k)
+        return forged
+
+    async def _audit_cached(self, cached: list[str]) -> bool:
+        """Audit a fully cache-served aggregate round; False when the cache
+        was flushed."""
+        audit = random.sample(
+            cached, min(self.cfg.aggregate_cache_audit, len(cached))
+        )
+        if not audit:
+            return True
+        pre = {k: self._cache[k] for k in audit}
+        results = await asyncio.gather(
+            *(self._fetch_tagged(k) for k in audit), return_exceptions=True
+        )
+        fetched = {}
+        for k, r in zip(audit, results):
+            if isinstance(r, Exception):
+                raise r
+            fetched[k] = r
+        if await self._audit_verdict(audit, pre, fetched):
+            log.warning("aggregate cache audit mismatch: flushing cache")
+            self._flush_cache()
+            return False
+        return True
+
+    # -------------------------------------------------------------- routing
+
+    async def handle(self, req: Request) -> Response:
+        route = req.path.split("/", 2)[1] if "/" in req.path else req.path
+        # one budget per request: every storage helper reads it from the
+        # context var, so nested retries shrink toward the same deadline
+        token = _REQ_DEADLINE.set(Deadline(self.cfg.request_budget))
+        try:
+            with tracer.span(f"http.{req.method}.{route or 'root'}",
+                             _ctx=obs_context.root()):
+                return await self._route(req)
+        except (ValueError, KeyError, TypeError) as e:
+            return Response.text(f"bad request: {e}", 400)
+        except (DeadlineExceededError, NoTrustedNodesError) as e:
+            # the quorum is unreachable within the budget: say when to
+            # come back instead of hanging
+            log.warning("degraded %s %s: %s", req.method, req.path, e)
+            return Response(
+                503, f"service unavailable: {e}".encode(),
+                headers={"Retry-After": str(max(1, round(self.cfg.retry_after_hint)))},
+            )
+        except Exception:
+            log.exception("route failure %s %s", req.method, req.path)
+            return Response(500)
+        finally:
+            _REQ_DEADLINE.reset(token)
+
+    async def _route(self, req: Request) -> Response:
+        parts = [p for p in req.path.split("/") if p]
+        if not parts:
+            return Response(404)
+        name, arg = parts[0], (parts[1] if len(parts) > 1 else None)
+        match (req.method, name):
+            case ("GET", "GetSet") if arg:
+                value = (await self._fetch_tagged(arg))[0]
+                if value is None:
+                    return Response(404)
+                return Response.json(J.dds_set(value))
+            case ("POST", "PutSet"):
+                body = req.json()
+                if body is None:
+                    key, value = sigs.random_key(), None
+                else:
+                    value = J.parse_set(body)
+                    key = sigs.key_from_set(value)
+                await self._write(key, value)
+                self._note_stored(key)
+                return Response.text(key)
+            case ("GET", "SumAll"):
+                return await self._fold_aggregate(req)
+        return Response(404)
+
+    async def _fold_aggregate(self, req: Request) -> Response:
+        """`SumAll`: fold one position across ALL stored records — the
+        north-star workload. With `nsqr` the fold is the modular product
+        of the ciphertexts on the backend; without it, a plain sum."""
+        pos = self._pos(req)
+        mod = req.query.get("nsqr")
+        pairs = await self._fetch_stored()
+        memo = self._operand_memo
+        if memo is not None and memo[0] is pairs and memo[1] == pos:
+            # identity match: _fetch_stored returned its memoized pairs, so
+            # the extracted column (and its identity, which the resident
+            # pool's row-index memo keys on) is unchanged too
+            operands = memo[2]
+        else:
+            operands = [int(v[pos]) for _, v in pairs if pos < len(v)]
+            self._operand_memo = (pairs, pos, operands)
+        if not operands:
+            return Response(404)
+        if mod:
+            modulus = int(mod)
+            with tracer.span("proxy.fold", k=len(operands),
+                             backend=self.backend.name):
+                result = await self._fold(operands, modulus)
+        else:
+            result = sum(operands)
+        return Response.json(J.value_result(str(result)))
+
+    async def _fold(self, operands: list[int], modulus: int) -> int:
+        """Run one aggregate's fold on a worker thread, so concurrent
+        aggregates overlap their device work and the event loop keeps
+        serving."""
+        fold = getattr(self.backend, "modmul_fold_resident",
+                       self.backend.modmul_fold)
+        return await asyncio.to_thread(fold, operands, modulus)
+
+    @staticmethod
+    def _pos(req: Request) -> int:
+        """Parse `position`; negative values are rejected (python negative
+        indexing must not leak ciphertext columns)."""
+        pos = int(req.query["position"])
+        if pos < 0:
+            raise ValueError("position must be >= 0")
+        return pos

@@ -1,0 +1,118 @@
+"""Typed configuration: one dataclass tree, loadable from TOML or JSON.
+
+Trimmed copy of `dds_tpu/utils/config.py`, holding the sections this
+slice's deployment reads. Its defaults ARE the north-star topology of
+`benchmarks/bft_sum.py`: 4 BFT-ABD replicas with quorum 3 (f = 1), no
+sentinent spares, proactive recovery off, in-memory transport, the proxy
+on an OS-assigned port, folds on the `cuda` backend. The `resident`,
+`storage` and `search` planes are not ported yet: enabling one makes
+`run.launch` raise instead of silently serving without it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import pathlib
+from dataclasses import dataclass, field
+from typing import Optional
+
+
+@dataclass
+class ReplicaTopology:
+    endpoints: list[str] = field(
+        default_factory=lambda: [f"replica-{i}" for i in range(4)]
+    )
+    byz_quorum_size: int = 3           # 2f+1
+    byz_max_faults: int = 1
+
+
+@dataclass
+class SecurityConfig:
+    abd_mac_secret: str = "intranet-abd-secret"
+    proxy_mac_secret: str = "rest2abd"
+    nonce_challenge_increment: int = 1
+
+
+@dataclass
+class RecoveryConfig:
+    # proactive recovery needs the supervisor, which is not ported yet
+    enabled: bool = False
+
+
+@dataclass
+class ProxySettings:
+    host: str = "127.0.0.1"
+    port: int = 0                      # 0 = OS-assigned
+    crypto_backend: str = "cuda"       # cuda | cpu
+    # where the cuda backend's pools live and folds run ("cpu" runs the
+    # plain PyTorch path, for hosts without a card)
+    device: str = "cuda"
+    # host/device fold crossover; None = the backend's measured default
+    min_device_batch: Optional[int] = None
+    intranet_request_timeout: float = 5.0
+    request_budget: float = 8.0
+    retry_attempts: int = 0
+    retry_backoff: float = 0.3
+    retry_max_delay: float = 2.0
+    retry_after_hint: float = 1.0
+    handler_timeout: float = 0.0       # miniserver backstop, 0 = off
+
+
+@dataclass
+class PlaneSwitch:
+    """A serving plane of the reference that this slice does not port."""
+
+    enabled: bool = False
+
+
+@dataclass
+class DDSConfig:
+    replicas: ReplicaTopology = field(default_factory=ReplicaTopology)
+    security: SecurityConfig = field(default_factory=SecurityConfig)
+    recovery: RecoveryConfig = field(default_factory=RecoveryConfig)
+    proxy: ProxySettings = field(default_factory=ProxySettings)
+    resident: PlaneSwitch = field(default_factory=PlaneSwitch)
+    storage: PlaneSwitch = field(default_factory=PlaneSwitch)
+    search: PlaneSwitch = field(default_factory=PlaneSwitch)
+    debug: bool = False
+
+    @staticmethod
+    def _build(cls, data):
+        if dataclasses.is_dataclass(cls) and isinstance(data, dict):
+            fields = {f.name: f for f in dataclasses.fields(cls)}
+            kwargs = {}
+            for k, v in data.items():
+                k = k.replace("-", "_")
+                if k not in fields:
+                    raise ValueError(f"unknown config key {k!r} for {cls.__name__}")
+                sub = _SUBSECTIONS.get((cls.__name__, k))
+                kwargs[k] = DDSConfig._build(sub, v) if sub else v
+            return cls(**kwargs)
+        return data
+
+    @staticmethod
+    def from_dict(data: dict) -> "DDSConfig":
+        return DDSConfig._build(DDSConfig, data)
+
+    @staticmethod
+    def load(path: str | pathlib.Path) -> "DDSConfig":
+        p = pathlib.Path(path)
+        if p.suffix == ".toml":
+            import tomllib
+
+            data = tomllib.loads(p.read_text())
+        else:
+            data = json.loads(p.read_text())
+        return DDSConfig.from_dict(data)
+
+
+_SUBSECTIONS = {
+    ("DDSConfig", "replicas"): ReplicaTopology,
+    ("DDSConfig", "security"): SecurityConfig,
+    ("DDSConfig", "recovery"): RecoveryConfig,
+    ("DDSConfig", "proxy"): ProxySettings,
+    ("DDSConfig", "resident"): PlaneSwitch,
+    ("DDSConfig", "storage"): PlaneSwitch,
+    ("DDSConfig", "search"): PlaneSwitch,
+}

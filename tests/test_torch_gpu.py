@@ -1,0 +1,103 @@
+"""Card-only checks of the Hopper Montgomery-multiply kernel.
+
+Marked `gpu`: on a host without a CUDA device every test here skips (the
+decision is made inside the `cuda` fixture, never at import, so every
+pytest-xdist worker collects the same tests). On the card:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu -q
+
+Kernel against its plain PyTorch version on the same inputs on the card,
+and folds against Python-int products. Exact integer arithmetic:
+tolerance zero.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from dds_tpu_torch.bench_key import bench_paillier_key
+from dds_tpu_torch.models.backend import CpuBackend, CudaBackend
+from dds_tpu_torch.ops import bignum as bn
+from dds_tpu_torch.ops import mont_cuda
+from dds_tpu_torch.ops.montgomery import ModCtx
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card with -m gpu")
+    return torch.device("cuda")
+
+
+def _residues(ctx: ModCtx, count: int, seed: int) -> np.ndarray:
+    """(count, L) uint32 limbs of seeded residues below n: random limbs
+    with the top limb drawn below n's top limb."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 16, size=(count, ctx.L), dtype=np.uint32)
+    x[:, -1] = rng.integers(0, int(ctx.N[-1]), size=count, dtype=np.uint32)
+    return x
+
+
+def _n2_ctx() -> ModCtx:
+    return ModCtx.make(bench_paillier_key(2048).nsquare)
+
+
+def test_kernel_matches_plain_at_paillier2048(cuda):
+    ctx = _n2_ctx()
+    assert ctx.L == 256 and ctx.W == 128
+    a = bn.to_device(_residues(ctx, 4096, 1), cuda).T.contiguous()
+    b = bn.to_device(_residues(ctx, 4096, 2), cuda).T.contiguous()
+    before = mont_cuda.launches.value
+    got = mont_cuda.mul(ctx, a, b)
+    torch.cuda.synchronize()
+    assert mont_cuda.launches.value == before + 1
+    want = ctx.mont_mul(a.T, b.T).T
+    assert torch.equal(got, want)
+
+
+def test_kernel_reads_column_slices_of_a_wider_array(cuda):
+    ctx = _n2_ctx()
+    x = bn.to_device(_residues(ctx, 2 * 1000, 3), cuda).T.contiguous()
+    got = mont_cuda.mul(ctx, x[:, :1000], x[:, 1000:2000])
+    want = mont_cuda.mul(ctx, x[:, :1000].contiguous(), x[:, 1000:].contiguous())
+    assert torch.equal(got, want)
+    assert torch.equal(got, ctx.mont_mul(x[:, :1000].T, x[:, 1000:].T).T)
+
+
+def test_kernel_matches_plain_at_odd_limb_count(cuda):
+    rng = random.Random(33)
+    n = rng.getrandbits(520) | (1 << 519) | 1
+    ctx = ModCtx.make(n)
+    assert ctx.L == 33
+    a = bn.to_device(_residues(ctx, 300, 4), cuda).T.contiguous()
+    b = bn.to_device(_residues(ctx, 300, 5), cuda).T.contiguous()
+    assert torch.equal(mont_cuda.mul(ctx, a, b), ctx.mont_mul(a.T, b.T).T)
+
+
+@pytest.mark.parametrize("K", [1, 5, 33, 8192])
+def test_kernel_fold_matches_python_product(cuda, K):
+    ctx = _n2_ctx()
+    rows = _residues(ctx, K, 10 + K)
+    got = mont_cuda.reduce_mul(ctx, bn.to_device(rows, cuda))
+    want = 1
+    for c in bn.batch_to_ints(rows):
+        want = want * c % ctx.n
+    assert bn.limbs_to_int(bn.to_host(got)[0]) == want
+
+
+def test_backend_on_card_matches_host_fold(cuda):
+    key = bench_paillier_key(2048)
+    n2 = key.nsquare
+    rng = random.Random(7)
+    cs = [rng.randrange(1, n2) for _ in range(300)]
+    be = CudaBackend(min_device_batch=0)
+    before = mont_cuda.launches.value
+    want = CpuBackend().modmul_fold(cs, n2)
+    assert be.modmul_fold_resident(cs, n2) == want
+    assert be.modmul_fold_resident(cs, n2) == want
+    assert be.modmul_fold(cs, n2) == want
+    assert mont_cuda.launches.value - before == 3 * mont_cuda.fold_launches(300)
