@@ -1,16 +1,24 @@
-"""Carry state across from `dds_tpu`: Montgomery constants and resident rows.
+"""Carry state across from `dds_tpu`: constants, resident rows, client keys.
 
 In this system what plays the role of weights is the per-modulus
-Montgomery constants and the device-resident ciphertext rows. Both cross
-as plain numpy arrays in the shared layout — (count, L) uint32 of 16-bit
-little-endian limbs, the layout `dds_tpu`'s pools hold and its Stratum
-segment files persist — so nothing here imports the reference.
+Montgomery constants, the device-resident ciphertext rows and the
+client's HE key material. The first two cross as plain numpy arrays in the
+shared layout — (count, L) uint32 of 16-bit little-endian limbs, the
+layout `dds_tpu`'s pools hold and its Stratum segment files persist — and
+the keys as `HEKeys` JSON, the format both packages write, so nothing here
+imports the reference.
 """
 
 from __future__ import annotations
 
+import base64
+import binascii
+import json
+from math import gcd
+
 import numpy as np
 
+from dds_tpu_torch.models.keys import HEKeys
 from dds_tpu_torch.ops import bignum as bn
 from dds_tpu_torch.ops.montgomery import ModCtx
 from dds_tpu_torch.resident.pool import ResidentPool
@@ -55,3 +63,69 @@ def pool_from_numpy(modulus: int, ciphers: list[int], rows_u32,
     pool = ResidentPool(modulus, device=device, **pool_kwargs)
     pool.ingest(list(ciphers), rows)
     return pool
+
+
+# HEKeys JSON: scheme tag -> {field: "hex" (an int) | "b64" (32 key bytes)}
+_KEY_FIELDS = {
+    "OPE": {"key": "b64"},
+    "CHE": {"k_enc": "b64", "k_mac": "b64"},
+    "LSE": {"k_enc": "b64", "k_tag": "b64"},
+    "PSSE": {"n": "hex", "p": "hex", "q": "hex"},
+    "MSE": {"n": "hex", "e": "hex", "d": "hex", "p": "hex", "q": "hex"},
+    "None": {"key": "b64"},
+}
+
+
+def _validated_key_json(blob: str) -> dict:
+    """Parse HEKeys JSON and check it field by field: exactly the schemes
+    and fields of `_KEY_FIELDS`, hex ints > 1, base64 keys of 32 bytes,
+    n = p * q for PSSE and MSE, and e * d = 1 mod lcm(p - 1, q - 1) for
+    MSE. Raises ValueError naming the first bad field."""
+    d = json.loads(blob)
+    if not isinstance(d, dict) or set(d) != set(_KEY_FIELDS):
+        raise ValueError(f"key JSON must hold exactly {sorted(_KEY_FIELDS)}")
+    ints = {}
+    for tag, fields in _KEY_FIELDS.items():
+        if not isinstance(d[tag], dict) or set(d[tag]) != set(fields):
+            raise ValueError(f"{tag} must hold exactly {sorted(fields)}")
+        for name, kind in fields.items():
+            v = d[tag][name]
+            if not isinstance(v, str):
+                raise ValueError(f"{tag}.{name} must be a string")
+            if kind == "hex":
+                try:
+                    x = int(v, 16)
+                except ValueError:
+                    raise ValueError(f"{tag}.{name} is not a hex int") from None
+                if x <= 1:
+                    raise ValueError(f"{tag}.{name} must be > 1")
+                ints[tag, name] = x
+            else:
+                try:
+                    raw = base64.b64decode(v, validate=True)
+                except binascii.Error:
+                    raise ValueError(f"{tag}.{name} is not base64") from None
+                if len(raw) != 32:
+                    raise ValueError(f"{tag}.{name} must be 32 bytes, got {len(raw)}")
+    for tag in ("PSSE", "MSE"):
+        if ints[tag, "n"] != ints[tag, "p"] * ints[tag, "q"]:
+            raise ValueError(f"{tag}.n != p * q")
+    p1, q1 = ints["MSE", "p"] - 1, ints["MSE", "q"] - 1
+    if ints["MSE", "e"] * ints["MSE", "d"] % (p1 // gcd(p1, q1) * q1) != 1:
+        raise ValueError("MSE.d is not the inverse of e mod lcm(p - 1, q - 1)")
+    return d
+
+
+def keys_from_reference(blob: str) -> HEKeys:
+    """The port's `HEKeys` from a reference `HEKeys.to_json()` blob: the
+    same JSON, validated field by field. Raises ValueError on a bad field."""
+    _validated_key_json(blob)
+    return HEKeys.from_json(blob)
+
+
+def keys_to_reference(keys: HEKeys) -> str:
+    """The JSON a reference `HEKeys.from_json` reads: the port's own
+    `to_json()`, validated the same way."""
+    blob = keys.to_json()
+    _validated_key_json(blob)
+    return blob

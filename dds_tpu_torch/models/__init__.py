@@ -1,1 +1,2 @@
-"""Crypto models of the port: Paillier (PSSE) and the fold backends."""
+"""Crypto models of the port: the six schemes, their keys, the HE provider
+(`facade.HomoProvider`) and the fold/modexp backends."""

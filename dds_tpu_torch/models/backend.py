@@ -1,7 +1,7 @@
 """Ciphertext-arithmetic backends: `cpu` (python ints) and `cuda`.
 
-Port of `dds_tpu/models/backend.py`, trimmed to the fold surface the
-SumAll path uses. The proxy performs its ciphertext math through this
+Port of `dds_tpu/models/backend.py`, trimmed to the surface the ported
+paths use: the SumAll fold and the client's batched modexp. The proxy performs its ciphertext math through this
 interface using only PUBLIC parameters (Paillier n^2): every modulus
 handed to a backend lands in `ModCtx.make`'s process-wide cache, so
 secret moduli must never enter.
@@ -10,7 +10,11 @@ secret moduli must never enter.
 resident pool gathers the rows, and `ops/mont_cuda.reduce_mul` runs the
 halving tree of Montgomery-multiply launches plus one R^K fix. Folds
 narrower than `min_device_batch` stay on the host, where a few Python-int
-modmuls beat the launch latency of a tree of kernels.
+modmuls beat the launch latency of a tree of kernels. `powmod_batch` runs
+one shared-exponent ladder (`ops/mont_cuda.pow_mod`: the exp kernel
+between two multiply launches) over the whole batch; its caller decides
+when a batch is wide enough (`PaillierPublicKey.blind_batch`'s min_batch).
+The reference's mesh branch is not ported: one device only.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Protocol
 
 import torch
 
+from dds_tpu_torch.obs import kprof
 from dds_tpu_torch.ops import bignum as bn
 from dds_tpu_torch.ops import mont_cuda
 from dds_tpu_torch.ops.montgomery import ModCtx
@@ -43,6 +48,8 @@ class CryptoBackend(Protocol):
 
     def modmul_fold(self, cs: list[int], modulus: int) -> int: ...
 
+    def powmod_batch(self, bases: list[int], exp: int, modulus: int) -> list[int]: ...
+
 
 def _host_fold(cs: list[int], modulus: int) -> int:
     acc = 1
@@ -61,6 +68,9 @@ class CpuBackend:
 
     def modmul_fold(self, cs: list[int], modulus: int) -> int:
         return _host_fold(cs, modulus)
+
+    def powmod_batch(self, bases: list[int], exp: int, modulus: int) -> list[int]:
+        return [pow(b, exp, modulus) for b in bases]
 
 
 class CudaBackend:
@@ -129,6 +139,22 @@ class CudaBackend:
                              self.device)
         out = self.reduce_mul_device(ctx, batch)
         return bn.limbs_to_int(bn.to_host(out)[0])
+
+    def powmod_batch(self, bases: list[int], exp: int, modulus: int) -> list[int]:
+        """[b^exp mod modulus for b in bases] in one `mont_cuda.pow_mod`,
+        with `kernel.pow.{dispatch,execute}` spans. Bases are reduced mod
+        the modulus on the host first. The dispatch span includes the copy
+        to the device, which waits for work other threads queued earlier
+        on the stream."""
+        if not bases:
+            return []
+        ctx = ModCtx.make(modulus)
+        rows = bn.ints_to_batch([b % modulus for b in bases], ctx.L)
+        out = kprof.profiled(
+            "pow", lambda: mont_cuda.pow_mod(ctx, bn.to_device(rows, self.device), exp),
+            b=len(bases), e_bits=exp.bit_length(),
+        )
+        return bn.batch_to_ints(bn.to_host(out))
 
 
 _BACKENDS = {"cpu": CpuBackend, "cuda": CudaBackend}

@@ -1,15 +1,19 @@
 """Paillier additively homomorphic encryption (scheme tag "PSSE").
 
-Trimmed copy of `dds_tpu/models/paillier.py`: key generation, encryption
-(with an optional precomputed obfuscator), blinding and CRT decryption,
-all on Python ints with the built-in `pow`. The batched modexp paths
-(bulk encrypt, device decrypt) wait for the port's modexp kernel.
+Copy of `dds_tpu/models/paillier.py`: key generation, encryption (with an
+optional precomputed obfuscator), textbook bulk blinding through a
+backend's batched modexp (`blind_batch`, `encrypt_batch`), the DJN
+short-exponent blinding (`blind_fast`), and CRT decryption, on Python ints
+with the built-in `pow`. The Prism matrix routes and the Sanctum device
+decrypt are not ported: `decrypt_batch` is host-only and refuses any
+backend.
 
 Math (g = n + 1, so g^m = 1 + m*n mod n^2 needs no modexp):
 
     enc(m; r) = (1 + m*n) * r^n  mod n^2      r random in Z_n*
     dec(c)    = L(c^lambda mod n^2) * mu mod n,  L(x) = (x-1)/n
     add       = c1 * c2 mod n^2
+    scalar    = c^k mod n^2
 """
 
 from __future__ import annotations
@@ -19,42 +23,37 @@ import secrets
 from dataclasses import dataclass
 from math import gcd
 
-_SMALL_PRIMES = [
-    2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53, 59, 61, 67,
-    71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127, 131, 137, 139, 149,
-]
+# gated: only key GENERATION at >= 1024 bits rides cryptography's fast RSA
+# keygen; without the package the local prime generator takes over
+try:
+    from cryptography.hazmat.primitives.asymmetric import rsa
+except ModuleNotFoundError:  # pragma: no cover - env-dependent
+    rsa = None
+
+from dds_tpu_torch.models.primes import rsa_primes
+
+# rows per backend.powmod_batch call: bounds the (rows, L) limb batch and
+# the exp kernel's (16, W, rows) window table per launch
+POWMOD_CHUNK = 8192
 
 
-def _is_probable_prime(n: int, rounds: int = 40) -> bool:
-    if n < 2:
-        return False
-    for p in _SMALL_PRIMES:
-        if n % p == 0:
-            return n == p
-    d, r = n - 1, 0
-    while d % 2 == 0:
-        d //= 2
-        r += 1
-    for _ in range(rounds):
-        a = secrets.randbelow(n - 3) + 2
-        x = pow(a, d, n)
-        if x in (1, n - 1):
-            continue
-        for _ in range(r - 1):
-            x = x * x % n
-            if x == n - 1:
-                break
-        else:
-            return False
-    return True
+def _lcm(a: int, b: int) -> int:
+    return a // gcd(a, b) * b
 
 
-def _random_prime(bits: int) -> int:
-    """Random prime with exactly `bits` bits (top two bits set, odd)."""
-    while True:
-        cand = secrets.randbits(bits) | (1 << (bits - 1)) | (1 << (bits - 2)) | 1
-        if _is_probable_prime(cand):
-            return cand
+# n -> B0 = r0^n mod n^2 for blind_fast (PaillierPublicKey is frozen;
+# one fixed random base per key per process is exactly the DJN setup)
+_B0_CACHE: dict[int, int] = {}
+
+
+def _chunked_powmod(backend, bases: list[int], exp: int, mod: int) -> list[int]:
+    """backend.powmod_batch in POWMOD_CHUNK-row chunks. PUBLIC moduli only
+    (encrypt-side r^n): the backend caches per-modulus contexts
+    process-wide, so secret CRT moduli must never come here."""
+    out: list[int] = []
+    for i in range(0, len(bases), POWMOD_CHUNK):
+        out.extend(backend.powmod_batch(bases[i: i + POWMOD_CHUNK], exp, mod))
+    return out
 
 
 @dataclass(frozen=True)
@@ -67,9 +66,9 @@ class PaillierPublicKey:
 
     def encrypt(self, m: int, r: int | None = None, *, rn: int | None = None) -> int:
         """enc(m; r). `rn` short-circuits the obfuscator with a precomputed
-        r^n mod n^2 (`blind()`), so bulk loaders pay one modmul per
-        message; reusing one rn across messages weakens semantic security,
-        so real clients leave it None."""
+        r^n mod n^2 (`blind()`, `blind_batch()`), so bulk encryption pays
+        one modmul per message; reusing one rn across messages weakens
+        semantic security, so real clients never do."""
         n, n2 = self.n, self.nsquare
         m = m % n
         if rn is None:
@@ -83,6 +82,57 @@ class PaillierPublicKey:
         random r unless one is given)."""
         return pow(self.random_r() if r is None else r, self.n, self.nsquare)
 
+    def _djn_s_bits(self) -> int:
+        """Short-exponent width scaled to the modulus's NIST strength
+        estimate (1024->80, 2048->112, 3072->128, 4096->152, 7680->192,
+        15360->256 bits): s_bits = 4x strength, floor 320 — 448 at the
+        2048-bit default. 16 bits of slack: an imported 2047-bit modulus
+        must not drop a strength tier."""
+        bits = self.n.bit_length()
+        for thresh, strength in (
+            (15360, 256), (7680, 192), (4096, 152), (3072, 128),
+            (2048, 112), (0, 80),
+        ):
+            if bits >= thresh - 16:
+                return max(320, 4 * strength)
+        raise AssertionError("unreachable")
+
+    def blind_fast(self, s_bits: int | None = None) -> int:
+        """Fresh obfuscator via the Damgard-Jurik-Nielsen short-exponent
+        trick: B0 = r0^n mod n^2 once per key, then B0^s for a random
+        `s_bits`-wide s — (r0^s)^n, a valid r^n with r = r0^s, at the cost
+        of one s-width modexp instead of an n-width one."""
+        if s_bits is None:
+            s_bits = self._djn_s_bits()
+        b0 = _B0_CACHE.get(self.n)
+        if b0 is None:
+            b0 = pow(self.random_r(), self.n, self.nsquare)
+            _B0_CACHE[self.n] = b0
+        s = secrets.randbits(s_bits) | (1 << (s_bits - 1))
+        return pow(b0, s, self.nsquare)
+
+    def encrypt_fast(self, m: int) -> int:
+        """enc(m) with a blind_fast() obfuscator (DJN variant, see above)."""
+        return self.encrypt(m, rn=self.blind_fast())
+
+    def blind_batch(self, count: int, backend=None, min_batch: int = 64) -> list[int]:
+        """`count` fresh FULL-WIDTH obfuscators r^n mod n^2 — textbook
+        blinding, each with an independent random r. A shared n-bit
+        exponent over fresh random bases is exactly
+        `CryptoBackend.powmod_batch`'s contract (on `cuda`: the exp
+        kernel). Below `min_batch`, or with no backend, a host loop."""
+        rs = [self.random_r() for _ in range(count)]
+        if backend is not None and count >= min_batch:
+            return _chunked_powmod(backend, rs, self.n, self.nsquare)
+        n2 = self.nsquare
+        return [pow(r, self.n, n2) for r in rs]
+
+    def encrypt_batch(self, ms: list[int], backend=None, min_batch: int = 64) -> list[int]:
+        """Bulk enc(m; r) with per-message full-width obfuscators from
+        blind_batch (the textbook scheme, not DJN)."""
+        rns = self.blind_batch(len(ms), backend, min_batch)
+        return [self.encrypt(m, rn=rn) for m, rn in zip(ms, rns)]
+
     def random_r(self) -> int:
         n = self.n
         while True:
@@ -92,6 +142,9 @@ class PaillierPublicKey:
 
     def add(self, c1: int, c2: int) -> int:
         return c1 * c2 % self.nsquare
+
+    def scalar_mul(self, c: int, k: int) -> int:
+        return pow(c, k, self.nsquare)
 
 
 @dataclass(frozen=True)
@@ -112,12 +165,15 @@ class PaillierKey:
 
     @staticmethod
     def generate(bits: int = 2048) -> "PaillierKey":
-        half = bits // 2
-        p = _random_prime(half)
-        while True:
-            q = _random_prime(bits - half)
-            if q != p:
-                return PaillierKey(n=p * q, p=p, q=q)
+        if bits >= 1024 and rsa is not None:
+            # cryptography's RSA keygen produces two same-size primes fast;
+            # only p and q are used (it refuses sizes below 1024)
+            nums = rsa.generate_private_key(public_exponent=65537,
+                                            key_size=bits).private_numbers()
+            p, q = nums.p, nums.q
+        else:
+            p, q = rsa_primes(bits)
+        return PaillierKey(n=p * q, p=p, q=q)
 
     @functools.cached_property
     def _crt(self):
@@ -135,3 +191,30 @@ class PaillierKey:
         mp = (pow(c % (p * p), p - 1, p * p) - 1) // p * hp % p
         mq = (pow(c % (q * q), q - 1, q * q) - 1) // q * hq % q
         return (mq + q * ((mp - mq) * qinv % p)) % self.n
+
+    def decrypt_batch(self, cs: list[int], backend=None, min_batch: int = 64) -> list[int]:
+        """Bulk CRT decrypt, host-only. The reference routes the CRT legs
+        through its Sanctum secret plane when handed a device handle; that
+        plane is not ported, and a public-parameter backend must never see
+        the secret moduli p^2, q^2 (its context cache outlives the key), so
+        any backend raises."""
+        if backend is not None:
+            raise ValueError(
+                "decrypt_batch is host-only in dds_tpu_torch: the Sanctum "
+                "secret-material plane is not ported, and a public-parameter "
+                f"backend ({getattr(backend, 'name', type(backend).__name__)!r}) "
+                "must never see the CRT moduli p^2, q^2"
+            )
+        return [self.decrypt(c) for c in cs]
+
+    def to_signed(self, m: int) -> int:
+        """Map Z_n residues onto the signed range (-n/2, n/2]."""
+        return m if 2 * m <= self.n else m - self.n
+
+    def decrypt_signed(self, c: int) -> int:
+        """Decrypt, mapping the upper half of Z_n back to negative ints."""
+        return self.to_signed(self.decrypt(c))
+
+    @property
+    def lam(self) -> int:
+        return _lcm(self.p - 1, self.q - 1)

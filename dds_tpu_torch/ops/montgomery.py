@@ -6,14 +6,16 @@ so this package's Montgomery radix is R = 2^(32 W). For every even limb
 count L (every Paillier and RSA size here) that is R = 2^(16 L), the
 radix `dds_tpu` uses, and Montgomery-domain values agree bit for bit with
 the reference; for odd L the radix is one limb wider and only plain-domain
-results (`mul_mod`, `reduce_mul`) are comparable.
+results (`mul_mod`, `reduce_mul`, `pow_mod`) are comparable.
 
-The plain path below is the kernel's reference: the same CIOS Montgomery
+The plain path below is the kernels' reference: the same CIOS Montgomery
 product, computed with int64 PyTorch tensors on 16-bit limbs over the
 padded limb count 2W (so it uses the kernel's R), vectorized over the
-batch. Carry bound: limbs enter each step below 2^17; adding the lo/hi
-halves of a_i*b and m*n adds below 4*2^16; one carry pass per step
-restores limbs below 2^17 + 2^3. Every intermediate stays far below 2^63.
+batch, and the same 4-bit-window ladder over it (`mont_exp`, `pow_mod`).
+Carry bound: each of the Lp steps adds a_i*b + m*n, below 2^33, to a limb
+of the accumulator, so no limb passes Lp * 2^33 + 2^27 < 2^43 (Lp <= 512)
+before the final carry passes, and the m step's product stays below
+2^59 < 2^63.
 """
 
 from __future__ import annotations
@@ -28,12 +30,13 @@ import torch
 from dds_tpu_torch.ops.bignum import (
     LIMB_BITS,
     LIMB_MASK,
-    cond_sub,
     int_to_limbs,
     n_limbs_for_bits,
-    normalize,
     to_device,
 )
+
+WINDOW = 4  # modexp window size (16-entry table)
+DIGIT_MASK = (1 << WINDOW) - 1
 
 
 def _mont_mul_raw(a: torch.Tensor, b: torch.Tensor, N: torch.Tensor,
@@ -44,26 +47,79 @@ def _mont_mul_raw(a: torch.Tensor, b: torch.Tensor, N: torch.Tensor,
     n; n0inv = -n^-1 mod 2^16. Returns (B, Lp) int64 canonical (< n):
     a * b * R^-1 mod n with R = 2^(16 Lp)."""
     B, Lp = a.shape
-    t = torch.zeros((B, Lp + 1), dtype=torch.int64, device=a.device)
-    zero = torch.zeros((B, 1), dtype=torch.int64, device=a.device)
-    Nb = N[None, :]
+    # step i adds a_i*b + m_i*n at limb offset i of one (B, 2Lp + 1)
+    # accumulator, so nothing shifts; limb i is then 0 mod 2^16 and only
+    # its carry moves up
+    acc = torch.zeros((B, 2 * Lp + 1), dtype=torch.int64, device=a.device)
+    Nb, b0 = N[None, :], b[:, :1]
     for i in range(Lp):
-        p = a[:, i:i + 1] * b                      # (B, Lp) < 2^32
-        t[:, :Lp] += p & LIMB_MASK
-        t[:, 1:] += p >> LIMB_BITS
-        m = (t[:, :1] * n0inv) & LIMB_MASK         # (B, 1)
-        q = m * Nb
-        t[:, :Lp] += q & LIMB_MASK
-        t[:, 1:] += q >> LIMB_BITS
-        carry0 = t[:, :1] >> LIMB_BITS             # t[:, 0] = 0 mod 2^16
-        t = torch.cat([t[:, 1:], zero], dim=1)
-        t[:, :1] += carry0
-        c = t[:, :Lp] >> LIMB_BITS                 # one redundant-carry pass
-        t[:, :Lp] &= LIMB_MASK
+        ai = a[:, i:i + 1]
+        m = (torch.addcmul(acc[:, i:i + 1], ai, b0) * n0inv) & LIMB_MASK
+        w = acc[:, i:i + Lp]
+        w.addcmul_(ai, b)
+        w.addcmul_(m, Nb)
+        acc[:, i + 1:i + 2] += acc[:, i:i + 1] >> LIMB_BITS
+    t = _carry(acc[:, Lp:].clone())                # < 2n: the top limb holds it
+    return _sub_if_geq(t, torch.cat([N, N.new_zeros(1)]))[:, :Lp]
+
+
+def _carry(t: torch.Tensor) -> torch.Tensor:
+    """Canonical limbs of non-negative (B, K) limbs whose value fits in K
+    limbs, in place: whole-row carry passes until none is left (a few for
+    random data, at most K)."""
+    while True:
+        c = t[:, :-1] >> LIMB_BITS
+        if not bool(c.any()):
+            return t
+        t[:, :-1] &= LIMB_MASK
         t[:, 1:] += c
-    t, _ = normalize(t)                            # < 2n: the top limb holds it
-    N_ext = torch.cat([N, N.new_zeros(1)])
-    return cond_sub(t, N_ext)[:, :Lp]
+
+
+def _sub_if_geq(t: torch.Tensor, mod: torch.Tensor) -> torch.Tensor:
+    """t - mod where t >= mod else t, for canonical (B, K) t and (K,) mod:
+    whole-row borrow passes, the top limb's sign telling t < mod."""
+    d = t - mod[None, :]
+    while True:
+        borrow = (d[:, :-1] < 0).to(torch.int64)
+        if not bool(borrow.any()):
+            return torch.where(d[:, -1:] < 0, t, d)
+        d[:, :-1] += borrow << LIMB_BITS
+        d[:, 1:] -= borrow
+
+
+def _mont_exp_raw(base: torch.Tensor, digits, one_mont: torch.Tensor,
+                  N: torch.Tensor, n0inv: int) -> torch.Tensor:
+    """Shared-exponent 4-bit-window ladder on the plain CIOS product.
+
+    base: (B, Lp) int64 in the Montgomery domain; digits: MSB-first 4-bit
+    digits (ints, or a 1-D tensor/array of them); one_mont: (Lp,) R mod n.
+    Returns (B, Lp) int64 base^exp in the Montgomery domain. The table
+    holds base^0..base^15 (14 products), then each digit costs 4
+    squarings and 1 multiply by table[digit], starting from R mod n —
+    the product sequence the exp kernel runs."""
+    mul = lambda x, y: _mont_mul_raw(x, y, N, n0inv)
+    one = one_mont[None, :].expand_as(base)
+    table = [one, base]
+    for _ in range(2, 1 << WINDOW):
+        table.append(mul(table[-1], base))
+    digits = digits.tolist() if hasattr(digits, "tolist") else list(digits)
+    r = one
+    for d in digits:
+        for _ in range(WINDOW):
+            r = mul(r, r)
+        r = mul(r, table[int(d) & DIGIT_MASK])
+    return r
+
+
+def _exp_to_digits(exp: int) -> np.ndarray:
+    """Python int -> MSB-first 4-bit digit array (at least one digit)."""
+    if exp < 0:
+        raise ValueError("negative exponent")
+    ndig = max(1, -(-exp.bit_length() // WINDOW))
+    return np.array(
+        [(exp >> (WINDOW * i)) & DIGIT_MASK for i in range(ndig - 1, -1, -1)],
+        dtype=np.uint32,
+    )
 
 
 def _tree_reduce_raw(cs: torch.Tensor, N: torch.Tensor, n0inv: int) -> torch.Tensor:
@@ -223,6 +279,24 @@ class ModCtx:
     def mul_mod(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Plain-domain a * b mod n: one domain entry + one multiply."""
         return self.mont_mul(self.to_mont(a), b)
+
+    def mont_exp(self, base: torch.Tensor, digits) -> torch.Tensor:
+        """base^exp in the Montgomery domain for canonical Montgomery-domain
+        (B, L) `base` and MSB-first 4-bit `digits` (`_exp_to_digits`)."""
+        c = self.consts(base.device)
+        one = self._pad(c["one_mont"][None, :])[0]
+        out = _mont_exp_raw(self._pad(base), digits, one, c["N64"], self.n0inv)
+        return out[:, : self.L].to(torch.int32)
+
+    def pow_mod(self, base: torch.Tensor, exp: int) -> torch.Tensor:
+        """Plain-domain base^exp mod n for canonical (B, L) `base` and a
+        shared host-int exponent: domain entry, the ladder, domain exit."""
+        if exp == 0:
+            one = torch.zeros((base.shape[0], self.L), dtype=torch.int32,
+                              device=base.device)
+            one[:, 0] = 1
+            return one
+        return self.from_mont(self.mont_exp(self.to_mont(base), _exp_to_digits(exp)))
 
     def reduce_mul(self, cs: torch.Tensor) -> torch.Tensor:
         """Modular product of all K rows of cs ((K, L) plain domain, K >= 1)

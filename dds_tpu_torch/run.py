@@ -4,8 +4,11 @@ Trimmed copy of `dds_tpu/run.py`. `launch(cfg)` boots the topology the
 config describes — by default the north-star one of
 `benchmarks/bft_sum.py`: 4 BFT-ABD replicas, quorum 3 (f = 1), proactive
 recovery off, the in-memory transport, and the proxy on an OS-assigned
-port folding on the `cuda` backend. The supervisor, TCP transport, client
-workload and attack simulation wait for later slices.
+port folding on the `cuda` backend. `load_provider(cfg)` builds the
+client's HE provider from the `[client]` section: its keys and its bulk
+encryption backend (`bulk-encrypt-backend = "cuda"` precomputes PSSE
+obfuscators with the exp kernel). The supervisor, TCP transport, workload
+generator and attack simulation wait for later slices.
 
 Serve until interrupted (on a host without a card, pass --device cpu):
 
@@ -17,12 +20,17 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
+import pathlib
 from dataclasses import dataclass
 
 from dds_tpu_torch.core.quorum_client import AbdClient, AbdClientConfig
 from dds_tpu_torch.core.replica import BFTABDNode, ReplicaConfig
 from dds_tpu_torch.core.transport import InMemoryNet
 from dds_tpu_torch.http.server import DDSRestServer, ProxyConfig
+from dds_tpu_torch.models.backend import get_backend
+from dds_tpu_torch.models.facade import HomoProvider
+from dds_tpu_torch.models.keys import HEKeys
 from dds_tpu_torch.utils.config import DDSConfig
 
 SUPERVISOR_NAME = "supervisor"
@@ -93,6 +101,56 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
     )
     await server.start()
     return Deployment(cfg, net, replicas, server)
+
+
+def _secret_device(default: bool) -> bool:
+    """The reference's Sanctum device opt-in: DDS_SECRET_DEVICE when set,
+    else the `[crypto] secret-device` value; a malformed value raises."""
+    env = os.environ.get("DDS_SECRET_DEVICE", "").strip().lower()
+    if not env:
+        return bool(default)
+    if env in ("1", "true", "on", "yes"):
+        return True
+    if env in ("0", "false", "off", "no"):
+        return False
+    raise ValueError(f"unknown DDS_SECRET_DEVICE value {env!r} (use 1/true/on/yes "
+                     "or 0/false/off/no)")
+
+
+def _write_secret_file(path: pathlib.Path, content: str) -> None:
+    """Create a file born 0600 (O_EXCL): never world-readable, not even
+    for the instant before a chmod."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_EXCL, 0o600)
+    with os.fdopen(fd, "w") as f:
+        f.write(content)
+
+
+def load_provider(cfg: DDSConfig) -> HomoProvider:
+    """Client HE keys per config: inline blob > keys file > fresh
+    generation (saved to the file, 0600, when a path is configured) — a
+    restarted client can re-attach to an existing store and still decrypt
+    it. Then the bulk encryption backend, `cuda` on `[client] device`."""
+    if _secret_device(cfg.crypto.secret_device):
+        raise NotImplementedError(
+            "[crypto] secret-device: the Sanctum secret-material plane is not "
+            "ported to dds_tpu_torch; PSSE decryption is host-only"
+        )
+    c = cfg.client
+    path = pathlib.Path(c.he_keys_path) if c.he_keys_path else None
+    if c.he_keys_inline:
+        keys = HEKeys.from_json(c.he_keys_inline)
+    elif path is not None and path.exists():
+        keys = HEKeys.from_json(path.read_text())
+    else:
+        keys = HEKeys.generate(c.paillier_bits, c.rsa_bits)
+        if path is not None:
+            _write_secret_file(path, keys.to_json())
+    bulk = None
+    if c.bulk_encrypt_backend:
+        kwargs = {"device": c.device} if c.bulk_encrypt_backend == "cuda" else {}
+        bulk = get_backend(c.bulk_encrypt_backend, **kwargs)
+    return HomoProvider(keys, fast_blinding=c.fast_blinding, bulk_backend=bulk)
 
 
 def main(argv=None) -> None:

@@ -1,12 +1,14 @@
 """Typed configuration: one dataclass tree, loadable from TOML or JSON.
 
-Trimmed copy of `dds_tpu/utils/config.py`, holding the sections this
-slice's deployment reads. Its defaults ARE the north-star topology of
+Trimmed copy of `dds_tpu/utils/config.py`, holding the sections the
+ported paths read. Its defaults ARE the north-star topology of
 `benchmarks/bft_sum.py`: 4 BFT-ABD replicas with quorum 3 (f = 1), no
 sentinent spares, proactive recovery off, in-memory transport, the proxy
-on an OS-assigned port, folds on the `cuda` backend. The `resident`,
-`storage` and `search` planes are not ported yet: enabling one makes
-`run.launch` raise instead of silently serving without it.
+on an OS-assigned port, folds on the `cuda` backend. The `[client]`
+section configures the client's keys and its bulk-encryption backend
+(`run.load_provider`). The `resident`, `storage` and `search` planes and
+`[crypto] secret-device` are not ported yet: enabling one raises instead
+of silently serving without it.
 """
 
 from __future__ import annotations
@@ -60,6 +62,32 @@ class ProxySettings:
 
 
 @dataclass
+class ClientSettings:
+    paillier_bits: int = 2048
+    rsa_bits: int = 1024
+    # HE key persistence (client.conf:81-88): he_keys_inline is a full
+    # HEKeys JSON blob (wins over the path); he_keys_path is loaded when
+    # it exists, else fresh keys are generated and saved there (0600)
+    he_keys_path: str = ""
+    he_keys_inline: str = ""
+    # PSSE obfuscators: True = DJN short-exponent blinding, False =
+    # textbook full-width r^n
+    fast_blinding: bool = True
+    # backend whose batched modexp precomputes every full-width PSSE
+    # obfuscator of a digest: "cuda" | "cpu"; "" = the per-op host path
+    bulk_encrypt_backend: str = ""
+    # where the cuda bulk backend runs ("cpu" = its plain PyTorch path)
+    device: str = "cuda"
+
+
+@dataclass
+class CryptoSettings:
+    # the reference's Sanctum device opt-in for the decrypt CRT legs; not
+    # ported, so True makes run.load_provider raise
+    secret_device: bool = False
+
+
+@dataclass
 class PlaneSwitch:
     """A serving plane of the reference that this slice does not port."""
 
@@ -72,6 +100,8 @@ class DDSConfig:
     security: SecurityConfig = field(default_factory=SecurityConfig)
     recovery: RecoveryConfig = field(default_factory=RecoveryConfig)
     proxy: ProxySettings = field(default_factory=ProxySettings)
+    client: ClientSettings = field(default_factory=ClientSettings)
+    crypto: CryptoSettings = field(default_factory=CryptoSettings)
     resident: PlaneSwitch = field(default_factory=PlaneSwitch)
     storage: PlaneSwitch = field(default_factory=PlaneSwitch)
     search: PlaneSwitch = field(default_factory=PlaneSwitch)
@@ -112,6 +142,8 @@ _SUBSECTIONS = {
     ("DDSConfig", "security"): SecurityConfig,
     ("DDSConfig", "recovery"): RecoveryConfig,
     ("DDSConfig", "proxy"): ProxySettings,
+    ("DDSConfig", "client"): ClientSettings,
+    ("DDSConfig", "crypto"): CryptoSettings,
     ("DDSConfig", "resident"): PlaneSwitch,
     ("DDSConfig", "storage"): PlaneSwitch,
     ("DDSConfig", "search"): PlaneSwitch,

@@ -114,9 +114,13 @@ class Tracer:
             }
         return out
 
-    def reset(self) -> None:
+    def reset(self, max_events: int | None = None) -> None:
+        """Drop every span; `max_events` resizes the bound for a run that
+        must keep more."""
         with self._lock:
-            self._events.clear()
+            if max_events is not None:
+                self.max_events = max_events
+            self._events = collections.deque(maxlen=self.max_events)
 
 
 # process-wide default tracer (subsystems import this)

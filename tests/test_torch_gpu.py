@@ -1,4 +1,4 @@
-"""Card-only checks of the Hopper Montgomery-multiply kernel.
+"""Card-only checks of the Hopper Montgomery kernels (multiply and modexp).
 
 Marked `gpu`: on a host without a CUDA device every test here skips (the
 decision is made inside the `cuda` fixture, never at import, so every
@@ -6,8 +6,9 @@ pytest-xdist worker collects the same tests). On the card:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 
-Kernel against its plain PyTorch version on the same inputs on the card,
-and folds against Python-int products. Exact integer arithmetic:
+Kernels against their plain PyTorch versions on the same inputs on the
+card, folds against Python-int products, modexps against Python `pow`, and
+bulk Paillier blinding through the card. Exact integer arithmetic:
 tolerance zero.
 """
 
@@ -21,7 +22,7 @@ from dds_tpu_torch.bench_key import bench_paillier_key
 from dds_tpu_torch.models.backend import CpuBackend, CudaBackend
 from dds_tpu_torch.ops import bignum as bn
 from dds_tpu_torch.ops import mont_cuda
-from dds_tpu_torch.ops.montgomery import ModCtx
+from dds_tpu_torch.ops.montgomery import ModCtx, _exp_to_digits
 
 pytestmark = pytest.mark.gpu
 
@@ -101,3 +102,55 @@ def test_backend_on_card_matches_host_fold(cuda):
     assert be.modmul_fold_resident(cs, n2) == want
     assert be.modmul_fold(cs, n2) == want
     assert mont_cuda.launches.value - before == 3 * mont_cuda.fold_launches(300)
+
+
+def test_exp_kernel_matches_plain_at_paillier2048(cuda):
+    ctx = _n2_ctx()
+    base = ctx.to_mont(bn.to_device(_residues(ctx, 256, 20), cuda)).T.contiguous()
+    digits = torch.from_numpy(_exp_to_digits((1 << 63) + 987654321).astype(np.int32)).to(cuda)
+    before = mont_cuda.exp_launches.value
+    got = mont_cuda.exp(ctx, base, digits)
+    torch.cuda.synchronize()
+    assert mont_cuda.exp_launches.value == before + 1
+    assert torch.equal(got, ctx.mont_exp(base.T, digits).T)
+
+
+def test_full_width_pow_mod_matches_python_pow(cuda):
+    key = bench_paillier_key(2048)
+    ctx = ModCtx.make(key.nsquare)
+    rows = _residues(ctx, 1024, 21)
+    got = bn.to_host(mont_cuda.pow_mod(ctx, bn.to_device(rows, cuda), key.n))
+    ints = bn.batch_to_ints(rows)
+    for i in random.Random(22).sample(range(1024), 8):
+        assert bn.limbs_to_int(got[i]) == pow(ints[i], key.n, key.nsquare)
+
+
+@pytest.mark.parametrize("exp", [0, 1, 2, 65537])
+def test_pow_mod_edge_exponents_and_odd_limb_count(cuda, exp):
+    rng = random.Random(40 + exp)
+    n = rng.getrandbits(520) | (1 << 519) | 1
+    ctx = ModCtx.make(n)
+    assert ctx.L == 33
+    bases = [rng.randrange(n) for _ in range(5)] + [0, 1, n - 1]
+    got = mont_cuda.pow_mod(ctx, bn.to_device(bn.ints_to_batch(bases, ctx.L), cuda), exp)
+    assert bn.batch_to_ints(bn.to_host(got)) == [pow(b, exp, n) for b in bases]
+
+
+def test_backend_powmod_batch_on_card_matches_host(cuda):
+    key = bench_paillier_key(2048)
+    rng = random.Random(23)
+    bases = [rng.randrange(1, key.nsquare) for _ in range(40)] + [key.nsquare + 5]
+    be = CudaBackend()
+    before = mont_cuda.exp_launches.value
+    assert be.powmod_batch(bases, key.n, key.nsquare) == CpuBackend().powmod_batch(
+        bases, key.n, key.nsquare)
+    assert mont_cuda.exp_launches.value == before + 1
+
+
+def test_blind_batch_through_the_card_decrypts(cuda):
+    key = bench_paillier_key(2048)
+    pk = key.public
+    rns = pk.blind_batch(64, backend=CudaBackend(), min_batch=1)
+    assert len(set(rns)) == 64
+    ms = list(range(1000, 1064))
+    assert [key.decrypt(pk.encrypt(m, rn=rn)) for m, rn in zip(ms, rns)] == ms
