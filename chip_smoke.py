@@ -1,48 +1,70 @@
 #!/usr/bin/env python3
 """Chip smoke test of the dds_tpu_torch port on one NVIDIA GPU (H100).
 
-Drives the port's two paths — encrypted SumAll over Paillier-2048
-ciphertexts through 4 BFT-ABD replicas (quorum 3, f = 1), and the client's
-bulk encryption (full-width obfuscators r^n mod n^2 from the modexp kernel)
-feeding PutSets into that stack — and holds every CUDA kernel on them
-against its plain PyTorch version. Phases, each printing one JSON line;
-any failure exits non-zero:
+Drives the port's paths — encrypted SumAll over Paillier-2048 ciphertexts
+through 4 BFT-ABD replicas (quorum 3, f = 1) in each DDS_KARATSUBA product
+family, coalesced small SumAlls, and the client's bulk encryption
+(full-width obfuscators r^n mod n^2 from the modexp kernel) feeding
+PutSets into that stack — and holds every CUDA kernel on them against its
+plain PyTorch version. Phases, each printing one JSON line; any failure
+exits non-zero:
 
 1. device     the card, from torch and nvidia-smi (a CUDA device is required);
-2. build      nvcc for sm_90a of every kernel source, all started together,
-              with the ptxas register / spill / shared-memory report;
+2. build      nvcc for sm_90a of every kernel source (mont_mul, mont_exp,
+              mont_prod3, mont_kfused, mont_redc), all started together,
+              with each one's ptxas register / spill / shared-memory report;
 3. parity     the Montgomery-multiply kernel against its plain version on
               the card at L = 256, B = 4096 (bit-exact), on column slices,
               at an odd limb count, and a K = 65,536 fold against the
               Python-int product mod n^2;
-4. parity     (what = "exp") the modexp kernel against its plain ladder at
+4. parity     (what = "karatsuba") B4, B5 and the reduction against their
+              plain versions at L = 256, B = 4,096 (bit-exact); `mul` under
+              k1 and fused equal to mode 0; the K = 65,536 fold in each
+              mode against Python; at L = 33 and 36 the modes route to the
+              CIOS kernel (the B4 / B5 counters do not move);
+5. parity     (what = "nofinal") the no-finalize probe P against its plain
+              version at L = 256, B = 8,192 (bit-exact);
+6. parity     (what = "exp") the modexp kernel against its plain ladder at
               L = 256, B = 256 with a 64-bit exponent (bit-exact, Montgomery
               domain); a full-width pow_mod (exponent n, B = 8,192) against
               Python `pow` on 16 sampled rows; pow_mod at odd L = 33;
-5. timing     CUDA-event times of warmed folds at K = 65,536 and 8,192 and
+7. timing     CUDA-event times of warmed folds at K = 65,536 and 8,192 and
               of one B = 4,096 launch, each beside the plain version's time
               and the least time the card could take (the bound);
-6. timing     (what = "exp") the B = 8,192, E = 512 pow_mod and its exp
+8. timing     the K = 8,192 fold in each mode; one B = 4,096 launch of B4,
+              B5 and the reduction; `mul` and `mul_nofinal` at B = 8,192 and
+              the finalize share (mul - nofinal) / mul, as
+              benchmarks/profile_kernel.py prints it (P's own path: its
+              counter is zeroed before and read after);
+9. timing     (what = "exp") the B = 8,192, E = 512 pow_mod and its exp
               launch alone, beside the bound, the plain ladder on the same
               inputs (timed once, and bit-exact against the launch), and
               host Python `pow`;
-7. crossover  host Python-int fold vs resident device fold by width: the
+10. crossover host Python-int fold vs resident device fold by width: the
               backend's `min_device_batch`;
-8. e2e        boot the port's stack on `cuda` (min_device_batch = 0), load
+11. e2e       boot the port's stack on `cuda` (min_device_batch = 0), load
               K = 8,192 rows by PutSet, check SumAll decrypts to the total
               and equals the Python-int fold, time sequential and
-              concurrency-8 SumAll; launch counters are zeroed just before
-              and read just after, and every kernel of the path must have
-              launched;
-9. client     `run.load_provider` with `bulk-encrypt-backend = "cuda"`, then
+              concurrency-8 SumAll; then the same rounds under
+              DDS_KARATSUBA=1 and =2, every result the mode-0 ciphertext.
+              Launch counters are zeroed just before and read just after
+              each mode, which must launch its own fold kernels and no
+              others;
+12. coalesce  a fresh stack with K = 128 rows (below min_device_batch) and
+              the 2 ms window: 3 rounds of 16 concurrent SumAlls, each
+              decrypting to the total, at least one `fold_many` pass of 2 or
+              more folds launching mont_mul; then the burst with the window
+              off;
+13. client    `run.load_provider` with `bulk-encrypt-backend = "cuda"`, then
               4 `DDSHttpClient`s each PutSet 2,048 rows (K = 8,192 in all)
               into a fresh stack: one bulk pre-pass per client, every PSSE
               ciphertext with its own fresh obfuscator; SumAll must decrypt
               to the column's total and equal the Python-int fold of the
               stored ciphertexts; the exp kernel's counter is zeroed just
               before and read just after and must be > 0;
-10. kernels   one {"kernels": [...]} line; then the card's name and power
-              limit; then the result line.
+14. kernels   one {"kernels": [...]} line (every kernel must have launched
+              on its path); then the card's name and power limit; then the
+              result line.
 
     python3 chip_smoke.py              # on the card (needs one GPU)
     python3 chip_smoke.py --rehearse   # the same phases, tiny, on the CPU;
@@ -54,7 +76,9 @@ such IMADs per SM per clock (half its FP32 FMA rate, which gives the
 67 TFLOP/s float32 peak of NVIDIA's data sheet). The byte side counts each
 input row read once and the output written once, at 3.35 TB/s. A modexp
 row is 5E + 14 products in the exp kernel (the window table, then 4
-squarings and 1 multiply per digit) and 5E + 16 in pow_mod.
+squarings and 1 multiply per digit) and 5E + 16 in pow_mod. B4 and B5 are
+3 (W/2)^2 word products a column, the reduction W^2 + W, so a Karatsuba
+multiply is 28,800 against CIOS's 32,896 at W = 128.
 
 On a card without the `cryptography` package the AES-backed columns (CHE,
 None) run as the "Plain" null cipher in the client phase, the reference's
@@ -165,8 +189,9 @@ def phase_build(rehearse: bool) -> dict:
     t = time.perf_counter()
     started = [k.start_build() for k in mont_cuda.KERNELS]  # one nvcc each, at once
     logs = [k.finish_build(*s) for k, s in zip(mont_cuda.KERNELS, started)]
-    report = [ln.strip() for log in logs for ln in log.splitlines()
-              if "registers" in ln or "spill" in ln or "smem" in ln.lower()]
+    report = {source_path(k): [ln.strip() for ln in log.splitlines()
+                               if "registers" in ln or "spill" in ln or "smem" in ln.lower()]
+              for k, log in zip(mont_cuda.KERNELS, logs)}
     emit("build", seconds=round(time.perf_counter() - t, 3),
          sources=[source_path(k) for k in mont_cuda.KERNELS], ptxas=report)
     return {"ptxas": report}
@@ -207,7 +232,7 @@ def phase_parity(ctx, dev, sizes) -> dict:
     emit("parity", L=ctx.L, B=B, max_abs_err=err, tolerance=0, slices=True,
          odd_L=odd.L, fold_K=K, fold_equals_python_int=True,
          fold_first_call_s=round(fold_s, 3))
-    return {"max_abs_err": err}
+    return {"max_abs_err": err, "k_rows": (K, rows, want_fold)}
 
 
 def phase_timing(ctx, dev, sizes, card) -> dict:
@@ -339,6 +364,181 @@ def phase_timing_exp(ctx, dev, sizes, card) -> dict:
     return rec
 
 
+ODD_MODULI = {33: (1 << 519) | 0x1F3 | (12345 << 200),   # L = 33: odd
+              36: (1 << 575) | 0x2A5 | (6789 << 300)}    # L = 36: (L/2) % 8 != 0
+
+
+def karatsuba_operands(ctx, B: int, seed: int, dev):
+    """(a, b, the six B4 operands) at the fold's shape: the halves of two
+    limbs-major (L, B) residue batches and their normalized half sums."""
+    import torch
+    from dds_tpu_torch.ops import bignum as bn
+    from dds_tpu_torch.ops import karatsuba
+
+    a = bn.to_device(residues(ctx, B, seed), dev).T.contiguous()
+    b = bn.to_device(residues(ctx, B, seed + 1), dev).T.contiguous()
+    h = ctx.L // 2
+    sa, _ = karatsuba.carry_norm(a[:h].to(torch.int64) + a[h:])
+    sb, _ = karatsuba.carry_norm(b[:h].to(torch.int64) + b[h:])
+    return a, b, (a[:h], b[:h], a[h:], b[h:], sa.to(torch.int32), sb.to(torch.int32))
+
+
+def max_abs_diff(x, y) -> int:
+    return int((x.long() - y.long()).abs().max())
+
+
+def phase_parity_karatsuba(ctx, dev, sizes, k_rows) -> dict:
+    """B4, B5 and the reduction against their plain versions on the card
+    (bit-exact), `mul` in each Karatsuba mode against mode 0, a K-row fold
+    in each mode against the Python-int product, and the shape rule: at
+    L = 33 and 36 the modes route to the CIOS kernel."""
+    from dds_tpu_torch.ops import bignum as bn
+    from dds_tpu_torch.ops import mont_cuda, montgomery
+    from dds_tpu_torch.ops.montgomery import ModCtx
+
+    B = sizes["B"]
+    a, b, ops = karatsuba_operands(ctx, B, 40, dev)
+    errs = {
+        "mont_prod3": max_abs_diff(mont_cuda.prod3(*ops),
+                                   montgomery.prod3(*(x.T for x in ops)).T),
+        "mont_kfused": max_abs_diff(mont_cuda.prod_kf(a, b), montgomery.prod_kf(a.T, b.T).T),
+    }
+    T = montgomery.prod(a.T, b.T).T.contiguous()
+    errs["mont_redc"] = max_abs_diff(mont_cuda.redc(ctx, T), ctx.redc(T.T).T)
+    if any(errs.values()):
+        raise AssertionError(f"Karatsuba kernels != plain at L={ctx.L}, B={B}: {errs}")
+    cios = mont_cuda.mul(ctx, a, b, karatsuba=False)
+    for mode in ("k1", "fused"):
+        if max_abs_diff(mont_cuda.mul(ctx, a, b, karatsuba=mode), cios):
+            raise AssertionError(f"mul under {mode} != mul under mode 0")
+    K, rows, want = k_rows
+    folds_s = {}
+    for mode in (False, "k1", "fused"):
+        t = time.perf_counter()
+        got = mont_cuda.reduce_mul(ctx, bn.to_device(rows, dev), karatsuba=mode)
+        if bn.limbs_to_int(bn.to_host(got)[0]) != want:
+            raise AssertionError(f"K={K} fold under {mode or 'cios'} != Python-int product")
+        folds_s[mode or "cios"] = time.perf_counter() - t
+    routed = {}
+    for L, n in ODD_MODULI.items():
+        odd = ModCtx.make(n)
+        if odd.L != L:
+            raise AssertionError(f"modulus for L={L} has L={odd.L}")
+        oa = bn.to_device(residues(odd, 300, 41), dev).T.contiguous()
+        ob = bn.to_device(residues(odd, 300, 42), dev).T.contiguous()
+        ints = zip(bn.batch_to_ints(bn.to_host(oa.T)), bn.batch_to_ints(bn.to_host(ob.T)))
+        Rinv = pow(odd.R, -1, n)
+        want_odd = [x * y * Rinv % n for x, y in ints]
+        before = {k: mont_cuda.LAUNCHES[k].value for k in ("mont_prod3", "mont_kfused")}
+        for mode in ("k1", "fused"):
+            got = bn.batch_to_ints(bn.to_host(mont_cuda.mul(odd, oa, ob, karatsuba=mode).T))
+            if got != want_odd:
+                raise AssertionError(f"mul under {mode} at L={L} != Python")
+        sync(dev)
+        after = {k: mont_cuda.LAUNCHES[k].value for k in before}
+        if after != before:
+            raise AssertionError(f"L={L} took the Karatsuba route: {before} -> {after}")
+        routed[L] = "cios"
+    rec = {"L": ctx.L, "B": B, "max_abs_err": errs, "tolerance": 0,
+           "modes_equal_cios": True, "fold_K": K, "fold_equals_python_int": True,
+           "fold_first_call_s": folds_s, "shape_rule": routed}
+    emit("parity", what="karatsuba", **rec)
+    return rec
+
+
+def phase_parity_nofinal(ctx, dev, sizes) -> dict:
+    """P against its plain version at profile_kernel.main's shape."""
+    from dds_tpu_torch.ops import bignum as bn
+    from dds_tpu_torch.ops import mont_cuda
+
+    B = sizes["B_probe"]
+    a = bn.to_device(residues(ctx, B, 43), dev).T.contiguous()
+    b = bn.to_device(residues(ctx, B, 44), dev).T.contiguous()
+    err = max_abs_diff(mont_cuda.mul_nofinal(ctx, a, b), ctx.mont_mul_nofinal(a.T, b.T).T)
+    if err:
+        raise AssertionError(f"mont_mul_nofinal kernel != plain at L={ctx.L}, B={B}: {err}")
+    emit("parity", what="nofinal", L=ctx.L, B=B, max_abs_err=err, tolerance=0)
+    return {"max_abs_err": err}
+
+
+def word_products(ctx, kind: str) -> int:
+    """32-bit word multiply-adds per column: a CIOS product (also P's loop),
+    B4's three half products, B5 (the same three; its sums and
+    recombination are adds), the reduction."""
+    W, H = ctx.W, ctx.W // 2
+    return {"cios": 2 * W * W + W, "prod3": 3 * H * H, "kfused": 3 * H * H,
+            "redc": W * W + W}[kind]
+
+
+def phase_timing_karatsuba(ctx, dev, sizes, card) -> dict:
+    """CUDA-event times of the path-shaped fold in each mode, one launch of
+    B4, B5 and the reduction, and the finalize-share probe (mul against
+    mul_nofinal), each beside its bound and its plain version's time."""
+    from dds_tpu_torch.ops import bignum as bn
+    from dds_tpu_torch.ops import mont_cuda, montgomery
+
+    out = {"fold": {}}
+    K, reps = sizes["K_path"], sizes["reps_path"]
+    rows = bn.to_device(residues(ctx, K, 6 + K), dev)
+    P2 = 1 << max(1, (K - 1).bit_length())
+    for mode in (False, "k1", "fused"):
+        ms, _ = time_ms(lambda: mont_cuda.reduce_mul(ctx, rows, karatsuba=mode), reps, 2, dev)
+        per = (word_products(ctx, "cios") if not mode else
+               word_products(ctx, "prod3") + word_products(ctx, "redc"))
+        bms, by = bound_ms(P2 * per * 2, (K + 1) * ctx.L * 4, card["sms"], card["clock_mhz"])
+        name = mode or "cios"
+        out["fold"][name] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+        emit("timing", what="fold_mode", mode=name, K=K, ms=ms, bound_ms=bms, bound_by=by,
+             word_products_per_multiply=per, reps=reps)
+
+    B = sizes["B"]
+    a, b, ops = karatsuba_operands(ctx, B, 50, dev)
+    T = montgomery.prod(a.T, b.T).T.contiguous()
+    L, h = ctx.L, ctx.L // 2
+    launches = {
+        "mont_prod3": (lambda: mont_cuda.prod3(*ops),
+                       lambda: montgomery.prod3(*(x.T for x in ops)).T,
+                       "prod3", 12 * h * B * 4),
+        "mont_kfused": (lambda: mont_cuda.prod_kf(a, b),
+                        lambda: montgomery.prod_kf(a.T, b.T).T, "kfused", 4 * L * B * 4),
+        "mont_redc": (lambda: mont_cuda.redc(ctx, T), lambda: ctx.redc(T.T).T,
+                      "redc", 3 * L * B * 4),
+    }
+    for name, (kernel, plain, kind, nbytes) in launches.items():
+        ms, _ = time_ms(kernel, reps, 2, dev)
+        pms, _ = time_ms(plain, sizes["reps_plain"], 1, dev)
+        bms, by = bound_ms(B * word_products(ctx, kind) * 2, nbytes, card["sms"],
+                           card["clock_mhz"])
+        out[name] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by}
+        emit("timing", what=name, L=L, B=B, **out[name], bytes=nbytes)
+
+    # the finalize-share probe (profile_kernel.main): its own path, counted
+    Bp = sizes["B_probe"]
+    pa = bn.to_device(residues(ctx, Bp, 51), dev).T.contiguous()
+    pb = bn.to_device(residues(ctx, Bp, 52), dev).T.contiguous()
+    mont_cuda.nofinal_launches.reset()
+    mul_ms, _ = time_ms(lambda: mont_cuda.mul(ctx, pa, pb, karatsuba=False), reps, 2, dev)
+    nf_ms, _ = time_ms(lambda: mont_cuda.mul_nofinal(ctx, pa, pb), reps, 2, dev)
+    sync(dev)
+    probe_launches = mont_cuda.nofinal_launches.value
+    pms, _ = time_ms(lambda: ctx.mont_mul_nofinal(pa.T, pb.T), sizes["reps_plain"], 1, dev)
+    bms, by = bound_ms(Bp * word_products(ctx, "cios") * 2, 3 * L * Bp * 4, card["sms"],
+                       card["clock_mhz"])
+    out["mont_mul_nofinal"] = {"ms": nf_ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                               "launches": probe_launches}
+    emit("timing", what="finalize_share", L=L, B=Bp, mul_ms=mul_ms, nofinal_ms=nf_ms,
+         finalize_share=(mul_ms - nf_ms) / mul_ms, nofinal_plain_ms=pms, bound_ms=bms,
+         bound_by=by, nofinal_launches=probe_launches)
+    return out
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
 def phase_crossover(dev, n2, sizes) -> int:
     """Smallest width from which the resident device fold beats the host
     fold at every larger measured width."""
@@ -371,11 +571,77 @@ def phase_crossover(dev, n2, sizes) -> int:
     return cross
 
 
-async def phase_e2e(dev, sizes) -> dict:
-    import torch
-    from dds_tpu_torch.bench_key import bench_paillier_key
-    from dds_tpu_torch.http.miniserver import http_request
+def reset_counts() -> None:
     from dds_tpu_torch.ops import mont_cuda
+
+    for c in mont_cuda.LAUNCHES.values():
+        c.reset()
+
+
+def read_counts(dev) -> dict:
+    from dds_tpu_torch.ops import mont_cuda
+
+    sync(dev)
+    return {k: c.value for k, c in mont_cuda.LAUNCHES.items()}
+
+
+def paillier_rows(pk, K: int, seed: int) -> tuple[list, int]:
+    """K PutSet rows of bft_sum's shape, the PSSE column (position 2) the
+    encryptions of 1..K under seeded obfuscators; and the plaintext total."""
+    rng = np.random.default_rng(seed)
+    blinds = [pk.blind(int.from_bytes(rng.bytes(pk.n.bit_length() // 8 - 1), "little"))
+              for _ in range(min(64, K))]
+    rows = [[i, f"name-{i}", pk.encrypt(i + 1, rn=blinds[i % len(blinds)]),
+             2, "a", "b", "c", "blob"] for i in range(K)]
+    return rows, K * (K + 1) // 2
+
+
+async def put_rows(port: int, rows: list) -> float:
+    """PutSet every row (64 in flight); returns the seconds it took."""
+    from dds_tpu_torch.http.miniserver import http_request
+
+    sem = asyncio.Semaphore(64)
+
+    async def put(r):
+        async with sem:
+            return await http_request("127.0.0.1", port, "POST", "/PutSet",
+                                      json.dumps({"contents": r}).encode())
+
+    t = time.perf_counter()
+    statuses = await asyncio.gather(*(put(r) for r in rows))
+    if not all(s == 200 for s, _ in statuses):
+        raise AssertionError("PutSet failures during load")
+    return time.perf_counter() - t
+
+
+def sumall_fn(port: int, nsquare: int):
+    from dds_tpu_torch.http.miniserver import http_request
+
+    target = f"/SumAll?position={PSSE_POS}&nsqr={nsquare}"
+
+    async def sumall() -> int:
+        status, body = await http_request("127.0.0.1", port, "GET", target, timeout=300.0)
+        if status != 200:
+            raise AssertionError(f"SumAll failed: {status} {body[:200]!r}")
+        return int(json.loads(body)["result"])
+
+    return sumall
+
+
+# the kernels each DDS_KARATSUBA mode's SumAll must launch, and must not
+MODE_KERNELS = {"0": {"mont_mul"}, "1": {"mont_prod3", "mont_redc"},
+                "2": {"mont_kfused", "mont_redc"}}
+FOLD_KERNELS = ("mont_mul", "mont_prod3", "mont_kfused", "mont_redc")
+
+
+async def phase_e2e(dev, sizes) -> dict:
+    """The SumAll path at K rows: mode 0 (cold SumAll, then sequential and
+    concurrency-8 rounds), then the same rounds on the same stack under
+    DDS_KARATSUBA=1 and =2. Counts are zeroed before and read after each
+    mode; each mode must launch its own fold kernels and no others."""
+    import os
+
+    from dds_tpu_torch.bench_key import bench_paillier_key
     from dds_tpu_torch.run import launch
     from dds_tpu_torch.utils.config import DDSConfig
     from dds_tpu_torch.utils.trace import tracer
@@ -383,44 +649,23 @@ async def phase_e2e(dev, sizes) -> dict:
     key = bench_paillier_key(sizes["key_bits"])
     pk = key.public
     K = sizes["K_path"]
-    rng = np.random.default_rng(11)
     t = time.perf_counter()
-    blinds = [pk.blind(int.from_bytes(rng.bytes(pk.n.bit_length() // 8 - 1), "little"))
-              for _ in range(min(64, K))]
-    rows = [[i, f"name-{i}", pk.encrypt(i + 1, rn=blinds[i % len(blinds)]),
-             2, "a", "b", "c", "blob"] for i in range(K)]
-    total = K * (K + 1) // 2
+    rows, total = paillier_rows(pk, K, 11)
     gen_s = time.perf_counter() - t
 
     cfg = DDSConfig()
     cfg.proxy.device = dev.type
     cfg.proxy.min_device_batch = 0
-    mont_cuda.launches.reset()  # the main path's run starts here
+    saved = os.environ.get("DDS_KARATSUBA")
+    os.environ["DDS_KARATSUBA"] = "0"
+    reset_counts()  # the main path's run starts here
     tracer.reset()
     dep = await launch(cfg)
+    modes = {}
     try:
         port = dep.server.cfg.port
-        sem = asyncio.Semaphore(64)
-
-        async def put(r):
-            async with sem:
-                return await http_request("127.0.0.1", port, "POST", "/PutSet",
-                                          json.dumps({"contents": r}).encode())
-
-        t = time.perf_counter()
-        statuses = await asyncio.gather(*(put(r) for r in rows))
-        put_s = time.perf_counter() - t
-        if not all(s == 200 for s, _ in statuses):
-            raise AssertionError("PutSet failures during load")
-        target = f"/SumAll?position={PSSE_POS}&nsqr={pk.nsquare}"
-
-        async def sumall() -> int:
-            status, body = await http_request("127.0.0.1", port, "GET", target,
-                                              timeout=300.0)
-            if status != 200:
-                raise AssertionError(f"SumAll failed: {status} {body[:200]!r}")
-            return int(json.loads(body)["result"])
-
+        put_s = await put_rows(port, rows)
+        sumall = sumall_fn(port, pk.nsquare)
         t = time.perf_counter()
         result = await sumall()
         cold_s = time.perf_counter() - t
@@ -429,49 +674,146 @@ async def phase_e2e(dev, sizes) -> dict:
         if result != host_product([r[PSSE_POS] for r in rows], pk.nsquare):
             raise AssertionError("SumAll != Python-int fold of the ciphertexts")
 
-        tracer.reset()
-        seq = []
-        for _ in range(sizes["requests"]):
+        for mode in ("0", "1", "2"):
+            os.environ["DDS_KARATSUBA"] = mode
+            if mode != "0":
+                reset_counts()  # this mode's run starts here
+            tracer.reset()
+            seq = []
+            for _ in range(sizes["requests"]):
+                t = time.perf_counter()
+                if await sumall() != result:
+                    raise AssertionError(f"sequential SumAll changed (DDS_KARATSUBA={mode})")
+                seq.append(time.perf_counter() - t)
+            phases = {name: s["mean_ms"] for name, s in tracer.summary().items()
+                      if name in ("abd.read_tags", "abd.fetch", "proxy.fold",
+                                  "proxy.fetch_stored", "http.GET.SumAll",
+                                  "kernel.fold", "kernel.store.reduce.dispatch",
+                                  "kernel.store.reduce.execute")}
             t = time.perf_counter()
-            if await sumall() != result:
-                raise AssertionError("sequential SumAll changed")
-            seq.append(time.perf_counter() - t)
-        phases = {name: s["mean_ms"] for name, s in tracer.summary().items()
-                  if name in ("abd.read_tags", "abd.fetch", "proxy.fold",
-                              "proxy.fetch_stored", "http.GET.SumAll",
-                              "kernel.fold", "kernel.store.reduce.dispatch",
-                              "kernel.store.reduce.execute")}
-        t = time.perf_counter()
-        for _ in range(sizes["rounds"]):
-            got = await asyncio.gather(*(sumall() for _ in range(8)))
-            if any(g != result for g in got):
-                raise AssertionError("concurrent SumAll changed")
-        per_req = (time.perf_counter() - t) / (sizes["rounds"] * 8)
+            for _ in range(sizes["rounds"]):
+                got = await asyncio.gather(*(sumall() for _ in range(8)))
+                if any(g != result for g in got):
+                    raise AssertionError(f"concurrent SumAll changed (DDS_KARATSUBA={mode})")
+            per_req = (time.perf_counter() - t) / (sizes["rounds"] * 8)
+            counts = read_counts(dev)  # read just after this mode's run
+            if dev.type == "cuda":
+                ran = {k for k in FOLD_KERNELS if counts[k] > 0}
+                if ran != MODE_KERNELS[mode]:
+                    raise AssertionError(f"DDS_KARATSUBA={mode} launched {sorted(ran)}, "
+                                         f"expected {sorted(MODE_KERNELS[mode])}: {counts}")
+            sumalls = sizes["requests"] + 8 * sizes["rounds"] + (1 if mode == "0" else 0)
+            best = min(min(seq), per_req)
+            modes[mode] = {
+                "adds_per_sec": (K - 1) / best,
+                "sumall_ms_seq": min(seq) * 1e3,
+                "sumall_ms_seq_median": statistics.median(seq) * 1e3,
+                "sumall_ms_concurrent": per_req * 1e3,
+                "phase_mean_ms": phases,
+                "sumalls": sumalls,
+                "launches": {k: counts[k] for k in FOLD_KERNELS},
+                "same_ciphertext_as_mode_0": True,
+            }
     finally:
+        if saved is None:
+            os.environ.pop("DDS_KARATSUBA", None)
+        else:
+            os.environ["DDS_KARATSUBA"] = saved
         await dep.stop()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    launches = mont_cuda.launches.value  # read just after the main path
-    sumalls = 1 + sizes["requests"] + 8 * sizes["rounds"]
-    if dev.type == "cuda" and launches <= 0:
-        raise AssertionError("the main path never launched the mont_mul kernel")
-    best = min(min(seq), per_req)
+    m0 = modes["0"]
     rec = {
         "K": K, "key_bits": sizes["key_bits"], "replicas": 4, "quorum": 3,
-        "adds_per_sec": (K - 1) / best,
-        "sumall_ms_seq": min(seq) * 1e3,
-        "sumall_ms_seq_median": statistics.median(seq) * 1e3,
-        "sumall_ms_concurrent": per_req * 1e3,
+        "adds_per_sec": m0["adds_per_sec"],
+        "sumall_ms_seq": m0["sumall_ms_seq"],
+        "sumall_ms_seq_median": m0["sumall_ms_seq_median"],
+        "sumall_ms_concurrent": m0["sumall_ms_concurrent"],
         "sumall_ms_cold": cold_s * 1e3,
         "putset_ops_per_sec": K / put_s,
         "rows_gen_s": gen_s,
-        "phase_mean_ms": phases,
-        "sumalls": sumalls,
-        "launches": launches,
-        "launches_per_sumall": launches / sumalls,
+        "phase_mean_ms": m0["phase_mean_ms"],
+        "sumalls": m0["sumalls"],
+        "launches": m0["launches"]["mont_mul"],
+        "launches_per_sumall": m0["launches"]["mont_mul"] / m0["sumalls"],
         "decrypt_ok": True,
+        "karatsuba_modes": {m: modes[m] for m in ("1", "2")},
     }
     emit("e2e", **rec)
+    return rec
+
+
+async def phase_coalesce(dev, sizes) -> dict:
+    """The small-aggregate regime (BASELINE.md:107-114): a fresh stack
+    with K rows, below min_device_batch, and the reference's 2 ms
+    coalescing window. Rounds of concurrent SumAlls must each decrypt to
+    the total, and at least one `fold_many` pass must carry two or more
+    folds and launch mont_mul; then the same burst with the window off."""
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils.config import DDSConfig
+    from dds_tpu_torch.utils.trace import tracer
+
+    key = bench_paillier_key(sizes["key_bits"])
+    pk = key.public
+    K, C = sizes["K_coalesce"], sizes["coalesce_burst"]
+    rows, total = paillier_rows(pk, K, 12)
+    cfg = DDSConfig()
+    cfg.proxy.device = dev.type
+    cfg.proxy.min_device_batch = sizes["coalesce_min_batch"]  # None: the measured 256
+    dep = await launch(cfg)
+    try:
+        server = dep.server
+        window = server.cfg.coalesce_window
+        min_batch = server.backend.min_device_batch
+        if K >= min_batch:
+            raise AssertionError(f"K={K} is not below min_device_batch={min_batch}")
+        await put_rows(server.cfg.port, rows)
+        sumall = sumall_fn(server.cfg.port, pk.nsquare)
+        if key.decrypt(await sumall()) != total:  # cold: fills the tag cache
+            raise AssertionError("coalesce-phase SumAll does not decrypt to the total")
+
+        async def timed() -> tuple[int, float]:
+            t = time.perf_counter()
+            r = await sumall()
+            return r, time.perf_counter() - t
+
+        async def burst() -> list[float]:
+            got = await asyncio.gather(*(timed() for _ in range(C)))
+            for r, _ in got:
+                if key.decrypt(r) != total:
+                    raise AssertionError("coalesced SumAll does not decrypt to the total")
+            return [dt for _, dt in got]
+
+        reset_counts()  # the coalesced path's run starts here
+        tracer.reset()
+        lat = []
+        for _ in range(sizes["coalesce_rounds"]):
+            lat += await burst()
+        counts = read_counts(dev)
+        spans = tracer.summary()
+        groups = [e.meta["R"] for e in tracer.events("kernel.foldmany.execute")]
+        multi = [r for r in groups if r >= 2]
+        if not multi:
+            raise AssertionError(f"no fold_many pass carried 2 or more folds: {groups}")
+        if dev.type == "cuda" and counts["mont_mul"] <= 0:
+            raise AssertionError("the coalesced fold never launched mont_mul")
+        server.cfg.coalesce_window = 0.0
+        lat_off = await burst()
+    finally:
+        await dep.stop()
+    rec = {
+        "K": K, "min_device_batch": min_batch, "window_s": window, "burst": C,
+        "rounds": sizes["coalesce_rounds"], "decrypt_ok": True,
+        "fold_many_passes": len(groups), "folds_per_pass": groups,
+        "multi_fold_passes": len(multi), "mont_mul_launches": counts["mont_mul"],
+        "coalesce_wait_mean_ms": spans.get("proxy.coalesce_wait", {}).get("mean_ms"),
+        "coalesce_wait_count": spans.get("proxy.coalesce_wait", {}).get("count"),
+        "coalesced_fold_mean_ms": spans.get("proxy.coalesced_fold", {}).get("mean_ms"),
+        "request_ms_mean": statistics.mean(lat) * 1e3,
+        "request_ms_median": statistics.median(lat) * 1e3,
+        "window_off_request_ms_mean": statistics.mean(lat_off) * 1e3,
+        "window_off_request_ms_median": statistics.median(lat_off) * 1e3,
+    }
+    emit("coalesce", **rec)
     return rec
 
 
@@ -498,12 +840,10 @@ async def phase_client(dev, sizes) -> dict:
     PutSet digest (bulk pre-pass, then the PutSets) against 4 replicas."""
     import random
 
-    import torch
     from dds_tpu_torch.clt.client import ClientConfig, DDSHttpClient
     from dds_tpu_torch.http.miniserver import http_request
     from dds_tpu_torch.models._symmetric import aes_available
     from dds_tpu_torch.models.facade import DEFAULT_SCHEMA
-    from dds_tpu_torch.ops import mont_cuda
     from dds_tpu_torch.run import launch, load_provider
     from dds_tpu_torch.utils.config import DDSConfig
     from dds_tpu_torch.utils.trace import tracer
@@ -537,8 +877,7 @@ async def phase_client(dev, sizes) -> dict:
                           rng=random.Random(1000 + i))
             for i in range(C)
         ]
-        mont_cuda.exp_launches.reset()  # the client path's run starts here
-        mont_cuda.launches.reset()
+        reset_counts()  # the client path's run starts here
         tracer.reset(max_events=1 << 21)  # keep the pre-pass spans of the whole run
         t, t_wall = time.perf_counter(), time.time()
         reports = await asyncio.gather(*(c.execute(d) for c, d in zip(clients, digests)))
@@ -573,9 +912,8 @@ async def phase_client(dev, sizes) -> dict:
         total = sum(instr.set[PSSE_POS] for d in digests for instr in d.payload)
         if provider.keys.psse.decrypt(result) != total:
             raise AssertionError("client-phase SumAll does not decrypt to the total")
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        exp_count, mul_count = mont_cuda.exp_launches.value, mont_cuda.launches.value
+        counts = read_counts(dev)
+        exp_count, mul_count = counts["mont_exp"], counts["mont_mul"]
 
         sem = asyncio.Semaphore(64)
 
@@ -625,7 +963,8 @@ def main(argv=None) -> int:
         sizes = dict(key_bits=512, B=64, K_big=512, K_path=256, reps_big=1,
                      reps_path=2, reps_plain=1, crossover=[8, 32], requests=2,
                      rounds=1, B_exp_small=8, B_exp=16, reps_exp=1, rsa_bits=512,
-                     clients=2, ops_per_client=64)
+                     clients=2, ops_per_client=64, B_probe=64, K_coalesce=16,
+                     coalesce_burst=16, coalesce_rounds=2, coalesce_min_batch=32)
         card = {"name": "cpu (rehearsal)", "sms": 132, "clock_mhz": 1980.0}
     else:
         if not torch.cuda.is_available():
@@ -636,7 +975,9 @@ def main(argv=None) -> int:
                      reps_path=20, reps_plain=2,
                      crossover=[8, 16, 32, 64, 128, 256, 512, 1024],
                      requests=6, rounds=3, B_exp_small=256, B_exp=8192, reps_exp=2,
-                     rsa_bits=1024, clients=4, ops_per_client=2048)
+                     rsa_bits=1024, clients=4, ops_per_client=2048, B_probe=8192,
+                     K_coalesce=128, coalesce_burst=16, coalesce_rounds=3,
+                     coalesce_min_batch=None)
         props = torch.cuda.get_device_properties(0)
         card = {
             "name": torch.cuda.get_device_name(0),
@@ -649,17 +990,20 @@ def main(argv=None) -> int:
     emit("device", **card, torch=torch.__version__, cuda=torch.version.cuda)
 
     from dds_tpu_torch.bench_key import bench_paillier_key
-    from dds_tpu_torch.ops import mont_cuda
     from dds_tpu_torch.ops.montgomery import ModCtx
 
     ctx = ModCtx.make(bench_paillier_key(sizes["key_bits"]).nsquare)
     phase_build(args.rehearse)
     par = phase_parity(ctx, dev, sizes)
+    par_k = phase_parity_karatsuba(ctx, dev, sizes, par["k_rows"])
+    par_nf = phase_parity_nofinal(ctx, dev, sizes)
     par_exp = phase_parity_exp(ctx, dev, sizes)
     tim = phase_timing(ctx, dev, sizes, card)
+    tim_k = phase_timing_karatsuba(ctx, dev, sizes, card)
     tim_exp = phase_timing_exp(ctx, dev, sizes, card)
     phase_crossover(dev, ctx.n, sizes)
     e2e = asyncio.run(phase_e2e(dev, sizes))
+    asyncio.run(phase_coalesce(dev, sizes))
     client = asyncio.run(phase_client(dev, sizes))
 
     path = tim["path"]
@@ -693,6 +1037,34 @@ def main(argv=None) -> int:
         "bound_by": tim_exp["exp_bound_by"],
         "library_ms": None,
     }]
+    k1, kf = e2e["karatsuba_modes"]["1"]["launches"], e2e["karatsuba_modes"]["2"]["launches"]
+    for name, replaces, twin, launches, err, per in (
+        ("mont_prod3", "dds_tpu/ops/mont_mxu.py:151",
+         "mont_mxu._make_prod3_kernel via _prod3_call (DDS_KARATSUBA=1)",
+         k1["mont_prod3"], par_k["max_abs_err"]["mont_prod3"], f"one launch, B={sizes['B']}"),
+        ("mont_kfused", "dds_tpu/ops/mont_mxu.py:218",
+         "mont_mxu._make_kfused_kernel via _kfused_call (DDS_KARATSUBA=2)",
+         kf["mont_kfused"], par_k["max_abs_err"]["mont_kfused"], f"one launch, B={sizes['B']}"),
+        ("mont_redc", "dds_tpu/ops/mont_mxu.py:543",
+         "mont_mxu._redc (XLA, not a Pallas kernel): the reduction of modes 1 and 2",
+         k1["mont_redc"] + kf["mont_redc"], par_k["max_abs_err"]["mont_redc"],
+         f"one launch, B={sizes['B']}"),
+        ("mont_mul_nofinal", "benchmarks/profile_kernel.py:33",
+         "profile_kernel.make_nofinal_mul (the finalize-share probe)",
+         tim_k["mont_mul_nofinal"]["launches"], par_nf["max_abs_err"],
+         f"one launch, B={sizes['B_probe']}"),
+    ):
+        t = tim_k[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"dds_tpu_torch/csrc/"
+            f"{'mont_mul' if name == 'mont_mul_nofinal' else name}.cu",
+            "replaces": replaces, "tpu_twin": twin, "launches": launches,
+            "max_abs_err": err, "per": per, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+        })
+    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if dev.type == "cuda" and missing:
+        raise AssertionError(f"kernels never launched on their paths: {missing}")
     print(json.dumps({"kernels": kernels}), flush=True)
     if args.rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result", file=sys.stderr)

@@ -24,7 +24,8 @@
 // version keeps in registers or shared memory.
 //
 // The result is canonical (< n): CIOS keeps t < 2n, and one conditional
-// subtract of n finishes it.
+// subtract of n finishes it. A second entry point, dds_mont_mul_nofinal,
+// instantiates the same kernel without that subtraction (kFinalize).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -34,6 +35,11 @@ namespace {
 constexpr int kMaxWords = 256;  // moduli up to 8192 bits (Paillier-4096 n^2)
 constexpr int kThreads = 128;
 
+// kFinalize = false is the probe of benchmarks/profile_kernel.py::
+// make_nofinal_mul (:33-61), which runs pallas_mont._cios_loop without
+// _finalize to measure the finalize's share of a multiply: the same loop,
+// then t mod R (t < 2n) written out as it stands, no subtraction.
+template <bool kFinalize>
 __global__ void __launch_bounds__(kThreads)
 mont_mul_kernel(const int32_t* __restrict__ a, long long sa,
                 const int32_t* __restrict__ b, long long sb,
@@ -86,6 +92,16 @@ mont_mul_kernel(const int32_t* __restrict__ a, long long sa,
     t[W] = t[W + 1] + static_cast<uint32_t>(s >> 32);
   }
 
+  if constexpr (!kFinalize) {
+    for (int j = 0; j < W; ++j) {
+      out[(2LL * j) * so + col] = static_cast<int32_t>(t[j] & 0xFFFFu);
+      if (2 * j + 1 < L) {
+        out[(2LL * j + 1) * so + col] = static_cast<int32_t>(t[j] >> 16);
+      }
+    }
+    return;
+  }
+
   // t < 2n: subtract n once when t >= n
   uint32_t borrow = 0;
   for (int j = 0; j < W; ++j) {
@@ -108,6 +124,21 @@ mont_mul_kernel(const int32_t* __restrict__ a, long long sa,
   }
 }
 
+template <bool kFinalize>
+int launch(const int32_t* a, long long sa, const int32_t* b, long long sb,
+           int32_t* out, long long so, const uint32_t* n, unsigned int n0inv,
+           int L, int B, void* stream) {
+  const int W = (L + 1) / 2;
+  if (L < 1 || W > kMaxWords || B < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int grid = (B + kThreads - 1) / kThreads;
+  mont_mul_kernel<kFinalize>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          a, sa, b, sb, out, so, n, n0inv, L, W, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
@@ -118,12 +149,15 @@ extern "C" int dds_mont_mul(const int32_t* a, long long sa,
                             int32_t* out, long long so,
                             const uint32_t* n, unsigned int n0inv,
                             int L, int B, void* stream) {
-  const int W = (L + 1) / 2;
-  if (L < 1 || W > kMaxWords || B < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int grid = (B + kThreads - 1) / kThreads;
-  mont_mul_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, sa, b, sb, out, so, n, n0inv, L, W, B);
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(a, sa, b, sb, out, so, n, n0inv, L, B, stream);
+}
+
+// The same loop without the final subtraction: out = the low L limbs of
+// t = (a*b + m*n) / R < 2n, not reduced below n.
+extern "C" int dds_mont_mul_nofinal(const int32_t* a, long long sa,
+                                    const int32_t* b, long long sb,
+                                    int32_t* out, long long so,
+                                    const uint32_t* n, unsigned int n0inv,
+                                    int L, int B, void* stream) {
+  return launch<false>(a, sa, b, sb, out, so, n, n0inv, L, B, stream);
 }

@@ -10,6 +10,12 @@ reference's parameters, JSON shapes and status codes:
   mod n^2, folded on the configured backend (the `cuda` backend runs the
   Hopper Montgomery-multiply kernel).
 
+Concurrent SumAlls whose folds each sit below the backend's
+`min_device_batch` coalesce: they wait `coalesce_window` seconds and share
+one `modmul_fold_many` pass on the device (`_fold`, the reference's
+coalescer at `dds_tpu/http/server.py:2605-2723`; its adaptive window comes
+with admission control, not yet ported).
+
 Every other route answers 404. The aggregate path keeps the reference's
 tag-validated cache and audit exactly: ONE batched tag-only quorum round
 validates every cached record per aggregate, a random sample of
@@ -26,6 +32,7 @@ import asyncio
 import contextvars
 import logging
 import random
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -42,6 +49,7 @@ from dds_tpu_torch.utils.retry import (
     RetryPolicy,
     retry_deadline,
 )
+from dds_tpu_torch.utils.tasks import supervised_task
 from dds_tpu_torch.utils.trace import tracer
 from dds_tpu_torch.utils.trust import NoTrustedNodesError
 
@@ -81,6 +89,13 @@ class ProxyConfig:
     # non-corroborated mismatch flushes the cache (bounds how long a
     # Byzantine coordinator's forged value can persist)
     aggregate_cache_audit: int = 2
+    # cross-request fold coalescing: concurrent SumAll folds that each sit
+    # below the backend's device-batch crossover are gathered for this many
+    # seconds and dispatched as ONE segmented device fold (ops/foldmany),
+    # paying the launch latency once for all of them. A group of one takes
+    # the plain host path, so the window only costs latency when there is
+    # something to gain. 0 disables.
+    coalesce_window: float = 0.002
     # reference planes not ported yet: True refuses to start
     resident: bool = False
     storage: bool = False
@@ -92,6 +107,15 @@ def _make_backend(cfg: ProxyConfig) -> CryptoBackend:
         return get_backend("cuda", device=cfg.device,
                            min_device_batch=cfg.min_device_batch)
     return get_backend(cfg.crypto_backend)
+
+
+async def _cancel_task(task: asyncio.Task) -> None:
+    """Cancel a background task and swallow its CancelledError."""
+    task.cancel()
+    try:
+        await task
+    except asyncio.CancelledError:
+        pass
 
 
 class DDSRestServer:
@@ -118,6 +142,11 @@ class DDSRestServer:
         self._agg_memo: tuple | None = None
         self._pairs_memo: tuple | None = None
         self._operand_memo: tuple | None = None
+        # modulus -> [(enqueue_t, operands, future, waiter trace ctx)];
+        # drained by _drain_folds
+        self._fold_pending: dict[int, list] = {}
+        self._fold_drainer: asyncio.Task | None = None
+        self._folds_inflight = 0  # folds currently executing (any path)
         self._http = HttpServer(self.cfg.host, self.cfg.port, self.handle,
                                 handler_timeout=self.cfg.handler_timeout)
 
@@ -127,6 +156,17 @@ class DDSRestServer:
 
     async def stop(self) -> None:
         await self._http.stop()
+        if self._fold_drainer is not None and not self._fold_drainer.done():
+            # resolve queued folds before teardown so no request future is
+            # orphaned and no task outlives the server
+            await _cancel_task(self._fold_drainer)
+            err = ConnectionError("proxy stopping")
+            for group in self._fold_pending.values():
+                for _, _, fut, _ in group:
+                    if not fut.done():
+                        fut.set_exception(err)
+            self._fold_pending.clear()
+            self._fold_drainer = None
 
     # ----------------------------------------------------------- ABD access
 
@@ -415,13 +455,108 @@ class DDSRestServer:
             result = sum(operands)
         return Response.json(J.value_result(str(result)))
 
+    def _backend_fold_fn(self):
+        """The backend's single-aggregate fold entry point (the
+        device-store-aware variant when the backend has one)."""
+        return getattr(self.backend, "modmul_fold_resident", self.backend.modmul_fold)
+
     async def _fold(self, operands: list[int], modulus: int) -> int:
-        """Run one aggregate's fold on a worker thread, so concurrent
-        aggregates overlap their device work and the event loop keeps
-        serving."""
-        fold = getattr(self.backend, "modmul_fold_resident",
-                       self.backend.modmul_fold)
-        return await asyncio.to_thread(fold, operands, modulus)
+        """Dispatch one aggregate's fold: wide folds go straight to the
+        backend on a worker thread, so concurrent aggregates overlap their
+        device work and the event loop keeps serving; small folds (below
+        the device-batch crossover, where launch latency beats the math)
+        enter the coalescing window so CONCURRENT small aggregates share
+        one segmented device pass (ProxyConfig.coalesce_window).
+
+        A small fold only enters the window when other folds are already
+        executing or queued: observed concurrency is the signal there is
+        something to coalesce with, so a lone request pays no extra
+        latency."""
+        be = self.backend
+        min_batch = getattr(be, "min_device_batch", 0)
+        concurrent = self._folds_inflight > 0 or bool(self._fold_pending)
+        if (
+            self.cfg.coalesce_window <= 0
+            or not hasattr(be, "modmul_fold_many")
+            or len(operands) >= min_batch
+            or not concurrent
+        ):
+            self._folds_inflight += 1
+            try:
+                return await asyncio.to_thread(self._backend_fold_fn(), operands, modulus)
+            finally:
+                self._folds_inflight -= 1
+        fut = asyncio.get_running_loop().create_future()
+        # carry the waiter's trace context and enqueue time into the drain:
+        # the dispatcher runs under the DRAINER task's context, so the
+        # per-waiter coalesce-wait / fold spans are re-homed explicitly
+        self._fold_pending.setdefault(modulus, []).append(
+            (time.perf_counter(), operands, fut, obs_context.current())
+        )
+        if self._fold_drainer is None or self._fold_drainer.done():
+            self._fold_drainer = supervised_task(self._drain_folds(),
+                                                 name="proxy.fold_drainer")
+        return await fut
+
+    async def _drain_folds(self) -> None:
+        await asyncio.sleep(self.cfg.coalesce_window)
+        while self._fold_pending:
+            # snapshot ALL pending groups and dispatch them concurrently:
+            # different moduli overlap their dispatches, and draining one at
+            # a time would let a continuously re-queued modulus starve others
+            groups = list(self._fold_pending.items())
+            self._fold_pending.clear()
+            await asyncio.gather(*(self._dispatch_fold_group(m, g) for m, g in groups))
+
+    async def _dispatch_fold_group(self, modulus: int, group: list) -> None:
+        folds = [ops_ for _, ops_, _, _ in group]
+        futs = [f for _, _, f, _ in group]
+        t_start = time.perf_counter()
+        for t_enq, ops_, _, wctx in group:
+            # each waiter's time in the window, in ITS OWN trace
+            tracer.record(
+                "proxy.coalesce_wait", (t_start - t_enq) * 1e3,
+                _ctx=obs_context.child(wctx) if wctx is not None else None,
+                batch=len(group), k=len(ops_),
+            )
+        self._folds_inflight += 1
+        try:
+            total = sum(len(f) for f in folds)
+            if len(folds) == 1 or total < getattr(self.backend, "min_device_batch", 0):
+                # a lone fold, or a group whose COMBINED width is still
+                # below the device crossover: host folds win there, one
+                # worker thread each, as without the window
+                fold = self._backend_fold_fn()
+                results = await asyncio.gather(
+                    *(asyncio.to_thread(fold, f, modulus) for f in folds)
+                )
+            else:
+                results = await asyncio.to_thread(
+                    self.backend.modmul_fold_many, folds, modulus
+                )
+            t_done = time.perf_counter()
+            for _, ops_, _, wctx in group:
+                # the shared dispatch, visible from every waiter's trace
+                tracer.record(
+                    "proxy.coalesced_fold", (t_done - t_start) * 1e3,
+                    _ctx=obs_context.child(wctx) if wctx is not None else None,
+                    batch=len(group), k=len(ops_),
+                )
+            for f, r in zip(futs, results):
+                if not f.cancelled():
+                    f.set_result(r)
+        except Exception as e:  # surface to every waiting request
+            for f in futs:
+                if not f.cancelled():
+                    f.set_exception(e)
+        finally:
+            self._folds_inflight -= 1
+            # a cancellation (stop() mid-dispatch) must not orphan the
+            # group: its futures are no longer in _fold_pending, so stop()'s
+            # sweep cannot see them — fail them here
+            for f in futs:
+                if not f.done():
+                    f.set_exception(ConnectionError("proxy stopping"))
 
     @staticmethod
     def _pos(req: Request) -> int:

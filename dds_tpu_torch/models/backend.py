@@ -8,9 +8,12 @@ secret moduli must never enter.
 
 `CudaBackend` folds K-term aggregates on the device: the content-addressed
 resident pool gathers the rows, and `ops/mont_cuda.reduce_mul` runs the
-halving tree of Montgomery-multiply launches plus one R^K fix. Folds
-narrower than `min_device_batch` stay on the host, where a few Python-int
-modmuls beat the launch latency of a tree of kernels. `powmod_batch` runs
+halving tree of Montgomery multiplies plus one R^K fix, in the product
+family DDS_KARATSUBA selects (`fold_kernel`; validated at construction).
+Folds narrower than `min_device_batch` stay on the host, where a few
+Python-int modmuls beat the launch latency of a tree of kernels;
+`modmul_fold_many` folds several such requests in one tree
+(`ops/foldmany`), for the proxy's coalescer. `powmod_batch` runs
 one shared-exponent ladder (`ops/mont_cuda.pow_mod`: the exp kernel
 between two multiply launches) over the whole batch; its caller decides
 when a batch is wide enough (`PaillierPublicKey.blind_batch`'s min_batch).
@@ -26,7 +29,7 @@ import torch
 
 from dds_tpu_torch.obs import kprof
 from dds_tpu_torch.ops import bignum as bn
-from dds_tpu_torch.ops import mont_cuda
+from dds_tpu_torch.ops import flags, foldmany, mont_cuda
 from dds_tpu_torch.ops.montgomery import ModCtx
 
 # Host/device crossover for Paillier-2048 folds (modulus n^2, 4096 bits):
@@ -59,7 +62,9 @@ def _host_fold(cs: list[int], modulus: int) -> int:
 
 
 class CpuBackend:
-    """Python-int reference backend (the CPU baseline)."""
+    """Python-int reference backend (the CPU baseline). It has no
+    `modmul_fold_many`, as in the reference, so its proxy never
+    coalesces."""
 
     name = "cpu"
 
@@ -92,6 +97,8 @@ class CudaBackend:
             )
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"CudaBackend runs on cuda or cpu, not {self.device}")
+        # a bogus DDS_KARATSUBA fails here, not inside the first fold
+        flags.karatsuba_mode()
         self.min_device_batch = (
             MIN_DEVICE_BATCH if min_device_batch is None else min_device_batch
         )
@@ -126,6 +133,11 @@ class CudaBackend:
         # one multiply: a device round-trip can never win
         return c1 * c2 % modulus
 
+    def fold_kernel(self) -> str:
+        """The Montgomery-multiply family folds run on now: "cios" (the
+        default), "k1" or "fused" — DDS_KARATSUBA, read at every fold."""
+        return flags.karatsuba_mode() or "cios"
+
     def reduce_mul_device(self, ctx: ModCtx, batch: torch.Tensor) -> torch.Tensor:
         """Modular product over a (K, L) limb batch already on the device:
         the one fold entry point shared by the store and modmul_fold."""
@@ -139,6 +151,12 @@ class CudaBackend:
                              self.device)
         out = self.reduce_mul_device(ctx, batch)
         return bn.limbs_to_int(bn.to_host(out)[0])
+
+    def modmul_fold_many(self, folds: list[list[int]], modulus: int) -> list[int]:
+        """Fold R requests' operand lists in one device pass
+        (`ops/foldmany.fold_many`): the cross-request batching for
+        concurrent small aggregates that each sit below min_device_batch."""
+        return foldmany.fold_many(folds, modulus, device=self.device)
 
     def powmod_batch(self, bases: list[int], exp: int, modulus: int) -> list[int]:
         """[b^exp mod modulus for b in bases] in one `mont_cuda.pow_mod`,

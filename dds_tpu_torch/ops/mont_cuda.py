@@ -1,25 +1,36 @@
 """The Hopper Montgomery kernels: build, bind, launch; fold and modexp.
 
-`mul(ctx, a, b)` is the port of `dds_tpu/ops/mont_mxu.py::mul2_lm` (the
-Pallas product `_make_prod_kernel` + its XLA reduction `_redc`) and of
-`dds_tpu/ops/pallas_mont.py::mul_lm` (the fused CIOS `_make_mul_kernel`):
-a * b * R^-1 mod n on limbs-major (L, B) int32 arrays of 16-bit limbs,
-canonical in and out. `reduce_mul(ctx, rows)` is the port of
-`mont_mxu.reduce_mul2`: a halving tree of `mul` launches over the rows
-padded to a power of two with R mod n, then one multiply by R^K mod n.
+`mul(ctx, a, b, karatsuba)` is the port of `dds_tpu/ops/mont_mxu.py::
+mul2_lm` and of `dds_tpu/ops/pallas_mont.py::mul_lm`: a * b * R^-1 mod n on
+limbs-major (L, B) int32 arrays of 16-bit limbs, canonical in and out, by
+the family DDS_KARATSUBA selects (`flags.karatsuba_mode`):
+- 0: the fused CIOS kernel (B1, which also serves B2);
+- 1 / k1: `karatsuba.prod_k1` (B4 between PyTorch ops), then `redc`;
+- 2 / fused: `karatsuba.prod_kf` (B5), then `redc`.
+`reduce_mul(ctx, rows)` is the port of `mont_mxu.reduce_mul2`: a halving
+tree of `mul` over the rows padded to a power of two with R mod n, then
+one multiply by R^K mod n, every level in the family read once per fold.
+`mul_nofinal` is the CIOS kernel without its final subtraction, the probe
+P of `benchmarks/profile_kernel.py::make_nofinal_mul`.
 
 `exp(ctx, base_mont, digits)` is the port of `pallas_mont.exp_lm` (the
-Pallas window ladder `_make_exp_kernel`): base^exp in the Montgomery
+Pallas window ladder `_make_exp_kernel`, B3): base^exp in the Montgomery
 domain for a shared exponent given as MSB-first 4-bit digits. `pow_mod(ctx,
 bases, exp)` has `pallas_mont.pow_mod`'s (and `mont_mxu.pow_mod2`'s)
 contract: domain entry with `mul` by R^2, the ladder, exit with `mul` by 1.
 
-On a CUDA tensor each wrapper launches its kernel — `csrc/mont_mul.cu` or
-`csrc/mont_exp.cu`, each built with nvcc for sm_90a at first use and bound
-with ctypes — or raises; on a CPU tensor it runs the plain PyTorch version
-of `ops/montgomery.py`. Nothing falls back from one to the other. Each
-launch adds one to its kernel's counter: `launches` (mont_mul) or
-`exp_launches` (mont_exp).
+Five sources under `csrc/`, each built with nvcc for sm_90a at first use
+and bound with ctypes (`KernelLib`, one lock per source):
+- `mont_mul.cu`: `dds_mont_mul` (B1) and `dds_mont_mul_nofinal` (P);
+- `mont_exp.cu` (B3);
+- `mont_prod3.cu` (B4);
+- `mont_kfused.cu` (B5);
+- `mont_redc.cu`: the reduction after B4 and B5 (`mont_mxu._redc`, which
+  is XLA code in the reference, not a Pallas kernel).
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs the plain PyTorch version of `ops/montgomery.py`. Nothing
+falls back from one to the other. Each launch adds one to its kernel's
+counter (`LAUNCHES`).
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import numpy as np
 import torch
 
 from dds_tpu_torch.obs import kprof
+from dds_tpu_torch.ops import flags, montgomery
 from dds_tpu_torch.ops.montgomery import ModCtx, _exp_to_digits
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -66,8 +78,18 @@ class LaunchCount:
         return self._n
 
 
-launches = LaunchCount()      # mont_mul.cu
-exp_launches = LaunchCount()  # mont_exp.cu
+launches = LaunchCount()          # mont_mul.cu, dds_mont_mul (B1)
+exp_launches = LaunchCount()      # mont_exp.cu (B3)
+prod3_launches = LaunchCount()    # mont_prod3.cu (B4)
+kfused_launches = LaunchCount()   # mont_kfused.cu (B5)
+redc_launches = LaunchCount()     # mont_redc.cu (the reduction of B4 and B5)
+nofinal_launches = LaunchCount()  # mont_mul.cu, dds_mont_mul_nofinal (P)
+# every kernel's counter by the name chip_smoke.py reports it under
+LAUNCHES = {
+    "mont_mul": launches, "mont_exp": exp_launches, "mont_prod3": prod3_launches,
+    "mont_kfused": kfused_launches, "mont_redc": redc_launches,
+    "mont_mul_nofinal": nofinal_launches,
+}
 
 
 def nvcc() -> str:
@@ -84,16 +106,15 @@ def nvcc() -> str:
 
 class KernelLib:
     """One `csrc/` source: its nvcc build into `csrc/build/` (once per
-    process, under the source's lock) and its ctypes binding. `symbol` is
-    the C entry point and `argtypes` its signature."""
+    process, under the source's lock) and its ctypes bindings. `symbols`
+    maps each C entry point to its signature; the first is the default."""
 
-    def __init__(self, source: str, symbol: str, argtypes: list):
+    def __init__(self, source: str, symbols: dict[str, list]):
         self.source = CSRC / source
-        self.symbol = symbol
-        self.argtypes = argtypes
+        self.symbols = symbols
         self.build_log = ""  # nvcc/ptxas output of this process's build
         self._lock = threading.Lock()
-        self._fn = None
+        self._fns: dict = {}
 
     def library_path(self) -> Path:
         """Where the build lands: keyed by a hash of the source and flags,
@@ -129,30 +150,38 @@ class KernelLib:
         kprof.note_build()
         return out
 
-    def function(self):
-        """The bound C entry point, building the library on first use."""
+    def function(self, symbol: str | None = None):
+        """A bound C entry point (the first of `symbols` by default),
+        building and loading the library on first use."""
+        symbol = symbol or next(iter(self.symbols))
         with self._lock:
-            if self._fn is None:
+            if not self._fns:
                 path, tmp, proc = self.start_build()
                 self.finish_build(path, tmp, proc)
-                fn = getattr(ctypes.CDLL(str(path)), self.symbol)
-                fn.argtypes = self.argtypes
-                fn.restype = ctypes.c_int
-                self._fn = fn
-            return self._fn
+                lib = ctypes.CDLL(str(path))
+                for name, argtypes in self.symbols.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    self._fns[name] = fn
+            return self._fns[symbol]
 
 
 _p, _ll, _i, _u = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
-MUL = KernelLib("mont_mul.cu", "dds_mont_mul",
-                [_p, _ll, _p, _ll, _p, _ll, _p, _u, _i, _i, _p])
-EXP = KernelLib("mont_exp.cu", "dds_mont_exp",
-                [_p, _ll, _p, _ll, _p, _p, _i, _p, _p, _u, _i, _i, _p])
-KERNELS = (MUL, EXP)
+_MUL_ARGS = [_p, _ll, _p, _ll, _p, _ll, _p, _u, _i, _i, _p]
+MUL = KernelLib("mont_mul.cu", {"dds_mont_mul": _MUL_ARGS,
+                                "dds_mont_mul_nofinal": _MUL_ARGS})
+EXP = KernelLib("mont_exp.cu", {"dds_mont_exp":
+                                [_p, _ll, _p, _ll, _p, _p, _i, _p, _p, _u, _i, _i, _p]})
+PROD3 = KernelLib("mont_prod3.cu", {"dds_mont_prod3": [_p, _ll] * 7 + [_i, _i, _p]})
+KFUSED = KernelLib("mont_kfused.cu", {"dds_mont_kfused": [_p, _ll] * 3 + [_i, _i, _p]})
+REDC = KernelLib("mont_redc.cu", {"dds_mont_redc": [_p, _ll, _p, _ll, _p, _u, _i, _i, _p]})
+KERNELS = (MUL, EXP, PROD3, KFUSED, REDC)
 
 
-def _check_operand(ctx: ModCtx, name: str, x: torch.Tensor) -> None:
-    if x.dim() != 2 or x.shape[0] != ctx.L:
-        raise ValueError(f"{name} must be limbs-major (L={ctx.L}, B), got {tuple(x.shape)}")
+def _check_operand(name: str, x: torch.Tensor, rows: int) -> None:
+    if x.dim() != 2 or x.shape[0] != rows:
+        raise ValueError(f"{name} must be limbs-major ({rows}, B), got {tuple(x.shape)}")
     if x.dtype != torch.int32:
         raise TypeError(f"{name} must be int32 limbs, got {x.dtype}")
     if x.shape[1] > 1 and x.stride(1) != 1:
@@ -163,54 +192,147 @@ def _check_operand(ctx: ModCtx, name: str, x: torch.Tensor) -> None:
         raise ValueError(f"the Montgomery kernels run on cuda or cpu, not {x.device}")
 
 
-def _check(ctx: ModCtx, a: torch.Tensor, b: torch.Tensor) -> None:
-    for name, x in (("a", a), ("b", b)):
-        _check_operand(ctx, name, x)
-    if a.shape != b.shape:
-        raise ValueError(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
-    if a.device != b.device:
-        raise ValueError(f"device mismatch {a.device} vs {b.device}")
+def _check(rows: int, **operands: torch.Tensor) -> torch.Tensor:
+    """Validate same-shape, same-device operands; returns the first."""
+    first = next(iter(operands.values()))
+    for name, x in operands.items():
+        _check_operand(name, x, rows)
+        if x.shape != first.shape:
+            raise ValueError(f"shape mismatch {tuple(first.shape)} vs {tuple(x.shape)}")
+        if x.device != first.device:
+            raise ValueError(f"device mismatch {first.device} vs {x.device}")
+    return first
 
 
-def mul(ctx: ModCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _launch(lib: KernelLib, symbol: str, counter: LaunchCount, device,
+            *args, what: str) -> None:
+    """Call a kernel's C entry point on the current stream of `device`,
+    raise on a refused launch, and count it."""
+    fn = lib.function(symbol)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError {rc} ({what})")
+    counter.bump()
+
+
+def _mul_cios(ctx: ModCtx, a: torch.Tensor, b: torch.Tensor, final: bool) -> torch.Tensor:
+    if a.device.type == "cpu":
+        plain = ctx.mont_mul if final else ctx.mont_mul_nofinal
+        return plain(a.T, b.T).T.contiguous()
+    L, B = a.shape
+    out = torch.empty((L, B), dtype=torch.int32, device=a.device)
+    symbol, counter = (("dds_mont_mul", launches) if final
+                       else ("dds_mont_mul_nofinal", nofinal_launches))
+    _launch(MUL, symbol, counter, a.device,
+            a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+            out.data_ptr(), out.stride(0), ctx.consts(a.device)["N32"].data_ptr(),
+            ctx.n0inv32, L, B, what=f"L={L}, B={B}")
+    return out
+
+
+def mul(ctx: ModCtx, a: torch.Tensor, b: torch.Tensor,
+        karatsuba: str | bool | None = None) -> torch.Tensor:
     """Montgomery product a * b * R^-1 mod n, limbs-major (L, B) int32,
     canonical (< n) in and out. `a` and `b` may be column-slices of a
     wider array (row stride > B): a fold level passes its two halves as
-    views. Returns a new contiguous (L, B) tensor."""
-    _check(ctx, a, b)
+    views. Returns a new contiguous (L, B) tensor.
+
+    `karatsuba` picks the product family, `mont_mxu.mul2_lm`'s contract:
+    None reads DDS_KARATSUBA (`flags.karatsuba_mode`); False runs the CIOS
+    kernel; "k1" is `karatsuba.prod_k1` then `redc`, "fused" is
+    `karatsuba.prod_kf` then `redc` — at limb counts the Karatsuba shape
+    rule admits (`karatsuba.fits`), the CIOS kernel at every other."""
+    _check(ctx.L, a=a, b=b)
+    mode = flags.karatsuba_mode() if karatsuba is None else karatsuba
+    if mode:
+        from dds_tpu_torch.ops import karatsuba as kara
+
+        if kara.fits(ctx.L):
+            T = kara.prod_kf(a, b) if mode == "fused" else kara.prod_k1(a, b)
+            return redc(ctx, T)
+    return _mul_cios(ctx, a, b, final=True)
+
+
+def mul_nofinal(ctx: ModCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The CIOS product without its final subtraction (the probe P of
+    `benchmarks/profile_kernel.py::make_nofinal_mul`): the low L limbs of
+    t = (a*b + m*n) / R < 2n, limbs-major (L, B) int32, for canonical
+    operands as `mul` takes them. `mul` is this, or this minus n."""
+    _check(ctx.L, a=a, b=b)
+    return _mul_cios(ctx, a, b, final=False)
+
+
+def prod3(a0, b0, a1, b1, sa, sb) -> torch.Tensor:
+    """The three half products of one Karatsuba level in one launch (B4):
+    six canonical limbs-major (h, B) int32 operands (row slices allowed)
+    -> (6h, B) int32 canonical blocks [a0*b0 | a1*b1 | sa*sb]."""
+    h = a0.shape[0] if a0.dim() == 2 else -1
+    ops = dict(a0=a0, b0=b0, a1=a1, b1=b1, sa=sa, sb=sb)
+    first = _check(h, **ops)
+    if first.device.type == "cpu":
+        return montgomery.prod3(*(x.T for x in ops.values())).T.contiguous()
+    B = first.shape[1]
+    out = torch.empty((6 * h, B), dtype=torch.int32, device=first.device)
+    args = [v for x in ops.values() for v in (x.data_ptr(), x.stride(0))]
+    _launch(PROD3, "dds_mont_prod3", prod3_launches, first.device,
+            *args, out.data_ptr(), out.stride(0), h, B, what=f"h={h}, B={B}")
+    return out
+
+
+def prod_kf(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b by one Karatsuba level in one launch (B5): canonical
+    limbs-major (L, B) int32, L a multiple of 4 -> (2L, B) canonical."""
+    L = a.shape[0] if a.dim() == 2 else -1
+    _check(L, a=a, b=b)
+    if L % 4:
+        raise ValueError(f"prod_kf needs L a multiple of 4, got L={L}")
     if a.device.type == "cpu":
-        return ctx.mont_mul(a.T, b.T).T.contiguous()
-    fn = MUL.function()
-    L, B = a.shape
-    out = torch.empty((L, B), dtype=torch.int32, device=a.device)
-    words = ctx.consts(a.device)["N32"]
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(
+        return montgomery.prod_kf(a.T, b.T).T.contiguous()
+    B = a.shape[1]
+    out = torch.empty((2 * L, B), dtype=torch.int32, device=a.device)
+    _launch(KFUSED, "dds_mont_kfused", kfused_launches, a.device,
             a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
-            out.data_ptr(), out.stride(0), words.data_ptr(), ctx.n0inv32,
-            L, B, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"mont_mul launch failed: cudaError {rc} (L={L}, B={B})")
-    launches.bump()
+            out.data_ptr(), out.stride(0), L, B, what=f"L={L}, B={B}")
+    return out
+
+
+def redc(ctx: ModCtx, T: torch.Tensor) -> torch.Tensor:
+    """Montgomery reduction T * R^-1 mod n of a canonical limbs-major
+    (2L, B) int32 product T < n*R: (L, B) int32 canonical (`mont_redc.cu`,
+    the port of `mont_mxu._redc`)."""
+    _check(2 * ctx.L, T=T)
+    if T.device.type == "cpu":
+        return ctx.redc(T.T).T.contiguous()
+    B = T.shape[1]
+    out = torch.empty((ctx.L, B), dtype=torch.int32, device=T.device)
+    _launch(REDC, "dds_mont_redc", redc_launches, T.device,
+            T.data_ptr(), T.stride(0), out.data_ptr(), out.stride(0),
+            ctx.consts(T.device)["N32"].data_ptr(), ctx.n0inv32, ctx.L, B,
+            what=f"L={ctx.L}, B={B}")
     return out
 
 
 def fold_launches(K: int) -> int:
-    """Kernel launches of one K-row fold: log2(P2) tree levels + the fix."""
+    """Multiplies of one K-row fold: log2(P2) tree levels + the fix. Each
+    is one mont_mul launch, or two (a product and `redc`) in a Karatsuba
+    mode."""
     return max(1, (K - 1).bit_length()) + 1
 
 
-def reduce_mul(ctx: ModCtx, rows: torch.Tensor) -> torch.Tensor:
+def reduce_mul(ctx: ModCtx, rows: torch.Tensor,
+               karatsuba: str | bool | None = None) -> torch.Tensor:
     """Modular product of all K rows ((K, L) plain domain, K >= 1) as
     (1, L) int32 — `mont_mxu.reduce_mul2`'s contract. Pads K to
     P2 = 2^ceil(log2 K) (at least 2) rows with R mod n, transposes to
     limbs-major, halves the width with one `mul` per level, then
-    multiplies once by R^K mod n."""
+    multiplies once by R^K mod n. The product family is read once
+    (`karatsuba`, None = DDS_KARATSUBA) and passed to every level, so one
+    fold never mixes families."""
     K, L = rows.shape
     if K < 1 or L != ctx.L:
         raise ValueError(f"reduce_mul needs (K >= 1, L={ctx.L}) rows, got {tuple(rows.shape)}")
+    mode = flags.karatsuba_mode() if karatsuba is None else karatsuba
     P2 = 1 << max(1, (K - 1).bit_length())
     x = torch.empty((L, P2), dtype=torch.int32, device=rows.device)
     x[:, :K] = rows.T
@@ -218,9 +340,9 @@ def reduce_mul(ctx: ModCtx, rows: torch.Tensor) -> torch.Tensor:
     w = P2
     while w > 1:
         h = w // 2
-        x = mul(ctx, x[:, :h], x[:, h: 2 * h])
+        x = mul(ctx, x[:, :h], x[:, h: 2 * h], mode)
         w = h
-    x = mul(ctx, x, ctx.fold_fix(K, rows.device))
+    x = mul(ctx, x, ctx.fold_fix(K, rows.device), mode)
     return x.T.contiguous()
 
 
@@ -229,7 +351,7 @@ def exp(ctx: ModCtx, base_mont: torch.Tensor, digits: torch.Tensor) -> torch.Ten
     `base_mont`: limbs-major (L, B) int32, canonical, Montgomery domain;
     `digits`: (E,) int32 MSB-first 4-bit digits (`_exp_to_digits`) on the
     same device, each taken mod 16. Returns a new contiguous (L, B)."""
-    _check_operand(ctx, "base", base_mont)
+    _check(ctx.L, base=base_mont)
     if digits.dim() != 1 or digits.shape[0] < 1 or digits.dtype != torch.int32:
         raise ValueError(f"digits must be a non-empty (E,) int32 tensor, got "
                          f"{tuple(digits.shape)} {digits.dtype}")
@@ -237,32 +359,29 @@ def exp(ctx: ModCtx, base_mont: torch.Tensor, digits: torch.Tensor) -> torch.Ten
         raise ValueError(f"device mismatch {base_mont.device} vs {digits.device}")
     if base_mont.device.type == "cpu":
         return ctx.mont_exp(base_mont.T, digits).T.contiguous()
-    fn = EXP.function()
     L, B = base_mont.shape
     digits = digits.contiguous()
     out = torch.empty((L, B), dtype=torch.int32, device=base_mont.device)
     table = torch.empty((16, ctx.W, B), dtype=torch.int32, device=base_mont.device)
     c = ctx.consts(base_mont.device)
-    with torch.cuda.device(base_mont.device):
-        stream = torch.cuda.current_stream(base_mont.device).cuda_stream
-        rc = fn(
+    _launch(EXP, "dds_mont_exp", exp_launches, base_mont.device,
             base_mont.data_ptr(), base_mont.stride(0), out.data_ptr(), out.stride(0),
             table.data_ptr(), digits.data_ptr(), digits.shape[0],
-            c["N32"].data_ptr(), c["one_mont"].data_ptr(), ctx.n0inv32, L, B, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"mont_exp launch failed: cudaError {rc} "
-                           f"(L={L}, B={B}, E={digits.shape[0]})")
-    exp_launches.bump()
+            c["N32"].data_ptr(), c["one_mont"].data_ptr(), ctx.n0inv32, L, B,
+            what=f"L={L}, B={B}, E={digits.shape[0]}")
     return out
 
 
-def pow_mod(ctx: ModCtx, bases: torch.Tensor, exponent: int) -> torch.Tensor:
+def pow_mod(ctx: ModCtx, bases: torch.Tensor, exponent: int,
+            karatsuba: str | bool | None = None) -> torch.Tensor:
     """Plain-domain bases^exp mod n for canonical batch-major (B, L)
     `bases` and a shared host-int exponent — `pallas_mont.pow_mod`'s
     contract, (B, L) int32 out. exp = 0 gives ones without a launch;
     otherwise `mul` by R^2 (materialised (L, B): the kernels take no
-    broadcast column), the `exp` ladder, and `mul` by 1."""
+    broadcast column), the `exp` ladder, and `mul` by 1. The two domain
+    multiplies take the product family (`karatsuba`, read once, None =
+    DDS_KARATSUBA); the ladder is the exp kernel's CIOS in every family,
+    which gives the same values."""
     B, L = bases.shape
     if L != ctx.L or B < 1:
         raise ValueError(f"pow_mod needs (B >= 1, L={ctx.L}) bases, got {tuple(bases.shape)}")
@@ -271,11 +390,12 @@ def pow_mod(ctx: ModCtx, bases: torch.Tensor, exponent: int) -> torch.Tensor:
         one = torch.zeros((B, L), dtype=torch.int32, device=dev)
         one[:, 0] = 1
         return one
+    mode = flags.karatsuba_mode() if karatsuba is None else karatsuba
     digits = torch.from_numpy(_exp_to_digits(exponent).astype(np.int32)).to(dev)
     x = bases.T.contiguous()
     r2 = torch.from_numpy(ctx.R2.astype(np.int32)).to(dev)[:, None].expand(L, B).contiguous()
-    xm = mul(ctx, x, r2)
+    xm = mul(ctx, x, r2, mode)
     r = exp(ctx, xm, digits)
     one = torch.zeros((L, B), dtype=torch.int32, device=dev)
     one[0] = 1
-    return mul(ctx, r, one).T.contiguous()
+    return mul(ctx, r, one, mode).T.contiguous()

@@ -12,6 +12,10 @@ The plain path below is the kernels' reference: the same CIOS Montgomery
 product, computed with int64 PyTorch tensors on 16-bit limbs over the
 padded limb count 2W (so it uses the kernel's R), vectorized over the
 batch, and the same 4-bit-window ladder over it (`mont_exp`, `pow_mod`).
+The Karatsuba family's plain versions sit beside it: the full product
+`prod`, the three half products `prod3`, one Karatsuba level `prod_kf`,
+the reduction `ModCtx.redc`, and the CIOS product without its final
+subtraction `ModCtx.mont_mul_nofinal`.
 Carry bound: each of the Lp steps adds a_i*b + m*n, below 2^33, to a limb
 of the accumulator, so no limb passes Lp * 2^33 + 2^27 < 2^43 (Lp <= 512)
 before the final carry passes, and the m step's product stays below
@@ -40,12 +44,15 @@ DIGIT_MASK = (1 << WINDOW) - 1
 
 
 def _mont_mul_raw(a: torch.Tensor, b: torch.Tensor, N: torch.Tensor,
-                  n0inv: int) -> torch.Tensor:
+                  n0inv: int, finalize: bool = True) -> torch.Tensor:
     """CIOS Montgomery product on 16-bit limbs.
 
     a, b: (B, Lp) int64 canonical with a*b < n*R; N: (Lp,) int64 limbs of
     n; n0inv = -n^-1 mod 2^16. Returns (B, Lp) int64 canonical (< n):
-    a * b * R^-1 mod n with R = 2^(16 Lp)."""
+    a * b * R^-1 mod n with R = 2^(16 Lp). With `finalize` False the
+    final subtraction is skipped and the result is t mod R, where
+    t = (a*b + m*n) / R < 2n is the loop's accumulator (the probe of
+    `benchmarks/profile_kernel.py::make_nofinal_mul`)."""
     B, Lp = a.shape
     # step i adds a_i*b + m_i*n at limb offset i of one (B, 2Lp + 1)
     # accumulator, so nothing shifts; limb i is then 0 mod 2^16 and only
@@ -60,7 +67,82 @@ def _mont_mul_raw(a: torch.Tensor, b: torch.Tensor, N: torch.Tensor,
         w.addcmul_(m, Nb)
         acc[:, i + 1:i + 2] += acc[:, i:i + 1] >> LIMB_BITS
     t = _carry(acc[:, Lp:].clone())                # < 2n: the top limb holds it
+    if not finalize:
+        return t[:, :Lp]
     return _sub_if_geq(t, torch.cat([N, N.new_zeros(1)]))[:, :Lp]
+
+
+def _redc_raw(T: torch.Tensor, N: torch.Tensor, n0inv: int) -> torch.Tensor:
+    """Montgomery reduction on 16-bit limbs: T * R^-1 mod n.
+
+    T: (B, 2Lp) canonical with T < n*R; N: (Lp,) int64 limbs of n; n0inv
+    = -n^-1 mod 2^16. The CIOS loop without its a_i*b term: step i adds
+    m_i*n at limb offset i so that limb i becomes 0 mod 2^16, which leaves
+    t = (T + m*n) / R < 2n in the top limbs; one conditional subtract of n
+    finishes it. Returns (B, Lp) int64 canonical (< n)."""
+    B, Lp = T.shape[0], N.shape[0]
+    acc = torch.zeros((B, 2 * Lp + 1), dtype=torch.int64, device=T.device)
+    acc[:, : 2 * Lp] = T
+    Nb = N[None, :]
+    for i in range(Lp):
+        m = (acc[:, i:i + 1] * n0inv) & LIMB_MASK
+        acc[:, i:i + Lp].addcmul_(m, Nb)
+        acc[:, i + 1:i + 2] += acc[:, i:i + 1] >> LIMB_BITS
+    t = _carry(acc[:, Lp:].clone())
+    return _sub_if_geq(t, torch.cat([N, N.new_zeros(1)]))[:, :Lp]
+
+
+def _prod_raw(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Full product of canonical int64 limbs: (B, La) x (B, Lb) -> (B,
+    La + Lb) canonical. Row i of `a` adds a_i*b (each < 2^32) at limb
+    offset i, so no limb passes La * 2^32 before one carry resolution."""
+    B, La = a.shape
+    acc = torch.zeros((B, La + b.shape[1]), dtype=torch.int64, device=a.device)
+    for i in range(La):
+        acc[:, i:i + b.shape[1]].addcmul_(a[:, i:i + 1], b)
+    return _carry(acc)
+
+
+def prod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b for canonical (B, La) and (B, Lb) 16-bit limbs: (B, La + Lb)
+    int32 canonical. The full product the Karatsuba kernels are built on
+    (`dds_tpu/ops/mont_mxu.py::prod_lm`, canonical here)."""
+    return _prod_raw(a.to(torch.int64), b.to(torch.int64)).to(torch.int32)
+
+
+def prod3(a0, b0, a1, b1, sa, sb) -> torch.Tensor:
+    """The plain version of `csrc/mont_prod3.cu` (B4,
+    `mont_mxu._make_prod3_kernel`): three products of canonical (B, h)
+    operands, stacked as (B, 6h) int32 canonical blocks [z0 | z2 | z1] with
+    z0 = a0*b0, z2 = a1*b1, z1 = sa*sb."""
+    return torch.cat([prod(a0, b0), prod(a1, b1), prod(sa, sb)], dim=1)
+
+
+def prod_kf(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version of `csrc/mont_kfused.cu` (B5,
+    `mont_mxu._make_kfused_kernel`): a * b by one Karatsuba level for
+    canonical (B, L) operands, L even, (B, 2L) int32 canonical out.
+
+    With X = 2^(16h), h = L/2: a = a0 + a1 X, b = b0 + b1 X, the half sums
+    sa = a0 + a1 and sb = b0 + b1 carried into h + 1 limbs (the top limb
+    is the 0/1 overflow bit), and a*b = z0 + (z1 - z0 - z2) X + z2 X^2 with
+    z0 = a0 b0, z2 = a1 b1, z1 = sa sb. The middle term's limbs go
+    negative before the signed carry passes of `_carry` settle them."""
+    B, L = a.shape
+    h = L // 2
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    pad = a.new_zeros((B, 1))
+    sa = _carry(torch.cat([a[:, :h] + a[:, h:], pad], dim=1))
+    sb = _carry(torch.cat([b[:, :h] + b[:, h:], pad], dim=1))
+    z0 = _prod_raw(a[:, :h], b[:, :h])
+    z2 = _prod_raw(a[:, h:], b[:, h:])
+    z1 = _prod_raw(sa, sb)                                   # (B, 2h + 2)
+    T = a.new_zeros((B, 2 * L + 2))
+    T[:, : 2 * h] += z0
+    T[:, 2 * h: 4 * h] += z2
+    T[:, h: 3 * h + 2] += z1
+    T[:, h: 3 * h] -= z0 + z2
+    return _carry(T)[:, : 2 * L].to(torch.int32)
 
 
 def _carry(t: torch.Tensor) -> torch.Tensor:
@@ -265,6 +347,23 @@ class ModCtx:
         """a * b * R^-1 mod n for canonical (B, L) a, b < n."""
         c = self.consts(a.device)
         out = _mont_mul_raw(self._pad(a), self._pad(b), c["N64"], self.n0inv)
+        return out[:, : self.L].to(torch.int32)
+
+    def mont_mul_nofinal(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """The CIOS product without its final subtraction, for canonical
+        (B, L) a, b < n: the low L limbs of t = (a*b + m*n) / R < 2n (t mod
+        R at even L) — `mont_mul` is this or this minus n."""
+        c = self.consts(a.device)
+        out = _mont_mul_raw(self._pad(a), self._pad(b), c["N64"], self.n0inv,
+                            finalize=False)
+        return out[:, : self.L].to(torch.int32)
+
+    def redc(self, T: torch.Tensor) -> torch.Tensor:
+        """T * R^-1 mod n for canonical (B, 2L) T < n*R: (B, L) int32."""
+        T = T.to(torch.int64)
+        if self.Lp != self.L:
+            T = torch.cat([T, T.new_zeros((T.shape[0], 2 * (self.Lp - self.L)))], dim=1)
+        out = _redc_raw(T, self.consts(T.device)["N64"], self.n0inv)
         return out[:, : self.L].to(torch.int32)
 
     def to_mont(self, x: torch.Tensor) -> torch.Tensor:

@@ -94,6 +94,7 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             crypto_backend=p.crypto_backend,
             device=p.device,
             min_device_batch=p.min_device_batch,
+            coalesce_window=p.coalesce_window,
             resident=cfg.resident.enabled,
             storage=cfg.storage.enabled,
             search=cfg.search.enabled,

@@ -59,6 +59,9 @@ class ProxySettings:
     retry_max_delay: float = 2.0
     retry_after_hint: float = 1.0
     handler_timeout: float = 0.0       # miniserver backstop, 0 = off
+    # seconds concurrent small SumAll folds wait to share one device pass
+    # (0 disables coalescing)
+    coalesce_window: float = 0.002
 
 
 @dataclass

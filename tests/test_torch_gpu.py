@@ -154,3 +154,89 @@ def test_blind_batch_through_the_card_decrypts(cuda):
     assert len(set(rns)) == 64
     ms = list(range(1000, 1064))
     assert [key.decrypt(pk.encrypt(m, rn=rn)) for m, rn in zip(ms, rns)] == ms
+
+
+def _lm(ctx: ModCtx, count: int, seed: int, device, rows: int | None = None) -> torch.Tensor:
+    """Limbs-major (rows, count) int32 residues below n on `device`."""
+    x = bn.to_device(_residues(ctx, count, seed), device).T.contiguous()
+    return x if rows is None else x[:rows].contiguous()
+
+
+def test_prod3_kernel_matches_plain(cuda):
+    ctx = _n2_ctx()
+    h = ctx.L // 2
+    ops = [_lm(ctx, 4096, 60 + i, cuda, rows=h) for i in range(6)]
+    before = mont_cuda.prod3_launches.value
+    got = mont_cuda.prod3(*ops)
+    torch.cuda.synchronize()
+    assert mont_cuda.prod3_launches.value == before + 1
+    assert torch.equal(got, mont_cuda.prod3(*(x.cpu() for x in ops)).to(cuda))
+
+
+def test_kfused_and_redc_kernels_match_plain(cuda):
+    ctx = _n2_ctx()
+    a, b = _lm(ctx, 4096, 70, cuda), _lm(ctx, 4096, 71, cuda)
+    before = (mont_cuda.kfused_launches.value, mont_cuda.redc_launches.value)
+    T = mont_cuda.prod_kf(a, b)
+    out = mont_cuda.redc(ctx, T)
+    torch.cuda.synchronize()
+    assert (mont_cuda.kfused_launches.value, mont_cuda.redc_launches.value) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(T.cpu(), mont_cuda.prod_kf(a.cpu(), b.cpu()))
+    assert torch.equal(out.cpu(), mont_cuda.redc(ctx, T.cpu()))
+
+
+def test_nofinal_kernel_matches_plain(cuda):
+    ctx = _n2_ctx()
+    a, b = _lm(ctx, 8192, 72, cuda), _lm(ctx, 8192, 73, cuda)
+    before = mont_cuda.nofinal_launches.value
+    got = mont_cuda.mul_nofinal(ctx, a, b)
+    torch.cuda.synchronize()
+    assert mont_cuda.nofinal_launches.value == before + 1
+    assert torch.equal(got, ctx.mont_mul_nofinal(a.T, b.T).T)
+
+
+@pytest.mark.parametrize("mode", ["k1", "fused"])
+def test_karatsuba_modes_equal_cios_on_card(cuda, mode):
+    ctx = _n2_ctx()
+    a, b = _lm(ctx, 4096, 74, cuda), _lm(ctx, 4096, 75, cuda)
+    assert torch.equal(mont_cuda.mul(ctx, a, b, karatsuba=mode),
+                       mont_cuda.mul(ctx, a, b, karatsuba=False))
+    rows = _residues(ctx, 8192, 76)
+    got = mont_cuda.reduce_mul(ctx, bn.to_device(rows, cuda), karatsuba=mode)
+    want = 1
+    for c in bn.batch_to_ints(rows):
+        want = want * c % ctx.n
+    assert bn.limbs_to_int(bn.to_host(got)[0]) == want
+
+
+@pytest.mark.parametrize("bits", [520, 576])
+def test_karatsuba_modes_route_other_limb_counts_to_cios_on_card(cuda, bits):
+    rng = random.Random(bits)
+    n = rng.getrandbits(bits) | (1 << (bits - 1)) | 1
+    ctx = ModCtx.make(n)
+    assert ctx.L in (33, 36)
+    a, b = _lm(ctx, 300, 77, cuda), _lm(ctx, 300, 78, cuda)
+    counts = [mont_cuda.LAUNCHES[k].value for k in ("mont_prod3", "mont_kfused", "mont_redc")]
+    for mode in ("k1", "fused"):
+        assert torch.equal(mont_cuda.mul(ctx, a, b, karatsuba=mode), ctx.mont_mul(a.T, b.T).T)
+    torch.cuda.synchronize()
+    assert counts == [mont_cuda.LAUNCHES[k].value
+                      for k in ("mont_prod3", "mont_kfused", "mont_redc")]
+
+
+def test_fold_many_on_card_matches_python(cuda):
+    from dds_tpu_torch.ops.foldmany import fold_many
+
+    key = bench_paillier_key(2048)
+    n2 = key.nsquare
+    rng = random.Random(79)
+    folds = [[rng.randrange(1, n2) for _ in range(k)] for k in (128, 3, 77)]
+    before = mont_cuda.launches.value
+    got = fold_many(folds, n2, device=cuda)
+    assert mont_cuda.launches.value - before == mont_cuda.fold_launches(128)
+    for f, g in zip(folds, got):
+        want = 1
+        for c in f:
+            want = want * c % n2
+        assert g == want
