@@ -12,25 +12,34 @@ exits non-zero:
 1. device     the card, from torch and nvidia-smi (a CUDA device is required);
 2. build      nvcc for sm_90a of every kernel source (mont_mul, mont_exp,
               mont_prod3, mont_kfused, mont_redc), all started together,
-              with each one's ptxas register / spill / shared-memory report;
+              with each kernel's ptxas registers, stack, spills and shared
+              memory; a spill in mont_mul.cu or mont_exp.cu (the warp
+              product of mont_warp.cuh) fails the phase;
 3. parity     the Montgomery-multiply kernel against its plain version on
               the card at L = 256, B = 4096 (bit-exact), on column slices,
-              at an odd limb count, and a K = 65,536 fold against the
-              Python-int product mod n^2;
+              at L = 33 and 512, on the carry-edge inputs (moduli of long
+              0xFFFFFFFF runs; operands 0, 1, n - 1, R mod n, all-ones
+              words) at L = 33, 256 and 512, and a K = 65,536 fold against
+              the Python-int product mod n^2;
 4. parity     (what = "karatsuba") B4, B5 and the reduction against their
               plain versions at L = 256, B = 4,096 (bit-exact); `mul` under
               k1 and fused equal to mode 0; the K = 65,536 fold in each
               mode against Python; at L = 33 and 36 the modes route to the
               CIOS kernel (the B4 / B5 counters do not move);
 5. parity     (what = "nofinal") the no-finalize probe P against its plain
-              version at L = 256, B = 8,192 (bit-exact);
+              version at L = 256, B = 8,192 (bit-exact), on column slices,
+              at L = 33 and 512 and on the carry-edge inputs;
 6. parity     (what = "exp") the modexp kernel against its plain ladder at
               L = 256, B = 256 with a 64-bit exponent (bit-exact, Montgomery
-              domain); a full-width pow_mod (exponent n, B = 8,192) against
-              Python `pow` on 16 sampled rows; pow_mod at odd L = 33;
+              domain), on a column slice, at L = 512 and on the carry-edge
+              bases (exponent 0xF0E1); a full-width pow_mod (exponent n,
+              B = 8,192) against Python `pow` on 16 sampled rows; pow_mod
+              at odd L = 33;
 7. timing     CUDA-event times of warmed folds at K = 65,536 and 8,192 and
               of one B = 4,096 launch, each beside the plain version's time
-              and the least time the card could take (the bound);
+              and the least time the card could take (the bound); the
+              K = 8,192 fold level by level (what = "fold_levels": each
+              level's device ms, the host's dispatch ms for the fold);
 8. timing     the K = 8,192 fold in each mode; one B = 4,096 launch of B4,
               B5 and the reduction; `mul` and `mul_nofinal` at B = 8,192 and
               the finalize share (mul - nofinal) / mul, as
@@ -69,6 +78,10 @@ exits non-zero:
     python3 chip_smoke.py              # on the card (needs one GPU)
     python3 chip_smoke.py --rehearse   # the same phases, tiny, on the CPU;
                                        # exits 3 and prints no result
+    python3 chip_smoke.py --ab PARENT [--phases e2e,client]
+        # on the card: another checkout (PARENT) against this one in turns,
+        # parent, change, change, parent: the B1/P/B3 kernel times, or
+        # each tree's own chip_smoke phases; prints no result line
 
 Bound: one 4096-bit Montgomery product in W = 128 32-bit words is
 2W^2 + W word products of 2 integer multiply-adds each; Hopper issues 64
@@ -180,6 +193,45 @@ def time_ms(fn, reps: int, warm: int, device) -> tuple[float, object]:
     return (time.perf_counter() - t) * 1e3 / reps, out
 
 
+# the sources whose kernels must keep operands and accumulator in registers
+NO_SPILL_SOURCES = ("dds_tpu_torch/csrc/mont_mul.cu", "dds_tpu_torch/csrc/mont_exp.cu")
+
+
+def ptxas_report(log: str) -> dict:
+    """{function: {registers, stack, spill_stores, spill_loads, smem}} from
+    `nvcc -Xptxas -v` output: each figure goes to the function named by the
+    last "Compiling entry function" / "Function properties for" line."""
+    import re
+
+    def readable(mangled: str) -> str:  # e.g. mont_mul_kernel<4, true>
+        m = re.search(r"\d+(mont_\w+?_kernel)(I(?:L[ib]\d+E)+E)?", mangled)
+        if not m:
+            return mangled
+        args = [("true" if v == "1" else "false") if t == "b" else v
+                for t, v in re.findall(r"L([ib])(\d+)E", m.group(2) or "")]
+        return m.group(1) + (f"<{', '.join(args)}>" if args else "")
+
+    funcs, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([^' ]+)", ln)
+        if m:
+            name = readable(m.group(1))
+            funcs.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            funcs[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            funcs[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            funcs[name]["smem"] = int(sm.group(1)) if sm else 0
+    return funcs
+
+
 def phase_build(rehearse: bool) -> dict:
     from dds_tpu_torch.ops import mont_cuda
 
@@ -189,11 +241,13 @@ def phase_build(rehearse: bool) -> dict:
     t = time.perf_counter()
     started = [k.start_build() for k in mont_cuda.KERNELS]  # one nvcc each, at once
     logs = [k.finish_build(*s) for k, s in zip(mont_cuda.KERNELS, started)]
-    report = {source_path(k): [ln.strip() for ln in log.splitlines()
-                               if "registers" in ln or "spill" in ln or "smem" in ln.lower()]
-              for k, log in zip(mont_cuda.KERNELS, logs)}
+    report = {source_path(k): ptxas_report(log) for k, log in zip(mont_cuda.KERNELS, logs)}
     emit("build", seconds=round(time.perf_counter() - t, 3),
          sources=[source_path(k) for k in mont_cuda.KERNELS], ptxas=report)
+    spilled = {f: r for src in NO_SPILL_SOURCES for f, r in report[src].items()
+               if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
+    if spilled:
+        raise AssertionError(f"ptxas spilled registers of the warp kernels: {spilled}")
     return {"ptxas": report}
 
 
@@ -221,6 +275,13 @@ def phase_parity(ctx, dev, sizes) -> dict:
     ob = bn.to_device(residues(odd, 300, 4), dev).T.contiguous()
     if not torch.equal(mont_cuda.mul(odd, oa, ob), odd.mont_mul(oa.T, ob.T).T):
         raise AssertionError("mont_mul kernel != plain at odd L=33")
+    wide = ModCtx.make(WIDE_MODULUS)
+    wa = bn.to_device(residues(wide, 300, 3), dev).T.contiguous()
+    wb = bn.to_device(residues(wide, 300, 4), dev).T.contiguous()
+    if not torch.equal(mont_cuda.mul(wide, wa, wb), wide.mont_mul(wa.T, wb.T).T):
+        raise AssertionError("mont_mul kernel != plain at L=512")
+    edges = edge_parity(dev, lambda c, x, y: mont_cuda.mul(c, x, y, karatsuba=False),
+                        lambda c, x, y: c.mont_mul(x.T, y.T).T, "mont_mul")
     K = sizes["K_big"]
     rows = residues(ctx, K, 5)
     t = time.perf_counter()
@@ -230,7 +291,8 @@ def phase_parity(ctx, dev, sizes) -> dict:
     if fold != want_fold:
         raise AssertionError(f"K={K} kernel fold != Python-int product mod n^2")
     emit("parity", L=ctx.L, B=B, max_abs_err=err, tolerance=0, slices=True,
-         odd_L=odd.L, fold_K=K, fold_equals_python_int=True,
+         odd_L=odd.L, wide_L=wide.L, carry_edge_pairs=edges, carry_edge_L=EDGE_LS,
+         fold_K=K, fold_equals_python_int=True,
          fold_first_call_s=round(fold_s, 3))
     return {"max_abs_err": err, "k_rows": (K, rows, want_fold)}
 
@@ -255,6 +317,10 @@ def phase_timing(ctx, dev, sizes, card) -> dict:
             rec["plain_ms"] = pms
             out["path"] = rec
         emit("timing", what="fold", **rec)
+    K = sizes["K_path"]
+    levels = fold_levels(ctx, bn.to_device(residues(ctx, K, 6 + K), dev), dev, 5)
+    out["path"]["device_ms"] = levels["device_ms"]
+    emit("timing", what="fold_levels", **levels)
     B = sizes["B"]
     a = bn.to_device(residues(ctx, B, 7), dev).T.contiguous()
     b = bn.to_device(residues(ctx, B, 8), dev).T.contiguous()
@@ -265,6 +331,58 @@ def phase_timing(ctx, dev, sizes, card) -> dict:
     emit("timing", what="mul", L=ctx.L, B=B, ms=ms, plain_ms=pms, bound_ms=bms,
          bound_by=by, imads=imads)
     return out
+
+
+def fold_levels(ctx, rows, dev, reps: int) -> dict:
+    """The K-row mode-0 fold launch by launch: each level's device ms, and
+    the host's dispatch ms for the whole fold (`reduce_mul` itself, not
+    synchronised). The levels are `reduce_mul`'s, replayed with a CUDA
+    event after each launch while the stream is held (`torch.cuda._sleep`)
+    until the host has queued them all, so no level's time includes the
+    host's gap before it; the replay must give `reduce_mul`'s result. On
+    the CPU (rehearsal) the marks are host clock readings."""
+    import torch
+    from dds_tpu_torch.ops import mont_cuda
+
+    K, L = rows.shape
+    P2 = 1 << max(1, (K - 1).bit_length())
+    want = mont_cuda.reduce_mul(ctx, rows, karatsuba=False)
+    fix = ctx.fold_fix(K, dev)
+    widths = [P2 >> i for i in range(1, P2.bit_length())] + [1]
+    host, per_level = [], []
+    for _ in range(reps):
+        sync(dev)
+        t = time.perf_counter()
+        mont_cuda.reduce_mul(ctx, rows, karatsuba=False)
+        host.append((time.perf_counter() - t) * 1e3)
+        x = torch.empty((L, P2), dtype=torch.int32, device=dev)
+        x[:, :K] = rows.T
+        x[:, K:] = ctx.consts(dev)["one_mont"][:, None]
+        sync(dev)
+        if dev.type == "cuda":
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(len(widths) + 1)]
+            marks = iter(events)
+            mark = lambda: next(marks).record()
+            torch.cuda._sleep(50_000_000)  # ~25 ms: the host queues every level meanwhile
+        else:
+            events = []
+            mark = lambda: (sync(dev), events.append(time.perf_counter() * 1e3))
+        mark()
+        for h in widths[:-1]:
+            x = mont_cuda.mul(ctx, x[:, :h], x[:, h: 2 * h], karatsuba=False)
+            mark()
+        x = mont_cuda.mul(ctx, x, fix, karatsuba=False)
+        mark()
+        sync(dev)
+        if dev.type == "cuda":
+            per_level.append([e0.elapsed_time(e1) for e0, e1 in zip(events, events[1:])])
+        else:
+            per_level.append([t1 - t0 for t0, t1 in zip(events, events[1:])])
+        if not torch.equal(x.T.contiguous(), want):
+            raise AssertionError(f"K={K} fold replayed by level != reduce_mul")
+    levels = [statistics.median(col) for col in zip(*per_level)]
+    return {"K": K, "widths": widths, "level_device_ms": levels, "device_ms": sum(levels),
+            "host_dispatch_ms": statistics.median(host), "reps": reps}
 
 
 def phase_parity_exp(ctx, dev, sizes) -> dict:
@@ -285,6 +403,17 @@ def phase_parity_exp(ctx, dev, sizes) -> dict:
     if err != 0:
         raise AssertionError(f"exp kernel != plain ladder at L={ctx.L}, B={Bs}: max |diff| {err}")
     small_ms, _ = time_ms(lambda: mont_cuda.exp(ctx, base, digits), 5, 1, dev)
+    wide_base = torch.cat([base, base.flip(1)], dim=1)  # a column slice
+    if not torch.equal(mont_cuda.exp(ctx, wide_base[:, Bs:], digits),
+                       ctx.mont_exp(wide_base[:, Bs:].T, digits).T):
+        raise AssertionError("exp kernel on a column slice != plain ladder")
+    short = torch.from_numpy(_exp_to_digits(0xF0E1).astype(np.int32)).to(dev)
+    wide = ModCtx.make(WIDE_MODULUS)
+    wb = wide.to_mont(bn.to_device(residues(wide, 8, 36), dev)).T.contiguous()
+    if not torch.equal(mont_cuda.exp(wide, wb, short), wide.mont_exp(wb.T, short).T):
+        raise AssertionError(f"exp kernel != plain ladder at L={wide.L}")
+    edges = edge_parity(dev, lambda c, x, _: mont_cuda.exp(c, x, short),
+                        lambda c, x, _: c.mont_exp(x.T, short).T, "exp")
 
     key = bench_paillier_key(sizes["key_bits"])
     B = sizes["B_exp"]
@@ -309,7 +438,9 @@ def phase_parity_exp(ctx, dev, sizes) -> dict:
            "plain_ms": plain_ms, "plain_products_per_row": 5 * E + 14,
            "plain_ms_per_product": plain_ms / (5 * E + 14), "kernel_ms_small": small_ms,
            "B": B, "exponent_bits": key.n.bit_length(), "rows_checked": len(sample),
-           "pow_equals_python": True, "odd_L": odd.L, "first_call_s": first_s}
+           "pow_equals_python": True, "odd_L": odd.L, "first_call_s": first_s,
+           "slice": True, "wide_L": wide.L, "carry_edge_rows": edges,
+           "carry_edge_L": EDGE_LS, "carry_edge_exponent": "0xF0E1"}
     emit("parity", what="exp", **rec)
     return rec
 
@@ -387,6 +518,39 @@ def max_abs_diff(x, y) -> int:
     return int((x.long() - y.long()).abs().max())
 
 
+EDGE_LS = (33, 256, 512)  # W = 17, 128, 256: 1, 4 and 8 words per lane
+WIDE_MODULUS = (1 << 8191) | (0x9E3779B97F4A7C15 << 4000) | 0x2B  # L = 512
+
+
+def edge_inputs(L: int, dev):
+    """(ctx, a, b) for each carry-edge modulus of L limbs
+    (`montgomery.carry_edge_moduli`): a and b hold every ordered pair of
+    its `carry_edge_operands`, limbs-major on `dev`."""
+    from dds_tpu_torch.ops import bignum as bn
+    from dds_tpu_torch.ops.montgomery import ModCtx, carry_edge_moduli, carry_edge_operands
+
+    for n in carry_edge_moduli(L):
+        ctx = ModCtx.make(n)
+        ops = carry_edge_operands(ctx)
+        lm = lambda v: bn.to_device(bn.ints_to_batch(v, ctx.L), dev).T.contiguous()
+        yield ctx, lm([x for x in ops for _ in ops]), lm([y for _ in ops for y in ops])
+
+
+def edge_parity(dev, kernel, plain, what: str) -> int:
+    """`kernel(ctx, a, b)` against `plain(ctx, a, b)` (bit-exact) on the
+    carry-edge inputs at every L of EDGE_LS; returns the pairs checked."""
+    import torch
+
+    checked = 0
+    for L in EDGE_LS:
+        for ctx, a, b in edge_inputs(L, dev):
+            if not torch.equal(kernel(ctx, a, b), plain(ctx, a, b)):
+                raise AssertionError(f"{what} kernel != plain on carry edges at L={L}, "
+                                     f"n={hex(ctx.n)[:18]}...")
+            checked += a.shape[1]
+    return checked
+
+
 def phase_parity_karatsuba(ctx, dev, sizes, k_rows) -> dict:
     """B4, B5 and the reduction against their plain versions on the card
     (bit-exact), `mul` in each Karatsuba mode against mode 0, a K-row fold
@@ -457,7 +621,23 @@ def phase_parity_nofinal(ctx, dev, sizes) -> dict:
     err = max_abs_diff(mont_cuda.mul_nofinal(ctx, a, b), ctx.mont_mul_nofinal(a.T, b.T).T)
     if err:
         raise AssertionError(f"mont_mul_nofinal kernel != plain at L={ctx.L}, B={B}: {err}")
-    emit("parity", what="nofinal", L=ctx.L, B=B, max_abs_err=err, tolerance=0)
+    import torch
+    from dds_tpu_torch.ops.montgomery import ModCtx
+
+    x = torch.cat([a, b], dim=1)  # column slices, as a fold level passes them
+    if not torch.equal(mont_cuda.mul_nofinal(ctx, x[:, :B], x[:, B:]),
+                       mont_cuda.mul_nofinal(ctx, a, b)):
+        raise AssertionError("mont_mul_nofinal kernel on column slices != contiguous")
+    for other in (ModCtx.make(ODD_MODULI[33]), ModCtx.make(WIDE_MODULUS)):
+        oa = bn.to_device(residues(other, 300, 45), dev).T.contiguous()
+        ob = bn.to_device(residues(other, 300, 46), dev).T.contiguous()
+        if not torch.equal(mont_cuda.mul_nofinal(other, oa, ob),
+                           other.mont_mul_nofinal(oa.T, ob.T).T):
+            raise AssertionError(f"mont_mul_nofinal kernel != plain at L={other.L}")
+    edges = edge_parity(dev, mont_cuda.mul_nofinal,
+                        lambda c, x, y: c.mont_mul_nofinal(x.T, y.T).T, "mont_mul_nofinal")
+    emit("parity", what="nofinal", L=ctx.L, B=B, max_abs_err=err, tolerance=0, slices=True,
+         other_L=[33, 512], carry_edge_pairs=edges, carry_edge_L=EDGE_LS)
     return {"max_abs_err": err}
 
 
@@ -950,14 +1130,134 @@ async def phase_client(dev, sizes) -> dict:
     return rec
 
 
+def kernel_times(sizes) -> dict:
+    """CUDA-event ms of the B1, P and B3 launches at the timing phases'
+    shapes, kernels only: the K_big and K_path mode-0 folds, one B `mul`,
+    `mul` and `mul_nofinal` at B_probe, and one exp launch (exponent n) at
+    B_exp and at one client's width. Only public `mont_cuda` calls, so the
+    same code times any tree's package (`--times --tree`)."""
+    import torch
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.ops import bignum as bn
+    from dds_tpu_torch.ops import mont_cuda
+    from dds_tpu_torch.ops.montgomery import ModCtx, _exp_to_digits
+
+    dev = torch.device("cuda")
+    key = bench_paillier_key(sizes["key_bits"])
+    ctx = ModCtx.make(key.nsquare)
+    t = time.perf_counter()
+    for k in mont_cuda.KERNELS[:2]:  # mont_mul.cu, mont_exp.cu
+        k.function()
+    out = {"package": str(mont_cuda.CSRC.parent), "build_s": time.perf_counter() - t}
+    for K, reps in ((sizes["K_big"], sizes["reps_big"]), (sizes["K_path"], sizes["reps_path"])):
+        rows = bn.to_device(residues(ctx, K, 6 + K), dev)
+        out[f"fold_K{K}_ms"], _ = time_ms(
+            lambda: mont_cuda.reduce_mul(ctx, rows, karatsuba=False), reps, 2, dev)
+    for B, seed in ((sizes["B"], 7), (sizes["B_probe"], 51)):
+        a = bn.to_device(residues(ctx, B, seed), dev).T.contiguous()
+        b = bn.to_device(residues(ctx, B, seed + 1), dev).T.contiguous()
+        out[f"mul_B{B}_ms"], _ = time_ms(
+            lambda: mont_cuda.mul(ctx, a, b, karatsuba=False), sizes["reps_path"], 2, dev)
+        if B == sizes["B_probe"]:
+            out[f"mul_nofinal_B{B}_ms"], _ = time_ms(
+                lambda: mont_cuda.mul_nofinal(ctx, a, b), sizes["reps_path"], 2, dev)
+    digits = torch.from_numpy(_exp_to_digits(key.n).astype(np.int32)).to(dev)
+    out["E"] = len(digits)
+    base = bn.to_device(residues(ctx, sizes["B_exp"], 34), dev).T.contiguous()
+    for B in (sizes["B_exp"], sizes["ops_per_client"]):
+        xb = base[:, :B].contiguous()
+        out[f"exp_B{B}_ms"], _ = time_ms(lambda: mont_cuda.exp(ctx, xb, digits),
+                                         sizes["reps_exp"], 1, dev)
+    return out
+
+
+# run by `ab` in the root of each tree: that tree's own chip_smoke phases
+# on its own package
+PHASE_CHILD = """
+import asyncio, json, sys
+import torch
+import chip_smoke
+sizes, dev = json.loads(sys.argv[1]), torch.device("cuda")
+for name in sys.argv[2].split(","):
+    asyncio.run(getattr(chip_smoke, "phase_" + name)(dev, sizes))
+"""
+
+
+def ab(parent: str, phases: list[str]) -> int:
+    """The tree at `parent` against this one in turns, parent, change,
+    change, parent, each in a fresh process: the B1/P/B3 kernel times
+    (`--times`), or with `phases` each tree's own chip_smoke phases of
+    those names (e.g. e2e, client)."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for label, tree in (("parent", parent), ("change", here), ("change", here),
+                        ("parent", parent)):
+        tree = os.path.abspath(tree)
+        if phases:
+            cmd = [sys.executable, "-c", PHASE_CHILD, json.dumps(CARD_SIZES), ",".join(phases)]
+        else:
+            cmd = [sys.executable, os.path.abspath(__file__), "--times", "--tree", tree]
+        proc = subprocess.run(cmd, cwd=tree, capture_output=True, text=True, timeout=1800,
+                              check=False)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", file=sys.stderr)
+            return 1
+        lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if phases:  # the numbers each phase reports at its top level
+            rec = {f"{d['phase']}.{k}": v for d in lines if d.get("phase") in phases
+                   for k, v in d.items() if isinstance(v, float)}
+        else:
+            rec = lines[-1]
+        runs.append({"tree": label, **rec})
+        emit("ab", **runs[-1])
+    keys = [k for k, v in runs[0].items() if isinstance(v, float)]
+    emit("ab_summary", order=[r["tree"] for r in runs],
+         values={k: [r[k] for r in runs] for k in keys},
+         change_over_parent={k: (runs[1][k] + runs[2][k]) / (runs[0][k] + runs[3][k])
+                             for k in keys})
+    print(nvidia_smi("name,power.limit"), flush=True)
+    return 0
+
+
+# the card's shapes: every timed shape is the main path's
+CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
+                  reps_path=20, reps_plain=2,
+                  crossover=[8, 16, 32, 64, 128, 256, 512, 1024],
+                  requests=6, rounds=3, B_exp_small=256, B_exp=8192, reps_exp=2,
+                  rsa_bits=1024, clients=4, ops_per_client=2048, B_probe=8192,
+                  K_coalesce=128, coalesce_burst=16, coalesce_rounds=3,
+                  coalesce_min_batch=None)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="run every phase tiny on the CPU (exits 3, no result)")
+    ap.add_argument("--ab", metavar="PARENT",
+                    help="time the B1/P/B3 kernels of the tree at PARENT and of this "
+                         "one in turns (parent, change, change, parent); no result line")
+    ap.add_argument("--phases", default="",
+                    help="with --ab: run these chip_smoke phases of each tree instead "
+                         "(comma-separated, e.g. e2e,client)")
+    ap.add_argument("--times", action="store_true",
+                    help="print one JSON line of kernel times (used by --ab)")
+    ap.add_argument("--tree", help="with --times: time the dds_tpu_torch of this tree")
     args = ap.parse_args(argv)
 
     import torch
 
+    if (args.ab or args.times) and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if args.ab:
+        return ab(args.ab, [p for p in args.phases.split(",") if p])
+    if args.times:
+        if args.tree:  # before anything imports dds_tpu_torch
+            sys.path.insert(0, args.tree)
+        print(json.dumps(kernel_times(CARD_SIZES)), flush=True)
+        return 0
     if args.rehearse:
         dev = torch.device("cpu")
         sizes = dict(key_bits=512, B=64, K_big=512, K_path=256, reps_big=1,
@@ -971,13 +1271,7 @@ def main(argv=None) -> int:
             print("chip_smoke: no CUDA device available", file=sys.stderr)
             return 2
         dev = torch.device("cuda")
-        sizes = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
-                     reps_path=20, reps_plain=2,
-                     crossover=[8, 16, 32, 64, 128, 256, 512, 1024],
-                     requests=6, rounds=3, B_exp_small=256, B_exp=8192, reps_exp=2,
-                     rsa_bits=1024, clients=4, ops_per_client=2048, B_probe=8192,
-                     K_coalesce=128, coalesce_burst=16, coalesce_rounds=3,
-                     coalesce_min_batch=None)
+        sizes = CARD_SIZES
         props = torch.cuda.get_device_properties(0)
         card = {
             "name": torch.cuda.get_device_name(0),
@@ -1015,8 +1309,10 @@ def main(argv=None) -> int:
         "tpu_twin": "mont_mxu._make_prod_kernel + _redc (v2); pallas_mont._make_mul_kernel (v1)",
         "launches": e2e["launches"],
         "max_abs_err": par["max_abs_err"],
-        "per": f"one K={path['K']} fold ({path['launches']} launches)",
-        "ms": path["ms"],
+        "per": f"one K={path['K']} fold ({path['launches']} launches) on the device; "
+               f"wall_ms: back to back, paced by the host's dispatch",
+        "ms": path["device_ms"],
+        "wall_ms": path["ms"],
         "plain_ms": path["plain_ms"],
         "bound_ms": path["bound_ms"],
         "bound_by": path["bound_by"],

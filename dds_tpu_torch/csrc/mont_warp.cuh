@@ -1,0 +1,212 @@
+// One Montgomery product a*b*R^-1 mod n per warp, in registers, on Hopper.
+//
+// The product core shared by mont_mul.cu (B1, which also serves B2 and the
+// probe P) and mont_exp.cu (B3). It computes what the TPU kernels'
+// pallas_mont._cios_loop + _finalize compute (dds_tpu/ops/pallas_mont.py
+// :68-128), in W = ceil(L/2) 32-bit words with R = 2^(32 W): for even L the
+// R = 2^(16 L) of the TPU kernels, as ModCtx.n0inv32 and ModCtx.R assume.
+//
+// What bounds it: a product is 2 W^2 + W word multiply-adds (32,896 at
+// W = 128), each a 32x32->64 IMAD.WIDE plus its carry adds. Hopper issues
+// 64 integer multiply-adds per SM per clock, so the product is bound by
+// integer operations, not bytes. A design with one thread per product walks
+// that whole carry chain serially, keeps the accumulator in local memory
+// and leaves most of the card idle; this one
+// - gives each product a warp: lane l holds words [WPL*l, WPL*l + WPL) of
+//   b, n and the accumulator t, WPL = 1, 2, 4 or 8 words for W <= 32, 64,
+//   128 or 256 (lanes above W hold zeros), so one step of the outer loop is
+//   WPL multiply-adds per lane instead of 2W in one thread;
+// - keeps every operand, the accumulator and its pending carries in
+//   registers: register arrays are indexed only by compile-time constants
+//   in fully unrolled loops;
+// - resolves carries across lanes once per product, not once per step.
+//
+// Schedule (a distributed CIOS). The outer loop runs exactly W steps, one
+// per word of a, whatever the padding: R stays 2^(32 W). Step i:
+//   1. a_i is broadcast from the lane that holds it (__shfl_sync);
+//   2. each lane adds a_i * b to its words with a lane-local carry chain;
+//   3. m = t_0 * n0' mod 2^32 on lane 0, broadcast. t_0 is exact there: no
+//      pending carry ever enters word 0;
+//   4. each lane adds m * n the same way (word 0 becomes 0 mod 2^32);
+//   5. t shifts down one word: each lane takes the next lane's lowest word
+//      as its new top word (__shfl_down_sync). The carries out of a lane's
+//      top word (steps 2 and 4) and its pending carry p, all of the weight
+//      of the next lane's word 0, now have the weight of the lane's own new
+//      top word: they are added there, and what carries out of it becomes
+//      the new p (at most 2). Nothing crosses lanes but the shift.
+// After step W-1, t = sum of the lanes' words + sum_l p_l * 2^(32 WPL (l+1)).
+// One carry-lookahead adds each p_l into lane l+1: every lane adds its
+// neighbour's p, then generate (a carry out) and propagate (all words
+// 0xFFFFFFFF) bits from __ballot_sync give every lane's carry-in by one
+// 32-bit add, (G|P) + G, the carry-in bits being ((G|P) + G) ^ P. The
+// finalize compares t >= n the same way (generate = a borrow out of the
+// lane, propagate = the lane's words equal n's) and subtracts n once with
+// each lane's borrow-in. The pre-finalize t = (a*b + m*n) / R < 2n is
+// unique (m is the unique m < R with a*b + m*n = 0 mod R), so any schedule
+// gives the same integer: the no-finalize probe P stays bit-exact.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace dds {
+
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr int kWarp = 32;
+constexpr int kMaxWords = 256;  // moduli up to 8192 bits (Paillier-4096 n^2)
+
+// Words per lane for W words: the template argument of every kernel below.
+__host__ __device__ constexpr int words_per_lane(int W) {
+  return W <= 32 ? 1 : W <= 64 ? 2 : W <= 128 ? 4 : 8;
+}
+
+// This lane's WPL words of a W-word little-endian array (zeros above W).
+template <int WPL>
+__device__ __forceinline__ void load_words(uint32_t (&x)[WPL],
+                                           const uint32_t* __restrict__ src,
+                                           int W, int lane) {
+#pragma unroll
+  for (int k = 0; k < WPL; ++k) {
+    const int j = WPL * lane + k;
+    x[k] = j < W ? __ldg(&src[j]) : 0u;
+  }
+}
+
+// This lane's WPL words of column `col` of a limbs-major (L, *) int32 array
+// of 16-bit little-endian limbs with row stride `s` (zeros above L).
+template <int WPL>
+__device__ __forceinline__ void load_limbs(uint32_t (&x)[WPL],
+                                           const int32_t* __restrict__ src,
+                                           long long s, long long col, int L,
+                                           int lane) {
+#pragma unroll
+  for (int k = 0; k < WPL; ++k) {
+    const int j = WPL * lane + k;
+    uint32_t w = 0;
+    if (2 * j < L) w = static_cast<uint32_t>(src[2LL * j * s + col]);
+    if (2 * j + 1 < L) w |= static_cast<uint32_t>(src[(2LL * j + 1) * s + col]) << 16;
+    x[k] = w;
+  }
+}
+
+// Write this lane's words as limbs 2j, 2j+1 < L of column `col`.
+template <int WPL>
+__device__ __forceinline__ void store_limbs(int32_t* __restrict__ dst,
+                                            long long s, long long col, int L,
+                                            const uint32_t (&x)[WPL], int lane) {
+#pragma unroll
+  for (int k = 0; k < WPL; ++k) {
+    const int j = WPL * lane + k;
+    if (2 * j < L) dst[2LL * j * s + col] = static_cast<int32_t>(x[k] & 0xFFFFu);
+    if (2 * j + 1 < L) dst[(2LL * j + 1) * s + col] = static_cast<int32_t>(x[k] >> 16);
+  }
+}
+
+// Carry-in bit of this lane from the warp's generate and propagate masks
+// (disjoint): bit l of ((G|P) + G) ^ P. `out` gets the carry out of lane 31.
+__device__ __forceinline__ uint32_t lookahead(bool generate, bool propagate,
+                                              int lane, uint32_t& out) {
+  const uint32_t G = __ballot_sync(kFullMask, generate);
+  const uint32_t P = __ballot_sync(kFullMask, propagate);
+  const uint64_t sum = static_cast<uint64_t>(G | P) + G;
+  out = static_cast<uint32_t>(sum >> 32);
+  return ((static_cast<uint32_t>(sum) ^ P) >> lane) & 1u;
+}
+
+// r = a * b * R^-1 mod n (kFinalize) or the loop's t = (a*b + m*n) / R < 2n
+// mod 2^(32 * 32 WPL) (!kFinalize), for a, b < n. Every lane of the warp
+// calls it with its own words; r may alias a and b (written last).
+template <int WPL, bool kFinalize = true>
+__device__ __forceinline__ void mont_mul_warp(uint32_t (&r)[WPL],
+                                              const uint32_t (&a)[WPL],
+                                              const uint32_t (&b)[WPL],
+                                              const uint32_t (&n)[WPL],
+                                              uint32_t n0inv, int W, int lane) {
+  uint32_t t[WPL];
+#pragma unroll
+  for (int k = 0; k < WPL; ++k) t[k] = 0;
+  uint32_t p = 0;  // pending carry, of the weight of word WPL * (lane + 1)
+
+  const int lanes = (W + WPL - 1) / WPL;
+  for (int src = 0; src < lanes; ++src) {
+#pragma unroll
+    for (int k = 0; k < WPL; ++k) {
+      if (src * WPL + k < W) {  // warp-uniform: exactly W steps
+        const uint32_t ai = __shfl_sync(kFullMask, a[k], src);
+        uint32_t c1 = 0;  // t += ai * b
+#pragma unroll
+        for (int j = 0; j < WPL; ++j) {
+          const uint64_t s = static_cast<uint64_t>(ai) * b[j] + t[j] + c1;
+          t[j] = static_cast<uint32_t>(s);
+          c1 = static_cast<uint32_t>(s >> 32);
+        }
+        const uint32_t m = __shfl_sync(kFullMask, t[0] * n0inv, 0);
+        uint32_t c2 = 0;  // t += m * n
+#pragma unroll
+        for (int j = 0; j < WPL; ++j) {
+          const uint64_t s = static_cast<uint64_t>(m) * n[j] + t[j] + c2;
+          t[j] = static_cast<uint32_t>(s);
+          c2 = static_cast<uint32_t>(s >> 32);
+        }
+        // t /= 2^32: the next lane's lowest word becomes this lane's top
+        uint32_t up = __shfl_down_sync(kFullMask, t[0], 1);
+        if (lane == kWarp - 1) up = 0;
+#pragma unroll
+        for (int j = 0; j + 1 < WPL; ++j) t[j] = t[j + 1];
+        const uint64_t s = static_cast<uint64_t>(up) + p + c1 + c2;
+        t[WPL - 1] = static_cast<uint32_t>(s);
+        p = static_cast<uint32_t>(s >> 32);
+      }
+    }
+  }
+
+  // resolve: lane l's p belongs at the next lane's word 0; lane 31's is
+  // word 32 * WPL (nonzero only when W = 32 * WPL)
+  uint32_t c = __shfl_up_sync(kFullMask, p, 1);
+  if (lane == 0) c = 0;
+  const uint32_t top = __shfl_sync(kFullMask, p, kWarp - 1);
+  bool ones = true;
+#pragma unroll
+  for (int j = 0; j < WPL; ++j) {
+    const uint64_t s = static_cast<uint64_t>(t[j]) + c;
+    t[j] = static_cast<uint32_t>(s);
+    c = static_cast<uint32_t>(s >> 32);
+    ones = ones && t[j] == 0xFFFFFFFFu;
+  }
+  uint32_t carry_out;
+  c = lookahead(c != 0, ones, lane, carry_out);
+  const uint32_t ovf = top + carry_out;  // t's word 32 * WPL: 0 or 1
+#pragma unroll
+  for (int j = 0; j < WPL; ++j) {
+    const uint64_t s = static_cast<uint64_t>(t[j]) + c;
+    t[j] = static_cast<uint32_t>(s);
+    c = static_cast<uint32_t>(s >> 32);
+  }
+
+  if constexpr (kFinalize) {
+    // t < 2n: subtract n once when t >= n
+    uint32_t bw = 0;
+    bool eq = true;
+#pragma unroll
+    for (int j = 0; j < WPL; ++j) {
+      const uint64_t d = static_cast<uint64_t>(t[j]) - n[j] - bw;
+      bw = static_cast<uint32_t>(d >> 63);
+      eq = eq && t[j] == n[j];
+    }
+    uint32_t borrow_out;
+    bw = lookahead(bw != 0, eq, lane, borrow_out);
+    if (ovf != 0 || borrow_out == 0) {  // warp-uniform
+#pragma unroll
+      for (int j = 0; j < WPL; ++j) {
+        const uint64_t d = static_cast<uint64_t>(t[j]) - n[j] - bw;
+        t[j] = static_cast<uint32_t>(d);
+        bw = static_cast<uint32_t>(d >> 63);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < WPL; ++k) r[k] = t[k];
+}
+
+}  // namespace dds

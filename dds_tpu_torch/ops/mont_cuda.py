@@ -22,7 +22,8 @@ contract: domain entry with `mul` by R^2, the ladder, exit with `mul` by 1.
 Five sources under `csrc/`, each built with nvcc for sm_90a at first use
 and bound with ctypes (`KernelLib`, one lock per source):
 - `mont_mul.cu`: `dds_mont_mul` (B1) and `dds_mont_mul_nofinal` (P);
-- `mont_exp.cu` (B3);
+- `mont_exp.cu` (B3), which shares the warp-per-product core
+  `mont_warp.cuh` with `mont_mul.cu`;
 - `mont_prod3.cu` (B4);
 - `mont_kfused.cu` (B5);
 - `mont_redc.cu`: the reduction after B4 and B5 (`mont_mxu._redc`, which
@@ -117,9 +118,13 @@ class KernelLib:
         self._fns: dict = {}
 
     def library_path(self) -> Path:
-        """Where the build lands: keyed by a hash of the source and flags,
-        so an edited source never loads a stale library."""
-        h = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        """Where the build lands: keyed by a hash of the source, every
+        header beside it (`*.cuh`) and the flags, so an edited source or
+        header never loads a stale library."""
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def start_build(self) -> tuple[Path, Path, subprocess.Popen | None]:
@@ -172,7 +177,7 @@ _MUL_ARGS = [_p, _ll, _p, _ll, _p, _ll, _p, _u, _i, _i, _p]
 MUL = KernelLib("mont_mul.cu", {"dds_mont_mul": _MUL_ARGS,
                                 "dds_mont_mul_nofinal": _MUL_ARGS})
 EXP = KernelLib("mont_exp.cu", {"dds_mont_exp":
-                                [_p, _ll, _p, _ll, _p, _p, _i, _p, _p, _u, _i, _i, _p]})
+                                [_p, _ll, _p, _ll, _p, _i, _p, _p, _u, _i, _i, _p]})
 PROD3 = KernelLib("mont_prod3.cu", {"dds_mont_prod3": [_p, _ll] * 7 + [_i, _i, _p]})
 KFUSED = KernelLib("mont_kfused.cu", {"dds_mont_kfused": [_p, _ll] * 3 + [_i, _i, _p]})
 REDC = KernelLib("mont_redc.cu", {"dds_mont_redc": [_p, _ll, _p, _ll, _p, _u, _i, _i, _p]})
@@ -362,11 +367,10 @@ def exp(ctx: ModCtx, base_mont: torch.Tensor, digits: torch.Tensor) -> torch.Ten
     L, B = base_mont.shape
     digits = digits.contiguous()
     out = torch.empty((L, B), dtype=torch.int32, device=base_mont.device)
-    table = torch.empty((16, ctx.W, B), dtype=torch.int32, device=base_mont.device)
     c = ctx.consts(base_mont.device)
     _launch(EXP, "dds_mont_exp", exp_launches, base_mont.device,
             base_mont.data_ptr(), base_mont.stride(0), out.data_ptr(), out.stride(0),
-            table.data_ptr(), digits.data_ptr(), digits.shape[0],
+            digits.data_ptr(), digits.shape[0],
             c["N32"].data_ptr(), c["one_mont"].data_ptr(), ctx.n0inv32, L, B,
             what=f"L={L}, B={B}, E={digits.shape[0]}")
     return out

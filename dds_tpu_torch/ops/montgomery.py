@@ -204,6 +204,27 @@ def _exp_to_digits(exp: int) -> np.ndarray:
     )
 
 
+def carry_edge_moduli(L: int) -> list[int]:
+    """Odd moduli of exactly L 16-bit limbs made of long runs of
+    0xFFFFFFFF (or zero) words: 2^(16L) - 3, 2^(16L) - 2^(8L+5) - 1 and
+    2^(16L-1) + 2^(8L) - 1. With `carry_edge_operands` they push carries
+    and borrows through whole lanes of the kernels' warp product
+    (`csrc/mont_warp.cuh`), which random residues almost never do."""
+    top = 16 * L
+    return [(1 << top) - 3, (1 << top) - (1 << (8 * L + 5)) - 1,
+            (1 << (top - 1)) + (1 << (8 * L)) - 1]
+
+
+def carry_edge_operands(ctx: "ModCtx") -> list[int]:
+    """Operands below ctx.n that stress the carry and borrow chains: 0, 1,
+    n - 1, R mod n, every word all ones below the top word
+    (2^(32(W-1)) - 1), and all ones below the top bit (2^(16L-1) - 1)."""
+    n = ctx.n
+    cands = [0, 1, n - 1, ctx.R % n, (1 << (32 * (ctx.W - 1))) - 1,
+             (1 << (16 * ctx.L - 1)) - 1]
+    return list(dict.fromkeys(x for x in cands if x < n))
+
+
 def _tree_reduce_raw(cs: torch.Tensor, N: torch.Tensor, n0inv: int) -> torch.Tensor:
     """Binary-tree Montgomery product of cs (K, Lp), K a power of two:
     prod(cs) * R^-(K-1) mod n (the caller fixes the domain)."""

@@ -22,7 +22,12 @@ from dds_tpu_torch.bench_key import bench_paillier_key
 from dds_tpu_torch.models.backend import CpuBackend, CudaBackend
 from dds_tpu_torch.ops import bignum as bn
 from dds_tpu_torch.ops import mont_cuda
-from dds_tpu_torch.ops.montgomery import ModCtx, _exp_to_digits
+from dds_tpu_torch.ops.montgomery import (
+    ModCtx,
+    _exp_to_digits,
+    carry_edge_moduli,
+    carry_edge_operands,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -240,3 +245,35 @@ def test_fold_many_on_card_matches_python(cuda):
         for c in f:
             want = want * c % n2
         assert g == want
+
+
+def _edge_operands(ctx: ModCtx, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every ordered pair of `carry_edge_operands`, limbs-major on `device`."""
+    ops = carry_edge_operands(ctx)
+    a = [x for x in ops for _ in ops]
+    b = [y for _ in ops for y in ops]
+    lm = lambda v: bn.to_device(bn.ints_to_batch(v, ctx.L), device).T.contiguous()
+    return lm(a), lm(b)
+
+
+@pytest.mark.parametrize("L", [33, 256, 512])
+def test_mul_and_nofinal_on_carry_edges_match_plain(cuda, L):
+    """Moduli of long 0xFFFFFFFF runs and the operands 0, 1, n - 1, R mod n
+    and all-ones words: carries and borrows through every lane of the warp
+    product, at W = 17, 128 and 256 (WPL = 1, 4, 8)."""
+    for n in carry_edge_moduli(L):
+        ctx = ModCtx.make(n)
+        a, b = _edge_operands(ctx, cuda)
+        assert torch.equal(mont_cuda.mul(ctx, a, b), ctx.mont_mul(a.T, b.T).T)
+        assert torch.equal(mont_cuda.mul_nofinal(ctx, a, b),
+                           ctx.mont_mul_nofinal(a.T, b.T).T)
+
+
+@pytest.mark.parametrize("L", [33, 256, 512])
+def test_exp_on_carry_edges_matches_plain(cuda, L):
+    digits = torch.from_numpy(_exp_to_digits(0xF0E1).astype(np.int32)).to(cuda)
+    for n in carry_edge_moduli(L):
+        ctx = ModCtx.make(n)
+        base = bn.to_device(bn.ints_to_batch(carry_edge_operands(ctx), ctx.L), cuda)
+        got = mont_cuda.exp(ctx, base.T.contiguous(), digits)
+        assert torch.equal(got, ctx.mont_exp(base, digits).T)
