@@ -13,8 +13,9 @@ exits non-zero:
 2. build      nvcc for sm_90a of every kernel source (mont_mul, mont_exp,
               mont_prod3, mont_kfused, mont_redc), all started together,
               with each kernel's ptxas registers, stack, spills and shared
-              memory; a spill in mont_mul.cu or mont_exp.cu (the warp
-              product of mont_warp.cuh) fails the phase;
+              memory; a spill in any of the warp kernels on mont_warp.cuh
+              (mont_mul.cu, mont_exp.cu, mont_redc.cu, mont_kfused.cu)
+              fails the phase;
 3. parity     the Montgomery-multiply kernel against its plain version on
               the card at L = 256, B = 4096 (bit-exact), on column slices,
               at L = 33 and 512, on the carry-edge inputs (moduli of long
@@ -22,10 +23,14 @@ exits non-zero:
               words) at L = 33, 256 and 512, and a K = 65,536 fold against
               the Python-int product mod n^2;
 4. parity     (what = "karatsuba") B4, B5 and the reduction against their
-              plain versions at L = 256, B = 4,096 (bit-exact); `mul` under
-              k1 and fused equal to mode 0; the K = 65,536 fold in each
-              mode against Python; at L = 33 and 36 the modes route to the
-              CIOS kernel (the B4 / B5 counters do not move);
+              plain versions at L = 256, B = 4,096 (bit-exact); B5 and the
+              reduction on column slices and on the carry-edge inputs (B5
+              at L = 36, 256 and 512 with the all-ones operand, the
+              reduction at L = 33, 256 and 512 with the extreme T = 0,
+              R - 1, R (n - 1), n R - 1); `mul` under k1 and fused equal
+              to mode 0; the K = 65,536 fold in each mode against Python;
+              at L = 33 and 36 the modes route to the CIOS kernel (the
+              B4 / B5 counters do not move);
 5. parity     (what = "nofinal") the no-finalize probe P against its plain
               version at L = 256, B = 8,192 (bit-exact), on column slices,
               at L = 33 and 512 and on the carry-edge inputs;
@@ -40,7 +45,9 @@ exits non-zero:
               and the least time the card could take (the bound); the
               K = 8,192 fold level by level (what = "fold_levels": each
               level's device ms, the host's dispatch ms for the fold);
-8. timing     the K = 8,192 fold in each mode; one B = 4,096 launch of B4,
+8. timing     the K = 8,192 fold in each mode, and in mode 2 level by level
+              (what = "fold_levels", mode = "fused": each level's B5 and
+              REDC device ms); one B = 4,096 launch of B4,
               B5 and the reduction; `mul` and `mul_nofinal` at B = 8,192 and
               the finalize share (mul - nofinal) / mul, as
               benchmarks/profile_kernel.py prints it (P's own path: its
@@ -80,8 +87,9 @@ exits non-zero:
                                        # exits 3 and prints no result
     python3 chip_smoke.py --ab PARENT [--phases e2e,client]
         # on the card: another checkout (PARENT) against this one in turns,
-        # parent, change, change, parent: the B1/P/B3 kernel times, or
-        # each tree's own chip_smoke phases; prints no result line
+        # parent, change, change, parent: the B1/P/B3/B5/REDC kernel times
+        # and the mode-0 and mode-2 folds, or each tree's own chip_smoke
+        # phases; prints no result line
 
 Bound: one 4096-bit Montgomery product in W = 128 32-bit words is
 2W^2 + W word products of 2 integer multiply-adds each; Hopper issues 64
@@ -91,7 +99,8 @@ input row read once and the output written once, at 3.35 TB/s. A modexp
 row is 5E + 14 products in the exp kernel (the window table, then 4
 squarings and 1 multiply per digit) and 5E + 16 in pow_mod. B4 and B5 are
 3 (W/2)^2 word products a column, the reduction W^2 + W, so a Karatsuba
-multiply is 28,800 against CIOS's 32,896 at W = 128.
+multiply is 28,800 against CIOS's 32,896 at W = 128. B5 and the
+reduction run one warp a column on the same core as B1 and B3.
 
 On a card without the `cryptography` package the AES-backed columns (CHE,
 None) run as the "Plain" null cipher in the client phase, the reference's
@@ -194,7 +203,9 @@ def time_ms(fn, reps: int, warm: int, device) -> tuple[float, object]:
 
 
 # the sources whose kernels must keep operands and accumulator in registers
-NO_SPILL_SOURCES = ("dds_tpu_torch/csrc/mont_mul.cu", "dds_tpu_torch/csrc/mont_exp.cu")
+# (the warp kernels of mont_warp.cuh)
+NO_SPILL_SOURCES = ("dds_tpu_torch/csrc/mont_mul.cu", "dds_tpu_torch/csrc/mont_exp.cu",
+                    "dds_tpu_torch/csrc/mont_redc.cu", "dds_tpu_torch/csrc/mont_kfused.cu")
 
 
 def ptxas_report(log: str) -> dict:
@@ -333,8 +344,10 @@ def phase_timing(ctx, dev, sizes, card) -> dict:
     return out
 
 
-def fold_levels(ctx, rows, dev, reps: int) -> dict:
-    """The K-row mode-0 fold launch by launch: each level's device ms, and
+def fold_levels(ctx, rows, dev, reps: int, mode=False) -> dict:
+    """The K-row fold launch by launch, in mode 0 (`mode` False: one
+    `mont_mul` launch a level) or mode 2 ("fused": a B5 then a REDC launch
+    a level): each level's device ms (in mode 2 also each launch's), and
     the host's dispatch ms for the whole fold (`reduce_mul` itself, not
     synchronised). The levels are `reduce_mul`'s, replayed with a CUDA
     event after each launch while the stream is held (`torch.cuda._sleep`)
@@ -342,47 +355,63 @@ def fold_levels(ctx, rows, dev, reps: int) -> dict:
     host's gap before it; the replay must give `reduce_mul`'s result. On
     the CPU (rehearsal) the marks are host clock readings."""
     import torch
-    from dds_tpu_torch.ops import mont_cuda
+    from dds_tpu_torch.ops import karatsuba, mont_cuda
 
     K, L = rows.shape
     P2 = 1 << max(1, (K - 1).bit_length())
-    want = mont_cuda.reduce_mul(ctx, rows, karatsuba=False)
+    want = mont_cuda.reduce_mul(ctx, rows, karatsuba=mode)
     fix = ctx.fold_fix(K, dev)
     widths = [P2 >> i for i in range(1, P2.bit_length())] + [1]
-    host, per_level = [], []
+    per_level_launches = 2 if mode else 1
+    host, per_launch = [], []
     for _ in range(reps):
         sync(dev)
         t = time.perf_counter()
-        mont_cuda.reduce_mul(ctx, rows, karatsuba=False)
+        mont_cuda.reduce_mul(ctx, rows, karatsuba=mode)
         host.append((time.perf_counter() - t) * 1e3)
         x = torch.empty((L, P2), dtype=torch.int32, device=dev)
         x[:, :K] = rows.T
         x[:, K:] = ctx.consts(dev)["one_mont"][:, None]
         sync(dev)
         if dev.type == "cuda":
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(len(widths) + 1)]
+            events = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(per_level_launches * len(widths) + 1)]
             marks = iter(events)
             mark = lambda: next(marks).record()
             torch.cuda._sleep(50_000_000)  # ~25 ms: the host queues every level meanwhile
         else:
             events = []
             mark = lambda: (sync(dev), events.append(time.perf_counter() * 1e3))
+
+        def level(x, y):
+            if not mode:
+                x = mont_cuda.mul(ctx, x, y, karatsuba=False)
+            else:
+                T = karatsuba.prod_kf(x, y)
+                mark()
+                x = mont_cuda.redc(ctx, T)
+            mark()
+            return x
+
         mark()
         for h in widths[:-1]:
-            x = mont_cuda.mul(ctx, x[:, :h], x[:, h: 2 * h], karatsuba=False)
-            mark()
-        x = mont_cuda.mul(ctx, x, fix, karatsuba=False)
-        mark()
+            x = level(x[:, :h], x[:, h: 2 * h])
+        x = level(x, fix)
         sync(dev)
         if dev.type == "cuda":
-            per_level.append([e0.elapsed_time(e1) for e0, e1 in zip(events, events[1:])])
+            per_launch.append([e0.elapsed_time(e1) for e0, e1 in zip(events, events[1:])])
         else:
-            per_level.append([t1 - t0 for t0, t1 in zip(events, events[1:])])
+            per_launch.append([t1 - t0 for t0, t1 in zip(events, events[1:])])
         if not torch.equal(x.T.contiguous(), want):
             raise AssertionError(f"K={K} fold replayed by level != reduce_mul")
-    levels = [statistics.median(col) for col in zip(*per_level)]
-    return {"K": K, "widths": widths, "level_device_ms": levels, "device_ms": sum(levels),
-            "host_dispatch_ms": statistics.median(host), "reps": reps}
+    launches = [statistics.median(col) for col in zip(*per_launch)]
+    levels = [sum(launches[i: i + per_level_launches])
+              for i in range(0, len(launches), per_level_launches)]
+    rec = {"K": K, "mode": mode or "cios", "widths": widths, "level_device_ms": levels,
+           "device_ms": sum(levels), "host_dispatch_ms": statistics.median(host), "reps": reps}
+    if mode:
+        rec["level_kfused_ms"], rec["level_redc_ms"] = launches[0::2], launches[1::2]
+    return rec
 
 
 def phase_parity_exp(ctx, dev, sizes) -> dict:
@@ -519,58 +548,92 @@ def max_abs_diff(x, y) -> int:
 
 
 EDGE_LS = (33, 256, 512)  # W = 17, 128, 256: 1, 4 and 8 words per lane
+KFUSED_EDGE_LS = (36, 256, 512)  # H = 9, 64, 128: 1, 2 and 4 words per lane
 WIDE_MODULUS = (1 << 8191) | (0x9E3779B97F4A7C15 << 4000) | 0x2B  # L = 512
 
 
-def edge_inputs(L: int, dev):
-    """(ctx, a, b) for each carry-edge modulus of L limbs
-    (`montgomery.carry_edge_moduli`): a and b hold every ordered pair of
-    its `carry_edge_operands`, limbs-major on `dev`."""
+def limbs_major(vals: list[int], rows: int, dev):
+    """Limbs-major (rows, len(vals)) int32 of the ints on `dev`."""
     from dds_tpu_torch.ops import bignum as bn
-    from dds_tpu_torch.ops.montgomery import ModCtx, carry_edge_moduli, carry_edge_operands
 
-    for n in carry_edge_moduli(L):
-        ctx = ModCtx.make(n)
-        ops = carry_edge_operands(ctx)
-        lm = lambda v: bn.to_device(bn.ints_to_batch(v, ctx.L), dev).T.contiguous()
-        yield ctx, lm([x for x in ops for _ in ops]), lm([y for _ in ops for y in ops])
+    return bn.to_device(bn.ints_to_batch(vals, rows), dev).T.contiguous()
 
 
-def edge_parity(dev, kernel, plain, what: str) -> int:
-    """`kernel(ctx, a, b)` against `plain(ctx, a, b)` (bit-exact) on the
-    carry-edge inputs at every L of EDGE_LS; returns the pairs checked."""
+def pair_inputs(ctx, dev, operands=None) -> tuple:
+    """(a, b): every ordered pair of `operands(ctx)` (default
+    `montgomery.carry_edge_operands`), limbs-major on `dev`."""
+    from dds_tpu_torch.ops.montgomery import carry_edge_operands
+
+    ops = (operands or carry_edge_operands)(ctx)
+    return (limbs_major([x for x in ops for _ in ops], ctx.L, dev),
+            limbs_major([y for _ in ops for y in ops], ctx.L, dev))
+
+
+def redc_inputs(ctx, dev) -> tuple:
+    """(T,): the reduction's carry-edge inputs (`carry_edge_products`)."""
+    from dds_tpu_torch.ops.montgomery import carry_edge_products
+
+    return (limbs_major(carry_edge_products(ctx), 2 * ctx.L, dev),)
+
+
+def edge_parity(dev, kernel, plain, what: str, Ls=EDGE_LS, inputs=pair_inputs) -> int:
+    """`kernel(ctx, *args)` against `plain(ctx, *args)` (bit-exact) for
+    every carry-edge modulus (`montgomery.carry_edge_moduli`) of each L in
+    `Ls`, args = `inputs(ctx, dev)`; returns the columns checked."""
     import torch
+    from dds_tpu_torch.ops.montgomery import ModCtx, carry_edge_moduli
 
     checked = 0
-    for L in EDGE_LS:
-        for ctx, a, b in edge_inputs(L, dev):
-            if not torch.equal(kernel(ctx, a, b), plain(ctx, a, b)):
+    for L in Ls:
+        for n in carry_edge_moduli(L):
+            ctx = ModCtx.make(n)
+            args = inputs(ctx, dev)
+            if not torch.equal(kernel(ctx, *args), plain(ctx, *args)):
                 raise AssertionError(f"{what} kernel != plain on carry edges at L={L}, "
                                      f"n={hex(ctx.n)[:18]}...")
-            checked += a.shape[1]
+            checked += args[0].shape[1]
     return checked
 
 
 def phase_parity_karatsuba(ctx, dev, sizes, k_rows) -> dict:
     """B4, B5 and the reduction against their plain versions on the card
-    (bit-exact), `mul` in each Karatsuba mode against mode 0, a K-row fold
-    in each mode against the Python-int product, and the shape rule: at
-    L = 33 and 36 the modes route to the CIOS kernel."""
+    (bit-exact) at the fold's shape, B5 and the reduction also on column
+    slices and on the carry-edge inputs (B5 at L = 36, 256 and 512, the
+    reduction at L = 33, 256 and 512 with the extreme T), `mul` in each
+    Karatsuba mode against mode 0, a K-row fold in each mode against the
+    Python-int product, and the shape rule: at L = 33 and 36 the modes
+    route to the CIOS kernel."""
+    import torch
     from dds_tpu_torch.ops import bignum as bn
     from dds_tpu_torch.ops import mont_cuda, montgomery
     from dds_tpu_torch.ops.montgomery import ModCtx
 
     B = sizes["B"]
     a, b, ops = karatsuba_operands(ctx, B, 40, dev)
+    kf = mont_cuda.prod_kf(a, b)
     errs = {
         "mont_prod3": max_abs_diff(mont_cuda.prod3(*ops),
                                    montgomery.prod3(*(x.T for x in ops)).T),
-        "mont_kfused": max_abs_diff(mont_cuda.prod_kf(a, b), montgomery.prod_kf(a.T, b.T).T),
+        "mont_kfused": max_abs_diff(kf, montgomery.prod_kf(a.T, b.T).T),
     }
     T = montgomery.prod(a.T, b.T).T.contiguous()
-    errs["mont_redc"] = max_abs_diff(mont_cuda.redc(ctx, T), ctx.redc(T.T).T)
+    red = mont_cuda.redc(ctx, T)
+    errs["mont_redc"] = max_abs_diff(red, ctx.redc(T.T).T)
     if any(errs.values()):
         raise AssertionError(f"Karatsuba kernels != plain at L={ctx.L}, B={B}: {errs}")
+    wide = torch.cat([a, b], dim=1)  # column slices, as a fold level passes them
+    if not torch.equal(mont_cuda.prod_kf(wide[:, :B], wide[:, B:]), kf):
+        raise AssertionError("mont_kfused kernel on column slices != contiguous operands")
+    if not torch.equal(mont_cuda.redc(ctx, torch.cat([T.flip(1), T], dim=1)[:, B:]), red):
+        raise AssertionError("mont_redc kernel on a column slice != contiguous T")
+    edges = {
+        "mont_kfused": edge_parity(
+            dev, lambda c, x, y: mont_cuda.prod_kf(x, y),
+            lambda c, x, y: montgomery.prod_kf(x.T, y.T).T, "mont_kfused", KFUSED_EDGE_LS,
+            lambda c, d: pair_inputs(c, d, montgomery.karatsuba_edge_operands)),
+        "mont_redc": edge_parity(dev, mont_cuda.redc, lambda c, t: c.redc(t.T).T,
+                                 "mont_redc", EDGE_LS, redc_inputs),
+    }
     cios = mont_cuda.mul(ctx, a, b, karatsuba=False)
     for mode in ("k1", "fused"):
         if max_abs_diff(mont_cuda.mul(ctx, a, b, karatsuba=mode), cios):
@@ -603,7 +666,9 @@ def phase_parity_karatsuba(ctx, dev, sizes, k_rows) -> dict:
         if after != before:
             raise AssertionError(f"L={L} took the Karatsuba route: {before} -> {after}")
         routed[L] = "cios"
-    rec = {"L": ctx.L, "B": B, "max_abs_err": errs, "tolerance": 0,
+    rec = {"L": ctx.L, "B": B, "max_abs_err": errs, "tolerance": 0, "slices": True,
+           "carry_edge_columns": edges, "carry_edge_L": {"mont_kfused": KFUSED_EDGE_LS,
+                                                         "mont_redc": EDGE_LS},
            "modes_equal_cios": True, "fold_K": K, "fold_equals_python_int": True,
            "fold_first_call_s": folds_s, "shape_rule": routed}
     emit("parity", what="karatsuba", **rec)
@@ -670,6 +735,9 @@ def phase_timing_karatsuba(ctx, dev, sizes, card) -> dict:
         out["fold"][name] = {"ms": ms, "bound_ms": bms, "bound_by": by}
         emit("timing", what="fold_mode", mode=name, K=K, ms=ms, bound_ms=bms, bound_by=by,
              word_products_per_multiply=per, reps=reps)
+    levels = fold_levels(ctx, rows, dev, 5, mode="fused")
+    out["fold"]["fused"]["device_ms"] = levels["device_ms"]
+    emit("timing", what="fold_levels", **levels)
 
     B = sizes["B"]
     a, b, ops = karatsuba_operands(ctx, B, 50, dev)
@@ -1131,10 +1199,12 @@ async def phase_client(dev, sizes) -> dict:
 
 
 def kernel_times(sizes) -> dict:
-    """CUDA-event ms of the B1, P and B3 launches at the timing phases'
-    shapes, kernels only: the K_big and K_path mode-0 folds, one B `mul`,
-    `mul` and `mul_nofinal` at B_probe, and one exp launch (exponent n) at
-    B_exp and at one client's width. Only public `mont_cuda` calls, so the
+    """CUDA-event ms of the B1, P, B3, B5 and REDC launches at the timing
+    phases' shapes, kernels only: the K_big and K_path mode-0 folds, one B
+    `mul`, `mul` and `mul_nofinal` at B_probe, one exp launch (exponent n)
+    at B_exp and at one client's width, one B launch of B5 and of REDC, the
+    K_path mode-2 fold, and both K_path folds on the device level by level
+    (`fold_levels`). Only public `mont_cuda` and `karatsuba` calls, so the
     same code times any tree's package (`--times --tree`)."""
     import torch
     from dds_tpu_torch.bench_key import bench_paillier_key
@@ -1146,7 +1216,9 @@ def kernel_times(sizes) -> dict:
     key = bench_paillier_key(sizes["key_bits"])
     ctx = ModCtx.make(key.nsquare)
     t = time.perf_counter()
-    for k in mont_cuda.KERNELS[:2]:  # mont_mul.cu, mont_exp.cu
+    started = [k.start_build() for k in mont_cuda.KERNELS]  # one nvcc each, at once
+    for k, st in zip(mont_cuda.KERNELS, started):
+        k.finish_build(*st)
         k.function()
     out = {"package": str(mont_cuda.CSRC.parent), "build_s": time.perf_counter() - t}
     for K, reps in ((sizes["K_big"], sizes["reps_big"]), (sizes["K_path"], sizes["reps_path"])):
@@ -1168,6 +1240,19 @@ def kernel_times(sizes) -> dict:
         xb = base[:, :B].contiguous()
         out[f"exp_B{B}_ms"], _ = time_ms(lambda: mont_cuda.exp(ctx, xb, digits),
                                          sizes["reps_exp"], 1, dev)
+    B = sizes["B"]
+    a = bn.to_device(residues(ctx, B, 50), dev).T.contiguous()
+    b = bn.to_device(residues(ctx, B, 51), dev).T.contiguous()
+    out[f"kfused_B{B}_ms"], T = time_ms(lambda: mont_cuda.prod_kf(a, b),
+                                        sizes["reps_path"], 2, dev)
+    out[f"redc_B{B}_ms"], _ = time_ms(lambda: mont_cuda.redc(ctx, T), sizes["reps_path"], 2, dev)
+    K = sizes["K_path"]
+    rows = bn.to_device(residues(ctx, K, 6 + K), dev)
+    out[f"fold_K{K}_fused_ms"], _ = time_ms(
+        lambda: mont_cuda.reduce_mul(ctx, rows, karatsuba="fused"), sizes["reps_path"], 2, dev)
+    for mode in (False, "fused"):
+        out[f"fold_K{K}_{mode or 'cios'}_device_ms"] = fold_levels(
+            ctx, rows, dev, 5, mode)["device_ms"]
     return out
 
 
@@ -1183,11 +1268,22 @@ for name in sys.argv[2].split(","):
 """
 
 
+def float_leaves(prefix: str, d: dict) -> dict:
+    """{"prefix.key.subkey": x} for every float x in the nested dict `d`."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, float):
+            out[f"{prefix}.{k}"] = v
+        elif isinstance(v, dict):
+            out.update(float_leaves(f"{prefix}.{k}", v))
+    return out
+
+
 def ab(parent: str, phases: list[str]) -> int:
     """The tree at `parent` against this one in turns, parent, change,
-    change, parent, each in a fresh process: the B1/P/B3 kernel times
-    (`--times`), or with `phases` each tree's own chip_smoke phases of
-    those names (e.g. e2e, client)."""
+    change, parent, each in a fresh process: the kernel times of
+    `kernel_times` (`--times`), or with `phases` each tree's own chip_smoke
+    phases of those names (e.g. e2e, client)."""
     import os
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1205,14 +1301,14 @@ def ab(parent: str, phases: list[str]) -> int:
             print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", file=sys.stderr)
             return 1
         lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
-        if phases:  # the numbers each phase reports at its top level
-            rec = {f"{d['phase']}.{k}": v for d in lines if d.get("phase") in phases
-                   for k, v in d.items() if isinstance(v, float)}
+        if phases:  # every number each phase reports, nested keys joined by "."
+            rec = {k: v for d in lines if d.get("phase") in phases
+                   for k, v in float_leaves(d["phase"], d).items()}
         else:
             rec = lines[-1]
         runs.append({"tree": label, **rec})
         emit("ab", **runs[-1])
-    keys = [k for k, v in runs[0].items() if isinstance(v, float)]
+    keys = [k for k in runs[0] if all(isinstance(r.get(k), float) for r in runs)]
     emit("ab_summary", order=[r["tree"] for r in runs],
          values={k: [r[k] for r in runs] for k in keys},
          change_over_parent={k: (runs[1][k] + runs[2][k]) / (runs[0][k] + runs[3][k])
@@ -1236,8 +1332,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rehearse", action="store_true",
                     help="run every phase tiny on the CPU (exits 3, no result)")
     ap.add_argument("--ab", metavar="PARENT",
-                    help="time the B1/P/B3 kernels of the tree at PARENT and of this "
-                         "one in turns (parent, change, change, parent); no result line")
+                    help="time the B1/P/B3/B5/REDC kernels and the folds of the tree at "
+                         "PARENT and of this one in turns (parent, change, change, "
+                         "parent); no result line")
     ap.add_argument("--phases", default="",
                     help="with --ab: run these chip_smoke phases of each tree instead "
                          "(comma-separated, e.g. e2e,client)")

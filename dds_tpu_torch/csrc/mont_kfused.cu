@@ -6,15 +6,16 @@
 // fused Karatsuba multiply prod_lm_kf (DDS_KARATSUBA=2), whose reduction
 // is csrc/mont_redc.cu.
 //
-// With X = 2^(16h), h = L/2, a = a0 + a1 X and b = b0 + b1 X:
-//   sa = a0 + a1 and sb = b0 + b1, each h limbs plus a 0/1 overflow bit
-//   (ca, cb); z0 = a0 b0, z2 = a1 b1, z1 = sa sb over the h-limb parts;
+// With X = 2^(32 H), H = W/2 words per half (W = L/2), a = a0 + a1 X and
+// b = b0 + b1 X:
+//   sa = a0 + a1 and sb = b0 + b1, each H words plus a 0/1 overflow bit
+//   (ca, cb); z0 = a0 b0, z2 = a1 b1, z1 = sa sb over the H-word parts;
 //   z1full = z1 + (ca sb + cb sa) X + ca cb X^2 = (a0 + a1)(b0 + b1);
-//   a*b = z0 + (z1full - z0 - z2) X + z2 X^2.
+//   mid = z1full - z0 - z2 = a0 b1 + a1 b0 < 2 X^2 (2H + 1 words);
+//   a*b = z0 + mid X + z2 X^2.
 // The TPU kernel formed the middle term as a complement add, because its
-// u32 lanes have no borrow chain (:198-215); here it is a plain subtract
-// with borrow in 32-bit words. The middle term a0 b1 + a1 b0 is below
-// 2^(32 h + 1), so it fits 2H + 1 words (H = h/2 words per half).
+// u32 lanes have no borrow chain (:198-215); here it is a subtract with
+// borrow.
 //
 // Layout: a, b limbs-major (L, B) int32 canonical 16-bit limbs with row
 // strides, columns contiguous; out (2L, B) int32 canonical. L must be a
@@ -22,132 +23,160 @@
 // wrapper only launches at even L with (L/2) % 8 == 0, the reference's
 // shape rule).
 //
-// One thread computes one column: a and b packed into W = L/2 words, z0
-// and z2 written straight into the result's two halves, z1 beside them, all
-// in local memory (5 KiB of stack at the 256-word maximum). 3 H^2 word
-// multiply-adds with 64-bit accumulation, against 2 W^2 for the schoolbook
-// product: at L = 256 that is 12,288 word products per column, bound by the
-// card's IMAD rate (operations), the 12 MB of operands and results at
-// B = 4,096 being faster at 3.35 TB/s. This first version is latency-bound
-// on each thread's serial carry chains through local memory.
+// Bound and design: 3 H^2 word multiply-adds a column against 2 W^2 for
+// the schoolbook product (12,288 at L = 256), bound by the card's integer
+// multiply-add rate (operations); the 12.6 MB of operands and results at
+// B = 4,096 move in half that time at 3.35 TB/s. One warp computes one
+// column on the warp core of mont_warp.cuh:
+// - each half product is dds::mul_half_warp over all 32 lanes at
+//   HPL = words_per_lane(H) words a lane (2 at L = 256, 4 at L = 512), the
+//   shifting schedule without m * n: x_i broadcast, x_i * y added
+//   lane-locally, the word leaving lane 0 written to shared memory as
+//   product word i, one lookahead at the end;
+// - every multi-word add and subtract (the half sums, the overflow-bit
+//   corrections, the two subtractions, the final add of mid at word H) is
+//   one lane-local chain and one lookahead (dds::add_warp, dds::sub_warp);
+// - operands and accumulators stay in registers, indexed only by
+//   compile-time constants. Shared memory holds each column's staged a and
+//   b, then the products: a half does not start on a lane boundary when H
+//   is not a multiple of HPL (L = 36: W = 18, H = 9), so the halves are
+//   redistributed by reading them back from shared memory at offset H.
+// A block of 8 warps takes 8 adjacent columns; a and b come in, and T goes
+// out, through shared memory with one 32-byte sector per limb row's 8
+// columns, as mont_mul.cu stages its operands. Each column's row of the
+// tile is [A | B | T]: A and B hold a and b (64 HPL words each), later z1
+// (in A) and sa, sb (in B); T (128 HPL words) collects z0, z2 and the
+// result. The row is 256 HPL + 4 words long, so staging is free of bank
+// conflicts.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "mont_warp.cuh"
+
 namespace {
 
-constexpr int kMaxWords = 256;  // L up to 512 limbs (Paillier-4096 n^2)
-constexpr int kThreads = 128;
+constexpr int kCols = 8;  // warps (columns) per block
+constexpr int kThreads = kCols * dds::kWarp;
 
-__device__ __forceinline__ void load_words(uint32_t* w, const int32_t* x,
-                                           long long s, int col, int W) {
-  for (int j = 0; j < W; ++j) {
-    w[j] = static_cast<uint32_t>(x[(2LL * j) * s + col]) |
-           (static_cast<uint32_t>(x[(2LL * j + 1) * s + col]) << 16);
-  }
-}
-
-// z = x * y for W-word x and y: 2W words.
-__device__ __forceinline__ void mul_words(uint32_t* z, const uint32_t* x,
-                                          const uint32_t* y, int W) {
-  for (int k = 0; k < 2 * W; ++k) z[k] = 0;
-  for (int i = 0; i < W; ++i) {
-    const uint32_t xi = x[i];
-    uint64_t c = 0;
-    for (int j = 0; j < W; ++j) {
-      const uint64_t s = static_cast<uint64_t>(xi) * y[j] + z[i + j] + c;
-      z[i + j] = static_cast<uint32_t>(s);
-      c = s >> 32;
-    }
-    z[i + W] = static_cast<uint32_t>(c);  // untouched until this step
-  }
-}
-
-// x[0, H) = x[0, H) + x[H, 2H); returns the carry out (0 or 1).
-__device__ __forceinline__ uint32_t half_sum(uint32_t* x, int H) {
-  uint64_t c = 0;
-  for (int j = 0; j < H; ++j) {
-    const uint64_t s = static_cast<uint64_t>(x[j]) + x[H + j] + c;
-    x[j] = static_cast<uint32_t>(s);
-    c = s >> 32;
-  }
-  return static_cast<uint32_t>(c);
-}
-
-// z[H, 2H] += (y[0, H) & mask), carrying into z[2H + 1]; mask is 0 or ~0.
-__device__ __forceinline__ void add_masked(uint32_t* z, const uint32_t* y,
-                                           uint32_t mask, int H) {
-  uint64_t c = 0;
-  for (int j = 0; j < H; ++j) {
-    const uint64_t s = static_cast<uint64_t>(z[H + j]) + (y[j] & mask) + c;
-    z[H + j] = static_cast<uint32_t>(s);
-    c = s >> 32;
-  }
-  for (int k = 2 * H; k <= 2 * H + 1; ++k) {
-    const uint64_t s = static_cast<uint64_t>(z[k]) + c;
-    z[k] = static_cast<uint32_t>(s);
-    c = s >> 32;
-  }
-}
-
-// z[0, 2H + 2) -= y[0, 2H), borrowing through the top words.
-__device__ __forceinline__ void sub_words(uint32_t* z, const uint32_t* y, int H) {
-  uint32_t borrow = 0;
-  for (int k = 0; k < 2 * H + 2; ++k) {
-    const uint64_t d = static_cast<uint64_t>(z[k]) - (k < 2 * H ? y[k] : 0u) - borrow;
-    z[k] = static_cast<uint32_t>(d);
-    borrow = static_cast<uint32_t>(d >> 63);
-  }
-}
-
+template <int HPL>
 __global__ void __launch_bounds__(kThreads)
 mont_kfused_kernel(const int32_t* __restrict__ a, long long sa,
                    const int32_t* __restrict__ b, long long sb,
                    int32_t* __restrict__ out, long long so,
                    int L, int W, int B) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  const int H = W / 2;  // words per half
+  constexpr int kHalf = dds::kWarp * HPL;  // words an H-word number can hold
+  constexpr int DPL = 2 * HPL;             // words per lane of a 2H-word number
+  constexpr int kA = 0, kB = 2 * kHalf, kT = 4 * kHalf;
+  constexpr int kStride = 8 * kHalf + 4;   // words per staged column
+  __shared__ uint32_t tile[kCols * kStride];
+  const int warp = threadIdx.x / dds::kWarp;
+  const int lane = threadIdx.x % dds::kWarp;
+  const long long col0 = static_cast<long long>(blockIdx.x) * kCols;
+  const int H = W / 2;
 
-  uint32_t x[kMaxWords];
-  uint32_t y[kMaxWords];
-  uint32_t T[2 * kMaxWords];
-  uint32_t z1[kMaxWords + 2];
-  load_words(x, a, sa, col, W);
-  load_words(y, b, sb, col, W);
-
-  mul_words(T, x, y, H);                  // z0 = a0 b0 -> T[0, 2H)
-  mul_words(T + 2 * H, x + H, y + H, H);  // z2 = a1 b1 -> T[2H, 4H)
-
-  const uint32_t ca = half_sum(x, H);     // sa -> x[0, H)
-  const uint32_t cb = half_sum(y, H);     // sb -> y[0, H)
-  mul_words(z1, x, y, H);                 // z1 = sa sb, 2H words
-  z1[2 * H] = ca & cb;
-  z1[2 * H + 1] = 0;
-  add_masked(z1, y, 0u - ca, H);          // + ca sb X
-  add_masked(z1, x, 0u - cb, H);          // + cb sa X
-
-  sub_words(z1, T, H);                    // - z0
-  sub_words(z1, T + 2 * H, H);            // - z2: the middle term, >= 0
-
-  // T += mid X: mid is 2H + 1 words at word offset H; the carry ends
-  // inside T because a*b < 2^(32 * 4H)
-  uint64_t c = 0;
-  for (int k = 0; k < 2 * H + 1; ++k) {
-    const uint64_t s = static_cast<uint64_t>(T[H + k]) + z1[k] + c;
-    T[H + k] = static_cast<uint32_t>(s);
-    c = s >> 32;
+  // stage: thread (word j < W, column c) packs limbs 2j and 2j+1 of a and b
+  for (int e = threadIdx.x; e < W * kCols; e += kThreads) {
+    const int j = e / kCols, c = e % kCols;
+    const long long col = col0 + c;
+    uint32_t wa = 0, wb = 0;
+    if (col < B) {
+      wa = static_cast<uint32_t>(a[2LL * j * sa + col]) |
+           (static_cast<uint32_t>(a[(2LL * j + 1) * sa + col]) << 16);
+      wb = static_cast<uint32_t>(b[2LL * j * sb + col]) |
+           (static_cast<uint32_t>(b[(2LL * j + 1) * sb + col]) << 16);
+    }
+    tile[c * kStride + kA + j] = wa;
+    tile[c * kStride + kB + j] = wb;
   }
-  for (int k = 3 * H + 1; k < 4 * H; ++k) {
-    const uint64_t s = static_cast<uint64_t>(T[k]) + c;
-    T[k] = static_cast<uint32_t>(s);
-    c = s >> 32;
-  }
+  __syncthreads();
 
-  for (int k = 0; k < 2 * W; ++k) {
-    out[(2LL * k) * so + col] = static_cast<int32_t>(T[k] & 0xFFFFu);
-    out[(2LL * k + 1) * so + col] = static_cast<int32_t>(T[k] >> 16);
+  uint32_t* A = tile + warp * kStride + kA;
+  uint32_t* Bw = tile + warp * kStride + kB;
+  uint32_t* T = tile + warp * kStride + kT;
+  uint32_t x[HPL], y[HPL], u[HPL];
+
+  dds::load_lanes<HPL>(x, A, H, lane);          // a0
+  dds::load_lanes<HPL>(y, Bw, H, lane);         // b0
+  dds::mul_half_warp<HPL>(T, x, y, H, lane);    // z0 -> T[0, 2H)
+  dds::load_lanes<HPL>(x, A + H, H, lane);      // a1
+  dds::load_lanes<HPL>(y, Bw + H, H, lane);     // b1
+  dds::mul_half_warp<HPL>(T + 2 * H, x, y, H, lane);  // z2 -> T[2H, 4H)
+
+  // half sums: the carry lands in word H (or out of lane 31 when
+  // H = 32 HPL); take it out as the overflow bit
+  dds::load_lanes<HPL>(u, A, H, lane);          // a0
+  uint32_t ca = dds::add_warp<HPL>(x, u, 0, lane);
+  ca += dds::take_word<HPL>(x, H, true, lane);  // sa = x, ca
+  dds::load_lanes<HPL>(u, Bw, H, lane);         // b0
+  uint32_t cb = dds::add_warp<HPL>(y, u, 0, lane);
+  cb += dds::take_word<HPL>(y, H, true, lane);  // sb = y, cb
+  __syncwarp();  // a and b are read: A takes z1, B takes sa and sb
+  dds::store_lanes<HPL>(Bw, x, H, lane);
+  dds::store_lanes<HPL>(Bw + kHalf, y, H, lane);
+  dds::mul_half_warp<HPL>(A, x, y, H, lane);    // z1 -> A[0, 2H)
+  __syncwarp();
+
+  // mid = z1 + (ca sb + cb sa) X + ca cb X^2 - z0 - z2 in the frame of DPL
+  // words a lane (32 DPL >= 2H words), `top` counting what lies above it
+  uint32_t m[DPL], v[DPL];
+  dds::load_lanes<DPL>(m, A, 2 * H, lane);
+  uint32_t top = 0;
+  if (2 * H < dds::kWarp * DPL) {
+#pragma unroll
+    for (int k = 0; k < DPL; ++k) {
+      if (DPL * lane + k == 2 * H) m[k] = ca & cb;
+    }
+  } else {
+    top = ca & cb;
   }
+  for (int s = 0; s < 2; ++s) {  // + ca sb X, then + cb sa X
+    if ((s == 0 ? ca : cb) != 0) {  // warp-uniform
+      const uint32_t* src = s == 0 ? Bw + kHalf : Bw;
+#pragma unroll
+      for (int k = 0; k < DPL; ++k) {
+        const int j = DPL * lane + k;
+        v[k] = (j >= H && j < 2 * H) ? src[j - H] : 0u;
+      }
+      top += dds::add_warp<DPL>(m, v, 0, lane);
+    }
+  }
+  dds::load_lanes<DPL>(v, T, 2 * H, lane);      // - z0
+  top -= dds::sub_warp<DPL>(m, v, lane);
+  dds::load_lanes<DPL>(v, T + 2 * H, 2 * H, lane);  // - z2
+  top -= dds::sub_warp<DPL>(m, v, lane);
+
+  // T[H, 3H) += mid's low 2H words; what carries to word 3H (mid's top
+  // word plus the carry) then goes into z2's high half, T[3H, 4H)
+  dds::load_lanes<DPL>(v, T + H, 2 * H, lane);
+  top += dds::add_warp<DPL>(v, m, 0, lane);
+  top += dds::take_word<DPL>(v, 2 * H, false, lane);
+  __syncwarp();
+  dds::store_lanes<DPL>(T + H, v, 2 * H, lane);
+  __syncwarp();
+  dds::load_lanes<HPL>(u, T + 3 * H, H, lane);
+  dds::add_warp<HPL, false>(u, u, lane == 0 ? top : 0u, lane);  // a*b < X^4
+  __syncwarp();
+  dds::store_lanes<HPL>(T + 3 * H, u, H, lane);
+  __syncthreads();
+
+  // unstage: thread (limb row i < 2L, column c), 8 columns of a row per sector
+  for (int e = threadIdx.x; e < 2 * L * kCols; e += kThreads) {
+    const int i = e / kCols, c = e % kCols;
+    const long long col = col0 + c;
+    if (col < B) {
+      const uint32_t w = tile[c * kStride + kT + i / 2];
+      out[static_cast<long long>(i) * so + col] =
+          static_cast<int32_t>((i & 1) ? (w >> 16) : (w & 0xFFFFu));
+    }
+  }
+}
+
+template <int HPL>
+void launch_hpl(const int32_t* a, long long sa, const int32_t* b, long long sb,
+                int32_t* out, long long so, int L, int W, int B, cudaStream_t stream) {
+  const int grid = (B + kCols - 1) / kCols;
+  mont_kfused_kernel<HPL><<<grid, kThreads, 0, stream>>>(a, sa, b, sb, out, so, L, W, B);
 }
 
 }  // namespace
@@ -160,11 +189,14 @@ extern "C" int dds_mont_kfused(const int32_t* a, long long sa,
                                int32_t* out, long long so,
                                int L, int B, void* stream) {
   const int W = L / 2;
-  if (L < 4 || L % 4 != 0 || W > kMaxWords || B < 1) {
+  if (L < 4 || L % 4 != 0 || W > dds::kMaxWords || B < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int grid = (B + kThreads - 1) / kThreads;
-  mont_kfused_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, sa, b, sb, out, so, L, W, B);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dds::words_per_lane(W / 2)) {  // H <= 128 words: 1, 2 or 4
+    case 1: launch_hpl<1>(a, sa, b, sb, out, so, L, W, B, s); break;
+    case 2: launch_hpl<2>(a, sa, b, sb, out, so, L, W, B, s); break;
+    default: launch_hpl<4>(a, sa, b, sb, out, so, L, W, B, s); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
 // One Montgomery product a*b*R^-1 mod n per warp, in registers, on Hopper.
 //
 // The product core shared by mont_mul.cu (B1, which also serves B2 and the
-// probe P) and mont_exp.cu (B3). It computes what the TPU kernels'
+// probe P) and mont_exp.cu (B3); its reduction-only sibling mont_redc_warp
+// serves mont_redc.cu, and its product-only sibling mul_half_warp the three
+// half products of mont_kfused.cu (B5). It computes what the TPU kernels'
 // pallas_mont._cios_loop + _finalize compute (dds_tpu/ops/pallas_mont.py
 // :68-128), in W = ceil(L/2) 32-bit words with R = 2^(32 W): for even L the
 // R = 2^(16 L) of the TPU kernels, as ModCtx.n0inv32 and ModCtx.R assume.
@@ -43,7 +45,9 @@
 // lane, propagate = the lane's words equal n's) and subtracts n once with
 // each lane's borrow-in. The pre-finalize t = (a*b + m*n) / R < 2n is
 // unique (m is the unique m < R with a*b + m*n = 0 mod R), so any schedule
-// gives the same integer: the no-finalize probe P stays bit-exact.
+// gives the same integer: the no-finalize probe P stays bit-exact. Every
+// multi-word add and subtract below (add_warp, sub_warp) is the same shape:
+// one lane-local chain, then one lookahead for the carries between lanes.
 
 #pragma once
 
@@ -103,6 +107,29 @@ __device__ __forceinline__ void store_limbs(int32_t* __restrict__ dst,
   }
 }
 
+// This lane's N words of a `count`-word array in shared memory, in the
+// frame where lane l holds words [N*l, N*l + N) (zeros at and above count).
+template <int N>
+__device__ __forceinline__ void load_lanes(uint32_t (&x)[N], const uint32_t* src,
+                                           int count, int lane) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = N * lane + k;
+    x[k] = j < count ? src[j] : 0u;
+  }
+}
+
+// Write this lane's words below `count` to dst[N*l + k].
+template <int N>
+__device__ __forceinline__ void store_lanes(uint32_t* dst, const uint32_t (&x)[N],
+                                            int count, int lane) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = N * lane + k;
+    if (j < count) dst[j] = x[k];
+  }
+}
+
 // Carry-in bit of this lane from the warp's generate and propagate masks
 // (disjoint): bit l of ((G|P) + G) ^ P. `out` gets the carry out of lane 31.
 __device__ __forceinline__ uint32_t lookahead(bool generate, bool propagate,
@@ -112,6 +139,117 @@ __device__ __forceinline__ uint32_t lookahead(bool generate, bool propagate,
   const uint64_t sum = static_cast<uint64_t>(G | P) + G;
   out = static_cast<uint32_t>(sum >> 32);
   return ((static_cast<uint32_t>(sum) ^ P) >> lane) & 1u;
+}
+
+// x += y + cin across the warp (x and y in the frame of N words per lane,
+// cin added at this lane's word 0; kY = false adds no y): one lane-local
+// carry chain, one lookahead. Each lane's x + y + cin must stay below
+// 2^(32 N + 1) - 1: then a lane that carries out is not all ones (generate
+// and propagate stay disjoint) and with its carry-in it still carries out
+// at most 1. True for two N-word numbers (cin = 0), or for one and
+// cin <= 2. Returns the carry out of lane 31 (the word 32 N).
+template <int N, bool kY = true>
+__device__ __forceinline__ uint32_t add_warp(uint32_t (&x)[N], const uint32_t (&y)[N],
+                                             uint32_t cin, int lane) {
+  uint32_t c = cin;
+  bool ones = true;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const uint64_t s = static_cast<uint64_t>(x[j]) + (kY ? y[j] : 0u) + c;
+    x[j] = static_cast<uint32_t>(s);
+    c = static_cast<uint32_t>(s >> 32);
+    ones = ones && x[j] == 0xFFFFFFFFu;
+  }
+  uint32_t out;
+  c = lookahead(c != 0, ones, lane, out);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const uint64_t s = static_cast<uint64_t>(x[j]) + c;
+    x[j] = static_cast<uint32_t>(s);
+    c = static_cast<uint32_t>(s >> 32);
+  }
+  return out;
+}
+
+// x -= y across the warp: one lane-local borrow chain, one lookahead (a
+// lane whose difference is all zeros passes a borrow on). Returns the
+// borrow out of lane 31.
+template <int N>
+__device__ __forceinline__ uint32_t sub_warp(uint32_t (&x)[N], const uint32_t (&y)[N],
+                                             int lane) {
+  uint32_t bw = 0;
+  bool zeros = true;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const uint64_t d = static_cast<uint64_t>(x[j]) - y[j] - bw;
+    x[j] = static_cast<uint32_t>(d);
+    bw = static_cast<uint32_t>(d >> 63);
+    zeros = zeros && x[j] == 0u;
+  }
+  uint32_t out;
+  bw = lookahead(bw != 0, zeros, lane, out);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const uint64_t d = static_cast<uint64_t>(x[j]) - bw;
+    x[j] = static_cast<uint32_t>(d);
+    bw = static_cast<uint32_t>(d >> 63);
+  }
+  return out;
+}
+
+// Word `pos` of a number in the frame of N words per lane (0 when pos is at
+// or above 32 N), the same on every lane; `clear` zeroes it in x.
+template <int N>
+__device__ __forceinline__ uint32_t take_word(uint32_t (&x)[N], int pos, bool clear,
+                                              int lane) {
+  if (pos >= kWarp * N) return 0;  // warp-uniform
+  uint32_t w = 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if (N * lane + k == pos) {
+      w = x[k];
+      if (clear) x[k] = 0;
+    }
+  }
+  return __shfl_sync(kFullMask, w, pos / N);
+}
+
+// The shifting loop's end: t += sum_l p_l * 2^(32 WPL (l+1)), where p_l
+// (at most 2) is lane l's pending carry, of the weight of the next lane's
+// word 0. Returns the word 32 * WPL: lane 31's p plus the carry out of the
+// warp.
+template <int WPL>
+__device__ __forceinline__ uint32_t settle(uint32_t (&t)[WPL], uint32_t p, int lane) {
+  uint32_t c = __shfl_up_sync(kFullMask, p, 1);
+  if (lane == 0) c = 0;
+  const uint32_t top = __shfl_sync(kFullMask, p, kWarp - 1);
+  return top + add_warp<WPL, false>(t, t, c, lane);
+}
+
+// t mod n for t + ovf * 2^(32 * 32 WPL) < 2n: subtract n once when t >= n
+// (the comparison is a borrow chain and one lookahead, generate = a borrow
+// out of the lane, propagate = the lane's words equal n's).
+template <int WPL>
+__device__ __forceinline__ void finalize(uint32_t (&t)[WPL], const uint32_t (&n)[WPL],
+                                         uint32_t ovf, int lane) {
+  uint32_t bw = 0;
+  bool eq = true;
+#pragma unroll
+  for (int j = 0; j < WPL; ++j) {
+    const uint64_t d = static_cast<uint64_t>(t[j]) - n[j] - bw;
+    bw = static_cast<uint32_t>(d >> 63);
+    eq = eq && t[j] == n[j];
+  }
+  uint32_t borrow_out;
+  bw = lookahead(bw != 0, eq, lane, borrow_out);
+  if (ovf != 0 || borrow_out == 0) {  // warp-uniform
+#pragma unroll
+    for (int j = 0; j < WPL; ++j) {
+      const uint64_t d = static_cast<uint64_t>(t[j]) - n[j] - bw;
+      t[j] = static_cast<uint32_t>(d);
+      bw = static_cast<uint32_t>(d >> 63);
+    }
+  }
 }
 
 // r = a * b * R^-1 mod n (kFinalize) or the loop's t = (a*b + m*n) / R < 2n
@@ -163,50 +301,90 @@ __device__ __forceinline__ void mont_mul_warp(uint32_t (&r)[WPL],
 
   // resolve: lane l's p belongs at the next lane's word 0; lane 31's is
   // word 32 * WPL (nonzero only when W = 32 * WPL)
-  uint32_t c = __shfl_up_sync(kFullMask, p, 1);
-  if (lane == 0) c = 0;
-  const uint32_t top = __shfl_sync(kFullMask, p, kWarp - 1);
-  bool ones = true;
+  const uint32_t ovf = settle<WPL>(t, p, lane);  // t's word 32 * WPL: 0 or 1
+  if constexpr (kFinalize) finalize<WPL>(t, n, ovf, lane);
 #pragma unroll
-  for (int j = 0; j < WPL; ++j) {
-    const uint64_t s = static_cast<uint64_t>(t[j]) + c;
-    t[j] = static_cast<uint32_t>(s);
-    c = static_cast<uint32_t>(s >> 32);
-    ones = ones && t[j] == 0xFFFFFFFFu;
-  }
-  uint32_t carry_out;
-  c = lookahead(c != 0, ones, lane, carry_out);
-  const uint32_t ovf = top + carry_out;  // t's word 32 * WPL: 0 or 1
-#pragma unroll
-  for (int j = 0; j < WPL; ++j) {
-    const uint64_t s = static_cast<uint64_t>(t[j]) + c;
-    t[j] = static_cast<uint32_t>(s);
-    c = static_cast<uint32_t>(s >> 32);
-  }
+  for (int k = 0; k < WPL; ++k) r[k] = t[k];
+}
 
-  if constexpr (kFinalize) {
-    // t < 2n: subtract n once when t >= n
-    uint32_t bw = 0;
-    bool eq = true;
+// t = T * R^-1 mod n for T < n*R, R = 2^(32 W): the Montgomery reduction of
+// mont_redc.cu, mont_mul_warp's schedule with the a_i * b term dropped. t
+// enters holding T_lo = T mod R (this lane's words of it, zeros above W),
+// h holds T_hi = T / R < n the same way. Exactly W steps, each m =
+// t_0 * n0' on lane 0, broadcast, t += m * n, shift down one word; the
+// pending carry stays at most 1 because only one product is added. Then
+// one lookahead settles the pending carries and one more adds h, since
+// (T + m*n) / R = T_hi + (T_lo + m*n) / R and m depends on T_lo only (one
+// lookahead for both could owe a lane a carry of 2); the sum is below 2n,
+// and the finalize subtracts n once.
+template <int WPL>
+__device__ __forceinline__ void mont_redc_warp(uint32_t (&t)[WPL], const uint32_t (&h)[WPL],
+                                               const uint32_t (&n)[WPL], uint32_t n0inv,
+                                               int W, int lane) {
+  uint32_t p = 0;  // pending carry, of the weight of word WPL * (lane + 1)
+  for (int i = 0; i < W; ++i) {
+    const uint32_t m = __shfl_sync(kFullMask, t[0] * n0inv, 0);
+    uint32_t c = 0;  // t += m * n
 #pragma unroll
     for (int j = 0; j < WPL; ++j) {
-      const uint64_t d = static_cast<uint64_t>(t[j]) - n[j] - bw;
-      bw = static_cast<uint32_t>(d >> 63);
-      eq = eq && t[j] == n[j];
+      const uint64_t s = static_cast<uint64_t>(m) * n[j] + t[j] + c;
+      t[j] = static_cast<uint32_t>(s);
+      c = static_cast<uint32_t>(s >> 32);
     }
-    uint32_t borrow_out;
-    bw = lookahead(bw != 0, eq, lane, borrow_out);
-    if (ovf != 0 || borrow_out == 0) {  // warp-uniform
+    uint32_t up = __shfl_down_sync(kFullMask, t[0], 1);
+    if (lane == kWarp - 1) up = 0;
 #pragma unroll
-      for (int j = 0; j < WPL; ++j) {
-        const uint64_t d = static_cast<uint64_t>(t[j]) - n[j] - bw;
-        t[j] = static_cast<uint32_t>(d);
-        bw = static_cast<uint32_t>(d >> 63);
+    for (int j = 0; j + 1 < WPL; ++j) t[j] = t[j + 1];
+    const uint64_t s = static_cast<uint64_t>(up) + p + c;
+    t[WPL - 1] = static_cast<uint32_t>(s);
+    p = static_cast<uint32_t>(s >> 32);
+  }
+  uint32_t ovf = settle<WPL>(t, p, lane);
+  ovf += add_warp<WPL>(t, h, 0, lane);
+  finalize<WPL>(t, n, ovf, lane);
+}
+
+// The product of two H-word numbers x and y (this lane's HPL words each,
+// zeros at and above H): the 2H words of x * y into dst[0, 2H), this
+// warp's shared memory. mont_mul_warp's shifting schedule with no m * n:
+// H steps, each broadcasts x_i and adds x_i * y lane-locally; the word that
+// leaves lane 0 at the shift is exact (no pending carry enters lane 0) and
+// is product word i, which lane 0 writes to dst[i]. The lanes then hold
+// words [H, H + 32 HPL); one lookahead settles their pending carries (at
+// most 1 each), and each lane writes its words below 2H.
+template <int HPL>
+__device__ __forceinline__ void mul_half_warp(uint32_t* dst, const uint32_t (&x)[HPL],
+                                              const uint32_t (&y)[HPL], int H, int lane) {
+  uint32_t t[HPL];
+#pragma unroll
+  for (int k = 0; k < HPL; ++k) t[k] = 0;
+  uint32_t p = 0;
+  const int lanes = (H + HPL - 1) / HPL;
+  for (int src = 0; src < lanes; ++src) {
+#pragma unroll
+    for (int k = 0; k < HPL; ++k) {
+      if (src * HPL + k < H) {  // warp-uniform: exactly H steps
+        const uint32_t xi = __shfl_sync(kFullMask, x[k], src);
+        uint32_t c = 0;  // t += xi * y
+#pragma unroll
+        for (int j = 0; j < HPL; ++j) {
+          const uint64_t s = static_cast<uint64_t>(xi) * y[j] + t[j] + c;
+          t[j] = static_cast<uint32_t>(s);
+          c = static_cast<uint32_t>(s >> 32);
+        }
+        if (lane == 0) dst[src * HPL + k] = t[0];
+        uint32_t up = __shfl_down_sync(kFullMask, t[0], 1);
+        if (lane == kWarp - 1) up = 0;
+#pragma unroll
+        for (int j = 0; j + 1 < HPL; ++j) t[j] = t[j + 1];
+        const uint64_t s = static_cast<uint64_t>(up) + p + c;
+        t[HPL - 1] = static_cast<uint32_t>(s);
+        p = static_cast<uint32_t>(s >> 32);
       }
     }
   }
-#pragma unroll
-  for (int k = 0; k < WPL; ++k) r[k] = t[k];
+  settle<HPL>(t, p, lane);  // x * y < 2^(64 H): nothing above
+  store_lanes<HPL>(dst + H, t, H, lane);
 }
 
 }  // namespace dds

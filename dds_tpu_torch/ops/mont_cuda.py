@@ -22,12 +22,12 @@ contract: domain entry with `mul` by R^2, the ladder, exit with `mul` by 1.
 Five sources under `csrc/`, each built with nvcc for sm_90a at first use
 and bound with ctypes (`KernelLib`, one lock per source):
 - `mont_mul.cu`: `dds_mont_mul` (B1) and `dds_mont_mul_nofinal` (P);
-- `mont_exp.cu` (B3), which shares the warp-per-product core
-  `mont_warp.cuh` with `mont_mul.cu`;
-- `mont_prod3.cu` (B4);
+- `mont_exp.cu` (B3);
+- `mont_prod3.cu` (B4, one thread a column);
 - `mont_kfused.cu` (B5);
 - `mont_redc.cu`: the reduction after B4 and B5 (`mont_mxu._redc`, which
   is XLA code in the reference, not a Pallas kernel).
+All but `mont_prod3.cu` run one warp a column on the core `mont_warp.cuh`.
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain PyTorch version of `ops/montgomery.py`. Nothing
 falls back from one to the other. Each launch adds one to its kernel's

@@ -225,6 +225,25 @@ def carry_edge_operands(ctx: "ModCtx") -> list[int]:
     return list(dict.fromkeys(x for x in cands if x < n))
 
 
+def carry_edge_products(ctx: "ModCtx") -> list[int]:
+    """The reduction's carry-edge inputs T: every product of two
+    `carry_edge_operands`, then the extremes of T's range, T < top =
+    min(n*R, 2^(32 L)) (`redc` takes 2L limbs): 0, R - 1 (T / R = 0, T mod
+    R all ones), the largest multiple of R (T mod R = 0) and top - 1. At
+    even L these are 0, R - 1, R (n - 1) and n*R - 1; at odd L, where R is
+    one limb wider, top is 2^(32 L)."""
+    ops = carry_edge_operands(ctx)
+    R = ctx.R
+    top = min(ctx.n * R, 1 << (2 * LIMB_BITS * ctx.L))
+    return [x * y for x in ops for y in ops] + [0, R - 1, R * ((top - 1) // R), top - 1]
+
+
+def karatsuba_edge_operands(ctx: "ModCtx") -> list[int]:
+    """The Karatsuba product's carry-edge operands: `carry_edge_operands`
+    and the all-ones L-limb number, whose half sums both overflow."""
+    return carry_edge_operands(ctx) + [(1 << (LIMB_BITS * ctx.L)) - 1]
+
+
 def _tree_reduce_raw(cs: torch.Tensor, N: torch.Tensor, n0inv: int) -> torch.Tensor:
     """Binary-tree Montgomery product of cs (K, Lp), K a power of two:
     prod(cs) * R^-(K-1) mod n (the caller fixes the domain)."""

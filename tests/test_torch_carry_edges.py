@@ -1,23 +1,29 @@
-"""Carry-edge inputs for the warp-per-product Montgomery kernels, on the CPU.
+"""Carry-edge inputs for the warp-per-column Montgomery kernels, on the CPU.
 
 Three parts:
 
-1. A lane-level model of `dds_tpu_torch/csrc/mont_warp.cuh::mont_mul_warp`:
-   a line-for-line Python transliteration of the warp schedule with the 32
-   lanes as lists, shuffles as index maps and ballots as bit masks. It is
-   held against Python ints at WPL = 1, 2, 4 and 8 words per lane, with
-   and without the finalize, on moduli made of long runs of 0xFFFFFFFF
-   words and on the operands 0, 1, n - 1, R mod n and all-ones words
-   (`montgomery.carry_edge_moduli` / `carry_edge_operands`): the inputs
+1. Lane-level models of the warp kernels of `dds_tpu_torch/csrc/`:
+   line-for-line Python transliterations with the 32 lanes as lists,
+   shuffles as index maps and ballots as bit masks, sharing the helpers of
+   `mont_warp.cuh` (`add_warp`, `sub_warp`, `settle`, `finalize`, ...):
+   `mont_mul_warp` (B1, P and B3), `mont_redc_warp` (the reduction of
+   `mont_redc.cu`) and `mont_kfused_kernel` (B5: the half products, the half
+   sums, the corrections, the subtractions and the assembly, with the
+   column's shared-memory row as a list). Each is held against Python ints
+   at 1, 2, 4 and 8 words per lane on moduli made of long runs of
+   0xFFFFFFFF words and on the operands 0, 1, n - 1, R mod n and all-ones
+   words (`montgomery.carry_edge_moduli` / `carry_edge_operands`), and
+   REDC also on the extreme T (0, R - 1, R (n - 1), n R - 1): the inputs
    that push a pending carry or a borrow through every lane.
-2. The port's plain path (`mont_cuda.mul`, `mul_nofinal`, `exp` on CPU
-   tensors) on the same inputs: at L = 33 and 64 against
-   `pallas_mont.mul_lm`, `mont_mxu.mul2_lm` and `pallas_mont.exp_lm` in
-   interpret mode (as tests/test_torch_montgomery.py runs them), at L = 256
-   and 512 against Python ints. At odd L the port's R is one limb wider
-   than the reference's, so the reference's Montgomery-domain outputs are
-   carried over by R_ref / R before the comparison; at even L they agree
-   limb for limb.
+2. The port's plain path (`mont_cuda.mul`, `mul_nofinal`, `exp`, `redc`,
+   `prod_kf` on CPU tensors) on the same inputs: at L = 32, 33 and 64
+   against `pallas_mont.mul_lm`, `mont_mxu.mul2_lm`, `mont_mxu._redc`,
+   `mont_mxu.prod_lm_kf` and `pallas_mont.exp_lm` in interpret mode (as
+   tests/test_torch_montgomery.py runs them), at L = 256 and 512 against
+   Python ints. At odd L the port's R is one limb wider than the
+   reference's, so the reference's Montgomery-domain outputs are carried
+   over by R_ref / R before the comparison; at even L they agree limb for
+   limb.
 3. `KernelLib.library_path` keys a build on every header beside the
    source, so an edited `mont_warp.cuh` never loads a stale library.
 
@@ -42,6 +48,8 @@ from dds_tpu_torch.ops.montgomery import (
     _exp_to_digits,
     carry_edge_moduli,
     carry_edge_operands,
+    carry_edge_products,
+    karatsuba_edge_operands,
 )
 
 M32 = (1 << 32) - 1
@@ -78,6 +86,106 @@ def _lookahead(generate: list[bool], propagate: list[bool]) -> tuple[list[int], 
     return [(cin >> lane) & 1 for lane in range(LANES)], s >> 32
 
 
+def _add_warp(x: list[list[int]], y, cin: list[int], N: int) -> int:
+    """`dds::add_warp`: x += y (None: no y) + cin[lane] at each lane's word
+    0; returns the carry out of lane 31."""
+    gen, ones = [False] * LANES, [True] * LANES
+    for lane in range(LANES):
+        c = cin[lane]
+        for j in range(N):
+            s = x[lane][j] + (y[lane][j] if y is not None else 0) + c
+            x[lane][j], c = s & M32, s >> 32
+            ones[lane] = ones[lane] and x[lane][j] == M32
+        assert c <= 1, "a lane's chain carries out at most 1"
+        gen[lane] = c != 0
+    cin2, out = _lookahead(gen, ones)
+    for lane in range(LANES):
+        c = cin2[lane]
+        for j in range(N):
+            s = x[lane][j] + c
+            x[lane][j], c = s & M32, s >> 32
+        assert c == 0 or not gen[lane], "a lane owes its neighbour a carry of 2"
+    return out
+
+
+def _sub_warp(x: list[list[int]], y: list[list[int]], N: int) -> int:
+    """`dds::sub_warp`: x -= y; returns the borrow out of lane 31."""
+    gen, zeros = [False] * LANES, [True] * LANES
+    for lane in range(LANES):
+        bw = 0
+        for j in range(N):
+            d = x[lane][j] - y[lane][j] - bw
+            x[lane][j], bw = d & M32, 1 if d < 0 else 0
+            zeros[lane] = zeros[lane] and x[lane][j] == 0
+        gen[lane] = bw != 0
+    bin_, out = _lookahead(gen, zeros)
+    for lane in range(LANES):
+        bw = bin_[lane]
+        for j in range(N):
+            d = x[lane][j] - bw
+            x[lane][j], bw = d & M32, 1 if d < 0 else 0
+    return out
+
+
+def _take_word(x: list[list[int]], pos: int, clear: bool, N: int) -> int:
+    """`dds::take_word`: word `pos` of the frame (0 at and above 32 N)."""
+    if pos >= LANES * N:
+        return 0
+    w = x[pos // N][pos % N]
+    if clear:
+        x[pos // N][pos % N] = 0
+    return w
+
+
+def _settle(t: list[list[int]], p: list[int], N: int) -> int:
+    """`dds::settle`: t += each lane's pending carry at the next lane's
+    word 0 (__shfl_up_sync); returns lane 31's p + the carry out."""
+    q = [0] + p[:-1]
+    return p[LANES - 1] + _add_warp(t, None, q, N)
+
+
+def _finalize(t: list[list[int]], N_: list[list[int]], ovf: int, N: int) -> None:
+    """`dds::finalize`: subtract n once when t + ovf * 2^(32 * 32 N) >= n."""
+    bgen, eq = [False] * LANES, [True] * LANES
+    for lane in range(LANES):
+        bw = 0
+        for j in range(N):
+            d = t[lane][j] - N_[lane][j] - bw
+            bw = 1 if d < 0 else 0
+            eq[lane] = eq[lane] and t[lane][j] == N_[lane][j]
+        bgen[lane] = bw != 0
+    bin_, borrow_out = _lookahead(bgen, eq)
+    if ovf != 0 or borrow_out == 0:
+        for lane in range(LANES):
+            bw = bin_[lane]
+            for j in range(N):
+                d = t[lane][j] - N_[lane][j] - bw
+                t[lane][j], bw = d & M32, 1 if d < 0 else 0
+
+
+def _shift(t: list[list[int]], p: list[int], c: list[int], N: int) -> None:
+    """The shift down one word: lane l's new top word is the next lane's
+    word 0 (__shfl_down_sync; 0 on lane 31) + its pending carry + its
+    chain's carry out; what carries out of it is the new pending carry."""
+    up = [t[lane + 1][0] if lane < LANES - 1 else 0 for lane in range(LANES)]
+    for lane in range(LANES):
+        t[lane] = t[lane][1:] + [0]
+        s = up[lane] + p[lane] + c[lane]
+        t[lane][N - 1], p[lane] = s & M32, s >> 32
+
+
+def _chain(t: list[list[int]], xi: int, y: list[list[int]], N: int) -> list[int]:
+    """Each lane's t += xi * y, a lane-local carry chain; the carries out."""
+    out = [0] * LANES
+    for lane in range(LANES):
+        c = 0
+        for j in range(N):
+            s = xi * y[lane][j] + t[lane][j] + c
+            t[lane][j], c = s & M32, s >> 32
+        out[lane] = c
+    return out
+
+
 def warp_mont_mul(a: int, b: int, n: int, W: int, finalize: bool = True) -> int:
     """The warp schedule of `mont_mul_warp` for a, b < n < 2^(32W): the
     32 * WPL words the lanes hold at the end."""
@@ -91,65 +199,137 @@ def warp_mont_mul(a: int, b: int, n: int, W: int, finalize: bool = True) -> int:
             if src * WPL + k >= W:
                 continue
             ai = A[src][k]                                      # __shfl_sync
-            c1 = [0] * LANES
-            for lane in range(LANES):
-                c = 0
-                for j in range(WPL):
-                    s = ai * B[lane][j] + t[lane][j] + c
-                    t[lane][j], c = s & M32, s >> 32
-                c1[lane] = c
+            c1 = _chain(t, ai, B, WPL)
             m = (t[0][0] * n0inv) & M32                         # lane 0, broadcast
-            c2 = [0] * LANES
-            for lane in range(LANES):
-                c = 0
-                for j in range(WPL):
-                    s = m * N[lane][j] + t[lane][j] + c
-                    t[lane][j], c = s & M32, s >> 32
-                c2[lane] = c
+            c2 = _chain(t, m, N, WPL)
             assert t[0][0] == 0
-            up = [t[lane + 1][0] if lane < LANES - 1 else 0     # __shfl_down_sync
-                  for lane in range(LANES)]
-            for lane in range(LANES):
-                t[lane] = t[lane][1:] + [0]
-                s = up[lane] + p[lane] + c1[lane] + c2[lane]
-                t[lane][WPL - 1], p[lane] = s & M32, s >> 32
-                assert p[lane] <= 2
-    # resolve the pending carries once
-    q = [0] + p[:-1]                                            # __shfl_up_sync
-    top = p[LANES - 1]
-    gen, ones = [False] * LANES, [True] * LANES
-    for lane in range(LANES):
-        c = q[lane]
-        for j in range(WPL):
-            s = t[lane][j] + c
-            t[lane][j], c = s & M32, s >> 32
-            ones[lane] = ones[lane] and t[lane][j] == M32
-        gen[lane] = c != 0
-    cin, carry_out = _lookahead(gen, ones)
-    ovf = top + carry_out
+            _shift(t, p, [x + y for x, y in zip(c1, c2)], WPL)
+            assert max(p) <= 2
+    ovf = _settle(t, p, WPL)
     assert ovf in (0, 1)
-    for lane in range(LANES):
-        c = cin[lane]
-        for j in range(WPL):
-            s = t[lane][j] + c
-            t[lane][j], c = s & M32, s >> 32
     if finalize:
-        bgen, eq = [False] * LANES, [True] * LANES
-        for lane in range(LANES):
-            bw = 0
-            for j in range(WPL):
-                d = t[lane][j] - N[lane][j] - bw
-                bw = 1 if d < 0 else 0
-                eq[lane] = eq[lane] and t[lane][j] == N[lane][j]
-            bgen[lane] = bw != 0
-        bin_, borrow_out = _lookahead(bgen, eq)
-        if ovf != 0 or borrow_out == 0:
-            for lane in range(LANES):
-                bw = bin_[lane]
-                for j in range(WPL):
-                    d = t[lane][j] - N[lane][j] - bw
-                    t[lane][j], bw = d & M32, 1 if d < 0 else 0
+        _finalize(t, N, ovf, WPL)
     return _value(t, WPL)
+
+
+def warp_redc(T: int, n: int, W: int) -> int:
+    """The warp schedule of `mont_redc_warp` (csrc/mont_redc.cu) for
+    T < n * R: t starts as T mod R, h is T / R, W steps of m on lane 0 and
+    t += m * n with the shift, then `settle` adds the pending carries, one
+    more warp add adds h, and `finalize` subtracts n once. Returns the
+    lanes' words."""
+    WPL = words_per_lane(W)
+    n0inv = (-pow(n, -1, 1 << 32)) % (1 << 32)
+    t = _lanes(T % (1 << (32 * W)), WPL)
+    h = _lanes(T >> (32 * W), WPL)
+    N = _lanes(n, WPL)
+    p = [0] * LANES
+    for _ in range(W):
+        m = (t[0][0] * n0inv) & M32                             # lane 0, broadcast
+        c = _chain(t, m, N, WPL)
+        assert t[0][0] == 0
+        _shift(t, p, c, WPL)
+        assert max(p) <= 1
+    ovf = _settle(t, p, WPL)
+    ovf += _add_warp(t, h, [0] * LANES, WPL)
+    assert ovf in (0, 1)
+    _finalize(t, N, ovf, WPL)
+    return _value(t, WPL)
+
+
+def _load_lanes(mem: list[int], off: int, count: int, N: int) -> list[list[int]]:
+    """`dds::load_lanes`: lane l's words [N*l, N*l + N) of mem[off:],
+    zeros at and above count."""
+    return [[mem[off + N * lane + k] if N * lane + k < count else 0 for k in range(N)]
+            for lane in range(LANES)]
+
+
+def _store_lanes(mem: list[int], off: int, x: list[list[int]], count: int, N: int) -> None:
+    for lane in range(LANES):
+        for k in range(N):
+            if N * lane + k < count:
+                mem[off + N * lane + k] = x[lane][k]
+
+
+def _mul_half(mem: list[int], off: int, x, y, H: int, HPL: int) -> None:
+    """`dds::mul_half_warp`: the 2H words of x * y into mem[off:off + 2H];
+    lane 0 writes the word leaving it at each shift, the lanes the high H
+    words after `settle`."""
+    t = [[0] * HPL for _ in range(LANES)]
+    p = [0] * LANES
+    for src in range(-(-H // HPL)):
+        for k in range(HPL):
+            if src * HPL + k >= H:
+                continue
+            xi = x[src][k]                                      # __shfl_sync
+            c = _chain(t, xi, y, HPL)
+            mem[off + src * HPL + k] = t[0][0]                  # lane 0
+            _shift(t, p, c, HPL)
+            assert max(p) <= 1
+    assert _settle(t, p, HPL) == 0
+    _store_lanes(mem, off + H, t, H, HPL)
+
+
+def warp_kfused(a: int, b: int, L: int) -> int:
+    """The warp schedule of `mont_kfused_kernel` (csrc/mont_kfused.cu) for
+    L-limb a and b, L a multiple of 4: the column's row of the shared tile
+    as a list ([A | B | T], 64 HPL + 64 HPL + 128 HPL words), the three
+    half products, the half sums with their overflow bits, the corrections
+    and subtractions of the middle term in the frame of 2 HPL words a lane,
+    and the final add at word H. Returns T, the 4H words of a * b."""
+    W = L // 2
+    H = W // 2
+    HPL = words_per_lane(H)
+    DPL = 2 * HPL
+    half = LANES * HPL
+    kA, kB, kT = 0, 2 * half, 4 * half
+    row = [0] * (8 * half)
+    for j in range(W):                                          # staging
+        row[kA + j] = (a >> (32 * j)) & M32
+        row[kB + j] = (b >> (32 * j)) & M32
+    x, y = _load_lanes(row, kA, H, HPL), _load_lanes(row, kB, H, HPL)
+    _mul_half(row, kT, x, y, H, HPL)                            # z0
+    x, y = _load_lanes(row, kA + H, H, HPL), _load_lanes(row, kB + H, H, HPL)
+    _mul_half(row, kT + 2 * H, x, y, H, HPL)                    # z2
+    zero = [0] * LANES
+    u = _load_lanes(row, kA, H, HPL)
+    ca = _add_warp(x, u, zero, HPL)
+    ca += _take_word(x, H, True, HPL)                           # sa = x
+    u = _load_lanes(row, kB, H, HPL)
+    cb = _add_warp(y, u, zero, HPL)
+    cb += _take_word(y, H, True, HPL)                           # sb = y
+    assert ca in (0, 1) and cb in (0, 1)
+    _store_lanes(row, kB, x, H, HPL)
+    _store_lanes(row, kB + half, y, H, HPL)
+    _mul_half(row, kA, x, y, H, HPL)                            # z1
+
+    m = _load_lanes(row, kA, 2 * H, DPL)
+    top = 0
+    if 2 * H < LANES * DPL:
+        m[2 * H // DPL][2 * H % DPL] = ca & cb
+    else:
+        top = ca & cb
+    for s in range(2):                                          # + ca sb X, + cb sa X
+        if (ca if s == 0 else cb) != 0:
+            src = kB + half if s == 0 else kB
+            v = [[row[src + DPL * lane + k - H] if H <= DPL * lane + k < 2 * H else 0
+                  for k in range(DPL)] for lane in range(LANES)]
+            top += _add_warp(m, v, zero, DPL)
+    v = _load_lanes(row, kT, 2 * H, DPL)                        # - z0
+    top -= _sub_warp(m, v, DPL)
+    v = _load_lanes(row, kT + 2 * H, 2 * H, DPL)                # - z2
+    top -= _sub_warp(m, v, DPL)
+    assert top in (0, 1) and _value(m, DPL) + (top << (32 * LANES * DPL)) < 2 << (64 * H)
+
+    v = _load_lanes(row, kT + H, 2 * H, DPL)
+    top += _add_warp(v, m, zero, DPL)
+    top += _take_word(v, 2 * H, False, DPL)
+    assert top <= 2
+    _store_lanes(row, kT + H, v, 2 * H, DPL)
+    u = _load_lanes(row, kT + 3 * H, H, HPL)
+    assert _add_warp(u, None, [top] + [0] * (LANES - 1), HPL) == 0
+    _store_lanes(row, kT + 3 * H, u, H, HPL)
+    return sum(w << (32 * j) for j, w in enumerate(row[kT: kT + 4 * H]))
 
 
 def _cios_t(a: int, b: int, n: int, R: int) -> int:
@@ -191,6 +371,48 @@ def test_lane_model_on_random_residues_at_every_width():
         for _ in range(2):
             a, b = rng.randrange(n), rng.randrange(n)
             assert warp_mont_mul(a, b, n, W) == a * b * pow(R, -1, n) % n
+
+
+@pytest.mark.parametrize("L", [33, 36, 64, 128, 256, 512])
+def test_redc_lane_model_matches_python_ints(L):
+    """W = 17, 18, 32, 64, 128, 256: WPL = 1, 1, 1, 2, 4, 8."""
+    W = (L + 1) // 2
+    moduli = carry_edge_moduli(L)
+    for n in moduli[:2] if W > 64 else moduli:  # the model is slow in Python
+        ctx = ModCtx.make(n)
+        assert ctx.W == W
+        Rinv = pow(ctx.R, -1, n)
+        for T in carry_edge_products(ctx):
+            assert T < n * ctx.R
+            assert warp_redc(T, n, W) == T * Rinv % n, (hex(n), hex(T))
+
+
+@pytest.mark.parametrize("L", [36, 64, 128, 256, 512])
+def test_kfused_lane_model_matches_python_ints(L):
+    """H = 9, 16, 32, 64, 128 words a half: HPL = 1, 1, 1, 2, 4 (2H in the
+    frame of 2, 2, 2, 4, 8 words a lane); at L = 128, 256 and 512 a half
+    fills the lanes (H = 32 HPL), so the half sums' carries leave lane 31
+    and the middle term's top word lies above the frame."""
+    moduli = carry_edge_moduli(L)
+    for n in moduli[:2] if L > 128 else moduli:
+        ops = karatsuba_edge_operands(ModCtx.make(n))
+        for a in ops:
+            for b in ops:
+                assert warp_kfused(a, b, L) == a * b, (hex(a), hex(b))
+
+
+def test_warp_models_on_random_operands_at_every_width():
+    rng = random.Random(2027)
+    for L in (36, 64, 128, 256, 512):
+        for _ in range(2):
+            a, b = rng.getrandbits(16 * L), rng.getrandbits(16 * L)
+            assert warp_kfused(a, b, L) == a * b
+    for L in (33, 36, 64, 128, 256, 512):
+        W = (L + 1) // 2
+        n = rng.getrandbits(16 * L) | (1 << (16 * L - 1)) | 1
+        R = 1 << (32 * W)
+        T = rng.randrange(n * R)
+        assert warp_redc(T, n, W) == T * pow(R, -1, n) % n
 
 
 # -- 2. the port's plain path on the carry edges -----------------------------
@@ -292,6 +514,41 @@ def test_carry_edge_inputs_are_what_they_claim():
             assert words.count(M32) >= ctx.W // 2 - 1  # long runs of ones
             ops = carry_edge_operands(ctx)
             assert {0, 1, n - 1, ctx.R % n} <= set(ops) and all(x < n for x in ops)
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+@pytest.mark.parametrize("L", [32, 64])
+def test_redc_on_carry_edges_matches_reference_redc(L, which):
+    """`mont_cuda.redc` on CPU tensors (its plain version) against the
+    reference's XLA `mont_mxu._redc`, limb for limb, and Python ints."""
+    n = carry_edge_moduli(L)[which]
+    ctx, ref = ModCtx.make(n), RefCtx.make(n)
+    assert ctx.L == ref.L == L and ctx.R == 1 << (16 * L)
+    Ts = carry_edge_products(ctx)
+    got = mont_cuda.redc(ctx, _lm(Ts, 2 * L))
+    want = np.asarray(mont_mxu._redc(mont_mxu.MxuCtx.make(ref),
+                                     jnp.asarray(bn.ints_to_batch(Ts, 2 * L).T)))
+    np.testing.assert_array_equal(bn.to_host(got), want)
+    Rinv = pow(ctx.R, -1, n)
+    assert _ints(got) == [T * Rinv % n for T in Ts]
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+@pytest.mark.parametrize("L", [32, 64])
+def test_prod_kf_on_carry_edges_matches_prod_lm_kf(L, which):
+    """`mont_cuda.prod_kf` on CPU tensors (its plain version) against the
+    reference's fused Karatsuba product `mont_mxu.prod_lm_kf` in interpret
+    mode, compared as the integers they encode, and Python ints."""
+    n = carry_edge_moduli(L)[which]
+    ops = karatsuba_edge_operands(ModCtx.make(n))
+    a, b = [x for x in ops for _ in ops], [y for _ in ops for y in ops]
+    got = mont_cuda.prod_kf(_lm(a, L), _lm(b, L))
+    ref = mont_mxu.prod_lm_kf(jnp.asarray(bn.ints_to_batch(a, L)).T,
+                              jnp.asarray(bn.ints_to_batch(b, L)).T, interpret=True)
+    limbs = np.asarray(ref).astype(np.uint64)
+    assert got.shape == (2 * L, len(a)) and int(got.max()) <= 0xFFFF
+    assert _ints(got) == [bn.limbs_to_int(limbs[:, j]) for j in range(len(a))]
+    assert _ints(got) == [x * y for x, y in zip(a, b)]
 
 
 # -- 3. the build key covers the headers ------------------------------------

@@ -27,6 +27,8 @@ from dds_tpu_torch.ops.montgomery import (
     _exp_to_digits,
     carry_edge_moduli,
     carry_edge_operands,
+    carry_edge_products,
+    karatsuba_edge_operands,
 )
 
 pytestmark = pytest.mark.gpu
@@ -247,13 +249,16 @@ def test_fold_many_on_card_matches_python(cuda):
         assert g == want
 
 
+def _lm_ints(vals: list[int], rows: int, device) -> torch.Tensor:
+    """Limbs-major (rows, len(vals)) int32 of the ints on `device`."""
+    return bn.to_device(bn.ints_to_batch(vals, rows), device).T.contiguous()
+
+
 def _edge_operands(ctx: ModCtx, device) -> tuple[torch.Tensor, torch.Tensor]:
     """Every ordered pair of `carry_edge_operands`, limbs-major on `device`."""
     ops = carry_edge_operands(ctx)
-    a = [x for x in ops for _ in ops]
-    b = [y for _ in ops for y in ops]
-    lm = lambda v: bn.to_device(bn.ints_to_batch(v, ctx.L), device).T.contiguous()
-    return lm(a), lm(b)
+    return (_lm_ints([x for x in ops for _ in ops], ctx.L, device),
+            _lm_ints([y for _ in ops for y in ops], ctx.L, device))
 
 
 @pytest.mark.parametrize("L", [33, 256, 512])
@@ -277,3 +282,44 @@ def test_exp_on_carry_edges_matches_plain(cuda, L):
         base = bn.to_device(bn.ints_to_batch(carry_edge_operands(ctx), ctx.L), cuda)
         got = mont_cuda.exp(ctx, base.T.contiguous(), digits)
         assert torch.equal(got, ctx.mont_exp(base, digits).T)
+
+
+@pytest.mark.parametrize("L", [33, 256, 512])
+def test_redc_on_carry_edges_matches_plain(cuda, L):
+    """The warp REDC on every product of two carry-edge operands and the
+    extreme T (0, R - 1, R (n - 1), n R - 1) at W = 17, 128 and 256
+    (WPL = 1, 4, 8), then on a column slice of a wider array."""
+    for n in carry_edge_moduli(L):
+        ctx = ModCtx.make(n)
+        Ts = carry_edge_products(ctx)
+        T = _lm_ints(Ts, 2 * L, cuda)
+        before = mont_cuda.redc_launches.value
+        got = mont_cuda.redc(ctx, T)
+        torch.cuda.synchronize()
+        assert mont_cuda.redc_launches.value == before + 1
+        assert torch.equal(got, ctx.redc(T.T).T)
+        assert bn.batch_to_ints(bn.to_host(got.T)) == [x * pow(ctx.R, -1, n) % n for x in Ts]
+        B = T.shape[1]
+        wide = torch.cat([T.flip(1), T], dim=1)
+        assert torch.equal(mont_cuda.redc(ctx, wide[:, B:]), got)
+
+
+@pytest.mark.parametrize("L", [36, 256, 512])
+def test_kfused_on_carry_edges_matches_plain(cuda, L):
+    """The warp B5 on every ordered pair of the Karatsuba edge operands
+    (both half sums overflow on the all-ones operand) at H = 9, 64 and 128
+    words a half (HPL = 1, 2, 4; at 256 and 512 a half fills the lanes),
+    then on column slices of a wider array."""
+    for n in carry_edge_moduli(L):
+        ops = karatsuba_edge_operands(ModCtx.make(n))
+        xs, ys = [x for x in ops for _ in ops], [y for _ in ops for y in ops]
+        a, b = _lm_ints(xs, L, cuda), _lm_ints(ys, L, cuda)
+        before = mont_cuda.kfused_launches.value
+        got = mont_cuda.prod_kf(a, b)
+        torch.cuda.synchronize()
+        assert mont_cuda.kfused_launches.value == before + 1
+        assert torch.equal(got, mont_cuda.prod_kf(a.cpu(), b.cpu()).to(cuda))
+        assert bn.batch_to_ints(bn.to_host(got.T)) == [x * y for x, y in zip(xs, ys)]
+        B = a.shape[1]
+        wide = torch.cat([a, b], dim=1)
+        assert torch.equal(mont_cuda.prod_kf(wide[:, :B], wide[:, B:]), got)
