@@ -11,26 +11,28 @@ exits non-zero:
 
 1. device     the card, from torch and nvidia-smi (a CUDA device is required);
 2. build      nvcc for sm_90a of every kernel source (mont_mul, mont_exp,
-              mont_prod3, mont_kfused, mont_redc), all started together,
-              with each kernel's ptxas registers, stack, spills and shared
-              memory; a spill in any of the warp kernels on mont_warp.cuh
-              (mont_mul.cu, mont_exp.cu, mont_redc.cu, mont_kfused.cu)
-              fails the phase;
+              mont_prod3, mont_kfused, mont_redc, mont_k1), all started
+              together, with each kernel's ptxas registers, stack, spills
+              and shared memory; a spill in any of them (every one is a
+              warp kernel on mont_warp.cuh) fails the phase;
 3. parity     the Montgomery-multiply kernel against its plain version on
               the card at L = 256, B = 4096 (bit-exact), on column slices,
               at L = 33 and 512, on the carry-edge inputs (moduli of long
               0xFFFFFFFF runs; operands 0, 1, n - 1, R mod n, all-ones
               words) at L = 33, 256 and 512, and a K = 65,536 fold against
               the Python-int product mod n^2;
-4. parity     (what = "karatsuba") B4, B5 and the reduction against their
-              plain versions at L = 256, B = 4,096 (bit-exact); B5 and the
-              reduction on column slices and on the carry-edge inputs (B5
-              at L = 36, 256 and 512 with the all-ones operand, the
-              reduction at L = 33, 256 and 512 with the extreme T = 0,
-              R - 1, R (n - 1), n R - 1); `mul` under k1 and fused equal
-              to mode 0; the K = 65,536 fold in each mode against Python;
-              at L = 33 and 36 the modes route to the CIOS kernel (the
-              B4 / B5 counters do not move);
+4. parity     (what = "karatsuba") B4, mode 1's half sums and
+              recombination (mont_k1.cu), B5 and the reduction against
+              their plain versions at L = 256, B = 4,096 (bit-exact), on
+              column slices (B4 also on row slices); on the carry-edge
+              inputs: B4 at h = 9, 32, 128 and 256, the mode-1 launches at
+              L = 64, 256 and 512, B5 at L = 36, 256 and 512 with the
+              all-ones operand, the reduction at L = 33, 256 and 512 with
+              the extreme T = 0, R - 1, R (n - 1), n R - 1; `mul` under k1
+              (at L = 64, 256 and 512) and fused equal to mode 0; the
+              K = 65,536 fold in each mode against Python; at L = 33 and
+              36 the modes route to the CIOS kernel (the B4 / B5 counters
+              do not move);
 5. parity     (what = "nofinal") the no-finalize probe P against its plain
               version at L = 256, B = 8,192 (bit-exact), on column slices,
               at L = 33 and 512 and on the carry-edge inputs;
@@ -45,10 +47,12 @@ exits non-zero:
               and the least time the card could take (the bound); the
               K = 8,192 fold level by level (what = "fold_levels": each
               level's device ms, the host's dispatch ms for the fold);
-8. timing     the K = 8,192 fold in each mode, and in mode 2 level by level
-              (what = "fold_levels", mode = "fused": each level's B5 and
-              REDC device ms); one B = 4,096 launch of B4,
-              B5 and the reduction; `mul` and `mul_nofinal` at B = 8,192 and
+8. timing     the K = 8,192 fold in each mode, and in modes 1 and 2 level
+              by level (what = "fold_levels", mode = "k1" | "fused": each
+              level's product (the three launches of `prod_k1`, or B5) and
+              REDC device ms); one B = 4,096 launch of B4, of each mode-1
+              launch around it, of B5 and of the reduction; `mul` and
+              `mul_nofinal` at B = 8,192 and
               the finalize share (mul - nofinal) / mul, as
               benchmarks/profile_kernel.py prints it (P's own path: its
               counter is zeroed before and read after);
@@ -87,8 +91,8 @@ exits non-zero:
                                        # exits 3 and prints no result
     python3 chip_smoke.py --ab PARENT [--phases e2e,client]
         # on the card: another checkout (PARENT) against this one in turns,
-        # parent, change, change, parent: the B1/P/B3/B5/REDC kernel times
-        # and the mode-0 and mode-2 folds, or each tree's own chip_smoke
+        # parent, change, change, parent: the B1/P/B3/B4/B5/REDC kernel
+        # times and the folds of every mode, or each tree's own chip_smoke
         # phases; prints no result line
 
 Bound: one 4096-bit Montgomery product in W = 128 32-bit words is
@@ -99,8 +103,9 @@ input row read once and the output written once, at 3.35 TB/s. A modexp
 row is 5E + 14 products in the exp kernel (the window table, then 4
 squarings and 1 multiply per digit) and 5E + 16 in pow_mod. B4 and B5 are
 3 (W/2)^2 word products a column, the reduction W^2 + W, so a Karatsuba
-multiply is 28,800 against CIOS's 32,896 at W = 128. B5 and the
-reduction run one warp a column on the same core as B1 and B3.
+multiply is 28,800 against CIOS's 32,896 at W = 128. Mode 1's half sums
+and recombination are adds, bound by bytes. Every kernel runs one warp a
+column on the same core.
 
 On a card without the `cryptography` package the AES-backed columns (CHE,
 None) run as the "Plain" null cipher in the client phase, the reference's
@@ -179,9 +184,12 @@ def bound_ms(imads: float, nbytes: float, sms: int, clock_mhz: float) -> tuple[f
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def time_ms(fn, reps: int, warm: int, device) -> tuple[float, object]:
+def time_ms(fn, reps: int, warm: int, device, hold: bool = False) -> tuple[float, object]:
     """Mean ms per call: CUDA events around `reps` warmed calls on the card,
-    the host clock on the CPU."""
+    the host clock on the CPU. With `hold` the stream is held
+    (`torch.cuda._sleep`) while the host queues the calls, so a launch of a
+    few tens of microseconds reads the device's time per call and not the
+    host's time per wrapper call."""
     import torch
 
     out = None
@@ -190,6 +198,8 @@ def time_ms(fn, reps: int, warm: int, device) -> tuple[float, object]:
     if device.type == "cuda":
         torch.cuda.synchronize()
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(50_000_000)  # ~25 ms: the host queues every call meanwhile
         t0.record()
         for _ in range(reps):
             out = fn()
@@ -204,8 +214,8 @@ def time_ms(fn, reps: int, warm: int, device) -> tuple[float, object]:
 
 # the sources whose kernels must keep operands and accumulator in registers
 # (the warp kernels of mont_warp.cuh)
-NO_SPILL_SOURCES = ("dds_tpu_torch/csrc/mont_mul.cu", "dds_tpu_torch/csrc/mont_exp.cu",
-                    "dds_tpu_torch/csrc/mont_redc.cu", "dds_tpu_torch/csrc/mont_kfused.cu")
+NO_SPILL_SOURCES = tuple(f"dds_tpu_torch/csrc/{name}.cu" for name in (
+    "mont_mul", "mont_exp", "mont_redc", "mont_kfused", "mont_prod3", "mont_k1"))
 
 
 def ptxas_report(log: str) -> dict:
@@ -335,7 +345,7 @@ def phase_timing(ctx, dev, sizes, card) -> dict:
     B = sizes["B"]
     a = bn.to_device(residues(ctx, B, 7), dev).T.contiguous()
     b = bn.to_device(residues(ctx, B, 8), dev).T.contiguous()
-    ms, _ = time_ms(lambda: mont_cuda.mul(ctx, a, b), sizes["reps_path"], 2, dev)
+    ms, _ = time_ms(lambda: mont_cuda.mul(ctx, a, b), sizes["reps_path"], 2, dev, hold=True)
     pms, _ = time_ms(lambda: ctx.mont_mul(a.T, b.T), sizes["reps_plain"], 1, dev)
     imads = B * (2 * ctx.W * ctx.W + ctx.W) * 2
     bms, by = bound_ms(imads, 3 * B * ctx.L * 4, card["sms"], card["clock_mhz"])
@@ -345,15 +355,18 @@ def phase_timing(ctx, dev, sizes, card) -> dict:
 
 
 def fold_levels(ctx, rows, dev, reps: int, mode=False) -> dict:
-    """The K-row fold launch by launch, in mode 0 (`mode` False: one
-    `mont_mul` launch a level) or mode 2 ("fused": a B5 then a REDC launch
-    a level): each level's device ms (in mode 2 also each launch's), and
-    the host's dispatch ms for the whole fold (`reduce_mul` itself, not
+    """The K-row fold level by level, in mode 0 (`mode` False: one
+    `mont_mul` launch a level), mode 1 ("k1": `karatsuba.prod_k1`, then a
+    REDC launch) or mode 2 ("fused": a B5 then a REDC launch): each level's
+    device ms (in modes 1 and 2 also its product's and its REDC's), and the
+    host's dispatch ms for the whole fold (`reduce_mul` itself, not
     synchronised). The levels are `reduce_mul`'s, replayed with a CUDA
-    event after each launch while the stream is held (`torch.cuda._sleep`)
-    until the host has queued them all, so no level's time includes the
-    host's gap before it; the replay must give `reduce_mul`'s result. On
-    the CPU (rehearsal) the marks are host clock readings."""
+    event after each product and each REDC while the stream is held
+    (`torch.cuda._sleep`) until the host has queued them all, so no level's
+    time includes the host's gap before it; the replay must give
+    `reduce_mul`'s result. Only public `mont_cuda` and `karatsuba` calls,
+    so it times any tree's package. On the CPU (rehearsal) the marks are
+    host clock readings."""
     import torch
     from dds_tpu_torch.ops import karatsuba, mont_cuda
 
@@ -378,7 +391,9 @@ def fold_levels(ctx, rows, dev, reps: int, mode=False) -> dict:
                       for _ in range(per_level_launches * len(widths) + 1)]
             marks = iter(events)
             mark = lambda: next(marks).record()
-            torch.cuda._sleep(50_000_000)  # ~25 ms: the host queues every level meanwhile
+            # ~25 ms, ~200 ms in mode 1, where `--ab` also times trees whose
+            # `prod_k1` is PyTorch ops: the host queues every level meanwhile
+            torch.cuda._sleep(400_000_000 if mode == "k1" else 50_000_000)
         else:
             events = []
             mark = lambda: (sync(dev), events.append(time.perf_counter() * 1e3))
@@ -387,7 +402,7 @@ def fold_levels(ctx, rows, dev, reps: int, mode=False) -> dict:
             if not mode:
                 x = mont_cuda.mul(ctx, x, y, karatsuba=False)
             else:
-                T = karatsuba.prod_kf(x, y)
+                T = karatsuba.prod_kf(x, y) if mode == "fused" else karatsuba.prod_k1(x, y)
                 mark()
                 x = mont_cuda.redc(ctx, T)
             mark()
@@ -410,7 +425,8 @@ def fold_levels(ctx, rows, dev, reps: int, mode=False) -> dict:
     rec = {"K": K, "mode": mode or "cios", "widths": widths, "level_device_ms": levels,
            "device_ms": sum(levels), "host_dispatch_ms": statistics.median(host), "reps": reps}
     if mode:
-        rec["level_kfused_ms"], rec["level_redc_ms"] = launches[0::2], launches[1::2]
+        product = "kfused" if mode == "fused" else "prod_k1"
+        rec[f"level_{product}_ms"], rec["level_redc_ms"] = launches[0::2], launches[1::2]
     return rec
 
 
@@ -529,18 +545,17 @@ ODD_MODULI = {33: (1 << 519) | 0x1F3 | (12345 << 200),   # L = 33: odd
 
 
 def karatsuba_operands(ctx, B: int, seed: int, dev):
-    """(a, b, the six B4 operands) at the fold's shape: the halves of two
-    limbs-major (L, B) residue batches and their normalized half sums."""
-    import torch
+    """(a, b, s, the six B4 operands) at the fold's shape: two limbs-major
+    (L, B) residue batches, their half sums s = [sa | sb | ca | cb] from the
+    plain version, and B4's operands as row slices of a, b and s."""
     from dds_tpu_torch.ops import bignum as bn
-    from dds_tpu_torch.ops import karatsuba
+    from dds_tpu_torch.ops import montgomery
 
     a = bn.to_device(residues(ctx, B, seed), dev).T.contiguous()
     b = bn.to_device(residues(ctx, B, seed + 1), dev).T.contiguous()
     h = ctx.L // 2
-    sa, _ = karatsuba.carry_norm(a[:h].to(torch.int64) + a[h:])
-    sb, _ = karatsuba.carry_norm(b[:h].to(torch.int64) + b[h:])
-    return a, b, (a[:h], b[:h], a[h:], b[h:], sa.to(torch.int32), sb.to(torch.int32))
+    s = montgomery.k1_halfsums(a.T, b.T).T.contiguous()
+    return a, b, s, (a[:h], b[:h], a[h:], b[h:], s[:h], s[h: 2 * h])
 
 
 def max_abs_diff(x, y) -> int:
@@ -549,7 +564,14 @@ def max_abs_diff(x, y) -> int:
 
 EDGE_LS = (33, 256, 512)  # W = 17, 128, 256: 1, 4 and 8 words per lane
 KFUSED_EDGE_LS = (36, 256, 512)  # H = 9, 64, 128: 1, 2 and 4 words per lane
+PROD3_EDGE_HS = (9, 32, 128, 256)  # B4: H = 5, 16, 64, 128: 1, 1, 2 and 4 words per lane
+K1_EDGE_LS = (64, 256, 512)  # mode 1's launches: H = 16, 64, 128
 WIDE_MODULUS = (1 << 8191) | (0x9E3779B97F4A7C15 << 4000) | 0x2B  # L = 512
+# `mul` under k1 against mode 0 at L = 64 (RSA-1024, MultAll's width) and 512
+K1_MUL_MODULI = ((1 << 1023) | (0x9E3779B97F4A7C15 << 500) | 0x3B, WIDE_MODULUS)
+# every counter of the Karatsuba families' launches
+KARATSUBA_KERNELS = ("mont_prod3", "mont_k1_halfsums", "mont_k1_combine", "mont_kfused",
+                     "mont_redc")
 
 
 def limbs_major(vals: list[int], rows: int, dev):
@@ -595,42 +617,101 @@ def edge_parity(dev, kernel, plain, what: str, Ls=EDGE_LS, inputs=pair_inputs) -
     return checked
 
 
+def prod3_edge_parity(dev) -> int:
+    """B4 against its plain version (bit-exact) on its carry-edge columns
+    (`montgomery.prod3_edge_columns`) at each h of `PROD3_EDGE_HS`, a0/a1,
+    b0/b1 and sa/sb passed as row slices of three (2h, B) tensors; returns
+    the columns checked."""
+    import torch
+    from dds_tpu_torch.ops import mont_cuda, montgomery
+
+    checked = 0
+    for h in PROD3_EDGE_HS:
+        cols = montgomery.prod3_edge_columns(h)
+        # the columns are (a0, b0, a1, b1, sa, sb)
+        a, b, s = (torch.cat([limbs_major([c[i] for c in cols], h, dev) for i in rows])
+                   for rows in ((0, 2), (1, 3), (4, 5)))
+        args = (a[:h], b[:h], a[h:], b[h:], s[:h], s[h:])
+        if not torch.equal(mont_cuda.prod3(*args), montgomery.prod3(*(x.T for x in args)).T):
+            raise AssertionError(f"mont_prod3 kernel != plain on carry edges at h={h}")
+        checked += len(cols)
+    return checked
+
+
+def k1_combine_inputs(ctx, dev) -> tuple:
+    """(z, s): B4's plain output and the plain half sums of every ordered
+    pair of `montgomery.karatsuba_edge_operands`, the recombination's
+    carry-edge inputs."""
+    from dds_tpu_torch.ops import montgomery
+
+    a, b = pair_inputs(ctx, dev, montgomery.karatsuba_edge_operands)
+    h = ctx.L // 2
+    s = montgomery.k1_halfsums(a.T, b.T)
+    z = montgomery.prod3(a.T[:, :h], b.T[:, :h], a.T[:, h:], b.T[:, h:], s[:, :h],
+                         s[:, h: 2 * h])
+    return z.T.contiguous(), s.T.contiguous()
+
+
 def phase_parity_karatsuba(ctx, dev, sizes, k_rows) -> dict:
-    """B4, B5 and the reduction against their plain versions on the card
-    (bit-exact) at the fold's shape, B5 and the reduction also on column
-    slices and on the carry-edge inputs (B5 at L = 36, 256 and 512, the
-    reduction at L = 33, 256 and 512 with the extreme T), `mul` in each
-    Karatsuba mode against mode 0, a K-row fold in each mode against the
-    Python-int product, and the shape rule: at L = 33 and 36 the modes
+    """B4, mode 1's half sums and recombination, B5 and the reduction
+    against their plain versions on the card (bit-exact) at the fold's
+    shape and on column slices (B4 also on row slices), then on the
+    carry-edge inputs (B4 at h = 9, 32, 128 and 256, the mode-1 launches at
+    L = 64, 256 and 512, B5 at L = 36, 256 and 512, the reduction at L = 33,
+    256 and 512 with the extreme T), `mul` in each Karatsuba mode against
+    mode 0 (k1 at L = 64, 256 and 512), a K-row fold in each mode against
+    the Python-int product, and the shape rule: at L = 33 and 36 the modes
     route to the CIOS kernel."""
     import torch
     from dds_tpu_torch.ops import bignum as bn
     from dds_tpu_torch.ops import mont_cuda, montgomery
     from dds_tpu_torch.ops.montgomery import ModCtx
 
-    B = sizes["B"]
-    a, b, ops = karatsuba_operands(ctx, B, 40, dev)
+    B, L, h = sizes["B"], ctx.L, ctx.L // 2
+    a, b, s, ops = karatsuba_operands(ctx, B, 40, dev)
     kf = mont_cuda.prod_kf(a, b)
+    z = mont_cuda.prod3(*ops)
     errs = {
-        "mont_prod3": max_abs_diff(mont_cuda.prod3(*ops),
-                                   montgomery.prod3(*(x.T for x in ops)).T),
+        "mont_prod3": max_abs_diff(z, montgomery.prod3(*(x.T for x in ops)).T),
+        "mont_k1_halfsums": max_abs_diff(mont_cuda.k1_halfsums(a, b), s),
+        "mont_k1_combine": max_abs_diff(mont_cuda.k1_combine(z, s, L),
+                                        montgomery.k1_combine(z.T, s.T, L).T),
         "mont_kfused": max_abs_diff(kf, montgomery.prod_kf(a.T, b.T).T),
     }
     T = montgomery.prod(a.T, b.T).T.contiguous()
     red = mont_cuda.redc(ctx, T)
     errs["mont_redc"] = max_abs_diff(red, ctx.redc(T.T).T)
     if any(errs.values()):
-        raise AssertionError(f"Karatsuba kernels != plain at L={ctx.L}, B={B}: {errs}")
+        raise AssertionError(f"Karatsuba kernels != plain at L={L}, B={B}: {errs}")
     wide = torch.cat([a, b], dim=1)  # column slices, as a fold level passes them
-    if not torch.equal(mont_cuda.prod_kf(wide[:, :B], wide[:, B:]), kf):
+    xa, xb = wide[:, :B], wide[:, B:]
+    if not torch.equal(mont_cuda.prod_kf(xa, xb), kf):
         raise AssertionError("mont_kfused kernel on column slices != contiguous operands")
+    if not torch.equal(mont_cuda.k1_halfsums(xa, xb), s):
+        raise AssertionError("mont_k1_halfsums kernel on column slices != contiguous operands")
+    if not torch.equal(mont_cuda.prod3(xa[:h], xb[:h], xa[h:], xb[h:], *ops[4:]), z):
+        raise AssertionError("mont_prod3 kernel on column slices != contiguous operands")
+    zs = torch.cat([z.flip(1), z], dim=1)[:, B:]
+    ss = torch.cat([s.flip(1), s], dim=1)[:, B:]
+    if not torch.equal(mont_cuda.k1_combine(zs, ss, L), montgomery.k1_combine(z.T, s.T, L).T):
+        raise AssertionError("mont_k1_combine kernel on column slices != contiguous inputs")
     if not torch.equal(mont_cuda.redc(ctx, torch.cat([T.flip(1), T], dim=1)[:, B:]), red):
         raise AssertionError("mont_redc kernel on a column slice != contiguous T")
+    karatsuba_pairs = lambda c, d: pair_inputs(c, d, montgomery.karatsuba_edge_operands)
     edges = {
+        "mont_prod3": prod3_edge_parity(dev),
+        "mont_k1_halfsums": edge_parity(
+            dev, lambda c, x, y: mont_cuda.k1_halfsums(x, y),
+            lambda c, x, y: montgomery.k1_halfsums(x.T, y.T).T, "mont_k1_halfsums",
+            K1_EDGE_LS, karatsuba_pairs),
+        "mont_k1_combine": edge_parity(
+            dev, lambda c, zz, sz: mont_cuda.k1_combine(zz, sz, c.L),
+            lambda c, zz, sz: montgomery.k1_combine(zz.T, sz.T, c.L).T, "mont_k1_combine",
+            K1_EDGE_LS, k1_combine_inputs),
         "mont_kfused": edge_parity(
             dev, lambda c, x, y: mont_cuda.prod_kf(x, y),
             lambda c, x, y: montgomery.prod_kf(x.T, y.T).T, "mont_kfused", KFUSED_EDGE_LS,
-            lambda c, d: pair_inputs(c, d, montgomery.karatsuba_edge_operands)),
+            karatsuba_pairs),
         "mont_redc": edge_parity(dev, mont_cuda.redc, lambda c, t: c.redc(t.T).T,
                                  "mont_redc", EDGE_LS, redc_inputs),
     }
@@ -638,6 +719,13 @@ def phase_parity_karatsuba(ctx, dev, sizes, k_rows) -> dict:
     for mode in ("k1", "fused"):
         if max_abs_diff(mont_cuda.mul(ctx, a, b, karatsuba=mode), cios):
             raise AssertionError(f"mul under {mode} != mul under mode 0")
+    for n in K1_MUL_MODULI:
+        other = ModCtx.make(n)
+        oa = bn.to_device(residues(other, 300, 47), dev).T.contiguous()
+        ob = bn.to_device(residues(other, 300, 48), dev).T.contiguous()
+        if max_abs_diff(mont_cuda.mul(other, oa, ob, karatsuba="k1"),
+                        mont_cuda.mul(other, oa, ob, karatsuba=False)):
+            raise AssertionError(f"mul under k1 != mul under mode 0 at L={other.L}")
     K, rows, want = k_rows
     folds_s = {}
     for mode in (False, "k1", "fused"):
@@ -647,29 +735,33 @@ def phase_parity_karatsuba(ctx, dev, sizes, k_rows) -> dict:
             raise AssertionError(f"K={K} fold under {mode or 'cios'} != Python-int product")
         folds_s[mode or "cios"] = time.perf_counter() - t
     routed = {}
-    for L, n in ODD_MODULI.items():
+    for L_odd, n in ODD_MODULI.items():
         odd = ModCtx.make(n)
-        if odd.L != L:
-            raise AssertionError(f"modulus for L={L} has L={odd.L}")
+        if odd.L != L_odd:
+            raise AssertionError(f"modulus for L={L_odd} has L={odd.L}")
         oa = bn.to_device(residues(odd, 300, 41), dev).T.contiguous()
         ob = bn.to_device(residues(odd, 300, 42), dev).T.contiguous()
         ints = zip(bn.batch_to_ints(bn.to_host(oa.T)), bn.batch_to_ints(bn.to_host(ob.T)))
         Rinv = pow(odd.R, -1, n)
         want_odd = [x * y * Rinv % n for x, y in ints]
-        before = {k: mont_cuda.LAUNCHES[k].value for k in ("mont_prod3", "mont_kfused")}
+        before = {k: mont_cuda.LAUNCHES[k].value for k in KARATSUBA_KERNELS}
         for mode in ("k1", "fused"):
             got = bn.batch_to_ints(bn.to_host(mont_cuda.mul(odd, oa, ob, karatsuba=mode).T))
             if got != want_odd:
-                raise AssertionError(f"mul under {mode} at L={L} != Python")
+                raise AssertionError(f"mul under {mode} at L={L_odd} != Python")
         sync(dev)
         after = {k: mont_cuda.LAUNCHES[k].value for k in before}
         if after != before:
-            raise AssertionError(f"L={L} took the Karatsuba route: {before} -> {after}")
-        routed[L] = "cios"
-    rec = {"L": ctx.L, "B": B, "max_abs_err": errs, "tolerance": 0, "slices": True,
-           "carry_edge_columns": edges, "carry_edge_L": {"mont_kfused": KFUSED_EDGE_LS,
-                                                         "mont_redc": EDGE_LS},
-           "modes_equal_cios": True, "fold_K": K, "fold_equals_python_int": True,
+            raise AssertionError(f"L={L_odd} took the Karatsuba route: {before} -> {after}")
+        routed[L_odd] = "cios"
+    rec = {"L": L, "B": B, "max_abs_err": errs, "tolerance": 0, "slices": True,
+           "carry_edge_columns": edges,
+           "carry_edge_L": {"mont_prod3": [2 * x for x in PROD3_EDGE_HS],
+                            "mont_k1": K1_EDGE_LS, "mont_kfused": KFUSED_EDGE_LS,
+                            "mont_redc": EDGE_LS},
+           "modes_equal_cios": True, "k1_equal_cios_L": sorted(
+               [L] + [ModCtx.make(n).L for n in K1_MUL_MODULI]),
+           "fold_K": K, "fold_equals_python_int": True,
            "fold_first_call_s": folds_s, "shape_rule": routed}
     emit("parity", what="karatsuba", **rec)
     return rec
@@ -716,9 +808,11 @@ def word_products(ctx, kind: str) -> int:
 
 
 def phase_timing_karatsuba(ctx, dev, sizes, card) -> dict:
-    """CUDA-event times of the path-shaped fold in each mode, one launch of
-    B4, B5 and the reduction, and the finalize-share probe (mul against
-    mul_nofinal), each beside its bound and its plain version's time."""
+    """CUDA-event times of the path-shaped fold in each mode (in modes 1
+    and 2 also level by level), one launch of B4, of mode 1's half sums and
+    recombination, of B5 and of the reduction, and the finalize-share probe
+    (mul against mul_nofinal), each beside its bound and its plain
+    version's time."""
     from dds_tpu_torch.ops import bignum as bn
     from dds_tpu_torch.ops import mont_cuda, montgomery
 
@@ -735,28 +829,40 @@ def phase_timing_karatsuba(ctx, dev, sizes, card) -> dict:
         out["fold"][name] = {"ms": ms, "bound_ms": bms, "bound_by": by}
         emit("timing", what="fold_mode", mode=name, K=K, ms=ms, bound_ms=bms, bound_by=by,
              word_products_per_multiply=per, reps=reps)
-    levels = fold_levels(ctx, rows, dev, 5, mode="fused")
-    out["fold"]["fused"]["device_ms"] = levels["device_ms"]
-    emit("timing", what="fold_levels", **levels)
+    for mode in ("k1", "fused"):
+        levels = fold_levels(ctx, rows, dev, 5, mode=mode)
+        out["fold"][mode]["device_ms"] = levels["device_ms"]
+        out["fold"][mode]["host_dispatch_ms"] = levels["host_dispatch_ms"]
+        emit("timing", what="fold_levels", **levels)
 
     B = sizes["B"]
-    a, b, ops = karatsuba_operands(ctx, B, 50, dev)
+    a, b, s, ops = karatsuba_operands(ctx, B, 50, dev)
+    z = mont_cuda.prod3(*ops)
     T = montgomery.prod(a.T, b.T).T.contiguous()
     L, h = ctx.L, ctx.L // 2
+    # name: (kernel, plain version, word multiply-adds a column, int32 rows
+    # moved a column: inputs read once, the output written once)
     launches = {
         "mont_prod3": (lambda: mont_cuda.prod3(*ops),
                        lambda: montgomery.prod3(*(x.T for x in ops)).T,
-                       "prod3", 12 * h * B * 4),
+                       word_products(ctx, "prod3"), 12 * h),
+        "mont_k1_halfsums": (lambda: mont_cuda.k1_halfsums(a, b),
+                             lambda: montgomery.k1_halfsums(a.T, b.T).T,
+                             0, 2 * L + 2 * h + 2),
+        "mont_k1_combine": (lambda: mont_cuda.k1_combine(z, s, L),
+                            lambda: montgomery.k1_combine(z.T, s.T, L).T,
+                            0, 8 * h + 2 + 2 * L),
         "mont_kfused": (lambda: mont_cuda.prod_kf(a, b),
-                        lambda: montgomery.prod_kf(a.T, b.T).T, "kfused", 4 * L * B * 4),
+                        lambda: montgomery.prod_kf(a.T, b.T).T,
+                        word_products(ctx, "kfused"), 4 * L),
         "mont_redc": (lambda: mont_cuda.redc(ctx, T), lambda: ctx.redc(T.T).T,
-                      "redc", 3 * L * B * 4),
+                      word_products(ctx, "redc"), 3 * L),
     }
-    for name, (kernel, plain, kind, nbytes) in launches.items():
-        ms, _ = time_ms(kernel, reps, 2, dev)
+    for name, (kernel, plain, products, rows_moved) in launches.items():
+        ms, _ = time_ms(kernel, reps, 2, dev, hold=True)
         pms, _ = time_ms(plain, sizes["reps_plain"], 1, dev)
-        bms, by = bound_ms(B * word_products(ctx, kind) * 2, nbytes, card["sms"],
-                           card["clock_mhz"])
+        nbytes = rows_moved * B * 4
+        bms, by = bound_ms(B * products * 2, nbytes, card["sms"], card["clock_mhz"])
         out[name] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by}
         emit("timing", what=name, L=L, B=B, **out[name], bytes=nbytes)
 
@@ -765,8 +871,9 @@ def phase_timing_karatsuba(ctx, dev, sizes, card) -> dict:
     pa = bn.to_device(residues(ctx, Bp, 51), dev).T.contiguous()
     pb = bn.to_device(residues(ctx, Bp, 52), dev).T.contiguous()
     mont_cuda.nofinal_launches.reset()
-    mul_ms, _ = time_ms(lambda: mont_cuda.mul(ctx, pa, pb, karatsuba=False), reps, 2, dev)
-    nf_ms, _ = time_ms(lambda: mont_cuda.mul_nofinal(ctx, pa, pb), reps, 2, dev)
+    mul_ms, _ = time_ms(lambda: mont_cuda.mul(ctx, pa, pb, karatsuba=False), reps, 2, dev,
+                        hold=True)
+    nf_ms, _ = time_ms(lambda: mont_cuda.mul_nofinal(ctx, pa, pb), reps, 2, dev, hold=True)
     sync(dev)
     probe_launches = mont_cuda.nofinal_launches.value
     pms, _ = time_ms(lambda: ctx.mont_mul_nofinal(pa.T, pb.T), sizes["reps_plain"], 1, dev)
@@ -877,9 +984,10 @@ def sumall_fn(port: int, nsquare: int):
 
 
 # the kernels each DDS_KARATSUBA mode's SumAll must launch, and must not
-MODE_KERNELS = {"0": {"mont_mul"}, "1": {"mont_prod3", "mont_redc"},
+MODE_KERNELS = {"0": {"mont_mul"},
+                "1": {"mont_prod3", "mont_k1_halfsums", "mont_k1_combine", "mont_redc"},
                 "2": {"mont_kfused", "mont_redc"}}
-FOLD_KERNELS = ("mont_mul", "mont_prod3", "mont_kfused", "mont_redc")
+FOLD_KERNELS = ("mont_mul",) + KARATSUBA_KERNELS
 
 
 async def phase_e2e(dev, sizes) -> dict:
@@ -984,6 +1092,8 @@ async def phase_e2e(dev, sizes) -> dict:
         "launches_per_sumall": m0["launches"]["mont_mul"] / m0["sumalls"],
         "decrypt_ok": True,
         "karatsuba_modes": {m: modes[m] for m in ("1", "2")},
+        "reduce_dispatch_ms": {m: modes[m]["phase_mean_ms"].get("kernel.store.reduce.dispatch")
+                               for m in ("0", "1", "2")},
     }
     emit("e2e", **rec)
     return rec
@@ -1199,13 +1309,16 @@ async def phase_client(dev, sizes) -> dict:
 
 
 def kernel_times(sizes) -> dict:
-    """CUDA-event ms of the B1, P, B3, B5 and REDC launches at the timing
-    phases' shapes, kernels only: the K_big and K_path mode-0 folds, one B
-    `mul`, `mul` and `mul_nofinal` at B_probe, one exp launch (exponent n)
-    at B_exp and at one client's width, one B launch of B5 and of REDC, the
-    K_path mode-2 fold, and both K_path folds on the device level by level
-    (`fold_levels`). Only public `mont_cuda` and `karatsuba` calls, so the
-    same code times any tree's package (`--times --tree`)."""
+    """CUDA-event ms of the B1, P, B3, B4, B5 and REDC launches at the
+    timing phases' shapes (single launches with the stream held,
+    `time_ms(hold=True)`), kernels only: the K_big and K_path mode-0 folds,
+    one B `mul`, `mul` and `mul_nofinal` at B_probe, one exp launch
+    (exponent n) at B_exp and at one client's width, one B launch of B4, B5
+    and REDC, the K_path mode-1 and mode-2 folds, and the K_path folds of
+    all three modes on the device level by level (`fold_levels`). Only
+    public `mont_cuda` and `karatsuba` calls that the parent's package has
+    too, so the same code times any tree's package (`--times --tree`); mode
+    1's own launches around B4 are timed in the timing phase only."""
     import torch
     from dds_tpu_torch.bench_key import bench_paillier_key
     from dds_tpu_torch.ops import bignum as bn
@@ -1229,10 +1342,11 @@ def kernel_times(sizes) -> dict:
         a = bn.to_device(residues(ctx, B, seed), dev).T.contiguous()
         b = bn.to_device(residues(ctx, B, seed + 1), dev).T.contiguous()
         out[f"mul_B{B}_ms"], _ = time_ms(
-            lambda: mont_cuda.mul(ctx, a, b, karatsuba=False), sizes["reps_path"], 2, dev)
+            lambda: mont_cuda.mul(ctx, a, b, karatsuba=False), sizes["reps_path"], 2, dev,
+            hold=True)
         if B == sizes["B_probe"]:
             out[f"mul_nofinal_B{B}_ms"], _ = time_ms(
-                lambda: mont_cuda.mul_nofinal(ctx, a, b), sizes["reps_path"], 2, dev)
+                lambda: mont_cuda.mul_nofinal(ctx, a, b), sizes["reps_path"], 2, dev, hold=True)
     digits = torch.from_numpy(_exp_to_digits(key.n).astype(np.int32)).to(dev)
     out["E"] = len(digits)
     base = bn.to_device(residues(ctx, sizes["B_exp"], 34), dev).T.contiguous()
@@ -1244,13 +1358,20 @@ def kernel_times(sizes) -> dict:
     a = bn.to_device(residues(ctx, B, 50), dev).T.contiguous()
     b = bn.to_device(residues(ctx, B, 51), dev).T.contiguous()
     out[f"kfused_B{B}_ms"], T = time_ms(lambda: mont_cuda.prod_kf(a, b),
-                                        sizes["reps_path"], 2, dev)
-    out[f"redc_B{B}_ms"], _ = time_ms(lambda: mont_cuda.redc(ctx, T), sizes["reps_path"], 2, dev)
+                                        sizes["reps_path"], 2, dev, hold=True)
+    out[f"redc_B{B}_ms"], _ = time_ms(lambda: mont_cuda.redc(ctx, T), sizes["reps_path"], 2,
+                                      dev, hold=True)
+    h = ctx.L // 2  # B4's six operands as row slices; canonical is all it needs
+    c = bn.to_device(residues(ctx, B, 52), dev).T.contiguous()
+    out[f"prod3_B{B}_ms"], _ = time_ms(
+        lambda: mont_cuda.prod3(a[:h], b[:h], a[h:], b[h:], c[:h], c[h:]),
+        sizes["reps_path"], 2, dev, hold=True)
     K = sizes["K_path"]
     rows = bn.to_device(residues(ctx, K, 6 + K), dev)
-    out[f"fold_K{K}_fused_ms"], _ = time_ms(
-        lambda: mont_cuda.reduce_mul(ctx, rows, karatsuba="fused"), sizes["reps_path"], 2, dev)
-    for mode in (False, "fused"):
+    for mode in ("k1", "fused"):
+        out[f"fold_K{K}_{mode}_ms"], _ = time_ms(
+            lambda: mont_cuda.reduce_mul(ctx, rows, karatsuba=mode), sizes["reps_path"], 2, dev)
+    for mode in (False, "k1", "fused"):
         out[f"fold_K{K}_{mode or 'cios'}_device_ms"] = fold_levels(
             ctx, rows, dev, 5, mode)["device_ms"]
     return out
@@ -1332,7 +1453,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rehearse", action="store_true",
                     help="run every phase tiny on the CPU (exits 3, no result)")
     ap.add_argument("--ab", metavar="PARENT",
-                    help="time the B1/P/B3/B5/REDC kernels and the folds of the tree at "
+                    help="time the B1/P/B3/B4/B5/REDC kernels and the folds of the tree at "
                          "PARENT and of this one in turns (parent, change, change, "
                          "parent); no result line")
     ap.add_argument("--phases", default="",
@@ -1435,6 +1556,14 @@ def main(argv=None) -> int:
         ("mont_prod3", "dds_tpu/ops/mont_mxu.py:151",
          "mont_mxu._make_prod3_kernel via _prod3_call (DDS_KARATSUBA=1)",
          k1["mont_prod3"], par_k["max_abs_err"]["mont_prod3"], f"one launch, B={sizes['B']}"),
+        ("mont_k1_halfsums", "dds_tpu/ops/mont_mxu.py:406",
+         "mont_mxu.carry_norm of the half sums in prod_lm_k1 (XLA, not a Pallas kernel)",
+         k1["mont_k1_halfsums"], par_k["max_abs_err"]["mont_k1_halfsums"],
+         f"one launch, B={sizes['B']}"),
+        ("mont_k1_combine", "dds_tpu/ops/mont_mxu.py:188",
+         "mont_mxu.carry_norm of z0, z2 and _karatsuba_combine in prod_lm_k1 (XLA, not a "
+         "Pallas kernel)", k1["mont_k1_combine"], par_k["max_abs_err"]["mont_k1_combine"],
+         f"one launch, B={sizes['B']}"),
         ("mont_kfused", "dds_tpu/ops/mont_mxu.py:218",
          "mont_mxu._make_kfused_kernel via _kfused_call (DDS_KARATSUBA=2)",
          kf["mont_kfused"], par_k["max_abs_err"]["mont_kfused"], f"one launch, B={sizes['B']}"),
@@ -1448,9 +1577,10 @@ def main(argv=None) -> int:
          f"one launch, B={sizes['B_probe']}"),
     ):
         t = tim_k[name]
+        source = {"mont_mul_nofinal": "mont_mul", "mont_k1_halfsums": "mont_k1",
+                  "mont_k1_combine": "mont_k1"}.get(name, name)
         kernels.append({
-            "name": name, "route": "cuda", "source": f"dds_tpu_torch/csrc/"
-            f"{'mont_mul' if name == 'mont_mul_nofinal' else name}.cu",
+            "name": name, "route": "cuda", "source": f"dds_tpu_torch/csrc/{source}.cu",
             "replaces": replaces, "tpu_twin": twin, "launches": launches,
             "max_abs_err": err, "per": per, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,

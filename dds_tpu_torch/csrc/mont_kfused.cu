@@ -35,7 +35,11 @@
 //   product word i, one lookahead at the end;
 // - every multi-word add and subtract (the half sums, the overflow-bit
 //   corrections, the two subtractions, the final add of mid at word H) is
-//   one lane-local chain and one lookahead (dds::add_warp, dds::sub_warp);
+//   one lane-local chain and one lookahead (dds::add_warp, dds::sub_warp).
+//   The half sums and the recombination are the header's
+//   dds::half_sum_warp and dds::karatsuba_recombine_warp, which
+//   mont_k1.cu's launches of the composed variant (DDS_KARATSUBA=1) call
+//   too: one copy, as the reference keeps one _karatsuba_combine;
 // - operands and accumulators stay in registers, indexed only by
 //   compile-time constants. Shared memory holds each column's staged a and
 //   b, then the products: a half does not start on a lane boundary when H
@@ -66,7 +70,6 @@ mont_kfused_kernel(const int32_t* __restrict__ a, long long sa,
                    int32_t* __restrict__ out, long long so,
                    int L, int W, int B) {
   constexpr int kHalf = dds::kWarp * HPL;  // words an H-word number can hold
-  constexpr int DPL = 2 * HPL;             // words per lane of a 2H-word number
   constexpr int kA = 0, kB = 2 * kHalf, kT = 4 * kHalf;
   constexpr int kStride = 8 * kHalf + 4;   // words per staged column
   __shared__ uint32_t tile[kCols * kStride];
@@ -94,7 +97,7 @@ mont_kfused_kernel(const int32_t* __restrict__ a, long long sa,
   uint32_t* A = tile + warp * kStride + kA;
   uint32_t* Bw = tile + warp * kStride + kB;
   uint32_t* T = tile + warp * kStride + kT;
-  uint32_t x[HPL], y[HPL], u[HPL];
+  uint32_t x[HPL], y[HPL];
 
   dds::load_lanes<HPL>(x, A, H, lane);          // a0
   dds::load_lanes<HPL>(y, Bw, H, lane);         // b0
@@ -103,61 +106,16 @@ mont_kfused_kernel(const int32_t* __restrict__ a, long long sa,
   dds::load_lanes<HPL>(y, Bw + H, H, lane);     // b1
   dds::mul_half_warp<HPL>(T + 2 * H, x, y, H, lane);  // z2 -> T[2H, 4H)
 
-  // half sums: the carry lands in word H (or out of lane 31 when
-  // H = 32 HPL); take it out as the overflow bit
-  dds::load_lanes<HPL>(u, A, H, lane);          // a0
-  uint32_t ca = dds::add_warp<HPL>(x, u, 0, lane);
-  ca += dds::take_word<HPL>(x, H, true, lane);  // sa = x, ca
-  dds::load_lanes<HPL>(u, Bw, H, lane);         // b0
-  uint32_t cb = dds::add_warp<HPL>(y, u, 0, lane);
-  cb += dds::take_word<HPL>(y, H, true, lane);  // sb = y, cb
+  // half sums and their overflow bits (dds::half_sum_warp): x holds a1,
+  // y b1
+  const uint32_t ca = dds::half_sum_warp<HPL>(x, A, H, lane);   // sa = x
+  const uint32_t cb = dds::half_sum_warp<HPL>(y, Bw, H, lane);  // sb = y
   __syncwarp();  // a and b are read: A takes z1, B takes sa and sb
   dds::store_lanes<HPL>(Bw, x, H, lane);
   dds::store_lanes<HPL>(Bw + kHalf, y, H, lane);
   dds::mul_half_warp<HPL>(A, x, y, H, lane);    // z1 -> A[0, 2H)
   __syncwarp();
-
-  // mid = z1 + (ca sb + cb sa) X + ca cb X^2 - z0 - z2 in the frame of DPL
-  // words a lane (32 DPL >= 2H words), `top` counting what lies above it
-  uint32_t m[DPL], v[DPL];
-  dds::load_lanes<DPL>(m, A, 2 * H, lane);
-  uint32_t top = 0;
-  if (2 * H < dds::kWarp * DPL) {
-#pragma unroll
-    for (int k = 0; k < DPL; ++k) {
-      if (DPL * lane + k == 2 * H) m[k] = ca & cb;
-    }
-  } else {
-    top = ca & cb;
-  }
-  for (int s = 0; s < 2; ++s) {  // + ca sb X, then + cb sa X
-    if ((s == 0 ? ca : cb) != 0) {  // warp-uniform
-      const uint32_t* src = s == 0 ? Bw + kHalf : Bw;
-#pragma unroll
-      for (int k = 0; k < DPL; ++k) {
-        const int j = DPL * lane + k;
-        v[k] = (j >= H && j < 2 * H) ? src[j - H] : 0u;
-      }
-      top += dds::add_warp<DPL>(m, v, 0, lane);
-    }
-  }
-  dds::load_lanes<DPL>(v, T, 2 * H, lane);      // - z0
-  top -= dds::sub_warp<DPL>(m, v, lane);
-  dds::load_lanes<DPL>(v, T + 2 * H, 2 * H, lane);  // - z2
-  top -= dds::sub_warp<DPL>(m, v, lane);
-
-  // T[H, 3H) += mid's low 2H words; what carries to word 3H (mid's top
-  // word plus the carry) then goes into z2's high half, T[3H, 4H)
-  dds::load_lanes<DPL>(v, T + H, 2 * H, lane);
-  top += dds::add_warp<DPL>(v, m, 0, lane);
-  top += dds::take_word<DPL>(v, 2 * H, false, lane);
-  __syncwarp();
-  dds::store_lanes<DPL>(T + H, v, 2 * H, lane);
-  __syncwarp();
-  dds::load_lanes<HPL>(u, T + 3 * H, H, lane);
-  dds::add_warp<HPL, false>(u, u, lane == 0 ? top : 0u, lane);  // a*b < X^4
-  __syncwarp();
-  dds::store_lanes<HPL>(T + 3 * H, u, H, lane);
+  dds::karatsuba_recombine_warp<HPL>(T, A, Bw, Bw + kHalf, ca, cb, H, lane);
   __syncthreads();
 
   // unstage: thread (limb row i < 2L, column c), 8 columns of a row per sector

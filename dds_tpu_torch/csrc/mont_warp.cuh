@@ -3,7 +3,10 @@
 // The product core shared by mont_mul.cu (B1, which also serves B2 and the
 // probe P) and mont_exp.cu (B3); its reduction-only sibling mont_redc_warp
 // serves mont_redc.cu, and its product-only sibling mul_half_warp the three
-// half products of mont_kfused.cu (B5). It computes what the TPU kernels'
+// half products of mont_prod3.cu (B4) and mont_kfused.cu (B5). The
+// Karatsuba half sums (half_sum_warp) and recombination
+// (karatsuba_recombine_warp) are here once, for B5 and for the composed
+// variant's own launches in mont_k1.cu. It computes what the TPU kernels'
 // pallas_mont._cios_loop + _finalize compute (dds_tpu/ops/pallas_mont.py
 // :68-128), in W = ceil(L/2) 32-bit words with R = 2^(32 W): for even L the
 // R = 2^(16 L) of the TPU kernels, as ModCtx.n0inv32 and ModCtx.R assume.
@@ -385,6 +388,121 @@ __device__ __forceinline__ void mul_half_warp(uint32_t* dst, const uint32_t (&x)
   }
   settle<HPL>(t, p, lane);  // x * y < 2^(64 H): nothing above
   store_lanes<HPL>(dst + H, t, H, lane);
+}
+
+// s = lo + hi for two H-word numbers, hi in this lane's N words (zeros at
+// and above H), lo read from shared memory: s replaces hi, and its carry
+// out of word H - 1 (0 or 1) is returned. The carry lands in frame word H,
+// which is cleared, or leaves lane 31 when H = 32 N; both are taken. The
+// half sums of a Karatsuba level, mont_mxu.carry_norm(a0 + a1) in the
+// reference.
+template <int N>
+__device__ __forceinline__ uint32_t half_sum_warp(uint32_t (&x)[N], const uint32_t* lo,
+                                                  int H, int lane) {
+  uint32_t u[N];
+  load_lanes<N>(u, lo, H, lane);
+  const uint32_t c = add_warp<N>(x, u, 0, lane);
+  return c + take_word<N>(x, H, true, lane);
+}
+
+// One Karatsuba level's recombination, the reference's _karatsuba_combine
+// (dds_tpu/ops/mont_mxu.py:188-215), on one column's rows in shared memory.
+// With X = 2^(32 H): T holds z0 = a0 b0 at [0, 2H) and z2 = a1 b1 at
+// [2H, 4H); z1 (2H words) is the product of the H-word half sums sa and sb,
+// whose overflow bits are ca and cb. Then
+//   mid = z1 + (ca sb + cb sa) X + ca cb X^2 - z0 - z2 = a0 b1 + a1 b0,
+// below 2 X^2 (2H + 1 words), is formed in the frame of 2 HPL words a lane,
+// `top` counting what lies above it (only when H = 32 HPL), and added at
+// word H; what carries to word 3H (mid's top word plus the carry) goes into
+// z2's high half. T ends as the 4H words of a*b. The reference adds
+// complements, because its u32 lanes have no borrow chain; here each add
+// and subtract is one lane-local chain and one lookahead. Every lane
+// calls it after the rows are visible to the whole warp.
+template <int HPL>
+__device__ __forceinline__ void karatsuba_recombine_warp(uint32_t* T, const uint32_t* z1,
+                                                         const uint32_t* sa,
+                                                         const uint32_t* sb, uint32_t ca,
+                                                         uint32_t cb, int H, int lane) {
+  constexpr int DPL = 2 * HPL;  // words per lane of a 2H-word number
+  uint32_t m[DPL], v[DPL], u[HPL];
+  load_lanes<DPL>(m, z1, 2 * H, lane);
+  uint32_t top = 0;
+  if (2 * H < kWarp * DPL) {
+#pragma unroll
+    for (int k = 0; k < DPL; ++k) {
+      if (DPL * lane + k == 2 * H) m[k] = ca & cb;
+    }
+  } else {
+    top = ca & cb;
+  }
+  for (int s = 0; s < 2; ++s) {  // + ca sb X, then + cb sa X
+    if ((s == 0 ? ca : cb) != 0) {  // warp-uniform
+      const uint32_t* src = s == 0 ? sb : sa;
+#pragma unroll
+      for (int k = 0; k < DPL; ++k) {
+        const int j = DPL * lane + k;
+        v[k] = (j >= H && j < 2 * H) ? src[j - H] : 0u;
+      }
+      top += add_warp<DPL>(m, v, 0, lane);
+    }
+  }
+  load_lanes<DPL>(v, T, 2 * H, lane);          // - z0
+  top -= sub_warp<DPL>(m, v, lane);
+  load_lanes<DPL>(v, T + 2 * H, 2 * H, lane);  // - z2
+  top -= sub_warp<DPL>(m, v, lane);
+
+  // T[H, 3H) += mid's low 2H words; what carries to word 3H (mid's top
+  // word plus the carry) then goes into z2's high half, T[3H, 4H)
+  load_lanes<DPL>(v, T + H, 2 * H, lane);
+  top += add_warp<DPL>(v, m, 0, lane);
+  top += take_word<DPL>(v, 2 * H, false, lane);
+  __syncwarp();
+  store_lanes<DPL>(T + H, v, 2 * H, lane);
+  __syncwarp();
+  load_lanes<HPL>(u, T + 3 * H, H, lane);
+  add_warp<HPL, false>(u, u, lane == 0 ? top : 0u, lane);  // a*b < X^4
+  __syncwarp();
+  store_lanes<HPL>(T + 3 * H, u, H, lane);
+}
+
+// Block-wide staging of limbs-major operands through shared memory, for
+// blocks of kCols warps, one warp a column: thread (word j < words, column
+// c) packs limbs 2j and 2j+1 (zeros at and above `rows`) of column
+// col0 + c of src (row stride s, zeros at and above column B) into
+// tile[c * stride + off + j]. Eight adjacent columns of a limb row are one
+// 32-byte sector; a stride of 4 mod 32 words puts the 32 (word, column)
+// pairs a warp writes in 32 distinct banks.
+template <int kCols>
+__device__ __forceinline__ void stage_limbs(uint32_t* tile, int stride, int off,
+                                            const int32_t* __restrict__ src, long long s,
+                                            int rows, int words, long long col0, int B) {
+  for (int e = threadIdx.x; e < words * kCols; e += kCols * kWarp) {
+    const int j = e / kCols, c = e % kCols;
+    const long long col = col0 + c;
+    uint32_t w = 0;
+    if (col < B) {
+      if (2 * j < rows) w = static_cast<uint32_t>(src[2LL * j * s + col]);
+      if (2 * j + 1 < rows) w |= static_cast<uint32_t>(src[(2LL * j + 1) * s + col]) << 16;
+    }
+    tile[c * stride + off + j] = w;
+  }
+}
+
+// The way back: thread (limb row i < rows, column c) writes limb i of the
+// words at tile[c * stride + off] to dst, 8 columns of a row per sector.
+template <int kCols>
+__device__ __forceinline__ void unstage_limbs(int32_t* __restrict__ dst, long long s, int rows,
+                                              const uint32_t* tile, int stride, int off,
+                                              long long col0, int B) {
+  for (int e = threadIdx.x; e < rows * kCols; e += kCols * kWarp) {
+    const int i = e / kCols, c = e % kCols;
+    const long long col = col0 + c;
+    if (col < B) {
+      const uint32_t w = tile[c * stride + off + i / 2];
+      dst[static_cast<long long>(i) * s + col] =
+          static_cast<int32_t>((i & 1) ? (w >> 16) : (w & 0xFFFFu));
+    }
+  }
 }
 
 }  // namespace dds

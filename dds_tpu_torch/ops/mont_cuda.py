@@ -5,7 +5,8 @@ mul2_lm` and of `dds_tpu/ops/pallas_mont.py::mul_lm`: a * b * R^-1 mod n on
 limbs-major (L, B) int32 arrays of 16-bit limbs, canonical in and out, by
 the family DDS_KARATSUBA selects (`flags.karatsuba_mode`):
 - 0: the fused CIOS kernel (B1, which also serves B2);
-- 1 / k1: `karatsuba.prod_k1` (B4 between PyTorch ops), then `redc`;
+- 1 / k1: `karatsuba.prod_k1` (the half sums, B4, the recombination:
+  three launches), then `redc`;
 - 2 / fused: `karatsuba.prod_kf` (B5), then `redc`.
 `reduce_mul(ctx, rows)` is the port of `mont_mxu.reduce_mul2`: a halving
 tree of `mul` over the rows padded to a power of two with R mod n, then
@@ -19,15 +20,18 @@ domain for a shared exponent given as MSB-first 4-bit digits. `pow_mod(ctx,
 bases, exp)` has `pallas_mont.pow_mod`'s (and `mont_mxu.pow_mod2`'s)
 contract: domain entry with `mul` by R^2, the ladder, exit with `mul` by 1.
 
-Five sources under `csrc/`, each built with nvcc for sm_90a at first use
+Six sources under `csrc/`, each built with nvcc for sm_90a at first use
 and bound with ctypes (`KernelLib`, one lock per source):
 - `mont_mul.cu`: `dds_mont_mul` (B1) and `dds_mont_mul_nofinal` (P);
 - `mont_exp.cu` (B3);
-- `mont_prod3.cu` (B4, one thread a column);
+- `mont_prod3.cu` (B4);
 - `mont_kfused.cu` (B5);
 - `mont_redc.cu`: the reduction after B4 and B5 (`mont_mxu._redc`, which
-  is XLA code in the reference, not a Pallas kernel).
-All but `mont_prod3.cu` run one warp a column on the core `mont_warp.cuh`.
+  is XLA code in the reference, not a Pallas kernel);
+- `mont_k1.cu`: `dds_k1_halfsums` and `dds_k1_combine`, the half sums
+  before B4 and the recombination after it (`mont_mxu.carry_norm` and
+  `_karatsuba_combine` in `prod_lm_k1`, XLA code in the reference).
+All run one warp a column on the core `mont_warp.cuh`.
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain PyTorch version of `ops/montgomery.py`. Nothing
 falls back from one to the other. Each launch adds one to its kernel's
@@ -85,11 +89,14 @@ prod3_launches = LaunchCount()    # mont_prod3.cu (B4)
 kfused_launches = LaunchCount()   # mont_kfused.cu (B5)
 redc_launches = LaunchCount()     # mont_redc.cu (the reduction of B4 and B5)
 nofinal_launches = LaunchCount()  # mont_mul.cu, dds_mont_mul_nofinal (P)
+halfsums_launches = LaunchCount()  # mont_k1.cu, dds_k1_halfsums
+combine_launches = LaunchCount()  # mont_k1.cu, dds_k1_combine
 # every kernel's counter by the name chip_smoke.py reports it under
 LAUNCHES = {
     "mont_mul": launches, "mont_exp": exp_launches, "mont_prod3": prod3_launches,
     "mont_kfused": kfused_launches, "mont_redc": redc_launches,
-    "mont_mul_nofinal": nofinal_launches,
+    "mont_mul_nofinal": nofinal_launches, "mont_k1_halfsums": halfsums_launches,
+    "mont_k1_combine": combine_launches,
 }
 
 
@@ -181,7 +188,9 @@ EXP = KernelLib("mont_exp.cu", {"dds_mont_exp":
 PROD3 = KernelLib("mont_prod3.cu", {"dds_mont_prod3": [_p, _ll] * 7 + [_i, _i, _p]})
 KFUSED = KernelLib("mont_kfused.cu", {"dds_mont_kfused": [_p, _ll] * 3 + [_i, _i, _p]})
 REDC = KernelLib("mont_redc.cu", {"dds_mont_redc": [_p, _ll, _p, _ll, _p, _u, _i, _i, _p]})
-KERNELS = (MUL, EXP, PROD3, KFUSED, REDC)
+K1 = KernelLib("mont_k1.cu", {"dds_k1_halfsums": [_p, _ll] * 3 + [_i, _i, _p],
+                              "dds_k1_combine": [_p, _ll] * 3 + [_i, _i, _p]})
+KERNELS = (MUL, EXP, PROD3, KFUSED, REDC, K1)
 
 
 def _check_operand(name: str, x: torch.Tensor, rows: int) -> None:
@@ -282,6 +291,48 @@ def prod3(a0, b0, a1, b1, sa, sb) -> torch.Tensor:
     args = [v for x in ops.values() for v in (x.data_ptr(), x.stride(0))]
     _launch(PROD3, "dds_mont_prod3", prod3_launches, first.device,
             *args, out.data_ptr(), out.stride(0), h, B, what=f"h={h}, B={B}")
+    return out
+
+
+def k1_halfsums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The half sums of one Karatsuba level (`mont_k1.cu`,
+    `dds_k1_halfsums`): canonical limbs-major (L, B) int32 a and b, L a
+    multiple of 4 (column slices allowed) -> (L + 2, B) int32 rows
+    [sa | sb | ca | cb], h = L/2, sa = (a0 + a1) mod 2^(16h) canonical and
+    ca its 0/1 overflow bit, the same for b."""
+    L = a.shape[0] if a.dim() == 2 else -1
+    _check(L, a=a, b=b)
+    if L % 4:
+        raise ValueError(f"k1_halfsums needs L a multiple of 4, got L={L}")
+    if a.device.type == "cpu":
+        return montgomery.k1_halfsums(a.T, b.T).T.contiguous()
+    B = a.shape[1]
+    out = torch.empty((L + 2, B), dtype=torch.int32, device=a.device)
+    _launch(K1, "dds_k1_halfsums", halfsums_launches, a.device,
+            a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+            out.data_ptr(), out.stride(0), L, B, what=f"L={L}, B={B}")
+    return out
+
+
+def k1_combine(z: torch.Tensor, s: torch.Tensor, L: int) -> torch.Tensor:
+    """The recombination of one Karatsuba level (`mont_k1.cu`,
+    `dds_k1_combine`): B4's (3L, B) int32 [z0 | z2 | z1] (`prod3`) and the
+    (L + 2, B) half sums (`k1_halfsums`) -> the canonical (2L, B) int32
+    product a*b, L a multiple of 4."""
+    if L < 4 or L % 4:
+        raise ValueError(f"k1_combine needs L a multiple of 4, got L={L}")
+    _check_operand("z", z, 3 * L)
+    _check_operand("s", s, L + 2)
+    if s.shape[1] != z.shape[1] or s.device != z.device:
+        raise ValueError(f"z {tuple(z.shape)} on {z.device} and s {tuple(s.shape)} on "
+                         f"{s.device} must share the batch and the device")
+    if z.device.type == "cpu":
+        return montgomery.k1_combine(z.T, s.T, L).T.contiguous()
+    B = z.shape[1]
+    out = torch.empty((2 * L, B), dtype=torch.int32, device=z.device)
+    _launch(K1, "dds_k1_combine", combine_launches, z.device,
+            z.data_ptr(), z.stride(0), s.data_ptr(), s.stride(0),
+            out.data_ptr(), out.stride(0), L, B, what=f"L={L}, B={B}")
     return out
 
 

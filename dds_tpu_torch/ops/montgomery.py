@@ -13,9 +13,10 @@ product, computed with int64 PyTorch tensors on 16-bit limbs over the
 padded limb count 2W (so it uses the kernel's R), vectorized over the
 batch, and the same 4-bit-window ladder over it (`mont_exp`, `pow_mod`).
 The Karatsuba family's plain versions sit beside it: the full product
-`prod`, the three half products `prod3`, one Karatsuba level `prod_kf`,
-the reduction `ModCtx.redc`, and the CIOS product without its final
-subtraction `ModCtx.mont_mul_nofinal`.
+`prod`, the three half products `prod3` with the half sums `k1_halfsums`
+before them and the recombination `k1_combine` after them, one Karatsuba
+level `prod_kf`, the reduction `ModCtx.redc`, and the CIOS product without
+its final subtraction `ModCtx.mont_mul_nofinal`.
 Carry bound: each of the Lp steps adds a_i*b + m*n, below 2^33, to a limb
 of the accumulator, so no limb passes Lp * 2^33 + 2^27 < 2^43 (Lp <= 512)
 before the final carry passes, and the m step's product stays below
@@ -116,6 +117,46 @@ def prod3(a0, b0, a1, b1, sa, sb) -> torch.Tensor:
     operands, stacked as (B, 6h) int32 canonical blocks [z0 | z2 | z1] with
     z0 = a0*b0, z2 = a1*b1, z1 = sa*sb."""
     return torch.cat([prod(a0, b0), prod(a1, b1), prod(sa, sb)], dim=1)
+
+
+def k1_halfsums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version of `dds_k1_halfsums` (csrc/mont_k1.cu; the
+    reference's `carry_norm(a0 + a1)` in `mont_mxu.prod_lm_k1`): canonical
+    (B, L) a and b, L even -> (B, L + 2) int32 [sa | sb | ca | cb] with
+    h = L/2, X = 2^(16h), sa = (a0 + a1) mod X canonical and ca its 0/1
+    overflow bit (the top limb of the sum carried into h + 1 limbs), the
+    same for b."""
+    B, L = a.shape
+    h = L // 2
+
+    def half_sum(x: torch.Tensor) -> torch.Tensor:  # (B, h + 1)
+        x = x.to(torch.int64)
+        return _carry(torch.cat([x[:, :h] + x[:, h:], x.new_zeros((B, 1))], dim=1))
+
+    sa, sb = half_sum(a), half_sum(b)
+    return torch.cat([sa[:, :h], sb[:, :h], sa[:, h:], sb[:, h:]], dim=1).to(torch.int32)
+
+
+def k1_combine(z: torch.Tensor, s: torch.Tensor, L: int) -> torch.Tensor:
+    """The plain version of `dds_k1_combine` (csrc/mont_k1.cu; the
+    reference's `_karatsuba_combine` in `mont_mxu.prod_lm_k1`): B4's
+    (B, 3L) [z0 | z2 | z1] and the (B, L + 2) half sums [sa | sb | ca | cb]
+    -> the canonical (B, 2L) int32 product a*b = z0 + mid X + z2 X^2,
+    h = L/2, X = 2^(16h), mid = z1 + (ca sb + cb sa) X + ca cb X^2 - z0 - z2.
+    The middle term's limbs go negative before the signed carry passes of
+    `_carry` settle them."""
+    B = z.shape[0]
+    h = L // 2
+    z, s = z.to(torch.int64), s.to(torch.int64)
+    z0, z2, z1 = z[:, : 2 * h], z[:, 2 * h: 4 * h], z[:, 4 * h:]
+    sa, sb, ca, cb = s[:, :h], s[:, h: 2 * h], s[:, 2 * h: 2 * h + 1], s[:, 2 * h + 1:]
+    T = z.new_zeros((B, 2 * L + 2))
+    T[:, : 2 * h] += z0
+    T[:, 2 * h: 4 * h] += z2
+    T[:, h: 3 * h] += z1 - z0 - z2
+    T[:, 2 * h: 3 * h] += ca * sb + cb * sa
+    T[:, 3 * h] += (ca * cb)[:, 0]
+    return _carry(T)[:, : 2 * L].to(torch.int32)
 
 
 def prod_kf(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -239,9 +280,35 @@ def carry_edge_products(ctx: "ModCtx") -> list[int]:
 
 
 def karatsuba_edge_operands(ctx: "ModCtx") -> list[int]:
-    """The Karatsuba product's carry-edge operands: `carry_edge_operands`
-    and the all-ones L-limb number, whose half sums both overflow."""
-    return carry_edge_operands(ctx) + [(1 << (LIMB_BITS * ctx.L)) - 1]
+    """The Karatsuba product's carry-edge operands: `carry_edge_operands`,
+    the all-ones L-limb number (its half sum overflows), and with
+    X = 2^(16h), h = L/2: a0 all ones with a1 = 0 (the half sum all ones
+    without the overflow: the largest z1), a1 all ones with a0 = 0, and
+    a0 = a1 = X/2 (the half sum 0 with the overflow)."""
+    X = 1 << (LIMB_BITS * (ctx.L // 2))
+    return carry_edge_operands(ctx) + [(1 << (LIMB_BITS * ctx.L)) - 1, X - 1, (X - 1) * X,
+                                       (X // 2) * (X + 1)]
+
+
+def prod3_edge_columns(h: int) -> list[tuple[int, ...]]:
+    """B4's carry-edge columns at h limbs a half: (a0, b0, a1, b1, sa, sb)
+    for every ordered pair (a, b) of `karatsuba_edge_operands` of a 2h-limb
+    carry-edge modulus, cut into halves with their half sums mod
+    X = 2^(16h); then the all-ones column (every operand X - 1: z1 is the largest a half sum can
+    give), and all ones times Y = 2^(32(H-1)) + 1, H = ceil(h/2) words: the
+    product's high half Y - 1 builds up in the warp product as all-ones
+    words with a pending carry, which its closing lookahead must carry
+    across lanes."""
+    ctx = ModCtx.make(carry_edge_moduli(2 * h)[0])
+    X = 1 << (LIMB_BITS * h)
+    Y = (1 << (32 * ((h - 1) // 2))) + 1
+    ops = karatsuba_edge_operands(ctx)
+    cols = []
+    for a in ops:
+        for b in ops:
+            a0, a1, b0, b1 = a % X, a // X, b % X, b // X
+            cols.append((a0, b0, a1, b1, (a0 + a1) % X, (b0 + b1) % X))
+    return cols + [(X - 1,) * 6, (X - 1, Y, Y, X - 1, X - 1, Y)]
 
 
 def _tree_reduce_raw(cs: torch.Tensor, N: torch.Tensor, n0inv: int) -> torch.Tensor:

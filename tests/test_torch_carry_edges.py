@@ -50,6 +50,7 @@ from dds_tpu_torch.ops.montgomery import (
     carry_edge_operands,
     carry_edge_products,
     karatsuba_edge_operands,
+    prod3_edge_columns,
 )
 
 M32 = (1 << 32) - 1
@@ -270,17 +271,60 @@ def _mul_half(mem: list[int], off: int, x, y, H: int, HPL: int) -> None:
     _store_lanes(mem, off + H, t, H, HPL)
 
 
+def _half_sum(x, mem: list[int], lo: int, H: int, N: int) -> int:
+    """`dds::half_sum_warp`: x += the H words at mem[lo:] (x holds the
+    other half); the carry out of word H - 1, taken from frame word H (then
+    cleared) or out of lane 31 when H = 32 N."""
+    u = _load_lanes(mem, lo, H, N)
+    c = _add_warp(x, u, [0] * LANES, N)
+    return c + _take_word(x, H, True, N)
+
+
+def _recombine(mem: list[int], T: int, z1: int, sa: int, sb: int, ca: int, cb: int,
+               H: int, HPL: int) -> None:
+    """`dds::karatsuba_recombine_warp` on one column's row `mem`: T holds z0
+    at [0, 2H) and z2 at [2H, 4H); z1 (2H words), sa and sb (H words) are
+    offsets too. The middle term in the frame of 2 HPL words a lane, `top`
+    above it, then the add at word H and the carry into z2's high half."""
+    DPL = 2 * HPL
+    zero = [0] * LANES
+    m = _load_lanes(mem, z1, 2 * H, DPL)
+    top = 0
+    if 2 * H < LANES * DPL:
+        m[2 * H // DPL][2 * H % DPL] = ca & cb
+    else:
+        top = ca & cb
+    for s in range(2):                                          # + ca sb X, + cb sa X
+        if (ca if s == 0 else cb) != 0:
+            src = sb if s == 0 else sa
+            v = [[mem[src + DPL * lane + k - H] if H <= DPL * lane + k < 2 * H else 0
+                  for k in range(DPL)] for lane in range(LANES)]
+            top += _add_warp(m, v, zero, DPL)
+    v = _load_lanes(mem, T, 2 * H, DPL)                         # - z0
+    top -= _sub_warp(m, v, DPL)
+    v = _load_lanes(mem, T + 2 * H, 2 * H, DPL)                 # - z2
+    top -= _sub_warp(m, v, DPL)
+    assert top in (0, 1) and _value(m, DPL) + (top << (32 * LANES * DPL)) < 2 << (64 * H)
+
+    v = _load_lanes(mem, T + H, 2 * H, DPL)
+    top += _add_warp(v, m, zero, DPL)
+    top += _take_word(v, 2 * H, False, DPL)
+    assert top <= 2
+    _store_lanes(mem, T + H, v, 2 * H, DPL)
+    u = _load_lanes(mem, T + 3 * H, H, HPL)
+    assert _add_warp(u, None, [top] + [0] * (LANES - 1), HPL) == 0
+    _store_lanes(mem, T + 3 * H, u, H, HPL)
+
+
 def warp_kfused(a: int, b: int, L: int) -> int:
     """The warp schedule of `mont_kfused_kernel` (csrc/mont_kfused.cu) for
     L-limb a and b, L a multiple of 4: the column's row of the shared tile
     as a list ([A | B | T], 64 HPL + 64 HPL + 128 HPL words), the three
-    half products, the half sums with their overflow bits, the corrections
-    and subtractions of the middle term in the frame of 2 HPL words a lane,
-    and the final add at word H. Returns T, the 4H words of a * b."""
+    half products, the half sums with their overflow bits (`_half_sum`)
+    and the recombination (`_recombine`). Returns T, the 4H words of a*b."""
     W = L // 2
     H = W // 2
     HPL = words_per_lane(H)
-    DPL = 2 * HPL
     half = LANES * HPL
     kA, kB, kT = 0, 2 * half, 4 * half
     row = [0] * (8 * half)
@@ -291,45 +335,88 @@ def warp_kfused(a: int, b: int, L: int) -> int:
     _mul_half(row, kT, x, y, H, HPL)                            # z0
     x, y = _load_lanes(row, kA + H, H, HPL), _load_lanes(row, kB + H, H, HPL)
     _mul_half(row, kT + 2 * H, x, y, H, HPL)                    # z2
-    zero = [0] * LANES
-    u = _load_lanes(row, kA, H, HPL)
-    ca = _add_warp(x, u, zero, HPL)
-    ca += _take_word(x, H, True, HPL)                           # sa = x
-    u = _load_lanes(row, kB, H, HPL)
-    cb = _add_warp(y, u, zero, HPL)
-    cb += _take_word(y, H, True, HPL)                           # sb = y
+    ca = _half_sum(x, row, kA, H, HPL)                          # sa = x
+    cb = _half_sum(y, row, kB, H, HPL)                          # sb = y
     assert ca in (0, 1) and cb in (0, 1)
     _store_lanes(row, kB, x, H, HPL)
     _store_lanes(row, kB + half, y, H, HPL)
     _mul_half(row, kA, x, y, H, HPL)                            # z1
-
-    m = _load_lanes(row, kA, 2 * H, DPL)
-    top = 0
-    if 2 * H < LANES * DPL:
-        m[2 * H // DPL][2 * H % DPL] = ca & cb
-    else:
-        top = ca & cb
-    for s in range(2):                                          # + ca sb X, + cb sa X
-        if (ca if s == 0 else cb) != 0:
-            src = kB + half if s == 0 else kB
-            v = [[row[src + DPL * lane + k - H] if H <= DPL * lane + k < 2 * H else 0
-                  for k in range(DPL)] for lane in range(LANES)]
-            top += _add_warp(m, v, zero, DPL)
-    v = _load_lanes(row, kT, 2 * H, DPL)                        # - z0
-    top -= _sub_warp(m, v, DPL)
-    v = _load_lanes(row, kT + 2 * H, 2 * H, DPL)                # - z2
-    top -= _sub_warp(m, v, DPL)
-    assert top in (0, 1) and _value(m, DPL) + (top << (32 * LANES * DPL)) < 2 << (64 * H)
-
-    v = _load_lanes(row, kT + H, 2 * H, DPL)
-    top += _add_warp(v, m, zero, DPL)
-    top += _take_word(v, 2 * H, False, DPL)
-    assert top <= 2
-    _store_lanes(row, kT + H, v, 2 * H, DPL)
-    u = _load_lanes(row, kT + 3 * H, H, HPL)
-    assert _add_warp(u, None, [top] + [0] * (LANES - 1), HPL) == 0
-    _store_lanes(row, kT + 3 * H, u, H, HPL)
+    _recombine(row, kT, kA, kB, kB + half, ca, cb, H, HPL)
     return sum(w << (32 * j) for j, w in enumerate(row[kT: kT + 4 * H]))
+
+
+def _stage(mem: list[int], off: int, x: int, rows: int, words: int) -> None:
+    """`dds::stage_limbs` for one column: limbs below `rows` of x, packed
+    two to a word, into mem[off:off + words]."""
+    x &= (1 << (16 * rows)) - 1
+    for j in range(words):
+        mem[off + j] = (x >> (32 * j)) & M32
+
+
+def _unstage(mem: list[int], off: int, rows: int) -> int:
+    """`dds::unstage_limbs` for one column: the value of limbs [0, rows) of
+    the words at mem[off:]."""
+    return sum(((mem[off + i // 2] >> (16 * (i & 1))) & 0xFFFF) << (16 * i)
+               for i in range(rows))
+
+
+def warp_prod3(col: tuple[int, ...], h: int) -> tuple[int, int, int]:
+    """The warp schedule of `mont_prod3_kernel` (csrc/mont_prod3.cu, B4) for
+    one column (a0, b0, a1, b1, sa, sb) of h-limb operands: each staged in
+    its slot of 32 HPL words (H = ceil(h/2) words, the top one holding one
+    limb at odd h), then product p loads slots 2p and 2p + 1 into the
+    lanes and `_mul_half` writes it over them. Returns (z0, z2, z1) from
+    the 2h limbs of each product's slots."""
+    H = (h + 1) // 2
+    HPL = words_per_lane(H)
+    slot = LANES * HPL
+    row = [0] * (6 * slot)
+    for o, x in enumerate(col):
+        _stage(row, o * slot, x, h, H)
+    for p in range(3):
+        x = _load_lanes(row, 2 * p * slot, H, HPL)
+        y = _load_lanes(row, (2 * p + 1) * slot, H, HPL)
+        _mul_half(row, 2 * p * slot, x, y, H, HPL)              # over x's and y's slots
+    return tuple(_unstage(row, 2 * p * slot, 2 * h) for p in range(3))
+
+
+def warp_k1_halfsums(a: int, b: int, L: int) -> tuple[int, int, int, int]:
+    """The warp schedule of `mont_k1_halfsums_kernel` (csrc/mont_k1.cu): a and b
+    staged at 0 and 64 HPL, a1 and b1 into the lanes, `_half_sum` with a0
+    and b0. Returns (sa, sb, ca, cb)."""
+    h, H = L // 2, L // 4
+    HPL = words_per_lane(H)
+    half = LANES * HPL
+    row = [0] * (4 * half + 4)
+    _stage(row, 0, a, L, 2 * H)
+    _stage(row, 2 * half, b, L, 2 * H)
+    x, y = _load_lanes(row, H, H, HPL), _load_lanes(row, 2 * half + H, H, HPL)
+    ca = _half_sum(x, row, 0, H, HPL)
+    cb = _half_sum(y, row, 2 * half, H, HPL)
+    _store_lanes(row, 0, x, H, HPL)
+    _store_lanes(row, 2 * half, y, H, HPL)
+    return _unstage(row, 0, h), _unstage(row, 2 * half, h), ca, cb
+
+
+def warp_k1_combine(z: tuple[int, int, int], sa: int, sb: int, ca: int, cb: int,
+                    L: int) -> int:
+    """The warp schedule of `mont_k1_combine_kernel` (csrc/mont_k1.cu): B4's
+    (z0, z2, z1) and the half sums staged into B5's row layout (z1 in A, sa
+    and sb in B, z0 and z2 in T), then `_recombine`. Returns the 2L limbs
+    of T."""
+    z0, z2, z1 = z
+    h, H = L // 2, L // 4
+    HPL = words_per_lane(H)
+    half = LANES * HPL
+    kA, kB, kT = 0, 2 * half, 4 * half
+    row = [0] * (8 * half + 4)
+    _stage(row, kA, z1, 2 * h, 2 * H)
+    _stage(row, kB, sa, h, H)
+    _stage(row, kB + half, sb, h, H)
+    _stage(row, kT, z0, 2 * h, 2 * H)
+    _stage(row, kT + 2 * H, z2, 2 * h, 2 * H)
+    _recombine(row, kT, kA, kB, kB + half, ca, cb, H, HPL)
+    return _unstage(row, kT, 2 * L)
 
 
 def _cios_t(a: int, b: int, n: int, R: int) -> int:
@@ -413,6 +500,54 @@ def test_warp_models_on_random_operands_at_every_width():
         R = 1 << (32 * W)
         T = rng.randrange(n * R)
         assert warp_redc(T, n, W) == T * pow(R, -1, n) % n
+
+
+@pytest.mark.parametrize("h", [8, 9, 32, 128, 256])
+def test_prod3_lane_model_matches_python_ints(h):
+    """B4 at H = 4, 5, 16, 64, 128 words an operand: HPL = 1, 1, 1, 2, 4; at
+    h = 9 the top word holds one limb, at 128 and 256 the operands fill the
+    lanes (H = 32 HPL). The columns are the halves and half sums of every
+    pair of Karatsuba edge operands and the all-ones column."""
+    for col in prod3_edge_columns(h):
+        a0, b0, a1, b1, sa, sb = col
+        assert warp_prod3(col, h) == (a0 * b0, a1 * b1, sa * sb), [hex(x) for x in col]
+
+
+@pytest.mark.parametrize("L", [16, 36, 64, 132, 256, 512])
+def test_k1_lane_models_match_python_ints(L):
+    """The half sums and the recombination of mont_k1.cu at h = 8, 18, 32,
+    66, 128, 256 limbs a half (H = 4, 9, 16, 33, 64, 128 words, HPL = 1, 1,
+    1, 2, 2, 4): at L = 132 a half does not start on a lane boundary; at
+    L = 256 and 512 (H = 32 HPL) the half sums' carries leave lane 31 and
+    the middle term's top word lies above its frame. The products between
+    them are Python's; the random test chains the three models."""
+    h = L // 2
+    X = 1 << (16 * h)
+    ops = karatsuba_edge_operands(ModCtx.make(carry_edge_moduli(L)[0]))
+    for a in ops:
+        for b in ops:
+            sa, sb, ca, cb = warp_k1_halfsums(a, b, L)
+            assert (ca, sa) == divmod(a % X + a // X, X), (hex(a), hex(b))
+            assert (cb, sb) == divmod(b % X + b // X, X), (hex(a), hex(b))
+            z = ((a % X) * (b % X), (a // X) * (b // X), sa * sb)
+            assert warp_k1_combine(z, sa, sb, ca, cb, L) == a * b, (hex(a), hex(b))
+
+
+def test_k1_chain_of_lane_models_on_random_operands():
+    """Half sums, B4 and the recombination chained, as `prod_k1` launches
+    them, on random operands and at odd h for B4 alone."""
+    rng = random.Random(2028)
+    for L in (16, 36, 64, 132, 256, 512):
+        h = L // 2
+        for _ in range(2):
+            a, b = rng.getrandbits(16 * L), rng.getrandbits(16 * L)
+            sa, sb, ca, cb = warp_k1_halfsums(a, b, L)
+            X = 1 << (16 * h)
+            z = warp_prod3((a % X, b % X, a // X, b // X, sa, sb), h)
+            assert warp_k1_combine(z, sa, sb, ca, cb, L) == a * b
+    for h in (1, 3, 9, 65, 129):
+        col = tuple(rng.getrandbits(16 * h) for _ in range(6))
+        assert warp_prod3(col, h) == (col[0] * col[1], col[2] * col[3], col[4] * col[5])
 
 
 # -- 2. the port's plain path on the carry edges -----------------------------

@@ -1,4 +1,5 @@
-"""Card-only checks of the Hopper Montgomery kernels (multiply and modexp).
+"""Card-only checks of the Hopper Montgomery kernels: the multiply, the
+modexp and the Karatsuba families' launches.
 
 Marked `gpu`: on a host without a CUDA device every test here skips (the
 decision is made inside the `cuda` fixture, never at import, so every
@@ -29,6 +30,7 @@ from dds_tpu_torch.ops.montgomery import (
     carry_edge_operands,
     carry_edge_products,
     karatsuba_edge_operands,
+    prod3_edge_columns,
 )
 
 pytestmark = pytest.mark.gpu
@@ -323,3 +325,92 @@ def test_kfused_on_carry_edges_matches_plain(cuda, L):
         B = a.shape[1]
         wide = torch.cat([a, b], dim=1)
         assert torch.equal(mont_cuda.prod_kf(wide[:, :B], wide[:, B:]), got)
+
+
+def _prod3_operands(cols: list[tuple[int, ...]], h: int, device) -> tuple[torch.Tensor, ...]:
+    """B4's six operands from columns (a0, b0, a1, b1, sa, sb): a0/a1, b0/b1
+    and sa/sb as row slices of three (2h, B) tensors, as `prod_k1` passes
+    them."""
+    a, b, s = (torch.cat([_lm_ints([c[i] for c in cols], h, device) for i in rows])
+               for rows in ((0, 2), (1, 3), (4, 5)))
+    return a[:h], b[:h], a[h:], b[h:], s[:h], s[h:]
+
+
+@pytest.mark.parametrize("h", [9, 32, 128, 256])
+def test_prod3_on_carry_edges_and_slices_matches_plain(cuda, h):
+    """The warp B4 at H = 5, 16, 64, 128 words an operand (HPL = 1, 1, 2,
+    4; odd h at 9) on its carry-edge columns and on seeded random ones,
+    operands as row slices, then as column slices of wider arrays."""
+    rng = random.Random(h)
+    cols = prod3_edge_columns(h) + [tuple(rng.getrandbits(16 * h) for _ in range(6))
+                                    for _ in range(200)]
+    ops = _prod3_operands(cols, h, cuda)
+    before = mont_cuda.prod3_launches.value
+    got = mont_cuda.prod3(*ops)
+    torch.cuda.synchronize()
+    assert mont_cuda.prod3_launches.value == before + 1
+    assert torch.equal(got, mont_cuda.prod3(*(x.cpu() for x in ops)).to(cuda))
+    want = [x * y for c in cols for x, y in ((c[0], c[1]), (c[2], c[3]), (c[4], c[5]))]
+    blocks = [bn.batch_to_ints(bn.to_host(got[2 * h * p: 2 * h * (p + 1)].T)) for p in range(3)]
+    assert [blocks[p][j] for j in range(len(cols)) for p in range(3)] == want
+    B = len(cols)
+    wide = [torch.cat([x.flip(1), x], dim=1) for x in ops]
+    assert torch.equal(mont_cuda.prod3(*(x[:, B:] for x in wide)), got)
+
+
+@pytest.mark.parametrize("L", [64, 256, 512])
+def test_k1_launches_on_carry_edges_match_plain(cuda, L):
+    """The half sums and the recombination of mont_k1.cu at H = 16, 64, 128
+    words a half on every ordered pair of the Karatsuba edge operands (the
+    overflow bits set and clear), against their plain versions, and
+    chained through B4 to a*b; then on column slices."""
+    for n in carry_edge_moduli(L):
+        ops = karatsuba_edge_operands(ModCtx.make(n))
+        xs, ys = [x for x in ops for _ in ops], [y for _ in ops for y in ops]
+        a, b = _lm_ints(xs, L, cuda), _lm_ints(ys, L, cuda)
+        h = L // 2
+        before = (mont_cuda.halfsums_launches.value, mont_cuda.combine_launches.value)
+        s = mont_cuda.k1_halfsums(a, b)
+        z = mont_cuda.prod3(a[:h], b[:h], a[h:], b[h:], s[:h], s[h: 2 * h])
+        T = mont_cuda.k1_combine(z, s, L)
+        torch.cuda.synchronize()
+        assert (mont_cuda.halfsums_launches.value, mont_cuda.combine_launches.value) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(s, mont_cuda.k1_halfsums(a.cpu(), b.cpu()).to(cuda))
+        assert torch.equal(T, mont_cuda.k1_combine(z.cpu(), s.cpu(), L).to(cuda))
+        assert bn.batch_to_ints(bn.to_host(T.T)) == [x * y for x, y in zip(xs, ys)]
+        B = a.shape[1]
+        wide = torch.cat([a, b], dim=1)
+        assert torch.equal(mont_cuda.k1_halfsums(wide[:, :B], wide[:, B:]), s)
+        zw, sw = (torch.cat([x.flip(1), x], dim=1)[:, B:] for x in (z, s))
+        assert torch.equal(mont_cuda.k1_combine(zw, sw, L), T)
+
+
+@pytest.mark.parametrize("bits", [1024, 4096, 8192])
+def test_mul_under_k1_equals_mode_0_on_card(cuda, bits):
+    """L = 64 (RSA-1024, MultAll's width), 256 and 512; then a mode-1 fold
+    of 300 rows against the Python-int product."""
+    rng = random.Random(bits)
+    ctx = ModCtx.make(rng.getrandbits(bits) | (1 << (bits - 1)) | 1)
+    assert ctx.L == bits // 16
+    a, b = _lm(ctx, 1000, 80, cuda), _lm(ctx, 1000, 81, cuda)
+    assert torch.equal(mont_cuda.mul(ctx, a, b, karatsuba="k1"),
+                       mont_cuda.mul(ctx, a, b, karatsuba=False))
+    rows = _residues(ctx, 300, 82)
+    got = mont_cuda.reduce_mul(ctx, bn.to_device(rows, cuda), karatsuba="k1")
+    want = 1
+    for c in bn.batch_to_ints(rows):
+        want = want * c % ctx.n
+    assert bn.limbs_to_int(bn.to_host(got)[0]) == want
+
+
+def test_mode_1_mul_launches_its_four_kernels_once_each(cuda):
+    ctx = _n2_ctx()
+    a, b = _lm(ctx, 4096, 83, cuda), _lm(ctx, 4096, 84, cuda)
+    names = ("mont_k1_halfsums", "mont_prod3", "mont_k1_combine", "mont_redc", "mont_mul",
+             "mont_kfused")
+    before = [mont_cuda.LAUNCHES[k].value for k in names]
+    mont_cuda.mul(ctx, a, b, karatsuba="k1")
+    torch.cuda.synchronize()
+    after = [mont_cuda.LAUNCHES[k].value for k in names]
+    assert [y - x for x, y in zip(before, after)] == [1, 1, 1, 1, 0, 0]
