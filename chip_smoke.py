@@ -3,11 +3,12 @@
 
 Drives the port's paths — encrypted SumAll over Paillier-2048 ciphertexts
 through 4 BFT-ABD replicas (quorum 3, f = 1) in each DDS_KARATSUBA product
-family, coalesced small SumAlls, and the client's bulk encryption
-(full-width obfuscators r^n mod n^2 from the modexp kernel) feeding
-PutSets into that stack — and holds every CUDA kernel on them against its
-plain PyTorch version. Phases, each printing one JSON line; any failure
-exits non-zero:
+family, coalesced small SumAlls, the client's bulk encryption (full-width
+obfuscators r^n mod n^2 from the modexp kernel) feeding PutSets into that
+stack, MultAll over RSA-1024 ciphertexts (L = 64) in each family, and the
+generated mixed workload over every data route — and holds every CUDA
+kernel on them against its plain PyTorch version. Phases, each printing
+one JSON line; any failure exits non-zero:
 
 1. device     the card, from torch and nvidia-smi (a CUDA device is required);
 2. build      nvcc for sm_90a of every kernel source (mont_mul, mont_exp,
@@ -82,14 +83,31 @@ exits non-zero:
               to the column's total and equal the Python-int fold of the
               stored ciphertexts; the exp kernel's counter is zeroed just
               before and read just after and must be > 0;
-14. kernels   one {"kernels": [...]} line (every kernel must have launched
-              on its path); then the card's name and power limit; then the
+14. multall   BASELINE config 3 (benchmarks/product.py's K): a fresh stack
+              (min_device_batch = 0) loads K = 16,384 one-column records of
+              RSA-1024 ciphertexts by PutSet; in modes 0, 1 and 2, 6
+              sequential and 3 rounds of 8 concurrent MultAlls, each equal
+              to the Python-int product (mode 0's ciphertext) and decrypting
+              to the plaintexts' product, each mode launching only its own
+              fold kernels; then at L = 64 the fold level by level in each
+              mode, one B = 4,096 launch of each fold kernel (bit-exact,
+              held, beside its bound) and the crossover;
+15. mixed     BASELINE config 5 (benchmarks/mixed.py --preload 4096
+              --clients 4 --ops 200): 7 replicas, quorum 5; the preload,
+              then run_workload rounds (mixed.py's MIX, then
+              configs/default.toml's mix) on crypto-backend cuda and then
+              cpu, every client with no failed operation; on the cuda stack
+              the route sweep: every ported route against an answer
+              recomputed on the host from the rows GetSet reads back;
+16. kernels   one {"kernels": [...]} line (every kernel must have launched
+              on its path; the fold kernels also carry their L = 64
+              launch); then the card's name and power limit; then the
               result line.
 
     python3 chip_smoke.py              # on the card (needs one GPU)
     python3 chip_smoke.py --rehearse   # the same phases, tiny, on the CPU;
                                        # exits 3 and prints no result
-    python3 chip_smoke.py --ab PARENT [--phases e2e,client]
+    python3 chip_smoke.py --ab PARENT [--phases e2e,client,multall,mixed]
         # on the card: another checkout (PARENT) against this one in turns,
         # parent, change, change, parent: the B1/P/B3/B4/B5/REDC kernel
         # times and the folds of every mode, or each tree's own chip_smoke
@@ -807,14 +825,71 @@ def word_products(ctx, kind: str) -> int:
             "redc": W * W + W}[kind]
 
 
+def launch_table(ctx, B: int, seed: int, dev) -> dict:
+    """One launch of each fold kernel at the fold's shape (L = ctx.L, B
+    columns): name -> (kernel call, plain call, word multiply-adds a
+    column, int32 rows moved a column: inputs read once, the output written
+    once). The Karatsuba kernels' inputs come from plain versions on the
+    card: B4's from the plain half sums, the recombination's from the plain
+    B4, the reduction's from the plain full product."""
+    from dds_tpu_torch.ops import mont_cuda, montgomery
+
+    a, b, s, ops = karatsuba_operands(ctx, B, seed, dev)
+    z = montgomery.prod3(*(x.T for x in ops)).T.contiguous()
+    T = montgomery.prod(a.T, b.T).T.contiguous()
+    L, h = ctx.L, ctx.L // 2
+    return {
+        "mont_mul": (lambda: mont_cuda.mul(ctx, a, b, karatsuba=False),
+                     lambda: ctx.mont_mul(a.T, b.T).T,
+                     word_products(ctx, "cios"), 3 * L),
+        "mont_prod3": (lambda: mont_cuda.prod3(*ops),
+                       lambda: montgomery.prod3(*(x.T for x in ops)).T,
+                       word_products(ctx, "prod3"), 12 * h),
+        "mont_k1_halfsums": (lambda: mont_cuda.k1_halfsums(a, b),
+                             lambda: montgomery.k1_halfsums(a.T, b.T).T,
+                             0, 2 * L + 2 * h + 2),
+        "mont_k1_combine": (lambda: mont_cuda.k1_combine(z, s, L),
+                            lambda: montgomery.k1_combine(z.T, s.T, L).T,
+                            0, 8 * h + 2 + 2 * L),
+        "mont_kfused": (lambda: mont_cuda.prod_kf(a, b),
+                        lambda: montgomery.prod_kf(a.T, b.T).T,
+                        word_products(ctx, "kfused"), 4 * L),
+        "mont_redc": (lambda: mont_cuda.redc(ctx, T), lambda: ctx.redc(T.T).T,
+                      word_products(ctx, "redc"), 3 * L),
+    }
+
+
+def time_launch_table(ctx, dev, sizes, card, seed: int, skip=()) -> dict:
+    """Each fold kernel's single B-column launch (`launch_table`) at
+    ctx.L, but those named in `skip`: bit-exact against its plain version,
+    its ms with the stream held, the plain version's ms and the bound."""
+    B = sizes["B"]
+    out = {}
+    for name, (kernel, plain, products, rows_moved) in launch_table(ctx, B, seed, dev).items():
+        if name in skip:
+            continue
+        err = max_abs_diff(kernel(), plain())
+        if err:
+            raise AssertionError(f"{name} kernel != plain at L={ctx.L}, B={B}: {err}")
+        ms, _ = time_ms(kernel, sizes["reps_path"], 2, dev, hold=True)
+        pms, _ = time_ms(plain, sizes["reps_plain"], 1, dev)
+        nbytes = rows_moved * B * 4
+        bms, by = bound_ms(B * products * 2, nbytes, card["sms"], card["clock_mhz"])
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                     "bound_by": by}
+        emit("timing", what=name, L=ctx.L, B=B, **out[name], bytes=nbytes)
+    return out
+
+
 def phase_timing_karatsuba(ctx, dev, sizes, card) -> dict:
     """CUDA-event times of the path-shaped fold in each mode (in modes 1
-    and 2 also level by level), one launch of B4, of mode 1's half sums and
-    recombination, of B5 and of the reduction, and the finalize-share probe
+    and 2 also level by level), one launch of each fold kernel
+    (`time_launch_table`: B4, mode 1's half sums and recombination, B5 and
+    the reduction; B1's is `phase_timing`'s), and the finalize-share probe
     (mul against mul_nofinal), each beside its bound and its plain
     version's time."""
     from dds_tpu_torch.ops import bignum as bn
-    from dds_tpu_torch.ops import mont_cuda, montgomery
+    from dds_tpu_torch.ops import mont_cuda
 
     out = {"fold": {}}
     K, reps = sizes["K_path"], sizes["reps_path"]
@@ -835,36 +910,7 @@ def phase_timing_karatsuba(ctx, dev, sizes, card) -> dict:
         out["fold"][mode]["host_dispatch_ms"] = levels["host_dispatch_ms"]
         emit("timing", what="fold_levels", **levels)
 
-    B = sizes["B"]
-    a, b, s, ops = karatsuba_operands(ctx, B, 50, dev)
-    z = mont_cuda.prod3(*ops)
-    T = montgomery.prod(a.T, b.T).T.contiguous()
-    L, h = ctx.L, ctx.L // 2
-    # name: (kernel, plain version, word multiply-adds a column, int32 rows
-    # moved a column: inputs read once, the output written once)
-    launches = {
-        "mont_prod3": (lambda: mont_cuda.prod3(*ops),
-                       lambda: montgomery.prod3(*(x.T for x in ops)).T,
-                       word_products(ctx, "prod3"), 12 * h),
-        "mont_k1_halfsums": (lambda: mont_cuda.k1_halfsums(a, b),
-                             lambda: montgomery.k1_halfsums(a.T, b.T).T,
-                             0, 2 * L + 2 * h + 2),
-        "mont_k1_combine": (lambda: mont_cuda.k1_combine(z, s, L),
-                            lambda: montgomery.k1_combine(z.T, s.T, L).T,
-                            0, 8 * h + 2 + 2 * L),
-        "mont_kfused": (lambda: mont_cuda.prod_kf(a, b),
-                        lambda: montgomery.prod_kf(a.T, b.T).T,
-                        word_products(ctx, "kfused"), 4 * L),
-        "mont_redc": (lambda: mont_cuda.redc(ctx, T), lambda: ctx.redc(T.T).T,
-                      word_products(ctx, "redc"), 3 * L),
-    }
-    for name, (kernel, plain, products, rows_moved) in launches.items():
-        ms, _ = time_ms(kernel, reps, 2, dev, hold=True)
-        pms, _ = time_ms(plain, sizes["reps_plain"], 1, dev)
-        nbytes = rows_moved * B * 4
-        bms, by = bound_ms(B * products * 2, nbytes, card["sms"], card["clock_mhz"])
-        out[name] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by}
-        emit("timing", what=name, L=L, B=B, **out[name], bytes=nbytes)
+    out.update(time_launch_table(ctx, dev, sizes, card, 50, skip=("mont_mul",)))
 
     # the finalize-share probe (profile_kernel.main): its own path, counted
     Bp = sizes["B_probe"]
@@ -877,11 +923,11 @@ def phase_timing_karatsuba(ctx, dev, sizes, card) -> dict:
     sync(dev)
     probe_launches = mont_cuda.nofinal_launches.value
     pms, _ = time_ms(lambda: ctx.mont_mul_nofinal(pa.T, pb.T), sizes["reps_plain"], 1, dev)
-    bms, by = bound_ms(Bp * word_products(ctx, "cios") * 2, 3 * L * Bp * 4, card["sms"],
+    bms, by = bound_ms(Bp * word_products(ctx, "cios") * 2, 3 * ctx.L * Bp * 4, card["sms"],
                        card["clock_mhz"])
     out["mont_mul_nofinal"] = {"ms": nf_ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                                "launches": probe_launches}
-    emit("timing", what="finalize_share", L=L, B=Bp, mul_ms=mul_ms, nofinal_ms=nf_ms,
+    emit("timing", what="finalize_share", L=ctx.L, B=Bp, mul_ms=mul_ms, nofinal_ms=nf_ms,
          finalize_share=(mul_ms - nf_ms) / mul_ms, nofinal_plain_ms=pms, bound_ms=bms,
          bound_by=by, nofinal_launches=probe_launches)
     return out
@@ -894,24 +940,26 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def phase_crossover(dev, n2, sizes) -> int:
+def phase_crossover(dev, modulus: int, widths) -> int:
     """Smallest width from which the resident device fold beats the host
-    fold at every larger measured width."""
+    fold at every larger measured width, for folds mod `modulus`."""
     from dds_tpu_torch.models.backend import CudaBackend, _host_fold
+    from dds_tpu_torch.ops.montgomery import ModCtx
 
     be = CudaBackend(device=dev, min_device_batch=0)
     rng = np.random.default_rng(9)
+    nbytes = (modulus.bit_length() + 7) // 8
     table = []
-    for K in sizes["crossover"]:
-        cs = [int.from_bytes(rng.bytes(512), "little") % n2 for _ in range(K)]
-        be.modmul_fold_resident(cs, n2)  # ingest + build the row memo
+    for K in widths:
+        cs = [int.from_bytes(rng.bytes(nbytes), "little") % modulus for _ in range(K)]
+        be.modmul_fold_resident(cs, modulus)  # ingest + build the row memo
         host, dvc = [], []
         for _ in range(5):
             t = time.perf_counter()
-            h = _host_fold(cs, n2)
+            h = _host_fold(cs, modulus)
             host.append((time.perf_counter() - t) * 1e3)
             t = time.perf_counter()
-            d = be.modmul_fold_resident(cs, n2)
+            d = be.modmul_fold_resident(cs, modulus)
             dvc.append((time.perf_counter() - t) * 1e3)
             if h != d:
                 raise AssertionError(f"crossover K={K}: device fold != host fold")
@@ -922,7 +970,7 @@ def phase_crossover(dev, n2, sizes) -> int:
         if row["device_ms"] >= row["host_ms"]:
             break
         cross = row["K"]
-    emit("crossover", table=table, min_device_batch=cross)
+    emit("crossover", L=ModCtx.make(modulus).L, table=table, min_device_batch=cross)
     return cross
 
 
@@ -969,18 +1017,22 @@ async def put_rows(port: int, rows: list) -> float:
     return time.perf_counter() - t
 
 
-def sumall_fn(port: int, nsquare: int):
+def aggregate_fn(port: int, target: str):
+    """An async call of one aggregate route (`target`: path and query)
+    that returns its ciphertext; a status other than 200 fails."""
     from dds_tpu_torch.http.miniserver import http_request
 
-    target = f"/SumAll?position={PSSE_POS}&nsqr={nsquare}"
-
-    async def sumall() -> int:
+    async def aggregate() -> int:
         status, body = await http_request("127.0.0.1", port, "GET", target, timeout=300.0)
         if status != 200:
-            raise AssertionError(f"SumAll failed: {status} {body[:200]!r}")
+            raise AssertionError(f"{target.split('?')[0]} failed: {status} {body[:200]!r}")
         return int(json.loads(body)["result"])
 
-    return sumall
+    return aggregate
+
+
+def sumall_fn(port: int, nsquare: int):
+    return aggregate_fn(port, f"/SumAll?position={PSSE_POS}&nsqr={nsquare}")
 
 
 # the kernels each DDS_KARATSUBA mode's SumAll must launch, and must not
@@ -1172,6 +1224,389 @@ async def phase_coalesce(dev, sizes) -> dict:
         "window_off_request_ms_median": statistics.median(lat_off) * 1e3,
     }
     emit("coalesce", **rec)
+    return rec
+
+
+def card_numbers(dev) -> dict:
+    """The card's SM count and maximum SM clock, for the bounds (the H100's
+    132 SMs and 1,980 MHz in a rehearsal on the CPU)."""
+    import torch
+
+    if dev.type != "cuda":
+        return {"sms": 132, "clock_mhz": 1980.0}
+    return {"sms": torch.cuda.get_device_properties(0).multi_processor_count,
+            "clock_mhz": float(nvidia_smi("clocks.max.sm").split()[0])}
+
+
+def span_stats(prefixes: tuple) -> dict:
+    """{span: {count, mean_ms, p95_ms}} of the tracer's spans whose names
+    start with one of `prefixes`."""
+    from dds_tpu_torch.utils.trace import tracer
+
+    return {name: {k: v[k] for k in ("count", "mean_ms", "p95_ms")}
+            for name, v in tracer.summary().items() if name.startswith(prefixes)}
+
+
+async def phase_multall(dev, sizes) -> dict:
+    """BASELINE config 3 (`benchmarks/product.py` at its default K)
+    through the port's stack: a fresh 4-replica stack (quorum 3, f = 1,
+    min_device_batch = 0) loads K one-column records of RSA-1024
+    ciphertexts of distinct seeded plaintexts by concurrent PutSet; then in
+    modes 0, 1 and 2 on the same stack a first MultAll, 6 sequential and 3
+    rounds of 8 concurrent `GET /MultAll?position=0&pubkey=n`, each equal to
+    the Python-int product mod n (so to mode 0's ciphertext) and decrypting
+    to the plaintexts' product mod n. Counts are zeroed just before and
+    read just after each mode, which must launch its own fold kernels and
+    no others. Then at L = 64: the K-row fold level by level in each mode,
+    one B-column launch of every fold kernel against its plain version and
+    its bound, and the host/device crossover."""
+    import os
+
+    from dds_tpu_torch.models.mult import RsaMultKey
+    from dds_tpu_torch.ops import bignum as bn
+    from dds_tpu_torch.ops.montgomery import ModCtx
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils.config import DDSConfig
+    from dds_tpu_torch.utils.trace import tracer
+
+    key = RsaMultKey.generate(sizes["rsa_bits"])
+    n, K = key.n, sizes["K_multall"]
+    ctx = ModCtx.make(n)
+    rng = np.random.default_rng(13)
+    plains = [int(m) + 2 for m in rng.choice(1 << 24, size=K, replace=False)]
+    t = time.perf_counter()
+    cts = [key.public.encrypt(m) for m in plains]
+    enc_s = time.perf_counter() - t
+    want, want_plain = host_product(cts, n), host_product(plains, n)
+    if key.decrypt(want) != want_plain:
+        raise AssertionError("the Python-int product does not decrypt to the plaintexts'")
+
+    cfg = DDSConfig()
+    cfg.proxy.device = dev.type
+    cfg.proxy.min_device_batch = 0
+    saved = os.environ.get("DDS_KARATSUBA")
+    dep = await launch(cfg)
+    modes = {}
+    try:
+        port = dep.server.cfg.port
+        put_s = await put_rows(port, [[str(c)] for c in cts])
+        multall = aggregate_fn(port, f"/MultAll?position=0&pubkey={n}")
+        for mode in ("0", "1", "2"):
+            os.environ["DDS_KARATSUBA"] = mode
+            reset_counts()  # this mode's run starts here
+            tracer.reset()
+            t = time.perf_counter()
+            if await multall() != want:
+                raise AssertionError(f"MultAll != Python-int product (DDS_KARATSUBA={mode})")
+            first_s = time.perf_counter() - t
+            seq = []
+            for _ in range(sizes["requests"]):
+                t = time.perf_counter()
+                if await multall() != want:
+                    raise AssertionError(f"sequential MultAll changed (DDS_KARATSUBA={mode})")
+                seq.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            for _ in range(sizes["rounds"]):
+                got = await asyncio.gather(*(multall() for _ in range(8)))
+                if any(g != want for g in got):
+                    raise AssertionError(f"concurrent MultAll changed (DDS_KARATSUBA={mode})")
+            per_req = (time.perf_counter() - t) / (sizes["rounds"] * 8)
+            counts = read_counts(dev)  # read just after this mode's run
+            if dev.type == "cuda":
+                ran = {k for k in FOLD_KERNELS if counts[k] > 0}
+                if ran != MODE_KERNELS[mode]:
+                    raise AssertionError(f"MultAll under DDS_KARATSUBA={mode} launched "
+                                         f"{sorted(ran)}, expected {sorted(MODE_KERNELS[mode])}")
+            best = min(min(seq), per_req)
+            modes[mode] = {
+                "ops_per_sec": (K - 1) / best,
+                "multall_ms_first": first_s * 1e3,
+                "multall_ms_seq": min(seq) * 1e3,
+                "multall_ms_seq_median": statistics.median(seq) * 1e3,
+                "multall_ms_concurrent": per_req * 1e3,
+                "multalls": 1 + sizes["requests"] + 8 * sizes["rounds"],
+                "launches": {k: counts[k] for k in FOLD_KERNELS},
+                "spans": span_stats(("http.", "proxy.", "abd.", "kernel.")),
+            }
+        pools = sorted(ModCtx.make(m).L for m in dep.server.backend._stores)
+    finally:
+        if saved is None:
+            os.environ.pop("DDS_KARATSUBA", None)
+        else:
+            os.environ["DDS_KARATSUBA"] = saved
+        await dep.stop()
+    if pools != [ctx.L]:
+        raise AssertionError(f"MultAll folded in pools of L={pools}, expected [{ctx.L}]")
+    rec = {"K": K, "L": ctx.L, "key_bits": sizes["rsa_bits"], "replicas": 4, "quorum": 3,
+           "putset_ops_per_sec": K / put_s, "encrypt_s": enc_s,
+           "decrypts_to_product": True, "modes_equal_mode_0": True, "modes": modes}
+    emit("multall", **rec)
+
+    rows = bn.to_device(bn.ints_to_batch(cts, ctx.L), dev)
+    rec["fold_levels"] = {}
+    for mode in (False, "k1", "fused"):
+        levels = fold_levels(ctx, rows, dev, 5, mode=mode)
+        rec["fold_levels"][mode or "cios"] = levels
+        emit("timing", what="fold_levels", L=ctx.L, **levels)
+    rec["launches_L64"] = time_launch_table(ctx, dev, sizes, card_numbers(dev), 60)
+    rec["crossover"] = phase_crossover(dev, n, sizes["crossover_l64"])
+    return rec
+
+
+# benchmarks/mixed.py's MIX (:33-39) and configs/default.toml's
+# [client.proportions] (:87-96), copied: this script imports nothing of the
+# reference (tests/test_torch_client.py holds the copies equal)
+MIXED_MIX = {"put-set": 0.2, "search-gt": 0.1, "search-gteq": 0.1, "search-lt": 0.1,
+             "search-lteq": 0.1, "sum-all": 0.2, "get-set": 0.1, "search-eq": 0.1}
+DEFAULT_TOML_MIX = {"put-set": 0.2, "get-set": 0.1, "sum": 0.1, "sum-all": 0.1,
+                    "mult-all": 0.1, "search-eq": 0.1, "search-gt": 0.1, "order-ls": 0.1,
+                    "search-entry": 0.1}
+
+
+async def preload(port: int, provider, schema: list, K: int) -> dict:
+    """`benchmarks/mixed.py::_preload`: K canonical 8-column rows through
+    PutSet (64 in flight), each column encrypted with its schema tag, the
+    PSSE column with pooled seeded obfuscators; returns {record key: i}."""
+    from dds_tpu_torch.http.miniserver import http_request
+
+    pk = provider.keys.psse.public
+    rng = np.random.default_rng(14)
+    blinds = [pk.blind(int.from_bytes(rng.bytes(pk.n.bit_length() // 8 - 1), "little"))
+              for _ in range(32)]
+    sem = asyncio.Semaphore(64)
+
+    def enc_row(i: int) -> list:
+        vals = [i, f"name-{i}", None, 2, "a", "b", "c", f"blob-{i}"]
+        row = [provider.encrypt(v, tag) if v is not None else None
+               for v, tag in zip(vals, schema)]
+        row[PSSE_POS] = str(pk.encrypt(i, rn=blinds[i % 32]))  # PSSE, pooled
+        return row
+
+    async def put(i):
+        async with sem:
+            st, body = await http_request("127.0.0.1", port, "POST", "/PutSet",
+                                          json.dumps({"contents": enc_row(i)}).encode())
+        if st != 200:
+            raise AssertionError(f"preload PutSet failed: {st}")
+        return body.decode(), i
+
+    return dict(await asyncio.gather(*(put(i) for i in range(K))))
+
+
+async def route_sweep(port: int, stored: list, keys, schema: list, preloaded: dict) -> dict:
+    """One request to every ported route over the loaded stack, each held
+    against an answer recomputed on the host from the rows read back by
+    GetSet: keysets equal, SumAll and MultAll equal to the Python-int fold
+    of the column and decrypting to the fold of its plaintexts, the pair
+    aggregates likewise; element reads and writes, RemoveSet, paging, 404
+    and 400 cases. Returns the checks made by route."""
+    from dds_tpu_torch.http.miniserver import http_request
+
+    async def call(method, target, obj=None):
+        body = json.dumps(obj).encode() if obj is not None else None
+        return await http_request("127.0.0.1", port, method, target, body, timeout=300.0)
+
+    sem = asyncio.Semaphore(64)
+
+    async def get(k):
+        async with sem:
+            st, body = await call("GET", f"/GetSet/{k}")
+        if st != 200:
+            raise AssertionError(f"GetSet {k}: {st}")
+        return k, json.loads(body)["contents"]
+
+    pairs = sorted(await asyncio.gather(*(get(k) for k in sorted(stored))))
+    checks = {}
+
+    def expect(route, got, want):
+        if got != want:
+            raise AssertionError(f"route sweep: {route} != host recomputation")
+        checks[route] = checks.get(route, 0) + 1
+
+    def keyset(resp):
+        st, body = resp
+        if st != 200:
+            raise AssertionError(f"search failed: {st} {body[:200]!r}")
+        return json.loads(body)["keyset"]
+
+    def result(resp):
+        st, body = resp
+        if st != 200:
+            raise AssertionError(f"aggregate failed: {st} {body[:200]!r}")
+        return int(json.loads(body)["result"])
+
+    psse, mse = keys.psse, keys.mse
+    nsqr, n = psse.public.nsquare, mse.n
+    col = lambda pos: [(k, v) for k, v in pairs if pos < len(v)]
+    # the plaintexts: the preload's are known, the clients' rows decrypt
+    others = [v for k, v in col(PSSE_POS) if k not in preloaded]
+    psse_plain = [preloaded[k] for k, _ in col(PSSE_POS) if k in preloaded] + \
+        psse.decrypt_batch([int(v[PSSE_POS]) for v in others])
+    mse_plain = [2 if k in preloaded else mse.decrypt(int(v[3])) for k, v in col(3)]
+    sumall = result(await call("GET", f"/SumAll?position={PSSE_POS}&nsqr={nsqr}"))
+    expect("SumAll", sumall, host_product([int(v[PSSE_POS]) for _, v in col(PSSE_POS)], nsqr))
+    expect("SumAll", psse.decrypt(sumall), sum(psse_plain) % psse.n)
+    multall = result(await call("GET", f"/MultAll?position=3&pubkey={n}"))
+    expect("MultAll", multall, host_product([int(v[3]) for _, v in col(3)], n))
+    expect("MultAll", mse.decrypt(multall), host_product(mse_plain, n))
+    (k1, v1), (k2, v2) = pairs[len(pairs) // 3], pairs[2 * len(pairs) // 3]
+    expect("Sum", result(await call(
+        "GET", f"/Sum?key1={k1}&key2={k2}&position={PSSE_POS}&nsqr={nsqr}")),
+        int(v1[PSSE_POS]) * int(v2[PSSE_POS]) % nsqr)
+    expect("Mult", result(await call(
+        "GET", f"/Mult?key1={k1}&key2={k2}&position=3&pubkey={n}")),
+        int(v1[3]) * int(v2[3]) % n)
+
+    def order(pos, desc):
+        rows = [(int(v[pos]), k) for k, v in pairs if pos < len(v)]
+        return [k for _, k in sorted(rows, key=lambda t: t[0], reverse=desc)]
+
+    expect("OrderLS", keyset(await call("GET", "/OrderLS?position=0")), order(0, True))
+    expect("OrderSL", keyset(await call("GET", "/OrderSL?position=0")), order(0, False))
+    expect("OrderSL", keyset(await call("GET", "/OrderSL?position=0&offset=100&limit=50")),
+           order(0, False)[100:150])
+    enc = lambda v, pos: keys.ope.encrypt(v) if pos == 0 else (
+        keys.che.encrypt(v) if schema[pos] == "CHE" else str(v))
+    item = enc("name-5", 1)
+    eq = [k for k, v in pairs if len(v) > 1 and str(v[1]) == item]
+    expect("SearchEq", keyset(await call("POST", "/SearchEq?position=1", {"value": item})), eq)
+    neq = [k for k, v in pairs if len(v) > 1 and str(v[1]) != item]
+    expect("SearchNEq", keyset(await call("POST", "/SearchNEq?position=1&offset=10&limit=20",
+                                          {"value": item})), neq[10:30])
+    pivot = keys.ope.encrypt(2048)
+    for route, op in (("SearchGt", lambda e: e > pivot), ("SearchGtEq", lambda e: e >= pivot),
+                      ("SearchLt", lambda e: e < pivot), ("SearchLtEq", lambda e: e <= pivot)):
+        want = [k for k, v in pairs if op(int(v[0]))]
+        expect(route, keyset(await call("POST", f"/{route}?position=0", {"value": pivot})),
+               want)
+    lo, hi = keys.ope.encrypt(100), keys.ope.encrypt(1000)
+    expect("Range", keyset(await call("POST", "/Range?position=0",
+                                      {"value1": lo, "value2": hi})),
+           [k for k, v in pairs if lo <= int(v[0]) <= hi])
+    words = [enc(w, 4) for w in ("a", "name-7", "nowhere")]
+    has = lambda v, w: any(str(e) == w for e in v)
+    expect("SearchEntry", keyset(await call("POST", "/SearchEntry", {"value": words[1]})),
+           [k for k, v in pairs if has(v, words[1])])
+    triple = {"value1": words[0], "value2": words[1], "value3": words[2]}
+    expect("SearchEntryOR", keyset(await call("POST", "/SearchEntryOR", triple)),
+           [k for k, v in pairs if any(has(v, w) for w in words)])
+    expect("SearchEntryAND", keyset(await call("POST", "/SearchEntryAND", triple)),
+           [k for k, v in pairs if all(has(v, w) for w in words)])
+
+    # element routes on a fresh record, then RemoveSet: SumAll is back
+    fresh = [keys.ope.encrypt(7), enc("fresh", 1), str(psse.public.encrypt(5)),
+             str(mse.public.encrypt(3))]
+    st, body = await call("POST", "/PutSet", {"contents": fresh})
+    fk = body.decode()
+    expect("PutSet", st, 200)
+    expect("SumAll", psse.decrypt(result(await call(
+        "GET", f"/SumAll?position={PSSE_POS}&nsqr={nsqr}"))), (sum(psse_plain) + 5) % psse.n)
+    st, body = await call("GET", f"/ReadElement/{fk}?position=1")
+    expect("ReadElement", (st, json.loads(body)), (200, {"value": fresh[1]}))
+    expect("ReadElement", (await call("GET", f"/ReadElement/{fk}?position=4"))[0], 404)
+    st, body = await call("POST", f"/IsElement/{fk}", {"value": fresh[1]})
+    expect("IsElement", (st, json.loads(body)), (200, {"result": True}))
+    expect("AddElement", (await call("PUT", f"/AddElement/{fk}", {"value": "tail"}))[0], 200)
+    expect("WriteElement", (await call("PUT", f"/WriteElement/{fk}?position=9",
+                                       {"value": "end"}))[0], 200)
+    expect("WriteElement", (await call("PUT", f"/WriteElement/{fk}?position=1",
+                                       {"value": "x"}))[0], 200)
+    st, body = await call("GET", f"/GetSet/{fk}")
+    expect("GetSet", (st, json.loads(body)["contents"]), (200, fresh[:1] + ["x"] + fresh[2:]
+                                                          + ["tail", "end"]))
+    expect("RemoveSet", (await call("DELETE", f"/RemoveSet/{fk}"))[0], 200)
+    expect("GetSet", (await call("GET", f"/GetSet/{fk}"))[0], 404)
+    expect("SumAll", result(await call("GET", f"/SumAll?position={PSSE_POS}&nsqr={nsqr}")),
+           sumall)
+    expect("Sum", (await call("GET", f"/Sum?key1={k1}&key2={fk}&position=2&nsqr={nsqr}"))[0],
+           404)
+    expect("OrderLS", (await call("GET", "/OrderLS?position=-1"))[0], 400)
+    expect("OrderLS", (await call("GET", "/OrderLS?position=1"))[0], 400)  # not an int
+    expect("SearchGt", (await call("POST", "/SearchGt?position=0&offset=-1",
+                                   {"value": pivot}))[0], 400)
+    return checks
+
+
+async def phase_mixed(dev, sizes) -> dict:
+    """BASELINE config 5 (`benchmarks/mixed.py --preload 4096 --clients 4
+    --ops 200`) through the port: 7 replicas, quorum 5 (f = 2, the
+    reference default's active set), Paillier-2048 (the bench key) and
+    RSA-1024. On `crypto-backend = "cuda"` and then on `"cpu"` (the
+    same-host baseline mixed.py prints), a fresh stack each: the preload,
+    then `run_workload` rounds of the clients with one seed, first with
+    mixed.py's MIX, then with configs/default.toml's proportions; every
+    client must report no failed operation. Counts are zeroed just before
+    and read just after each round; on the card the cuda rounds must
+    launch mont_mul. After the cuda rounds, the route sweep."""
+    import dataclasses
+
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.models._symmetric import aes_available
+    from dds_tpu_torch.models.facade import DEFAULT_SCHEMA, HomoProvider
+    from dds_tpu_torch.models.keys import HEKeys
+    from dds_tpu_torch.run import launch, run_workload
+    from dds_tpu_torch.utils.config import DDSConfig
+    from dds_tpu_torch.utils.trace import tracer
+
+    keys = dataclasses.replace(HEKeys.generate(512, sizes["rsa_bits"]),
+                               psse=bench_paillier_key(sizes["key_bits"]))
+    provider = HomoProvider(keys)
+    schema = list(DEFAULT_SCHEMA)
+    if not aes_available():  # the reference's rule for AES-less hosts
+        schema = ["Plain" if c in ("CHE", "None") else c for c in schema]
+    R, Q = sizes["mixed_replicas"], sizes["mixed_quorum"]
+    rec = {"replicas": R, "quorum": Q, "preload": sizes["mixed_preload"],
+           "clients": sizes["mixed_clients"], "ops_per_client": sizes["mixed_ops"],
+           "seed": sizes["mixed_seed"], "schema": schema, "rounds": {}}
+    for backend in ("cuda", "cpu"):
+        cfg = DDSConfig()
+        cfg.replicas.endpoints = [f"replica-{i}" for i in range(R)]
+        cfg.replicas.byz_quorum_size, cfg.replicas.byz_max_faults = Q, (R - 1) // 3
+        cfg.proxy.crypto_backend = backend
+        cfg.proxy.device = dev.type
+        cfg.client.nr_of_operations = sizes["mixed_ops"]
+        cfg.client.nr_of_local_clients = sizes["mixed_clients"]
+        cfg.client.data_table.fixed_columns_hcrypt = schema
+        dep = await launch(cfg)
+        try:
+            port = dep.server.cfg.port
+            t = time.perf_counter()
+            preloaded = await preload(port, provider, schema, sizes["mixed_preload"])
+            preload_s = time.perf_counter() - t
+            for label, mix in (("mixed", MIXED_MIX), ("default", DEFAULT_TOML_MIX)):
+                cfg.client.proportions = dict(mix)
+                reset_counts()  # this round's run starts here
+                tracer.reset(max_events=1 << 21)
+                t = time.perf_counter()
+                reports = await run_workload(dep, provider, seed=sizes["mixed_seed"])
+                wall = time.perf_counter() - t
+                counts = read_counts(dev)
+                if any(r.failed for r in reports):
+                    raise AssertionError(f"{label} round on {backend}: failed operations: "
+                                         f"{[vars(r) for r in reports]}")
+                if backend == "cuda" and dev.type == "cuda" and counts["mont_mul"] <= 0:
+                    raise AssertionError(f"the {label} round on cuda never launched mont_mul")
+                ops = sum(r.operations for r in reports)
+                rec["rounds"][f"{label}.{backend}"] = {
+                    "ops": ops, "wall_s": wall, "ops_per_sec": ops / wall,
+                    "succeeded": sum(r.succeeded for r in reports),
+                    "not_found": sum(r.not_found for r in reports), "failed": 0,
+                    "stored": len(dep.server.stored_keys), "preload_s": preload_s,
+                    "mont_mul_launches": counts["mont_mul"],
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "spans": span_stats(("http.", "proxy.fold", "proxy.fetch_stored")),
+                }
+            if backend == "cuda":
+                rec["route_sweep"] = await route_sweep(
+                    port, sorted(dep.server.stored_keys), keys, schema, preloaded)
+        finally:
+            await dep.stop()
+    rec["cuda_over_cpu"] = {
+        label: rec["rounds"][f"{label}.cuda"]["ops_per_sec"]
+        / rec["rounds"][f"{label}.cpu"]["ops_per_sec"] for label in ("mixed", "default")}
+    rec["mont_mul_launches"] = sum(rec["rounds"][f"{label}.cuda"]["mont_mul_launches"]
+                                   for label in ("mixed", "default"))
+    emit("mixed", **rec)
     return rec
 
 
@@ -1445,7 +1880,10 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   requests=6, rounds=3, B_exp_small=256, B_exp=8192, reps_exp=2,
                   rsa_bits=1024, clients=4, ops_per_client=2048, B_probe=8192,
                   K_coalesce=128, coalesce_burst=16, coalesce_rounds=3,
-                  coalesce_min_batch=None)
+                  coalesce_min_batch=None, K_multall=16384,
+                  crossover_l64=[8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384],
+                  mixed_replicas=7, mixed_quorum=5, mixed_preload=4096, mixed_clients=4,
+                  mixed_ops=200, mixed_seed=7)
 
 
 def main(argv=None) -> int:
@@ -1482,20 +1920,20 @@ def main(argv=None) -> int:
                      reps_path=2, reps_plain=1, crossover=[8, 32], requests=2,
                      rounds=1, B_exp_small=8, B_exp=16, reps_exp=1, rsa_bits=512,
                      clients=2, ops_per_client=64, B_probe=64, K_coalesce=16,
-                     coalesce_burst=16, coalesce_rounds=2, coalesce_min_batch=32)
-        card = {"name": "cpu (rehearsal)", "sms": 132, "clock_mhz": 1980.0}
+                     coalesce_burst=16, coalesce_rounds=2, coalesce_min_batch=32,
+                     K_multall=64, crossover_l64=[8, 32], mixed_replicas=7, mixed_quorum=5,
+                     mixed_preload=64, mixed_clients=2, mixed_ops=40, mixed_seed=7)
+        card = {"name": "cpu (rehearsal)", **card_numbers(dev)}
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device available", file=sys.stderr)
             return 2
         dev = torch.device("cuda")
         sizes = CARD_SIZES
-        props = torch.cuda.get_device_properties(0)
         card = {
             "name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
-            "sms": props.multi_processor_count,
-            "clock_mhz": float(nvidia_smi("clocks.max.sm").split()[0]),
+            **card_numbers(dev),
             "smi": nvidia_smi("name,power.limit"),
             "clocks_now": nvidia_smi("clocks.sm,power.draw,temperature.gpu"),
         }
@@ -1513,19 +1951,26 @@ def main(argv=None) -> int:
     tim = phase_timing(ctx, dev, sizes, card)
     tim_k = phase_timing_karatsuba(ctx, dev, sizes, card)
     tim_exp = phase_timing_exp(ctx, dev, sizes, card)
-    phase_crossover(dev, ctx.n, sizes)
+    phase_crossover(dev, ctx.n, sizes["crossover"])
     e2e = asyncio.run(phase_e2e(dev, sizes))
     asyncio.run(phase_coalesce(dev, sizes))
     client = asyncio.run(phase_client(dev, sizes))
+    multall = asyncio.run(phase_multall(dev, sizes))
+    mixed = asyncio.run(phase_mixed(dev, sizes))
 
     path = tim["path"]
+    # the fold kernels' single launches at MultAll's width, L = 64
+    l64 = {name: {"L": 64, "B": sizes["B"], **t}
+           for name, t in multall["launches_L64"].items()}
     kernels = [{
         "name": "mont_mul",
         "route": "cuda",
         "source": "dds_tpu_torch/csrc/mont_mul.cu",
         "replaces": "dds_tpu/ops/mont_mxu.py:119",
         "tpu_twin": "mont_mxu._make_prod_kernel + _redc (v2); pallas_mont._make_mul_kernel (v1)",
-        "launches": e2e["launches"],
+        "launches_by_path": {"sumall": e2e["launches"],
+                             "multall": multall["modes"]["0"]["launches"]["mont_mul"],
+                             "mixed": mixed["mont_mul_launches"]},
         "max_abs_err": par["max_abs_err"],
         "per": f"one K={path['K']} fold ({path['launches']} launches) on the device; "
                f"wall_ms: back to back, paced by the host's dispatch",
@@ -1535,13 +1980,14 @@ def main(argv=None) -> int:
         "bound_ms": path["bound_ms"],
         "bound_by": path["bound_by"],
         "library_ms": None,
+        "L64": l64["mont_mul"],
     }, {
         "name": "mont_exp",
         "route": "cuda",
         "source": "dds_tpu_torch/csrc/mont_exp.cu",
         "replaces": "dds_tpu/ops/pallas_mont.py:152",
         "tpu_twin": "pallas_mont._make_exp_kernel via _exp_call / exp_lm",
-        "launches": client["exp_launches"],
+        "launches_by_path": {"client": client["exp_launches"]},
         "max_abs_err": max(par_exp["max_abs_err"], tim_exp["max_abs_err"]),
         "per": f"one launch, B={tim_exp['B']}, E={tim_exp['E']} "
                f"({tim_exp['exp_products_per_row']} products per row)",
@@ -1551,7 +1997,11 @@ def main(argv=None) -> int:
         "bound_by": tim_exp["exp_bound_by"],
         "library_ms": None,
     }]
-    k1, kf = e2e["karatsuba_modes"]["1"]["launches"], e2e["karatsuba_modes"]["2"]["launches"]
+    # each Karatsuba kernel's launches on the SumAll e2e run and on MultAll's
+    # run, in its mode
+    k1, kf = ({k: {"sumall": e2e["karatsuba_modes"][m]["launches"][k],
+                   "multall": multall["modes"][m]["launches"][k]} for k in KARATSUBA_KERNELS}
+              for m in ("1", "2"))
     for name, replaces, twin, launches, err, per in (
         ("mont_prod3", "dds_tpu/ops/mont_mxu.py:151",
          "mont_mxu._make_prod3_kernel via _prod3_call (DDS_KARATSUBA=1)",
@@ -1569,11 +2019,12 @@ def main(argv=None) -> int:
          kf["mont_kfused"], par_k["max_abs_err"]["mont_kfused"], f"one launch, B={sizes['B']}"),
         ("mont_redc", "dds_tpu/ops/mont_mxu.py:543",
          "mont_mxu._redc (XLA, not a Pallas kernel): the reduction of modes 1 and 2",
-         k1["mont_redc"] + kf["mont_redc"], par_k["max_abs_err"]["mont_redc"],
+         {f"{path}_mode{m}": n for m, kd in (("1", k1), ("2", kf))
+          for path, n in kd["mont_redc"].items()}, par_k["max_abs_err"]["mont_redc"],
          f"one launch, B={sizes['B']}"),
         ("mont_mul_nofinal", "benchmarks/profile_kernel.py:33",
          "profile_kernel.make_nofinal_mul (the finalize-share probe)",
-         tim_k["mont_mul_nofinal"]["launches"], par_nf["max_abs_err"],
+         {"probe": tim_k["mont_mul_nofinal"]["launches"]}, par_nf["max_abs_err"],
          f"one launch, B={sizes['B_probe']}"),
     ):
         t = tim_k[name]
@@ -1581,10 +2032,13 @@ def main(argv=None) -> int:
                   "mont_k1_combine": "mont_k1"}.get(name, name)
         kernels.append({
             "name": name, "route": "cuda", "source": f"dds_tpu_torch/csrc/{source}.cu",
-            "replaces": replaces, "tpu_twin": twin, "launches": launches,
+            "replaces": replaces, "tpu_twin": twin, "launches_by_path": launches,
             "max_abs_err": err, "per": per, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            **({"L64": l64[name]} if name in l64 else {}),
         })
+    for k in kernels:  # the total launches, each path's zeroed and read apart
+        k["launches"] = sum(k["launches_by_path"].values())
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if dev.type == "cuda" and missing:
         raise AssertionError(f"kernels never launched on their paths: {missing}")

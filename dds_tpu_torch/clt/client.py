@@ -10,9 +10,10 @@ wall time + ops/s at the end (`:410-415`).
 
 With a provider bulk backend, `execute` first precomputes every
 full-width PSSE obfuscator the digest needs in one batched modexp (on
-`cuda`: the exp kernel). It executes PutSet, GetSet and SumAll, the routes
-the port's proxy serves; any other instruction raises ValueError naming its
-route as not yet ported (counted as a failed operation).
+`cuda`: the exp kernel). Every instruction of `clt/instructions.py` goes
+to its route of the proxy, encrypted as the reference encrypts it; an
+object that is not an instruction raises ValueError (counted as a failed
+operation).
 """
 
 from __future__ import annotations
@@ -30,10 +31,6 @@ from dds_tpu_torch.models.facade import DEFAULT_SCHEMA, HomoProvider
 from dds_tpu_torch.utils.trust import TrustedNodesList
 
 log = logging.getLogger("dds.client")
-
-# the reference's route for each instruction whose name differs from it
-_ROUTE_NAMES = {I.WriteElem: "WriteElement", I.ReadElem: "ReadElement"}
-
 
 @dataclass
 class ClientConfig:
@@ -138,7 +135,13 @@ class DDSHttpClient:
 
     async def _one(self, instr) -> int:
         p, cfg = self.provider, self.cfg
+        enc_pos = lambda v, pos: p.encrypt(
+            v, cfg.schema[pos] if pos < cfg.fixed_columns else "None"
+        )
+        psse_nsqr = p.keys.psse.public.nsquare
+        mse_n = p.keys.mse.n
         key = self._random_key()  # drawn for every instruction, as the reference does
+
         match instr:
             case I.PutSet(None):
                 status, body = await self._request("POST", "/PutSet")
@@ -156,13 +159,106 @@ class DDSHttpClient:
                     return 404
                 status, _ = await self._request("GET", f"/GetSet/{key}")
                 return status
-            case I.SumAll(pos):
-                nsqr = p.keys.psse.public.nsquare
+            case I.RemoveSet():
+                if key is None:
+                    return 404
+                status, _ = await self._request("DELETE", f"/RemoveSet/{key}")
+                if status == 200 and key in self.stored_keys:
+                    self.stored_keys.remove(key)
+                return status
+            case I.AddElement(elem):
+                if key is None:
+                    return 404
                 status, _ = await self._request(
-                    "GET", f"/SumAll?position={pos}&nsqr={nsqr}"
+                    "PUT", f"/AddElement/{key}", {"value": p.encrypt(elem, "None")}
                 )
                 return status
-        route = _ROUTE_NAMES.get(type(instr), type(instr).__name__)
-        raise ValueError(
-            f"instruction {instr!r}: route /{route} is not yet ported to dds_tpu_torch"
-        )
+            case I.WriteElem(elem, pos):
+                if key is None:
+                    return 404
+                status, _ = await self._request(
+                    "PUT", f"/WriteElement/{key}?position={pos}",
+                    {"value": enc_pos(elem, pos)},
+                )
+                return status
+            case I.ReadElem(pos):
+                if key is None:
+                    return 404
+                status, _ = await self._request("GET", f"/ReadElement/{key}?position={pos}")
+                return status
+            case I.IsElement(elem):
+                if key is None:
+                    return 404
+                status, _ = await self._request(
+                    "POST", f"/IsElement/{key}", {"value": p.encrypt(elem, "CHE")}
+                )
+                return status
+            case I.Sum(pos):
+                k1, k2 = self._random_key(), self._random_key()
+                if k1 is None or k2 is None:
+                    return 404
+                status, _ = await self._request(
+                    "GET", f"/Sum?key1={k1}&key2={k2}&position={pos}&nsqr={psse_nsqr}"
+                )
+                return status
+            case I.SumAll(pos):
+                status, _ = await self._request(
+                    "GET", f"/SumAll?position={pos}&nsqr={psse_nsqr}"
+                )
+                return status
+            case I.Mult(pos):
+                k1, k2 = self._random_key(), self._random_key()
+                if k1 is None or k2 is None:
+                    return 404
+                status, _ = await self._request(
+                    "GET", f"/Mult?key1={k1}&key2={k2}&position={pos}&pubkey={mse_n}"
+                )
+                return status
+            case I.MultAll(pos):
+                status, _ = await self._request(
+                    "GET", f"/MultAll?position={pos}&pubkey={mse_n}"
+                )
+                return status
+            case I.SearchEq(pos, elem) | I.SearchNEq(pos, elem):
+                route = "SearchEq" if isinstance(instr, I.SearchEq) else "SearchNEq"
+                status, _ = await self._request(
+                    "POST", f"/{route}?position={pos}", {"value": enc_pos(elem, pos)}
+                )
+                return status
+            case (
+                I.SearchGt(pos, elem)
+                | I.SearchGtEq(pos, elem)
+                | I.SearchLt(pos, elem)
+                | I.SearchLtEq(pos, elem)
+            ):
+                route = type(instr).__name__
+                status, _ = await self._request(
+                    "POST",
+                    f"/{route}?position={pos}",
+                    {"value": p.encrypt(int(elem), "OPE")},
+                )
+                return status
+            case I.SearchEntry(elem):
+                status, _ = await self._request(
+                    "POST", "/SearchEntry", {"value": p.encrypt(elem, "LSE")}
+                )
+                return status
+            case I.SearchEntryOR(e1, e2, e3) | I.SearchEntryAND(e1, e2, e3):
+                route = (
+                    "SearchEntryOR" if isinstance(instr, I.SearchEntryOR) else "SearchEntryAND"
+                )
+                status, _ = await self._request(
+                    "POST",
+                    f"/{route}",
+                    {
+                        "value1": p.encrypt(e1, "LSE"),
+                        "value2": p.encrypt(e2, "LSE"),
+                        "value3": p.encrypt(e3, "LSE"),
+                    },
+                )
+                return status
+            case I.OrderLS(pos) | I.OrderSL(pos):
+                route = "OrderLS" if isinstance(instr, I.OrderLS) else "OrderSL"
+                status, _ = await self._request("GET", f"/{route}?position={pos}")
+                return status
+        raise ValueError(f"unknown instruction {instr!r}")

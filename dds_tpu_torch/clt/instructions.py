@@ -1,8 +1,7 @@
 """Client instruction set: the 7 basic + 15 extended operations.
 
-Copy of `dds_tpu/clt/instructions.py`. The port's client executes PutSet,
-GetSet and SumAll, the routes its proxy serves; the other instructions are
-here so digests carry over unchanged.
+Copy of `dds_tpu/clt/instructions.py`; the port's client executes every
+one of them against its route of the proxy.
 
 Counterpart of `clt/Instructions.scala` — one dataclass per operation the
 workload generator can enqueue, batched in a `Digest`. Values are

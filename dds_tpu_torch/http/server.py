@@ -1,29 +1,40 @@
-"""REST proxy: the encrypted query engine, ported for the SumAll path.
+"""REST proxy: the encrypted query engine.
 
-Trimmed copy of `dds_tpu/http/server.py` serving three routes with the
-reference's parameters, JSON shapes and status codes:
+Copy of `dds_tpu/http/server.py` without tenancy, serving the reference's
+data routes with its parameters, JSON shapes and status codes:
 
-- `POST /PutSet`            quorum write of a record, keyed by its content hash;
-- `GET  /GetSet/<key>`      quorum read of one record;
-- `GET  /SumAll?position=p&nsqr=n2`  the homomorphic sum of column p over
-  every stored record: the modular product of the Paillier ciphertexts
-  mod n^2, folded on the configured backend (the `cuda` backend runs the
-  Hopper Montgomery-multiply kernel).
+- `POST /PutSet`, `GET /GetSet/<key>`, `DELETE /RemoveSet/<key>`: quorum
+  write, read and removal of a record, keyed by its content hash;
+- `PUT /AddElement/<key>`, `GET /ReadElement/<key>?position=p`,
+  `PUT /WriteElement/<key>?position=p`, `POST /IsElement/<key>`: one
+  element of a record (a write past the end appends);
+- `GET /Sum` and `GET /Mult` (`key1`, `key2`, `position`, and `nsqr` or
+  `pubkey`): one modular product of two records' ciphertexts on the host;
+- `GET /SumAll?position=p&nsqr=n2` and `GET /MultAll?position=p&pubkey=n`:
+  the homomorphic sum (Paillier, mod n^2) or product (RSA, mod n) of
+  column p over every stored record, folded on the configured backend
+  (the `cuda` backend runs the Hopper Montgomery kernels, one resident
+  pool per modulus). Without the modulus: the plain sum or product;
+- `GET /OrderLS`, `GET /OrderSL`, `POST /SearchEq`, `/SearchNEq`,
+  `/SearchGt`, `/SearchGtEq`, `/SearchLt`, `/SearchLtEq`, `/Range`,
+  `/SearchEntry`, `/SearchEntryOR`, `/SearchEntryAND`: the reference's
+  legacy scans over every stored record, paged by `offset`/`limit`.
 
-Concurrent SumAlls whose folds each sit below the backend's
-`min_device_batch` coalesce: they wait `coalesce_window` seconds and share
-one `modmul_fold_many` pass on the device (`_fold`, the reference's
-coalescer at `dds_tpu/http/server.py:2605-2723`; its adaptive window comes
-with admission control, not yet ported).
+Concurrent aggregates whose folds each sit below the backend's
+`min_device_batch` coalesce per modulus: they wait `coalesce_window`
+seconds and share one `modmul_fold_many` pass on the device (`_fold`, the
+reference's coalescer at `dds_tpu/http/server.py:2605-2723`; its adaptive
+window comes with admission control, not yet ported).
 
-Every other route answers 404. The aggregate path keeps the reference's
-tag-validated cache and audit exactly: ONE batched tag-only quorum round
-validates every cached record per aggregate, a random sample of
-cache-served keys is re-read through full quorums, and a non-corroborated
-mismatch flushes the cache. The proxy sees ciphertexts and public
-parameters only, never keys. The resident, storage and search planes of
-the reference are not ported yet; the proxy refuses to start with one
-enabled rather than serve without it.
+Every other route answers 404. The aggregate and search paths keep the
+reference's tag-validated cache and audit exactly: ONE batched tag-only
+quorum round validates every cached record per request, a random sample
+of cache-served keys is re-read through full quorums, and a
+non-corroborated mismatch flushes the cache. The proxy sees ciphertexts
+and public parameters only, never keys. The resident, storage and search
+planes of the reference (the indexed Spyglass search among them) are not
+ported yet; the proxy refuses to start with one enabled rather than serve
+without it.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from dds_tpu_torch.core.quorum_client import AbdClient
 from dds_tpu_torch.http import json_protocol as J
 from dds_tpu_torch.http.miniserver import HttpServer, Request, Response
 from dds_tpu_torch.models.backend import CryptoBackend, get_backend
+from dds_tpu_torch.models.det import DetKey
 from dds_tpu_torch.obs import context as obs_context
 from dds_tpu_torch.utils import sigs
 from dds_tpu_torch.utils.retry import (
@@ -224,6 +236,9 @@ class DDSRestServer:
         self._cache_put(key, tag, value)
         return value, tag, coord
 
+    async def _fetch(self, key: str):
+        return (await self._fetch_tagged(key))[0]
+
     async def _write(self, key: str, value):
         dl = self._request_deadline()
         k, tag = await self._retry(
@@ -233,7 +248,7 @@ class DDSRestServer:
         return k
 
     async def _fetch_stored(self) -> list[tuple[str, list]]:
-        """Every stored (key, value), for the aggregate route.
+        """Every stored (key, value), for the aggregate and search routes.
 
         With the aggregate cache on, ONE batched tag-only quorum round
         (`AbdClient.read_tags`) validates all cached entries: a cached
@@ -410,10 +425,11 @@ class DDSRestServer:
         name, arg = parts[0], (parts[1] if len(parts) > 1 else None)
         match (req.method, name):
             case ("GET", "GetSet") if arg:
-                value = (await self._fetch_tagged(arg))[0]
+                value = await self._fetch(arg)
                 if value is None:
                     return Response(404)
                 return Response.json(J.dds_set(value))
+
             case ("POST", "PutSet"):
                 body = req.json()
                 if body is None:
@@ -424,16 +440,213 @@ class DDSRestServer:
                 await self._write(key, value)
                 self._note_stored(key)
                 return Response.text(key)
+
+            case ("DELETE", "RemoveSet") if arg:
+                await self._write(arg, None)
+                if arg in self.stored_keys:
+                    # stop aggregating it: the version bump invalidates the
+                    # aggregate memos keyed on the stored set
+                    self.stored_keys.discard(arg)
+                    self._stored_version += 1
+                return Response(200)
+
+            case ("PUT", "AddElement") if arg:
+                item = J.parse_item(req.json())
+                value = await self._fetch(arg)
+                if value is None:
+                    return Response(404)
+                await self._write(arg, value + [item])
+                return Response(200)
+
+            case ("GET", "ReadElement") if arg:
+                pos = self._pos(req)
+                value = await self._fetch(arg)
+                if value is None or pos > len(value) - 1:
+                    return Response(404)
+                return Response.json({"value": value[pos]})
+
+            case ("PUT", "WriteElement") if arg:
+                pos = self._pos(req)
+                item = J.parse_item(req.json())
+                value = await self._fetch(arg)
+                if value is None:
+                    return Response(404)
+                new = list(value)
+                if pos > len(new) - 1:
+                    new.append(item)
+                else:
+                    new[pos] = item
+                await self._write(arg, new)
+                return Response(200)
+
+            case ("POST", "IsElement") if arg:
+                item = J.parse_item(req.json())
+                value = await self._fetch(arg)
+                if value is None:
+                    return Response(404)
+                # deterministic-HE compare degenerates to ciphertext equality
+                found = any(str(elem) == str(item) for elem in value)
+                return Response.json(J.value_result(found))
+
+            # ---------------- ciphertext-compute aggregates ----------------
+
+            case ("GET", "Sum"):
+                return await self._pair_aggregate(req, "nsqr")
+
             case ("GET", "SumAll"):
-                return await self._fold_aggregate(req)
+                return await self._fold_aggregate(req, "nsqr")
+
+            case ("GET", "Mult"):
+                return await self._pair_aggregate(req, "pubkey")
+
+            case ("GET", "MultAll"):
+                return await self._fold_aggregate(req, "pubkey")
+
+            # ------------------------- encrypted search (legacy scans) -----
+
+            case ("GET", "OrderLS") | ("GET", "OrderSL"):
+                return await self._order_route(name, req)
+
+            case ("POST", "SearchEq") | ("POST", "SearchNEq"):
+                return await self._eq_route(name, req)
+
+            case ("POST", "SearchGt") | ("POST", "SearchGtEq") | (
+                "POST",
+                "SearchLt",
+            ) | ("POST", "SearchLtEq"):
+                return await self._cmp_route(name, req)
+
+            case ("POST", "Range"):
+                return await self._range_route(req)
+
+            case ("POST", "SearchEntry") | ("POST", "SearchEntryOR") | (
+                "POST",
+                "SearchEntryAND",
+            ):
+                return await self._entry_route(name, req)
         return Response(404)
 
-    async def _fold_aggregate(self, req: Request) -> Response:
-        """`SumAll`: fold one position across ALL stored records — the
-        north-star workload. With `nsqr` the fold is the modular product
-        of the ciphertexts on the backend; without it, a plain sum."""
+    # ------------------------------------------------------- search routes
+
+    @staticmethod
+    def _page_params(req: Request) -> tuple[int, int | None]:
+        """`offset`/`limit` pagination params (every search/order route):
+        non-negative ints, ValueError -> 400 via handle()."""
+        off = int(req.query.get("offset", 0))
+        if off < 0:
+            raise ValueError("offset must be >= 0")
+        lim = req.query.get("limit")
+        lim = int(lim) if lim is not None else None
+        if lim is not None and lim < 0:
+            raise ValueError("limit must be >= 0")
+        return off, lim
+
+    @staticmethod
+    def _page_response(keyset: list[str],
+                       page: tuple[int, int | None]) -> Response:
+        off, lim = page
+        end = None if lim is None else off + lim
+        return Response.json(J.keys_result(keyset[off:end]))
+
+    async def _order_route(self, name: str, req: Request) -> Response:
         pos = self._pos(req)
-        mod = req.query.get("nsqr")
+        page = self._page_params(req)
+        descending = name == "OrderLS"
+        pairs = await self._fetch_stored()
+        # records without the column are EXCLUDED (the Search* convention);
+        # non-integer columns raise -> 400, like every Search* int cast
+        rows = [(int(v[pos]), k) for k, v in pairs if pos < len(v)]
+        ordered = [
+            k for _, k in
+            sorted(rows, key=lambda t: t[0], reverse=descending)
+        ]
+        return self._page_response(ordered, page)
+
+    async def _eq_route(self, name: str, req: Request) -> Response:
+        pos = self._pos(req)
+        item = str(J.parse_item(req.json()))
+        page = self._page_params(req)
+        want_eq = name == "SearchEq"
+        pairs = await self._fetch_stored()
+        keyset = [
+            k for k, v in pairs
+            if pos < len(v) and DetKey.compare(str(v[pos]), item) == want_eq
+        ]
+        return self._page_response(keyset, page)
+
+    async def _cmp_route(self, name: str, req: Request) -> Response:
+        pos = self._pos(req)
+        item = int(J.parse_item(req.json()))
+        page = self._page_params(req)
+        pairs = await self._fetch_stored()
+        op = {
+            "SearchGt": lambda e: e > item,
+            "SearchGtEq": lambda e: e >= item,
+            "SearchLt": lambda e: e < item,
+            "SearchLtEq": lambda e: e <= item,
+        }[name]
+        keyset = [k for k, v in pairs if pos < len(v) and op(int(v[pos]))]
+        return self._page_response(keyset, page)
+
+    async def _range_route(self, req: Request) -> Response:
+        pos = self._pos(req)
+        lo_bound, hi_bound = J.parse_range(req.json())
+        page = self._page_params(req)
+        pairs = await self._fetch_stored()
+        keyset = [
+            k for k, v in pairs
+            if pos < len(v) and lo_bound <= int(v[pos]) <= hi_bound
+        ]
+        return self._page_response(keyset, page)
+
+    async def _entry_route(self, name: str, req: Request) -> Response:
+        if name == "SearchEntry":
+            vals = [str(J.parse_item(req.json()))]
+        else:
+            vals = [str(x) for x in J.parse_triplet(req.json())]
+        page = self._page_params(req)
+        pairs = await self._fetch_stored()
+        if name == "SearchEntryAND":
+            keyset = [
+                k for k, v in pairs
+                if all(any(DetKey.compare(str(e), q) for e in v)
+                       for q in vals)
+            ]
+        else:
+            keyset = [
+                k for k, v in pairs
+                if any(DetKey.compare(str(e), q) for q in vals for e in v)
+            ]
+        return self._page_response(keyset, page)
+
+    # ----------------------------------------------------- aggregate helpers
+
+    async def _pair_aggregate(self, req: Request, modparam: str) -> Response:
+        """`Sum` / `Mult`: combine one position of two records. One
+        multiply never pays a launch, so it is the backend's host
+        `modmul`."""
+        key1, key2 = req.query["key1"], req.query["key2"]
+        pos = self._pos(req)
+        mod = req.query.get(modparam)
+        set1, set2 = await asyncio.gather(self._fetch(key1), self._fetch(key2))
+        if set1 is None or set2 is None:
+            return Response(404)
+        if len(set1) - 1 < pos or len(set2) - 1 < pos:
+            return Response(404)
+        c1, c2 = int(set1[pos]), int(set2[pos])
+        if mod:
+            result = self.backend.modmul(c1, c2, self._parse_modulus(mod))
+        else:
+            result = c1 + c2 if modparam == "nsqr" else c1 * c2
+        return Response.json(J.value_result(str(result)))
+
+    async def _fold_aggregate(self, req: Request, modparam: str) -> Response:
+        """`SumAll` / `MultAll`: fold one position across ALL stored
+        records — the north-star workload. With the modulus (`nsqr` or
+        `pubkey`) the fold is the modular product of the ciphertexts on
+        the backend; without it, the plain sum or product."""
+        pos = self._pos(req)
+        mod = req.query.get(modparam)
         pairs = await self._fetch_stored()
         memo = self._operand_memo
         if memo is not None and memo[0] is pairs and memo[1] == pos:
@@ -447,12 +660,16 @@ class DDSRestServer:
         if not operands:
             return Response(404)
         if mod:
-            modulus = int(mod)
+            modulus = self._parse_modulus(mod)
             with tracer.span("proxy.fold", k=len(operands),
                              backend=self.backend.name):
                 result = await self._fold(operands, modulus)
-        else:
+        elif modparam == "nsqr":
             result = sum(operands)
+        else:
+            result = 1
+            for o in operands:
+                result *= o
         return Response.json(J.value_result(str(result)))
 
     def _backend_fold_fn(self):
@@ -566,3 +783,10 @@ class DDSRestServer:
         if pos < 0:
             raise ValueError("position must be >= 0")
         return pos
+
+    @staticmethod
+    def _parse_modulus(mod: str) -> int:
+        """`nsqr` arrives as decimal n^2, `pubkey` as the decimal RSA
+        modulus n (the reference's wire format: the bare modulus, not the
+        original system's X509 key blob)."""
+        return int(mod)

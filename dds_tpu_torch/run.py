@@ -7,12 +7,16 @@ recovery off, the in-memory transport, and the proxy on an OS-assigned
 port folding on the `cuda` backend. `load_provider(cfg)` builds the
 client's HE provider from the `[client]` section: its keys and its bulk
 encryption backend (`bulk-encrypt-backend = "cuda"` precomputes PSSE
-obfuscators with the exp kernel). The supervisor, TCP transport, workload
-generator and attack simulation wait for later slices.
+obfuscators with the exp kernel). `run_workload(dep)` drives
+`[client] nr-of-local-clients` concurrent clients over digests the
+workload generator draws from `[client] proportions`. The supervisor, TCP
+transport and attack simulation wait for later slices.
 
-Serve until interrupted (on a host without a card, pass --device cpu):
+Run the deployment and a generated workload, print each client's report,
+and with --serve keep serving until interrupted (on a host without a card,
+pass --device cpu):
 
-    python -m dds_tpu_torch.run --port 8443
+    python -m dds_tpu_torch.run --ops 100 --seed 7 [--serve] [--port 8443]
 """
 
 from __future__ import annotations
@@ -22,8 +26,12 @@ import asyncio
 import logging
 import os
 import pathlib
+import random
 from dataclasses import dataclass
 
+from dds_tpu_torch.clt.client import ClientConfig, DDSHttpClient
+from dds_tpu_torch.clt.generator import generate
+from dds_tpu_torch.clt.instructions import Digest
 from dds_tpu_torch.core.quorum_client import AbdClient, AbdClientConfig
 from dds_tpu_torch.core.replica import BFTABDNode, ReplicaConfig
 from dds_tpu_torch.core.transport import InMemoryNet
@@ -154,26 +162,78 @@ def load_provider(cfg: DDSConfig) -> HomoProvider:
     return HomoProvider(keys, fast_blinding=c.fast_blinding, bulk_backend=bulk)
 
 
+async def run_workload(dep: Deployment, provider: HomoProvider | None = None,
+                       seed: int | None = None):
+    """Spawn the configured clients and drive generated digests; returns
+    their reports. The reference's `run_workload` without the attack
+    trigger: every client's rng and digest are drawn from one seeded rng
+    in the same order, so one seed gives both packages the same digests."""
+    cfg = dep.cfg
+    provider = provider or load_provider(cfg)
+    rng = random.Random(seed)
+    dt = cfg.client.data_table
+    runs = []
+    for _ in range(cfg.client.nr_of_local_clients):
+        client = DDSHttpClient(
+            provider,
+            ClientConfig(
+                proxies=[f"{cfg.proxy.host}:{dep.server.cfg.port}"],
+                request_timeout=cfg.client.http_requests_timeout,
+                fixed_columns=dt.fixed_nr_of_columns,
+                schema=dt.fixed_columns_hcrypt,
+            ),
+            rng=random.Random(rng.getrandbits(64)),
+        )
+        ops = generate(
+            cfg.client.nr_of_operations,
+            cfg.client.proportions or None,
+            dt.max_nr_of_columns,
+            dt.fixed_columns_mappings,
+            dt.fixed_columns_hcrypt,
+            rng=random.Random(rng.getrandbits(64)),
+        )
+        runs.append(client.execute(Digest(ops)))
+    # clients run concurrently, like the reference's N client actors
+    return list(await asyncio.gather(*runs))
+
+
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description="Serve a dds_tpu_torch deployment")
+    ap = argparse.ArgumentParser(description="Run a dds_tpu_torch deployment + workload")
     ap.add_argument("--config", help="TOML/JSON config path")
+    ap.add_argument("--ops", type=int, help="override nr-of-operations")
     ap.add_argument("--port", type=int, help="proxy port (0 = auto)")
-    ap.add_argument("--device", choices=["cuda", "cpu"], help="fold device")
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--serve", action="store_true", help="keep serving after workload")
+    ap.add_argument("--device", choices=["cuda", "cpu"],
+                    help="where the cuda backends fold and encrypt (default cuda)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(name)s %(message)s")
     cfg = DDSConfig.load(args.config) if args.config else DDSConfig()
+    if args.ops is not None:
+        cfg.client.nr_of_operations = args.ops
     if args.port is not None:
         cfg.proxy.port = args.port
     if args.device:
-        cfg.proxy.device = args.device
+        cfg.proxy.device = cfg.client.device = args.device
 
     async def go():
         dep = await launch(cfg)
         try:
-            print(f"serving on {dep.server.cfg.host}:{dep.server.cfg.port} "
-                  f"(ctrl-c to stop)", flush=True)
-            await asyncio.Event().wait()
+            if cfg.client.nr_of_operations > 0:
+                reports = await run_workload(dep, seed=args.seed)
+                for i, r in enumerate(reports):
+                    print(
+                        f"client {i}: {r.operations} ops in {r.wall_seconds:.2f}s "
+                        f"-> {r.ops_per_second:.1f} ops/s "
+                        f"({r.succeeded} ok, {r.not_found} miss, {r.failed} failed)"
+                    )
+            if args.serve:
+                print(
+                    f"serving on {dep.server.cfg.host}:{dep.server.cfg.port} "
+                    f"(ctrl-c to stop)", flush=True,
+                )
+                await asyncio.Event().wait()
         finally:
             await dep.stop()
 

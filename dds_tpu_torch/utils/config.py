@@ -5,10 +5,14 @@ ported paths read. Its defaults ARE the north-star topology of
 `benchmarks/bft_sum.py`: 4 BFT-ABD replicas with quorum 3 (f = 1), no
 sentinent spares, proactive recovery off, in-memory transport, the proxy
 on an OS-assigned port, folds on the `cuda` backend. The `[client]`
-section configures the client's keys and its bulk-encryption backend
+section configures the generated workload (`run.run_workload`: clients,
+operations, proportions and the data table, with the reference's
+defaults), the client's keys and its bulk-encryption backend
 (`run.load_provider`). The `resident`, `storage` and `search` planes and
 `[crypto] secret-device` are not ported yet: enabling one raises instead
-of silently serving without it.
+of silently serving without it. `[client]
+failed-contact-attempts-threshold` is read by no client, so any value but
+the reference's default raises too.
 """
 
 from __future__ import annotations
@@ -65,7 +69,28 @@ class ProxySettings:
 
 
 @dataclass
+class DataTableConfig:
+    max_nr_of_columns: int = 16
+    fixed_nr_of_columns: int = 8
+    fixed_columns_mappings: list[str] = field(
+        default_factory=lambda: ["Int", "String", "Int", "Int", "String", "String", "String", "Blob"]
+    )
+    fixed_columns_hcrypt: list[str] = field(
+        default_factory=lambda: ["OPE", "CHE", "PSSE", "MSE", "CHE", "CHE", "CHE", "None"]
+    )
+
+
+@dataclass
 class ClientSettings:
+    nr_of_local_clients: int = 1
+    nr_of_operations: int = 100
+    # parsed, but read by no client (nor by the reference's): only the
+    # reference's default is accepted, so a config relying on another value
+    # raises instead of silently running without it
+    failed_contact_attempts_threshold: int = 3
+    http_requests_timeout: float = 10.0
+    proportions: dict = field(default_factory=dict)   # op name -> fraction
+    data_table: DataTableConfig = field(default_factory=DataTableConfig)
     paillier_bits: int = 2048
     rsa_bits: int = 1024
     # HE key persistence (client.conf:81-88): he_keys_inline is a full
@@ -81,6 +106,14 @@ class ClientSettings:
     bulk_encrypt_backend: str = ""
     # where the cuda bulk backend runs ("cpu" = its plain PyTorch path)
     device: str = "cuda"
+
+    def __post_init__(self):
+        if self.failed_contact_attempts_threshold != 3:
+            raise ValueError(
+                "[client] failed-contact-attempts-threshold: no client reads it, "
+                "so only the reference's default 3 is accepted, not "
+                f"{self.failed_contact_attempts_threshold!r}"
+            )
 
 
 @dataclass
@@ -150,4 +183,5 @@ _SUBSECTIONS = {
     ("DDSConfig", "resident"): PlaneSwitch,
     ("DDSConfig", "storage"): PlaneSwitch,
     ("DDSConfig", "search"): PlaneSwitch,
+    ("ClientSettings", "data_table"): DataTableConfig,
 }

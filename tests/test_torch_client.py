@@ -215,14 +215,27 @@ def test_load_provider_refuses_the_secret_device_opt_in(monkeypatch):
 
 @pytest.mark.parametrize("instr,route", [
     (I.MultAll(3), "MultAll"), (I.SearchEq(1, "x"), "SearchEq"),
-    (I.OrderLS(0), "OrderLS"), (I.WriteElem("x", 2), "WriteElement"),
+    (I.OrderLS(0), "OrderLS"), (I.WriteElem("x", 9), "WriteElement"),
     (I.ReadElem(2), "ReadElement"), (I.Sum(2), "Sum"),
 ])
 def test_client_refuses_unported_routes(instr, route):
+    """No route is left unported: each of these instructions, refused
+    before its route was ported, now goes to that route; what the client
+    refuses is an object that is not an instruction, counted as failed."""
     client = DDSHttpClient(HomoProvider(KEYS), ClientConfig(proxies=["127.0.0.1:9"]))
-    with pytest.raises(ValueError, match=f"/{route} is not yet ported"):
-        asyncio.run(client._one(instr))
-    report = asyncio.run(client.execute(I.Digest([instr])))
+    client.stored_keys.append("k")
+    sent = []
+
+    async def request(method, target, obj=None):
+        sent.append((method, target))
+        return 200, b"{}"
+
+    client._request = request
+    assert asyncio.run(client._one(instr)) == 200
+    assert [t.split("?")[0].split("/")[1] for _, t in sent] == [route]
+    with pytest.raises(ValueError, match="unknown instruction"):
+        asyncio.run(client._one(route))
+    report = asyncio.run(client.execute(I.Digest([route])))
     assert (report.operations, report.failed, report.succeeded) == (1, 1, 0)
 
 
@@ -245,6 +258,20 @@ def test_digest_rows_are_put_concurrency_rows():
     for seed in (0, 3):
         ours, ref = chip_smoke.make_digest(20, seed), ref_make_digest(20, seed)
         assert [i.set for i in ours.payload] == [i.set for i in ref.payload]
+
+
+def test_chip_smoke_mixes_are_the_reference_mixes():
+    """chip_smoke's copies of benchmarks/mixed.py's MIX and of
+    configs/default.toml's [client.proportions]."""
+    import tomllib
+    from pathlib import Path
+
+    import chip_smoke
+    from benchmarks.mixed import MIX
+
+    toml = Path(__file__).resolve().parent.parent / "configs" / "default.toml"
+    assert chip_smoke.MIXED_MIX == MIX
+    assert chip_smoke.DEFAULT_TOML_MIX == tomllib.loads(toml.read_text())["client"]["proportions"]
 
 
 def _port_digest(n_ops: int, seed: int) -> I.Digest:

@@ -7,8 +7,9 @@ fold_many` (kernel "v2" with its Pallas product in interpret mode, and
 "jnp") and against Python ints; `CudaBackend(device="cpu").
 modmul_fold_many`; and the port's REST proxy: the twins of
 tests/test_rest.py's coalescing tests, `stop()` with waiters pending, and a
-storm of SumAlls racing a PutSet (the port's form of the coalesced-SumAll
-linearizability test: it has no WriteElement route yet). The proxy tests
+storm of SumAlls racing a PutSet, and the twin of the reference's
+coalesced-SumAll linearizability test, a storm racing a WriteElement that
+rewrites a stored ciphertext in place. The proxy tests
 gate on `threading.Event`s, never on timing: the first host fold of a
 burst holds the in-flight signal open until a coalesced dispatch has run.
 Exact integer arithmetic: tolerance zero.
@@ -256,5 +257,37 @@ def test_coalesced_sumalls_racing_a_putset_see_old_or_new_total():
             assert set(sums) <= {sum(base), sum(base) + 999}, sums
             assert calls["many"] >= 1  # the coalesced path really ran
             assert set(await storm(4)) == {sum(base) + 999}
+
+    asyncio.run(go())
+
+
+def test_coalesced_sumalls_see_old_or_new_never_mixed_garbage():
+    """Twin of tests/test_linearizability.py's test of that name: while a
+    WriteElement rewrites a stored ciphertext in place (v_old -> v_new), a
+    storm of concurrent small SumAlls that share coalesced dispatches must
+    each decrypt to the old total or the new one, never anything else."""
+
+    async def go():
+        async with _proxy(min_device_batch=8) as server:
+            calls, _ = _gate(server.backend)
+            base = [10, 20, 30, 40]
+            keys = await _put_values(server, base)
+            old, new = sum(base), sum(base) - base[-1] + 999
+            target = f"/SumAll?position=0&nsqr={KEY.public.nsquare}"
+
+            async def storm(k):
+                rs = await asyncio.gather(*(_call(server, "GET", target) for _ in range(k)))
+                assert all(st == 200 for st, _ in rs)
+                return [KEY.decrypt(int(json.loads(d)["result"])) for _, d in rs]
+
+            async def rewrite():
+                st, _ = await _call(server, "PUT", f"/WriteElement/{keys[-1]}?position=0",
+                                    {"value": str(KEY.public.encrypt(999))})
+                assert st == 200
+
+            sums, _ = await asyncio.gather(storm(12), rewrite())
+            assert set(sums) <= {old, new}, sums
+            assert calls["many"] >= 1  # the coalesced path really ran
+            assert set(await storm(4)) == {new}
 
     asyncio.run(go())

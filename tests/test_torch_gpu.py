@@ -414,3 +414,106 @@ def test_mode_1_mul_launches_its_four_kernels_once_each(cuda):
     torch.cuda.synchronize()
     after = [mont_cuda.LAUNCHES[k].value for k in names]
     assert [y - x for x, y in zip(before, after)] == [1, 1, 1, 1, 0, 0]
+
+
+# ------------------------------------------ L = 64: MultAll at RSA-1024
+
+RSA1024_MODULUS = (1 << 1023) | (0x9E3779B97F4A7C15 << 500) | 0x3B  # L = 64, odd
+
+
+def _l64_launches(ctx: ModCtx, device) -> dict:
+    """Each fold kernel's wrapper and plain version on one B = 4,096 input
+    of the fold's shape at L = 64: name -> (kernel call, plain call)."""
+    from dds_tpu_torch.ops import montgomery
+
+    L, h = ctx.L, ctx.L // 2
+    a, b = _lm(ctx, 4096, 90, device), _lm(ctx, 4096, 91, device)
+    s = montgomery.k1_halfsums(a.T, b.T).T.contiguous()
+    ops = (a[:h], b[:h], a[h:], b[h:], s[:h], s[h: 2 * h])
+    z = montgomery.prod3(*(x.T for x in ops)).T.contiguous()
+    T = montgomery.prod(a.T, b.T).T.contiguous()
+    return {
+        "mont_mul": (lambda: mont_cuda.mul(ctx, a, b, karatsuba=False),
+                     lambda: ctx.mont_mul(a.T, b.T).T),
+        "mont_prod3": (lambda: mont_cuda.prod3(*ops),
+                       lambda: montgomery.prod3(*(x.T for x in ops)).T),
+        "mont_k1_halfsums": (lambda: mont_cuda.k1_halfsums(a, b), lambda: s),
+        "mont_k1_combine": (lambda: mont_cuda.k1_combine(z, s, L),
+                            lambda: montgomery.k1_combine(z.T, s.T, L).T),
+        "mont_kfused": (lambda: mont_cuda.prod_kf(a, b),
+                        lambda: montgomery.prod_kf(a.T, b.T).T),
+        "mont_redc": (lambda: mont_cuda.redc(ctx, T), lambda: ctx.redc(T.T).T),
+    }
+
+
+@pytest.mark.parametrize("name", ["mont_mul", "mont_prod3", "mont_k1_halfsums",
+                                  "mont_k1_combine", "mont_kfused", "mont_redc"])
+def test_fold_kernels_at_l64_match_plain(cuda, name):
+    ctx = ModCtx.make(RSA1024_MODULUS)
+    assert ctx.L == 64
+    kernel, plain = _l64_launches(ctx, cuda)[name]
+    before = mont_cuda.LAUNCHES[name].value
+    got = kernel()
+    torch.cuda.synchronize()
+    assert mont_cuda.LAUNCHES[name].value == before + 1
+    assert torch.equal(got, plain())
+
+
+@pytest.mark.parametrize("mode", [False, "k1", "fused"])
+def test_fold_at_l64_equals_python_in_every_mode(cuda, mode):
+    ctx = ModCtx.make(RSA1024_MODULUS)
+    rows = _residues(ctx, 16384, 92)
+    got = mont_cuda.reduce_mul(ctx, bn.to_device(rows, cuda), karatsuba=mode)
+    want = 1
+    for c in bn.batch_to_ints(rows):
+        want = want * c % ctx.n
+    assert bn.limbs_to_int(bn.to_host(got)[0]) == want
+
+
+@pytest.mark.parametrize("mode", ["0", "1", "2"])
+def test_multall_through_the_stack_launches_only_its_modes_kernels(cuda, monkeypatch, mode):
+    import asyncio
+    import json
+
+    from dds_tpu_torch.http.miniserver import http_request
+    from dds_tpu_torch.models.mult import RsaMultKey
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils.config import DDSConfig
+
+    own = {"0": {"mont_mul"},
+           "1": {"mont_prod3", "mont_k1_halfsums", "mont_k1_combine", "mont_redc"},
+           "2": {"mont_kfused", "mont_redc"}}[mode]
+    folds = ("mont_mul", "mont_prod3", "mont_k1_halfsums", "mont_k1_combine", "mont_kfused",
+             "mont_redc")
+    rsa = RsaMultKey.generate(1024)
+    plains = list(range(2, 302))
+    monkeypatch.setenv("DDS_KARATSUBA", mode)
+
+    async def go():
+        cfg = DDSConfig()
+        cfg.proxy.min_device_batch = 0
+        dep = await launch(cfg)
+        port = dep.server.cfg.port
+        try:
+            for i, m in enumerate(plains):
+                row = [i, "x", "1", str(rsa.public.encrypt(m))]
+                st, _ = await http_request("127.0.0.1", port, "POST", "/PutSet",
+                                           json.dumps({"contents": row}).encode())
+                assert st == 200
+            torch.cuda.synchronize()
+            before = {k: mont_cuda.LAUNCHES[k].value for k in folds}
+            st, body = await http_request("127.0.0.1", port, "GET",
+                                          f"/MultAll?position=3&pubkey={rsa.n}")
+            torch.cuda.synchronize()
+            after = {k: mont_cuda.LAUNCHES[k].value for k in folds}
+        finally:
+            await dep.stop()
+        assert st == 200
+        return int(json.loads(body)["result"]), {k: after[k] - before[k] for k in folds}
+
+    result, launched = asyncio.run(go())
+    want = 1
+    for m in plains:
+        want = want * m % rsa.n
+    assert rsa.decrypt(result) == want
+    assert {k for k, v in launched.items() if v > 0} == own
