@@ -5,8 +5,10 @@ Drives the port's paths — encrypted SumAll over Paillier-2048 ciphertexts
 through 4 BFT-ABD replicas (quorum 3, f = 1) in each DDS_KARATSUBA product
 family, coalesced small SumAlls, the client's bulk encryption (full-width
 obfuscators r^n mod n^2 from the modexp kernel) feeding PutSets into that
-stack, MultAll over RSA-1024 ciphertexts (L = 64) in each family, and the
-generated mixed workload over every data route — and holds every CUDA
+stack, MultAll over RSA-1024 ciphertexts (L = 64) in each family, the
+generated mixed workload over every data route, the resident plane's fused
+multi-group folds and write-path ingest, and Stratum's tiered folds — and
+holds every CUDA
 kernel on them against its plain PyTorch version. Phases, each printing
 one JSON line; any failure exits non-zero:
 
@@ -95,11 +97,32 @@ one JSON line; any failure exits non-zero:
 15. mixed     BASELINE config 5 (benchmarks/mixed.py --preload 4096
               --clients 4 --ops 200): 7 replicas, quorum 5; the preload,
               then run_workload rounds (mixed.py's MIX, then
-              configs/default.toml's mix) on crypto-backend cuda and then
-              cpu, every client with no failed operation; on the cuda stack
+              configs/default.toml's mix) on crypto-backend cuda, and
+              the MIX round on cpu (the baseline mixed.py prints), every
+              client with no failed operation; on the cuda stack
               the route sweep: every ported route against an answer
               recomputed on the host from the rows GetSet reads back;
-16. kernels   one {"kernels": [...]} line (every kernel must have launched
+16. resident  the resident plane (configs/sharded.toml's [resident]: 4
+              groups, max-rows 65,536, L = 256; benchmarks/resident_fold.py):
+              for S = 1 and 4 groups and K = 8,192 and 65,536, cold (per-group
+              marshaling) and warm (the fused fold) in modes 0, 1 and 2, each
+              equal to the Python-int product, the fused tree's device and
+              dispatch ms and its launches (one mont_mul a level: 14 at S = 4,
+              K = 8,192); all 4 pools filled to max-rows (256 MiB), then one
+              fold past the cap: one reset, still exact; a REST stack with
+              [resident] on: SumAll in each mode through the plane, then 256
+              PutSets ingested off the request path and a SumAll that ingests
+              0 rows on the fold path;
+17. tiered    Stratum (configs/stratum.toml's [resident] and [storage],
+              benchmarks/tiered_fold.py): 2 groups, max-rows 4,096, a
+              population of 10 x max-rows per group, warm-bytes cut to
+              max-rows x 10 x 16 (printed), the segment log in a temporary
+              directory; the population fold and Zipf(0.9) folds over each
+              group's 2,048-row head, exact, no reset, cold reads, the head's
+              most drawn rows promoted back to hot; the all-resident ceiling
+              against the tiered fold; one fold in modes 1 and 2; then a REST
+              SumAll through a [resident] + [storage] stack;
+18. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
               launch); then the card's name and power limit; then the
               result line.
@@ -107,7 +130,7 @@ one JSON line; any failure exits non-zero:
     python3 chip_smoke.py              # on the card (needs one GPU)
     python3 chip_smoke.py --rehearse   # the same phases, tiny, on the CPU;
                                        # exits 3 and prints no result
-    python3 chip_smoke.py --ab PARENT [--phases e2e,client,multall,mixed]
+    python3 chip_smoke.py --ab PARENT [--phases e2e,client,multall,mixed,resident,tiered]
         # on the card: another checkout (PARENT) against this one in turns,
         # parent, change, change, parent: the B1/P/B3/B4/B5/REDC kernel
         # times and the folds of every mode, or each tree's own chip_smoke
@@ -134,6 +157,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import collections
 import json
 import statistics
 import subprocess
@@ -1042,6 +1066,17 @@ MODE_KERNELS = {"0": {"mont_mul"},
 FOLD_KERNELS = ("mont_mul",) + KARATSUBA_KERNELS
 
 
+def check_mode_launches(dev, counts: dict, mode: str, what: str) -> dict:
+    """The fold kernels' counts of one mode's run; on the card each mode
+    must have launched its own fold kernels and no others."""
+    if dev.type == "cuda":
+        ran = {k for k in FOLD_KERNELS if counts[k] > 0}
+        if ran != MODE_KERNELS[mode]:
+            raise AssertionError(f"{what}, DDS_KARATSUBA={mode}, launched {sorted(ran)}, "
+                                 f"expected {sorted(MODE_KERNELS[mode])}: {counts}")
+    return {k: counts[k] for k in FOLD_KERNELS}
+
+
 async def phase_e2e(dev, sizes) -> dict:
     """The SumAll path at K rows: mode 0 (cold SumAll, then sequential and
     concurrency-8 rounds), then the same rounds on the same stack under
@@ -1104,12 +1139,8 @@ async def phase_e2e(dev, sizes) -> dict:
                 if any(g != result for g in got):
                     raise AssertionError(f"concurrent SumAll changed (DDS_KARATSUBA={mode})")
             per_req = (time.perf_counter() - t) / (sizes["rounds"] * 8)
-            counts = read_counts(dev)  # read just after this mode's run
-            if dev.type == "cuda":
-                ran = {k for k in FOLD_KERNELS if counts[k] > 0}
-                if ran != MODE_KERNELS[mode]:
-                    raise AssertionError(f"DDS_KARATSUBA={mode} launched {sorted(ran)}, "
-                                         f"expected {sorted(MODE_KERNELS[mode])}: {counts}")
+            # read just after this mode's run
+            counts = check_mode_launches(dev, read_counts(dev), mode, "SumAll")
             sumalls = sizes["requests"] + 8 * sizes["rounds"] + (1 if mode == "0" else 0)
             best = min(min(seq), per_req)
             modes[mode] = {
@@ -1119,7 +1150,7 @@ async def phase_e2e(dev, sizes) -> dict:
                 "sumall_ms_concurrent": per_req * 1e3,
                 "phase_mean_ms": phases,
                 "sumalls": sumalls,
-                "launches": {k: counts[k] for k in FOLD_KERNELS},
+                "launches": counts,
                 "same_ciphertext_as_mode_0": True,
             }
     finally:
@@ -1311,12 +1342,8 @@ async def phase_multall(dev, sizes) -> dict:
                 if any(g != want for g in got):
                     raise AssertionError(f"concurrent MultAll changed (DDS_KARATSUBA={mode})")
             per_req = (time.perf_counter() - t) / (sizes["rounds"] * 8)
-            counts = read_counts(dev)  # read just after this mode's run
-            if dev.type == "cuda":
-                ran = {k for k in FOLD_KERNELS if counts[k] > 0}
-                if ran != MODE_KERNELS[mode]:
-                    raise AssertionError(f"MultAll under DDS_KARATSUBA={mode} launched "
-                                         f"{sorted(ran)}, expected {sorted(MODE_KERNELS[mode])}")
+            # read just after this mode's run
+            counts = check_mode_launches(dev, read_counts(dev), mode, "MultAll")
             best = min(min(seq), per_req)
             modes[mode] = {
                 "ops_per_sec": (K - 1) / best,
@@ -1325,7 +1352,7 @@ async def phase_multall(dev, sizes) -> dict:
                 "multall_ms_seq_median": statistics.median(seq) * 1e3,
                 "multall_ms_concurrent": per_req * 1e3,
                 "multalls": 1 + sizes["requests"] + 8 * sizes["rounds"],
-                "launches": {k: counts[k] for k in FOLD_KERNELS},
+                "launches": counts,
                 "spans": span_stats(("http.", "proxy.", "abd.", "kernel.")),
             }
         pools = sorted(ModCtx.make(m).L for m in dep.server.backend._stores)
@@ -1534,8 +1561,9 @@ async def phase_mixed(dev, sizes) -> dict:
     RSA-1024. On `crypto-backend = "cuda"` and then on `"cpu"` (the
     same-host baseline mixed.py prints), a fresh stack each: the preload,
     then `run_workload` rounds of the clients with one seed, first with
-    mixed.py's MIX, then with configs/default.toml's proportions; every
-    client must report no failed operation. Counts are zeroed just before
+    mixed.py's MIX, then (on cuda only: the cpu baseline's default-mix
+    round was cut for the run's time) with configs/default.toml's
+    proportions; every client must report no failed operation. Counts are zeroed just before
     and read just after each round; on the card the cuda rounds must
     launch mont_mul. After the cuda rounds, the route sweep."""
     import dataclasses
@@ -1573,7 +1601,8 @@ async def phase_mixed(dev, sizes) -> dict:
             t = time.perf_counter()
             preloaded = await preload(port, provider, schema, sizes["mixed_preload"])
             preload_s = time.perf_counter() - t
-            for label, mix in (("mixed", MIXED_MIX), ("default", DEFAULT_TOML_MIX)):
+            rounds = (("mixed", MIXED_MIX), ("default", DEFAULT_TOML_MIX))
+            for label, mix in rounds if backend == "cuda" else rounds[:1]:
                 cfg.client.proportions = dict(mix)
                 reset_counts()  # this round's run starts here
                 tracer.reset(max_events=1 << 21)
@@ -1602,12 +1631,473 @@ async def phase_mixed(dev, sizes) -> dict:
         finally:
             await dep.stop()
     rec["cuda_over_cpu"] = {
-        label: rec["rounds"][f"{label}.cuda"]["ops_per_sec"]
-        / rec["rounds"][f"{label}.cpu"]["ops_per_sec"] for label in ("mixed", "default")}
+        "mixed": rec["rounds"]["mixed.cuda"]["ops_per_sec"]
+        / rec["rounds"]["mixed.cpu"]["ops_per_sec"]}
     rec["mont_mul_launches"] = sum(rec["rounds"][f"{label}.cuda"]["mont_mul_launches"]
                                    for label in ("mixed", "default"))
     emit("mixed", **rec)
     return rec
+
+
+def held_ms(fn, reps: int, dev) -> tuple[float, float]:
+    """(device ms, host dispatch ms) per call of `fn`: the stream is held
+    (`torch.cuda._sleep`, ~50 ms) while the host queues `reps` calls
+    between two CUDA events, so the events read the device's time alone
+    and the host clock around the loop reads the dispatch alone. One
+    warm-up call first. On the CPU (rehearsal) both are host clock
+    readings."""
+    import torch
+
+    fn()
+    sync(dev)
+    if dev.type != "cuda":
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ms = (time.perf_counter() - t) * 1e3 / reps
+        return ms, ms
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    t0.record()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dispatch = (time.perf_counter() - t) * 1e3 / reps
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps, dispatch
+
+
+def seeded_ints(ctx, count: int, seed: int) -> list[int]:
+    """`count` distinct seeded residues below n as Python ints."""
+    from dds_tpu_torch.ops import bignum as bn
+
+    out = bn.batch_to_ints(residues(ctx, count, seed))
+    if len(set(out)) != count:
+        raise AssertionError("seeded residues repeat")
+    return out
+
+
+def split(ops: list[int], S: int) -> list[tuple[str, list[int]]]:
+    """`ops` split evenly into S groups s0..s{S-1} (the plane's parts)."""
+    k = len(ops) // S
+    return [(f"s{g}", ops[g * k: (g + 1) * k]) for g in range(S)]
+
+
+async def wait_ingested(server) -> None:
+    """Until the proxy's write-ingest drain has run dry (its task done and
+    nothing queued)."""
+    while True:
+        task = server._ingest_task
+        if task is not None and not task.done():
+            await task
+        elif server._resident.pending_ingest():
+            await asyncio.sleep(0.01)
+        else:
+            return
+
+
+async def phase_resident(dev, sizes) -> dict:
+    """The resident plane (`benchmarks/resident_fold.py` at the
+    deployment's size): configs/sharded.toml's `[resident]` (4 groups,
+    initial-rows 256, max-rows 65,536) at Paillier-2048's n^2 (L = 256),
+    seeded residues. Plane level, for S in {1, 4} groups and K operands
+    split evenly over them, in modes 0, 1 and 2: *cold*, the per-group
+    marshaling baseline (S `ints_to_batch`, S `reduce_mul`, then
+    `combine_partials`), and *warm*, `fold_groups` after ingest, each equal
+    to the Python-int product; the warm folds' launches (counts zeroed
+    just before and read just after each mode, its own fold kernels only;
+    a fused fold launches one `mont_mul` a level in mode 0: 14 at S = 4,
+    K = 8,192); the fused tree's device ms (stream held) against its host
+    dispatch ms. Then all 4 pools filled to max-rows (256 MiB at L = 256)
+    and one fold past the cap without Stratum: one reset, still exact.
+    REST level: a fresh 4-replica stack (f = 1, min_device_batch 0) with
+    `[resident]` on and min-fold 0, K_path PutSet rows, SumAll in modes 0,
+    1 and 2 through `proxy.resident_fold`, each decrypting to the total and
+    equal to the Python-int fold; then `resident_new` more PutSets once the
+    pool exists, the write-ingest drain run dry, and the next SumAll
+    ingesting 0 rows on the fold path and equal to the fold over all
+    rows."""
+    import os
+
+    import torch
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.models.backend import CudaBackend
+    from dds_tpu_torch.ops import bignum as bn
+    from dds_tpu_torch.ops import mont_cuda
+    from dds_tpu_torch.ops.montgomery import ModCtx
+    from dds_tpu_torch.parallel.mesh import combine_partials
+    from dds_tpu_torch.resident.plane import fused_fold, fused_fold_launches
+
+    key = bench_paillier_key(sizes["key_bits"])
+    n2 = key.nsquare
+    ctx = ModCtx.make(n2)
+    be = CudaBackend(device=dev, min_device_batch=0)
+    G, initial, cap = sizes["resident_groups"], sizes["resident_initial"], sizes["resident_max"]
+    reps = sizes["resident_reps"]
+    saved = os.environ.get("DDS_KARATSUBA")
+    rec = {"L": ctx.L, "groups": G, "initial_rows": initial, "max_rows": cap,
+           "cells": {}, "modes": {m: {"launches": dict.fromkeys(FOLD_KERNELS, 0)}
+                                  for m in ("0", "1", "2")}}
+    try:
+        for K in sizes["resident_K"]:
+            ops = seeded_ints(ctx, K, 70 + K)
+            want = host_product(ops, n2)
+            for S in sizes["resident_S"]:
+                parts = split(ops, S)
+                plane = be.resident_plane(initial, cap)
+
+                def cold() -> int:
+                    partials = []
+                    for _, g in parts:
+                        rows = bn.to_device(bn.ints_to_batch(g, ctx.L), dev)
+                        partials.append(bn.limbs_to_int(
+                            bn.to_host(be.reduce_mul_device(ctx, rows))[0]))
+                    return combine_partials(partials, n2)
+
+                cell = {"S": S, "K": K, "modes": {}}
+                for mode in ("0", "1", "2"):
+                    os.environ["DDS_KARATSUBA"] = mode
+                    cold_ms, warm_ms = [], []
+                    for _ in range(reps):
+                        t = time.perf_counter()
+                        if cold() != want:
+                            raise AssertionError(f"cold S={S} K={K} mode {mode} != Python")
+                        cold_ms.append((time.perf_counter() - t) * 1e3)
+                    if plane.fold_groups(parts, n2) != want:  # ingest on the first mode
+                        raise AssertionError(f"warm S={S} K={K} mode {mode} != Python")
+                    reset_counts()  # this mode's warm folds start here
+                    for _ in range(reps):
+                        t = time.perf_counter()
+                        if plane.fold_groups(parts, n2) != want:
+                            raise AssertionError(f"warm S={S} K={K} mode {mode} != Python")
+                        warm_ms.append((time.perf_counter() - t) * 1e3)
+                    counts = check_mode_launches(dev, read_counts(dev), mode,
+                                                 f"resident S={S} K={K}")
+                    for k, v in counts.items():
+                        rec["modes"][mode]["launches"][k] += v
+                    slabs = [plane.pool(g, n2).rows_for(o) for g, o in parts]
+                    flag = {"0": False, "1": "k1", "2": "fused"}[mode]
+                    dev_ms, dispatch_ms = held_ms(lambda: fused_fold(ctx, slabs, flag), 3, dev)
+                    cell["modes"][mode] = {
+                        "cold_ms": min(cold_ms), "warm_ms": min(warm_ms),
+                        "cold_over_warm": min(cold_ms) / min(warm_ms),
+                        "fused_device_ms": dev_ms, "fused_dispatch_ms": dispatch_ms,
+                        "launches_per_fold": {k: v // reps for k, v in counts.items() if v},
+                    }
+                predicted = fused_fold_launches([len(g) for _, g in parts])
+                cell["fused_launches_predicted"] = predicted
+                if dev.type == "cuda" and \
+                        cell["modes"]["0"]["launches_per_fold"]["mont_mul"] != predicted:
+                    raise AssertionError(f"S={S} K={K}: {cell['modes']['0']} launches, "
+                                         f"predicted {predicted} a fold")
+                cell["per_group_launches"] = S * mont_cuda.fold_launches(K // S)
+                rec["cells"][f"S{S}_K{K}"] = cell
+                emit("resident", what="cell", **cell)
+                del plane
+        os.environ["DDS_KARATSUBA"] = "0"
+        # every pool at max-rows, then one fold past the cap without Stratum
+        full = be.resident_plane(initial, cap)
+        for g in range(G):
+            full.pool(f"s{g}", n2).ingest(seeded_ints(ctx, cap, 900 + g))
+        pools = [full.pool(f"s{g}", n2) for g in range(G)]
+        full_bytes = sum(p.nbytes() for p in pools)
+        allocated = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+        fresh = seeded_ints(ctx, sizes["K_path"], 999)
+        past = full.fold_groups([("s0", fresh)], n2)
+        if past != host_product(fresh, n2):
+            raise AssertionError("the fold past the cap is not exact")
+        if [p.resets for p in pools] != [1] + [0] * (G - 1):
+            raise AssertionError(f"resets past the cap: {[p.resets for p in pools]}")
+        rec["full"] = {"rows": [p.resident for p in pools], "bytes": full_bytes,
+                       "allocated_bytes": allocated, "resets_after_past_cap":
+                       [p.resets for p in pools], "past_cap_K": len(fresh)}
+        del full, pools
+        rec["rest"] = await resident_rest(dev, sizes, key)
+    finally:
+        if saved is None:
+            os.environ.pop("DDS_KARATSUBA", None)
+        else:
+            os.environ["DDS_KARATSUBA"] = saved
+    emit("resident", what="summary", **{k: v for k, v in rec.items() if k != "cells"})
+    return rec
+
+
+async def resident_rest(dev, sizes, key) -> dict:
+    """The REST half of the resident phase (its docstring)."""
+    import os
+
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils.config import DDSConfig
+    from dds_tpu_torch.utils.trace import tracer
+
+    pk = key.public
+    K, new = sizes["K_path"], sizes["resident_new"]
+    rows, _ = paillier_rows(pk, K + new, 14)
+    total = K * (K + 1) // 2
+    cts = [r[PSSE_POS] for r in rows]
+    want = host_product(cts[:K], pk.nsquare)
+    cfg = DDSConfig()
+    cfg.proxy.device = dev.type
+    cfg.proxy.min_device_batch = 0
+    cfg.resident.enabled = True
+    cfg.resident.initial_rows = sizes["resident_initial"]
+    cfg.resident.max_rows = sizes["resident_max"]
+    cfg.resident.min_fold = 0
+    rec = {"K": K, "modes": {}}
+    dep = await launch(cfg)
+    try:
+        server = dep.server
+        port = server.cfg.port
+        rec["put_s"] = await put_rows(port, rows[:K])
+        await wait_ingested(server)  # no pool yet: every write is a no_pool drop
+        sumall = sumall_fn(port, pk.nsquare)
+        t = time.perf_counter()
+        if await sumall() != want:
+            raise AssertionError("resident SumAll != Python-int fold")
+        rec["first_sumall_ms"] = (time.perf_counter() - t) * 1e3
+        pool = server._resident.pool("", pk.nsquare)
+        for mode in ("0", "1", "2"):
+            os.environ["DDS_KARATSUBA"] = mode
+            reset_counts()  # this mode's SumAlls start here
+            tracer.reset()
+            seq = []
+            for _ in range(sizes["requests"]):
+                t = time.perf_counter()
+                result = await sumall()
+                seq.append((time.perf_counter() - t) * 1e3)
+                if result != want or key.decrypt(result) != total:
+                    raise AssertionError(f"resident SumAll wrong (DDS_KARATSUBA={mode})")
+            counts = check_mode_launches(dev, read_counts(dev), mode, "resident SumAll")
+            spans = tracer.summary()
+            if spans.get("proxy.resident_fold", {}).get("count") != sizes["requests"] \
+                    or "proxy.fold" in spans:
+                raise AssertionError(f"SumAll did not go through the plane: {sorted(spans)}")
+            rec["modes"][mode] = {
+                "sumall_ms_min": min(seq), "sumall_ms_median": statistics.median(seq),
+                "launches": counts,
+                "phase_mean_ms": {name: s["mean_ms"] for name, s in spans.items()
+                                  if name in ("http.GET.SumAll", "proxy.fetch_stored",
+                                              "proxy.resident_fold",
+                                              "kernel.resident_fold.dispatch",
+                                              "kernel.resident_fold.execute")},
+            }
+        os.environ["DDS_KARATSUBA"] = "0"
+        # writes after the pool exists: ingested off the request path
+        t = time.perf_counter()
+        await put_rows(port, rows[K:])
+        await wait_ingested(server)
+        rec["new_rows"], rec["ingest_s"] = new, time.perf_counter() - t
+        ingested = pool._served[1]
+        resident_before = pool.resident
+        t = time.perf_counter()
+        result = await sumall()
+        rec["post_write_sumall_ms"] = (time.perf_counter() - t) * 1e3
+        rec["post_write_fold_ingested"] = pool._served[1] - ingested
+        if rec["post_write_fold_ingested"] != 0 or pool.resident != resident_before:
+            raise AssertionError(f"the first SumAll after the writes ingested "
+                                 f"{rec['post_write_fold_ingested']} rows on the fold path")
+        if result != host_product(cts, pk.nsquare) or \
+                key.decrypt(result) != (K + new) * (K + new + 1) // 2:
+            raise AssertionError("post-write SumAll != the fold over every row")
+        rec["pool"] = pool.stats()
+        rec["dropped_pending"] = server._resident.stats()["dropped_pending"]
+    finally:
+        await dep.stop()
+    return rec
+
+
+def zipf_draws(rng, head: list[int], k: int, theta: float) -> list[int]:
+    """`k` draws from a Zipf(theta) rank distribution over `head` (rank 0
+    the most popular) — `benchmarks/tiered_fold.py::_zipf_hot_subset`'s
+    model, drawn with numpy."""
+    w = 1.0 / np.arange(1, len(head) + 1) ** theta
+    return [head[i] for i in rng.choice(len(head), size=k, p=w / w.sum())]
+
+
+async def phase_tiered(dev, sizes) -> dict:
+    """Stratum (`benchmarks/tiered_fold.py`) with configs/stratum.toml's
+    `[resident]` and `[storage]`: 2 groups, max-rows 4,096, chunk-rows
+    256, promote-score 2.0, max-promote 256, at Paillier-2048's n^2; a
+    population of pop-factor (10) x max-rows seeded residues per group,
+    folded once through Stratum (the first max-rows of each group admit
+    hot, the rest stream and demote to warm and cold); then the timed
+    folds draw K operands, half a group, from a Zipf(theta) head of
+    `tier_head` rows per group: the population's last rows, which that
+    fold left in the warm and cold tiers. One cut: warm-bytes follows
+    tiered_fold's rule (max-rows x pop-factor x 16 bytes), since
+    stratum.toml's 128 MiB would hold the whole population warm and never
+    run the cold leg. The segment log lives in a temporary directory.
+    Gates: the population fold and every timed fold equal the Python-int
+    product; no reset; the cold tier holds rows and cold reads happen;
+    promotion moves the head's most drawn rows back to hot. Timed: an
+    all-resident twin plane (the ceiling) against Stratum; launches of the
+    Stratum run in mode 0 and of one fold in modes 1 and 2. Then a REST
+    SumAll through a fresh stack with `[resident]` max-rows 4,096 and
+    `[storage]` (the same cut), K_path PutSet rows: it decrypts to the
+    total, with no reset."""
+    import os
+    import tempfile
+
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.models.backend import CudaBackend
+    from dds_tpu_torch.ops.montgomery import ModCtx
+    from dds_tpu_torch.storage import HOT, Stratum
+    from dds_tpu_torch.utils.trace import tracer
+
+    key = bench_paillier_key(sizes["key_bits"])
+    n2 = key.nsquare
+    ctx = ModCtx.make(n2)
+    be = CudaBackend(device=dev, min_device_batch=0)
+    S, cap, factor = sizes["tier_groups"], sizes["tier_max"], sizes["tier_pop_factor"]
+    head_n, K, reps = sizes["tier_head"], sizes["tier_K"], sizes["tier_reps"]
+    warm_bytes = cap * factor * 16
+    pop = seeded_ints(ctx, S * cap * factor, 41)
+    parts = split(pop, S)
+    rng = np.random.default_rng(43)
+    heads = {g: ops[::-1][:head_n] for g, ops in parts}  # rank 0 = the last row
+    draws = [(g, zipf_draws(rng, heads[g], K // S, sizes["tier_theta"])) for g, _ in parts]
+    want_pop = host_product(pop, n2)
+    want = host_product([c for _, d in draws for c in d], n2)
+    saved = os.environ.get("DDS_KARATSUBA")
+    os.environ["DDS_KARATSUBA"] = "0"
+    rec = {"groups": S, "max_rows": cap, "population": len(pop), "pop_factor": factor,
+           "head": head_n, "K": K, "theta": sizes["tier_theta"],
+           "cut": {"warm_bytes": warm_bytes, "stratum_toml_warm_bytes": 134217728,
+                   "rule": "max_rows x pop_factor x 16 (benchmarks/tiered_fold.py)"},
+           "modes": {}}
+    try:
+        twin = be.resident_plane(cap, 1 << max(17, (len(pop) // S).bit_length() + 1))
+        if twin.fold_groups(parts, n2) != want_pop or twin.fold_groups(draws, n2) != want:
+            raise AssertionError("the all-resident twin != Python")
+        ceiling = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            if twin.fold_groups(draws, n2) != want:
+                raise AssertionError("ceiling fold != Python")
+            ceiling.append((time.perf_counter() - t) * 1e3)
+        del twin
+        with tempfile.TemporaryDirectory() as tier_dir:
+            plane = be.resident_plane(sizes["resident_initial"], cap)
+            stratum = Stratum(plane, tier_dir, warm_bytes=warm_bytes,
+                              chunk_rows=sizes["tier_chunk"],
+                              promote_score=sizes["tier_promote"],
+                              max_promote=sizes["tier_max_promote"])
+            reset_counts()  # the tiered run starts here
+            tracer.reset()
+            t = time.perf_counter()
+            if stratum.fold_groups(parts, n2) != want_pop:
+                raise AssertionError("the tiered population fold != Python")
+            rec["population_fold_s"] = time.perf_counter() - t
+            rec["after_population"] = stratum.stats()
+            warmup = []
+            for _ in range(sizes["tier_warmup"]):
+                t = time.perf_counter()
+                if stratum.fold_groups(draws, n2) != want:
+                    raise AssertionError("tiered warm-up fold != Python")
+                warmup.append((time.perf_counter() - t) * 1e3)
+            tiered = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                if stratum.fold_groups(draws, n2) != want:
+                    raise AssertionError("tiered fold != Python")
+                tiered.append((time.perf_counter() - t) * 1e3)
+            counts = check_mode_launches(dev, read_counts(dev), "0", "tiered")
+            spans = span_stats(("tier.", "kernel.resident_fold"))
+            stats = stratum.stats()
+            pools = [plane.pool(g, n2) for g, _ in parts]
+            # the head's most drawn rows, back on the device
+            top = {g: [c for c, _ in collections.Counter(d).most_common(sizes["tier_top"])]
+                   for g, d in draws}
+            hot_top = {g: sum(stratum.dir.tier_of((g, "", n2), c) == HOT
+                              and c in plane.pool(g, n2)._index for c in cs)
+                       for g, cs in top.items()}
+            if any(p.resets for p in pools):
+                raise AssertionError(f"a pool reset under Stratum: {[p.resets for p in pools]}")
+            if stats["tiers"]["cold"]["rows"] <= 0 or stats["cold_reads"] <= 0:
+                raise AssertionError(f"the cold tier never served: {stats}")
+            if stats["promotions"] <= 0 or any(v != len(top[g]) for g, v in hot_top.items()):
+                raise AssertionError(f"promotion did not bring the head back: {hot_top}, "
+                                     f"{stats['promotions']} promotions")
+            rec["modes"]["0"] = {"launches": counts}
+            for mode in ("1", "2"):
+                os.environ["DDS_KARATSUBA"] = mode
+                reset_counts()  # this mode's tiered fold starts here
+                if stratum.fold_groups(draws, n2) != want:
+                    raise AssertionError(f"tiered fold != Python (DDS_KARATSUBA={mode})")
+                rec["modes"][mode] = {"launches": check_mode_launches(
+                    dev, read_counts(dev), mode, "tiered")}
+            os.environ["DDS_KARATSUBA"] = "0"
+            rec.update({
+                "ceiling_ms": min(ceiling), "tiered_ms": min(tiered),
+                "ceiling_over_tiered": min(ceiling) / min(tiered),
+                "tiered_ms_all": tiered, "warmup_ms": warmup,
+                "resets": [p.resets for p in pools], "hot_rows": [p.resident for p in pools],
+                "head_top_hot": hot_top, "spans": spans,
+                "tiers": stats["tiers"], "hits": stats["hits"],
+                "evictions": stats["evictions"], "cold_reads": stats["cold_reads"],
+                "promotions": stats["promotions"], "demotions": stats["demotions"],
+                "directory": stats["directory"], "pressure": stats["pressure"],
+            })
+        rec["rest"] = await tiered_rest(dev, sizes, key, warm_bytes)
+    finally:
+        if saved is None:
+            os.environ.pop("DDS_KARATSUBA", None)
+        else:
+            os.environ["DDS_KARATSUBA"] = saved
+    emit("tiered", **rec)
+    return rec
+
+
+async def tiered_rest(dev, sizes, key, warm_bytes: int) -> dict:
+    """The REST half of the tiered phase (its docstring)."""
+    import tempfile
+
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils.config import DDSConfig
+    from dds_tpu_torch.utils.trace import tracer
+
+    pk = key.public
+    K = sizes["K_path"]
+    rows, total = paillier_rows(pk, K, 15)
+    want = host_product([r[PSSE_POS] for r in rows], pk.nsquare)
+    with tempfile.TemporaryDirectory() as tier_dir:
+        cfg = DDSConfig()
+        cfg.proxy.device = dev.type
+        cfg.proxy.min_device_batch = 0
+        cfg.resident.enabled = True
+        cfg.resident.initial_rows = sizes["resident_initial"]
+        cfg.resident.max_rows = sizes["tier_max"]
+        cfg.storage.enabled = True
+        cfg.storage.dir = tier_dir
+        cfg.storage.warm_bytes = warm_bytes
+        cfg.storage.chunk_rows = sizes["tier_chunk"]
+        dep = await launch(cfg)
+        try:
+            server = dep.server
+            port = server.cfg.port
+            put_s = await put_rows(port, rows)
+            sumall = sumall_fn(port, pk.nsquare)
+            reset_counts()  # the REST tiered SumAlls start here
+            tracer.reset()
+            ms = []
+            for _ in range(2):  # the first ingests and tiers, the second reads the tiers
+                t = time.perf_counter()
+                result = await sumall()
+                ms.append((time.perf_counter() - t) * 1e3)
+                if result != want or key.decrypt(result) != total:
+                    raise AssertionError("tiered REST SumAll wrong")
+            counts = check_mode_launches(dev, read_counts(dev), "0", "tiered REST")
+            resets = server._resident.stats()["resets"]
+            if resets:
+                raise AssertionError(f"the tiered REST stack reset a pool {resets} times")
+            stats = server._stratum.stats()
+            spans = tracer.summary()
+        finally:
+            await dep.stop()
+    return {"K": K, "put_s": put_s, "sumall_ms": ms, "resets": resets,
+            "launches": counts, "tiers": stats["tiers"], "hits": stats["hits"],
+            "resident_fold_count": spans.get("proxy.resident_fold", {}).get("count")}
 
 
 def make_digest(n_ops: int, seed: int):
@@ -1883,7 +2373,16 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   coalesce_min_batch=None, K_multall=16384,
                   crossover_l64=[8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384],
                   mixed_replicas=7, mixed_quorum=5, mixed_preload=4096, mixed_clients=4,
-                  mixed_ops=200, mixed_seed=7)
+                  mixed_ops=200, mixed_seed=7,
+                  # configs/sharded.toml's [resident]; resident_fold.py's S and K
+                  resident_groups=4, resident_initial=256, resident_max=65536,
+                  resident_S=[1, 4], resident_K=[8192, 65536], resident_reps=3,
+                  resident_new=256,
+                  # configs/stratum.toml's [resident] and [storage]; tiered_fold.py's
+                  # pop-factor and theta
+                  tier_groups=2, tier_max=4096, tier_chunk=256, tier_promote=2.0,
+                  tier_max_promote=256, tier_pop_factor=10, tier_head=2048, tier_K=8192,
+                  tier_theta=0.9, tier_reps=5, tier_warmup=3, tier_top=64)
 
 
 def main(argv=None) -> int:
@@ -1922,7 +2421,13 @@ def main(argv=None) -> int:
                      clients=2, ops_per_client=64, B_probe=64, K_coalesce=16,
                      coalesce_burst=16, coalesce_rounds=2, coalesce_min_batch=32,
                      K_multall=64, crossover_l64=[8, 32], mixed_replicas=7, mixed_quorum=5,
-                     mixed_preload=64, mixed_clients=2, mixed_ops=40, mixed_seed=7)
+                     mixed_preload=64, mixed_clients=2, mixed_ops=40, mixed_seed=7,
+                     resident_groups=4, resident_initial=16, resident_max=1024,
+                     resident_S=[1, 4], resident_K=[64, 256], resident_reps=1,
+                     resident_new=16, tier_groups=2, tier_max=32, tier_chunk=16,
+                     tier_promote=2.0, tier_max_promote=16, tier_pop_factor=10,
+                     tier_head=32, tier_K=256, tier_theta=0.9, tier_reps=2,
+                     tier_warmup=3, tier_top=4)
         card = {"name": "cpu (rehearsal)", **card_numbers(dev)}
     else:
         if not torch.cuda.is_available():
@@ -1957,6 +2462,8 @@ def main(argv=None) -> int:
     client = asyncio.run(phase_client(dev, sizes))
     multall = asyncio.run(phase_multall(dev, sizes))
     mixed = asyncio.run(phase_mixed(dev, sizes))
+    resident = asyncio.run(phase_resident(dev, sizes))
+    tiered = asyncio.run(phase_tiered(dev, sizes))
 
     path = tim["path"]
     # the fold kernels' single launches at MultAll's width, L = 64
@@ -1970,7 +2477,12 @@ def main(argv=None) -> int:
         "tpu_twin": "mont_mxu._make_prod_kernel + _redc (v2); pallas_mont._make_mul_kernel (v1)",
         "launches_by_path": {"sumall": e2e["launches"],
                              "multall": multall["modes"]["0"]["launches"]["mont_mul"],
-                             "mixed": mixed["mont_mul_launches"]},
+                             "mixed": mixed["mont_mul_launches"],
+                             "resident": resident["modes"]["0"]["launches"]["mont_mul"],
+                             "resident_rest":
+                                 resident["rest"]["modes"]["0"]["launches"]["mont_mul"],
+                             "tiered": tiered["modes"]["0"]["launches"]["mont_mul"],
+                             "tiered_rest": tiered["rest"]["launches"]["mont_mul"]},
         "max_abs_err": par["max_abs_err"],
         "per": f"one K={path['K']} fold ({path['launches']} launches) on the device; "
                f"wall_ms: back to back, paced by the host's dispatch",
@@ -1997,10 +2509,13 @@ def main(argv=None) -> int:
         "bound_by": tim_exp["exp_bound_by"],
         "library_ms": None,
     }]
-    # each Karatsuba kernel's launches on the SumAll e2e run and on MultAll's
-    # run, in its mode
+    # each Karatsuba kernel's launches on the SumAll e2e run, MultAll's run,
+    # the resident plane's folds and SumAlls and the tiered folds, in its mode
     k1, kf = ({k: {"sumall": e2e["karatsuba_modes"][m]["launches"][k],
-                   "multall": multall["modes"][m]["launches"][k]} for k in KARATSUBA_KERNELS}
+                   "multall": multall["modes"][m]["launches"][k],
+                   "resident": resident["modes"][m]["launches"][k],
+                   "resident_rest": resident["rest"]["modes"][m]["launches"][k],
+                   "tiered": tiered["modes"][m]["launches"][k]} for k in KARATSUBA_KERNELS}
               for m in ("1", "2"))
     for name, replaces, twin, launches, err, per in (
         ("mont_prod3", "dds_tpu/ops/mont_mxu.py:151",

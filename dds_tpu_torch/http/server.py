@@ -31,10 +31,18 @@ reference's tag-validated cache and audit exactly: ONE batched tag-only
 quorum round validates every cached record per request, a random sample
 of cache-served keys is re-read through full quorums, and a
 non-corroborated mismatch flushes the cache. The proxy sees ciphertexts
-and public parameters only, never keys. The resident, storage and search
-planes of the reference (the indexed Spyglass search among them) are not
-ported yet; the proxy refuses to start with one enabled rather than serve
-without it.
+and public parameters only, never keys.
+
+With `[resident]` (`ProxyConfig.resident`) every modular SumAll/MultAll
+at least `min-fold` wide runs through the resident plane (`resident/`):
+one fused gather+fold over the operands' group pools (one anonymous group
+here: sharding is not ported), on the backend's device. Committed writes
+queue their ciphertext columns for ingest into the existing pools off the
+request path, so the first aggregate after a write ingests nothing. With
+`[storage]` as well, Stratum (`storage/`) routes the fold through its
+hot/warm/cold planner and pool overflow evicts instead of resetting.
+The search plane (the indexed Spyglass search) is not ported yet; the
+proxy refuses to start with it enabled rather than serve without it.
 """
 
 from __future__ import annotations
@@ -54,6 +62,8 @@ from dds_tpu_torch.http.miniserver import HttpServer, Request, Response
 from dds_tpu_torch.models.backend import CryptoBackend, get_backend
 from dds_tpu_torch.models.det import DetKey
 from dds_tpu_torch.obs import context as obs_context
+from dds_tpu_torch.resident import ResidentPlane
+from dds_tpu_torch.storage import Stratum
 from dds_tpu_torch.utils import sigs
 from dds_tpu_torch.utils.retry import (
     Deadline,
@@ -108,9 +118,11 @@ class ProxyConfig:
     # the plain host path, so the window only costs latency when there is
     # something to gain. 0 disables.
     coalesce_window: float = 0.002
-    # reference planes not ported yet: True refuses to start
-    resident: bool = False
-    storage: bool = False
+    # the resident plane (a utils.config.ResidentConfig; None = off) and
+    # Stratum under it (a utils.config.StorageConfig; needs the plane)
+    resident: object = None
+    storage: object = None
+    # the search plane is not ported yet: True refuses to start
     search: bool = False
 
 
@@ -134,11 +146,10 @@ class DDSRestServer:
     def __init__(self, abd: AbdClient, config: ProxyConfig | None = None):
         self.abd = abd
         self.cfg = config or ProxyConfig()
-        for plane in ("resident", "storage", "search"):
-            if getattr(self.cfg, plane):
-                raise NotImplementedError(
-                    f"the {plane} plane is not ported to dds_tpu_torch yet"
-                )
+        if self.cfg.search:
+            raise NotImplementedError(
+                "the search plane is not ported to dds_tpu_torch yet"
+            )
         self.backend: CryptoBackend = _make_backend(self.cfg)
         self.stored_keys: set[str] = set()
         # key -> (tag, value): every entry comes from a COMPLETED quorum op,
@@ -159,6 +170,46 @@ class DDSRestServer:
         self._fold_pending: dict[int, list] = {}
         self._fold_drainer: asyncio.Task | None = None
         self._folds_inflight = 0  # folds currently executing (any path)
+        self._owner_memo: tuple | None = None  # pairs identity -> (gid, ops)
+        # the resident plane: per-group device-resident pools + the fused
+        # fold. A cuda backend builds it on its own device; a host backend
+        # (`cpu`) gets a plane on the CPU, the reference's rule for host
+        # backends. None when disabled.
+        rescfg = self.cfg.resident
+        self._resident: ResidentPlane | None = None
+        self._resident_min_fold = 0
+        self._resident_write_ingest = False
+        self._resident_ingest_window = 0.005
+        self._ingest_task: asyncio.Task | None = None
+        if rescfg is not None and rescfg.enabled:
+            if hasattr(self.backend, "resident_plane"):
+                self._resident = self.backend.resident_plane(
+                    rescfg.initial_rows, rescfg.max_rows
+                )
+            else:
+                self._resident = ResidentPlane(
+                    device="cpu", initial_rows=rescfg.initial_rows,
+                    max_rows=rescfg.max_rows,
+                )
+            self._resident_min_fold = (
+                rescfg.min_fold if rescfg.min_fold > 0
+                else getattr(self.backend, "min_device_batch", 0)
+            )
+            self._resident_write_ingest = rescfg.write_ingest
+            self._resident_ingest_window = max(0.0, rescfg.ingest_window)
+        # Stratum: the tier planner under the plane, built only when a
+        # plane exists (the hot tier IS the pool); attaching rewires pool
+        # overflow from reset to eviction. None when disabled.
+        stcfg = self.cfg.storage
+        self._stratum: Stratum | None = None
+        if stcfg is not None and stcfg.enabled and self._resident is not None:
+            self._stratum = Stratum(
+                self._resident, stcfg.dir,
+                warm_bytes=stcfg.warm_bytes, chunk_rows=stcfg.chunk_rows,
+                promote_score=stcfg.promote_score,
+                max_promote=stcfg.max_promote, half_life=stcfg.half_life,
+                keep=stcfg.keep, compact_segments=stcfg.compact_segments,
+            )
         self._http = HttpServer(self.cfg.host, self.cfg.port, self.handle,
                                 handler_timeout=self.cfg.handler_timeout)
 
@@ -168,6 +219,9 @@ class DDSRestServer:
 
     async def stop(self) -> None:
         await self._http.stop()
+        if self._ingest_task is not None:
+            await _cancel_task(self._ingest_task)
+            self._ingest_task = None
         if self._fold_drainer is not None and not self._fold_drainer.done():
             # resolve queued folds before teardown so no request future is
             # orphaned and no task outlives the server
@@ -245,7 +299,65 @@ class DDSRestServer:
             lambda: self.abd.write_set_tagged(key, value, deadline=dl), dl
         )
         self._cache_put(key, tag, value)
+        self._note_resident_write(key, value)
         return k
+
+    # ------------------------------------------------ resident write ingest
+
+    def _note_resident_write(self, key: str, value) -> None:
+        """Queue a committed write's ciphertext columns for resident-pool
+        ingest off the request's critical path, so the first aggregate
+        after the write gathers every row on the device with no ingest.
+        Content addressing keeps this safe: the quorum read still decides
+        which ciphertexts fold; the pool only pre-pays their limb
+        conversion and transfer."""
+        plane = self._resident
+        if plane is None or not self._resident_write_ingest or not value:
+            return
+        ciphers = []
+        for col in value:
+            if isinstance(col, bool):
+                continue
+            if isinstance(col, int):
+                ciphers.append(col)
+            elif isinstance(col, str):
+                try:
+                    ciphers.append(int(col))
+                except ValueError:
+                    continue  # non-numeric column: never an aggregate operand
+        if not ciphers:
+            return
+        if self._stratum is not None:
+            # popularity only (pure dict math, loop-safe): a rewritten
+            # tiered row warms its directory score
+            self._stratum.note_write("", ciphers, key=key)
+        if plane.note_write("", ciphers):
+            self._resident_ingest_soon()
+
+    def _resident_ingest_soon(self) -> None:
+        """Debounced drain: coalesce a write burst into few ingest passes,
+        each on a worker thread so limb conversion never stalls request
+        handling."""
+        if self._ingest_task is not None and not self._ingest_task.done():
+            return
+
+        async def _drain():
+            while self._resident.pending_ingest():
+                await asyncio.sleep(self._resident_ingest_window)
+                await asyncio.to_thread(self._resident.ingest_pending)
+
+        self._ingest_task = supervised_task(_drain(), name="proxy.resident_ingest")
+
+    def tier_pressure(self) -> float:
+        """Blended hot+warm occupancy in [0, 1] (Stratum's `pressure`):
+        how close the fullest pool is to its max_rows, or the warm cache
+        to its byte budget, whichever is tighter. 0.0 without Stratum."""
+        if self._stratum is None:
+            return 0.0
+        try:
+            return float(self._stratum.pressure())
+        except Exception:
+            return 0.0
 
     async def _fetch_stored(self) -> list[tuple[str, list]]:
         """Every stored (key, value), for the aggregate and search routes.
@@ -661,9 +773,23 @@ class DDSRestServer:
             return Response(404)
         if mod:
             modulus = self._parse_modulus(mod)
-            with tracer.span("proxy.fold", k=len(operands),
-                             backend=self.backend.name):
-                result = await self._fold(operands, modulus)
+            result = None
+            if (self._resident is not None
+                    and len(operands) >= self._resident_min_fold):
+                # the resident plane: one fused gather+fold over the group
+                # pools (through Stratum's tier planner when it is on);
+                # None only when an operand set is wider than its pool
+                # even after a reset, and then the flat fold below runs
+                parts = self._owner_operands(pairs, pos)
+                folder = (self._stratum.fold_groups if self._stratum is not None
+                          else self._resident.fold_groups)
+                with tracer.span("proxy.resident_fold", k=len(operands),
+                                 shards=len(parts), backend=self.backend.name):
+                    result = await asyncio.to_thread(folder, parts, modulus, "")
+            if result is None:
+                with tracer.span("proxy.fold", k=len(operands),
+                                 backend=self.backend.name):
+                    result = await self._fold(operands, modulus)
         elif modparam == "nsqr":
             result = sum(operands)
         else:
@@ -671,6 +797,20 @@ class DDSRestServer:
             for o in operands:
                 result *= o
         return Response.json(J.value_result(str(result)))
+
+    def _owner_operands(self, pairs, pos: int) -> list[tuple[str, list[int]]]:
+        """Aggregate operands partitioned by owning shard group, with the
+        group id attached (the pool key). Sharding is not ported, so this
+        is one anonymous group. Memoized per pairs identity like the flat
+        operand memo: the stable operand-list identity is what the pools'
+        row-index memos key on."""
+        memo = self._owner_memo
+        if memo is not None and memo[0] is pairs and memo[1] == pos:
+            return memo[2]
+        ops = [int(v[pos]) for _, v in pairs if pos < len(v)]
+        out = [("", ops)] if ops else []
+        self._owner_memo = (pairs, pos, out)
+        return out
 
     def _backend_fold_fn(self):
         """The backend's single-aggregate fold entry point (the

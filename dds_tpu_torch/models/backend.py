@@ -13,7 +13,8 @@ family DDS_KARATSUBA selects (`fold_kernel`; validated at construction).
 Folds narrower than `min_device_batch` stay on the host, where a few
 Python-int modmuls beat the launch latency of a tree of kernels;
 `modmul_fold_many` folds several such requests in one tree
-(`ops/foldmany`), for the proxy's coalescer. `powmod_batch` runs
+(`ops/foldmany`), for the proxy's coalescer; `resident_plane` builds the
+`[resident]` plane on the backend's device. `powmod_batch` runs
 one shared-exponent ladder (`ops/mont_cuda.pow_mod`: the exp kernel
 between two multiply launches) over the whole batch; its caller decides
 when a batch is wide enough (`PaillierPublicKey.blind_batch`'s min_batch).
@@ -137,6 +138,20 @@ class CudaBackend:
         """The Montgomery-multiply family folds run on now: "cios" (the
         default), "k1" or "fused" — DDS_KARATSUBA, read at every fold."""
         return flags.karatsuba_mode() or "cios"
+
+    def resident_plane(self, initial_rows: int = 256, max_rows: int = 1 << 20):
+        """A `ResidentPlane` on this backend's device whose pools fold
+        through `reduce_mul_device`, so lone-group resident folds run the
+        kernels of the flat path (the twin of
+        `TpuBackend.resident_plane`)."""
+        from dds_tpu_torch.resident import ResidentPlane
+
+        def reduce_factory(modulus: int):
+            ctx = ModCtx.make(modulus)
+            return lambda rows: self.reduce_mul_device(ctx, rows)
+
+        return ResidentPlane(device=self.device, initial_rows=initial_rows,
+                             max_rows=max_rows, reduce_factory=reduce_factory)
 
     def reduce_mul_device(self, ctx: ModCtx, batch: torch.Tensor) -> torch.Tensor:
         """Modular product over a (K, L) limb batch already on the device:

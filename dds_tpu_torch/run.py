@@ -4,7 +4,9 @@ Trimmed copy of `dds_tpu/run.py`. `launch(cfg)` boots the topology the
 config describes — by default the north-star one of
 `benchmarks/bft_sum.py`: 4 BFT-ABD replicas, quorum 3 (f = 1), proactive
 recovery off, the in-memory transport, and the proxy on an OS-assigned
-port folding on the `cuda` backend. `load_provider(cfg)` builds the
+port folding on the `cuda` backend; `[resident]` and `[storage]` reach
+the proxy as their config sections, so Stratum keeps its segment log in
+`[storage] dir`. `load_provider(cfg)` builds the
 client's HE provider from the `[client]` section: its keys and its bulk
 encryption backend (`bulk-encrypt-backend = "cuda"` precomputes PSSE
 obfuscators with the exp kernel). `run_workload(dep)` drives
@@ -103,8 +105,8 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             device=p.device,
             min_device_batch=p.min_device_batch,
             coalesce_window=p.coalesce_window,
-            resident=cfg.resident.enabled,
-            storage=cfg.storage.enabled,
+            resident=cfg.resident,
+            storage=cfg.storage,
             search=cfg.search.enabled,
         ),
     )

@@ -8,9 +8,10 @@ on an OS-assigned port, folds on the `cuda` backend. The `[client]`
 section configures the generated workload (`run.run_workload`: clients,
 operations, proportions and the data table, with the reference's
 defaults), the client's keys and its bulk-encryption backend
-(`run.load_provider`). The `resident`, `storage` and `search` planes and
-`[crypto] secret-device` are not ported yet: enabling one raises instead
-of silently serving without it. `[client]
+(`run.load_provider`). `[resident]` and `[storage]` configure the
+resident plane and Stratum with the reference's fields and keys. The
+`search` plane and `[crypto] secret-device` are not ported yet: enabling
+one raises instead of silently serving without it. `[client]
 failed-contact-attempts-threshold` is read by no client, so any value but
 the reference's default raises too.
 """
@@ -124,6 +125,61 @@ class CryptoSettings:
 
 
 @dataclass
+class ResidentConfig:
+    """The resident ciphertext plane (`resident/`): per-group
+    content-addressed limb pools pinned in device memory, write-path
+    ingest, and the fused multi-group fold. Device memory per pool is
+    rows x L x 4 bytes (L = limbs of the aggregate modulus: 256 for
+    Paillier-2048's n^2, 1 KiB a row); past `max-rows` a pool resets and
+    re-ingests on demand (or, with `[storage]`, evicts to the warm tier) —
+    never a wrong result, only a re-paid ingest. Copy of the reference's
+    `ResidentConfig`: the same fields, defaults and keys."""
+
+    enabled: bool = False
+    # per-pool capacity: start here, double up to max-rows
+    initial_rows: int = 256
+    max_rows: int = 65536
+    # smallest total aggregate width routed through the fused resident
+    # fold; 0 = the backend's own device crossover decides (a cpu-backend
+    # proxy with 0 sends every modular aggregate through the plane)
+    min_fold: int = 0
+    # write-path ingest: committed PutSet/AddElement/WriteElement
+    # ciphertexts ingest into existing pools off the request's critical
+    # path, coalesced in ingest-window seconds
+    write_ingest: bool = True
+    ingest_window: float = 0.005
+
+
+@dataclass
+class StorageConfig:
+    """Stratum tiered ciphertext storage (`storage/`): device pools (hot),
+    a host numpy limb cache (warm) and an append-only HMAC'd segment log
+    on disk (cold). Pool overflow then evicts coldest-first instead of
+    resetting, and aggregates split into a resident-fused leg plus
+    streamed legs merged exactly. Needs `[resident]` enabled (the hot tier
+    IS the resident plane); without it no Stratum is built. Copy of the
+    reference's `StorageConfig`: the same fields, defaults and keys."""
+
+    enabled: bool = False
+    # segment + manifest directory (created on first demotion/boot)
+    dir: str = "./stratum"
+    # warm-tier host budget: rows are L x 4 bytes (1 KiB at L=256)
+    warm_bytes: int = 64 << 20
+    # streamed-fold slice: rows per host->device transfer + device fold
+    chunk_rows: int = 256
+    # promotion: decayed touch score a warm/cold entry must clear to
+    # re-enter the device, and the per-fold promotion cap (anti-thrash)
+    promote_score: float = 2.0
+    max_promote: int = 256
+    # popularity decay half-life (seconds) for the tier directory's EWMA
+    half_life: float = 60.0
+    # manifest generations kept and the live-segment count that triggers
+    # compaction
+    keep: int = 3
+    compact_segments: int = 8
+
+
+@dataclass
 class PlaneSwitch:
     """A serving plane of the reference that this slice does not port."""
 
@@ -138,8 +194,8 @@ class DDSConfig:
     proxy: ProxySettings = field(default_factory=ProxySettings)
     client: ClientSettings = field(default_factory=ClientSettings)
     crypto: CryptoSettings = field(default_factory=CryptoSettings)
-    resident: PlaneSwitch = field(default_factory=PlaneSwitch)
-    storage: PlaneSwitch = field(default_factory=PlaneSwitch)
+    resident: ResidentConfig = field(default_factory=ResidentConfig)
+    storage: StorageConfig = field(default_factory=StorageConfig)
     search: PlaneSwitch = field(default_factory=PlaneSwitch)
     debug: bool = False
 
@@ -180,8 +236,8 @@ _SUBSECTIONS = {
     ("DDSConfig", "proxy"): ProxySettings,
     ("DDSConfig", "client"): ClientSettings,
     ("DDSConfig", "crypto"): CryptoSettings,
-    ("DDSConfig", "resident"): PlaneSwitch,
-    ("DDSConfig", "storage"): PlaneSwitch,
+    ("DDSConfig", "resident"): ResidentConfig,
+    ("DDSConfig", "storage"): StorageConfig,
     ("DDSConfig", "search"): PlaneSwitch,
     ("ClientSettings", "data_table"): DataTableConfig,
 }

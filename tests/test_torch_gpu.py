@@ -517,3 +517,100 @@ def test_multall_through_the_stack_launches_only_its_modes_kernels(cuda, monkeyp
         want = want * m % rsa.n
     assert rsa.decrypt(result) == want
     assert {k for k, v in launched.items() if v > 0} == own
+
+
+# ------------------------------------------- the resident plane and Stratum
+
+
+MODE_FOLD_KERNELS = {"0": {"mont_mul"},
+                     "1": {"mont_prod3", "mont_k1_halfsums", "mont_k1_combine", "mont_redc"},
+                     "2": {"mont_kfused", "mont_redc"}}
+
+
+def _ints(ctx: ModCtx, count: int, seed: int) -> list[int]:
+    return bn.batch_to_ints(_residues(ctx, count, seed))
+
+
+@pytest.mark.parametrize("mode", ["0", "1", "2"])
+def test_fused_fold_on_card_equals_plain_plane_and_python(cuda, monkeypatch, mode):
+    """S = 4 groups, K = 8,192: the plane on the card, the same plane on
+    the CPU (the plain PyTorch path) and the Python-int product agree; the
+    fold launches its mode's kernels only, 14 mont_mul launches in mode 0
+    (11 local levels, 2 tail levels, the fix)."""
+    from dds_tpu_torch.resident import ResidentPlane
+
+    monkeypatch.setenv("DDS_KARATSUBA", mode)
+    ctx = _n2_ctx()
+    ops = _ints(ctx, 8192, 80)
+    parts = [(f"s{g}", ops[g * 2048: (g + 1) * 2048]) for g in range(4)]
+    card = CudaBackend(min_device_batch=0).resident_plane(256, 65536)
+    want = 1
+    for c in ops:
+        want = want * c % ctx.n
+    assert card.fold_groups(parts, ctx.n) == want  # ingest
+    torch.cuda.synchronize()
+    before = {k: c.value for k, c in mont_cuda.LAUNCHES.items()}
+    assert card.fold_groups(parts, ctx.n) == want
+    torch.cuda.synchronize()
+    launched = {k: c.value - before[k] for k, c in mont_cuda.LAUNCHES.items()}
+    assert {k for k, v in launched.items() if v} == MODE_FOLD_KERNELS[mode]
+    if mode == "0":
+        assert launched["mont_mul"] == 14
+    assert all(p.device.type == "cuda" for p in (card.pool(g, ctx.n) for g, _ in parts))
+    plain = ResidentPlane(device="cpu", initial_rows=256, max_rows=65536)
+    small = [(g, o[:96]) for g, o in parts]  # the plain path at a CPU-sized width
+    assert plain.fold_groups(small, ctx.n) == card.fold_groups(small, ctx.n)
+
+
+def test_eviction_on_card_spills_the_host_rows(cuda):
+    """An eviction wave on a cuda pool spills (cipher, uint32 row) pairs
+    equal to the host conversion of each cipher, and the compacted
+    buffer on the card holds the survivors in index order."""
+    from dds_tpu_torch.resident import ResidentPool
+
+    ctx = _n2_ctx()
+    spilled = []
+    pool = ResidentPool(ctx.n, initial_rows=64, max_rows=256, device="cuda",
+                        spill=spilled.extend)
+    waves = [_ints(ctx, 96, 90 + i) for i in range(4)]
+    for w in waves:
+        assert pool.ingest(w) == 96
+    assert pool.resets == 0 and pool.epoch > 0 and spilled
+    for c, row in spilled:
+        assert row.dtype == np.uint32 and row.shape == (ctx.L,)
+        np.testing.assert_array_equal(row, bn.int_to_limbs(c, ctx.L))
+    survivors = sorted(pool._index, key=pool._index.get)
+    assert pool._buf.device.type == "cuda"
+    np.testing.assert_array_equal(bn.to_host(pool._buf[: pool.resident]),
+                                  bn.ints_to_batch(survivors, ctx.L))
+    everything = [c for w in waves for c in w]
+    assert set(everything) == set(survivors) | {c for c, _ in spilled}
+    assert pool.fold(waves[-1]) == _pyfold(waves[-1], ctx.n)
+
+
+def _pyfold(cs, n):
+    acc = 1
+    for c in cs:
+        acc = acc * c % n
+    return acc
+
+
+def test_stratum_streamed_leg_on_card(cuda, tmp_path):
+    """A tiered fold on a cuda plane: the resident leg and the streamed
+    warm, cold and direct legs (mont_cuda.reduce_mul on the card) merge to
+    the Python-int product, with no reset."""
+    from dds_tpu_torch.storage import Stratum
+
+    ctx = _n2_ctx()
+    plane = CudaBackend(min_device_batch=0).resident_plane(64, 256)
+    stratum = Stratum(plane, tmp_path, warm_bytes=64 * ctx.L * 4, chunk_rows=64)
+    pop = _ints(ctx, 1024, 95)
+    before = mont_cuda.launches.value
+    assert stratum.fold_groups([("g", pop)], ctx.n) == _pyfold(pop, ctx.n)
+    tail = pop[-200:]
+    assert stratum.fold_groups([("g", tail)], ctx.n) == _pyfold(tail, ctx.n)
+    torch.cuda.synchronize()
+    assert mont_cuda.launches.value > before
+    s = stratum.stats()
+    assert s["cold_reads"] > 0 and s["tiers"]["cold"]["rows"] > 0
+    assert plane.pool("g", ctx.n).resets == 0
