@@ -7,7 +7,8 @@ family, coalesced small SumAlls, the client's bulk encryption (full-width
 obfuscators r^n mod n^2 from the modexp kernel) feeding PutSets into that
 stack, MultAll over RSA-1024 ciphertexts (L = 64) in each family, the
 generated mixed workload over every data route, the resident plane's fused
-multi-group folds and write-path ingest, and Stratum's tiered folds — and
+multi-group folds and write-path ingest, Stratum's tiered folds, and
+Prism's encrypted analytics (MatVec, WeightedSum, GroupBySum) — and
 holds every CUDA
 kernel on them against its plain PyTorch version. Phases, each printing
 one JSON line; any failure exits non-zero:
@@ -72,7 +73,18 @@ one JSON line; any failure exits non-zero:
               DDS_KARATSUBA=1 and =2, every result the mode-0 ciphertext.
               Launch counters are zeroed just before and read just after
               each mode, which must launch its own fold kernels and no
-              others;
+              others. Then, on the same stack and its K records, the
+              analytics requests (benchmarks/analytics_matvec.py's R x K,
+              16-bit weights) in modes 0, 1 and 2: MatVec (R = 16, D = 4
+              digits), WeightedSum (one row) and GroupBySum (16 groups
+              splitting the keys, D = 1), and in mode 0 a signed MatVec
+              (R = 4, weights in (-2^16, 2^16): full-width n - |w|
+              exponents, D = 512); each decrypting to W @ x, modes 1 and 2
+              equal to mode 0, each mode's own kernels only, mode 0's
+              mont_mul launches the ladders' count (88 a D = 4 request at
+              K = 8,192, 9,232 the signed one); a 512-column slice against
+              the host loop, bit for bit; the ladder alone, device and
+              dispatch ms, beside its plain version and its bound;
 12. coalesce  a fresh stack with K = 128 rows (below min_device_batch) and
               the 2 ms window: 3 rounds of 16 concurrent SumAlls, each
               decrypting to the total, at least one `fold_many` pass of 2 or
@@ -112,7 +124,9 @@ one JSON line; any failure exits non-zero:
               fold past the cap: one reset, still exact; a REST stack with
               [resident] on: SumAll in each mode through the plane, then 256
               PutSets ingested off the request path and a SumAll that ingests
-              0 rows on the fold path;
+              0 rows on the fold path; before those writes, one MatVec whose
+              operands gather once through the plane's `rows_for`, equal to
+              the marshaling path's weighted fold and decrypting to W @ x;
 17. tiered    Stratum (configs/stratum.toml's [resident] and [storage],
               benchmarks/tiered_fold.py): 2 groups, max-rows 4,096, a
               population of 10 x max-rows per group, warm-bytes cut to
@@ -124,7 +138,8 @@ one JSON line; any failure exits non-zero:
               SumAll through a [resident] + [storage] stack;
 18. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
-              launch); then the card's name and power limit; then the
+              launch; the analytics requests' launches are the paths
+              "analytics" and "analytics_rest"); then the card's name and power limit; then the
               result line.
 
     python3 chip_smoke.py              # on the card (needs one GPU)
@@ -1099,6 +1114,9 @@ async def phase_e2e(dev, sizes) -> dict:
     cfg = DDSConfig()
     cfg.proxy.device = dev.type
     cfg.proxy.min_device_batch = 0
+    # GroupBySum over every record names K SHA-512 keys: 1,073,152 bytes of
+    # JSON at K = 8,192, past the default 1 MiB analytics body cap
+    cfg.analytics.max_request_bytes = 2 << 20
     saved = os.environ.get("DDS_KARATSUBA")
     os.environ["DDS_KARATSUBA"] = "0"
     reset_counts()  # the main path's run starts here
@@ -1153,6 +1171,7 @@ async def phase_e2e(dev, sizes) -> dict:
                 "launches": counts,
                 "same_ciphertext_as_mode_0": True,
             }
+        analytics = await phase_analytics(dev, sizes, port, key, rows)
     finally:
         if saved is None:
             os.environ.pop("DDS_KARATSUBA", None)
@@ -1179,7 +1198,206 @@ async def phase_e2e(dev, sizes) -> dict:
                                for m in ("0", "1", "2")},
     }
     emit("e2e", **rec)
+    rec["analytics"] = analytics
     return rec
+
+
+def analytics_work(ctx, K: int, R: int, D: int) -> tuple[float, float]:
+    """(integer multiply-adds, bytes) of one weighted fold of K operands,
+    R rows and D digits: 15 P2 + D Rp (P2 + 4) + Rp CIOS products (the
+    entry and the table over P2 columns; per digit 4 squarings over Rp,
+    the tree's Rp (P2 - 1) and one multiply into the accumulator over Rp;
+    the exit) of 2W^2 + W word products, 2 IMADs each; the K operand rows
+    and the (D, P2 Rp) int32 gather index read once, R rows written."""
+    P2 = 1 << max(0, (K - 1).bit_length())
+    Rp = 1 << max(0, (R - 1).bit_length())
+    products = 15 * P2 + D * Rp * (P2 + 4) + Rp
+    return (products * (2 * ctx.W * ctx.W + ctx.W) * 2,
+            (K * ctx.L + D * P2 * Rp + R * ctx.L) * 4)
+
+
+def analytics_requests(keys: list, rng, R: int, signed: bool = False) -> dict:
+    """The phase's requests over K columns: name -> (route, body, weight
+    rows as the plaintext W). MatVec: R rows of 16-bit weights
+    (analytics_matvec.py's default), or signed ones in (-2^16, 2^16);
+    WeightedSum: one 16-bit row; GroupBySum: R groups that split the keys
+    (0/1 selectors)."""
+    K = len(keys)
+    if signed:
+        W = rng.integers(-(1 << 16) + 1, 1 << 16, size=(R, K)).tolist()
+        return {"matvec_signed": ("MatVec", {"weights": W}, W)}
+    W = rng.integers(0, 1 << 16, size=(R, K)).tolist()
+    row = rng.integers(0, 1 << 16, size=K).tolist()
+    groups = {f"g{g:02d}": keys[g::R] for g in range(R)}
+    G = [[int(i % R == g) for i in range(K)] for g in range(R)]
+    return {"matvec": ("MatVec", {"weights": W}, W),
+            "weighted_sum": ("WeightedSum", {"weights": row}, [row]),
+            "groupby": ("GroupBySum", {"groups": groups}, G)}
+
+
+async def analytics_call(port: int, route: str, nsquare: int, body: dict) -> tuple[dict, float]:
+    """One analytics request over the PSSE column; (answer, host ms)."""
+    from dds_tpu_torch.http.miniserver import http_request
+
+    data = json.dumps(body, separators=(",", ":")).encode()
+    t = time.perf_counter()
+    status, resp = await http_request("127.0.0.1", port, "POST",
+                                      f"/{route}?position={PSSE_POS}&nsqr={nsquare}", data,
+                                      timeout=300.0)
+    ms = (time.perf_counter() - t) * 1e3
+    if status != 200:
+        raise AssertionError(f"/{route} failed: {status} {resp[:200]!r}")
+    return json.loads(resp), ms
+
+
+def analytics_results(answer: dict) -> list[int]:
+    res = answer["result"]
+    if isinstance(res, dict):
+        return [int(res[g]) for g in sorted(res)]
+    return [int(c) for c in (res if isinstance(res, list) else [res])]
+
+
+async def phase_analytics(dev, sizes, port: int, key, rows) -> dict:
+    """Prism on the e2e phase's stack, over its K stored Paillier-2048
+    records (column PSSE_POS, plaintexts 1..K): in modes 0, 1 and 2, a
+    MatVec of `analytics_R` rows of 16-bit weights (D = 4 digits), a
+    WeightedSum of one such row and a GroupBySum of `analytics_R` groups
+    splitting the keys (D = 1); then in mode 0 a signed MatVec of
+    `analytics_signed_R` rows in (-2^16, 2^16), whose n - |w| exponents
+    are full width (D = 512 at 2048 bits). Every result must decrypt to
+    W @ x over the plaintexts, modes 1 and 2 must return mode 0's
+    ciphertexts, each mode must launch its own fold kernels and no others
+    (counts zeroed before and read after each mode), and mode 0's
+    `mont_mul` launches must equal the ladders' 1 + 14 + D (4 + log2 P2 +
+    1) + 1 each. Per request: the host ms, the
+    `kernel.fold_weighted.{dispatch,execute}` ms, D, the launches, the
+    gather's bytes. Then on a `analytics_slice`-column slice with R rows:
+    the card's `fold_weighted` against the host loop `_host_matvec`, bit
+    for bit, and the ladder alone with the stream held (device ms, host
+    dispatch ms), beside its plain version (the same ladder on the plain
+    PyTorch product, `ctx.mont_mul`, on the card) and beside its bound;
+    and the ladder alone at the full K and at the signed request's shape,
+    each with the stream held three times as long as it takes to queue."""
+    import os
+
+    import torch
+    from dds_tpu_torch.models.backend import _host_matvec
+    from dds_tpu_torch.ops import bignum as bn
+    from dds_tpu_torch.ops import foldmany, mont_cuda
+    from dds_tpu_torch.ops.montgomery import ModCtx
+    from dds_tpu_torch.utils import sigs
+    from dds_tpu_torch.utils.trace import tracer
+
+    t_phase = time.perf_counter()
+    pk = key.public
+    n2 = pk.nsquare
+    ctx = ModCtx.make(n2)
+    by_key = {sigs.key_from_set(r): (i + 1, r[PSSE_POS]) for i, r in enumerate(rows)}
+    keys = sorted(by_key)
+    xs = [by_key[k][0] for k in keys]
+    cs = [by_key[k][1] for k in keys]
+    K, R = len(keys), sizes["analytics_R"]
+    rng = np.random.default_rng(21)
+    requests = analytics_requests(keys, rng, R)
+    requests_signed = analytics_requests(keys, rng, sizes["analytics_signed_R"], signed=True)
+    P2 = 1 << max(0, (K - 1).bit_length())
+    card = card_numbers(dev)
+    out = {"K": K, "L": ctx.L, "requests": {}, "modes": {}}
+    first = {}
+    for mode in ("0", "1", "2"):
+        os.environ["DDS_KARATSUBA"] = mode
+        todo = dict(requests, **(requests_signed if mode == "0" else {}))
+        reset_counts()  # this mode's requests start here
+        expected = 0
+        for name, (route, body, W) in todo.items():
+            tracer.reset()
+            answer, host_ms = await analytics_call(port, route, n2, body)
+            if route != "GroupBySum" and answer["keys"] != keys:
+                raise AssertionError(f"{name}: the echoed keys are not the sorted column")
+            got = analytics_results(answer)
+            want = [sum(w * x for w, x in zip(r, xs)) for r in W]
+            if [key.decrypt_signed(c) for c in got] != want:
+                raise AssertionError(f"{name} (DDS_KARATSUBA={mode}) does not decrypt to W @ x")
+            if mode == "0":
+                first[name] = got
+            elif got != first[name]:
+                raise AssertionError(f"{name} (DDS_KARATSUBA={mode}) != mode 0's ciphertexts")
+            D = max(1, -(-max(w % pk.n for r in W for w in r).bit_length() // 4))
+            launches = foldmany.fold_weighted_launches(K, D)
+            expected += launches
+            spans = tracer.summary()
+            Rp = 1 << max(0, (len(W) - 1).bit_length())
+            if mode == "0":
+                imads, nbytes = analytics_work(ctx, K, len(W), D)
+                bms, by = bound_ms(imads, nbytes, card["sms"], card["clock_mhz"])
+                out["requests"][name] = {
+                    "route": route, "R": len(W), "D": D, "mul_calls": launches,
+                    "gather_bytes": ctx.L * P2 * Rp * 4, "table_bytes": 16 * ctx.L * P2 * 4,
+                    "index_bytes": D * P2 * Rp * 4, "bound_ms": bms, "bound_by": by,
+                    "host_ms": {}, "dispatch_ms": {}, "execute_ms": {}}
+            rq = out["requests"][name]
+            rq["host_ms"][mode] = host_ms
+            rq["dispatch_ms"][mode] = spans["kernel.fold_weighted.dispatch"]["mean_ms"]
+            rq["execute_ms"][mode] = spans["kernel.fold_weighted.execute"]["mean_ms"]
+        counts = check_mode_launches(dev, read_counts(dev), mode, "analytics")
+        # every `mul` is one launch of each of its mode's kernels
+        if dev.type == "cuda" and any(counts[k] != expected for k in MODE_KERNELS[mode]):
+            raise AssertionError(f"analytics DDS_KARATSUBA={mode}: {counts}, expected "
+                                 f"{expected} launches of each of {sorted(MODE_KERNELS[mode])}")
+        out["modes"][mode] = {"launches": counts, "expected_per_kernel": expected}
+    os.environ["DDS_KARATSUBA"] = "0"
+
+    # a slice against the host loop, and the ladder alone, timed
+    S = min(sizes["analytics_slice"], K)
+    W = requests["matvec"][2]
+    sub = [r[:S] for r in W]
+    got = foldmany.fold_weighted(cs[:S], sub, n2, device=dev)
+    if got != _host_matvec(cs[:S], sub, n2):
+        raise AssertionError(f"fold_weighted on a {S}-column slice != the host loop")
+    timing = {}
+    signed = [[w % pk.n for w in r] for r in requests_signed["matvec_signed"][2]]
+    for width, cols, Wt in (("slice", S, W), ("full", K, W), ("signed", K, signed)):
+        P2w = 1 << max(0, (cols - 1).bit_length())
+        Rp = 1 << max(0, (len(Wt) - 1).bit_length())
+        x = torch.zeros((ctx.L, P2w), dtype=torch.int32, device=dev)
+        x[:, :cols] = bn.to_device(bn.ints_to_batch(cs[:cols], ctx.L), dev).T
+        x[0, cols:] = 1
+        idx = torch.from_numpy(foldmany._table_columns([r[:cols] for r in Wt], P2w, Rp)).to(dev)
+        kernel = lambda: foldmany.weighted_ladder(
+            ctx, x, idx, Rp, lambda a, b: mont_cuda.mul(ctx, a, b, False))
+        kernel()
+        sync(dev)
+        t = time.perf_counter()
+        kernel()
+        queued_ms = (time.perf_counter() - t) * 1e3
+        sync(dev)
+        # hold the stream 3x as long as one call takes to queue, so the
+        # events read the device alone; one call a hold, three holds
+        cycles = max(100_000_000, int(3 * queued_ms * card["clock_mhz"] * 1e3))
+        held = [held_ms(kernel, 1, dev, cycles) for _ in range(3)]
+        dev_ms, dispatch_ms = min(h[0] for h in held), statistics.median(h[1] for h in held)
+        imads, nbytes = analytics_work(ctx, cols, len(Wt), idx.shape[0])
+        bms, by = bound_ms(imads, nbytes, card["sms"], card["clock_mhz"])
+        rec = {"K": cols, "R": len(Wt), "D": idx.shape[0], "device_ms": dev_ms,
+               "device_ms_runs": [h[0] for h in held], "dispatch_ms": dispatch_ms,
+               "queued_ms": queued_ms,
+               "hold_ms": cycles / (card["clock_mhz"] * 1e3), "bound_ms": bms,
+               "bound_by": by, "launches": foldmany.fold_weighted_launches(cols, idx.shape[0])}
+        if width == "slice":
+            plain = lambda: foldmany.weighted_ladder(
+                ctx, x, idx, Rp, lambda a, b: ctx.mont_mul(a.T, b.T).T.contiguous())
+            t = time.perf_counter()
+            pout = plain()
+            sync(dev)
+            rec["plain_ms"] = (time.perf_counter() - t) * 1e3
+            if not torch.equal(pout, kernel()):
+                raise AssertionError("the weighted ladder != its plain version")
+            rec["max_abs_err"] = 0
+        timing[width] = rec
+    out["ladder"] = timing
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("analytics", **out)
+    return out
 
 
 async def phase_coalesce(dev, sizes) -> dict:
@@ -1639,13 +1857,13 @@ async def phase_mixed(dev, sizes) -> dict:
     return rec
 
 
-def held_ms(fn, reps: int, dev) -> tuple[float, float]:
+def held_ms(fn, reps: int, dev, cycles: int = 100_000_000) -> tuple[float, float]:
     """(device ms, host dispatch ms) per call of `fn`: the stream is held
-    (`torch.cuda._sleep`, ~50 ms) while the host queues `reps` calls
-    between two CUDA events, so the events read the device's time alone
-    and the host clock around the loop reads the dispatch alone. One
-    warm-up call first. On the CPU (rehearsal) both are host clock
-    readings."""
+    (`torch.cuda._sleep(cycles)`, ~50 ms by default) while the host queues
+    `reps` calls between two CUDA events, so the events read the device's
+    time alone and the host clock around the loop reads the dispatch
+    alone, as long as the hold outlasts the dispatch. One warm-up call
+    first. On the CPU (rehearsal) both are host clock readings."""
     import torch
 
     fn()
@@ -1657,7 +1875,7 @@ def held_ms(fn, reps: int, dev) -> tuple[float, float]:
         ms = (time.perf_counter() - t) * 1e3 / reps
         return ms, ms
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
+    torch.cuda._sleep(cycles)
     t0.record()
     t = time.perf_counter()
     for _ in range(reps):
@@ -1883,6 +2101,7 @@ async def resident_rest(dev, sizes, key) -> dict:
                                               "kernel.resident_fold.execute")},
             }
         os.environ["DDS_KARATSUBA"] = "0"
+        rec["matvec"] = await resident_matvec(dev, sizes, server, key, rows[:K])
         # writes after the pool exists: ingested off the request path
         t = time.perf_counter()
         await put_rows(port, rows[K:])
@@ -1905,6 +2124,56 @@ async def resident_rest(dev, sizes, key) -> dict:
     finally:
         await dep.stop()
     return rec
+
+
+async def resident_matvec(dev, sizes, server, key, rows) -> dict:
+    """One MatVec (`analytics_R` rows of 16-bit weights, mode 0) on the
+    `[resident]` stack after its SumAlls: its operands must gather through
+    `ResidentPlane.rows_for` once, from the pool the SumAlls filled; the
+    answer must decrypt to W @ x and equal the same request's weighted
+    fold on the marshaling path (`CudaBackend.matvec` without rows, what a
+    stack without `[resident]` runs on the same column); its `mont_mul`
+    launches must be the ladder's."""
+    from dds_tpu_torch.models.backend import CudaBackend
+    from dds_tpu_torch.ops import foldmany
+    from dds_tpu_torch.ops.montgomery import ModCtx
+    from dds_tpu_torch.utils import sigs
+
+    pk = key.public
+    n2 = pk.nsquare
+    by_key = {sigs.key_from_set(r): (i + 1, r[PSSE_POS]) for i, r in enumerate(rows)}
+    keys = sorted(by_key)
+    xs = [by_key[k][0] for k in keys]
+    cs = [by_key[k][1] for k in keys]
+    W = analytics_requests(keys, np.random.default_rng(22), sizes["analytics_R"])["matvec"][2]
+    plane = server._resident
+    gathers = []
+    real = plane.rows_for
+
+    def counting(*args, **kw):
+        got = real(*args, **kw)
+        gathers.append(None if got is None else tuple(got.shape))
+        return got
+
+    plane.rows_for = counting
+    reset_counts()  # the MatVec's launches start here
+    try:
+        answer, host_ms = await analytics_call(server.cfg.port, "MatVec", n2, {"weights": W})
+    finally:
+        del plane.rows_for
+    counts = check_mode_launches(dev, read_counts(dev), "0", "resident MatVec")
+    got = analytics_results(answer)
+    if [key.decrypt_signed(c) for c in got] != [sum(w * x for w, x in zip(r, xs)) for r in W]:
+        raise AssertionError("the resident MatVec does not decrypt to W @ x")
+    if gathers != [(len(keys), ModCtx.make(n2).L)]:
+        raise AssertionError(f"the resident MatVec gathered {gathers}, not once through rows_for")
+    if got != CudaBackend(device=dev, min_device_batch=0).matvec(cs, W, n2):
+        raise AssertionError("the resident MatVec != the marshaling path's weighted fold")
+    expected = foldmany.fold_weighted_launches(len(keys), 4)
+    if dev.type == "cuda" and counts["mont_mul"] != expected:
+        raise AssertionError(f"resident MatVec launched {counts}, expected {expected} mont_mul")
+    return {"R": len(W), "K": len(keys), "host_ms": host_ms, "gathers": len(gathers),
+            "launches": counts, "equals_marshaling_path": True, "decrypt_ok": True}
 
 
 def zipf_draws(rng, head: list[int], k: int, theta: float) -> list[int]:
@@ -2378,6 +2647,9 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   resident_groups=4, resident_initial=256, resident_max=65536,
                   resident_S=[1, 4], resident_K=[8192, 65536], resident_reps=3,
                   resident_new=256,
+                  # analytics_matvec.py's R; the signed request's R; the slice
+                  # held against the host loop
+                  analytics_R=16, analytics_signed_R=4, analytics_slice=512,
                   # configs/stratum.toml's [resident] and [storage]; tiered_fold.py's
                   # pop-factor and theta
                   tier_groups=2, tier_max=4096, tier_chunk=256, tier_promote=2.0,
@@ -2424,7 +2696,8 @@ def main(argv=None) -> int:
                      mixed_preload=64, mixed_clients=2, mixed_ops=40, mixed_seed=7,
                      resident_groups=4, resident_initial=16, resident_max=1024,
                      resident_S=[1, 4], resident_K=[64, 256], resident_reps=1,
-                     resident_new=16, tier_groups=2, tier_max=32, tier_chunk=16,
+                     resident_new=16, analytics_R=16, analytics_signed_R=4,
+                     analytics_slice=64, tier_groups=2, tier_max=32, tier_chunk=16,
                      tier_promote=2.0, tier_max_promote=16, tier_pop_factor=10,
                      tier_head=32, tier_K=256, tier_theta=0.9, tier_reps=2,
                      tier_warmup=3, tier_top=4)
@@ -2476,6 +2749,9 @@ def main(argv=None) -> int:
         "replaces": "dds_tpu/ops/mont_mxu.py:119",
         "tpu_twin": "mont_mxu._make_prod_kernel + _redc (v2); pallas_mont._make_mul_kernel (v1)",
         "launches_by_path": {"sumall": e2e["launches"],
+                             "analytics": e2e["analytics"]["modes"]["0"]["launches"]["mont_mul"],
+                             "analytics_rest":
+                                 resident["rest"]["matvec"]["launches"]["mont_mul"],
                              "multall": multall["modes"]["0"]["launches"]["mont_mul"],
                              "mixed": mixed["mont_mul_launches"],
                              "resident": resident["modes"]["0"]["launches"]["mont_mul"],
@@ -2512,6 +2788,7 @@ def main(argv=None) -> int:
     # each Karatsuba kernel's launches on the SumAll e2e run, MultAll's run,
     # the resident plane's folds and SumAlls and the tiered folds, in its mode
     k1, kf = ({k: {"sumall": e2e["karatsuba_modes"][m]["launches"][k],
+                   "analytics": e2e["analytics"]["modes"][m]["launches"][k],
                    "multall": multall["modes"][m]["launches"][k],
                    "resident": resident["modes"][m]["launches"][k],
                    "resident_rest": resident["rest"]["modes"][m]["launches"][k],

@@ -49,7 +49,7 @@ class Response:
 
 
 _REASONS = {
-    200: "OK", 400: "Bad Request", 404: "Not Found",
+    200: "OK", 400: "Bad Request", 404: "Not Found", 413: "Payload Too Large",
     500: "Internal Server Error", 503: "Service Unavailable",
 }
 

@@ -18,7 +18,12 @@ data routes with its parameters, JSON shapes and status codes:
 - `GET /OrderLS`, `GET /OrderSL`, `POST /SearchEq`, `/SearchNEq`,
   `/SearchGt`, `/SearchGtEq`, `/SearchLt`, `/SearchLtEq`, `/Range`,
   `/SearchEntry`, `/SearchEntryOR`, `/SearchEntryAND`: the reference's
-  legacy scans over every stored record, paged by `offset`/`limit`.
+  legacy scans over every stored record, paged by `offset`/`limit`;
+- `POST /MatVec`, `/WeightedSum` and `/GroupBySum` (`position`, `nsqr`):
+  Prism's encrypted analytics (`analytics/`), Enc(W @ x) over column p of
+  every stored record for a plaintext weight matrix, one row, or 0/1
+  group selectors, on the backend's weighted fold; on by default
+  (`analytics_enabled`), 413 past `analytics_max_request_bytes`.
 
 Concurrent aggregates whose folds each sit below the backend's
 `min_device_batch` coalesce per modulus: they wait `coalesce_window`
@@ -55,6 +60,7 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
+from dds_tpu_torch.analytics import Prism
 from dds_tpu_torch.core.errors import ByzantineError
 from dds_tpu_torch.core.quorum_client import AbdClient
 from dds_tpu_torch.http import json_protocol as J
@@ -62,6 +68,7 @@ from dds_tpu_torch.http.miniserver import HttpServer, Request, Response
 from dds_tpu_torch.models.backend import CryptoBackend, get_backend
 from dds_tpu_torch.models.det import DetKey
 from dds_tpu_torch.obs import context as obs_context
+from dds_tpu_torch.ops.flags import analytics_max_rows
 from dds_tpu_torch.resident import ResidentPlane
 from dds_tpu_torch.storage import Stratum
 from dds_tpu_torch.utils import sigs
@@ -118,6 +125,13 @@ class ProxyConfig:
     # the plain host path, so the window only costs latency when there is
     # something to gain. 0 disables.
     coalesce_window: float = 0.002
+    # Prism's routes (POST /MatVec, /WeightedSum, /GroupBySum): the row cap
+    # bounds one request's kernel work (DDS_ANALYTICS_MAX_ROWS overrides
+    # it; ops/flags.analytics_max_rows validates whichever wins); the byte
+    # cap answers 413 before the body is parsed
+    analytics_enabled: bool = True
+    analytics_max_rows: int = 256
+    analytics_max_request_bytes: int = 1 << 20
     # the resident plane (a utils.config.ResidentConfig; None = off) and
     # Stratum under it (a utils.config.StorageConfig; needs the plane)
     resident: object = None
@@ -210,6 +224,16 @@ class DDSRestServer:
                 max_promote=stcfg.max_promote, half_life=stcfg.half_life,
                 keep=stcfg.keep, compact_segments=stcfg.compact_segments,
             )
+        # Prism: the same backend and public-parameter boundary, and the
+        # resident plane, so MatVec operands gather from its pool
+        self.prism: Prism | None = None
+        if self.cfg.analytics_enabled:
+            self.prism = Prism(
+                backend=self.backend,
+                max_rows=analytics_max_rows(self.cfg.analytics_max_rows),
+                resident=self._resident,
+            )
+        self._column_memo: tuple | None = None  # pairs identity -> columns
         self._http = HttpServer(self.cfg.host, self.cfg.port, self.handle,
                                 handler_timeout=self.cfg.handler_timeout)
 
@@ -636,6 +660,12 @@ class DDSRestServer:
                 "SearchEntryAND",
             ):
                 return await self._entry_route(name, req)
+
+            case ("POST", "MatVec") | ("POST", "WeightedSum") | (
+                "POST",
+                "GroupBySum",
+            ) if self.prism is not None:
+                return await self._analytics(name, req)
         return Response(404)
 
     # ------------------------------------------------------- search routes
@@ -797,6 +827,58 @@ class DDSRestServer:
             for o in operands:
                 result *= o
         return Response.json(J.value_result(str(result)))
+
+    # -------------------------------------------------- Prism analytics routes
+
+    def _columns(self, pairs, pos: int) -> tuple[list[str], list[int]]:
+        """(keys, ciphertexts) of every stored record holding position
+        `pos`, in sorted-key order: the operand column order the analytics
+        routes expose (and echo back as `keys`, so clients can line their
+        weight matrices up). Memoized per pairs identity like the flat
+        operand memo, so the resident pool's row-index memo holds too."""
+        memo = self._column_memo
+        if memo is not None and memo[0] is pairs and memo[1] == pos:
+            return memo[2], memo[3]
+        keys = [k for k, v in pairs if pos < len(v)]
+        ciphers = [int(v[pos]) for _, v in pairs if pos < len(v)]
+        self._column_memo = (pairs, pos, keys, ciphers)
+        return keys, ciphers
+
+    async def _analytics(self, name: str, req: Request) -> Response:
+        """`MatVec` / `WeightedSum` / `GroupBySum`: server-side Enc(W @ x)
+        over the stored records' position-`pos` ciphertexts
+        (`analytics/prism.py`). Validation failures raise ValueError (400
+        in handle()); the body-size cap answers 413 before the JSON parse,
+        so an oversized weight blob never costs one."""
+        cap = self.cfg.analytics_max_request_bytes
+        if cap > 0 and len(req.body) > cap:
+            return Response(
+                413,
+                f"analytics request body exceeds {cap} bytes".encode(),
+            )
+        pos = self._pos(req)
+        n, n2 = self.prism.parse_nsqr(req.query["nsqr"])
+        pairs = await self._fetch_stored()
+        keys, ciphers = self._columns(pairs, pos)
+        if not ciphers:
+            return Response(404)
+        body = req.json()
+        labels = None
+        if name == "MatVec":
+            rows = J.parse_weight_matrix(body)
+        elif name == "WeightedSum":
+            rows = [J.parse_weight_row(body)]
+        else:  # GroupBySum: 0/1 selector rollups over record keys
+            labels, rows = self.prism.selector_rows(J.parse_groups(body), keys)
+        encoded = self.prism.encode_weights(rows, n, cols=len(ciphers))
+        out = await self.prism.evaluate(name, ciphers, encoded, n2)
+        if name == "WeightedSum":
+            return Response.json({"result": str(out[0]), "keys": keys})
+        if labels is not None:
+            return Response.json(
+                {"result": {lb: str(c) for lb, c in zip(labels, out)}}
+            )
+        return Response.json({"result": [str(c) for c in out], "keys": keys})
 
     def _owner_operands(self, pairs, pos: int) -> list[tuple[str, list[int]]]:
         """Aggregate operands partitioned by owning shard group, with the

@@ -1,7 +1,8 @@
 """Ciphertext-arithmetic backends: `cpu` (python ints) and `cuda`.
 
 Port of `dds_tpu/models/backend.py`, trimmed to the surface the ported
-paths use: the SumAll fold and the client's batched modexp. The proxy performs its ciphertext math through this
+paths use: the aggregate folds, the client's batched modexp and Prism's
+weighted folds (`matvec`). The proxy performs its ciphertext math through this
 interface using only PUBLIC parameters (Paillier n^2): every modulus
 handed to a backend lands in `ModCtx.make`'s process-wide cache, so
 secret moduli must never enter.
@@ -18,6 +19,8 @@ Python-int modmuls beat the launch latency of a tree of kernels;
 one shared-exponent ladder (`ops/mont_cuda.pow_mod`: the exp kernel
 between two multiply launches) over the whole batch; its caller decides
 when a batch is wide enough (`PaillierPublicKey.blind_batch`'s min_batch).
+`matvec` runs one weighted fold (`ops/foldmany.fold_weighted`) when the
+request's R x K cells reach `min_device_batch`, the host loop below it.
 The reference's mesh branch is not ported: one device only.
 """
 
@@ -54,12 +57,31 @@ class CryptoBackend(Protocol):
 
     def powmod_batch(self, bases: list[int], exp: int, modulus: int) -> list[int]: ...
 
+    def matvec(self, cs: list[int], weights: list[list[int]], modulus: int,
+               rows: object = None) -> list[int]: ...
+
 
 def _host_fold(cs: list[int], modulus: int) -> int:
     acc = 1
     for c in cs:
         acc = acc * c % modulus
     return acc
+
+
+def _host_matvec(cs: list[int], weights: list[list[int]], modulus: int) -> list[int]:
+    """Per-row weighted fold on host ints: out[r] = prod_k cs[k]^w[r][k]
+    mod modulus, skipping zero weights (GroupBySum's selector rows are
+    mostly zeros). The below-crossover path of every backend; the
+    reference runs it on its C++ host bignum, which is not ported, so
+    this is Python's `pow` (the same values)."""
+    out = []
+    for row in weights:
+        acc = 1
+        for c, w in zip(cs, row):
+            if w:
+                acc = acc * pow(c, w, modulus) % modulus
+        out.append(acc)
+    return out
 
 
 class CpuBackend:
@@ -77,6 +99,12 @@ class CpuBackend:
 
     def powmod_batch(self, bases: list[int], exp: int, modulus: int) -> list[int]:
         return [pow(b, exp, modulus) for b in bases]
+
+    def matvec(self, cs: list[int], weights: list[list[int]], modulus: int,
+               rows: object = None) -> list[int]:
+        # `rows` (operands gathered on the device) serves the device path
+        # only; the host loop works from the ints
+        return _host_matvec(cs, weights, modulus)
 
 
 class CudaBackend:
@@ -172,6 +200,18 @@ class CudaBackend:
         (`ops/foldmany.fold_many`): the cross-request batching for
         concurrent small aggregates that each sit below min_device_batch."""
         return foldmany.fold_many(folds, modulus, device=self.device)
+
+    def matvec(self, cs: list[int], weights: list[list[int]], modulus: int,
+               rows: torch.Tensor | None = None) -> list[int]:
+        """Plaintext-matrix x ciphertext-vector products (Prism): one
+        weighted fold on the device (`ops/foldmany.fold_weighted`) when the
+        R x K cell count reaches min_device_batch, the host loop below it,
+        where launch latency beats the math as for small aggregates.
+        `rows` optionally gives the operands as (K, L) limbs already
+        gathered on the device from a resident pool."""
+        if len(weights) * len(cs) < self.min_device_batch:
+            return _host_matvec(cs, weights, modulus)
+        return foldmany.fold_weighted(cs, weights, modulus, device=self.device, rows=rows)
 
     def powmod_batch(self, bases: list[int], exp: int, modulus: int) -> list[int]:
         """[b^exp mod modulus for b in bases] in one `mont_cuda.pow_mod`,

@@ -3,10 +3,10 @@
 Copy of `dds_tpu/models/paillier.py`: key generation, encryption (with an
 optional precomputed obfuscator), textbook bulk blinding through a
 backend's batched modexp (`blind_batch`, `encrypt_batch`), the DJN
-short-exponent blinding (`blind_fast`), and CRT decryption, on Python ints
-with the built-in `pow`. The Prism matrix routes and the Sanctum device
-decrypt are not ported: `decrypt_batch` is host-only and refuses any
-backend.
+short-exponent blinding (`blind_fast`), the Prism weight encoding and its
+host reference (`matvec_encode`, `matvec`), and CRT decryption, on Python
+ints with the built-in `pow`. The Sanctum device decrypt is not ported:
+`decrypt_batch` is host-only and refuses any backend.
 
 Math (g = n + 1, so g^m = 1 + m*n mod n^2 needs no modexp):
 
@@ -145,6 +145,50 @@ class PaillierPublicKey:
 
     def scalar_mul(self, c: int, k: int) -> int:
         return pow(c, k, self.nsquare)
+
+    def matvec_encode(self, weights) -> list[list[int]]:
+        """Encode a SIGNED plaintext weight matrix into Paillier exponent
+        residues for ciphertext-side evaluation (the Prism analytics
+        plane): Enc(x)^w = Enc(w*x mod n), and a negative weight encodes
+        as n - |w|, an exponent congruent to -|w| mod n, so the signed
+        decode (`PaillierKey.to_signed`) recovers the negative
+        contribution. The REST plane and the weighted fold both take their
+        exponents from here.
+
+        Rejects |w| >= n (not representable as a distinct residue). Each
+        row's plaintext W_r . x must stay in (-n/2, n/2] for the signed
+        decode, the caller's contract as for every Paillier sum. A negative
+        weight's exponent is full n-width: a scalar multiply by -3 costs a
+        ~n-bit modexp, not a 2-bit one."""
+        n = self.n
+        out = []
+        for row in weights:
+            enc = []
+            for w in row:
+                w = int(w)
+                if not -n < w < n:
+                    raise ValueError(
+                        f"weight magnitude {abs(w).bit_length()} bits "
+                        f"exceeds the {n.bit_length()}-bit modulus"
+                    )
+                enc.append(w % n)
+            out.append(enc)
+        return out
+
+    def matvec(self, cs: list[int], weights: list[list[int]]) -> list[int]:
+        """Host reference for Enc(W @ x): per encoded weight row r
+        (`matvec_encode` output), prod_j cs[j]^W[r][j] mod n^2, one modexp
+        per nonzero weight. The batched twin is
+        `ops/foldmany.fold_weighted`; backends pick between them."""
+        n2 = self.nsquare
+        out = []
+        for row in weights:
+            acc = 1
+            for c, w in zip(cs, row, strict=True):
+                if w:
+                    acc = acc * pow(c, w, n2) % n2
+            out.append(acc)
+        return out
 
 
 @dataclass(frozen=True)

@@ -2,9 +2,10 @@
 
 Trimmed copy of `dds_tpu/obs/metrics.py`: the `Registry` (`inc`, `set`,
 `observe`, `value`, `render`, `reset`) and the process-wide `metrics`
-instance. The resident plane, its pools and ingest queue, and Stratum's
-tiers and segment store count into it under the reference's series names
-(`dds_resident_*`, `dds_tier_*`, `dds_queue_*`, `dds_cipher_store_total`),
+instance. The resident plane, its pools and ingest queue, Stratum's tiers
+and segment store, and Prism count into it under the reference's series
+names (`dds_resident_*`, `dds_tier_*`, `dds_queue_*`,
+`dds_cipher_store_total`, `dds_analytics_*`),
 so a sequence of operations leaves the same counter values in both
 packages. The `/metrics` route that serves `render()` comes with the obs
 planes.
@@ -27,7 +28,7 @@ from dataclasses import dataclass, field
 
 __all__ = [
     "Registry", "metrics",
-    "LATENCY_BUCKETS",
+    "LATENCY_BUCKETS", "SIZE_BUCKETS",
     "OVERFLOW_LABEL", "OVERFLOW_COUNTER",
 ]
 
@@ -35,6 +36,8 @@ __all__ = [
 LATENCY_BUCKETS = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
 )
+# element counts: fold widths / batch sizes
+SIZE_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 4096, 16384)
 
 
 def _label_key(labels: dict) -> tuple:

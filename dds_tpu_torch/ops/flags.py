@@ -1,7 +1,8 @@
 """Environment-flag parsing for the kernel layer.
 
-Copy of `karatsuba_mode` in `dds_tpu/ops/flags.py:10-26`: the port keeps
-its own copy rather than importing the reference package.
+Copies of `karatsuba_mode` and `analytics_max_rows` in
+`dds_tpu/ops/flags.py:10-50`: the port keeps its own copies rather than
+importing the reference package.
 """
 
 from __future__ import annotations
@@ -25,3 +26,28 @@ def karatsuba_mode() -> str | bool:
     raise ValueError(
         f"unknown DDS_KARATSUBA value {flag!r} (use 0, 1/k1, or 2/fused)"
     )
+
+
+def analytics_max_rows(default: int = 256) -> int:
+    """Per-request weight-row cap of the Prism analytics routes (MatVec
+    rows, GroupBySum groups): DDS_ANALYTICS_MAX_ROWS when set, else
+    `default` (the `[analytics] max-rows` value). Whichever wins must be an
+    int in [1, 65536], or the proxy fails at construction with an error
+    naming its source instead of answering 500 per request. The ceiling
+    bounds the kernel work one request can demand: rows x columns x
+    exponent-width Montgomery products all scale with it."""
+    env = os.environ.get("DDS_ANALYTICS_MAX_ROWS", "").strip()
+    source = "DDS_ANALYTICS_MAX_ROWS" if env else "[analytics] max-rows"
+    raw = env if env else default
+    try:
+        rows = int(raw)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"{source} must be an integer row count, got {raw!r}"
+        ) from None
+    if not 1 <= rows <= 65536:
+        raise ValueError(
+            f"{source} must be in [1, 65536] (per-request analytics row "
+            f"cap), got {rows}"
+        )
+    return rows

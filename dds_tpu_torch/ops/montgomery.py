@@ -406,8 +406,9 @@ class ModCtx:
 
     def consts(self, device) -> dict:
         """{"N64": (Lp,) int64 limbs, "N32": (W,) int32 words (uint32 bit
-        patterns, the kernel's modulus), "one_mont": (L,) int32} on
-        `device`, built once per device."""
+        patterns, the kernel's modulus), "one_mont" and "R2": (L,) int32}
+        on `device`, built once per device (a copy from the host waits for
+        the stream; these do not)."""
         device = torch.device(device)
         with self._lock:
             c = self._dev.get(device)
@@ -419,6 +420,7 @@ class ModCtx:
                     "N64": torch.from_numpy(n64).to(device),
                     "N32": torch.from_numpy(words.view(np.int32).copy()).to(device),
                     "one_mont": to_device(self.one_mont, device),
+                    "R2": to_device(self.R2, device),
                 }
                 self._dev[device] = c
             return c

@@ -6,7 +6,7 @@ config describes — by default the north-star one of
 recovery off, the in-memory transport, and the proxy on an OS-assigned
 port folding on the `cuda` backend; `[resident]` and `[storage]` reach
 the proxy as their config sections, so Stratum keeps its segment log in
-`[storage] dir`. `load_provider(cfg)` builds the
+`[storage] dir`, and `[analytics]` arms Prism's routes (on by default). `load_provider(cfg)` builds the
 client's HE provider from the `[client]` section: its keys and its bulk
 encryption backend (`bulk-encrypt-backend = "cuda"` precomputes PSSE
 obfuscators with the exp kernel). `run_workload(dep)` drives
@@ -105,6 +105,9 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             device=p.device,
             min_device_batch=p.min_device_batch,
             coalesce_window=p.coalesce_window,
+            analytics_enabled=cfg.analytics.enabled,
+            analytics_max_rows=cfg.analytics.max_rows,
+            analytics_max_request_bytes=cfg.analytics.max_request_bytes,
             resident=cfg.resident,
             storage=cfg.storage,
             search=cfg.search.enabled,

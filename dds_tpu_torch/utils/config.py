@@ -8,8 +8,9 @@ on an OS-assigned port, folds on the `cuda` backend. The `[client]`
 section configures the generated workload (`run.run_workload`: clients,
 operations, proportions and the data table, with the reference's
 defaults), the client's keys and its bulk-encryption backend
-(`run.load_provider`). `[resident]` and `[storage]` configure the
-resident plane and Stratum with the reference's fields and keys. The
+(`run.load_provider`). `[resident]`, `[storage]` and `[analytics]`
+configure the resident plane, Stratum and Prism with the reference's
+fields, keys and defaults. The
 `search` plane and `[crypto] secret-device` are not ported yet: enabling
 one raises instead of silently serving without it. `[client]
 failed-contact-attempts-threshold` is read by no client, so any value but
@@ -125,6 +126,25 @@ class CryptoSettings:
 
 
 @dataclass
+class AnalyticsConfig:
+    """The Prism encrypted-analytics plane (`analytics/`): plaintext-matrix
+    x Paillier-ciphertext-vector products served as REST routes (POST
+    /MatVec, /WeightedSum, /GroupBySum). The proxy sees ciphertexts and the
+    client's PLAINTEXT weights, public parameters only, never keys; a
+    deployment whose query matrix is sensitive should not use these routes.
+    Copy of the reference's `AnalyticsConfig`: the same fields, defaults
+    and keys."""
+
+    enabled: bool = True
+    # per-request weight-row / group cap (bounds the kernel work one
+    # request can demand; DDS_ANALYTICS_MAX_ROWS overrides it, both
+    # validated by ops/flags.analytics_max_rows)
+    max_rows: int = 256
+    # request-body byte cap of the analytics routes (413 beyond; 0 = off)
+    max_request_bytes: int = 1048576
+
+
+@dataclass
 class ResidentConfig:
     """The resident ciphertext plane (`resident/`): per-group
     content-addressed limb pools pinned in device memory, write-path
@@ -194,6 +214,7 @@ class DDSConfig:
     proxy: ProxySettings = field(default_factory=ProxySettings)
     client: ClientSettings = field(default_factory=ClientSettings)
     crypto: CryptoSettings = field(default_factory=CryptoSettings)
+    analytics: AnalyticsConfig = field(default_factory=AnalyticsConfig)
     resident: ResidentConfig = field(default_factory=ResidentConfig)
     storage: StorageConfig = field(default_factory=StorageConfig)
     search: PlaneSwitch = field(default_factory=PlaneSwitch)
@@ -236,6 +257,7 @@ _SUBSECTIONS = {
     ("DDSConfig", "proxy"): ProxySettings,
     ("DDSConfig", "client"): ClientSettings,
     ("DDSConfig", "crypto"): CryptoSettings,
+    ("DDSConfig", "analytics"): AnalyticsConfig,
     ("DDSConfig", "resident"): ResidentConfig,
     ("DDSConfig", "storage"): StorageConfig,
     ("DDSConfig", "search"): PlaneSwitch,

@@ -1,5 +1,6 @@
 """Card-only checks of the Hopper Montgomery kernels: the multiply, the
-modexp and the Karatsuba families' launches.
+modexp, the Karatsuba families' launches, and the folds composed of them
+(`fold_many`, the resident plane's fused fold, Prism's weighted fold).
 
 Marked `gpu`: on a host without a CUDA device every test here skips (the
 decision is made inside the `cuda` fixture, never at import, so every
@@ -614,3 +615,56 @@ def test_stratum_streamed_leg_on_card(cuda, tmp_path):
     s = stratum.stats()
     assert s["cold_reads"] > 0 and s["tiers"]["cold"]["rows"] > 0
     assert plane.pool("g", ctx.n).resets == 0
+
+
+@pytest.mark.parametrize("mode", ["0", "1", "2"])
+@pytest.mark.parametrize("key_bits", [512, 2048])
+def test_fold_weighted_on_card_equals_plain_and_python(cuda, monkeypatch, mode, key_bits):
+    """Prism's weighted fold mod n^2 at L = 64 and 256: K = 37 operands,
+    R = 5 rows (both pads), 16-bit weights, a zero row and one 64-bit
+    weight (D = 16) on the card equal the same call on the CPU (the plain
+    PyTorch path) and the Python-int products."""
+    from dds_tpu_torch.models.backend import _host_matvec
+    from dds_tpu_torch.ops.foldmany import fold_weighted
+
+    monkeypatch.setenv("DDS_KARATSUBA", mode)
+    n2 = bench_paillier_key(key_bits).nsquare
+    ctx = ModCtx.make(n2)
+    assert ctx.L == key_bits // 8
+    cs = _ints(ctx, 37, 81)
+    rng = random.Random(82)
+    weights = [[rng.randrange(1 << 16) for _ in range(37)] for _ in range(5)]
+    weights[3] = [0] * 37
+    weights[1][7] = (1 << 64) - 1
+    got = fold_weighted(cs, weights, n2, device=cuda)
+    assert got == fold_weighted(cs, weights, n2, device="cpu")
+    assert got == _host_matvec(cs, weights, n2)
+    assert got[3] == 1
+
+
+@pytest.mark.parametrize("mode", ["0", "1", "2"])
+def test_fold_weighted_launches_the_ladders_count(cuda, monkeypatch, mode):
+    """One weighted fold at K = 8,192 with 16-bit weights (D = 4) makes
+    1 + 14 + 4 (4 + 13 + 1) + 1 = 88 products: 88 mont_mul launches in
+    mode 0; in modes 1 and 2 each product is its family's launches plus
+    one REDC, 88 of each; no other fold kernel."""
+    from dds_tpu_torch.ops.foldmany import fold_weighted, fold_weighted_launches
+
+    monkeypatch.setenv("DDS_KARATSUBA", mode)
+    n2 = bench_paillier_key(2048).nsquare
+    ctx = ModCtx.make(n2)
+    cs = _ints(ctx, 8192, 83)
+    rng = np.random.default_rng(84)
+    weights = rng.integers(0, 1 << 16, size=(2, 8192)).tolist()
+    weights[0][0] = 0xF000  # the longest weight has 16 bits: D = 4
+    torch.cuda.synchronize()
+    before = {k: c.value for k, c in mont_cuda.LAUNCHES.items()}
+    got = fold_weighted(cs, weights, n2, device=cuda)
+    torch.cuda.synchronize()
+    launched = {k: c.value - before[k] for k, c in mont_cuda.LAUNCHES.items()}
+    assert fold_weighted_launches(8192, 4) == 88
+    assert {k: v for k, v in launched.items() if v} == dict.fromkeys(MODE_FOLD_KERNELS[mode], 88)
+    small = [r[:64] for r in weights]
+    assert fold_weighted(cs[:64], small, n2, device=cuda) == fold_weighted(
+        cs[:64], small, n2, device="cpu")
+    assert len(got) == 2
