@@ -7,9 +7,9 @@ family, coalesced small SumAlls, the client's bulk encryption (full-width
 obfuscators r^n mod n^2 from the modexp kernel) feeding PutSets into that
 stack, MultAll over RSA-1024 ciphertexts (L = 64) in each family, the
 generated mixed workload over every data route, the resident plane's fused
-multi-group folds and write-path ingest, Stratum's tiered folds, and
-Prism's encrypted analytics (MatVec, WeightedSum, GroupBySum) — and
-holds every CUDA
+multi-group folds and write-path ingest, Stratum's tiered folds,
+Prism's encrypted analytics (MatVec, WeightedSum, GroupBySum) and the
+search plane's indexed Search*/Order*/Range routes — and holds every CUDA
 kernel on them against its plain PyTorch version. Phases, each printing
 one JSON line; any failure exits non-zero:
 
@@ -107,13 +107,32 @@ one JSON line; any failure exits non-zero:
               mode, one B = 4,096 launch of each fold kernel (bit-exact,
               held, beside its bound) and the crossover;
 15. mixed     BASELINE config 5 (benchmarks/mixed.py --preload 4096
-              --clients 4 --ops 200): 7 replicas, quorum 5; the preload,
-              then run_workload rounds (mixed.py's MIX, then
-              configs/default.toml's mix) on crypto-backend cuda, and
-              the MIX round on cpu (the baseline mixed.py prints), every
-              client with no failed operation; on the cuda stack
+              --clients 4 --ops 200): 7 replicas, quorum 5; the preload's
+              rows encrypted once; on crypto-backend cuda two stacks load
+              them, the legacy one and one with [search], and the search
+              phase runs on both (the "search" line, what = "rest"): the
+              parity gate (one request to each of the twelve Search*,
+              Order* and Range routes, paged, an Order column with ties;
+              status and body equal), a write burst (64 PutSets, 8
+              WriteElements, 8 RemoveSets to both; the indexed stack's
+              write ingest off for it) and the gate again, which must
+              repair the burst's keys (dds_search_index_total miss and
+              stale), the warm query ms of each route on both paths with
+              the spans a query, and search_latency.py's baseline (the
+              legacy scan with the tag-validated cache off); then
+              run_workload rounds (mixed.py's MIX, then
+              configs/default.toml's mix) on both cuda stacks, and the
+              MIX round on cpu (the baseline mixed.py prints), every
+              client with no failed operation; on the legacy cuda stack
               the route sweep: every ported route against an answer
               recomputed on the host from the rows GetSet reads back;
+    search    the search plane alone (what = "plane"): one GroupIndex on
+              the card with 65,536 rows (one full resident pool's K) of
+              packable OPE values with ties and DET labels; every eval_*
+              equal to the plain Python reference; each pack's build ms,
+              and each predicate op held on the lanes beside its bound
+              (bytes) and the one PyTorch call on the folded column where
+              one computes the same selection;
 16. resident  the resident plane (configs/sharded.toml's [resident]: 4
               groups, max-rows 65,536, L = 256; benchmarks/resident_fold.py):
               for S = 1 and 4 groups and K = 8,192 and 65,536, cold (per-group
@@ -139,8 +158,13 @@ one JSON line; any failure exits non-zero:
 18. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
               launch; the analytics requests' launches are the paths
-              "analytics" and "analytics_rest"); then the card's name and power limit; then the
-              result line.
+              "analytics" and "analytics_rest"); then one {"search": ...}
+              line: each predicate op's calls on the indexed stack (gates,
+              timing and rounds), calls a query, held ms, bound and rows/s
+              at 65,536 rows, each route's warm ms on both paths and the
+              baseline, the rounds' ops/s on both stacks, the phase's and
+              the run's seconds; then the card's name and power limit;
+              then the result line.
 
     python3 chip_smoke.py              # on the card (needs one GPU)
     python3 chip_smoke.py --rehearse   # the same phases, tiny, on the CPU;
@@ -1608,17 +1632,16 @@ DEFAULT_TOML_MIX = {"put-set": 0.2, "get-set": 0.1, "sum": 0.1, "sum-all": 0.1,
                     "search-entry": 0.1}
 
 
-async def preload(port: int, provider, schema: list, K: int) -> dict:
-    """`benchmarks/mixed.py::_preload`: K canonical 8-column rows through
-    PutSet (64 in flight), each column encrypted with its schema tag, the
-    PSSE column with pooled seeded obfuscators; returns {record key: i}."""
-    from dds_tpu_torch.http.miniserver import http_request
-
+def encrypt_rows(provider, schema: list, first: int, count: int) -> list:
+    """`benchmarks/mixed.py::_preload`'s rows first..first+count-1: the
+    canonical 8 columns, each encrypted with its schema tag, the PSSE
+    column with pooled seeded obfuscators. Encrypted once, so every stack
+    that loads them holds the same keys (keys are content hashes, and the
+    random-IV column would otherwise differ)."""
     pk = provider.keys.psse.public
     rng = np.random.default_rng(14)
     blinds = [pk.blind(int.from_bytes(rng.bytes(pk.n.bit_length() // 8 - 1), "little"))
               for _ in range(32)]
-    sem = asyncio.Semaphore(64)
 
     def enc_row(i: int) -> list:
         vals = [i, f"name-{i}", None, 2, "a", "b", "c", f"blob-{i}"]
@@ -1627,15 +1650,25 @@ async def preload(port: int, provider, schema: list, K: int) -> dict:
         row[PSSE_POS] = str(pk.encrypt(i, rn=blinds[i % 32]))  # PSSE, pooled
         return row
 
-    async def put(i):
+    return [enc_row(i) for i in range(first, first + count)]
+
+
+async def preload(port: int, rows: list, first: int = 0) -> dict:
+    """`benchmarks/mixed.py::_preload`: the encrypted rows through PutSet
+    (64 in flight); returns {record key: first + row index}."""
+    from dds_tpu_torch.http.miniserver import http_request
+
+    sem = asyncio.Semaphore(64)
+
+    async def put(i, row):
         async with sem:
             st, body = await http_request("127.0.0.1", port, "POST", "/PutSet",
-                                          json.dumps({"contents": enc_row(i)}).encode())
+                                          json.dumps({"contents": row}).encode())
         if st != 200:
             raise AssertionError(f"preload PutSet failed: {st}")
-        return body.decode(), i
+        return body.decode(), first + i
 
-    return dict(await asyncio.gather(*(put(i) for i in range(K))))
+    return dict(await asyncio.gather(*(put(i, r) for i, r in enumerate(rows))))
 
 
 async def route_sweep(port: int, stored: list, keys, schema: list, preloaded: dict) -> dict:
@@ -1772,18 +1805,231 @@ async def route_sweep(port: int, stored: list, keys, schema: list, preloaded: di
     return checks
 
 
+SEARCH_ROUTES = ("OrderLS", "OrderSL", "SearchEq", "SearchNEq", "SearchGt", "SearchGtEq",
+                 "SearchLt", "SearchLtEq", "Range", "SearchEntry", "SearchEntryOR",
+                 "SearchEntryAND")
+# the predicate ops of ops/predicate.py, by the `op` meta of their
+# kernel.predicate spans, and each function's line in the reference
+PREDICATE_OPS = {"compare_mask": (("gt", "ge", "lt", "le"), "dds_tpu/ops/predicate.py:104"),
+                 "range_mask": (("range",), "dds_tpu/ops/predicate.py:135"),
+                 "eq_mask": (("eq",), "dds_tpu/ops/predicate.py:163"),
+                 "entry_mask": (("entry_any", "entry_all"), "dds_tpu/ops/predicate.py:185"),
+                 "sort_perm": (("sort_asc", "sort_desc"), "dds_tpu/ops/predicate.py:228")}
+
+
+def search_requests(keys, schema: list, tied_pos: int) -> list:
+    """(route, method, target, body) of one request to each of the twelve
+    Search*, Order* and Range routes over the mixed cell's rows, with
+    offset/limit paging and Order over `tied_pos`, a column with ties."""
+    che = (lambda s: keys.che.encrypt(s)) if schema[1] == "CHE" else str
+    ope = keys.ope.encrypt
+    pivot = {"value": ope(2048)}
+    words = [che(w) for w in ("a", "name-7", "nowhere")]
+    return [("OrderLS", "GET", "/OrderLS?position=0&offset=100&limit=50", None),
+            ("OrderSL", "GET", f"/OrderSL?position={tied_pos}&offset=7&limit=300", None),
+            ("SearchEq", "POST", "/SearchEq?position=1", {"value": che("name-5")}),
+            ("SearchNEq", "POST", "/SearchNEq?position=1&offset=10&limit=20",
+             {"value": che("name-5")}),
+            ("SearchGt", "POST", "/SearchGt?position=0", pivot),
+            ("SearchGtEq", "POST", "/SearchGtEq?position=0&limit=64", pivot),
+            ("SearchLt", "POST", "/SearchLt?position=0", pivot),
+            ("SearchLtEq", "POST", "/SearchLtEq?position=0&offset=5", pivot),
+            ("Range", "POST", "/Range?position=0", {"value1": ope(100), "value2": ope(1000)}),
+            ("SearchEntry", "POST", "/SearchEntry", {"value": words[1]}),
+            ("SearchEntryOR", "POST", "/SearchEntryOR",
+             {"value1": words[0], "value2": words[1], "value3": words[2]}),
+            ("SearchEntryAND", "POST", "/SearchEntryAND",
+             {"value1": words[0], "value2": che("b"), "value3": words[1]})]
+
+
+async def rest_call(port: int, method: str, target: str, obj=None) -> tuple[int, bytes]:
+    from dds_tpu_torch.http.miniserver import http_request
+
+    body = json.dumps(obj).encode() if obj is not None else None
+    return await http_request("127.0.0.1", port, method, target, body, timeout=300.0)
+
+
+def index_outcomes() -> dict:
+    from dds_tpu_torch.obs.metrics import metrics
+
+    return {o: metrics.value("dds_search_index_total", outcome=o) or 0
+            for o in ("hit", "stale", "miss")}
+
+
+async def parity_gate(legacy_port: int, indexed_port: int, requests: list) -> dict:
+    """Every request on both stacks: status and body must be equal. Returns
+    each route's keyset size, the index outcomes the gate caused and the
+    predicate ops it called."""
+    from dds_tpu_torch.obs.metrics import metrics
+    from dds_tpu_torch.utils.trace import tracer
+
+    tracer.reset(max_events=1 << 21)
+    before = index_outcomes()
+    paths0 = {r: metrics.value("dds_search_requests_total", route=r, path="indexed") or 0
+              for r in SEARCH_ROUTES}
+    sizes = {}
+    for route, method, target, obj in requests:
+        legacy = await rest_call(legacy_port, method, target, obj)
+        indexed = await rest_call(indexed_port, method, target, obj)
+        if legacy != indexed or legacy[0] != 200:
+            raise AssertionError(f"search parity gate: {route} differs between the legacy "
+                                 f"and the indexed stack ({legacy[0]} / {indexed[0]})")
+        sizes[route] = len(json.loads(indexed[1])["keyset"])
+    taken = {r: (metrics.value("dds_search_requests_total", route=r, path="indexed") or 0)
+             - paths0[r] for r in SEARCH_ROUTES}
+    if any(v <= 0 for v in taken.values()):
+        raise AssertionError(f"search routes that missed the indexed path: {taken}")
+    after = index_outcomes()
+    return {"keysets": sizes, "outcomes": {o: after[o] - before[o] for o in after},
+            "predicate_calls": predicate_calls(tracer.events("kernel.predicate.dispatch"))}
+
+
+async def write_burst(ports: list, provider, keys, schema: list, stored: list,
+                      first: int, sizes) -> dict:
+    """The same writes to every stack: PutSets of new rows, WriteElements
+    of the OPE column of existing records (values that other records
+    hold, so the column gets ties) and RemoveSets."""
+    rng = np.random.default_rng(23)
+    picks = [stored[int(i)] for i in rng.choice(len(stored), size=sizes["search_writes"]
+                                                + sizes["search_removes"], replace=False)]
+    writes, removes = picks[:sizes["search_writes"]], picks[sizes["search_writes"]:]
+    rows = encrypt_rows(provider, schema, first, sizes["search_puts"])
+    added = [await preload(port, rows, first) for port in ports]
+    if any(a != added[0] for a in added):
+        raise AssertionError("the burst's PutSets gave the stacks different keys")
+    for j, k in enumerate(writes):
+        body = {"value": keys.ope.encrypt(17 + j % 3)}
+        for port in ports:
+            st, _ = await rest_call(port, "PUT", f"/WriteElement/{k}?position=0", body)
+            if st != 200:
+                raise AssertionError(f"burst WriteElement failed: {st}")
+    for k in removes:
+        for port in ports:
+            st, _ = await rest_call(port, "DELETE", f"/RemoveSet/{k}")
+            if st != 200:
+                raise AssertionError(f"burst RemoveSet failed: {st}")
+    return {"puts": len(rows), "writes": len(writes), "removes": len(removes)}
+
+
+def predicate_calls(events) -> dict:
+    """Calls of each predicate op among `kernel.predicate.dispatch` spans."""
+    ops = collections.Counter(e.meta.get("op") for e in events)
+    return {name: sum(ops[o] for o in fam) for name, (fam, _) in PREDICATE_OPS.items()}
+
+
+async def time_routes(port: int, requests: list, reps: int, prefixes: tuple,
+                      warm: bool = True) -> dict:
+    """Warm ms of each request (one call first unless `warm` is False, then
+    `reps` timed), the spans under `prefixes` per timed query, and the
+    predicate ops the route's queries called."""
+    from dds_tpu_torch.utils.trace import tracer
+
+    out = {}
+    for route, method, target, obj in requests:
+        tracer.reset(max_events=1 << 21)
+        for _ in range(int(warm)):
+            await rest_call(port, method, target, obj)
+        mark = time.time()
+        ms = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            st, _ = await rest_call(port, method, target, obj)
+            ms.append((time.perf_counter() - t) * 1e3)
+            if st != 200:
+                raise AssertionError(f"{route}: {st}")
+        spans = collections.defaultdict(lambda: {"count": 0.0, "ms": 0.0})
+        for e in tracer.events():
+            if e.kind == "span" and e.ts >= mark and e.name.startswith(prefixes):
+                spans[e.name]["count"] += 1 / reps
+                spans[e.name]["ms"] += e.dur_ms / reps
+        out[route] = {"median_ms": statistics.median(ms), "min_ms": min(ms), "reps": reps,
+                      "queries": reps + int(warm),
+                      "per_query": dict(spans),
+                      "predicate_calls": predicate_calls(
+                          tracer.events("kernel.predicate.dispatch"))}
+    return out
+
+
+async def search_rest(dev, sizes, legacy, indexed, provider, keys, schema: list) -> dict:
+    """The search phase's REST part on the mixed cell's two cuda stacks,
+    loaded with the same encrypted rows: the parity gate over the twelve
+    routes; the write burst (the indexed stack's write ingest off, so its
+    index learns of the burst through the query's tag round, the repair
+    path under test) and the gate again; then the warm query ms of each
+    route on both paths, and the search_latency.py baseline (the legacy
+    scan with the tag-validated cache off) over two of its four cases."""
+    t0 = time.perf_counter()
+    lp, ip = legacy.server.cfg.port, indexed.server.cfg.port
+    plane = indexed.server._search
+    if plane.device.type != dev.type:
+        raise AssertionError(f"the search plane built on {plane.device}, not {dev}")
+    rec = {"device": str(plane.device)}
+    stored = sorted(legacy.server.stored_keys)
+    if stored != sorted(indexed.server.stored_keys):
+        raise AssertionError("the two stacks hold different keys")
+    rec["gate_before"] = await parity_gate(lp, ip, search_requests(keys, schema, 3))
+    indexed.server._search_write_ingest = False
+    rec["burst"] = await write_burst([lp, ip], provider, keys, schema, stored,
+                                     sizes["mixed_preload"], sizes)
+    indexed.server._search_write_ingest = True
+    after = search_requests(keys, schema, 0)  # the burst gave the OPE column ties
+    rec["gate_after"] = await parity_gate(lp, ip, after)
+    repaired = rec["gate_after"]["outcomes"]
+    if repaired["miss"] < rec["burst"]["puts"] or repaired["stale"] < rec["burst"]["writes"]:
+        raise AssertionError(f"the burst's keys were not repaired: {repaired}")
+    reps = sizes["search_reps"]
+    rec["indexed"] = await time_routes(ip, after, reps, (
+        "proxy.search_eval", "kernel.predicate", "abd.read_tags", "abd.fetch"))
+    rec["legacy"] = await time_routes(lp, after, reps, (
+        "proxy.fetch_stored", "abd.read_tags", "abd.fetch"))
+    # two of search_latency.py's four cases (gt, order): each cache-less
+    # query takes 14-17 s on the card at this size, the same for all four
+    base = [r for r in after if r[0] in ("SearchGt", "OrderLS")]
+    pcfg = legacy.server.cfg
+    budget = pcfg.request_budget
+    pcfg.aggregate_cache = False
+    try:
+        # one query under the deployment's own budget: thousands of full
+        # quorum reads may not fit in it (503); the timed queries then get
+        # a budget long enough to finish, so the reading is the scan's cost
+        t = time.perf_counter()
+        st, _ = await rest_call(lp, *base[0][1:])
+        rec["baseline_default_budget"] = {"route": base[0][0], "status": st, "budget_s": budget,
+                                          "ms": (time.perf_counter() - t) * 1e3}
+        pcfg.request_budget = sizes["search_baseline_budget"]
+        rec["baseline_no_cache"] = await time_routes(lp, base, sizes["search_baseline_reps"],
+                                                     ("proxy.fetch_stored", "abd.fetch"),
+                                                     warm=False)
+    finally:
+        pcfg.aggregate_cache, pcfg.request_budget = True, budget
+    rec["indexed_over_legacy"] = {r: rec["legacy"][r]["median_ms"] / rec["indexed"][r]["median_ms"]
+                                  for r in rec["indexed"]}
+    calls = collections.Counter()
+    for part in (rec["gate_before"], rec["gate_after"], *rec["indexed"].values()):
+        calls.update(part["predicate_calls"])
+    rec["predicate_calls"] = dict(calls)
+    rec["queries"] = 2 * len(SEARCH_ROUTES) + sum(t["queries"] for t in rec["indexed"].values())
+    rec["stats"] = plane.stats()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 async def phase_mixed(dev, sizes) -> dict:
     """BASELINE config 5 (`benchmarks/mixed.py --preload 4096 --clients 4
     --ops 200`) through the port: 7 replicas, quorum 5 (f = 2, the
     reference default's active set), Paillier-2048 (the bench key) and
-    RSA-1024. On `crypto-backend = "cuda"` and then on `"cpu"` (the
-    same-host baseline mixed.py prints), a fresh stack each: the preload,
-    then `run_workload` rounds of the clients with one seed, first with
-    mixed.py's MIX, then (on cuda only: the cpu baseline's default-mix
-    round was cut for the run's time) with configs/default.toml's
-    proportions; every client must report no failed operation. Counts are zeroed just before
-    and read just after each round; on the card the cuda rounds must
-    launch mont_mul. After the cuda rounds, the route sweep."""
+    RSA-1024. The preload's rows are encrypted once. On
+    `crypto-backend = "cuda"` two stacks load them, the legacy one and a
+    second with `[search]` on, and the search phase runs on both
+    (`search_rest`: parity gates around a write burst, warm query ms, the
+    cache-less baseline); then `"cpu"` (the same-host baseline mixed.py
+    prints), a fresh stack: the preload, then `run_workload` rounds of the
+    clients with one seed, first with mixed.py's MIX, then (on cuda only:
+    the cpu baseline's default-mix round was cut for the run's time) with
+    configs/default.toml's proportions, on each cuda stack; every client
+    must report no failed operation. Counts are zeroed just before and
+    read just after each round; on the card the cuda rounds must launch
+    mont_mul. After the legacy stack's rounds, the route sweep."""
     import dataclasses
 
     from dds_tpu_torch.bench_key import bench_paillier_key
@@ -1804,7 +2050,9 @@ async def phase_mixed(dev, sizes) -> dict:
     rec = {"replicas": R, "quorum": Q, "preload": sizes["mixed_preload"],
            "clients": sizes["mixed_clients"], "ops_per_client": sizes["mixed_ops"],
            "seed": sizes["mixed_seed"], "schema": schema, "rounds": {}}
-    for backend in ("cuda", "cpu"):
+    rows = encrypt_rows(provider, schema, 0, sizes["mixed_preload"])
+
+    def config(backend: str, search: bool):
         cfg = DDSConfig()
         cfg.replicas.endpoints = [f"replica-{i}" for i in range(R)]
         cfg.replicas.byz_quorum_size, cfg.replicas.byz_max_faults = Q, (R - 1) // 3
@@ -1813,47 +2061,74 @@ async def phase_mixed(dev, sizes) -> dict:
         cfg.client.nr_of_operations = sizes["mixed_ops"]
         cfg.client.nr_of_local_clients = sizes["mixed_clients"]
         cfg.client.data_table.fixed_columns_hcrypt = schema
-        dep = await launch(cfg)
+        cfg.search.enabled = search
+        return cfg
+
+    async def rounds(dep, labels, stack: str) -> None:
+        for label, mix in labels:
+            dep.cfg.client.proportions = dict(mix)
+            reset_counts()  # this round's run starts here
+            tracer.reset(max_events=1 << 21)
+            t = time.perf_counter()
+            reports = await run_workload(dep, provider, seed=sizes["mixed_seed"])
+            wall = time.perf_counter() - t
+            counts = read_counts(dev)
+            backend = dep.cfg.proxy.crypto_backend
+            if any(r.failed for r in reports):
+                raise AssertionError(f"{label} round on {stack}: failed operations: "
+                                     f"{[vars(r) for r in reports]}")
+            if backend == "cuda" and dev.type == "cuda" and counts["mont_mul"] <= 0:
+                raise AssertionError(f"the {label} round on {stack} never launched mont_mul")
+            ops = sum(r.operations for r in reports)
+            rec["rounds"][f"{label}.{stack}"] = {
+                "ops": ops, "wall_s": wall, "ops_per_sec": ops / wall,
+                "succeeded": sum(r.succeeded for r in reports),
+                "not_found": sum(r.not_found for r in reports), "failed": 0,
+                "stored": len(dep.server.stored_keys), "preload_s": preload_s,
+                "mont_mul_launches": counts["mont_mul"],
+                "launches": {k: v for k, v in counts.items() if v},
+                "spans": span_stats(("http.", "proxy.fold", "proxy.fetch_stored",
+                                     "proxy.search_eval", "kernel.predicate", "abd.read_tags")),
+                "predicate_calls": predicate_calls(tracer.events("kernel.predicate.dispatch")),
+            }
+
+    labels = (("mixed", MIXED_MIX), ("default", DEFAULT_TOML_MIX))
+    for backend in ("cuda", "cpu"):
+        dep = await launch(config(backend, False))
+        spy = await launch(config(backend, True)) if backend == "cuda" else None
         try:
             port = dep.server.cfg.port
             t = time.perf_counter()
-            preloaded = await preload(port, provider, schema, sizes["mixed_preload"])
+            preloaded = await preload(port, rows)
             preload_s = time.perf_counter() - t
-            rounds = (("mixed", MIXED_MIX), ("default", DEFAULT_TOML_MIX))
-            for label, mix in rounds if backend == "cuda" else rounds[:1]:
-                cfg.client.proportions = dict(mix)
-                reset_counts()  # this round's run starts here
-                tracer.reset(max_events=1 << 21)
-                t = time.perf_counter()
-                reports = await run_workload(dep, provider, seed=sizes["mixed_seed"])
-                wall = time.perf_counter() - t
-                counts = read_counts(dev)
-                if any(r.failed for r in reports):
-                    raise AssertionError(f"{label} round on {backend}: failed operations: "
-                                         f"{[vars(r) for r in reports]}")
-                if backend == "cuda" and dev.type == "cuda" and counts["mont_mul"] <= 0:
-                    raise AssertionError(f"the {label} round on cuda never launched mont_mul")
-                ops = sum(r.operations for r in reports)
-                rec["rounds"][f"{label}.{backend}"] = {
-                    "ops": ops, "wall_s": wall, "ops_per_sec": ops / wall,
-                    "succeeded": sum(r.succeeded for r in reports),
-                    "not_found": sum(r.not_found for r in reports), "failed": 0,
-                    "stored": len(dep.server.stored_keys), "preload_s": preload_s,
-                    "mont_mul_launches": counts["mont_mul"],
-                    "launches": {k: v for k, v in counts.items() if v},
-                    "spans": span_stats(("http.", "proxy.fold", "proxy.fetch_stored")),
-                }
+            if spy is not None:
+                if await preload(spy.server.cfg.port, rows) != preloaded:
+                    raise AssertionError("the stacks' preloads gave different keys")
+                rec["search"] = await search_rest(dev, sizes, dep, spy, provider, keys,
+                                                  schema)
+                preloaded = {k: i for k, i in preloaded.items() if k in dep.server.stored_keys}
+            await rounds(dep, labels if backend == "cuda" else labels[:1], backend)
+            if spy is not None:
+                await rounds(spy, labels, "cuda_search")
+                rec["search"]["rounds"] = {
+                    label: {"indexed_ops_per_sec": rec["rounds"][f"{label}.cuda_search"][
+                                "ops_per_sec"],
+                            "legacy_ops_per_sec": rec["rounds"][f"{label}.cuda"]["ops_per_sec"]}
+                    for label, _ in labels}
             if backend == "cuda":
                 rec["route_sweep"] = await route_sweep(
                     port, sorted(dep.server.stored_keys), keys, schema, preloaded)
         finally:
+            if spy is not None:
+                await spy.stop()
             await dep.stop()
     rec["cuda_over_cpu"] = {
         "mixed": rec["rounds"]["mixed.cuda"]["ops_per_sec"]
         / rec["rounds"]["mixed.cpu"]["ops_per_sec"]}
-    rec["mont_mul_launches"] = sum(rec["rounds"][f"{label}.cuda"]["mont_mul_launches"]
-                                   for label in ("mixed", "default"))
-    emit("mixed", **rec)
+    rec["mont_mul_launches"] = sum(rec["rounds"][f"{label}.{stack}"]["mont_mul_launches"]
+                                   for label, _ in labels for stack in ("cuda", "cuda_search"))
+    emit("mixed", **{k: v for k, v in rec.items() if k != "search"})
+    emit("search", what="rest", **rec["search"])
     return rec
 
 
@@ -1884,6 +2159,167 @@ def held_ms(fn, reps: int, dev, cycles: int = 100_000_000) -> tuple[float, float
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps, dispatch
+
+
+class unsynced:
+    """Within the block, `kprof.profiled` does not wait for the device, so
+    `held_ms` can queue predicate ops behind a held stream and read their
+    device time apart from their dispatch (the ops themselves are
+    unchanged)."""
+
+    def __enter__(self):
+        from dds_tpu_torch.obs import kprof
+
+        self.kprof, self.wait = kprof, kprof.wait
+        kprof.wait = lambda out: None
+
+    def __exit__(self, *exc):
+        self.kprof.wait = self.wait
+
+
+def predicate_bytes(name: str, n: int, width: int = 1) -> float:
+    """Bytes a predicate op must move over n rows: its int64 lanes read
+    once (two a row, an (n, width) pair and the validity bytes for the
+    entry matrix), its result written once (a bool a row; an int64 index
+    a row for the sort)."""
+    if name == "entry_mask":
+        return 17.0 * n * width + n
+    if name == "sort_perm":
+        return 16.0 * n + 8 * n
+    return 16.0 * n + n
+
+
+def phase_search_plane(dev, sizes) -> dict:
+    """The search plane alone, no REST: one `GroupIndex` on the device
+    filled with one full resident pool's rows (65,536), packable OPE
+    values with ties and the lane edges, DET labels and element words.
+    Each `eval_*` must equal the plain Python reference computed from the
+    same rows. Reports each pack's build ms, each eval's ms against the
+    Python reference's, and each predicate op held on the pack's lanes
+    (device ms, dispatch ms), beside its bound (bytes at 3.35 TB/s) and one
+    PyTorch call on the folded int64 column (`torch.gt`, `torch.eq`,
+    `torch.sort(stable=True)`) where one computes the same selection."""
+    import operator
+
+    import torch
+
+    from dds_tpu_torch.ops import predicate as pr
+    from dds_tpu_torch.search import GroupIndex
+
+    t_phase = time.perf_counter()
+    N, reps = sizes["search_plane_rows"], sizes["search_plane_reps"]
+    rng = np.random.default_rng(31)
+    pool = rng.integers(0, 1 << 40, size=max(1, N // 16))
+    ope = [int(v) for v in rng.choice(pool, size=N)]
+    ope[:4] = [0, pr.LANE_MASK, pr.LANE_MASK + 1, pr.PACK_MAX]
+    labels = [f"label-{int(x)}" for x in rng.integers(0, max(2, N // 64), size=N)]
+    rows = {f"k{i:06d}": [ope[i], labels[i]] + [f"w{int(x)}" for x in
+                                                  rng.integers(0, 64, size=int(rng.integers(1, 4)))]
+            for i in range(N)}
+    keys = sorted(rows)
+    idx = GroupIndex(dev)
+    t = time.perf_counter()
+    for k in keys:
+        idx.upsert(k, (1, 0), rows[k])
+    rec = {"rows": N, "device": str(idx.device), "fill_ms": (time.perf_counter() - t) * 1e3,
+           "build_ms": {}}
+    with idx._lock:
+        for name, build in (("ope", lambda: idx._ope_pack(0)), ("det", lambda: idx._det_pack(1)),
+                            ("entry", idx._entry_pack)):
+            t = time.perf_counter()
+            pack = build()
+            sync(dev)
+            rec["build_ms"][name] = (time.perf_counter() - t) * 1e3
+    ope_p, det_p, ent_p = idx._packs[("ope", 0)], idx._packs[("det", 1)], idx._packs[("entry",)]
+    if ope_p["hi"].device.type != dev.type or ent_p["dhi"].device.type != dev.type:
+        raise AssertionError("the packs are not on the plane's device")
+
+    host_ops = {"gt": operator.gt, "ge": operator.ge, "lt": operator.lt, "le": operator.le}
+    thr = ope[17]  # a stored value: ties at the threshold
+    lo_b, hi_b = sorted((ope[5], ope[6]))
+    label, words = labels[3], ["w3", labels[9], "nowhere"]
+
+    def order(desc):
+        sign = -1 if desc else 1
+        return [(sign * rows[keys[i]][0], keys[i])
+                for i in sorted(range(N), key=lambda i: rows[keys[i]][0], reverse=desc)]
+
+    def entry(mode):
+        agg = all if mode == "all" else any
+        return {k for k in keys if agg(any(e == q for e in map(str, rows[k])) for q in words)}
+
+    evals = {f"compare_{op}": (lambda op=op: idx.eval_compare(0, op, thr),
+                               lambda op=op: {k for k in keys if host_ops[op](rows[k][0], thr)})
+             for op in host_ops}
+    evals.update({
+        "range": (lambda: idx.eval_range(0, lo_b, hi_b),
+                  lambda: {k for k in keys if lo_b <= rows[k][0] <= hi_b}),
+        "eq": (lambda: idx.eval_eq(1, label, True),
+               lambda: {k for k in keys if rows[k][1] == label}),
+        "neq": (lambda: idx.eval_eq(1, label, False),
+                lambda: {k for k in keys if rows[k][1] != label}),
+        "entry_any": (lambda: idx.eval_entry(words, "any"), lambda: entry("any")),
+        "entry_all": (lambda: idx.eval_entry(words[:2], "all"),
+                      lambda: {k for k in keys if all(any(e == q for e in map(str, rows[k]))
+                                                      for q in words[:2])}),
+        "order_asc": (lambda: idx.eval_order(0, False), lambda: order(False)),
+        "order_desc": (lambda: idx.eval_order(0, True), lambda: order(True)),
+    })
+    rec["evals"] = {}
+    for name, (dev_fn, host_fn) in evals.items():
+        got = dev_fn()  # warm
+        t = time.perf_counter()
+        got = dev_fn()
+        ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        want = host_fn()
+        host_ms = (time.perf_counter() - t) * 1e3
+        if got != want:
+            raise AssertionError(f"search plane: {name} differs from the Python reference")
+        rec["evals"][name] = {"ms": ms, "python_ms": host_ms,
+                              "selected": len(got)}
+
+    hi, lo, dhi, dlo = ope_p["hi"], ope_p["lo"], det_p["dhi"], det_p["dlo"]
+    folded = (hi << pr.LANE_BITS) | lo
+    dfold = (dhi << 32) | dlo  # the digest's 64 bits (two's complement)
+    qhi, qlo = pr.digest_lanes(label)
+    qfold = ((qhi << 32) | qlo) - ((1 << 64) if qhi >> 31 else 0)
+    width = ent_p["dhi"].shape[1]
+    calls = {
+        "compare_mask": (lambda: pr.compare_mask(hi, lo, "gt", thr, device=dev),
+                         lambda: torch.gt(folded, thr)),
+        "range_mask": (lambda: pr.range_mask(hi, lo, lo_b, hi_b, device=dev), None),
+        "eq_mask": (lambda: pr.eq_mask(dhi, dlo, label, device=dev),
+                    lambda: torch.eq(dfold, qfold)),
+        "entry_mask": (lambda: pr.entry_mask(ent_p["dhi"], ent_p["dlo"], ent_p["valid"],
+                                             words, "any", device=dev), None),
+        "sort_perm": (lambda: pr.sort_perm(hi, lo, True, device=dev),
+                      lambda: torch.sort(folded, stable=True)),
+    }
+    if not torch.equal(calls["compare_mask"][0](), calls["compare_mask"][1]()) or \
+            not torch.equal(calls["eq_mask"][0](), calls["eq_mask"][1]()):
+        raise AssertionError("a library call does not compute its op's selection")
+    rec["ops"] = {}
+    for name, (fn, lib) in calls.items():
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        wall = (time.perf_counter() - t) * 1e3 / reps  # synced, as the plane calls it
+        with unsynced():
+            device_ms, dispatch_ms = held_ms(fn, reps, dev)
+        lib_ms = held_ms(lib, reps, dev)[0] if lib is not None else None
+        nbytes = predicate_bytes(name, N, width)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rec["ops"][name] = {"n": N, "ms": device_ms, "dispatch_ms": dispatch_ms,
+                            # the hold (~50 ms) outlasted the queueing, so
+                            # the events read the device alone
+                            "held_clean": dev.type != "cuda" or dispatch_ms * reps < 45.0,
+                            "wall_ms": wall, "bound_ms": bound, "bound_by": "bytes",
+                            "bytes": nbytes, "rows_per_s": N / (wall / 1e3),
+                            "library_ms": lib_ms, "share": bound / device_ms}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit("search", what="plane", **rec)
+    return rec
 
 
 def seeded_ints(ctx, count: int, seed: int) -> list[int]:
@@ -2643,6 +3079,12 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   crossover_l64=[8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384],
                   mixed_replicas=7, mixed_quorum=5, mixed_preload=4096, mixed_clients=4,
                   mixed_ops=200, mixed_seed=7,
+                  # the search phase: the write burst, warm reps a route, the
+                  # cache-less baseline's reps, the plane alone at one full
+                  # resident pool's rows
+                  search_puts=64, search_writes=8, search_removes=8, search_reps=5,
+                  search_baseline_reps=1, search_baseline_budget=300.0,
+                  search_plane_rows=65536, search_plane_reps=20,
                   # configs/sharded.toml's [resident]; resident_fold.py's S and K
                   resident_groups=4, resident_initial=256, resident_max=65536,
                   resident_S=[1, 4], resident_K=[8192, 65536], resident_reps=3,
@@ -2672,6 +3114,7 @@ def main(argv=None) -> int:
                     help="print one JSON line of kernel times (used by --ab)")
     ap.add_argument("--tree", help="with --times: time the dds_tpu_torch of this tree")
     args = ap.parse_args(argv)
+    t_run = time.perf_counter()
 
     import torch
 
@@ -2694,6 +3137,9 @@ def main(argv=None) -> int:
                      coalesce_burst=16, coalesce_rounds=2, coalesce_min_batch=32,
                      K_multall=64, crossover_l64=[8, 32], mixed_replicas=7, mixed_quorum=5,
                      mixed_preload=64, mixed_clients=2, mixed_ops=40, mixed_seed=7,
+                     search_puts=8, search_writes=4, search_removes=4, search_reps=2,
+                     search_baseline_reps=1, search_baseline_budget=60.0,
+                     search_plane_rows=2048, search_plane_reps=2,
                      resident_groups=4, resident_initial=16, resident_max=1024,
                      resident_S=[1, 4], resident_K=[64, 256], resident_reps=1,
                      resident_new=16, analytics_R=16, analytics_signed_R=4,
@@ -2735,6 +3181,7 @@ def main(argv=None) -> int:
     client = asyncio.run(phase_client(dev, sizes))
     multall = asyncio.run(phase_multall(dev, sizes))
     mixed = asyncio.run(phase_mixed(dev, sizes))
+    plane = phase_search_plane(dev, sizes)
     resident = asyncio.run(phase_resident(dev, sizes))
     tiered = asyncio.run(phase_tiered(dev, sizes))
 
@@ -2835,6 +3282,30 @@ def main(argv=None) -> int:
     if dev.type == "cuda" and missing:
         raise AssertionError(f"kernels never launched on their paths: {missing}")
     print(json.dumps({"kernels": kernels}), flush=True)
+    rest = mixed["search"]
+    calls = collections.Counter(rest["predicate_calls"])
+    for label in ("mixed", "default"):
+        calls.update(mixed["rounds"][f"{label}.cuda_search"]["predicate_calls"])
+    ops = {name: {"replaces": PREDICATE_OPS[name][1],
+                  "route": "PyTorch ops (XLA in the reference, no Pallas twin)",
+                  "source": "dds_tpu_torch/ops/predicate.py",
+                  "calls": calls[name],
+                  "calls_per_query": {r: t["predicate_calls"][name] / t["queries"]
+                                      for r, t in rest["indexed"].items()
+                                      if t["predicate_calls"][name]},
+                  **plane["ops"][name]} for name in PREDICATE_OPS}
+    missing = [name for name, op in ops.items() if op["calls"] <= 0]
+    if missing:
+        raise AssertionError(f"predicate ops the indexed stack never called: {missing}")
+    print(json.dumps({"search": {
+        "ops": ops, "rest_queries": rest["queries"],
+        "routes_ms": {r: {"indexed": rest["indexed"][r]["median_ms"],
+                          "legacy": rest["legacy"][r]["median_ms"],
+                          "baseline_no_cache": rest["baseline_no_cache"].get(r, {}).get(
+                              "median_ms")} for r in rest["indexed"]},
+        "rounds": rest["rounds"], "plane_build_ms": plane["build_ms"],
+        "phase_seconds": rest["seconds"] + plane["seconds"],
+        "run_seconds": time.perf_counter() - t_run}}), flush=True)
     if args.rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result", file=sys.stderr)
         return 3

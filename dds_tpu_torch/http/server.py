@@ -17,8 +17,9 @@ data routes with its parameters, JSON shapes and status codes:
   pool per modulus). Without the modulus: the plain sum or product;
 - `GET /OrderLS`, `GET /OrderSL`, `POST /SearchEq`, `/SearchNEq`,
   `/SearchGt`, `/SearchGtEq`, `/SearchLt`, `/SearchLtEq`, `/Range`,
-  `/SearchEntry`, `/SearchEntryOR`, `/SearchEntryAND`: the reference's
-  legacy scans over every stored record, paged by `offset`/`limit`;
+  `/SearchEntry`, `/SearchEntryOR`, `/SearchEntryAND`: the selections and
+  orderings over every stored record, paged by `offset`/`limit` — the
+  reference's legacy scans, or with `[search]` its indexed path;
 - `POST /MatVec`, `/WeightedSum` and `/GroupBySum` (`position`, `nsqr`):
   Prism's encrypted analytics (`analytics/`), Enc(W @ x) over column p of
   every stored record for a plaintext weight matrix, one row, or 0/1
@@ -46,14 +47,26 @@ queue their ciphertext columns for ingest into the existing pools off the
 request path, so the first aggregate after a write ingests nothing. With
 `[storage]` as well, Stratum (`storage/`) routes the fold through its
 hot/warm/cold planner and pool overflow evicts instead of resetting.
-The search plane (the indexed Spyglass search) is not ported yet; the
-proxy refuses to start with it enabled rather than serve without it.
+
+With `[search]` (`ProxyConfig.search`) the twelve Search*, Order* and
+Range routes take the search plane (`search/`, the reference's Spyglass):
+one batched `read_tags` round validates every index entry per query
+(`_spy_validate`; stale and missing keys alone take full ABD reads and are
+re-ingested), then the predicate ops run over the packed columns on the
+plane's device (`_spy_filter`, `_spy_order`), the answers identical to
+the legacy scan's. Committed writes queue their (tag, value) for index
+upsert off the request path (RemoveSet a tombstone), an audit flush
+invalidates the plane, and with Stratum every selection warms its rows in
+the tier directory (`touch_sink` -> `Stratum.touch_keys`).
+`dds_search_requests_total{route,path}` counts both paths and
+`dds_search_index_total{outcome}` the index's hits, stale and missing keys.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextvars
+import heapq
 import logging
 import random
 import time
@@ -68,8 +81,10 @@ from dds_tpu_torch.http.miniserver import HttpServer, Request, Response
 from dds_tpu_torch.models.backend import CryptoBackend, get_backend
 from dds_tpu_torch.models.det import DetKey
 from dds_tpu_torch.obs import context as obs_context
+from dds_tpu_torch.obs.metrics import metrics
 from dds_tpu_torch.ops.flags import analytics_max_rows
 from dds_tpu_torch.resident import ResidentPlane
+from dds_tpu_torch.search import SearchPlane
 from dds_tpu_torch.storage import Stratum
 from dds_tpu_torch.utils import sigs
 from dds_tpu_torch.utils.retry import (
@@ -132,12 +147,12 @@ class ProxyConfig:
     analytics_enabled: bool = True
     analytics_max_rows: int = 256
     analytics_max_request_bytes: int = 1 << 20
-    # the resident plane (a utils.config.ResidentConfig; None = off) and
-    # Stratum under it (a utils.config.StorageConfig; needs the plane)
+    # the resident plane (a utils.config.ResidentConfig; None = off),
+    # Stratum under it (a utils.config.StorageConfig; needs the plane) and
+    # the search plane (a utils.config.SearchConfig; None = off)
     resident: object = None
     storage: object = None
-    # the search plane is not ported yet: True refuses to start
-    search: bool = False
+    search: object = None
 
 
 def _make_backend(cfg: ProxyConfig) -> CryptoBackend:
@@ -160,10 +175,6 @@ class DDSRestServer:
     def __init__(self, abd: AbdClient, config: ProxyConfig | None = None):
         self.abd = abd
         self.cfg = config or ProxyConfig()
-        if self.cfg.search:
-            raise NotImplementedError(
-                "the search plane is not ported to dds_tpu_torch yet"
-            )
         self.backend: CryptoBackend = _make_backend(self.cfg)
         self.stored_keys: set[str] = set()
         # key -> (tag, value): every entry comes from a COMPLETED quorum op,
@@ -211,6 +222,24 @@ class DDSRestServer:
             )
             self._resident_write_ingest = rescfg.write_ingest
             self._resident_ingest_window = max(0.0, rescfg.ingest_window)
+        # the search plane: per-group indexes over the DET/OPE column
+        # families, written from the request path (queued, debounced — the
+        # resident ingest pattern) and validated per query with one
+        # batched read_tags round. Built on the backend's device (the CPU
+        # for a host backend). None when disabled: every Search*/Order*/
+        # Range route then takes the legacy scan.
+        scfg = self.cfg.search
+        self._search: SearchPlane | None = None
+        self._search_write_ingest = False
+        self._search_ingest_window = 0.005
+        self._search_ingest_task: asyncio.Task | None = None
+        if scfg is not None and scfg.enabled:
+            self._search = SearchPlane(
+                max_pending=scfg.max_pending,
+                device=getattr(self.backend, "device", "cpu"),
+            )
+            self._search_write_ingest = scfg.write_ingest
+            self._search_ingest_window = max(0.0, scfg.ingest_window)
         # Stratum: the tier planner under the plane, built only when a
         # plane exists (the hot tier IS the pool); attaching rewires pool
         # overflow from reset to eviction. None when disabled.
@@ -224,6 +253,10 @@ class DDSRestServer:
                 max_promote=stcfg.max_promote, half_life=stcfg.half_life,
                 keep=stcfg.keep, compact_segments=stcfg.compact_segments,
             )
+            if self._search is not None:
+                # selections feed the tier directory: keys a query keeps
+                # finding hold their fold rows hot
+                self._search.touch_sink = self._stratum.touch_keys
         # Prism: the same backend and public-parameter boundary, and the
         # resident plane, so MatVec operands gather from its pool
         self.prism: Prism | None = None
@@ -246,6 +279,9 @@ class DDSRestServer:
         if self._ingest_task is not None:
             await _cancel_task(self._ingest_task)
             self._ingest_task = None
+        if self._search_ingest_task is not None:
+            await _cancel_task(self._search_ingest_task)
+            self._search_ingest_task = None
         if self._fold_drainer is not None and not self._fold_drainer.done():
             # resolve queued folds before teardown so no request future is
             # orphaned and no task outlives the server
@@ -285,6 +321,11 @@ class DDSRestServer:
     def _flush_cache(self) -> None:
         self._cache.clear()
         self._cache_version += 1
+        if self._search is not None:
+            # the search index inherits the cache's completed-op trust
+            # argument, so an audit-triggered flush voids it too: the next
+            # query rebuilds every entry from full quorum reads
+            self._search.invalidate()
 
     def _note_stored(self, key: str) -> None:
         if key not in self.stored_keys:
@@ -324,6 +365,7 @@ class DDSRestServer:
         )
         self._cache_put(key, tag, value)
         self._note_resident_write(key, value)
+        self._note_search_write(key, tag, value)
         return k
 
     # ------------------------------------------------ resident write ingest
@@ -371,6 +413,46 @@ class DDSRestServer:
                 await asyncio.to_thread(self._resident.ingest_pending)
 
         self._ingest_task = supervised_task(_drain(), name="proxy.resident_ingest")
+
+    # ------------------------------------------------- search plane ingest
+
+    def _note_search_write(self, key: str, tag, value) -> None:
+        """Queue a committed write's (tag, value) for search-index upsert
+        off the request path, like the resident ingest. value None
+        (RemoveSet) becomes a tombstone so the index never resurrects a
+        deleted record. A full queue is safe: the key just reads stale at
+        the next query and is repaired there."""
+        plane = self._search
+        if plane is None or not self._search_write_ingest:
+            return
+        if plane.note_write(self._search_owner(key), key, tag, value):
+            self._search_ingest_soon()
+
+    def _search_ingest_soon(self) -> None:
+        """Debounced drain, one task at a time (the _resident_ingest_soon
+        pattern): coalesce a write burst into few index-upsert batches on
+        a worker thread."""
+        if (self._search_ingest_task is not None
+                and not self._search_ingest_task.done()):
+            return
+        # capture the plane: the drain sleeps between batches, and the
+        # attribute can be unplugged (shutdown, tests) while it does
+        plane = self._search
+
+        async def _drain():
+            while plane.pending_ingest():
+                await asyncio.sleep(self._search_ingest_window)
+                await asyncio.to_thread(plane.ingest_pending)
+
+        self._search_ingest_task = supervised_task(
+            _drain(), name="proxy.search_ingest"
+        )
+
+    @staticmethod
+    def _search_owner(key: str) -> str:
+        """The key's group in the search plane: one anonymous group, since
+        sharding is not ported."""
+        return ""
 
     def tier_pressure(self) -> float:
         """Blended hot+warm occupancy in [0, 1] (Stratum's `pressure`):
@@ -638,7 +720,7 @@ class DDSRestServer:
             case ("GET", "MultAll"):
                 return await self._fold_aggregate(req, "pubkey")
 
-            # ------------------------- encrypted search (legacy scans) -----
+            # --------------- encrypted search (legacy scan or indexed) ----
 
             case ("GET", "OrderLS") | ("GET", "OrderSL"):
                 return await self._order_route(name, req)
@@ -670,10 +752,127 @@ class DDSRestServer:
 
     # ------------------------------------------------------- search routes
 
+    async def _spy_validate(self) -> list[str]:
+        """Freshness for one indexed query: validate every stored key's
+        index entry with ONE batched `read_tags` fingerprint round (the
+        `_fetch_stored` linearizability argument verbatim — entries come
+        from completed quorum ops, and honest replies can never deflate
+        the quorum-max tag below a completed write). Only stale or
+        missing keys take full ABD reads, re-ingesting as they land.
+        Returns the sorted stored keys; afterwards every one has a
+        validated index entry, so indexed results are exactly the legacy
+        scan's."""
+        plane = self._search
+        keys = sorted(self.stored_keys)
+        if not keys:
+            return keys
+        cached: list[str] = []
+        cached_tags: list = []
+        missing: list[str] = []
+        for k in keys:
+            t = plane.tag(self._search_owner(k), k)
+            if t is None:
+                missing.append(k)
+            else:
+                cached.append(k)
+                cached_tags.append(t)
+        stale = list(missing)
+        if cached:
+            try:
+                dl = self._request_deadline()
+                digest = sigs.key_from_set(cached)
+                fp = sigs.tags_fingerprint(cached_tags)
+                tags = await self._retry(
+                    lambda: self.abd.read_tags(
+                        cached, digest=digest, fingerprint=fp,
+                        cached_tags=cached_tags, deadline=dl,
+                    ),
+                    dl,
+                )
+                if tags is not cached_tags:
+                    # identity return = every vote said "unchanged";
+                    # otherwise compare per key
+                    stale.extend(
+                        k for k, t, ct in zip(cached, tags, cached_tags)
+                        if t != ct
+                    )
+            except Exception as e:  # validation trouble => full refetch
+                log.debug("search tag validation failed (%s); refetch", e)
+                stale = list(keys)
+        if stale:
+            results = await asyncio.gather(
+                *(self._fetch_tagged(k) for k in stale),
+                return_exceptions=True,
+            )
+            for k, r in zip(stale, results):
+                if isinstance(r, Exception):
+                    raise r
+                value, tag, _coord = r
+                plane.upsert(self._search_owner(k), k, tag, value)
+        metrics.inc(
+            "dds_search_index_total", max(0, len(keys) - len(stale)),
+            outcome="hit", help="Spyglass index keys per query by outcome",
+        )
+        metrics.inc(
+            "dds_search_index_total", max(0, len(stale) - len(missing)),
+            outcome="stale", help="Spyglass index keys per query by outcome",
+        )
+        metrics.inc(
+            "dds_search_index_total", len(missing), outcome="miss",
+            help="Spyglass index keys per query by outcome",
+        )
+        return keys
+
+    @staticmethod
+    def _spy_partition(keys: list[str]) -> dict[str, list[str]]:
+        """Stored keys by owning group: one anonymous group, since
+        sharding is not ported."""
+        return {"": keys}
+
+    async def _spy_filter(self, evalfn) -> list[str]:
+        """One indexed selection query: validate, dispatch `evalfn` per
+        group concurrently (each group's predicate ops run on a worker
+        thread), union the key sets, and return them in sorted-key order —
+        exactly the legacy scan's output order."""
+        keys = await self._spy_validate()
+        if not keys:
+            return []
+        parts = self._spy_partition(keys)
+        with tracer.span("proxy.search_eval", k=len(keys), shards=len(parts)):
+            sets = await asyncio.gather(
+                *(asyncio.to_thread(evalfn, self._search.group(gid))
+                  for gid in parts)
+            )
+        selected = set().union(*sets)
+        hits = [k for k in keys if k in selected]
+        self._search.note_selected(hits)
+        return hits
+
+    async def _spy_order(self, pos: int, descending: bool) -> list[str]:
+        """One indexed order-by query: per-group device-sorted runs merged
+        on the host. Run elements are (comparable, key) with the comparable
+        negated for descending order, so `heapq.merge` reproduces the
+        global stable sort — ties in ascending key order, like the legacy
+        stable `sorted` over sorted-key pairs."""
+        keys = await self._spy_validate()
+        if not keys:
+            return []
+        parts = self._spy_partition(keys)
+        with tracer.span("proxy.search_eval", k=len(keys), shards=len(parts)):
+            runs = await asyncio.gather(
+                *(asyncio.to_thread(self._search.group(gid).eval_order,
+                                    pos, descending)
+                  for gid in parts)
+            )
+        stored = set(keys)
+        ordered = [k for _, k in heapq.merge(*runs) if k in stored]
+        self._search.note_selected(ordered)
+        return ordered
+
     @staticmethod
     def _page_params(req: Request) -> tuple[int, int | None]:
-        """`offset`/`limit` pagination params (every search/order route):
-        non-negative ints, ValueError -> 400 via handle()."""
+        """`offset`/`limit` pagination params (every search/order route,
+        both paths): non-negative ints, ValueError -> 400 via handle()."""
         off = int(req.query.get("offset", 0))
         if off < 0:
             raise ValueError("offset must be >= 0")
@@ -690,10 +889,23 @@ class DDSRestServer:
         end = None if lim is None else off + lim
         return Response.json(J.keys_result(keyset[off:end]))
 
+    @staticmethod
+    def _count_search(route: str, path: str) -> None:
+        metrics.inc(
+            "dds_search_requests_total", route=route, path=path,
+            help="search/order/range requests by evaluation path",
+        )
+
     async def _order_route(self, name: str, req: Request) -> Response:
         pos = self._pos(req)
         page = self._page_params(req)
         descending = name == "OrderLS"
+        if self._search is not None:
+            self._count_search(name, "indexed")
+            return self._page_response(
+                await self._spy_order(pos, descending), page
+            )
+        self._count_search(name, "legacy")
         pairs = await self._fetch_stored()
         # records without the column are EXCLUDED (the Search* convention);
         # non-integer columns raise -> 400, like every Search* int cast
@@ -709,6 +921,13 @@ class DDSRestServer:
         item = str(J.parse_item(req.json()))
         page = self._page_params(req)
         want_eq = name == "SearchEq"
+        if self._search is not None:
+            self._count_search(name, "indexed")
+            keyset = await self._spy_filter(
+                lambda idx: idx.eval_eq(pos, item, want_eq)
+            )
+            return self._page_response(keyset, page)
+        self._count_search(name, "legacy")
         pairs = await self._fetch_stored()
         keyset = [
             k for k, v in pairs
@@ -716,10 +935,20 @@ class DDSRestServer:
         ]
         return self._page_response(keyset, page)
 
+    _CMP_OPS = {"SearchGt": "gt", "SearchGtEq": "ge",
+                "SearchLt": "lt", "SearchLtEq": "le"}
+
     async def _cmp_route(self, name: str, req: Request) -> Response:
         pos = self._pos(req)
         item = int(J.parse_item(req.json()))
         page = self._page_params(req)
+        if self._search is not None:
+            self._count_search(name, "indexed")
+            keyset = await self._spy_filter(
+                lambda idx: idx.eval_compare(pos, self._CMP_OPS[name], item)
+            )
+            return self._page_response(keyset, page)
+        self._count_search(name, "legacy")
         pairs = await self._fetch_stored()
         op = {
             "SearchGt": lambda e: e > item,
@@ -734,6 +963,13 @@ class DDSRestServer:
         pos = self._pos(req)
         lo_bound, hi_bound = J.parse_range(req.json())
         page = self._page_params(req)
+        if self._search is not None:
+            self._count_search("Range", "indexed")
+            keyset = await self._spy_filter(
+                lambda idx: idx.eval_range(pos, lo_bound, hi_bound)
+            )
+            return self._page_response(keyset, page)
+        self._count_search("Range", "legacy")
         pairs = await self._fetch_stored()
         keyset = [
             k for k, v in pairs
@@ -746,9 +982,17 @@ class DDSRestServer:
             vals = [str(J.parse_item(req.json()))]
         else:
             vals = [str(x) for x in J.parse_triplet(req.json())]
+        mode = "all" if name == "SearchEntryAND" else "any"
         page = self._page_params(req)
+        if self._search is not None:
+            self._count_search(name, "indexed")
+            keyset = await self._spy_filter(
+                lambda idx: idx.eval_entry(vals, mode)
+            )
+            return self._page_response(keyset, page)
+        self._count_search(name, "legacy")
         pairs = await self._fetch_stored()
-        if name == "SearchEntryAND":
+        if mode == "all":
             keyset = [
                 k for k, v in pairs
                 if all(any(DetKey.compare(str(e), q) for e in v)

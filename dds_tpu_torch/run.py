@@ -4,9 +4,14 @@ Trimmed copy of `dds_tpu/run.py`. `launch(cfg)` boots the topology the
 config describes — by default the north-star one of
 `benchmarks/bft_sum.py`: 4 BFT-ABD replicas, quorum 3 (f = 1), proactive
 recovery off, the in-memory transport, and the proxy on an OS-assigned
-port folding on the `cuda` backend; `[resident]` and `[storage]` reach
-the proxy as their config sections, so Stratum keeps its segment log in
-`[storage] dir`, and `[analytics]` arms Prism's routes (on by default). `load_provider(cfg)` builds the
+port folding on the `cuda` backend; `[resident]`, `[storage]` and
+`[search]` reach the proxy as their config sections, so Stratum keeps its
+segment log in `[storage] dir` and the search plane indexes the
+Search*/Order*/Range columns, and `[analytics]` arms Prism's routes (on
+by default). A config that enables a plane the port does not serve
+(`unported_plane`) is refused with `NotImplementedError` naming it, so
+every file in `configs/` parses but none boots without what it asks for.
+`load_provider(cfg)` builds the
 client's HE provider from the `[client]` section: its keys and its bulk
 encryption backend (`bulk-encrypt-backend = "cuda"` precomputes PSSE
 obfuscators with the exp kernel). `run_workload(dep)` drives
@@ -58,12 +63,53 @@ class Deployment:
         await self.net.quiesce()
 
 
+def unported_plane(cfg: DDSConfig) -> str | None:
+    """The first plane `cfg` enables that the port does not serve, or
+    None: recovery and anti-entropy first, then shard, admission,
+    tenancy, the obs audit, fabric, helmsman, geo, heliograph, attacks,
+    `[crypto] secret-device`, then the other serving surfaces of the
+    reference that are not ported."""
+    checks = (
+        (cfg.recovery.enabled, "[recovery] enabled: proactive recovery (the supervisor)"),
+        (cfg.recovery.anti_entropy_enabled, "[recovery] anti-entropy-enabled: anti-entropy"),
+        (bool(cfg.replicas.sentinent), "[replicas] sentinent: spares (the supervisor)"),
+        (bool(cfg.recovery.snapshot_dir), "[recovery] snapshot-dir: snapshots"),
+        (cfg.shard.enabled, "[shard] enabled: sharding"),
+        (cfg.admission.enabled, "[admission] enabled: admission control"),
+        (cfg.tenancy.enabled, "[tenancy] enabled: tenancy"),
+        (cfg.obs.audit_enabled, "[obs] audit-enabled: the obs audit (Watchtower)"),
+        (cfg.fabric.role != "all" or bool(cfg.fabric.groups), "[fabric]: the shard fabric"),
+        (cfg.helmsman.enabled, "[helmsman] enabled: helmsman"),
+        (cfg.geo.enabled, "[geo] enabled: geo"),
+        (cfg.heliograph.enabled, "[heliograph] enabled: heliograph"),
+        (cfg.attacks.enabled or cfg.attacks.chaos_enabled, "[attacks]: attacks"),
+        (_secret_device(cfg.crypto.secret_device),
+         "[crypto] secret-device: the Sanctum secret-material plane"),
+        (cfg.obs.metrics_route, "[obs] metrics-route: the /metrics route"),
+        (cfg.obs.slo_route, "[obs] slo-route: the SLO engine"),
+        (cfg.obs.trace_route, "[obs] trace-route: the /_trace route"),
+        (bool(cfg.obs.flight_dir), "[obs] flight-dir: the flight recorder"),
+        (cfg.obs.fleet.enabled, "[obs.fleet] enabled: fleet observability"),
+        (cfg.transport.kind != "memory", f"[transport] kind = {cfg.transport.kind!r}: "
+                                         "the TCP transport"),
+        (bool(cfg.replicas.addresses or cfg.replicas.local
+              or cfg.replicas.supervisor_address), "[replicas] addresses: multi-host"),
+        (cfg.security.tls_enabled or cfg.security.intranet_tls_enabled, "[security]: TLS"),
+        (bool(cfg.security.node_public_keys), "[security] node-public-keys: node identity"),
+        (cfg.proxy.key_sync_enabled or bool(cfg.proxy.remote_peers),
+         "[proxy] key-sync-enabled: key sync"),
+        (bool(cfg.proxy.stored_keys_path), "[proxy] stored-keys-path: stored-keys snapshots"),
+    )
+    return next((name for on, name in checks if on), None)
+
+
 async def launch(cfg: DDSConfig | None = None) -> Deployment:
     cfg = cfg or DDSConfig()
-    if cfg.recovery.enabled:
+    plane = unported_plane(cfg)
+    if plane is not None:
         raise NotImplementedError(
-            "proactive recovery needs the supervisor, which is not ported "
-            "to dds_tpu_torch yet"
+            f"{plane} is not ported to dds_tpu_torch; the config enables it, "
+            "so the deployment is refused rather than served without it"
         )
     net = InMemoryNet()
     rcfg = ReplicaConfig(
@@ -110,7 +156,7 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             analytics_max_request_bytes=cfg.analytics.max_request_bytes,
             resident=cfg.resident,
             storage=cfg.storage,
-            search=cfg.search.enabled,
+            search=cfg.search,
         ),
     )
     await server.start()

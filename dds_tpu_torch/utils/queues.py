@@ -1,7 +1,7 @@
 """TimedQueue: a bounded hand-off queue with enqueue timestamps.
 
-Copy of `dds_tpu/utils/queues.py`, the resident plane's write-ingest
-queue: the request path appends work, a debounced worker drains it in
+Copy of `dds_tpu/utils/queues.py`, the write-ingest queue of the resident
+plane and of the search plane: the request path appends work, a debounced worker drains it in
 batches. Every entry is stamped at enqueue, its wait measured at drain,
 and every discarded entry counted under a `reason` label (`full` at
 offer time, `no_pool` for writes with no pool to ingest into), exported
@@ -15,7 +15,8 @@ as the reference's gauge family:
 
 Drains record an `ingest.queue_wait` span (duration = the longest wait in
 the batch). `maxlen=None` means unbounded; bounded queues reject at
-`offer_many` time with reason="full".
+`offer`/`offer_many` time with reason="full"; `clear(reason=)` counts
+what it discards under that reason.
 """
 
 from __future__ import annotations
@@ -49,6 +50,21 @@ class TimedQueue:
         self._dropped: collections.Counter = collections.Counter()
 
     # -------------------------------------------------------------- enqueue
+
+    def offer(self, item: Any) -> bool:
+        """Append one entry; False = queue full (counted reason="full")."""
+        now = self._clock()
+        with self._lock:
+            if self.maxlen is not None and len(self._entries) >= self.maxlen:
+                self._dropped["full"] += 1
+                full = True
+            else:
+                self._entries.append((now, item))
+                self._offered += 1
+                full = False
+        if full:
+            self._count_drop("full", 1)
+        return not full
 
     def offer_many(self, items: Iterable[Any]) -> int:
         """Append entries until full; returns how many were accepted (the
@@ -96,6 +112,19 @@ class TimedQueue:
             self._drained += len(entries)
         self._record_wait([max(0.0, now - ts) for ts, _ in entries])
         return [item for _, item in entries]
+
+    def clear(self, *, reason: Optional[str] = None) -> int:
+        """Discard everything queued; with `reason` the discards count as
+        drops (the search plane's invalidation), without it they simply
+        vanish."""
+        with self._lock:
+            n = len(self._entries)
+            self._entries.clear()
+            if reason is not None and n:
+                self._dropped[reason] += n
+        if reason is not None and n:
+            self._count_drop(reason, n)
+        return n
 
     # ------------------------------------------------------------ telemetry
 

@@ -668,3 +668,63 @@ def test_fold_weighted_launches_the_ladders_count(cuda, monkeypatch, mode):
     assert fold_weighted(cs[:64], small, n2, device=cuda) == fold_weighted(
         cs[:64], small, n2, device="cpu")
     assert len(got) == 2
+
+
+# ------------------------------------------------ the search plane's predicate ops
+
+
+def _predicate_column(n: int, seed: int):
+    """n packable OPE-like values (ties, the lane edges) and digest words."""
+    from dds_tpu_torch.ops import predicate as pr
+
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, pr.PACK_MAX + 1, size=n // 16)
+    vals = [int(v) for v in np.where(rng.random(n) < 0.5,
+                                     rng.integers(0, pr.PACK_MAX + 1, size=n),
+                                     rng.choice(pool, size=n))]
+    vals[:4] = [0, pr.LANE_MASK, pr.LANE_MASK + 1, pr.PACK_MAX]
+    words = [f"w{int(x)}" for x in rng.integers(0, n // 8, size=n)]
+    return vals, words
+
+
+@pytest.mark.parametrize("op", ["compare", "range", "eq", "entry", "sort"])
+def test_predicate_ops_on_the_card_equal_the_cpu_at_65536(cuda, op):
+    """Each of the five predicate ops on CUDA lane tensors at N = 65,536
+    (one full resident pool's rows) against the same op on the CPU:
+    identical masks and permutations, the result on the card."""
+    from dds_tpu_torch.ops import predicate as pr
+
+    vals, words = _predicate_column(65536, 91)
+    cpu = torch.device("cpu")
+    hi, lo = pr.pack_ints(vals)
+    dhi, dlo = pr.pack_digests(words)
+    dev = {k: t.to(cuda) for k, t in (("hi", hi), ("lo", lo), ("dhi", dhi), ("dlo", dlo))}
+    cases = {
+        "compare": [(lambda d, h, l, o=o, t=t: pr.compare_mask(h, l, o, t, device=d))
+                    for o in ("gt", "ge", "lt", "le") for t in (vals[9], vals[4] | 1, 0)],
+        "range": [lambda d, h, l: pr.range_mask(h, l, vals[5], vals[6] | pr.LANE_MASK,
+                                                 device=d)],
+        "sort": [(lambda d, h, l, desc=desc: pr.sort_perm(h, l, desc, device=d))
+                 for desc in (False, True)],
+    }
+    if op in cases:
+        for fn in cases[op]:
+            got = fn(cuda, dev["hi"], dev["lo"])
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), fn(cpu, hi, lo))
+        return
+    if op == "eq":
+        for q in (words[3], "absent"):
+            got = pr.eq_mask(dev["dhi"], dev["dlo"], q, device=cuda)
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), pr.eq_mask(dhi, dlo, q, device=cpu))
+        return
+    width = 8
+    mh = dhi.reshape(-1, width)
+    ml = dlo.reshape(-1, width)
+    valid = torch.rand(mh.shape, generator=torch.Generator().manual_seed(5)) < 0.8
+    for queries, mode in (([words[0]], "any"), (words[1:4], "any"), (words[:2], "all")):
+        got = pr.entry_mask(mh.to(cuda), ml.to(cuda), valid.to(cuda), queries, mode,
+                            device=cuda)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), pr.entry_mask(mh, ml, valid, queries, mode, device=cpu))

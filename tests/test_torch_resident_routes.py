@@ -311,11 +311,28 @@ def test_stratum_toml_sections_parse_as_the_reference():
         DDSConfig.from_dict({"storage": {"warm-megabytes": 1}})
 
 
-def test_search_plane_still_refuses():
+def test_search_plane_still_refuses(monkeypatch):
+    """The search plane is ported, so `[search]` beside `[resident]` boots;
+    what it still refuses is a hidden host copy: it builds on the
+    backend's device, like the resident plane, and on `cuda` without a
+    card it raises instead of building on the CPU."""
+    from dds_tpu_torch.search import SearchPlane
+
     cfg = port_config(None, 64, "cuda")
     cfg.search.enabled = True
-    with pytest.raises(NotImplementedError, match="search plane"):
-        asyncio.run(launch(cfg))
+
+    async def boot():
+        dep = await launch(cfg)
+        try:
+            s = dep.server
+            return s._search.device, s._resident.device, s.backend.device
+        finally:
+            await dep.stop()
+
+    assert asyncio.run(boot()) == (torch.device("cpu"),) * 3
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SearchPlane(device="cuda")
 
 
 def test_no_hidden_cpu_plane(monkeypatch):
