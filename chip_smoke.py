@@ -8,14 +8,15 @@ obfuscators r^n mod n^2 from the modexp kernel) feeding PutSets into that
 stack, MultAll over RSA-1024 ciphertexts (L = 64) in each family, the
 generated mixed workload over every data route, the resident plane's fused
 multi-group folds and write-path ingest, Stratum's tiered folds,
-Prism's encrypted analytics (MatVec, WeightedSum, GroupBySum) and the
-search plane's indexed Search*/Order*/Range routes — and holds every CUDA
-kernel on them against its plain PyTorch version. Phases, each printing
+Prism's encrypted analytics (MatVec, WeightedSum, GroupBySum), the
+search plane's indexed Search*/Order*/Range routes and the Sanctum
+decrypt (both CRT legs of a batch on the per-column-modulus kernels) —
+and holds every CUDA kernel on them against its plain PyTorch version. Phases, each printing
 one JSON line; any failure exits non-zero:
 
 1. device     the card, from torch and nvidia-smi (a CUDA device is required);
 2. build      nvcc for sm_90a of every kernel source (mont_mul, mont_exp,
-              mont_prod3, mont_kfused, mont_redc, mont_k1), all started
+              mont_prod3, mont_kfused, mont_redc, mont_k1, mont_rowmod), all started
               together, with each kernel's ptxas registers, stack, spills
               and shared memory; a spill in any of them (every one is a
               warp kernel on mont_warp.cuh) fails the phase;
@@ -46,6 +47,14 @@ one JSON line; any failure exits non-zero:
               bases (exponent 0xF0E1); a full-width pow_mod (exponent n,
               B = 8,192) against Python `pow` on 16 sampled rows; pow_mod
               at odd L = 33;
+6b. parity    (what = "rowmod") the Sanctum decrypt's kernels
+              (mont_rowmod.cu: the product and the ladder with one modulus
+              and one exponent a column) against their plain versions,
+              bit for bit: L = 128, B = 8,192 columns with two seeded
+              2,048-bit moduli alternating by column block, then one
+              modulus a column; digit columns of unequal lengths (leading
+              zeros); L = 33 and 256; a carry-edge modulus a column at
+              L = 33, 128 and 256; column slices;
 7. timing     CUDA-event times of warmed folds at K = 65,536 and 8,192 and
               of one B = 4,096 launch, each beside the plain version's time
               and the least time the card could take (the bound); the
@@ -97,6 +106,25 @@ one JSON line; any failure exits non-zero:
               to the column's total and equal the Python-int fold of the
               stored ciphertexts; the exp kernel's counter is zeroed just
               before and read just after and must be > 0;
+13b. decrypt  benchmarks/decrypt_throughput.py's shape: at 1,024 and 2,048
+              bits and B = 256, per-op `decrypt` on a slice,
+              `decrypt_batch` on the host plan and the Sanctum device plan,
+              each verified against the plaintexts before any timing; at
+              2,048 bits the device plan at B = 4,096 and 8,192 (one and
+              two chunks): decrypts/s, `kernel.sanctum_crt.*` spans, the
+              host's marshal, limbs-to-ints and recombination ms a chunk,
+              exactly 2 mont_mul_rowmod and 1 mont_exp_rowmod launches a
+              chunk and no other kernel; each rowmod kernel at one chunk's
+              8,192 columns beside its bound, its plain version once (the
+              ladder on 64 columns), two shared-modulus mont_exp launches
+              over test moduli as a yardstick; then `run.load_provider`
+              with `[crypto] secret-device` and the client phase's keys,
+              `HomoProvider.decrypt_rows` over its 8,192 stored rows read
+              back by GetSet (every PSSE value its plaintext, a 64-row
+              sample equal to the host plan, 2 + 1 launches a chunk);
+              hygiene: no key's p, q, p^2 or q^2 in ModCtx.make's cache
+              after three keys, one mont_rowmod build, scrub() closes
+              every plan;
 14. multall   BASELINE config 3 (benchmarks/product.py's K): a fresh stack
               (min_device_batch = 0) loads K = 16,384 one-column records of
               RSA-1024 ciphertexts by PutSet; in modes 0, 1 and 2, 6
@@ -158,7 +186,8 @@ one JSON line; any failure exits non-zero:
 18. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
               launch; the analytics requests' launches are the paths
-              "analytics" and "analytics_rest"); then one {"search": ...}
+              "analytics" and "analytics_rest", the rowmod kernels' the
+              path "decrypt", `decrypt_rows`' run); then one {"search": ...}
               line: each predicate op's calls on the indexed stack (gates,
               timing and rounds), calls a query, held ms, bound and rows/s
               at 65,536 rows, each route's warm ms on both paths and the
@@ -184,7 +213,9 @@ row is 5E + 14 products in the exp kernel (the window table, then 4
 squarings and 1 multiply per digit) and 5E + 16 in pow_mod. B4 and B5 are
 3 (W/2)^2 word products a column, the reduction W^2 + W, so a Karatsuba
 multiply is 28,800 against CIOS's 32,896 at W = 128. Mode 1's half sums
-and recombination are adds, bound by bytes. Every kernel runs one warp a
+and recombination are adds, bound by bytes. The rowmod kernels count as
+B1 and B3 at their L (128 for the decrypt), their bytes adding each
+column's modulus words, n0inv and, for the ladder, R mod N and the digits. Every kernel runs one warp a
 column on the same core.
 
 On a card without the `cryptography` package the AES-backed columns (CHE,
@@ -296,7 +327,8 @@ def time_ms(fn, reps: int, warm: int, device, hold: bool = False) -> tuple[float
 # the sources whose kernels must keep operands and accumulator in registers
 # (the warp kernels of mont_warp.cuh)
 NO_SPILL_SOURCES = tuple(f"dds_tpu_torch/csrc/{name}.cu" for name in (
-    "mont_mul", "mont_exp", "mont_redc", "mont_kfused", "mont_prod3", "mont_k1"))
+    "mont_mul", "mont_exp", "mont_redc", "mont_kfused", "mont_prod3", "mont_k1",
+    "mont_rowmod"))
 
 
 def ptxas_report(log: str) -> dict:
@@ -619,6 +651,91 @@ def phase_timing_exp(ctx, dev, sizes, card) -> dict:
            "host_obfuscators_per_s": 1e3 / statistics.median(host)}
     emit("timing", what="exp", **rec)
     return rec
+
+
+ROWMOD_LS = (33, 128, 256)  # W = 17, 64, 128: 1, 2 and 4 words per lane
+
+
+def rowmod_inputs(moduli: list[int], L: int, seed: int, E: int, dev) -> tuple:
+    """One column a modulus: limbs-major operands a, b below each column's
+    modulus, (E, B) int32 MSB-first digit columns of unequal lengths
+    (leading zeros) and the column constants `(N32, n0inv32, one_mont)`
+    (`mont_cuda.rowmod_args`)."""
+    import torch
+    from dds_tpu_torch.ops import mont_cuda
+
+    rng = np.random.default_rng(seed)
+    B = len(moduli)
+    a = [int.from_bytes(rng.bytes(2 * L), "little") % n for n in moduli]
+    b = [int.from_bytes(rng.bytes(2 * L), "little") % n for n in moduli]
+    a[0] = moduli[0] - 1
+    lens = rng.integers(1, E + 1, size=B)
+    digits = rng.integers(0, 16, size=(E, B)).astype(np.int32)
+    digits[np.arange(E)[:, None] < (E - lens)[None, :]] = 0
+    return (limbs_major(a, L, dev), limbs_major(b, L, dev),
+            torch.from_numpy(digits).to(dev), mont_cuda.rowmod_args(moduli, L, dev))
+
+
+def rowmod_parity(moduli: list[int], L: int, seed: int, E: int, dev, what: str) -> int:
+    """Both per-column-modulus kernels against their plain versions on
+    the same inputs (bit-exact); returns the largest |difference| (0)."""
+    import torch
+    from dds_tpu_torch.ops import mont_cuda
+
+    a, b, D, (N32, n0, one) = rowmod_inputs(moduli, L, seed, E, dev)
+    for name, got, want in (
+            ("mul_rowmod", mont_cuda.mul_rowmod(a, b, N32, n0),
+             mont_cuda.mul_rowmod_plain(a, b, N32, n0)),
+            ("exp_rowmod", mont_cuda.exp_rowmod(a, D, one, N32, n0),
+             mont_cuda.exp_rowmod_plain(a, D, one, N32, n0))):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} kernel != plain version ({what}, L={L}, "
+                                 f"B={len(moduli)}): max |diff| {max_abs_diff(got, want)}")
+    return 0
+
+
+def phase_parity_rowmod(dev, sizes) -> dict:
+    """The Sanctum decrypt's kernels (`csrc/mont_rowmod.cu`) against their
+    plain versions on the card, bit for bit: at L = 128, B columns with two
+    seeded 2,048-bit moduli alternating by column block (as the fused
+    decrypt stacks p^2 and q^2), then one modulus a column; per-column
+    digits of unequal lengths; column slices; L = 33 and 256; a different
+    carry-edge modulus in every column at each L."""
+    import torch
+    from dds_tpu_torch.ops import mont_cuda
+    from dds_tpu_torch.ops.montgomery import carry_edge_moduli
+
+    t = time.perf_counter()
+    B, E = sizes["rowmod_B"], sizes["rowmod_E"]
+    rng = np.random.default_rng(70)
+
+    def odd(L: int, count: int) -> list[int]:
+        return [int.from_bytes(rng.bytes(2 * L), "little") | 1 | (1 << (16 * L - 1))
+                for _ in range(count)]
+
+    two = odd(128, 2)
+    cases = [("two moduli by column block", 128, [two[0]] * (B // 2) + [two[1]] * (B // 2)),
+             ("one modulus a column", 128, odd(128, B))]
+    cases += [("odd and wide L", L, odd(L, 64)) for L in (33, 256)]
+    cases += [("carry edges", L, (carry_edge_moduli(L) * 22)[:64]) for L in ROWMOD_LS]
+    for i, (what, L, mods) in enumerate(cases):
+        rowmod_parity(mods, L, 71 + i, E, dev, what)
+    # column slices: the right half of a (L, 2B') array against the left
+    mods = odd(128, 96)
+    a, b, D, (N32, n0, one) = rowmod_inputs(mods, 128, 90, E, dev)
+    wa, wD = torch.cat([a, a], dim=1), torch.cat([D, D], dim=1)
+    if not (torch.equal(mont_cuda.mul_rowmod(wa[:, 96:], b, N32, n0),
+                        mont_cuda.mul_rowmod(a, b, N32, n0))
+            and torch.equal(mont_cuda.exp_rowmod(wa[:, 96:], wD[:, 96:], one, N32, n0),
+                            mont_cuda.exp_rowmod(a, D, one, N32, n0))):
+        raise AssertionError("a rowmod kernel on column slices != on contiguous columns")
+    rec = {"B": B, "E": E, "Ls": sorted({L for _, L, _ in cases}),
+           "cases": [{"what": w, "L": L, "B": len(m)} for w, L, m in cases],
+           "slice": True, "max_abs_err": 0, "tolerance": 0,
+           "seconds": time.perf_counter() - t}
+    emit("parity", what="rowmod", **rec)
+    return rec
+
 
 
 ODD_MODULI = {33: (1 << 519) | 0x1F3 | (12345 << 200),   # L = 33: odd
@@ -2910,10 +3027,12 @@ async def phase_client(dev, sizes) -> dict:
                 st, b = await http_request("127.0.0.1", port, "GET", f"/GetSet/{key}")
             if st != 200:
                 raise AssertionError(f"GetSet {key} failed: {st}")
-            return int(json.loads(b)["contents"][PSSE_POS])
+            return json.loads(b)["contents"]
 
+        # each client ran its PutSets in order: its keys follow its digest
         keys = [k for c in clients for k in c.stored_keys]
-        stored = await asyncio.gather(*(get(k) for k in keys))
+        contents = await asyncio.gather(*(get(k) for k in keys))
+        stored = [int(row[PSSE_POS]) for row in contents]
     finally:
         await dep.stop()
     if len(set(stored)) != C * ops:
@@ -2935,6 +3054,226 @@ async def phase_client(dev, sizes) -> dict:
         "distinct_psse_ciphertexts": len(set(stored)),
     }
     emit("client", **rec)
+    # for the decrypt phase: the stored rows as GetSet read them back, their
+    # plaintext rows, the schema and the client's keys
+    return {**rec, "rows": contents, "plain_rows": [i.set for d in digests for i in d.payload],
+            "keys_json": provider.keys.to_json()}
+
+
+def rowmod_work(L: int, cols: int, products: int, E: int = 0) -> tuple[float, float]:
+    """(integer multiply-adds, bytes) of `cols` columns of `products`
+    Montgomery products each at L limbs (2W^2 + W word products of 2
+    IMADs); bytes: the limbs-major operands (2 (L, cols) int32 for a
+    product, the base and R mod N for a ladder with its (E, cols) digits)
+    and the column's modulus words and n0inv read once, the (L, cols)
+    result written once."""
+    W = (L + 1) // 2
+    imads = cols * products * (2 * W * W + W) * 2
+    nbytes = cols * (3 * L + E + W + 1) * 4
+    return imads, nbytes
+
+
+def decrypt_cts(key, B: int, seed: int) -> tuple[list[int], list[int]]:
+    """(plaintexts, ciphertexts): B seeded 48-bit plaintexts under a small
+    rotating obfuscator pool, as benchmarks/decrypt_throughput.py makes
+    them (a decrypt measurement; the pool keeps set-up cheap)."""
+    pk = key.public
+    rng = np.random.default_rng(seed)
+    ms = [int(x) for x in rng.integers(0, 1 << 48, size=B)]
+    blinds = [pk.blind(int.from_bytes(rng.bytes(pk.n.bit_length() // 8 - 1), "little"))
+              for _ in range(16)]
+    return ms, [pk.encrypt(m, rn=blinds[i % 16]) for i, m in enumerate(ms)]
+
+
+def best_s(fn, reps: int) -> float:
+    best = float("inf")
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t)
+    return best
+
+
+def phase_decrypt(dev, sizes, client, card) -> dict:
+    """`benchmarks/decrypt_throughput.py`'s shape on the port: per-op
+    `decrypt`, `decrypt_batch` on the host plan and the Sanctum device
+    plan at each key size and B ciphertexts, every path decrypt-verified
+    before any timing; the device plan at the main key size and larger B
+    (full chunks) with its spans, the host's marshal and recombination,
+    and its launches; each kernel held at one chunk's columns beside its
+    bound, its plain version once, and the shared-modulus exp kernel
+    twice as a yardstick; then the path through the entry points
+    (`run.load_provider` with `[crypto] secret-device`, `decrypt_rows`
+    over the client phase's stored rows) and the hygiene checks."""
+    import torch
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.ops import montgomery, mont_cuda
+    from dds_tpu_torch.ops.bignum import batch_to_ints, to_device
+    from dds_tpu_torch.run import load_provider
+    from dds_tpu_torch.sanctum import SecretBackend, is_secret_backend, plan_for
+    from dds_tpu_torch.sanctum.device import _crt_columns
+    from dds_tpu_torch.sanctum.plane import _crt_recombine
+    from dds_tpu_torch.utils.config import DDSConfig
+    from dds_tpu_torch.utils.trace import tracer
+
+    t_phase = time.perf_counter()
+    handle = SecretBackend(device=dev)
+    B, reps = sizes["decrypt_B"], sizes["decrypt_reps"]
+    keys, sizes_rec = [], {}
+    for bits in sizes["decrypt_bits"]:
+        key = bench_paillier_key(bits)
+        keys.append(key)
+        ms, cts = decrypt_cts(key, B, 17 + bits)
+        host_slice = cts[: max(8, B // 32)]
+        if [key.decrypt(c) for c in host_slice] != ms[: len(host_slice)]:
+            raise AssertionError(f"per-op decrypt mismatch at {bits} bits")
+        if key.decrypt_batch(cts) != ms:
+            raise AssertionError(f"host-plan decrypt mismatch at {bits} bits")
+        if key.decrypt_batch(cts, backend=handle, min_batch=1) != ms:
+            raise AssertionError(f"device-plan decrypt mismatch at {bits} bits")
+        plan = plan_for(key, handle)
+        per_op = len(host_slice) / best_s(lambda: [key.decrypt(c) for c in host_slice], 1)
+        host = B / best_s(lambda: key.decrypt_batch(cts), 1)
+        device = B / best_s(lambda: plan.decrypt_batch(cts), reps)
+        sizes_rec[bits] = {"B": B, "per_op_ops": per_op, "batched_host_ops": host,
+                           "sanctum_device_ops": device, "sanctum_speedup": device / per_op,
+                           "verified": True}
+    emit("decrypt", what="sizes", sizes=sizes_rec)
+
+    # the main key size's device plan at full chunks
+    key = bench_paillier_key(sizes["key_bits"])
+    plan = plan_for(key, handle)
+    big = {}
+    Bmax = max(sizes["decrypt_big"])
+    ms, cts = decrypt_cts(key, Bmax, 23)
+    for Bb in sizes["decrypt_big"]:
+        chunks = -(-Bb // plan.chunk)
+        reset_counts()
+        if plan.decrypt_batch(cts[:Bb]) != ms[:Bb]:
+            raise AssertionError(f"device-plan decrypt mismatch at B={Bb}")
+        counts = read_counts(dev)
+        want = {"mont_mul_rowmod": 2 * chunks, "mont_exp_rowmod": chunks}
+        if dev.type == "cuda" and {k: v for k, v in counts.items() if v} != want:
+            raise AssertionError(f"B={Bb}: launches {counts}, want {want}")
+        tracer.reset()
+        wall = best_s(lambda: plan.decrypt_batch(cts[:Bb]), reps)
+        spans = span_stats(("kernel.sanctum_crt",))
+        part = cts[: min(Bb, plan.chunk)]
+        Bp = 1 << max(0, (len(part) - 1).bit_length())
+        marshal = best_s(lambda: plan._marshal(part, Bp), reps)
+        legs = plan._legs(plan._marshal(part, Bp), len(part))
+        to_ints = best_s(lambda: (batch_to_ints(legs[: len(part)]),
+                                  batch_to_ints(legs[Bp: Bp + len(part)])), reps)
+        xps, xqs = batch_to_ints(legs[: len(part)]), batch_to_ints(legs[Bp: Bp + len(part)])
+        recombine = best_s(lambda: _crt_recombine(xps, xqs, plan.p, plan.q, plan.n, plan.hp,
+                                                  plan.hq, plan.qinv), reps)
+        big[Bb] = {"chunks": chunks, "decrypts_per_s": Bb / wall, "wall_ms": wall * 1e3,
+                   "launches": want, "spans": spans,
+                   "per_chunk_host_ms": {"marshal": marshal * 1e3, "to_ints": to_ints * 1e3,
+                                         "recombine": recombine * 1e3}}
+
+    # each kernel held at one chunk's columns (the plan's own inputs)
+    part = cts[: plan.chunk]
+    Bp = 1 << max(0, (len(part) - 1).bit_length())
+    consts = [torch.from_numpy(a).to(dev)
+              for a in (plan._N, plan._n0, plan._R2, plan._one, plan._digits)]
+    x = to_device(plan._marshal(part, Bp), dev).T.contiguous()
+    Nr, n0r, R2r, oner, digr = _crt_columns(Bp, *consts)
+    L, cols, E = x.shape[0], x.shape[1], digr.shape[0]
+    mul_ms, _ = held_ms(lambda: mont_cuda.mul_rowmod(x, R2r, Nr, n0r), sizes["reps_path"], dev)
+    xm = mont_cuda.mul_rowmod(x, R2r, Nr, n0r)
+    exp_ms, got = time_ms(lambda: mont_cuda.exp_rowmod(xm, digr, oner, Nr, n0r),
+                          sizes["reps_exp"], 1, dev)
+    mul_plain_ms, want = time_ms(lambda: mont_cuda.mul_rowmod_plain(x, R2r, Nr, n0r), 1, 0, dev)
+    err_mul = max_abs_diff(xm, want)
+    k = sizes["decrypt_plain_cols"]  # the plain ladder on a slice: it is slow
+    sl = [c for half in (0, cols // 2) for c in range(half, half + k // 2)]
+    idx = torch.tensor(sl, device=dev)
+    exp_plain_ms, want = time_ms(
+        lambda: mont_cuda.exp_rowmod_plain(xm[:, idx], digr[:, idx], oner[:, idx], Nr[idx],
+                                           n0r[idx]), 1, 0, dev)
+    err_exp = max_abs_diff(got[:, idx], want)
+    if err_mul or err_exp:
+        raise AssertionError(f"rowmod kernels != plain at the decrypt shape: {err_mul}, {err_exp}")
+    mul_bound = bound_ms(*rowmod_work(L, cols, 1), card["sms"], card["clock_mhz"])
+    exp_bound = bound_ms(*rowmod_work(L, cols, 5 * E + 14, E), card["sms"], card["clock_mhz"])
+    # yardstick: the same ladder as one shared-modulus launch a leg (B3,
+    # mont_exp.cu) over two test moduli of p^2's width (key_bits), not a
+    # key's, each with one chunk's ciphertexts and a key_bits/2-bit exponent
+    yard = []
+    rng = np.random.default_rng(24)
+    Ly, By = sizes["key_bits"] // 16, sizes["decrypt_big"][0]
+    for i in range(2):
+        ctx = montgomery.ModCtx.make(int.from_bytes(rng.bytes(2 * Ly), "little")
+                                     | 1 | (1 << (16 * Ly - 1)), Ly)
+        yard.append((ctx, to_device(residues(ctx, By, 25 + i), dev).T.contiguous()))
+    ydig = torch.from_numpy(montgomery._exp_to_digits(
+        int.from_bytes(rng.bytes(sizes["key_bits"] // 16), "little")
+        | 1 << (sizes["key_bits"] // 2 - 1)).astype(np.int32)).to(dev)
+    yard_ms, _ = time_ms(lambda: [mont_cuda.exp(c, xb, ydig) for c, xb in yard],
+                         sizes["reps_exp"], 1, dev)
+    kern = {"L": L, "columns": cols, "E": E, "products_per_column": 5 * E + 14,
+            "mont_mul_rowmod": {"ms": mul_ms, "plain_ms": mul_plain_ms, "bound_ms": mul_bound[0],
+                                "bound_by": mul_bound[1], "max_abs_err": err_mul},
+            "mont_exp_rowmod": {"ms": exp_ms, "plain_ms": exp_plain_ms, "plain_columns": k,
+                                "bound_ms": exp_bound[0], "bound_by": exp_bound[1],
+                                "share": exp_bound[0] / exp_ms, "max_abs_err": err_exp},
+            "yardstick_two_mont_exp_ms": yard_ms,
+            "yardstick": {"L": Ly, "B_each": By, "E": len(ydig)}}
+    emit("decrypt", what="device_plan", big=big, kernels=kern)
+
+    # the path through the entry points: load_provider with the opt-in and
+    # the client phase's keys, decrypt_rows over the rows it stored
+    cfg = DDSConfig()
+    cfg.crypto.secret_device = True
+    cfg.client.he_keys_inline = client["keys_json"]
+    cfg.client.device = dev.type
+    provider = load_provider(cfg)
+    if not (is_secret_backend(provider.secret_backend)
+            and provider.secret_backend.device.type == dev.type):
+        raise AssertionError("load_provider with secret-device gave no device Sanctum handle")
+    rows, plain = client["rows"], client["plain_rows"]
+    reset_counts()
+    t = time.perf_counter()
+    dec = provider.decrypt_rows(rows, 8, client["schema"])
+    rows_s = time.perf_counter() - t
+    counts = read_counts(dev)
+    chunks = -(-len(rows) // provider.secret_backend.chunk)
+    want = {"mont_mul_rowmod": 2 * chunks, "mont_exp_rowmod": chunks}
+    if dev.type == "cuda" and {k: v for k, v in counts.items() if v} != want:
+        raise AssertionError(f"decrypt_rows: launches {counts}, want {want}")
+    if [r[PSSE_POS] for r in dec] != [r[PSSE_POS] for r in plain]:
+        raise AssertionError("decrypt_rows: a PSSE value != its plaintext")
+    k = provider.keys.psse
+    sample = [int(r[PSSE_POS]) for r in rows[:64]]
+    if k.decrypt_batch(sample) != [r[PSSE_POS] for r in dec[:64]]:
+        raise AssertionError("decrypt_rows sample != the host plan")
+    keys.append(k)
+
+    # hygiene: no key's p or q (or their squares) in ModCtx.make's cache;
+    # one mont_rowmod build for every key; scrub() closes the plans
+    cached = set(montgomery.cached_moduli())
+    leaked = [i for i, kk in enumerate(keys + [key])
+              if cached & {kk.p, kk.q, kk.p * kk.p, kk.q * kk.q}]
+    if leaked:
+        raise AssertionError(f"secret-derived moduli in ModCtx.make's cache (keys {leaked})")
+    libs = sorted(p.name for p in mont_cuda.BUILD_DIR.glob("libmont_rowmod-*.so"))
+    if dev.type == "cuda" and libs != [mont_cuda.ROWMOD.library_path().name]:
+        raise AssertionError(f"mont_rowmod builds: {libs}")
+    plans = [plan_for(kk, handle) for kk in keys + [key]]
+    for kk in keys + [key]:
+        kk.scrub()
+    if not all(p.closed and not p._N.any() for p in plans):
+        raise AssertionError("scrub() left a device plan open")
+    rec = {"rows": {"count": len(rows), "seconds": rows_s, "launches": want,
+                    "psse_exact": True, "sample_equals_host": 64},
+           "hygiene": {"keys": len(keys) + 1, "cached_moduli": len(cached),
+                       "secret_moduli_cached": 0, "rowmod_libraries": libs,
+                       "plans_closed": len(plans)},
+           "sizes": sizes_rec, "big": big, "kernels": kern,
+           "seconds": time.perf_counter() - t_phase}
+    emit("decrypt", what="entry_points", rows=rec["rows"], hygiene=rec["hygiene"],
+         seconds=rec["seconds"])
     return rec
 
 
@@ -3096,7 +3435,12 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   # pop-factor and theta
                   tier_groups=2, tier_max=4096, tier_chunk=256, tier_promote=2.0,
                   tier_max_promote=256, tier_pop_factor=10, tier_head=2048, tier_K=8192,
-                  tier_theta=0.9, tier_reps=5, tier_warmup=3, tier_top=64)
+                  tier_theta=0.9, tier_reps=5, tier_warmup=3, tier_top=64,
+                  # decrypt_throughput.py's sizes and B; the device plan at one
+                  # and two full chunks; the rowmod parity's columns and digits;
+                  # the plain ladder's columns
+                  decrypt_bits=[1024, 2048], decrypt_B=256, decrypt_big=[4096, 8192],
+                  decrypt_reps=3, rowmod_B=8192, rowmod_E=32, decrypt_plain_cols=64)
 
 
 def main(argv=None) -> int:
@@ -3146,7 +3490,9 @@ def main(argv=None) -> int:
                      analytics_slice=64, tier_groups=2, tier_max=32, tier_chunk=16,
                      tier_promote=2.0, tier_max_promote=16, tier_pop_factor=10,
                      tier_head=32, tier_K=256, tier_theta=0.9, tier_reps=2,
-                     tier_warmup=3, tier_top=4)
+                     tier_warmup=3, tier_top=4, decrypt_bits=[512], decrypt_B=16,
+                     decrypt_big=[32, 64], decrypt_reps=1, rowmod_B=64, rowmod_E=8,
+                     decrypt_plain_cols=8)
         card = {"name": "cpu (rehearsal)", **card_numbers(dev)}
     else:
         if not torch.cuda.is_available():
@@ -3172,6 +3518,7 @@ def main(argv=None) -> int:
     par_k = phase_parity_karatsuba(ctx, dev, sizes, par["k_rows"])
     par_nf = phase_parity_nofinal(ctx, dev, sizes)
     par_exp = phase_parity_exp(ctx, dev, sizes)
+    par_rm = phase_parity_rowmod(dev, sizes)
     tim = phase_timing(ctx, dev, sizes, card)
     tim_k = phase_timing_karatsuba(ctx, dev, sizes, card)
     tim_exp = phase_timing_exp(ctx, dev, sizes, card)
@@ -3179,6 +3526,7 @@ def main(argv=None) -> int:
     e2e = asyncio.run(phase_e2e(dev, sizes))
     asyncio.run(phase_coalesce(dev, sizes))
     client = asyncio.run(phase_client(dev, sizes))
+    decrypt = phase_decrypt(dev, sizes, client, card)
     multall = asyncio.run(phase_multall(dev, sizes))
     mixed = asyncio.run(phase_mixed(dev, sizes))
     plane = phase_search_plane(dev, sizes)
@@ -3232,6 +3580,26 @@ def main(argv=None) -> int:
         "bound_by": tim_exp["exp_bound_by"],
         "library_ms": None,
     }]
+    dk = decrypt["kernels"]
+    for name, replaces, twin in (
+        ("mont_mul_rowmod", "dds_tpu/ops/montgomery.py:115",
+         "montgomery._mont_mul_rowmod_raw (XLA, not a Pallas kernel) in "
+         "sanctum/device.py::_fused_crt_raw (:95)"),
+        ("mont_exp_rowmod", "dds_tpu/ops/montgomery.py:155",
+         "montgomery._mont_exp_rowdigits_raw (XLA, not a Pallas kernel) in "
+         "sanctum/device.py::_fused_crt_raw (:95)")):
+        t = dk[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "dds_tpu_torch/csrc/mont_rowmod.cu",
+            "replaces": replaces, "tpu_twin": twin,
+            "launches_by_path": {"decrypt": decrypt["rows"]["launches"][name]},
+            "max_abs_err": max(par_rm["max_abs_err"], t["max_abs_err"]),
+            "per": f"one launch, {dk['columns']} columns ({dk['columns'] // 2} ciphertexts), "
+                   f"L={dk['L']}" + (f", E={dk['E']}; plain_ms on {t['plain_columns']} "
+                                     f"columns" if name == "mont_exp_rowmod" else ""),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+        })
     # each Karatsuba kernel's launches on the SumAll e2e run, MultAll's run,
     # the resident plane's folds and SumAlls and the tiered folds, in its mode
     k1, kf = ({k: {"sumall": e2e["karatsuba_modes"][m]["launches"][k],

@@ -6,8 +6,9 @@ reference's `SJHomoLibProvider` trait (`utils/SJHomoLibProvider.scala:
 and whole-row encrypt/decrypt against a column-schema list (the variable
 part is `row[until:]`, nothing past the end).
 
-The Sanctum secret-material plane is not ported: `secret_backend` must be
-None, and PSSE decryption is host-only.
+PSSE bulk decryption (`decrypt_rows`) runs on the Sanctum
+secret-material plane: host-only unless the provider carries a
+device-posture `secret_backend` (`sanctum.SecretBackend`).
 
 Ciphertext wire types (JSON-safe):
   OPE -> int, PSSE/MSE -> decimal string, CHE/LSE/None -> base64 string.
@@ -40,19 +41,14 @@ class HomoProvider:
     # obfuscator (textbook blinding), only the modexp moves off the host
     # hot loop. Encrypt-only: r^n needs public parameters alone.
     bulk_backend: object = None
-    # the reference's Sanctum handle for the decrypt CRT legs; not ported,
-    # so only None (host-only decryption) is accepted
+    # Sanctum handle (dds_tpu_torch.sanctum.SecretBackend) for the PSSE
+    # decrypt CRT legs: None = host-only (the default posture); a
+    # device-posture handle is the explicit `[crypto] secret-device`
+    # opt-in. Anything else raises at decrypt_rows, in decrypt_batch.
     secret_backend: object = None
     # obfuscators precomputed by the bulk backend; one provider may serve
     # many clients, and every pop hands out a distinct obfuscator
     _blind_pool: list = field(default_factory=list, repr=False, compare=False)
-
-    def __post_init__(self):
-        if self.secret_backend is not None:
-            raise NotImplementedError(
-                "the Sanctum secret-material plane (device CRT decrypt) is not "
-                "ported to dds_tpu_torch: secret_backend must be None"
-            )
 
     @staticmethod
     def generate(paillier_bits: int = 2048, rsa_bits: int = 1024,
@@ -138,9 +134,11 @@ class HomoProvider:
 
     def decrypt_rows(self, rows: list[list], until: int, schema: list[str],
                      min_batch: int = 64) -> list[list]:
-        """Bulk decrypt_row: all rows' PSSE columns decrypt in one host
-        CRT batch (`PaillierKey.decrypt_batch`); the public bulk backend
-        never sees the decrypt legs."""
+        """Bulk decrypt_row. All rows' PSSE columns decrypt as ONE batched
+        CRT pass on the Sanctum plane (`PaillierKey.decrypt_batch`, with
+        this provider's `secret_backend`): host-only unless that handle is
+        device-posture. The public bulk backend is encrypt-only and never
+        sees the decrypt legs; the other schemes are per-op host work."""
         cols = sorted(i for i, s in enumerate(schema[:until]) if s == "PSSE")
         cts = [int(r[i]) for r in rows for i in cols if i < len(r)]
         if len(cts) < min_batch:

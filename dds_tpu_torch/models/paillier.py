@@ -5,8 +5,10 @@ optional precomputed obfuscator), textbook bulk blinding through a
 backend's batched modexp (`blind_batch`, `encrypt_batch`), the DJN
 short-exponent blinding (`blind_fast`), the Prism weight encoding and its
 host reference (`matvec_encode`, `matvec`), and CRT decryption, on Python
-ints with the built-in `pow`. The Sanctum device decrypt is not ported:
-`decrypt_batch` is host-only and refuses any backend.
+ints with the built-in `pow`. Bulk decryption (`decrypt_batch`) runs on
+the Sanctum secret-material plane (`dds_tpu_torch/sanctum`): per-key
+plans, host-only by default, both CRT legs in one batch on the card
+behind the explicit device opt-in.
 
 Math (g = n + 1, so g^m = 1 + m*n mod n^2 needs no modexp):
 
@@ -237,19 +239,41 @@ class PaillierKey:
         return (mq + q * ((mp - mq) * qinv % p)) % self.n
 
     def decrypt_batch(self, cs: list[int], backend=None, min_batch: int = 64) -> list[int]:
-        """Bulk CRT decrypt, host-only. The reference routes the CRT legs
-        through its Sanctum secret plane when handed a device handle; that
-        plane is not ported, and a public-parameter backend must never see
-        the secret moduli p^2, q^2 (its context cache outlives the key), so
-        any backend raises."""
-        if backend is not None:
+        """Bulk CRT decrypt on the Sanctum plane (the reference's branches).
+
+        Host-only by default: the key's host plan carries p^2, q^2 and the
+        CRT constants, stored on THIS key object and closed with it.
+        `backend` accepts ONLY a Sanctum handle (`sanctum.SecretBackend`):
+        a public-parameter `CryptoBackend` raises, because its context
+        cache outlives the key and p is recoverable from p^2. With a
+        device-posture handle and at least `min_batch` ciphertexts, both
+        CRT legs run as one batch on the handle's device (the device
+        plan); below `min_batch` the host plan serves, as for every small
+        batch: the reference's crossover, not a fallback."""
+        from dds_tpu_torch import sanctum
+
+        if backend is not None and not sanctum.is_secret_backend(backend):
             raise ValueError(
-                "decrypt_batch is host-only in dds_tpu_torch: the Sanctum "
-                "secret-material plane is not ported, and a public-parameter "
-                f"backend ({getattr(backend, 'name', type(backend).__name__)!r}) "
-                "must never see the CRT moduli p^2, q^2"
+                "decrypt_batch does not accept public-parameter CryptoBackends "
+                f"({getattr(backend, 'name', type(backend).__name__)!r}): the CRT "
+                "legs' moduli p^2, q^2 are secrets and must never enter a "
+                "process-wide context cache. Pass "
+                "dds_tpu_torch.sanctum.SecretBackend(device=True) for the device "
+                "opt-in, or None for the host-only default."
             )
-        return [self.decrypt(c) for c in cs]
+        if backend is not None and getattr(backend, "device", None) and len(cs) >= min_batch:
+            return sanctum.plan_for(self, backend).decrypt_batch(cs)
+        return sanctum.plan_for(self).decrypt_batch(cs)
+
+    def scrub(self) -> None:
+        """Close every derived-secret cache this key accumulated: the
+        `_crt` constants and every Sanctum plan (host constants, the
+        device plan's limb arrays). p, q and n themselves are immutable
+        ints; dropping the key finishes the job (a weakref finalizer
+        closes the plans even without a scrub())."""
+        from dds_tpu_torch import sanctum
+
+        sanctum.scrub_key(self)
 
     def to_signed(self, m: int) -> int:
         """Map Z_n residues onto the signed range (-n/2, n/2]."""

@@ -79,7 +79,13 @@ def ints_to_batch(xs, L: int) -> np.ndarray:
 
 
 def batch_to_ints(batch) -> list[int]:
+    """(B, L) limb batch -> python ints. A canonical batch converts
+    through one bytes buffer; one with redundant limbs row by row
+    (`limbs_to_int`)."""
     b = np.asarray(batch)
+    if b.size and not (b.astype(np.uint64) >> LIMB_BITS).any():
+        buf, step = b.astype("<u2").tobytes(), 2 * b.shape[1]
+        return [int.from_bytes(buf[i: i + step], "little") for i in range(0, len(buf), step)]
     return [limbs_to_int(b[i]) for i in range(b.shape[0])]
 
 

@@ -1,7 +1,7 @@
 """Environment-flag parsing for the kernel layer.
 
-Copies of `karatsuba_mode` and `analytics_max_rows` in
-`dds_tpu/ops/flags.py:10-50`: the port keeps its own copies rather than
+Copies of `karatsuba_mode`, `analytics_max_rows` and `secret_device` in
+`dds_tpu/ops/flags.py:10-80`: the port keeps its own copies rather than
 importing the reference package.
 """
 
@@ -51,3 +51,29 @@ def analytics_max_rows(default: int = 256) -> int:
             f"cap), got {rows}"
         )
     return rows
+
+
+def secret_device(default: bool = False) -> bool:
+    """Sanctum device opt-in: run the secret-material CRT decrypt legs as
+    one fused batched dispatch on the card instead of the host-only
+    default. DDS_SECRET_DEVICE when set, else `default` (the `[crypto]
+    secret-device` config value). Both are validated loudly: an operator
+    who believes they opted in (or out) of device residency for key
+    material must never be silently wrong about it, so a non-boolean
+    config value and an unknown environment value raise."""
+    env = os.environ.get("DDS_SECRET_DEVICE", "").strip().lower()
+    if not env:
+        if not isinstance(default, bool):
+            raise ValueError(
+                "[crypto] secret-device must be a boolean, got "
+                f"{default!r}"
+            )
+        return default
+    if env in ("1", "true", "on", "yes"):
+        return True
+    if env in ("0", "false", "off", "no"):
+        return False
+    raise ValueError(
+        f"unknown DDS_SECRET_DEVICE value {env!r} (use 1/true/on/yes or "
+        "0/false/off/no)"
+    )

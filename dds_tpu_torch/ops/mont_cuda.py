@@ -20,7 +20,14 @@ domain for a shared exponent given as MSB-first 4-bit digits. `pow_mod(ctx,
 bases, exp)` has `pallas_mont.pow_mod`'s (and `mont_mxu.pow_mod2`'s)
 contract: domain entry with `mul` by R^2, the ladder, exit with `mul` by 1.
 
-Six sources under `csrc/`, each built with nvcc for sm_90a at first use
+`mul_rowmod` and `exp_rowmod` are the same product and ladder with one
+modulus (and one exponent) a column, the device math of the Sanctum
+decrypt (`sanctum/device.py`): the ports of the reference's XLA functions
+`montgomery._mont_mul_rowmod_raw` and `_mont_exp_rowdigits_raw`. They take
+every constant as an explicit tensor and no `ModCtx`, so no secret
+modulus can reach a context's device-constant cache.
+
+Seven sources under `csrc/`, each built with nvcc for sm_90a at first use
 and bound with ctypes (`KernelLib`, one lock per source):
 - `mont_mul.cu`: `dds_mont_mul` (B1) and `dds_mont_mul_nofinal` (P);
 - `mont_exp.cu` (B3);
@@ -30,7 +37,9 @@ and bound with ctypes (`KernelLib`, one lock per source):
   is XLA code in the reference, not a Pallas kernel);
 - `mont_k1.cu`: `dds_k1_halfsums` and `dds_k1_combine`, the half sums
   before B4 and the recombination after it (`mont_mxu.carry_norm` and
-  `_karatsuba_combine` in `prod_lm_k1`, XLA code in the reference).
+  `_karatsuba_combine` in `prod_lm_k1`, XLA code in the reference);
+- `mont_rowmod.cu`: `dds_mont_mul_rowmod` and `dds_mont_exp_rowmod`, the
+  per-column-modulus product and ladder.
 All run one warp a column on the core `mont_warp.cuh`.
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain PyTorch version of `ops/montgomery.py`. Nothing
@@ -53,6 +62,7 @@ import torch
 
 from dds_tpu_torch.obs import kprof
 from dds_tpu_torch.ops import flags, montgomery
+from dds_tpu_torch.ops.bignum import int_to_limbs
 from dds_tpu_torch.ops.montgomery import ModCtx, _exp_to_digits
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -91,12 +101,15 @@ redc_launches = LaunchCount()     # mont_redc.cu (the reduction of B4 and B5)
 nofinal_launches = LaunchCount()  # mont_mul.cu, dds_mont_mul_nofinal (P)
 halfsums_launches = LaunchCount()  # mont_k1.cu, dds_k1_halfsums
 combine_launches = LaunchCount()  # mont_k1.cu, dds_k1_combine
+mul_rowmod_launches = LaunchCount()  # mont_rowmod.cu, dds_mont_mul_rowmod
+exp_rowmod_launches = LaunchCount()  # mont_rowmod.cu, dds_mont_exp_rowmod
 # every kernel's counter by the name chip_smoke.py reports it under
 LAUNCHES = {
     "mont_mul": launches, "mont_exp": exp_launches, "mont_prod3": prod3_launches,
     "mont_kfused": kfused_launches, "mont_redc": redc_launches,
     "mont_mul_nofinal": nofinal_launches, "mont_k1_halfsums": halfsums_launches,
-    "mont_k1_combine": combine_launches,
+    "mont_k1_combine": combine_launches, "mont_mul_rowmod": mul_rowmod_launches,
+    "mont_exp_rowmod": exp_rowmod_launches,
 }
 
 
@@ -190,7 +203,10 @@ KFUSED = KernelLib("mont_kfused.cu", {"dds_mont_kfused": [_p, _ll] * 3 + [_i, _i
 REDC = KernelLib("mont_redc.cu", {"dds_mont_redc": [_p, _ll, _p, _ll, _p, _u, _i, _i, _p]})
 K1 = KernelLib("mont_k1.cu", {"dds_k1_halfsums": [_p, _ll] * 3 + [_i, _i, _p],
                               "dds_k1_combine": [_p, _ll] * 3 + [_i, _i, _p]})
-KERNELS = (MUL, EXP, PROD3, KFUSED, REDC, K1)
+ROWMOD = KernelLib("mont_rowmod.cu", {
+    "dds_mont_mul_rowmod": [_p, _ll, _p, _ll, _p, _ll, _p, _p, _i, _i, _p],
+    "dds_mont_exp_rowmod": [_p, _ll, _p, _ll, _p, _ll, _i, _p, _p, _p, _ll, _i, _i, _p]})
+KERNELS = (MUL, EXP, PROD3, KFUSED, REDC, K1, ROWMOD)
 
 
 def _check_operand(name: str, x: torch.Tensor, rows: int) -> None:
@@ -454,3 +470,127 @@ def pow_mod(ctx: ModCtx, bases: torch.Tensor, exponent: int,
     one = torch.zeros((L, B), dtype=torch.int32, device=dev)
     one[0] = 1
     return mul(ctx, r, one, mode).T.contiguous()
+
+
+# -- one modulus a column (the Sanctum decrypt) -----------------------------
+
+
+def _check_rowmod(L: int, B: int, device, N32: torch.Tensor, n0inv32: torch.Tensor) -> None:
+    W = (L + 1) // 2
+    if N32.dim() != 2 or N32.shape[0] != B or N32.shape[1] != W or N32.dtype != torch.int32:
+        raise ValueError(f"N32 must be (B={B}, W={W}) int32 words, got "
+                         f"{tuple(N32.shape)} {N32.dtype}")
+    if n0inv32.dim() != 1 or n0inv32.shape[0] != B or n0inv32.dtype != torch.int32:
+        raise ValueError(f"n0inv32 must be (B={B},) int32, got "
+                         f"{tuple(n0inv32.shape)} {n0inv32.dtype}")
+    for name, x in (("N32", N32), ("n0inv32", n0inv32)):
+        if x.device != device:
+            raise ValueError(f"device mismatch {device} vs {name} on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _plain_rowmod(x: torch.Tensor, L: int) -> torch.Tensor:
+    """Limbs-major (L, B) int32 -> batch-major (B, 2W) int64 for the plain
+    versions (zero limbs above L)."""
+    W = (L + 1) // 2
+    out = x.new_zeros((x.shape[1], 2 * W), dtype=torch.int64)
+    out[:, :L] = x.T
+    return out
+
+
+def _plain_moduli(N32: torch.Tensor, n0inv32: torch.Tensor) -> tuple:
+    """(B, W) int32 words and (B,) -n^-1 mod 2^32 -> the plain versions'
+    (B, 2W) int64 16-bit limbs and (B,) -n^-1 mod 2^16."""
+    w = N32.to(torch.int64) & 0xFFFFFFFF
+    limbs = torch.stack([w & 0xFFFF, w >> 16], dim=2).reshape(N32.shape[0], -1)
+    return limbs, n0inv32.to(torch.int64) & 0xFFFF
+
+
+def mul_rowmod_plain(a, b, N32, n0inv32) -> torch.Tensor:
+    """The plain version of `mul_rowmod` at its interface, on the
+    operands' device (`montgomery._mont_mul_rowmod_raw`)."""
+    L = a.shape[0]
+    out = montgomery._mont_mul_rowmod_raw(_plain_rowmod(a, L), _plain_rowmod(b, L),
+                                          *_plain_moduli(N32, n0inv32))
+    return out[:, :L].T.to(torch.int32).contiguous()
+
+
+def exp_rowmod_plain(base_mont, digits, one_mont, N32, n0inv32) -> torch.Tensor:
+    """The plain version of `exp_rowmod` at its interface, on the
+    operands' device (`montgomery._mont_exp_rowdigits_raw`)."""
+    L = base_mont.shape[0]
+    out = montgomery._mont_exp_rowdigits_raw(_plain_rowmod(base_mont, L), digits,
+                                             _plain_rowmod(one_mont, L),
+                                             *_plain_moduli(N32, n0inv32))
+    return out[:, :L].T.to(torch.int32).contiguous()
+
+
+def mul_rowmod(a: torch.Tensor, b: torch.Tensor, N32: torch.Tensor,
+               n0inv32: torch.Tensor) -> torch.Tensor:
+    """a * b * R^-1 mod N_i for every column i (`dds_mont_mul_rowmod`,
+    the port of `montgomery._mont_mul_rowmod_raw`): a, b limbs-major
+    (L, B) int32, column i canonical below N_i (column slices allowed);
+    N32 (B, W) int32 words of each column's modulus, W = ceil(L/2);
+    n0inv32 (B,) int32 bit patterns of -N_i^-1 mod 2^32. Returns a new
+    contiguous (L, B) int32."""
+    L = a.shape[0] if a.dim() == 2 else -1
+    first = _check(L, a=a, b=b)
+    B = first.shape[1]
+    _check_rowmod(L, B, first.device, N32, n0inv32)
+    if first.device.type == "cpu":
+        return mul_rowmod_plain(a, b, N32, n0inv32)
+    out = torch.empty((L, B), dtype=torch.int32, device=first.device)
+    _launch(ROWMOD, "dds_mont_mul_rowmod", mul_rowmod_launches, first.device,
+            a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+            out.data_ptr(), out.stride(0), N32.data_ptr(), n0inv32.data_ptr(), L, B,
+            what=f"L={L}, B={B}")
+    return out
+
+
+def exp_rowmod(base_mont: torch.Tensor, digits: torch.Tensor, one_mont: torch.Tensor,
+               N32: torch.Tensor, n0inv32: torch.Tensor) -> torch.Tensor:
+    """base_i^exp_i in column i's Montgomery domain (`dds_mont_exp_rowmod`,
+    the port of `montgomery._mont_exp_rowdigits_raw`): base_mont and
+    one_mont (R mod N_i) limbs-major (L, B) int32 (column slices allowed);
+    digits (E, B) int32 MSB-first 4-bit digits, column i the exponent of
+    column i (shorter exponents padded with leading zeros), each taken
+    mod 16, column slices allowed; N32 and n0inv32 as for `mul_rowmod`.
+    Returns a new contiguous (L, B) int32."""
+    L = base_mont.shape[0] if base_mont.dim() == 2 else -1
+    first = _check(L, base=base_mont, one_mont=one_mont)
+    B = first.shape[1]
+    _check_rowmod(L, B, first.device, N32, n0inv32)
+    if (digits.dim() != 2 or digits.shape[0] < 1 or digits.shape[1] != B
+            or digits.dtype != torch.int32):
+        raise ValueError(f"digits must be a non-empty (E, B={B}) int32 tensor, got "
+                         f"{tuple(digits.shape)} {digits.dtype}")
+    if digits.device != first.device:
+        raise ValueError(f"device mismatch {first.device} vs {digits.device}")
+    if B > 1 and digits.stride(1) != 1:
+        raise ValueError("digits columns must be contiguous (stride 1)")
+    if first.device.type == "cpu":
+        return exp_rowmod_plain(base_mont, digits, one_mont, N32, n0inv32)
+    E = digits.shape[0]
+    out = torch.empty((L, B), dtype=torch.int32, device=first.device)
+    _launch(ROWMOD, "dds_mont_exp_rowmod", exp_rowmod_launches, first.device,
+            base_mont.data_ptr(), base_mont.stride(0), out.data_ptr(), out.stride(0),
+            digits.data_ptr(), digits.stride(0), E, N32.data_ptr(), n0inv32.data_ptr(),
+            one_mont.data_ptr(), one_mont.stride(0), L, B, what=f"L={L}, B={B}, E={E}")
+    return out
+
+
+def rowmod_args(moduli: list[int], L: int, device) -> tuple:
+    """(N32, n0inv32, one_mont) for `mul_rowmod` and `exp_rowmod` over the
+    odd `moduli`, one a column: (B, W) int32 words, (B,) int32 bit patterns
+    of -n^-1 mod 2^32, and the limbs-major (L, B) int32 R mod n, on
+    `device`. For public and test moduli: the Sanctum plan builds its
+    secret ones per key (`sanctum.device.SecretModCtx`)."""
+    W = (L + 1) // 2
+    R = 1 << (32 * W)
+    words = np.stack([np.frombuffer(n.to_bytes(4 * W, "little"), "<u4") for n in moduli])
+    n0 = np.array([(-pow(n, -1, 1 << 32)) % (1 << 32) for n in moduli], np.uint32)
+    ones = np.stack([int_to_limbs(R % n, L) for n in moduli]).T
+    return (torch.from_numpy(words.view(np.int32).copy()).to(device),
+            torch.from_numpy(n0.view(np.int32).copy()).to(device),
+            torch.from_numpy(np.ascontiguousarray(ones).view(np.int32)).to(device))

@@ -11,7 +11,10 @@ results (`mul_mod`, `reduce_mul`, `pow_mod`) are comparable.
 The plain path below is the kernels' reference: the same CIOS Montgomery
 product, computed with int64 PyTorch tensors on 16-bit limbs over the
 padded limb count 2W (so it uses the kernel's R), vectorized over the
-batch, and the same 4-bit-window ladder over it (`mont_exp`, `pow_mod`).
+batch, and the same 4-bit-window ladder over it (`mont_exp`, `pow_mod`);
+their twins with one modulus (and one exponent) a row,
+`_mont_mul_rowmod_raw` and `_mont_exp_rowdigits_raw`, are the plain
+versions of the Sanctum decrypt's kernels.
 The Karatsuba family's plain versions sit beside it: the full product
 `prod`, the three half products `prod3` with the half sums `k1_halfsums`
 before them and the recombination `k1_combine` after them, one Karatsuba
@@ -45,7 +48,7 @@ DIGIT_MASK = (1 << WINDOW) - 1
 
 
 def _mont_mul_raw(a: torch.Tensor, b: torch.Tensor, N: torch.Tensor,
-                  n0inv: int, finalize: bool = True) -> torch.Tensor:
+                  n0inv, finalize: bool = True) -> torch.Tensor:
     """CIOS Montgomery product on 16-bit limbs.
 
     a, b: (B, Lp) int64 canonical with a*b < n*R; N: (Lp,) int64 limbs of
@@ -53,13 +56,15 @@ def _mont_mul_raw(a: torch.Tensor, b: torch.Tensor, N: torch.Tensor,
     a * b * R^-1 mod n with R = 2^(16 Lp). With `finalize` False the
     final subtraction is skipped and the result is t mod R, where
     t = (a*b + m*n) / R < 2n is the loop's accumulator (the probe of
-    `benchmarks/profile_kernel.py::make_nofinal_mul`)."""
+    `benchmarks/profile_kernel.py::make_nofinal_mul`). N may also be
+    (B, Lp) with n0inv a (B, 1) tensor: one modulus a row
+    (`_mont_mul_rowmod_raw`)."""
     B, Lp = a.shape
     # step i adds a_i*b + m_i*n at limb offset i of one (B, 2Lp + 1)
     # accumulator, so nothing shifts; limb i is then 0 mod 2^16 and only
     # its carry moves up
     acc = torch.zeros((B, 2 * Lp + 1), dtype=torch.int64, device=a.device)
-    Nb, b0 = N[None, :], b[:, :1]
+    Nb, b0 = (N if N.dim() == 2 else N[None, :]), b[:, :1]
     for i in range(Lp):
         ai = a[:, i:i + 1]
         m = (torch.addcmul(acc[:, i:i + 1], ai, b0) * n0inv) & LIMB_MASK
@@ -70,7 +75,21 @@ def _mont_mul_raw(a: torch.Tensor, b: torch.Tensor, N: torch.Tensor,
     t = _carry(acc[:, Lp:].clone())                # < 2n: the top limb holds it
     if not finalize:
         return t[:, :Lp]
-    return _sub_if_geq(t, torch.cat([N, N.new_zeros(1)]))[:, :Lp]
+    return _sub_if_geq(t, torch.cat([Nb, Nb.new_zeros((Nb.shape[0], 1))], dim=1))[:, :Lp]
+
+
+def _mont_mul_rowmod_raw(a: torch.Tensor, b: torch.Tensor, N: torch.Tensor,
+                         n0inv: torch.Tensor) -> torch.Tensor:
+    """CIOS Montgomery product with one modulus a row: the plain version
+    of `csrc/mont_rowmod.cu`'s `dds_mont_mul_rowmod` and the port of
+    `dds_tpu/ops/montgomery.py::_mont_mul_rowmod_raw`.
+
+    a, b: (B, Lp) int64 canonical, row i below N_i; N: (B, Lp) int64
+    limbs of each row's modulus; n0inv: (B,) int64, -N_i^-1 mod 2^16.
+    Returns (B, Lp) int64 canonical: row i is a_i * b_i * R^-1 mod N_i,
+    R = 2^(16 Lp). Every step of `_mont_mul_raw` is already elementwise
+    over the rows, so the carry bound above holds row by row."""
+    return _mont_mul_raw(a, b, N, n0inv.reshape(-1, 1))
 
 
 def _redc_raw(T: torch.Tensor, N: torch.Tensor, n0inv: int) -> torch.Tensor:
@@ -199,9 +218,10 @@ def _carry(t: torch.Tensor) -> torch.Tensor:
 
 
 def _sub_if_geq(t: torch.Tensor, mod: torch.Tensor) -> torch.Tensor:
-    """t - mod where t >= mod else t, for canonical (B, K) t and (K,) mod:
-    whole-row borrow passes, the top limb's sign telling t < mod."""
-    d = t - mod[None, :]
+    """t - mod where t >= mod else t, for canonical (B, K) t and (K,) or
+    (B, K) mod: whole-row borrow passes, the top limb's sign telling
+    t < mod."""
+    d = t - mod
     while True:
         borrow = (d[:, :-1] < 0).to(torch.int64)
         if not bool(borrow.any()):
@@ -231,6 +251,35 @@ def _mont_exp_raw(base: torch.Tensor, digits, one_mont: torch.Tensor,
         for _ in range(WINDOW):
             r = mul(r, r)
         r = mul(r, table[int(d) & DIGIT_MASK])
+    return r
+
+
+def _mont_exp_rowdigits_raw(base: torch.Tensor, digits, one_mont: torch.Tensor,
+                            N: torch.Tensor, n0inv: torch.Tensor) -> torch.Tensor:
+    """The 4-bit-window ladder with a modulus and an exponent a row: the
+    plain version of `csrc/mont_rowmod.cu`'s `dds_mont_exp_rowmod` and the
+    port of `dds_tpu/ops/montgomery.py::_mont_exp_rowdigits_raw`.
+
+    base: (B, Lp) int64 in each row's Montgomery domain; digits: (E, B)
+    MSB-first 4-bit digits, row b's exponent in column b (a shorter
+    exponent is padded with LEADING zero digits: a zero digit squares the
+    identity and multiplies by table[0], a no-op), each taken mod 16;
+    one_mont and N: (B, Lp) int64 limbs of R mod N_i and N_i; n0inv: (B,)
+    int64, -N_i^-1 mod 2^16. Returns (B, Lp) int64, base_i^exp_i in the
+    Montgomery domain: the product sequence of `_mont_exp_raw`, row by
+    row."""
+    mul = lambda x, y: _mont_mul_rowmod_raw(x, y, N, n0inv)
+    table = [one_mont, base]
+    for _ in range(2, 1 << WINDOW):
+        table.append(mul(table[-1], base))
+    table = torch.stack(table)                     # (16, B, Lp)
+    digits = torch.as_tensor(digits, device=base.device).to(torch.int64) & DIGIT_MASK
+    rows = torch.arange(base.shape[0], device=base.device)
+    r = one_mont
+    for e in range(digits.shape[0]):
+        for _ in range(WINDOW):
+            r = mul(r, r)
+        r = mul(r, table[digits[e], rows])
     return r
 
 
@@ -321,10 +370,19 @@ def _tree_reduce_raw(cs: torch.Tensor, N: torch.Tensor, n0inv: int) -> torch.Ten
 
 
 # ModCtx.make's shared cache: public moduli only (n, n^2); entries outlive
-# keys, so a secret-derived modulus must never be passed to `make`.
+# keys, so a secret-derived modulus must never be passed to `make` (the
+# Sanctum plane builds its per-key contexts with `ModCtx.build`). An
+# explicit LRU, so its contents can be listed (`cached_moduli`).
 _CTX_CACHE: "OrderedDict[tuple[int, int | None], ModCtx]" = OrderedDict()
 _CTX_CACHE_MAX = 64
 _CTX_CACHE_LOCK = threading.Lock()
+
+
+def cached_moduli() -> list[int]:
+    """The moduli `ModCtx.make`'s shared cache holds now: the hygiene
+    check that no secret-derived modulus ever lands there."""
+    with _CTX_CACHE_LOCK:
+        return [k[0] for k in _CTX_CACHE]
 
 _FIX_CACHE_MAX = 512  # R^K fix constants kept per context
 

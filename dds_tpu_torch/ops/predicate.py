@@ -59,7 +59,7 @@ def packable(v: int) -> bool:
     return 0 <= v <= PACK_MAX
 
 
-def pack_ints(values, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+def pack_ints(values, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo) int64 lane tensors on `device` for a column of packable
     ints."""
     v = torch.tensor(list(values), dtype=torch.int64)
@@ -72,7 +72,7 @@ def digest_lanes(s: str) -> tuple[int, int]:
     return int.from_bytes(d[:4], "big"), int.from_bytes(d[4:], "big")
 
 
-def pack_digests(values, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+def pack_digests(values, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo) int64 digest-lane tensors on `device` for a column of
     strings."""
     pairs = torch.tensor([digest_lanes(s) for s in values],

@@ -12,9 +12,11 @@ by default). A config that enables a plane the port does not serve
 (`unported_plane`) is refused with `NotImplementedError` naming it, so
 every file in `configs/` parses but none boots without what it asks for.
 `load_provider(cfg)` builds the
-client's HE provider from the `[client]` section: its keys and its bulk
+client's HE provider from the `[client]` section: its keys, its bulk
 encryption backend (`bulk-encrypt-backend = "cuda"` precomputes PSSE
-obfuscators with the exp kernel). `run_workload(dep)` drives
+obfuscators with the exp kernel) and, with `[crypto] secret-device`, the
+Sanctum handle that runs bulk decryption's CRT legs on the card.
+`run_workload(dep)` drives
 `[client] nr-of-local-clients` concurrent clients over digests the
 workload generator draws from `[client] proportions`. The supervisor, TCP
 transport and attack simulation wait for later slices.
@@ -46,6 +48,8 @@ from dds_tpu_torch.http.server import DDSRestServer, ProxyConfig
 from dds_tpu_torch.models.backend import get_backend
 from dds_tpu_torch.models.facade import HomoProvider
 from dds_tpu_torch.models.keys import HEKeys
+from dds_tpu_torch.ops.flags import secret_device
+from dds_tpu_torch.sanctum import SecretBackend
 from dds_tpu_torch.utils.config import DDSConfig
 
 SUPERVISOR_NAME = "supervisor"
@@ -67,8 +71,8 @@ def unported_plane(cfg: DDSConfig) -> str | None:
     """The first plane `cfg` enables that the port does not serve, or
     None: recovery and anti-entropy first, then shard, admission,
     tenancy, the obs audit, fabric, helmsman, geo, heliograph, attacks,
-    `[crypto] secret-device`, then the other serving surfaces of the
-    reference that are not ported."""
+    then the other serving surfaces of the reference that are not
+    ported."""
     checks = (
         (cfg.recovery.enabled, "[recovery] enabled: proactive recovery (the supervisor)"),
         (cfg.recovery.anti_entropy_enabled, "[recovery] anti-entropy-enabled: anti-entropy"),
@@ -83,8 +87,6 @@ def unported_plane(cfg: DDSConfig) -> str | None:
         (cfg.geo.enabled, "[geo] enabled: geo"),
         (cfg.heliograph.enabled, "[heliograph] enabled: heliograph"),
         (cfg.attacks.enabled or cfg.attacks.chaos_enabled, "[attacks]: attacks"),
-        (_secret_device(cfg.crypto.secret_device),
-         "[crypto] secret-device: the Sanctum secret-material plane"),
         (cfg.obs.metrics_route, "[obs] metrics-route: the /metrics route"),
         (cfg.obs.slo_route, "[obs] slo-route: the SLO engine"),
         (cfg.obs.trace_route, "[obs] trace-route: the /_trace route"),
@@ -163,20 +165,6 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
     return Deployment(cfg, net, replicas, server)
 
 
-def _secret_device(default: bool) -> bool:
-    """The reference's Sanctum device opt-in: DDS_SECRET_DEVICE when set,
-    else the `[crypto] secret-device` value; a malformed value raises."""
-    env = os.environ.get("DDS_SECRET_DEVICE", "").strip().lower()
-    if not env:
-        return bool(default)
-    if env in ("1", "true", "on", "yes"):
-        return True
-    if env in ("0", "false", "off", "no"):
-        return False
-    raise ValueError(f"unknown DDS_SECRET_DEVICE value {env!r} (use 1/true/on/yes "
-                     "or 0/false/off/no)")
-
-
 def _write_secret_file(path: pathlib.Path, content: str) -> None:
     """Create a file born 0600 (O_EXCL): never world-readable, not even
     for the instant before a chmod."""
@@ -190,13 +178,16 @@ def load_provider(cfg: DDSConfig) -> HomoProvider:
     """Client HE keys per config: inline blob > keys file > fresh
     generation (saved to the file, 0600, when a path is configured) — a
     restarted client can re-attach to an existing store and still decrypt
-    it. Then the bulk encryption backend, `cuda` on `[client] device`."""
-    if _secret_device(cfg.crypto.secret_device):
-        raise NotImplementedError(
-            "[crypto] secret-device: the Sanctum secret-material plane is not "
-            "ported to dds_tpu_torch; PSSE decryption is host-only"
-        )
+    it. Then the bulk encryption backend, `cuda` on `[client] device`, and
+    the Sanctum posture of the decrypt CRT legs: host-only unless
+    `[crypto] secret-device` (or DDS_SECRET_DEVICE) opts in, validated
+    here, at construction, so a mistyped opt-in or opt-out never silently
+    changes where key material computes; the device plan runs on
+    `[client] device`."""
     c = cfg.client
+    secret = None
+    if secret_device(default=cfg.crypto.secret_device):
+        secret = SecretBackend(device=c.device)
     path = pathlib.Path(c.he_keys_path) if c.he_keys_path else None
     if c.he_keys_inline:
         keys = HEKeys.from_json(c.he_keys_inline)
@@ -210,7 +201,8 @@ def load_provider(cfg: DDSConfig) -> HomoProvider:
     if c.bulk_encrypt_backend:
         kwargs = {"device": c.device} if c.bulk_encrypt_backend == "cuda" else {}
         bulk = get_backend(c.bulk_encrypt_backend, **kwargs)
-    return HomoProvider(keys, fast_blinding=c.fast_blinding, bulk_backend=bulk)
+    return HomoProvider(keys, fast_blinding=c.fast_blinding, bulk_backend=bulk,
+                        secret_backend=secret)
 
 
 async def run_workload(dep: Deployment, provider: HomoProvider | None = None,
@@ -256,7 +248,8 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--serve", action="store_true", help="keep serving after workload")
     ap.add_argument("--device", choices=["cuda", "cpu"],
-                    help="where the cuda backends fold and encrypt (default cuda)")
+                    help="where the cuda backends fold and encrypt and the Sanctum "
+                         "device plan decrypts (default cuda)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(name)s %(message)s")

@@ -31,8 +31,9 @@ take the reference's host branches (`_HOST_OPS`, the early returns): the
 reference's semantics, not a fallback.
 
 Device: `SearchPlane(device=...)` builds every group's packs there (int64
-lane tensors, built once with the pack and dropped with it); a `cuda`
-device without a card raises at construction. The proxy passes its
+lane tensors, built once with the pack and dropped with it); the default
+is `cuda`, as for `GroupIndex`, and a `cuda` device without a card raises
+at construction. The proxy passes its
 backend's device (`cuda`), or the CPU for a host backend (`cpu`), the
 resident plane's rule.
 
@@ -66,6 +67,18 @@ _HOST_OPS = {
 }
 
 
+def _plane_device(device, owner: str) -> torch.device:
+    """`device` as a torch.device; a `cuda` device without a card raises
+    here, at construction, not at the first query."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{owner}: no CUDA device available (pass device='cpu' to build "
+            "the plane on the host)"
+        )
+    return device
+
+
 def _rows(mask: torch.Tensor) -> list[int]:
     """Row indices where a device mask is set, on the host."""
     return mask.nonzero().view(-1).tolist()
@@ -77,8 +90,8 @@ class GroupIndex:
     entry mutation drops the packs (epoch invalidation, like the resident
     pool's reset); they rebuild on the next query."""
 
-    def __init__(self, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, device="cuda"):
+        self.device = _plane_device(device, "GroupIndex")
         self._lock = threading.Lock()
         self._entries: dict[str, tuple] = {}  # key -> (tag, value|None)
         self._packs: dict = {}
@@ -307,13 +320,8 @@ class SearchPlane:
     are SAFE — the query-time tag round classifies those keys stale and
     repairs them through full quorum reads."""
 
-    def __init__(self, max_pending: int = 8192, device="cpu"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "SearchPlane: no CUDA device available (pass device='cpu' "
-                "to build the plane on the host)"
-            )
+    def __init__(self, max_pending: int = 8192, device="cuda"):
+        self.device = _plane_device(device, "SearchPlane")
         self._lock = threading.Lock()
         # (gid, tenant) -> index: the tenant id is part of the index
         # address, so one tenant's writes/invalidation churn cannot thrash

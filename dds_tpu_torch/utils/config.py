@@ -5,8 +5,8 @@ reference, so every file in `configs/` parses here as it does there. A
 section parses whether or not its plane is ported; `run.launch` refuses
 to boot a config that enables a plane the port does not serve, naming it
 (recovery and anti-entropy, shard, admission, tenancy, the obs audit,
-fabric, helmsman, geo, heliograph, attacks, `[crypto] secret-device`, and
-the other serving surfaces listed there), so nothing runs without a plane
+fabric, helmsman, geo, heliograph, attacks, and the other serving
+surfaces listed there), so nothing runs without a plane
 its config asks for. `[client] failed-contact-attempts-threshold` is read
 by no client, so any value but the reference's default raises at parse.
 
@@ -25,8 +25,9 @@ The port's defaults differ from the reference's in these fields only:
   engine are not ported, and the port must not refuse its own
   `DDSConfig()`.
 - Fields of the port alone: `[proxy] device` and `min-device-batch`, and
-  `[client] device`: where the `cuda` backends run ("cpu" runs their plain
-  PyTorch path on hosts without a card) and the host/device crossover.
+  `[client] device`: where the `cuda` backends and the Sanctum device plan
+  run ("cpu" runs their plain PyTorch path on hosts without a card) and
+  the host/device crossover.
 """
 
 from __future__ import annotations
@@ -226,8 +227,9 @@ class ClientSettings:
     # DJN path). Above the batch threshold one device dispatch precomputes
     # every full-width obfuscator a digest needs.
     bulk_encrypt_backend: str = ""
-    # where the cuda bulk backend runs ("cpu" = its plain PyTorch path);
-    # the port's own field
+    # where the cuda bulk backend and, with `[crypto] secret-device`, the
+    # Sanctum device plan run ("cpu" = their plain PyTorch path); the
+    # port's own field
     device: str = "cuda"
 
     def __post_init__(self):
@@ -555,15 +557,16 @@ class TenancyConfig:
 
 @dataclass
 class CryptoConfig:
-    """Sanctum secret-material execution plane (the reference's sanctum/; not ported): where
+    """Sanctum secret-material execution plane (`sanctum/`): where
     computation that TOUCHES private-key material runs — today the CRT
     legs of batched Paillier decryption (client-side verification and
     `HomoProvider.decrypt_rows`). Host-only by default. `secret-device =
     true` is the explicit opt-in that fuses both CRT legs into one
     batched device dispatch: faster bulk decryption, in exchange for
-    transient HBM residency of p^2/q^2-derived values (executables stay
-    secret-free — constants ride as traced arguments — and the
-    persistent compile cache is bypassed for those compiles). The
+    transient HBM residency of p^2/q^2-derived values (the kernels are
+    built from source text alone; every secret is a runtime kernel
+    argument, copied to the card per dispatch). The device is `[client]
+    device`. The
     DDS_SECRET_DEVICE env twin overrides; both are validated loudly by
     ops/flags.secret_device. DEPLOY.md "Secret-material trust boundary
     (Sanctum)" is the runbook."""

@@ -119,8 +119,19 @@ def test_decrypt_batch_refuses_every_backend():
     for be in (get_backend("cpu"), CudaBackend(device="cpu")):
         with pytest.raises(ValueError, match="public-parameter"):
             KEYS.psse.decrypt_batch(cts, backend=be, min_batch=1)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        HomoProvider(KEYS, secret_backend=object())
+    with pytest.raises(ValueError, match="public-parameter"):
+        KEYS.psse.decrypt_batch(cts, backend=object(), min_batch=1)
+
+
+def test_decrypt_rows_refuses_an_unknown_handle():
+    """The provider takes any `secret_backend`, as the reference's does;
+    one that is not a Sanctum handle raises at `decrypt_rows`, in
+    `decrypt_batch`, once the batch reaches `min_batch`."""
+    provider = HomoProvider(KEYS, secret_backend=object())
+    rows = [[provider.encrypt(i, "PSSE")] for i in range(4)]
+    assert provider.decrypt_rows(rows, 1, ["PSSE"], min_batch=64) == [[i] for i in range(4)]
+    with pytest.raises(ValueError, match="public-parameter"):
+        provider.decrypt_rows(rows, 1, ["PSSE"], min_batch=4)
 
 
 # ------------------------------------------------------------- key interop
@@ -197,15 +208,29 @@ def test_load_provider_keys_file_inline_blob_and_bulk_backend(tmp_path, monkeypa
 
 
 def test_load_provider_refuses_the_secret_device_opt_in(monkeypatch):
-    cfg = _client_cfg(he_keys_inline=KEYS.to_json())
+    """The opt-in (`[crypto] secret-device` or DDS_SECRET_DEVICE) gives the
+    provider a device-posture Sanctum handle on `[client] device`; it is
+    refused when that device is `cuda` on a host without a card, when the
+    config value is not a boolean, and when the variable is unknown."""
+    from dds_tpu_torch.sanctum import is_secret_backend
+
+    cfg = _client_cfg(he_keys_inline=KEYS.to_json(), device="cpu")
     cfg.crypto.secret_device = True
     monkeypatch.delenv("DDS_SECRET_DEVICE", raising=False)
-    with pytest.raises(NotImplementedError, match="Sanctum"):
+    handle = load_provider(cfg).secret_backend
+    assert is_secret_backend(handle) and handle.device.type == "cpu"
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    cfg.client.device = "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_provider(cfg)
+    cfg.crypto.secret_device = "yes"
+    with pytest.raises(ValueError, match="secret-device must be a boolean"):
         load_provider(cfg)
     cfg.crypto.secret_device = False
+    cfg.client.device = "cpu"
+    assert load_provider(cfg).secret_backend is None
     monkeypatch.setenv("DDS_SECRET_DEVICE", "on")
-    with pytest.raises(NotImplementedError, match="Sanctum"):
-        load_provider(cfg)
+    assert is_secret_backend(load_provider(cfg).secret_backend)
     monkeypatch.setenv("DDS_SECRET_DEVICE", "maybe")
     with pytest.raises(ValueError, match="DDS_SECRET_DEVICE"):
         load_provider(cfg)

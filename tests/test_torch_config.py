@@ -8,7 +8,8 @@ module docstring of `dds_tpu_torch/utils/config.py`) and the fields only
 the port has (`PORT_ONLY`). `launch` on each file refuses with
 `NotImplementedError` naming the first plane the port does not serve,
 never with an unknown-key error; each refusal is checked on its own, and
-`DDSConfig()` with `[search] enabled` boots.
+`DDSConfig()` with `[search] enabled` boots, as does `[crypto]
+secret-device` (Sanctum), whose provider decrypts through its device plan.
 """
 
 import asyncio
@@ -137,7 +138,6 @@ REFUSALS = [
     ("heliograph", {"heliograph": {"enabled": True}}),
     ("attacks", {"attacks": {"enabled": True}}),
     ("attacks", {"attacks": {"chaos-enabled": True}}),
-    ("Sanctum", {"crypto": {"secret-device": True}}),
     ("/metrics", {"obs": {"metrics-route": True}}),
     ("SLO engine", {"obs": {"slo-route": True}}),
     ("/_trace", {"obs": {"trace-route": True}}),
@@ -174,6 +174,33 @@ def test_default_config_with_search_enabled_launches(monkeypatch):
             await dep.stop()
 
     assert asyncio.run(boot()) == (True, "cpu")
+
+
+def test_a_secret_device_config_launches_and_its_provider_decrypts(monkeypatch):
+    """`[crypto] secret-device = true` boots now that Sanctum is ported,
+    and the provider `load_provider` builds from it decrypts through its
+    device plan (on the CPU here: `[client] device`)."""
+    from dds_tpu_torch.run import load_provider
+    from dds_tpu_torch.sanctum import is_secret_backend
+
+    monkeypatch.delenv("DDS_SECRET_DEVICE", raising=False)
+    cfg = DDSConfig.from_dict({"crypto": {"secret-device": True},
+                               "proxy": {"device": "cpu"},
+                               "client": {"device": "cpu", "paillier-bits": 512,
+                                          "rsa-bits": 512}})
+    assert unported_plane(cfg) is None
+
+    async def boot():
+        dep = await launch(cfg)
+        await dep.stop()
+
+    asyncio.run(boot())
+    provider = load_provider(cfg)
+    assert is_secret_backend(provider.secret_backend)
+    k = provider.keys.psse
+    cts = [k.public.encrypt(m) for m in (5, 6, 7)]
+    assert k.decrypt_batch(cts, backend=provider.secret_backend, min_batch=1) == [5, 6, 7]
+    assert "device:cpu" in k.__dict__["_sanctum_plans"]
 
 
 def test_unknown_keys_still_raise():

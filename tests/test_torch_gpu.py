@@ -1,6 +1,8 @@
 """Card-only checks of the Hopper Montgomery kernels: the multiply, the
-modexp, the Karatsuba families' launches, and the folds composed of them
-(`fold_many`, the resident plane's fused fold, Prism's weighted fold).
+modexp, the Karatsuba families' launches, the folds composed of them
+(`fold_many`, the resident plane's fused fold, Prism's weighted fold), and
+the Sanctum decrypt's per-column-modulus product and ladder
+(`csrc/mont_rowmod.cu`) with the device plan's full chunk.
 
 Marked `gpu`: on a host without a CUDA device every test here skips (the
 decision is made inside the `cuda` fixture, never at import, so every
@@ -696,8 +698,8 @@ def test_predicate_ops_on_the_card_equal_the_cpu_at_65536(cuda, op):
 
     vals, words = _predicate_column(65536, 91)
     cpu = torch.device("cpu")
-    hi, lo = pr.pack_ints(vals)
-    dhi, dlo = pr.pack_digests(words)
+    hi, lo = pr.pack_ints(vals, cpu)
+    dhi, dlo = pr.pack_digests(words, cpu)
     dev = {k: t.to(cuda) for k, t in (("hi", hi), ("lo", lo), ("dhi", dhi), ("dlo", dlo))}
     cases = {
         "compare": [(lambda d, h, l, o=o, t=t: pr.compare_mask(h, l, o, t, device=d))
@@ -728,3 +730,101 @@ def test_predicate_ops_on_the_card_equal_the_cpu_at_65536(cuda, op):
                             device=cuda)
         assert got.device.type == "cuda"
         assert torch.equal(got.cpu(), pr.entry_mask(mh, ml, valid, queries, mode, device=cpu))
+
+
+# -------------------------------------------- one modulus a column (Sanctum)
+
+def _rowmod_columns(moduli: list[int], L: int, seed: int, E: int):
+    """Limbs-major operands a, b below each column's modulus, the column
+    constants (`mont_cuda.rowmod_args`) and (E', B) digit columns of
+    exponents of unequal lengths (up to E digits, leading zeros)."""
+    rng = np.random.default_rng(seed)
+    a = [int.from_bytes(rng.bytes(2 * L), "little") % n for n in moduli]
+    b = [int.from_bytes(rng.bytes(2 * L), "little") % n for n in moduli]
+    lens = rng.integers(1, E + 1, size=len(moduli))
+    digits = np.zeros((E, len(moduli)), np.int32)
+    for i, k in enumerate(lens):
+        digits[E - k:, i] = rng.integers(0, 16, size=k)
+    return a, b, digits
+
+
+def _rowmod_parity(cuda, moduli: list[int], L: int, seed: int, E: int) -> None:
+    from dds_tpu_torch.ops.bignum import ints_to_batch
+
+    a, b, digits = _rowmod_columns(moduli, L, seed, E)
+    A = bn.to_device(ints_to_batch(a, L), cuda).T.contiguous()
+    Bt = bn.to_device(ints_to_batch(b, L), cuda).T.contiguous()
+    N32, n0, one = mont_cuda.rowmod_args(moduli, L, cuda)
+    D = torch.from_numpy(digits).to(cuda)
+    before = (mont_cuda.mul_rowmod_launches.value, mont_cuda.exp_rowmod_launches.value)
+    got_mul = mont_cuda.mul_rowmod(A, Bt, N32, n0)
+    got_exp = mont_cuda.exp_rowmod(A, D, one, N32, n0)
+    torch.cuda.synchronize()
+    assert (mont_cuda.mul_rowmod_launches.value, mont_cuda.exp_rowmod_launches.value) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(got_mul, mont_cuda.mul_rowmod_plain(A, Bt, N32, n0))
+    assert torch.equal(got_exp, mont_cuda.exp_rowmod_plain(A, D, one, N32, n0))
+
+
+def test_rowmod_kernels_match_plain_at_the_crt_shape(cuda):
+    """L = 128 (Paillier-2048's p^2 and q^2), B = 8,192 columns: two
+    seeded odd 2,048-bit moduli alternating by column block as the fused
+    decrypt stacks them, per-column digits of unequal lengths."""
+    rng = np.random.default_rng(61)
+    two = [int.from_bytes(rng.bytes(256), "little") | 1 | (1 << 2047) for _ in range(2)]
+    _rowmod_parity(cuda, [two[0]] * 4096 + [two[1]] * 4096, 128, 62, 12)
+
+
+@pytest.mark.parametrize("L", [33, 128, 256])
+def test_rowmod_kernels_on_carry_edge_moduli(cuda, L):
+    """A different carry-edge modulus (or a seeded one) in every column."""
+    rng = np.random.default_rng(L)
+    mods = carry_edge_moduli(L) + [int.from_bytes(rng.bytes(2 * L), "little")
+                                   | 1 | (1 << (16 * L - 1)) for _ in range(61)]
+    _rowmod_parity(cuda, mods, L, L + 1, 20)
+
+
+def test_rowmod_kernels_read_column_slices(cuda):
+    from dds_tpu_torch.ops.bignum import ints_to_batch
+
+    L, rng = 128, np.random.default_rng(63)
+    mods = [int.from_bytes(rng.bytes(256), "little") | 1 | (1 << 2047) for _ in range(96)]
+    a, b, digits = _rowmod_columns(mods, L, 64, 8)
+    A = bn.to_device(ints_to_batch(a + a, L), cuda).T.contiguous()
+    Bt = bn.to_device(ints_to_batch(b, L), cuda).T.contiguous()
+    N32, n0, one = mont_cuda.rowmod_args(mods, L, cuda)
+    D = torch.from_numpy(np.concatenate([digits, digits], axis=1)).to(cuda)
+    assert torch.equal(mont_cuda.mul_rowmod(A[:, 96:], Bt, N32, n0),
+                       mont_cuda.mul_rowmod(A[:, :96].contiguous(), Bt, N32, n0))
+    assert torch.equal(mont_cuda.exp_rowmod(A[:, 96:], D[:, 96:], one, N32, n0),
+                       mont_cuda.exp_rowmod(A[:, :96].contiguous(), D[:, :96].contiguous(),
+                                            one, N32, n0))
+
+
+def test_sanctum_device_plan_decrypts_a_full_chunk_on_the_card(cuda):
+    """One 4,096-ciphertext chunk of the device plan (1,024-bit key, so the
+    host check stays short): every plaintext back, exactly 2
+    `mont_mul_rowmod` and 1 `mont_exp_rowmod` launches and no other
+    kernel; `_fused_crt` on the card equals its plain path on the CPU."""
+    from dds_tpu_torch.sanctum import SecretBackend, plan_for
+    from dds_tpu_torch.sanctum.device import _fused_crt
+
+    key = bench_paillier_key(1024)
+    rng = np.random.default_rng(65)
+    ms = [int(x) for x in rng.integers(0, 1 << 48, size=4096)]
+    blinds = [key.public.blind() for _ in range(8)]
+    cts = [key.public.encrypt(m, rn=blinds[i % 8]) for i, m in enumerate(ms)]
+    plan = plan_for(key, SecretBackend(device=True))
+    for c in mont_cuda.LAUNCHES.values():
+        c.reset()
+    assert plan.decrypt_batch(cts) == ms
+    counts = {k: c.value for k, c in mont_cuda.LAUNCHES.items() if c.value}
+    assert counts == {"mont_mul_rowmod": 2, "mont_exp_rowmod": 1}
+    bases = plan._marshal(cts[:16], 16)
+    consts = [torch.from_numpy(a) for a in (plan._N, plan._n0, plan._R2, plan._one,
+                                            plan._digits)]
+    x = bn.to_device(bases, "cpu").T.contiguous()
+    got = _fused_crt(x.to(cuda), *(c.to(cuda) for c in consts))
+    assert torch.equal(got.cpu(), _fused_crt(x, *consts))
+    key.scrub()
+    assert plan.closed

@@ -57,11 +57,11 @@ def lanes_equal(t: torch.Tensor, a: np.ndarray) -> bool:
 @pytest.mark.parametrize("n", SIZES)
 def test_packs_hold_the_reference_lanes(n):
     vals = ope_values(n, n)
-    (hi, lo), (rhi, rlo) = port.pack_ints(vals), ref.pack_ints(vals)
+    (hi, lo), (rhi, rlo) = port.pack_ints(vals, "cpu"), ref.pack_ints(vals)
     assert lanes_equal(hi, rhi) and lanes_equal(lo, rlo)
     assert ((hi << port.LANE_BITS) | lo).tolist() == vals
     ws = words(n, n + 1)
-    (dhi, dlo), (rdhi, rdlo) = port.pack_digests(ws), ref.pack_digests(ws)
+    (dhi, dlo), (rdhi, rdlo) = port.pack_digests(ws, "cpu"), ref.pack_digests(ws)
     assert lanes_equal(dhi, rdhi) and lanes_equal(dlo, rdlo)
     assert [port.digest_lanes(w) for w in ws[:5]] == [ref.digest_lanes(w) for w in ws[:5]]
     assert [port.packable(v) for v in (-1, 0, port.PACK_MAX, port.PACK_MAX + 1)] == \
@@ -75,7 +75,7 @@ def test_packs_hold_the_reference_lanes(n):
 @pytest.mark.parametrize("n", SIZES)
 def test_compare_mask_equals_the_reference(n, op):
     vals = ope_values(n, 10 + n)
-    hi, lo = port.pack_ints(vals)
+    hi, lo = port.pack_ints(vals, "cpu")
     rhi, rlo = ref.pack_ints(vals)
     host = {"gt": int.__gt__, "ge": int.__ge__, "lt": int.__lt__, "le": int.__le__}[op]
     for t in thresholds(vals, n):
@@ -88,7 +88,7 @@ def test_compare_mask_equals_the_reference(n, op):
 @pytest.mark.parametrize("n", SIZES)
 def test_range_mask_equals_the_reference(n):
     vals = ope_values(n, 20 + n)
-    hi, lo = port.pack_ints(vals)
+    hi, lo = port.pack_ints(vals, "cpu")
     rhi, rlo = ref.pack_ints(vals)
     ts = sorted(thresholds(vals, n + 3))
     for a, b in zip(ts, ts[3:] + ts[:3]):
@@ -100,7 +100,7 @@ def test_range_mask_equals_the_reference(n):
 @pytest.mark.parametrize("n", SIZES)
 def test_eq_mask_equals_the_reference(n):
     ws = words(n, 30 + n)
-    dhi, dlo = port.pack_digests(ws)
+    dhi, dlo = port.pack_digests(ws, "cpu")
     rdhi, rdlo = ref.pack_digests(ws)
     for q in ws[:3] + ["absent", ""]:
         got = port.eq_mask(dhi, dlo, q, device=CPU).tolist()
@@ -139,7 +139,7 @@ def test_entry_mask_equals_the_reference(n, mode):
 @pytest.mark.parametrize("n", SIZES)
 def test_sort_perm_equals_the_reference_ties_in_row_order(n, descending):
     vals = ope_values(n, 50 + n)
-    hi, lo = port.pack_ints(vals)
+    hi, lo = port.pack_ints(vals, "cpu")
     got = port.sort_perm(hi, lo, descending, device=CPU).tolist()
     assert got == ref.sort_perm(*ref.pack_ints(vals), descending).tolist()
     # Python's stable sorted(..., reverse=...) keeps ties in row order
@@ -148,7 +148,7 @@ def test_sort_perm_equals_the_reference_ties_in_row_order(n, descending):
 
 def test_ops_record_the_reference_span_names():
     vals = ope_values(37, 7)
-    hi, lo = port.pack_ints(vals)
+    hi, lo = port.pack_ints(vals, "cpu")
     tracer.reset()
     port.compare_mask(hi, lo, "gt", 5, device=CPU)
     port.sort_perm(hi, lo, True, device=CPU)

@@ -10,6 +10,8 @@ non-integer column (ValueError in both), out-of-band thresholds, an empty
 pack, and the ingest queue with overflow and invalidation.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -48,7 +50,7 @@ def make_rows(n: int, seed: int) -> list[tuple[str, tuple, list | None]]:
 
 def both(n: int, seed: int = 0):
     rows = make_rows(n, seed + n)
-    port, ref = GroupIndex(), RefGroupIndex()
+    port, ref = GroupIndex(device="cpu"), RefGroupIndex()
     for key, tag, value in rows:
         port.upsert(key, tag, value)
         ref.upsert(key, tag, value)
@@ -120,7 +122,7 @@ def test_packs_live_on_the_plane_device_and_drop_on_mutation(n):
 
 
 def test_tombstones_and_empty_packs_answer_empty():
-    port, ref = GroupIndex(), RefGroupIndex()
+    port, ref = GroupIndex(device="cpu"), RefGroupIndex()
     for idx in (port, ref):
         idx.upsert("a", (1, "x"), None)
         idx.upsert("b", (1, "x"), None)
@@ -142,7 +144,7 @@ def test_tombstones_and_empty_packs_answer_empty():
 def test_plane_ingest_overflow_invalidation_and_stats(n):
     rows = make_rows(n, 99 + n)
     cap = max(1, n // 2)
-    port, ref = SearchPlane(max_pending=cap), RefSearchPlane(max_pending=cap)
+    port, ref = SearchPlane(max_pending=cap, device="cpu"), RefSearchPlane(max_pending=cap)
     assert port.device == torch.device("cpu")
     port.register_groups(["", "g1"])
     ref.register_groups(["", "g1"])
@@ -190,7 +192,7 @@ def test_plane_ingest_overflow_invalidation_and_stats(n):
 
 
 def test_touch_sink_is_best_effort():
-    port = SearchPlane()
+    port = SearchPlane(device="cpu")
     seen = []
     port.touch_sink = lambda keys, tenant: seen.append((list(keys), tenant))
     port.note_selected(["a", "b"])
@@ -208,3 +210,20 @@ def test_a_cuda_plane_without_a_card_refuses(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SearchPlane(device="cuda")
+
+
+def test_the_plane_and_an_index_default_to_the_card(monkeypatch):
+    """`SearchPlane()`, `GroupIndex()`, `pack_ints` and `pack_digests`
+    run on `cuda` unless the caller asks for the CPU: without a card the
+    bare constructors refuse, and the explicit CPU still builds."""
+    from dds_tpu_torch.ops import predicate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SearchPlane()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GroupIndex()
+    for fn in (predicate.pack_ints, predicate.pack_digests):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert SearchPlane(device="cpu").device == GroupIndex(device="cpu").device \
+        == torch.device("cpu")
