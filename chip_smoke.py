@@ -9,8 +9,10 @@ stack, MultAll over RSA-1024 ciphertexts (L = 64) in each family, the
 generated mixed workload over every data route, the resident plane's fused
 multi-group folds and write-path ingest, Stratum's tiered folds,
 Prism's encrypted analytics (MatVec, WeightedSum, GroupBySum), the
-search plane's indexed Search*/Order*/Range routes and the Sanctum
-decrypt (both CRT legs of a batch on the per-column-modulus kernels) —
+search plane's indexed Search*/Order*/Range routes, the Sanctum
+decrypt (both CRT legs of a batch on the per-column-modulus kernels) and
+the dependability plane (SumAlls folding on the card through proactive,
+byzantine and crash recoveries, snapshots and anti-entropy) —
 and holds every CUDA kernel on them against its plain PyTorch version. Phases, each printing
 one JSON line; any failure exits non-zero:
 
@@ -135,7 +137,8 @@ one JSON line; any failure exits non-zero:
               mode, one B = 4,096 launch of each fold kernel (bit-exact,
               held, beside its bound) and the crossover;
 15. mixed     BASELINE config 5 (benchmarks/mixed.py --preload 4096
-              --clients 4 --ops 200): 7 replicas, quorum 5; the preload's
+              --clients 4 --ops 200, the ops cut to 50 a client for the
+              run's time): 7 replicas, quorum 5; the preload's
               rows encrypted once; on crypto-backend cuda two stacks load
               them, the legacy one and one with [search], and the search
               phase runs on both (the "search" line, what = "rest"): the
@@ -147,7 +150,8 @@ one JSON line; any failure exits non-zero:
               repair the burst's keys (dds_search_index_total miss and
               stale), the warm query ms of each route on both paths with
               the spans a query, and search_latency.py's baseline (the
-              legacy scan with the tag-validated cache off); then
+              legacy scan with the tag-validated cache off, its SearchGt
+              case); then
               run_workload rounds (mixed.py's MIX, then
               configs/default.toml's mix) on both cuda stacks, and the
               MIX round on cpu (the baseline mixed.py prints), every
@@ -183,17 +187,48 @@ one JSON line; any failure exits non-zero:
               most drawn rows promoted back to hot; the all-resident ceiling
               against the tiered fold; one fold in modes 1 and 2; then a REST
               SumAll through a [resident] + [storage] stack;
-18. kernels   one {"kernels": [...]} line (every kernel must have launched
+18. recovery  configs/default.toml's [replicas] and [recovery] as they
+              stand (9 endpoints, 2 sentinent spares, quorum 5, f = 2,
+              warm-up 5 s, interval 7 s, verified transfer, 256-key
+              chunks, anti-entropy at the reference's default, on) on
+              `cuda`, /metrics on, the flight recorder in a
+              temporary directory, Trudy armed; cut (printed): [admission],
+              the obs audit and the SLO route. K = 8,192 rows by quorum
+              PutSet; SumAlls until 2 proactive recoveries completed; Trudy
+              turns f = 2 active replicas byzantine (window "byzantine",
+              until both are out of the active list); Trudy crashes the
+              replica the proactive timer takes next, which is redeployed
+              and reseeded (window "crash"); the active replicas holding
+              each acknowledged row counted; save_all of the 9 replicas and
+              a second generation of replica-0 with one bit flipped; a
+              second deployment (no proactive timer) restores them at
+              launch (the flipped
+              file quarantined, generation 1 loaded), every acknowledged
+              PutSet read back through it, a SumAll over the restored
+              state, an in-sync and a
+              repairing anti-entropy round, a promoted stale spare
+              converging; /health (200, a recovery section) and /metrics
+              (supervisor, anti-entropy and snapshot families) on both.
+              Every SumAll decrypts to the total, equals the Python-int
+              fold and launches B1 (mont_mul); 0 failed operations outside
+              the fault windows, every failure listed;
+19. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
               launch; the analytics requests' launches are the paths
               "analytics" and "analytics_rest", the rowmod kernels' the
-              path "decrypt", `decrypt_rows`' run); then one {"search": ...}
+              path "decrypt", `decrypt_rows`' run, B1's the path
+              "recovery"); then one {"search": ...}
               line: each predicate op's calls on the indexed stack (gates,
               timing and rounds), calls a query, held ms, bound and rows/s
               at 65,536 rows, each route's warm ms on both paths and the
               baseline, the rounds' ops/s on both stacks, the phase's and
-              the run's seconds; then the card's name and power limit;
-              then the result line.
+              the run's seconds; then one {"recovery": ...} line: SumAll
+              p50/p95 with and without a recovery in flight, each
+              recovery's trigger, wall time (trigger to
+              `wait_recovery_idle`), StateChunks, keys and bytes, the fault
+              windows and their failures, the snapshot and anti-entropy
+              figures, the phase's seconds beside its 150 s budget; then
+              the card's name and power limit; then the result line.
 
     python3 chip_smoke.py              # on the card (needs one GPU)
     python3 chip_smoke.py --rehearse   # the same phases, tiny, on the CPU;
@@ -229,6 +264,7 @@ import argparse
 import asyncio
 import collections
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1168,12 +1204,13 @@ def read_counts(dev) -> dict:
     return {k: c.value for k, c in mont_cuda.LAUNCHES.items()}
 
 
-def paillier_rows(pk, K: int, seed: int) -> tuple[list, int]:
+def paillier_rows(pk, K: int, seed: int, n_blinds: int = 64) -> tuple[list, int]:
     """K PutSet rows of bft_sum's shape, the PSSE column (position 2) the
-    encryptions of 1..K under seeded obfuscators; and the plaintext total."""
+    encryptions of 1..K under `n_blinds` seeded obfuscators; and the
+    plaintext total."""
     rng = np.random.default_rng(seed)
     blinds = [pk.blind(int.from_bytes(rng.bytes(pk.n.bit_length() // 8 - 1), "little"))
-              for _ in range(min(64, K))]
+              for _ in range(min(n_blinds, K))]
     rows = [[i, f"name-{i}", pk.encrypt(i + 1, rn=blinds[i % len(blinds)]),
              2, "a", "b", "c", "blob"] for i in range(K)]
     return rows, K * (K + 1) // 2
@@ -2074,7 +2111,7 @@ async def search_rest(dev, sizes, legacy, indexed, provider, keys, schema: list)
     index learns of the burst through the query's tag round, the repair
     path under test) and the gate again; then the warm query ms of each
     route on both paths, and the search_latency.py baseline (the legacy
-    scan with the tag-validated cache off) over two of its four cases."""
+    scan with the tag-validated cache off) over one of its four cases."""
     t0 = time.perf_counter()
     lp, ip = legacy.server.cfg.port, indexed.server.cfg.port
     plane = indexed.server._search
@@ -2099,9 +2136,9 @@ async def search_rest(dev, sizes, legacy, indexed, provider, keys, schema: list)
         "proxy.search_eval", "kernel.predicate", "abd.read_tags", "abd.fetch"))
     rec["legacy"] = await time_routes(lp, after, reps, (
         "proxy.fetch_stored", "abd.read_tags", "abd.fetch"))
-    # two of search_latency.py's four cases (gt, order): each cache-less
-    # query takes 14-17 s on the card at this size, the same for all four
-    base = [r for r in after if r[0] in ("SearchGt", "OrderLS")]
+    # one of search_latency.py's four cases (gt): each cache-less query
+    # takes 14-17 s on the card at this size, the same for all four
+    base = [r for r in after if r[0] == "SearchGt"]
     pcfg = legacy.server.cfg
     budget = pcfg.request_budget
     pcfg.aggregate_cache = False
@@ -2133,7 +2170,8 @@ async def search_rest(dev, sizes, legacy, indexed, provider, keys, schema: list)
 
 async def phase_mixed(dev, sizes) -> dict:
     """BASELINE config 5 (`benchmarks/mixed.py --preload 4096 --clients 4
-    --ops 200`) through the port: 7 replicas, quorum 5 (f = 2, the
+    --ops 200`, `mixed_ops` a client: 50 on the card) through the port:
+    7 replicas, quorum 5 (f = 2, the
     reference default's active set), Paillier-2048 (the bench key) and
     RSA-1024. The preload's rows are encrypted once. On
     `crypto-backend = "cuda"` two stacks load them, the legacy one and a
@@ -3277,6 +3315,504 @@ def phase_decrypt(dev, sizes, client, card) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------- recovery
+
+# the phase's budget on the card (seconds); reported beside its wall time
+RECOVERY_BUDGET_S = 150.0
+# default.toml's sections the port does not serve yet: turned off, printed
+RECOVERY_CUTS = {"admission.enabled": False, "obs.audit_enabled": False,
+                 "obs.slo_route": False}
+
+
+def recovery_config(dev, sizes, flight_dir: str, snapshot_dir: str = ""):
+    """configs/default.toml with its [replicas] and [recovery] unchanged
+    (timers times `recovery_scale`, 1 on the card; anti-entropy at the
+    reference's default, on), the cuts above, the `cuda` backend on `dev`
+    folding every SumAll on the device, /metrics on, the flight recorder
+    in `flight_dir`, Trudy armed, snapshots restored from
+    `snapshot_dir`."""
+    import pathlib
+
+    from dds_tpu_torch.utils.config import DDSConfig
+
+    cfg = DDSConfig.load(pathlib.Path(__file__).resolve().parent / "configs" / "default.toml")
+    s = sizes["recovery_scale"]
+    for name in ("warm_up", "interval", "sentinent_awake_timeout",
+                 "crashed_recovery_timeout", "manifest_timeout",
+                 "anti_entropy_interval", "anti_entropy_jitter"):
+        setattr(cfg.recovery, name, getattr(cfg.recovery, name) * s)
+    for name in ("intranet_request_timeout", "request_budget"):
+        setattr(cfg.proxy, name, getattr(cfg.proxy, name) * s)
+    cfg.admission.enabled = RECOVERY_CUTS["admission.enabled"]
+    cfg.obs.audit_enabled = RECOVERY_CUTS["obs.audit_enabled"]
+    cfg.obs.slo_route = RECOVERY_CUTS["obs.slo_route"]
+    cfg.proxy.crypto_backend = "cuda"
+    cfg.proxy.device = dev.type
+    cfg.proxy.min_device_batch = 0
+    cfg.obs.metrics_route = True
+    cfg.obs.flight_dir = flight_dir
+    cfg.attacks.enabled = True
+    cfg.recovery.snapshot_dir = snapshot_dir
+    return cfg
+
+
+class RecoveryRun:
+    """One deployment of the recovery phase: every operation logged with
+    its interval and outcome, every recovery with its trigger kind, wall
+    time (trigger to `wait_recovery_idle`) and the StateChunk frames and
+    bytes it shipped, the fault windows the phase announces, and every
+    SumAll checked: exact, and folded on B1 on the card."""
+
+    def __init__(self, dep, dev, sizes, key, expected: int):
+        self.dep, self.dev, self.sizes, self.key = dep, dev, sizes, key
+        self.expected = expected
+        self.ops: list[dict] = []
+        self.recoveries: list[dict] = []
+        self.inflight: list[dict] = []
+        self.windows: list[dict] = []
+        self.port = dep.server.cfg.port
+        # the proxy's membership refresh keeps its ratio to the recovery
+        # timers (the loop reads it from its second round on; launch has
+        # not yielded since it started the loop)
+        dep.server.cfg.replica_refresh_interval *= sizes["recovery_scale"]
+        self._wrap()
+
+    def _wrap(self) -> None:
+        from dds_tpu_torch.core import messages as M
+
+        sup, net = self.dep.supervisor, self.dep.net
+        recover, send = sup.recover, net.send
+
+        async def tracked(victim: str):
+            name = getattr(asyncio.current_task(), "get_name", lambda: "")()
+            # the proactive timer's task, a Suspect's delivery, or the phase
+            kind = ("proactive" if name.startswith("supervisor.recover") else
+                    "suspicion" if name.startswith("inmem.deliver") else "operator")
+            rec = {"victim": victim, "kind": kind, "t0": time.perf_counter(),
+                   "chunks": 0, "bytes": 0, "keys": 0,
+                   # the supervisor refuses one already in flight or not active
+                   "noop": victim in sup._recovering or victim not in self.active()}
+            self.inflight.append(rec)
+            try:
+                await recover(victim)
+            finally:
+                await sup.wait_recovery_idle(60.0)
+                rec["t1"] = time.perf_counter()
+                rec["swapped"] = not rec["noop"] and victim not in self.active()
+                self.inflight.remove(rec)
+                if not rec["noop"]:
+                    self.recoveries.append(rec)
+
+        def counted(src: str, dest: str, msg) -> None:
+            if src == sup.addr and isinstance(msg, (M.StateChunk, M.SleepBegin, M.Sleep)):
+                payload = msg.digests if isinstance(msg, M.SleepBegin) else (
+                    msg.entries if isinstance(msg, M.StateChunk) else msg.data)
+                size = len(json.dumps(payload, separators=(",", ":")))
+                for rec in self.inflight:
+                    if rec["victim"] == dest:
+                        rec["bytes"] += size
+                        if not isinstance(msg, M.SleepBegin):
+                            rec["chunks"] += 1
+                            rec["keys"] += len(payload)
+            send(src, dest, msg)
+
+        sup.recover = tracked
+        net.send = counted
+
+    def _log(self, kind: str, t0: float, ok: bool, detail: str = "") -> None:
+        self.ops.append({"kind": kind, "t0": t0, "t1": time.perf_counter(), "ok": ok,
+                         "detail": detail})
+
+    async def call(self, method: str, target: str, body: bytes | None = None):
+        from dds_tpu_torch.http.miniserver import http_request
+
+        return await http_request("127.0.0.1", self.port, method, target, body,
+                                  timeout=300.0)
+
+    async def read_back(self, acked: dict, sem) -> dict:
+        """GetSet every acknowledged key (64 in flight): each must answer
+        the row written."""
+        t = time.perf_counter()
+        mismatched = []
+
+        async def get(k, r):
+            async with sem:
+                t0 = time.perf_counter()
+                status, body = await self.call("GET", f"/GetSet/{k}")
+                self._log("GetSet", t0, status == 200, str(status))
+                if status == 200 and json.loads(body)["contents"] != r:
+                    mismatched.append(k)
+
+        await asyncio.gather(*(get(k, r) for k, r in acked.items()))
+        if mismatched:
+            raise AssertionError(f"recovery: {len(mismatched)} acknowledged PutSets "
+                                 "read back different")
+        return {"keys": len(acked), "s": time.perf_counter() - t}
+
+    async def sumall(self) -> None:
+        """One SumAll: a 200 must decrypt to the total, equal the Python-int
+        fold and (on the card) have launched B1; a failure is logged."""
+        from dds_tpu_torch.ops import mont_cuda
+
+        before = mont_cuda.LAUNCHES["mont_mul"].value
+        t0 = time.perf_counter()
+        status, body = await self.call("GET", f"/SumAll?position={PSSE_POS}"
+                                              f"&nsqr={self.key.public.nsquare}")
+        if status != 200:
+            self._log("SumAll", t0, False, f"{status} {body[:120]!r}")
+            return
+        result = int(json.loads(body)["result"])
+        if result != self.expected or self.key.decrypt(result) != self.sizes["recovery_total"]:
+            raise AssertionError("recovery: SumAll is not the exact fold of the stored rows")
+        if self.dev.type == "cuda" and mont_cuda.LAUNCHES["mont_mul"].value == before:
+            raise AssertionError("recovery: a SumAll did not fold on B1 (mont_mul)")
+        self._log("SumAll", t0, True)
+
+    async def sumalls_until(self, done, cap_s: float, what: str) -> float:
+        """SumAlls back to back until `done()`; fails past `cap_s`."""
+        t0 = time.perf_counter()
+        while not done():
+            if time.perf_counter() - t0 > cap_s:
+                raise AssertionError(f"recovery: {what} not reached in {cap_s:.0f} s")
+            await self.sumall()
+        return time.perf_counter() - t0
+
+    def active(self) -> list[str]:
+        return [a for a, _ in self.dep.supervisor.active]
+
+    def idle(self) -> bool:
+        return not self.inflight and self.dep.supervisor._idle.is_set()
+
+    def completed(self, since: float, victim: str | None = None,
+                  kind: str | None = None) -> list[dict]:
+        return [r for r in self.recoveries if r["t0"] >= since and r["swapped"]
+                and (victim is None or r["victim"] == victim)
+                and (kind is None or r["kind"] == kind)]
+
+    def open_window(self, name: str) -> dict:
+        w = {"name": name, "t0": time.perf_counter()}
+        self.windows.append(w)
+        return w
+
+    def latency(self) -> dict:
+        """SumAll ms with and without a recovery in flight (overlapping
+        the request), p50 and p95."""
+        spans = [(r["t0"], r.get("t1", math.inf)) for r in self.recoveries + self.inflight]
+        out = {"with_recovery": [], "without_recovery": []}
+        for op in self.ops:
+            if op["kind"] == "SumAll" and op["ok"]:
+                hit = any(a < op["t1"] and op["t0"] < b for a, b in spans)
+                out["with_recovery" if hit else "without_recovery"].append(
+                    (op["t1"] - op["t0"]) * 1e3)
+        return {k: {"count": len(v),
+                    "p50_ms": float(np.percentile(v, 50)) if v else None,
+                    "p95_ms": float(np.percentile(v, 95)) if v else None}
+                for k, v in out.items()}
+
+    def failures(self) -> dict:
+        """Failed operations inside the announced fault windows (each
+        window's own count) and outside them; every one is listed."""
+        inside, outside = collections.Counter(), []
+        for op in self.ops:
+            if op["ok"]:
+                continue
+            w = next((w for w in self.windows
+                      if w["t0"] <= op["t0"] <= w.get("t1", math.inf)), None)
+            if w is None:
+                outside.append(op)
+            else:
+                inside[w["name"]] += 1
+        return {"in_windows": dict(inside), "outside": len(outside),
+                "listed": [{k: op[k] for k in ("kind", "detail")}
+                           | {"at_s": op["t0"]} for op in self.ops if not op["ok"]]}
+
+
+async def recovery_probe(run: RecoveryRun, families: tuple) -> dict:
+    """GET /health (200 with a `recovery` section) and /metrics (carrying
+    `families`)."""
+    status, body = await run.call("GET", "/health")
+    health = json.loads(body)
+    if status != 200 or "recovery" not in health:
+        raise AssertionError(f"recovery: /health answered {status} {sorted(health)}")
+    status, body = await run.call("GET", "/metrics")
+    text = body.decode()
+    missing = [f for f in families if f not in text]
+    if status != 200 or missing:
+        raise AssertionError(f"recovery: /metrics {status} lacks {missing}")
+    return {"health_status": health["status"], "active_replicas": health["active_replicas"],
+            "reachable_replicas": health["reachable_replicas"],
+            "recovery_replicas": len(health["recovery"]),
+            "families": {f: sum(1 for ln in text.splitlines() if ln.startswith(f))
+                         for f in families}}
+
+
+async def phase_recovery(dev, sizes) -> dict:
+    """The SumAll path under the dependability plane (configs/default.toml's
+    9 endpoints, 2 sentinent spares, quorum 5, f = 2, warm-up 5 s, interval
+    7 s, verified transfer, 256-key chunks): K Paillier rows by quorum
+    PutSet; SumAlls through at least 2 proactive recoveries; Trudy turns
+    f = 2 active replicas byzantine; Trudy crashes the replica the
+    proactive timer takes next and the supervisor redeploys it; the active
+    replicas holding each acknowledged row counted; save_all of the 9
+    replicas and one more
+    generation of replica-0 with a bit flipped; a second deployment
+    restores them at launch (the flipped file quarantined,
+    the older generation loaded), a SumAll over the restored state, an
+    in-sync and a repairing anti-entropy round, a promoted stale spare
+    converging; /health and /metrics on both. Every SumAll exact and on
+    B1; 0 failed operations outside the announced fault windows. The
+    acknowledged PutSets are read back once, through the restored
+    deployment: the faults' state saved and loaded."""
+    import os
+    import random
+    import tempfile
+
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.core import snapshot as snap
+    from dds_tpu_torch.obs.metrics import metrics
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils.trace import tracer
+
+    t_phase = time.perf_counter()
+    s = sizes["recovery_scale"]
+    key = bench_paillier_key(sizes["key_bits"])
+    pk = key.public
+    K = sizes["recovery_K"]
+    rows, total = paillier_rows(pk, K, 13, n_blinds=8)
+    sizes = {**sizes, "recovery_total": total}
+    expected = host_product([r[PSSE_POS] for r in rows], pk.nsquare)
+    metrics.reset()
+    tracer.reset()
+    saved = os.environ.get("DDS_KARATSUBA")
+    os.environ["DDS_KARATSUBA"] = "0"
+    tmp = tempfile.TemporaryDirectory(prefix="dds_recovery_")
+    flight_dir, snap_dir = f"{tmp.name}/flight", f"{tmp.name}/snapshots"
+    rec: dict = {"K": K, "key_bits": sizes["key_bits"], "replicas": 9, "spares": 2,
+                 "quorum": 5, "f": 2, "cuts": RECOVERY_CUTS, "timer_scale": s}
+
+    def step(name: str, **kw) -> None:  # progress, so a failed run still shows its steps
+        emit("recovery_step", step=name, at_s=time.perf_counter() - t_phase, **kw)
+
+    try:
+        reset_counts()  # path "recovery" starts here
+        cfg = recovery_config(dev, sizes, flight_dir)
+        rec["timers_s"] = {"warm_up": cfg.recovery.warm_up, "interval": cfg.recovery.interval,
+                           "sentinent_awake_timeout": cfg.recovery.sentinent_awake_timeout,
+                           "crashed_recovery_timeout": cfg.recovery.crashed_recovery_timeout}
+        dep = await launch(cfg)
+        run = RecoveryRun(dep, dev, sizes, key, expected)
+        try:
+            # -- load: K quorum PutSets, 64 in flight
+            sem = asyncio.Semaphore(64)
+            acked: dict[str, list] = {}
+
+            async def put(r):
+                async with sem:
+                    t0 = time.perf_counter()
+                    status, body = await run.call("POST", "/PutSet",
+                                                  json.dumps({"contents": r}).encode())
+                    run._log("PutSet", t0, status == 200, str(status))
+                    if status == 200:
+                        acked[body.decode()] = r
+
+            t = time.perf_counter()
+            await asyncio.gather(*(put(r) for r in rows))
+            rec["load"] = {"s": time.perf_counter() - t, "acked": len(acked),
+                           "recoveries_during": len(run.completed(0.0))}
+            step("load", **rec["load"])
+            # -- 1: SumAlls through two proactive recoveries
+            t1 = time.perf_counter()
+            await run.sumalls_until(lambda: len(run.completed(t1, kind="proactive")) >= 2,
+                                    max(45.0 * s, 12.0), "2 proactive recoveries")
+            rec["proactive_s"] = time.perf_counter() - t1
+            # the span ring's recent window (replica spans crowd it out)
+            rec["spans_ms"] = {n: {k: v[k] for k in ("count", "mean_ms", "p95_ms")}
+                               for n, v in tracer.summary().items()
+                               if n in ("http.GET.SumAll", "proxy.fetch_stored",
+                                        "abd.read_tags", "abd.fetch", "proxy.fold",
+                                        "supervisor.recover", "antientropy.sync")}
+            step("proactive", s=rec["proactive_s"], sumall=run.latency(),
+                 spans_ms=rec["spans_ms"])
+            # -- 2: Trudy turns f = 2 active replicas byzantine (sent with no
+            # round in flight: a replica compromised mid-round answers its
+            # late replies with forged writes, which spares store)
+            await dep.net.quiesce()
+            dep.trudy.replicas = run.active()
+            dep.trudy._rng = random.Random(sizes["recovery_seed"])
+            byz = run.open_window("byzantine")
+            byz["victims"] = dep.trudy.trigger("byzantine")
+            # each victim recovered since the attack (a recovered one may be
+            # promoted again later, honest, as a spare)
+            await run.sumalls_until(
+                lambda: all(run.completed(byz["t0"], v) for v in byz["victims"])
+                and run.idle(), max(90.0 * s, 15.0), "recovery of the byzantine replicas")
+            byz["t1"] = time.perf_counter()
+            byz["recovered_by"] = {v: [r["kind"] for r in run.completed(byz["t0"], v)]
+                                   for v in byz["victims"]}
+            step("byzantine", s=byz["t1"] - byz["t0"], victims=byz["victims"],
+                 recovered_by=byz["recovered_by"], failures=run.failures()["in_windows"])
+            # -- 3: Trudy crashes the replica the proactive timer takes next
+            oldest = min(dep.supervisor.active, key=lambda r: r[1])[0]
+            old_node = dep.replicas[oldest]
+            dep.trudy.replicas, dep.trudy.max_faults = [oldest], 1
+            crash = run.open_window("crash")
+            crash["victims"] = dep.trudy.trigger("crash")
+            await run.sumalls_until(
+                lambda: bool(run.completed(crash["t0"], oldest)) and run.idle(),
+                max(60.0 * s, 15.0), "the crashed replica's redeploy")
+            crash["t1"] = time.perf_counter()
+            crash["recovered_by"] = {oldest: [r["kind"] for r in run.completed(crash["t0"],
+                                                                               oldest)]}
+            if dep.replicas[oldest] is old_node or not dep.net.has_endpoint(oldest):
+                raise AssertionError("recovery: the crashed replica was not redeployed")
+            crash["redeployed"] = True
+            step("crash", s=crash["t1"] - crash["t0"], victims=crash["victims"],
+                 failures=run.failures()["in_windows"])
+            # -- 4: where the faults left every acknowledged PutSet: the
+            # active replicas holding its row (read back through the proxy
+            # from the snapshots of this state below)
+            await dep.supervisor.wait_recovery_idle(60.0)
+            await dep.net.quiesce()
+            holders = [sum(1 for a in run.active()
+                           if (dep.replicas[a].repository.get(k) or (None, None))[1] == r)
+                       for k, r in acked.items()]
+            rec["census"] = {"keys": len(acked), "min_active_holders": min(holders),
+                             "keys_below_quorum": sum(h < 5 for h in holders)}
+            step("census", **rec["census"])
+            rec["probe_first"] = await recovery_probe(
+                run, ("dds_suspect_votes_total", "dds_trusted_replicas",
+                      "dds_replica_suspicion", "dds_breaker_state"))
+            rec["suspicion_quorums"] = sum(
+                v for k, v in (metrics._families.get("dds_suspicion_quorums_total").samples
+                               if metrics._families.get("dds_suspicion_quorums_total")
+                               else {}).items())
+            # -- 5: save_all, then a second generation of replica-0, flipped
+            secret = snap.derive_secret(cfg.security.abd_mac_secret.encode())
+            t = time.perf_counter()
+            snap.save_all(dep.replicas, snap_dir, secret=secret,
+                          keep=cfg.recovery.snapshot_keep)
+            save_ms = (time.perf_counter() - t) * 1e3
+            files = sorted(os.listdir(snap_dir))
+            nbytes = sum(os.path.getsize(f"{snap_dir}/{f}") for f in files)
+            p2 = snap.save_replica(dep.replicas["replica-0"], snap_dir, secret=secret)
+            raw = bytearray(p2.read_bytes())
+            raw[len(raw) // 2] ^= 0x01
+            p2.write_bytes(bytes(raw))
+            first = run
+            step("snapshot_save", save_all_ms=save_ms, bytes=nbytes)
+        finally:
+            await dep.stop()
+        # -- 6: a fresh deployment restores the snapshots
+        cfg2 = recovery_config(dev, sizes, flight_dir, snap_dir)
+        # without the proactive timer: the anti-entropy step below names
+        # the spares and the replica it recovers, so membership holds still
+        cfg2.recovery.enabled = False
+        t = time.perf_counter()
+        dep2 = await launch(cfg2)
+        boot_ms = (time.perf_counter() - t) * 1e3
+        run2 = RecoveryRun(dep2, dev, sizes, key, expected)
+        try:
+            gens = {n: r.snapshot_meta.get("generation") for n, r in dep2.replicas.items()}
+            corrupt = sorted(f for f in os.listdir(snap_dir) if f.endswith(".corrupt"))
+            if gens != {n: 1 for n in dep2.replicas} or corrupt != [
+                    "replica-0.snapshot.00000002.corrupt"]:
+                raise AssertionError(f"recovery: snapshot restore {gens} {corrupt}")
+            rec["snapshot"] = {
+                "save_all_ms": save_ms, "bytes": nbytes, "files": len(files),
+                "restore_boot_ms": boot_ms, "generations_loaded": gens,
+                "quarantined": corrupt,
+                "verify_failures": metrics.value("dds_snapshot_verify_failures_total",
+                                                 replica="replica-0")}
+            for k in acked:  # the harness hands the proxy its aggregate keys
+                dep2.server._note_stored(k)
+            # every acknowledged PutSet read back through quorum reads of the
+            # restored replicas, the state the faults left (this also fills
+            # the new proxy's tag cache: a cold SumAll's 8,192 concurrent
+            # quorum reads outlast its budget)
+            rec["read_back"] = await run2.read_back(acked, sem)
+            step("read_back", **rec["read_back"])
+            t = time.perf_counter()
+            await run2.sumall()
+            if not run2.ops[-1]["ok"]:
+                raise AssertionError(f"recovery: SumAll over the restored state failed "
+                                     f"{run2.ops[-1]['detail']}")
+            rec["snapshot"]["sumall_after_restore_ms"] = (time.perf_counter() - t) * 1e3
+            step("restore", **{k: v for k, v in rec["snapshot"].items()
+                               if k != "generations_loaded"})
+            # -- anti-entropy: one in-sync round between two active replicas
+            act = run2.active()
+            a, b = next(((x, y) for x in act for y in act if x < y
+                         and dep2.replicas[x].merkle.root() == dep2.replicas[y].merkle.root()),
+                        (act[0], act[1]))
+            t = time.perf_counter()
+            n_sync = await dep2.replicas[a].antientropy.sync_once(b)
+            ae = {"in_sync_round_ms": (time.perf_counter() - t) * 1e3, "in_sync_repaired": n_sync,
+                  "pair": [a, b]}
+            # a stale spare promoted: both spares lose their state, the
+            # oldest active is recovered, the seeder is stale either way
+            for sp in dep2.supervisor.sentinent:
+                dep2.replicas[sp]._install_repository({})
+            oldest = min(dep2.supervisor.active, key=lambda r: r[1])[0]
+            t_rec = time.perf_counter()
+            await dep2.supervisor.recover(oldest)
+            promoted = [x for x in run2.active() if x not in act][0]
+            healthy = dep2.replicas[b]
+            # one repairing round, timed: the reseeded (empty) offender pulls
+            t = time.perf_counter()
+            n_rep = await dep2.replicas[oldest].antientropy.sync_once(b)
+            ae.update({"repair_round_ms": (time.perf_counter() - t) * 1e3,
+                       "repair_round_keys": n_rep, "tracked_keys": len(healthy.merkle),
+                       "promoted_stale_spare": promoted})
+            await run2.sumalls_until(
+                lambda: dep2.replicas[promoted].merkle.root() == healthy.merkle.root(),
+                max(40.0 * s, 15.0), "anti-entropy convergence of the promoted spare")
+            ae["promoted_converged_s"] = time.perf_counter() - t_rec
+            ae["loop_repaired_keys"] = dep2.replicas[promoted].antientropy.repaired_total
+            rec["antientropy"] = ae
+            step("antientropy", **ae)
+            rec["probe_second"] = await recovery_probe(
+                run2, ("dds_antientropy_rounds_total", "dds_antientropy_repaired_keys_total",
+                       "dds_antientropy_divergent_buckets", "dds_snapshot_generation",
+                       "dds_snapshot_verify_failures_total", "dds_suspect_votes_total"))
+        finally:
+            await dep2.stop()
+        counts = read_counts(dev)
+        rec["launches"] = counts["mont_mul"]  # read just after the path's run
+        if dev.type == "cuda" and rec["launches"] <= 0:
+            raise AssertionError("recovery: B1 never launched")
+        fails = first.failures()
+        fails2 = run2.failures()
+        if fails["outside"] or fails2["outside"] + sum(fails2["in_windows"].values()):
+            raise AssertionError(f"recovery: failed operations outside the fault windows: "
+                                 f"{fails} {fails2}")
+        recs = first.recoveries + run2.recoveries
+        rec.update({
+            "sumall": first.latency(),
+            "sumalls": sum(1 for r in (first, run2) for o in r.ops if o["kind"] == "SumAll"),
+            "recoveries": [{"victim": r["victim"], "kind": r["kind"], "swapped": r["swapped"],
+                            "chunks": r["chunks"], "keys": r["keys"], "bytes": r["bytes"],
+                            "wall_s": r["t1"] - r["t0"]} for r in recs],
+            "windows": [{"name": w["name"], "victims": w.get("victims"),
+                         "s": w["t1"] - w["t0"], "recovered_by": w.get("recovered_by")}
+                        for w in first.windows],
+            "failures": fails,
+            "flight_incidents": len([f for f in os.listdir(flight_dir)
+                                     if f.startswith("incident-")])
+            if os.path.isdir(flight_dir) else 0,
+        })
+    finally:
+        tmp.cleanup()
+        if saved is None:
+            os.environ.pop("DDS_KARATSUBA", None)
+        else:
+            os.environ["DDS_KARATSUBA"] = saved
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["budget_s"] = RECOVERY_BUDGET_S
+    emit("recovery", **{k: rec[k] for k in ("K", "seconds", "launches", "sumalls",
+                                            "suspicion_quorums", "failures")})
+    return rec
+
+
 def kernel_times(sizes) -> dict:
     """CUDA-event ms of the B1, P, B3, B4, B5 and REDC launches at the
     timing phases' shapes (single launches with the stream held,
@@ -3417,7 +3953,9 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   coalesce_min_batch=None, K_multall=16384,
                   crossover_l64=[8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384],
                   mixed_replicas=7, mixed_quorum=5, mixed_preload=4096, mixed_clients=4,
-                  mixed_ops=200, mixed_seed=7,
+                  # mixed.py's 200 ops a client cut to 50 (PR 13), for the
+                  # run's time: its five rounds took 202 s of an 893 s run
+                  mixed_ops=50, mixed_seed=7,
                   # the search phase: the write burst, warm reps a route, the
                   # cache-less baseline's reps, the plane alone at one full
                   # resident pool's rows
@@ -3426,7 +3964,7 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   search_plane_rows=65536, search_plane_reps=20,
                   # configs/sharded.toml's [resident]; resident_fold.py's S and K
                   resident_groups=4, resident_initial=256, resident_max=65536,
-                  resident_S=[1, 4], resident_K=[8192, 65536], resident_reps=3,
+                  resident_S=[1, 4], resident_K=[8192, 65536], resident_reps=2,
                   resident_new=256,
                   # analytics_matvec.py's R; the signed request's R; the slice
                   # held against the host loop
@@ -3435,12 +3973,15 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   # pop-factor and theta
                   tier_groups=2, tier_max=4096, tier_chunk=256, tier_promote=2.0,
                   tier_max_promote=256, tier_pop_factor=10, tier_head=2048, tier_K=8192,
-                  tier_theta=0.9, tier_reps=5, tier_warmup=3, tier_top=64,
+                  tier_theta=0.9, tier_reps=3, tier_warmup=3, tier_top=64,
                   # decrypt_throughput.py's sizes and B; the device plan at one
                   # and two full chunks; the rowmod parity's columns and digits;
                   # the plain ladder's columns
                   decrypt_bits=[1024, 2048], decrypt_B=256, decrypt_big=[4096, 8192],
-                  decrypt_reps=3, rowmod_B=8192, rowmod_E=32, decrypt_plain_cols=64)
+                  decrypt_reps=3, rowmod_B=8192, rowmod_E=32, decrypt_plain_cols=64,
+                  # the recovery phase: bft_sum's K rows on default.toml's
+                  # topology, its timers as they stand, Trudy's seed
+                  recovery_K=8192, recovery_scale=1.0, recovery_seed=5)
 
 
 def main(argv=None) -> int:
@@ -3492,7 +4033,8 @@ def main(argv=None) -> int:
                      tier_head=32, tier_K=256, tier_theta=0.9, tier_reps=2,
                      tier_warmup=3, tier_top=4, decrypt_bits=[512], decrypt_B=16,
                      decrypt_big=[32, 64], decrypt_reps=1, rowmod_B=64, rowmod_E=8,
-                     decrypt_plain_cols=8)
+                     decrypt_plain_cols=8, recovery_K=64, recovery_scale=0.1,
+                     recovery_seed=5)
         card = {"name": "cpu (rehearsal)", **card_numbers(dev)}
     else:
         if not torch.cuda.is_available():
@@ -3513,25 +4055,35 @@ def main(argv=None) -> int:
     from dds_tpu_torch.ops.montgomery import ModCtx
 
     ctx = ModCtx.make(bench_paillier_key(sizes["key_bits"]).nsquare)
-    phase_build(args.rehearse)
-    par = phase_parity(ctx, dev, sizes)
-    par_k = phase_parity_karatsuba(ctx, dev, sizes, par["k_rows"])
-    par_nf = phase_parity_nofinal(ctx, dev, sizes)
-    par_exp = phase_parity_exp(ctx, dev, sizes)
-    par_rm = phase_parity_rowmod(dev, sizes)
-    tim = phase_timing(ctx, dev, sizes, card)
-    tim_k = phase_timing_karatsuba(ctx, dev, sizes, card)
-    tim_exp = phase_timing_exp(ctx, dev, sizes, card)
-    phase_crossover(dev, ctx.n, sizes["crossover"])
-    e2e = asyncio.run(phase_e2e(dev, sizes))
-    asyncio.run(phase_coalesce(dev, sizes))
-    client = asyncio.run(phase_client(dev, sizes))
-    decrypt = phase_decrypt(dev, sizes, client, card)
-    multall = asyncio.run(phase_multall(dev, sizes))
-    mixed = asyncio.run(phase_mixed(dev, sizes))
-    plane = phase_search_plane(dev, sizes)
-    resident = asyncio.run(phase_resident(dev, sizes))
-    tiered = asyncio.run(phase_tiered(dev, sizes))
+    took: dict[str, float] = {}  # each phase's wall seconds, for the run's budget
+
+    def timed(name: str, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        took[name] = time.perf_counter() - t
+        return out
+
+    timed("build", phase_build, args.rehearse)
+    par = timed("parity", phase_parity, ctx, dev, sizes)
+    par_k = timed("parity_karatsuba", phase_parity_karatsuba, ctx, dev, sizes, par["k_rows"])
+    par_nf = timed("parity_nofinal", phase_parity_nofinal, ctx, dev, sizes)
+    par_exp = timed("parity_exp", phase_parity_exp, ctx, dev, sizes)
+    par_rm = timed("parity_rowmod", phase_parity_rowmod, dev, sizes)
+    tim = timed("timing", phase_timing, ctx, dev, sizes, card)
+    tim_k = timed("timing_karatsuba", phase_timing_karatsuba, ctx, dev, sizes, card)
+    tim_exp = timed("timing_exp", phase_timing_exp, ctx, dev, sizes, card)
+    timed("crossover", phase_crossover, dev, ctx.n, sizes["crossover"])
+    e2e = timed("e2e", asyncio.run, phase_e2e(dev, sizes))
+    timed("coalesce", asyncio.run, phase_coalesce(dev, sizes))
+    client = timed("client", asyncio.run, phase_client(dev, sizes))
+    decrypt = timed("decrypt", phase_decrypt, dev, sizes, client, card)
+    multall = timed("multall", asyncio.run, phase_multall(dev, sizes))
+    mixed = timed("mixed", asyncio.run, phase_mixed(dev, sizes))
+    plane = timed("search_plane", phase_search_plane, dev, sizes)
+    resident = timed("resident", asyncio.run, phase_resident(dev, sizes))
+    tiered = timed("tiered", asyncio.run, phase_tiered(dev, sizes))
+    recovery = timed("recovery", asyncio.run, phase_recovery(dev, sizes))
+    emit("run", phase_seconds=took, seconds=time.perf_counter() - t_run)
 
     path = tim["path"]
     # the fold kernels' single launches at MultAll's width, L = 64
@@ -3553,7 +4105,8 @@ def main(argv=None) -> int:
                              "resident_rest":
                                  resident["rest"]["modes"]["0"]["launches"]["mont_mul"],
                              "tiered": tiered["modes"]["0"]["launches"]["mont_mul"],
-                             "tiered_rest": tiered["rest"]["launches"]["mont_mul"]},
+                             "tiered_rest": tiered["rest"]["launches"]["mont_mul"],
+                             "recovery": recovery["launches"]},
         "max_abs_err": par["max_abs_err"],
         "per": f"one K={path['K']} fold ({path['launches']} launches) on the device; "
                f"wall_ms: back to back, paced by the host's dispatch",
@@ -3674,6 +4227,10 @@ def main(argv=None) -> int:
         "rounds": rest["rounds"], "plane_build_ms": plane["build_ms"],
         "phase_seconds": rest["seconds"] + plane["seconds"],
         "run_seconds": time.perf_counter() - t_run}}), flush=True)
+    print(json.dumps({"recovery": {**recovery, "card": card["smi"] if "smi" in card
+                                   else card["name"],
+                                   "run_seconds": time.perf_counter() - t_run}},
+                     default=str), flush=True)
     if args.rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result", file=sys.stderr)
         return 3

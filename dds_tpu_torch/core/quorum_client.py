@@ -1,12 +1,18 @@
 """Proxy-side ABD access: nonce-challenged, HMAC-verified quorum reads/writes.
 
-Trimmed copy of `dds_tpu/core/quorum_client.py` (circuit breakers, read
-leases and shard fencing wait for later slices). A point op picks a random
-trusted replica as coordinator, sends a signed `Envelope(IRead/IWrite)`,
-awaits the enveloped reply, and verifies (a) the challenge nonce is the
-request nonce + increment, (b) the proxy HMAC over the reply, (c) the
-echoed key. Every protocol violation adds a suspicion strike on the
-coordinator (3 strikes exclude it) and raises a typed Byzantine exception.
+Trimmed copy of `dds_tpu/core/quorum_client.py` (read leases and shard
+fencing are not ported). A point op picks a random trusted replica as
+coordinator (the supervisor's freshest half first), sends a signed
+`Envelope(IRead/IWrite)`, awaits the enveloped reply, and verifies (a) the
+challenge nonce is the request nonce + increment, (b) the proxy HMAC over
+the reply, (c) the echoed key. Every protocol violation adds a suspicion
+strike on the coordinator (3 strikes exclude it) and raises a typed
+Byzantine exception; mere timeouts trip a per-coordinator circuit breaker
+that steers the next picks elsewhere and self-heals through half-open
+probes. When every trusted coordinator's breaker is open past the
+caller's budget, `AllBreakersOpenError` fails the request at once.
+`ActiveReplicas` membership updates are accepted from the configured
+supervisor only (`refresh_from` asks for them) and merged, never shrunk.
 `read_tags` validates many cached keys with ONE tag-only round that the
 proxy broadcasts itself. Callers pass a `Deadline` so each attempt's
 timeout shrinks to the remaining request budget.
@@ -24,6 +30,7 @@ from typing import Optional
 
 from dds_tpu_torch.core import messages as M
 from dds_tpu_torch.core.errors import (
+    AllBreakersOpenError,
     ByzFailedNonceChallengeError,
     ByzInvalidKeyError,
     ByzInvalidSignatureError,
@@ -31,7 +38,8 @@ from dds_tpu_torch.core.errors import (
 )
 from dds_tpu_torch.core.transport import Transport
 from dds_tpu_torch.utils import sigs
-from dds_tpu_torch.utils.retry import Deadline, DeadlineExceededError
+from dds_tpu_torch.obs.metrics import metrics
+from dds_tpu_torch.utils.retry import CircuitBreaker, Deadline, DeadlineExceededError
 from dds_tpu_torch.utils.trace import tracer
 from dds_tpu_torch.utils.trust import TrustedNodesList
 
@@ -47,10 +55,19 @@ class AbdClientConfig:
     proxy_mac_secret: bytes = b"rest2abd"
     nonce_increment: int = 1
     request_timeout: float = 5.0
+    supervisor: str | None = None  # only accept ActiveReplicas from here
     # read_tags verifies each replica's intranet MAC itself, so it needs
     # the ABD secret and the quorum size
     abd_mac_secret: bytes = b"intranet-abd-secret"
     quorum_size: int = 3
+    # per-coordinator circuit breaker: ask timeouts trip it, half-open
+    # probes heal it; protocol violations also land on the permanent
+    # 3-strike suspicion counter
+    breaker_threshold: int = 3
+    breaker_reset: float = 2.0
+    # fail at once when EVERY trusted coordinator's breaker is open and
+    # none will half-open within the caller's remaining budget
+    fast_fail_all_open: bool = True
 
 
 class AbdClient:
@@ -60,8 +77,11 @@ class AbdClient:
         self.net = net
         self.cfg = config or AbdClientConfig()
         self.replicas = TrustedNodesList(replicas)
+        # coordinator addr -> CircuitBreaker (created on first use)
+        self.breakers: dict[str, CircuitBreaker] = {}
         # challenge nonce -> (future, coordinator)
         self._pending: dict[int, tuple[asyncio.Future, str]] = {}
+        self._preferred: list[str] = []  # supervisor's freshest-half view
         # tag-broadcast nonce -> (future, sender->tags votes, digest, keys,
         # request fingerprint | None)
         self._pending_tags: dict[int, tuple] = {}
@@ -76,6 +96,18 @@ class AbdClient:
         if isinstance(msg, M.TagBatchReply) and msg.nonce in self._pending_tags:
             self._on_tag_batch_reply(sender, msg)
             return
+        if isinstance(msg, M.ActiveReplicas):
+            if self.cfg.supervisor is not None and sender != self.cfg.supervisor:
+                log.warning("ignoring ActiveReplicas from non-supervisor %s", sender)
+                return
+            if msg.replicas:
+                # the supervisor serves only the freshest HALF of the active
+                # list: merge, don't reset — broadcasts (read_tags) need the
+                # whole quorum membership, which a partial view must not
+                # shrink
+                self.replicas.merge(msg.replicas)
+                self._preferred = list(msg.replicas)
+            return
         # junk from a coordinator we are waiting on resolves that request;
         # validation will reject it
         for fut, coord in list(self._pending.values()):
@@ -84,11 +116,42 @@ class AbdClient:
                 return
         log.debug("unmatched message from %s: %s", sender, type(msg).__name__)
 
+    def _breaker(self, node: str) -> CircuitBreaker:
+        b = self.breakers.get(node)
+        if b is None:
+            b = self.breakers[node] = CircuitBreaker(
+                self.cfg.breaker_threshold, self.cfg.breaker_reset,
+                name=node.rsplit("/", 1)[-1],
+            )
+        return b
+
+    def breaker_states(self) -> dict[str, str]:
+        """Current breaker state per coordinator (for the /health route)."""
+        return {n: b.state for n, b in sorted(self.breakers.items())}
+
+    def breaker_census(self) -> tuple[int, list[float]]:
+        """(trusted coordinator count, half-open ETAs of the ones whose
+        breaker currently refuses traffic): what the Retry-After
+        derivation reads."""
+        trusted = self.replicas.get_trusted()
+        etas = []
+        for n in trusted:
+            b = self.breakers.get(n)
+            if b is not None and not b.allow():
+                etas.append(b.half_open_eta())
+        return len(trusted), etas
+
     def _coord_failed(self, coord: str) -> None:
         """A coordinator answered with a PROTOCOL VIOLATION: permanent
-        suspicion strike."""
+        suspicion strike plus a breaker failure (steers the next pick away
+        at once)."""
         self.replicas.increment_suspicion(coord)
+        metrics.inc(
+            "dds_coordinator_violations_total", node=coord.rsplit("/", 1)[-1],
+            help="protocol violations observed per coordinator",
+        )
         tracer.event("abd.coordinator_violation", node=coord)
+        self._breaker(coord).record_failure()
 
     def _attempt_timeout(self, deadline: Optional[Deadline]) -> float:
         """Per-attempt timeout, clipped to the caller's remaining budget."""
@@ -103,18 +166,60 @@ class AbdClient:
         return timeout
 
     async def _ask(self, call, nonce: int, signature: bytes, exclude=(),
-                   deadline: Optional[Deadline] = None):
+                   deadline: Optional[Deadline] = None, op: str = "ask"):
+        # route around open breakers; defer_to falls back to the full
+        # trusted set when everything is excluded (a degraded try beats
+        # instant failure, and a success closes the breaker again)
+        blocked = tuple(n for n, b in self.breakers.items() if not b.allow())
+        self._maybe_fast_fail(blocked, deadline, op)
         timeout = self._attempt_timeout(deadline)
-        coordinator = self.replicas.defer_to(tuple(exclude))
+        coordinator = self.replicas.defer_to(
+            tuple(exclude) + blocked, prefer=self._preferred
+        )
         challenge = nonce + self.cfg.nonce_increment
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         self._pending[challenge] = (fut, coordinator)
         try:
             self.net.send(self.addr, coordinator, M.Envelope(call, nonce, signature))
-            reply = await asyncio.wait_for(fut, timeout)
+            try:
+                reply = await asyncio.wait_for(fut, timeout)
+            except asyncio.TimeoutError:
+                metrics.inc(
+                    "dds_quorum_timeouts_total", op=op,
+                    node=coordinator.rsplit("/", 1)[-1],
+                    help="quorum rounds that timed out per coordinator",
+                )
+                # transient unreachability: breaker only, the permanent
+                # suspicion counter is for protocol violations
+                self._breaker(coordinator).record_failure()
+                raise
             return reply, coordinator, challenge
         finally:
             self._pending.pop(challenge, None)
+
+    def _maybe_fast_fail(self, blocked: tuple, deadline: Optional[Deadline],
+                         op: str) -> None:
+        """When EVERY trusted coordinator's breaker refuses traffic and the
+        nearest half-open probe lies beyond the caller's remaining budget,
+        no attempt of this request can succeed: raise the typed error now
+        instead of burning the Deadline. While any probe still fits the
+        budget the degraded try proceeds."""
+        if not self.cfg.fast_fail_all_open or deadline is None:
+            return
+        trusted = self.replicas.get_trusted()
+        if not trusted or any(n not in blocked for n in trusted):
+            return
+        eta = min(self.breakers[n].half_open_eta() for n in trusted)
+        if eta < deadline.remaining():
+            return
+        metrics.inc(
+            "dds_fast_fail_total", op=op,
+            help="requests degraded instantly: all coordinator breakers "
+                 "open past the remaining budget",
+        )
+        tracer.event("abd.fast_fail", op=op, eta=round(eta, 4),
+                     targets=len(trusted))
+        raise AllBreakersOpenError(eta, len(trusted))
 
     async def fetch_set(self, key: str, deadline: Optional[Deadline] = None):
         """Quorum read; returns the stored set (list) or None."""
@@ -136,7 +241,7 @@ class AbdClient:
         cfg = self.cfg
         with tracer.span("abd.fetch") as span_meta:
             reply, coord, challenge = await self._ask(
-                M.IRead(key), nonce, sig, exclude, deadline
+                M.IRead(key), nonce, sig, exclude, deadline, op="fetch"
             )
             span_meta["coordinator"] = coord
             match reply:
@@ -153,6 +258,7 @@ class AbdClient:
                     if k != key:
                         self._coord_failed(coord)
                         raise ByzInvalidKeyError(coord)
+                    self._breaker(coord).record_success()
                     span_meta["ok"] = True
                     return value, tag, coord
                 case _:
@@ -172,7 +278,7 @@ class AbdClient:
         cfg = self.cfg
         with tracer.span("abd.write") as span_meta:
             reply, coord, challenge = await self._ask(
-                M.IWrite(key, value), nonce, sig, (), deadline
+                M.IWrite(key, value), nonce, sig, (), deadline, op="write"
             )
             span_meta["coordinator"] = coord
             match reply:
@@ -189,6 +295,7 @@ class AbdClient:
                     if k != key:
                         self._coord_failed(coord)
                         raise ByzInvalidKeyError(coord)
+                    self._breaker(coord).record_success()
                     span_meta["ok"] = True
                     return k, tag
                 case _:
@@ -254,6 +361,13 @@ class AbdClient:
             )
         if fingerprint is not None and cached_tags is None:
             raise ValueError("fingerprint requires cached_tags")
+        # the broadcast needs quorum_size replies, so a fabric whose every
+        # coordinator breaker is open past the budget is as futile here as
+        # for a point op
+        self._maybe_fast_fail(
+            tuple(n for n, b in self.breakers.items() if not b.allow()),
+            deadline, "read_tags",
+        )
         timeout = self._attempt_timeout(deadline)
         nonce = sigs.generate_nonce()
         if digest is None:
@@ -275,3 +389,8 @@ class AbdClient:
             return [max(col) for col in zip(*expanded)]
         finally:
             self._pending_tags.pop(nonce, None)
+
+    def refresh_from(self, supervisor: str) -> None:
+        """Ask the supervisor for the freshest active replicas (fire and
+        forget; the `ActiveReplicas` reply lands in `handle`)."""
+        self.net.send(self.addr, supervisor, M.RequestReplicas())

@@ -1,10 +1,11 @@
 """BFT-ABD replica: quorum-replicated register with HMAC auth + anti-replay.
 
-Trimmed copy of `dds_tpu/core/replica.py` (the healthy node's protocol:
-coordinator rounds, tag reads, tag batches, HMAC and nonce checks). The
-sentinent/byzantine behaviours, verified reseeds, anti-entropy, leases and
-shard fencing wait for later slices; no supervisor runs in this slice's
-topology, so Suspect votes are sent and dropped.
+Trimmed copy of `dds_tpu/core/replica.py`: the three behaviours
+(healthy, sentinent spare, byzantine), the supervisor's recovery protocol
+(the legacy `Sleep` reseed and the verified `SleepBegin`/`StateChunk`
+reseed, `StateDigestRequest`, `Kill`), the Merkle index and anti-entropy
+agent, and the fault-injection gate. Leases, geo local reads, shard
+fencing and shard migration are not ported.
 
 Protocol summary:
 - proxy `Envelope(IWrite)` -> broadcast `ReadTag`; on a quorum of
@@ -18,16 +19,26 @@ Protocol summary:
 - proxy `ReadTagBatch` -> answer the tag vector (or "unchanged" when the
   proxy's fingerprint matches), MACed with the intranet secret.
 - every inbound protocol message is HMAC-verified and nonce-replay-checked;
-  violations raise `Suspect` votes.
+  violations raise `Suspect` votes to the supervisor.
+- `Crash` and `Compromise` (Trudy's backdoors) are honoured only with
+  `allow_fault_injection`, which `run.launch` sets from `[attacks]
+  enabled`: without it no peer can silence or compromise a replica.
+- a sentinent spare stores quorum Writes silently and answers `Awake`
+  with its state; a byzantine node answers with garbage, replays, forged
+  writes and omissions (its forged tags come from the node's own `_rng`).
 """
 
 from __future__ import annotations
 
 import logging
+import random
 from dataclasses import dataclass, field
 
 from dds_tpu_torch.core import messages as M
+from dds_tpu_torch.core.antientropy import AntiEntropy, MerkleIndex
 from dds_tpu_torch.core.transport import Transport
+from dds_tpu_torch.obs.flight import flight
+from dds_tpu_torch.obs.metrics import metrics
 from dds_tpu_torch.utils import sigs
 from dds_tpu_torch.utils.trace import tracer
 from dds_tpu_torch.utils.trust import TrustedNodesList
@@ -42,6 +53,11 @@ class ReplicaConfig:
     abd_mac_secret: bytes = b"intranet-abd-secret"
     proxy_mac_secret: bytes = b"rest2abd"
     debug: bool = False
+    # honour the Crash/Compromise fault-injection backdoors. True is the
+    # harness default (tests drive faults directly); run.launch sets it
+    # from `[attacks] enabled`, so a deployment without attack simulation
+    # ignores injected faults from any peer
+    allow_fault_injection: bool = True
 
 
 @dataclass
@@ -66,9 +82,13 @@ class BFTABDNode:
                  net: Transport, config: ReplicaConfig | None = None):
         self.addr = addr
         self.name = addr.rsplit("/", 1)[-1]
+        self.all_replicas = list(replicas)
         self.supervisor = supervisor
         self.net = net
         self.cfg = config or ReplicaConfig()
+        self.behavior = "healthy"
+        # the byzantine behaviour's forged tags
+        self._rng = random.Random()
         # monotonic floor for tags this coordinator mints: two concurrent
         # writes coordinated here must never mint the same (seq+1, self) tag
         self._seq_floor = 0
@@ -76,10 +96,22 @@ class BFTABDNode:
         self.outgoing: dict[int, _Outgoing] = {}
         self.incoming: dict[int, bool] = {}  # nonce -> expired
         self.siblings = TrustedNodesList(replicas)
-        # bumped on every stored Write; versions the tag-batch cache
+        # bumped on every observable repository change (stored Write,
+        # reseed, Kill wipe, snapshot restore); versions the tag-batch cache
         self.repo_version = 0
         # keys-tuple -> (repo_version, digest, tags, fingerprint)
         self._tagbatch_cache: dict[tuple, tuple] = {}
+        # incremental (key -> tag, value-digest) hash index: the source of
+        # StateDigest manifests and the anti-entropy tree
+        self.merkle = MerkleIndex()
+        # per-replica sync agent; run.launch (or a test) starts its loop
+        self.antientropy = AntiEntropy(self)
+        # verified-reseed sessions in flight: session -> {begin, chunks}
+        # (SleepBegin and StateChunks may arrive in any order)
+        self._recovery_sessions: dict[int, dict] = {}
+        # last snapshot save/load bookkeeping (core/snapshot fills it;
+        # /health and the scrape-time gauges read it)
+        self.snapshot_meta: dict = {}
         net.register(addr, self.handle)
 
     # ------------------------------------------------------------------ util
@@ -94,6 +126,10 @@ class BFTABDNode:
 
     def _suspect(self, endpoint: str) -> None:
         tracer.event("replica.suspect", by=self.name, suspect=endpoint)
+        metrics.inc(
+            "dds_suspect_votes_total", suspect=endpoint.rsplit("/", 1)[-1],
+            help="Suspect votes raised toward the supervisor",
+        )
         self._send(self.supervisor, M.Suspect(endpoint, sigs.generate_nonce()))
 
     def _debug(self, text: str) -> None:
@@ -109,6 +145,24 @@ class BFTABDNode:
         tag-batch vectors invalidate."""
         self.repository[key] = (tag, value)
         self.repo_version += 1
+        self.merkle.update(key, tag, value)
+
+    def _install_repository(self, repository: dict) -> None:
+        """Replace the whole repository (reseed / snapshot restore): bump
+        the version, drop memo caches, rebuild the Merkle index."""
+        self.repository = repository
+        self.repo_version += 1
+        self._tagbatch_cache.clear()
+        self.merkle.rebuild(repository)
+
+    def _wipe(self) -> None:
+        self.repository = {}
+        self.outgoing = {}
+        self.incoming = {}
+        self.repo_version += 1
+        self._tagbatch_cache.clear()
+        self.merkle.rebuild({})
+        self._recovery_sessions.clear()
 
     def _tag_batch_fill(self, keys: tuple, digest: str) -> tuple[tuple, bytes]:
         """(tag vector, fingerprint) for an AUTHENTICATED ReadTagBatch,
@@ -128,8 +182,26 @@ class BFTABDNode:
         key = getattr(msg, "key", None)
         if isinstance(key, str):
             meta["key"] = key
+        meta["behavior"] = self.behavior
         with tracer.span("replica.handle", **meta):
+            self._dispatch(sender, msg)
+
+    def _dispatch(self, sender: str, msg) -> None:
+        if isinstance(msg, (M.Crash, M.Compromise)):
+            # fault-injection backdoors (Trudy): honoured only when the
+            # deployment enables attack simulation
+            if not self.cfg.allow_fault_injection:
+                self._debug(f"ignoring injected {type(msg).__name__}")
+                return
+            if isinstance(msg, M.Crash):
+                self.net.unregister(self.addr)  # go silent, any behavior
+                return
+        if self.behavior == "healthy":
             self._healthy(sender, msg)
+        elif self.behavior == "sentinent":
+            self._sentinent(sender, msg)
+        else:
+            self._byzantine(sender, msg)
 
     def _reply_to_proxy(self, req: _Outgoing, reply, payload) -> None:
         """Answer the proxy under challenge nonce = its nonce + increment,
@@ -340,5 +412,257 @@ class BFTABDNode:
                     # ABD write-back phase, re-using the original signature
                     self._broadcast(M.Write(max_tag, key, max_val, max_sig, nonce))
 
+            case M.Sleep(data, nonces):
+                # legacy unverified reseed (deployments that turn
+                # verified_transfer off): the seeding state is trusted
+                # verbatim, the blind spot the SleepBegin path closes
+                self._install_repository({
+                    k: (M.ABDTag(v["tag"][0], v["tag"][1]), v["value"])
+                    for k, v in data.items()
+                })
+                for n in nonces:
+                    self.incoming[int(n)] = True
+                self._debug("going to sleep")
+                self._send(sender, M.Complying())
+                self.behavior = "sentinent"
+
+            case M.SleepBegin():
+                self._recovery_ingest(sender, msg)
+
+            case M.StateChunk() if msg.kind != "migrate":
+                # shard-migration chunks have no ingest path in the port
+                self._recovery_ingest(sender, msg)
+
+            case M.StateDigestRequest(nonce):
+                self._send_manifest(sender, nonce)
+
+            case (M.MerkleRootRequest() | M.MerkleBucketRequest()
+                  | M.MerkleKeysRequest() | M.RepairRequest() | M.MerkleRoot()
+                  | M.MerkleBuckets() | M.MerkleKeys() | M.RepairReply()):
+                self.antientropy.handle(sender, msg)
+
+            case M.Kill():
+                # guardian-restart semantics: fresh empty state, healthy
+                self._wipe()
+                self.behavior = "healthy"
+                self._debug("killed and restarted")
+
+            case M.Compromise():
+                self.behavior = "byzantine"
+
             case _:
                 self._debug(f"unhandled {type(msg).__name__}")
+
+    def _send_manifest(self, dest: str, nonce: int) -> None:
+        manifest = self.merkle.manifest()
+        sig = sigs.manifest_signature(self.cfg.abd_mac_secret, self.addr,
+                                      manifest, nonce)
+        self._send(dest, M.StateDigest(manifest, nonce, sig))
+
+    # ------------------------------------------------------------ sentinent
+
+    def _sentinent(self, sender: str, msg) -> None:
+        cfg = self.cfg
+        match msg:
+            case M.Write(tag, key, value, signature, nonce):
+                if not sigs.validate_abd_signature(
+                    cfg.abd_mac_secret, value, tag, nonce, signature
+                ):
+                    self._debug("invalid ABD signature (sentinent)")
+                    return
+                if nonce in self.incoming:
+                    self._debug("invalid nonce - repeated (sentinent)")
+                    return
+                self.incoming[nonce] = True
+                cur_tag, _ = self._state(key)
+                if cur_tag < tag:
+                    self._store(key, tag, value)
+
+            case M.Awake():
+                self._debug("waking up")
+                self._send(sender, M.State(self.export_state(),
+                                           list(self.incoming.keys())))
+                self.behavior = "healthy"
+
+            case M.StateDigestRequest(nonce):
+                # the supervisor's spare-freshness probe and the verified-
+                # transfer quorum both reach spares too
+                self._send_manifest(sender, nonce)
+
+            case (M.MerkleRootRequest() | M.MerkleBucketRequest()
+                  | M.MerkleKeysRequest() | M.RepairRequest() | M.MerkleRoot()
+                  | M.MerkleBuckets() | M.MerkleKeys() | M.RepairReply()):
+                # spares sync too: a snapshot-restored sentinent converges
+                # before it is ever promoted
+                self.antientropy.handle(sender, msg)
+
+            case M.Kill():
+                self._wipe()
+                self.behavior = "healthy"
+
+    # ------------------------------------------------------------ byzantine
+
+    def _byzantine(self, sender: str, msg) -> None:
+        """Simulated compromise: garbage replies, replays, forged writes,
+        omissions. The attacker holds the real MAC key (the reference's
+        threat model)."""
+        cfg = self.cfg
+        match msg:
+            case M.Envelope(_, _, _):
+                # protocol violation: bare reply, not an Envelope
+                self._send(sender, M.IReadReply("2eikd094akldslcnu94342", None))
+
+            case M.ReadTag(key, nonce):
+                garbage = [1, "i am ", "trudy", None]
+                for _ in range(4):  # replay x4 with empty signature
+                    self._send(
+                        sender,
+                        M.TagReply(M.ABDTag(0, self.name), key, garbage, b"", nonce),
+                    )
+
+            case M.ReadTagBatch(keys, nonce, _):
+                # inflated tags under an empty signature, replayed x2: the
+                # proxy drops these on MAC failure
+                fake = tuple(M.ABDTag(1 << 30, self.name) for _ in keys)
+                for _ in range(2):
+                    self._send(sender, M.TagBatchReply(fake, "forged", b"", nonce))
+
+            case M.TagReply(_, key, _, _, nonce) | M.ReadReply(_, key, _, _, nonce):
+                # forge a write to every replica under a random tag
+                tag = M.ABDTag(self._rng.getrandbits(31), sender.rsplit("/", 1)[-1])
+                sig = sigs.abd_signature(cfg.abd_mac_secret, None, tag, nonce + 1)
+                for replica in self.all_replicas:
+                    self._send(replica, M.Write(tag, key, None, sig, nonce + 1))
+
+            case M.Write(_, key, _, _, nonce):
+                self._send(sender, M.WriteAck(key, nonce))
+
+            case M.WriteAck(_, _):
+                pass  # omission
+
+            case M.Read(key, nonce):
+                tag = M.ABDTag(self._rng.getrandbits(31), sender.rsplit("/", 1)[-1])
+                self._send(
+                    sender,
+                    M.ReadReply(tag, key, [",test,", 31, True], b"10010100110010", nonce),
+                )
+
+            case M.Kill():
+                self._wipe()
+                self.behavior = "healthy"
+
+    # ------------------------------------------------- verified state seed
+
+    MAX_RECOVERY_SESSIONS = 4
+
+    def _recovery_ingest(self, sender: str, msg) -> None:
+        """Buffer one frame of a verified reseed (SleepBegin header or a
+        StateChunk); transports reorder, so completion is by count, not
+        order. Sessions are bounded: a flood of bogus session ids evicts
+        oldest-first instead of growing without bound."""
+        sess = self._recovery_sessions.get(msg.session)
+        if sess is None:
+            while len(self._recovery_sessions) >= self.MAX_RECOVERY_SESSIONS:
+                self._recovery_sessions.pop(next(iter(self._recovery_sessions)))
+            sess = self._recovery_sessions[msg.session] = {
+                "begin": None, "sender": None, "chunks": {},
+            }
+        if isinstance(msg, M.SleepBegin):
+            sess["begin"] = msg
+            sess["sender"] = sender
+        else:
+            sess["chunks"][int(msg.seq)] = msg.entries
+        self._try_complete_recovery(msg.session)
+
+    def _try_complete_recovery(self, session: int) -> None:
+        sess = self._recovery_sessions.get(session)
+        begin = sess["begin"]
+        if begin is None:
+            return
+        chunks = sess["chunks"]
+        if sum(1 for s in chunks if 0 <= s < begin.total) < begin.total:
+            return
+        verified = verified_manifest(begin.digests, begin.support,
+                                     self.cfg.abd_mac_secret)
+        repository: dict[str, tuple] = {}
+        rejected: list[str] = []
+        for seq in range(begin.total):
+            for key, e in chunks[seq].items():
+                try:
+                    tag = M.ABDTag(int(e["tag"][0]), str(e["tag"][1]))
+                    value = e["value"]
+                except (KeyError, TypeError, ValueError, IndexError):
+                    rejected.append(key)
+                    continue
+                want = verified.get(key)
+                if want == (tag.seq, tag.id, sigs.value_digest(value)):
+                    repository[key] = (tag, value)
+                else:
+                    rejected.append(key)
+        self._recovery_sessions.pop(session, None)
+        self._install_repository(repository)
+        for n in begin.nonces:
+            self.incoming[int(n)] = True
+        if rejected:
+            log.warning(
+                "%s: verified reseed rejected %d/%d entries (digest quorum "
+                "mismatch); anti-entropy will repair the holes",
+                self.name, len(rejected), len(rejected) + len(repository),
+            )
+            tracer.event("recovery.rejected_entries", replica=self.name,
+                         rejected=len(rejected), accepted=len(repository))
+            metrics.inc(
+                "dds_recovery_rejected_entries_total", len(rejected),
+                replica=self.name,
+                help="seeded entries rejected by the digest quorum",
+            )
+            flight.record(
+                "recovery_digest_mismatch", replica=self.name,
+                rejected=sorted(rejected)[:32], accepted=len(repository),
+            )
+        self._debug(
+            f"reseeded with {len(repository)} verified entries "
+            f"({len(rejected)} rejected); going to sleep"
+        )
+        self._send(sess["sender"], M.Complying())
+        self.behavior = "sentinent"
+
+    # ---------------------------------------------------------------- admin
+
+    def export_state(self) -> dict:
+        return {
+            k: {"tag": [t.seq, t.id], "value": v} for k, (t, v) in self.repository.items()
+        }
+
+
+def verified_manifest(digests: list, support: int, secret: bytes) -> dict:
+    """Cross-check a relayed manifest quorum: verify every HMAC (the
+    signer address is bound into it, so a relay cannot re-attribute) and
+    keep only entries attested identically by >= `support` (= f+1)
+    distinct signers, at least one of which is then honest, so no single
+    Byzantine spare or relay can smuggle a forged entry."""
+    votes: dict[tuple, set] = {}
+    for item in digests:
+        try:
+            signer, manifest, nonce, sighex = item
+            if not sigs.validate_manifest_signature(
+                secret, str(signer), manifest,
+                int(nonce), bytes.fromhex(sighex),
+            ):
+                continue
+        except (TypeError, ValueError):
+            continue
+        for key, ent in manifest.items():
+            try:
+                attested = (str(key), int(ent[0]), str(ent[1]), str(ent[2]))
+            except (TypeError, ValueError, IndexError):
+                continue
+            votes.setdefault(attested, set()).add(str(signer))
+    verified: dict[str, tuple] = {}
+    for (key, seq, tid, vd), signers in votes.items():
+        if len(signers) < support:
+            continue
+        cur = verified.get(key)
+        if cur is None or (seq, tid) > (cur[0], cur[1]):
+            verified[key] = (seq, tid, vd)
+    return verified

@@ -32,6 +32,16 @@ seconds and share one `modmul_fold_many` pass on the device (`_fold`, the
 reference's coalescer at `dds_tpu/http/server.py:2605-2723`; its adaptive
 window comes with admission control, not yet ported).
 
+`GET /health` answers the proxy's view of the quorum (active and
+reachable replicas, breakers, 503 + Retry-After when fewer than a quorum
+are reachable) with a section for each plane it runs and, with local
+replicas, `recovery`: each replica's Merkle root, anti-entropy rounds and
+snapshot generation. `GET /metrics` (`metrics_route_enabled`, `[obs]
+metrics-route`) serves the Prometheus text of `obs.metrics`, state gauges
+sampled at scrape time. With a `supervisor` the proxy asks it for the
+freshest active replicas every `replica_refresh_interval` seconds, so a
+promoted spare joins its quorum view.
+
 Every other route answers 404. The aggregate and search paths keep the
 reference's tag-validated cache and audit exactly: ONE batched tag-only
 quorum round validates every cached record per request, a random sample
@@ -68,19 +78,21 @@ import asyncio
 import contextvars
 import heapq
 import logging
+import math
 import random
 import time
 from dataclasses import dataclass
 from typing import Optional
 
 from dds_tpu_torch.analytics import Prism
-from dds_tpu_torch.core.errors import ByzantineError
+from dds_tpu_torch.core.errors import AllBreakersOpenError, ByzantineError
 from dds_tpu_torch.core.quorum_client import AbdClient
 from dds_tpu_torch.http import json_protocol as J
 from dds_tpu_torch.http.miniserver import HttpServer, Request, Response
 from dds_tpu_torch.models.backend import CryptoBackend, get_backend
 from dds_tpu_torch.models.det import DetKey
 from dds_tpu_torch.obs import context as obs_context
+from dds_tpu_torch.obs.flight import flight
 from dds_tpu_torch.obs.metrics import metrics
 from dds_tpu_torch.ops.flags import analytics_max_rows
 from dds_tpu_torch.resident import ResidentPlane
@@ -153,6 +165,11 @@ class ProxyConfig:
     resident: object = None
     storage: object = None
     search: object = None
+    # active-replica refresh from the supervisor (None = no supervisor)
+    supervisor: Optional[str] = None
+    replica_refresh_interval: float = 5.0
+    # GET /metrics (Prometheus text)
+    metrics_route_enabled: bool = True
 
 
 def _make_backend(cfg: ProxyConfig) -> CryptoBackend:
@@ -172,9 +189,14 @@ async def _cancel_task(task: asyncio.Task) -> None:
 
 
 class DDSRestServer:
-    def __init__(self, abd: AbdClient, config: ProxyConfig | None = None):
+    def __init__(self, abd: AbdClient, config: ProxyConfig | None = None,
+                 local_replicas: dict | None = None):
         self.abd = abd
         self.cfg = config or ProxyConfig()
+        # this process's replicas (name -> BFTABDNode), read by /health's
+        # recovery section and the scrape-time gauges
+        self.local_replicas = local_replicas
+        self._tasks: list[asyncio.Task] = []
         self.backend: CryptoBackend = _make_backend(self.cfg)
         self.stored_keys: set[str] = set()
         # key -> (tag, value): every entry comes from a COMPLETED quorum op,
@@ -273,9 +295,22 @@ class DDSRestServer:
     async def start(self) -> None:
         await self._http.start()
         self.cfg.port = self._http.port  # resolve OS-assigned port 0
+        if self.cfg.supervisor:
+            if self.abd.cfg.supervisor is None:
+                self.abd.cfg.supervisor = self.cfg.supervisor  # pin ActiveReplicas source
+            self._tasks.append(supervised_task(self._replica_refresh_loop(),
+                                               name="proxy.replica_refresh"))
+
+    async def _replica_refresh_loop(self) -> None:
+        while True:
+            self.abd.refresh_from(self.cfg.supervisor)
+            await asyncio.sleep(self.cfg.replica_refresh_interval)
 
     async def stop(self) -> None:
         await self._http.stop()
+        for task in self._tasks:
+            await _cancel_task(task)
+        self._tasks.clear()
         if self._ingest_task is not None:
             await _cancel_task(self._ingest_task)
             self._ingest_task = None
@@ -616,19 +651,37 @@ class DDSRestServer:
         # one budget per request: every storage helper reads it from the
         # context var, so nested retries shrink toward the same deadline
         token = _REQ_DEADLINE.set(Deadline(self.cfg.request_budget))
+        ctx = obs_context.root()
         try:
-            with tracer.span(f"http.{req.method}.{route or 'root'}",
-                             _ctx=obs_context.root()):
+            with tracer.span(f"http.{req.method}.{route or 'root'}", _ctx=ctx):
                 return await self._route(req)
         except (ValueError, KeyError, TypeError) as e:
             return Response.text(f"bad request: {e}", 400)
-        except (DeadlineExceededError, NoTrustedNodesError) as e:
+        except (DeadlineExceededError, NoTrustedNodesError,
+                AllBreakersOpenError) as e:
             # the quorum is unreachable within the budget: say when to
-            # come back instead of hanging
+            # come back instead of hanging. AllBreakersOpenError is the
+            # fast-fail variant and carries the nearest probe's ETA
             log.warning("degraded %s %s: %s", req.method, req.path, e)
+            if isinstance(e, DeadlineExceededError):
+                kind = "deadline_exceeded"
+            elif isinstance(e, AllBreakersOpenError):
+                kind = "all_breakers_open"
+            else:
+                kind = "no_trusted_nodes"
+            metrics.inc(
+                "dds_degraded_total", route=route or "root", kind=kind,
+                help="requests degraded to 503 (budget exhausted / no quorum)",
+            )
+            # the faulting request's span tree, frozen for post-mortem
+            await flight.record_async(
+                kind, trace_id=ctx.trace_id, route=route or "root",
+                method=req.method, error=str(e),
+            )
             return Response(
                 503, f"service unavailable: {e}".encode(),
-                headers={"Retry-After": str(max(1, round(self.cfg.retry_after_hint)))},
+                headers={"Retry-After": str(
+                    self._derive_retry_after(getattr(e, "eta", None)))},
             )
         except Exception:
             log.exception("route failure %s %s", req.method, req.path)
@@ -748,7 +801,169 @@ class DDSRestServer:
                 "GroupBySum",
             ) if self.prism is not None:
                 return await self._analytics(name, req)
+
+            case ("GET", "health"):
+                return self._health()
+
+            case ("GET", "metrics") if self.cfg.metrics_route_enabled:
+                # state gauges (breakers, suspicion, membership) are sampled
+                # at scrape time: scrape-time freshness is all a gauge
+                # promises
+                self._sample_state_gauges()
+                return Response(
+                    200,
+                    metrics.render().encode(),
+                    content_type="text/plain; version=0.0.4; charset=utf-8",
+                )
         return Response(404)
+
+    # ------------------------------------------------- health and metrics
+
+    def _health(self) -> Response:
+        """Liveness/degradation probe: the active-replica view, the quorum
+        requirement, per-coordinator breaker states, each plane's stats
+        and, with local replicas, the recovery section. Always on: it
+        reveals cluster health, not workload shape."""
+        trusted = self.abd.replicas.get_trusted()
+        breakers = self.abd.breaker_states()
+        # reachable = trusted minus nodes whose breaker refuses traffic
+        reachable = [
+            n for n in trusted
+            if n not in self.abd.breakers or self.abd.breakers[n].allow()
+        ]
+        degraded = len(reachable) < self.abd.cfg.quorum_size
+        health = {
+            "status": "degraded" if degraded else "ok",
+            "active_replicas": len(trusted),
+            "reachable_replicas": len(reachable),
+            "quorum_size": self.abd.cfg.quorum_size,
+            "breakers": breakers,
+            "stored_keys": len(self.stored_keys),
+            "request_budget": self.cfg.request_budget,
+        }
+        if self._resident is not None:
+            health["resident"] = self._resident.stats()
+        if self._stratum is not None:
+            health["storage"] = self._stratum.stats()
+        if self._search is not None:
+            health["search"] = self._search.stats()
+        recovery = self._recovery_status()
+        if recovery is not None:
+            health["recovery"] = recovery
+        resp = Response.json(health, status=503 if degraded else 200)
+        if degraded:
+            resp.headers["Retry-After"] = str(self._derive_retry_after())
+        return resp
+
+    def _derive_retry_after(self, *candidates: float | None) -> int:
+        """Retry-After from the recovery state: the nearest breaker
+        half-open probe and any caller-supplied ETA (a fast-fail's),
+        falling back to `retry_after_hint` when nothing is pending."""
+        vals = [c for c in candidates if c is not None and 0 < c < math.inf]
+        _, etas = self.abd.breaker_census()
+        vals.extend(e for e in etas if e > 0)
+        eta = min(vals) if vals else self.cfg.retry_after_hint
+        return max(1, math.ceil(eta))
+
+    _BREAKER_STATE_CODE = {"closed": 0, "half_open": 1, "open": 2}
+
+    def _sample_state_gauges(self) -> None:
+        """Refresh scrape-time gauges: breaker and suspicion state per
+        coordinator, membership, store size, each plane's gauges, and per
+        local replica its anti-entropy divergence and snapshot age."""
+        for node, state in self.abd.breaker_states().items():
+            metrics.set(
+                "dds_breaker_state", self._BREAKER_STATE_CODE.get(state, -1),
+                node=node.rsplit("/", 1)[-1],
+                help="per-coordinator breaker: 0=closed 1=half_open 2=open",
+            )
+        for node, strikes in self.abd.replicas.suspicions().items():
+            metrics.set(
+                "dds_replica_suspicion", strikes, node=node.rsplit("/", 1)[-1],
+                help="permanent protocol-violation strikes per replica",
+            )
+        metrics.set(
+            "dds_trusted_replicas", len(self.abd.replicas.get_trusted()),
+            help="replicas under the 3-strike suspicion limit",
+        )
+        metrics.set("dds_stored_keys", len(self.stored_keys),
+                    help="aggregate key-set size")
+        if self._resident is not None:
+            self._resident.export_gauges(metrics)
+        if self._stratum is not None:
+            self._stratum.export_gauges(metrics)
+        if self._search is not None:
+            self._search.export_gauges(metrics)
+        metrics.set(
+            "dds_queue_depth",
+            sum(len(g) for g in self._fold_pending.values()),
+            queue="fold-coalescer",
+            help="entries waiting in a bounded pipeline queue",
+        )
+        metrics.set(
+            "dds_metrics_dropped_series", metrics.overflow_total(),
+            help="total label sets dropped into overflow series by the "
+                 "per-family cardinality cap",
+        )
+        for node in (self.local_replicas or {}).values():
+            stats = node.antientropy.stats()
+            metrics.set(
+                "dds_antientropy_divergent_buckets",
+                stats["divergent_buckets"], replica=node.name,
+                help="divergent Merkle buckets seen in the last sync round",
+            )
+            if stats["last_sync_age"] is not None:
+                metrics.set(
+                    "dds_antientropy_last_sync_age_seconds",
+                    stats["last_sync_age"], replica=node.name,
+                    help="seconds since the last completed anti-entropy round",
+                )
+            sm = node.snapshot_meta
+            if sm.get("generation") is not None:
+                metrics.set(
+                    "dds_snapshot_generation", sm["generation"],
+                    replica=node.name,
+                    help="latest snapshot generation written or loaded",
+                )
+            if sm.get("saved_at"):
+                metrics.set(
+                    "dds_snapshot_age_seconds",
+                    max(0.0, time.time() - sm["saved_at"]), replica=node.name,
+                    help="seconds since this replica's snapshot was written",
+                )
+
+    def _recovery_status(self) -> dict | None:
+        """Per-local-replica recovery view for /health: anti-entropy sync
+        state and snapshot durability state."""
+        if not self.local_replicas:
+            return None
+        out = {}
+        for node in self.local_replicas.values():
+            stats = node.antientropy.stats()
+            sm = node.snapshot_meta
+            out[node.name] = {
+                "merkle_root": node.merkle.root()[:16],
+                "tracked_keys": len(node.merkle),
+                "anti_entropy": {
+                    "rounds": stats["rounds"],
+                    "repaired_keys": stats["repaired_keys"],
+                    "divergent_buckets": stats["divergent_buckets"],
+                    "last_sync_age": stats["last_sync_age"],
+                    "running": stats["running"],
+                },
+                "snapshot": {
+                    "generation": sm.get("generation"),
+                    "age": (
+                        max(0.0, round(time.time() - sm["saved_at"], 3))
+                        if sm.get("saved_at") else None
+                    ),
+                    "verify_failures": metrics.value(
+                        "dds_snapshot_verify_failures_total",
+                        replica=node.name,
+                    ) or 0,
+                },
+            }
+        return out
 
     # ------------------------------------------------------- search routes
 

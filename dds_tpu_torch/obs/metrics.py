@@ -7,8 +7,7 @@ and segment store, and Prism count into it under the reference's series
 names (`dds_resident_*`, `dds_tier_*`, `dds_queue_*`,
 `dds_cipher_store_total`, `dds_analytics_*`),
 so a sequence of operations leaves the same counter values in both
-packages. The `/metrics` route that serves `render()` comes with the obs
-planes.
+packages. `GET /metrics` (`[obs] metrics-route`) serves `render()`.
 
 - histograms are FIXED-bucket (chosen at first observe): cumulative
   `_bucket{le=...}` counts plus `_sum`/`_count`, the standard shape
@@ -164,6 +163,18 @@ class Registry:
             if fam is None or fam.kind == "histogram":
                 return None
             return fam.samples.get(_label_key(labels))
+
+    def overflow_total(self) -> float:
+        """Total label sets folded into `overflow` series across every
+        family — the registry's dropped-series count. Exported at scrape
+        time as the `dds_metrics_dropped_series` gauge so dashboards can
+        alarm on cardinality overflow without parsing the per-family
+        counter."""
+        with self._lock:
+            fam = self._families.get(OVERFLOW_COUNTER)
+            if fam is None:
+                return 0.0
+            return float(sum(fam.samples.values()))
 
     def reset(self) -> None:
         with self._lock:

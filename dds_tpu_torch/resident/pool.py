@@ -17,9 +17,9 @@ directory's decayed popularity; at least a quarter of the rows a wave,
 never the operands being ensured) to the warm tier as host numpy uint32
 rows and keeps serving the fused fast path for the rows that stay.
 Without a sink the pool resets (entries re-ingest on demand, `epoch`
-bumps, every row-index memo invalidates, `resets` counts it). The
-reference also files a flight incident per reset; that recorder comes
-with the obs planes.
+bumps, every row-index memo invalidates, `resets` counts it) and files a
+`resident_reset` flight incident (`obs/flight.py`, when `[obs]
+flight-dir` is set).
 
 Concurrency: folds run on proxy worker threads. The reference could gather
 from a buffer snapshot outside its lock because JAX arrays are immutable;
@@ -171,12 +171,43 @@ class ResidentPool:
                 help="resident-pool capacity resets (entries re-ingest "
                      "on demand)",
             )
+            self._file_reset_incident(need)
             cap = max(self.initial_rows, min(cap, self.max_rows))
             self._buf = self._zeros(cap)
             return
         buf = self._zeros(cap)
         buf[: self.capacity] = self._buf
         self._buf = buf
+
+    def _file_reset_incident(self, need: int) -> None:
+        """A capacity reset drops the fused fast path until the working
+        set re-ingests: incident-worthy, not just a log line. Pool calls
+        run on worker threads (a synchronous write is fine there); an
+        on-loop caller dispatches the write as a supervised task."""
+        import asyncio
+
+        from dds_tpu_torch.obs.flight import flight
+
+        if not flight.enabled:
+            return
+        info = {
+            "shard": self.gid or "-", "need": need,
+            "max_rows": self.max_rows, "resets": self._resets,
+        }
+        try:
+            asyncio.get_running_loop()
+        except RuntimeError:
+            try:
+                flight.record("resident_reset", **info)
+            except Exception:  # noqa: BLE001 - telemetry never breaks ingest
+                log.exception("resident_reset incident write failed")
+            return
+        from dds_tpu_torch.utils.tasks import supervised_task
+
+        supervised_task(
+            flight.record_async("resident_reset", **info),
+            name="resident.reset_incident",
+        )
 
     def _evict(self, need: int, protect=()) -> None:
         """Demote the coldest rows to the tier sink so `need` total rows

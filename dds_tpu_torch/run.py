@@ -2,9 +2,20 @@
 
 Trimmed copy of `dds_tpu/run.py`. `launch(cfg)` boots the topology the
 config describes — by default the north-star one of
-`benchmarks/bft_sum.py`: 4 BFT-ABD replicas, quorum 3 (f = 1), proactive
-recovery off, the in-memory transport, and the proxy on an OS-assigned
-port folding on the `cuda` backend; `[resident]`, `[storage]` and
+`benchmarks/bft_sum.py`: 4 BFT-ABD replicas, quorum 3 (f = 1), no spares,
+proactive recovery off, the in-memory transport, and the proxy on an
+OS-assigned port folding on the `cuda` backend. The dependability plane
+comes up as the reference wires it: `[replicas] sentinent` spares start
+sentinent, the supervisor (`core/supervisor.py`) answers suspicion
+quorums and with `[recovery] enabled` proactively recovers the oldest
+active replica every `interval` seconds, redeploying a crashed one
+through the launch's factory; `[recovery] snapshot-dir` restores replica
+snapshots at boot (and saves every `snapshot-interval` seconds),
+`anti-entropy-enabled` starts each replica's Merkle sync loop, `[obs]
+flight-dir` arms the flight recorder and `[attacks] enabled` lets Trudy's
+crash or byzantine attack through (`dep.trudy`, fired by
+`run_workload`). `Deployment.stop` cancels and awaits every loop.
+`[resident]`, `[storage]` and
 `[search]` reach the proxy as their config sections, so Stratum keeps its
 segment log in `[storage] dir` and the search plane indexes the
 Search*/Order*/Range columns, and `[analytics]` arms Prism's routes (on
@@ -18,8 +29,9 @@ obfuscators with the exp kernel) and, with `[crypto] secret-device`, the
 Sanctum handle that runs bulk decryption's CRT legs on the card.
 `run_workload(dep)` drives
 `[client] nr-of-local-clients` concurrent clients over digests the
-workload generator draws from `[client] proportions`. The supervisor, TCP
-transport and attack simulation wait for later slices.
+workload generator draws from `[client] proportions`, and with `[attacks]
+enabled` triggers Trudy 0.1 s in, her victims drawn from the same seeded
+rng. The TCP transport, ChaosNet and Nemesis wait for later slices.
 
 Run the deployment and a generated workload, print each client's report,
 and with --serve keep serving until interrupted (on a host without a card,
@@ -36,21 +48,28 @@ import logging
 import os
 import pathlib
 import random
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from dds_tpu_torch.clt.client import ClientConfig, DDSHttpClient
 from dds_tpu_torch.clt.generator import generate
 from dds_tpu_torch.clt.instructions import Digest
+from dds_tpu_torch.core import snapshot as snap
 from dds_tpu_torch.core.quorum_client import AbdClient, AbdClientConfig
 from dds_tpu_torch.core.replica import BFTABDNode, ReplicaConfig
+from dds_tpu_torch.core.supervisor import BFTSupervisor, SupervisorConfig
 from dds_tpu_torch.core.transport import InMemoryNet
 from dds_tpu_torch.http.server import DDSRestServer, ProxyConfig
+from dds_tpu_torch.malicious.trudy import AttackType, Trudy
 from dds_tpu_torch.models.backend import get_backend
 from dds_tpu_torch.models.facade import HomoProvider
 from dds_tpu_torch.models.keys import HEKeys
+from dds_tpu_torch.obs.flight import flight
 from dds_tpu_torch.ops.flags import secret_device
 from dds_tpu_torch.sanctum import SecretBackend
 from dds_tpu_torch.utils.config import DDSConfig
+from dds_tpu_torch.utils.tasks import supervised_task
+
+log = logging.getLogger("dds_torch.run")
 
 SUPERVISOR_NAME = "supervisor"
 
@@ -61,23 +80,35 @@ class Deployment:
     net: InMemoryNet
     replicas: dict[str, BFTABDNode]
     server: DDSRestServer
+    supervisor: BFTSupervisor | None = None
+    trudy: Trudy | None = None
+    # loops launch started (anti-entropy, snapshots): each has `stop()`
+    _stoppables: list = field(default_factory=list)
+    # the flight recorder's directory before launch configured it
+    _flight_dir: str | None = None
 
     async def stop(self) -> None:
+        if self.supervisor is not None:
+            await self.supervisor.stop()
         await self.server.stop()
+        for s in self._stoppables:
+            await s.stop()
         await self.net.quiesce()
+        if self.cfg.obs.flight_dir:
+            # the recorder is process-wide: hand it back as launch found it,
+            # so a later deployment (or test) never files into this one's
+            # directory
+            flight.configure(dir=self._flight_dir or "")
 
 
 def unported_plane(cfg: DDSConfig) -> str | None:
     """The first plane `cfg` enables that the port does not serve, or
-    None: recovery and anti-entropy first, then shard, admission,
-    tenancy, the obs audit, fabric, helmsman, geo, heliograph, attacks,
-    then the other serving surfaces of the reference that are not
-    ported."""
+    None: shard first, then admission, tenancy, the obs audit, fabric,
+    helmsman, geo, heliograph, the attacks other than Trudy's crash and
+    byzantine, then the other serving surfaces of the reference that are
+    not ported."""
+    attack_ok = {a.value for a in (AttackType.CRASH, AttackType.BYZANTINE)}
     checks = (
-        (cfg.recovery.enabled, "[recovery] enabled: proactive recovery (the supervisor)"),
-        (cfg.recovery.anti_entropy_enabled, "[recovery] anti-entropy-enabled: anti-entropy"),
-        (bool(cfg.replicas.sentinent), "[replicas] sentinent: spares (the supervisor)"),
-        (bool(cfg.recovery.snapshot_dir), "[recovery] snapshot-dir: snapshots"),
         (cfg.shard.enabled, "[shard] enabled: sharding"),
         (cfg.admission.enabled, "[admission] enabled: admission control"),
         (cfg.tenancy.enabled, "[tenancy] enabled: tenancy"),
@@ -86,11 +117,12 @@ def unported_plane(cfg: DDSConfig) -> str | None:
         (cfg.helmsman.enabled, "[helmsman] enabled: helmsman"),
         (cfg.geo.enabled, "[geo] enabled: geo"),
         (cfg.heliograph.enabled, "[heliograph] enabled: heliograph"),
-        (cfg.attacks.enabled or cfg.attacks.chaos_enabled, "[attacks]: attacks"),
-        (cfg.obs.metrics_route, "[obs] metrics-route: the /metrics route"),
+        (cfg.attacks.chaos_enabled, "[attacks] chaos-enabled: attacks on ChaosNet (Nemesis)"),
+        (cfg.attacks.enabled and cfg.attacks.type.strip().lower() not in attack_ok,
+         f"[attacks] type = {cfg.attacks.type!r}: attacks other than Trudy's "
+         "crash and byzantine"),
         (cfg.obs.slo_route, "[obs] slo-route: the SLO engine"),
         (cfg.obs.trace_route, "[obs] trace-route: the /_trace route"),
-        (bool(cfg.obs.flight_dir), "[obs] flight-dir: the flight recorder"),
         (cfg.obs.fleet.enabled, "[obs.fleet] enabled: fleet observability"),
         (cfg.transport.kind != "memory", f"[transport] kind = {cfg.transport.kind!r}: "
                                          "the TCP transport"),
@@ -113,6 +145,15 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             f"{plane} is not ported to dds_tpu_torch; the config enables it, "
             "so the deployment is refused rather than served without it"
         )
+    flight_dir = flight.dir
+    if cfg.obs.flight_dir:
+        # the process-wide recorder stays disabled without a directory:
+        # fault-path disk writes are opt-in
+        flight.configure(
+            dir=cfg.obs.flight_dir,
+            max_incidents=cfg.obs.flight_max_incidents,
+            min_interval=cfg.obs.flight_min_interval,
+        )
     net = InMemoryNet()
     rcfg = ReplicaConfig(
         quorum_size=cfg.replicas.byz_quorum_size,
@@ -120,21 +161,86 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
         abd_mac_secret=cfg.security.abd_mac_secret.encode(),
         proxy_mac_secret=cfg.security.proxy_mac_secret.encode(),
         debug=cfg.debug,
+        allow_fault_injection=cfg.attacks.enabled,
     )
     endpoints = list(cfg.replicas.endpoints)
+    spares = set(cfg.replicas.sentinent)
+    sentinent = [e for e in endpoints if e in spares]
+    active = [e for e in endpoints if e not in spares]
     replicas = {
         e: BFTABDNode(e, endpoints, SUPERVISOR_NAME, net, rcfg) for e in endpoints
     }
+    for e in sentinent:
+        replicas[e].behavior = "sentinent"
+
+    # optional snapshot restore: corrupt or forged files are quarantined
+    # by load_all, never allowed to abort this boot
+    snap_secret = None
+    if cfg.recovery.snapshot_dir:
+        snap_secret = snap.derive_secret(
+            (cfg.recovery.snapshot_secret or cfg.security.abd_mac_secret).encode(),
+            cfg.security.node_key_path or None,
+        )
+        restored = snap.load_all(replicas, cfg.recovery.snapshot_dir,
+                                 secret=snap_secret)
+        if restored:
+            log.info("restored %d replica snapshots from %s", restored,
+                     cfg.recovery.snapshot_dir)
+
+    def _start_antientropy(node: BFTABDNode) -> None:
+        node.antientropy.configure(
+            interval=cfg.recovery.anti_entropy_interval,
+            jitter=cfg.recovery.anti_entropy_jitter,
+        )
+        node.antientropy.start()
+
+    async def redeploy(endpoint: str) -> None:
+        """The supervisor's factory for a crashed replica: a fresh node at
+        the same endpoint (one still on the transport is not rebuilt, so a
+        stray redeploy never wipes a live replica)."""
+        if net.has_endpoint(endpoint):
+            return
+        old = replicas.get(endpoint)
+        if old is not None:
+            old.antientropy.cancel()  # the replaced node's loop must die
+        replicas[endpoint] = BFTABDNode(endpoint, endpoints, SUPERVISOR_NAME, net, rcfg)
+        if cfg.recovery.anti_entropy_enabled:
+            _start_antientropy(replicas[endpoint])
+
+    supervisor = BFTSupervisor(
+        SUPERVISOR_NAME,
+        active,
+        sentinent,
+        net,
+        SupervisorConfig(
+            quorum_size=cfg.replicas.byz_quorum_size,
+            proactive_recovery_warmup=cfg.recovery.warm_up,
+            proactive_recovery_interval=cfg.recovery.interval,
+            sentinent_awake_timeout=cfg.recovery.sentinent_awake_timeout,
+            crashed_recovery_timeout=cfg.recovery.crashed_recovery_timeout,
+            proactive_recovery_enabled=cfg.recovery.enabled,
+            verified_transfer=cfg.recovery.verified_transfer,
+            manifest_timeout=cfg.recovery.manifest_timeout,
+            state_chunk_keys=cfg.recovery.state_chunk_keys,
+            abd_mac_secret=cfg.security.abd_mac_secret.encode(),
+            debug=cfg.debug,
+        ),
+        redeploy=redeploy,
+    )
+    supervisor.start()
     abd = AbdClient(
         "proxy-0",
         net,
-        endpoints,
+        active,
         AbdClientConfig(
             proxy_mac_secret=cfg.security.proxy_mac_secret.encode(),
             nonce_increment=cfg.security.nonce_challenge_increment,
             request_timeout=cfg.proxy.intranet_request_timeout,
             abd_mac_secret=cfg.security.abd_mac_secret.encode(),
             quorum_size=cfg.replicas.byz_quorum_size,
+            breaker_threshold=cfg.proxy.breaker_threshold,
+            breaker_reset=cfg.proxy.breaker_reset,
+            fast_fail_all_open=cfg.admission.fast_fail,
         ),
     )
     p = cfg.proxy
@@ -159,10 +265,55 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             resident=cfg.resident,
             storage=cfg.storage,
             search=cfg.search,
+            supervisor=SUPERVISOR_NAME,
+            metrics_route_enabled=cfg.obs.metrics_route,
         ),
+        local_replicas=replicas,
     )
     await server.start()
-    return Deployment(cfg, net, replicas, server)
+
+    stoppables = []
+    if cfg.recovery.anti_entropy_enabled:
+        # one pull agent per replica, on a jittered timer so the rounds
+        # spread out instead of thundering
+        for node in replicas.values():
+            _start_antientropy(node)
+
+        class _AntiEntropyStopper:
+            async def stop(self):
+                for node in replicas.values():
+                    await node.antientropy.stop()
+
+        stoppables.append(_AntiEntropyStopper())
+
+    trudy = Trudy(net, active, cfg.replicas.byz_max_faults, addr="trudy")
+    dep = Deployment(cfg, net, replicas, server, supervisor, trudy, stoppables,
+                     flight_dir)
+
+    if cfg.recovery.snapshot_dir and cfg.recovery.snapshot_interval > 0:
+        async def _snapshot_loop():
+            while True:
+                await asyncio.sleep(cfg.recovery.snapshot_interval)
+                # off-loop: serializing large repositories must not stall
+                # ABD handling or recovery timers
+                await asyncio.to_thread(
+                    snap.save_all, dict(dep.replicas),
+                    cfg.recovery.snapshot_dir,
+                    snap_secret, cfg.recovery.snapshot_keep,
+                )
+
+        task = supervised_task(_snapshot_loop(), name="run.snapshot_loop")
+
+        class _TaskStopper:
+            async def stop(self):
+                task.cancel()
+                try:
+                    await task
+                except asyncio.CancelledError:
+                    pass
+
+        stoppables.append(_TaskStopper())
+    return dep
 
 
 def _write_secret_file(path: pathlib.Path, content: str) -> None:
@@ -208,12 +359,20 @@ def load_provider(cfg: DDSConfig) -> HomoProvider:
 async def run_workload(dep: Deployment, provider: HomoProvider | None = None,
                        seed: int | None = None):
     """Spawn the configured clients and drive generated digests; returns
-    their reports. The reference's `run_workload` without the attack
-    trigger: every client's rng and digest are drawn from one seeded rng
-    in the same order, so one seed gives both packages the same digests."""
+    their reports. Every client's rng and digest, then Trudy's victims,
+    are drawn from one seeded rng in the reference's order, so one seed
+    gives both packages the same digests and the same victims."""
     cfg = dep.cfg
     provider = provider or load_provider(cfg)
     rng = random.Random(seed)
+    if dep.trudy is not None:
+        dep.trudy._rng = rng  # --seed reproduces the attack's victims
+    if cfg.attacks.enabled and dep.trudy is not None:
+        # fire mid-run: the workload below must complete correct quorums
+        # against a damaged cluster
+        asyncio.get_running_loop().call_later(
+            0.1, lambda: dep.trudy.trigger(cfg.attacks.type)
+        )
     dt = cfg.client.data_table
     runs = []
     for _ in range(cfg.client.nr_of_local_clients):

@@ -4,8 +4,9 @@ Copy of `dds_tpu/utils/config.py`: every section, key and default of the
 reference, so every file in `configs/` parses here as it does there. A
 section parses whether or not its plane is ported; `run.launch` refuses
 to boot a config that enables a plane the port does not serve, naming it
-(recovery and anti-entropy, shard, admission, tenancy, the obs audit,
-fabric, helmsman, geo, heliograph, attacks, and the other serving
+(shard, admission, tenancy, the obs audit, fabric, helmsman, geo,
+heliograph, the attacks other than Trudy's crash and byzantine, and the
+other serving
 surfaces listed there), so nothing runs without a plane
 its config asks for. `[client] failed-contact-attempts-threshold` is read
 by no client, so any value but the reference's default raises at parse.
@@ -13,17 +14,17 @@ by no client, so any value but the reference's default raises at parse.
 The port's defaults differ from the reference's in these fields only:
 - `[replicas]`: 4 endpoints, quorum 3, f = 1 and no `sentinent` spares,
   the north-star topology of `benchmarks/bft_sum.py` (the reference: 9
-  endpoints, 2 sentinent, quorum 5). Spares need the supervisor, which is
-  not ported, so the reference's default would not boot here.
-- `[recovery] enabled` and `anti-entropy-enabled`: off (the reference: on).
-  The supervisor and the anti-entropy loops are not ported.
+  endpoints, 2 sentinent, quorum 5), the topology every earlier slice of
+  the port measured.
+- `[recovery] enabled`: off (the reference: on). That topology has no
+  spare for the proactive timer to swap in; `configs/default.toml` and
+  `sharded.toml` turn it on and get the reference's behaviour.
 - `[proxy] crypto-backend = "cuda"` (the reference: `cpu`) and `port = 0`
   (OS-assigned; the reference: 8443), so several stacks boot in one
   process without a port clash.
-- `[obs] audit-enabled`, `metrics-route` and `slo-route`: off (the
-  reference: on). The Watchtower auditor, the /metrics route and the SLO
-  engine are not ported, and the port must not refuse its own
-  `DDSConfig()`.
+- `[obs] audit-enabled` and `slo-route`: off (the reference: on). The
+  Watchtower auditor and the SLO engine are not ported, and the port must
+  not refuse its own `DDSConfig()`.
 - Fields of the port alone: `[proxy] device` and `min-device-batch`, and
   `[client] device`: where the `cuda` backends and the Sanctum device plan
   run ("cpu" runs their plain PyTorch path on hosts without a card) and
@@ -98,8 +99,7 @@ class SecurityConfig:
 
 @dataclass
 class RecoveryConfig:
-    # proactive recovery needs the supervisor, which is not ported
-    # (the reference: on)
+    # off without spares in the default topology (the reference: on)
     enabled: bool = False
     warm_up: float = 5.0               # dds-system.conf:137
     interval: float = 7.0              # dds-system.conf:138
@@ -125,8 +125,8 @@ class RecoveryConfig:
     # Merkle anti-entropy (core/antientropy.py): every local replica runs
     # a background pull loop on a jittered timer, so healed partitions,
     # snapshot-restored rejoiners, and post-reseed holes converge without
-    # waiting for client reads. Not ported (the reference: on)
-    anti_entropy_enabled: bool = False
+    # waiting for client reads
+    anti_entropy_enabled: bool = True
     anti_entropy_interval: float = 5.0
     anti_entropy_jitter: float = 2.0
 
@@ -285,9 +285,8 @@ class ObsConfig:
     DDS_OBS_FLIGHT_INTERVAL (flight recorder), DDS_OBS_RING /
     DDS_OBS_TRACE (tracer ring size / kill switch)."""
 
-    # GET /metrics (Prometheus text). Not ported, so off (the reference:
-    # on); the port keeps its series in obs.metrics
-    metrics_route: bool = False
+    # GET /metrics (Prometheus text of obs.metrics)
+    metrics_route: bool = True
     # GET /_trace (per-span stats; reveals workload shape). `debug = true`
     # also enables it, preserving the old behavior.
     trace_route: bool = False

@@ -1,10 +1,12 @@
 """Record keys, nonces and HMAC signatures.
 
 Copy of `dds_tpu/utils/sigs.py`, trimmed to the functions the slice's
-quorum path uses: SHA-512 content-hash record keys, random nonces, and two
-HMAC families — the intranet (replica<->replica) "ABD" signature over
-(value, tag, nonce) and the proxy<->replica signature over (key[, value],
-nonce). All comparisons are constant-time. Values are serialized as
+quorum and recovery paths use: SHA-512 content-hash record keys, random
+nonces, the intranet (replica<->replica) "ABD" signature over (value,
+tag, nonce), the proxy<->replica signature over (key[, value], nonce),
+the per-entry value digest, the signed state manifest of verified state
+transfer and the anti-entropy reply signature — the reference's bytes for
+the same inputs. All comparisons are constant-time. Values are serialized as
 canonical JSON; the ABD signature covers the true `tag.seq`.
 """
 
@@ -95,6 +97,47 @@ def validate_abd_batch_unchanged_signature(
 ) -> bool:
     return hmac.compare_digest(
         abd_batch_unchanged_signature(secret, fingerprint, digest, nonce), given
+    )
+
+
+def value_digest(value) -> str:
+    """sha256 hex of a stored set's canonical form — the per-entry content
+    commitment behind verified state transfer and Merkle anti-entropy. A
+    manifest can attest a repository without shipping values; a seeded
+    value is accepted only if it hashes back to the attested digest."""
+    return hashlib.sha256(canonical(value).encode()).hexdigest()
+
+
+def manifest_signature(secret: bytes, signer: str, manifest: dict, nonce: int) -> bytes:
+    """Replica signature over its (key -> [seq, id, value-digest]) state
+    manifest. Binds the SIGNER address so a relay (the supervisor forwards
+    collected manifests to the recovering node) cannot re-attribute one
+    replica's manifest to another when distinct signers are counted."""
+    content = f"state-digest|{signer}|{canonical(manifest)}|{nonce}".encode()
+    return _mac(secret, content)
+
+
+def validate_manifest_signature(
+    secret: bytes, signer: str, manifest: dict, nonce: int, given: bytes
+) -> bool:
+    return hmac.compare_digest(
+        manifest_signature(secret, signer, manifest, nonce), given
+    )
+
+
+def antientropy_signature(secret: bytes, kind: str, payload, nonce: int) -> bytes:
+    """Intranet signature over one anti-entropy reply (root / bucket vector /
+    key listing). `kind` namespaces the phase so a captured reply of one
+    phase cannot be replayed as another's."""
+    content = f"ae-{kind}|{canonical(payload)}|{nonce}".encode()
+    return _mac(secret, content)
+
+
+def validate_antientropy_signature(
+    secret: bytes, kind: str, payload, nonce: int, given: bytes
+) -> bool:
+    return hmac.compare_digest(
+        antientropy_signature(secret, kind, payload, nonce), given
     )
 
 

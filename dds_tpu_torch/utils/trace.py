@@ -1,7 +1,8 @@
 """Structured tracing: causally linked spans and point events.
 
 Trimmed copy of `dds_tpu/utils/trace.py` (the subscriber feed and JSONL
-dump wait for the obs planes). Every recorded span carries `(trace_id,
+dump wait for the obs planes); `event_dict` serves the flight recorder's
+incident dumps. Every recorded span carries `(trace_id,
 span_id, parent_id)` from `obs.context`, so one REST request yields a span
 tree — HTTP route -> quorum round -> replica handler -> kernel phase. The
 span names match the reference's (`http.GET.SumAll`, `proxy.fetch_stored`,
@@ -113,6 +114,20 @@ class Tracer:
                 "p95_ms": round(_percentile(durs, 0.95), 3),
             }
         return out
+
+    @staticmethod
+    def event_dict(e: SpanRecord) -> dict:
+        """One JSON-safe record. Meta lives under its own "meta" key so a
+        span recorded with meta named `name`/`ts`/`dur_ms` can never
+        shadow the record fields."""
+        rec = {"ts": e.ts, "name": e.name, "dur_ms": e.dur_ms, "kind": e.kind}
+        if e.trace_id is not None:
+            rec["trace_id"] = e.trace_id
+            rec["span_id"] = e.span_id
+            rec["parent_id"] = e.parent_id
+        if e.meta:
+            rec["meta"] = e.meta
+        return rec
 
     def reset(self, max_events: int | None = None) -> None:
         """Drop every span; `max_events` resizes the bound for a run that

@@ -1,7 +1,8 @@
 """Per-node suspicion strike counter with random load balancing.
 
 Copy of `dds_tpu/utils/trust.py`: 3 strikes exclude a node from the
-trusted set; `defer_to` picks a random trusted node.
+trusted set; `defer_to` picks a random trusted node; `merge` grows the
+membership when the supervisor promotes a spare.
 """
 
 from __future__ import annotations
@@ -38,6 +39,17 @@ class TrustedNodesList:
 
     def get_all(self) -> list[str]:
         return list(self._strikes)
+
+    def reset(self, nodes: list[str]) -> None:
+        """Replace the membership, keeping strikes of surviving nodes."""
+        self._strikes = {n: self._strikes.get(n, 0) for n in nodes}
+
+    def merge(self, nodes: list[str]) -> None:
+        """Add members without dropping existing ones (strikes kept): a
+        partial view, such as the supervisor's freshest-half
+        `ActiveReplicas`, must not shrink the quorum membership."""
+        for n in nodes:
+            self._strikes.setdefault(n, 0)
 
     def defer_to(self, exclude=(), prefer=()) -> str:
         """Pick a random trusted node, avoiding `exclude` when any other

@@ -7,7 +7,9 @@ default, except the port's documented divergences (`DIVERGENCES`, the
 module docstring of `dds_tpu_torch/utils/config.py`) and the fields only
 the port has (`PORT_ONLY`). `launch` on each file refuses with
 `NotImplementedError` naming the first plane the port does not serve,
-never with an unknown-key error; each refusal is checked on its own, and
+never with an unknown-key error; each refusal is checked on its own. The
+planes ported since (recovery, anti-entropy, spares, snapshots, Trudy's
+attacks, /metrics, the flight recorder) each launch and stop cleanly, and
 `DDSConfig()` with `[search] enabled` boots, as does `[crypto]
 secret-device` (Sanctum), whose provider decrypts through its device plan.
 """
@@ -36,11 +38,9 @@ DIVERGENCES = {
     "replicas.byz_quorum_size": 3,
     "replicas.byz_max_faults": 1,
     "recovery.enabled": False,
-    "recovery.anti_entropy_enabled": False,
     "proxy.port": 0,
     "proxy.crypto_backend": "cuda",
     "obs.audit_enabled": False,
-    "obs.metrics_route": False,
     "obs.slo_route": False,
 }
 # fields the reference does not have
@@ -48,9 +48,9 @@ PORT_ONLY = {"proxy.device": "cuda", "proxy.min_device_batch": None,
              "client.device": "cuda"}
 # the plane each top-level file's launch names first
 FIRST_PLANE = {
-    "configs/default.toml": "recovery",
+    "configs/default.toml": "admission",
     "configs/heliograph.toml": "obs audit",
-    "configs/sharded.toml": "recovery",
+    "configs/sharded.toml": "sharding",
     "configs/stratum.toml": "sharding",
     "configs/tenancy.toml": "admission",
 }
@@ -123,43 +123,85 @@ def test_launch_refuses_each_config_naming_a_plane(name):
         assert FIRST_PLANE[name] in msg, msg
 
 
-REFUSALS = [
-    ("recovery", {"recovery": {"enabled": True}}),
-    ("anti-entropy", {"recovery": {"anti-entropy-enabled": True}}),
-    ("spares", {"replicas": {"sentinent": ["replica-3"]}}),
-    ("snapshots", {"recovery": {"snapshot-dir": "snaps"}}),
-    ("sharding", {"shard": {"enabled": True}}),
-    ("admission", {"admission": {"enabled": True}}),
-    ("tenancy", {"tenancy": {"enabled": True}}),
-    ("obs audit", {"obs": {"audit-enabled": True}}),
-    ("fabric", {"fabric": {"role": "proxy"}}),
-    ("helmsman", {"helmsman": {"enabled": True}}),
-    ("geo", {"geo": {"enabled": True}}),
-    ("heliograph", {"heliograph": {"enabled": True}}),
-    ("attacks", {"attacks": {"enabled": True}}),
-    ("attacks", {"attacks": {"chaos-enabled": True}}),
-    ("/metrics", {"obs": {"metrics-route": True}}),
-    ("SLO engine", {"obs": {"slo-route": True}}),
-    ("/_trace", {"obs": {"trace-route": True}}),
-    ("flight recorder", {"obs": {"flight-dir": "incidents"}}),
-    ("fleet observability", {"obs": {"fleet": {"enabled": True}}}),
-    ("TCP transport", {"transport": {"kind": "tcp"}}),
-    ("multi-host", {"replicas": {"addresses": {"replica-0": "h:1"}}}),
-    ("TLS", {"security": {"tls-enabled": True}}),
-    ("node identity", {"security": {"node-public-keys": {"h:1": "00"}}}),
-    ("key sync", {"proxy": {"key-sync-enabled": True}}),
-    ("stored-keys", {"proxy": {"stored-keys-path": "keys.json"}}),
+# (plane, section, refused): the index of each case is its id's suffix
+PLANES = [
+    ("recovery", {"recovery": {"enabled": True}}, False),
+    ("anti-entropy", {"recovery": {"anti-entropy-enabled": True}}, False),
+    ("spares", {"replicas": {"sentinent": ["replica-3"]}}, False),
+    ("snapshots", {"recovery": {"snapshot-dir": "snaps"}}, False),
+    ("sharding", {"shard": {"enabled": True}}, True),
+    ("admission", {"admission": {"enabled": True}}, True),
+    ("tenancy", {"tenancy": {"enabled": True}}, True),
+    ("obs audit", {"obs": {"audit-enabled": True}}, True),
+    ("fabric", {"fabric": {"role": "proxy"}}, True),
+    ("helmsman", {"helmsman": {"enabled": True}}, True),
+    ("geo", {"geo": {"enabled": True}}, True),
+    ("heliograph", {"heliograph": {"enabled": True}}, True),
+    ("attacks", {"attacks": {"enabled": True}}, False),
+    ("attacks", {"attacks": {"chaos-enabled": True}}, True),
+    ("/metrics", {"obs": {"metrics-route": True}}, False),
+    ("SLO engine", {"obs": {"slo-route": True}}, True),
+    ("/_trace", {"obs": {"trace-route": True}}, True),
+    ("flight recorder", {"obs": {"flight-dir": "incidents"}}, False),
+    ("fleet observability", {"obs": {"fleet": {"enabled": True}}}, True),
+    ("TCP transport", {"transport": {"kind": "tcp"}}, True),
+    ("multi-host", {"replicas": {"addresses": {"replica-0": "h:1"}}}, True),
+    ("TLS", {"security": {"tls-enabled": True}}, True),
+    ("node identity", {"security": {"node-public-keys": {"h:1": "00"}}}, True),
+    ("key sync", {"proxy": {"key-sync-enabled": True}}, True),
+    ("stored-keys", {"proxy": {"stored-keys-path": "keys.json"}}, True),
 ]
+IDS = [f"{p}-{i}" for i, (p, _, _) in enumerate(PLANES)]
+REFUSALS = [(p, sec) for p, sec, refused in PLANES if refused]
+PORTED = [(p, sec) for p, sec, refused in PLANES if not refused]
 
 
 @pytest.mark.parametrize("plane,section", REFUSALS,
-                         ids=[f"{p}-{i}" for i, (p, _) in enumerate(REFUSALS)])
+                         ids=[i for i, (_, _, r) in zip(IDS, PLANES) if r])
 def test_each_unported_plane_is_refused_by_name(plane, section, monkeypatch):
     monkeypatch.delenv("DDS_SECRET_DEVICE", raising=False)
     cfg = DDSConfig.from_dict({"proxy": {"device": "cpu"}, **section})
     assert plane in unported_plane(cfg)
     with pytest.raises(NotImplementedError, match="not ported"):
         asyncio.run(launch(cfg))
+
+
+@pytest.mark.parametrize("plane,section", PORTED,
+                         ids=[i for i, (_, _, r) in zip(IDS, PLANES) if not r])
+def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
+                                              tmp_path):
+    """The planes that used to be refused boot on the CPU and stop
+    cleanly: every loop `launch` started is cancelled and awaited, and the
+    flight recorder is handed back as `launch` found it."""
+    from dds_tpu_torch.obs.flight import flight
+    from dds_tpu_torch.utils.tasks import _TASKS
+
+    monkeypatch.delenv("DDS_SECRET_DEVICE", raising=False)
+    monkeypatch.chdir(tmp_path)
+    cfg = DDSConfig.from_dict({"proxy": {"device": "cpu"}, **section})
+    assert unported_plane(cfg) is None
+    before = flight.dir
+
+    async def boot():
+        dep = await launch(cfg)
+        try:
+            assert dep.supervisor is not None and dep.trudy is not None
+            if plane == "spares":
+                assert dep.replicas["replica-3"].behavior == "sentinent"
+                assert dep.supervisor.sentinent == ["replica-3"]
+            if plane == "flight recorder":
+                assert flight.dir == "incidents"
+            if plane == "anti-entropy":
+                assert all(n.antientropy.stats()["running"]
+                           for n in dep.replicas.values())
+        finally:
+            await dep.stop()
+        await asyncio.sleep(0)
+        return [t.get_name() for t in _TASKS if not t.done()]
+
+    leaked = asyncio.run(asyncio.wait_for(boot(), 30))
+    assert not leaked, leaked
+    assert flight.dir == before
 
 
 def test_default_config_with_search_enabled_launches(monkeypatch):

@@ -828,3 +828,68 @@ def test_sanctum_device_plan_decrypts_a_full_chunk_on_the_card(cuda):
     assert torch.equal(got.cpu(), _fused_crt(x, *consts))
     key.scrub()
     assert plan.closed
+
+
+def test_sumall_on_the_card_across_a_byzantine_recovery(cuda):
+    """default.toml's [replicas] (9 endpoints, 2 spares, quorum 5) on a
+    `cuda` stack with [attacks] enabled: Trudy compromises f = 2 replicas
+    and a SumAll taken while the supervisor recovers the first victim
+    folds on B1 (mont_mul) and equals the Python-int fold of the stored
+    Paillier-2048 ciphertexts, before and during the recovery."""
+    import asyncio
+    import json
+
+    from dds_tpu_torch.http.miniserver import http_request
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils.config import DDSConfig
+
+    key = bench_paillier_key(2048)
+    pk = key.public
+    blinds = [pk.blind() for _ in range(8)]
+    rows = [[i, f"n{i}", pk.encrypt(i + 1, rn=blinds[i % 8])] for i in range(256)]
+    fold = 1
+    for r in rows:
+        fold = fold * r[2] % pk.nsquare
+    cfg = DDSConfig.from_dict({
+        "replicas": {"endpoints": [f"replica-{i}" for i in range(9)],
+                     "sentinent": ["replica-7", "replica-8"],
+                     "byz-quorum-size": 5, "byz-max-faults": 2},
+        "recovery": {"enabled": True, "warm-up": 60.0, "interval": 60.0,
+                     "sentinent-awake-timeout": 1.0, "manifest-timeout": 1.0},
+        "proxy": {"crypto-backend": "cuda", "device": "cuda", "min-device-batch": 0},
+        "attacks": {"enabled": True},
+    })
+
+    async def go():
+        dep = await launch(cfg)
+        try:
+            port = dep.server.cfg.port
+            for r in rows:
+                status, _ = await http_request("127.0.0.1", port, "POST", "/PutSet",
+                                               json.dumps({"contents": r}).encode())
+                assert status == 200
+            target = f"/SumAll?position=2&nsqr={pk.nsquare}"
+            await dep.net.quiesce()
+            dep.trudy._rng = random.Random(21)
+            victims = dep.trudy.trigger("byzantine")
+            await dep.net.quiesce()
+            for c in mont_cuda.LAUNCHES.values():
+                c.reset()
+            rec = asyncio.ensure_future(dep.supervisor.recover(victims[0]))
+            await asyncio.sleep(0)
+            in_flight = not dep.supervisor._idle.is_set()
+            status, body = await http_request("127.0.0.1", port, "GET", target)
+            await rec
+            torch.cuda.synchronize()
+            return in_flight, status, int(json.loads(body)["result"]), \
+                mont_cuda.LAUNCHES["mont_mul"].value, victims, \
+                [a for a, _ in dep.supervisor.active]
+        finally:
+            await dep.stop()
+
+    in_flight, status, result, launches, victims, active = asyncio.run(
+        asyncio.wait_for(go(), 240))
+    assert in_flight and status == 200
+    assert result == fold and key.decrypt(result) == 256 * 257 // 2
+    assert launches > 0
+    assert victims[0] not in active
