@@ -10,11 +10,16 @@ generated mixed workload over every data route, the resident plane's fused
 multi-group folds and write-path ingest, Stratum's tiered folds,
 Prism's encrypted analytics (MatVec, WeightedSum, GroupBySum), the
 search plane's indexed Search*/Order*/Range routes, the Sanctum
-decrypt (both CRT legs of a batch on the per-column-modulus kernels) and
-the dependability plane (SumAlls folding on the card through proactive,
-byzantine and crash recoveries, snapshots and anti-entropy) —
-and holds every CUDA kernel on them against its plain PyTorch version. Phases, each printing
-one JSON line; any failure exits non-zero:
+decrypt (both CRT legs of a batch on the per-column-modulus kernels), the
+dependability plane (SumAlls folding on the card through proactive,
+byzantine and crash recoveries, snapshots and anti-entropy) and
+configs/default.toml served as it stands with Bulwark admission control,
+the SLO engine and the Watchtower auditor through an overload window —
+and holds every CUDA kernel on them against its plain PyTorch version.
+The phases before `recovery` turn the audit and /slo off in the configs
+they build (EARLIER_OBS_CUTS, printed on the "cuts" line), so their
+numbers compare with the runs before those planes were ported. Phases,
+each printing one JSON line; any failure exits non-zero:
 
 1. device     the card, from torch and nvidia-smi (a CUDA device is required);
 2. build      nvcc for sm_90a of every kernel source (mont_mul, mont_exp,
@@ -72,9 +77,10 @@ one JSON line; any failure exits non-zero:
               benchmarks/profile_kernel.py prints it (P's own path: its
               counter is zeroed before and read after);
 9. timing     (what = "exp") the B = 8,192, E = 512 pow_mod and its exp
-              launch alone, beside the bound, the plain ladder on the same
-              inputs (timed once, and bit-exact against the launch), and
-              host Python `pow`;
+              launch alone, beside the bound, the plain ladder on the
+              launch's first 1,024 columns (timed once, and bit-exact
+              against the launch there; cut from all 8,192 for the run's
+              time, printed), and host Python `pow`;
 10. crossover host Python-int fold vs resident device fold by width: the
               backend's `min_device_batch`;
 11. e2e       boot the port's stack on `cuda` (min_device_batch = 0), load
@@ -95,12 +101,21 @@ one JSON line; any failure exits non-zero:
               mont_mul launches the ladders' count (88 a D = 4 request at
               K = 8,192, 9,232 the signed one); a 512-column slice against
               the host loop, bit for bit; the ladder alone, device and
-              dispatch ms, beside its plain version and its bound;
+              dispatch ms, beside its plain version and its bound; then
+              ("audited") the mode-0 rounds again with the Watchtower
+              attached and /slo on: their ms beside the plain rounds',
+              the auditor's ops and no violation, the launches (path
+              "sumall_audited");
 12. coalesce  a fresh stack with K = 128 rows (below min_device_batch) and
               the 2 ms window: 3 rounds of 16 concurrent SumAlls, each
               decrypting to the total, at least one `fold_many` pass of 2 or
               more folds launching mont_mul; then the burst with the window
-              off;
+              off; then ("adaptive") the same rows (8 in flight) and
+              bursts on a stack with [admission] and adaptive-coalesce on
+              (base 2 ms, cap 20 ms, 8 folds a pass), the bursts once the
+              shed ratchet is at 0: every SumAll exact, each burst with a
+              fold_many pass of 2 or more folds launching mont_mul, each
+              drain's window within [2, 20] ms;
 13. client    `run.load_provider` with `bulk-encrypt-backend = "cuda"`, then
               4 `DDSHttpClient`s each PutSet 2,048 rows (K = 8,192 in all)
               into a fresh stack: one bulk pre-pass per client, every PSSE
@@ -212,12 +227,42 @@ one JSON line; any failure exits non-zero:
               Every SumAll decrypts to the total, equals the Python-int
               fold and launches B1 (mont_mul); 0 failed operations outside
               the fault windows, every failure listed;
-19. kernels   one {"kernels": [...]} line (every kernel must have launched
+19. bulwark   configs/default.toml as it stands on `cuda` (printed
+              overrides: the backend, and the bench key's Paillier-2048
+              data): 9 endpoints, 2 spares, quorum 5, recovery and
+              anti-entropy on, [admission] (interactive 400/800, aggregate
+              64/128, background 16/32, eval 1 s, shed-hold 3, max level 2,
+              fast-fail, adaptive coalescing 2-20 ms at 8 folds), the audit
+              with quorum checks and /slo with its per-route objectives.
+              K = 8,192 rows by PutSet through the admitted edge, 8 in
+              flight (within the file's 250 ms PutSet objective), each 429
+              honoured by its Retry-After; steady SumAlls; then
+              overload_goodput.py's open-loop schedule without ChaosNet
+              for 10 s (seed 11), its clients on their own event loop in a
+              thread: GetSets of stored keys at 30/s and a SumAll flood at
+              400/s, /health, /metrics and /slo probed each second; then a
+              5 s tail of single SumAlls. Before the flood, once the
+              ratchet is back at level 0, a burst of 48 background-class
+              requests (`/_sync`, 404 once admitted) past the class's
+              burst of 32. Gates: every 200
+              SumAll the exact fold (B1 launched on the path, each steady
+              one on its own), every 200 GetSet its row, every rejection a
+              429 or 503 with Retry-After >= 1 and the admission body, a
+              429 past the background burst, SumAlls of the flood refused
+              (429 or shed 503), issued = admitted + rejected against the
+              controller's counters, the probes 200, the Watchtower
+              attached with audited ops and no violation, no 500. Printed:
+              goodput, statuses by route, the shed transitions, the
+              proxy.admission span, degraded 503s by kind, the adaptive
+              window, the audit, the SLO burns, the phase's seconds beside
+              its 150 s budget;
+20. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
               launch; the analytics requests' launches are the paths
               "analytics" and "analytics_rest", the rowmod kernels' the
-              path "decrypt", `decrypt_rows`' run, B1's the path
-              "recovery"); then one {"search": ...}
+              path "decrypt", `decrypt_rows`' run, B1's the paths
+              "recovery", "sumall_audited" and "bulwark"); then one
+              {"search": ...}
               line: each predicate op's calls on the indexed stack (gates,
               timing and rounds), calls a query, held ms, bound and rows/s
               at 65,536 rows, each route's warm ms on both paths and the
@@ -228,6 +273,7 @@ one JSON line; any failure exits non-zero:
               `wait_recovery_idle`), StateChunks, keys and bytes, the fault
               windows and their failures, the snapshot and anti-entropy
               figures, the phase's seconds beside its 150 s budget; then
+              one {"bulwark": ...} line with the phase's whole record; then
               the card's name and power limit; then the result line.
 
     python3 chip_smoke.py              # on the card (needs one GPU)
@@ -263,8 +309,10 @@ from __future__ import annotations
 import argparse
 import asyncio
 import collections
+import concurrent.futures
 import json
 import math
+import random
 import statistics
 import subprocess
 import sys
@@ -659,8 +707,11 @@ def phase_timing_exp(ctx, dev, sizes, card) -> dict:
     Bc = sizes["ops_per_client"]  # one client pre-pass's width
     exp_client_ms, _ = time_ms(
         lambda: mont_cuda.exp(ctx, base_mont[:, :Bc].contiguous(), digits), 1, 0, dev)
-    plain_ms, want = time_ms(lambda: ctx.mont_exp(bases, digits).T, 1, 0, dev)
-    err = int((got.long() - want.long()).abs().max())
+    # the plain ladder on the first `exp_plain_cols` columns only (a cut
+    # of the run's time, printed; the kernel is held against it there)
+    cols = min(B, sizes["exp_plain_cols"])
+    plain_ms, want = time_ms(lambda: ctx.mont_exp(bases[:cols], digits).T, 1, 0, dev)
+    err = int((got[:, :cols].long() - want.long()).abs().max())
     if err != 0:
         raise AssertionError(f"exp kernel != plain ladder at B={B}, E={len(digits)}: "
                              f"max |diff| {err}")
@@ -680,7 +731,7 @@ def phase_timing_exp(ctx, dev, sizes, card) -> dict:
            "obfuscators_per_s": B / (pow_ms / 1e3),
            "pow_bound_ms": pbms, "pow_bound_by": pby,
            "exp_ms": exp_ms, "exp_products_per_row": 5 * E + 14,
-           "max_abs_err": err, "plain_ms": plain_ms,
+           "max_abs_err": err, "plain_ms": plain_ms, "plain_columns": cols,
            "B_client": Bc, "exp_ms_client_width": exp_client_ms,
            "exp_bound_ms": bms, "exp_bound_by": by, "exp_imads": imads, "exp_bytes": nbytes,
            "host_pow_ms_median": statistics.median(host),
@@ -1190,6 +1241,23 @@ def phase_crossover(dev, modulus: int, widths) -> int:
     return cross
 
 
+# The earlier phases keep what they measured before the REST edge's
+# planes were ported: the Watchtower audit and the /slo route, on by
+# default now, are turned off in every DDSConfig() they build (main prints
+# this); the recovery phase keeps its own RECOVERY_CUTS.
+EARLIER_OBS_CUTS = {"obs.audit_enabled": False, "obs.slo_route": False}
+
+
+def earlier_config():
+    """DDSConfig() with EARLIER_OBS_CUTS applied."""
+    from dds_tpu_torch.utils.config import DDSConfig
+
+    cfg = DDSConfig()
+    cfg.obs.audit_enabled = EARLIER_OBS_CUTS["obs.audit_enabled"]
+    cfg.obs.slo_route = EARLIER_OBS_CUTS["obs.slo_route"]
+    return cfg
+
+
 def reset_counts() -> None:
     from dds_tpu_torch.ops import mont_cuda
 
@@ -1216,11 +1284,12 @@ def paillier_rows(pk, K: int, seed: int, n_blinds: int = 64) -> tuple[list, int]
     return rows, K * (K + 1) // 2
 
 
-async def put_rows(port: int, rows: list) -> float:
-    """PutSet every row (64 in flight); returns the seconds it took."""
+async def put_rows(port: int, rows: list, inflight: int = 64) -> float:
+    """PutSet every row (`inflight` at a time); returns the seconds it
+    took."""
     from dds_tpu_torch.http.miniserver import http_request
 
-    sem = asyncio.Semaphore(64)
+    sem = asyncio.Semaphore(inflight)
 
     async def put(r):
         async with sem:
@@ -1270,6 +1339,59 @@ def check_mode_launches(dev, counts: dict, mode: str, what: str) -> dict:
     return {k: counts[k] for k in FOLD_KERNELS}
 
 
+async def audited_round(dev, sizes, dep, sumall, result: int, plain: dict) -> dict:
+    """The mode-0 rounds again on the e2e stack with the audit and /slo on
+    (the Watchtower reset, configured for the stack and attached to the
+    tracer; the SLO engine observes every request either way): the
+    Watchtower's cost on the request path beside the rounds without it
+    (`plain`), with its stats, which must show audited ops and no
+    violation. Counts are zeroed before and read after (path
+    "sumall_audited")."""
+    from dds_tpu_torch.http.miniserver import http_request
+    from dds_tpu_torch.obs.watchtower import watchtower
+    from dds_tpu_torch.utils.trace import tracer
+
+    cfg = dep.cfg
+    reset_counts()  # this round's run starts here
+    watchtower.reset()
+    watchtower.configure(quorum_size=cfg.replicas.byz_quorum_size,
+                         n_replicas=len(cfg.replicas.endpoints), check_quorum=True)
+    watchtower.attach(tracer)
+    dep.server.cfg.slo_route_enabled = True
+    try:
+        seq = []
+        for _ in range(sizes["requests"]):
+            t = time.perf_counter()
+            if await sumall() != result:
+                raise AssertionError("audited SumAll changed")
+            seq.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        for _ in range(sizes["rounds"]):
+            if any(g != result for g in await asyncio.gather(*(sumall() for _ in range(8)))):
+                raise AssertionError("audited concurrent SumAll changed")
+        per_req = (time.perf_counter() - t) / (sizes["rounds"] * 8)
+        status, body = await http_request("127.0.0.1", dep.server.cfg.port, "GET", "/slo")
+        await dep.net.quiesce()
+        stats = watchtower.stats()
+    finally:
+        watchtower.detach()
+        dep.server.cfg.slo_route_enabled = False
+    counts = check_mode_launches(dev, read_counts(dev), "0", "audited SumAll")
+    if status != 200 or "SumAll" not in json.loads(body)["slo"]["routes"]:
+        raise AssertionError(f"audited round: /slo answered {status}")
+    if stats["ops_audited"] <= 0 or stats["violations"]:
+        raise AssertionError(f"audited round: Watchtower {stats}")
+    return {"sumall_ms_seq": min(seq) * 1e3, "sumall_ms_seq_median": statistics.median(seq) * 1e3,
+            "sumall_ms_concurrent": per_req * 1e3,
+            "plain_sumall_ms_seq": plain["sumall_ms_seq"],
+            "plain_sumall_ms_seq_median": plain["sumall_ms_seq_median"],
+            "plain_sumall_ms_concurrent": plain["sumall_ms_concurrent"],
+            "median_over_plain": statistics.median(seq) * 1e3 / plain["sumall_ms_seq_median"],
+            "concurrent_over_plain": per_req * 1e3 / plain["sumall_ms_concurrent"],
+            "sumalls": sizes["requests"] + 8 * sizes["rounds"],
+            "launches": counts["mont_mul"], "watchtower": stats}
+
+
 async def phase_e2e(dev, sizes) -> dict:
     """The SumAll path at K rows: mode 0 (cold SumAll, then sequential and
     concurrency-8 rounds), then the same rounds on the same stack under
@@ -1279,7 +1401,6 @@ async def phase_e2e(dev, sizes) -> dict:
 
     from dds_tpu_torch.bench_key import bench_paillier_key
     from dds_tpu_torch.run import launch
-    from dds_tpu_torch.utils.config import DDSConfig
     from dds_tpu_torch.utils.trace import tracer
 
     key = bench_paillier_key(sizes["key_bits"])
@@ -1289,7 +1410,7 @@ async def phase_e2e(dev, sizes) -> dict:
     rows, total = paillier_rows(pk, K, 11)
     gen_s = time.perf_counter() - t
 
-    cfg = DDSConfig()
+    cfg = earlier_config()
     cfg.proxy.device = dev.type
     cfg.proxy.min_device_batch = 0
     # GroupBySum over every record names K SHA-512 keys: 1,073,152 bytes of
@@ -1349,6 +1470,8 @@ async def phase_e2e(dev, sizes) -> dict:
                 "launches": counts,
                 "same_ciphertext_as_mode_0": True,
             }
+        os.environ["DDS_KARATSUBA"] = "0"
+        audited = await audited_round(dev, sizes, dep, sumall, result, modes["0"])
         analytics = await phase_analytics(dev, sizes, port, key, rows)
     finally:
         if saved is None:
@@ -1374,6 +1497,8 @@ async def phase_e2e(dev, sizes) -> dict:
         "karatsuba_modes": {m: modes[m] for m in ("1", "2")},
         "reduce_dispatch_ms": {m: modes[m]["phase_mean_ms"].get("kernel.store.reduce.dispatch")
                                for m in ("0", "1", "2")},
+        "obs_cuts": EARLIER_OBS_CUTS,
+        "audited": audited,
     }
     emit("e2e", **rec)
     rec["analytics"] = analytics
@@ -1583,48 +1708,74 @@ async def phase_coalesce(dev, sizes) -> dict:
     with K rows, below min_device_batch, and the reference's 2 ms
     coalescing window. Rounds of concurrent SumAlls must each decrypt to
     the total, and at least one `fold_many` pass must carry two or more
-    folds and launch mont_mul; then the same burst with the window off."""
+    folds and launch mont_mul; then the same burst with the window off.
+    Then the "adaptive" round: the same rows (loaded 8 in flight) and
+    bursts on a stack with `[admission]` and `adaptive-coalesce` on, the
+    window sized from the observed fold arrival rate (base 2 ms, cap
+    20 ms, 8 folds a pass), the bursts once the shed ratchet is at 0:
+    every SumAll exact, every burst with a `fold_many` pass of two or more
+    folds on B1, and every drain's window within [base, cap]."""
     from dds_tpu_torch.bench_key import bench_paillier_key
     from dds_tpu_torch.run import launch
-    from dds_tpu_torch.utils.config import DDSConfig
     from dds_tpu_torch.utils.trace import tracer
 
     key = bench_paillier_key(sizes["key_bits"])
     pk = key.public
     K, C = sizes["K_coalesce"], sizes["coalesce_burst"]
     rows, total = paillier_rows(pk, K, 12)
-    cfg = DDSConfig()
-    cfg.proxy.device = dev.type
-    cfg.proxy.min_device_batch = sizes["coalesce_min_batch"]  # None: the measured 256
-    dep = await launch(cfg)
-    try:
+    settle: dict = {}
+
+    async def stack(adaptive: bool):
+        cfg = earlier_config()
+        cfg.proxy.device = dev.type
+        cfg.proxy.min_device_batch = sizes["coalesce_min_batch"]  # None: the measured 256
+        cfg.admission.enabled = adaptive
+        cfg.admission.adaptive_coalesce = adaptive
+        dep = await launch(cfg)
         server = dep.server
-        window = server.cfg.coalesce_window
-        min_batch = server.backend.min_device_batch
-        if K >= min_batch:
-            raise AssertionError(f"K={K} is not below min_device_batch={min_batch}")
-        await put_rows(server.cfg.port, rows)
+        if K >= server.backend.min_device_batch:
+            await dep.stop()
+            raise AssertionError(f"K={K} is not below "
+                                 f"min_device_batch={server.backend.min_device_batch}")
+        # with admission on, a loader within the PutSet objective (250 ms)
+        await put_rows(server.cfg.port, rows, 8 if adaptive else 64)
         sumall = sumall_fn(server.cfg.port, pk.nsquare)
         if key.decrypt(await sumall()) != total:  # cold: fills the tag cache
+            await dep.stop()
             raise AssertionError("coalesce-phase SumAll does not decrypt to the total")
+        if adaptive:
+            # a cold SumAll past the default 250 ms objective is, alone in
+            # its windows, a 100 % burn: the bursts wait for the ratchet
+            # to be back at 0, as a client honouring Retry-After would
+            t = time.perf_counter()
+            while server.admission.shed_level and time.perf_counter() - t < 30.0:
+                await asyncio.sleep(0.1)
+            settle["s"] = time.perf_counter() - t
+            settle["transitions"] = list(server.admission.transitions)
+        return dep, sumall
 
+    async def burst(sumall) -> list[float]:
         async def timed() -> tuple[int, float]:
             t = time.perf_counter()
             r = await sumall()
             return r, time.perf_counter() - t
 
-        async def burst() -> list[float]:
-            got = await asyncio.gather(*(timed() for _ in range(C)))
-            for r, _ in got:
-                if key.decrypt(r) != total:
-                    raise AssertionError("coalesced SumAll does not decrypt to the total")
-            return [dt for _, dt in got]
+        got = await asyncio.gather(*(timed() for _ in range(C)))
+        for r, _ in got:
+            if key.decrypt(r) != total:
+                raise AssertionError("coalesced SumAll does not decrypt to the total")
+        return [dt for _, dt in got]
 
+    dep, sumall = await stack(False)
+    try:
+        server = dep.server
+        window = server.cfg.coalesce_window
+        min_batch = server.backend.min_device_batch
         reset_counts()  # the coalesced path's run starts here
         tracer.reset()
         lat = []
         for _ in range(sizes["coalesce_rounds"]):
-            lat += await burst()
+            lat += await burst(sumall)
         counts = read_counts(dev)
         spans = tracer.summary()
         groups = [e.meta["R"] for e in tracer.events("kernel.foldmany.execute")]
@@ -1634,7 +1785,51 @@ async def phase_coalesce(dev, sizes) -> dict:
         if dev.type == "cuda" and counts["mont_mul"] <= 0:
             raise AssertionError("the coalesced fold never launched mont_mul")
         server.cfg.coalesce_window = 0.0
-        lat_off = await burst()
+        lat_off = await burst(sumall)
+    finally:
+        await dep.stop()
+
+    # the adaptive round: each burst's passes and launches read apart
+    dep, sumall = await stack(True)
+    try:
+        server = dep.server
+        coalescer = server._coalescer
+        windows: list[float] = []
+        real_window = server._coalesce_window
+
+        def recorded() -> float:  # each drain's window, as the drainer reads it
+            windows.append(real_window())
+            return windows[-1]
+
+        server._coalesce_window = recorded
+        bursts = []
+        reset_counts()  # the adaptive coalesced path's run starts here
+        launches = 0
+        for _ in range(sizes["coalesce_rounds"]):
+            tracer.reset()
+            before = read_counts(dev)["mont_mul"]
+            lat_a = await burst(sumall)
+            passes = [e.meta["R"] for e in tracer.events("kernel.foldmany.execute")]
+            launched = read_counts(dev)["mont_mul"] - before
+            if not any(r >= 2 for r in passes):
+                raise AssertionError(f"adaptive burst: no fold_many pass of 2 or more "
+                                     f"folds: {passes}")
+            if dev.type == "cuda" and launched <= 0:
+                raise AssertionError("adaptive burst: the coalesced fold never launched B1")
+            launches += launched
+            bursts.append({"folds_per_pass": passes, "mont_mul_launches": launched,
+                           "request_ms_mean": statistics.mean(lat_a) * 1e3,
+                           "request_ms_median": statistics.median(lat_a) * 1e3})
+        lo, hi = coalescer.base_window, coalescer.max_window
+        if not windows or not all(lo <= w <= hi for w in windows):
+            raise AssertionError(f"adaptive windows outside [{lo}, {hi}]: {windows}")
+        adaptive = {"base_window_s": lo, "max_window_s": hi,
+                    "target_folds": coalescer.target_folds, "drain_windows_ms": [
+                        w * 1e3 for w in windows], "bursts": bursts,
+                    "mont_mul_launches": launches, "coalescer": coalescer.stats(),
+                    "settle": settle,
+                    "request_ms_median": statistics.median(
+                        [b["request_ms_median"] for b in bursts])}
     finally:
         await dep.stop()
     rec = {
@@ -1649,6 +1844,7 @@ async def phase_coalesce(dev, sizes) -> dict:
         "request_ms_median": statistics.median(lat) * 1e3,
         "window_off_request_ms_mean": statistics.mean(lat_off) * 1e3,
         "window_off_request_ms_median": statistics.median(lat_off) * 1e3,
+        "adaptive": adaptive,
     }
     emit("coalesce", **rec)
     return rec
@@ -1693,7 +1889,6 @@ async def phase_multall(dev, sizes) -> dict:
     from dds_tpu_torch.ops import bignum as bn
     from dds_tpu_torch.ops.montgomery import ModCtx
     from dds_tpu_torch.run import launch
-    from dds_tpu_torch.utils.config import DDSConfig
     from dds_tpu_torch.utils.trace import tracer
 
     key = RsaMultKey.generate(sizes["rsa_bits"])
@@ -1708,7 +1903,7 @@ async def phase_multall(dev, sizes) -> dict:
     if key.decrypt(want) != want_plain:
         raise AssertionError("the Python-int product does not decrypt to the plaintexts'")
 
-    cfg = DDSConfig()
+    cfg = earlier_config()
     cfg.proxy.device = dev.type
     cfg.proxy.min_device_batch = 0
     saved = os.environ.get("DDS_KARATSUBA")
@@ -2192,7 +2387,6 @@ async def phase_mixed(dev, sizes) -> dict:
     from dds_tpu_torch.models.facade import DEFAULT_SCHEMA, HomoProvider
     from dds_tpu_torch.models.keys import HEKeys
     from dds_tpu_torch.run import launch, run_workload
-    from dds_tpu_torch.utils.config import DDSConfig
     from dds_tpu_torch.utils.trace import tracer
 
     keys = dataclasses.replace(HEKeys.generate(512, sizes["rsa_bits"]),
@@ -2208,7 +2402,7 @@ async def phase_mixed(dev, sizes) -> dict:
     rows = encrypt_rows(provider, schema, 0, sizes["mixed_preload"])
 
     def config(backend: str, search: bool):
-        cfg = DDSConfig()
+        cfg = earlier_config()
         cfg.replicas.endpoints = [f"replica-{i}" for i in range(R)]
         cfg.replicas.byz_quorum_size, cfg.replicas.byz_max_faults = Q, (R - 1) // 3
         cfg.proxy.crypto_backend = backend
@@ -2637,7 +2831,6 @@ async def resident_rest(dev, sizes, key) -> dict:
     import os
 
     from dds_tpu_torch.run import launch
-    from dds_tpu_torch.utils.config import DDSConfig
     from dds_tpu_torch.utils.trace import tracer
 
     pk = key.public
@@ -2646,7 +2839,7 @@ async def resident_rest(dev, sizes, key) -> dict:
     total = K * (K + 1) // 2
     cts = [r[PSSE_POS] for r in rows]
     want = host_product(cts[:K], pk.nsquare)
-    cfg = DDSConfig()
+    cfg = earlier_config()
     cfg.proxy.device = dev.type
     cfg.proxy.min_device_batch = 0
     cfg.resident.enabled = True
@@ -2914,7 +3107,6 @@ async def tiered_rest(dev, sizes, key, warm_bytes: int) -> dict:
     import tempfile
 
     from dds_tpu_torch.run import launch
-    from dds_tpu_torch.utils.config import DDSConfig
     from dds_tpu_torch.utils.trace import tracer
 
     pk = key.public
@@ -2922,7 +3114,7 @@ async def tiered_rest(dev, sizes, key, warm_bytes: int) -> dict:
     rows, total = paillier_rows(pk, K, 15)
     want = host_product([r[PSSE_POS] for r in rows], pk.nsquare)
     with tempfile.TemporaryDirectory() as tier_dir:
-        cfg = DDSConfig()
+        cfg = earlier_config()
         cfg.proxy.device = dev.type
         cfg.proxy.min_device_batch = 0
         cfg.resident.enabled = True
@@ -2988,11 +3180,10 @@ async def phase_client(dev, sizes) -> dict:
     from dds_tpu_torch.models._symmetric import aes_available
     from dds_tpu_torch.models.facade import DEFAULT_SCHEMA
     from dds_tpu_torch.run import launch, load_provider
-    from dds_tpu_torch.utils.config import DDSConfig
     from dds_tpu_torch.utils.trace import tracer
 
     C, ops = sizes["clients"], sizes["ops_per_client"]
-    cfg = DDSConfig()
+    cfg = earlier_config()
     cfg.proxy.device = dev.type
     cfg.proxy.min_device_batch = 0
     cfg.client.paillier_bits = sizes["key_bits"]
@@ -3151,7 +3342,6 @@ def phase_decrypt(dev, sizes, client, card) -> dict:
     from dds_tpu_torch.sanctum import SecretBackend, is_secret_backend, plan_for
     from dds_tpu_torch.sanctum.device import _crt_columns
     from dds_tpu_torch.sanctum.plane import _crt_recombine
-    from dds_tpu_torch.utils.config import DDSConfig
     from dds_tpu_torch.utils.trace import tracer
 
     t_phase = time.perf_counter()
@@ -3262,7 +3452,7 @@ def phase_decrypt(dev, sizes, client, card) -> dict:
 
     # the path through the entry points: load_provider with the opt-in and
     # the client phase's keys, decrypt_rows over the rows it stored
-    cfg = DDSConfig()
+    cfg = earlier_config()
     cfg.crypto.secret_device = True
     cfg.client.he_keys_inline = client["keys_json"]
     cfg.client.device = dev.type
@@ -3319,7 +3509,9 @@ def phase_decrypt(dev, sizes, client, card) -> dict:
 
 # the phase's budget on the card (seconds); reported beside its wall time
 RECOVERY_BUDGET_S = 150.0
-# default.toml's sections the port does not serve yet: turned off, printed
+# default.toml's edge planes, turned off here (printed) so the phase's
+# numbers compare with its runs before they were ported; the bulwark phase
+# runs the file with them
 RECOVERY_CUTS = {"admission.enabled": False, "obs.audit_enabled": False,
                  "obs.slo_route": False}
 
@@ -3813,6 +4005,408 @@ async def phase_recovery(dev, sizes) -> dict:
     return rec
 
 
+# ----------------------------------------------------------------- bulwark
+
+# the phase's budget on the card (seconds); reported beside its wall time
+BULWARK_BUDGET_S = 150.0
+# default.toml's settings the phase overrides (printed); everything else
+# stands as the file says
+BULWARK_OVERRIDES = {
+    "proxy.crypto_backend": "cuda (the file's cpu is the reference's host backend)",
+    "data": "bench_paillier_key(2048): Paillier-2048, n^2 of L = 256 (the file's "
+            "[client] paillier-bits = 512 sizes a generated client, not this data)",
+}
+
+
+def bulwark_config(dev):
+    """configs/default.toml as it stands (9 endpoints, 2 spares, quorum 5,
+    f = 2, recovery and anti-entropy on with the file's timers,
+    [admission] on with its buckets, ratchet and adaptive window, the
+    audit with quorum checks, /slo with its per-route objectives, Trudy
+    off) with the `cuda` backend on `dev` at the port's min_device_batch."""
+    import pathlib
+
+    from dds_tpu_torch.utils.config import DDSConfig
+
+    cfg = DDSConfig.load(pathlib.Path(__file__).resolve().parent / "configs" / "default.toml")
+    cfg.proxy.crypto_backend = "cuda"
+    cfg.proxy.device = dev.type
+    return cfg
+
+
+def family(name: str) -> dict:
+    """{labels dict as a sorted tuple: value} of one metrics family."""
+    from dds_tpu_torch.obs.metrics import metrics
+
+    fam = metrics._families.get(name)
+    return dict(fam.samples) if fam is not None else {}
+
+
+def admission_census() -> dict:
+    """dds_admission_requests_total summed by outcome."""
+    out = collections.Counter()
+    for labels, v in family("dds_admission_requests_total").items():
+        out[dict(labels)["outcome"]] += v
+    return dict(out)
+
+
+def pct(xs: list, q: float):
+    return float(np.percentile(xs, q)) if xs else None
+
+
+async def phase_bulwark(dev, sizes) -> dict:
+    """configs/default.toml served on the card with Bulwark, the SLO engine
+    and the Watchtower as the file arms them (BULWARK_OVERRIDES printed):
+    K Paillier rows by quorum PutSet through the admitted edge (a 429 is
+    honoured by its Retry-After and counted); steady SumAlls, the first
+    warming the tag cache; one burst of background-class requests past
+    that class's bucket; then benchmarks/overload_goodput.py's open-loop
+    schedule without ChaosNet, its clients on their own loop in a thread:
+    interactive GetSets of stored keys and a SumAll flood for
+    `bulwark_flood_s` seconds (seed `bulwark_seed`), with /health, /metrics
+    and /slo probed each second; then a quiet tail of single SumAlls.
+    Gates: every SumAll answering 200 equals the Python-int fold of the
+    stored ciphertexts (which decrypts to the total), B1 launched on the
+    path (each steady SumAll on its own); every GetSet answering 200
+    returns its row; every rejection a 429 or 503 with Retry-After >= 1
+    and the admission body, a 429 past the background burst, SumAlls of
+    the flood refused, and the requests issued equal to those the
+    controller admitted plus those it rejected; the probes 200 and /slo
+    parsing; the Watchtower attached, auditing ops, with no violation; no
+    500."""
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.http.miniserver import http_request_full
+    from dds_tpu_torch.obs.metrics import metrics
+    from dds_tpu_torch.obs.watchtower import watchtower
+    from dds_tpu_torch.ops import mont_cuda
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils.trace import tracer
+
+    t_phase = time.perf_counter()
+    key = bench_paillier_key(sizes["key_bits"])
+    pk = key.public
+    K = sizes["bulwark_K"]
+    rows, total = paillier_rows(pk, K, 14, n_blinds=8)
+    expected = host_product([r[PSSE_POS] for r in rows], pk.nsquare)
+    if key.decrypt(expected) != total:
+        raise AssertionError("bulwark: the Python-int fold does not decrypt to the total")
+    sumall_target = f"/SumAll?position={PSSE_POS}&nsqr={pk.nsquare}"
+    metrics.reset()
+    tracer.reset()
+    cfg = bulwark_config(dev)
+    rec: dict = {"K": K, "key_bits": sizes["key_bits"], "replicas": 9, "spares": 2,
+                 "quorum": 5, "overrides": BULWARK_OVERRIDES,
+                 "admission": {k: getattr(cfg.admission, k) for k in (
+                     "interactive_rate", "interactive_burst", "aggregate_rate",
+                     "aggregate_burst", "background_rate", "background_burst",
+                     "eval_interval", "shed_hold", "max_shed_level", "fast_fail",
+                     "adaptive_coalesce", "coalesce_max_window", "coalesce_target_folds")},
+                 "coalesce_window": cfg.proxy.coalesce_window,
+                 "audit": [cfg.obs.audit_enabled, cfg.obs.audit_quorum_checks],
+                 "slo_routes": cfg.obs.slo_routes, "min_device_batch": cfg.proxy.min_device_batch}
+    emit("bulwark_step", step="config", **rec)
+    issued = collections.Counter()  # requests sent to admission-gated routes, by route
+    answers: list[dict] = []        # every answer of the phase
+
+    def step(name: str, **kw) -> None:
+        emit("bulwark_step", step=name, at_s=time.perf_counter() - t_phase, **kw)
+
+    def check_rejection(route: str, status: int, headers: dict, body: bytes) -> None:
+        if not body.startswith(b"admission rejected (") or int(headers.get(
+                "retry-after", 0)) < 1:
+            raise AssertionError(f"bulwark: a {route} {status} is not an admission "
+                                 f"rejection with Retry-After >= 1: {headers} {body[:120]!r}")
+
+    async def call(route: str, method: str, target: str, body: bytes | None = None,
+                   where: str = "") -> tuple[int, dict, bytes]:
+        issued[route] += 1
+        t0 = time.perf_counter()
+        status, headers, data = await http_request_full("127.0.0.1", port, method, target,
+                                                        body, timeout=600.0)
+        kind = "ok" if status == 200 else (
+            "rejected" if data.startswith(b"admission rejected (") else
+            "degraded" if status == 503 else "other")
+        answers.append({"route": route, "status": status, "kind": kind, "where": where,
+                        "t0": t0, "ms": (time.perf_counter() - t0) * 1e3})
+        if status == 500 or kind == "other":
+            raise AssertionError(f"bulwark: {route} answered {status} {data[:160]!r}")
+        if kind == "rejected":
+            check_rejection(route, status, headers, data)
+        elif kind == "degraded" and int(headers.get("retry-after", 0)) < 1:
+            raise AssertionError(f"bulwark: a degraded {route} 503 without Retry-After")
+        return status, headers, data
+
+    def exact(data: bytes) -> None:
+        if int(json.loads(data)["result"]) != expected:
+            raise AssertionError("bulwark: a SumAll is not the exact fold of the stored rows")
+
+    reset_counts()  # path "bulwark" starts here
+    dep = await launch(cfg)
+    server = dep.server
+    port = server.cfg.port
+    transitions: list[dict] = []
+    server.admission.subscribe(lambda r: transitions.append(
+        {"at_s": time.perf_counter() - t_phase, **{k: r[k] for k in ("from", "to", "reason")}}))
+    try:
+        if not watchtower.attached:
+            raise AssertionError("bulwark: the Watchtower is not attached")
+        # -- load: K quorum PutSets, `bulwark_load_inflight` in flight (a
+        # loader within the file's PutSet objective, 250 ms; 64 in flight
+        # queue ~360 ms each on this stack, burn that objective and shed
+        # the aggregates for the windows' length), honouring each 429
+        sem = asyncio.Semaphore(sizes["bulwark_load_inflight"])
+        keys: dict[str, list] = {}
+        waits = {"429": 0, "retry_after_s": 0}
+
+        async def put(r):
+            async with sem:
+                body = json.dumps({"contents": r}).encode()
+                while True:
+                    status, headers, data = await call("PutSet", "POST", "/PutSet", body,
+                                                       "load")
+                    if status == 200:
+                        keys[data.decode()] = r
+                        return
+                    if status == 429:
+                        waits["429"] += 1
+                        waits["retry_after_s"] += int(headers["retry-after"])
+                    # a 429, or a shed or degraded 503: back after Retry-After
+                    await asyncio.sleep(int(headers["retry-after"]))
+
+        t = time.perf_counter()
+        await asyncio.gather(*(put(r) for r in rows))
+        rec["load"] = {"s": time.perf_counter() - t, "rows": len(keys), **waits,
+                       "putsets_per_s": K / (time.perf_counter() - t),
+                       "inflight": sizes["bulwark_load_inflight"],
+                       "shed_level": server.admission.shed_level,
+                       "transitions": list(transitions)}
+        if len(keys) != K:
+            raise AssertionError(f"bulwark: {len(keys)} of {K} PutSets acknowledged")
+        step("load", **rec["load"])
+        # -- steady SumAlls, the first warming the tag cache; each on B1
+        steady = []
+        for _ in range(sizes["requests"]):
+            before = mont_cuda.LAUNCHES["mont_mul"].value
+            t = time.perf_counter()
+            status, headers, data = await call("SumAll", "GET", sumall_target, where="steady")
+            if status != 200:
+                raise AssertionError(f"bulwark: a steady SumAll answered {status}")
+            exact(data)
+            steady.append((time.perf_counter() - t) * 1e3)
+            if dev.type == "cuda" and mont_cuda.LAUNCHES["mont_mul"].value == before:
+                raise AssertionError("bulwark: a steady SumAll did not fold on B1")
+        rec["steady_ms"] = {"cold": steady[0], "warm_median": statistics.median(steady[1:]),
+                            "warm": steady[1:]}
+        step("steady", **rec["steady_ms"])
+        # -- settle: a cold SumAll past its 1 s objective is, alone in its
+        # windows, a 100 % burn, and an evaluation in that instant sheds
+        # background; the phase goes on once the ratchet is back at 0
+        t = time.perf_counter()
+        while server.admission.shed_level and time.perf_counter() - t < 30.0:
+            await asyncio.sleep(0.1)
+        rec["settle"] = {"s": time.perf_counter() - t, "shed_level": server.admission.shed_level,
+                         "transitions": list(transitions)}
+        step("settle", **rec["settle"])
+        if server.admission.shed_level:
+            raise AssertionError(f"bulwark: the ratchet did not return to 0 before the "
+                                 f"throttle burst: {server.admission.report()}")
+        # -- the throttle path at the file's settings, on an idle loop: one
+        # burst of background-class requests (a route the port does not
+        # serve, 404 once admitted) past the class's burst of 32; each
+        # one over it answers 429 with its refill ETA
+        n_burst = int(cfg.admission.background_burst) + 16
+        burst = await asyncio.gather(*(http_request_full(
+            "127.0.0.1", port, "GET", "/_sync", timeout=600.0) for _ in range(n_burst)))
+        for status, headers, data in burst:
+            if status == 429:
+                check_rejection("_sync", status, headers, data)
+            elif status != 404:
+                raise AssertionError(f"bulwark: a background request answered {status} "
+                                     f"{data[:120]!r}: {server.admission.report()}")
+        rec["throttle"] = {"sent": n_burst,
+                           "admitted_404": sum(1 for st, _, _ in burst if st == 404),
+                           "throttled_429": sum(1 for st, _, _ in burst if st == 429),
+                           "retry_after": sorted({h["retry-after"] for st, h, _ in burst
+                                                  if st == 429})}
+        step("throttle", **rec["throttle"])
+        if not rec["throttle"]["throttled_429"]:
+            raise AssertionError(f"bulwark: no 429 past the background burst {rec['throttle']}")
+        # -- the overload window: the open-loop schedule, then its drain
+        tracer.reset(max_events=1 << 20)
+        census0 = admission_census()
+        issued0 = sum(issued.values())
+        sched_rng = random.Random(sizes["bulwark_seed"] + 1)
+        dur = sizes["bulwark_flood_s"]
+
+        def arrivals(rate: float) -> list[float]:
+            out, t = [], 0.0
+            while t < dur:
+                out.append(t)
+                t += sched_rng.uniform(0.5, 1.5) / rate
+            return out
+
+        stored = sorted(keys)
+        schedule = sorted([("GetSet", t) for t in arrivals(sizes["bulwark_interactive_rate"])]
+                          + [("SumAll", t) for t in arrivals(sizes["bulwark_aggregate_rate"])],
+                          key=lambda a: a[1])
+        picks = [stored[sched_rng.randrange(len(stored))] for _ in schedule]
+        probes: list[dict] = []
+
+        async def fire(route: str, k: str) -> None:
+            if route == "GetSet":
+                status, _, data = await call("GetSet", "GET", f"/GetSet/{k}", where="flood")
+                if status == 200 and json.loads(data)["contents"] != keys[k]:
+                    raise AssertionError("bulwark: a GetSet returned another row")
+            else:
+                status, _, data = await call("SumAll", "GET", sumall_target, where="flood")
+                if status == 200:
+                    exact(data)
+
+        async def probe_loop() -> None:
+            while True:
+                for route in ("health", "metrics", "slo"):
+                    t0 = time.perf_counter()
+                    status, _, data = await http_request_full("127.0.0.1", port, "GET",
+                                                              f"/{route}", timeout=600.0)
+                    if status != 200:
+                        raise AssertionError(f"bulwark: /{route} answered {status} "
+                                             "during the flood")
+                    if route == "slo":
+                        json.loads(data)
+                    probes.append({"route": route, "ms": (time.perf_counter() - t0) * 1e3})
+                await asyncio.sleep(1.0)
+
+        async def drive() -> tuple[float, float]:
+            """The schedule, open loop: each arrival fires at its time
+            whatever the answers before it do; then its drain."""
+            prober = asyncio.ensure_future(probe_loop())
+            t0 = time.perf_counter()
+            pending = []
+            for (route, at), k in zip(schedule, picks):
+                delay = at - (time.perf_counter() - t0)
+                if delay > 0:
+                    await asyncio.sleep(delay)
+                pending.append(asyncio.ensure_future(fire(route, k)))
+            fired = time.perf_counter() - t0
+            try:
+                await asyncio.gather(*pending)
+            finally:
+                prober.cancel()
+                await asyncio.gather(prober, return_exceptions=True)
+            return fired, time.perf_counter() - t0
+
+        # the clients run on an event loop of their own, in a thread, as
+        # users on other hosts would: on the server's loop the schedule
+        # would wait for the server's work and stop being open loop
+        with concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="flood") as pool:
+            fired_s, drained_s = await asyncio.get_running_loop().run_in_executor(
+                pool, lambda: asyncio.run(drive()))
+        flood = [a for a in answers if a["where"] == "flood"]
+        by_route = {r: dict(collections.Counter(a["status"] for a in flood if a["route"] == r))
+                    for r in ("GetSet", "SumAll")}
+        good_ms = server.slo.slo_for("GetSet").latency_ms
+        rec["flood"] = {
+            "seconds": dur, "fired_s": fired_s, "drained_s": drained_s,
+            "scheduled": dict(collections.Counter(r for r, _ in schedule)),
+            "status_by_route": by_route,
+            "interactive_goodput_per_s": sum(
+                1 for a in flood if a["route"] == "GetSet" and a["status"] == 200
+                and a["ms"] <= good_ms) / drained_s,
+            "good_latency_ms": good_ms,
+            "ms_by_route_kind": {f"{r}.{k}": {"count": len(v), "p50": pct(v, 50),
+                                              "p99": pct(v, 99)}
+                                 for r in ("GetSet", "SumAll")
+                                 for k in ("ok", "rejected", "degraded")
+                                 for v in [[a["ms"] for a in flood
+                                            if a["route"] == r and a["kind"] == k]]},
+            "probes": {r: {"count": len(v), "max_ms": max(v) if v else None}
+                       for r in ("health", "metrics", "slo")
+                       for v in [[p["ms"] for p in probes if p["route"] == r]]},
+        }
+        rec["flood"]["rejected_by_route"] = {r: dict(collections.Counter(
+            a["status"] for a in flood if a["route"] == r and a["kind"] == "rejected"))
+            for r in ("GetSet", "SumAll")}
+        rec["flood"]["transitions"] = list(transitions)
+        step("flood", **rec["flood"])
+        # the flood's excess is refused at the edge: throttled (429) while
+        # the class's bucket is dry, shed (503) once the ratchet sheds
+        # aggregates, whichever comes first at the loop's pace
+        if not rec["flood"]["rejected_by_route"]["SumAll"]:
+            raise AssertionError(f"bulwark: no SumAll of the flood was refused: {by_route}")
+        if not all(rec["flood"]["probes"][r]["count"] for r in ("health", "metrics", "slo")):
+            raise AssertionError("bulwark: a probe route never answered during the flood")
+        # -- the quiet tail: single SumAlls, one at a time
+        t = time.perf_counter()
+        tail = collections.Counter()
+        while time.perf_counter() - t < sizes["bulwark_tail_s"]:
+            status, headers, data = await call("SumAll", "GET", sumall_target, where="tail")
+            tail[status] += 1
+            if status == 200:
+                exact(data)
+            else:
+                await asyncio.sleep(min(int(headers["retry-after"]), 1))
+        rec["tail"] = {"status": dict(tail), "s": time.perf_counter() - t,
+                       "shed_level_end": server.admission.shed_level}
+        step("tail", **rec["tail"])
+        # -- the admission ledger against the client's count
+        census1 = admission_census()
+        window_issued = sum(issued.values()) - issued0
+        admitted = census1.get("admitted", 0) - census0.get("admitted", 0)
+        rejected_server = sum(census1.get(o, 0) - census0.get(o, 0)
+                              for o in ("throttled", "shed", "tenant_shed"))
+        late = [a for a in answers if a["where"] in ("flood", "tail")]
+        rejected_client = sum(1 for a in late if a["kind"] == "rejected")
+        if window_issued != admitted + rejected_client or rejected_client != rejected_server:
+            raise AssertionError(f"bulwark: issued {window_issued} != admitted {admitted} + "
+                                 f"rejected {rejected_client} (server {rejected_server})")
+        spans = [e.dur_ms * 1e3 for e in tracer.events("proxy.admission")]
+        audit = watchtower.stats()
+        if not audit["attached"] or audit["ops_audited"] <= 0 or audit["violations"]:
+            raise AssertionError(f"bulwark: Watchtower {audit}")
+        degraded = collections.Counter()
+        for labels, v in family("dds_degraded_total").items():
+            d = dict(labels)
+            degraded[f"{d['route']}.{d['kind']}"] += v
+        _, _, slo_body = await http_request_full("127.0.0.1", port, "GET", "/slo")
+        slo = json.loads(slo_body)
+        rec.update({
+            "admission_ledger": {"issued": window_issued, "admitted": admitted,
+                                 "rejected": rejected_client, "by_outcome": {
+                                     o: census1.get(o, 0) - census0.get(o, 0)
+                                     for o in set(census1) | set(census0)}},
+            "statuses_by_route": {r: dict(collections.Counter(
+                a["status"] for a in answers if a["route"] == r))
+                for r in ("PutSet", "GetSet", "SumAll")},
+            "transitions": transitions,
+            "admission_span_us": {"count": len(spans), "p50": pct(spans, 50),
+                                  "p99": pct(spans, 99)},
+            "degraded_503_by_kind": dict(degraded),
+            "coalescer": server._coalescer.stats() if server._coalescer is not None else None,
+            "watchtower": audit,
+            "slo_burns": server.slo.burns(),
+            "slo_alerts": server.slo.alerts(),
+            "slo_route_totals": {r: v["windows"][f"{int(slo['slo']['windows_s'][0])}s"][
+                "total"] for r, v in slo["slo"]["routes"].items()},
+            "recovery_spans": len(tracer.events("supervisor.recover")),
+        })
+    finally:
+        await dep.stop()
+    counts = read_counts(dev)
+    rec["launches"] = counts["mont_mul"]  # read just after the path's run
+    if dev.type == "cuda" and rec["launches"] <= 0:
+        raise AssertionError("bulwark: B1 never launched")
+    if watchtower.attached:
+        raise AssertionError("bulwark: stop left the Watchtower attached")
+    rec["sumalls_ok"] = sum(1 for a in answers if a["route"] == "SumAll" and a["status"] == 200)
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["budget_s"] = BULWARK_BUDGET_S
+    emit("bulwark", **{k: rec[k] for k in (
+        "K", "seconds", "budget_s", "launches", "sumalls_ok", "admission_ledger",
+        "statuses_by_route", "transitions", "admission_span_us", "degraded_503_by_kind",
+        "coalescer", "watchtower", "slo_burns")})
+    return rec
+
+
 def kernel_times(sizes) -> dict:
     """CUDA-event ms of the B1, P, B3, B4, B5 and REDC launches at the
     timing phases' shapes (single launches with the stream held,
@@ -3981,7 +4575,17 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   decrypt_reps=3, rowmod_B=8192, rowmod_E=32, decrypt_plain_cols=64,
                   # the recovery phase: bft_sum's K rows on default.toml's
                   # topology, its timers as they stand, Trudy's seed
-                  recovery_K=8192, recovery_scale=1.0, recovery_seed=5)
+                  recovery_K=8192, recovery_scale=1.0, recovery_seed=5,
+                  # the bulwark phase: bft_sum's K on default.toml as it
+                  # stands; overload_goodput.py's rates, seed and a 10 s
+                  # window, then a 5 s tail
+                  bulwark_K=8192, bulwark_load_inflight=8, bulwark_flood_s=10.0,
+                  bulwark_tail_s=5.0,
+                  bulwark_interactive_rate=30.0, bulwark_aggregate_rate=400.0,
+                  bulwark_seed=11,
+                  # the plain ladder of the exp timing on 1,024 of its 8,192
+                  # columns, for the run's time (it took 83 s on all of them)
+                  exp_plain_cols=1024)
 
 
 def main(argv=None) -> int:
@@ -4034,7 +4638,10 @@ def main(argv=None) -> int:
                      tier_warmup=3, tier_top=4, decrypt_bits=[512], decrypt_B=16,
                      decrypt_big=[32, 64], decrypt_reps=1, rowmod_B=64, rowmod_E=8,
                      decrypt_plain_cols=8, recovery_K=64, recovery_scale=0.1,
-                     recovery_seed=5)
+                     recovery_seed=5, bulwark_K=64, bulwark_load_inflight=8,
+                     bulwark_flood_s=3.0, bulwark_tail_s=2.0,
+                     bulwark_interactive_rate=10.0, bulwark_aggregate_rate=200.0,
+                     bulwark_seed=11, exp_plain_cols=16)
         card = {"name": "cpu (rehearsal)", **card_numbers(dev)}
     else:
         if not torch.cuda.is_available():
@@ -4050,6 +4657,9 @@ def main(argv=None) -> int:
             "clocks_now": nvidia_smi("clocks.sm,power.draw,temperature.gpu"),
         }
     emit("device", **card, torch=torch.__version__, cuda=torch.version.cuda)
+    emit("cuts", earlier_phases=EARLIER_OBS_CUTS, recovery=RECOVERY_CUTS,
+         timing_exp_plain_columns=sizes["exp_plain_cols"],
+         bulwark_overrides=BULWARK_OVERRIDES)
 
     from dds_tpu_torch.bench_key import bench_paillier_key
     from dds_tpu_torch.ops.montgomery import ModCtx
@@ -4083,6 +4693,7 @@ def main(argv=None) -> int:
     resident = timed("resident", asyncio.run, phase_resident(dev, sizes))
     tiered = timed("tiered", asyncio.run, phase_tiered(dev, sizes))
     recovery = timed("recovery", asyncio.run, phase_recovery(dev, sizes))
+    bulwark = timed("bulwark", asyncio.run, phase_bulwark(dev, sizes))
     emit("run", phase_seconds=took, seconds=time.perf_counter() - t_run)
 
     path = tim["path"]
@@ -4106,7 +4717,9 @@ def main(argv=None) -> int:
                                  resident["rest"]["modes"]["0"]["launches"]["mont_mul"],
                              "tiered": tiered["modes"]["0"]["launches"]["mont_mul"],
                              "tiered_rest": tiered["rest"]["launches"]["mont_mul"],
-                             "recovery": recovery["launches"]},
+                             "recovery": recovery["launches"],
+                             "sumall_audited": e2e["audited"]["launches"],
+                             "bulwark": bulwark["launches"]},
         "max_abs_err": par["max_abs_err"],
         "per": f"one K={path['K']} fold ({path['launches']} launches) on the device; "
                f"wall_ms: back to back, paced by the host's dispatch",
@@ -4126,7 +4739,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"client": client["exp_launches"]},
         "max_abs_err": max(par_exp["max_abs_err"], tim_exp["max_abs_err"]),
         "per": f"one launch, B={tim_exp['B']}, E={tim_exp['E']} "
-               f"({tim_exp['exp_products_per_row']} products per row)",
+               f"({tim_exp['exp_products_per_row']} products per row); plain_ms on "
+               f"{tim_exp['plain_columns']} columns",
         "ms": tim_exp["exp_ms"],
         "plain_ms": tim_exp["plain_ms"],
         "bound_ms": tim_exp["exp_bound_ms"],
@@ -4230,6 +4844,10 @@ def main(argv=None) -> int:
     print(json.dumps({"recovery": {**recovery, "card": card["smi"] if "smi" in card
                                    else card["name"],
                                    "run_seconds": time.perf_counter() - t_run}},
+                     default=str), flush=True)
+    print(json.dumps({"bulwark": {**bulwark, "card": card["smi"] if "smi" in card
+                                  else card["name"],
+                                  "run_seconds": time.perf_counter() - t_run}},
                      default=str), flush=True)
     if args.rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result", file=sys.stderr)

@@ -15,7 +15,9 @@ caller's budget, `AllBreakersOpenError` fails the request at once.
 supervisor only (`refresh_from` asks for them) and merged, never shrunk.
 `read_tags` validates many cached keys with ONE tag-only round that the
 proxy broadcasts itself. Callers pass a `Deadline` so each attempt's
-timeout shrinks to the remaining request budget.
+timeout shrinks to the remaining request budget. A verified reply
+annotates its `abd.fetch` / `abd.write` span with `ok`, `op`, `key`, `seq`
+and `tag_id`, the record the Watchtower audits (`obs/watchtower.py`).
 
 A junk reply from the asked coordinator resolves the outstanding request
 and is then rejected by validation, rather than stalling until timeout.
@@ -259,7 +261,15 @@ class AbdClient:
                         self._coord_failed(coord)
                         raise ByzInvalidKeyError(coord)
                     self._breaker(coord).record_success()
+                    # the commit's audit record (obs/watchtower): a failed
+                    # attempt records the span without `ok` and is never
+                    # audited as a commit
                     span_meta["ok"] = True
+                    span_meta["op"] = "read"
+                    span_meta["key"] = key
+                    if tag is not None:
+                        span_meta["seq"] = tag.seq
+                        span_meta["tag_id"] = tag.id
                     return value, tag, coord
                 case _:
                     self._coord_failed(coord)
@@ -297,6 +307,11 @@ class AbdClient:
                         raise ByzInvalidKeyError(coord)
                     self._breaker(coord).record_success()
                     span_meta["ok"] = True
+                    span_meta["op"] = "write"
+                    span_meta["key"] = key
+                    if tag is not None:
+                        span_meta["seq"] = tag.seq
+                        span_meta["tag_id"] = tag.id
                     return k, tag
                 case _:
                     self._coord_failed(coord)

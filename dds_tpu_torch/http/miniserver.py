@@ -148,18 +148,35 @@ class HttpServer:
 async def http_request(host: str, port: int, method: str, target: str,
                        body: bytes | None = None,
                        content_type: str = "application/json",
-                       timeout: float = 30.0) -> tuple[int, bytes]:
+                       timeout: float = 30.0,
+                       headers: dict[str, str] | None = None) -> tuple[int, bytes]:
     """One-shot HTTP client request; returns (status, body)."""
+    status, _, data = await http_request_full(host, port, method, target, body,
+                                              content_type, timeout, headers)
+    return status, data
+
+
+async def http_request_full(host: str, port: int, method: str, target: str,
+                            body: bytes | None = None,
+                            content_type: str = "application/json",
+                            timeout: float = 30.0,
+                            headers: dict[str, str] | None = None,
+                            ) -> tuple[int, dict, bytes]:
+    """Like `http_request`, with the (lower-cased) response headers too:
+    Retry-After and the other degradation metadata. `headers` adds request
+    headers (the tenant header)."""
 
     async def go():
         reader, writer = await asyncio.open_connection(host, port)
         try:
             payload = body or b""
+            extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
             head = (
                 f"{method} {target} HTTP/1.1\r\n"
                 f"Host: {host}:{port}\r\n"
                 f"Content-Type: {content_type}\r\n"
                 f"Content-Length: {len(payload)}\r\n"
+                f"{extra}"
                 f"Connection: close\r\n\r\n"
             )
             writer.write(head.encode() + payload)
@@ -180,7 +197,7 @@ async def http_request(host: str, port: int, method: str, target: str,
                 data = await reader.readexactly(int(rheaders["content-length"]))
             else:
                 data = await reader.read()
-            return status, data
+            return status, rheaders, data
         finally:
             writer.close()
 

@@ -29,8 +29,22 @@ data routes with its parameters, JSON shapes and status codes:
 Concurrent aggregates whose folds each sit below the backend's
 `min_device_batch` coalesce per modulus: they wait `coalesce_window`
 seconds and share one `modmul_fold_many` pass on the device (`_fold`, the
-reference's coalescer at `dds_tpu/http/server.py:2605-2723`; its adaptive
-window comes with admission control, not yet ported).
+reference's coalescer at `dds_tpu/http/server.py:2605-2723`). With
+`[admission] adaptive-coalesce` the window is sized from the observed fold
+arrival rate instead (`core/admission.AdaptiveCoalescer`).
+
+Every request passes the edge in `handle`: the `x-dds-tenant` header is
+validated (400 when malformed; tenancy itself is not ported, so the id
+only labels admission buckets), then with `[admission]` (Bulwark,
+`core/admission`) the controller admits it or answers 429 (the tenant's
+class bucket is dry; Retry-After its refill ETA) or 503 (its class is
+shed; Retry-After the nearest breaker probe or the ratchet's cadence)
+before a Deadline is minted. /health, /metrics and /slo are exempt; the
+reserved canary tenant passes its own rate-bounded bucket (`[heliograph]
+rate/burst`). Every answered request is classified good or bad by the SLO
+engine (`obs/slo`, `GET /slo` with the Watchtower's audit summary and the
+admission report, `slo_route_enabled`); its burn alerts and the breaker
+census drive the shed ratchet.
 
 `GET /health` answers the proxy's view of the quorum (active and
 reachable replicas, breakers, 503 + Retry-After when fewer than a quorum
@@ -38,7 +52,8 @@ are reachable) with a section for each plane it runs and, with local
 replicas, `recovery`: each replica's Merkle root, anti-entropy rounds and
 snapshot generation. `GET /metrics` (`metrics_route_enabled`, `[obs]
 metrics-route`) serves the Prometheus text of `obs.metrics`, state gauges
-sampled at scrape time. With a `supervisor` the proxy asks it for the
+sampled at scrape time (with the `dds_admission_*`, `dds_slo_*` and
+`dds_audit_*` families). With a `supervisor` the proxy asks it for the
 freshest active replicas every `replica_refresh_interval` seconds, so a
 promoted spare joins its quorum view.
 
@@ -56,7 +71,10 @@ here: sharding is not ported), on the backend's device. Committed writes
 queue their ciphertext columns for ingest into the existing pools off the
 request path, so the first aggregate after a write ingests nothing. With
 `[storage]` as well, Stratum (`storage/`) routes the fold through its
-hot/warm/cold planner and pool overflow evicts instead of resetting.
+hot/warm/cold planner and pool overflow evicts instead of resetting. The
+plane is the cuda backend's own; a host backend (`cpu`) gets the portable
+plane on `ProxyConfig.device`, the reference's "default device" (a `cuda`
+device without a card raises at construction).
 
 With `[search]` (`ProxyConfig.search`) the twelve Search*, Order* and
 Range routes take the search plane (`search/`, the reference's Spyglass):
@@ -85,8 +103,10 @@ from dataclasses import dataclass
 from typing import Optional
 
 from dds_tpu_torch.analytics import Prism
+from dds_tpu_torch.core.admission import AdaptiveCoalescer, AdmissionController, TokenBucket
 from dds_tpu_torch.core.errors import AllBreakersOpenError, ByzantineError
 from dds_tpu_torch.core.quorum_client import AbdClient
+from dds_tpu_torch.core.tenant import CANARY_TENANT, TenantError, validate_tenant
 from dds_tpu_torch.http import json_protocol as J
 from dds_tpu_torch.http.miniserver import HttpServer, Request, Response
 from dds_tpu_torch.models.backend import CryptoBackend, get_backend
@@ -94,6 +114,8 @@ from dds_tpu_torch.models.det import DetKey
 from dds_tpu_torch.obs import context as obs_context
 from dds_tpu_torch.obs.flight import flight
 from dds_tpu_torch.obs.metrics import metrics
+from dds_tpu_torch.obs.slo import SloEngine
+from dds_tpu_torch.obs.watchtower import watchtower
 from dds_tpu_torch.ops.flags import analytics_max_rows
 from dds_tpu_torch.resident import ResidentPlane
 from dds_tpu_torch.search import SearchPlane
@@ -120,6 +142,11 @@ _REQ_DEADLINE: contextvars.ContextVar = contextvars.ContextVar(
 # transient storage-layer failures worth retrying; anything else (a
 # programming error, a bad request) propagates immediately
 _RETRYABLE = (ByzantineError, asyncio.TimeoutError, NoTrustedNodesError, OSError)
+
+# observability routes bypass admission, so operators can see why the edge
+# sheds while it sheds (the reference exempts its unported control and
+# fleet routes too)
+_ADMISSION_EXEMPT = frozenset({"health", "metrics", "slo"})
 
 
 @dataclass
@@ -170,6 +197,14 @@ class ProxyConfig:
     replica_refresh_interval: float = 5.0
     # GET /metrics (Prometheus text)
     metrics_route_enabled: bool = True
+    # GET /slo: per-route objectives and burn state, the Watchtower's audit
+    # summary and, with admission on, the admission report
+    slo_route_enabled: bool = True
+    # Bulwark (a utils.config.AdmissionConfig; None or disabled = every
+    # request admitted) and [heliograph], whose rate/burst size the canary
+    # tenant's carve-out bucket (the prober itself is not ported)
+    admission: object = None
+    heliograph: object = None
 
 
 def _make_backend(cfg: ProxyConfig) -> CryptoBackend:
@@ -190,9 +225,13 @@ async def _cancel_task(task: asyncio.Task) -> None:
 
 class DDSRestServer:
     def __init__(self, abd: AbdClient, config: ProxyConfig | None = None,
-                 local_replicas: dict | None = None):
+                 local_replicas: dict | None = None,
+                 slo: SloEngine | None = None):
         self.abd = abd
         self.cfg = config or ProxyConfig()
+        # per-route SLO accounting: every request is classified good or
+        # bad in handle(); launch passes an engine built from [obs]
+        self.slo = slo or SloEngine()
         # this process's replicas (name -> BFTABDNode), read by /health's
         # recovery section and the scrape-time gauges
         self.local_replicas = local_replicas
@@ -220,8 +259,8 @@ class DDSRestServer:
         self._owner_memo: tuple | None = None  # pairs identity -> (gid, ops)
         # the resident plane: per-group device-resident pools + the fused
         # fold. A cuda backend builds it on its own device; a host backend
-        # (`cpu`) gets a plane on the CPU, the reference's rule for host
-        # backends. None when disabled.
+        # (`cpu`) gets the portable plane on `device`, the reference's
+        # default device for host backends. None when disabled.
         rescfg = self.cfg.resident
         self._resident: ResidentPlane | None = None
         self._resident_min_fold = 0
@@ -235,7 +274,7 @@ class DDSRestServer:
                 )
             else:
                 self._resident = ResidentPlane(
-                    device="cpu", initial_rows=rescfg.initial_rows,
+                    device=self.cfg.device, initial_rows=rescfg.initial_rows,
                     max_rows=rescfg.max_rows,
                 )
             self._resident_min_fold = (
@@ -247,9 +286,9 @@ class DDSRestServer:
         # the search plane: per-group indexes over the DET/OPE column
         # families, written from the request path (queued, debounced — the
         # resident ingest pattern) and validated per query with one
-        # batched read_tags round. Built on the backend's device (the CPU
-        # for a host backend). None when disabled: every Search*/Order*/
-        # Range route then takes the legacy scan.
+        # batched read_tags round. Built on the backend's device, or on
+        # `device` for a host backend. None when disabled: every Search*/
+        # Order*/Range route then takes the legacy scan.
         scfg = self.cfg.search
         self._search: SearchPlane | None = None
         self._search_write_ingest = False
@@ -258,7 +297,7 @@ class DDSRestServer:
         if scfg is not None and scfg.enabled:
             self._search = SearchPlane(
                 max_pending=scfg.max_pending,
-                device=getattr(self.backend, "device", "cpu"),
+                device=getattr(self.backend, "device", self.cfg.device),
             )
             self._search_write_ingest = scfg.write_ingest
             self._search_ingest_window = max(0.0, scfg.ingest_window)
@@ -289,6 +328,31 @@ class DDSRestServer:
                 resident=self._resident,
             )
         self._column_memo: tuple | None = None  # pairs identity -> columns
+        # Bulwark: the admission gate and shed ratchet, fed by the SLO
+        # engine's burn alerts and the breaker census, and the adaptive
+        # coalescing window sized from observed fold arrivals. Both None
+        # when admission is off.
+        acfg = self.cfg.admission
+        self.admission: AdmissionController | None = None
+        self._coalescer: AdaptiveCoalescer | None = None
+        if acfg is not None and getattr(acfg, "enabled", False):
+            self.admission = AdmissionController.from_config(
+                acfg, alerts=self.slo.alerts, breakers=self._breaker_census,
+            )
+            if getattr(acfg, "adaptive_coalesce", True) and self.cfg.coalesce_window > 0:
+                self._coalescer = AdaptiveCoalescer(
+                    base_window=self.cfg.coalesce_window,
+                    max_window=getattr(acfg, "coalesce_max_window", 0.02),
+                    target_folds=getattr(acfg, "coalesce_target_folds", 8.0),
+                )
+        # the canary tenant's carve-out: it bypasses tenant-fair admission
+        # through this dedicated bucket, so a squatter on the reserved id
+        # can never flood the edge
+        hcfg = self.cfg.heliograph
+        self._canary_bucket = TokenBucket(
+            float(getattr(hcfg, "rate", 20.0) or 20.0),
+            float(getattr(hcfg, "burst", 40.0) or 40.0),
+        )
         self._http = HttpServer(self.cfg.host, self.cfg.port, self.handle,
                                 handler_timeout=self.cfg.handler_timeout)
 
@@ -300,6 +364,9 @@ class DDSRestServer:
                 self.abd.cfg.supervisor = self.cfg.supervisor  # pin ActiveReplicas source
             self._tasks.append(supervised_task(self._replica_refresh_loop(),
                                                name="proxy.replica_refresh"))
+        if self.admission is not None:
+            self._tasks.append(supervised_task(self._admission_loop(),
+                                               name="proxy.admission"))
 
     async def _replica_refresh_loop(self) -> None:
         while True:
@@ -646,22 +713,111 @@ class DDSRestServer:
 
     # -------------------------------------------------------------- routing
 
+    def _breaker_census(self) -> tuple[int, list[float]]:
+        """(trusted coordinator count, refusing-breaker half-open ETAs)
+        from the storage client; a client without the surface (a test
+        stub) reads as healthy."""
+        census = getattr(self.abd, "breaker_census", None)
+        return census() if census is not None else (0, [])
+
+    def _admission_reject(self, d, route: str) -> Response:
+        """One Bulwark rejection: 429 (the tenant's class bucket) or 503
+        (the class is shed). No Deadline was minted and no storage work
+        ran; Retry-After comes from the bucket's refill ETA, or for a shed
+        from the nearest breaker probe or the ratchet's cadence."""
+        if d.status == 429:
+            retry_after = max(1, math.ceil(d.retry_after)) \
+                if 0 < d.retry_after < math.inf \
+                else max(1, math.ceil(self.cfg.retry_after_hint))
+        else:
+            retry_after = self._derive_retry_after(d.retry_after)
+        # shed 503s burn the route's SLO budget (they are ours); throttle
+        # 429s are the tenant's own rate and do not
+        self.slo.observe(route or "root", d.status, 0.0)
+        return Response(
+            d.status,
+            f"admission rejected ({d.reason})".encode(),
+            headers={"Retry-After": str(retry_after)},
+        )
+
+    async def _admission_loop(self) -> None:
+        """Controller heartbeat: decide() ticks the ratchet lazily under
+        traffic, and this timer keeps evaluations flowing when the shed
+        class is the only traffic, so the level can step down."""
+        interval = max(0.05, self.admission.eval_interval)
+        while True:
+            await asyncio.sleep(interval)
+            self.admission.evaluate()
+
+    @staticmethod
+    def _tenant_reject(e: TenantError) -> Response:
+        """Typed 400 for a malformed tenant header: wire garbage never
+        becomes a bucket or metric label."""
+        metrics.inc(
+            "dds_tenant_header_rejects_total", reason=e.reason,
+            help="malformed x-dds-tenant headers refused with 400",
+        )
+        return Response.json(
+            {"error": "invalid tenant header", "reason": e.reason}, status=400,
+        )
+
     async def handle(self, req: Request) -> Response:
         route = req.path.split("/", 2)[1] if "/" in req.path else req.path
+        header = self.admission.tenant_header \
+            if self.admission is not None else "x-dds-tenant"
+        try:
+            tenant = validate_tenant(req.headers.get(header))
+        except TenantError as e:
+            return self._tenant_reject(e)
+        adm_ms = None
+        if tenant == CANARY_TENANT:
+            # the canary carve-out: probes bypass tenant-fair admission but
+            # pass their own rate-bounded bucket
+            if (route not in _ADMISSION_EXEMPT
+                    and not self._canary_bucket.try_acquire()):
+                metrics.inc(
+                    "dds_canary_throttled_total", route=route or "root",
+                    help="canary requests refused by the rate-bounded "
+                         "admission carve-out",
+                )
+                eta = self._canary_bucket.refill_eta()
+                return Response(
+                    429, b"canary rate bound exceeded",
+                    headers={"Retry-After": (
+                        "60" if not math.isfinite(eta)
+                        else str(max(1, math.ceil(eta))))},
+                )
+        elif self.admission is not None and route not in _ADMISSION_EXEMPT:
+            t_adm = time.perf_counter()
+            decision = self.admission.decide(route, tenant)
+            adm_ms = (time.perf_counter() - t_adm) * 1e3
+            if not decision.admitted:
+                return self._admission_reject(decision, route)
         # one budget per request: every storage helper reads it from the
         # context var, so nested retries shrink toward the same deadline
         token = _REQ_DEADLINE.set(Deadline(self.cfg.request_budget))
         ctx = obs_context.root()
+        t0 = time.perf_counter()
+        status = 500
         try:
             with tracer.span(f"http.{req.method}.{route or 'root'}", _ctx=ctx):
-                return await self._route(req)
+                if adm_ms is not None:
+                    # decided before the trace root existed: backdated into
+                    # the tree as the admission stage
+                    tracer.record("proxy.admission", adm_ms,
+                                  _ctx=obs_context.child())
+                resp = await self._route(req)
+            status = resp.status
+            return resp
         except (ValueError, KeyError, TypeError) as e:
+            status = 400
             return Response.text(f"bad request: {e}", 400)
         except (DeadlineExceededError, NoTrustedNodesError,
                 AllBreakersOpenError) as e:
             # the quorum is unreachable within the budget: say when to
             # come back instead of hanging. AllBreakersOpenError is the
             # fast-fail variant and carries the nearest probe's ETA
+            status = 503
             log.warning("degraded %s %s: %s", req.method, req.path, e)
             if isinstance(e, DeadlineExceededError):
                 kind = "deadline_exceeded"
@@ -678,16 +834,25 @@ class DDSRestServer:
                 kind, trace_id=ctx.trace_id, route=route or "root",
                 method=req.method, error=str(e),
             )
-            return Response(
-                503, f"service unavailable: {e}".encode(),
-                headers={"Retry-After": str(
-                    self._derive_retry_after(getattr(e, "eta", None)))},
-            )
+            return self._unavailable(str(e), getattr(e, "eta", None))
         except Exception:
             log.exception("route failure %s %s", req.method, req.path)
             return Response(500)
         finally:
             _REQ_DEADLINE.reset(token)
+            if tenant != CANARY_TENANT:
+                # synthetic canary load never dilutes (or burns) the user
+                # routes' objectives
+                self.slo.observe(route or "root", status,
+                                 time.perf_counter() - t0)
+
+    def _unavailable(self, why: str, eta: float | None = None) -> Response:
+        """503 with a Retry-After derived from the recovery state."""
+        return Response(
+            503,
+            f"service unavailable: {why}".encode(),
+            headers={"Retry-After": str(self._derive_retry_after(eta))},
+        )
 
     async def _route(self, req: Request) -> Response:
         parts = [p for p in req.path.split("/") if p]
@@ -805,6 +970,14 @@ class DDSRestServer:
             case ("GET", "health"):
                 return self._health()
 
+            case ("GET", "slo") if self.cfg.slo_route_enabled:
+                # per-route objective and burn state, the Watchtower's audit
+                # summary and, with Bulwark armed, what admission is doing
+                body = {"slo": self.slo.report(), "audit": watchtower.stats()}
+                if self.admission is not None:
+                    body["admission"] = self.admission.report()
+                return Response.json(body)
+
             case ("GET", "metrics") if self.cfg.metrics_route_enabled:
                 # state gauges (breakers, suspicion, membership) are sampled
                 # at scrape time: scrape-time freshness is all a gauge
@@ -857,10 +1030,11 @@ class DDSRestServer:
 
     def _derive_retry_after(self, *candidates: float | None) -> int:
         """Retry-After from the recovery state: the nearest breaker
-        half-open probe and any caller-supplied ETA (a fast-fail's),
-        falling back to `retry_after_hint` when nothing is pending."""
+        half-open probe and any caller-supplied ETA (a fast-fail's, a
+        shed's), falling back to `retry_after_hint` when nothing is
+        pending."""
         vals = [c for c in candidates if c is not None and 0 < c < math.inf]
-        _, etas = self.abd.breaker_census()
+        _, etas = self._breaker_census()
         vals.extend(e for e in etas if e > 0)
         eta = min(vals) if vals else self.cfg.retry_after_hint
         return max(1, math.ceil(eta))
@@ -888,6 +1062,21 @@ class DDSRestServer:
         )
         metrics.set("dds_stored_keys", len(self.stored_keys),
                     help="aggregate key-set size")
+        # Bulwark: the shed level is set at transition time too, but a
+        # scrape between transitions still deserves the truth; the
+        # coalescing window is pure scrape-time state
+        if self.admission is not None:
+            metrics.set(
+                "dds_admission_shed_level", self.admission.shed_level,
+                help="Bulwark shed level (0=none; higher sheds lower "
+                     "priority classes first)",
+            )
+        if self._coalescer is not None:
+            metrics.set(
+                "dds_admission_coalesce_window_seconds",
+                self._coalescer.window(),
+                help="current adaptive fold-coalescing window",
+            )
         if self._resident is not None:
             self._resident.export_gauges(metrics)
         if self._stratum is not None:
@@ -905,6 +1094,14 @@ class DDSRestServer:
             help="total label sets dropped into overflow series by the "
                  "per-family cardinality cap",
         )
+        # SLO burn and budget gauges, and the audit backlog (the violation
+        # counter increments at detection time in the auditor itself)
+        self.slo.export_gauges(metrics)
+        wt = watchtower.stats()
+        metrics.set("dds_audit_traces_audited", wt["traces_audited"],
+                    help="traces audited by the Watchtower since start")
+        metrics.set("dds_audit_pending_traces", wt["pending_traces"],
+                    help="in-flight traces buffered awaiting audit")
         for node in (self.local_replicas or {}).values():
             stats = node.antientropy.stats()
             metrics.set(
@@ -1372,6 +1569,10 @@ class DDSRestServer:
         latency."""
         be = self.backend
         min_batch = getattr(be, "min_device_batch", 0)
+        if self._coalescer is not None:
+            # every fold arrival feeds the rate the adaptive window is
+            # sized from, whichever path it takes below
+            self._coalescer.note_fold(len(operands))
         concurrent = self._folds_inflight > 0 or bool(self._fold_pending)
         if (
             self.cfg.coalesce_window <= 0
@@ -1396,8 +1597,16 @@ class DDSRestServer:
                                                  name="proxy.fold_drainer")
         return await fut
 
+    def _coalesce_window(self) -> float:
+        """This drain's gather window: adaptive (sized from the observed
+        fold arrival rate) when Bulwark armed it, else the config
+        constant."""
+        if self._coalescer is not None:
+            return self._coalescer.window()
+        return self.cfg.coalesce_window
+
     async def _drain_folds(self) -> None:
-        await asyncio.sleep(self.cfg.coalesce_window)
+        await asyncio.sleep(self._coalesce_window())
         while self._fold_pending:
             # snapshot ALL pending groups and dispatch them concurrently:
             # different moduli overlap their dispatches, and draining one at

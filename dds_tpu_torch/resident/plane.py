@@ -101,6 +101,11 @@ class ResidentPlane:
                  max_rows: int = 1 << 20, reduce_factory=None,
                  max_pending: int = 8192):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            # at construction, like SearchPlane: a plane meant for the card
+            # never quietly comes up on the host
+            raise RuntimeError("ResidentPlane: no CUDA device available (pass "
+                               "device='cpu' to build the plane on the host)")
         self.initial_rows = int(initial_rows)
         self.max_rows = int(max_rows)
         self.max_pending = int(max_pending)

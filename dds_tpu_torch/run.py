@@ -19,9 +19,17 @@ crash or byzantine attack through (`dep.trudy`, fired by
 `[search]` reach the proxy as their config sections, so Stratum keeps its
 segment log in `[storage] dir` and the search plane indexes the
 Search*/Order*/Range columns, and `[analytics]` arms Prism's routes (on
-by default). A config that enables a plane the port does not serve
-(`unported_plane`) is refused with `NotImplementedError` naming it, so
-every file in `configs/` parses but none boots without what it asks for.
+by default). The REST edge comes up as the reference wires it: `[admission]`
+(Bulwark's buckets, shed ratchet and adaptive coalescing window), the SLO
+engine built from `[obs]` (`GET /slo` with `slo-route`) and `[heliograph]
+rate/burst` for the canary tenant's bucket; with `[obs] audit-enabled` the
+process-wide Watchtower is reset, configured for this topology (quorum
+`byz-quorum-size`, the endpoints less the spares, quorum checks as
+`audit-quorum-checks` says, every replica being local) and attached to the
+tracer last, and `Deployment.stop` detaches it. A config that enables a
+plane the port does not serve (`unported_plane`) is refused with
+`NotImplementedError` naming it, so every file in `configs/` parses but
+none boots without what it asks for; `configs/default.toml` boots.
 `load_provider(cfg)` builds the
 client's HE provider from the `[client]` section: its keys, its bulk
 encryption backend (`bulk-encrypt-backend = "cuda"` precomputes PSSE
@@ -35,9 +43,12 @@ rng. The TCP transport, ChaosNet and Nemesis wait for later slices.
 
 Run the deployment and a generated workload, print each client's report,
 and with --serve keep serving until interrupted (on a host without a card,
-pass --device cpu):
+pass --device cpu; --backend picks the proxy's crypto backend, as the
+reference's flag does):
 
     python -m dds_tpu_torch.run --ops 100 --seed 7 [--serve] [--port 8443]
+    python -m dds_tpu_torch.run --config configs/default.toml --backend cuda
+    python -m dds_tpu_torch.run --config configs/default.toml --device cpu --backend cpu
 """
 
 from __future__ import annotations
@@ -64,10 +75,13 @@ from dds_tpu_torch.models.backend import get_backend
 from dds_tpu_torch.models.facade import HomoProvider
 from dds_tpu_torch.models.keys import HEKeys
 from dds_tpu_torch.obs.flight import flight
+from dds_tpu_torch.obs.slo import SloEngine
+from dds_tpu_torch.obs.watchtower import watchtower
 from dds_tpu_torch.ops.flags import secret_device
 from dds_tpu_torch.sanctum import SecretBackend
 from dds_tpu_torch.utils.config import DDSConfig
 from dds_tpu_torch.utils.tasks import supervised_task
+from dds_tpu_torch.utils.trace import tracer
 
 log = logging.getLogger("dds_torch.run")
 
@@ -94,6 +108,11 @@ class Deployment:
         for s in self._stoppables:
             await s.stop()
         await self.net.quiesce()
+        if self.cfg.obs.audit_enabled:
+            # the auditor was configured for THIS deployment's quorum
+            # geometry; left attached it would audit a later deployment (or
+            # test) against the wrong q/n
+            watchtower.detach()
         if self.cfg.obs.flight_dir:
             # the recorder is process-wide: hand it back as launch found it,
             # so a later deployment (or test) never files into this one's
@@ -103,16 +122,13 @@ class Deployment:
 
 def unported_plane(cfg: DDSConfig) -> str | None:
     """The first plane `cfg` enables that the port does not serve, or
-    None: shard first, then admission, tenancy, the obs audit, fabric,
-    helmsman, geo, heliograph, the attacks other than Trudy's crash and
-    byzantine, then the other serving surfaces of the reference that are
-    not ported."""
+    None: shard first, then tenancy, fabric, helmsman, geo, heliograph,
+    the attacks other than Trudy's crash and byzantine, then the other
+    serving surfaces of the reference that are not ported."""
     attack_ok = {a.value for a in (AttackType.CRASH, AttackType.BYZANTINE)}
     checks = (
         (cfg.shard.enabled, "[shard] enabled: sharding"),
-        (cfg.admission.enabled, "[admission] enabled: admission control"),
         (cfg.tenancy.enabled, "[tenancy] enabled: tenancy"),
-        (cfg.obs.audit_enabled, "[obs] audit-enabled: the obs audit (Watchtower)"),
         (cfg.fabric.role != "all" or bool(cfg.fabric.groups), "[fabric]: the shard fabric"),
         (cfg.helmsman.enabled, "[helmsman] enabled: helmsman"),
         (cfg.geo.enabled, "[geo] enabled: geo"),
@@ -121,7 +137,6 @@ def unported_plane(cfg: DDSConfig) -> str | None:
         (cfg.attacks.enabled and cfg.attacks.type.strip().lower() not in attack_ok,
          f"[attacks] type = {cfg.attacks.type!r}: attacks other than Trudy's "
          "crash and byzantine"),
-        (cfg.obs.slo_route, "[obs] slo-route: the SLO engine"),
         (cfg.obs.trace_route, "[obs] trace-route: the /_trace route"),
         (cfg.obs.fleet.enabled, "[obs.fleet] enabled: fleet observability"),
         (cfg.transport.kind != "memory", f"[transport] kind = {cfg.transport.kind!r}: "
@@ -267,8 +282,12 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             search=cfg.search,
             supervisor=SUPERVISOR_NAME,
             metrics_route_enabled=cfg.obs.metrics_route,
+            slo_route_enabled=cfg.obs.slo_route,
+            admission=cfg.admission,
+            heliograph=cfg.heliograph,
         ),
         local_replicas=replicas,
+        slo=SloEngine.from_obs(cfg.obs),
     )
     await server.start()
 
@@ -313,6 +332,20 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
                     pass
 
         stoppables.append(_TaskStopper())
+
+    # the Watchtower rides the process tracer, attached last, once nothing
+    # else in this launch can fail, so an aborted boot never leaves a
+    # misconfigured auditor behind. It starts from a clean ledger, so its
+    # stats and verdicts are this deployment's. Every replica records its
+    # handler spans in this process, so the quorum checks are sound.
+    if cfg.obs.audit_enabled:
+        watchtower.reset()
+        watchtower.configure(
+            quorum_size=cfg.replicas.byz_quorum_size,
+            n_replicas=len(cfg.replicas.endpoints) - len(cfg.replicas.sentinent),
+            check_quorum=cfg.obs.audit_quorum_checks,
+        )
+        watchtower.attach(tracer)
     return dep
 
 
@@ -403,6 +436,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Run a dds_tpu_torch deployment + workload")
     ap.add_argument("--config", help="TOML/JSON config path")
     ap.add_argument("--ops", type=int, help="override nr-of-operations")
+    ap.add_argument("--backend", choices=["cpu", "cuda"], help="the proxy's crypto backend")
     ap.add_argument("--port", type=int, help="proxy port (0 = auto)")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--serve", action="store_true", help="keep serving after workload")
@@ -415,6 +449,8 @@ def main(argv=None) -> None:
     cfg = DDSConfig.load(args.config) if args.config else DDSConfig()
     if args.ops is not None:
         cfg.client.nr_of_operations = args.ops
+    if args.backend:
+        cfg.proxy.crypto_backend = args.backend
     if args.port is not None:
         cfg.proxy.port = args.port
     if args.device:

@@ -4,11 +4,9 @@ Copy of `dds_tpu/utils/config.py`: every section, key and default of the
 reference, so every file in `configs/` parses here as it does there. A
 section parses whether or not its plane is ported; `run.launch` refuses
 to boot a config that enables a plane the port does not serve, naming it
-(shard, admission, tenancy, the obs audit, fabric, helmsman, geo,
-heliograph, the attacks other than Trudy's crash and byzantine, and the
-other serving
-surfaces listed there), so nothing runs without a plane
-its config asks for. `[client] failed-contact-attempts-threshold` is read
+(shard, tenancy, fabric, helmsman, geo, heliograph, the attacks other
+than Trudy's crash and byzantine, and the other serving surfaces listed
+there), so nothing runs without a plane its config asks for. `[client] failed-contact-attempts-threshold` is read
 by no client, so any value but the reference's default raises at parse.
 
 The port's defaults differ from the reference's in these fields only:
@@ -22,9 +20,6 @@ The port's defaults differ from the reference's in these fields only:
 - `[proxy] crypto-backend = "cuda"` (the reference: `cpu`) and `port = 0`
   (OS-assigned; the reference: 8443), so several stacks boot in one
   process without a port clash.
-- `[obs] audit-enabled` and `slo-route`: off (the reference: on). The
-  Watchtower auditor and the SLO engine are not ported, and the port must
-  not refuse its own `DDSConfig()`.
 - Fields of the port alone: `[proxy] device` and `min-device-batch`, and
   `[client] device`: where the `cuda` backends and the Sanctum device plan
   run ("cpu" runs their plain PyTorch path on hosts without a card) and
@@ -302,8 +297,7 @@ class ObsConfig:
     # monotonicity, read-sees-latest, anti-entropy repair convergence, and
     # breaker/suspicion state-machine legality; violations become
     # dds_audit_violations_total + flight incidents, never exceptions.
-    # Not ported, so off (the reference: on)
-    audit_enabled: bool = False
+    audit_enabled: bool = True
     # quorum-intersection checks need every replica's handler spans in
     # THIS process's tracer ring; launch() additionally disables them when
     # the topology splits replicas across hosts
@@ -311,9 +305,8 @@ class ObsConfig:
     # SLO engine (obs/slo): per-route latency objectives + error-budget
     # burn-rate windows, served at GET /slo and as dds_slo_* gauges.
     # Default: objective of requests per route answer < latency-ms without
-    # a 5xx; per-route overrides under [obs.slo-routes.<Route>]. Not
-    # ported, so off (the reference: on)
-    slo_route: bool = False
+    # a 5xx; per-route overrides under [obs.slo-routes.<Route>].
+    slo_route: bool = True
     slo_objective: float = 0.99
     slo_latency_ms: float = 250.0
     slo_fast_window: float = 300.0
@@ -463,7 +456,7 @@ class SearchConfig:
 
 @dataclass
 class AdmissionConfig:
-    """Bulwark overload control (the reference's core/admission; not ported): per-tenant/
+    """Bulwark overload control (core/admission): per-tenant/
     per-priority-class token buckets and SLO-burn-driven load shedding at
     the REST edge, decided BEFORE a Deadline is minted — rejected
     requests answer 429/503 in microseconds with a Retry-After derived

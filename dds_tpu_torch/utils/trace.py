@@ -1,8 +1,10 @@
 """Structured tracing: causally linked spans and point events.
 
-Trimmed copy of `dds_tpu/utils/trace.py` (the subscriber feed and JSONL
-dump wait for the obs planes); `event_dict` serves the flight recorder's
-incident dumps. Every recorded span carries `(trace_id,
+Trimmed copy of `dds_tpu/utils/trace.py` (the JSONL dump and the
+counters are not ported); `event_dict` serves the flight recorder's
+incident dumps, and the subscriber feed (`subscribe`, `unsubscribe`) hands
+every record to the Watchtower auditor (`obs/watchtower.py`) as it lands.
+Every recorded span carries `(trace_id,
 span_id, parent_id)` from `obs.context`, so one REST request yields a span
 tree — HTTP route -> quorum round -> replica handler -> kernel phase. The
 span names match the reference's (`http.GET.SumAll`, `proxy.fetch_stored`,
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import logging
 import math
 import threading
 import time
@@ -53,10 +56,45 @@ class Tracer:
     max_events: int = 65536
     _events: collections.deque = field(init=False, repr=False)
     _lock: threading.Lock = field(init=False, repr=False)
+    _subscribers: list = field(init=False, repr=False)
+    _notifying: threading.local = field(init=False, repr=False)
 
     def __post_init__(self):
         self._events = collections.deque(maxlen=self.max_events)
         self._lock = threading.Lock()
+        self._subscribers = []
+        self._notifying = threading.local()
+
+    # ---------------------------------------------------------- subscribers
+
+    def subscribe(self, fn) -> None:
+        """Register `fn(SpanRecord)`, called outside the ring lock for
+        every record (the Watchtower's feed). Subscribers must be cheap;
+        their exceptions are logged and swallowed, so a consumer can never
+        break the path it observes."""
+        if fn not in self._subscribers:
+            self._subscribers.append(fn)
+
+    def unsubscribe(self, fn) -> None:
+        if fn in self._subscribers:
+            self._subscribers.remove(fn)
+
+    def _notify(self, rec: "SpanRecord") -> None:
+        # re-entrancy guard: a subscriber that records a span of its own
+        # must not recurse into the subscriber chain on this thread
+        if getattr(self._notifying, "active", False):
+            return
+        self._notifying.active = True
+        try:
+            for fn in list(self._subscribers):
+                try:
+                    fn(rec)
+                except Exception:  # noqa: BLE001 — observers never break observed paths
+                    logging.getLogger("dds_torch.trace").exception(
+                        "trace subscriber failed"
+                    )
+        finally:
+            self._notifying.active = False
 
     @contextlib.contextmanager
     def span(self, name: str, /, _ctx: Optional[obs_context.SpanContext] = None,
@@ -83,6 +121,8 @@ class Tracer:
         rec = SpanRecord(time.time(), name, dur_ms, meta, tid, sid, pid, _kind)
         with self._lock:
             self._events.append(rec)
+        if self._subscribers:
+            self._notify(rec)
 
     def event(self, name: str, /, **meta) -> None:
         """Zero-duration annotation attached to the active trace."""
@@ -130,8 +170,8 @@ class Tracer:
         return rec
 
     def reset(self, max_events: int | None = None) -> None:
-        """Drop every span; `max_events` resizes the bound for a run that
-        must keep more."""
+        """Drop every span (subscribers stay); `max_events` resizes the
+        bound for a run that must keep more."""
         with self._lock:
             if max_events is not None:
                 self.max_events = max_events

@@ -5,17 +5,22 @@ Both packages load each TOML file. Every key the file sets must read the
 same value in both trees; every other field must equal the reference's
 default, except the port's documented divergences (`DIVERGENCES`, the
 module docstring of `dds_tpu_torch/utils/config.py`) and the fields only
-the port has (`PORT_ONLY`). `launch` on each file refuses with
+the port has (`PORT_ONLY`). `launch` on each file either boots and stops
+(`configs/default.toml`: every plane it enables is ported) or refuses with
 `NotImplementedError` naming the first plane the port does not serve,
 never with an unknown-key error; each refusal is checked on its own. The
 planes ported since (recovery, anti-entropy, spares, snapshots, Trudy's
-attacks, /metrics, the flight recorder) each launch and stop cleanly, and
-`DDSConfig()` with `[search] enabled` boots, as does `[crypto]
-secret-device` (Sanctum), whose provider decrypts through its device plan.
+attacks, /metrics, the flight recorder, admission, the obs audit, the SLO
+engine) each launch and stop cleanly, and `DDSConfig()` with `[search]
+enabled` boots, as does `[crypto] secret-device` (Sanctum), whose provider
+decrypts through its device plan. `default.toml` boots with Bulwark, the
+SLO engine and the Watchtower armed as the file says, and the CLI's
+`--device cpu --backend cpu` launches it.
 """
 
 import asyncio
 import dataclasses
+import json
 import pathlib
 import tomllib
 
@@ -40,20 +45,19 @@ DIVERGENCES = {
     "recovery.enabled": False,
     "proxy.port": 0,
     "proxy.crypto_backend": "cuda",
-    "obs.audit_enabled": False,
-    "obs.slo_route": False,
 }
 # fields the reference does not have
 PORT_ONLY = {"proxy.device": "cuda", "proxy.min_device_batch": None,
              "client.device": "cuda"}
 # the plane each top-level file's launch names first
 FIRST_PLANE = {
-    "configs/default.toml": "admission",
-    "configs/heliograph.toml": "obs audit",
+    "configs/heliograph.toml": "heliograph",
     "configs/sharded.toml": "sharding",
     "configs/stratum.toml": "sharding",
-    "configs/tenancy.toml": "admission",
+    "configs/tenancy.toml": "tenancy",
 }
+# the files whose every enabled plane is ported: they boot
+LAUNCHES = {"configs/default.toml"}
 
 
 def flat(obj, prefix: str = "") -> dict:
@@ -113,8 +117,19 @@ def test_defaults_equal_the_reference_except_the_divergences():
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_launch_refuses_each_config_naming_a_plane(name):
+    """Each file refuses naming its first unported plane, except the ones
+    in LAUNCHES, which boot and stop on the CPU."""
     cfg = DDSConfig.load(ROOT / name)
     cfg.proxy.device = "cpu"
+    if name in LAUNCHES:
+        assert unported_plane(cfg) is None
+
+        async def boot():
+            dep = await launch(cfg)
+            await dep.stop()
+
+        asyncio.run(asyncio.wait_for(boot(), 60))
+        return
     with pytest.raises(NotImplementedError) as err:
         asyncio.run(launch(cfg))
     msg = str(err.value)
@@ -130,9 +145,9 @@ PLANES = [
     ("spares", {"replicas": {"sentinent": ["replica-3"]}}, False),
     ("snapshots", {"recovery": {"snapshot-dir": "snaps"}}, False),
     ("sharding", {"shard": {"enabled": True}}, True),
-    ("admission", {"admission": {"enabled": True}}, True),
+    ("admission", {"admission": {"enabled": True}}, False),
     ("tenancy", {"tenancy": {"enabled": True}}, True),
-    ("obs audit", {"obs": {"audit-enabled": True}}, True),
+    ("obs audit", {"obs": {"audit-enabled": True}}, False),
     ("fabric", {"fabric": {"role": "proxy"}}, True),
     ("helmsman", {"helmsman": {"enabled": True}}, True),
     ("geo", {"geo": {"enabled": True}}, True),
@@ -140,7 +155,7 @@ PLANES = [
     ("attacks", {"attacks": {"enabled": True}}, False),
     ("attacks", {"attacks": {"chaos-enabled": True}}, True),
     ("/metrics", {"obs": {"metrics-route": True}}, False),
-    ("SLO engine", {"obs": {"slo-route": True}}, True),
+    ("SLO engine", {"obs": {"slo-route": True}}, False),
     ("/_trace", {"obs": {"trace-route": True}}, True),
     ("flight recorder", {"obs": {"flight-dir": "incidents"}}, False),
     ("fleet observability", {"obs": {"fleet": {"enabled": True}}}, True),
@@ -171,9 +186,11 @@ def test_each_unported_plane_is_refused_by_name(plane, section, monkeypatch):
 def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
                                               tmp_path):
     """The planes that used to be refused boot on the CPU and stop
-    cleanly: every loop `launch` started is cancelled and awaited, and the
-    flight recorder is handed back as `launch` found it."""
+    cleanly: every loop `launch` started is cancelled and awaited, the
+    flight recorder is handed back as `launch` found it, and the
+    Watchtower is detached."""
     from dds_tpu_torch.obs.flight import flight
+    from dds_tpu_torch.obs.watchtower import watchtower
     from dds_tpu_torch.utils.tasks import _TASKS
 
     monkeypatch.delenv("DDS_SECRET_DEVICE", raising=False)
@@ -194,6 +211,13 @@ def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
             if plane == "anti-entropy":
                 assert all(n.antientropy.stats()["running"]
                            for n in dep.replicas.values())
+            if plane == "admission":
+                assert dep.server.admission is not None
+                assert dep.server._coalescer is not None
+            if plane == "obs audit":
+                assert watchtower.attached and watchtower.quorum_size == 3
+            if plane == "SLO engine":
+                assert dep.server.cfg.slo_route_enabled
         finally:
             await dep.stop()
         await asyncio.sleep(0)
@@ -202,6 +226,69 @@ def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
     leaked = asyncio.run(asyncio.wait_for(boot(), 30))
     assert not leaked, leaked
     assert flight.dir == before
+    assert not watchtower.attached
+
+
+def test_default_toml_launches_on_the_cpu_with_its_edge_planes(monkeypatch):
+    """configs/default.toml on the CPU (`[proxy] device = "cpu"`, its own
+    `crypto-backend = "cpu"`): the reference's topology, Bulwark with the
+    file's buckets and adaptive window, the SLO engine with its per-route
+    objectives, and the Watchtower configured for quorum 5 over 7 active
+    replicas; it serves a PutSet, a GetSet and /slo, and stop detaches the
+    auditor."""
+    from dds_tpu_torch.http.miniserver import http_request
+    from dds_tpu_torch.obs.watchtower import watchtower
+
+    monkeypatch.delenv("DDS_SECRET_DEVICE", raising=False)
+    cfg = DDSConfig.load(ROOT / "configs" / "default.toml")
+    cfg.proxy.device = "cpu"
+
+    async def boot():
+        dep = await launch(cfg)
+        try:
+            s = dep.server
+            port = s.cfg.port
+            status, key = await http_request("127.0.0.1", port, "POST", "/PutSet",
+                                             b'{"contents": ["7", "x"]}')
+            got, _ = await http_request("127.0.0.1", port, "GET", f"/GetSet/{key.decode()}")
+            slo, body = await http_request("127.0.0.1", port, "GET", "/slo")
+            return (s.backend.name, len(dep.replicas), dep.supervisor.sentinent,
+                    s.admission.rates, s.admission.max_shed_level,
+                    s._coalescer.max_window, s.slo.routes["SumAll"].latency_ms,
+                    watchtower.attached, watchtower.quorum_size, watchtower.n_replicas,
+                    status, got, slo, sorted(json.loads(body)))
+        finally:
+            await dep.stop()
+
+    out = asyncio.run(asyncio.wait_for(boot(), 60))
+    assert out == ("cpu", 9, ["replica-7", "replica-8"],
+                   {"interactive": (400.0, 800.0), "aggregate": (64.0, 128.0),
+                    "background": (16.0, 32.0)}, 2, 0.02, 1000.0, True, 5, 7,
+                   200, 200, 200, ["admission", "audit", "slo"])
+    assert not watchtower.attached
+
+
+def test_cli_launches_default_toml_with_the_backend_flag(monkeypatch, capsys):
+    """`python -m dds_tpu_torch.run --config configs/default.toml --device
+    cpu --backend cpu --ops 0`: boots, runs no workload, stops."""
+    from dds_tpu_torch import run as runmod
+
+    monkeypatch.delenv("DDS_SECRET_DEVICE", raising=False)
+    seen = {}
+    real = runmod.launch
+
+    async def spy(cfg):
+        dep = await real(cfg)
+        seen["backend"] = dep.server.backend.name
+        seen["device"] = cfg.proxy.device
+        return dep
+
+    monkeypatch.setattr(runmod, "launch", spy)
+    runmod.main(["--config", str(ROOT / "configs" / "default.toml"), "--device", "cpu",
+                 "--backend", "cpu", "--ops", "0"])
+    assert seen == {"backend": "cpu", "device": "cpu"}
+    with pytest.raises(SystemExit):
+        runmod.main(["--backend", "tpu"])
 
 
 def test_default_config_with_search_enabled_launches(monkeypatch):

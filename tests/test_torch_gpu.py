@@ -1,8 +1,10 @@
 """Card-only checks of the Hopper Montgomery kernels: the multiply, the
 modexp, the Karatsuba families' launches, the folds composed of them
-(`fold_many`, the resident plane's fused fold, Prism's weighted fold), and
-the Sanctum decrypt's per-column-modulus product and ladder
-(`csrc/mont_rowmod.cu`) with the device plan's full chunk.
+(`fold_many`, the resident plane's fused fold, Prism's weighted fold), the
+Sanctum decrypt's per-column-modulus product and ladder
+(`csrc/mont_rowmod.cu`) with the device plan's full chunk, a host
+backend's planes on `[proxy] device`, and `configs/default.toml` serving
+on the card with Bulwark, the SLO engine and the Watchtower.
 
 Marked `gpu`: on a host without a CUDA device every test here skips (the
 decision is made inside the `cuda` fixture, never at import, so every
@@ -893,3 +895,99 @@ def test_sumall_on_the_card_across_a_byzantine_recovery(cuda):
     assert result == fold and key.decrypt(result) == 256 * 257 // 2
     assert launches > 0
     assert victims[0] not in active
+
+
+def test_host_backend_planes_on_the_card(cuda):
+    """A `crypto-backend = "cpu"` proxy with [resident] and [search] and
+    `[proxy] device = "cuda"` builds both planes on the card."""
+    from dds_tpu_torch.core.quorum_client import AbdClient, AbdClientConfig
+    from dds_tpu_torch.core.transport import InMemoryNet
+    from dds_tpu_torch.http.server import DDSRestServer, ProxyConfig
+    from dds_tpu_torch.utils.config import ResidentConfig, SearchConfig
+
+    abd = AbdClient("proxy-0", InMemoryNet(), ["replica-0"], AbdClientConfig())
+    server = DDSRestServer(abd, ProxyConfig(
+        crypto_backend="cpu", device="cuda",
+        resident=ResidentConfig(enabled=True, initial_rows=4, max_rows=64),
+        search=SearchConfig(enabled=True)))
+    assert server.backend.name == "cpu"
+    assert server._resident.device.type == server._search.device.type == "cuda"
+    pool = server._resident.pool("", 7 * 11 * 13)
+    assert pool._buf.device.type == "cuda"
+
+
+def test_default_toml_serves_on_the_card_with_bulwark_slo_and_watchtower(cuda):
+    """configs/default.toml with `crypto-backend = "cuda"` on the card
+    (9 endpoints, 2 spares, quorum 5; [admission], the audit and /slo on as
+    the file says): a burst of background-class requests past that class's
+    bucket (32) answers 429 with the refill Retry-After and the admission
+    body; PutSets and a SumAll folding on B1 that equals the Python-int
+    fold; 200 concurrent SumAlls, each answer exact or refused at the edge
+    (429 while the aggregate bucket is dry, 503 once the ratchet sheds
+    aggregates, with Retry-After and the admission body), none a 500;
+    /slo parses, the Watchtower audited ops with no violation, and `stop`
+    detaches it."""
+    import asyncio
+    import json
+    import pathlib
+
+    from dds_tpu_torch.http.miniserver import http_request, http_request_full
+    from dds_tpu_torch.obs.watchtower import watchtower
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils.config import DDSConfig
+
+    key = bench_paillier_key(2048)
+    pk = key.public
+    blinds = [pk.blind() for _ in range(8)]
+    rows = [[i, f"n{i}", pk.encrypt(i + 1, rn=blinds[i % 8])] for i in range(256)]
+    fold = 1
+    for r in rows:
+        fold = fold * r[2] % pk.nsquare
+    root = pathlib.Path(__file__).resolve().parent.parent
+    cfg = DDSConfig.load(root / "configs" / "default.toml")
+    cfg.proxy.crypto_backend = "cuda"
+    cfg.proxy.min_device_batch = 0
+
+    async def go():
+        dep = await launch(cfg)
+        try:
+            port = dep.server.cfg.port
+            # an idle edge: the background bucket's burst, then 429s
+            burst = await asyncio.gather(*(http_request_full(
+                "127.0.0.1", port, "GET", "/_sync") for _ in range(48)))
+            for r in rows:
+                status, _ = await http_request("127.0.0.1", port, "POST", "/PutSet",
+                                               json.dumps({"contents": r}).encode())
+                assert status == 200
+            target = f"/SumAll?position=2&nsqr={pk.nsquare}"
+            for c in mont_cuda.LAUNCHES.values():
+                c.reset()
+            status, body = await http_request("127.0.0.1", port, "GET", target)
+            torch.cuda.synchronize()
+            launches = mont_cuda.LAUNCHES["mont_mul"].value
+            flood = await asyncio.gather(*(http_request_full(
+                "127.0.0.1", port, "GET", target, timeout=120.0) for _ in range(200)))
+            await dep.net.quiesce()
+            _, slo = await http_request("127.0.0.1", port, "GET", "/slo")
+            return burst, status, int(json.loads(body)["result"]), launches, flood, \
+                json.loads(slo), dep.server.backend.device.type
+        finally:
+            await dep.stop()
+
+    burst, status, result, launches, flood, slo, device = asyncio.run(
+        asyncio.wait_for(go(), 300))
+    throttled = [(h, b) for s, h, b in burst if s == 429]
+    assert {s for s, _, _ in burst} == {404, 429} and len(throttled) <= 16
+    assert all(h["retry-after"] == "1" and b.startswith(b"admission rejected")
+               for h, b in throttled)
+    assert device == "cuda" and status == 200 and launches > 0
+    assert result == fold and key.decrypt(result) == 256 * 257 // 2
+    refused = [(s, h) for s, h, b in flood if b.startswith(b"admission rejected")]
+    assert all(s in (429, 503) and int(h["retry-after"]) >= 1 for s, h in refused)
+    # any other 503 is a degraded answer (the budget ran out under the
+    # flood), never a 500
+    assert all(s in (200, 429) or (s == 503 and "retry-after" in h) for s, h, _ in flood)
+    assert all(int(json.loads(b)["result"]) == fold for s, _, b in flood if s == 200)
+    assert slo["audit"]["ops_audited"] > 0 and slo["audit"]["violations"] == {}
+    assert "SumAll" in slo["slo"]["routes"] and "admission" in slo
+    assert not watchtower.attached

@@ -5,8 +5,9 @@ Both stacks boot the north-star topology (4 BFT-ABD replicas, quorum 3,
 f = 1, in-memory transport) with the resident plane on (`min-fold` 1, so
 every modular aggregate goes through it); the port folds on
 `CudaBackend(device="cpu")` (the kernels' plain PyTorch paths) or on its
-`cpu` backend (a plane on the CPU, the reference's rule for host
-backends), the reference on its `cpu` backend (its portable plane). The
+`cpu` backend (the portable plane on `[proxy] device`, the CPU here:
+the reference's default device for host backends), the reference on its
+`cpu` backend (its portable plane). The
 same seeded rows go into both through `POST /PutSet`, then the same
 request sequence: SumAll and MultAll (twice each, so the second pass
 serves resident rows), writes through AddElement, WriteElement and PutSet
@@ -15,7 +16,9 @@ aggregates once more. Every status and body must be equal, and the port's
 aggregates must decrypt to the plaintexts' fold. With `[storage]` the
 pools are smaller than the rows, so folds split into resident and
 streamed legs and overflow demotes to the warm and cold tiers (segment
-log in `tmp_path`), with no reset. Exact equality throughout.
+log in `tmp_path`), with no reset. Exact equality throughout. A host
+backend's resident and search planes follow `[proxy] device`: the CPU for
+`cpu`, and `cuda` without a card raises at construction.
 """
 
 import asyncio
@@ -38,7 +41,7 @@ from dds_tpu_torch.http.miniserver import http_request
 from dds_tpu_torch.models.keys import HEKeys
 from dds_tpu_torch.obs.metrics import metrics
 from dds_tpu_torch.run import launch
-from dds_tpu_torch.utils.config import DDSConfig, ResidentConfig, StorageConfig
+from dds_tpu_torch.utils.config import DDSConfig, ResidentConfig, SearchConfig, StorageConfig
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 N = 20
@@ -356,3 +359,38 @@ def test_no_hidden_cpu_plane(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         asyncio.run(launch(cfg))
+
+
+def _host_backend_server(device: str):
+    """A `crypto-backend = "cpu"` proxy with [resident] and [search] on
+    `device` (the server alone: the planes are built at construction)."""
+    from dds_tpu_torch.core.quorum_client import AbdClient, AbdClientConfig
+    from dds_tpu_torch.core.transport import InMemoryNet
+    from dds_tpu_torch.http.server import DDSRestServer, ProxyConfig
+
+    abd = AbdClient("proxy-0", InMemoryNet(), ["replica-0"], AbdClientConfig())
+    return DDSRestServer(abd, ProxyConfig(
+        crypto_backend="cpu", device=device,
+        resident=ResidentConfig(enabled=True, initial_rows=4, max_rows=64),
+        search=SearchConfig(enabled=True)))
+
+
+def test_host_backend_planes_follow_the_proxy_device():
+    """A host crypto backend builds its portable resident plane and its
+    search plane on `[proxy] device`, the reference's default device: on
+    `cpu` both planes are on the CPU."""
+    server = _host_backend_server("cpu")
+    assert server.backend.name == "cpu"
+    assert server._resident.device == server._search.device == torch.device("cpu")
+
+
+def test_host_backend_planes_on_cuda_refuse_without_a_card(monkeypatch):
+    """The same proxy with `device = "cuda"` on a host without a card
+    raises at construction instead of quietly building CPU planes."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _host_backend_server("cuda")
+    with pytest.raises(RuntimeError, match="ResidentPlane: no CUDA device"):
+        from dds_tpu_torch.resident import ResidentPlane
+
+        ResidentPlane(device="cuda")
