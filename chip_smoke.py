@@ -14,12 +14,19 @@ decrypt (both CRT legs of a batch on the per-column-modulus kernels), the
 dependability plane (SumAlls folding on the card through proactive,
 byzantine and crash recoveries, snapshots and anti-entropy) and
 configs/default.toml served as it stands with Bulwark admission control,
-the SLO engine and the Watchtower auditor through an overload window —
-and holds every CUDA kernel on them against its plain PyTorch version.
-The phases before `recovery` turn the audit and /slo off in the configs
-they build (EARLIER_OBS_CUTS, printed on the "cuts" line), so their
-numbers compare with the runs before those planes were ported. Phases,
-each printing one JSON line; any failure exits non-zero:
+the SLO engine and the Watchtower auditor through an overload window,
+and configs/tenancy.toml's Bastion tenancy (each tenant folding under its
+own Paillier-2048 modulus, a noisy neighbour, a crypto-shred) — and holds
+every CUDA kernel on them against its plain PyTorch version. The phases
+before `recovery` turn the audit and /slo off in the configs they build
+(EARLIER_OBS_CUTS), and every phase before `tenancy` runs with the
+process-wide Chronoscope off (CHRONOSCOPE_CUT), both printed on the "cuts"
+line, so their numbers compare with the runs before those planes were
+ported; for the run's time the mixed, multall, recovery, bulwark,
+resident and tiered phases run at a smaller depth than their sources
+(MIXED_CUT, DEPTH_CUTS, printed there too; the sizes below are the
+sources'). Phases, each printing one JSON line; any failure exits
+non-zero:
 
 1. device     the card, from torch and nvidia-smi (a CUDA device is required);
 2. build      nvcc for sm_90a of every kernel source (mont_mul, mont_exp,
@@ -152,8 +159,9 @@ each printing one JSON line; any failure exits non-zero:
               mode, one B = 4,096 launch of each fold kernel (bit-exact,
               held, beside its bound) and the crossover;
 15. mixed     BASELINE config 5 (benchmarks/mixed.py --preload 4096
-              --clients 4 --ops 200, the ops cut to 50 a client for the
-              run's time): 7 replicas, quorum 5; the preload's
+              --clients 4 --ops 200, the preload cut to 2,048 rows and
+              the ops to 25 a client for the run's time, MIXED_CUT): 7
+              replicas, quorum 5; the preload's
               rows encrypted once; on crypto-backend cuda two stacks load
               them, the legacy one and one with [search], and the search
               phase runs on both (the "search" line, what = "rest"): the
@@ -256,12 +264,48 @@ each printing one JSON line; any failure exits non-zero:
               proxy.admission span, degraded 503s by kind, the adaptive
               window, the audit, the SLO burns, the phase's seconds beside
               its 150 s budget;
-20. kernels   one {"kernels": [...]} line (every kernel must have launched
+20. tenancy   configs/tenancy.toml as it stands on `cuda` (printed
+              overrides: the backend, an OS-assigned port, the phase's
+              data): 4 replicas, quorum 3, [tenancy] (gold 3.0, batch-etl
+              0.5), [admission] (interactive 400/800, aggregate 64/128),
+              /slo, the audit, Chronoscope. Four victims (gold, tenant-00,
+              tenant-01, batch-etl) and a flooder, each with its own
+              family from TenantKeyring(2048, 1024) (key generation
+              timed): 2,048 rows a victim and 512 for the flooder, blinded
+              on the card (one B3 pow_mod a tenant) and written by PutSet
+              under the tenant's header, 8 in flight; one SumAll a victim,
+              then the four at once, each the Python fold of exactly its
+              own rows under its own n^2, decrypting to its total, with
+              its B1 launches (12 at K = 2,048); the isolation gates (a
+              typed 403 for a cross-tenant GetSet and for a PutSet
+              replaying another tenant's content, a SumAll under another
+              tenant's n^2 folding only the caller's rows, 2 canary rows
+              folded only by the canary, /health's owned keys, /metrics'
+              dds_tenant_stored_keys a tenant, /slo's tenants,
+              Chronoscope's usage of every tenant); the backend's device
+              stores, one a modulus (count and bytes); the shred drill
+              mid-traffic (rotate tenant-01, re-encrypt a row and decrypt
+              it under epoch 2, shred): the survivors' reads and SumAlls
+              exact, the shredded tenant's rows served, every access to
+              its keys TenantShredded, 0 Watchtower violations; then
+              tenant_isolation.py's noisy neighbour at the file's rates
+              (victims drawn Zipf(1.2), GetSets of their own rows at 40/s,
+              10 % their own SumAll, a 10 s window; run A alone, run B
+              with flood SumAlls at 256/s from 2 s before the window; the
+              clients on their own loop): the victims' GetSet p50/p95 a
+              run and the ratio (the reference's bar 1.10, printed, not
+              gated), the flooder's statuses, whether shed_tenants() named
+              it; gates: every 200 SumAll exact, every refusal a 429 or 503
+              with Retry-After >= 1, no victim GetSet 429, no 500, 0
+              Watchtower violations over the whole phase; the phase's
+              seconds beside its 150 s budget;
+21. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
               launch; the analytics requests' launches are the paths
               "analytics" and "analytics_rest", the rowmod kernels' the
               path "decrypt", `decrypt_rows`' run, B1's the paths
-              "recovery", "sumall_audited" and "bulwark"); then one
+              "recovery", "sumall_audited", "bulwark" and "tenancy", B3's
+              "client" and "tenancy"); then one
               {"search": ...}
               line: each predicate op's calls on the indexed stack (gates,
               timing and rounds), calls a query, held ms, bound and rows/s
@@ -273,8 +317,9 @@ each printing one JSON line; any failure exits non-zero:
               `wait_recovery_idle`), StateChunks, keys and bytes, the fault
               windows and their failures, the snapshot and anti-entropy
               figures, the phase's seconds beside its 150 s budget; then
-              one {"bulwark": ...} line with the phase's whole record; then
-              the card's name and power limit; then the result line.
+              one {"bulwark": ...} and one {"tenancy": ...} line with those
+              phases' whole records; then the card's name and power limit;
+              then the result line.
 
     python3 chip_smoke.py              # on the card (needs one GPU)
     python3 chip_smoke.py --rehearse   # the same phases, tiny, on the CPU;
@@ -1246,6 +1291,21 @@ def phase_crossover(dev, modulus: int, widths) -> int:
 # default now, are turned off in every DDSConfig() they build (main prints
 # this); the recovery phase keeps its own RECOVERY_CUTS.
 EARLIER_OBS_CUTS = {"obs.audit_enabled": False, "obs.slo_route": False}
+# every phase before `tenancy` runs with the process-wide Chronoscope off
+# (its DDS_OBS_PIPE=0 switch, set in-process), so those phases' numbers
+# compare with the runs before `launch` attached it
+CHRONOSCOPE_CUT = "off before the tenancy phase (chronoscope.enabled = False)"
+# the mixed phase's depth, cut for the run's time (PR 13: 200 ops a client
+# to 50; PR 15: 50 to 25 and the preload of 4,096 rows to 2,048, which
+# halves the preloads and the cache-less search baseline, 62.5 s of one
+# query over 4,192 keys in PR 15's first full run of 1,065 s)
+MIXED_CUT = {"preload": "4096 -> 2048 rows", "ops_per_client": "200 -> 25"}
+# the depth of other earlier paths, cut for the run's time once the
+# tenancy phase joined (PR 15's full run 2 took 1,528 s on a slow host:
+# recovery 214 s, bulwark 154, resident 89, tiered 84, multall 63)
+DEPTH_CUTS = {"multall.K": "16384 -> 8192 records", "recovery.K": "8192 -> 4096 rows",
+              "bulwark.K": "8192 -> 4096 rows", "resident.reps": "2 -> 1",
+              "tiered.reps": "3 -> 2"}
 
 
 def earlier_config():
@@ -2365,7 +2425,8 @@ async def search_rest(dev, sizes, legacy, indexed, provider, keys, schema: list)
 
 async def phase_mixed(dev, sizes) -> dict:
     """BASELINE config 5 (`benchmarks/mixed.py --preload 4096 --clients 4
-    --ops 200`, `mixed_ops` a client: 50 on the card) through the port:
+    --ops 200`; `mixed_preload` rows and `mixed_ops` a client: 2,048 and 25
+    on the card, MIXED_CUT) through the port:
     7 replicas, quorum 5 (f = 2, the
     reference default's active set), Paillier-2048 (the bench key) and
     RSA-1024. The preload's rows are encrypted once. On
@@ -4407,6 +4468,496 @@ async def phase_bulwark(dev, sizes) -> dict:
     return rec
 
 
+TENANCY_BUDGET_S = 150.0
+TENANCY_VICTIMS = ("gold", "tenant-00", "tenant-01", "batch-etl")  # Zipf rank order
+TENANCY_FLOODER = "flood"
+TENANCY_SHED_WAIT_S = 120.0  # the most one must-serve SumAll waits for an open class
+TENANCY_CANARY = "__heliograph__"
+# configs/tenancy.toml's settings the phase overrides (printed); everything
+# else stands as the file says
+TENANCY_OVERRIDES = {
+    "proxy.crypto_backend": "cuda (the file names none: the reference's default is its "
+                            "cpu host backend)",
+    "proxy.port": "0 (an OS-assigned port for the file's 8080)",
+    "data": "each tenant's own key family from TenantKeyring(paillier_bits, rsa_bits) at the "
+            "file's [tenancy] 2048 and 1024 bits; seeded plaintexts blinded on the card (B3, "
+            "one pow_mod a tenant); one column a record",
+}
+
+
+def tenancy_config(dev):
+    """configs/tenancy.toml as it stands (4 replicas, quorum 3, f = 1,
+    [tenancy] on with gold 3.0 and batch-etl 0.5, [admission] on with
+    interactive 400/800 and aggregate 64/128, /slo, the audit at its
+    default, on) with the `cuda` backend on `dev` and an OS-assigned
+    port."""
+    import pathlib
+
+    from dds_tpu_torch.utils.config import DDSConfig
+
+    cfg = DDSConfig.load(pathlib.Path(__file__).resolve().parent / "configs" / "tenancy.toml")
+    cfg.proxy.crypto_backend = "cuda"
+    cfg.proxy.device = dev.type
+    cfg.proxy.port = 0
+    return cfg
+
+
+def zipf_weights(n: int, s: float) -> list[float]:
+    """benchmarks/tenant_isolation.py's rank weights 1 / r^s."""
+    w = [1.0 / r ** s for r in range(1, n + 1)]
+    return [x / sum(w) for x in w]
+
+
+async def phase_tenancy(dev, sizes) -> dict:
+    """configs/tenancy.toml served on the card (TENANCY_OVERRIDES printed):
+    four victim tenants and a flooder, each with its own key family from a
+    `TenantKeyring` at the file's bits, so each folds under its own n^2.
+    Each tenant's rows blinded on the card (B3) and written by PutSet under
+    its header, 8 in flight; one SumAll a victim, then the four at once,
+    each the Python fold of exactly that tenant's rows under its n^2 and
+    decrypting to its total, on B1; the isolation gates (a typed 403 for a
+    cross-tenant GetSet and for another tenant's content replayed by
+    PutSet, a SumAll under another tenant's n^2 folding only the caller's
+    rows, the canary's rows scoped to the canary, /health's owned keys,
+    /metrics' per-tenant series, /slo's tenants, Chronoscope's usage
+    ledger); the reference's shred drill mid-traffic; then
+    benchmarks/tenant_isolation.py's noisy neighbour at the file's rates,
+    its clients on their own loop (run A victims only, run B with the
+    flooder's SumAlls from 2 s before the victim window). Gates: every 200
+    SumAll exact, every refusal a 429 or 503 with Retry-After >= 1, no
+    victim GetSet 429, no 500, the shredded tenant's keys refused and its
+    rows served, 0 Watchtower violations. A SumAll the phase must have
+    served waits, without a request, for the aggregate class to be open
+    (`aggregate_open`); the noisy runs' requests are open loop."""
+    from dds_tpu_torch.http.miniserver import http_request_full
+    from dds_tpu_torch.models.backend import get_backend
+    from dds_tpu_torch.models.tenancy import TenantKeyring, TenantShredded
+    from dds_tpu_torch.obs.chronoscope import chronoscope
+    from dds_tpu_torch.obs.metrics import metrics
+    from dds_tpu_torch.obs.watchtower import watchtower
+    from dds_tpu_torch.ops import mont_cuda
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils.trace import tracer
+
+    t_phase = time.perf_counter()
+    cfg = tenancy_config(dev)
+    tenants = TENANCY_VICTIMS + (TENANCY_FLOODER,)
+    n_rows = {t: sizes["tenancy_rows"] for t in TENANCY_VICTIMS}
+    n_rows[TENANCY_FLOODER] = sizes["tenancy_flood_rows"]
+    bits = (sizes["tenancy_paillier_bits"], sizes["tenancy_rsa_bits"])
+    rec: dict = {"tenants": list(tenants), "rows": n_rows, "bits": bits,
+                 "overrides": TENANCY_OVERRIDES, "replicas": len(cfg.replicas.endpoints),
+                 "quorum": cfg.replicas.byz_quorum_size,
+                 "weights": dict(cfg.tenancy.weights),
+                 "admission": {k: getattr(cfg.admission, k) for k in (
+                     "interactive_rate", "interactive_burst", "aggregate_rate",
+                     "aggregate_burst", "eval_interval", "max_shed_level")},
+                 "audit": cfg.obs.audit_enabled, "slo_route": cfg.obs.slo_route}
+
+    def step(name: str, **kw) -> None:
+        emit("tenancy_step", step=name, at_s=time.perf_counter() - t_phase, **kw)
+
+    step("config", **rec)
+    # -- keys: one family a tenant, generated on first touch
+    kr = TenantKeyring(paillier_bits=bits[0], rsa_bits=bits[1],
+                       grace=cfg.tenancy.rotation_grace)
+    t = time.perf_counter()
+    for tn in tenants:
+        kr.keys_for(tn)
+    rec["keygen_s"] = time.perf_counter() - t
+    nsq = {tn: kr.keys_for(tn).psse.nsquare for tn in tenants}
+    if len(set(nsq.values())) != len(tenants):
+        raise AssertionError("tenancy: two tenants share a Paillier modulus")
+    step("keys", keygen_s=rec["keygen_s"])
+    rng = random.Random(sizes["tenancy_seed"])
+    plain = {tn: [rng.randrange(1 << 30) for _ in range(n_rows[tn])] for tn in tenants}
+    metrics.reset()
+    tracer.reset()
+    chronoscope_was = chronoscope.enabled
+    chronoscope.enabled = True  # the earlier phases ran with it off (the "cuts" line)
+    answers: list[dict] = []
+
+    async def req(method: str, target: str, tenant: str | None, obj=None,
+                  where: str = "") -> tuple[int, dict, bytes]:
+        t0 = time.perf_counter()
+        status, headers, data = await http_request_full(
+            "127.0.0.1", port, method, target,
+            json.dumps(obj).encode() if obj is not None else None,
+            headers={"x-dds-tenant": tenant} if tenant else None, timeout=600.0)
+        answers.append({"where": where, "tenant": tenant, "status": status,
+                        "ms": (time.perf_counter() - t0) * 1e3})
+        if status == 500:
+            raise AssertionError(f"tenancy: {method} {target[:40]} by {tenant} answered 500")
+        return status, headers, data
+
+    def fold_of(tn: str, modulus: int | None = None) -> int:
+        return host_product([c for _, c in stored[tn]], modulus or nsq[tn])
+
+    reset_counts()  # path "tenancy" starts here
+    dep = await launch(cfg)
+    server = dep.server
+    port = server.cfg.port
+    transitions: list[dict] = []
+    server.admission.subscribe(lambda r: transitions.append(
+        {"at_s": time.perf_counter() - t_phase, **{k: r[k] for k in ("from", "to", "reason")}}))
+    shed_wait = collections.Counter()  # seconds a must-serve SumAll waited for the class
+    client_be = get_backend("cuda", device=dev.type)  # the clients' own blinding backend
+    stored: dict[str, list[tuple[str, int]]] = {tn: [] for tn in tenants}
+    try:
+        if not watchtower.attached or not chronoscope.stats()["attached"]:
+            raise AssertionError("tenancy: launch left the Watchtower or Chronoscope detached")
+        # -- blinding on the card: one B3 pow_mod a tenant
+        t = time.perf_counter()
+        cts = {tn: kr.keys_for(tn).psse.public.encrypt_batch(plain[tn], client_be, min_batch=1)
+               for tn in tenants}
+        sync(dev)
+        rec["encrypt_s"] = time.perf_counter() - t
+        # -- load: every tenant's rows by PutSet under its header, 8 in flight
+        order = [(tn, c) for tn in tenants for c in cts[tn]]
+        random.Random(sizes["tenancy_seed"] + 1).shuffle(order)
+        sem = asyncio.Semaphore(sizes["tenancy_load_inflight"])
+        waits = collections.Counter()
+
+        async def put(tn: str, c: int) -> None:
+            async with sem:
+                while True:
+                    status, headers, data = await req("POST", "/PutSet", tn,
+                                                      {"contents": [str(c)]}, "load")
+                    if status == 200:
+                        stored[tn].append((data.decode(), c))
+                        return
+                    if status not in (429, 503) or int(headers.get("retry-after", 0)) < 1:
+                        raise AssertionError(f"tenancy: a PutSet answered {status} {data[:120]!r}")
+                    waits[str(status)] += 1
+                    await asyncio.sleep(int(headers["retry-after"]))
+
+        t = time.perf_counter()
+        await asyncio.gather(*(put(tn, c) for tn, c in order))
+        load_s = time.perf_counter() - t
+        rec["load"] = {"s": load_s, "rows": len(order), "putsets_per_s": len(order) / load_s,
+                       "encrypt_s": rec["encrypt_s"], "waits": dict(waits),
+                       "inflight": sizes["tenancy_load_inflight"]}
+        step("load", **rec["load"])
+        # -- per-tenant folds: one SumAll a victim, then the four at once
+        async def aggregate_open(where: str) -> None:
+            """Wait, without a request, until the aggregate class is not
+            shed. A shed SumAll's 503 burns the route's objective again, so
+            clients retrying on Retry-After keep the class shed for the SLO
+            window (300 s in full run 2); the server's own view of the
+            ratchet is read instead, as the bulwark phase's settle does."""
+            t0 = time.perf_counter()
+            while "aggregate" in server.admission.report()["shedding"]:
+                if time.perf_counter() - t0 > TENANCY_SHED_WAIT_S:
+                    raise AssertionError(f"tenancy: the aggregate class stayed shed "
+                                         f"{TENANCY_SHED_WAIT_S:.0f} s ({where})")
+                await asyncio.sleep(0.05)
+            shed_wait[where] += time.perf_counter() - t0
+
+        async def sumall(tn: str, where: str, modulus: int | None = None) -> tuple[int, float]:
+            """One SumAll that must be served: sent once the aggregate class
+            is open; a refusal (429, or a shed or degraded 503, each with
+            Retry-After) is counted in `waits` and sent again, after its
+            Retry-After for a 429 or a degraded 503."""
+            while True:
+                await aggregate_open(where)
+                t0 = time.perf_counter()
+                status, headers, data = await req(
+                    "GET", f"/SumAll?position=0&nsqr={modulus or nsq[tn]}", tn, where=where)
+                if status == 200:
+                    return int(json.loads(data)["result"]), (time.perf_counter() - t0) * 1e3
+                if status not in (429, 503) or int(headers.get("retry-after", 0)) < 1:
+                    raise AssertionError(f"tenancy: {tn}'s {where} SumAll answered {status}")
+                waits[f"{where}.{status}"] += 1
+                if not data.startswith(b"admission rejected (shed"):
+                    await asyncio.sleep(int(headers["retry-after"]))
+
+        def check(tn: str, result: int) -> None:
+            if result != fold_of(tn) or kr.decrypt(tn, result) != sum(plain[tn]):
+                raise AssertionError(f"tenancy: {tn}'s SumAll is not the fold of its own rows")
+
+        folds = {}
+        for tn in TENANCY_VICTIMS:
+            before = mont_cuda.LAUNCHES["mont_mul"].value
+            result, ms = await sumall(tn, "fold")
+            check(tn, result)
+            folds[tn] = {"ms": ms, "launches": mont_cuda.LAUNCHES["mont_mul"].value - before}
+        before = mont_cuda.LAUNCHES["mont_mul"].value
+        t = time.perf_counter()
+        together = await asyncio.gather(*(sumall(tn, "fold") for tn in TENANCY_VICTIMS))
+        for tn, (result, _) in zip(TENANCY_VICTIMS, together):
+            check(tn, result)
+        rec["folds"] = {"each": folds, "together_ms": (time.perf_counter() - t) * 1e3,
+                        "together_ms_each": [ms for _, ms in together],
+                        "together_launches": mont_cuda.LAUNCHES["mont_mul"].value - before,
+                        "K": n_rows[TENANCY_VICTIMS[0]]}
+        if dev.type == "cuda" and any(f["launches"] <= 0 for f in folds.values()):
+            raise AssertionError(f"tenancy: a victim's SumAll did not fold on B1: {folds}")
+        step("folds", **rec["folds"])
+        # -- isolation gates
+        gold, other = TENANCY_VICTIMS[0], TENANCY_VICTIMS[1]
+        k0, c0 = stored[gold][0]
+        status, _, data = await req("GET", f"/GetSet/{k0}", other, where="gate")
+        denied = json.loads(data) if status == 403 else None
+        if denied != {"error": "cross-tenant access denied", "tenant": other, "key": k0}:
+            raise AssertionError(f"tenancy: a cross-tenant GetSet answered {status} {data[:160]!r}")
+        status, _, data = await req("POST", "/PutSet", TENANCY_VICTIMS[2],
+                                    {"contents": [str(c0)]}, "gate")
+        if status != 403 or json.loads(data)["key"] != k0:
+            raise AssertionError(f"tenancy: a cross-tenant PutSet replay answered {status}")
+        result, _ = await sumall(other, "gate", nsq[gold])
+        if result != fold_of(other, nsq[gold]):
+            raise AssertionError("tenancy: a SumAll under another tenant's n^2 left its rows")
+        gpk = kr.keys_for(gold).psse.public
+        canary_plain = [rng.randrange(1 << 30) for _ in range(2)]
+        canary = [gpk.encrypt(m) for m in canary_plain]
+        for c in canary:
+            status, _, _ = await req("POST", "/PutSet", TENANCY_CANARY, {"contents": [str(c)]},
+                                     "gate")
+            if status != 200:
+                raise AssertionError(f"tenancy: a canary PutSet answered {status}")
+        status, _, data = await req("GET", f"/SumAll?position=0&nsqr={nsq[gold]}",
+                                    TENANCY_CANARY, where="gate")
+        canary_fold = int(json.loads(data)["result"])
+        if canary_fold != host_product(canary, nsq[gold]) or \
+                kr.decrypt(gold, canary_fold) != sum(canary_plain):
+            raise AssertionError("tenancy: the canary's SumAll is not the fold of its own rows")
+        result, _ = await sumall(gold, "gate")
+        check(gold, result)
+        _, _, health = await req("GET", "/health", None, where="gate")
+        owned = json.loads(health)["tenants"]
+        _, _, text = await req("GET", "/metrics", None, where="gate")
+        series = {tn: metrics.value("dds_tenant_stored_keys", tenant=tn) for tn in tenants}
+        _, _, slo = await req("GET", "/slo", None, where="gate")
+        slo_tenants = sorted(json.loads(slo)["slo"].get("tenants", {}))
+        usage = chronoscope.tenant_usage()
+        rec["gates"] = {"owned_keys": owned["owned_keys"], "shed": owned["shed"],
+                        "stored_keys_series": series, "slo_tenants": slo_tenants,
+                        "usage": {tn: usage.get(tn) for tn in tenants},
+                        "canary_rows": len(canary)}
+        step("gates", **rec["gates"])
+        if owned["owned_keys"] != sum(n_rows.values()) + len(canary):
+            raise AssertionError(f"tenancy: /health owns {owned['owned_keys']} keys")
+        if series != {tn: n_rows[tn] for tn in tenants} or b"dds_tenant_stored_keys" not in text:
+            raise AssertionError(f"tenancy: dds_tenant_stored_keys {series}")
+        if not set(tenants) <= set(slo_tenants) or not set(tenants) <= set(usage):
+            raise AssertionError(f"tenancy: /slo tenants {slo_tenants}, usage {sorted(usage)}")
+        # -- the shred drill mid-traffic, before the noisy runs: after the
+        # flood the GetSet route's burn holds the aggregate class shed for
+        # the 300 s SLO window (full run 2), so no SumAll would be served
+        victim = TENANCY_VICTIMS[2]
+        survivors = [tn for tn in TENANCY_VICTIMS if tn != victim]
+        stop = asyncio.Event()
+        reads = collections.Counter()
+
+        async def traffic(tn: str) -> None:
+            i = 0
+            while not stop.is_set():
+                k, c = stored[tn][i % n_rows[tn]]
+                status, _, data = await req("GET", f"/GetSet/{k}", tn, where="drill")
+                if status != 200 or json.loads(data)["contents"] != [str(c)]:
+                    raise AssertionError(f"tenancy: {tn}'s drill read answered {status}")
+                reads[tn] += 1
+                if i % 8 == 7 and tn != victim:
+                    check(tn, (await sumall(tn, "drill"))[0])
+                i += 1
+
+        movers = [asyncio.ensure_future(traffic(tn)) for tn in TENANCY_VICTIMS]
+        t = time.perf_counter()
+        try:
+            await asyncio.sleep(0.2)
+            version = await asyncio.to_thread(kr.rotate, victim)
+            k1, c1 = stored[victim][0]
+            c_new, v_new, migrated = await asyncio.to_thread(kr.reencrypt, victim, c1, 1)
+            m1 = dict(zip(cts[victim], plain[victim]))[c1]
+            if (version, v_new, migrated) != (2, 2, True) or \
+                    kr.decrypt(victim, c_new, v_new) != m1:
+                raise AssertionError("tenancy: re-encrypt-on-read did not move a row to epoch 2")
+            await asyncio.sleep(0.2)
+            summary = kr.shred(victim)
+            await asyncio.sleep(0.2)
+        finally:
+            stop.set()
+            await asyncio.gather(*movers)
+        drill_s = time.perf_counter() - t
+        for tn in survivors:
+            check(tn, (await sumall(tn, "drill"))[0])
+        status, _, data = await req("GET", f"/GetSet/{stored[victim][1][0]}", victim, where="drill")
+        served = status == 200 and json.loads(data)["contents"] == [str(stored[victim][1][1])]
+        shredded_fold, _ = await sumall(victim, "drill")  # n^2 kept from before the shred
+        refused = []
+        for attempt in (lambda: kr.decrypt(victim, c1, 1), lambda: kr.decrypt(victim, c_new, 2),
+                        lambda: kr.encrypt(victim, 1), lambda: kr.keys_for(victim),
+                        lambda: kr.hmac_secret(victim)):
+            try:
+                attempt()
+                refused.append(False)
+            except TenantShredded:
+                refused.append(True)
+        audit = watchtower.stats()
+        rec["drill"] = {"s": drill_s, "reads": dict(reads), "summary": summary,
+                        "served_ciphertext": served,
+                        "served_fold_exact": shredded_fold == fold_of(victim),
+                        "refused": refused, "watchtower": audit,
+                        "keyring": {tn: kr.stats()["domains"][tn] for tn in tenants}}
+        step("drill", **rec["drill"])
+        if not (served and rec["drill"]["served_fold_exact"] and all(refused)):
+            raise AssertionError(f"tenancy: the shred drill {rec['drill']}")
+        if summary["epochs_scrubbed"] != 2 or not all(reads[tn] for tn in TENANCY_VICTIMS):
+            raise AssertionError(f"tenancy: the shred drill {rec['drill']}")
+        if not audit["attached"] or audit["ops_audited"] <= 0 or audit["violations"]:
+            raise AssertionError(f"tenancy: Watchtower {audit}")
+        # -- settle: the noisy runs should start with no class shed, but
+        # SumAlls past the file's 250 ms objective (cold folds, the four at
+        # once) can keep the aggregate class shed for the 300 s window, and
+        # a shed SumAll's 503 burns it again: wait at most 10 s, then go on
+        # and print the level the runs start at
+        t = time.perf_counter()
+        while server.admission.shed_level and time.perf_counter() - t < 10.0:
+            await asyncio.sleep(0.1)
+        rec["settle"] = {"s": time.perf_counter() - t, "shed_level": server.admission.shed_level,
+                         "waits": dict(waits)}
+        step("settle", **rec["settle"])
+        # -- the noisy neighbour: one seeded Zipf schedule, without and with the flood
+        weights = zipf_weights(len(TENANCY_VICTIMS), sizes["tenancy_zipf_s"])
+        window = sizes["tenancy_window_s"]
+        rows_of = {tn: dict(stored[tn]) for tn in tenants}
+        expected = {tn: fold_of(tn) for tn in tenants}
+
+        def schedule(seed: int) -> list[tuple[str, str, float, str]]:
+            srng = random.Random(seed)
+            out, at = [], 0.0
+            while at < window:
+                tn = srng.choices(TENANCY_VICTIMS, weights=weights)[0]
+                op = "SumAll" if srng.random() < sizes["tenancy_agg_frac"] else "GetSet"
+                out.append((tn, op, at, stored[tn][srng.randrange(n_rows[tn])][0]))
+                at += srng.uniform(0.5, 1.5) / sizes["tenancy_interactive_rate"]
+            return out
+
+        async def drive(flood: bool) -> tuple[list, list]:
+            victims, flooder = [], []
+
+            async def fire(tn: str, op: str, k: str, out: list) -> None:
+                target = (f"/GetSet/{k}" if op == "GetSet"
+                          else f"/SumAll?position=0&nsqr={nsq[tn]}")
+                t0 = time.perf_counter()
+                status, headers, data = await http_request_full(
+                    "127.0.0.1", port, "GET", target, headers={"x-dds-tenant": tn},
+                    timeout=600.0)
+                out.append({"tenant": tn, "op": op, "status": status,
+                            "ms": (time.perf_counter() - t0) * 1e3,
+                            "retry_after": int(headers.get("retry-after", 0)),
+                            "admission": data.startswith(b"admission rejected ("),
+                            "ok": status != 200 or (
+                                json.loads(data)["contents"] == [str(rows_of[tn][k])]
+                                if op == "GetSet" else
+                                int(json.loads(data)["result"]) == expected[tn])})
+
+            async def open_loop(arrivals, out: list) -> None:
+                t0, pending = time.perf_counter(), []
+                for tn, op, at, k in arrivals:
+                    delay = at - (time.perf_counter() - t0)
+                    if delay > 0:
+                        await asyncio.sleep(delay)
+                    pending.append(asyncio.ensure_future(fire(tn, op, k, out)))
+                await asyncio.gather(*pending)
+
+            flood_task = None
+            if flood:
+                frng = random.Random(sizes["tenancy_seed"] + 99)
+                farr, at = [], 0.0
+                while at < window + sizes["tenancy_lead_s"]:
+                    farr.append((TENANCY_FLOODER, "SumAll", at, ""))
+                    at += frng.uniform(0.5, 1.5) / sizes["tenancy_flood_rate"]
+                flood_task = asyncio.ensure_future(open_loop(farr, flooder))
+                await asyncio.sleep(sizes["tenancy_lead_s"])
+            await open_loop(schedule(sizes["tenancy_seed"] + 2), victims)
+            if flood_task is not None:
+                await flood_task
+            return victims, flooder
+
+        runs = {}
+        for label, flood in (("A", False), ("B", True)):
+            shed_seen: set = set()
+
+            async def watch_shed() -> None:
+                while True:
+                    shed_seen.update(server.admission.shed_tenants())
+                    await asyncio.sleep(0.25)
+
+            watcher = asyncio.ensure_future(watch_shed())
+            t = time.perf_counter()
+            try:
+                with concurrent.futures.ThreadPoolExecutor(
+                        1, thread_name_prefix="tenants") as pool:
+                    victims, flooder = await asyncio.get_running_loop().run_in_executor(
+                        pool, lambda: asyncio.run(drive(flood)))
+            finally:
+                watcher.cancel()
+                await asyncio.gather(watcher, return_exceptions=True)
+            shed_seen.update(server.admission.shed_tenants())
+            bad = [a for a in victims + flooder if a["status"] == 500 or not a["ok"] or (
+                a["status"] not in (200, 429, 503)) or (
+                a["status"] in (429, 503) and a["retry_after"] < 1)]
+            if bad:
+                raise AssertionError(f"tenancy: run {label} answers out of contract: {bad[:5]}")
+            if any(a["op"] == "GetSet" and a["status"] == 429 for a in victims):
+                raise AssertionError(f"tenancy: a victim GetSet was throttled in run {label}")
+            lat = [a["ms"] for a in victims if a["op"] == "GetSet" and a["status"] == 200]
+            runs[label] = {
+                "s": time.perf_counter() - t, "victim_requests": len(victims),
+                "victim_getset_p50_ms": pct(lat, 50), "victim_getset_p95_ms": pct(lat, 95),
+                "victim_status": {f"{op}.{s}": n for (op, s), n in collections.Counter(
+                    (a["op"], a["status"]) for a in victims).items()},
+                "victim_sumall_p50_ms": pct([a["ms"] for a in victims if a["op"] == "SumAll"
+                                             and a["status"] == 200], 50),
+                "flooder_status": dict(collections.Counter(a["status"] for a in flooder)),
+                "flooder_refused_admission": sum(1 for a in flooder if a["admission"]),
+                "flooder_ok_p50_ms": pct([a["ms"] for a in flooder if a["status"] == 200], 50),
+                "shed_tenants_seen": sorted(shed_seen), "flood_shed": TENANCY_FLOODER in shed_seen,
+                "sumalls_exact": sum(1 for a in victims + flooder
+                                     if a["op"] == "SumAll" and a["status"] == 200),
+            }
+            step(f"noisy_{label}", **runs[label])
+        a95, b95 = runs["A"]["victim_getset_p95_ms"], runs["B"]["victim_getset_p95_ms"]
+        rec["noisy"] = {**runs, "p95_ratio": (b95 / a95) if a95 and b95 else None,
+                        "bar": 1.10, "window_s": window, "lead_s": sizes["tenancy_lead_s"],
+                        "interactive_rate": sizes["tenancy_interactive_rate"],
+                        "flood_rate": sizes["tenancy_flood_rate"],
+                        "zipf_s": sizes["tenancy_zipf_s"]}
+        step("noisy", p95_ratio=rec["noisy"]["p95_ratio"], bar=1.10)
+        audit = watchtower.stats()  # the whole phase, the flood's traffic too
+        if audit["violations"] or audit["ops_audited"] <= rec["drill"]["watchtower"]["ops_audited"]:
+            raise AssertionError(f"tenancy: Watchtower after the noisy runs {audit}")
+        rec["watchtower"] = audit
+        stores = list(server.backend._stores.values())
+        rec["stores"] = {"count": len(stores), "bytes": sum(s.nbytes() for s in stores),
+                         "rows": sum(s.resident for s in stores)}
+        rec["usage"] = chronoscope.tenant_usage()
+        rec["admission"] = server.admission.report()
+        rec["transitions"] = transitions
+        rec["shed_wait_s"] = dict(shed_wait)
+        rec["waits"] = dict(waits)
+        rec["statuses"] = {w: dict(collections.Counter(a["status"] for a in answers
+                                                      if a["where"] == w))
+                           for w in ("load", "fold", "gate", "drill")}
+    finally:
+        await dep.stop()
+        chronoscope.enabled = chronoscope_was
+    counts = read_counts(dev)
+    rec["launches"] = {k: counts[k] for k in ("mont_mul", "mont_exp")}
+    if dev.type == "cuda" and min(rec["launches"].values()) <= 0:
+        raise AssertionError(f"tenancy: B1 or B3 never launched: {rec['launches']}")
+    if watchtower.attached or chronoscope.stats()["attached"]:
+        raise AssertionError("tenancy: stop left the Watchtower or Chronoscope attached")
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["budget_s"] = TENANCY_BUDGET_S
+    emit("tenancy", **{k: rec[k] for k in (
+        "seconds", "budget_s", "keygen_s", "launches", "load", "folds", "stores", "gates")},
+         noisy={k: rec["noisy"][k] for k in ("p95_ratio", "bar")},
+         drill={k: rec["drill"][k] for k in ("s", "refused", "served_ciphertext")})
+    return rec
+
+
 def kernel_times(sizes) -> dict:
     """CUDA-event ms of the B1, P, B3, B4, B5 and REDC launches at the
     timing phases' shapes (single launches with the stream held,
@@ -4544,12 +5095,12 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   requests=6, rounds=3, B_exp_small=256, B_exp=8192, reps_exp=2,
                   rsa_bits=1024, clients=4, ops_per_client=2048, B_probe=8192,
                   K_coalesce=128, coalesce_burst=16, coalesce_rounds=3,
-                  coalesce_min_batch=None, K_multall=16384,
+                  coalesce_min_batch=None, K_multall=8192,  # DEPTH_CUTS
                   crossover_l64=[8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384],
-                  mixed_replicas=7, mixed_quorum=5, mixed_preload=4096, mixed_clients=4,
-                  # mixed.py's 200 ops a client cut to 50 (PR 13), for the
-                  # run's time: its five rounds took 202 s of an 893 s run
-                  mixed_ops=50, mixed_seed=7,
+                  # mixed.py's preload of 4,096 rows cut to 2,048 and its 200
+                  # ops a client to 25 (MIXED_CUT), for the run's time
+                  mixed_replicas=7, mixed_quorum=5, mixed_preload=2048, mixed_clients=4,
+                  mixed_ops=25, mixed_seed=7,
                   # the search phase: the write burst, warm reps a route, the
                   # cache-less baseline's reps, the plane alone at one full
                   # resident pool's rows
@@ -4558,7 +5109,7 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   search_plane_rows=65536, search_plane_reps=20,
                   # configs/sharded.toml's [resident]; resident_fold.py's S and K
                   resident_groups=4, resident_initial=256, resident_max=65536,
-                  resident_S=[1, 4], resident_K=[8192, 65536], resident_reps=2,
+                  resident_S=[1, 4], resident_K=[8192, 65536], resident_reps=1,
                   resident_new=256,
                   # analytics_matvec.py's R; the signed request's R; the slice
                   # held against the host loop
@@ -4567,7 +5118,7 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   # pop-factor and theta
                   tier_groups=2, tier_max=4096, tier_chunk=256, tier_promote=2.0,
                   tier_max_promote=256, tier_pop_factor=10, tier_head=2048, tier_K=8192,
-                  tier_theta=0.9, tier_reps=3, tier_warmup=3, tier_top=64,
+                  tier_theta=0.9, tier_reps=2, tier_warmup=3, tier_top=64,
                   # decrypt_throughput.py's sizes and B; the device plan at one
                   # and two full chunks; the rowmod parity's columns and digits;
                   # the plain ladder's columns
@@ -4575,14 +5126,23 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   decrypt_reps=3, rowmod_B=8192, rowmod_E=32, decrypt_plain_cols=64,
                   # the recovery phase: bft_sum's K rows on default.toml's
                   # topology, its timers as they stand, Trudy's seed
-                  recovery_K=8192, recovery_scale=1.0, recovery_seed=5,
+                  recovery_K=4096, recovery_scale=1.0, recovery_seed=5,
                   # the bulwark phase: bft_sum's K on default.toml as it
                   # stands; overload_goodput.py's rates, seed and a 10 s
                   # window, then a 5 s tail
-                  bulwark_K=8192, bulwark_load_inflight=8, bulwark_flood_s=10.0,
+                  bulwark_K=4096, bulwark_load_inflight=8, bulwark_flood_s=10.0,
                   bulwark_tail_s=5.0,
                   bulwark_interactive_rate=30.0, bulwark_aggregate_rate=400.0,
                   bulwark_seed=11,
+                  # the tenancy phase: configs/tenancy.toml's key bits; 2,048
+                  # rows a victim, 512 for the flooder; tenant_isolation.py's
+                  # Zipf s, victim rate and aggregate share, a 10 s window,
+                  # the flood from 2 s before it at 4 x the file's aggregate
+                  # rate of 64/s
+                  tenancy_paillier_bits=2048, tenancy_rsa_bits=1024, tenancy_rows=2048,
+                  tenancy_flood_rows=512, tenancy_load_inflight=8, tenancy_seed=15,
+                  tenancy_zipf_s=1.2, tenancy_interactive_rate=40.0, tenancy_agg_frac=0.1,
+                  tenancy_window_s=10.0, tenancy_lead_s=2.0, tenancy_flood_rate=256.0,
                   # the plain ladder of the exp timing on 1,024 of its 8,192
                   # columns, for the run's time (it took 83 s on all of them)
                   exp_plain_cols=1024)
@@ -4641,7 +5201,11 @@ def main(argv=None) -> int:
                      recovery_seed=5, bulwark_K=64, bulwark_load_inflight=8,
                      bulwark_flood_s=3.0, bulwark_tail_s=2.0,
                      bulwark_interactive_rate=10.0, bulwark_aggregate_rate=200.0,
-                     bulwark_seed=11, exp_plain_cols=16)
+                     bulwark_seed=11, tenancy_paillier_bits=512, tenancy_rsa_bits=512,
+                     tenancy_rows=32, tenancy_flood_rows=16, tenancy_load_inflight=8,
+                     tenancy_seed=15, tenancy_zipf_s=1.2, tenancy_interactive_rate=20.0,
+                     tenancy_agg_frac=0.1, tenancy_window_s=2.0, tenancy_lead_s=1.0,
+                     tenancy_flood_rate=64.0, exp_plain_cols=16)
         card = {"name": "cpu (rehearsal)", **card_numbers(dev)}
     else:
         if not torch.cuda.is_available():
@@ -4659,10 +5223,14 @@ def main(argv=None) -> int:
     emit("device", **card, torch=torch.__version__, cuda=torch.version.cuda)
     emit("cuts", earlier_phases=EARLIER_OBS_CUTS, recovery=RECOVERY_CUTS,
          timing_exp_plain_columns=sizes["exp_plain_cols"],
-         bulwark_overrides=BULWARK_OVERRIDES)
+         bulwark_overrides=BULWARK_OVERRIDES, tenancy_overrides=TENANCY_OVERRIDES,
+         chronoscope_before_tenancy=CHRONOSCOPE_CUT, mixed=MIXED_CUT, depth=DEPTH_CUTS)
 
     from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.obs.chronoscope import chronoscope
     from dds_tpu_torch.ops.montgomery import ModCtx
+
+    chronoscope.enabled = False  # CHRONOSCOPE_CUT; the tenancy phase turns it on
 
     ctx = ModCtx.make(bench_paillier_key(sizes["key_bits"]).nsquare)
     took: dict[str, float] = {}  # each phase's wall seconds, for the run's budget
@@ -4694,6 +5262,7 @@ def main(argv=None) -> int:
     tiered = timed("tiered", asyncio.run, phase_tiered(dev, sizes))
     recovery = timed("recovery", asyncio.run, phase_recovery(dev, sizes))
     bulwark = timed("bulwark", asyncio.run, phase_bulwark(dev, sizes))
+    tenancy = timed("tenancy", asyncio.run, phase_tenancy(dev, sizes))
     emit("run", phase_seconds=took, seconds=time.perf_counter() - t_run)
 
     path = tim["path"]
@@ -4719,7 +5288,8 @@ def main(argv=None) -> int:
                              "tiered_rest": tiered["rest"]["launches"]["mont_mul"],
                              "recovery": recovery["launches"],
                              "sumall_audited": e2e["audited"]["launches"],
-                             "bulwark": bulwark["launches"]},
+                             "bulwark": bulwark["launches"],
+                             "tenancy": tenancy["launches"]["mont_mul"]},
         "max_abs_err": par["max_abs_err"],
         "per": f"one K={path['K']} fold ({path['launches']} launches) on the device; "
                f"wall_ms: back to back, paced by the host's dispatch",
@@ -4736,7 +5306,8 @@ def main(argv=None) -> int:
         "source": "dds_tpu_torch/csrc/mont_exp.cu",
         "replaces": "dds_tpu/ops/pallas_mont.py:152",
         "tpu_twin": "pallas_mont._make_exp_kernel via _exp_call / exp_lm",
-        "launches_by_path": {"client": client["exp_launches"]},
+        "launches_by_path": {"client": client["exp_launches"],
+                             "tenancy": tenancy["launches"]["mont_exp"]},
         "max_abs_err": max(par_exp["max_abs_err"], tim_exp["max_abs_err"]),
         "per": f"one launch, B={tim_exp['B']}, E={tim_exp['E']} "
                f"({tim_exp['exp_products_per_row']} products per row); plain_ms on "
@@ -4846,6 +5417,10 @@ def main(argv=None) -> int:
                                    "run_seconds": time.perf_counter() - t_run}},
                      default=str), flush=True)
     print(json.dumps({"bulwark": {**bulwark, "card": card["smi"] if "smi" in card
+                                  else card["name"],
+                                  "run_seconds": time.perf_counter() - t_run}},
+                     default=str), flush=True)
+    print(json.dumps({"tenancy": {**tenancy, "card": card["smi"] if "smi" in card
                                   else card["name"],
                                   "run_seconds": time.perf_counter() - t_run}},
                      default=str), flush=True)

@@ -113,28 +113,33 @@ class Prism:
 
     # ------------------------------------------------------------ evaluation
 
-    def _gather(self, ciphers: list[int], rows: int, n2: int):
-        """The operands' resident device rows, or None when residency does
-        not apply: no plane, a host backend (it works from the ints), a
-        below-crossover request (the host loop wins), or a column wider
-        than its pool. None always means the marshaling path."""
+    def _gather(self, ciphers: list[int], rows: int, n2: int, tenant: str = ""):
+        """The operands' resident device rows from the tenant's stripe, or
+        None when residency does not apply: no plane, a host backend (it
+        works from the ints), a below-crossover request (the host loop
+        wins), or a column wider than its pool. None always means the
+        marshaling path."""
         mdb = getattr(self.backend, "min_device_batch", None)
         if self.resident is None or mdb is None:
             return None
         if rows * len(ciphers) < mdb:
             return None
-        return self.resident.rows_for("", n2, ciphers)
+        return self.resident.rows_for("", n2, ciphers, tenant)
 
-    def _matvec(self, ciphers: list[int], encoded: list[list[int]], n2: int) -> list[int]:
+    def _matvec(self, ciphers: list[int], encoded: list[list[int]], n2: int,
+                tenant: str = "") -> list[int]:
         # one gather a request, on the worker thread: the pool's lock is
         # held while the gather enqueues, never on the event loop
-        rows = self._gather(ciphers, len(encoded), n2)
+        rows = self._gather(ciphers, len(encoded), n2, tenant)
         return self.backend.matvec(ciphers, encoded, n2, rows)
 
     async def evaluate(
         self, route: str, ciphers: list[int], encoded: list[list[int]], n2: int,
+        tenant: str = "",
     ) -> list[int]:
-        """One request's encoded weighted fold, on a worker thread."""
+        """One request's encoded weighted fold, on a worker thread; with a
+        resident plane its operands gather from `tenant`'s stripe ("" the
+        single-tenant one)."""
         R, K = len(encoded), len(ciphers)
         metrics.inc(
             "dds_analytics_requests_total", route=route,
@@ -153,7 +158,7 @@ class Prism:
             "analytics.matvec", rows=R, cols=K, shards=1,
             backend=getattr(self.backend, "name", "?"),
         ):
-            out = await asyncio.to_thread(self._matvec, ciphers, encoded, n2)
+            out = await asyncio.to_thread(self._matvec, ciphers, encoded, n2, tenant)
         metrics.observe(
             "dds_analytics_matvec_seconds", time.perf_counter() - t0,
             help="analytics weighted-fold evaluation latency",

@@ -2,11 +2,13 @@
 
 In this system what plays the role of weights is the per-modulus
 Montgomery constants, the device-resident ciphertext rows and the
-client's HE key material. The first two cross as plain numpy arrays in the
-shared layout — (count, L) uint32 of 16-bit little-endian limbs, the
-layout `dds_tpu`'s pools hold and its Stratum segment files persist — and
-the keys as `HEKeys` JSON, the format both packages write, so nothing here
-imports the reference.
+client's HE key material, one family or a tenant keyring's families. The
+first two cross as plain numpy arrays in the shared layout — (count, L)
+uint32 of 16-bit little-endian limbs, the layout `dds_tpu`'s pools hold
+and its Stratum segment files persist — and the keys as `HEKeys` JSON,
+the format both packages write; a keyring crosses as each tenant's epochs
+`(version, HEKeys JSON, created_at, grace_until)`, newest first, plus the
+set of shredded tenants. Nothing here imports the reference.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from math import gcd
 import numpy as np
 
 from dds_tpu_torch.models.keys import HEKeys
+from dds_tpu_torch.models.tenancy import KeyEpoch, TenantKeyring, _TenantDomain
 from dds_tpu_torch.ops import bignum as bn
 from dds_tpu_torch.ops.montgomery import ModCtx
 from dds_tpu_torch.resident.pool import ResidentPool
@@ -129,3 +132,70 @@ def keys_to_reference(keys: HEKeys) -> str:
     blob = keys.to_json()
     _validated_key_json(blob)
     return blob
+
+
+def _checked_epochs(tenant: str, epochs) -> list[tuple[int, str, float, float | None]]:
+    """One tenant's epochs, validated: at least one, newest first with
+    strictly falling versions >= 1, the active (first) one with no grace
+    deadline and every older one with one, each key family valid JSON."""
+    if not isinstance(tenant, str) or not tenant:
+        raise ValueError(f"tenant ids must be non-empty strings, got {tenant!r}")
+    out = []
+    for ep in epochs:
+        version, blob, created_at, grace_until = ep
+        if not isinstance(version, int) or version < 1:
+            raise ValueError(f"{tenant}: epoch versions must be ints >= 1, got {version!r}")
+        if out and version >= out[-1][0]:
+            raise ValueError(f"{tenant}: epochs must run newest first")
+        if (grace_until is None) != (not out):
+            raise ValueError(f"{tenant}: only the active (first) epoch has no grace deadline")
+        _validated_key_json(blob)
+        out.append((version, blob, float(created_at),
+                    None if grace_until is None else float(grace_until)))
+    if not out:
+        raise ValueError(f"{tenant}: a live tenant needs at least one epoch")
+    return out
+
+
+def keyring_from_reference(epochs: dict, shredded=(), **keyring_kwargs) -> TenantKeyring:
+    """A port `TenantKeyring` holding a reference keyring's key families:
+    `epochs` maps each live tenant to its `(version, HEKeys JSON,
+    created_at, grace_until)` epochs, newest first (the form
+    `keyring_to_reference` gives); `shredded` names the tenants in the
+    terminal shredded state (stamped at the keyring clock's now). The
+    rotation count is the active version less one, as `rotate` keeps it.
+    `keyring_kwargs` go to `TenantKeyring` (bits, grace, max_tenants,
+    clock). Raises ValueError on a bad epoch or a tenant both live and
+    shredded."""
+    kr = TenantKeyring(**keyring_kwargs)
+    shredded = set(shredded)
+    if shredded & set(epochs):
+        raise ValueError(f"tenants both live and shredded: {sorted(shredded & set(epochs))}")
+    for tenant, eps in epochs.items():
+        eps = _checked_epochs(tenant, eps)
+        kr._domains[tenant] = _TenantDomain(
+            epochs=[KeyEpoch(v, HEKeys.from_json(blob), created, grace)
+                    for v, blob, created, grace in eps],
+            rotations=eps[0][0] - 1,
+        )
+    for tenant in sorted(shredded):
+        kr._domains[tenant] = _TenantDomain(shredded_at=kr._clock())
+    return kr
+
+
+def keyring_to_reference(keyring: TenantKeyring) -> tuple[dict, set]:
+    """`(epochs, shredded)` for a reference keyring, the inverse of
+    `keyring_from_reference`: each live tenant's epochs as `(version,
+    HEKeys JSON, created_at, grace_until)`, newest first, every family
+    validated, and the set of shredded tenants."""
+    with keyring._lock:
+        domains = {t: (list(d.epochs), d.shredded_at) for t, d in keyring._domains.items()}
+    epochs, shredded = {}, set()
+    for tenant, (eps, shredded_at) in domains.items():
+        if shredded_at is not None:
+            shredded.add(tenant)
+        elif eps:  # a domain whose first generation is still pending has none
+            epochs[tenant] = _checked_epochs(tenant, [
+                (e.version, keys_to_reference(e.keys), e.created_at, e.grace_until)
+                for e in eps])
+    return epochs, shredded

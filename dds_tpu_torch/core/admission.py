@@ -3,11 +3,10 @@
 Copy of `dds_tpu/core/admission.py`: the same buckets, ratchet, tenant
 bookkeeping and adaptive window, so one sequence of calls on one fake
 clock gives the same decisions, levels and Retry-After values in both
-packages. The port serves one tenant (tenancy is not ported): requests
-carry the validated `x-dds-tenant` header as their bucket label, the
-Bastion weights and burn-shed thresholds keep their defaults, and the
-REST edge does not feed `note_outcome` (the reference feeds it only with
-tenancy on).
+packages. Requests carry the validated `x-dds-tenant` header as their
+bucket label; with `[tenancy]` the proxy passes its TenancyConfig (the
+Bastion weights and burn-shed thresholds) to `from_config` and feeds each
+admitted request's outcome to `note_outcome`, as the reference does.
 
 Everything upstream of this module *observes* overload: the SLO engine
 (obs/slo) tracks error-budget burn, breakers (utils/retry) track dead

@@ -1,9 +1,9 @@
 """Tenant identity at the trust boundary: validate before anything keys on it.
 
 Copy of `dds_tpu/core/tenant.py`. The REST edge parses the tenant header
-on every request, whether tenancy is on or off; tenancy itself (per-tenant
-keyspaces, plane striping) is not ported, so here the id keys admission
-buckets only.
+on every request, whether tenancy is on or off; the id keys admission
+buckets, and with `[tenancy]` key ownership, plane stripes and
+attribution too.
 
 The ``x-dds-tenant`` header is wire input that used to flow RAW into
 admission bucket labels — and with Bastion it flows into keyring lookups,

@@ -1,7 +1,7 @@
 """REST proxy: the encrypted query engine.
 
-Copy of `dds_tpu/http/server.py` without tenancy, serving the reference's
-data routes with its parameters, JSON shapes and status codes:
+Copy of `dds_tpu/http/server.py`, serving the reference's data routes
+with its parameters, JSON shapes and status codes:
 
 - `POST /PutSet`, `GET /GetSet/<key>`, `DELETE /RemoveSet/<key>`: quorum
   write, read and removal of a record, keyed by its content hash;
@@ -34,8 +34,8 @@ reference's coalescer at `dds_tpu/http/server.py:2605-2723`). With
 arrival rate instead (`core/admission.AdaptiveCoalescer`).
 
 Every request passes the edge in `handle`: the `x-dds-tenant` header is
-validated (400 when malformed; tenancy itself is not ported, so the id
-only labels admission buckets), then with `[admission]` (Bulwark,
+validated (400 when malformed; absent is the default tenant) and set as
+the request's tenant (`_REQ_TENANT`), then with `[admission]` (Bulwark,
 `core/admission`) the controller admits it or answers 429 (the tenant's
 class bucket is dry; Retry-After its refill ETA) or 503 (its class is
 shed; Retry-After the nearest breaker probe or the ratchet's cadence)
@@ -45,6 +45,23 @@ rate/burst`). Every answered request is classified good or bad by the SLO
 engine (`obs/slo`, `GET /slo` with the Watchtower's audit summary and the
 admission report, `slo_route_enabled`); its burn alerts and the breaker
 census drive the shed ratchet.
+
+With `[tenancy]` (Bastion, `ProxyConfig.tenancy`) the header is an
+isolation boundary. Each stored key belongs to the tenant whose PutSet
+claimed it (stored keys without a record to the default tenant); a
+request touching another tenant's key answers a typed 403 `{"error",
+"tenant", "key"}` (a PutSet replaying another tenant's content too), and
+every aggregate, analytics route, legacy scan and search-plane query sees
+only the caller's records (`_fetch_visible`, `_tenant_stored_keys`). The
+resident, Stratum and search planes keep a stripe a tenant
+(`_plane_tenant`; the default tenant is the "" stripe). Each answer feeds
+the SLO engine's tenant bins, Bulwark's burn-shed window
+(`note_outcome`) and Chronoscope's usage ledger; `/health` gains a
+`tenants` section and `/metrics` `dds_tenant_stored_keys`. The proxy holds
+no tenant key: each tenant folds under its own n^2, and folds still
+coalesce by modulus alone. Whether tenancy is on or off, the canary
+tenant (`__heliograph__`) sees only its own rows and no other tenant sees
+them.
 
 `GET /health` answers the proxy's view of the quorum (active and
 reachable replicas, breakers, 503 + Retry-After when fewer than a quorum
@@ -106,12 +123,14 @@ from dds_tpu_torch.analytics import Prism
 from dds_tpu_torch.core.admission import AdaptiveCoalescer, AdmissionController, TokenBucket
 from dds_tpu_torch.core.errors import AllBreakersOpenError, ByzantineError
 from dds_tpu_torch.core.quorum_client import AbdClient
-from dds_tpu_torch.core.tenant import CANARY_TENANT, TenantError, validate_tenant
+from dds_tpu_torch.core.tenant import (CANARY_TENANT, DEFAULT_TENANT, TenantError,
+                                       validate_tenant)
 from dds_tpu_torch.http import json_protocol as J
 from dds_tpu_torch.http.miniserver import HttpServer, Request, Response
 from dds_tpu_torch.models.backend import CryptoBackend, get_backend
 from dds_tpu_torch.models.det import DetKey
 from dds_tpu_torch.obs import context as obs_context
+from dds_tpu_torch.obs.chronoscope import chronoscope
 from dds_tpu_torch.obs.flight import flight
 from dds_tpu_torch.obs.metrics import metrics
 from dds_tpu_torch.obs.slo import SloEngine
@@ -137,6 +156,12 @@ log = logging.getLogger("dds_torch.rest")
 # nested storage helper
 _REQ_DEADLINE: contextvars.ContextVar = contextvars.ContextVar(
     "dds_torch_request_deadline", default=None
+)
+
+# the current request's validated tenant, set in handle() next to the
+# deadline and read by the ownership checks and the data-plane helpers
+_REQ_TENANT: contextvars.ContextVar = contextvars.ContextVar(
+    "dds_torch_request_tenant", default=DEFAULT_TENANT
 )
 
 # transient storage-layer failures worth retrying; anything else (a
@@ -205,6 +230,10 @@ class ProxyConfig:
     # tenant's carve-out bucket (the prober itself is not ported)
     admission: object = None
     heliograph: object = None
+    # Bastion (a utils.config.TenancyConfig; None or disabled = one
+    # keyspace): key ownership with typed 403s, tenant-scoped aggregates,
+    # searches and plane stripes, weighted-fair admission and attribution
+    tenancy: object = None
 
 
 def _make_backend(cfg: ProxyConfig) -> CryptoBackend:
@@ -328,16 +357,32 @@ class DDSRestServer:
                 resident=self._resident,
             )
         self._column_memo: tuple | None = None  # pairs identity -> columns
+        # Bastion: with tenancy the validated x-dds-tenant header is an
+        # isolation boundary. The proxy holds no tenant key (the keyring,
+        # models/tenancy, is client-side); its tenancy is ownership
+        # (typed 403s), plane stripes, tenant-filtered aggregates and
+        # attribution. `_tenant_owner` maps each stored key to the tenant
+        # whose PutSet claimed it.
+        tcfg = self.cfg.tenancy
+        self._tenancy_enabled = bool(tcfg is not None and getattr(tcfg, "enabled", False))
+        self._tenant_owner: dict[str, str] = {}
+        self._tenant_pairs_memo: dict[str, tuple] = {}
+        # keys the canary tenant owns, tracked whether tenancy is on or
+        # off: aggregates, searches and analytics never fold canary rows
+        # into user answers, nor user rows into the canary's
+        self._canary_keys: set[str] = set()
         # Bulwark: the admission gate and shed ratchet, fed by the SLO
         # engine's burn alerts and the breaker census, and the adaptive
         # coalescing window sized from observed fold arrivals. Both None
-        # when admission is off.
+        # when admission is off. With tenancy its buckets are weighted-fair
+        # and a burning tenant sheds itself.
         acfg = self.cfg.admission
         self.admission: AdmissionController | None = None
         self._coalescer: AdaptiveCoalescer | None = None
         if acfg is not None and getattr(acfg, "enabled", False):
             self.admission = AdmissionController.from_config(
                 acfg, alerts=self.slo.alerts, breakers=self._breaker_census,
+                tenancy=(tcfg if self._tenancy_enabled else None),
             )
             if getattr(acfg, "adaptive_coalesce", True) and self.cfg.coalesce_window > 0:
                 self._coalescer = AdaptiveCoalescer(
@@ -434,6 +479,105 @@ class DDSRestServer:
             self.stored_keys.add(key)
             self._stored_version += 1
 
+    # ------------------------------------------------------ Bastion tenancy
+
+    def _plane_tenant(self, tenant: str | None = None) -> str:
+        """The tenant id as the data planes see it: tenancy off, or the
+        default tenant, is the anonymous "" stripe, so single-tenant pool
+        keys, group indexes and gauge label sets stay as they were."""
+        if not self._tenancy_enabled:
+            return ""
+        t = tenant if tenant is not None else _REQ_TENANT.get()
+        return "" if t == DEFAULT_TENANT else t
+
+    def _key_tenant(self, key: str) -> str | None:
+        """The tenant a key belongs to: its ownership record; else the
+        default tenant for a stored key (data written before tenancy);
+        else None, unclaimed, free for any tenant's first write."""
+        t = self._tenant_owner.get(key)
+        if t is not None:
+            return t
+        return DEFAULT_TENANT if key in self.stored_keys else None
+
+    def _note_owner(self, key: str) -> None:
+        """Record the writing tenant as `key`'s owner (the first writer
+        owns it; `_tenant_denied` refuses any other before this runs).
+        Canary ownership is kept with tenancy off too: the scoping of
+        `_tenant_pairs` and `_tenant_stored_keys` rests on it."""
+        tenant = _REQ_TENANT.get()
+        if tenant == CANARY_TENANT and key not in self._canary_keys:
+            self._canary_keys.add(key)
+            self._tenant_pairs_memo.clear()
+        if not self._tenancy_enabled:
+            return
+        if self._tenant_owner.get(key) != tenant:
+            self._tenant_owner[key] = tenant
+            self._tenant_pairs_memo.clear()
+
+    def _tenant_denied(self, *keys: str) -> Response | None:
+        """A typed 403 when the request's tenant does not own a key it
+        touches, else None. Unclaimed keys admit (a first PutSet claims
+        one; a read of a missing key answers 404 as always). The refusal
+        is counted (`dds_tenant_denied_total`) and flight-recorded: no
+        request is ever served another tenant's ciphertexts."""
+        if not self._tenancy_enabled:
+            return None
+        tenant = _REQ_TENANT.get()
+        for key in keys:
+            owner = self._key_tenant(key)
+            if owner is not None and owner != tenant:
+                metrics.inc(
+                    "dds_tenant_denied_total", tenant=tenant,
+                    help="cross-tenant key accesses refused with 403",
+                )
+                flight.record("tenant_denied", tenant=tenant, key=key)
+                return Response.json(
+                    {"error": "cross-tenant access denied", "tenant": tenant, "key": key},
+                    status=403,
+                )
+        return None
+
+    def _visible(self, tenant: str):
+        """The predicate of the stored keys `tenant` sees. With tenancy:
+        its own. Without: the canary tenant exactly its own rows, every
+        other tenant every row but the canary's."""
+        if self._tenancy_enabled:
+            own = self._key_tenant
+            return lambda k: own(k) == tenant
+        ck = self._canary_keys
+        if tenant == CANARY_TENANT:
+            return ck.__contains__
+        return lambda k: k not in ck
+
+    def _sees_all(self, tenant: str) -> bool:
+        return (not self._tenancy_enabled and tenant != CANARY_TENANT
+                and not self._canary_keys)
+
+    def _tenant_pairs(self, pairs: list[tuple[str, list]]) -> list:
+        """The aggregate and search view filtered to what the request
+        tenant sees (`_visible`), memoized per (tenant, pairs identity),
+        since the operand and column memos key on the filtered list's
+        identity. Tenancy off with no canary key stored: the same list
+        object."""
+        tenant = _REQ_TENANT.get()
+        if self._sees_all(tenant):
+            return pairs
+        memo = self._tenant_pairs_memo.get(tenant)
+        if memo is not None and memo[0] is pairs:
+            return memo[1]
+        keep = self._visible(tenant)
+        filtered = [(k, v) for k, v in pairs if keep(k)]
+        self._tenant_pairs_memo[tenant] = (pairs, filtered)
+        return filtered
+
+    def _tenant_stored_keys(self) -> list[str]:
+        """The sorted stored keys the request tenant sees (the search
+        plane's query universe)."""
+        tenant = _REQ_TENANT.get()
+        if self._sees_all(tenant):
+            return sorted(self.stored_keys)
+        return sorted(filter(self._visible(tenant), self.stored_keys))
+
     def _agg_state(self):
         """(state, keys, cached, digest, fingerprint, cached_tags) for the
         current aggregate view, memoized per (stored, cache) version."""
@@ -495,11 +639,12 @@ class DDSRestServer:
                     continue  # non-numeric column: never an aggregate operand
         if not ciphers:
             return
+        tenant = self._plane_tenant()
         if self._stratum is not None:
             # popularity only (pure dict math, loop-safe): a rewritten
             # tiered row warms its directory score
-            self._stratum.note_write("", ciphers, key=key)
-        if plane.note_write("", ciphers):
+            self._stratum.note_write("", ciphers, tenant=tenant, key=key)
+        if plane.note_write("", ciphers, tenant=tenant):
             self._resident_ingest_soon()
 
     def _resident_ingest_soon(self) -> None:
@@ -527,7 +672,8 @@ class DDSRestServer:
         plane = self._search
         if plane is None or not self._search_write_ingest:
             return
-        if plane.note_write(self._search_owner(key), key, tag, value):
+        if plane.note_write(self._search_owner(key), key, tag, value,
+                            tenant=self._plane_tenant()):
             self._search_ingest_soon()
 
     def _search_ingest_soon(self) -> None:
@@ -566,6 +712,14 @@ class DDSRestServer:
             return float(self._stratum.pressure())
         except Exception:
             return 0.0
+
+    async def _fetch_visible(self) -> list[tuple[str, list]]:
+        """`_fetch_stored` scoped to the request tenant: the quorum and tag
+        machinery validates the whole stored view (one shared round,
+        whoever asks), then `_tenant_pairs` keeps the caller's own
+        records. Every aggregate, analytics route and legacy scan reads
+        through it."""
+        return self._tenant_pairs(await self._fetch_stored())
 
     async def _fetch_stored(self) -> list[tuple[str, list]]:
         """Every stored (key, value), for the aggregate and search routes.
@@ -770,6 +924,7 @@ class DDSRestServer:
         except TenantError as e:
             return self._tenant_reject(e)
         adm_ms = None
+        decision = None
         if tenant == CANARY_TENANT:
             # the canary carve-out: probes bypass tenant-fair admission but
             # pass their own rate-bounded bucket
@@ -796,6 +951,7 @@ class DDSRestServer:
         # one budget per request: every storage helper reads it from the
         # context var, so nested retries shrink toward the same deadline
         token = _REQ_DEADLINE.set(Deadline(self.cfg.request_budget))
+        ttoken = _REQ_TENANT.set(tenant)
         ctx = obs_context.root()
         t0 = time.perf_counter()
         status = 500
@@ -840,11 +996,20 @@ class DDSRestServer:
             return Response(500)
         finally:
             _REQ_DEADLINE.reset(token)
+            _REQ_TENANT.reset(ttoken)
+            dur = time.perf_counter() - t0
             if tenant != CANARY_TENANT:
                 # synthetic canary load never dilutes (or burns) the user
                 # routes' objectives
-                self.slo.observe(route or "root", status,
-                                 time.perf_counter() - t0)
+                self.slo.observe(route or "root", status, dur,
+                                 tenant=(tenant if self._tenancy_enabled else None))
+            if self._tenancy_enabled and tenant != CANARY_TENANT:
+                # attribution: the admitted request's outcome feeds the
+                # burn-shed window (a flooding tenant's 5xxs count against
+                # it, not the fleet) and Chronoscope's usage ledger
+                if decision is not None:
+                    self.admission.note_outcome(tenant, decision.klass, status < 500)
+                chronoscope.note_usage(tenant, route or "root", dur)
 
     def _unavailable(self, why: str, eta: float | None = None) -> Response:
         """503 with a Retry-After derived from the recovery state."""
@@ -861,6 +1026,8 @@ class DDSRestServer:
         name, arg = parts[0], (parts[1] if len(parts) > 1 else None)
         match (req.method, name):
             case ("GET", "GetSet") if arg:
+                if (denied := self._tenant_denied(arg)) is not None:
+                    return denied
                 value = await self._fetch(arg)
                 if value is None:
                     return Response(404)
@@ -873,20 +1040,35 @@ class DDSRestServer:
                 else:
                     value = J.parse_set(body)
                     key = sigs.key_from_set(value)
+                # content addressing makes another tenant's PutSet of the
+                # same content a key collision: the first writer owns the
+                # key and the replay is refused like any cross-tenant access
+                if (denied := self._tenant_denied(key)) is not None:
+                    return denied
                 await self._write(key, value)
                 self._note_stored(key)
+                self._note_owner(key)
                 return Response.text(key)
 
             case ("DELETE", "RemoveSet") if arg:
+                if (denied := self._tenant_denied(arg)) is not None:
+                    return denied
                 await self._write(arg, None)
                 if arg in self.stored_keys:
                     # stop aggregating it: the version bump invalidates the
                     # aggregate memos keyed on the stored set
                     self.stored_keys.discard(arg)
                     self._stored_version += 1
+                if self._tenant_owner.pop(arg, None) is not None:
+                    self._tenant_pairs_memo.clear()
+                if arg in self._canary_keys:
+                    self._canary_keys.discard(arg)
+                    self._tenant_pairs_memo.clear()
                 return Response(200)
 
             case ("PUT", "AddElement") if arg:
+                if (denied := self._tenant_denied(arg)) is not None:
+                    return denied
                 item = J.parse_item(req.json())
                 value = await self._fetch(arg)
                 if value is None:
@@ -895,6 +1077,8 @@ class DDSRestServer:
                 return Response(200)
 
             case ("GET", "ReadElement") if arg:
+                if (denied := self._tenant_denied(arg)) is not None:
+                    return denied
                 pos = self._pos(req)
                 value = await self._fetch(arg)
                 if value is None or pos > len(value) - 1:
@@ -902,6 +1086,8 @@ class DDSRestServer:
                 return Response.json({"value": value[pos]})
 
             case ("PUT", "WriteElement") if arg:
+                if (denied := self._tenant_denied(arg)) is not None:
+                    return denied
                 pos = self._pos(req)
                 item = J.parse_item(req.json())
                 value = await self._fetch(arg)
@@ -916,6 +1102,8 @@ class DDSRestServer:
                 return Response(200)
 
             case ("POST", "IsElement") if arg:
+                if (denied := self._tenant_denied(arg)) is not None:
+                    return denied
                 item = J.parse_item(req.json())
                 value = await self._fetch(arg)
                 if value is None:
@@ -1014,6 +1202,14 @@ class DDSRestServer:
             "stored_keys": len(self.stored_keys),
             "request_budget": self.cfg.request_budget,
         }
+        if self._tenancy_enabled:
+            # the ownership footprint and who is shedding itself (never
+            # the fleet)
+            health["tenants"] = {
+                "owned_keys": len(self._tenant_owner),
+                "shed": (self.admission.shed_tenants()
+                         if self.admission is not None else []),
+            }
         if self._resident is not None:
             health["resident"] = self._resident.stats()
         if self._stratum is not None:
@@ -1062,6 +1258,18 @@ class DDSRestServer:
         )
         metrics.set("dds_stored_keys", len(self.stored_keys),
                     help="aggregate key-set size")
+        if self._tenancy_enabled and self._tenant_owner:
+            counts_t: dict[str, int] = {}
+            for k in self.stored_keys:
+                t = self._key_tenant(k)
+                if t == CANARY_TENANT:
+                    continue  # synthetic keyspace, not a tenant footprint
+                counts_t[t] = counts_t.get(t, 0) + 1
+            for t, n in counts_t.items():
+                metrics.set(
+                    "dds_tenant_stored_keys", n, tenant=t,
+                    help="stored aggregate keys per tenant (proxy view)",
+                )
         # Bulwark: the shed level is set at transition time too, but a
         # scrape between transitions still deserves the truth; the
         # coalescing window is pure scrape-time state
@@ -1175,14 +1383,15 @@ class DDSRestServer:
         validated index entry, so indexed results are exactly the legacy
         scan's."""
         plane = self._search
-        keys = sorted(self.stored_keys)
+        pt = self._plane_tenant()
+        keys = self._tenant_stored_keys()
         if not keys:
             return keys
         cached: list[str] = []
         cached_tags: list = []
         missing: list[str] = []
         for k in keys:
-            t = plane.tag(self._search_owner(k), k)
+            t = plane.tag(self._search_owner(k), k, tenant=pt)
             if t is None:
                 missing.append(k)
             else:
@@ -1220,7 +1429,7 @@ class DDSRestServer:
                 if isinstance(r, Exception):
                     raise r
                 value, tag, _coord = r
-                plane.upsert(self._search_owner(k), k, tag, value)
+                plane.upsert(self._search_owner(k), k, tag, value, tenant=pt)
         metrics.inc(
             "dds_search_index_total", max(0, len(keys) - len(stale)),
             outcome="hit", help="Spyglass index keys per query by outcome",
@@ -1250,14 +1459,15 @@ class DDSRestServer:
         if not keys:
             return []
         parts = self._spy_partition(keys)
+        pt = self._plane_tenant()
         with tracer.span("proxy.search_eval", k=len(keys), shards=len(parts)):
             sets = await asyncio.gather(
-                *(asyncio.to_thread(evalfn, self._search.group(gid))
+                *(asyncio.to_thread(evalfn, self._search.group(gid, tenant=pt))
                   for gid in parts)
             )
         selected = set().union(*sets)
         hits = [k for k in keys if k in selected]
-        self._search.note_selected(hits)
+        self._search.note_selected(hits, pt)
         return hits
 
     async def _spy_order(self, pos: int, descending: bool) -> list[str]:
@@ -1270,15 +1480,16 @@ class DDSRestServer:
         if not keys:
             return []
         parts = self._spy_partition(keys)
+        pt = self._plane_tenant()
         with tracer.span("proxy.search_eval", k=len(keys), shards=len(parts)):
             runs = await asyncio.gather(
-                *(asyncio.to_thread(self._search.group(gid).eval_order,
+                *(asyncio.to_thread(self._search.group(gid, tenant=pt).eval_order,
                                     pos, descending)
                   for gid in parts)
             )
         stored = set(keys)
         ordered = [k for _, k in heapq.merge(*runs) if k in stored]
-        self._search.note_selected(ordered)
+        self._search.note_selected(ordered, pt)
         return ordered
 
     @staticmethod
@@ -1318,7 +1529,7 @@ class DDSRestServer:
                 await self._spy_order(pos, descending), page
             )
         self._count_search(name, "legacy")
-        pairs = await self._fetch_stored()
+        pairs = await self._fetch_visible()
         # records without the column are EXCLUDED (the Search* convention);
         # non-integer columns raise -> 400, like every Search* int cast
         rows = [(int(v[pos]), k) for k, v in pairs if pos < len(v)]
@@ -1340,7 +1551,7 @@ class DDSRestServer:
             )
             return self._page_response(keyset, page)
         self._count_search(name, "legacy")
-        pairs = await self._fetch_stored()
+        pairs = await self._fetch_visible()
         keyset = [
             k for k, v in pairs
             if pos < len(v) and DetKey.compare(str(v[pos]), item) == want_eq
@@ -1361,7 +1572,7 @@ class DDSRestServer:
             )
             return self._page_response(keyset, page)
         self._count_search(name, "legacy")
-        pairs = await self._fetch_stored()
+        pairs = await self._fetch_visible()
         op = {
             "SearchGt": lambda e: e > item,
             "SearchGtEq": lambda e: e >= item,
@@ -1382,7 +1593,7 @@ class DDSRestServer:
             )
             return self._page_response(keyset, page)
         self._count_search("Range", "legacy")
-        pairs = await self._fetch_stored()
+        pairs = await self._fetch_visible()
         keyset = [
             k for k, v in pairs
             if pos < len(v) and lo_bound <= int(v[pos]) <= hi_bound
@@ -1403,7 +1614,7 @@ class DDSRestServer:
             )
             return self._page_response(keyset, page)
         self._count_search(name, "legacy")
-        pairs = await self._fetch_stored()
+        pairs = await self._fetch_visible()
         if mode == "all":
             keyset = [
                 k for k, v in pairs
@@ -1424,6 +1635,8 @@ class DDSRestServer:
         multiply never pays a launch, so it is the backend's host
         `modmul`."""
         key1, key2 = req.query["key1"], req.query["key2"]
+        if (denied := self._tenant_denied(key1, key2)) is not None:
+            return denied
         pos = self._pos(req)
         mod = req.query.get(modparam)
         set1, set2 = await asyncio.gather(self._fetch(key1), self._fetch(key2))
@@ -1445,7 +1658,7 @@ class DDSRestServer:
         the backend; without it, the plain sum or product."""
         pos = self._pos(req)
         mod = req.query.get(modparam)
-        pairs = await self._fetch_stored()
+        pairs = await self._fetch_visible()
         memo = self._operand_memo
         if memo is not None and memo[0] is pairs and memo[1] == pos:
             # identity match: _fetch_stored returned its memoized pairs, so
@@ -1471,7 +1684,8 @@ class DDSRestServer:
                           else self._resident.fold_groups)
                 with tracer.span("proxy.resident_fold", k=len(operands),
                                  shards=len(parts), backend=self.backend.name):
-                    result = await asyncio.to_thread(folder, parts, modulus, "")
+                    result = await asyncio.to_thread(folder, parts, modulus,
+                                                     self._plane_tenant())
             if result is None:
                 with tracer.span("proxy.fold", k=len(operands),
                                  backend=self.backend.name):
@@ -1514,7 +1728,7 @@ class DDSRestServer:
             )
         pos = self._pos(req)
         n, n2 = self.prism.parse_nsqr(req.query["nsqr"])
-        pairs = await self._fetch_stored()
+        pairs = await self._fetch_visible()
         keys, ciphers = self._columns(pairs, pos)
         if not ciphers:
             return Response(404)
@@ -1527,7 +1741,8 @@ class DDSRestServer:
         else:  # GroupBySum: 0/1 selector rollups over record keys
             labels, rows = self.prism.selector_rows(J.parse_groups(body), keys)
         encoded = self.prism.encode_weights(rows, n, cols=len(ciphers))
-        out = await self.prism.evaluate(name, ciphers, encoded, n2)
+        out = await self.prism.evaluate(name, ciphers, encoded, n2,
+                                        tenant=self._plane_tenant())
         if name == "WeightedSum":
             return Response.json({"result": str(out[0]), "keys": keys})
         if labels is not None:

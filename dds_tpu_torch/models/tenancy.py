@@ -1,0 +1,364 @@
+"""Bastion tenant crypto domains: per-tenant key families with a lifecycle.
+
+Copy of `dds_tpu/models/tenancy.py` on the port's `HEKeys`, flight
+recorder and metrics registry. One `TenantKeyring` owns a versioned family
+of `HEKeys` a tenant (Paillier, DET, OPE, LSE, RSA, and a derived HMAC
+secret), so a compromise, a rotation or a deletion request is scoped to
+one tenant. It is client-side key material: the proxy holds no tenant
+key, only the public n^2 a request names.
+
+- **keys_for(tenant)**: lazy generation on first touch. Every tenant gets
+  its OWN Paillier modulus, so its SumAll folds under its own n^2 (the
+  proxy groups fold operands by modulus, `_fold_pending`): one tenant's
+  concurrent folds coalesce, two tenants' never share a ciphertext domain.
+- **rotate(tenant)**: mint a new epoch; the previous one enters a grace
+  window in which its ciphertexts still decrypt (`decrypt`, `reencrypt`:
+  re-encrypt-on-read converges the store onto the new keys).
+- **shred(tenant)**: crypto-shredding as deletion: every epoch's Paillier
+  key is scrubbed (`PaillierKey.scrub()` closes its Sanctum plans), the
+  symmetric families are dropped, and every later key access raises the
+  typed `TenantShredded`. The ciphertexts at rest stay served and become
+  permanently undecryptable.
+
+Each transition is flight-recorded (`tenant_rotate`, `tenant_shred`) and
+counted. One lock guards the tenant table; key generation runs outside it
+with a per-tenant pending event, so concurrent first touches generate once.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+
+from dds_tpu_torch.models.keys import HEKeys
+from dds_tpu_torch.obs.flight import flight
+from dds_tpu_torch.obs.metrics import metrics
+
+__all__ = [
+    "TenantKeyError",
+    "TenantShredded",
+    "KeyEpoch",
+    "TenantKeyring",
+]
+
+
+class TenantKeyError(KeyError):
+    """Typed refusal for tenant-keyspace violations (unknown tenant in
+    strict mode, capacity exceeded, ...)."""
+
+
+class TenantShredded(TenantKeyError):
+    """Typed refusal raised for ANY key access after a tenant's crypto
+    domain has been shredded. Deliberately terminal: shredding is
+    deletion, so there is no recovery path short of re-onboarding the
+    tenant under a fresh identity."""
+
+    def __init__(self, tenant: str):
+        super().__init__(f"tenant {tenant!r} crypto domain has been shredded")
+        self.tenant = tenant
+
+
+@dataclass
+class KeyEpoch:
+    """One generation of a tenant's key family."""
+
+    version: int
+    keys: HEKeys
+    created_at: float
+    # monotonic deadline after which a rotated-out epoch stops decrypting;
+    # None while the epoch is active (no deadline)
+    grace_until: float | None = None
+
+    def state(self, now: float) -> str:
+        if self.grace_until is None:
+            return "active"
+        return "grace" if now < self.grace_until else "expired"
+
+
+@dataclass
+class _TenantDomain:
+    epochs: list[KeyEpoch] = field(default_factory=list)  # newest first
+    shredded_at: float | None = None
+    rotations: int = 0
+
+
+class TenantKeyring:
+    """Per-tenant versioned `HEKeys` families with rotate/shred lifecycle.
+
+    ``paillier_bits``/``rsa_bits`` size generated families (tests and
+    benchmarks pass small sizes; production uses the 2048/1024 defaults).
+    ``grace`` is the rotation grace window in seconds. ``max_tenants``
+    bounds the table — the same cardinality posture as the metrics
+    registry: a keyring is per-tenant *state*, and unbounded state keyed
+    by a wire-supplied label is a memory DoS.
+    """
+
+    def __init__(self, paillier_bits: int = 2048, rsa_bits: int = 1024,
+                 grace: float = 300.0, max_tenants: int = 4096,
+                 clock=time.monotonic):
+        self.paillier_bits = int(paillier_bits)
+        self.rsa_bits = int(rsa_bits)
+        self.grace = float(grace)
+        self.max_tenants = int(max_tenants)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._domains: dict[str, _TenantDomain] = {}
+        # tenants whose first generation is in flight (generation runs
+        # outside the lock); waiters spin on the event
+        self._pending: dict[str, threading.Event] = {}
+
+    # ------------------------------------------------------------- internals
+
+    def _generate(self, version: int) -> KeyEpoch:
+        return KeyEpoch(
+            version=version,
+            keys=HEKeys.generate(self.paillier_bits, self.rsa_bits),
+            created_at=self._clock(),
+        )
+
+    def _domain(self, tenant: str, create: bool = True) -> _TenantDomain:
+        """Caller holds no lock; returns the domain, generating the first
+        epoch if needed. Raises TenantShredded on shredded tenants."""
+        while True:
+            with self._lock:
+                dom = self._domains.get(tenant)
+                if dom is not None:
+                    if dom.shredded_at is not None:
+                        raise TenantShredded(tenant)
+                    if dom.epochs:
+                        return dom
+                if not create:
+                    raise TenantKeyError(f"unknown tenant {tenant!r}")
+                ev = self._pending.get(tenant)
+                if ev is None:
+                    if len(self._domains) >= self.max_tenants:
+                        raise TenantKeyError(
+                            f"tenant keyring full ({self.max_tenants} "
+                            f"tenants); refusing to onboard {tenant!r}"
+                        )
+                    ev = self._pending[tenant] = threading.Event()
+                    self._domains.setdefault(tenant, _TenantDomain())
+                    owner = True
+                else:
+                    owner = False
+            if owner:
+                try:
+                    epoch = self._generate(1)
+                    with self._lock:
+                        dom = self._domains[tenant]
+                        # a racing shred() wins: leave the domain shredded
+                        if dom.shredded_at is None and not dom.epochs:
+                            dom.epochs.append(epoch)
+                finally:
+                    with self._lock:
+                        self._pending.pop(tenant, None)
+                    ev.set()
+            else:
+                ev.wait()
+
+    def _with_epoch_keys(self, tenant: str, epoch: KeyEpoch, fn):
+        """Run `fn(keys)` against an epoch's key family, converting the
+        symptoms of a shred racing the operation — keys unlinked, or the
+        Paillier key zero-filled / its Sanctum plan closed mid-math —
+        into the typed `TenantShredded` instead of letting garbage
+        arithmetic errors escape to callers."""
+        keys = epoch.keys
+        try:
+            if keys is None:
+                raise TenantShredded(tenant)
+            return fn(keys)
+        except TenantShredded:
+            raise
+        except (ZeroDivisionError, AttributeError, RuntimeError):
+            if self.is_shredded(tenant):
+                raise TenantShredded(tenant) from None
+            raise
+
+    # ------------------------------------------------------------ public API
+
+    def keys_for(self, tenant: str) -> HEKeys:
+        """The tenant's ACTIVE key family, generated lazily on first
+        touch. Raises `TenantShredded` after `shred(tenant)`."""
+        return self._domain(tenant).epochs[0].keys
+
+    def epochs_for(self, tenant: str) -> list[KeyEpoch]:
+        """Decrypt candidates, newest first: the active epoch plus any
+        rotated-out epochs still inside their grace window."""
+        dom = self._domain(tenant)
+        now = self._clock()
+        with self._lock:
+            # prune expired grace epochs while we're here
+            dom.epochs = [e for e in dom.epochs if e.state(now) != "expired"]
+            return list(dom.epochs)
+
+    def version(self, tenant: str) -> int:
+        return self._domain(tenant).epochs[0].version
+
+    def known(self, tenant: str) -> bool:
+        with self._lock:
+            dom = self._domains.get(tenant)
+            return dom is not None and dom.shredded_at is None
+
+    def is_shredded(self, tenant: str) -> bool:
+        with self._lock:
+            dom = self._domains.get(tenant)
+            return dom is not None and dom.shredded_at is not None
+
+    def hmac_secret(self, tenant: str) -> bytes:
+        """Per-tenant HMAC family: derived from the active epoch's LSE
+        tag key and the tenant id, so it rotates with the family and dies
+        with the shred."""
+        import hashlib
+        import hmac as _hmac
+
+        epoch = self._domain(tenant).epochs[0]
+        return self._with_epoch_keys(tenant, epoch, lambda keys: _hmac.new(
+            keys.lse.k_tag,
+            b"dds-tenant-hmac\x00" + tenant.encode() + b"\x00"
+            + str(epoch.version).encode(),
+            hashlib.sha256,
+        ).digest())
+
+    def rotate(self, tenant: str) -> int:
+        """Mint a new epoch for `tenant`; the previous active epoch moves
+        into the grace window (still decrypts until `grace` seconds pass,
+        enabling re-encrypt-on-read convergence). Returns the new epoch
+        version. Flight-recorded and counted."""
+        self._domain(tenant)  # ensure exists / raise TenantShredded
+        epoch = self._generate(0)  # version patched under the lock below
+        with self._lock:
+            dom = self._domains[tenant]
+            if dom.shredded_at is not None:
+                raise TenantShredded(tenant)
+            now = self._clock()
+            old = dom.epochs[0] if dom.epochs else None
+            epoch.version = (old.version if old else 0) + 1
+            if old is not None:
+                old.grace_until = now + self.grace
+            dom.epochs.insert(0, epoch)
+            dom.rotations += 1
+            version = epoch.version
+        metrics.inc("dds_tenant_rotations_total", tenant=_cap(tenant),
+                    help="tenant key-family rotations")
+        flight.record("tenant_rotate", tenant=tenant, version=version,
+                      grace=self.grace)
+        return version
+
+    def shred(self, tenant: str) -> dict:
+        """Crypto-shred `tenant`: scrub every epoch's Paillier key
+        (Sanctum plans closed + zero-filled, `_crt` dropped), unlink the
+        symmetric families, and mark the tenant terminally shredded —
+        every later key access raises `TenantShredded`. Returns an audit
+        summary; flight-recorded. Idempotent."""
+        with self._lock:
+            dom = self._domains.setdefault(tenant, _TenantDomain())
+            if dom.shredded_at is not None:
+                return {"tenant": tenant, "already": True,
+                        "epochs_scrubbed": 0}
+            epochs, dom.epochs = dom.epochs, []
+            dom.shredded_at = self._clock()
+        for epoch in epochs:
+            try:
+                epoch.keys.psse.scrub()
+            except Exception:  # pragma: no cover - scrub must not raise out
+                pass
+            # frozen dataclass: drop the field references so the symmetric
+            # key bytes lose their last strong ref with the epoch object
+            epoch.keys = None  # type: ignore[assignment]
+        summary = {"tenant": tenant, "already": False,
+                   "epochs_scrubbed": len(epochs)}
+        metrics.inc("dds_tenant_shreds_total",
+                    help="tenant crypto domains shredded (deletion events)")
+        flight.record("tenant_shred", tenant=tenant,
+                      epochs_scrubbed=len(epochs))
+        return summary
+
+    def encrypt(self, tenant: str, m: int) -> tuple[int, int]:
+        """Encrypt under the ACTIVE epoch. Returns ``(ciphertext,
+        epoch_version)`` — the version travels with the ciphertext (a
+        Paillier ciphertext decrypted under the wrong modulus yields
+        silent garbage, not an error, so decrypt MUST know its epoch)."""
+        epoch = self._domain(tenant).epochs[0]
+        ct = self._with_epoch_keys(
+            tenant, epoch, lambda keys: keys.psse.public.encrypt(m))
+        return ct, epoch.version
+
+    def _epoch(self, tenant: str, version: int | None) -> KeyEpoch:
+        epochs = self.epochs_for(tenant)
+        if version is None:
+            return epochs[0]
+        for epoch in epochs:
+            if epoch.version == version:
+                return epoch
+        raise TenantKeyError(
+            f"tenant {tenant!r} epoch v{version} is not live (rotated out "
+            f"past its grace window, or never existed)"
+        )
+
+    def decrypt(self, tenant: str, c: int, version: int | None = None) -> int:
+        """CRT-decrypt `c` under epoch `version` (None = active). Grace
+        epochs still decrypt until their window lapses — the
+        re-encrypt-on-read runway. Raises `TenantShredded` after a shred
+        (including one racing this call) and `TenantKeyError` when the
+        epoch is no longer live."""
+        epoch = self._epoch(tenant, version)
+        return self._with_epoch_keys(
+            tenant, epoch, lambda keys: keys.psse.decrypt(c))
+
+    def reencrypt(self, tenant: str, c: int,
+                  version: int | None = None) -> tuple[int, int, bool]:
+        """Re-encrypt-on-read: decrypt `c` (minted under `version`) and,
+        when that epoch is not the active one, return the plaintext
+        freshly encrypted under the active keys. Returns ``(ciphertext,
+        active_version, migrated)``; ``migrated=False`` hands back the
+        input unchanged."""
+        active = self._domain(tenant).epochs[0]
+        if version is None or version == active.version:
+            return c, active.version, False
+        m = self.decrypt(tenant, c, version)
+        ct, ver = self.encrypt(tenant, m)
+        metrics.inc("dds_tenant_reencrypts_total",
+                    help="rows migrated onto the active epoch by "
+                         "re-encrypt-on-read during rotation grace")
+        return ct, ver, True
+
+    # --------------------------------------------------------------- surface
+
+    def stats(self) -> dict:
+        now = self._clock()
+        with self._lock:
+            tenants = {
+                t: {
+                    "shredded": dom.shredded_at is not None,
+                    "rotations": dom.rotations,
+                    "epochs": [
+                        {"version": e.version, "state": e.state(now)}
+                        for e in dom.epochs
+                    ],
+                }
+                for t, dom in self._domains.items()
+            }
+        return {
+            "tenants": len(tenants),
+            "shredded": sum(1 for d in tenants.values() if d["shredded"]),
+            "grace": self.grace,
+            "domains": tenants,
+        }
+
+    def export_gauges(self, registry=metrics) -> None:
+        with self._lock:
+            total = len(self._domains)
+            shredded = sum(
+                1 for d in self._domains.values() if d.shredded_at is not None
+            )
+        registry.set("dds_tenant_domains", total,
+                     help="tenant crypto domains onboarded")
+        registry.set("dds_tenant_domains_shredded", shredded,
+                     help="tenant crypto domains in the terminal "
+                          "shredded state")
+
+
+def _cap(tenant: str, limit: int = 40) -> str:
+    # metric-label hygiene independent of the registry's overflow guard
+    return tenant if len(tenant) <= limit else tenant[:limit]

@@ -22,14 +22,20 @@ Search*/Order*/Range columns, and `[analytics]` arms Prism's routes (on
 by default). The REST edge comes up as the reference wires it: `[admission]`
 (Bulwark's buckets, shed ratchet and adaptive coalescing window), the SLO
 engine built from `[obs]` (`GET /slo` with `slo-route`) and `[heliograph]
-rate/burst` for the canary tenant's bucket; with `[obs] audit-enabled` the
-process-wide Watchtower is reset, configured for this topology (quorum
-`byz-quorum-size`, the endpoints less the spares, quorum checks as
-`audit-quorum-checks` says, every replica being local) and attached to the
-tracer last, and `Deployment.stop` detaches it. A config that enables a
-plane the port does not serve (`unported_plane`) is refused with
-`NotImplementedError` naming it, so every file in `configs/` parses but
-none boots without what it asks for; `configs/default.toml` boots.
+rate/burst` for the canary tenant's bucket; `[tenancy]` (Bastion) makes
+the tenant header an isolation boundary at the proxy (key ownership,
+tenant-scoped aggregates and plane stripes, weighted-fair admission,
+attribution), its `metrics-max-series` capping the process registry
+first. With `[obs] audit-enabled` the process-wide Watchtower is reset,
+configured for this topology (quorum `byz-quorum-size`, the endpoints less
+the spares, quorum checks as `audit-quorum-checks` says, every replica
+being local) and attached to the tracer last, then Chronoscope (always,
+as the reference's single-process launch does; `DDS_OBS_PIPE=0` keeps it
+dormant); `Deployment.stop` detaches both and resets Chronoscope. A config
+that enables a plane the port does not serve (`unported_plane`) is refused
+with `NotImplementedError` naming it, so every file in `configs/` parses
+but none boots without what it asks for; `configs/default.toml` and
+`configs/tenancy.toml` boot.
 `load_provider(cfg)` builds the
 client's HE provider from the `[client]` section: its keys, its bulk
 encryption backend (`bulk-encrypt-backend = "cuda"` precomputes PSSE
@@ -49,6 +55,7 @@ reference's flag does):
     python -m dds_tpu_torch.run --ops 100 --seed 7 [--serve] [--port 8443]
     python -m dds_tpu_torch.run --config configs/default.toml --backend cuda
     python -m dds_tpu_torch.run --config configs/default.toml --device cpu --backend cpu
+    python -m dds_tpu_torch.run --config configs/tenancy.toml --backend cuda
 """
 
 from __future__ import annotations
@@ -74,7 +81,9 @@ from dds_tpu_torch.malicious.trudy import AttackType, Trudy
 from dds_tpu_torch.models.backend import get_backend
 from dds_tpu_torch.models.facade import HomoProvider
 from dds_tpu_torch.models.keys import HEKeys
+from dds_tpu_torch.obs.chronoscope import chronoscope
 from dds_tpu_torch.obs.flight import flight
+from dds_tpu_torch.obs.metrics import metrics
 from dds_tpu_torch.obs.slo import SloEngine
 from dds_tpu_torch.obs.watchtower import watchtower
 from dds_tpu_torch.ops.flags import secret_device
@@ -113,6 +122,10 @@ class Deployment:
             # geometry; left attached it would audit a later deployment (or
             # test) against the wrong q/n
             watchtower.detach()
+        # Chronoscope is process-wide too: a later deployment (or test)
+        # starts with a clean feed
+        chronoscope.detach()
+        chronoscope.reset()
         if self.cfg.obs.flight_dir:
             # the recorder is process-wide: hand it back as launch found it,
             # so a later deployment (or test) never files into this one's
@@ -122,13 +135,12 @@ class Deployment:
 
 def unported_plane(cfg: DDSConfig) -> str | None:
     """The first plane `cfg` enables that the port does not serve, or
-    None: shard first, then tenancy, fabric, helmsman, geo, heliograph,
-    the attacks other than Trudy's crash and byzantine, then the other
-    serving surfaces of the reference that are not ported."""
+    None: shard first, then fabric, helmsman, geo, heliograph, the attacks
+    other than Trudy's crash and byzantine, then the other serving
+    surfaces of the reference that are not ported."""
     attack_ok = {a.value for a in (AttackType.CRASH, AttackType.BYZANTINE)}
     checks = (
         (cfg.shard.enabled, "[shard] enabled: sharding"),
-        (cfg.tenancy.enabled, "[tenancy] enabled: tenancy"),
         (cfg.fabric.role != "all" or bool(cfg.fabric.groups), "[fabric]: the shard fabric"),
         (cfg.helmsman.enabled, "[helmsman] enabled: helmsman"),
         (cfg.geo.enabled, "[geo] enabled: geo"),
@@ -160,6 +172,11 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             f"{plane} is not ported to dds_tpu_torch; the config enables it, "
             "so the deployment is refused rather than served without it"
         )
+    if cfg.tenancy.enabled:
+        # the cardinality ceiling applies process-wide before any
+        # tenant-labelled series exists: a tenant flood overflows into the
+        # guard series instead of growing the registry
+        metrics.max_series = int(cfg.tenancy.metrics_max_series)
     flight_dir = flight.dir
     if cfg.obs.flight_dir:
         # the process-wide recorder stays disabled without a directory:
@@ -285,6 +302,7 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             slo_route_enabled=cfg.obs.slo_route,
             admission=cfg.admission,
             heliograph=cfg.heliograph,
+            tenancy=cfg.tenancy,
         ),
         local_replicas=replicas,
         slo=SloEngine.from_obs(cfg.obs),
@@ -346,6 +364,9 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             check_quorum=cfg.obs.audit_quorum_checks,
         )
         watchtower.attach(tracer)
+    # Chronoscope rides the same tracer: every span is local in this
+    # single-process launch
+    chronoscope.attach(tracer)
     return dep
 
 

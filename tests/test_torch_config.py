@@ -6,16 +6,18 @@ same value in both trees; every other field must equal the reference's
 default, except the port's documented divergences (`DIVERGENCES`, the
 module docstring of `dds_tpu_torch/utils/config.py`) and the fields only
 the port has (`PORT_ONLY`). `launch` on each file either boots and stops
-(`configs/default.toml`: every plane it enables is ported) or refuses with
+(`configs/default.toml` and `configs/tenancy.toml`: every plane they enable
+is ported) or refuses with
 `NotImplementedError` naming the first plane the port does not serve,
 never with an unknown-key error; each refusal is checked on its own. The
 planes ported since (recovery, anti-entropy, spares, snapshots, Trudy's
 attacks, /metrics, the flight recorder, admission, the obs audit, the SLO
-engine) each launch and stop cleanly, and `DDSConfig()` with `[search]
+engine, tenancy) each launch and stop cleanly, and `DDSConfig()` with `[search]
 enabled` boots, as does `[crypto] secret-device` (Sanctum), whose provider
 decrypts through its device plan. `default.toml` boots with Bulwark, the
 SLO engine and the Watchtower armed as the file says, and the CLI's
-`--device cpu --backend cpu` launches it.
+`--device cpu --backend cpu` launches it; `tenancy.toml` boots with
+Bastion's weights, 403s and `/health` section, and so does its CLI.
 """
 
 import asyncio
@@ -54,10 +56,9 @@ FIRST_PLANE = {
     "configs/heliograph.toml": "heliograph",
     "configs/sharded.toml": "sharding",
     "configs/stratum.toml": "sharding",
-    "configs/tenancy.toml": "tenancy",
 }
 # the files whose every enabled plane is ported: they boot
-LAUNCHES = {"configs/default.toml"}
+LAUNCHES = {"configs/default.toml", "configs/tenancy.toml"}
 
 
 def flat(obj, prefix: str = "") -> dict:
@@ -121,6 +122,7 @@ def test_launch_refuses_each_config_naming_a_plane(name):
     in LAUNCHES, which boot and stop on the CPU."""
     cfg = DDSConfig.load(ROOT / name)
     cfg.proxy.device = "cpu"
+    cfg.proxy.port = 0  # tenancy.toml's 8080 may be taken on the test host
     if name in LAUNCHES:
         assert unported_plane(cfg) is None
 
@@ -146,7 +148,7 @@ PLANES = [
     ("snapshots", {"recovery": {"snapshot-dir": "snaps"}}, False),
     ("sharding", {"shard": {"enabled": True}}, True),
     ("admission", {"admission": {"enabled": True}}, False),
-    ("tenancy", {"tenancy": {"enabled": True}}, True),
+    ("tenancy", {"tenancy": {"enabled": True}}, False),
     ("obs audit", {"obs": {"audit-enabled": True}}, False),
     ("fabric", {"fabric": {"role": "proxy"}}, True),
     ("helmsman", {"helmsman": {"enabled": True}}, True),
@@ -218,6 +220,8 @@ def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
                 assert watchtower.attached and watchtower.quorum_size == 3
             if plane == "SLO engine":
                 assert dep.server.cfg.slo_route_enabled
+            if plane == "tenancy":
+                assert dep.server._tenancy_enabled
         finally:
             await dep.stop()
         await asyncio.sleep(0)
@@ -268,6 +272,50 @@ def test_default_toml_launches_on_the_cpu_with_its_edge_planes(monkeypatch):
     assert not watchtower.attached
 
 
+def test_tenancy_toml_launches_on_the_cpu_with_bastion(monkeypatch):
+    """configs/tenancy.toml on the CPU (`--device cpu --backend cpu` as the
+    driver's flags set it): 4 replicas, quorum 3, Bulwark with the file's
+    rates and [tenancy.weights], tenancy on: a tenant's PutSet is its own,
+    another tenant's GetSet of it answers the typed 403, /health counts the
+    owned key, and stop detaches Chronoscope and the Watchtower."""
+    from dds_tpu_torch.http.miniserver import http_request
+    from dds_tpu_torch.obs.chronoscope import chronoscope
+    from dds_tpu_torch.obs.watchtower import watchtower
+
+    monkeypatch.delenv("DDS_SECRET_DEVICE", raising=False)
+    cfg = DDSConfig.load(ROOT / "configs" / "tenancy.toml")
+    cfg.proxy.device = "cpu"
+    cfg.proxy.crypto_backend = "cpu"
+    cfg.proxy.port = 0
+
+    async def boot():
+        dep = await launch(cfg)
+        try:
+            s = dep.server
+            port = s.cfg.port
+            gold = {"x-dds-tenant": "gold"}
+            status, key = await http_request("127.0.0.1", port, "POST", "/PutSet",
+                                             b'{"contents": ["7"]}', headers=gold)
+            mine, _ = await http_request("127.0.0.1", port, "GET", f"/GetSet/{key.decode()}",
+                                         headers=gold)
+            theirs, body = await http_request("127.0.0.1", port, "GET",
+                                              f"/GetSet/{key.decode()}",
+                                              headers={"x-dds-tenant": "batch-etl"})
+            _, health = await http_request("127.0.0.1", port, "GET", "/health")
+            return (len(dep.replicas), s.abd.cfg.quorum_size, s._tenancy_enabled,
+                    s.admission.tenant_weights, s.admission.rates["aggregate"],
+                    chronoscope.stats()["attached"], watchtower.attached, status, mine,
+                    theirs, json.loads(body)["error"], json.loads(health)["tenants"])
+        finally:
+            await dep.stop()
+
+    out = asyncio.run(asyncio.wait_for(boot(), 60))
+    assert out == (4, 3, True, {"gold": 3.0, "batch-etl": 0.5}, (64.0, 128.0), True, True,
+                   200, 200, 403, "cross-tenant access denied",
+                   {"owned_keys": 1, "shed": []})
+    assert not chronoscope.stats()["attached"] and not watchtower.attached
+
+
 def test_cli_launches_default_toml_with_the_backend_flag(monkeypatch, capsys):
     """`python -m dds_tpu_torch.run --config configs/default.toml --device
     cpu --backend cpu --ops 0`: boots, runs no workload, stops."""
@@ -284,9 +332,11 @@ def test_cli_launches_default_toml_with_the_backend_flag(monkeypatch, capsys):
         return dep
 
     monkeypatch.setattr(runmod, "launch", spy)
-    runmod.main(["--config", str(ROOT / "configs" / "default.toml"), "--device", "cpu",
-                 "--backend", "cpu", "--ops", "0"])
-    assert seen == {"backend": "cpu", "device": "cpu"}
+    for name in ("default.toml", "tenancy.toml"):
+        seen.clear()
+        runmod.main(["--config", str(ROOT / "configs" / name), "--device", "cpu",
+                     "--backend", "cpu", "--ops", "0", "--port", "0"])
+        assert seen == {"backend": "cpu", "device": "cpu"}, name
     with pytest.raises(SystemExit):
         runmod.main(["--backend", "tpu"])
 

@@ -3,8 +3,9 @@ modexp, the Karatsuba families' launches, the folds composed of them
 (`fold_many`, the resident plane's fused fold, Prism's weighted fold), the
 Sanctum decrypt's per-column-modulus product and ladder
 (`csrc/mont_rowmod.cu`) with the device plan's full chunk, a host
-backend's planes on `[proxy] device`, and `configs/default.toml` serving
-on the card with Bulwark, the SLO engine and the Watchtower.
+backend's planes on `[proxy] device`, `configs/default.toml` serving
+on the card with Bulwark, the SLO engine and the Watchtower, and
+`configs/tenancy.toml` folding two tenants' SumAlls under their own moduli.
 
 Marked `gpu`: on a host without a CUDA device every test here skips (the
 decision is made inside the `cuda` fixture, never at import, so every
@@ -991,3 +992,69 @@ def test_default_toml_serves_on_the_card_with_bulwark_slo_and_watchtower(cuda):
     assert slo["audit"]["ops_audited"] > 0 and slo["audit"]["violations"] == {}
     assert "SumAll" in slo["slo"]["routes"] and "admission" in slo
     assert not watchtower.attached
+
+
+def test_tenancy_toml_folds_each_tenants_sumall_under_its_own_modulus(cuda):
+    """configs/tenancy.toml on the card (`crypto-backend = "cuda"`): two
+    tenants, each with its own Paillier-2048 family from a
+    `TenantKeyring`, PutSet 256 rows each (blinded on the card, B3); each
+    tenant's SumAll under its own n^2 folds exactly its own rows on B1 (a
+    launch count of its own each) and decrypts to its plaintext total,
+    and the backend holds one device store a modulus."""
+    import asyncio
+    import json
+    import pathlib
+
+    from dds_tpu_torch.http.miniserver import http_request
+    from dds_tpu_torch.models.tenancy import TenantKeyring
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils.config import DDSConfig
+
+    kr = TenantKeyring(paillier_bits=2048, rsa_bits=1024)
+    tenants = ("gold", "batch-etl")
+    rng = np.random.default_rng(15)
+    plain = {t: [int(x) for x in rng.integers(0, 1 << 30, 256)] for t in tenants}
+    root = pathlib.Path(__file__).resolve().parent.parent
+    cfg = DDSConfig.load(root / "configs" / "tenancy.toml")
+    cfg.proxy.crypto_backend = "cuda"
+    cfg.proxy.port = 0
+    cfg.proxy.min_device_batch = 0
+
+    async def go():
+        dep = await launch(cfg)
+        be = dep.server.backend
+        try:
+            port = dep.server.cfg.port
+            cts = {t: kr.keys_for(t).psse.public.encrypt_batch(plain[t], be) for t in tenants}
+            for t in tenants:
+                for c in cts[t]:
+                    status, _ = await http_request(
+                        "127.0.0.1", port, "POST", "/PutSet",
+                        json.dumps({"contents": [str(c)]}).encode(),
+                        headers={"x-dds-tenant": t})
+                    assert status == 200
+            out = {}
+            for t in tenants:
+                n2 = kr.keys_for(t).psse.nsquare
+                for c in mont_cuda.LAUNCHES.values():
+                    c.reset()
+                status, body = await http_request(
+                    "127.0.0.1", port, "GET", f"/SumAll?position=0&nsqr={n2}",
+                    headers={"x-dds-tenant": t}, timeout=120.0)
+                torch.cuda.synchronize()
+                out[t] = (status, int(json.loads(body)["result"]),
+                          mont_cuda.LAUNCHES["mont_mul"].value)
+            return cts, out, len(be._stores), be.device.type
+        finally:
+            await dep.stop()
+
+    cts, out, stores, device = asyncio.run(asyncio.wait_for(go(), 300))
+    assert device == "cuda" and stores >= 2
+    for t in tenants:
+        n2 = kr.keys_for(t).psse.nsquare
+        fold = 1
+        for c in cts[t]:
+            fold = fold * c % n2
+        status, result, launches = out[t]
+        assert status == 200 and result == fold and launches > 0
+        assert kr.decrypt(t, result) == sum(plain[t])
