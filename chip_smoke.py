@@ -15,8 +15,10 @@ dependability plane (SumAlls folding on the card through proactive,
 byzantine and crash recoveries, snapshots and anti-entropy) and
 configs/default.toml served as it stands with Bulwark admission control,
 the SLO engine and the Watchtower auditor through an overload window,
-and configs/tenancy.toml's Bastion tenancy (each tenant folding under its
-own Paillier-2048 modulus, a noisy neighbour, a crypto-shred) — and holds
+configs/tenancy.toml's Bastion tenancy (each tenant folding under its
+own Paillier-2048 modulus, a noisy neighbour, a crypto-shred) and
+configs/heliograph.toml's active canary (golden transactions decrypted
+and verified beside user folds on the card, the corruption drill) — and holds
 every CUDA kernel on them against its plain PyTorch version. The phases
 before `recovery` turn the audit and /slo off in the configs they build
 (EARLIER_OBS_CUTS), and every phase before `tenancy` runs with the
@@ -271,12 +273,13 @@ non-zero:
               /slo, the audit, Chronoscope. Four victims (gold, tenant-00,
               tenant-01, batch-etl) and a flooder, each with its own
               family from TenantKeyring(2048, 1024) (key generation
-              timed): 2,048 rows a victim and 512 for the flooder, blinded
+              timed): 1,024 rows a victim and 256 for the flooder (cut
+              from 2,048 and 512 for the run's time, DEPTH_CUTS), blinded
               on the card (one B3 pow_mod a tenant) and written by PutSet
               under the tenant's header, 8 in flight; one SumAll a victim,
               then the four at once, each the Python fold of exactly its
               own rows under its own n^2, decrypting to its total, with
-              its B1 launches (12 at K = 2,048); the isolation gates (a
+              its B1 launches (11 at K = 1,024); the isolation gates (a
               typed 403 for a cross-tenant GetSet and for a PutSet
               replaying another tenant's content, a SumAll under another
               tenant's n^2 folding only the caller's rows, 2 canary rows
@@ -299,13 +302,49 @@ non-zero:
               with Retry-After >= 1, no victim GetSet 429, no 500, 0
               Watchtower violations over the whole phase; the phase's
               seconds beside its 150 s budget;
-21. kernels   one {"kernels": [...]} line (every kernel must have launched
+21. heliograph configs/heliograph.toml as it stands on `cuda` (printed
+              overrides: the backend, an OS-assigned port, the east and
+              west targets failing as unresolvable names without a lookup,
+              the phase's data): 4 replicas, quorum 3, the prober at the
+              file's cadence 5 s (jitter 0.5, deadline 2 s, slow-ms 250,
+              population 4 under 512-bit canary keys, the five probe kinds,
+              the loopback then east and west, streak 3), the audit,
+              /metrics, /slo. The first probe cycle on the canary-only
+              store, every kind ok and no B1 launch; the drill there
+              (benchmarks/canary_overhead.py's: the prober's loop driven at
+              0.25 s, one canary PSSE ciphertext corrupted in place on every
+              replica, a GetSet of it still 200, loopback cycles counted
+              until the sum probe reads wrong_answer (and on until east and
+              west stand at their streak of 3), the Watchtower's
+              verdicts only canary_wrong_answer, one of them /canary's
+              exemplar; then the row re-put by a putget and the sum probe
+              ok again); K = 8,192 rows of the bench key blinded on the card
+              (B3) and loaded by PutSet 64 in flight with the prober
+              running; 6 user SumAlls, each the Python fold of exactly the
+              K rows (no canary row) and decrypting to the total, 14 B1
+              launches each; the kernel sentry's cuda:: rows of those folds
+              written as the baseline file (DDS_KERNEL_BASELINE, else the
+              port's dds_tpu_torch/kernel_baseline.json) and 3 more
+              SumAlls compared against it (printed, not gated);
+              canary_overhead.py's shape: a 10 s open-loop window of GetSets
+              (30/s) and SumAlls (2/s) with the prober off, then on, each
+              SumAll exact, overhead_pct beside the reference's 1 % bar
+              (printed, not gated); the routes /profile, ?fmt=folded,
+              /canary, POST /_sync, /_trace (404: the file's debug is off),
+              /health's canary section, /metrics' dds_canary_*, /slo's
+              canary.<kind> streams. Gates: B1's launches over the phase
+              exactly 14 a user SumAll plus the blinding's, 0 in the
+              probe-only windows; east and west at their streak of 3; no
+              500. Printed: verdicts by kind and target, probe latencies,
+              the phase's seconds beside its 120 s budget;
+22. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
               launch; the analytics requests' launches are the paths
               "analytics" and "analytics_rest", the rowmod kernels' the
               path "decrypt", `decrypt_rows`' run, B1's the paths
-              "recovery", "sumall_audited", "bulwark" and "tenancy", B3's
-              "client" and "tenancy"); then one
+              "recovery", "sumall_audited", "bulwark", "tenancy" and
+              "heliograph", B3's "client", "tenancy" and "heliograph");
+              then one
               {"search": ...}
               line: each predicate op's calls on the indexed stack (gates,
               timing and rounds), calls a query, held ms, bound and rows/s
@@ -317,8 +356,9 @@ non-zero:
               `wait_recovery_idle`), StateChunks, keys and bytes, the fault
               windows and their failures, the snapshot and anti-entropy
               figures, the phase's seconds beside its 150 s budget; then
-              one {"bulwark": ...} and one {"tenancy": ...} line with those
-              phases' whole records; then the card's name and power limit;
+              one {"bulwark": ...}, one {"tenancy": ...} and one
+              {"heliograph": ...} line with those phases' whole records;
+              then the card's name and power limit;
               then the result line.
 
     python3 chip_smoke.py              # on the card (needs one GPU)
@@ -1301,11 +1341,16 @@ CHRONOSCOPE_CUT = "off before the tenancy phase (chronoscope.enabled = False)"
 # query over 4,192 keys in PR 15's first full run of 1,065 s)
 MIXED_CUT = {"preload": "4096 -> 2048 rows", "ops_per_client": "200 -> 25"}
 # the depth of other earlier paths, cut for the run's time once the
-# tenancy phase joined (PR 15's full run 2 took 1,528 s on a slow host:
-# recovery 214 s, bulwark 154, resident 89, tiered 84, multall 63)
-DEPTH_CUTS = {"multall.K": "16384 -> 8192 records", "recovery.K": "8192 -> 4096 rows",
-              "bulwark.K": "8192 -> 4096 rows", "resident.reps": "2 -> 1",
-              "tiered.reps": "3 -> 2"}
+# tenancy phase joined (a full run took 1,528 s on a slow host: recovery
+# 214 s, bulwark 154, resident 89, tiered 84, multall 63), and again once
+# the heliograph phase joined (its full runs took 1,101.6 s and 1,157.6 s
+# on slow hosts: the tenancy load 86.7 s at 8 in flight; the recovery load
+# and read-back 47 and 33 s, the bulwark load 50 s, at 4,096 rows)
+DEPTH_CUTS = {"multall.K": "16384 -> 8192 records",
+              "recovery.K": "8192 -> 4096 -> 2048 rows",
+              "bulwark.K": "8192 -> 4096 -> 2048 rows", "resident.reps": "2 -> 1",
+              "tiered.reps": "3 -> 2",
+              "tenancy.rows": "2048 -> 1024 a victim, 512 -> 256 the flooder"}
 
 
 def earlier_config():
@@ -4958,6 +5003,422 @@ async def phase_tenancy(dev, sizes) -> dict:
     return rec
 
 
+HELIOGRAPH_BUDGET_S = 120.0
+# configs/heliograph.toml's settings the phase overrides (printed);
+# everything else stands as the file says
+HELIOGRAPH_OVERRIDES = {
+    "proxy.crypto_backend": "cuda (the file names none: the reference's default is its "
+                            "cpu host backend)",
+    "proxy.port": "0 (an OS-assigned port for the file's 8080)",
+    "targets": "east=proxy-east:8080 and west=proxy-west:8080 stand as the file says; on "
+               "a sealed host neither name resolves, and the phase's canary transport "
+               "fails them as such a resolver does (socket.gaierror EAI_NONAME) without "
+               "a lookup leaving the host",
+    "data": "bench_paillier_key(2048): K rows of one PSSE column, seeded plaintexts "
+            "blinded on the card (B3, one pow_mod)",
+}
+
+
+def heliograph_config(dev):
+    """configs/heliograph.toml as it stands (4 replicas, quorum 3, f = 1,
+    [heliograph] on: cadence 5 s, jitter 0.5, deadline 2 s, slow-ms 250,
+    population 4 under 512-bit canary keys, the five probe kinds, the
+    loopback plus east and west, an unreachable streak of 3; the audit,
+    /metrics and /slo on) with the `cuda` backend on `dev` and an
+    OS-assigned port."""
+    import pathlib
+
+    from dds_tpu_torch.utils.config import DDSConfig
+
+    cfg = DDSConfig.load(pathlib.Path(__file__).resolve().parent / "configs" / "heliograph.toml")
+    cfg.proxy.crypto_backend = "cuda"
+    cfg.proxy.device = dev.type
+    cfg.proxy.port = 0
+    return cfg
+
+
+def sealed_transport(real, unresolved: set):
+    """The canary client's transport with `unresolved` host names failing
+    as a resolver that does not know them fails, before any lookup."""
+    import socket
+
+    async def transport(host, port, *a, **kw):
+        if host in unresolved:
+            raise socket.gaierror(socket.EAI_NONAME, "Name or service not known")
+        return await real(host, port, *a, **kw)
+
+    return transport
+
+
+async def phase_heliograph(dev, sizes) -> dict:
+    """configs/heliograph.toml served on the card (HELIOGRAPH_OVERRIDES
+    printed): the prober's first cycle on the canary-only store; the
+    corruption drill there (benchmarks/canary_overhead.py's drill: the
+    prober's loop driven at `helio_drill_cadence`, one canary PSSE
+    ciphertext corrupted on every replica past the HMAC boundary, loopback
+    cycles counted until the sum probe reads `wrong_answer`, then the row
+    re-put); K user rows blinded on the card (B3) and loaded by PutSet with
+    the prober running at the file's cadence; user SumAlls, each the Python
+    fold of exactly the K rows under n^2 and decrypting to the total; the
+    kernel sentry's `cuda::` rows written as the baseline file
+    (`sentry.baseline_path()`) and a second SumAll round compared against
+    it; canary_overhead.py's
+    shape: an open-loop window of GetSets and SumAlls with the prober off,
+    then on; the observability routes. Gates: every user SumAll exact and
+    on B1 (14 launches each at K = 8,192), B1's launches over the phase
+    exactly the SumAlls' and the blinding's, none from a probe-only window;
+    no probe `wrong_answer` before the drill; the drill's `wrong_answer`
+    with only `canary_wrong_answer` Watchtower verdicts, one of them
+    /canary's exemplar; /health's canary section, /metrics' dds_canary_*;
+    east and west at their streak; no 500."""
+    import os
+
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.clt import canary
+    from dds_tpu_torch.http.miniserver import http_request
+    from dds_tpu_torch.models.backend import get_backend
+    from dds_tpu_torch.obs import sentry
+    from dds_tpu_torch.obs.chronoscope import chronoscope
+    from dds_tpu_torch.obs.heliograph import seed_ciphertext_corruption
+    from dds_tpu_torch.obs.metrics import metrics
+    from dds_tpu_torch.obs.watchtower import watchtower
+    from dds_tpu_torch.ops import mont_cuda
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils.trace import tracer
+
+    t_phase = time.perf_counter()
+    cfg = heliograph_config(dev)
+    hc = cfg.heliograph
+    extra, _ = canary.parse_canary_targets(hc.targets)
+    K = sizes["helio_K"]
+    fold_launches = (K - 1).bit_length() + 1  # the halving tree's levels and the fix
+    key = bench_paillier_key(sizes["key_bits"])
+    pk = key.public
+    rec: dict = {"overrides": HELIOGRAPH_OVERRIDES, "K": K, "key_bits": sizes["key_bits"],
+                 "replicas": len(cfg.replicas.endpoints), "quorum": cfg.replicas.byz_quorum_size,
+                 "heliograph": {k: getattr(hc, k) for k in (
+                     "cadence", "jitter", "deadline", "slow_ms", "population", "paillier_bits",
+                     "rsa_bits", "probes", "targets", "unreachable_streak", "rate", "burst")},
+                 "audit": cfg.obs.audit_enabled, "slo_route": cfg.obs.slo_route}
+
+    def step(name: str, **kw) -> None:
+        emit("heliograph_step", step=name, at_s=time.perf_counter() - t_phase, **kw)
+
+    def b1() -> int:
+        sync(dev)
+        return mont_cuda.LAUNCHES["mont_mul"].value
+
+    step("config", **rec)
+    answers: list[dict] = []
+
+    async def req(method: str, target: str, obj=None, where: str = "") -> tuple[int, bytes]:
+        t0 = time.perf_counter()
+        status, data = await http_request(
+            "127.0.0.1", port, method, target,
+            json.dumps(obj).encode() if obj is not None else None, timeout=600.0)
+        answers.append({"where": where, "status": status,
+                        "ms": (time.perf_counter() - t0) * 1e3})
+        if status == 500:
+            raise AssertionError(f"heliograph: {method} {target[:40]} answered 500")
+        return status, data
+
+    probes: list = []  # every ProbeResult the ledger records in the phase
+    real_transport = canary.http_request
+    canary.http_request = sealed_transport(real_transport, {t.host for t in extra})
+    chronoscope_was = chronoscope.enabled
+    chronoscope.enabled = True  # the file's launch profiles (the "cuts" line)
+    os_karatsuba = os.environ.pop("DDS_KARATSUBA", None)
+    metrics.reset()
+    tracer.reset()
+    reset_counts()  # path "heliograph" starts here
+    dep = await launch(cfg)
+    server = dep.server
+    port = server.cfg.port
+    h = server.heliograph
+    record = h.ledger.record
+    h.ledger.record = lambda r: (probes.append(r), record(r))[1]
+    sumalls = 0  # user SumAlls answered 200, each exact
+    try:
+        if h is None or not watchtower.attached:
+            raise AssertionError("heliograph: launch left the prober off or the Watchtower "
+                                 "detached")
+        loopback = h.targets[0]
+        # -- the first green cycle on the canary-only store
+        t = time.perf_counter()
+        while h.cycles < 1:
+            if time.perf_counter() - t > sizes["helio_first_wait_s"]:
+                raise AssertionError("heliograph: no probe cycle within the wait")
+            await asyncio.sleep(0.05)
+        first = {r.kind: r.verdict for r in probes if r.target == loopback.label}
+        rec["first"] = {"s": time.perf_counter() - t, "verdicts": first,
+                        "b1_launches": b1()}
+        step("first", **rec["first"])
+        if set(first) != set(hc.probes) or any(v not in ("ok", "slow") for v in first.values()):
+            raise AssertionError(f"heliograph: the first cycle read {first}")
+        # -- the drill on the canary-only store, the prober's loop driven
+        await h.stop()
+        c = h.client
+        base, n_t = h.cycles, len(h.targets)
+        # the rows the loopback cycles' putgets re-put, in turn: corrupt the
+        # last, so no putget heals it within the drill's budget
+        first_loopback = base + (-base) % n_t
+        victim = [(first_loopback + n_t * i) % c.population
+                  for i in range(c.population)][-1]
+        b1_drill = b1()
+        mutated = seed_ciphertext_corruption(dep.replicas, c.keys[victim], PSSE_POS)
+        passive, _ = await req("GET", f"/GetSet/{c.keys[victim]}", where="drill")
+        t = time.perf_counter()
+        # the loop's own rotation, driven until the sum probe has read the
+        # corruption and east and west stand at their streak, at most
+        # `helio_drill_cycles` loopback cycles
+        loopback_cycles, detected_at, cycles_at = 0, None, None
+        limit = first_loopback - base + sizes["helio_drill_cycles"] * n_t
+        while h.cycles - base < limit:
+            streaks = h.ledger.report()["region_streaks"]
+            if detected_at is not None and all(
+                    streaks.get(e.region, 0) >= hc.unreachable_streak for e in extra):
+                break
+            target = h.targets[h.cycles % n_t]
+            await h.run_cycle(target)
+            h.cycles += 1
+            if target is loopback:
+                loopback_cycles += 1
+                if detected_at is None and h.ledger.last("sum").verdict == "wrong_answer":
+                    detected_at, cycles_at = loopback_cycles, h.cycles - base
+                    drill_s = time.perf_counter() - t
+            await asyncio.sleep(sizes["helio_drill_cadence"])
+        detected = detected_at is not None
+        _, body = await req("GET", "/canary", where="drill")
+        exemplar = json.loads(body)["kinds"]["sum"].get("last_failure", {}).get("trace_id")
+        await dep.net.quiesce()
+        kinds = sorted({v.invariant for v in watchtower.verdicts()})
+        traces = {v.trace_id for v in watchtower.verdicts()}
+        # the golden row re-put: the same frozen ciphertext under a newer tag
+        healed = await c.probe_putget(loopback, c.mint_trace(), victim)
+        await h.run_cycle(loopback)
+        rec["drill"] = {"mutated": mutated, "row": victim, "passive_getset": passive,
+                        "detected": detected, "loopback_cycles_to_detect": detected_at,
+                        "cycles_to_detect": cycles_at, "s_to_detect": drill_s if detected
+                        else None, "cycles_driven": h.cycles - base, "exemplar": exemplar,
+                        "violation_kinds": kinds, "exemplar_filed": exemplar in traces,
+                        "healed": healed.correct, "sum_after_heal": h.ledger.last("sum").verdict,
+                        "b1_launches": b1() - b1_drill, "cadence_s": sizes["helio_drill_cadence"],
+                        "regions": sorted(h.unreachable_regions())}
+        step("drill", **rec["drill"])
+        if not (detected and mutated == len(dep.replicas) and passive == 200):
+            raise AssertionError(f"heliograph: the drill {rec['drill']}")
+        if kinds != ["canary_wrong_answer"] or exemplar not in traces:
+            raise AssertionError(f"heliograph: Watchtower after the drill {kinds}")
+        h.start()  # the prober's own loop, at the file's cadence
+        # -- the user's rows: blinding on the card (B3), then PutSet
+        rng = random.Random(sizes["helio_seed"])
+        plain = [rng.randrange(1 << 30) for _ in range(K)]
+        client_be = get_backend("cuda", device=dev.type)
+        before = b1()
+        t = time.perf_counter()
+        cts = pk.encrypt_batch(plain, client_be, min_batch=1)
+        sync(dev)
+        blind_s, blind_b1 = time.perf_counter() - t, b1() - before
+        blind_stats = sentry.collect()  # the blinding's kernel.pow spans
+        fold = host_product(cts, pk.nsquare)
+        sem = asyncio.Semaphore(sizes["helio_inflight"])
+
+        async def put(ct: int) -> None:
+            async with sem:
+                status, _ = await req("POST", "/PutSet", {"contents": [str(ct)]}, "load")
+                if status != 200:
+                    raise AssertionError(f"heliograph: a PutSet answered {status}")
+
+        t = time.perf_counter()
+        await asyncio.gather(*(put(ct) for ct in cts))
+        load_s = time.perf_counter() - t
+        rec["load"] = {"rows": K, "s": load_s, "putsets_per_s": K / load_s,
+                       "blind_s": blind_s, "blind_b1_launches": blind_b1,
+                       "inflight": sizes["helio_inflight"]}
+        step("load", **rec["load"])
+
+        async def sumall(where: str) -> float:
+            nonlocal sumalls
+            t0 = time.perf_counter()
+            status, data = await req("GET", f"/SumAll?position=0&nsqr={pk.nsquare}",
+                                     where=where)
+            result = int(json.loads(data)["result"]) if status == 200 else None
+            if result != fold or key.decrypt(result) != sum(plain):
+                raise AssertionError(f"heliograph: a {where} SumAll answered {status}, not "
+                                     f"the fold of the {K} user rows")
+            sumalls += 1
+            return (time.perf_counter() - t0) * 1e3
+
+        # -- user SumAlls with the prober running, then the sentry's baseline
+        before, n0 = b1(), sumalls
+        tracer.reset()
+        ms = [await sumall("sumall") for _ in range(sizes["helio_sumalls"])]
+        per = (b1() - before) / (sumalls - n0)
+        baseline_path = str(sentry.baseline_path())
+        base_stats = sentry.collect()
+        sentry.save_baseline(base_stats, baseline_path, overwrite=True)
+        tracer.reset()
+        ms2 = [await sumall("compare") for _ in range(sizes["helio_sumalls_compare"])]
+        fresh = sentry.collect()
+        rec["sumall"] = {"ms": ms, "ms_p50": statistics.median(ms), "b1_per_sumall": per,
+                         "compare_ms": ms2}
+        rec["sentry"] = {"platform": sentry.platform(), "baseline_path": baseline_path,
+                         "blinding": blind_stats, "baseline": base_stats, "fresh": fresh,
+                         "findings": sentry.compare(sentry.load_baseline(baseline_path), fresh)}
+        step("sumall", **rec["sumall"])
+        step("sentry", **rec["sentry"])
+        if dev.type == "cuda" and per != fold_launches:
+            raise AssertionError(f"heliograph: {per} B1 launches a user SumAll, "
+                                 f"not {fold_launches}")
+        # -- the canary's cost: an open-loop window, the prober off, then on
+        keys_of = [k for k in sorted(server.stored_keys) if k not in server._canary_keys]
+        window = sizes["helio_window_s"]
+
+        def schedule(seed: int) -> list[tuple[str, float, str]]:
+            srng = random.Random(seed)
+            out, at = [], 0.0
+            rate = sizes["helio_getset_rate"] + sizes["helio_sumall_rate"]
+            share = sizes["helio_sumall_rate"] / rate
+            while at < window:
+                op = "SumAll" if srng.random() < share else "GetSet"
+                out.append((op, at, keys_of[srng.randrange(len(keys_of))]))
+                at += srng.expovariate(rate)
+            return out
+
+        async def drive(arrivals) -> list[dict]:
+            out: list[dict] = []
+
+            async def fire(op: str, k: str) -> None:
+                target = (f"/GetSet/{k}" if op == "GetSet"
+                          else f"/SumAll?position=0&nsqr={pk.nsquare}")
+                t0 = time.perf_counter()
+                status, data = await http_request("127.0.0.1", port, "GET", target,
+                                                  timeout=600.0)
+                out.append({"op": op, "status": status, "ms": (time.perf_counter() - t0) * 1e3,
+                            "exact": op == "GetSet" or (
+                                status == 200 and int(json.loads(data)["result"]) == fold)})
+
+            t0, pending = time.perf_counter(), []
+            for op, at, k in arrivals:
+                delay = at - (time.perf_counter() - t0)
+                if delay > 0:
+                    await asyncio.sleep(delay)
+                pending.append(asyncio.ensure_future(fire(op, k)))
+            await asyncio.gather(*pending)
+            return out
+
+        windows = {}
+        for label, on in (("off", False), ("on", True)):
+            if not on:
+                await h.stop()
+            else:
+                h.start()
+            before, cycles0 = b1(), h.cycles
+            with concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="helio") as pool:
+                got = await asyncio.get_running_loop().run_in_executor(
+                    pool, lambda: asyncio.run(drive(schedule(sizes["helio_seed"] + 1))))
+            if any(a["status"] != 200 or not a["exact"] for a in got):
+                raise AssertionError(f"heliograph: window {label}: "
+                                     f"{[a for a in got if a['status'] != 200][:3]}")
+            n_sum = sum(1 for a in got if a["op"] == "SumAll")
+            sumalls += n_sum
+            slo_ms = 250.0
+            good = sum(1 for a in got if a["ms"] <= slo_ms)
+            windows[label] = {
+                "requests": len(got), "good_within_250ms": good, "sumalls": n_sum,
+                "getset_p50_ms": pct([a["ms"] for a in got if a["op"] == "GetSet"], 50),
+                "getset_p95_ms": pct([a["ms"] for a in got if a["op"] == "GetSet"], 95),
+                "sumall_p50_ms": pct([a["ms"] for a in got if a["op"] == "SumAll"], 50),
+                "sumall_p95_ms": pct([a["ms"] for a in got if a["op"] == "SumAll"], 95),
+                "prober_cycles": h.cycles - cycles0, "b1_launches": b1() - before}
+            step(f"window_{label}", **windows[label])
+        rec["overhead"] = {**windows, "window_s": window,
+                           "getset_rate": sizes["helio_getset_rate"],
+                           "sumall_rate": sizes["helio_sumall_rate"],
+                           "overhead_pct": (1.0 - windows["on"]["good_within_250ms"]
+                                            / max(1, windows["off"]["good_within_250ms"])) * 100,
+                           "reference_bar_pct": 1.0}
+        step("overhead", overhead_pct=rec["overhead"]["overhead_pct"], bar_pct=1.0)
+        # -- the observability routes on the card stack
+        routes = {}
+        for method, target, obj in (("GET", "/profile", None), ("GET", "/profile?fmt=folded", None),
+                                    ("GET", "/canary", None), ("POST", "/_sync", {"keyset": []}),
+                                    ("GET", "/_trace", None), ("GET", "/health", None),
+                                    ("GET", "/metrics", None), ("GET", "/slo", None)):
+            status, data = await req(method, target, obj, "routes")
+            routes[f"{method} {target}"] = status
+            if target == "/health":
+                health = json.loads(data)["canary"]
+            elif target == "/metrics":
+                series = sorted({ln.split("{")[0].split(" ")[0] for ln in
+                                 data.decode().splitlines() if ln.startswith("dds_canary_")})
+            elif target == "/slo":
+                streams = sorted(r for r in json.loads(data)["slo"]["routes"]
+                                 if r.startswith("canary."))
+            elif target == "/canary":
+                report = json.loads(data)
+        rec["routes"] = {"statuses": routes, "health": health, "series": series,
+                         "slo_streams": streams}
+        step("routes", **rec["routes"])
+        expected = {"GET /profile": 200, "GET /profile?fmt=folded": 200, "GET /canary": 200,
+                    "POST /_sync": 204, "GET /_trace": 404, "GET /health": 200,
+                    "GET /metrics": 200, "GET /slo": 200}
+        if routes != expected or "status" not in health or "dds_canary_probes_total" not in series:
+            raise AssertionError(f"heliograph: the routes {rec['routes']}")
+        await dep.net.quiesce()
+        rec["watchtower"] = watchtower.stats()
+        rec["violation_kinds"] = sorted({v.invariant for v in watchtower.verdicts()})
+        rec["regions"] = sorted(h.unreachable_regions())
+        rec["region_streaks"] = report["region_streaks"]
+        rec["cycles"] = h.cycles
+    finally:
+        await dep.stop()
+        canary.http_request = real_transport
+        chronoscope.enabled = chronoscope_was
+        if os_karatsuba is not None:
+            os.environ["DDS_KARATSUBA"] = os_karatsuba
+    by = collections.defaultdict(collections.Counter)
+    lat = collections.defaultdict(list)
+    for r in probes:
+        by[f"{r.kind}@{r.region or 'loopback'}"][r.verdict] += 1
+        if r.verdict in ("ok", "slow", "wrong_answer"):
+            lat[r.kind].append(r.latency_s * 1e3)
+    rec["verdicts"] = {k: dict(v) for k, v in sorted(by.items())}
+    rec["probe_ms"] = {k: {"p50": pct(v, 50), "p95": pct(v, 95), "n": len(v)}
+                       for k, v in sorted(lat.items())}
+    counts = read_counts(dev)
+    rec["launches"] = {k: counts[k] for k in ("mont_mul", "mont_exp")}
+    rec["b1_expected"] = fold_launches * sumalls + rec["load"]["blind_b1_launches"]
+    rec["user_sumalls"] = sumalls
+    rec["statuses"] = {w: dict(collections.Counter(a["status"] for a in answers
+                                                  if a["where"] == w))
+                       for w in ("drill", "load", "sumall", "compare", "routes")}
+    if dev.type == "cuda":
+        if min(rec["launches"].values()) <= 0:
+            raise AssertionError(f"heliograph: B1 or B3 never launched: {rec['launches']}")
+        if rec["launches"]["mont_mul"] != rec["b1_expected"]:
+            raise AssertionError(f"heliograph: {rec['launches']['mont_mul']} B1 launches, "
+                                 f"expected {rec['b1_expected']} ({fold_launches} a user "
+                                 f"SumAll and the blinding's): a probe folded on the card")
+        if rec["first"]["b1_launches"] or rec["drill"]["b1_launches"]:
+            raise AssertionError("heliograph: a probe-only window launched B1")
+    if rec["violation_kinds"] != ["canary_wrong_answer"]:
+        raise AssertionError(f"heliograph: Watchtower verdicts {rec['violation_kinds']}")
+    if rec["regions"] != sorted(t.region for t in extra) or any(
+            rec["region_streaks"].get(t.region, 0) < hc.unreachable_streak for t in extra):
+        raise AssertionError(f"heliograph: region streaks {rec['region_streaks']}")
+    if watchtower.attached or chronoscope.stats()["attached"]:
+        raise AssertionError("heliograph: stop left the Watchtower or Chronoscope attached")
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["budget_s"] = HELIOGRAPH_BUDGET_S
+    emit("heliograph", **{k: rec[k] for k in (
+        "seconds", "budget_s", "launches", "b1_expected", "user_sumalls", "first", "drill",
+        "load", "sumall", "verdicts", "probe_ms", "regions", "region_streaks",
+        "violation_kinds")}, overhead={k: rec["overhead"][k] for k in (
+            "overhead_pct", "reference_bar_pct")})
+    return rec
+
+
 def kernel_times(sizes) -> dict:
     """CUDA-event ms of the B1, P, B3, B4, B5 and REDC launches at the
     timing phases' shapes (single launches with the stream held,
@@ -5126,25 +5587,38 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   decrypt_reps=3, rowmod_B=8192, rowmod_E=32, decrypt_plain_cols=64,
                   # the recovery phase: bft_sum's K rows on default.toml's
                   # topology, its timers as they stand, Trudy's seed
-                  recovery_K=4096, recovery_scale=1.0, recovery_seed=5,
+                  recovery_K=2048, recovery_scale=1.0, recovery_seed=5,
                   # the bulwark phase: bft_sum's K on default.toml as it
                   # stands; overload_goodput.py's rates, seed and a 10 s
                   # window, then a 5 s tail
-                  bulwark_K=4096, bulwark_load_inflight=8, bulwark_flood_s=10.0,
+                  bulwark_K=2048, bulwark_load_inflight=8, bulwark_flood_s=10.0,
                   bulwark_tail_s=5.0,
                   bulwark_interactive_rate=30.0, bulwark_aggregate_rate=400.0,
                   bulwark_seed=11,
-                  # the tenancy phase: configs/tenancy.toml's key bits; 2,048
-                  # rows a victim, 512 for the flooder; tenant_isolation.py's
+                  # the tenancy phase: configs/tenancy.toml's key bits; 1,024
+                  # rows a victim, 256 for the flooder (2,048 and 512 before
+                  # the heliograph phase joined; DEPTH_CUTS); tenant_isolation.py's
                   # Zipf s, victim rate and aggregate share, a 10 s window,
                   # the flood from 2 s before it at 4 x the file's aggregate
                   # rate of 64/s
-                  tenancy_paillier_bits=2048, tenancy_rsa_bits=1024, tenancy_rows=2048,
-                  tenancy_flood_rows=512, tenancy_load_inflight=8, tenancy_seed=15,
+                  tenancy_paillier_bits=2048, tenancy_rsa_bits=1024, tenancy_rows=1024,
+                  tenancy_flood_rows=256, tenancy_load_inflight=8, tenancy_seed=15,
                   tenancy_zipf_s=1.2, tenancy_interactive_rate=40.0, tenancy_agg_frac=0.1,
                   tenancy_window_s=10.0, tenancy_lead_s=2.0, tenancy_flood_rate=256.0,
+                  # the heliograph phase: bft_sum's K on heliograph.toml as it
+                  # stands, 64 PutSets in flight (the file arms no admission);
+                  # canary_overhead.py's drill cadence (its --drill-cadence),
+                  # at most 3 loopback cycles (the 4th re-puts the corrupted
+                  # row); a 10 s open-loop window a side, GetSets at 30/s and
+                  # SumAlls at 2/s
+                  helio_K=8192, helio_inflight=64, helio_sumalls=6, helio_sumalls_compare=3,
+                  helio_drill_cadence=0.25, helio_drill_cycles=3, helio_window_s=10.0,
+                  helio_getset_rate=30.0, helio_sumall_rate=2.0, helio_seed=16,
+                  helio_first_wait_s=60.0,
                   # the plain ladder of the exp timing on 1,024 of its 8,192
-                  # columns, for the run's time (it took 83 s on all of them)
+                  # columns, for the run's time (it took 83 s on all of them;
+                  # 256 columns took as long as 1,024: the ladder's launches,
+                  # not its columns, set its time)
                   exp_plain_cols=1024)
 
 
@@ -5205,7 +5679,11 @@ def main(argv=None) -> int:
                      tenancy_rows=32, tenancy_flood_rows=16, tenancy_load_inflight=8,
                      tenancy_seed=15, tenancy_zipf_s=1.2, tenancy_interactive_rate=20.0,
                      tenancy_agg_frac=0.1, tenancy_window_s=2.0, tenancy_lead_s=1.0,
-                     tenancy_flood_rate=64.0, exp_plain_cols=16)
+                     tenancy_flood_rate=64.0, helio_K=64, helio_inflight=16,
+                     helio_sumalls=2, helio_sumalls_compare=2, helio_drill_cadence=0.05,
+                     helio_drill_cycles=3, helio_window_s=2.0, helio_getset_rate=10.0,
+                     helio_sumall_rate=2.0, helio_seed=16, helio_first_wait_s=60.0,
+                     exp_plain_cols=16)
         card = {"name": "cpu (rehearsal)", **card_numbers(dev)}
     else:
         if not torch.cuda.is_available():
@@ -5224,6 +5702,7 @@ def main(argv=None) -> int:
     emit("cuts", earlier_phases=EARLIER_OBS_CUTS, recovery=RECOVERY_CUTS,
          timing_exp_plain_columns=sizes["exp_plain_cols"],
          bulwark_overrides=BULWARK_OVERRIDES, tenancy_overrides=TENANCY_OVERRIDES,
+         heliograph_overrides=HELIOGRAPH_OVERRIDES,
          chronoscope_before_tenancy=CHRONOSCOPE_CUT, mixed=MIXED_CUT, depth=DEPTH_CUTS)
 
     from dds_tpu_torch.bench_key import bench_paillier_key
@@ -5263,6 +5742,7 @@ def main(argv=None) -> int:
     recovery = timed("recovery", asyncio.run, phase_recovery(dev, sizes))
     bulwark = timed("bulwark", asyncio.run, phase_bulwark(dev, sizes))
     tenancy = timed("tenancy", asyncio.run, phase_tenancy(dev, sizes))
+    helio = timed("heliograph", asyncio.run, phase_heliograph(dev, sizes))
     emit("run", phase_seconds=took, seconds=time.perf_counter() - t_run)
 
     path = tim["path"]
@@ -5289,7 +5769,8 @@ def main(argv=None) -> int:
                              "recovery": recovery["launches"],
                              "sumall_audited": e2e["audited"]["launches"],
                              "bulwark": bulwark["launches"],
-                             "tenancy": tenancy["launches"]["mont_mul"]},
+                             "tenancy": tenancy["launches"]["mont_mul"],
+                             "heliograph": helio["launches"]["mont_mul"]},
         "max_abs_err": par["max_abs_err"],
         "per": f"one K={path['K']} fold ({path['launches']} launches) on the device; "
                f"wall_ms: back to back, paced by the host's dispatch",
@@ -5307,7 +5788,8 @@ def main(argv=None) -> int:
         "replaces": "dds_tpu/ops/pallas_mont.py:152",
         "tpu_twin": "pallas_mont._make_exp_kernel via _exp_call / exp_lm",
         "launches_by_path": {"client": client["exp_launches"],
-                             "tenancy": tenancy["launches"]["mont_exp"]},
+                             "tenancy": tenancy["launches"]["mont_exp"],
+                             "heliograph": helio["launches"]["mont_exp"]},
         "max_abs_err": max(par_exp["max_abs_err"], tim_exp["max_abs_err"]),
         "per": f"one launch, B={tim_exp['B']}, E={tim_exp['E']} "
                f"({tim_exp['exp_products_per_row']} products per row); plain_ms on "
@@ -5423,6 +5905,10 @@ def main(argv=None) -> int:
     print(json.dumps({"tenancy": {**tenancy, "card": card["smi"] if "smi" in card
                                   else card["name"],
                                   "run_seconds": time.perf_counter() - t_run}},
+                     default=str), flush=True)
+    print(json.dumps({"heliograph": {**helio, "card": card["smi"] if "smi" in card
+                                     else card["name"],
+                                     "run_seconds": time.perf_counter() - t_run}},
                      default=str), flush=True)
     if args.rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result", file=sys.stderr)

@@ -72,7 +72,21 @@ metrics-route`) serves the Prometheus text of `obs.metrics`, state gauges
 sampled at scrape time (with the `dds_admission_*`, `dds_slo_*` and
 `dds_audit_*` families). With a `supervisor` the proxy asks it for the
 freshest active replicas every `replica_refresh_interval` seconds, so a
-promoted spare joins its quorum view.
+promoted spare joins its quorum view. `GET /profile` (`?fmt=folded`,
+`profile_route_enabled`, on by default) serves Chronoscope's profile,
+whose `dds_pipe_*` gauges export at scrape time; `GET /_trace`
+(`trace_route_enabled`, `debug` or `[obs] trace-route`) the tracer's span
+summary, counters and store size; `POST /_sync` adds a peer's keys to the
+aggregate key set (204).
+
+With `[heliograph] enabled` the proxy starts Heliograph's prober
+(`obs/heliograph.py`) once its listener is bound: golden transactions
+under the canary tenant against its own loopback edge first, then each
+configured target, every answer decrypted and verified. `GET /canary`
+serves its report (`{"enabled": false}` without it), `/health` its
+`canary` section (`{"status": "disabled"}` without it) and `/metrics` the
+`dds_canary_*` gauges; `stop` cancels and awaits its task. /profile,
+/_trace and /canary are exempt from admission like /health.
 
 Every other route answers 404. The aggregate and search paths keep the
 reference's tag-validated cache and audit exactly: ONE batched tag-only
@@ -120,6 +134,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from dds_tpu_torch.analytics import Prism
+from dds_tpu_torch.clt.canary import CanaryTarget, parse_canary_targets
 from dds_tpu_torch.core.admission import AdaptiveCoalescer, AdmissionController, TokenBucket
 from dds_tpu_torch.core.errors import AllBreakersOpenError, ByzantineError
 from dds_tpu_torch.core.quorum_client import AbdClient
@@ -132,6 +147,7 @@ from dds_tpu_torch.models.det import DetKey
 from dds_tpu_torch.obs import context as obs_context
 from dds_tpu_torch.obs.chronoscope import chronoscope
 from dds_tpu_torch.obs.flight import flight
+from dds_tpu_torch.obs.heliograph import Heliograph
 from dds_tpu_torch.obs.metrics import metrics
 from dds_tpu_torch.obs.slo import SloEngine
 from dds_tpu_torch.obs.watchtower import watchtower
@@ -171,7 +187,8 @@ _RETRYABLE = (ByzantineError, asyncio.TimeoutError, NoTrustedNodesError, OSError
 # observability routes bypass admission, so operators can see why the edge
 # sheds while it sheds (the reference exempts its unported control and
 # fleet routes too)
-_ADMISSION_EXEMPT = frozenset({"health", "metrics", "slo"})
+_ADMISSION_EXEMPT = frozenset({"health", "metrics", "slo", "profile", "_trace",
+                               "canary"})
 
 
 @dataclass
@@ -220,14 +237,22 @@ class ProxyConfig:
     # active-replica refresh from the supervisor (None = no supervisor)
     supervisor: Optional[str] = None
     replica_refresh_interval: float = 5.0
+    # GET /_trace: per-span timing summary, the tracer's counters and the
+    # store size. Off by default: it reveals workload shape; launch turns
+    # it on with `debug` or `[obs] trace-route`
+    trace_route_enabled: bool = False
     # GET /metrics (Prometheus text)
     metrics_route_enabled: bool = True
     # GET /slo: per-route objectives and burn state, the Watchtower's audit
     # summary and, with admission on, the admission report
     slo_route_enabled: bool = True
+    # GET /profile (Chronoscope's per-route, per-stage profile and slow-trace
+    # exemplars; `?fmt=folded` the folded flamegraph text)
+    profile_route_enabled: bool = True
     # Bulwark (a utils.config.AdmissionConfig; None or disabled = every
-    # request admitted) and [heliograph], whose rate/burst size the canary
-    # tenant's carve-out bucket (the prober itself is not ported)
+    # request admitted) and [heliograph] (a utils.config.HeliographConfig):
+    # its rate/burst size the canary tenant's carve-out bucket, and with
+    # `enabled` the prober starts once the listener is bound
     admission: object = None
     heliograph: object = None
     # Bastion (a utils.config.TenancyConfig; None or disabled = one
@@ -394,6 +419,7 @@ class DDSRestServer:
         # through this dedicated bucket, so a squatter on the reserved id
         # can never flood the edge
         hcfg = self.cfg.heliograph
+        self.heliograph: Heliograph | None = None
         self._canary_bucket = TokenBucket(
             float(getattr(hcfg, "rate", 20.0) or 20.0),
             float(getattr(hcfg, "burst", 40.0) or 40.0),
@@ -412,6 +438,24 @@ class DDSRestServer:
         if self.admission is not None:
             self._tasks.append(supervised_task(self._admission_loop(),
                                                name="proxy.admission"))
+        hcfg = self.cfg.heliograph
+        if hcfg is not None and getattr(hcfg, "enabled", False):
+            # after the bind: the loopback target needs the resolved port
+            self.heliograph = Heliograph(hcfg, self._canary_targets(hcfg),
+                                         slo=self.slo, watchtower=watchtower)
+            self.heliograph.start()
+
+    def _canary_targets(self, hcfg) -> list[CanaryTarget]:
+        """Probe targets: this proxy's own loopback edge first, then each
+        configured "host:port" or "region=host:port" entry."""
+        host = self.cfg.host
+        if host in ("0.0.0.0", "::", ""):
+            host = "127.0.0.1"
+        targets = [CanaryTarget(host, self.cfg.port)]
+        extra, bad = parse_canary_targets(getattr(hcfg, "targets", []))
+        for entry in bad:
+            log.warning("heliograph: skipping malformed target %r", entry)
+        return targets + extra
 
     async def _replica_refresh_loop(self) -> None:
         while True:
@@ -419,6 +463,8 @@ class DDSRestServer:
             await asyncio.sleep(self.cfg.replica_refresh_interval)
 
     async def stop(self) -> None:
+        if self.heliograph is not None:
+            await self.heliograph.stop()
         await self._http.stop()
         for task in self._tasks:
             await _cancel_task(task)
@@ -1155,8 +1201,41 @@ class DDSRestServer:
             ) if self.prism is not None:
                 return await self._analytics(name, req)
 
+            case ("POST", "_sync"):
+                # a peer's gossip push: the keys join the aggregate key set
+                for k in J.parse_keys(req.json()):
+                    self._note_stored(k)
+                return Response(204)
+
             case ("GET", "health"):
                 return self._health()
+
+            case ("GET", "canary"):
+                # Heliograph's report: per-kind verdicts and latencies,
+                # counts, failure exemplars, region streaks
+                if self.heliograph is None:
+                    return Response.json({"enabled": False})
+                return Response.json(self.heliograph.report())
+
+            case ("GET", "profile") if self.cfg.profile_route_enabled:
+                # Chronoscope's per-route, per-stage profile; ?fmt=folded
+                # the flamegraph folded text
+                if req.query.get("fmt") == "folded":
+                    return Response(
+                        200, chronoscope.folded().encode(),
+                        content_type="text/plain; charset=utf-8",
+                    )
+                return Response.json(chronoscope.profile())
+
+            case ("GET", "_trace") if self.cfg.trace_route_enabled:
+                # per-span timing summary, the counters under their own key
+                # (occurrences, not durations) and the store size; no
+                # ciphertext or key leaves
+                return Response.json({
+                    "spans": tracer.summary(),
+                    "counters": tracer.counters(),
+                    "stored_keys": len(self.stored_keys),
+                })
 
             case ("GET", "slo") if self.cfg.slo_route_enabled:
                 # per-route objective and burn state, the Watchtower's audit
@@ -1219,6 +1298,12 @@ class DDSRestServer:
         recovery = self._recovery_status()
         if recovery is not None:
             health["recovery"] = recovery
+        # Heliograph's section, from the ledger's memory alone: a wedged
+        # prober reads "stale", never blocks the probe
+        health["canary"] = (
+            self.heliograph.health_section()
+            if self.heliograph is not None else {"status": "disabled"}
+        )
         resp = Response.json(health, status=503 if degraded else 200)
         if degraded:
             resp.headers["Retry-After"] = str(self._derive_retry_after())
@@ -1291,6 +1376,8 @@ class DDSRestServer:
             self._stratum.export_gauges(metrics)
         if self._search is not None:
             self._search.export_gauges(metrics)
+        # Chronoscope's dds_pipe_* gauges: per-route, per-stage self-times
+        chronoscope.export_gauges(metrics)
         metrics.set(
             "dds_queue_depth",
             sum(len(g) for g in self._fold_pending.values()),
@@ -1302,6 +1389,10 @@ class DDSRestServer:
             help="total label sets dropped into overflow series by the "
                  "per-family cardinality cap",
         )
+        # Heliograph's dds_canary_* gauges: last verdict and last-ok age a
+        # kind, failure exemplars, unreachable regions
+        if self.heliograph is not None:
+            self.heliograph.export_gauges(metrics)
         # SLO burn and budget gauges, and the audit backlog (the violation
         # counter increments at detection time in the auditor itself)
         self.slo.export_gauges(metrics)

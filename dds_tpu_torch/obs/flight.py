@@ -146,9 +146,7 @@ class FlightRecorder:
             "trace_id": trace_id,
             **self.identity,
             "info": info,
-            # the reference's incident format; no caller counts into its
-            # tracer's named counters, so the port's tracer keeps none
-            "counters": {},
+            "counters": tracer.counters(),
             "summary": tracer.summary(),
             "trace_spans": len(faulting),
             "ring_tail": len(tail),

@@ -1,7 +1,7 @@
 """Counters, gauges and fixed-bucket histograms; Prometheus text.
 
 Trimmed copy of `dds_tpu/obs/metrics.py`: the `Registry` (`inc`, `set`,
-`observe`, `value`, `render`, `reset`) and the process-wide `metrics`
+`observe`, `value`, `render`, `clear_family`, `reset`) and the process-wide `metrics`
 instance. The resident plane, its pools and ingest queue, Stratum's tiers
 and segment store, and Prism count into it under the reference's series
 names (`dds_resident_*`, `dds_tier_*`, `dds_queue_*`,
@@ -175,6 +175,16 @@ class Registry:
             if fam is None:
                 return 0.0
             return float(sum(fam.samples.values()))
+
+    def clear_family(self, name: str) -> None:
+        """Drop every series of one family (its help and kind stay): a
+        scrape-time gauge whose label values rotate (Heliograph's exemplar
+        trace ids) is cleared and re-set each sample, so rotation never
+        accretes series toward the cardinality cap."""
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is not None:
+                fam.samples.clear()
 
     def reset(self) -> None:
         with self._lock:

@@ -21,8 +21,11 @@ segment log in `[storage] dir` and the search plane indexes the
 Search*/Order*/Range columns, and `[analytics]` arms Prism's routes (on
 by default). The REST edge comes up as the reference wires it: `[admission]`
 (Bulwark's buckets, shed ratchet and adaptive coalescing window), the SLO
-engine built from `[obs]` (`GET /slo` with `slo-route`) and `[heliograph]
-rate/burst` for the canary tenant's bucket; `[tenancy]` (Bastion) makes
+engine built from `[obs]` (`GET /slo` with `slo-route`, `GET /_trace`
+with `debug` or `trace-route`, `GET /profile`) and `[heliograph]`: its
+rate/burst size the canary tenant's bucket and with `enabled` the proxy
+starts Heliograph's prober against its own edge and the file's targets
+(`GET /canary`); `[tenancy]` (Bastion) makes
 the tenant header an isolation boundary at the proxy (key ownership,
 tenant-scoped aggregates and plane stripes, weighted-fair admission,
 attribution), its `metrics-max-series` capping the process registry
@@ -34,8 +37,8 @@ as the reference's single-process launch does; `DDS_OBS_PIPE=0` keeps it
 dormant); `Deployment.stop` detaches both and resets Chronoscope. A config
 that enables a plane the port does not serve (`unported_plane`) is refused
 with `NotImplementedError` naming it, so every file in `configs/` parses
-but none boots without what it asks for; `configs/default.toml` and
-`configs/tenancy.toml` boot.
+but none boots without what it asks for; `configs/default.toml`,
+`configs/tenancy.toml` and `configs/heliograph.toml` boot.
 `load_provider(cfg)` builds the
 client's HE provider from the `[client]` section: its keys, its bulk
 encryption backend (`bulk-encrypt-backend = "cuda"` precomputes PSSE
@@ -56,6 +59,7 @@ reference's flag does):
     python -m dds_tpu_torch.run --config configs/default.toml --backend cuda
     python -m dds_tpu_torch.run --config configs/default.toml --device cpu --backend cpu
     python -m dds_tpu_torch.run --config configs/tenancy.toml --backend cuda
+    python -m dds_tpu_torch.run --config configs/heliograph.toml --port 0 --backend cuda
 """
 
 from __future__ import annotations
@@ -135,7 +139,7 @@ class Deployment:
 
 def unported_plane(cfg: DDSConfig) -> str | None:
     """The first plane `cfg` enables that the port does not serve, or
-    None: shard first, then fabric, helmsman, geo, heliograph, the attacks
+    None: shard first, then fabric, helmsman, geo, the attacks
     other than Trudy's crash and byzantine, then the other serving
     surfaces of the reference that are not ported."""
     attack_ok = {a.value for a in (AttackType.CRASH, AttackType.BYZANTINE)}
@@ -144,12 +148,10 @@ def unported_plane(cfg: DDSConfig) -> str | None:
         (cfg.fabric.role != "all" or bool(cfg.fabric.groups), "[fabric]: the shard fabric"),
         (cfg.helmsman.enabled, "[helmsman] enabled: helmsman"),
         (cfg.geo.enabled, "[geo] enabled: geo"),
-        (cfg.heliograph.enabled, "[heliograph] enabled: heliograph"),
         (cfg.attacks.chaos_enabled, "[attacks] chaos-enabled: attacks on ChaosNet (Nemesis)"),
         (cfg.attacks.enabled and cfg.attacks.type.strip().lower() not in attack_ok,
          f"[attacks] type = {cfg.attacks.type!r}: attacks other than Trudy's "
          "crash and byzantine"),
-        (cfg.obs.trace_route, "[obs] trace-route: the /_trace route"),
         (cfg.obs.fleet.enabled, "[obs.fleet] enabled: fleet observability"),
         (cfg.transport.kind != "memory", f"[transport] kind = {cfg.transport.kind!r}: "
                                          "the TCP transport"),
@@ -298,6 +300,7 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             storage=cfg.storage,
             search=cfg.search,
             supervisor=SUPERVISOR_NAME,
+            trace_route_enabled=cfg.debug or cfg.obs.trace_route,
             metrics_route_enabled=cfg.obs.metrics_route,
             slo_route_enabled=cfg.obs.slo_route,
             admission=cfg.admission,

@@ -4,10 +4,11 @@ Copy of `dds_tpu/utils/config.py`: every section, key and default of the
 reference, so every file in `configs/` parses here as it does there. A
 section parses whether or not its plane is ported; `run.launch` refuses
 to boot a config that enables a plane the port does not serve, naming it
-(shard, tenancy, fabric, helmsman, geo, heliograph, the attacks other
-than Trudy's crash and byzantine, and the other serving surfaces listed
-there), so nothing runs without a plane its config asks for. `[client] failed-contact-attempts-threshold` is read
-by no client, so any value but the reference's default raises at parse.
+(shard, fabric, helmsman, geo, the attacks other than Trudy's crash
+and byzantine, and the other serving surfaces listed there), so nothing
+runs without a plane its config asks for. `[client]
+failed-contact-attempts-threshold` is read by no client, so any value but
+the reference's default raises at parse.
 
 The port's defaults differ from the reference's in these fields only:
 - `[replicas]`: 4 endpoints, quorum 3, f = 1 and no `sentinent` spares,
@@ -766,18 +767,20 @@ class AttackConfig:
 
 @dataclass
 class HeliographConfig:
-    """Heliograph active canary plane (`[heliograph]`, the reference's
-    obs/heliograph; not ported): a supervised async prober per proxy (and per Meridian
-    process) owning the reserved `__heliograph__` tenant, continuously
-    driving golden transactions through the real client crypto path —
-    PutSet -> quorum write -> GetSet read-your-write, SumAll/MultAll
-    decrypt-and-compare over a known plaintext population, one Spyglass
-    search, one Prism MatVec — and verifying every answer by decrypting
+    """Heliograph active canary plane (`[heliograph]`, `obs/heliograph.py`,
+    the reference's obs/heliograph): a supervised async prober per proxy
+    (and, in the reference, per Meridian process) owning the reserved
+    `__heliograph__` tenant, continuously driving golden transactions
+    through the real client crypto path — PutSet -> quorum write ->
+    GetSet read-your-write, SumAll/MultAll decrypt-and-compare over a
+    known plaintext population, one Spyglass search, one Prism MatVec —
+    and verifying every answer by decrypting
     it. Outcomes (ok / slow / wrong-answer / unreachable) land in the
-    CanaryLedger (`GET /canary`, `/metrics`, fleet-federated as
-    `GET /fleet/canary`), synthetic per-route-class SLO streams, a
-    Watchtower incident on wrong-answer, and Helmsman's region-down
-    signal on sustained unreachable. DEPLOY.md "Active probing
+    CanaryLedger (`GET /canary`, `/metrics`, `/health`; the reference
+    also federates it as `GET /fleet/canary`), synthetic per-route-class
+    SLO streams, a Watchtower incident on wrong-answer, and the
+    unreachable-region streaks that the reference's Helmsman reads (no
+    caller reads them in the port yet). DEPLOY.md "Active probing
     (Heliograph)" is the runbook."""
 
     enabled: bool = False

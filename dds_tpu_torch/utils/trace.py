@@ -1,7 +1,8 @@
 """Structured tracing: causally linked spans and point events.
 
-Trimmed copy of `dds_tpu/utils/trace.py` (the JSONL dump and the
-counters are not ported); `event_dict` serves the flight recorder's
+Trimmed copy of `dds_tpu/utils/trace.py` (the JSONL dump is not
+ported); named counters (`count`, `counters`) sit apart from the spans,
+as `GET /_trace` serves them; `event_dict` serves the flight recorder's
 incident dumps, and the subscriber feed (`subscribe`, `unsubscribe`) hands
 every record to the Watchtower auditor (`obs/watchtower.py`) as it lands.
 Every recorded span carries `(trace_id,
@@ -14,7 +15,8 @@ of the port compares with the reference's.
     from dds_tpu_torch.utils.trace import tracer
     with tracer.span("abd.fetch", key=key) as meta:
         meta["coordinator"] = coord
-    print(tracer.summary())
+    tracer.count("abd.suspect")
+    print(tracer.summary(), tracer.counters())
 """
 
 from __future__ import annotations
@@ -56,11 +58,13 @@ class Tracer:
     max_events: int = 65536
     _events: collections.deque = field(init=False, repr=False)
     _lock: threading.Lock = field(init=False, repr=False)
+    _counters: collections.Counter = field(init=False, repr=False)
     _subscribers: list = field(init=False, repr=False)
     _notifying: threading.local = field(init=False, repr=False)
 
     def __post_init__(self):
         self._events = collections.deque(maxlen=self.max_events)
+        self._counters = collections.Counter()
         self._lock = threading.Lock()
         self._subscribers = []
         self._notifying = threading.local()
@@ -130,6 +134,16 @@ class Tracer:
         ctx = obs_context.child(cur) if cur is not None else None
         self.record(name, 0.0, _ctx=ctx, _kind="event", **meta)
 
+    def count(self, name: str, n: int = 1) -> None:
+        """Add `n` to a named counter: occurrences, not durations, so they
+        never enter `summary()`'s means."""
+        with self._lock:
+            self._counters[name] += n
+
+    def counters(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._counters)
+
     def events(self, name: str | None = None) -> list[SpanRecord]:
         with self._lock:
             evs = list(self._events)
@@ -170,12 +184,13 @@ class Tracer:
         return rec
 
     def reset(self, max_events: int | None = None) -> None:
-        """Drop every span (subscribers stay); `max_events` resizes the
-        bound for a run that must keep more."""
+        """Drop every span and counter (subscribers stay); `max_events`
+        resizes the bound for a run that must keep more."""
         with self._lock:
             if max_events is not None:
                 self.max_events = max_events
             self._events = collections.deque(maxlen=self.max_events)
+            self._counters.clear()
 
 
 # process-wide default tracer (subsystems import this)

@@ -6,14 +6,15 @@ same value in both trees; every other field must equal the reference's
 default, except the port's documented divergences (`DIVERGENCES`, the
 module docstring of `dds_tpu_torch/utils/config.py`) and the fields only
 the port has (`PORT_ONLY`). `launch` on each file either boots and stops
-(`configs/default.toml` and `configs/tenancy.toml`: every plane they enable
-is ported) or refuses with
-`NotImplementedError` naming the first plane the port does not serve,
-never with an unknown-key error; each refusal is checked on its own. The
-planes ported since (recovery, anti-entropy, spares, snapshots, Trudy's
-attacks, /metrics, the flight recorder, admission, the obs audit, the SLO
-engine, tenancy) each launch and stop cleanly, and `DDSConfig()` with `[search]
-enabled` boots, as does `[crypto] secret-device` (Sanctum), whose provider
+(`configs/default.toml`, `configs/tenancy.toml` and
+`configs/heliograph.toml`: every plane they enable is ported) or refuses
+with `NotImplementedError` naming the first plane the port does not
+serve, never with an unknown-key error; each refusal is checked on its
+own. The planes ported since (recovery, anti-entropy, spares, snapshots,
+Trudy's attacks, /metrics, the flight recorder, admission, the obs audit,
+the SLO engine, tenancy, Heliograph's prober, /_trace) each launch and
+stop cleanly, the prober's task cancelled and awaited with the rest, and
+`DDSConfig()` with `[search] enabled` boots, as does `[crypto] secret-device` (Sanctum), whose provider
 decrypts through its device plan. `default.toml` boots with Bulwark, the
 SLO engine and the Watchtower armed as the file says, and the CLI's
 `--device cpu --backend cpu` launches it; `tenancy.toml` boots with
@@ -53,12 +54,11 @@ PORT_ONLY = {"proxy.device": "cuda", "proxy.min_device_batch": None,
              "client.device": "cuda"}
 # the plane each top-level file's launch names first
 FIRST_PLANE = {
-    "configs/heliograph.toml": "heliograph",
     "configs/sharded.toml": "sharding",
     "configs/stratum.toml": "sharding",
 }
 # the files whose every enabled plane is ported: they boot
-LAUNCHES = {"configs/default.toml", "configs/tenancy.toml"}
+LAUNCHES = {"configs/default.toml", "configs/tenancy.toml", "configs/heliograph.toml"}
 
 
 def flat(obj, prefix: str = "") -> dict:
@@ -153,12 +153,12 @@ PLANES = [
     ("fabric", {"fabric": {"role": "proxy"}}, True),
     ("helmsman", {"helmsman": {"enabled": True}}, True),
     ("geo", {"geo": {"enabled": True}}, True),
-    ("heliograph", {"heliograph": {"enabled": True}}, True),
+    ("heliograph", {"heliograph": {"enabled": True}}, False),
     ("attacks", {"attacks": {"enabled": True}}, False),
     ("attacks", {"attacks": {"chaos-enabled": True}}, True),
     ("/metrics", {"obs": {"metrics-route": True}}, False),
     ("SLO engine", {"obs": {"slo-route": True}}, False),
-    ("/_trace", {"obs": {"trace-route": True}}, True),
+    ("/_trace", {"obs": {"trace-route": True}}, False),
     ("flight recorder", {"obs": {"flight-dir": "incidents"}}, False),
     ("fleet observability", {"obs": {"fleet": {"enabled": True}}}, True),
     ("TCP transport", {"transport": {"kind": "tcp"}}, True),
@@ -222,6 +222,10 @@ def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
                 assert dep.server.cfg.slo_route_enabled
             if plane == "tenancy":
                 assert dep.server._tenancy_enabled
+            if plane == "heliograph":
+                assert dep.server.heliograph is not None
+            if plane == "/_trace":
+                assert dep.server.cfg.trace_route_enabled
         finally:
             await dep.stop()
         await asyncio.sleep(0)
@@ -318,7 +322,8 @@ def test_tenancy_toml_launches_on_the_cpu_with_bastion(monkeypatch):
 
 def test_cli_launches_default_toml_with_the_backend_flag(monkeypatch, capsys):
     """`python -m dds_tpu_torch.run --config configs/default.toml --device
-    cpu --backend cpu --ops 0`: boots, runs no workload, stops."""
+    cpu --backend cpu --ops 0` (and tenancy.toml, heliograph.toml): boots,
+    runs no workload, stops."""
     from dds_tpu_torch import run as runmod
 
     monkeypatch.delenv("DDS_SECRET_DEVICE", raising=False)
@@ -332,7 +337,7 @@ def test_cli_launches_default_toml_with_the_backend_flag(monkeypatch, capsys):
         return dep
 
     monkeypatch.setattr(runmod, "launch", spy)
-    for name in ("default.toml", "tenancy.toml"):
+    for name in ("default.toml", "tenancy.toml", "heliograph.toml"):
         seen.clear()
         runmod.main(["--config", str(ROOT / "configs" / name), "--device", "cpu",
                      "--backend", "cpu", "--ops", "0", "--port", "0"])

@@ -5,7 +5,9 @@ Sanctum decrypt's per-column-modulus product and ladder
 (`csrc/mont_rowmod.cu`) with the device plan's full chunk, a host
 backend's planes on `[proxy] device`, `configs/default.toml` serving
 on the card with Bulwark, the SLO engine and the Watchtower, and
-`configs/tenancy.toml` folding two tenants' SumAlls under their own moduli.
+`configs/tenancy.toml` folding two tenants' SumAlls under their own moduli,
+the kernel sentry naming `cuda`, and `configs/heliograph.toml`'s probes
+on the host beside a user's fold on the card.
 
 Marked `gpu`: on a host without a CUDA device every test here skips (the
 decision is made inside the `cuda` fixture, never at import, so every
@@ -1058,3 +1060,108 @@ def test_tenancy_toml_folds_each_tenants_sumall_under_its_own_modulus(cuda):
         status, result, launches = out[t]
         assert status == 200 and result == fold and launches > 0
         assert kr.decrypt(t, result) == sum(plain[t])
+
+
+def test_sentry_names_cuda_for_the_cards_kernel_spans(cuda, monkeypatch):
+    """After a fold on the card the sentry's platform is `cuda` and every
+    row it collects from the kprof spans is a `cuda::` row."""
+    from dds_tpu_torch.obs import sentry
+    from dds_tpu_torch.utils.trace import tracer
+
+    monkeypatch.delenv("DDS_SENTRY_PLATFORM", raising=False)
+    key = bench_paillier_key(2048)
+    rng = random.Random(16)
+    cs = [rng.randrange(1, key.nsquare) for _ in range(512)]
+    tracer.reset()
+    be = CudaBackend(device=cuda, min_device_batch=0)
+    assert be.modmul_fold_resident(cs, key.nsquare) == _pyfold(cs, key.nsquare)
+    be.powmod_batch(cs[:64], key.n, key.nsquare)
+    stats = sentry.collect()
+    assert sentry.platform() == "cuda" and stats
+    assert all(k.startswith("cuda::") for k in stats), sorted(stats)
+    assert any(k.startswith("cuda::pow") for k in stats)
+
+
+def test_heliograph_toml_probes_on_the_host_beside_a_user_fold_on_the_card(cuda, monkeypatch):
+    """configs/heliograph.toml on the card (`crypto-backend = "cuda"`), the
+    prober's cycles driven on its loopback target with its own 512-bit
+    keys (east and west fail without a lookup): every probe kind reads ok
+    and launches no B1; a user's SumAll over 256 rows of the bench key
+    folds on B1 and is the Python fold; the next cycle is ok again and
+    launches no B1."""
+    import asyncio
+    import json
+    import pathlib
+    import socket
+
+    from dds_tpu_torch.clt import canary
+    from dds_tpu_torch.http.miniserver import http_request
+    from dds_tpu_torch.obs.heliograph import Heliograph
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils.config import DDSConfig
+
+    real = canary.http_request
+
+    async def transport(host, port, *a, **kw):
+        if host in ("proxy-east", "proxy-west"):
+            raise socket.gaierror(socket.EAI_NONAME, "Name or service not known")
+        return await real(host, port, *a, **kw)
+
+    async def idle(self):
+        await asyncio.Event().wait()
+
+    monkeypatch.setattr(canary, "http_request", transport)
+    monkeypatch.setattr(Heliograph, "_run", idle)
+    root = pathlib.Path(__file__).resolve().parent.parent
+    cfg = DDSConfig.load(root / "configs" / "heliograph.toml")
+    cfg.proxy.crypto_backend = "cuda"
+    cfg.proxy.port = 0
+    key = bench_paillier_key(2048)
+    rng = random.Random(16)
+    plain = [rng.randrange(1 << 30) for _ in range(256)]
+
+    async def go():
+        dep = await launch(cfg)
+        try:
+            h, port = dep.server.heliograph, dep.server.cfg.port
+            h.client = canary.CanaryClient(
+                await canary.build_provider(cfg.heliograph.paillier_bits,
+                                            cfg.heliograph.rsa_bits),
+                population=cfg.heliograph.population)
+            launches = []
+
+            async def probe_cycle():
+                for c in mont_cuda.LAUNCHES.values():
+                    c.reset()
+                await h.run_cycle(h.targets[0])
+                h.cycles += 1
+                torch.cuda.synchronize()
+                launches.append(mont_cuda.LAUNCHES["mont_mul"].value)
+                return sorted((k, r.verdict) for k, r in h.ledger._last.items())
+
+            first = await probe_cycle()
+            cts = [key.public.encrypt(m) for m in plain]
+            for c in cts:
+                status, _ = await http_request("127.0.0.1", port, "POST", "/PutSet",
+                                               json.dumps({"contents": [str(c)]}).encode())
+                assert status == 200
+            for c in mont_cuda.LAUNCHES.values():
+                c.reset()
+            status, body = await http_request(
+                "127.0.0.1", port, "GET", f"/SumAll?position=0&nsqr={key.nsquare}",
+                timeout=120.0)
+            torch.cuda.synchronize()
+            user = (status, int(json.loads(body)["result"]),
+                    mont_cuda.LAUNCHES["mont_mul"].value)
+            second = await probe_cycle()
+            return first, second, user, launches, dep.server.backend.device.type, cts
+        finally:
+            await dep.stop()
+
+    first, second, (status, result, user_launches), probe_launches, device, cts = asyncio.run(
+        asyncio.wait_for(go(), 300))
+    kinds = [(k, "ok") for k in ("matvec", "mult", "putget", "search", "sum")]
+    assert device == "cuda" and first == second == kinds
+    assert probe_launches == [0, 0] and user_launches > 0
+    assert status == 200 and result == _pyfold(cts, key.nsquare)
+    assert key.decrypt(result) == sum(plain)
