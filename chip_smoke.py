@@ -18,7 +18,9 @@ the SLO engine and the Watchtower auditor through an overload window,
 configs/tenancy.toml's Bastion tenancy (each tenant folding under its
 own Paillier-2048 modulus, a noisy neighbour, a crypto-shred) and
 configs/heliograph.toml's active canary (golden transactions decrypted
-and verified beside user folds on the card, the corruption drill) — and holds
+and verified beside user folds on the card, the corruption drill) and
+configs/sharded.toml's and configs/stratum.toml's Constellations (shard
+groups behind a router, scatter-gather folds on the card) — and holds
 every CUDA kernel on them against its plain PyTorch version. The phases
 before `recovery` turn the audit and /slo off in the configs they build
 (EARLIER_OBS_CUTS), and every phase before `tenancy` runs with the
@@ -197,12 +199,9 @@ non-zero:
               equal to the Python-int product, the fused tree's device and
               dispatch ms and its launches (one mont_mul a level: 14 at S = 4,
               K = 8,192); all 4 pools filled to max-rows (256 MiB), then one
-              fold past the cap: one reset, still exact; a REST stack with
-              [resident] on: SumAll in each mode through the plane, then 256
-              PutSets ingested off the request path and a SumAll that ingests
-              0 rows on the fold path; before those writes, one MatVec whose
-              operands gather once through the plane's `rows_for`, equal to
-              the marshaling path's weighted fold and decrypting to W @ x;
+              fold past the cap: one reset, still exact (its REST level is
+              configs/sharded.toml's launch in the sharded phase,
+              DEPTH_CUTS);
 17. tiered    Stratum (configs/stratum.toml's [resident] and [storage],
               benchmarks/tiered_fold.py): 2 groups, max-rows 4,096, a
               population of 10 x max-rows per group, warm-bytes cut to
@@ -210,8 +209,9 @@ non-zero:
               directory; the population fold and Zipf(0.9) folds over each
               group's 2,048-row head, exact, no reset, cold reads, the head's
               most drawn rows promoted back to hot; the all-resident ceiling
-              against the tiered fold; one fold in modes 1 and 2; then a REST
-              SumAll through a [resident] + [storage] stack;
+              against the tiered fold; one fold in modes 1 and 2 (its REST
+              level is configs/stratum.toml's launch in the sharded phase,
+              DEPTH_CUTS);
 18. recovery  configs/default.toml's [replicas] and [recovery] as they
               stand (9 endpoints, 2 sentinent spares, quorum 5, f = 2,
               warm-up 5 s, interval 7 s, verified transfer, 256-key
@@ -337,13 +337,50 @@ non-zero:
               probe-only windows; east and west at their streak of 3; no
               500. Printed: verdicts by kind and target, probe latencies,
               the phase's seconds beside its 120 s budget;
-22. kernels   one {"kernels": [...]} line (every kernel must have launched
+22. sharded   configs/sharded.toml as it stands on `cuda` (printed
+              overrides: the backend, an OS-assigned port, the phase's
+              data, the scatter rounds' resident min fold): a
+              Constellation of 4 groups x (4 replicas + 1 spare), quorum 3,
+              f = 1, proactive recovery and anti-entropy in each group,
+              [resident] 256 / 65,536 rows, [analytics], the audit. K =
+              4,096 rows (cut from bft_sum's 8,192 for the phase's 90 s,
+              DEPTH_CUTS) blinded on the card (B3) and loaded by PutSet 64
+              in flight; 6 SumAlls through the fused S = 4 resident tree
+              (B1: the tree's levels, 14 a SumAll), 2 in each of the
+              Karatsuba modes 1 and 2 (only that mode's kernels), then 6
+              through the scatter fold (one device fold a group,
+              combine_partials), each the Python-int fold of the K
+              ciphertexts and decrypting to the total, p50/p95 of each;
+              256 rows written once the pools exist and a SumAll ingesting
+              0 rows on its fold path; one REST MatVec (R = 16) scattered
+              over the 4 groups, each group's columns gathered once
+              through the plane's rows_for, its B1 launches the groups'
+              weighted ladders, equal row by row to the port's unsharded
+              evaluate on the marshaling path (not counted) and decrypting
+              to W @ x; GET /shards (4 groups, ETag "1", 304 on If-None-Match),
+              /health's shard_epoch 1 and reshard_state stable, /metrics'
+              dds_shard_*, POST /_reshard 404; a stale-epoch IWrite sent
+              straight to a replica of a non-owning group, answered by a
+              WrongShard whose MAC verifies and stored nowhere. Then
+              configs/stratum.toml (2 groups, [storage] in a temporary
+              directory, the hot tier cut to 512 rows a group and the warm
+              tier to 80 rows, printed): 2,048 rows blinded on the card
+              (before the path's counts start), three SumAlls through
+              Stratum (proxy.resident_fold) streaming the warm and cold
+              legs, exact, no reset, B1 launched by each; the dds_tier_*
+              gauges. B1's launches on the paths "sharded" and "stratum"
+              and B3's on "sharded" > 0 on the card, the Karatsuba
+              kernels' on "sharded"; no 500; the phase's seconds beside
+              its 90 s budget;
+23. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
-              launch; the analytics requests' launches are the paths
-              "analytics" and "analytics_rest", the rowmod kernels' the
+              launch; the analytics requests' launches are the path
+              "analytics", the rowmod kernels' the
               path "decrypt", `decrypt_rows`' run, B1's the paths
-              "recovery", "sumall_audited", "bulwark", "tenancy" and
-              "heliograph", B3's "client", "tenancy" and "heliograph");
+              "recovery", "sumall_audited", "bulwark", "tenancy",
+              "heliograph", "sharded" (its MatVec included) and "stratum",
+              B3's "client", "tenancy", "heliograph" and "sharded", the
+              Karatsuba kernels' also "sharded");
               then one
               {"search": ...}
               line: each predicate op's calls on the indexed stack (gates,
@@ -357,7 +394,8 @@ non-zero:
               windows and their failures, the snapshot and anti-entropy
               figures, the phase's seconds beside its 150 s budget; then
               one {"bulwark": ...}, one {"tenancy": ...} and one
-              {"heliograph": ...} line with those phases' whole records;
+              {"heliograph": ...} and one {"sharded": ...} line with those
+              phases' whole records;
               then the card's name and power limit;
               then the result line.
 
@@ -369,6 +407,9 @@ non-zero:
         # parent, change, change, parent: the B1/P/B3/B4/B5/REDC kernel
         # times and the folds of every mode, or each tree's own chip_smoke
         # phases; prints no result line
+    python3 chip_smoke.py --phases sharded [--size sharded_K=8192 ...]
+        # on the card: the named phases alone at the card's sizes (each
+        # --size changes one), each followed by its seconds; no result line
 
 Bound: one 4096-bit Montgomery product in W = 128 32-bit words is
 2W^2 + W word products of 2 integer multiply-adds each; Hopper issues 64
@@ -1346,11 +1387,24 @@ MIXED_CUT = {"preload": "4096 -> 2048 rows", "ops_per_client": "200 -> 25"}
 # the heliograph phase joined (its full runs took 1,101.6 s and 1,157.6 s
 # on slow hosts: the tenancy load 86.7 s at 8 in flight; the recovery load
 # and read-back 47 and 33 s, the bulwark load 50 s, at 4,096 rows)
+# once the sharded phase joined, the REST stacks of the resident and tiered
+# phases (8,192 PutSets each) gave way to configs/sharded.toml's and
+# configs/stratum.toml's launches there, which serve the same SumAlls,
+# MatVec and post-write ingest through the files' own planes
 DEPTH_CUTS = {"multall.K": "16384 -> 8192 records",
               "recovery.K": "8192 -> 4096 -> 2048 rows",
               "bulwark.K": "8192 -> 4096 -> 2048 rows", "resident.reps": "2 -> 1",
               "tiered.reps": "3 -> 2",
-              "tenancy.rows": "2048 -> 1024 a victim, 512 -> 256 the flooder"}
+              "tenancy.rows": "2048 -> 1024 a victim, 512 -> 256 the flooder",
+              # the phase took 73.1 s of its 90 s at 8,192 rows (sharded.toml
+              # 56.2 s, its load 43.2 s of it; stratum.toml 16.9 s; H100 80GB
+              # HBM3, 700 W); loads of one size ran up to 1.7x slower from one
+              # host to another
+              "sharded.K": "8192 -> 4096 rows",
+              "resident.rest": "the REST stack (8192 rows) -> configs/sharded.toml's "
+                               "launch in the sharded phase",
+              "tiered.rest": "the REST stack (8192 rows) -> configs/stratum.toml's "
+                             "launch in the sharded phase"}
 
 
 def earlier_config():
@@ -2820,13 +2874,8 @@ async def phase_resident(dev, sizes) -> dict:
     K = 8,192); the fused tree's device ms (stream held) against its host
     dispatch ms. Then all 4 pools filled to max-rows (256 MiB at L = 256)
     and one fold past the cap without Stratum: one reset, still exact.
-    REST level: a fresh 4-replica stack (f = 1, min_device_batch 0) with
-    `[resident]` on and min-fold 0, K_path PutSet rows, SumAll in modes 0,
-    1 and 2 through `proxy.resident_fold`, each decrypting to the total and
-    equal to the Python-int fold; then `resident_new` more PutSets once the
-    pool exists, the write-ingest drain run dry, and the next SumAll
-    ingesting 0 rows on the fold path and equal to the fold over all
-    rows."""
+    The REST level runs in the sharded phase, on configs/sharded.toml as
+    it stands (DEPTH_CUTS)."""
     import os
 
     import torch
@@ -2922,7 +2971,6 @@ async def phase_resident(dev, sizes) -> dict:
                        "allocated_bytes": allocated, "resets_after_past_cap":
                        [p.resets for p in pools], "past_cap_K": len(fresh)}
         del full, pools
-        rec["rest"] = await resident_rest(dev, sizes, key)
     finally:
         if saved is None:
             os.environ.pop("DDS_KARATSUBA", None)
@@ -2930,140 +2978,6 @@ async def phase_resident(dev, sizes) -> dict:
             os.environ["DDS_KARATSUBA"] = saved
     emit("resident", what="summary", **{k: v for k, v in rec.items() if k != "cells"})
     return rec
-
-
-async def resident_rest(dev, sizes, key) -> dict:
-    """The REST half of the resident phase (its docstring)."""
-    import os
-
-    from dds_tpu_torch.run import launch
-    from dds_tpu_torch.utils.trace import tracer
-
-    pk = key.public
-    K, new = sizes["K_path"], sizes["resident_new"]
-    rows, _ = paillier_rows(pk, K + new, 14)
-    total = K * (K + 1) // 2
-    cts = [r[PSSE_POS] for r in rows]
-    want = host_product(cts[:K], pk.nsquare)
-    cfg = earlier_config()
-    cfg.proxy.device = dev.type
-    cfg.proxy.min_device_batch = 0
-    cfg.resident.enabled = True
-    cfg.resident.initial_rows = sizes["resident_initial"]
-    cfg.resident.max_rows = sizes["resident_max"]
-    cfg.resident.min_fold = 0
-    rec = {"K": K, "modes": {}}
-    dep = await launch(cfg)
-    try:
-        server = dep.server
-        port = server.cfg.port
-        rec["put_s"] = await put_rows(port, rows[:K])
-        await wait_ingested(server)  # no pool yet: every write is a no_pool drop
-        sumall = sumall_fn(port, pk.nsquare)
-        t = time.perf_counter()
-        if await sumall() != want:
-            raise AssertionError("resident SumAll != Python-int fold")
-        rec["first_sumall_ms"] = (time.perf_counter() - t) * 1e3
-        pool = server._resident.pool("", pk.nsquare)
-        for mode in ("0", "1", "2"):
-            os.environ["DDS_KARATSUBA"] = mode
-            reset_counts()  # this mode's SumAlls start here
-            tracer.reset()
-            seq = []
-            for _ in range(sizes["requests"]):
-                t = time.perf_counter()
-                result = await sumall()
-                seq.append((time.perf_counter() - t) * 1e3)
-                if result != want or key.decrypt(result) != total:
-                    raise AssertionError(f"resident SumAll wrong (DDS_KARATSUBA={mode})")
-            counts = check_mode_launches(dev, read_counts(dev), mode, "resident SumAll")
-            spans = tracer.summary()
-            if spans.get("proxy.resident_fold", {}).get("count") != sizes["requests"] \
-                    or "proxy.fold" in spans:
-                raise AssertionError(f"SumAll did not go through the plane: {sorted(spans)}")
-            rec["modes"][mode] = {
-                "sumall_ms_min": min(seq), "sumall_ms_median": statistics.median(seq),
-                "launches": counts,
-                "phase_mean_ms": {name: s["mean_ms"] for name, s in spans.items()
-                                  if name in ("http.GET.SumAll", "proxy.fetch_stored",
-                                              "proxy.resident_fold",
-                                              "kernel.resident_fold.dispatch",
-                                              "kernel.resident_fold.execute")},
-            }
-        os.environ["DDS_KARATSUBA"] = "0"
-        rec["matvec"] = await resident_matvec(dev, sizes, server, key, rows[:K])
-        # writes after the pool exists: ingested off the request path
-        t = time.perf_counter()
-        await put_rows(port, rows[K:])
-        await wait_ingested(server)
-        rec["new_rows"], rec["ingest_s"] = new, time.perf_counter() - t
-        ingested = pool._served[1]
-        resident_before = pool.resident
-        t = time.perf_counter()
-        result = await sumall()
-        rec["post_write_sumall_ms"] = (time.perf_counter() - t) * 1e3
-        rec["post_write_fold_ingested"] = pool._served[1] - ingested
-        if rec["post_write_fold_ingested"] != 0 or pool.resident != resident_before:
-            raise AssertionError(f"the first SumAll after the writes ingested "
-                                 f"{rec['post_write_fold_ingested']} rows on the fold path")
-        if result != host_product(cts, pk.nsquare) or \
-                key.decrypt(result) != (K + new) * (K + new + 1) // 2:
-            raise AssertionError("post-write SumAll != the fold over every row")
-        rec["pool"] = pool.stats()
-        rec["dropped_pending"] = server._resident.stats()["dropped_pending"]
-    finally:
-        await dep.stop()
-    return rec
-
-
-async def resident_matvec(dev, sizes, server, key, rows) -> dict:
-    """One MatVec (`analytics_R` rows of 16-bit weights, mode 0) on the
-    `[resident]` stack after its SumAlls: its operands must gather through
-    `ResidentPlane.rows_for` once, from the pool the SumAlls filled; the
-    answer must decrypt to W @ x and equal the same request's weighted
-    fold on the marshaling path (`CudaBackend.matvec` without rows, what a
-    stack without `[resident]` runs on the same column); its `mont_mul`
-    launches must be the ladder's."""
-    from dds_tpu_torch.models.backend import CudaBackend
-    from dds_tpu_torch.ops import foldmany
-    from dds_tpu_torch.ops.montgomery import ModCtx
-    from dds_tpu_torch.utils import sigs
-
-    pk = key.public
-    n2 = pk.nsquare
-    by_key = {sigs.key_from_set(r): (i + 1, r[PSSE_POS]) for i, r in enumerate(rows)}
-    keys = sorted(by_key)
-    xs = [by_key[k][0] for k in keys]
-    cs = [by_key[k][1] for k in keys]
-    W = analytics_requests(keys, np.random.default_rng(22), sizes["analytics_R"])["matvec"][2]
-    plane = server._resident
-    gathers = []
-    real = plane.rows_for
-
-    def counting(*args, **kw):
-        got = real(*args, **kw)
-        gathers.append(None if got is None else tuple(got.shape))
-        return got
-
-    plane.rows_for = counting
-    reset_counts()  # the MatVec's launches start here
-    try:
-        answer, host_ms = await analytics_call(server.cfg.port, "MatVec", n2, {"weights": W})
-    finally:
-        del plane.rows_for
-    counts = check_mode_launches(dev, read_counts(dev), "0", "resident MatVec")
-    got = analytics_results(answer)
-    if [key.decrypt_signed(c) for c in got] != [sum(w * x for w, x in zip(r, xs)) for r in W]:
-        raise AssertionError("the resident MatVec does not decrypt to W @ x")
-    if gathers != [(len(keys), ModCtx.make(n2).L)]:
-        raise AssertionError(f"the resident MatVec gathered {gathers}, not once through rows_for")
-    if got != CudaBackend(device=dev, min_device_batch=0).matvec(cs, W, n2):
-        raise AssertionError("the resident MatVec != the marshaling path's weighted fold")
-    expected = foldmany.fold_weighted_launches(len(keys), 4)
-    if dev.type == "cuda" and counts["mont_mul"] != expected:
-        raise AssertionError(f"resident MatVec launched {counts}, expected {expected} mont_mul")
-    return {"R": len(W), "K": len(keys), "host_ms": host_ms, "gathers": len(gathers),
-            "launches": counts, "equals_marshaling_path": True, "decrypt_ok": True}
 
 
 def zipf_draws(rng, head: list[int], k: int, theta: float) -> list[int]:
@@ -3091,10 +3005,9 @@ async def phase_tiered(dev, sizes) -> dict:
     product; no reset; the cold tier holds rows and cold reads happen;
     promotion moves the head's most drawn rows back to hot. Timed: an
     all-resident twin plane (the ceiling) against Stratum; launches of the
-    Stratum run in mode 0 and of one fold in modes 1 and 2. Then a REST
-    SumAll through a fresh stack with `[resident]` max-rows 4,096 and
-    `[storage]` (the same cut), K_path PutSet rows: it decrypts to the
-    total, with no reset."""
+    Stratum run in mode 0 and of one fold in modes 1 and 2. The REST level
+    runs in the sharded phase, on configs/stratum.toml as it stands
+    (DEPTH_CUTS)."""
     import os
     import tempfile
 
@@ -3198,7 +3111,6 @@ async def phase_tiered(dev, sizes) -> dict:
                 "promotions": stats["promotions"], "demotions": stats["demotions"],
                 "directory": stats["directory"], "pressure": stats["pressure"],
             })
-        rec["rest"] = await tiered_rest(dev, sizes, key, warm_bytes)
     finally:
         if saved is None:
             os.environ.pop("DDS_KARATSUBA", None)
@@ -3206,56 +3118,6 @@ async def phase_tiered(dev, sizes) -> dict:
             os.environ["DDS_KARATSUBA"] = saved
     emit("tiered", **rec)
     return rec
-
-
-async def tiered_rest(dev, sizes, key, warm_bytes: int) -> dict:
-    """The REST half of the tiered phase (its docstring)."""
-    import tempfile
-
-    from dds_tpu_torch.run import launch
-    from dds_tpu_torch.utils.trace import tracer
-
-    pk = key.public
-    K = sizes["K_path"]
-    rows, total = paillier_rows(pk, K, 15)
-    want = host_product([r[PSSE_POS] for r in rows], pk.nsquare)
-    with tempfile.TemporaryDirectory() as tier_dir:
-        cfg = earlier_config()
-        cfg.proxy.device = dev.type
-        cfg.proxy.min_device_batch = 0
-        cfg.resident.enabled = True
-        cfg.resident.initial_rows = sizes["resident_initial"]
-        cfg.resident.max_rows = sizes["tier_max"]
-        cfg.storage.enabled = True
-        cfg.storage.dir = tier_dir
-        cfg.storage.warm_bytes = warm_bytes
-        cfg.storage.chunk_rows = sizes["tier_chunk"]
-        dep = await launch(cfg)
-        try:
-            server = dep.server
-            port = server.cfg.port
-            put_s = await put_rows(port, rows)
-            sumall = sumall_fn(port, pk.nsquare)
-            reset_counts()  # the REST tiered SumAlls start here
-            tracer.reset()
-            ms = []
-            for _ in range(2):  # the first ingests and tiers, the second reads the tiers
-                t = time.perf_counter()
-                result = await sumall()
-                ms.append((time.perf_counter() - t) * 1e3)
-                if result != want or key.decrypt(result) != total:
-                    raise AssertionError("tiered REST SumAll wrong")
-            counts = check_mode_launches(dev, read_counts(dev), "0", "tiered REST")
-            resets = server._resident.stats()["resets"]
-            if resets:
-                raise AssertionError(f"the tiered REST stack reset a pool {resets} times")
-            stats = server._stratum.stats()
-            spans = tracer.summary()
-        finally:
-            await dep.stop()
-    return {"K": K, "put_s": put_s, "sumall_ms": ms, "resets": resets,
-            "launches": counts, "tiers": stats["tiers"], "hits": stats["hits"],
-            "resident_fold_count": spans.get("proxy.resident_fold", {}).get("count")}
 
 
 def make_digest(n_ops: int, seed: int):
@@ -5419,6 +5281,505 @@ async def phase_heliograph(dev, sizes) -> dict:
     return rec
 
 
+SHARDED_BUDGET_S = 90.0
+# configs/sharded.toml's and configs/stratum.toml's settings the phase
+# overrides (printed); everything else stands as the files say
+SHARDED_OVERRIDES = {
+    "proxy.crypto_backend": "cuda (the files name cpu, the reference's host backend)",
+    "proxy.port": "0 (an OS-assigned port for the files' 8443)",
+    "data": "bench_paillier_key(2048): rows of one PSSE column, seeded plaintexts "
+            "blinded on the card (B3, one pow_mod a file)",
+    "scatter": "the scatter SumAlls run with the launched proxy's resident min fold "
+               "(the backend's device crossover, 256) set above K, so those aggregates "
+               "take proxy.scatter_fold instead of the fused resident tree",
+    "storage.dir": "stratum.toml's ./stratum in a temporary directory",
+    "stratum.resident.max_rows": "4096 -> 512 rows a group, so stratum.toml's 2,048 rows "
+                                 "(about 1,024 a group) pass the hot tier",
+    "stratum.storage.warm_bytes": "128 MiB -> max_rows x 10 x 16 bytes (80 rows; "
+                                  "benchmarks/tiered_fold.py's pop-factor rule), so the "
+                                  "cold tier serves too",
+}
+
+
+def shard_config(dev, name: str):
+    """configs/<name> as it stands, with the `cuda` backend on `dev` and an
+    OS-assigned port (SHARDED_OVERRIDES)."""
+    import pathlib
+
+    from dds_tpu_torch.utils.config import DDSConfig
+
+    cfg = DDSConfig.load(pathlib.Path(__file__).resolve().parent / "configs" / name)
+    cfg.proxy.crypto_backend = "cuda"
+    cfg.proxy.device = dev.type
+    cfg.proxy.port = 0
+    return cfg
+
+
+async def phase_sharded(dev, sizes) -> dict:
+    """configs/sharded.toml, then configs/stratum.toml, served on the card
+    (SHARDED_OVERRIDES printed). sharded.toml: a Constellation of 4 groups
+    of 4 replicas and a spare (quorum 3, f = 1), proactive recovery and
+    anti-entropy in each group, [resident] (256 / 65,536 rows) and
+    [analytics]; K rows blinded on the card (B3) and loaded by PutSet
+    `sharded_inflight` at a time; SumAlls through the fused S = 4 resident
+    tree (`proxy.resident_fold`, B1 launches the tree's levels), then in
+    the Karatsuba modes 1 and 2, then through the scatter fold
+    (`proxy.scatter_fold`: one device fold a group, merged by
+    combine_partials), each the Python-int fold of the K ciphertexts and
+    decrypting to the total; `sharded_new` more rows once the pools exist,
+    ingested off the request path, the next SumAll ingesting 0 rows on its
+    fold path; one REST MatVec of `sharded_R` rows through Prism's
+    per-group scatter (each group's columns gathered once from its pool
+    through `rows_for`, B1 launches the groups' weighted ladders), equal
+    row by row to the port's unsharded `evaluate` on the marshaling path
+    (its launches not counted) and decrypting to W @ x; GET /shards (4 groups, the epoch as
+    ETag, 304 on If-None-Match), /health's shard_epoch and reshard_state,
+    /metrics' dds_shard_groups, POST /_reshard 404 (admin-routes off); one
+    IWrite under a stale epoch sent straight to a replica of a group that
+    does not own its key, answered by a WrongShard whose MAC verifies and
+    stored nowhere. stratum.toml: 2 groups, [storage] in a temporary
+    directory, [resident] max-rows cut to `stratum_max_rows` and the warm
+    tier to tiered_fold.py's rule (SHARDED_OVERRIDES); `stratum_K` rows
+    blinded on the card, `stratum_sumalls` SumAlls through Stratum, exact,
+    no reset, the warm and cold tiers holding rows and the cold one read,
+    the dds_tier_* gauges on /metrics. Launch counts are zeroed before
+    sharded.toml's launch and read after its stop (path "sharded"), and
+    zeroed after stratum.toml's load and read after its stop (path
+    "stratum"); on the card B1 and B3 must have launched on "sharded" and
+    B1 on "stratum", by each SumAll. Printed: wall times, the SumAll routes'
+    p50/p95, the load's rate, the Watchtower's verdict kinds, the phase's
+    seconds beside its 90 s budget."""
+    import os
+    import tempfile
+
+    from dds_tpu_torch.analytics import Prism
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.core import messages as M
+    from dds_tpu_torch.http.miniserver import http_request, http_request_full
+    from dds_tpu_torch.models.backend import get_backend
+    from dds_tpu_torch.obs.chronoscope import chronoscope
+    from dds_tpu_torch.obs.metrics import metrics
+    from dds_tpu_torch.obs.watchtower import watchtower
+    from dds_tpu_torch.ops import foldmany, mont_cuda
+    from dds_tpu_torch.ops.montgomery import ModCtx
+    from dds_tpu_torch.resident.plane import fused_fold_launches
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils import sigs
+    from dds_tpu_torch.utils.trace import tracer
+
+    t_phase = time.perf_counter()
+    cfg = shard_config(dev, "sharded.toml")
+    sh = cfg.shard
+    K, new, R = sizes["sharded_K"], sizes["sharded_new"], sizes["sharded_R"]
+    key = bench_paillier_key(sizes["key_bits"])
+    pk = key.public
+    n2 = pk.nsquare
+    rec: dict = {"overrides": SHARDED_OVERRIDES, "K": K, "new": new, "R": R,
+                 "key_bits": sizes["key_bits"],
+                 "shard": {k: getattr(sh, k) for k in (
+                     "count", "vnodes_per_group", "replicas_per_group",
+                     "sentinent_per_group", "quorum_size", "max_faults")},
+                 "recovery": cfg.recovery.enabled,
+                 "anti_entropy": cfg.recovery.anti_entropy_enabled,
+                 "resident": {"initial_rows": cfg.resident.initial_rows,
+                              "max_rows": cfg.resident.max_rows},
+                 "audit": cfg.obs.audit_enabled}
+
+    def step(name: str, **kw) -> None:
+        emit("sharded_step", step=name, at_s=time.perf_counter() - t_phase, **kw)
+
+    def b1() -> int:
+        sync(dev)
+        return mont_cuda.LAUNCHES["mont_mul"].value
+
+    step("config", **{k: v for k, v in rec.items() if k != "overrides"})
+    answers: list[dict] = []
+
+    async def req(method: str, target: str, obj=None, where: str = "",
+                  headers=None) -> tuple[int, dict, bytes]:
+        t0 = time.perf_counter()
+        status, hdrs, data = await http_request_full(
+            "127.0.0.1", port, method, target,
+            json.dumps(obj).encode() if obj is not None else None, timeout=600.0,
+            headers=headers)
+        answers.append({"where": where, "status": status,
+                        "ms": (time.perf_counter() - t0) * 1e3})
+        if status == 500:
+            raise AssertionError(f"sharded: {method} {target[:40]} answered 500")
+        return status, hdrs, data
+
+    async def load(rows: list, where: str) -> float:
+        sem = asyncio.Semaphore(sizes["sharded_inflight"])
+
+        async def put(row) -> None:
+            async with sem:
+                status, _, _ = await req("POST", "/PutSet", {"contents": row}, where)
+                if status != 200:
+                    raise AssertionError(f"sharded: a PutSet answered {status}")
+
+        t = time.perf_counter()
+        await asyncio.gather(*(put(r) for r in rows))
+        return time.perf_counter() - t
+
+    async def sumall(where: str, want: int, total: int) -> float:
+        t0 = time.perf_counter()
+        status, _, data = await req("GET", f"/SumAll?position=0&nsqr={n2}", where=where)
+        result = int(json.loads(data)["result"]) if status == 200 else None
+        if result != want or key.decrypt(result) != total:
+            raise AssertionError(f"sharded: a {where} SumAll answered {status}, not the "
+                                 f"fold of the stored rows")
+        return (time.perf_counter() - t0) * 1e3
+
+    chronoscope_was = chronoscope.enabled
+    chronoscope.enabled = True  # the files' launches profile (the "cuts" line)
+    os_karatsuba = os.environ.pop("DDS_KARATSUBA", None)
+    metrics.reset()
+    tracer.reset()
+    reset_counts()  # path "sharded" starts here
+    t = time.perf_counter()
+    dep = await launch(cfg)
+    rec["launch_s"] = time.perf_counter() - t
+    server = dep.server
+    port = server.cfg.port
+    const = dep.constellation
+    compare_b1 = 0  # the unsharded reference MatVec's launches, not the path's
+    try:
+        if const is None or len(const.groups) != sh.count or server._shards is None \
+                or server._resident is None or not watchtower.attached:
+            raise AssertionError("sharded: launch did not bring up the Constellation, "
+                                 "the resident plane and the audit")
+        # -- the rows: blinding on the card (B3), then PutSet
+        rng = random.Random(sizes["sharded_seed"])
+        plain = [rng.randrange(1 << 30) for _ in range(K + new)]
+        client_be = get_backend("cuda", device=dev.type)
+        before = b1()
+        t = time.perf_counter()
+        cts = pk.encrypt_batch(plain, client_be, min_batch=1)
+        sync(dev)
+        rec["blind"] = {"s": time.perf_counter() - t, "b1_launches": b1() - before}
+        want = host_product(cts[:K], n2)
+        load_s = await load([[str(c)] for c in cts[:K]], "load")
+        parts = const.router.partition_keys(sorted(server.stored_keys))
+        rec["load"] = {"rows": K, "s": load_s, "putsets_per_s": K / load_s,
+                       "inflight": sizes["sharded_inflight"],
+                       "keys_per_group": {g: len(v) for g, v in sorted(parts.items())}}
+        step("load", **rec["load"], blind=rec["blind"])
+        if len(parts) != sh.count:
+            raise AssertionError(f"sharded: the rows span {len(parts)} groups")
+        # -- SumAlls through the fused S = 4 resident tree
+        total = sum(plain[:K])
+        tracer.reset()
+        before = b1()
+        ms_res = [await sumall("resident", want, total) for _ in range(sizes["sharded_sumalls"])]
+        spans = tracer.summary()
+        group_sizes = [len(v) for _, v in sorted(parts.items())]
+        rec["resident_sumall"] = {
+            "ms": ms_res, "p50_ms": pct(ms_res, 50), "p95_ms": pct(ms_res, 95),
+            "b1_per_sumall": (b1() - before) / len(ms_res),
+            "b1_expected": fused_fold_launches(group_sizes),
+            "resident_folds": spans.get("proxy.resident_fold", {}).get("count", 0),
+            "fold_mean_ms": spans.get("proxy.resident_fold", {}).get("mean_ms")}
+        step("resident_sumall", **rec["resident_sumall"])
+        if rec["resident_sumall"]["resident_folds"] != len(ms_res) or \
+                "proxy.scatter_fold" in spans:
+            raise AssertionError(f"sharded: the SumAlls did not take the fused tree: "
+                                 f"{sorted(spans)}")
+        if dev.type == "cuda" and rec["resident_sumall"]["b1_per_sumall"] != \
+                rec["resident_sumall"]["b1_expected"]:
+            raise AssertionError(f"sharded: a fused-tree SumAll launched "
+                                 f"{rec['resident_sumall']['b1_per_sumall']} mont_mul, not "
+                                 f"{rec['resident_sumall']['b1_expected']}")
+        # -- the same SumAlls through the fused tree in the Karatsuba modes:
+        # mode 1 (B4 + k1 + REDC) and mode 2 (B5 + REDC), their own kernels only
+        rec["modes"] = {}
+        for mode in ("1", "2"):
+            tracer.reset()
+            was = read_counts(dev)
+            os.environ["DDS_KARATSUBA"] = mode
+            try:
+                ms_mode = [await sumall(f"resident_mode{mode}", want, total)
+                           for _ in range(sizes["sharded_mode_sumalls"])]
+            finally:
+                os.environ.pop("DDS_KARATSUBA", None)
+            now = read_counts(dev)
+            spans = tracer.summary()
+            rec["modes"][mode] = {
+                "ms": ms_mode, "p50_ms": pct(ms_mode, 50),
+                "launches": check_mode_launches(dev, {k: now[k] - was[k] for k in now},
+                                                mode, "sharded fused-tree SumAll"),
+                "resident_folds": spans.get("proxy.resident_fold", {}).get("count", 0)}
+            step(f"resident_mode{mode}", **rec["modes"][mode])
+            if rec["modes"][mode]["resident_folds"] != len(ms_mode) or \
+                    "proxy.scatter_fold" in spans:
+                raise AssertionError(f"sharded: the mode-{mode} SumAlls did not take the "
+                                     f"fused tree: {sorted(spans)}")
+        # -- SumAlls through the scatter fold (the plane's min fold above K)
+        min_fold = server._resident_min_fold
+        server._resident_min_fold = K + new + 1
+        tracer.reset()
+        before = b1()
+        try:
+            ms_sc = [await sumall("scatter", want, total)
+                     for _ in range(sizes["sharded_sumalls"])]
+        finally:
+            server._resident_min_fold = min_fold
+        spans = tracer.summary()
+        rec["scatter_sumall"] = {
+            "ms": ms_sc, "p50_ms": pct(ms_sc, 50), "p95_ms": pct(ms_sc, 95),
+            "b1_per_sumall": (b1() - before) / len(ms_sc),
+            # one device fold a group (each group is past the crossover)
+            "b1_expected": sum(mont_cuda.fold_launches(k) for k in group_sizes),
+            "scatter_folds": spans.get("proxy.scatter_fold", {}).get("count", 0),
+            "fold_mean_ms": spans.get("proxy.scatter_fold", {}).get("mean_ms"),
+            "resident_min_fold": min_fold}
+        step("scatter_sumall", **rec["scatter_sumall"])
+        if rec["scatter_sumall"]["scatter_folds"] != len(ms_sc) or \
+                "proxy.resident_fold" in spans:
+            raise AssertionError(f"sharded: the SumAlls did not scatter: {sorted(spans)}")
+        if dev.type == "cuda" and (min(group_sizes) < server.backend.min_device_batch or
+                                   rec["scatter_sumall"]["b1_per_sumall"] !=
+                                   rec["scatter_sumall"]["b1_expected"]):
+            raise AssertionError(f"sharded: a scatter SumAll launched "
+                                 f"{rec['scatter_sumall']['b1_per_sumall']} mont_mul, not one "
+                                 f"fold a group ({rec['scatter_sumall']['b1_expected']}; "
+                                 f"groups {group_sizes})")
+        # -- writes once the pools exist: ingested off the request path
+        pools = [server._resident.pool(g, n2) for g in const.gids]
+        t = time.perf_counter()
+        await load([[str(c)] for c in cts[K:]], "new")
+        await wait_ingested(server)
+        ingest_s = time.perf_counter() - t
+        served = sum(p._served[1] for p in pools)
+        ms_new = await sumall("post_write", host_product(cts, n2), sum(plain))
+        rec["write_ingest"] = {"rows": new, "s": ingest_s, "sumall_ms": ms_new,
+                               "fold_path_ingested": sum(p._served[1] for p in pools) - served,
+                               "pool_rows": [p.resident for p in pools],
+                               "dropped_pending": server._resident.stats()["dropped_pending"]}
+        step("write_ingest", **rec["write_ingest"])
+        if rec["write_ingest"]["fold_path_ingested"] != 0:
+            raise AssertionError(f"sharded: the SumAll after the writes ingested "
+                                 f"{rec['write_ingest']['fold_path_ingested']} rows")
+        # -- one MatVec through Prism's per-group scatter
+        by_key = {sigs.key_from_set([str(c)]): (c, x) for c, x in zip(cts, plain)}
+        keys = sorted(by_key)
+        ciphers = [by_key[k][0] for k in keys]
+        xs = [by_key[k][1] for k in keys]
+        wrng = np.random.default_rng(sizes["sharded_seed"] + 1)
+        W = [[int(w) for w in wrng.integers(0, 1 << 16, len(keys))] for _ in range(R)]
+        # each group's columns must gather once, from its pool, through
+        # the plane's rows_for
+        plane = server._resident
+        gathers = []
+        real_rows_for = plane.rows_for
+
+        def counting(gid, *args, **kw):
+            got = real_rows_for(gid, *args, **kw)
+            gathers.append((gid, None if got is None else tuple(got.shape)))
+            return got
+
+        matvec_parts = server.prism._partition(keys)
+        # a group below the crossover (R x its columns) folds on the host
+        # from the ints, without a gather; on the card every group is past it
+        device_parts = [(g, ix) for g, ix in matvec_parts
+                        if R * len(ix) >= server.backend.min_device_batch]
+        L = ModCtx.make(n2).L
+        want_gathers = sorted((g, (len(ix), L)) for g, ix in device_parts)
+        digits = -(-max(w.bit_length() for row in W for w in row) // 4)
+        tracer.reset()
+        before = b1()
+        plane.rows_for = counting
+        try:
+            status, _, data = await req("POST", f"/MatVec?position=0&nsqr={n2}",
+                                        {"weights": W}, "matvec")
+        finally:
+            del plane.rows_for
+        matvec_b1 = b1() - before
+        spans = tracer.summary()
+        if status != 200 or json.loads(data)["keys"] != keys:
+            raise AssertionError(f"sharded: MatVec answered {status}")
+        got = [int(c) for c in json.loads(data)["result"]]
+        # the reference: Prism without a plane or an owner, one weighted
+        # fold over the whole column on the marshaling path
+        before = b1()
+        unsharded = await Prism(backend=server.backend, max_rows=R).evaluate(
+            "MatVec", keys, ciphers, W, n2)
+        compare_b1 = b1() - before
+        rec["matvec"] = {"R": R, "K": len(keys), "groups": len(matvec_parts),
+                         "ms": spans.get("http.POST.MatVec", {}).get("mean_ms"),
+                         "b1_launches": matvec_b1,
+                         "b1_expected": sum(foldmany.fold_weighted_launches(len(ix), digits)
+                                            for _, ix in device_parts),
+                         "device_groups": len(device_parts),
+                         "gathers": sorted(gathers), "one_gather_a_group":
+                         sorted(gathers) == want_gathers,
+                         "equals_unsharded_marshaling": got == unsharded,
+                         "decrypt_ok": [key.decrypt(c) for c in got] ==
+                         [sum(w * x for w, x in zip(row, xs)) for row in W]}
+        step("matvec", **rec["matvec"])
+        if not (rec["matvec"]["equals_unsharded_marshaling"] and rec["matvec"]["decrypt_ok"]
+                and rec["matvec"]["one_gather_a_group"]) or len(matvec_parts) != sh.count:
+            raise AssertionError(f"sharded: the MatVec {rec['matvec']}")
+        if dev.type == "cuda" and (matvec_b1 != rec["matvec"]["b1_expected"] or
+                                   len(device_parts) != sh.count):
+            raise AssertionError(f"sharded: the MatVec launched {matvec_b1} mont_mul on "
+                                 f"{len(device_parts)} device groups, not "
+                                 f"{rec['matvec']['b1_expected']} on {sh.count}")
+        # -- the shard routes
+        status, hdrs, data = await req("GET", "/shards", where="routes")
+        shards = json.loads(data)
+        etag = hdrs.get("etag")
+        cond, _, _ = await req("GET", "/shards", where="routes", headers={"If-None-Match": etag})
+        hst, _, hdata = await req("GET", "/health", where="routes")
+        health = json.loads(hdata)
+        rst, _, _ = await req("POST", "/_reshard", {"source": "s0"}, "routes")
+        mst, _, mdata = await req("GET", "/metrics", where="routes")
+        shard_series = sorted(ln for ln in mdata.decode().splitlines()
+                              if ln.startswith(("dds_shard_groups", "dds_shard_epoch")))
+        rec["routes"] = {"shards": status, "groups": sorted(shards["groups"]),
+                         "epoch": shards["map"]["epoch"], "etag": etag, "if_none_match": cond,
+                         "health": hst, "shard_epoch": health.get("shard_epoch"),
+                         "reshard_state": health.get("reshard_state"),
+                         "health_groups": sorted(health.get("shards", {})),
+                         "reshard": rst, "metrics": mst, "series": shard_series}
+        step("routes", **rec["routes"])
+        if (status, cond, hst, rst, mst) != (200, 304, 200, 404, 200) or \
+                len(shards["groups"]) != sh.count or health.get("shard_epoch") != 1 or \
+                health.get("reshard_state") != "stable" or etag != '"1"':
+            raise AssertionError(f"sharded: the routes {rec['routes']}")
+        # -- a stale-epoch IWrite straight to the replicas of a non-owning
+        # group that coordinate now (proactive recovery rotates them through
+        # sentinence, and a sentinent spare ignores the proxy)
+        smap = const.manager.current()
+        stale_key = next(k for k in (f"stale-{i}" for i in range(256))
+                         if smap.owner(k) != "s0")
+        targets = [n for n in const.group("s0").replicas.values() if n.behavior == "healthy"]
+        replies: list = []
+
+        async def spy(sender, msg) -> None:
+            replies.append((sender, msg))
+
+        dep.net.register("sharded-spy", spy)
+        secret = cfg.security.proxy_mac_secret.encode()
+        value = ["stale-write"]
+        sent = {}
+        for node in targets:
+            nonce = sigs.generate_nonce()
+            sent[node.addr] = nonce + cfg.security.nonce_challenge_increment
+            dep.net.send("sharded-spy", node.addr, M.Envelope(
+                M.IWrite(stale_key, value), nonce,
+                sigs.proxy_signature(secret, stale_key, nonce, value), epoch=0))
+        await dep.net.quiesce()
+        fences = [(sender, m) for sender, m in replies if isinstance(m, M.WrongShard)]
+        stored = [n.repository.get(stale_key, (None, None))[1] for n in dep.replicas.values()]
+        rec["fence"] = {"key_owner": smap.owner(stale_key),
+                        "replicas": [n.name for n in targets], "replies": len(replies),
+                        "wrong_shard": len(fences),
+                        "epochs": sorted({m.epoch for _, m in fences}),
+                        "macs_ok": bool(fences) and all(
+                            m.key == stale_key and m.nonce == sent.get(sender) and
+                            sigs.validate_proxy_signature(secret, stale_key, m.nonce,
+                                                          m.signature,
+                                                          ["wrong-shard", m.epoch])
+                            for sender, m in fences),
+                        "stored_anywhere": any(v == value for v in stored)}
+        step("fence", **rec["fence"])
+        if not rec["fence"]["macs_ok"] or rec["fence"]["stored_anywhere"]:
+            raise AssertionError(f"sharded: the stale-epoch IWrite {rec['fence']}")
+        await dep.net.quiesce()
+        rec["watchtower"] = watchtower.stats()
+        rec["violation_kinds"] = sorted({v.invariant for v in watchtower.verdicts()})
+    finally:
+        await dep.stop()
+        chronoscope.enabled = chronoscope_was
+        if os_karatsuba is not None:
+            os.environ["DDS_KARATSUBA"] = os_karatsuba
+    counts = read_counts(dev)
+    rec["launches"] = {"mont_mul": counts["mont_mul"] - compare_b1,
+                       "mont_exp": counts["mont_exp"]}
+    rec["compare_b1_launches"] = compare_b1
+    rec["sharded_s"] = time.perf_counter() - t_phase
+    # -- configs/stratum.toml: 2 groups, Stratum in a temporary directory,
+    # its hot and warm tiers cut so the rows reach the cold tier
+    # (STRATUM_OVERRIDES)
+    t_stratum = time.perf_counter()
+    scfg = shard_config(dev, "stratum.toml")
+    hot = sizes["stratum_max_rows"]
+    scfg.resident.max_rows = hot
+    scfg.resident.initial_rows = min(scfg.resident.initial_rows, hot)
+    scfg.storage.warm_bytes = hot * sizes["tier_pop_factor"] * 16
+    srng = random.Random(sizes["sharded_seed"] + 2)
+    splain = [srng.randrange(1 << 30) for _ in range(sizes["stratum_K"])]
+    scts = pk.encrypt_batch(splain, client_be, min_batch=1)
+    want = host_product(scts, n2)
+    with tempfile.TemporaryDirectory() as tier_dir:
+        scfg.storage.dir = tier_dir
+        dep = await launch(scfg)
+        port = dep.server.cfg.port
+        try:
+            load_s = await load([[str(c)] for c in scts], "stratum_load")
+            sparts = dep.constellation.router.partition_keys(sorted(dep.server.stored_keys))
+            reset_counts()  # path "stratum" starts here: the server's folds alone
+            tracer.reset()
+            ms, b1_each = [], []
+            for _ in range(sizes["stratum_sumalls"]):  # the first ingests and tiers
+                before = b1()
+                ms.append(await sumall("stratum", want, sum(splain)))
+                b1_each.append(b1() - before)
+            spans = tracer.summary()
+            _, _, mdata = await req("GET", "/metrics", where="stratum")
+            tier_series = sorted({ln.split("{")[0].split(" ")[0]
+                                  for ln in mdata.decode().splitlines()
+                                  if ln.startswith("dds_tier_")})
+            stats = dep.server._stratum.stats()
+            rec["stratum"] = {"groups": len(dep.constellation.groups),
+                              "rows": len(scts), "max_rows": hot,
+                              "warm_bytes": scfg.storage.warm_bytes,
+                              "keys_per_group": {g: len(v) for g, v in sorted(sparts.items())},
+                              "load_s": load_s, "sumall_ms": ms, "b1_per_sumall": b1_each,
+                              "resident_folds":
+                                  spans.get("proxy.resident_fold", {}).get("count", 0),
+                              "series": tier_series, "tiers": stats["tiers"],
+                              "hits": stats["hits"], "cold_reads": stats["cold_reads"],
+                              "resets": dep.server._resident.stats()["resets"]}
+        finally:
+            await dep.stop()
+    counts = read_counts(dev)
+    rec["stratum"]["launches"] = {"mont_mul": counts["mont_mul"]}
+    rec["stratum"]["s"] = time.perf_counter() - t_stratum
+    step("stratum", **rec["stratum"])
+    st = rec["stratum"]
+    if st["groups"] != scfg.shard.count or "dds_tier_rows" not in tier_series:
+        raise AssertionError(f"sharded: stratum.toml {st}")
+    if st["resident_folds"] != len(ms) or "proxy.fold" in spans or \
+            "proxy.scatter_fold" in spans:
+        raise AssertionError(f"sharded: stratum.toml's SumAlls did not fold through "
+                             f"Stratum: {sorted(spans)}")
+    if st["resets"] or min(st["keys_per_group"].values()) <= hot or \
+            st["tiers"]["warm"]["rows"] <= 0 or st["tiers"]["cold"]["rows"] <= 0 or \
+            st["cold_reads"] <= 0:
+        raise AssertionError(f"sharded: stratum.toml's rows did not stream from the warm "
+                             f"and cold tiers without a reset: {st}")
+    if dev.type == "cuda" and min(b1_each) <= 0:
+        raise AssertionError(f"sharded: a stratum.toml SumAll launched no mont_mul: {b1_each}")
+    rec["statuses"] = {w: dict(collections.Counter(a["status"] for a in answers
+                                                  if a["where"] == w))
+                       for w in sorted({a["where"] for a in answers})}
+    if dev.type == "cuda" and min(rec["launches"]["mont_mul"], rec["launches"]["mont_exp"],
+                                  rec["stratum"]["launches"]["mont_mul"]) <= 0:
+        raise AssertionError(f"sharded: B1 or B3 never launched: {rec['launches']}, "
+                             f"stratum {rec['stratum']['launches']}")
+    if watchtower.attached or chronoscope.stats()["attached"]:
+        raise AssertionError("sharded: stop left the Watchtower or Chronoscope attached")
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["budget_s"] = SHARDED_BUDGET_S
+    emit("sharded", **{k: rec[k] for k in (
+        "seconds", "budget_s", "launch_s", "launches", "compare_b1_launches", "load",
+        "blind", "resident_sumall", "modes", "scatter_sumall", "write_ingest", "matvec",
+        "routes",
+        "fence", "violation_kinds", "stratum", "statuses")})
+    return rec
+
+
 def kernel_times(sizes) -> dict:
     """CUDA-event ms of the B1, P, B3, B4, B5 and REDC launches at the
     timing phases' shapes (single launches with the stream held,
@@ -5498,6 +5859,26 @@ sizes, dev = json.loads(sys.argv[1]), torch.device("cuda")
 for name in sys.argv[2].split(","):
     asyncio.run(getattr(chip_smoke, "phase_" + name)(dev, sizes))
 """
+
+
+def phases_alone(names: list[str], sizes: dict) -> int:
+    """The named phases in this process on the card, after the kernels'
+    build and with Chronoscope off (as `main` runs them), each followed
+    by one {"phase": "alone", "name", "seconds", "sizes"} line; then the
+    card's name and power limit. No result line."""
+    import torch
+    from dds_tpu_torch.obs.chronoscope import chronoscope
+
+    phase_build(False)
+    chronoscope.enabled = False  # CHRONOSCOPE_CUT; the later phases turn it on
+    dev = torch.device("cuda")
+    changed = {k: v for k, v in sizes.items() if CARD_SIZES.get(k) != v}
+    for name in names:
+        t = time.perf_counter()
+        asyncio.run(globals()["phase_" + name](dev, sizes))
+        emit("alone", name=name, seconds=time.perf_counter() - t, sizes=changed)
+    print(nvidia_smi("name,power.limit"), flush=True)
+    return 0
 
 
 def float_leaves(prefix: str, d: dict) -> dict:
@@ -5615,6 +5996,15 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   helio_drill_cadence=0.25, helio_drill_cycles=3, helio_window_s=10.0,
                   helio_getset_rate=30.0, helio_sumall_rate=2.0, helio_seed=16,
                   helio_first_wait_s=60.0,
+                  # the sharded phase: bft_sum's K (cut to 4,096, DEPTH_CUTS) on
+                  # sharded.toml as it stands, 64 PutSets in flight, 6 SumAlls a
+                  # route, 256 rows written once the pools exist,
+                  # analytics_matvec.py's R = 16, 2 SumAlls in each Karatsuba
+                  # mode; 2,048 rows on stratum.toml past a hot tier of 512
+                  # rows a group (SHARDED_OVERRIDES), 3 SumAlls
+                  sharded_K=4096, sharded_inflight=64, sharded_sumalls=6, sharded_new=256,
+                  sharded_R=16, sharded_seed=17, sharded_mode_sumalls=2, stratum_K=2048,
+                  stratum_max_rows=512, stratum_sumalls=3,
                   # the plain ladder of the exp timing on 1,024 of its 8,192
                   # columns, for the run's time (it took 83 s on all of them;
                   # 256 columns took as long as 1,024: the ladder's launches,
@@ -5631,8 +6021,13 @@ def main(argv=None) -> int:
                          "PARENT and of this one in turns (parent, change, change, "
                          "parent); no result line")
     ap.add_argument("--phases", default="",
-                    help="with --ab: run these chip_smoke phases of each tree instead "
-                         "(comma-separated, e.g. e2e,client)")
+                    help="run these chip_smoke phases alone, after the build, at the card's "
+                         "sizes (comma-separated, e.g. sharded or tenancy,heliograph; each "
+                         "an async phase of (dev, sizes); no result line); with --ab: run "
+                         "them of each tree instead")
+    ap.add_argument("--size", action="append", default=[], metavar="KEY=VALUE",
+                    help="with --phases alone: one of the card's sizes set to a JSON "
+                         "value, e.g. sharded_K=8192 (repeatable)")
     ap.add_argument("--times", action="store_true",
                     help="print one JSON line of kernel times (used by --ab)")
     ap.add_argument("--tree", help="with --times: time the dds_tpu_torch of this tree")
@@ -5641,11 +6036,15 @@ def main(argv=None) -> int:
 
     import torch
 
-    if (args.ab or args.times) and not torch.cuda.is_available():
+    if (args.ab or args.times or args.phases) and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     if args.ab:
         return ab(args.ab, [p for p in args.phases.split(",") if p])
+    if args.phases:
+        sizes = {**CARD_SIZES, **{k: json.loads(v) for k, v in
+                                  (kv.split("=", 1) for kv in args.size)}}
+        return phases_alone([p for p in args.phases.split(",") if p], sizes)
     if args.times:
         if args.tree:  # before anything imports dds_tpu_torch
             sys.path.insert(0, args.tree)
@@ -5683,7 +6082,9 @@ def main(argv=None) -> int:
                      helio_sumalls=2, helio_sumalls_compare=2, helio_drill_cadence=0.05,
                      helio_drill_cycles=3, helio_window_s=2.0, helio_getset_rate=10.0,
                      helio_sumall_rate=2.0, helio_seed=16, helio_first_wait_s=60.0,
-                     exp_plain_cols=16)
+                     sharded_K=320, sharded_inflight=32, sharded_sumalls=2, sharded_new=16,
+                     sharded_R=4, sharded_seed=17, sharded_mode_sumalls=1, stratum_K=288,
+                     stratum_max_rows=64, stratum_sumalls=2, exp_plain_cols=16)
         card = {"name": "cpu (rehearsal)", **card_numbers(dev)}
     else:
         if not torch.cuda.is_available():
@@ -5702,7 +6103,7 @@ def main(argv=None) -> int:
     emit("cuts", earlier_phases=EARLIER_OBS_CUTS, recovery=RECOVERY_CUTS,
          timing_exp_plain_columns=sizes["exp_plain_cols"],
          bulwark_overrides=BULWARK_OVERRIDES, tenancy_overrides=TENANCY_OVERRIDES,
-         heliograph_overrides=HELIOGRAPH_OVERRIDES,
+         heliograph_overrides=HELIOGRAPH_OVERRIDES, sharded_overrides=SHARDED_OVERRIDES,
          chronoscope_before_tenancy=CHRONOSCOPE_CUT, mixed=MIXED_CUT, depth=DEPTH_CUTS)
 
     from dds_tpu_torch.bench_key import bench_paillier_key
@@ -5716,7 +6117,15 @@ def main(argv=None) -> int:
 
     def timed(name: str, fn, *a):
         t = time.perf_counter()
-        out = fn(*a)
+        try:
+            out = fn(*a)
+        except BaseException as e:
+            # name the phase that raised, on both streams, then fail as before
+            line = json.dumps({"phase_failed": name, "error": repr(e),
+                               "seconds": time.perf_counter() - t})
+            print(line, flush=True)
+            print(line, file=sys.stderr, flush=True)
+            raise
         took[name] = time.perf_counter() - t
         return out
 
@@ -5743,6 +6152,7 @@ def main(argv=None) -> int:
     bulwark = timed("bulwark", asyncio.run, phase_bulwark(dev, sizes))
     tenancy = timed("tenancy", asyncio.run, phase_tenancy(dev, sizes))
     helio = timed("heliograph", asyncio.run, phase_heliograph(dev, sizes))
+    sharded = timed("sharded", asyncio.run, phase_sharded(dev, sizes))
     emit("run", phase_seconds=took, seconds=time.perf_counter() - t_run)
 
     path = tim["path"]
@@ -5757,20 +6167,17 @@ def main(argv=None) -> int:
         "tpu_twin": "mont_mxu._make_prod_kernel + _redc (v2); pallas_mont._make_mul_kernel (v1)",
         "launches_by_path": {"sumall": e2e["launches"],
                              "analytics": e2e["analytics"]["modes"]["0"]["launches"]["mont_mul"],
-                             "analytics_rest":
-                                 resident["rest"]["matvec"]["launches"]["mont_mul"],
                              "multall": multall["modes"]["0"]["launches"]["mont_mul"],
                              "mixed": mixed["mont_mul_launches"],
                              "resident": resident["modes"]["0"]["launches"]["mont_mul"],
-                             "resident_rest":
-                                 resident["rest"]["modes"]["0"]["launches"]["mont_mul"],
                              "tiered": tiered["modes"]["0"]["launches"]["mont_mul"],
-                             "tiered_rest": tiered["rest"]["launches"]["mont_mul"],
                              "recovery": recovery["launches"],
                              "sumall_audited": e2e["audited"]["launches"],
                              "bulwark": bulwark["launches"],
                              "tenancy": tenancy["launches"]["mont_mul"],
-                             "heliograph": helio["launches"]["mont_mul"]},
+                             "heliograph": helio["launches"]["mont_mul"],
+                             "sharded": sharded["launches"]["mont_mul"],
+                             "stratum": sharded["stratum"]["launches"]["mont_mul"]},
         "max_abs_err": par["max_abs_err"],
         "per": f"one K={path['K']} fold ({path['launches']} launches) on the device; "
                f"wall_ms: back to back, paced by the host's dispatch",
@@ -5789,7 +6196,8 @@ def main(argv=None) -> int:
         "tpu_twin": "pallas_mont._make_exp_kernel via _exp_call / exp_lm",
         "launches_by_path": {"client": client["exp_launches"],
                              "tenancy": tenancy["launches"]["mont_exp"],
-                             "heliograph": helio["launches"]["mont_exp"]},
+                             "heliograph": helio["launches"]["mont_exp"],
+                             "sharded": sharded["launches"]["mont_exp"]},
         "max_abs_err": max(par_exp["max_abs_err"], tim_exp["max_abs_err"]),
         "per": f"one launch, B={tim_exp['B']}, E={tim_exp['E']} "
                f"({tim_exp['exp_products_per_row']} products per row); plain_ms on "
@@ -5821,13 +6229,14 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": None,
         })
     # each Karatsuba kernel's launches on the SumAll e2e run, MultAll's run,
-    # the resident plane's folds and SumAlls and the tiered folds, in its mode
+    # the resident plane's folds, the tiered folds and sharded.toml's SumAlls
+    # on the fused tree, in its mode
     k1, kf = ({k: {"sumall": e2e["karatsuba_modes"][m]["launches"][k],
                    "analytics": e2e["analytics"]["modes"][m]["launches"][k],
                    "multall": multall["modes"][m]["launches"][k],
                    "resident": resident["modes"][m]["launches"][k],
-                   "resident_rest": resident["rest"]["modes"][m]["launches"][k],
-                   "tiered": tiered["modes"][m]["launches"][k]} for k in KARATSUBA_KERNELS}
+                   "tiered": tiered["modes"][m]["launches"][k],
+                   "sharded": sharded["modes"][m]["launches"][k]} for k in KARATSUBA_KERNELS}
               for m in ("1", "2"))
     for name, replaces, twin, launches, err, per in (
         ("mont_prod3", "dds_tpu/ops/mont_mxu.py:151",
@@ -5909,6 +6318,10 @@ def main(argv=None) -> int:
     print(json.dumps({"heliograph": {**helio, "card": card["smi"] if "smi" in card
                                      else card["name"],
                                      "run_seconds": time.perf_counter() - t_run}},
+                     default=str), flush=True)
+    print(json.dumps({"sharded": {**sharded, "card": card["smi"] if "smi" in card
+                                  else card["name"],
+                                  "run_seconds": time.perf_counter() - t_run}},
                      default=str), flush=True)
     if args.rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result", file=sys.stderr)

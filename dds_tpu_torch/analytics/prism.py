@@ -14,9 +14,11 @@ routes are encrypted scoring (`MatVec`), weighted aggregates
 (`WeightedSum`, one row) and group-by rollups (`GroupBySum`, 0/1 selector
 rows).
 
-Sharding is not ported: every request is one weighted fold on the
-backend (the reference's per-shard scatter and `combine_partials` gather
-come with the mesh work). Request validation failures raise ValueError
+On a sharded proxy (`owner`, the router's key -> group resolver) the
+operand columns partition by owning group: one weighted fold a group,
+dispatched concurrently on worker threads, each row's partials merged by
+`parallel/mesh.combine_partials` (every group shares one Paillier
+modulus, so the result is the unsharded fold's). Request validation failures raise ValueError
 (400 at the REST edge); the row cap (`ops/flags.analytics_max_rows`)
 bounds how much kernel work one request can demand.
 """
@@ -27,21 +29,26 @@ import asyncio
 import math
 import time
 from dataclasses import dataclass
+from typing import Callable, Optional
 
 from dds_tpu_torch.models.paillier import PaillierPublicKey
 from dds_tpu_torch.obs.metrics import SIZE_BUCKETS, metrics
+from dds_tpu_torch.parallel.mesh import combine_partials
 from dds_tpu_torch.utils.trace import tracer
 
 
 @dataclass
 class Prism:
     """The analytics engine one REST proxy owns: a ciphertext backend, the
-    per-request row cap, and (with `[resident]`) the resident plane whose
-    pool the operand column gathers from, so the device path skips the
-    per-request host int -> limb marshaling."""
+    per-request row cap, (when sharded) the key -> group-id resolver the
+    scatter partition uses (None = unsharded, one dispatch), and (with
+    `[resident]`) the resident plane whose per-group pools the operand
+    columns gather from, so the device path skips the per-request host
+    int -> limb marshaling."""
 
     backend: object
     max_rows: int = 256
+    owner: Optional[Callable[[str], str]] = None
     resident: object = None
 
     # ------------------------------------------------------------ validation
@@ -113,33 +120,47 @@ class Prism:
 
     # ------------------------------------------------------------ evaluation
 
-    def _gather(self, ciphers: list[int], rows: int, n2: int, tenant: str = ""):
-        """The operands' resident device rows from the tenant's stripe, or
-        None when residency does not apply: no plane, a host backend (it
-        works from the ints), a below-crossover request (the host loop
-        wins), or a column wider than its pool. None always means the
-        marshaling path."""
+    def _partition(self, keys: list[str]) -> list[tuple[str, list[int]]]:
+        """Column indices grouped by owning shard group id; unsharded = one
+        anonymous group (a single dispatch either way when only one part
+        comes back)."""
+        if self.owner is None:
+            return [("", list(range(len(keys))))]
+        groups: dict[str, list[int]] = {}
+        for i, k in enumerate(keys):
+            groups.setdefault(self.owner(k), []).append(i)
+        return list(groups.items())
+
+    def _gather(self, gid: str, ciphers: list[int], rows: int, n2: int,
+                tenant: str = ""):
+        """One group's operands' resident device rows from the tenant's
+        stripe, or None when residency does not apply: no plane, a host
+        backend (it works from the ints), a below-crossover request (the
+        host loop wins), or a column wider than its pool. None always means
+        the marshaling path."""
         mdb = getattr(self.backend, "min_device_batch", None)
         if self.resident is None or mdb is None:
             return None
         if rows * len(ciphers) < mdb:
             return None
-        return self.resident.rows_for("", n2, ciphers, tenant)
+        return self.resident.rows_for(gid, n2, ciphers, tenant)
 
-    def _matvec(self, ciphers: list[int], encoded: list[list[int]], n2: int,
-                tenant: str = "") -> list[int]:
-        # one gather a request, on the worker thread: the pool's lock is
-        # held while the gather enqueues, never on the event loop
-        rows = self._gather(ciphers, len(encoded), n2, tenant)
+    def _matvec(self, gid: str, ciphers: list[int], encoded: list[list[int]],
+                n2: int, tenant: str = "") -> list[int]:
+        # one gather a group, on the worker thread: the pool's lock is held
+        # while the gather enqueues, never on the event loop
+        rows = self._gather(gid, ciphers, len(encoded), n2, tenant)
         return self.backend.matvec(ciphers, encoded, n2, rows)
 
     async def evaluate(
-        self, route: str, ciphers: list[int], encoded: list[list[int]], n2: int,
-        tenant: str = "",
+        self, route: str, keys: list[str], ciphers: list[int],
+        encoded: list[list[int]], n2: int, tenant: str = "",
     ) -> list[int]:
-        """One request's encoded weighted fold, on a worker thread; with a
-        resident plane its operands gather from `tenant`'s stripe ("" the
-        single-tenant one)."""
+        """One request's encoded weighted fold on worker threads: scattered
+        one fold a shard group when the columns span groups and merged per
+        row by `combine_partials`; with a resident plane each group's
+        operands gather from `tenant`'s stripe ("" the single-tenant
+        one)."""
         R, K = len(encoded), len(ciphers)
         metrics.inc(
             "dds_analytics_requests_total", route=route,
@@ -153,12 +174,25 @@ class Prism:
             "dds_analytics_cols", K, buckets=SIZE_BUCKETS,
             help="ciphertext operand columns per analytics request",
         )
+        parts = self._partition(keys)
         t0 = time.perf_counter()
         with tracer.span(
-            "analytics.matvec", rows=R, cols=K, shards=1,
+            "analytics.matvec", rows=R, cols=K, shards=len(parts),
             backend=getattr(self.backend, "name", "?"),
         ):
-            out = await asyncio.to_thread(self._matvec, ciphers, encoded, n2, tenant)
+            if len(parts) > 1:
+                def one(gid: str, idxs: list[int]):
+                    return asyncio.to_thread(
+                        self._matvec, gid, [ciphers[i] for i in idxs],
+                        [[row[i] for i in idxs] for row in encoded], n2, tenant)
+
+                partials = await asyncio.gather(*(one(g, ix) for g, ix in parts))
+                out = [combine_partials([p[r] for p in partials], n2)
+                       for r in range(R)]
+            else:
+                gid = parts[0][0] if parts else ""
+                out = await asyncio.to_thread(self._matvec, gid, ciphers, encoded,
+                                              n2, tenant)
         metrics.observe(
             "dds_analytics_matvec_seconds", time.perf_counter() - t0,
             help="analytics weighted-fold evaluation latency",

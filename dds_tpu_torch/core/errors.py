@@ -1,6 +1,6 @@
 """Typed Byzantine-failure exceptions (copy of `dds_tpu/core/errors.py`,
-trimmed to the protocol-violation family the quorum client raises and
-the all-breakers-open fast-fail)."""
+trimmed to the protocol-violation family the quorum client raises, the
+all-breakers-open fast-fail and the shard fence)."""
 
 
 class ByzantineError(Exception):
@@ -39,4 +39,22 @@ class AllBreakersOpenError(Exception):
         super().__init__(
             f"all {targets} trusted coordinators have open breakers "
             f"(nearest half-open probe in {eta:.3f}s)"
+        )
+
+
+class WrongShardError(Exception):
+    """The addressed replica group does not own the key under its current
+    shard map (Constellation epoch fencing, `shard/`). NOT a
+    ByzantineError: the replica behaved correctly — the caller's shard map
+    is stale (or a reshard is mid-flight). The proxy refreshes its map and
+    retries under the existing Deadline budget; no suspicion accrues."""
+
+    def __init__(self, key: str, replica_epoch: int | None = None,
+                 sent_epoch: int | None = None):
+        self.key = key
+        self.replica_epoch = replica_epoch
+        self.sent_epoch = sent_epoch
+        super().__init__(
+            f"key {key[:16]}... not owned by addressed group "
+            f"(replica epoch {replica_epoch}, request epoch {sent_epoch})"
         )

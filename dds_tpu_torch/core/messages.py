@@ -3,8 +3,8 @@
 Trimmed copy of `dds_tpu/core/messages.py`: the messages the port's paths
 send over the in-memory transport (the JSON wire codec waits with
 TcpNet) — the ABD rounds, the supervisor's membership and recovery
-protocol, verified state transfer, Merkle anti-entropy and the
-fault-injection backdoors, with the reference's field names in its order.
+protocol, verified state transfer, Merkle anti-entropy, the shard
+fence's `WrongShard` and the fault-injection backdoors, with the reference's field names in its order.
 A "set" (the stored value) is a plain JSON list or None; tags order
 writes by (seq, id), the standard ABD total order.
 """
@@ -58,6 +58,11 @@ class Envelope:
     call: Any          # one of the I* messages above
     nonce: int
     signature: bytes
+    # Constellation shard-map epoch the SENDER routed under (-1 =
+    # unsharded). Fenced at the replica: a group that does not own the
+    # key under ITS current map answers WrongShard instead of serving, so
+    # a stale map can never silently misroute an op during a reshard.
+    epoch: int = -1
 
 
 # --------------------------------------------------------------------------
@@ -121,6 +126,8 @@ class ReadTagBatch:
     nonce: int
     signature: bytes = b""
     fingerprint: Optional[bytes] = None
+    # shard-map epoch, same fencing contract as Envelope.epoch
+    epoch: int = -1
 
 
 @dataclass(frozen=True)
@@ -323,6 +330,25 @@ class RepairReply:
 
     entries: dict
     nonce: int
+
+
+# --------------------------------------------------------------------------
+# Constellation shard fencing (shard/)
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class WrongShard:
+    """Replica -> proxy: epoch fence rejection. The addressed group does
+    not own `key` under the replica's current shard map (epoch `epoch`).
+    `nonce` correlates: the challenge nonce for an Envelope op, the
+    request nonce for a ReadTagBatch. Signed with the proxy MAC over
+    (key, nonce, ["wrong-shard", epoch]) so an in-path attacker cannot
+    forge fence storms that stall the router with fake refreshes."""
+
+    key: str
+    epoch: int
+    nonce: int
+    signature: bytes
 
 
 # --------------------------------------------------------------------------

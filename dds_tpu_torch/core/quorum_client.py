@@ -1,7 +1,7 @@
 """Proxy-side ABD access: nonce-challenged, HMAC-verified quorum reads/writes.
 
-Trimmed copy of `dds_tpu/core/quorum_client.py` (read leases and shard
-fencing are not ported). A point op picks a random trusted replica as
+Trimmed copy of `dds_tpu/core/quorum_client.py` (read leases are not
+ported). A point op picks a random trusted replica as
 coordinator (the supervisor's freshest half first), sends a signed
 `Envelope(IRead/IWrite)`, awaits the enveloped reply, and verifies (a) the
 challenge nonce is the request nonce + increment, (b) the proxy HMAC over
@@ -21,6 +21,12 @@ and `tag_id`, the record the Watchtower audits (`obs/watchtower.py`).
 
 A junk reply from the asked coordinator resolves the outstanding request
 and is then rejected by validation, rather than stalling until timeout.
+
+In a Constellation (`shard/`) the router labels each group's client
+(`cfg.shard`) and installs `shard_epoch`, the active map's epoch, which
+stamps every Envelope and ReadTagBatch; a signed `WrongShard` fence from a
+replica raises `WrongShardError` (no suspicion: the replica behaved
+correctly), a forged one is a protocol violation like any other.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from dds_tpu_torch.core.errors import (
     ByzInvalidKeyError,
     ByzInvalidSignatureError,
     ByzUnknownReplyError,
+    WrongShardError,
 )
 from dds_tpu_torch.core.transport import Transport
 from dds_tpu_torch.utils import sigs
@@ -70,6 +77,9 @@ class AbdClientConfig:
     # fail at once when EVERY trusted coordinator's breaker is open and
     # none will half-open within the caller's remaining budget
     fast_fail_all_open: bool = True
+    # Constellation shard label for this client's metric series (empty =
+    # unsharded, series keep their label sets)
+    shard: str = ""
 
 
 class AbdClient:
@@ -87,6 +97,10 @@ class AbdClient:
         # tag-broadcast nonce -> (future, sender->tags votes, digest, keys,
         # request fingerprint | None)
         self._pending_tags: dict[int, tuple] = {}
+        # Constellation: the router installs a supplier of the ACTIVE map
+        # epoch, stamped on every Envelope/ReadTagBatch so replicas can
+        # fence stale routes. None = -1 = unsharded
+        self.shard_epoch = None
         net.register(addr, self.handle)
 
     async def handle(self, sender: str, msg) -> None:
@@ -97,6 +111,18 @@ class AbdClient:
             return
         if isinstance(msg, M.TagBatchReply) and msg.nonce in self._pending_tags:
             self._on_tag_batch_reply(sender, msg)
+            return
+        if isinstance(msg, M.WrongShard):
+            # shard fence rejection: resolve the matching outstanding request
+            # (Envelope ops correlate by challenge nonce, tag batches by
+            # request nonce) BEFORE the junk-reply fallthrough, so a fence
+            # never resolves another op as junk and strikes an honest replica
+            if msg.nonce in self._pending:
+                fut, _ = self._pending[msg.nonce]
+                if not fut.done():
+                    fut.set_result(msg)
+            elif msg.nonce in self._pending_tags:
+                self._on_wrong_shard_batch(sender, msg)
             return
         if isinstance(msg, M.ActiveReplicas):
             if self.cfg.supervisor is not None and sender != self.cfg.supervisor:
@@ -155,6 +181,37 @@ class AbdClient:
         tracer.event("abd.coordinator_violation", node=coord)
         self._breaker(coord).record_failure()
 
+    def _mlabels(self, **labels) -> dict:
+        """Metric labels, plus the shard label when this client serves one
+        group of a constellation (unsharded series stay label-stable)."""
+        if self.cfg.shard:
+            labels["shard"] = self.cfg.shard
+        return labels
+
+    def _epoch(self) -> int:
+        return self.shard_epoch() if self.shard_epoch is not None else -1
+
+    def _check_wrong_shard(self, reply, coord: str, key: str, challenge: int):
+        """Validate a WrongShard fence reply for an Envelope op: a valid
+        fence raises WrongShardError (no suspicion), a forged one is a
+        protocol violation."""
+        if not isinstance(reply, M.WrongShard):
+            return
+        cfg = self.cfg
+        if (
+            reply.nonce != challenge
+            or reply.key != key
+            or not sigs.validate_proxy_signature(
+                cfg.proxy_mac_secret, reply.key, reply.nonce, reply.signature,
+                ["wrong-shard", reply.epoch],
+            )
+        ):
+            self._coord_failed(coord)
+            raise ByzInvalidSignatureError(coord)
+        self._breaker(coord).record_success()
+        raise WrongShardError(key, replica_epoch=reply.epoch,
+                              sent_epoch=self._epoch())
+
     def _attempt_timeout(self, deadline: Optional[Deadline]) -> float:
         """Per-attempt timeout, clipped to the caller's remaining budget."""
         if deadline is None:
@@ -182,13 +239,15 @@ class AbdClient:
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         self._pending[challenge] = (fut, coordinator)
         try:
-            self.net.send(self.addr, coordinator, M.Envelope(call, nonce, signature))
+            self.net.send(self.addr, coordinator,
+                          M.Envelope(call, nonce, signature, epoch=self._epoch()))
             try:
                 reply = await asyncio.wait_for(fut, timeout)
             except asyncio.TimeoutError:
                 metrics.inc(
-                    "dds_quorum_timeouts_total", op=op,
-                    node=coordinator.rsplit("/", 1)[-1],
+                    "dds_quorum_timeouts_total", **self._mlabels(
+                        op=op, node=coordinator.rsplit("/", 1)[-1],
+                    ),
                     help="quorum rounds that timed out per coordinator",
                 )
                 # transient unreachability: breaker only, the permanent
@@ -215,7 +274,7 @@ class AbdClient:
         if eta < deadline.remaining():
             return
         metrics.inc(
-            "dds_fast_fail_total", op=op,
+            "dds_fast_fail_total", **self._mlabels(op=op),
             help="requests degraded instantly: all coordinator breakers "
                  "open past the remaining budget",
         )
@@ -246,6 +305,7 @@ class AbdClient:
                 M.IRead(key), nonce, sig, exclude, deadline, op="fetch"
             )
             span_meta["coordinator"] = coord
+            self._check_wrong_shard(reply, coord, key, challenge)
             match reply:
                 case M.Envelope(M.IReadReply(k, value, tag), rnonce, rsig):
                     if rnonce != challenge:
@@ -291,6 +351,7 @@ class AbdClient:
                 M.IWrite(key, value), nonce, sig, (), deadline, op="write"
             )
             span_meta["coordinator"] = coord
+            self._check_wrong_shard(reply, coord, key, challenge)
             match reply:
                 case M.Envelope(M.IWriteReply(k, tag), rnonce, rsig):
                     if rnonce != challenge:
@@ -316,6 +377,26 @@ class AbdClient:
                 case _:
                     self._coord_failed(coord)
                     raise ByzUnknownReplyError(coord)
+
+    def _on_wrong_shard_batch(self, sender: str, msg: M.WrongShard) -> None:
+        """A replica fenced a ReadTagBatch: the whole round fails with
+        WrongShardError (the router re-partitions against a fresh map). A
+        forged fence earns the sender a suspicion strike instead."""
+        fut, _, _, keys, _ = self._pending_tags[msg.nonce]
+        if fut.done():
+            return
+        if (
+            msg.key not in keys
+            or not sigs.validate_proxy_signature(
+                self.cfg.proxy_mac_secret, msg.key, msg.nonce, msg.signature,
+                ["wrong-shard", msg.epoch],
+            )
+        ):
+            self.replicas.increment_suspicion(sender)
+            return
+        fut.set_exception(WrongShardError(
+            msg.key, replica_epoch=msg.epoch, sent_epoch=self._epoch()
+        ))
 
     def _on_tag_batch_reply(self, sender: str, msg: M.TagBatchReply) -> None:
         fut, votes, digest, keys, fp = self._pending_tags[msg.nonce]
@@ -392,7 +473,8 @@ class AbdClient:
         self._pending_tags[nonce] = (fut, {}, digest, tuple(keys), fingerprint)
         try:
             with tracer.span("abd.read_tags", k=len(keys)):
-                req = M.ReadTagBatch(tuple(keys), nonce, sig, fingerprint)
+                req = M.ReadTagBatch(tuple(keys), nonce, sig, fingerprint,
+                                     epoch=self._epoch())
                 for replica in trusted:
                     self.net.send(self.addr, replica, req)
                 vectors = await asyncio.wait_for(fut, timeout)

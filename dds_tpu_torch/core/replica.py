@@ -4,8 +4,8 @@ Trimmed copy of `dds_tpu/core/replica.py`: the three behaviours
 (healthy, sentinent spare, byzantine), the supervisor's recovery protocol
 (the legacy `Sleep` reseed and the verified `SleepBegin`/`StateChunk`
 reseed, `StateDigestRequest`, `Kill`), the Merkle index and anti-entropy
-agent, and the fault-injection gate. Leases, geo local reads, shard
-fencing and shard migration are not ported.
+agent, the fault-injection gate and the Constellation's shard fence.
+Leases, geo local reads and shard migration are not ported.
 
 Protocol summary:
 - proxy `Envelope(IWrite)` -> broadcast `ReadTag`; on a quorum of
@@ -18,6 +18,12 @@ Protocol summary:
   signature and answer `IReadReply` on a quorum of `WriteAck`.
 - proxy `ReadTagBatch` -> answer the tag vector (or "unchanged" when the
   proxy's fingerprint matches), MACed with the intranet secret.
+- a replica of a shard group (`shard`, the group's shared
+  `shard.ShardState`) fences every key its group does not own under the
+  group's current map: an authenticated `IRead`/`IWrite` or
+  `ReadTagBatch` answers a signed `WrongShard` (the proxy refreshes its map
+  and retries), and a `Write` minted under a stale epoch is neither stored
+  nor acked. An unsharded replica (`shard is None`) never fences.
 - every inbound protocol message is HMAC-verified and nonce-replay-checked;
   violations raise `Suspect` votes to the supervisor.
 - `Crash` and `Compromise` (Trudy's backdoors) are honoured only with
@@ -79,7 +85,8 @@ class BFTABDNode:
     """One replica endpoint. `addr` must appear in `replicas`."""
 
     def __init__(self, addr: str, replicas: list[str], supervisor: str,
-                 net: Transport, config: ReplicaConfig | None = None):
+                 net: Transport, config: ReplicaConfig | None = None,
+                 shard=None):
         self.addr = addr
         self.name = addr.rsplit("/", 1)[-1]
         self.all_replicas = list(replicas)
@@ -109,6 +116,10 @@ class BFTABDNode:
         # verified-reseed sessions in flight: session -> {begin, chunks}
         # (SleepBegin and StateChunks may arrive in any order)
         self._recovery_sessions: dict[int, dict] = {}
+        # Constellation: the group's shared fencing state (shard.ShardState
+        # duck-type: group_id / epoch / owns(key)). None = unsharded, no
+        # fencing
+        self.shard = shard
         # last snapshot save/load bookkeeping (core/snapshot fills it;
         # /health and the scrape-time gauges read it)
         self.snapshot_meta: dict = {}
@@ -163,6 +174,30 @@ class BFTABDNode:
         self._tagbatch_cache.clear()
         self.merkle.rebuild({})
         self._recovery_sessions.clear()
+
+    def _shard_fenced(self, key: str) -> bool:
+        """True when this group must NOT serve `key` under its current
+        shard map (Constellation epoch fencing). Unsharded nodes never
+        fence."""
+        return self.shard is not None and not self.shard.owns(key)
+
+    def _reply_wrong_shard(self, dest: str, key: str, nonce: int,
+                           sent_epoch: int, what: str) -> None:
+        """Typed, signed fence rejection: tells the proxy its map is stale
+        (or a reshard is in flight) so it refreshes and re-routes under its
+        existing Deadline budget."""
+        epoch = self.shard.epoch
+        sig = sigs.proxy_signature(
+            self.cfg.proxy_mac_secret, key, nonce, ["wrong-shard", epoch]
+        )
+        metrics.inc(
+            "dds_shard_fenced_total", shard=str(self.shard.group_id),
+            msg=what,
+            help="requests fenced for keys outside the group's shard map",
+        )
+        tracer.event("shard.fence", replica=self.name, key=key,
+                     epoch=epoch, sent_epoch=sent_epoch, msg=what)
+        self._send(dest, M.WrongShard(key, epoch, nonce, sig))
 
     def _tag_batch_fill(self, keys: tuple, digest: str) -> tuple[tuple, bytes]:
         """(tag vector, fingerprint) for an AUTHENTICATED ReadTagBatch,
@@ -226,6 +261,15 @@ class BFTABDNode:
                             cfg.proxy_mac_secret, key, nonce, signature
                         ):
                             self._debug("invalid proxy signature")
+                        elif self._shard_fenced(key):
+                            # fence AFTER authentication (an unauthenticated
+                            # probe must not learn the keyspace layout) and
+                            # burn the request so a replay cannot re-ask
+                            req.expired = True
+                            self._reply_wrong_shard(
+                                sender, key, nonce + cfg.nonce_increment,
+                                msg.epoch, "IRead",
+                            )
                         else:
                             self._broadcast(M.Read(key, nonce))
                     case M.IWrite(key, value):
@@ -233,6 +277,12 @@ class BFTABDNode:
                             cfg.proxy_mac_secret, key, nonce, signature, value
                         ):
                             self._debug("invalid proxy signature")
+                        elif self._shard_fenced(key):
+                            req.expired = True
+                            self._reply_wrong_shard(
+                                sender, key, nonce + cfg.nonce_increment,
+                                msg.epoch, "IWrite",
+                            )
                         else:
                             req.set_to_write = value
                             self._broadcast(M.ReadTag(key, nonce))
@@ -269,6 +319,15 @@ class BFTABDNode:
                     self._debug("invalid nonce - repeated (tag batch)")
                     self._suspect(sender)
                     return
+                if self.shard is not None:
+                    bad = next((k for k in keys if self._shard_fenced(k)), None)
+                    if bad is not None:
+                        # batch replies correlate by the REQUEST nonce
+                        self.incoming[nonce] = True
+                        self._reply_wrong_shard(
+                            sender, bad, nonce, msg.epoch, "ReadTagBatch"
+                        )
+                        return
                 if hit is not None:
                     tags, fp = hit[2], hit[3]
                 else:
@@ -333,6 +392,20 @@ class BFTABDNode:
                 if self.incoming[nonce]:
                     return  # late quorum reply
                 self.incoming[nonce] = True
+                if self._shard_fenced(key):
+                    # storage-layer fence: a Write minted under a stale
+                    # epoch (its coordinator raced the map install) is
+                    # neither stored nor acked, so the op cannot reach a
+                    # quorum and its retry fences at the coordinator
+                    metrics.inc(
+                        "dds_shard_fenced_total",
+                        shard=str(self.shard.group_id), msg="Write",
+                        help="requests fenced for keys outside the group's "
+                             "shard map",
+                    )
+                    tracer.event("shard.fence", replica=self.name, key=key,
+                                 epoch=self.shard.epoch, msg="Write")
+                    return
                 cur_tag, _ = self._state(key)
                 if cur_tag < tag:
                     self._store(key, tag, value)
@@ -474,6 +547,8 @@ class BFTABDNode:
                     self._debug("invalid nonce - repeated (sentinent)")
                     return
                 self.incoming[nonce] = True
+                if self._shard_fenced(key):
+                    return  # same storage fence as the healthy path
                 cur_tag, _ = self._state(key)
                 if cur_tag < tag:
                     self._store(key, tag, value)

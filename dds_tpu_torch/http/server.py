@@ -97,8 +97,8 @@ and public parameters only, never keys.
 
 With `[resident]` (`ProxyConfig.resident`) every modular SumAll/MultAll
 at least `min-fold` wide runs through the resident plane (`resident/`):
-one fused gather+fold over the operands' group pools (one anonymous group
-here: sharding is not ported), on the backend's device. Committed writes
+one fused gather+fold over the operands' group pools (one pool a shard
+group, one anonymous group unsharded), on the backend's device. Committed writes
 queue their ciphertext columns for ingest into the existing pools off the
 request path, so the first aggregate after a write ingests nothing. With
 `[storage]` as well, Stratum (`storage/`) routes the fold through its
@@ -119,6 +119,25 @@ invalidates the plane, and with Stratum every selection warms its rows in
 the tier directory (`touch_sink` -> `Stratum.touch_keys`).
 `dds_search_requests_total{route,path}` counts both paths and
 `dds_search_index_total{outcome}` the index's hits, stale and missing keys.
+
+Given a `shard.ShardRouter` in place of one `AbdClient` (a Constellation,
+`run.launch` with `[shard]`), the proxy serves the keyspace of S quorum
+groups: point routes reach the owning group alone (a `WrongShardError`
+fence retries under the request's budget and re-resolves the owner), the
+aggregate cache's tag round scatters per group, a modular SumAll/MultAll
+below the resident plane folds once a group, concurrently (a group's fold
+at or above the device crossover is a device fold of its own; smaller
+ones enter the coalescing window like any small fold: one `fold_many`
+pass when their combined width reaches the crossover, host folds below
+it), and merges the
+partials with `parallel/mesh.combine_partials` (`proxy.scatter_fold`); the resident and
+search planes keep a pool and an index a group, and Prism one weighted
+fold a group. `GET /shards` serves the signed active map, the reshard
+state and each group's replicas, with the epoch as its ETag (a matching
+`If-None-Match` answers 304); `/health` gains `shards`, `shard_epoch` and
+`reshard_state`, and `/metrics` the `dds_shard_*` gauges. `POST /_reshard`
+is not served (live resharding is not ported; the reference serves it only
+behind `[fabric] admin-routes`, which `run.launch` refuses with `[shard]`).
 """
 
 from __future__ import annotations
@@ -136,7 +155,7 @@ from typing import Optional
 from dds_tpu_torch.analytics import Prism
 from dds_tpu_torch.clt.canary import CanaryTarget, parse_canary_targets
 from dds_tpu_torch.core.admission import AdaptiveCoalescer, AdmissionController, TokenBucket
-from dds_tpu_torch.core.errors import AllBreakersOpenError, ByzantineError
+from dds_tpu_torch.core.errors import AllBreakersOpenError, ByzantineError, WrongShardError
 from dds_tpu_torch.core.quorum_client import AbdClient
 from dds_tpu_torch.core.tenant import (CANARY_TENANT, DEFAULT_TENANT, TenantError,
                                        validate_tenant)
@@ -152,6 +171,7 @@ from dds_tpu_torch.obs.metrics import metrics
 from dds_tpu_torch.obs.slo import SloEngine
 from dds_tpu_torch.obs.watchtower import watchtower
 from dds_tpu_torch.ops.flags import analytics_max_rows
+from dds_tpu_torch.parallel.mesh import combine_partials
 from dds_tpu_torch.resident import ResidentPlane
 from dds_tpu_torch.search import SearchPlane
 from dds_tpu_torch.storage import Stratum
@@ -181,14 +201,17 @@ _REQ_TENANT: contextvars.ContextVar = contextvars.ContextVar(
 )
 
 # transient storage-layer failures worth retrying; anything else (a
-# programming error, a bad request) propagates immediately
-_RETRYABLE = (ByzantineError, asyncio.TimeoutError, NoTrustedNodesError, OSError)
+# programming error, a bad request) propagates immediately. WrongShardError
+# is the Constellation fence: the retry re-resolves the owner under the
+# router's current map
+_RETRYABLE = (ByzantineError, WrongShardError, asyncio.TimeoutError,
+              NoTrustedNodesError, OSError)
 
 # observability routes bypass admission, so operators can see why the edge
 # sheds while it sheds (the reference exempts its unported control and
 # fleet routes too)
-_ADMISSION_EXEMPT = frozenset({"health", "metrics", "slo", "profile", "_trace",
-                               "canary"})
+_ADMISSION_EXEMPT = frozenset({"health", "metrics", "slo", "shards", "profile",
+                               "_trace", "canary"})
 
 
 @dataclass
@@ -310,6 +333,10 @@ class DDSRestServer:
         self._fold_pending: dict[int, list] = {}
         self._fold_drainer: asyncio.Task | None = None
         self._folds_inflight = 0  # folds currently executing (any path)
+        # Constellation: a ShardRouter (duck-typed by its shard_manager)
+        # turns point routes into one-group ops and aggregates into
+        # per-group folds; a plain AbdClient leaves every path as it was
+        self._shards = getattr(abd, "shard_manager", None)
         self._owner_memo: tuple | None = None  # pairs identity -> (gid, ops)
         # the resident plane: per-group device-resident pools + the fused
         # fold. A cuda backend builds it on its own device; a host backend
@@ -337,6 +364,9 @@ class DDSRestServer:
             )
             self._resident_write_ingest = rescfg.write_ingest
             self._resident_ingest_window = max(0.0, rescfg.ingest_window)
+            if self._shards is not None:
+                # the group -> placement order pinned up front
+                self._resident.register_groups(self.abd.group_ids())
         # the search plane: per-group indexes over the DET/OPE column
         # families, written from the request path (queued, debounced — the
         # resident ingest pattern) and validated per query with one
@@ -355,6 +385,8 @@ class DDSRestServer:
             )
             self._search_write_ingest = scfg.write_ingest
             self._search_ingest_window = max(0.0, scfg.ingest_window)
+            if self._shards is not None:
+                self._search.register_groups(self.abd.group_ids())
         # Stratum: the tier planner under the plane, built only when a
         # plane exists (the hot tier IS the pool); attaching rewires pool
         # overflow from reset to eviction. None when disabled.
@@ -372,13 +404,15 @@ class DDSRestServer:
                 # selections feed the tier directory: keys a query keeps
                 # finding hold their fold rows hot
                 self._search.touch_sink = self._stratum.touch_keys
-        # Prism: the same backend and public-parameter boundary, and the
-        # resident plane, so MatVec operands gather from its pool
+        # Prism: the same backend and public-parameter boundary, the
+        # router's owner resolver when sharded (one weighted fold a group),
+        # and the resident plane, so MatVec operands gather from its pools
         self.prism: Prism | None = None
         if self.cfg.analytics_enabled:
             self.prism = Prism(
                 backend=self.backend,
                 max_rows=analytics_max_rows(self.cfg.analytics_max_rows),
+                owner=(self.abd.owner if self._shards is not None else None),
                 resident=self._resident,
             )
         self._column_memo: tuple | None = None  # pairs identity -> columns
@@ -685,12 +719,13 @@ class DDSRestServer:
                     continue  # non-numeric column: never an aggregate operand
         if not ciphers:
             return
+        gid = self._owner(key)
         tenant = self._plane_tenant()
         if self._stratum is not None:
             # popularity only (pure dict math, loop-safe): a rewritten
             # tiered row warms its directory score
-            self._stratum.note_write("", ciphers, tenant=tenant, key=key)
-        if plane.note_write("", ciphers, tenant=tenant):
+            self._stratum.note_write(gid, ciphers, tenant=tenant, key=key)
+        if plane.note_write(gid, ciphers, tenant=tenant):
             self._resident_ingest_soon()
 
     def _resident_ingest_soon(self) -> None:
@@ -718,7 +753,7 @@ class DDSRestServer:
         plane = self._search
         if plane is None or not self._search_write_ingest:
             return
-        if plane.note_write(self._search_owner(key), key, tag, value,
+        if plane.note_write(self._owner(key), key, tag, value,
                             tenant=self._plane_tenant()):
             self._search_ingest_soon()
 
@@ -742,11 +777,10 @@ class DDSRestServer:
             _drain(), name="proxy.search_ingest"
         )
 
-    @staticmethod
-    def _search_owner(key: str) -> str:
-        """The key's group in the search plane: one anonymous group, since
-        sharding is not ported."""
-        return ""
+    def _owner(self, key: str) -> str:
+        """The key's shard group under the router's active map; "", the
+        anonymous group, when unsharded."""
+        return self.abd.owner(key) if self._shards is not None else ""
 
     def tier_pressure(self) -> float:
         """Blended hot+warm occupancy in [0, 1] (Stratum's `pressure`):
@@ -1210,6 +1244,13 @@ class DDSRestServer:
             case ("GET", "health"):
                 return self._health()
 
+            case ("GET", "shards") if self._shards is not None:
+                # the ACTIVE signed map (epoch and HMAC, verifiable against
+                # the intranet secret), the reshard state and each group's
+                # replicas; on whenever sharded, like /health it reveals
+                # topology, not workload shape
+                return self._shards_route(req)
+
             case ("GET", "canary"):
                 # Heliograph's report: per-kind verdicts and latencies,
                 # counts, failure exemplars, region streaks
@@ -1271,7 +1312,14 @@ class DDSRestServer:
             n for n in trusted
             if n not in self.abd.breakers or self.abd.breakers[n].allow()
         ]
-        degraded = len(reachable) < self.abd.cfg.quorum_size
+        shards = None
+        if self._shards is not None:
+            # sharded: the merged replica pool says nothing about quorum
+            # health; each GROUP must hold its own quorum
+            shards = self.abd.shards_health()
+            degraded = any(s["degraded"] for s in shards.values())
+        else:
+            degraded = len(reachable) < self.abd.cfg.quorum_size
         health = {
             "status": "degraded" if degraded else "ok",
             "active_replicas": len(trusted),
@@ -1289,6 +1337,10 @@ class DDSRestServer:
                 "shed": (self.admission.shed_tenants()
                          if self.admission is not None else []),
             }
+        if shards is not None:
+            health["shards"] = shards
+            health["shard_epoch"] = self._shards.epoch
+            health["reshard_state"] = self._shards.state
         if self._resident is not None:
             health["resident"] = self._resident.stats()
         if self._stratum is not None:
@@ -1307,6 +1359,17 @@ class DDSRestServer:
         resp = Response.json(health, status=503 if degraded else 200)
         if degraded:
             resp.headers["Retry-After"] = str(self._derive_retry_after())
+        return resp
+
+    def _shards_route(self, req: Request) -> Response:
+        """GET /shards: the router's status with the epoch as its ETag; an
+        `If-None-Match` naming the current epoch answers 304."""
+        epoch = self._shards.epoch
+        etag = req.headers.get("if-none-match", "").strip().strip('"')
+        if etag and etag == str(epoch):
+            return Response(304, headers={"ETag": f'"{epoch}"'})
+        resp = Response.json(self.abd.status())
+        resp.headers["ETag"] = f'"{epoch}"'
         return resp
 
     def _derive_retry_after(self, *candidates: float | None) -> int:
@@ -1354,6 +1417,26 @@ class DDSRestServer:
                 metrics.set(
                     "dds_tenant_stored_keys", n, tenant=t,
                     help="stored aggregate keys per tenant (proxy view)",
+                )
+        if self._shards is not None:
+            smap = self._shards.current()
+            metrics.set("dds_shard_epoch", smap.epoch,
+                        help="active shard-map epoch")
+            metrics.set(
+                "dds_shard_reshard_state",
+                1 if self._shards.state == "resharding" else 0,
+                help="0=stable 1=resharding",
+            )
+            metrics.set("dds_shard_groups", len(smap.groups),
+                        help="quorum groups in the active shard map")
+            counts = {g: 0 for g in smap.groups}
+            for k in self.stored_keys:  # the proxy's aggregate-key view
+                owner = smap.owner(k)
+                counts[owner] = counts.get(owner, 0) + 1
+            for gid, n in counts.items():
+                metrics.set(
+                    "dds_shard_keys", n, shard=gid,
+                    help="stored aggregate keys per shard (proxy view)",
                 )
         # Bulwark: the shed level is set at transition time too, but a
         # scrape between transitions still deserves the truth; the
@@ -1482,7 +1565,7 @@ class DDSRestServer:
         cached_tags: list = []
         missing: list[str] = []
         for k in keys:
-            t = plane.tag(self._search_owner(k), k, tenant=pt)
+            t = plane.tag(self._owner(k), k, tenant=pt)
             if t is None:
                 missing.append(k)
             else:
@@ -1520,7 +1603,7 @@ class DDSRestServer:
                 if isinstance(r, Exception):
                     raise r
                 value, tag, _coord = r
-                plane.upsert(self._search_owner(k), k, tag, value, tenant=pt)
+                plane.upsert(self._owner(k), k, tag, value, tenant=pt)
         metrics.inc(
             "dds_search_index_total", max(0, len(keys) - len(stale)),
             outcome="hit", help="Spyglass index keys per query by outcome",
@@ -1535,11 +1618,15 @@ class DDSRestServer:
         )
         return keys
 
-    @staticmethod
-    def _spy_partition(keys: list[str]) -> dict[str, list[str]]:
-        """Stored keys by owning group: one anonymous group, since
-        sharding is not ported."""
-        return {"": keys}
+    def _spy_partition(self, keys: list[str]) -> dict[str, list[str]]:
+        """Stored keys by owning shard group (one anonymous group when
+        unsharded): the scatter side of a query's per-group dispatch."""
+        if self._shards is None:
+            return {"": keys}
+        parts: dict[str, list[str]] = {}
+        for k in keys:
+            parts.setdefault(self.abd.owner(k), []).append(k)
+        return parts
 
     async def _spy_filter(self, evalfn) -> list[str]:
         """One indexed selection query: validate, dispatch `evalfn` per
@@ -1777,7 +1864,25 @@ class DDSRestServer:
                                  shards=len(parts), backend=self.backend.name):
                     result = await asyncio.to_thread(folder, parts, modulus,
                                                      self._plane_tenant())
-            if result is None:
+            if result is not None:
+                return Response.json(J.value_result(str(result)))
+            shard_ops = (self._shard_operands(pairs, pos)
+                         if self._shards is not None else None)
+            if shard_ops is not None and len(shard_ops) > 1:
+                # Constellation scatter-gather: one fold a group, all
+                # dispatched at once through `_fold` (each group at or
+                # above the device crossover folds on the device by
+                # itself; smaller ones enter the coalescing window), then the
+                # partials' modular product; every group shares one
+                # modulus, so the result is bit-identical to the
+                # unsharded fold
+                with tracer.span("proxy.scatter_fold", k=len(operands),
+                                 shards=len(shard_ops), backend=self.backend.name):
+                    partials = await asyncio.gather(
+                        *(self._fold(g, modulus) for g in shard_ops)
+                    )
+                    result = combine_partials([int(p) for p in partials], modulus)
+            else:
                 with tracer.span("proxy.fold", k=len(operands),
                                  backend=self.backend.name):
                     result = await self._fold(operands, modulus)
@@ -1832,7 +1937,7 @@ class DDSRestServer:
         else:  # GroupBySum: 0/1 selector rollups over record keys
             labels, rows = self.prism.selector_rows(J.parse_groups(body), keys)
         encoded = self.prism.encode_weights(rows, n, cols=len(ciphers))
-        out = await self.prism.evaluate(name, ciphers, encoded, n2,
+        out = await self.prism.evaluate(name, keys, ciphers, encoded, n2,
                                         tenant=self._plane_tenant())
         if name == "WeightedSum":
             return Response.json({"result": str(out[0]), "keys": keys})
@@ -1844,17 +1949,26 @@ class DDSRestServer:
 
     def _owner_operands(self, pairs, pos: int) -> list[tuple[str, list[int]]]:
         """Aggregate operands partitioned by owning shard group, with the
-        group id attached (the pool key). Sharding is not ported, so this
-        is one anonymous group. Memoized per pairs identity like the flat
-        operand memo: the stable operand-list identity is what the pools'
+        group id attached (the pool key); unsharded proxies get one
+        anonymous group. Memoized per pairs identity like the flat operand
+        memo: the stable operand-list identities are what the pools'
         row-index memos key on."""
         memo = self._owner_memo
         if memo is not None and memo[0] is pairs and memo[1] == pos:
             return memo[2]
-        ops = [int(v[pos]) for _, v in pairs if pos < len(v)]
-        out = [("", ops)] if ops else []
+        groups: dict[str, list[int]] = {}
+        for k, v in pairs:
+            if pos < len(v):
+                groups.setdefault(self._owner(k), []).append(int(v[pos]))
+        out = [(gid, g) for gid, g in groups.items() if g]
         self._owner_memo = (pairs, pos, out)
         return out
+
+    def _shard_operands(self, pairs, pos: int) -> list[list[int]]:
+        """Aggregate operands partitioned by owning shard group: the
+        memoized `_owner_operands` lists, so each group's fold keeps its
+        operand-list identity between writes."""
+        return [g for _, g in self._owner_operands(pairs, pos)]
 
     def _backend_fold_fn(self):
         """The backend's single-aggregate fold entry point (the

@@ -1,2 +1,2 @@
 """Placement and partial-product helpers shared by the resident plane,
-Stratum and (later) the sharded scatter paths."""
+Stratum, the sharded proxy's scatter fold and Prism's per-group scatter."""

@@ -1,7 +1,8 @@
 """Group placement and the exact partial-product combine.
 
-Two functions of `dds_tpu/parallel/mesh.py`, the ones the resident plane
-and Stratum call:
+Two functions of `dds_tpu/parallel/mesh.py`, the ones the resident plane,
+Stratum, the sharded proxy's scatter fold and Prism's per-group scatter
+call:
 
 - `combine_partials` (`:152`): the host modular-product tail over
   already-reduced partials, verbatim;

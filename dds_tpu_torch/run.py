@@ -38,7 +38,16 @@ dormant); `Deployment.stop` detaches both and resets Chronoscope. A config
 that enables a plane the port does not serve (`unported_plane`) is refused
 with `NotImplementedError` naming it, so every file in `configs/` parses
 but none boots without what it asks for; `configs/default.toml`,
-`configs/tenancy.toml` and `configs/heliograph.toml` boot.
+`configs/tenancy.toml`, `configs/heliograph.toml`, `configs/sharded.toml`
+and `configs/stratum.toml` boot. `[shard] enabled` boots a Constellation
+(`_launch_constellation`, `shard/`): `count` quorum groups of
+`replicas-per-group` replicas and `sentinent-per-group` spares, each with
+its own supervisor (proactive recovery with `[recovery] enabled`) and
+anti-entropy loops, on one in-memory transport, behind a `ShardRouter`
+the proxy serves through; the Watchtower audits each group against its
+own quorum geometry. Live resharding is not ported, so `[shard]` with
+`[fabric] admin-routes` (POST /_reshard) or `[shard] plan-dir` (a
+journaled plan to recover at boot) is refused.
 `load_provider(cfg)` builds the
 client's HE provider from the `[client]` section: its keys, its bulk
 encryption backend (`bulk-encrypt-backend = "cuda"` precomputes PSSE
@@ -60,6 +69,8 @@ reference's flag does):
     python -m dds_tpu_torch.run --config configs/default.toml --device cpu --backend cpu
     python -m dds_tpu_torch.run --config configs/tenancy.toml --backend cuda
     python -m dds_tpu_torch.run --config configs/heliograph.toml --port 0 --backend cuda
+    python -m dds_tpu_torch.run --config configs/sharded.toml --port 0 --backend cuda
+    python -m dds_tpu_torch.run --config configs/stratum.toml --port 0 --backend cuda
 """
 
 from __future__ import annotations
@@ -92,6 +103,7 @@ from dds_tpu_torch.obs.slo import SloEngine
 from dds_tpu_torch.obs.watchtower import watchtower
 from dds_tpu_torch.ops.flags import secret_device
 from dds_tpu_torch.sanctum import SecretBackend
+from dds_tpu_torch.shard import build_constellation
 from dds_tpu_torch.utils.config import DDSConfig
 from dds_tpu_torch.utils.tasks import supervised_task
 from dds_tpu_torch.utils.trace import tracer
@@ -113,8 +125,13 @@ class Deployment:
     _stoppables: list = field(default_factory=list)
     # the flight recorder's directory before launch configured it
     _flight_dir: str | None = None
+    # the Constellation with `[shard]`: its groups' replicas, supervisors
+    # and loops (`replicas` above is the merged view)
+    constellation: object = None
 
     async def stop(self) -> None:
+        if self.constellation is not None:
+            await self.constellation.stop()
         if self.supervisor is not None:
             await self.supervisor.stop()
         await self.server.stop()
@@ -139,12 +156,16 @@ class Deployment:
 
 def unported_plane(cfg: DDSConfig) -> str | None:
     """The first plane `cfg` enables that the port does not serve, or
-    None: shard first, then fabric, helmsman, geo, the attacks
-    other than Trudy's crash and byzantine, then the other serving
-    surfaces of the reference that are not ported."""
+    None: live resharding under `[shard]` first, then fabric, helmsman,
+    geo, the attacks other than Trudy's crash and byzantine, then the other
+    serving surfaces of the reference that are not ported."""
     attack_ok = {a.value for a in (AttackType.CRASH, AttackType.BYZANTINE)}
+    sharded = cfg.shard.enabled
     checks = (
-        (cfg.shard.enabled, "[shard] enabled: sharding"),
+        (sharded and cfg.fabric.admin_routes,
+         "[fabric] admin-routes with [shard]: POST /_reshard, live resharding"),
+        (sharded and bool(cfg.shard.plan_dir),
+         "[shard] plan-dir: the reshard plan journal, live resharding"),
         (cfg.fabric.role != "all" or bool(cfg.fabric.groups), "[fabric]: the shard fabric"),
         (cfg.helmsman.enabled, "[helmsman] enabled: helmsman"),
         (cfg.geo.enabled, "[geo] enabled: geo"),
@@ -189,6 +210,8 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             min_interval=cfg.obs.flight_min_interval,
         )
     net = InMemoryNet()
+    if cfg.shard.enabled:
+        return await _launch_constellation(cfg, net, flight_dir)
     rcfg = ReplicaConfig(
         quorum_size=cfg.replicas.byz_quorum_size,
         nonce_increment=cfg.security.nonce_challenge_increment,
@@ -277,36 +300,9 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             fast_fail_all_open=cfg.admission.fast_fail,
         ),
     )
-    p = cfg.proxy
     server = DDSRestServer(
         abd,
-        ProxyConfig(
-            host=p.host,
-            port=p.port,
-            request_budget=p.request_budget,
-            retry_backoff=p.retry_backoff,
-            retry_max_delay=p.retry_max_delay,
-            retry_attempts=p.retry_attempts,
-            retry_after_hint=p.retry_after_hint,
-            handler_timeout=p.handler_timeout,
-            crypto_backend=p.crypto_backend,
-            device=p.device,
-            min_device_batch=p.min_device_batch,
-            coalesce_window=p.coalesce_window,
-            analytics_enabled=cfg.analytics.enabled,
-            analytics_max_rows=cfg.analytics.max_rows,
-            analytics_max_request_bytes=cfg.analytics.max_request_bytes,
-            resident=cfg.resident,
-            storage=cfg.storage,
-            search=cfg.search,
-            supervisor=SUPERVISOR_NAME,
-            trace_route_enabled=cfg.debug or cfg.obs.trace_route,
-            metrics_route_enabled=cfg.obs.metrics_route,
-            slo_route_enabled=cfg.obs.slo_route,
-            admission=cfg.admission,
-            heliograph=cfg.heliograph,
-            tenancy=cfg.tenancy,
-        ),
+        proxy_config(cfg, SUPERVISOR_NAME),
         local_replicas=replicas,
         slo=SloEngine.from_obs(cfg.obs),
     )
@@ -369,6 +365,141 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
         watchtower.attach(tracer)
     # Chronoscope rides the same tracer: every span is local in this
     # single-process launch
+    chronoscope.attach(tracer)
+    return dep
+
+
+def proxy_config(cfg: DDSConfig, supervisor: str) -> ProxyConfig:
+    """The proxy's ProxyConfig from the config tree; `supervisor` is the
+    one it refreshes its replica view from (a Constellation's router
+    refreshes every group from its own)."""
+    p = cfg.proxy
+    return ProxyConfig(
+        host=p.host,
+        port=p.port,
+        request_budget=p.request_budget,
+        retry_backoff=p.retry_backoff,
+        retry_max_delay=p.retry_max_delay,
+        retry_attempts=p.retry_attempts,
+        retry_after_hint=p.retry_after_hint,
+        handler_timeout=p.handler_timeout,
+        crypto_backend=p.crypto_backend,
+        device=p.device,
+        min_device_batch=p.min_device_batch,
+        coalesce_window=p.coalesce_window,
+        analytics_enabled=cfg.analytics.enabled,
+        analytics_max_rows=cfg.analytics.max_rows,
+        analytics_max_request_bytes=cfg.analytics.max_request_bytes,
+        resident=cfg.resident,
+        storage=cfg.storage,
+        search=cfg.search,
+        supervisor=supervisor,
+        trace_route_enabled=cfg.debug or cfg.obs.trace_route,
+        metrics_route_enabled=cfg.obs.metrics_route,
+        slo_route_enabled=cfg.obs.slo_route,
+        admission=cfg.admission,
+        heliograph=cfg.heliograph,
+        tenancy=cfg.tenancy,
+    )
+
+
+def shard_configs(cfg: DDSConfig):
+    """(ReplicaConfig, SupervisorConfig, AbdClientConfig) for one quorum
+    group of a Constellation, from `[shard]` and the shared sections."""
+    sh = cfg.shard
+    rcfg = ReplicaConfig(
+        quorum_size=sh.quorum_size,
+        nonce_increment=cfg.security.nonce_challenge_increment,
+        abd_mac_secret=cfg.security.abd_mac_secret.encode(),
+        proxy_mac_secret=cfg.security.proxy_mac_secret.encode(),
+        debug=cfg.debug,
+        allow_fault_injection=cfg.attacks.enabled,
+    )
+    sup_cfg = SupervisorConfig(
+        quorum_size=sh.quorum_size,
+        proactive_recovery_warmup=cfg.recovery.warm_up,
+        proactive_recovery_interval=cfg.recovery.interval,
+        sentinent_awake_timeout=cfg.recovery.sentinent_awake_timeout,
+        crashed_recovery_timeout=cfg.recovery.crashed_recovery_timeout,
+        proactive_recovery_enabled=cfg.recovery.enabled,
+        verified_transfer=cfg.recovery.verified_transfer,
+        manifest_timeout=cfg.recovery.manifest_timeout,
+        state_chunk_keys=cfg.recovery.state_chunk_keys,
+        abd_mac_secret=cfg.security.abd_mac_secret.encode(),
+        debug=cfg.debug,
+    )
+    abd_cfg = AbdClientConfig(
+        proxy_mac_secret=cfg.security.proxy_mac_secret.encode(),
+        nonce_increment=cfg.security.nonce_challenge_increment,
+        request_timeout=cfg.proxy.intranet_request_timeout,
+        abd_mac_secret=cfg.security.abd_mac_secret.encode(),
+        quorum_size=sh.quorum_size,
+        breaker_threshold=cfg.proxy.breaker_threshold,
+        breaker_reset=cfg.proxy.breaker_reset,
+        fast_fail_all_open=cfg.admission.fast_fail,
+    )
+    return rcfg, sup_cfg, abd_cfg
+
+
+async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet,
+                                flight_dir: str | None) -> Deployment:
+    """`[shard] enabled`: S quorum groups behind a ShardRouter (the
+    reference's `run._launch_constellation` on the in-memory transport).
+    Each group mirrors the single-group stack with namespaced endpoints;
+    the proxy talks to the router, which routes point ops by the signed,
+    epoch-versioned map and scatters aggregates. The Watchtower audits
+    every group against its own quorum geometry."""
+    sh = cfg.shard
+    rcfg, sup_cfg, abd_cfg = shard_configs(cfg)
+    const = build_constellation(
+        net,
+        shard_count=sh.count,
+        vnodes_per_group=sh.vnodes_per_group,
+        secret=cfg.security.abd_mac_secret.encode(),
+        n_active=sh.replicas_per_group,
+        n_sentinent=sh.sentinent_per_group,
+        quorum=sh.quorum_size,
+        max_faults=sh.max_faults,
+        rcfg=rcfg,
+        sup_cfg=sup_cfg,
+        abd_cfg=abd_cfg,
+    )
+    replicas: dict[str, BFTABDNode] = {}
+    for g in const.groups:
+        replicas.update(g.replicas)
+    if cfg.recovery.enabled:
+        for g in const.groups:
+            g.supervisor.start()
+    if cfg.recovery.anti_entropy_enabled:
+        for node in replicas.values():
+            node.antientropy.configure(
+                interval=cfg.recovery.anti_entropy_interval,
+                jitter=cfg.recovery.anti_entropy_jitter,
+            )
+            node.antientropy.start()
+    server = DDSRestServer(
+        const.router,
+        proxy_config(cfg, const.groups[0].supervisor.addr),
+        local_replicas=replicas,
+        slo=SloEngine.from_obs(cfg.obs),
+    )
+    try:
+        await server.start()
+    except BaseException:
+        await const.stop()
+        raise
+    dep = Deployment(cfg, net, replicas, server, None, const.groups[0].trudy,
+                     _flight_dir=flight_dir, constellation=const)
+    if cfg.obs.audit_enabled:
+        watchtower.reset()
+        watchtower.configure(
+            quorum_size=sh.quorum_size,
+            n_replicas=sh.replicas_per_group,
+            check_quorum=cfg.obs.audit_quorum_checks,
+            group_geometry={g.gid: (g.quorum_size, len(g.active))
+                            for g in const.groups},
+        )
+        watchtower.attach(tracer)
     chronoscope.attach(tracer)
     return dep
 

@@ -323,7 +323,8 @@ class ObsConfig:
 
 @dataclass
 class ShardConfig:
-    """Constellation sharding plane (the reference's shard/; not ported): partition the
+    """Constellation sharding plane (the reference's shard/; ported on the in-memory
+    transport without live resharding, so `launch` refuses `plan-dir`): partition the
     keyspace across `count` independent BFT-ABD quorum groups, each with
     its own replicas, spares, supervisor, anti-entropy loop, and attack
     surface. Point ops route to one group; SumAll/MultAll scatter-gather

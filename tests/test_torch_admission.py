@@ -230,7 +230,24 @@ def test_tenant_token_buckets_isolate_the_hot_tenant_twin():
     assert out[2][1] == 429 and out[2][2] == pytest.approx(1.0)
 
 
-def test_transitions_are_metered_and_flight_recorded_twin(tmp_path):
+@pytest.fixture
+def fresh_flight():
+    """Both packages' process-wide flight recorders with no kind stamped
+    and their rate limit as found, before and after the test: the
+    scenario files through each package's recorder with `min_interval`
+    0, and a stamp or a limit left behind would reach the next test that
+    files incidents (the shred drills read their index)."""
+    recorders = [mod(pkg, "obs.flight").flight for pkg in ("dds_tpu", "dds_tpu_torch")]
+    limits = [r.min_interval for r in recorders]
+    for r in recorders:
+        r._last.clear()
+    yield
+    for r, limit in zip(recorders, limits):
+        r._last.clear()
+        r.min_interval = limit
+
+
+def test_transitions_are_metered_and_flight_recorded_twin(tmp_path, fresh_flight):
     def scenario(A):
         pkg = A.__name__.split(".")[0]
         flight = mod(pkg, "obs.flight").flight

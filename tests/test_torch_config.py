@@ -6,19 +6,23 @@ same value in both trees; every other field must equal the reference's
 default, except the port's documented divergences (`DIVERGENCES`, the
 module docstring of `dds_tpu_torch/utils/config.py`) and the fields only
 the port has (`PORT_ONLY`). `launch` on each file either boots and stops
-(`configs/default.toml`, `configs/tenancy.toml` and
-`configs/heliograph.toml`: every plane they enable is ported) or refuses
+(`configs/default.toml`, `configs/tenancy.toml`, `configs/heliograph.toml`,
+`configs/sharded.toml` and `configs/stratum.toml`: every plane they enable
+is ported) or refuses
 with `NotImplementedError` naming the first plane the port does not
 serve, never with an unknown-key error; each refusal is checked on its
 own. The planes ported since (recovery, anti-entropy, spares, snapshots,
 Trudy's attacks, /metrics, the flight recorder, admission, the obs audit,
-the SLO engine, tenancy, Heliograph's prober, /_trace) each launch and
+the SLO engine, tenancy, Heliograph's prober, /_trace, sharding) each launch and
 stop cleanly, the prober's task cancelled and awaited with the rest, and
 `DDSConfig()` with `[search] enabled` boots, as does `[crypto] secret-device` (Sanctum), whose provider
 decrypts through its device plan. `default.toml` boots with Bulwark, the
 SLO engine and the Watchtower armed as the file says, and the CLI's
 `--device cpu --backend cpu` launches it; `tenancy.toml` boots with
-Bastion's weights, 403s and `/health` section, and so does its CLI.
+Bastion's weights, 403s and `/health` section, and so does its CLI. Under
+`[shard]`, `[fabric] admin-routes` (POST /_reshard) and `[shard]
+plan-dir` (a journaled reshard plan) are refused by name: live
+resharding is not ported.
 """
 
 import asyncio
@@ -52,13 +56,12 @@ DIVERGENCES = {
 # fields the reference does not have
 PORT_ONLY = {"proxy.device": "cuda", "proxy.min_device_batch": None,
              "client.device": "cuda"}
-# the plane each top-level file's launch names first
-FIRST_PLANE = {
-    "configs/sharded.toml": "sharding",
-    "configs/stratum.toml": "sharding",
-}
+# the plane each top-level file's launch names first (every top-level
+# file launches now)
+FIRST_PLANE = {}
 # the files whose every enabled plane is ported: they boot
-LAUNCHES = {"configs/default.toml", "configs/tenancy.toml", "configs/heliograph.toml"}
+LAUNCHES = {"configs/default.toml", "configs/tenancy.toml", "configs/heliograph.toml",
+            "configs/sharded.toml", "configs/stratum.toml"}
 
 
 def flat(obj, prefix: str = "") -> dict:
@@ -117,12 +120,13 @@ def test_defaults_equal_the_reference_except_the_divergences():
 
 
 @pytest.mark.parametrize("name", CONFIGS)
-def test_launch_refuses_each_config_naming_a_plane(name):
+def test_launch_refuses_each_config_naming_a_plane(name, tmp_path):
     """Each file refuses naming its first unported plane, except the ones
     in LAUNCHES, which boot and stop on the CPU."""
     cfg = DDSConfig.load(ROOT / name)
     cfg.proxy.device = "cpu"
     cfg.proxy.port = 0  # tenancy.toml's 8080 may be taken on the test host
+    cfg.storage.dir = str(tmp_path / "stratum")  # stratum.toml's "./stratum"
     if name in LAUNCHES:
         assert unported_plane(cfg) is None
 
@@ -146,7 +150,7 @@ PLANES = [
     ("anti-entropy", {"recovery": {"anti-entropy-enabled": True}}, False),
     ("spares", {"replicas": {"sentinent": ["replica-3"]}}, False),
     ("snapshots", {"recovery": {"snapshot-dir": "snaps"}}, False),
-    ("sharding", {"shard": {"enabled": True}}, True),
+    ("sharding", {"shard": {"enabled": True}}, False),
     ("admission", {"admission": {"enabled": True}}, False),
     ("tenancy", {"tenancy": {"enabled": True}}, False),
     ("obs audit", {"obs": {"audit-enabled": True}}, False),
@@ -167,6 +171,8 @@ PLANES = [
     ("node identity", {"security": {"node-public-keys": {"h:1": "00"}}}, True),
     ("key sync", {"proxy": {"key-sync-enabled": True}}, True),
     ("stored-keys", {"proxy": {"stored-keys-path": "keys.json"}}, True),
+    ("admin-routes", {"shard": {"enabled": True}, "fabric": {"admin-routes": True}}, True),
+    ("plan-dir", {"shard": {"enabled": True, "plan-dir": "plans"}}, True),
 ]
 IDS = [f"{p}-{i}" for i, (p, _, _) in enumerate(PLANES)]
 REFUSALS = [(p, sec) for p, sec, refused in PLANES if refused]
@@ -204,7 +210,15 @@ def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
     async def boot():
         dep = await launch(cfg)
         try:
-            assert dep.supervisor is not None and dep.trudy is not None
+            assert dep.trudy is not None
+            if plane == "sharding":
+                # one supervisor a group, no single-group supervisor
+                assert dep.supervisor is None
+                assert [g.gid for g in dep.constellation.groups] == ["s0", "s1"]
+                assert dep.server.abd is dep.constellation.router
+                assert len(dep.replicas) == 10
+            else:
+                assert dep.supervisor is not None
             if plane == "spares":
                 assert dep.replicas["replica-3"].behavior == "sentinent"
                 assert dep.supervisor.sentinent == ["replica-3"]
@@ -320,13 +334,15 @@ def test_tenancy_toml_launches_on_the_cpu_with_bastion(monkeypatch):
     assert not chronoscope.stats()["attached"] and not watchtower.attached
 
 
-def test_cli_launches_default_toml_with_the_backend_flag(monkeypatch, capsys):
+def test_cli_launches_default_toml_with_the_backend_flag(monkeypatch, capsys, tmp_path):
     """`python -m dds_tpu_torch.run --config configs/default.toml --device
-    cpu --backend cpu --ops 0` (and tenancy.toml, heliograph.toml): boots,
-    runs no workload, stops."""
+    cpu --backend cpu --ops 0` (and tenancy.toml, heliograph.toml,
+    sharded.toml, stratum.toml, the last from a scratch directory, where
+    its "./stratum" lands): boots, runs no workload, stops."""
     from dds_tpu_torch import run as runmod
 
     monkeypatch.delenv("DDS_SECRET_DEVICE", raising=False)
+    monkeypatch.chdir(tmp_path)
     seen = {}
     real = runmod.launch
 
@@ -337,7 +353,8 @@ def test_cli_launches_default_toml_with_the_backend_flag(monkeypatch, capsys):
         return dep
 
     monkeypatch.setattr(runmod, "launch", spy)
-    for name in ("default.toml", "tenancy.toml", "heliograph.toml"):
+    for name in ("default.toml", "tenancy.toml", "heliograph.toml", "sharded.toml",
+                 "stratum.toml"):
         seen.clear()
         runmod.main(["--config", str(ROOT / "configs" / name), "--device", "cpu",
                      "--backend", "cpu", "--ops", "0", "--port", "0"])

@@ -147,6 +147,11 @@ def test_heliograph_toml_verdicts_reports_streaks_and_drill_twin(pinned_launch):
         random.seed(16)  # the aggregate cache audit's samples
         mod(pkg, "obs.metrics").metrics.reset()  # series of earlier tests in the process
         watchtower = mod(pkg, "obs.watchtower").watchtower
+        # the audit ledger of earlier tests in the process: the reference's
+        # launch configures the process-wide auditor without a reset, and a
+        # key's tag history from another deployment (drive's "nope") reads
+        # as a tag_monotonicity violation here
+        watchtower.reset()
         dep, h, clock = await pinned_launch(pkg)()
         port = dep.server.cfg.port
         out = {"targets": [(t.label, t.region) for t in h.targets], "cycles": []}

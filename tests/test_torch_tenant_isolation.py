@@ -11,7 +11,12 @@ equal weighted-fair and burn-shed decisions on one fake clock. Two
 tenants' folds over one modulus still share one `fold_many` dispatch.
 The shred drill (rotate, re-encrypt, shred mid-traffic, the Watchtower at
 zero verdicts) runs on `launch` of each package, the port's keyring
-carried across by `convert`. The canary repair: with tenancy off the
+carried across by `convert`, with both packages' flight recorders'
+per-kind rate-limit stamps cleared before and after it (`fresh_flight`):
+the reference's keyring files its rotate and shred through `dds_tpu`'s
+process-wide recorder, and a stamp left there suppressed the next drill's
+incidents within a second, in either order; the two drills run back to
+back in one process, in both orders. The canary repair: with tenancy off the
 canary tenant's rows never enter another tenant's aggregate, search or
 analytics answer, nor theirs the canary's; the parent port folded all of
 them.
@@ -58,6 +63,28 @@ class FakeClock:
 
     def advance(self, dt: float) -> None:
         self.t += dt
+
+
+@contextlib.contextmanager
+def cleared_flight_stamps():
+    """Both packages' process-wide flight recorders with no kind stamped,
+    before and after the body: each recorder rate-limits a kind to one
+    incident a `min_interval` (1 s by default), so a stamp left by one drill
+    would suppress the next drill's incidents, and its index."""
+    recorders = [mod(pkg, "obs.flight").flight for pkg in ("dds_tpu", "dds_tpu_torch")]
+    for r in recorders:
+        r._last.clear()
+    try:
+        yield
+    finally:
+        for r in recorders:
+            r._last.clear()
+
+
+@pytest.fixture
+def fresh_flight():
+    with cleared_flight_stamps():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -508,7 +535,11 @@ def ref_keyring_from(epochs: dict, shredded: set, clock):
     return kr
 
 
-def test_shred_drill_survivors_exact_zero_verdicts_twin(tmp_path):
+def test_shred_drill_survivors_exact_zero_verdicts_twin(tmp_path, fresh_flight):
+    shred_drill_twin(tmp_path)
+
+
+def shred_drill_twin(tmp_path):
     """The reference's chaos drill on `launch` of each package, the port's
     keyring carried across from the reference's: rotate one tenant, re-
     encrypt a row and decrypt it under epoch 2, shred it mid-traffic; the
@@ -598,3 +629,25 @@ def test_shred_drill_survivors_exact_zero_verdicts_twin(tmp_path):
     assert verdicts == []
     assert {"tenant_rotate", "tenant_shred"} <= set(kinds)
     assert stats["shredded"] == 1 and stats["tenants"] == 3
+
+
+@pytest.mark.parametrize("order", ["twin-first", "reference-first"])
+def test_shred_drills_back_to_back_in_one_process(order, tmp_path, fresh_flight):
+    """The twin drill and the reference's own drill
+    (`tests/test_tenant_isolation.py`) one after the other in this process,
+    in either order, within the recorders' 1 s rate limit: each files its
+    rotate and shred and passes. Only the twin clears the stamps around
+    itself; the reference's drill runs as the suite runs it."""
+    from tests.test_tenant_isolation import (
+        test_shred_chaos_drill_other_tenants_linearizable_zero_verdicts as reference_drill)
+
+    (tmp_path / "ref").mkdir()
+    (tmp_path / "twin").mkdir()
+
+    def twin():
+        with cleared_flight_stamps():
+            shred_drill_twin(tmp_path / "twin")
+
+    steps = [twin, lambda: reference_drill(tmp_path / "ref")]
+    for step in (steps if order == "twin-first" else steps[::-1]):
+        step()
