@@ -20,7 +20,10 @@ own Paillier-2048 modulus, a noisy neighbour, a crypto-shred) and
 configs/heliograph.toml's active canary (golden transactions decrypted
 and verified beside user folds on the card, the corruption drill) and
 configs/sharded.toml's and configs/stratum.toml's Constellations (shard
-groups behind a router, scatter-gather folds on the card) — and holds
+groups behind a router, scatter-gather folds on the card) and
+configs/default.toml over a seeded ChaosNet with Nemesis armed and the
+proxy's stored-keys snapshot (SumAlls exact on the card through link
+faults, delays, partitions, a flood and a proxy restart) — and holds
 every CUDA kernel on them against its plain PyTorch version. The phases
 before `recovery` turn the audit and /slo off in the configs they build
 (EARLIER_OBS_CUTS), and every phase before `tenancy` runs with the
@@ -163,7 +166,7 @@ non-zero:
               mode, one B = 4,096 launch of each fold kernel (bit-exact,
               held, beside its bound) and the crossover;
 15. mixed     BASELINE config 5 (benchmarks/mixed.py --preload 4096
-              --clients 4 --ops 200, the preload cut to 2,048 rows and
+              --clients 4 --ops 200, the preload cut to 1,024 rows and
               the ops to 25 a client for the run's time, MIXED_CUT): 7
               replicas, quorum 5; the preload's
               rows encrypted once; on crypto-backend cuda two stacks load
@@ -318,11 +321,12 @@ non-zero:
               west stand at their streak of 3), the Watchtower's
               verdicts only canary_wrong_answer, one of them /canary's
               exemplar; then the row re-put by a putget and the sum probe
-              ok again); K = 8,192 rows of the bench key blinded on the card
+              ok again); K = 4,096 rows (8,192 cut for the run's time,
+              DEPTH_CUTS) of the bench key blinded on the card
               (B3) and loaded by PutSet 64 in flight with the prober
               running; 6 user SumAlls, each the Python fold of exactly the
-              K rows (no canary row) and decrypting to the total, 14 B1
-              launches each; the kernel sentry's cuda:: rows of those folds
+              K rows (no canary row) and decrypting to the total, 13 B1
+              launches each (14 at 8,192); the kernel sentry's cuda:: rows of those folds
               written as the baseline file (DDS_KERNEL_BASELINE, else the
               port's dds_tpu_torch/kernel_baseline.json) and 3 more
               SumAlls compared against it (printed, not gated);
@@ -333,7 +337,7 @@ non-zero:
               /canary, POST /_sync, /_trace (404: the file's debug is off),
               /health's canary section, /metrics' dds_canary_*, /slo's
               canary.<kind> streams. Gates: B1's launches over the phase
-              exactly 14 a user SumAll plus the blinding's, 0 in the
+              exactly one a fold level (13) a user SumAll plus the blinding's, 0 in the
               probe-only windows; east and west at their streak of 3; no
               500. Printed: verdicts by kind and target, probe latencies,
               the phase's seconds beside its 120 s budget;
@@ -372,14 +376,42 @@ non-zero:
               and B3's on "sharded" > 0 on the card, the Karatsuba
               kernels' on "sharded"; no 500; the phase's seconds beside
               its 90 s budget;
-23. kernels   one {"kernels": [...]} line (every kernel must have launched
+23. chaos     configs/default.toml as it stands on `cuda` over a ChaosNet
+              (printed overrides: the backend, [attacks] enabled and
+              chaos-enabled with chaos-seed 19, [proxy] stored-keys-path
+              in a temporary directory, the data, the loader at 8 in
+              flight for the file's PutSet objective): 9 endpoints, 2
+              spares, quorum 5, f = 2, proactive recovery, anti-entropy,
+              Bulwark, the audit, Nemesis armed. 2,048 rows blinded on
+              the card (B3) and loaded by PutSet on a clean fabric; then
+              CHAOS_SCHEDULE: a clean SumAll; link faults on every link
+              (drop, duplicate and reorder 0.02, corrupt 0.01) with 8
+              PutSets and 3 SumAlls, the trace's actions counted; Nemesis
+              delay, partition (with 8 PutSets) and flood of f victims
+              drawn from the active replicas, 3 SumAlls each; heal, every
+              endpoint but quorum - 1 replicas cut off under a 2 s request
+              budget (the SumAll answers 503 with Retry-After), heal and a
+              SumAll; the proxy stopped and a fresh one started on the same
+              replicas, quorum client and snapshot: its stored keys every
+              acknowledged key, its first SumAll the last one's ciphertext
+              (retries after 503 + Retry-After counted); every
+              acknowledged PutSet read back. Gates: every 200 SumAll the
+              Python-int fold of the acknowledged rows, decrypting to their
+              total, with one B1 launch a fold level (12 at 2,048 rows, 13
+              past it), B1 on the path the SumAlls' levels plus the
+              blinding's 2 and B3 1, every non-200 a 503 or 429 with
+              Retry-After, 0 Watchtower violations. Printed: each step's
+              SumAll ms (p50/p95), retries, victims and trace counts, the
+              phase's seconds beside its 60 s budget;
+24. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
               launch; the analytics requests' launches are the path
               "analytics", the rowmod kernels' the
               path "decrypt", `decrypt_rows`' run, B1's the paths
               "recovery", "sumall_audited", "bulwark", "tenancy",
-              "heliograph", "sharded" (its MatVec included) and "stratum",
-              B3's "client", "tenancy", "heliograph" and "sharded", the
+              "heliograph", "sharded" (its MatVec included), "stratum" and
+              "chaos", B3's "client", "tenancy", "heliograph", "sharded"
+              and "chaos", the
               Karatsuba kernels' also "sharded");
               then one
               {"search": ...}
@@ -393,9 +425,9 @@ non-zero:
               `wait_recovery_idle`), StateChunks, keys and bytes, the fault
               windows and their failures, the snapshot and anti-entropy
               figures, the phase's seconds beside its 150 s budget; then
-              one {"bulwark": ...}, one {"tenancy": ...} and one
-              {"heliograph": ...} and one {"sharded": ...} line with those
-              phases' whole records;
+              one {"bulwark": ...}, one {"tenancy": ...}, one
+              {"heliograph": ...}, one {"sharded": ...} and one
+              {"chaos": ...} line with those phases' whole records;
               then the card's name and power limit;
               then the result line.
 
@@ -408,6 +440,7 @@ non-zero:
         # times and the folds of every mode, or each tree's own chip_smoke
         # phases; prints no result line
     python3 chip_smoke.py --phases sharded [--size sharded_K=8192 ...]
+    python3 chip_smoke.py --phases chaos
         # on the card: the named phases alone at the card's sizes (each
         # --size changes one), each followed by its seconds; no result line
 
@@ -1380,7 +1413,10 @@ CHRONOSCOPE_CUT = "off before the tenancy phase (chronoscope.enabled = False)"
 # to 50; PR 15: 50 to 25 and the preload of 4,096 rows to 2,048, which
 # halves the preloads and the cache-less search baseline, 62.5 s of one
 # query over 4,192 keys in PR 15's first full run of 1,065 s)
-MIXED_CUT = {"preload": "4096 -> 2048 rows", "ops_per_client": "200 -> 25"}
+# once the chaos phase joined (a full run of 913.0 s against the 900 s
+# mark, mixed 94.4 s of it; H100 80GB HBM3, 700 W), 2,048 -> 1,024 rows,
+# which took 22.8 s off the phase in a paired run before
+MIXED_CUT = {"preload": "4096 -> 2048 -> 1024 rows", "ops_per_client": "200 -> 25"}
 # the depth of other earlier paths, cut for the run's time once the
 # tenancy phase joined (a full run took 1,528 s on a slow host: recovery
 # 214 s, bulwark 154, resident 89, tiered 84, multall 63), and again once
@@ -1401,6 +1437,10 @@ DEPTH_CUTS = {"multall.K": "16384 -> 8192 records",
               # HBM3, 700 W); loads of one size ran up to 1.7x slower from one
               # host to another
               "sharded.K": "8192 -> 4096 rows",
+              # with the chaos phase the full run took 913.0 s, heliograph
+              # 64.1 s of it; 4,096 rows took 33.1 s off the phase in a
+              # paired run before (H100 80GB HBM3, 700 W)
+              "heliograph.K": "8192 -> 4096 rows",
               "resident.rest": "the REST stack (8192 rows) -> configs/sharded.toml's "
                                "launch in the sharded phase",
               "tiered.rest": "the REST stack (8192 rows) -> configs/stratum.toml's "
@@ -2524,7 +2564,7 @@ async def search_rest(dev, sizes, legacy, indexed, provider, keys, schema: list)
 
 async def phase_mixed(dev, sizes) -> dict:
     """BASELINE config 5 (`benchmarks/mixed.py --preload 4096 --clients 4
-    --ops 200`; `mixed_preload` rows and `mixed_ops` a client: 2,048 and 25
+    --ops 200`; `mixed_preload` rows and `mixed_ops` a client: 1,024 and 25
     on the card, MIXED_CUT) through the port:
     7 replicas, quorum 5 (f = 2, the
     reference default's active set), Paillier-2048 (the bench key) and
@@ -5780,6 +5820,376 @@ async def phase_sharded(dev, sizes) -> dict:
     return rec
 
 
+CHAOS_BUDGET_S = 60.0
+# configs/default.toml's settings the phase overrides (printed); everything
+# else stands as the file says
+CHAOS_OVERRIDES = {
+    "proxy.crypto_backend": "cuda (the file's cpu is the reference's host backend)",
+    "attacks.enabled": "true (the file's false: replicas refuse Trudy's backdoors)",
+    "attacks.chaos_enabled": "true: the transport is a ChaosNet, the attacker a Nemesis",
+    "attacks.chaos_seed": 19,
+    "proxy.stored_keys_path": "keys.json in a temporary directory",
+    "data": "bench_paillier_key(2048): rows of one PSSE column, seeded plaintexts "
+            "blinded on the card (B3, one pow_mod)",
+    "load.inflight": "8, not 64: the file's admission and 250 ms PutSet objective "
+                     "(64 in flight burn it and shed the aggregate class for the "
+                     "SLO windows' length, as the bulwark phase found)",
+}
+# the phase's fault schedule, in order (printed)
+CHAOS_SCHEDULE = (
+    "clean: 1 SumAll (Nemesis draws each attack's victims from the supervisor's "
+    "active replicas of the moment)",
+    "link faults on every link (drop 0.02, duplicate 0.02, reorder 0.02, corrupt 0.01): "
+    "8 PutSets, 3 SumAlls; then cleared",
+    "Nemesis delay on f victims (0.02 s + U(0, 0.02)): 3 SumAlls",
+    "Nemesis partition of f victims: 8 PutSets, 3 SumAlls",
+    "Nemesis flood of f victims (25 junk Envelopes each): 3 SumAlls",
+    "heal; every endpoint but quorum - 1 active replicas cut off under a short request "
+    "budget: 1 SumAll answering 503 with Retry-After; heal; 1 SumAll",
+    "proxy restart on the snapshot (the same replicas and quorum client, a cold tag "
+    "cache): the first SumAll (retried on 503 + Retry-After)",
+    "every acknowledged PutSet read back; the Watchtower's verdicts",
+)
+
+
+def chaos_config(dev, keys_path: str):
+    """configs/default.toml as it stands with CHAOS_OVERRIDES: the `cuda`
+    backend on `dev`, Trudy's consent, the seeded ChaosNet and the
+    stored-keys snapshot at `keys_path`."""
+    cfg = bulwark_config(dev)
+    cfg.attacks.enabled = True
+    cfg.attacks.chaos_enabled = True
+    cfg.attacks.chaos_seed = CHAOS_OVERRIDES["attacks.chaos_seed"]
+    cfg.proxy.stored_keys_path = keys_path
+    return cfg
+
+
+async def phase_chaos(dev, sizes) -> dict:
+    """configs/default.toml served on the card over a seeded ChaosNet with
+    Nemesis armed and the proxy's stored-keys snapshot (CHAOS_OVERRIDES
+    printed): 9 endpoints, 2 spares, quorum 5, f = 2, proactive recovery,
+    anti-entropy, Bulwark, the audit. `chaos_K` rows blinded on the card
+    (B3) and loaded by PutSet on a clean fabric; then CHAOS_SCHEDULE: a
+    clean SumAll; seeded link faults on every link with PutSets and
+    SumAlls (the trace's actions counted); Nemesis's delay, partition
+    (with PutSets) and flood of f victims, each with SumAlls; heal, a
+    quorum-breaking partition under a short request budget whose SumAll
+    answers 503 with Retry-After, heal and a SumAll; the proxy stopped
+    and a fresh one started on the same replicas, quorum client and
+    snapshot (a cold tag cache), its stored keys every acknowledged key, its first
+    SumAll equal to the last one before the restart; every acknowledged
+    PutSet read back; the Watchtower's verdicts. Every SumAll that
+    answers 200 is the Python-int fold of the acknowledged rows and
+    decrypts to their total, and on the card launched exactly one B1 a
+    fold level (`fold_launches` of the stored keys); a PutSet or SumAll
+    answering 503 or 429 with Retry-After is retried after it (counted).
+    Launch counts are zeroed before the launch and read after the stop
+    (path "chaos"): B1 = the SumAlls' levels + the blinding's 2, B3 1.
+    Printed: each step's SumAll ms (p50/p95), retries and trace counts,
+    the restart's retries, the phase's seconds beside its 60 s budget."""
+    import tempfile
+
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.core.chaos import ChaosNet, LinkFaults
+    from dds_tpu_torch.http.miniserver import http_request_full
+    from dds_tpu_torch.http.server import DDSRestServer
+    from dds_tpu_torch.malicious.trudy import Nemesis
+    from dds_tpu_torch.models.backend import get_backend
+    from dds_tpu_torch.obs.metrics import metrics
+    from dds_tpu_torch.obs.slo import SloEngine
+    from dds_tpu_torch.obs.watchtower import watchtower
+    from dds_tpu_torch.ops import mont_cuda
+    from dds_tpu_torch.run import SUPERVISOR_NAME, launch, proxy_config
+    from dds_tpu_torch.utils.trace import tracer
+
+    t_phase = time.perf_counter()
+    K, puts = sizes["chaos_K"], sizes["chaos_puts"]
+    key = bench_paillier_key(sizes["key_bits"])
+    pk = key.public
+    n2 = pk.nsquare
+    target = f"/SumAll?position=0&nsqr={n2}"
+    rec: dict = {"K": K, "puts_a_step": puts, "key_bits": sizes["key_bits"],
+                 "overrides": CHAOS_OVERRIDES, "schedule": CHAOS_SCHEDULE,
+                 "budget_s": CHAOS_BUDGET_S}
+    answers: list[dict] = []
+
+    def step(name: str, **kw) -> None:
+        emit("chaos_step", step=name, at_s=time.perf_counter() - t_phase, **kw)
+
+    def b1() -> int:
+        sync(dev)
+        return mont_cuda.LAUNCHES["mont_mul"].value
+
+    async def call(method: str, target_: str, obj=None, where: str = ""):
+        t0 = time.perf_counter()
+        status, headers, data = await http_request_full(
+            "127.0.0.1", port, method, target_,
+            json.dumps(obj).encode() if obj is not None else None, timeout=600.0)
+        answers.append({"where": where, "status": status,
+                        "ms": (time.perf_counter() - t0) * 1e3})
+        if status not in (200, 429, 503) or (
+                status != 200 and int(headers.get("retry-after", 0)) < 1):
+            raise AssertionError(f"chaos: {method} {target_[:40]} at {where} answered "
+                                 f"{status} {headers} {data[:160]!r}")
+        return status, headers, data
+
+    acked: dict[str, int] = {}  # acknowledged key -> ciphertext
+    plain_of: dict[int, int] = {}
+
+    async def put_rows(cts: list, where: str, inflight: int) -> dict:
+        sem = asyncio.Semaphore(inflight)
+        retries = collections.Counter()
+
+        async def put(c) -> None:
+            async with sem:
+                while True:
+                    status, headers, data = await call("POST", "/PutSet",
+                                                       {"contents": [str(c)]}, where)
+                    if status == 200:
+                        acked[data.decode()] = c
+                        return
+                    retries[status] += 1  # a client honouring Retry-After
+                    await asyncio.sleep(int(headers["retry-after"]))
+
+        t = time.perf_counter()
+        await asyncio.gather(*(put(c) for c in cts))
+        return {"rows": len(cts), "s": time.perf_counter() - t,
+                "retries": dict(retries)}
+
+    async def sumall(where: str, retry: bool = True) -> dict:
+        """One SumAll (retried after a 503 or 429 when `retry`): its
+        status, ms, B1 launches and ciphertext; a 200 must be the fold
+        of the acknowledged rows with one B1 launch a level."""
+        want = host_product(list(acked.values()), n2)
+        tries = collections.Counter()
+        t0 = time.perf_counter()
+        while True:
+            before = b1()
+            status, headers, data = await call("GET", target, where=where)
+            launched = b1() - before
+            if status == 200 or not retry:
+                break
+            tries[status] += 1
+            if launched:
+                raise AssertionError(f"chaos: a {status} SumAll at {where} folded")
+            await asyncio.sleep(int(headers["retry-after"]))
+        out = {"status": status, "ms": (time.perf_counter() - t0) * 1e3,
+               "retries": dict(tries), "b1": launched,
+               "b1_expected": mont_cuda.fold_launches(len(acked))}
+        if status == 200:
+            result = int(json.loads(data)["result"])
+            if result != want or key.decrypt(result) != sum(plain_of[c] for c in
+                                                             acked.values()):
+                raise AssertionError(f"chaos: a SumAll at {where} is not the fold of the "
+                                     f"{len(acked)} acknowledged rows")
+            if dev.type == "cuda" and launched != out["b1_expected"]:
+                raise AssertionError(f"chaos: a SumAll at {where} launched {launched} "
+                                     f"mont_mul, not {out['b1_expected']}")
+            out["result"] = result
+        return out
+
+    def summary(runs: list[dict]) -> dict:
+        ms = [r["ms"] for r in runs]
+        return {"ms": ms, "p50_ms": pct(ms, 50), "p95_ms": pct(ms, 95),
+                "retries": dict(sum((collections.Counter(r["retries"]) for r in runs),
+                                    collections.Counter())),
+                "b1": [r["b1"] for r in runs], "b1_expected": runs[-1]["b1_expected"]}
+
+    def trace_counts(net, since: int = 0) -> dict:
+        return dict(collections.Counter(e[4].split("=")[0] for e in net.trace[since:]))
+
+    rng = random.Random(sizes["chaos_seed"])
+    plain = [rng.randrange(1 << 30) for _ in range(K + 2 * puts)]
+    metrics.reset()
+    tracer.reset()
+    tmp = tempfile.TemporaryDirectory()
+    keys_path = f"{tmp.name}/keys.json"
+    cfg = chaos_config(dev, keys_path)
+    rec["config"] = {"replicas": len(cfg.replicas.endpoints),
+                     "spares": len(cfg.replicas.sentinent),
+                     "quorum": cfg.replicas.byz_quorum_size,
+                     "f": cfg.replicas.byz_max_faults,
+                     "recovery": [cfg.recovery.enabled, cfg.recovery.interval],
+                     "anti_entropy": cfg.recovery.anti_entropy_enabled,
+                     "admission": cfg.admission.enabled, "audit": cfg.obs.audit_enabled,
+                     "request_budget": cfg.proxy.request_budget,
+                     "intranet_request_timeout": cfg.proxy.intranet_request_timeout,
+                     "chaos_seed": cfg.attacks.chaos_seed}
+    step("config", **rec["config"])
+    reset_counts()  # path "chaos" starts here
+    dep = await launch(cfg)
+    port = dep.server.cfg.port
+    net = dep.net
+    try:
+        if not isinstance(net, ChaosNet) or not isinstance(dep.trudy, Nemesis) or \
+                not watchtower.attached:
+            raise AssertionError("chaos: launch did not wrap the transport in a ChaosNet, "
+                                 "arm Nemesis and attach the Watchtower")
+        dep.trudy._rng = random.Random(sizes["chaos_seed"])  # the victims, seeded
+        # -- the rows: blinding on the card (B3), then PutSet on a clean fabric
+        client_be = get_backend("cuda", device=dev.type)
+        t = time.perf_counter()
+        cts = pk.encrypt_batch(plain, client_be, min_batch=1)
+        sync(dev)
+        rec["blind"] = {"rows": len(cts), "s": time.perf_counter() - t}
+        plain_of.update(zip(cts, plain))
+        rec["load"] = await put_rows(cts[:K], "load", sizes["chaos_load_inflight"])
+        rec["load"]["putsets_per_s"] = K / rec["load"]["s"]
+        step("load", **rec["load"], blind=rec["blind"])
+        if net.trace:
+            raise AssertionError(f"chaos: the clean fabric injected {trace_counts(net)}")
+        steps: dict = {}
+        # 1. a clean fabric
+        steps["clean"] = summary([await sumall("clean")])
+        step("clean", **steps["clean"])
+        # 2. seeded link faults on every link
+        mark = len(net.trace)
+        net.default_faults = LinkFaults(drop=0.02, duplicate=0.02, reorder=0.02,
+                                        corrupt=0.01)
+        writes = await put_rows(cts[K:K + puts], "link_faults", puts)
+        runs = [await sumall("link_faults") for _ in range(sizes["chaos_sumalls"])]
+        steps["link_faults"] = {**summary(runs), "puts": writes,
+                                "trace": trace_counts(net, mark)}
+        net.clear_faults()
+        step("link_faults", **steps["link_faults"])
+        def nemesis(attack: str) -> list:
+            # victims among the replicas active now (proactive recovery
+            # rotates them through the spares)
+            dep.trudy.replicas = [a for a, _ in dep.supervisor.active]
+            return dep.trudy.trigger(attack)
+
+        # 3. Nemesis: delay on f victims
+        mark = len(net.trace)
+        victims = nemesis("delay")
+        runs = [await sumall("delay") for _ in range(sizes["chaos_sumalls"])]
+        steps["delay"] = {**summary(runs), "victims": victims,
+                          "trace": trace_counts(net, mark)}
+        step("delay", **steps["delay"])
+        # 4. Nemesis: partition of f victims (a minority)
+        mark = len(net.trace)
+        victims = nemesis("partition")
+        writes = await put_rows(cts[K + puts:], "partition", puts)
+        runs = [await sumall("partition") for _ in range(sizes["chaos_sumalls"])]
+        steps["partition"] = {**summary(runs), "victims": victims, "puts": writes,
+                              "trace": trace_counts(net, mark)}
+        step("partition", **steps["partition"])
+        # 5. Nemesis: flood
+        mark = len(net.trace)
+        victims = nemesis("flood")
+        runs = [await sumall("flood") for _ in range(sizes["chaos_sumalls"])]
+        steps["flood"] = {**summary(runs), "victims": victims,
+                          "trace": trace_counts(net, mark)}
+        step("flood", **steps["flood"])
+        # 6. heal; a quorum-breaking partition under a short budget: all but
+        # quorum - 1 replicas cut off (the proxy's view merges every replica
+        # ever active, so fewer cuts can leave a quorum); heal
+        dep.trudy.trigger("heal")
+        budget = dep.server.cfg.request_budget
+        keep = [a for a, _ in dep.supervisor.active][:cfg.replicas.byz_quorum_size - 1]
+        cut = [e for e in cfg.replicas.endpoints if e not in keep]
+        mark = len(net.trace)
+        part = net.partition(cut)
+        dep.server.cfg.request_budget = sizes["chaos_short_budget"]
+        try:
+            broken = await sumall("quorum_broken", retry=False)
+        finally:
+            dep.server.cfg.request_budget = budget
+            part.heal()
+        dep.trudy.trigger("heal")
+        broken = {k: v for k, v in broken.items() if k != "result"}
+        broken.update(cut=cut, reachable=keep, budget_s=sizes["chaos_short_budget"],
+                      trace=trace_counts(net, mark))
+        step("quorum_broken", **broken)
+        if broken["status"] != 503 or broken["b1"]:
+            raise AssertionError(f"chaos: the quorum-breaking partition's SumAll {broken}")
+        healed = await sumall("healed")
+        steps["quorum_broken"] = broken
+        steps["healed"] = summary([healed])
+        step("healed", **steps["healed"])
+        # 7. the proxy restarted on the same replicas and snapshot
+        old = dep.server
+        await old.stop()
+        if json.loads(open(keys_path).read()) != sorted(acked):
+            raise AssertionError("chaos: the stopped proxy's snapshot is not the "
+                                 "acknowledged keys")
+        # the same quorum client, as the reference's restart case keeps it:
+        # its strikes stand (a fresh one would trust again a replica whose
+        # corrupted replies it excluded, which the Watchtower, whose memory
+        # outlives the proxy here, reports as suspicion_legality)
+        t = time.perf_counter()
+        dep.server = DDSRestServer(old.abd, proxy_config(cfg, SUPERVISOR_NAME),
+                                   local_replicas=dep.replicas,
+                                   slo=SloEngine.from_obs(cfg.obs))
+        await dep.server.start()
+        port = dep.server.cfg.port
+        restart = {"start_s": time.perf_counter() - t,
+                   "stored_keys": len(dep.server.stored_keys),
+                   "stored_equal_acked": dep.server.stored_keys == set(acked)}
+        first = await sumall("restart")
+        restart.update({k: v for k, v in first.items() if k != "result"},
+                       equals_pre_restart=first.get("result") == healed["result"])
+        step("restart", **restart)
+        if not (restart["stored_equal_acked"] and restart["equals_pre_restart"]):
+            raise AssertionError(f"chaos: the restarted proxy {restart}")
+        steps["restart"] = restart
+        # 8. every acknowledged PutSet read back; the audit
+        sem = asyncio.Semaphore(sizes["chaos_read_inflight"])
+        wrong, read_retries = [], collections.Counter()
+
+        async def read(k: str) -> None:
+            async with sem:
+                while True:
+                    status, headers, data = await call("GET", f"/GetSet/{k}",
+                                                       where="read_back")
+                    if status == 200:
+                        if json.loads(data)["contents"] != [str(acked[k])]:
+                            wrong.append(k)
+                        return
+                    read_retries[status] += 1
+                    await asyncio.sleep(int(headers["retry-after"]))
+
+        t = time.perf_counter()
+        await asyncio.gather(*(read(k) for k in sorted(acked)))
+        rec["read_back"] = {"rows": len(acked), "wrong": len(wrong),
+                            "s": time.perf_counter() - t, "retries": dict(read_retries)}
+        step("read_back", **rec["read_back"])
+        if wrong:
+            raise AssertionError(f"chaos: {len(wrong)} acknowledged rows read back wrong")
+        await net.quiesce()
+        rec["watchtower"] = watchtower.stats()
+        rec["violation_kinds"] = sorted({v.invariant for v in watchtower.verdicts()})
+        rec["supervisor"] = {"active": [a for a, _ in dep.supervisor.active],
+                             "sentinent": list(dep.supervisor.sentinent)}
+        rec["trace"] = trace_counts(net)
+        rec["steps"] = steps
+    finally:
+        await dep.stop()
+        tmp.cleanup()
+    counts = read_counts(dev)
+    rec["launches"] = {"mont_mul": counts["mont_mul"], "mont_exp": counts["mont_exp"]}
+    sumall_levels = sum(sum(s["b1"]) for name, s in steps.items()
+                        if name not in ("quorum_broken", "restart")) + steps["restart"]["b1"]
+    rec["launches"]["mont_mul_sumalls"] = sumall_levels
+    rec["statuses"] = {w: dict(collections.Counter(a["status"] for a in answers
+                                                  if a["where"] == w))
+                       for w in sorted({a["where"] for a in answers})}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit("chaos", **{k: rec[k] for k in (
+        "seconds", "budget_s", "launches", "load", "blind", "steps", "read_back",
+        "trace", "watchtower", "violation_kinds", "supervisor", "statuses")})
+    if rec["watchtower"]["ops_audited"] <= 0 or rec["watchtower"]["violations"]:
+        raise AssertionError(f"chaos: the Watchtower {rec['watchtower']} "
+                             f"{rec['violation_kinds']}")
+    if dev.type == "cuda" and (rec["launches"]["mont_exp"] != 1 or
+                               rec["launches"]["mont_mul"] != sumall_levels + 2):
+        raise AssertionError(f"chaos: B1 {rec['launches']['mont_mul']} launches (SumAlls "
+                             f"{sumall_levels} + 2 the blinding's), B3 "
+                             f"{rec['launches']['mont_exp']} (1)")
+    if watchtower.attached:
+        raise AssertionError("chaos: stop left the Watchtower attached")
+    return rec
+
+
 def kernel_times(sizes) -> dict:
     """CUDA-event ms of the B1, P, B3, B4, B5 and REDC launches at the
     timing phases' shapes (single launches with the stream held,
@@ -5939,9 +6349,9 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   K_coalesce=128, coalesce_burst=16, coalesce_rounds=3,
                   coalesce_min_batch=None, K_multall=8192,  # DEPTH_CUTS
                   crossover_l64=[8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384],
-                  # mixed.py's preload of 4,096 rows cut to 2,048 and its 200
+                  # mixed.py's preload of 4,096 rows cut to 1,024 and its 200
                   # ops a client to 25 (MIXED_CUT), for the run's time
-                  mixed_replicas=7, mixed_quorum=5, mixed_preload=2048, mixed_clients=4,
+                  mixed_replicas=7, mixed_quorum=5, mixed_preload=1024, mixed_clients=4,
                   mixed_ops=25, mixed_seed=7,
                   # the search phase: the write burst, warm reps a route, the
                   # cache-less baseline's reps, the plane alone at one full
@@ -5986,13 +6396,14 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   tenancy_flood_rows=256, tenancy_load_inflight=8, tenancy_seed=15,
                   tenancy_zipf_s=1.2, tenancy_interactive_rate=40.0, tenancy_agg_frac=0.1,
                   tenancy_window_s=10.0, tenancy_lead_s=2.0, tenancy_flood_rate=256.0,
-                  # the heliograph phase: bft_sum's K on heliograph.toml as it
-                  # stands, 64 PutSets in flight (the file arms no admission);
+                  # the heliograph phase: bft_sum's K (cut to 4,096, DEPTH_CUTS)
+                  # on heliograph.toml as it stands, 64 PutSets in flight (the
+                  # file arms no admission);
                   # canary_overhead.py's drill cadence (its --drill-cadence),
                   # at most 3 loopback cycles (the 4th re-puts the corrupted
                   # row); a 10 s open-loop window a side, GetSets at 30/s and
                   # SumAlls at 2/s
-                  helio_K=8192, helio_inflight=64, helio_sumalls=6, helio_sumalls_compare=3,
+                  helio_K=4096, helio_inflight=64, helio_sumalls=6, helio_sumalls_compare=3,
                   helio_drill_cadence=0.25, helio_drill_cycles=3, helio_window_s=10.0,
                   helio_getset_rate=30.0, helio_sumall_rate=2.0, helio_seed=16,
                   helio_first_wait_s=60.0,
@@ -6005,6 +6416,13 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   sharded_K=4096, sharded_inflight=64, sharded_sumalls=6, sharded_new=256,
                   sharded_R=16, sharded_seed=17, sharded_mode_sumalls=2, stratum_K=2048,
                   stratum_max_rows=512, stratum_sumalls=3,
+                  # the chaos phase: 2,048 rows on default.toml as it stands
+                  # (CHAOS_OVERRIDES), 8 PutSets in flight within its PutSet
+                  # objective; 8 PutSets and 3 SumAlls a fault step; the
+                  # quorum-breaking partition's request budget; the read-back
+                  # 64 in flight (nothing is measured after it)
+                  chaos_K=2048, chaos_puts=8, chaos_sumalls=3, chaos_seed=19,
+                  chaos_load_inflight=8, chaos_read_inflight=64, chaos_short_budget=2.0,
                   # the plain ladder of the exp timing on 1,024 of its 8,192
                   # columns, for the run's time (it took 83 s on all of them;
                   # 256 columns took as long as 1,024: the ladder's launches,
@@ -6084,7 +6502,9 @@ def main(argv=None) -> int:
                      helio_sumall_rate=2.0, helio_seed=16, helio_first_wait_s=60.0,
                      sharded_K=320, sharded_inflight=32, sharded_sumalls=2, sharded_new=16,
                      sharded_R=4, sharded_seed=17, sharded_mode_sumalls=1, stratum_K=288,
-                     stratum_max_rows=64, stratum_sumalls=2, exp_plain_cols=16)
+                     stratum_max_rows=64, stratum_sumalls=2, chaos_K=64, chaos_puts=4,
+                     chaos_sumalls=2, chaos_seed=19, chaos_load_inflight=8,
+                     chaos_read_inflight=16, chaos_short_budget=1.0, exp_plain_cols=16)
         card = {"name": "cpu (rehearsal)", **card_numbers(dev)}
     else:
         if not torch.cuda.is_available():
@@ -6104,6 +6524,7 @@ def main(argv=None) -> int:
          timing_exp_plain_columns=sizes["exp_plain_cols"],
          bulwark_overrides=BULWARK_OVERRIDES, tenancy_overrides=TENANCY_OVERRIDES,
          heliograph_overrides=HELIOGRAPH_OVERRIDES, sharded_overrides=SHARDED_OVERRIDES,
+         chaos_overrides=CHAOS_OVERRIDES,
          chronoscope_before_tenancy=CHRONOSCOPE_CUT, mixed=MIXED_CUT, depth=DEPTH_CUTS)
 
     from dds_tpu_torch.bench_key import bench_paillier_key
@@ -6153,6 +6574,7 @@ def main(argv=None) -> int:
     tenancy = timed("tenancy", asyncio.run, phase_tenancy(dev, sizes))
     helio = timed("heliograph", asyncio.run, phase_heliograph(dev, sizes))
     sharded = timed("sharded", asyncio.run, phase_sharded(dev, sizes))
+    chaos = timed("chaos", asyncio.run, phase_chaos(dev, sizes))
     emit("run", phase_seconds=took, seconds=time.perf_counter() - t_run)
 
     path = tim["path"]
@@ -6177,7 +6599,8 @@ def main(argv=None) -> int:
                              "tenancy": tenancy["launches"]["mont_mul"],
                              "heliograph": helio["launches"]["mont_mul"],
                              "sharded": sharded["launches"]["mont_mul"],
-                             "stratum": sharded["stratum"]["launches"]["mont_mul"]},
+                             "stratum": sharded["stratum"]["launches"]["mont_mul"],
+                             "chaos": chaos["launches"]["mont_mul"]},
         "max_abs_err": par["max_abs_err"],
         "per": f"one K={path['K']} fold ({path['launches']} launches) on the device; "
                f"wall_ms: back to back, paced by the host's dispatch",
@@ -6197,7 +6620,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"client": client["exp_launches"],
                              "tenancy": tenancy["launches"]["mont_exp"],
                              "heliograph": helio["launches"]["mont_exp"],
-                             "sharded": sharded["launches"]["mont_exp"]},
+                             "sharded": sharded["launches"]["mont_exp"],
+                             "chaos": chaos["launches"]["mont_exp"]},
         "max_abs_err": max(par_exp["max_abs_err"], tim_exp["max_abs_err"]),
         "per": f"one launch, B={tim_exp['B']}, E={tim_exp['E']} "
                f"({tim_exp['exp_products_per_row']} products per row); plain_ms on "
@@ -6322,6 +6746,10 @@ def main(argv=None) -> int:
     print(json.dumps({"sharded": {**sharded, "card": card["smi"] if "smi" in card
                                   else card["name"],
                                   "run_seconds": time.perf_counter() - t_run}},
+                     default=str), flush=True)
+    print(json.dumps({"chaos": {**chaos, "card": card["smi"] if "smi" in card
+                                else card["name"],
+                                "run_seconds": time.perf_counter() - t_run}},
                      default=str), flush=True)
     if args.rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result", file=sys.stderr)

@@ -1,17 +1,23 @@
 """Wire messages for the BFT-ABD protocol and the proxy contract.
 
 Trimmed copy of `dds_tpu/core/messages.py`: the messages the port's paths
-send over the in-memory transport (the JSON wire codec waits with
-TcpNet) — the ABD rounds, the supervisor's membership and recovery
-protocol, verified state transfer, Merkle anti-entropy, the shard
-fence's `WrongShard` and the fault-injection backdoors, with the reference's field names in its order.
-A "set" (the stored value) is a plain JSON list or None; tags order
-writes by (seq, id), the standard ABD total order.
+send over the in-memory transport — the ABD rounds, the supervisor's
+membership and recovery protocol, verified state transfer, Merkle
+anti-entropy, the shard fence's `WrongShard` and the fault-injection
+backdoors, with the reference's field names in its order — and its wire
+codec, tagged canonical JSON (`dumps`/`loads`), which ChaosNet's corrupt
+fault flips a byte of. For every class here `dumps` gives the
+reference's bytes: the same names, field order and string annotations
+(`f.type == "tuple"` reads them). A "set" (the stored value) is a plain
+JSON list or None; tags order writes by (seq, id), the standard ABD
+total order.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import base64
+import json
+from dataclasses import dataclass, fields
 from typing import Any, Optional
 
 DDSSet = list  # a stored record: JSON-safe list of column values
@@ -367,3 +373,84 @@ class Crash:
     across the TCP fabric (the reference's Trudy holds in-process
     ActorRefs, `Trudy.scala:14-32`). A harness backdoor like Compromise,
     not a production message."""
+
+
+# --------------------------------------------------------------------------
+# serialization: tagged canonical JSON
+# --------------------------------------------------------------------------
+
+_TYPES = {
+    cls.__name__: cls
+    for cls in (
+        IRead, IWrite, IReadReply, IWriteReply, Envelope,
+        ReadTag, TagReply, Write, WriteAck, Read, ReadReply,
+        ReadTagBatch, TagBatchReply,
+        Suspect, Awake, State, Sleep, Complying, Kill,
+        Redeploy, Redeployed, RequestReplicas, ActiveReplicas, Compromise,
+        Crash,
+        StateDigestRequest, StateDigest, SleepBegin, StateChunk,
+        MerkleRootRequest, MerkleRoot, MerkleBucketRequest, MerkleBuckets,
+        MerkleKeysRequest, MerkleKeys, RepairRequest, RepairReply,
+        WrongShard,
+    )
+}
+
+
+def _enc(v):
+    if isinstance(v, bytes):
+        return {"__b64__": base64.b64encode(v).decode()}
+    if isinstance(v, ABDTag):
+        return {"__tag__": [v.seq, v.id]}
+    if type(v) in _TYPES.values():
+        return to_dict(v)
+    return v
+
+
+def _dec(v):
+    if isinstance(v, dict):
+        if "__b64__" in v:
+            return base64.b64decode(v["__b64__"])
+        if "__tag__" in v:
+            return ABDTag(int(v["__tag__"][0]), str(v["__tag__"][1]))
+        if "__msg__" in v:
+            return from_dict(v)
+    return v
+
+
+def to_dict(msg) -> dict:
+    # element-wise coding applies only to the tuple-typed protocol fields
+    # (the batch messages' tag vectors and key tuples). Stored set contents
+    # (list fields) stay opaque, so a crafted column value (e.g.
+    # {"__msg__": ...}) is never decoded as a protocol object before any
+    # MAC validation.
+    d = {"__msg__": type(msg).__name__}
+    for f in fields(msg):
+        v = getattr(msg, f.name)
+        if f.type == "tuple" and isinstance(v, (list, tuple)):
+            d[f.name] = [_enc(x) for x in v]
+        else:
+            d[f.name] = _enc(v)
+    return d
+
+
+def from_dict(d: dict):
+    """The message `d` encodes; a type name this package lacks raises
+    KeyError, which a decoder treats as an undecodable frame."""
+    cls = _TYPES[d["__msg__"]]
+    kwargs = {}
+    for f in fields(cls):
+        v = d[f.name]
+        if f.type == "tuple" and isinstance(v, list):  # JSON has no tuples
+            v = tuple(_dec(x) for x in v)
+        else:
+            v = _dec(v)
+        kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def dumps(msg) -> bytes:
+    return json.dumps(to_dict(msg), separators=(",", ":")).encode()
+
+
+def loads(raw: bytes):
+    return from_dict(json.loads(raw))

@@ -79,6 +79,20 @@ whose `dds_pipe_*` gauges export at scrape time; `GET /_trace`
 summary, counters and store size; `POST /_sync` adds a peer's keys to the
 aggregate key set (204).
 
+The aggregate key set (`stored_keys`) survives a restart two ways, both
+opt-in as in the reference. With `keys_path` the proxy keeps it in a JSON
+snapshot — the sorted key list, or `{"keys", "tenants"}` when tenancy has
+recorded owners, so a restarted proxy still answers 403 across tenants —
+written atomically (tmp + rename) about 200 ms after a burst of PutSets
+or RemoveSets, flushed at `stop` and loaded at `start`; the reference's
+snapshots load here and the port's there, in both shapes. With
+`key_sync_enabled` it pulls `GET /_sync` from each of its `peers` at
+start, pushes its set to them (`POST /_sync`) every `key_sync_interval`
+seconds after `key_sync_warmup`, and serves `GET /_sync` (404 without
+key sync: the set reveals the workload's shape). The set only names the
+records an aggregate covers; their values still come from full quorum
+reads.
+
 With `[heliograph] enabled` the proxy starts Heliograph's prober
 (`obs/heliograph.py`) once its listener is bound: golden transactions
 under the canary tenant against its own loopback edge first, then each
@@ -145,11 +159,14 @@ from __future__ import annotations
 import asyncio
 import contextvars
 import heapq
+import json
 import logging
 import math
+import os
+import pathlib
 import random
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 from dds_tpu_torch.analytics import Prism
@@ -160,7 +177,7 @@ from dds_tpu_torch.core.quorum_client import AbdClient
 from dds_tpu_torch.core.tenant import (CANARY_TENANT, DEFAULT_TENANT, TenantError,
                                        validate_tenant)
 from dds_tpu_torch.http import json_protocol as J
-from dds_tpu_torch.http.miniserver import HttpServer, Request, Response
+from dds_tpu_torch.http.miniserver import HttpServer, Request, Response, http_request
 from dds_tpu_torch.models.backend import CryptoBackend, get_backend
 from dds_tpu_torch.models.det import DetKey
 from dds_tpu_torch.obs import context as obs_context
@@ -244,6 +261,17 @@ class ProxyConfig:
     # the plain host path, so the window only costs latency when there is
     # something to gain. 0 disables.
     coalesce_window: float = 0.002
+    # proxy -> proxy key gossip: push the aggregate key set to `peers`
+    # ("host:port") every key_sync_interval seconds after key_sync_warmup,
+    # pull it from them once at start, serve GET /_sync
+    key_sync_enabled: bool = False
+    key_sync_warmup: float = 1.0
+    key_sync_interval: float = 5.0
+    peers: list[str] = field(default_factory=list)
+    # the aggregate key set's snapshot ("" = in memory only, so a restart
+    # would shrink every aggregate until re-population): written atomically
+    # ~200 ms after a burst of mutations, flushed at stop, loaded at start
+    keys_path: str = ""
     # Prism's routes (POST /MatVec, /WeightedSum, /GroupBySum): the row cap
     # bounds one request's kernel work (DDS_ANALYTICS_MAX_ROWS overrides
     # it; ops/flags.analytics_max_rows validates whichever wins); the byte
@@ -430,6 +458,9 @@ class DDSRestServer:
         # off: aggregates, searches and analytics never fold canary rows
         # into user answers, nor user rows into the canary's
         self._canary_keys: set[str] = set()
+        # the stored-keys snapshot's debounce: a pending write, its saver
+        self._keys_dirty = False
+        self._keys_saver: asyncio.Task | None = None
         # Bulwark: the admission gate and shed ratchet, fed by the SLO
         # engine's burn alerts and the breaker census, and the adaptive
         # coalescing window sized from observed fold arrivals. Both None
@@ -462,8 +493,13 @@ class DDSRestServer:
                                 handler_timeout=self.cfg.handler_timeout)
 
     async def start(self) -> None:
+        self._load_keys()
         await self._http.start()
         self.cfg.port = self._http.port  # resolve OS-assigned port 0
+        if self.cfg.key_sync_enabled and self.cfg.peers:
+            await self._bootstrap_keys_from_peers()
+            self._tasks.append(supervised_task(self._key_sync_loop(),
+                                               name="proxy.key_sync"))
         if self.cfg.supervisor:
             if self.abd.cfg.supervisor is None:
                 self.abd.cfg.supervisor = self.cfg.supervisor  # pin ActiveReplicas source
@@ -520,6 +556,122 @@ class DDSRestServer:
                         fut.set_exception(err)
             self._fold_pending.clear()
             self._fold_drainer = None
+        if self._keys_saver is not None:
+            await _cancel_task(self._keys_saver)
+            self._keys_saver = None
+        if self._keys_dirty:
+            self._write_keys_snapshot()  # flush pending mutations at shutdown
+
+    # ------------------------------------------------- stored_keys recovery
+
+    def _load_keys(self) -> None:
+        """`stored_keys` (and the owner map) from the snapshot at
+        `keys_path`, in either shape; an unreadable or malformed file is
+        logged and ignored."""
+        if not self.cfg.keys_path:
+            return
+        p = pathlib.Path(self.cfg.keys_path)
+        if not p.exists():
+            return
+        try:
+            keys = json.loads(p.read_text())
+        except (OSError, ValueError) as e:
+            log.warning("ignoring unreadable stored-keys snapshot %s: %s", p, e)
+            return
+        owners = {}
+        if isinstance(keys, dict):
+            # the tenancy shape: {"keys": [...], "tenants": {key: tenant}}
+            owners = keys.get("tenants") or {}
+            keys = keys.get("keys")
+        if not isinstance(keys, list):  # hand-edited or corrupted
+            log.warning("ignoring malformed stored-keys snapshot %s", p)
+            return
+        for k in keys:
+            if isinstance(k, str):
+                self.stored_keys.add(k)
+        if isinstance(owners, dict):
+            for k, t in owners.items():
+                if isinstance(k, str) and isinstance(t, str):
+                    self._tenant_owner[k] = t
+        self._stored_version += 1
+        log.info("recovered %d stored keys from %s", len(self.stored_keys), p)
+
+    def _write_keys_snapshot(self) -> None:
+        """Atomic write (tmp + rename): a crash mid-write leaves the
+        previous snapshot intact, never a truncated file."""
+        self._keys_dirty = False
+        p = pathlib.Path(self.cfg.keys_path)
+        if self._tenant_owner:
+            # ownership rides the snapshot: a restarted proxy keeps refusing
+            # cross-tenant access to keys written before it stopped
+            body = {"keys": sorted(self.stored_keys),
+                    "tenants": dict(self._tenant_owner)}
+        else:
+            body = sorted(self.stored_keys)
+        try:
+            p.parent.mkdir(parents=True, exist_ok=True)
+            tmp = p.with_name(p.name + ".tmp")
+            tmp.write_text(json.dumps(body))
+            os.replace(tmp, p)
+        except OSError as e:
+            log.warning("stored-keys snapshot to %s failed: %s", p, e)
+
+    def _save_keys_soon(self) -> None:
+        """Debounced snapshot: a burst of mutations becomes one write."""
+        if not self.cfg.keys_path:
+            return
+        self._keys_dirty = True
+        if self._keys_saver is not None and not self._keys_saver.done():
+            return
+
+        async def _saver():
+            while self._keys_dirty:
+                await asyncio.sleep(0.2)
+                # off the loop: a large key set must not stall requests
+                # (stop writes synchronously; the loop is going down)
+                await asyncio.to_thread(self._write_keys_snapshot)
+
+        self._keys_saver = supervised_task(_saver(), name="proxy.keys_saver")
+
+    async def _bootstrap_keys_from_peers(self) -> None:
+        """One pull of `GET /_sync` from every peer at start, concurrently,
+        so a restarted proxy need not wait for a push; a failed pull is
+        logged and never fails the boot."""
+
+        async def pull(peer: str) -> None:
+            host, _, port = peer.partition(":")
+            try:
+                status, body = await http_request(host, int(port), "GET", "/_sync",
+                                                  timeout=5.0)
+                if status != 200:
+                    return
+                before = len(self.stored_keys)
+                for k in J.parse_keys(json.loads(body)):
+                    self._note_stored(k)
+                log.info("bootstrapped %d stored keys from peer %s",
+                         len(self.stored_keys) - before, peer)
+            except (OSError, ValueError, EOFError, asyncio.TimeoutError) as e:
+                # EOFError covers IncompleteReadError (a peer closing mid-body)
+                log.debug("stored-keys bootstrap from %s failed: %s", peer, e)
+
+        await asyncio.gather(*(pull(p) for p in self.cfg.peers))
+
+    async def _key_sync_loop(self) -> None:
+        await asyncio.sleep(self.cfg.key_sync_warmup)
+        while True:
+            for peer in self.cfg.peers:
+                host, _, port = peer.partition(":")
+                try:
+                    await http_request(
+                        host, int(port), "POST", "/_sync",
+                        json.dumps(J.keys_result(sorted(self.stored_keys))).encode(),
+                        timeout=5.0,
+                    )
+                except OSError:
+                    log.debug("key-sync peer %s unreachable", peer)
+                except asyncio.TimeoutError:
+                    log.debug("key-sync peer %s timed out", peer)
+            await asyncio.sleep(self.cfg.key_sync_interval)
 
     # ----------------------------------------------------------- ABD access
 
@@ -534,7 +686,18 @@ class DDSRestServer:
             max_delay=self.cfg.retry_max_delay,
             max_attempts=(attempts + 1) if attempts > 0 else None,
         )
-        return await retry_deadline(f, deadline, policy, retry_on=_RETRYABLE)
+        try:
+            return await retry_deadline(f, deadline, policy, retry_on=_RETRYABLE)
+        except _RETRYABLE as e:
+            if policy.max_attempts is None:
+                raise
+            # the attempt cap ran out before the budget: degrade to 503 +
+            # Retry-After as an exhausted budget does. The reference lets
+            # the last attempt's error through, which answers 500
+            raise DeadlineExceededError(
+                f"{policy.max_attempts} attempt(s) failed: {e!r}",
+                attempts=policy.max_attempts, elapsed=deadline.elapsed(), last_error=e,
+            ) from e
 
     def _cache_put(self, key: str, tag, value) -> None:
         """Remember a completed op's (tag, value); newest tag wins."""
@@ -558,6 +721,7 @@ class DDSRestServer:
         if key not in self.stored_keys:
             self.stored_keys.add(key)
             self._stored_version += 1
+            self._save_keys_soon()
 
     # ------------------------------------------------------ Bastion tenancy
 
@@ -593,6 +757,7 @@ class DDSRestServer:
         if self._tenant_owner.get(key) != tenant:
             self._tenant_owner[key] = tenant
             self._tenant_pairs_memo.clear()
+            self._save_keys_soon()
 
     def _tenant_denied(self, *keys: str) -> Response | None:
         """A typed 403 when the request's tenant does not own a key it
@@ -1139,6 +1304,7 @@ class DDSRestServer:
                     # aggregate memos keyed on the stored set
                     self.stored_keys.discard(arg)
                     self._stored_version += 1
+                    self._save_keys_soon()
                 if self._tenant_owner.pop(arg, None) is not None:
                     self._tenant_pairs_memo.clear()
                 if arg in self._canary_keys:
@@ -1240,6 +1406,12 @@ class DDSRestServer:
                 for k in J.parse_keys(req.json()):
                     self._note_stored(k)
                 return Response(204)
+
+            case ("GET", "_sync") if self.cfg.key_sync_enabled:
+                # a (re)starting peer's pull. Gated like the push side:
+                # without key sync it would hand any client the whole
+                # record-key set (the workload's shape)
+                return Response.json(J.keys_result(sorted(self.stored_keys)))
 
             case ("GET", "health"):
                 return self._health()

@@ -1,1 +1,2 @@
-"""Fault injection: Trudy's crash and byzantine attacks (`trudy.py`)."""
+"""Fault injection: Trudy's crash and byzantine attacks and Nemesis's
+network attacks (`trudy.py`)."""

@@ -14,7 +14,15 @@ snapshots at boot (and saves every `snapshot-interval` seconds),
 `anti-entropy-enabled` starts each replica's Merkle sync loop, `[obs]
 flight-dir` arms the flight recorder and `[attacks] enabled` lets Trudy's
 crash or byzantine attack through (`dep.trudy`, fired by
-`run_workload`). `Deployment.stop` cancels and awaits every loop.
+`run_workload`). `[attacks] chaos-enabled` wraps the transport in a
+ChaosNet seeded with `chaos-seed` (`core/chaos.py`, `dep.net`: every send
+takes its fault schedule) and makes `dep.trudy` a Nemesis, whose
+partition, delay, flood and heal attacks act on that fabric.
+`[proxy] stored-keys-path` keeps the proxy's aggregate key set (and,
+with tenancy, each key's owner) in a snapshot it reloads at start, and
+`key-sync-enabled` gossips it to `remote-peers` (`POST /_sync`), pulls it
+from them at start and serves `GET /_sync`. `Deployment.stop` cancels and
+awaits every loop.
 `[resident]`, `[storage]` and
 `[search]` reach the proxy as their config sections, so Stratum keeps its
 segment log in `[storage] dir` and the search plane indexes the
@@ -45,9 +53,11 @@ and `configs/stratum.toml` boot. `[shard] enabled` boots a Constellation
 its own supervisor (proactive recovery with `[recovery] enabled`) and
 anti-entropy loops, on one in-memory transport, behind a `ShardRouter`
 the proxy serves through; the Watchtower audits each group against its
-own quorum geometry. Live resharding is not ported, so `[shard]` with
+own quorum geometry, and with `chaos-enabled` each group's attacker is a
+Nemesis. Live resharding is not ported, so `[shard]` with
 `[fabric] admin-routes` (POST /_reshard) or `[shard] plan-dir` (a
-journaled plan to recover at boot) is refused.
+journaled plan to recover at boot) is refused, and so are `[chaos.profiles]`
+(their WAN matrices key on the region labels geo placement registers).
 `load_provider(cfg)` builds the
 client's HE provider from the `[client]` section: its keys, its bulk
 encryption backend (`bulk-encrypt-backend = "cuda"` precomputes PSSE
@@ -57,7 +67,8 @@ Sanctum handle that runs bulk decryption's CRT legs on the card.
 `[client] nr-of-local-clients` concurrent clients over digests the
 workload generator draws from `[client] proportions`, and with `[attacks]
 enabled` triggers Trudy 0.1 s in, her victims drawn from the same seeded
-rng. The TCP transport, ChaosNet and Nemesis wait for later slices.
+rng (a Nemesis's network attacks fire the same way). The TCP transport
+waits for a later slice.
 
 Run the deployment and a generated workload, print each client's report,
 and with --serve keep serving until interrupted (on a host without a card,
@@ -71,6 +82,11 @@ reference's flag does):
     python -m dds_tpu_torch.run --config configs/heliograph.toml --port 0 --backend cuda
     python -m dds_tpu_torch.run --config configs/sharded.toml --port 0 --backend cuda
     python -m dds_tpu_torch.run --config configs/stratum.toml --port 0 --backend cuda
+    python -m dds_tpu_torch.run --config my_chaos.toml --device cpu --backend cpu
+
+where my_chaos.toml sets `[attacks] enabled = true`, `chaos-enabled =
+true`, `type = "partition"` and `[proxy] stored-keys-path =
+"keys/proxy_keys.json"`.
 """
 
 from __future__ import annotations
@@ -87,12 +103,13 @@ from dds_tpu_torch.clt.client import ClientConfig, DDSHttpClient
 from dds_tpu_torch.clt.generator import generate
 from dds_tpu_torch.clt.instructions import Digest
 from dds_tpu_torch.core import snapshot as snap
+from dds_tpu_torch.core.chaos import ChaosNet
 from dds_tpu_torch.core.quorum_client import AbdClient, AbdClientConfig
 from dds_tpu_torch.core.replica import BFTABDNode, ReplicaConfig
 from dds_tpu_torch.core.supervisor import BFTSupervisor, SupervisorConfig
 from dds_tpu_torch.core.transport import InMemoryNet
 from dds_tpu_torch.http.server import DDSRestServer, ProxyConfig
-from dds_tpu_torch.malicious.trudy import AttackType, Trudy
+from dds_tpu_torch.malicious.trudy import Nemesis, Trudy
 from dds_tpu_torch.models.backend import get_backend
 from dds_tpu_torch.models.facade import HomoProvider
 from dds_tpu_torch.models.keys import HEKeys
@@ -116,7 +133,7 @@ SUPERVISOR_NAME = "supervisor"
 @dataclass
 class Deployment:
     cfg: DDSConfig
-    net: InMemoryNet
+    net: InMemoryNet | ChaosNet
     replicas: dict[str, BFTABDNode]
     server: DDSRestServer
     supervisor: BFTSupervisor | None = None
@@ -157,9 +174,8 @@ class Deployment:
 def unported_plane(cfg: DDSConfig) -> str | None:
     """The first plane `cfg` enables that the port does not serve, or
     None: live resharding under `[shard]` first, then fabric, helmsman,
-    geo, the attacks other than Trudy's crash and byzantine, then the other
-    serving surfaces of the reference that are not ported."""
-    attack_ok = {a.value for a in (AttackType.CRASH, AttackType.BYZANTINE)}
+    geo and the WAN chaos profiles, then the other serving surfaces of the
+    reference that are not ported."""
     sharded = cfg.shard.enabled
     checks = (
         (sharded and cfg.fabric.admin_routes,
@@ -169,10 +185,8 @@ def unported_plane(cfg: DDSConfig) -> str | None:
         (cfg.fabric.role != "all" or bool(cfg.fabric.groups), "[fabric]: the shard fabric"),
         (cfg.helmsman.enabled, "[helmsman] enabled: helmsman"),
         (cfg.geo.enabled, "[geo] enabled: geo"),
-        (cfg.attacks.chaos_enabled, "[attacks] chaos-enabled: attacks on ChaosNet (Nemesis)"),
-        (cfg.attacks.enabled and cfg.attacks.type.strip().lower() not in attack_ok,
-         f"[attacks] type = {cfg.attacks.type!r}: attacks other than Trudy's "
-         "crash and byzantine"),
+        (bool(cfg.chaos.profiles),
+         "[chaos.profiles]: WAN link profiles, which need geo region labels"),
         (cfg.obs.fleet.enabled, "[obs.fleet] enabled: fleet observability"),
         (cfg.transport.kind != "memory", f"[transport] kind = {cfg.transport.kind!r}: "
                                          "the TCP transport"),
@@ -180,9 +194,6 @@ def unported_plane(cfg: DDSConfig) -> str | None:
               or cfg.replicas.supervisor_address), "[replicas] addresses: multi-host"),
         (cfg.security.tls_enabled or cfg.security.intranet_tls_enabled, "[security]: TLS"),
         (bool(cfg.security.node_public_keys), "[security] node-public-keys: node identity"),
-        (cfg.proxy.key_sync_enabled or bool(cfg.proxy.remote_peers),
-         "[proxy] key-sync-enabled: key sync"),
-        (bool(cfg.proxy.stored_keys_path), "[proxy] stored-keys-path: stored-keys snapshots"),
     )
     return next((name for on, name in checks if on), None)
 
@@ -210,8 +221,15 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             min_interval=cfg.obs.flight_min_interval,
         )
     net = InMemoryNet()
+    stoppables = []
+    if cfg.attacks.chaos_enabled:
+        # every send takes the seeded fault schedule. ChaosNet.stop cancels
+        # only its own deferred deliveries; Deployment.stop then quiesces
+        # it, which drains the inner transport too
+        net = ChaosNet(net, seed=cfg.attacks.chaos_seed)
+        stoppables.append(net)
     if cfg.shard.enabled:
-        return await _launch_constellation(cfg, net, flight_dir)
+        return await _launch_constellation(cfg, net, stoppables, flight_dir)
     rcfg = ReplicaConfig(
         quorum_size=cfg.replicas.byz_quorum_size,
         nonce_increment=cfg.security.nonce_challenge_increment,
@@ -308,7 +326,6 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
     )
     await server.start()
 
-    stoppables = []
     if cfg.recovery.anti_entropy_enabled:
         # one pull agent per replica, on a jittered timer so the rounds
         # spread out instead of thundering
@@ -322,7 +339,8 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
 
         stoppables.append(_AntiEntropyStopper())
 
-    trudy = Trudy(net, active, cfg.replicas.byz_max_faults, addr="trudy")
+    attacker = Nemesis if cfg.attacks.chaos_enabled else Trudy
+    trudy = attacker(net, active, cfg.replicas.byz_max_faults, addr="trudy")
     dep = Deployment(cfg, net, replicas, server, supervisor, trudy, stoppables,
                      flight_dir)
 
@@ -397,6 +415,11 @@ def proxy_config(cfg: DDSConfig, supervisor: str) -> ProxyConfig:
         trace_route_enabled=cfg.debug or cfg.obs.trace_route,
         metrics_route_enabled=cfg.obs.metrics_route,
         slo_route_enabled=cfg.obs.slo_route,
+        key_sync_enabled=p.key_sync_enabled,
+        key_sync_warmup=p.key_sync_warm_up,
+        key_sync_interval=p.key_sync_interval,
+        peers=list(p.remote_peers),
+        keys_path=p.stored_keys_path,
         admission=cfg.admission,
         heliograph=cfg.heliograph,
         tenancy=cfg.tenancy,
@@ -441,8 +464,8 @@ def shard_configs(cfg: DDSConfig):
     return rcfg, sup_cfg, abd_cfg
 
 
-async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet,
-                                flight_dir: str | None) -> Deployment:
+async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet | ChaosNet,
+                                stoppables: list, flight_dir: str | None) -> Deployment:
     """`[shard] enabled`: S quorum groups behind a ShardRouter (the
     reference's `run._launch_constellation` on the in-memory transport).
     Each group mirrors the single-group stack with namespaced endpoints;
@@ -463,6 +486,7 @@ async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet,
         rcfg=rcfg,
         sup_cfg=sup_cfg,
         abd_cfg=abd_cfg,
+        chaos=cfg.attacks.chaos_enabled,
     )
     replicas: dict[str, BFTABDNode] = {}
     for g in const.groups:
@@ -489,7 +513,7 @@ async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet,
         await const.stop()
         raise
     dep = Deployment(cfg, net, replicas, server, None, const.groups[0].trudy,
-                     _flight_dir=flight_dir, constellation=const)
+                     stoppables, flight_dir, constellation=const)
     if cfg.obs.audit_enabled:
         watchtower.reset()
         watchtower.configure(

@@ -1,9 +1,11 @@
 """Constellation fabric: build S independent BFT-ABD quorum groups.
 
-Copy of `dds_tpu/shard/fabric.py` on the in-memory transport, without
-Atlas (geo placement, leases, region labels) and Nemesis. One group is the
-single-group stack — replicas (+ sentinent spares), a supervisor, per-
-replica Merkle anti-entropy, an `AbdClient` and a Trudy — with namespaced
+Copy of `dds_tpu/shard/fabric.py` on the in-memory transport (or a
+ChaosNet over it), without Atlas (geo placement, leases, region labels:
+the reference's `_register_net_regions` labels a ChaosNet's endpoints
+for geo). One group is the single-group stack — replicas (+ sentinent
+spares), a supervisor, per-replica Merkle anti-entropy, an `AbdClient`
+and a Trudy (a Nemesis with `chaos`) — with namespaced
 endpoints (`s0-replica-3`, `s1-supervisor`, ...) over ONE shared
 transport. `build_constellation` assembles S groups with the
 ShardManager/ShardRouter pair. Live split, merge and takeover (the
@@ -20,7 +22,7 @@ from dataclasses import dataclass
 from dds_tpu_torch.core.quorum_client import AbdClient, AbdClientConfig
 from dds_tpu_torch.core.replica import BFTABDNode, ReplicaConfig
 from dds_tpu_torch.core.supervisor import BFTSupervisor, SupervisorConfig
-from dds_tpu_torch.malicious.trudy import Trudy
+from dds_tpu_torch.malicious.trudy import Nemesis, Trudy
 from dds_tpu_torch.shard.router import ShardRouter
 from dds_tpu_torch.shard.shardmap import ShardManager, ShardMap, ShardState
 
@@ -82,9 +84,12 @@ def build_group(
     rcfg: ReplicaConfig | None = None,
     sup_cfg: SupervisorConfig | None = None,
     abd_cfg: AbdClientConfig | None = None,
+    chaos: bool = False,
     rng: random.Random | None = None,
 ) -> ShardGroup:
-    """One namespaced quorum group over `net`, fencing under `state`."""
+    """One namespaced quorum group over `net`, fencing under `state`;
+    with `chaos` its attacker is a Nemesis (network attacks on a
+    ChaosNet `net`)."""
     rcfg = rcfg or ReplicaConfig(quorum_size=quorum)
     endpoints = [f"{gid}-replica-{i}" for i in range(n_active + n_sentinent)]
     active, sentinent = endpoints[:n_active], endpoints[n_active:]
@@ -108,7 +113,8 @@ def build_group(
     abd_cfg.shard = gid
     abd_cfg.supervisor = sup_addr
     client = AbdClient(f"{gid}-proxy", net, active, abd_cfg)
-    trudy = Trudy(net, active, max_faults, addr=f"{gid}-trudy", rng=rng)
+    attacker = Nemesis if chaos else Trudy
+    trudy = attacker(net, active, max_faults, addr=f"{gid}-trudy", rng=rng)
     return ShardGroup(gid, active, sentinent, replicas, supervisor, client,
                       state, quorum, trudy)
 

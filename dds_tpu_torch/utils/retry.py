@@ -8,6 +8,7 @@ Trimmed copy of `dds_tpu/utils/retry.py`:
 - `retry_deadline`: retry with delay ~ U(0, min(cap, base*mult^attempt));
   when the budget cannot fit another attempt it raises
   `DeadlineExceededError`, which the REST layer maps to 503 + Retry-After.
+- `retry`: N attempts with a constant pause, for harness code.
 - `CircuitBreaker`: per-target closed -> open -> half-open state for
   transient failures (the quorum client keeps one per coordinator);
   `half_open_eta` is what a degraded response's Retry-After derives from.
@@ -85,12 +86,15 @@ async def retry_deadline(
     deadline: Deadline,
     policy: Optional[RetryPolicy] = None,
     retry_on: tuple = (Exception,),
+    rng: Optional[random.Random] = None,
 ) -> T:
     """Run `f` until it succeeds, the policy's attempts run out (the last
     error propagates), or the deadline cannot fit another backoff (typed
     `DeadlineExceededError`). Exceptions outside `retry_on` propagate
-    immediately."""
+    immediately. The backoff's jitter draws from `rng` (default the
+    module `random`)."""
     policy = policy or RetryPolicy()
+    rng = rng or random
     attempt = 0
     while True:
         if deadline.expired:
@@ -105,7 +109,7 @@ async def retry_deadline(
             tracer.event("retry.attempt", attempt=attempt, error=type(e).__name__)
             if policy.max_attempts is not None and attempt >= policy.max_attempts:
                 raise
-            delay = policy.backoff(attempt - 1, random)
+            delay = policy.backoff(attempt - 1, rng)
             if delay >= deadline.remaining():
                 raise DeadlineExceededError(
                     f"{deadline.budget:.3f}s budget exhausted after "
@@ -113,6 +117,20 @@ async def retry_deadline(
                     attempts=attempt, elapsed=deadline.elapsed(), last_error=e,
                 ) from e
             await asyncio.sleep(delay)
+
+
+async def retry(f: Callable[[], Awaitable[T]], delay: float, retries: int) -> T:
+    """Fixed-backoff loop: `retries` + 1 attempts of `f` with a constant
+    `delay` between them, the last error propagating. For harness code;
+    the request path uses `retry_deadline`."""
+    for attempt in range(retries + 1):
+        try:
+            return await f()
+        except Exception:
+            if attempt == retries:
+                raise
+            await asyncio.sleep(delay)
+    raise AssertionError("unreachable")
 
 
 class CircuitBreaker:

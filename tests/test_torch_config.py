@@ -13,8 +13,9 @@ with `NotImplementedError` naming the first plane the port does not
 serve, never with an unknown-key error; each refusal is checked on its
 own. The planes ported since (recovery, anti-entropy, spares, snapshots,
 Trudy's attacks, /metrics, the flight recorder, admission, the obs audit,
-the SLO engine, tenancy, Heliograph's prober, /_trace, sharding) each launch and
-stop cleanly, the prober's task cancelled and awaited with the rest, and
+the SLO engine, tenancy, Heliograph's prober, /_trace, sharding, ChaosNet
+with Nemesis and its partition attack, key sync, the stored-keys
+snapshot) each launch and stop cleanly, the prober's task cancelled and awaited with the rest, and
 `DDSConfig()` with `[search] enabled` boots, as does `[crypto] secret-device` (Sanctum), whose provider
 decrypts through its device plan. `default.toml` boots with Bulwark, the
 SLO engine and the Watchtower armed as the file says, and the CLI's
@@ -22,7 +23,7 @@ SLO engine and the Watchtower armed as the file says, and the CLI's
 Bastion's weights, 403s and `/health` section, and so does its CLI. Under
 `[shard]`, `[fabric] admin-routes` (POST /_reshard) and `[shard]
 plan-dir` (a journaled reshard plan) are refused by name: live
-resharding is not ported.
+resharding is not ported; so is `[chaos.profiles]` (geo's WAN matrices).
 """
 
 import asyncio
@@ -34,6 +35,8 @@ import tomllib
 import pytest
 
 from dds_tpu.utils.config import DDSConfig as RefConfig
+from dds_tpu_torch.core.chaos import ChaosNet
+from dds_tpu_torch.malicious.trudy import Nemesis
 from dds_tpu_torch.run import launch, unported_plane
 from dds_tpu_torch.utils.config import DDSConfig, SearchConfig
 
@@ -159,7 +162,7 @@ PLANES = [
     ("geo", {"geo": {"enabled": True}}, True),
     ("heliograph", {"heliograph": {"enabled": True}}, False),
     ("attacks", {"attacks": {"enabled": True}}, False),
-    ("attacks", {"attacks": {"chaos-enabled": True}}, True),
+    ("attacks", {"attacks": {"chaos-enabled": True}}, False),
     ("/metrics", {"obs": {"metrics-route": True}}, False),
     ("SLO engine", {"obs": {"slo-route": True}}, False),
     ("/_trace", {"obs": {"trace-route": True}}, False),
@@ -169,10 +172,15 @@ PLANES = [
     ("multi-host", {"replicas": {"addresses": {"replica-0": "h:1"}}}, True),
     ("TLS", {"security": {"tls-enabled": True}}, True),
     ("node identity", {"security": {"node-public-keys": {"h:1": "00"}}}, True),
-    ("key sync", {"proxy": {"key-sync-enabled": True}}, True),
-    ("stored-keys", {"proxy": {"stored-keys-path": "keys.json"}}, True),
+    ("key sync", {"proxy": {"device": "cpu", "key-sync-enabled": True}}, False),
+    ("stored-keys", {"proxy": {"device": "cpu", "stored-keys-path": "keys.json"}}, False),
     ("admin-routes", {"shard": {"enabled": True}, "fabric": {"admin-routes": True}}, True),
     ("plan-dir", {"shard": {"enabled": True, "plan-dir": "plans"}}, True),
+    ("partition", {"attacks": {"enabled": True, "chaos-enabled": True,
+                               "type": "partition"}}, False),
+    ("[chaos.profiles]", {"attacks": {"chaos-enabled": True},
+                          "chaos": {"profiles": {"eu<->us": "wan-100"}}}, True),
+    ("sharded chaos", {"shard": {"enabled": True}, "attacks": {"chaos-enabled": True}}, False),
 ]
 IDS = [f"{p}-{i}" for i, (p, _, _) in enumerate(PLANES)]
 REFUSALS = [(p, sec) for p, sec, refused in PLANES if refused]
@@ -211,7 +219,7 @@ def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
         dep = await launch(cfg)
         try:
             assert dep.trudy is not None
-            if plane == "sharding":
+            if plane in ("sharding", "sharded chaos"):
                 # one supervisor a group, no single-group supervisor
                 assert dep.supervisor is None
                 assert [g.gid for g in dep.constellation.groups] == ["s0", "s1"]
@@ -240,6 +248,22 @@ def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
                 assert dep.server.heliograph is not None
             if plane == "/_trace":
                 assert dep.server.cfg.trace_route_enabled
+            if plane == "sharded chaos":
+                assert isinstance(dep.net, ChaosNet)
+                assert all(isinstance(g.trudy, Nemesis) and g.trudy.net is dep.net
+                           for g in dep.constellation.groups)
+            if plane in ("attacks", "partition"):
+                chaotic = section["attacks"].get("chaos-enabled", False)
+                assert isinstance(dep.net, ChaosNet) == chaotic
+                assert isinstance(dep.trudy, Nemesis) == chaotic
+            if plane == "partition":
+                assert dep.trudy.trigger("partition") and dep.net.partitions
+                dep.trudy.trigger("heal")
+            if plane == "key sync":
+                assert dep.server.cfg.key_sync_enabled
+            if plane == "stored-keys":
+                assert dep.server.cfg.keys_path == "keys.json"
+                dep.server._note_stored("k-0")
         finally:
             await dep.stop()
         await asyncio.sleep(0)
@@ -247,6 +271,8 @@ def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
 
     leaked = asyncio.run(asyncio.wait_for(boot(), 30))
     assert not leaked, leaked
+    if plane == "stored-keys":  # stop flushed the debounced snapshot
+        assert json.loads((tmp_path / "keys.json").read_text()) == ["k-0"]
     assert flight.dir == before
     assert not watchtower.attached
 
