@@ -23,7 +23,10 @@ configs/sharded.toml's and configs/stratum.toml's Constellations (shard
 groups behind a router, scatter-gather folds on the card) and
 configs/default.toml over a seeded ChaosNet with Nemesis armed and the
 proxy's stored-keys snapshot (SumAlls exact on the card through link
-faults, delays, partitions, a flood and a proxy restart) — and holds
+faults, delays, partitions, a flood and a proxy restart) and
+configs/sharded.toml reshaped live (Helmsman's merge of a cold group,
+an operator's split onto the warm standby through POST /_reshard, every
+SumAll exact on the card across both) — and holds
 every CUDA kernel on them against its plain PyTorch version. The phases
 before `recovery` turn the audit and /slo off in the configs they build
 (EARLIER_OBS_CUTS), and every phase before `tenancy` runs with the
@@ -403,15 +406,44 @@ non-zero:
               Retry-After, 0 Watchtower violations. Printed: each step's
               SumAll ms (p50/p95), retries, victims and trace counts, the
               phase's seconds beside its 60 s budget;
-24. kernels   one {"kernels": [...]} line (every kernel must have launched
+24. reshard   configs/sharded.toml on `cuda` with live resharding and
+              Helmsman (printed overrides: the backend, an OS-assigned
+              port, [fabric] admin-routes, [shard] plan-dir in a temporary
+              directory, [helmsman] enabled and pinned at a 1 s interval,
+              cold-streak 3, cooldown 5 s, the data, the loader at 8 in
+              flight): 2,048 rows blinded on the card (B3, with 320
+              candidate rows for the split) and loaded while Helmsman is
+              pinned (3 ticks, no action, /health's helmsman block);
+              POST /_helmsman unpins it (the SLO alerts, shed level and
+              open breakers printed first; a distressed fleet fails) and
+              GetSets over s0-s2's keys run until it merges the cold s3
+              (20 s deadline; epoch 2, s3 a warm standby holding none of
+              the moved keys), then it is pinned again; SumAlls at S = 3
+              on the fused tree and scattered; POST /_reshard splits s0
+              onto s3 while 4 writers PutSet 32 rows the split moves (held
+              behind the Rebalancer's lock until a different plan answered
+              409 busy with Retry-After and an identical one attached; the
+              replay answers epoch 3); SumAlls at S = 4; every row read
+              back; /shards verifying at epoch 3, the plan directory empty,
+              dds_helmsman_actions_total{action="merge"} 1, the aborts
+              counted. Gates: each SumAll the Python-int fold of the
+              acknowledged rows, decrypting to their total, its B1 launches
+              the fused tree's levels over the proxy's owner partition (equal
+              to the live map's) or one device fold a group; B1 on the path
+              the SumAlls' plus the blinding's 2, B3 1; every write
+              acknowledged; 0 Watchtower violations; no 500. Printed: each
+              reshape's wall time, moved keys and bytes, each group's pool
+              rows, the wrong-shard retries, the phase's seconds beside its
+              75 s budget;
+25. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
               launch; the analytics requests' launches are the path
               "analytics", the rowmod kernels' the
               path "decrypt", `decrypt_rows`' run, B1's the paths
               "recovery", "sumall_audited", "bulwark", "tenancy",
-              "heliograph", "sharded" (its MatVec included), "stratum" and
-              "chaos", B3's "client", "tenancy", "heliograph", "sharded"
-              and "chaos", the
+              "heliograph", "sharded" (its MatVec included), "stratum",
+              "chaos" and "reshard", B3's "client", "tenancy", "heliograph",
+              "sharded", "chaos" and "reshard", the
               Karatsuba kernels' also "sharded");
               then one
               {"search": ...}
@@ -426,8 +458,9 @@ non-zero:
               windows and their failures, the snapshot and anti-entropy
               figures, the phase's seconds beside its 150 s budget; then
               one {"bulwark": ...}, one {"tenancy": ...}, one
-              {"heliograph": ...}, one {"sharded": ...} and one
-              {"chaos": ...} line with those phases' whole records;
+              {"heliograph": ...}, one {"sharded": ...}, one
+              {"chaos": ...} and one {"reshard": ...} line with those
+              phases' whole records;
               then the card's name and power limit;
               then the result line.
 
@@ -441,6 +474,7 @@ non-zero:
         # phases; prints no result line
     python3 chip_smoke.py --phases sharded [--size sharded_K=8192 ...]
     python3 chip_smoke.py --phases chaos
+    python3 chip_smoke.py --phases reshard
         # on the card: the named phases alone at the card's sizes (each
         # --size changes one), each followed by its seconds; no result line
 
@@ -6190,6 +6224,459 @@ async def phase_chaos(dev, sizes) -> dict:
     return rec
 
 
+RESHARD_BUDGET_S = 75.0
+# configs/sharded.toml's settings the phase overrides (printed); everything
+# else stands as the file says
+RESHARD_OVERRIDES = {
+    "proxy.crypto_backend": "cuda (the file names cpu, the reference's host backend)",
+    "proxy.port": "0 (an OS-assigned port for the file's 8443)",
+    "fabric.admin_routes": "true: POST /_reshard and POST /_helmsman served",
+    "shard.plan_dir": "the reshard plan journal in a temporary directory",
+    "helmsman": "enabled, pin = true, interval = 1.0 s, cold-streak = 3, cooldown = 5.0 s "
+                "(the rest at the defaults: cold-share 0.1, min-ops 20)",
+    "data": "bench_paillier_key(2048): rows of one PSSE column, seeded plaintexts "
+            "blinded on the card (B3, one pow_mod for the load and the split's writes)",
+    "load.inflight": "8: within the default 250 ms PutSet objective the file leaves",
+    "scatter": "the scatter SumAlls run with the proxy's resident min fold set above K, "
+               "so they take proxy.scatter_fold instead of the fused resident tree",
+}
+# the phase's steps, in order (printed)
+RESHARD_STEPS = (
+    "load K rows by PutSet while Helmsman is pinned: its loop ticks and acts on none",
+    "POST /_helmsman {pin: false}; GetSets over keys of s0-s2 only until Helmsman "
+    "merges the cold s3 (the deadline printed); POST /_helmsman {pin: true}",
+    "SumAlls at S = 3: on the fused resident tree, then scattered",
+    "POST /_reshard split s0 -> s3 (the warm standby) while 4 writers PutSet fresh rows "
+    "that the split moves to s3; a different plan answers 409 busy, an identical one "
+    "attaches, a replay answers the map",
+    "SumAlls at S = 4, fused and scattered; every acknowledged row read back; /shards, "
+    "the plan directory, /metrics and the Watchtower",
+)
+
+
+async def phase_reshard(dev, sizes) -> dict:
+    """configs/sharded.toml served on the card with live resharding and
+    Helmsman (RESHARD_OVERRIDES, RESHARD_STEPS printed): 4 groups of 4
+    replicas and a spare (quorum 3, f = 1), proactive recovery and
+    anti-entropy in each, [resident], the audit. `reshard_K` rows blinded
+    on the card (B3; the split's candidate rows in the same pow_mod) and
+    loaded by PutSet `reshard_inflight` at a time while Helmsman is pinned
+    (at least `reshard_pinned_ticks` ticks, no action; /health's helmsman
+    block); unpinned, GetSets spread over the keys of s0, s1 and s2 until
+    Helmsman merges s3 by its cold streak (epoch 2, s3 a warm standby whose
+    replicas hold none of the moved keys), then pinned again; SumAlls at
+    S = 3 through the fused tree and the scatter fold; an operator split of
+    s0 onto the standby s3 through POST /_reshard, held behind the
+    Rebalancer's lock until a different plan's POST answered 409 busy with
+    Retry-After and an identical one was sent, while `reshard_writers`
+    writers PutSet `reshard_fresh` rows whose keys the split moves from s0
+    to s3 (every write acknowledged; the wrong-shard retries printed); the
+    replay answers epoch 3; SumAlls at S = 4, fused and scattered; every
+    acknowledged row read back; /shards verifying at epoch 3, the plan
+    directory empty, /metrics' dds_helmsman_actions_total{action="merge"}
+    1 and dds_reshard_aborts_total as counted, 0 Watchtower violations.
+    Every SumAll is the Python-int fold of the acknowledged rows and
+    decrypts to their total; on the card its B1 launches are the fused
+    tree's levels over the proxy's owner partition (`_owner_memo`, which
+    must equal the live map's) or one device fold a group. An aborted
+    split (409 aborted, the old map in force) is retried once, counted.
+    Launch counts are zeroed before the launch and read after the stop
+    (path "reshard"): B1 = the SumAlls' + the blinding's 2, B3 1. Printed:
+    each reshape's wall time, moved keys and bytes, each group's pool rows
+    after it, the SumAlls' ms, the phase's seconds beside its 75 s
+    budget."""
+    import os
+    import tempfile
+
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.http.miniserver import http_request_full
+    from dds_tpu_torch.models.backend import get_backend
+    from dds_tpu_torch.obs.metrics import metrics
+    from dds_tpu_torch.obs.watchtower import watchtower
+    from dds_tpu_torch.ops import mont_cuda
+    from dds_tpu_torch.resident.plane import fused_fold_launches
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.shard import ShardMap
+    from dds_tpu_torch.utils import sigs
+    from dds_tpu_torch.utils.trace import tracer
+
+    t_phase = time.perf_counter()
+    K, fresh = sizes["reshard_K"], sizes["reshard_fresh"]
+    key = bench_paillier_key(sizes["key_bits"])
+    pk = key.public
+    n2 = pk.nsquare
+    plan_dir = tempfile.TemporaryDirectory()
+    cfg = shard_config(dev, "sharded.toml")
+    cfg.fabric.admin_routes = True
+    cfg.shard.plan_dir = plan_dir.name
+    hcfg = cfg.helmsman
+    hcfg.enabled, hcfg.pin, hcfg.interval = True, True, 1.0
+    hcfg.cold_streak, hcfg.cooldown = 3, 5.0
+    rec: dict = {"overrides": RESHARD_OVERRIDES, "steps": RESHARD_STEPS, "K": K,
+                 "fresh": fresh, "key_bits": sizes["key_bits"],
+                 "budget_s": RESHARD_BUDGET_S,
+                 "users": "operators whose store outgrows, or no longer needs, a quorum "
+                          "group reshape it live, by hand or through Helmsman, and still "
+                          "get exact aggregates and no lost write",
+                 "shard": {k: getattr(cfg.shard, k) for k in (
+                     "count", "vnodes_per_group", "replicas_per_group", "sentinent_per_group",
+                     "quorum_size", "migrate_chunk_keys", "manifest_timeout", "ack_timeout",
+                     "fence_lease")},
+                 "helmsman": {k: getattr(hcfg, k) for k in (
+                     "interval", "cold_streak", "cold_share", "min_ops", "cooldown", "pin")}}
+    answers: list[dict] = []
+
+    def step(name: str, **kw) -> None:
+        emit("reshard_step", step=name, at_s=time.perf_counter() - t_phase, **kw)
+
+    def b1() -> int:
+        sync(dev)
+        return mont_cuda.LAUNCHES["mont_mul"].value
+
+    async def req(method: str, target: str, obj=None, where: str = ""):
+        t0 = time.perf_counter()
+        status, hdrs, data = await http_request_full(
+            "127.0.0.1", port, method, target,
+            json.dumps(obj).encode() if obj is not None else None, timeout=600.0)
+        answers.append({"where": where, "status": status,
+                        "ms": (time.perf_counter() - t0) * 1e3})
+        if status == 500:
+            raise AssertionError(f"reshard: {method} {target[:40]} at {where} answered 500")
+        return status, hdrs, data
+
+    acked: dict[str, int] = {}  # acknowledged key -> ciphertext
+    plain_of: dict[int, int] = {}
+
+    async def put_rows(cts: list, where: str, inflight: int) -> dict:
+        sem = asyncio.Semaphore(inflight)
+        retries = collections.Counter()
+
+        async def put(c) -> None:
+            async with sem:
+                while True:
+                    status, hdrs, data = await req("POST", "/PutSet",
+                                                   {"contents": [str(c)]}, where)
+                    if status == 200:
+                        acked[data.decode()] = c
+                        return
+                    if status not in (429, 503) or int(hdrs.get("retry-after", 0)) < 1:
+                        raise AssertionError(f"reshard: a PutSet at {where} answered "
+                                             f"{status} {hdrs}")
+                    retries[status] += 1  # a client honouring Retry-After
+                    await asyncio.sleep(int(hdrs["retry-after"]))
+
+        t = time.perf_counter()
+        await asyncio.gather(*(put(c) for c in cts))
+        return {"rows": len(cts), "s": time.perf_counter() - t, "retries": dict(retries)}
+
+    def partition() -> dict[str, list]:
+        return const.router.partition_keys(sorted(acked))
+
+    async def sumalls(label: str) -> dict:
+        """`reshard_sumalls` SumAlls on the fused tree, then as many through
+        the scatter fold: each the fold of the acknowledged rows, with its
+        B1 launches against the owner partition it folded over."""
+        want = host_product(list(acked.values()), n2)
+        total = sum(plain_of[c] for c in acked.values())
+        live = {g: len(v) for g, v in sorted(partition().items())}
+        out = {"groups": live}
+        min_fold = server._resident_min_fold
+        for route in ("resident", "scatter"):
+            if route == "scatter":
+                server._resident_min_fold = len(acked) + 1
+            tracer.reset()
+            ms, launched = [], []
+            try:
+                for _ in range(sizes["reshard_sumalls"]):
+                    before = b1()
+                    t0 = time.perf_counter()
+                    status, _, data = await req("GET", f"/SumAll?position=0&nsqr={n2}",
+                                                where=f"{label}_{route}")
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    launched.append(b1() - before)
+                    result = int(json.loads(data)["result"]) if status == 200 else None
+                    if result != want or key.decrypt(result) != total:
+                        raise AssertionError(f"reshard: a {label} {route} SumAll answered "
+                                             f"{status}, not the fold of the "
+                                             f"{len(acked)} acknowledged rows")
+            finally:
+                server._resident_min_fold = min_fold
+            spans = tracer.summary()
+            memo = {g: len(ops) for g, ops in server._owner_memo[2]}
+            sizes_ = [memo[g] for g in sorted(memo)]
+            expected = (fused_fold_launches(sizes_) if route == "resident"
+                        else sum(mont_cuda.fold_launches(k) for k in sizes_))
+            span = "proxy.resident_fold" if route == "resident" else "proxy.scatter_fold"
+            out[route] = {"ms": ms, "p50_ms": pct(ms, 50), "b1": launched,
+                          "b1_expected": expected, "memo_groups": memo,
+                          "folds": spans.get(span, {}).get("count", 0),
+                          "fold_mean_ms": spans.get(span, {}).get("mean_ms")}
+            if out[route]["folds"] != len(ms):
+                raise AssertionError(f"reshard: the {label} SumAlls did not take {span}: "
+                                     f"{sorted(spans)}")
+            if memo != live:
+                raise AssertionError(f"reshard: the {label} SumAlls folded over the owner "
+                                     f"partition {memo}, not the live map's {live}")
+            if dev.type == "cuda" and route == "scatter" and \
+                    min(sizes_) < server.backend.min_device_batch:
+                raise AssertionError(f"reshard: a group below the device crossover {memo}")
+            if dev.type == "cuda" and any(n != expected for n in launched):
+                raise AssertionError(f"reshard: a {label} {route} SumAll launched "
+                                     f"{launched} mont_mul, not {expected}")
+        out["pool_rows"] = pool_rows()
+        step(f"sumall_{label}", **out)
+        return out
+
+    def pool_rows() -> dict:
+        return {gid: p.resident for (gid, _, mod), p in sorted(server._resident._pools.items())
+                if mod == n2}
+
+    metrics.reset()
+    tracer.reset()
+    step("config", **{k: v for k, v in rec.items() if k not in ("overrides", "steps")})
+    reset_counts()  # path "reshard" starts here
+    t = time.perf_counter()
+    dep = await launch(cfg)
+    rec["launch_s"] = time.perf_counter() - t
+    server = dep.server
+    port = server.cfg.port
+    const = dep.constellation
+    hm = server.helmsman
+    sumall_b1 = 0
+    try:
+        if const is None or hm is None or server._reshard is None or \
+                not server.cfg.reshard_route_enabled or not watchtower.attached:
+            raise AssertionError("reshard: launch did not bring up the Constellation, its "
+                                 "reshard route, Helmsman and the audit")
+        # -- the rows: one blinding on the card (B3), then PutSet while pinned
+        rng = random.Random(sizes["reshard_seed"])
+        n_cand = sizes["reshard_candidates"]
+        plain = [rng.randrange(1 << 30) for _ in range(K + n_cand)]
+        client_be = get_backend("cuda", device=dev.type)
+        t = time.perf_counter()
+        cts = pk.encrypt_batch(plain, client_be, min_batch=1)
+        sync(dev)
+        rec["blind"] = {"rows": len(cts), "s": time.perf_counter() - t}
+        plain_of.update(zip(cts, plain))
+        rec["load"] = await put_rows(cts[:K], "load", sizes["reshard_inflight"])
+        rec["load"]["putsets_per_s"] = K / rec["load"]["s"]
+        deadline = time.perf_counter() + 30.0
+        while hm.ticks < sizes["reshard_pinned_ticks"] and time.perf_counter() < deadline:
+            await asyncio.sleep(0.1)
+        _, _, hdata = await req("GET", "/health", where="pinned")
+        hblock = json.loads(hdata).get("helmsman", {})
+        rec["pinned"] = {"ticks": hm.ticks, "health_pinned": hblock.get("pinned"),
+                         "health_ticks": hblock.get("ticks"), "actions": list(hm.history),
+                         "keys_per_group": {g: len(v) for g, v in sorted(partition().items())}}
+        step("load", **rec["load"], blind=rec["blind"], pinned=rec["pinned"])
+        if hm.ticks < sizes["reshard_pinned_ticks"] or hm.history or \
+                hblock.get("pinned") is not True or not hblock.get("ticks"):
+            raise AssertionError(f"reshard: the pinned Helmsman {rec['pinned']}")
+        # -- Helmsman merges the cold group once unpinned
+        old = const.manager.current()
+        cold = "s3"
+        hot_keys = {g: [k for k in sorted(acked) if old.owner(k) == g] for g in old.groups}
+        moved = set(hot_keys.pop(cold))
+        spread = [k for trio in zip(*hot_keys.values()) for k in trio]
+        signals = {"slo_alerts": server.slo.alerts(),
+                   "shed_level": server.admission.shed_level if server.admission else 0,
+                   "open_breakers": len(const.router.breaker_census()[1])}
+        step("before_unpin", **signals)
+        if signals["slo_alerts"] or signals["shed_level"]:
+            raise AssertionError(f"reshard: the fleet is distressed before the merge: "
+                                 f"{signals}")
+        status, _, data = await req("POST", "/_helmsman", {"pin": False}, "unpin")
+        if status != 200 or json.loads(data)["pinned"]:
+            raise AssertionError(f"reshard: POST /_helmsman unpin answered {status}")
+        t_unpin = time.perf_counter()
+        merged = asyncio.Event()
+        gets = collections.Counter()
+
+        async def getter(i: int) -> None:
+            j = i
+            while not merged.is_set():
+                k = spread[j % len(spread)]
+                j += sizes["reshard_inflight"]
+                status, _, data = await req("GET", f"/GetSet/{k}", where="merge_gets")
+                if status != 200 or json.loads(data)["contents"] != [str(acked[k])]:
+                    raise AssertionError(f"reshard: a GetSet during the merge answered "
+                                         f"{status}")
+                gets[const.router.owner(k)] += 1
+
+        async def watch() -> None:
+            try:
+                while cold not in [g.gid for g in const.standbys]:
+                    if time.perf_counter() - t_unpin > sizes["reshard_merge_deadline_s"]:
+                        raise AssertionError(
+                            f"reshard: Helmsman did not merge {cold} within "
+                            f"{sizes['reshard_merge_deadline_s']} s: {list(hm.history)}, "
+                            f"{hm.report()}")
+                    await asyncio.sleep(0.05)
+            finally:
+                merged.set()
+
+        await asyncio.gather(watch(), *(getter(i) for i in range(sizes["reshard_inflight"])))
+        merge_s = time.perf_counter() - t_unpin
+        status, _, data = await req("POST", "/_helmsman", {"pin": True}, "repin")
+        if status != 200 or not json.loads(data)["pinned"]:
+            raise AssertionError(f"reshard: POST /_helmsman pin answered {status}")
+        notes = {r["action"]: r for r in hm.history}
+        victim = next(g for g in const.standbys if g.gid == cold)
+        still_held = sum(1 for n in victim.replicas.values() for k in moved
+                         if n.repository.get(k, (None, None))[1] is not None)
+        rec["merge"] = {"unpin_to_merged_s": merge_s,
+                        "deadline_s": sizes["reshard_merge_deadline_s"],
+                        "ticks": hm.ticks, "gets": dict(gets),
+                        "wall_s": notes["merge_done"]["t"] - notes["merge"]["t"]
+                        if "merge_done" in notes else None,
+                        "decision": notes.get("merge"),
+                        "moved_keys": const.rebalancer.last_moved_keys,
+                        "moved_bytes": const.rebalancer.last_moved_bytes,
+                        "epoch": const.manager.epoch, "groups": const.gids,
+                        "standbys": [g.gid for g in const.standbys],
+                        "victim_keys_held": still_held, "pool_rows": pool_rows()}
+        step("merge", **rec["merge"])
+        if const.manager.epoch != 2 or const.gids != ["s0", "s1", "s2"] or still_held or \
+                "merge_done" not in notes or any(r["action"] not in (
+                    "unpin", "pin", "merge", "merge_done") for r in hm.history):
+            raise AssertionError(f"reshard: the merge {rec['merge']}, {list(hm.history)}")
+        # -- SumAlls at S = 3
+        rec["sumall_s3"] = await sumalls("s3")
+        sumall_b1 += sum(sum(rec["sumall_s3"][r]["b1"]) for r in ("resident", "scatter"))
+        # -- the operator's split onto the warm standby, writers in flight
+        split_map = const.manager.current().split("s0", cold)
+        cur = const.manager.current()
+        movers = [c for c in cts[K:] if cur.owner(sigs.key_from_set([str(c)])) == "s0"
+                  and split_map.owner(sigs.key_from_set([str(c)])) == cold][:fresh]
+        if len(movers) < fresh:
+            raise AssertionError(f"reshard: {len(movers)} of {n_cand} candidate rows move "
+                                 f"s0 -> {cold}, not {fresh}")
+        body = {"action": "split", "source": "s0", "target": cold}
+        lock = const.rebalancer.lock
+        split_tries = collections.Counter()
+        fenced_before = collections.Counter(family("dds_wrong_shard_retries_total"))
+        await lock.acquire()  # the plan queues behind the controller's lock
+        held = True
+        try:
+            first = asyncio.ensure_future(req("POST", "/_reshard", body, "split"))
+            while server._reshard_inflight is None:
+                await asyncio.sleep(0.005)
+            bst, bhdrs, bdata = await req("POST", "/_reshard",
+                                          {"action": "merge", "source": "s1"}, "busy")
+            second = asyncio.ensure_future(req("POST", "/_reshard", body, "split_attach"))
+            await asyncio.sleep(0.5)  # the identical request reaches the route and attaches
+            per = -(-fresh // sizes["reshard_writers"])
+            writers = asyncio.ensure_future(asyncio.gather(*(
+                put_rows(movers[i * per:(i + 1) * per], "split_writes", 1)
+                for i in range(sizes["reshard_writers"]))))
+            t_split = time.perf_counter()  # the plan runs from here
+            lock.release()
+            held = False
+            (s1, _, d1), (s2, _, d2) = await asyncio.gather(first, second)
+            split_s = time.perf_counter() - t_split
+            writes = await writers
+            if s1 == 409 and "aborted" in json.loads(d1):
+                split_tries["aborted"] += 1  # the old map is in force: retry once
+                step("split_aborted", answer=json.loads(d1))
+                s1, _, d1 = await req("POST", "/_reshard", body, "split_retry")
+                s2, d2 = s1, d1
+        finally:
+            if held:
+                lock.release()
+        rst, _, rdata = await req("POST", "/_reshard", body, "replay")
+        rec["split"] = {"answer": [s1, json.loads(d1)], "attached": [s2, json.loads(d2)],
+                        "busy": [bst, json.loads(bdata), bhdrs.get("retry-after")],
+                        "replay": [rst, json.loads(rdata)], "wall_s": split_s,
+                        "aborts_retried": dict(split_tries),
+                        "moved_keys": const.rebalancer.last_moved_keys,
+                        "moved_bytes": const.rebalancer.last_moved_bytes,
+                        "moved_bytes_total": const.rebalancer.moved_bytes_total,
+                        "writes": {"rows": len(movers),
+                                   "retries": dict(sum((collections.Counter(w["retries"])
+                                                        for w in writes),
+                                                       collections.Counter())),
+                                   "s": max(w["s"] for w in writes)},
+                        "wrong_shard_retries": {
+                            dict(k).get("shard", "-"): v - fenced_before[k]
+                            for k, v in family("dds_wrong_shard_retries_total").items()
+                            if v != fenced_before[k]},
+                        "epoch": const.manager.epoch, "groups": const.gids,
+                        "standbys": [g.gid for g in const.standbys],
+                        "pool_rows": pool_rows()}
+        step("split", **rec["split"])
+        if (s1, s2, bst, rst) != (200, 200, 409, 200) or json.loads(d1) != json.loads(d2) \
+                or "idempotent" in json.loads(d1) or json.loads(d1)["epoch"] != 3 or \
+                json.loads(bdata).get("busy", {}).get("action") != "split" or \
+                int(bhdrs.get("retry-after", 0)) < 1 or \
+                not json.loads(rdata).get("idempotent") or json.loads(rdata)["epoch"] != 3 \
+                or const.manager.epoch != 3 or const.standbys or \
+                sorted(const.gids) != ["s0", "s1", "s2", "s3"] or split_tries["aborted"] > 1:
+            raise AssertionError(f"reshard: the operator split {rec['split']}")
+        if any(cur.owner(k) == "s0" and split_map.owner(k) == cold
+               and const.router.owner(k) != cold for k in acked):
+            raise AssertionError("reshard: a moved key is not owned by the split's target")
+        # -- SumAlls at S = 4; every acknowledged row read back; the surfaces
+        rec["sumall_s4"] = await sumalls("s4")
+        sumall_b1 += sum(sum(rec["sumall_s4"][r]["b1"]) for r in ("resident", "scatter"))
+        sem = asyncio.Semaphore(sizes["reshard_read_inflight"])
+        wrong = []
+
+        async def read(k: str) -> None:
+            async with sem:
+                status, _, data = await req("GET", f"/GetSet/{k}", where="read_back")
+                if status != 200 or json.loads(data)["contents"] != [str(acked[k])]:
+                    wrong.append(k)
+
+        t = time.perf_counter()
+        await asyncio.gather(*(read(k) for k in sorted(acked)))
+        rec["read_back"] = {"rows": len(acked), "wrong": len(wrong),
+                            "s": time.perf_counter() - t}
+        sst, _, sdata = await req("GET", "/shards", where="shards")
+        smap = ShardMap.from_wire(json.loads(sdata)["map"])
+        _, _, mdata = await req("GET", "/metrics", where="metrics")
+        series = sorted(ln for ln in mdata.decode().splitlines()
+                        if ln.startswith(("dds_helmsman_actions_total", "dds_reshard_",
+                                          "dds_wrong_shard_retries_total", "dds_shard_epoch")))
+        await dep.net.quiesce()
+        rec["surfaces"] = {
+            "shards": sst, "shards_epoch": smap.epoch,
+            "shards_verify": smap.verify(cfg.security.abd_mac_secret.encode()),
+            "plan_dir": sorted(os.listdir(plan_dir.name)),
+            "helmsman_merges": metrics.value("dds_helmsman_actions_total", action="merge"),
+            "reshard_aborts": metrics.value("dds_reshard_aborts_total") or 0,
+            "series": series, "watchtower": watchtower.stats(),
+            "violation_kinds": sorted({v.invariant for v in watchtower.verdicts()})}
+        step("surfaces", read_back=rec["read_back"], **rec["surfaces"])
+        surf = rec["surfaces"]
+        if wrong or (sst, surf["shards_epoch"], surf["shards_verify"]) != (200, 3, True) or \
+                surf["plan_dir"] or surf["helmsman_merges"] != 1 or \
+                surf["reshard_aborts"] != split_tries["aborted"] or \
+                surf["watchtower"]["ops_audited"] <= 0 or surf["watchtower"]["violations"]:
+            raise AssertionError(f"reshard: {len(wrong)} rows read back wrong; the surfaces "
+                                 f"{surf}")
+    finally:
+        await dep.stop()
+        plan_dir.cleanup()
+    counts = read_counts(dev)
+    rec["launches"] = {"mont_mul": counts["mont_mul"], "mont_exp": counts["mont_exp"],
+                       "mont_mul_sumalls": sumall_b1}
+    rec["statuses"] = {w: dict(collections.Counter(a["status"] for a in answers
+                                                  if a["where"] == w))
+                       for w in sorted({a["where"] for a in answers})}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit("reshard", **{k: rec[k] for k in (
+        "seconds", "budget_s", "launch_s", "launches", "load", "blind", "pinned", "merge",
+        "sumall_s3", "split", "sumall_s4", "read_back", "surfaces", "statuses")})
+    if dev.type == "cuda" and (rec["launches"]["mont_exp"] != 1 or
+                               rec["launches"]["mont_mul"] != sumall_b1 + 2):
+        raise AssertionError(f"reshard: B1 {rec['launches']['mont_mul']} launches (SumAlls "
+                             f"{sumall_b1} + 2 the blinding's), B3 "
+                             f"{rec['launches']['mont_exp']} (1)")
+    if watchtower.attached:
+        raise AssertionError("reshard: stop left the Watchtower attached")
+    return rec
+
+
 def kernel_times(sizes) -> dict:
     """CUDA-event ms of the B1, P, B3, B4, B5 and REDC launches at the
     timing phases' shapes (single launches with the stream held,
@@ -6423,6 +6910,15 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   # 64 in flight (nothing is measured after it)
                   chaos_K=2048, chaos_puts=8, chaos_sumalls=3, chaos_seed=19,
                   chaos_load_inflight=8, chaos_read_inflight=64, chaos_short_budget=2.0,
+                  # the reshard phase: 2,048 rows on sharded.toml (RESHARD_OVERRIDES),
+                  # 8 PutSets in flight within its PutSet objective; 320 candidate
+                  # rows blinded with them, 32 of which the split moves (4 writers);
+                  # 2 SumAlls a route and reshape; Helmsman's merge within 20 s of
+                  # the unpin; the read-back 64 in flight
+                  reshard_K=2048, reshard_inflight=8, reshard_candidates=320,
+                  reshard_fresh=32, reshard_writers=4, reshard_sumalls=2,
+                  reshard_pinned_ticks=3, reshard_merge_deadline_s=20.0,
+                  reshard_read_inflight=64, reshard_seed=20,
                   # the plain ladder of the exp timing on 1,024 of its 8,192
                   # columns, for the run's time (it took 83 s on all of them;
                   # 256 columns took as long as 1,024: the ladder's launches,
@@ -6504,7 +7000,11 @@ def main(argv=None) -> int:
                      sharded_R=4, sharded_seed=17, sharded_mode_sumalls=1, stratum_K=288,
                      stratum_max_rows=64, stratum_sumalls=2, chaos_K=64, chaos_puts=4,
                      chaos_sumalls=2, chaos_seed=19, chaos_load_inflight=8,
-                     chaos_read_inflight=16, chaos_short_budget=1.0, exp_plain_cols=16)
+                     chaos_read_inflight=16, chaos_short_budget=1.0, exp_plain_cols=16,
+                     reshard_K=256, reshard_inflight=8, reshard_candidates=128,
+                     reshard_fresh=8, reshard_writers=4, reshard_sumalls=1,
+                     reshard_pinned_ticks=3, reshard_merge_deadline_s=20.0,
+                     reshard_read_inflight=16, reshard_seed=20)
         card = {"name": "cpu (rehearsal)", **card_numbers(dev)}
     else:
         if not torch.cuda.is_available():
@@ -6524,7 +7024,7 @@ def main(argv=None) -> int:
          timing_exp_plain_columns=sizes["exp_plain_cols"],
          bulwark_overrides=BULWARK_OVERRIDES, tenancy_overrides=TENANCY_OVERRIDES,
          heliograph_overrides=HELIOGRAPH_OVERRIDES, sharded_overrides=SHARDED_OVERRIDES,
-         chaos_overrides=CHAOS_OVERRIDES,
+         chaos_overrides=CHAOS_OVERRIDES, reshard_overrides=RESHARD_OVERRIDES,
          chronoscope_before_tenancy=CHRONOSCOPE_CUT, mixed=MIXED_CUT, depth=DEPTH_CUTS)
 
     from dds_tpu_torch.bench_key import bench_paillier_key
@@ -6575,6 +7075,7 @@ def main(argv=None) -> int:
     helio = timed("heliograph", asyncio.run, phase_heliograph(dev, sizes))
     sharded = timed("sharded", asyncio.run, phase_sharded(dev, sizes))
     chaos = timed("chaos", asyncio.run, phase_chaos(dev, sizes))
+    reshard = timed("reshard", asyncio.run, phase_reshard(dev, sizes))
     emit("run", phase_seconds=took, seconds=time.perf_counter() - t_run)
 
     path = tim["path"]
@@ -6600,7 +7101,8 @@ def main(argv=None) -> int:
                              "heliograph": helio["launches"]["mont_mul"],
                              "sharded": sharded["launches"]["mont_mul"],
                              "stratum": sharded["stratum"]["launches"]["mont_mul"],
-                             "chaos": chaos["launches"]["mont_mul"]},
+                             "chaos": chaos["launches"]["mont_mul"],
+                             "reshard": reshard["launches"]["mont_mul"]},
         "max_abs_err": par["max_abs_err"],
         "per": f"one K={path['K']} fold ({path['launches']} launches) on the device; "
                f"wall_ms: back to back, paced by the host's dispatch",
@@ -6621,7 +7123,8 @@ def main(argv=None) -> int:
                              "tenancy": tenancy["launches"]["mont_exp"],
                              "heliograph": helio["launches"]["mont_exp"],
                              "sharded": sharded["launches"]["mont_exp"],
-                             "chaos": chaos["launches"]["mont_exp"]},
+                             "chaos": chaos["launches"]["mont_exp"],
+                             "reshard": reshard["launches"]["mont_exp"]},
         "max_abs_err": max(par_exp["max_abs_err"], tim_exp["max_abs_err"]),
         "per": f"one launch, B={tim_exp['B']}, E={tim_exp['E']} "
                f"({tim_exp['exp_products_per_row']} products per row); plain_ms on "
@@ -6750,6 +7253,10 @@ def main(argv=None) -> int:
     print(json.dumps({"chaos": {**chaos, "card": card["smi"] if "smi" in card
                                 else card["name"],
                                 "run_seconds": time.perf_counter() - t_run}},
+                     default=str), flush=True)
+    print(json.dumps({"reshard": {**reshard, "card": card["smi"] if "smi" in card
+                                  else card["name"],
+                                  "run_seconds": time.perf_counter() - t_run}},
                      default=str), flush=True)
     if args.rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result", file=sys.stderr)

@@ -3,7 +3,8 @@
 Trimmed copy of `dds_tpu/core/messages.py`: the messages the port's paths
 send over the in-memory transport — the ABD rounds, the supervisor's
 membership and recovery protocol, verified state transfer, Merkle
-anti-entropy, the shard fence's `WrongShard` and the fault-injection
+anti-entropy, the shard fence's `WrongShard`, live resharding's
+`ShardMigrateBegin`/`ShardMigrateAck` and the fault-injection
 backdoors, with the reference's field names in its order — and its wire
 codec, tagged canonical JSON (`dumps`/`loads`), which ChaosNet's corrupt
 fault flips a byte of. For every class here `dumps` gives the
@@ -357,6 +358,35 @@ class WrongShard:
     signature: bytes
 
 
+@dataclass(frozen=True)
+class ShardMigrateBegin:
+    """Rebalancer -> receiving-group replica: verified shard-migration
+    header. The attestation frame of SleepBegin (`digests` a quorum of
+    HMAC-signed state manifests from the SOURCE group, `support` the
+    distinct-signer threshold, >= f+1), but the receiver MERGES attested
+    entries store-if-newer instead of replacing its repository, keeps its
+    behaviour, and accepts only entries its own shard map says it owns
+    at `epoch`. `total` StateChunk(kind="migrate") frames follow."""
+
+    digests: list
+    session: int
+    total: int
+    support: int
+    epoch: int
+
+
+@dataclass(frozen=True)
+class ShardMigrateAck:
+    """Receiving-group replica -> rebalancer: a migration session's
+    result. `accepted` counts entries installed (or already held at >=
+    the attested tag); `rejected` those that failed the digest quorum or
+    fell outside the replica's owned keyspace."""
+
+    session: int
+    accepted: int
+    rejected: int
+
+
 # --------------------------------------------------------------------------
 # fault injection backdoor (malicious/MaliciousAttack.scala:34)
 # --------------------------------------------------------------------------
@@ -391,7 +421,7 @@ _TYPES = {
         StateDigestRequest, StateDigest, SleepBegin, StateChunk,
         MerkleRootRequest, MerkleRoot, MerkleBucketRequest, MerkleBuckets,
         MerkleKeysRequest, MerkleKeys, RepairRequest, RepairReply,
-        WrongShard,
+        WrongShard, ShardMigrateBegin, ShardMigrateAck,
     )
 }
 

@@ -4,8 +4,10 @@ Trimmed copy of `dds_tpu/core/replica.py`: the three behaviours
 (healthy, sentinent spare, byzantine), the supervisor's recovery protocol
 (the legacy `Sleep` reseed and the verified `SleepBegin`/`StateChunk`
 reseed, `StateDigestRequest`, `Kill`), the Merkle index and anti-entropy
-agent, the fault-injection gate and the Constellation's shard fence.
-Leases, geo local reads and shard migration are not ported.
+agent, the fault-injection gate, the Constellation's shard fence and its
+migration ingest (`ShardMigrateBegin` + `StateChunk(kind="migrate")`,
+merged store-if-newer, and `drop_unowned` after a reshape activates).
+Leases and geo local reads are not ported.
 
 Protocol summary:
 - proxy `Envelope(IWrite)` -> broadcast `ReadTag`; on a quorum of
@@ -116,6 +118,9 @@ class BFTABDNode:
         # verified-reseed sessions in flight: session -> {begin, chunks}
         # (SleepBegin and StateChunks may arrive in any order)
         self._recovery_sessions: dict[int, dict] = {}
+        # live-resharding migration sessions in flight (same shape; they
+        # merge into the repository instead of replacing it)
+        self._migrate_sessions: dict[int, dict] = {}
         # Constellation: the group's shared fencing state (shard.ShardState
         # duck-type: group_id / epoch / owns(key)). None = unsharded, no
         # fencing
@@ -502,9 +507,15 @@ class BFTABDNode:
             case M.SleepBegin():
                 self._recovery_ingest(sender, msg)
 
-            case M.StateChunk() if msg.kind != "migrate":
-                # shard-migration chunks have no ingest path in the port
-                self._recovery_ingest(sender, msg)
+            case M.ShardMigrateBegin():
+                self._migrate_ingest(sender, msg)
+
+            case M.StateChunk():
+                # one frame type, two sessions: `kind` says which owns it
+                if msg.kind == "migrate":
+                    self._migrate_ingest(sender, msg)
+                else:
+                    self._recovery_ingest(sender, msg)
 
             case M.StateDigestRequest(nonce):
                 self._send_manifest(sender, nonce)
@@ -570,6 +581,14 @@ class BFTABDNode:
                 # spares sync too: a snapshot-restored sentinent converges
                 # before it is ever promoted
                 self.antientropy.handle(sender, msg)
+
+            case M.ShardMigrateBegin():
+                # spares of a receiving group ingest the migration too, so
+                # a later promotion starts warm instead of divergent
+                self._migrate_ingest(sender, msg)
+
+            case M.StateChunk() if msg.kind == "migrate":
+                self._migrate_ingest(sender, msg)
 
             case M.Kill():
                 self._wipe()
@@ -701,6 +720,90 @@ class BFTABDNode:
         )
         self._send(sess["sender"], M.Complying())
         self.behavior = "sentinent"
+
+    # -------------------------------------------------- shard migration
+
+    MAX_MIGRATE_SESSIONS = 4
+
+    def _migrate_ingest(self, sender: str, msg) -> None:
+        """Buffer one frame of a Constellation key migration (the header
+        or a kind="migrate" StateChunk): the recovery path's
+        reorder-tolerant, bounded session buffering, but completion
+        MERGES, never replaces."""
+        sess = self._migrate_sessions.get(msg.session)
+        if sess is None:
+            while len(self._migrate_sessions) >= self.MAX_MIGRATE_SESSIONS:
+                self._migrate_sessions.pop(next(iter(self._migrate_sessions)))
+            sess = self._migrate_sessions[msg.session] = {
+                "begin": None, "sender": None, "chunks": {},
+            }
+        if isinstance(msg, M.ShardMigrateBegin):
+            sess["begin"] = msg
+            sess["sender"] = sender
+        else:
+            sess["chunks"][int(msg.seq)] = msg.entries
+        self._try_complete_migration(msg.session)
+
+    def _try_complete_migration(self, session: int) -> None:
+        sess = self._migrate_sessions.get(session)
+        begin = sess["begin"]
+        if begin is None:
+            return
+        chunks = sess["chunks"]
+        if sum(1 for s in chunks if 0 <= s < begin.total) < begin.total:
+            return
+        verified = verified_manifest(begin.digests, begin.support,
+                                     self.cfg.abd_mac_secret)
+        accepted = rejected = 0
+        for seq in range(begin.total):
+            for key, e in chunks[seq].items():
+                try:
+                    tag = M.ABDTag(int(e["tag"][0]), str(e["tag"][1]))
+                    value = e["value"]
+                except (KeyError, TypeError, ValueError, IndexError):
+                    rejected += 1
+                    continue
+                # the receiving group takes only keys its OWN map assigns
+                # it: a Byzantine rebalancer cannot park foreign keys here
+                if self.shard is not None and not self.shard.owns(key):
+                    rejected += 1
+                    continue
+                if verified.get(key) != (tag.seq, tag.id, sigs.value_digest(value)):
+                    rejected += 1
+                    continue
+                cur_tag = self.repository.get(key, (M.ABDTag(0, self.name), None))[0]
+                if cur_tag < tag:
+                    self._store(key, tag, value)
+                accepted += 1  # installed, or already at/above the attested tag
+        self._migrate_sessions.pop(session, None)
+        metrics.inc(
+            "dds_shard_migrated_keys_total", accepted, replica=self.name,
+            help="verified keys accepted during shard migrations",
+        )
+        if rejected:
+            tracer.event("shard.migrate_rejected", replica=self.name,
+                         rejected=rejected, accepted=accepted)
+            flight.record(
+                "shard_migrate_rejected", replica=self.name,
+                rejected=rejected, accepted=accepted, session=session,
+            )
+        self._debug(f"shard migration {session}: {accepted} accepted, "
+                    f"{rejected} rejected")
+        self._send(sess["sender"], M.ShardMigrateAck(session, accepted, rejected))
+
+    def drop_unowned(self) -> int:
+        """Prune repository entries outside this group's shard map (after
+        a migration activates). Returns the number of keys dropped."""
+        if self.shard is None:
+            return 0
+        doomed = [k for k in self.repository if not self.shard.owns(k)]
+        for k in doomed:
+            del self.repository[k]
+        if doomed:
+            self.repo_version += 1
+            self._tagbatch_cache.clear()
+            self.merkle.rebuild(self.repository)
+        return len(doomed)
 
     # ---------------------------------------------------------------- admin
 

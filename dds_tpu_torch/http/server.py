@@ -149,9 +149,16 @@ search planes keep a pool and an index a group, and Prism one weighted
 fold a group. `GET /shards` serves the signed active map, the reshard
 state and each group's replicas, with the epoch as its ETag (a matching
 `If-None-Match` answers 304); `/health` gains `shards`, `shard_epoch` and
-`reshard_state`, and `/metrics` the `dds_shard_*` gauges. `POST /_reshard`
-is not served (live resharding is not ported; the reference serves it only
-behind `[fabric] admin-routes`, which `run.launch` refuses with `[shard]`).
+`reshard_state`, and `/metrics` the `dds_shard_*` gauges. With
+`reshard_route_enabled` (`[fabric] admin-routes`) and a reshard controller
+(`run.ConstellationReshard`), `POST /_reshard` drives a live split or
+merge: an identical request in flight attaches to the running plan, a
+replay of a completed one answers the current map, a different plan in
+flight answers 409 `{"busy"}` with a Retry-After from its phase, and an
+aborted plan 409 `{"aborted"}` with the old map in force. With a Helmsman
+(`fleet/`) as well, `POST /_helmsman {"pin": true|false}` freezes or
+resumes its autoscaling and `/health` carries its report. Both routes are
+exempt from admission, like /health.
 """
 
 from __future__ import annotations
@@ -224,11 +231,11 @@ _REQ_TENANT: contextvars.ContextVar = contextvars.ContextVar(
 _RETRYABLE = (ByzantineError, WrongShardError, asyncio.TimeoutError,
               NoTrustedNodesError, OSError)
 
-# observability routes bypass admission, so operators can see why the edge
-# sheds while it sheds (the reference exempts its unported control and
-# fleet routes too)
+# observability and operator-control routes bypass admission, so operators
+# can see why the edge sheds, and reshape the fleet, while it sheds (the
+# reference exempts its unported fleet routes too)
 _ADMISSION_EXEMPT = frozenset({"health", "metrics", "slo", "shards", "profile",
-                               "_trace", "canary"})
+                               "_trace", "_reshard", "_helmsman", "canary"})
 
 
 @dataclass
@@ -292,6 +299,10 @@ class ProxyConfig:
     # store size. Off by default: it reveals workload shape; launch turns
     # it on with `debug` or `[obs] trace-route`
     trace_route_enabled: bool = False
+    # POST /_reshard and POST /_helmsman, the operator's reshape controls
+    # (launch sets it from `[fabric] admin-routes`); without a reshard
+    # controller (or a Helmsman) wired the routes still 404
+    reshard_route_enabled: bool = False
     # GET /metrics (Prometheus text)
     metrics_route_enabled: bool = True
     # GET /slo: per-route objectives and burn state, the Watchtower's audit
@@ -331,9 +342,18 @@ async def _cancel_task(task: asyncio.Task) -> None:
 class DDSRestServer:
     def __init__(self, abd: AbdClient, config: ProxyConfig | None = None,
                  local_replicas: dict | None = None,
-                 slo: SloEngine | None = None):
+                 slo: SloEngine | None = None, reshard=None, helmsman=None):
         self.abd = abd
         self.cfg = config or ProxyConfig()
+        # `reshard` is the controller behind POST /_reshard (async
+        # split(source, target) and merge(source), `phase` and
+        # `retry_after()` for the 409's Retry-After); `helmsman` the fleet
+        # autoscaler (its report in /health, pinned via POST /_helmsman)
+        self._reshard = reshard
+        self.helmsman = helmsman
+        # the POST /_reshard plan in flight: {"key": (action, source,
+        # target), "task"}; an identical request attaches to its task
+        self._reshard_inflight: dict | None = None
         # per-route SLO accounting: every request is classified good or
         # bad in handle(); launch passes an engine built from [obs]
         self.slo = slo or SloEngine()
@@ -1423,6 +1443,30 @@ class DDSRestServer:
                 # topology, not workload shape
                 return self._shards_route(req)
 
+            case ("POST", "_reshard") if (
+                self.cfg.reshard_route_enabled and self._reshard is not None
+            ):
+                # operator control: a live split or merge through the
+                # reshard controller. Body {"source": gid[, "target":
+                # gid][, "action": "split"|"merge"]}; answers the activated
+                # epoch, 409 {"aborted"} (the old map back in force) or
+                # 409 {"busy"} with a phase-derived Retry-After while a
+                # DIFFERENT plan holds the controller
+                return await self._reshard_route(req)
+
+            case ("POST", "_helmsman") if (
+                self.cfg.reshard_route_enabled and self.helmsman is not None
+            ):
+                # manual override: {"pin": true} freezes the fleet shape
+                # (autoscaling halts, dead-group promotion keeps running),
+                # {"pin": false} resumes. Answers the controller's report
+                body = req.json() or {}
+                pin = body.get("pin")
+                if not isinstance(pin, bool):
+                    return Response.text("body must set pin: true|false", 400)
+                (self.helmsman.pin if pin else self.helmsman.unpin)()
+                return Response.json(self.helmsman.report())
+
             case ("GET", "canary"):
                 # Heliograph's report: per-kind verdicts and latencies,
                 # counts, failure exemplars, region streaks
@@ -1519,6 +1563,9 @@ class DDSRestServer:
             health["storage"] = self._stratum.stats()
         if self._search is not None:
             health["search"] = self._search.stats()
+        if self.helmsman is not None:
+            # pin state, budget, streaks and the recent decisions
+            health["helmsman"] = self.helmsman.report()
         recovery = self._recovery_status()
         if recovery is not None:
             health["recovery"] = recovery
@@ -1532,6 +1579,86 @@ class DDSRestServer:
         if degraded:
             resp.headers["Retry-After"] = str(self._derive_retry_after())
         return resp
+
+    async def _reshard_route(self, req: Request) -> Response:
+        from dds_tpu_torch.shard.rebalance import ReshardAborted
+
+        body = req.json() or {}
+        action = body.get("action", "split")
+        if action not in ("split", "merge"):
+            return Response.text("action must be split or merge", 400)
+        source = body.get("source")
+        if not isinstance(source, str) or not source:
+            return Response.text("missing source group", 400)
+        target = body.get("target")
+        ctl = self._reshard
+        split_fn = getattr(ctl, "split", ctl)
+        merge_fn = getattr(ctl, "merge", None)
+        if action == "merge" and merge_fn is None:
+            return Response.text("merge is not supported by this controller", 400)
+
+        smap = self._shards.current()
+        # COMPLETED idempotency: the shape this request asks for already
+        # holds, so answer the current map instead of failing the replay
+        done = (
+            (action == "split" and isinstance(target, str)
+             and target in smap.groups and source in smap.groups)
+            or (action == "merge" and source not in smap.groups)
+        )
+        if done and self._reshard_inflight is None:
+            return Response.json({"epoch": smap.epoch, "groups": list(smap.groups),
+                                  "idempotent": True})
+
+        key = (action, source, target)
+        inflight = self._reshard_inflight
+        if inflight is not None and inflight["key"] != key:
+            # a DIFFERENT plan holds the controller: refuse honestly, with
+            # a Retry-After derived from its phase
+            ra = getattr(ctl, "retry_after", None)
+            retry = float(ra()) if callable(ra) else 5.0
+            resp = Response.json(
+                {"busy": {"action": inflight["key"][0], "source": inflight["key"][1],
+                          "target": inflight["key"][2]},
+                 "phase": getattr(ctl, "phase", None)}, status=409,
+            )
+            resp.headers["Retry-After"] = str(max(1, int(retry + 0.5)))
+            return resp
+        if inflight is not None:
+            task = inflight["task"]  # identical repeat: attach, no new plan
+        else:
+            async def run():
+                # exceptions become results so an attached repeat sees the
+                # same outcome instead of racing exception retrieval
+                try:
+                    if action == "merge":
+                        return "ok", await merge_fn(source)
+                    return "ok", await split_fn(source, target)
+                except ReshardAborted as e:
+                    return "aborted", str(e)
+                except ValueError as e:
+                    # operator error (unknown group, taken target): the
+                    # request is wrong, not the fleet
+                    return "invalid", str(e)
+
+            task = supervised_task(run(), name=f"reshard-{action}-{source}")
+            rec = {"key": key, "task": task}
+            self._reshard_inflight = rec
+            task.add_done_callback(
+                lambda _t, rec=rec: (
+                    setattr(self, "_reshard_inflight", None)
+                    if self._reshard_inflight is rec else None
+                )
+            )
+        # shield: an impatient client disconnecting must not cancel a
+        # half-streamed migration
+        status, result = await asyncio.shield(task)
+        if status == "invalid":
+            return Response.text(result, 400)
+        if status == "aborted":
+            return Response.json({"aborted": result, "epoch": self._shards.epoch},
+                                 status=409)
+        new_map = result if hasattr(result, "epoch") else self._shards.current()
+        return Response.json({"epoch": new_map.epoch, "groups": list(new_map.groups)})
 
     def _shards_route(self, req: Request) -> Response:
         """GET /shards: the router's status with the epoch as its ETag; an

@@ -54,10 +54,21 @@ its own supervisor (proactive recovery with `[recovery] enabled`) and
 anti-entropy loops, on one in-memory transport, behind a `ShardRouter`
 the proxy serves through; the Watchtower audits each group against its
 own quorum geometry, and with `chaos-enabled` each group's attacker is a
-Nemesis. Live resharding is not ported, so `[shard]` with
-`[fabric] admin-routes` (POST /_reshard) or `[shard] plan-dir` (a
-journaled plan to recover at boot) is refused, and so are `[chaos.profiles]`
-(their WAN matrices key on the region labels geo placement registers).
+Nemesis. Its Rebalancer reshapes the fleet live (`shard/rebalance.py`,
+with `[shard]`'s chunk size, timeouts and fence lease): with `[fabric]
+admin-routes` the proxy serves `POST /_reshard` (a split or merge through
+`ConstellationReshard`) and, with a Helmsman, `POST /_helmsman`; with
+`[shard] plan-dir` the plan journal lives there and a plan an earlier
+process left is resolved before any traffic (`Rebalancer.recover`: back
+before its commit, forward from it); `[helmsman] enabled` starts the
+autoscaler on the router's load census, the SLO alerts, the shed level,
+the breakers and the Rebalancer's moved bytes (with tenancy the tenants'
+burns, with Heliograph its unreachable regions, with Stratum the tier
+pressure), subscribed to admission and stopped with the deployment.
+Without `[shard]` a `[helmsman]` section boots no controller, as in the
+reference, whose only wiring is the Constellation's. `[chaos.profiles]`
+is refused (their WAN matrices key on the region labels geo placement
+registers).
 `load_provider(cfg)` builds the
 client's HE provider from the `[client]` section: its keys, its bulk
 encryption backend (`bulk-encrypt-backend = "cuda"` precomputes PSSE
@@ -82,11 +93,15 @@ reference's flag does):
     python -m dds_tpu_torch.run --config configs/heliograph.toml --port 0 --backend cuda
     python -m dds_tpu_torch.run --config configs/sharded.toml --port 0 --backend cuda
     python -m dds_tpu_torch.run --config configs/stratum.toml --port 0 --backend cuda
+    python -m dds_tpu_torch.run --config my_reshard.toml --port 0 --backend cuda --serve
     python -m dds_tpu_torch.run --config my_chaos.toml --device cpu --backend cpu
 
 where my_chaos.toml sets `[attacks] enabled = true`, `chaos-enabled =
 true`, `type = "partition"` and `[proxy] stored-keys-path =
-"keys/proxy_keys.json"`.
+"keys/proxy_keys.json"`, and my_reshard.toml is configs/sharded.toml with
+`[fabric] admin-routes = true`, `[shard] plan-dir = "reshard"` and
+`[helmsman] enabled = true` (then `POST /_reshard {"action": "split",
+"source": "s0"}` and `POST /_helmsman {"pin": true}` on the bound port).
 """
 
 from __future__ import annotations
@@ -108,6 +123,7 @@ from dds_tpu_torch.core.quorum_client import AbdClient, AbdClientConfig
 from dds_tpu_torch.core.replica import BFTABDNode, ReplicaConfig
 from dds_tpu_torch.core.supervisor import BFTSupervisor, SupervisorConfig
 from dds_tpu_torch.core.transport import InMemoryNet
+from dds_tpu_torch.fleet import Helmsman
 from dds_tpu_torch.http.server import DDSRestServer, ProxyConfig
 from dds_tpu_torch.malicious.trudy import Nemesis, Trudy
 from dds_tpu_torch.models.backend import get_backend
@@ -173,17 +189,11 @@ class Deployment:
 
 def unported_plane(cfg: DDSConfig) -> str | None:
     """The first plane `cfg` enables that the port does not serve, or
-    None: live resharding under `[shard]` first, then fabric, helmsman,
-    geo and the WAN chaos profiles, then the other serving surfaces of the
-    reference that are not ported."""
-    sharded = cfg.shard.enabled
+    None: the multi-host fabric's roles and groups, geo and the WAN chaos
+    profiles, then the other serving surfaces of the reference that are
+    not ported."""
     checks = (
-        (sharded and cfg.fabric.admin_routes,
-         "[fabric] admin-routes with [shard]: POST /_reshard, live resharding"),
-        (sharded and bool(cfg.shard.plan_dir),
-         "[shard] plan-dir: the reshard plan journal, live resharding"),
         (cfg.fabric.role != "all" or bool(cfg.fabric.groups), "[fabric]: the shard fabric"),
-        (cfg.helmsman.enabled, "[helmsman] enabled: helmsman"),
         (cfg.geo.enabled, "[geo] enabled: geo"),
         (bool(cfg.chaos.profiles),
          "[chaos.profiles]: WAN link profiles, which need geo region labels"),
@@ -412,6 +422,9 @@ def proxy_config(cfg: DDSConfig, supervisor: str) -> ProxyConfig:
         storage=cfg.storage,
         search=cfg.search,
         supervisor=supervisor,
+        # operator reshape control (POST /_reshard, /_helmsman); without a
+        # reshard controller wired the routes still 404
+        reshard_route_enabled=cfg.fabric.admin_routes,
         trace_route_enabled=cfg.debug or cfg.obs.trace_route,
         metrics_route_enabled=cfg.obs.metrics_route,
         slo_route_enabled=cfg.obs.slo_route,
@@ -464,14 +477,82 @@ def shard_configs(cfg: DDSConfig):
     return rcfg, sup_cfg, abd_cfg
 
 
+class ConstellationReshard:
+    """POST /_reshard controller for the in-process constellation: async
+    split and merge plus `phase` and `retry_after` for the route's 409,
+    delegating to the Constellation. An omitted split target lets the
+    Constellation name the new group; naming one makes the request
+    replayable (the route's completed-idempotency check needs the target
+    to recognize a done split)."""
+
+    def __init__(self, const):
+        self._const = const
+
+    @property
+    def phase(self):
+        return self._const.rebalancer.phase
+
+    def retry_after(self) -> float:
+        return self._const.rebalancer.retry_after()
+
+    async def split(self, source: str, target: str | None = None):
+        await self._const.split(source, target)
+        return self._const.manager.current()
+
+    async def merge(self, source: str):
+        await self._const.merge(source)
+        return self._const.manager.current()
+
+
+def start_helmsman(cfg: DDSConfig, const, server: DDSRestServer) -> Helmsman:
+    """The Helmsman of `[helmsman]` on the Constellation and the proxy,
+    with the reference's feeds (`dds_tpu/run.py` `_launch_constellation`);
+    `source_ages` and `regions` stay None in-process, as there. Subscribed
+    to admission, set on the server (its /health block and POST
+    /_helmsman) and started."""
+    admission = server.admission
+    hm = Helmsman.from_config(
+        cfg.helmsman,
+        load_census=const.router.load_census,
+        slo_alerts=server.slo.alerts,
+        shed_level=(lambda a=admission: a.shed_level if a else 0),
+        breaker_census=const.router.breaker_census,
+        split=(lambda gid, c=const: c.split(gid)),
+        merge=(lambda gid, c=const: c.merge(gid)),
+        promote=(lambda gid, c=const: c.promote(gid)),
+        moved_bytes=lambda r=const.rebalancer: r.moved_bytes_total,
+        reshard_busy=lambda r=const.rebalancer: r.lock.locked(),
+        # Bastion: per-tenant burn attribution, each tenant's worst window
+        tenant_burns=(lambda s=server.slo: {
+            t: max(b) for t, b in s.tenant_burns().items() if b
+        }) if cfg.tenancy.enabled else None,
+        # Heliograph: sustained canary unreachability from a region
+        canary_unreachable=(lambda s=server: (
+            s.heliograph.unreachable_regions()
+            if s.heliograph is not None else set()
+        )) if cfg.heliograph.enabled else None,
+        # Stratum: the blended hot and warm tier occupancy
+        pool_pressure=(lambda s=server: s.tier_pressure())
+        if cfg.storage.enabled else None,
+    )
+    if admission is not None:
+        admission.subscribe(hm.on_admission)
+    server.helmsman = hm
+    hm.start()
+    return hm
+
+
 async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet | ChaosNet,
                                 stoppables: list, flight_dir: str | None) -> Deployment:
     """`[shard] enabled`: S quorum groups behind a ShardRouter (the
     reference's `run._launch_constellation` on the in-memory transport).
     Each group mirrors the single-group stack with namespaced endpoints;
     the proxy talks to the router, which routes point ops by the signed,
-    epoch-versioned map and scatters aggregates. The Watchtower audits
-    every group against its own quorum geometry."""
+    epoch-versioned map and scatters aggregates, and serves POST
+    /_reshard through `ConstellationReshard`. With `plan-dir` a journaled
+    plan is resolved before any traffic; with `[helmsman] enabled` the
+    autoscaler starts. The Watchtower audits every group against its own
+    quorum geometry."""
     sh = cfg.shard
     rcfg, sup_cfg, abd_cfg = shard_configs(cfg)
     const = build_constellation(
@@ -479,6 +560,11 @@ async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet | ChaosNet,
         shard_count=sh.count,
         vnodes_per_group=sh.vnodes_per_group,
         secret=cfg.security.abd_mac_secret.encode(),
+        manifest_timeout=sh.manifest_timeout,
+        ack_timeout=sh.ack_timeout,
+        chunk_keys=sh.migrate_chunk_keys,
+        fence_lease=sh.fence_lease,
+        journal_dir=sh.plan_dir or None,
         n_active=sh.replicas_per_group,
         n_sentinent=sh.sentinent_per_group,
         quorum=sh.quorum_size,
@@ -488,6 +574,11 @@ async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet | ChaosNet,
         abd_cfg=abd_cfg,
         chaos=cfg.attacks.chaos_enabled,
     )
+    if sh.plan_dir:
+        # a previous process may have died mid-reshard: resolve the
+        # journaled plan (back before its commit, forward after) before
+        # any traffic or new plan touches the fleet
+        await const.rebalancer.recover(const.group)
     replicas: dict[str, BFTABDNode] = {}
     for g in const.groups:
         replicas.update(g.replicas)
@@ -506,12 +597,15 @@ async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet | ChaosNet,
         proxy_config(cfg, const.groups[0].supervisor.addr),
         local_replicas=replicas,
         slo=SloEngine.from_obs(cfg.obs),
+        reshard=ConstellationReshard(const),
     )
     try:
         await server.start()
     except BaseException:
         await const.stop()
         raise
+    if cfg.helmsman.enabled:
+        stoppables.append(start_helmsman(cfg, const, server))
     dep = Deployment(cfg, net, replicas, server, None, const.groups[0].trudy,
                      stoppables, flight_dir, constellation=const)
     if cfg.obs.audit_enabled:

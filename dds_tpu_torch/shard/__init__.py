@@ -7,8 +7,10 @@ epoch-versioned, HMAC-signed `ShardMap` that every client->replica
 message carries and every replica fences. Point ops route to exactly one
 group; aggregates scatter per-group folds and gather the partials with
 `parallel/mesh.combine_partials` (all groups share one Paillier modulus).
-Live resharding (the Rebalancer's split, merge and takeover) is not
-ported.
+Live resharding (`rebalance.Rebalancer`: split, merge, abort, journaled
+recovery; the Constellation's takeover) streams keys through verified
+state-transfer frames under an epoch fence, so a reshape never loses or
+misroutes a write.
 """
 
 from dds_tpu_torch.shard.fabric import (
@@ -17,6 +19,7 @@ from dds_tpu_torch.shard.fabric import (
     build_constellation,
     build_group,
 )
+from dds_tpu_torch.shard.rebalance import Rebalancer, ReshardAborted
 from dds_tpu_torch.shard.router import ShardRouter
 from dds_tpu_torch.shard.shardmap import (
     ShardManager,
@@ -27,6 +30,6 @@ from dds_tpu_torch.shard.shardmap import (
 
 __all__ = [
     "Constellation", "ShardGroup", "build_constellation", "build_group",
-    "ShardRouter",
+    "Rebalancer", "ReshardAborted", "ShardRouter",
     "ShardManager", "ShardMap", "ShardState", "moved_keys",
 ]

@@ -324,7 +324,7 @@ class ObsConfig:
 @dataclass
 class ShardConfig:
     """Constellation sharding plane (the reference's shard/; ported on the in-memory
-    transport without live resharding, so `launch` refuses `plan-dir`): partition the
+    transport, live resharding and the plan journal included): partition the
     keyspace across `count` independent BFT-ABD quorum groups, each with
     its own replicas, spares, supervisor, anti-entropy loop, and attack
     surface. Point ops route to one group; SumAll/MultAll scatter-gather
@@ -570,7 +570,8 @@ class CryptoConfig:
 
 @dataclass
 class FabricConfig:
-    """Meridian multi-host shard fabric (the reference's fabric/; not ported): spread a
+    """Meridian multi-host shard fabric (the reference's fabric/; not ported, but
+    `admin-routes` is: it gates POST /_reshard and /_helmsman on the proxy): spread a
     Constellation's S quorum groups plus separate proxies across N OS
     processes/hosts over `TcpNet`, from one shared TOML that differs per
     process only in `role` (and transport bind). Active with
@@ -624,7 +625,8 @@ class FabricConfig:
 
 @dataclass
 class HelmsmanConfig:
-    """Helmsman fleet autoscaler (the reference's fleet/helmsman; not ported): closes the
+    """Helmsman fleet autoscaler (the reference's fleet/helmsman; ported, started with
+    `[shard]` on the in-process Constellation, without it no controller): closes the
     loop from SLO burn to fleet shape — splits a hot group onto a warm
     standby under distress, merges a cold group back when calm, promotes
     a standby over a dead group process. Hysteresis (streaks + cooldown)

@@ -577,6 +577,8 @@ def one_of_each(M) -> list:
         M.MerkleKeysRequest([1, 2], 24), M.MerkleKeys({"k": [1, "r", "d"]}, 25, sig),
         M.RepairRequest(["k"], 26), M.RepairReply({"k": {"sig": "00"}}, 27),
         M.WrongShard("k", 2, 28, sig),
+        M.ShardMigrateBegin([["r", {"k": [1, "r", "d"]}, 29, "00"]], 30, 2, 2, 3),
+        M.ShardMigrateAck(30, 5, 1),
     ]
 
 

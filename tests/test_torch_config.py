@@ -15,15 +15,17 @@ own. The planes ported since (recovery, anti-entropy, spares, snapshots,
 Trudy's attacks, /metrics, the flight recorder, admission, the obs audit,
 the SLO engine, tenancy, Heliograph's prober, /_trace, sharding, ChaosNet
 with Nemesis and its partition attack, key sync, the stored-keys
-snapshot) each launch and stop cleanly, the prober's task cancelled and awaited with the rest, and
+snapshot, live resharding under `[shard]` with `[fabric] admin-routes`
+(POST /_reshard) and `[shard] plan-dir` (a journaled reshard plan),
+Helmsman with `[shard]` and, as in the reference, without it, where it
+boots no controller) each launch and stop cleanly, the prober's and
+Helmsman's tasks cancelled and awaited with the rest, and
 `DDSConfig()` with `[search] enabled` boots, as does `[crypto] secret-device` (Sanctum), whose provider
 decrypts through its device plan. `default.toml` boots with Bulwark, the
 SLO engine and the Watchtower armed as the file says, and the CLI's
 `--device cpu --backend cpu` launches it; `tenancy.toml` boots with
-Bastion's weights, 403s and `/health` section, and so does its CLI. Under
-`[shard]`, `[fabric] admin-routes` (POST /_reshard) and `[shard]
-plan-dir` (a journaled reshard plan) are refused by name: live
-resharding is not ported; so is `[chaos.profiles]` (geo's WAN matrices).
+Bastion's weights, 403s and `/health` section, and so does its CLI.
+`[chaos.profiles]` (geo's WAN matrices) is refused by name.
 """
 
 import asyncio
@@ -158,7 +160,7 @@ PLANES = [
     ("tenancy", {"tenancy": {"enabled": True}}, False),
     ("obs audit", {"obs": {"audit-enabled": True}}, False),
     ("fabric", {"fabric": {"role": "proxy"}}, True),
-    ("helmsman", {"helmsman": {"enabled": True}}, True),
+    ("helmsman", {"shard": {"enabled": True}, "helmsman": {"enabled": True}}, False),
     ("geo", {"geo": {"enabled": True}}, True),
     ("heliograph", {"heliograph": {"enabled": True}}, False),
     ("attacks", {"attacks": {"enabled": True}}, False),
@@ -174,13 +176,14 @@ PLANES = [
     ("node identity", {"security": {"node-public-keys": {"h:1": "00"}}}, True),
     ("key sync", {"proxy": {"device": "cpu", "key-sync-enabled": True}}, False),
     ("stored-keys", {"proxy": {"device": "cpu", "stored-keys-path": "keys.json"}}, False),
-    ("admin-routes", {"shard": {"enabled": True}, "fabric": {"admin-routes": True}}, True),
-    ("plan-dir", {"shard": {"enabled": True, "plan-dir": "plans"}}, True),
+    ("admin-routes", {"shard": {"enabled": True}, "fabric": {"admin-routes": True}}, False),
+    ("plan-dir", {"shard": {"enabled": True, "plan-dir": "plans"}}, False),
     ("partition", {"attacks": {"enabled": True, "chaos-enabled": True,
                                "type": "partition"}}, False),
     ("[chaos.profiles]", {"attacks": {"chaos-enabled": True},
                           "chaos": {"profiles": {"eu<->us": "wan-100"}}}, True),
     ("sharded chaos", {"shard": {"enabled": True}, "attacks": {"chaos-enabled": True}}, False),
+    ("helmsman unsharded", {"helmsman": {"enabled": True}}, False),
 ]
 IDS = [f"{p}-{i}" for i, (p, _, _) in enumerate(PLANES)]
 REFUSALS = [(p, sec) for p, sec, refused in PLANES if refused]
@@ -219,7 +222,7 @@ def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
         dep = await launch(cfg)
         try:
             assert dep.trudy is not None
-            if plane in ("sharding", "sharded chaos"):
+            if plane in ("sharding", "sharded chaos", "helmsman", "admin-routes", "plan-dir"):
                 # one supervisor a group, no single-group supervisor
                 assert dep.supervisor is None
                 assert [g.gid for g in dep.constellation.groups] == ["s0", "s1"]
@@ -264,6 +267,20 @@ def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
             if plane == "stored-keys":
                 assert dep.server.cfg.keys_path == "keys.json"
                 dep.server._note_stored("k-0")
+            if plane == "helmsman":
+                # started on the Constellation, unpinned, its loop running
+                hm = dep.server.helmsman
+                assert hm is not None and not hm.pinned and hm._task is not None
+                assert hm in dep._stoppables
+            if plane == "helmsman unsharded":
+                assert dep.server.helmsman is None  # no controller to steer
+            if plane == "admin-routes":
+                assert dep.server.cfg.reshard_route_enabled
+                assert dep.server._reshard is not None
+            if plane == "plan-dir":
+                journal = dep.constellation.rebalancer.journal
+                assert journal.path == pathlib.Path("plans", "reshard_plan.json")
+                assert journal.load() is None
         finally:
             await dep.stop()
         await asyncio.sleep(0)
