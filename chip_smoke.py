@@ -26,7 +26,9 @@ proxy's stored-keys snapshot (SumAlls exact on the card through link
 faults, delays, partitions, a flood and a proxy restart) and
 configs/sharded.toml reshaped live (Helmsman's merge of a cold group,
 an operator's split onto the warm standby through POST /_reshard, every
-SumAll exact on the card across both) — and holds
+SumAll exact on the card across both) and the device mesh (the sharded
+folds, the sharded modexp and the resident plane's multi-device fold over
+D slots of the card, a SumAll served through it) — and holds
 every CUDA kernel on them against its plain PyTorch version. The phases
 before `recovery` turn the audit and /slo off in the configs they build
 (EARLIER_OBS_CUTS), and every phase before `tenancy` runs with the
@@ -134,7 +136,8 @@ non-zero:
               fold_many pass of 2 or more folds launching mont_mul, each
               drain's window within [2, 20] ms;
 13. client    `run.load_provider` with `bulk-encrypt-backend = "cuda"`, then
-              4 `DDSHttpClient`s each PutSet 2,048 rows (K = 8,192 in all)
+              4 `DDSHttpClient`s each PutSet 1,024 rows (K = 4,096 in all;
+              cut from 2,048 a client for the run's time, DEPTH_CUTS)
               into a fresh stack: one bulk pre-pass per client, every PSSE
               ciphertext with its own fresh obfuscator; SumAll must decrypt
               to the column's total and equal the Python-int fold of the
@@ -153,7 +156,7 @@ non-zero:
               ladder on 64 columns), two shared-modulus mont_exp launches
               over test moduli as a yardstick; then `run.load_provider`
               with `[crypto] secret-device` and the client phase's keys,
-              `HomoProvider.decrypt_rows` over its 8,192 stored rows read
+              `HomoProvider.decrypt_rows` over its 4,096 stored rows read
               back by GetSet (every PSSE value its plaintext, a 64-row
               sample equal to the host plan, 2 + 1 launches a chunk);
               hygiene: no key's p, q, p^2 or q^2 in ModCtx.make's cache
@@ -385,7 +388,8 @@ non-zero:
               in a temporary directory, the data, the loader at 8 in
               flight for the file's PutSet objective): 9 endpoints, 2
               spares, quorum 5, f = 2, proactive recovery, anti-entropy,
-              Bulwark, the audit, Nemesis armed. 2,048 rows blinded on
+              Bulwark, the audit, Nemesis armed. 1,024 rows (cut from
+              2,048 for the run's time, DEPTH_CUTS) blinded on
               the card (B3) and loaded by PutSet on a clean fabric; then
               CHAOS_SCHEDULE: a clean SumAll; link faults on every link
               (drop, duplicate and reorder 0.02, corrupt 0.01) with 8
@@ -400,7 +404,7 @@ non-zero:
               (retries after 503 + Retry-After counted); every
               acknowledged PutSet read back. Gates: every 200 SumAll the
               Python-int fold of the acknowledged rows, decrypting to their
-              total, with one B1 launch a fold level (12 at 2,048 rows, 13
+              total, with one B1 launch a fold level (11 at 1,024 rows, 12
               past it), B1 on the path the SumAlls' levels plus the
               blinding's 2 and B3 1, every non-200 a 503 or 429 with
               Retry-After, 0 Watchtower violations. Printed: each step's
@@ -435,16 +439,39 @@ non-zero:
               reshape's wall time, moved keys and bytes, each group's pool
               rows, the wrong-shard retries, the phase's seconds beside its
               75 s budget;
-25. kernels   one {"kernels": [...]} line (every kernel must have launched
+25. mesh      the device mesh (`parallel/mesh`) at L = 256 on
+              `Mesh([cuda:0] * D)`, D slots on the one card (printed
+              overrides for its served SumAll): the sharded fold at
+              K = 8,192 and 8,191 on D = 1-4 slots, both combines (all_gather
+              and ring), mode 0, and at D = 4 modes 1 and 2; the sharded
+              modexp at B = 8,192 with the bench key's n (E = 512) at D = 4
+              and through `CudaBackend.powmod_batch` at B = 8,190 (padded);
+              `modmul_fold_resident` over 8,192 ints; the resident plane
+              with 4 groups of 2,048 at D = 2, 4 and 3, each group's rows
+              folded on its pool's slot (group i on slot i mod D); 3
+              SumAlls served by sharded.toml's 4 groups with the backend
+              built on the 4-slot mesh, so the plane places each group's
+              pool on its own slot, 2,048 rows (cut from 8,192,
+              DEPTH_CUTS); DDS_MESH=4, which truncates to the cards that
+              exist. Gates: every result bit for bit the flat path's and
+              the Python-int product (64 modexp columns Python `pow`, each
+              SumAll decrypting to the total); each call's launches
+              (zeroed before, read after) the formulas
+              `mesh_fold_launches`, 2D B1 + D B3 a modexp, the flat fold's
+              14 under DDS_MESH=4 on one card.
+              Printed: each call's device, dispatch and wall ms beside the
+              flat call's, the bound of its products, the phase's seconds
+              beside its 45 s budget;
+26. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
               launch; the analytics requests' launches are the path
               "analytics", the rowmod kernels' the
               path "decrypt", `decrypt_rows`' run, B1's the paths
               "recovery", "sumall_audited", "bulwark", "tenancy",
               "heliograph", "sharded" (its MatVec included), "stratum",
-              "chaos" and "reshard", B3's "client", "tenancy", "heliograph",
-              "sharded", "chaos" and "reshard", the
-              Karatsuba kernels' also "sharded");
+              "chaos", "reshard", "mesh" and "mesh_sumall", B3's "client",
+              "tenancy", "heliograph", "sharded", "chaos", "reshard" and
+              "mesh", the Karatsuba kernels' also "sharded" and "mesh");
               then one
               {"search": ...}
               line: each predicate op's calls on the indexed stack (gates,
@@ -459,8 +486,8 @@ non-zero:
               figures, the phase's seconds beside its 150 s budget; then
               one {"bulwark": ...}, one {"tenancy": ...}, one
               {"heliograph": ...}, one {"sharded": ...}, one
-              {"chaos": ...} and one {"reshard": ...} line with those
-              phases' whole records;
+              {"chaos": ...}, one {"reshard": ...} and one {"mesh": ...}
+              line with those phases' whole records;
               then the card's name and power limit;
               then the result line.
 
@@ -475,6 +502,7 @@ non-zero:
     python3 chip_smoke.py --phases sharded [--size sharded_K=8192 ...]
     python3 chip_smoke.py --phases chaos
     python3 chip_smoke.py --phases reshard
+    python3 chip_smoke.py --phases mesh
         # on the card: the named phases alone at the card's sizes (each
         # --size changes one), each followed by its seconds; no result line
 
@@ -1478,7 +1506,20 @@ DEPTH_CUTS = {"multall.K": "16384 -> 8192 records",
               "resident.rest": "the REST stack (8192 rows) -> configs/sharded.toml's "
                                "launch in the sharded phase",
               "tiered.rest": "the REST stack (8192 rows) -> configs/stratum.toml's "
-                             "launch in the sharded phase"}
+                             "launch in the sharded phase",
+              # the mesh phase's served SumAll, for its 45 s budget
+              "mesh.sumall_K": "8192 -> 2048 rows",
+              # once the mesh phase joined, the full run took 919.1 s, the
+              # client phase 79.9 s of it (its 8,192 PutSets 56.4 s at 34.7 ms
+              # of host encryption a row; H100 80GB HBM3, 700 W); half the
+              # rows halve that and decrypt_rows' read-back (one chunk)
+              "client.ops_per_client": "2048 -> 1024 PutSets a client",
+              # the next full run took 1,239.9 s on a slower host, chaos 309.8
+              # s of it: the restarted proxy's first SumAll over its 2,064
+              # cold tags answered 503 36 times in 254.2 s (ROADMAP §C 5;
+              # 4.7-23.4 s in PR 19's runs); half the rows halve that tag round,
+              # the load and the read-back
+              "chaos.K": "2048 -> 1024 rows"}
 
 
 def earlier_config():
@@ -2958,8 +2999,7 @@ async def phase_resident(dev, sizes) -> dict:
     from dds_tpu_torch.ops import bignum as bn
     from dds_tpu_torch.ops import mont_cuda
     from dds_tpu_torch.ops.montgomery import ModCtx
-    from dds_tpu_torch.parallel.mesh import combine_partials
-    from dds_tpu_torch.resident.plane import fused_fold, fused_fold_launches
+    from dds_tpu_torch.parallel.mesh import combine_partials, mesh_fold, mesh_fold_launches
 
     key = bench_paillier_key(sizes["key_bits"])
     n2 = key.nsquare
@@ -3010,14 +3050,14 @@ async def phase_resident(dev, sizes) -> dict:
                         rec["modes"][mode]["launches"][k] += v
                     slabs = [plane.pool(g, n2).rows_for(o) for g, o in parts]
                     flag = {"0": False, "1": "k1", "2": "fused"}[mode]
-                    dev_ms, dispatch_ms = held_ms(lambda: fused_fold(ctx, slabs, flag), 3, dev)
+                    dev_ms, dispatch_ms = held_ms(lambda: mesh_fold(ctx, [slabs], dev, flag), 3, dev)
                     cell["modes"][mode] = {
                         "cold_ms": min(cold_ms), "warm_ms": min(warm_ms),
                         "cold_over_warm": min(cold_ms) / min(warm_ms),
                         "fused_device_ms": dev_ms, "fused_dispatch_ms": dispatch_ms,
                         "launches_per_fold": {k: v // reps for k, v in counts.items() if v},
                     }
-                predicted = fused_fold_launches([len(g) for _, g in parts])
+                predicted = mesh_fold_launches([[len(g) for _, g in parts]])
                 cell["fused_launches_predicted"] = predicted
                 if dev.type == "cuda" and \
                         cell["modes"]["0"]["launches_per_fold"]["mont_mul"] != predicted:
@@ -5436,7 +5476,7 @@ async def phase_sharded(dev, sizes) -> dict:
     from dds_tpu_torch.obs.watchtower import watchtower
     from dds_tpu_torch.ops import foldmany, mont_cuda
     from dds_tpu_torch.ops.montgomery import ModCtx
-    from dds_tpu_torch.resident.plane import fused_fold_launches
+    from dds_tpu_torch.parallel.mesh import mesh_fold_launches
     from dds_tpu_torch.run import launch
     from dds_tpu_torch.utils import sigs
     from dds_tpu_torch.utils.trace import tracer
@@ -5550,7 +5590,7 @@ async def phase_sharded(dev, sizes) -> dict:
         rec["resident_sumall"] = {
             "ms": ms_res, "p50_ms": pct(ms_res, 50), "p95_ms": pct(ms_res, 95),
             "b1_per_sumall": (b1() - before) / len(ms_res),
-            "b1_expected": fused_fold_launches(group_sizes),
+            "b1_expected": mesh_fold_launches([group_sizes]),
             "resident_folds": spans.get("proxy.resident_fold", {}).get("count", 0),
             "fold_mean_ms": spans.get("proxy.resident_fold", {}).get("mean_ms")}
         step("resident_sumall", **rec["resident_sumall"])
@@ -5855,6 +5895,11 @@ async def phase_sharded(dev, sizes) -> dict:
 
 
 CHAOS_BUDGET_S = 60.0
+# the restarted proxy's first SumAll retries a cold tag round against its
+# request budget (ROADMAP §C 5): 4.7-23.4 s at 2,064 rows in PR 19's runs,
+# 254.2 s once; past this deadline the phase fails at once with its cause
+# named, so one such tail cannot take the run past its time limit
+CHAOS_RESTART_DEADLINE_S = 120.0
 # configs/default.toml's settings the phase overrides (printed); everything
 # else stands as the file says
 CHAOS_OVERRIDES = {
@@ -5919,8 +5964,10 @@ async def phase_chaos(dev, sizes) -> dict:
     answering 503 or 429 with Retry-After is retried after it (counted).
     Launch counts are zeroed before the launch and read after the stop
     (path "chaos"): B1 = the SumAlls' levels + the blinding's 2, B3 1.
-    Printed: each step's SumAll ms (p50/p95), retries and trace counts,
-    the restart's retries, the phase's seconds beside its 60 s budget."""
+    The restarted proxy's first SumAll fails the phase if its retries
+    pass CHAOS_RESTART_DEADLINE_S. Printed: each step's SumAll ms
+    (p50/p95), retries and trace counts, the restart's retries, the
+    phase's seconds beside its 60 s budget."""
     import tempfile
 
     from dds_tpu_torch.bench_key import bench_paillier_key
@@ -5944,7 +5991,7 @@ async def phase_chaos(dev, sizes) -> dict:
     target = f"/SumAll?position=0&nsqr={n2}"
     rec: dict = {"K": K, "puts_a_step": puts, "key_bits": sizes["key_bits"],
                  "overrides": CHAOS_OVERRIDES, "schedule": CHAOS_SCHEDULE,
-                 "budget_s": CHAOS_BUDGET_S}
+                 "budget_s": CHAOS_BUDGET_S, "restart_deadline_s": CHAOS_RESTART_DEADLINE_S}
     answers: list[dict] = []
 
     def step(name: str, **kw) -> None:
@@ -5990,10 +6037,11 @@ async def phase_chaos(dev, sizes) -> dict:
         return {"rows": len(cts), "s": time.perf_counter() - t,
                 "retries": dict(retries)}
 
-    async def sumall(where: str, retry: bool = True) -> dict:
-        """One SumAll (retried after a 503 or 429 when `retry`): its
-        status, ms, B1 launches and ciphertext; a 200 must be the fold
-        of the acknowledged rows with one B1 launch a level."""
+    async def sumall(where: str, retry: bool = True, deadline_s: float | None = None) -> dict:
+        """One SumAll (retried after a 503 or 429 when `retry`, for at
+        most `deadline_s` seconds when given): its status, ms, B1
+        launches and ciphertext; a 200 must be the fold of the
+        acknowledged rows with one B1 launch a level."""
         want = host_product(list(acked.values()), n2)
         tries = collections.Counter()
         t0 = time.perf_counter()
@@ -6006,7 +6054,13 @@ async def phase_chaos(dev, sizes) -> dict:
             tries[status] += 1
             if launched:
                 raise AssertionError(f"chaos: a {status} SumAll at {where} folded")
-            await asyncio.sleep(int(headers["retry-after"]))
+            wait = int(headers["retry-after"])
+            if deadline_s is not None and time.perf_counter() - t0 + wait > deadline_s:
+                raise AssertionError(
+                    f"chaos: the SumAll at {where} answered {dict(tries)} for "
+                    f"{time.perf_counter() - t0:.1f} s, past its {deadline_s} s deadline "
+                    f"(ROADMAP §C 5: a cold tag round retried against the request budget)")
+            await asyncio.sleep(wait)
         out = {"status": status, "ms": (time.perf_counter() - t0) * 1e3,
                "retries": dict(tries), "b1": launched,
                "b1_expected": mont_cuda.fold_launches(len(acked))}
@@ -6159,7 +6213,7 @@ async def phase_chaos(dev, sizes) -> dict:
         restart = {"start_s": time.perf_counter() - t,
                    "stored_keys": len(dep.server.stored_keys),
                    "stored_equal_acked": dep.server.stored_keys == set(acked)}
-        first = await sumall("restart")
+        first = await sumall("restart", deadline_s=CHAOS_RESTART_DEADLINE_S)
         restart.update({k: v for k, v in first.items() if k != "result"},
                        equals_pre_restart=first.get("result") == healed["result"])
         step("restart", **restart)
@@ -6294,7 +6348,7 @@ async def phase_reshard(dev, sizes) -> dict:
     from dds_tpu_torch.obs.metrics import metrics
     from dds_tpu_torch.obs.watchtower import watchtower
     from dds_tpu_torch.ops import mont_cuda
-    from dds_tpu_torch.resident.plane import fused_fold_launches
+    from dds_tpu_torch.parallel.mesh import mesh_fold_launches
     from dds_tpu_torch.run import launch
     from dds_tpu_torch.shard import ShardMap
     from dds_tpu_torch.utils import sigs
@@ -6404,7 +6458,7 @@ async def phase_reshard(dev, sizes) -> dict:
             spans = tracer.summary()
             memo = {g: len(ops) for g, ops in server._owner_memo[2]}
             sizes_ = [memo[g] for g in sorted(memo)]
-            expected = (fused_fold_launches(sizes_) if route == "resident"
+            expected = (mesh_fold_launches([sizes_]) if route == "resident"
                         else sum(mont_cuda.fold_launches(k) for k in sizes_))
             span = "proxy.resident_fold" if route == "resident" else "proxy.scatter_fold"
             out[route] = {"ms": ms, "p50_ms": pct(ms, 50), "b1": launched,
@@ -6677,6 +6731,357 @@ async def phase_reshard(dev, sizes) -> dict:
     return rec
 
 
+MESH_BUDGET_S = 45.0
+# the settings the mesh phase's served SumAll overrides (printed); the rest
+# is DDSConfig() as the earlier phases build it (EARLIER_OBS_CUTS)
+MESH_OVERRIDES = {
+    "config": "configs/sharded.toml with SHARDED_OVERRIDES' backend and port, and "
+              "min-device-batch 0",
+    "backend.mesh": "the server's backend built with Mesh([cuda:0] * 4) (the proxy's backend "
+                    "factory wrapped during launch, so the resident plane is built on the "
+                    "mesh): no config key names a mesh (the reference takes it by mesh= or "
+                    "DDS_MESH, and DDS_MESH truncates to the one card)",
+    "data": "bench_paillier_key(2048): rows of one PSSE column, seeded plaintexts under 64 "
+            "seeded host blinds, 64 PutSets in flight",
+}
+
+
+def tail_products(D: int) -> int:
+    """Products of the tail tree over D partials, each odd level padded."""
+    p = 0
+    while D > 1:
+        D += D % 2
+        p += D // 2
+        D //= 2
+    return p
+
+
+def mesh_times(fn, dev, reps: int) -> dict:
+    """{device_ms, dispatch_ms, wall_ms} a call of `fn`: device and
+    dispatch ms with the stream held (`held_ms`), wall ms the best of
+    `reps` calls each synchronised."""
+    dms, dispatch = held_ms(fn, reps, dev)
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        sync(dev)
+        walls.append((time.perf_counter() - t) * 1e3)
+    return {"device_ms": dms, "dispatch_ms": dispatch, "wall_ms": min(walls)}
+
+
+async def phase_mesh(dev, sizes) -> dict:
+    """The device mesh (`parallel/mesh`, the reference's
+    `dds_tpu/parallel/mesh.py` and the resident plane's multi-device
+    fold) at Paillier-2048's n^2 (L = 256), on `Mesh([dev] * D)`: D slots
+    on the one card, each copy between slots an explicit `.to()`.
+    - `sharded_reduce_mul_fixed` over `mesh_K` and `mesh_K - 1` seeded rows
+      for D in `mesh_D`, both combines (all_gather, ring), mode 0; at the
+      largest D also modes 1 and 2: each bit for bit the flat
+      `mont_cuda.reduce_mul` and the Python-int product, its launches the
+      formula `mesh_fold_launches` (D local trees of log2(P2) levels,
+      then ceil(log2 D) tail levels or D(D - 1) ring multiplies, then the
+      fix: 47 and 57 at K = 8,192, D = 4);
+    - `sharded_pow_mod` over `mesh_B` bases with the key's n as exponent
+      (E = 512 digits) at D = 4: bit for bit the flat `pow_mod`, 64 sampled
+      columns Python `pow`, 2D B1 and D B3 launches; then
+      `CudaBackend.powmod_batch` with that mesh over `mesh_B_backend` bases
+      (padded with base 1 to a multiple of D);
+    - `CudaBackend(mesh=...).modmul_fold_resident` over `mesh_K` ints;
+    - the resident plane with `mesh_plane_S` groups of `mesh_plane_rows`:
+      for D in `mesh_plane_D`, each group's rows folded on its pool's slot
+      (`mesh_fold_launches`: 25 at D = 2, 47 at D = 4, 36 at D = 3, where
+      slot 0 holds groups 0 and 3), the Python product, timed beside the
+      same slabs on one slot (14);
+    - SumAlls served by configs/sharded.toml's 4 groups (4 replicas and a
+      spare each, quorum 3, f = 1, [resident]) on the card, the server's
+      backend built with the 4-slot mesh (MESH_OVERRIDES), so the plane
+      places group i's pool on slot i: `mesh_sumall_K` rows by PutSet
+      (DEPTH_CUTS), then `mesh_sumalls` SumAlls, each through the plane's
+      fold (`proxy.resident_fold`), the Python fold, decrypting to the
+      total, with one local tree a slot, the tail and the fix;
+    - DDS_MESH=4 on a backend of its own: `make_mesh` truncates to the
+      cards that exist (1 here), so `mesh_devices` is 1 and a fold takes
+      the flat path's launches.
+    Counts are zeroed just before and read just after each gated call;
+    the flat calls it is compared with are not counted. Each call's
+    device, dispatch and wall ms beside the flat call's, and the bound of
+    its products (the flat path's work plus the combine's). Printed: the
+    phase's seconds beside its 45 s budget."""
+    import os
+
+    import torch
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.models.backend import CudaBackend
+    from dds_tpu_torch.ops import bignum as bn
+    from dds_tpu_torch.ops import mont_cuda
+    from dds_tpu_torch.ops.montgomery import ModCtx, _exp_to_digits
+    from dds_tpu_torch.http import server as server_mod
+    from dds_tpu_torch.parallel import mesh as pm
+    from dds_tpu_torch.parallel.mesh import mesh_fold, mesh_fold_launches
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils.trace import tracer
+
+    t_phase = time.perf_counter()
+    key = bench_paillier_key(sizes["key_bits"])
+    pk = key.public
+    n2 = pk.nsquare
+    ctx = ModCtx.make(n2)
+    card = card_numbers(dev)
+    reps, seed = sizes["mesh_reps"], sizes["mesh_seed"]
+    cuda = dev.type == "cuda"
+    per_product = (2 * ctx.W * ctx.W + ctx.W) * 2  # IMADs of one CIOS product
+
+    def bound(products: float, nbytes: float) -> dict:
+        bms, by = bound_ms(products * per_product, nbytes, card["sms"], card["clock_mhz"])
+        return {"products": products, "bound_ms": bms, "bound_by": by}
+
+    def gate_launches(counts: dict, want: dict, what: str) -> None:
+        got = {k: counts[k] for k in want}
+        if cuda and got != want:
+            raise AssertionError(f"mesh {what}: launches {got}, predicted {want}")
+
+    path = collections.Counter()  # the mesh path's launches, each call zeroed and read apart
+    rec: dict = {"L": ctx.L, "budget_s": MESH_BUDGET_S, "overrides": MESH_OVERRIDES,
+                 "users": "operators with more than one GPU in the proxy's host, who set "
+                          "DDS_MESH or pass a mesh to the backend",
+                 "folds": [], "modes": {}}
+    saved = {k: os.environ.get(k) for k in ("DDS_KARATSUBA", "DDS_MESH")}
+    os.environ["DDS_KARATSUBA"] = "0"
+    os.environ.pop("DDS_MESH", None)
+    try:
+        # -- the sharded fold, both combines, against the flat fold and Python
+        D_max = max(sizes["mesh_D"])
+        for K in (sizes["mesh_K"], sizes["mesh_K"] - 1):
+            host = residues(ctx, K, seed + K)
+            want = host_product(bn.batch_to_ints(host), n2)
+            rows = bn.to_device(host, dev)
+            flat = mont_cuda.reduce_mul(ctx, rows, karatsuba=False)
+            if bn.limbs_to_int(bn.to_host(flat)[0]) != want:
+                raise AssertionError(f"mesh: the flat K={K} fold != Python")
+            flat_t = mesh_times(lambda: mont_cuda.reduce_mul(ctx, rows, karatsuba=False),
+                                dev, reps)
+            P2 = 1 << max(1, (K - 1).bit_length())
+            cases = [(D, ring, "cios") for D in sizes["mesh_D"] for ring in (False, True)]
+            cases += [(D_max, False, "k1"), (D_max, False, "fused")]
+            for D, ring, kernel in cases:
+                mesh = pm.Mesh([dev] * D)
+                fn = lambda: pm.sharded_reduce_mul_fixed(ctx, rows, mesh, ring, kernel)  # noqa: E731
+                reset_counts()  # this call's run starts here
+                out = fn()
+                counts = read_counts(dev)
+                if not torch.equal(out, flat) or bn.limbs_to_int(bn.to_host(out)[0]) != want:
+                    raise AssertionError(f"mesh: sharded K={K} D={D} ring={ring} {kernel} != "
+                                         f"the flat fold and Python")
+                n_mul = mesh_fold_launches([[-(-K // D)]] * D, ring)
+                main = {"cios": "mont_mul", "k1": "mont_prod3", "fused": "mont_kfused"}[kernel]
+                gate_launches(counts, {main: n_mul}, f"K={K} D={D} ring={ring} {kernel}")
+                mode = {"cios": "0", "k1": "1", "fused": "2"}[kernel]
+                check_mode_launches(dev, counts, mode, f"mesh K={K} D={D}")
+                path.update({k: v for k, v in counts.items() if v})
+                shard_P2 = 1 << max(0, (-(-K // D) - 1).bit_length())
+                combine = D * (D - 1) if ring else tail_products(D)
+                cell = {"K": K, "D": D, "ring": ring, "kernel": kernel, "launches": n_mul,
+                        "launch_counts": {k: v for k, v in counts.items() if v},
+                        **bound(D * (shard_P2 - 1) + combine + 1, (K + 1) * ctx.L * 4),
+                        **mesh_times(fn, dev, reps),
+                        "flat": {"launches": mont_cuda.fold_launches(K),
+                                 **bound(P2, (K + 1) * ctx.L * 4), **flat_t}}
+                if kernel != "cios":
+                    rec["modes"].setdefault(mode, collections.Counter()).update(
+                        cell["launch_counts"])
+                rec["folds"].append(cell)
+                emit("mesh", what="fold", **cell)
+        rec["modes"] = {m: {"launches": {k: c[k] for k in FOLD_KERNELS}}
+                        for m, c in rec["modes"].items()}
+
+        # -- the sharded modexp, then the backend's padded batch
+        B, D = sizes["mesh_B"], D_max
+        mesh = pm.Mesh([dev] * D)
+        bases = residues(ctx, B, seed + 1)
+        bases_dev = bn.to_device(bases, dev)
+        exp = pk.n
+        flat = mont_cuda.pow_mod(ctx, bases_dev, exp, karatsuba=False)
+        fn = lambda: pm.sharded_pow_mod(ctx, bases_dev, exp, mesh, "cios")  # noqa: E731
+        reset_counts()
+        out = fn()
+        counts = read_counts(dev)
+        if not torch.equal(out, flat):
+            raise AssertionError(f"mesh: sharded pow_mod B={B} D={D} != the flat pow_mod")
+        gate_launches(counts, {"mont_mul": 2 * D, "mont_exp": D}, f"pow_mod B={B} D={D}")
+        path.update({k: v for k, v in counts.items() if v})
+        got = bn.batch_to_ints(bn.to_host(out))
+        sample = random.Random(seed).sample(range(B), sizes["mesh_pow_check"])
+        ints = bn.batch_to_ints(bases)
+        t = time.perf_counter()
+        if any(got[i] != pow(ints[i], exp, n2) for i in sample):
+            raise AssertionError("mesh: sharded pow_mod != Python pow")
+        py_ms = (time.perf_counter() - t) * 1e3 / len(sample)
+        E = len(_exp_to_digits(exp))
+        per_row = 5 * E + 16
+        rec["pow"] = {"B": B, "D": D, "E": E, "launches": {"mont_mul": 2 * D, "mont_exp": D},
+                      **bound(B * per_row, 2 * B * ctx.L * 4),
+                      **mesh_times(fn, dev, 1),
+                      "flat": mesh_times(lambda: mont_cuda.pow_mod(ctx, bases_dev, exp,
+                                                                  karatsuba=False), dev, 1),
+                      "python_pow_ms_a_row": py_ms, "python_checked": len(sample)}
+        be = CudaBackend(device=dev, mesh=mesh)
+        Bb = sizes["mesh_B_backend"]
+        reset_counts()
+        t = time.perf_counter()
+        via = be.powmod_batch(ints[:Bb], exp, n2)
+        backend_s = time.perf_counter() - t
+        counts = read_counts(dev)
+        if via != got[:Bb]:
+            raise AssertionError(f"mesh: powmod_batch B={Bb} over {D} slots != the sharded pow")
+        gate_launches(counts, {"mont_mul": 2 * D, "mont_exp": D}, f"powmod_batch B={Bb}")
+        path.update({k: v for k, v in counts.items() if v})
+        rec["pow"]["backend"] = {"B": Bb, "padded": -(-Bb // D) * D, "wall_s": backend_s}
+        emit("mesh", what="pow", **rec["pow"])
+
+        # -- the backend's resident fold over K ints through the mesh
+        K = sizes["mesh_K"]
+        host = residues(ctx, K, seed + 2)
+        ints = bn.batch_to_ints(host)
+        want = host_product(ints, n2)
+        be.modmul_fold_resident(ints, n2)  # ingest
+        reset_counts()
+        t = time.perf_counter()
+        if be.modmul_fold_resident(ints, n2) != want:
+            raise AssertionError("mesh: modmul_fold_resident over the mesh != Python")
+        resident_s = time.perf_counter() - t
+        counts = read_counts(dev)
+        n_mul = mesh_fold_launches([[-(-K // D)]] * D)
+        gate_launches(counts, {"mont_mul": n_mul}, f"modmul_fold_resident K={K}")
+        path.update({k: v for k, v in counts.items() if v})
+        rec["backend_fold"] = {"K": K, "D": D, "launches": n_mul, "wall_ms": resident_s * 1e3}
+        emit("mesh", what="backend_fold", **rec["backend_fold"])
+
+        # -- the resident plane: each group's rows folded on its pool's slot
+        S, G = sizes["mesh_plane_S"], sizes["mesh_plane_rows"]
+        ops = seeded_ints(ctx, S * G, seed + 3)
+        parts = split(ops, S)
+        want = host_product(ops, n2)
+        rec["plane"] = []
+        for D in sizes["mesh_plane_D"]:
+            mesh = pm.Mesh([dev] * D)
+            plane = CudaBackend(device=dev, min_device_batch=0, mesh=mesh).resident_plane(
+                sizes["resident_initial"], sizes["resident_max"])
+            if plane.fold_groups(parts, n2) != want:  # ingest
+                raise AssertionError(f"mesh: plane S={S} D={D} != Python")
+            reset_counts()
+            t = time.perf_counter()
+            if plane.fold_groups(parts, n2) != want:
+                raise AssertionError(f"mesh: plane S={S} D={D} != Python")
+            wall = (time.perf_counter() - t) * 1e3
+            counts = read_counts(dev)
+            slots = [[plane.pool(g, n2).rows_for(o) for g, o in parts
+                      if plane._order[g] % D == d] for d in range(D)]
+            n_mul = mesh_fold_launches([[s.shape[0] for s in slabs] for slabs in slots])
+            gate_launches(counts, {"mont_mul": n_mul}, f"plane S={S} D={D}")
+            path.update({k: v for k, v in counts.items() if v})
+            if plane.stats()["mesh_devices"] != D:
+                raise AssertionError(f"mesh: the plane reports {plane.stats()['mesh_devices']}")
+            slabs = [s for slot in slots for s in slot]
+            P2 = 1 << max(0, (G - 1).bit_length())
+            cell = {"S": S, "rows_a_group": G, "D": D,
+                    "groups_by_slot": [len(slot) for slot in slots], "launches": n_mul,
+                    "fold_groups_wall_ms": wall,
+                    **bound(S * (P2 - 1) + tail_products(S) + 1, (S * G + 1) * ctx.L * 4),
+                    **mesh_times(lambda: mesh_fold(ctx, slots, dev, False), dev, reps),
+                    "one_device": mesh_times(lambda: mesh_fold(ctx, [slabs], dev, False),
+                                             dev, reps)}
+            rec["plane"].append(cell)
+            emit("mesh", what="plane", **cell)
+            del plane, slots, slabs
+
+        # -- SumAlls served by sharded.toml's 4 groups, the backend built with
+        # a 4-slot mesh, so the resident plane places group i's pool on slot i
+        K, D = sizes["mesh_sumall_K"], D_max
+        rows, total = paillier_rows(pk, K, seed + 4)
+        cfg = shard_config(dev, "sharded.toml")
+        cfg.proxy.min_device_batch = 0
+        served_mesh = pm.Mesh([dev] * D)
+        make_backend = server_mod._make_backend
+        server_mod._make_backend = lambda pcfg: CudaBackend(  # MESH_OVERRIDES
+            device=pcfg.device, min_device_batch=pcfg.min_device_batch, mesh=served_mesh)
+        try:
+            dep = await launch(cfg)
+        finally:
+            server_mod._make_backend = make_backend
+        try:
+            server = dep.server
+            plane = server._resident
+            if plane is None or plane.mesh is not served_mesh or server._shards is None:
+                raise AssertionError("mesh: the served stack's plane was not built on the "
+                                     "4-slot mesh over the shard groups")
+            port = server.cfg.port
+            load_s = await put_rows(port, rows)
+            sumall = sumall_fn(port, n2)
+            want = host_product([r[PSSE_POS] for r in rows], n2)
+            tracer.reset()
+            reset_counts()  # the served SumAlls' run starts here
+            ms = []
+            for _ in range(sizes["mesh_sumalls"]):
+                t = time.perf_counter()
+                got = await sumall()
+                ms.append((time.perf_counter() - t) * 1e3)
+                if got != want or key.decrypt(got) != total:
+                    raise AssertionError("mesh: a served SumAll != the Python fold or total")
+            counts = read_counts(dev)
+            folds = tracer.summary().get("proxy.resident_fold", {}).get("count", 0)
+            memo = {g: len(ops) for g, ops in server._owner_memo[2]}
+            slot_of = {g: plane._order[g] % D for g in memo}
+            placed = {g: str(p.device) for (g, _, _), p in plane._pools.items()}
+        finally:
+            await dep.stop()
+        by_slot = [[memo[g] for g in sorted(memo) if slot_of[g] == d] for d in range(D)]
+        n_mul = sizes["mesh_sumalls"] * mesh_fold_launches(by_slot)
+        gate_launches(counts, {"mont_mul": n_mul}, "served SumAlls")
+        if folds != sizes["mesh_sumalls"] or sorted(slot_of.values()) != list(range(D)):
+            raise AssertionError(f"mesh: the served SumAlls took {folds} resident folds, "
+                                 f"groups on slots {slot_of}")
+        rec["sumall"] = {"K": K, "D": D, "config": "sharded.toml",
+                         "groups": len(memo), "rows_by_slot": by_slot, "slot_of": slot_of,
+                         "pool_devices": placed, "resident_folds": folds, "load_s": load_s,
+                         "sumall_ms": ms, "launches": counts["mont_mul"],
+                         "launches_predicted": n_mul}
+        emit("mesh", what="sumall", **rec["sumall"])
+
+        # -- DDS_MESH=4 on the card: truncated to the cards that exist
+        os.environ["DDS_MESH"] = "4"
+        be = CudaBackend(device=dev, min_device_batch=0)
+        K = sizes["mesh_K"]
+        host = residues(ctx, K, seed + 5)
+        ints = bn.batch_to_ints(host)
+        reset_counts()
+        if be.modmul_fold(ints, n2) != host_product(ints, n2):
+            raise AssertionError("mesh: the DDS_MESH=4 fold != Python")
+        counts = read_counts(dev)
+        exists = torch.cuda.device_count() if cuda else 1
+        n_mul = (mont_cuda.fold_launches(K) if min(4, exists) == 1
+                 else mesh_fold_launches([[-(-K // min(4, exists))]] * min(4, exists)))
+        gate_launches(counts, {"mont_mul": n_mul}, "DDS_MESH=4")
+        devices = be.resident_plane().stats()["mesh_devices"]
+        if be.mesh.size != min(4, exists) or devices != be.mesh.size:
+            raise AssertionError(f"mesh: DDS_MESH=4 built {be.mesh} on {exists} devices, the "
+                                 f"plane reports {devices}")
+        rec["dds_mesh"] = {"DDS_MESH": 4, "devices_that_exist": exists,
+                           "mesh_devices": devices, "launches": counts["mont_mul"]}
+        emit("mesh", what="dds_mesh", **rec["dds_mesh"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rec["launches"] = {k: path[k] for k in mont_cuda.LAUNCHES}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit("mesh", what="summary", seconds=rec["seconds"], budget_s=MESH_BUDGET_S,
+         launches=rec["launches"], modes=rec["modes"])
+    return rec
+
+
 def kernel_times(sizes) -> dict:
     """CUDA-event ms of the B1, P, B3, B4, B5 and REDC launches at the
     timing phases' shapes (single launches with the stream held,
@@ -6832,7 +7237,7 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   reps_path=20, reps_plain=2,
                   crossover=[8, 16, 32, 64, 128, 256, 512, 1024],
                   requests=6, rounds=3, B_exp_small=256, B_exp=8192, reps_exp=2,
-                  rsa_bits=1024, clients=4, ops_per_client=2048, B_probe=8192,
+                  rsa_bits=1024, clients=4, ops_per_client=1024, B_probe=8192,  # DEPTH_CUTS
                   K_coalesce=128, coalesce_burst=16, coalesce_rounds=3,
                   coalesce_min_batch=None, K_multall=8192,  # DEPTH_CUTS
                   crossover_l64=[8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384],
@@ -6903,12 +7308,12 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   sharded_K=4096, sharded_inflight=64, sharded_sumalls=6, sharded_new=256,
                   sharded_R=16, sharded_seed=17, sharded_mode_sumalls=2, stratum_K=2048,
                   stratum_max_rows=512, stratum_sumalls=3,
-                  # the chaos phase: 2,048 rows on default.toml as it stands
+                  # the chaos phase: 1,024 rows (DEPTH_CUTS) on default.toml as it stands
                   # (CHAOS_OVERRIDES), 8 PutSets in flight within its PutSet
                   # objective; 8 PutSets and 3 SumAlls a fault step; the
                   # quorum-breaking partition's request budget; the read-back
                   # 64 in flight (nothing is measured after it)
-                  chaos_K=2048, chaos_puts=8, chaos_sumalls=3, chaos_seed=19,
+                  chaos_K=1024, chaos_puts=8, chaos_sumalls=3, chaos_seed=19,
                   chaos_load_inflight=8, chaos_read_inflight=64, chaos_short_budget=2.0,
                   # the reshard phase: 2,048 rows on sharded.toml (RESHARD_OVERRIDES),
                   # 8 PutSets in flight within its PutSet objective; 320 candidate
@@ -6919,6 +7324,16 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   reshard_fresh=32, reshard_writers=4, reshard_sumalls=2,
                   reshard_pinned_ticks=3, reshard_merge_deadline_s=20.0,
                   reshard_read_inflight=64, reshard_seed=20,
+                  # the mesh phase: the K = 8,192 fold (and 8,191) on D = 1-4 slots
+                  # of the card, the B = 8,192 modexp, the backend's padded
+                  # B = 8,190, the plane's 4 groups of 2,048 on D = 2, 4 and 3
+                  # (group i on slot i mod D); 2,048 rows served by
+                  # sharded.toml's 4 groups (cut from bft_sum's 8,192,
+                  # DEPTH_CUTS), 3 SumAlls
+                  mesh_K=8192, mesh_D=[1, 2, 3, 4], mesh_B=8192, mesh_B_backend=8190,
+                  mesh_pow_check=64, mesh_plane_S=4, mesh_plane_rows=2048,
+                  mesh_plane_D=[2, 4, 3], mesh_sumall_K=2048, mesh_sumalls=3, mesh_reps=3,
+                  mesh_seed=21,
                   # the plain ladder of the exp timing on 1,024 of its 8,192
                   # columns, for the run's time (it took 83 s on all of them;
                   # 256 columns took as long as 1,024: the ladder's launches,
@@ -7004,7 +7419,10 @@ def main(argv=None) -> int:
                      reshard_K=256, reshard_inflight=8, reshard_candidates=128,
                      reshard_fresh=8, reshard_writers=4, reshard_sumalls=1,
                      reshard_pinned_ticks=3, reshard_merge_deadline_s=20.0,
-                     reshard_read_inflight=16, reshard_seed=20)
+                     reshard_read_inflight=16, reshard_seed=20, mesh_K=256,
+                     mesh_D=[1, 2, 3, 4], mesh_B=16, mesh_B_backend=14, mesh_pow_check=4,
+                     mesh_plane_S=4, mesh_plane_rows=64, mesh_plane_D=[2, 4, 3],
+                     mesh_sumall_K=64, mesh_sumalls=2, mesh_reps=1, mesh_seed=21)
         card = {"name": "cpu (rehearsal)", **card_numbers(dev)}
     else:
         if not torch.cuda.is_available():
@@ -7025,6 +7443,7 @@ def main(argv=None) -> int:
          bulwark_overrides=BULWARK_OVERRIDES, tenancy_overrides=TENANCY_OVERRIDES,
          heliograph_overrides=HELIOGRAPH_OVERRIDES, sharded_overrides=SHARDED_OVERRIDES,
          chaos_overrides=CHAOS_OVERRIDES, reshard_overrides=RESHARD_OVERRIDES,
+         mesh_overrides=MESH_OVERRIDES,
          chronoscope_before_tenancy=CHRONOSCOPE_CUT, mixed=MIXED_CUT, depth=DEPTH_CUTS)
 
     from dds_tpu_torch.bench_key import bench_paillier_key
@@ -7076,6 +7495,7 @@ def main(argv=None) -> int:
     sharded = timed("sharded", asyncio.run, phase_sharded(dev, sizes))
     chaos = timed("chaos", asyncio.run, phase_chaos(dev, sizes))
     reshard = timed("reshard", asyncio.run, phase_reshard(dev, sizes))
+    mesh = timed("mesh", asyncio.run, phase_mesh(dev, sizes))
     emit("run", phase_seconds=took, seconds=time.perf_counter() - t_run)
 
     path = tim["path"]
@@ -7102,7 +7522,9 @@ def main(argv=None) -> int:
                              "sharded": sharded["launches"]["mont_mul"],
                              "stratum": sharded["stratum"]["launches"]["mont_mul"],
                              "chaos": chaos["launches"]["mont_mul"],
-                             "reshard": reshard["launches"]["mont_mul"]},
+                             "reshard": reshard["launches"]["mont_mul"],
+                             "mesh": mesh["launches"]["mont_mul"],
+                             "mesh_sumall": mesh["sumall"]["launches"]},
         "max_abs_err": par["max_abs_err"],
         "per": f"one K={path['K']} fold ({path['launches']} launches) on the device; "
                f"wall_ms: back to back, paced by the host's dispatch",
@@ -7124,7 +7546,8 @@ def main(argv=None) -> int:
                              "heliograph": helio["launches"]["mont_exp"],
                              "sharded": sharded["launches"]["mont_exp"],
                              "chaos": chaos["launches"]["mont_exp"],
-                             "reshard": reshard["launches"]["mont_exp"]},
+                             "reshard": reshard["launches"]["mont_exp"],
+                             "mesh": mesh["launches"]["mont_exp"]},
         "max_abs_err": max(par_exp["max_abs_err"], tim_exp["max_abs_err"]),
         "per": f"one launch, B={tim_exp['B']}, E={tim_exp['E']} "
                f"({tim_exp['exp_products_per_row']} products per row); plain_ms on "
@@ -7163,7 +7586,8 @@ def main(argv=None) -> int:
                    "multall": multall["modes"][m]["launches"][k],
                    "resident": resident["modes"][m]["launches"][k],
                    "tiered": tiered["modes"][m]["launches"][k],
-                   "sharded": sharded["modes"][m]["launches"][k]} for k in KARATSUBA_KERNELS}
+                   "sharded": sharded["modes"][m]["launches"][k],
+                   "mesh": mesh["modes"][m]["launches"][k]} for k in KARATSUBA_KERNELS}
               for m in ("1", "2"))
     for name, replaces, twin, launches, err, per in (
         ("mont_prod3", "dds_tpu/ops/mont_mxu.py:151",
@@ -7257,6 +7681,10 @@ def main(argv=None) -> int:
     print(json.dumps({"reshard": {**reshard, "card": card["smi"] if "smi" in card
                                   else card["name"],
                                   "run_seconds": time.perf_counter() - t_run}},
+                     default=str), flush=True)
+    print(json.dumps({"mesh": {**mesh, "card": card["smi"] if "smi" in card
+                               else card["name"],
+                               "run_seconds": time.perf_counter() - t_run}},
                      default=str), flush=True)
     if args.rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result", file=sys.stderr)

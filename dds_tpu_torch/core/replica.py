@@ -371,6 +371,12 @@ class BFTABDNode:
                     self._debug("TagReply for a non-write request")
                     self._suspect(sender)
                     return
+                if key != req.call.key:
+                    # the ABD signature does not cover the key: a reply for
+                    # another key (a corrupted frame) never joins the
+                    # quorum, so the Write goes to the key the proxy signed
+                    self._debug("TagReply for another key")
+                    return
                 req.read_quorum[sender] = (tag, value, signature)
                 if len(req.read_quorum) >= cfg.quorum_size:
                     max_tag = max(t for t, _, _ in req.read_quorum.values())
@@ -470,6 +476,10 @@ class BFTABDNode:
                 if not isinstance(req.call, M.IRead):
                     self._debug("ReadReply for a non-read request")
                     self._suspect(sender)
+                    return
+                if key != req.call.key:
+                    # as for TagReply: the write-back goes to the key read
+                    self._debug("ReadReply for another key")
                     return
                 req.read_quorum[sender] = (tag, value, signature)
                 if len(req.read_quorum) >= cfg.quorum_size:

@@ -21,11 +21,19 @@ between two multiply launches) over the whole batch; its caller decides
 when a batch is wide enough (`PaillierPublicKey.blind_batch`'s min_batch).
 `matvec` runs one weighted fold (`ops/foldmany.fold_weighted`) when the
 request's R x K cells reach `min_device_batch`, the host loop below it.
-The reference's mesh branch is not ported: one device only.
+
+With a mesh of more than one slot (`mesh=`, or DDS_MESH=N built lazily
+at first use by `parallel/mesh.make_mesh`, which truncates to the devices
+that exist), `reduce_mul_device` and `powmod_batch` shard their rows over
+it (`parallel/mesh.sharded_reduce_mul_fixed`, `sharded_pow_mod`) and the
+resident plane places its pools on its slots, as the reference's backend
+does. On a one-card host DDS_MESH=N gives a 1-device mesh and the flat
+path; `Mesh([dev] * D)` runs D slots on one device.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Protocol
 
@@ -117,7 +125,7 @@ class CudaBackend:
     name = "cuda"
 
     def __init__(self, device: str | torch.device = "cuda",
-                 min_device_batch: int | None = None):
+                 min_device_batch: int | None = None, mesh=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -131,6 +139,10 @@ class CudaBackend:
         self.min_device_batch = (
             MIN_DEVICE_BATCH if min_device_batch is None else min_device_batch
         )
+        # the device mesh (`parallel/mesh.Mesh`): pass mesh= explicitly, or
+        # set DDS_MESH=N to build an N-device mesh lazily at first use
+        self.mesh = mesh
+        self._mesh_n = int(os.environ.get("DDS_MESH", "0")) if mesh is None else 0
         self._stores: dict[int, object] = {}
         self._stores_lock = threading.Lock()  # folds run on proxy threads
 
@@ -168,9 +180,9 @@ class CudaBackend:
         return flags.karatsuba_mode() or "cios"
 
     def resident_plane(self, initial_rows: int = 256, max_rows: int = 1 << 20):
-        """A `ResidentPlane` on this backend's device whose pools fold
-        through `reduce_mul_device`, so lone-group resident folds run the
-        kernels of the flat path (the twin of
+        """A `ResidentPlane` on this backend's device and mesh whose pools
+        fold through `reduce_mul_device`, so lone-group resident folds run
+        the kernels of the flat path (the twin of
         `TpuBackend.resident_plane`)."""
         from dds_tpu_torch.resident import ResidentPlane
 
@@ -178,12 +190,28 @@ class CudaBackend:
             ctx = ModCtx.make(modulus)
             return lambda rows: self.reduce_mul_device(ctx, rows)
 
-        return ResidentPlane(device=self.device, initial_rows=initial_rows,
-                             max_rows=max_rows, reduce_factory=reduce_factory)
+        return ResidentPlane(device=self.device, mesh=self._get_mesh(),
+                             initial_rows=initial_rows, max_rows=max_rows,
+                             reduce_factory=reduce_factory)
+
+    def _get_mesh(self):
+        if self.mesh is None and self._mesh_n > 1:
+            from dds_tpu_torch.parallel.mesh import make_mesh
+
+            self.mesh = make_mesh(self._mesh_n, self.device.type)
+            self._mesh_n = 0
+        return self.mesh
 
     def reduce_mul_device(self, ctx: ModCtx, batch: torch.Tensor) -> torch.Tensor:
         """Modular product over a (K, L) limb batch already on the device:
-        the one fold entry point shared by the store and modmul_fold."""
+        the one fold entry point shared by the store and modmul_fold;
+        sharded over the mesh when it has more than one slot, in the
+        family `fold_kernel` reads once for the fold."""
+        mesh = self._get_mesh()
+        if mesh is not None and mesh.size > 1:
+            from dds_tpu_torch.parallel import mesh as pm
+
+            return pm.sharded_reduce_mul_fixed(ctx, batch, mesh, kernel=self.fold_kernel())
         return mont_cuda.reduce_mul(ctx, batch)
 
     def modmul_fold(self, cs: list[int], modulus: int) -> int:
@@ -218,16 +246,26 @@ class CudaBackend:
         with `kernel.pow.{dispatch,execute}` spans. Bases are reduced mod
         the modulus on the host first. The dispatch span includes the copy
         to the device, which waits for work other threads queued earlier
-        on the stream."""
+        on the stream. With a mesh of more than one slot the batch is
+        padded with base 1 (1^e = 1) to a multiple of its size and
+        sharded over it (`sharded_pow_mod`), the result sliced back."""
         if not bases:
             return []
         ctx = ModCtx.make(modulus)
-        rows = bn.ints_to_batch([b % modulus for b in bases], ctx.L)
-        out = kprof.profiled(
-            "pow", lambda: mont_cuda.pow_mod(ctx, bn.to_device(rows, self.device), exp),
-            b=len(bases), e_bits=exp.bit_length(),
-        )
-        return bn.batch_to_ints(bn.to_host(out))
+        B = len(bases)
+        mesh = self._get_mesh()
+        D = mesh.size if mesh is not None else 1
+        rows = bn.ints_to_batch([b % modulus for b in bases] + [1] * (-B % D), ctx.L)
+        if D > 1:
+            from dds_tpu_torch.parallel import mesh as pm
+
+            kernel = self.fold_kernel()
+            run = lambda: pm.sharded_pow_mod(  # noqa: E731
+                ctx, bn.to_device(rows, self.device), exp, mesh, kernel=kernel)
+        else:
+            run = lambda: mont_cuda.pow_mod(ctx, bn.to_device(rows, self.device), exp)  # noqa: E731
+        out = kprof.profiled("pow", run, b=B, e_bits=exp.bit_length())
+        return bn.batch_to_ints(bn.to_host(out[:B]))
 
 
 _BACKENDS = {"cpu": CpuBackend, "cuda": CudaBackend}
@@ -235,7 +273,7 @@ _BACKENDS = {"cpu": CpuBackend, "cuda": CudaBackend}
 
 def get_backend(name: str, **kwargs) -> CryptoBackend:
     """Backend by name; `kwargs` reach the constructor (the cuda
-    backend's `device` and `min_device_batch`)."""
+    backend's `device`, `min_device_batch` and `mesh`)."""
     try:
         cls = _BACKENDS[name]
     except KeyError:

@@ -8,30 +8,39 @@ folds at once, and the group partials merge through the same tree's tail
 levels — one `mont_cuda.mul` launch a level for all groups, where S
 separate folds would launch S trees and combine on the host.
 
-Layout (`fold_groups`), as `ops/foldmany.fold_many`: one limbs-major
-(L, P2 * Sp) int32 tensor filled with the Montgomery identity R mod n;
-Sp is the group count padded to a power of two and P2 the largest
-group's operand count padded to a power of two. Column `elem * Sp + g`
-holds group g's element `elem`, written transposed from the rows
-`pool.rows_for` gathered. Levels:
-- log2(P2) local levels: x[:, :h Sp] * x[:, h Sp : 2h Sp], every group
-  at once (elem i with elem i + h);
-- log2(Sp) tail levels over the (L, Sp) partials;
+The fold (`fold_groups` -> `parallel/mesh.mesh_fold`): each slot's
+groups fold in one segmented halving tree on the slot's device. Its
+layout, as `ops/foldmany.fold_many`: one limbs-major (L, P2 * G) int32
+tensor filled with the Montgomery identity R mod n; G is the slot's
+group count and P2 its largest group's operand count padded to a power
+of two. Column `elem * G + g` holds group g's element `elem`, written
+transposed from the rows `pool.rows_for` gathered. Levels:
+- log2(P2) local levels: x[:, :h G] * x[:, h G : 2h G], every group of
+  the slot at once (elem i with elem i + h);
+- the slots' partials copied to the first slot, then ceil(log2 S) tail
+  levels over the S group partials (each odd level padded with R mod n);
 - one multiply by R^total mod n, total the real operand count of all
   groups.
 So a K = 8,192 fold over S = 4 groups of 2,048 is 11 + 2 + 1 = 14
-launches in mode 0. The product family (`DDS_KARATSUBA`) is read once a
-fold and passed to every level, so a fold never mixes families.
+launches in mode 0 on one slot, and 4 x 11 + 2 + 1 = 47 on four. The
+product family (`DDS_KARATSUBA`) is read once a fold and passed to every
+level, so a fold never mixes families.
 
 R-power accounting (structure-independent, the reference's argument): K
 real operands plus any number of identity pads through any tree shape
 yield prod * R^-(K-1); the final multiply by R^K mod n gives prod mod n,
 bit for bit the reference's integer.
 
-Placement: one card, so every group's pool lives on the plane's device
-(`parallel/mesh.group_sharding`). The reference's multi-device branch
-(`shard_map` over a mesh, one all_gather of the partials) comes with the
-mesh plane.
+Placement (`parallel/mesh.group_sharding`): without a mesh, or with a
+one-device one, every group's pool lives on the plane's device and the
+fold has one slot. With a mesh of D > 1 slots (`parallel/mesh.Mesh`)
+group i's pool lives on slot i mod D, in registration order, and each
+group's rows fold on the slot that holds them: only the slots' partials
+cross between devices. The reference instead splits the stacked slabs
+contiguously over its devices when D divides S, and folds on one device
+otherwise; the product is the same integer. Rows handed out by
+`rows_for` are copied to the plane's device, where the backend's
+weighted fold runs.
 
 The write-path ingest queue (`note_write` / `ingest_pending`) lets the
 proxy push committed ciphertexts into existing pools off the request's
@@ -51,56 +60,27 @@ import torch
 from dds_tpu_torch.obs import kprof
 from dds_tpu_torch.obs.metrics import metrics
 from dds_tpu_torch.ops import bignum as bn
-from dds_tpu_torch.ops import flags, mont_cuda
+from dds_tpu_torch.ops import flags
 from dds_tpu_torch.ops.montgomery import ModCtx
-from dds_tpu_torch.parallel.mesh import group_sharding
+from dds_tpu_torch.parallel.mesh import Mesh, group_sharding, mesh_fold
 from dds_tpu_torch.resident.pool import ResidentPool
 from dds_tpu_torch.utils.queues import TimedQueue
-
-
-def fused_fold_launches(sizes: list[int]) -> int:
-    """Multiplies of one fused fold over groups of `sizes` operands (each
-    >= 1): log2(P2) local levels + log2(Sp) tail levels + the fix. Each is
-    one mont_mul launch in mode 0."""
-    P2 = 1 << max(0, (max(sizes) - 1).bit_length())
-    Sp = 1 << max(0, (len(sizes) - 1).bit_length())
-    return P2.bit_length() - 1 + Sp.bit_length() - 1 + 1
-
-
-def fused_fold(ctx: ModCtx, slabs: list[torch.Tensor], mode) -> torch.Tensor:
-    """prod over every row of every (K_g, L) slab mod n as a (1, L) int32
-    tensor, in one segmented halving tree (module docstring). The slabs
-    share one device; `mode` is the product family for every level."""
-    device = slabs[0].device
-    L = ctx.L
-    S = len(slabs)
-    Sp = 1 << max(0, (S - 1).bit_length())
-    P2 = 1 << max(0, (max(s.shape[0] for s in slabs) - 1).bit_length())
-    x = torch.empty((L, P2 * Sp), dtype=torch.int32, device=device)
-    x[:] = ctx.consts(device)["one_mont"][:, None]
-    cols = x.view(L, P2, Sp)
-    for g, rows in enumerate(slabs):
-        cols[:, : rows.shape[0], g] = rows.T
-    w = P2 * Sp
-    while w > 1:  # local levels, then the tail over the group partials
-        h = w // 2
-        x = mont_cuda.mul(ctx, x[:, :h], x[:, h: 2 * h], mode)
-        w = h
-    total = sum(s.shape[0] for s in slabs)
-    return mont_cuda.mul(ctx, x, ctx.fold_fix(total, device), mode).T
 
 
 class ResidentPlane:
     """Per-group resident pools on `device` + the fused multi-group fold.
 
+    `mesh` (a `parallel/mesh.Mesh`) places the pools on its slots and
+    enables the multi-device fold; None is the one-device plane.
     `reduce_factory(modulus)` optionally supplies the per-pool single-fold
     reduce (backends inject theirs, so lone-group folds run the kernels of
     the flat path). `max_pending` bounds the write-ingest queue."""
 
-    def __init__(self, device="cuda", initial_rows: int = 256,
-                 max_rows: int = 1 << 20, reduce_factory=None,
-                 max_pending: int = 8192):
+    def __init__(self, device="cuda", mesh: Mesh | None = None,
+                 initial_rows: int = 256, max_rows: int = 1 << 20,
+                 reduce_factory=None, max_pending: int = 8192):
         self.device = torch.device(device)
+        self.mesh = mesh
         if self.device.type == "cuda" and not torch.cuda.is_available():
             # at construction, like SearchPlane: a plane meant for the card
             # never quietly comes up on the host
@@ -154,7 +134,7 @@ class ResidentPlane:
                     ),
                     initial_rows=self.initial_rows,
                     max_rows=self.max_rows,
-                    device=group_sharding(self.device, idx),
+                    device=group_sharding(self.mesh, idx, self.device),
                     gid=(f"{gid}|{tenant}" if tenant else gid),
                 )
                 if self.tier_sink is not None:
@@ -211,34 +191,39 @@ class ResidentPlane:
         tenant: str = "",
     ) -> int | None:
         """prod over every group's operands mod `modulus` in one fused
-        halving tree, or None when any group's operand set cannot fit its
-        pool even after a reset (callers fall back to the marshaling
-        paths)."""
+        halving tree, each group's rows folded on the mesh slot that holds
+        its pool (`mesh_fold`), or None when any group's operand set cannot
+        fit its pool even after a reset (callers fall back to the
+        marshaling paths)."""
         parts = [(gid, ops) for gid, ops in parts if ops]
         if not parts:
             return 1 % modulus
         ctx = ModCtx.make(modulus)
         mode = flags.karatsuba_mode()  # one family for the whole fold
-        slabs = []
+        mesh = self.mesh
+        D = mesh.size if mesh is not None else 1
+        home = mesh.devices[0] if D > 1 else self.device
+        slots: list[list[torch.Tensor]] = [[] for _ in range(D)]
         for gid, ops in parts:
             rows = self.pool(gid, modulus, tenant).rows_for(ops)
             if rows is None:
                 return None
-            slabs.append(rows)
+            slots[self._order[gid] % D].append(rows)  # its pool's slot
         out = kprof.profiled(
-            "resident_fold", lambda: fused_fold(ctx, slabs, mode),
+            "resident_fold", lambda: mesh_fold(ctx, slots, home, mode),
             k=sum(len(ops) for _, ops in parts), shards=len(parts),
         )
-        return bn.limbs_to_int(bn.to_host(out)[0])
+        return bn.limbs_to_int(bn.to_host(out.T)[0])
 
     def rows_for(self, gid: str, modulus: int, cs: list[int],
                  tenant: str = ""):
-        """Gathered device rows (K, L) for `cs` from this group's pool, or
-        None when the set is wider than the pool (callers marshal host
-        ints as before)."""
+        """Gathered rows (K, L) for `cs` from this group's pool, copied to
+        the plane's device from the pool's slot, or None when the set is
+        wider than the pool (callers marshal host ints as before)."""
         if not cs:
             return None
-        return self.pool(gid, modulus, tenant).rows_for(cs)
+        rows = self.pool(gid, modulus, tenant).rows_for(cs)
+        return None if rows is None else rows.to(self.device)
 
     # --------------------------------------------------------------- surface
 
@@ -254,7 +239,7 @@ class ResidentPlane:
         )
         return {
             "kernel": self.kernel,
-            "mesh_devices": 1,
+            "mesh_devices": self.mesh.size if self.mesh is not None else 1,
             "pending_ingest": self._pending.depth(),
             "dropped_pending": self._pending.dropped(),
             "resets": resets,

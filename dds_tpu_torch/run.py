@@ -209,6 +209,14 @@ def unported_plane(cfg: DDSConfig) -> str | None:
 
 
 async def launch(cfg: DDSConfig | None = None) -> Deployment:
+    """Boot the deployment `cfg` describes (the defaults without one) and
+    return it serving; `Deployment.stop` takes it down. A config that
+    enables a plane the port does not serve is refused first
+    (`unported_plane`). Then, with `[fabric] region` set, that region's
+    `[retry.profiles]` overrides land on `cfg.proxy` before anything reads
+    it, as in the reference. The rest boots as configured: the memory
+    transport (under ChaosNet with `[attacks] chaos-enabled`), the
+    replicas, supervisor and proxy, or the Constellation with `[shard]`."""
     cfg = cfg or DDSConfig()
     plane = unported_plane(cfg)
     if plane is not None:
@@ -216,6 +224,12 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             f"{plane} is not ported to dds_tpu_torch; the config enables it, "
             "so the deployment is refused rather than served without it"
         )
+    if cfg.fabric.region:
+        # [retry]: the per-region deadline and backoff overrides for this
+        # process's region land on the effective [proxy] settings, so every
+        # consumer (the single-group boot, the Constellation) sees them
+        for k, v in cfg.retry.overrides_for(cfg.fabric.region).items():
+            setattr(cfg.proxy, k, v)
     if cfg.tenancy.enabled:
         # the cardinality ceiling applies process-wide before any
         # tenant-labelled series exists: a tenant flood overflows into the

@@ -452,3 +452,40 @@ def test_unknown_keys_still_raise():
                 {"nope": {}}):
         with pytest.raises(ValueError, match="unknown config key"):
             DDSConfig.from_dict(bad)
+
+
+@pytest.mark.parametrize("profile,want", [
+    ({"rtt-ms": 100}, {"request_budget": 2.4, "retry_backoff": 0.2, "retry_max_delay": 0.8,
+                       "retry_after_hint": 0.2}),
+    ({"rtt-ms": 100, "request-budget": 4.0},
+     {"request_budget": 4.0, "retry_backoff": 0.2, "retry_max_delay": 0.8,
+      "retry_after_hint": 0.2}),
+], ids=["rtt", "rtt_and_explicit_budget"])
+def test_retry_profile_for_the_region_lands_on_proxy_in_both(profile, want):
+    """ROADMAP §C 15: with `[fabric] region = "eu"` and a
+    `[retry.profiles.eu]` table, both packages' `launch` apply the region's
+    overrides onto `[proxy]` before the proxy is built (an explicit key wins
+    over the rtt-ms derivation), so the served budgets are equal: every
+    ProxyConfig field `RetryConfig._KEYS` names, on the launched config and
+    on the proxy's own."""
+    from dds_tpu.run import launch as ref_launch
+
+    raw = {"proxy": {"port": 0, "crypto-backend": "cpu"}, "fabric": {"region": "eu"},
+           "retry": {"profiles": {"eu": profile}}}
+    keys = DDSConfig().retry._KEYS
+    assert keys == RefConfig().retry._KEYS
+
+    async def boot(cfg, run):
+        dep = await run(cfg)
+        try:
+            return ({k: getattr(dep.cfg.proxy, k) for k in keys},
+                    {k: getattr(dep.server.cfg, k) for k in keys if hasattr(dep.server.cfg, k)})
+        finally:
+            await dep.stop()
+
+    ref = asyncio.run(asyncio.wait_for(boot(RefConfig.from_dict(raw), ref_launch), 60))
+    port = asyncio.run(asyncio.wait_for(boot(DDSConfig.from_dict(raw), launch), 60))
+    assert port == ref
+    assert port[0]["intranet_request_timeout"] == DDSConfig().proxy.intranet_request_timeout
+    for k, v in want.items():
+        assert port[0][k] == pytest.approx(v) and port[1][k] == pytest.approx(v)

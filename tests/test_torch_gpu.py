@@ -1165,3 +1165,58 @@ def test_heliograph_toml_probes_on_the_host_beside_a_user_fold_on_the_card(cuda,
     assert probe_launches == [0, 0] and user_launches > 0
     assert status == 200 and result == _pyfold(cts, key.nsquare)
     assert key.decrypt(result) == sum(plain)
+
+
+# ------------------------------------------------------------- the mesh
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["all_gather", "ring"])
+@pytest.mark.parametrize("D", [2, 3, 4])
+def test_sharded_fold_on_card_slots_equals_the_flat_fold(cuda, D, ring):
+    """`sharded_reduce_mul_fixed` over D slots of the one card: bit for
+    bit the flat fold and the Python product, one B1 launch a level a slot
+    plus the combine and the fix."""
+    from dds_tpu_torch.parallel import Mesh
+    from dds_tpu_torch.parallel import mesh as pm
+
+    ctx = _n2_ctx()
+    host = _residues(ctx, 1000, 40 + D)
+    rows = bn.to_device(host, cuda)
+    flat = mont_cuda.reduce_mul(ctx, rows, karatsuba=False)
+    before = mont_cuda.launches.value
+    out = pm.sharded_reduce_mul_fixed(ctx, rows, Mesh([cuda] * D), ring=ring)
+    torch.cuda.synchronize()
+    n_mul = pm.mesh_fold_launches([[-(-1000 // D)]] * D, ring)
+    assert mont_cuda.launches.value - before == n_mul
+    assert torch.equal(out, flat)
+    want = 1
+    for c in bn.batch_to_ints(host):
+        want = want * c % ctx.n
+    assert bn.limbs_to_int(bn.to_host(out)[0]) == want
+
+
+def test_mesh_backend_and_plane_on_card(cuda):
+    """`CudaBackend(mesh=Mesh([cuda] * 4))`: the padded sharded modexp
+    equals Python `pow`, and the resident plane's multi-device fold over 4
+    groups equals the Python product with its launch formula."""
+    from dds_tpu_torch.parallel import Mesh
+    from dds_tpu_torch.parallel.mesh import mesh_fold_launches
+
+    key = bench_paillier_key(2048)
+    n2 = key.nsquare
+    rng = random.Random(21)
+    be = CudaBackend(min_device_batch=0, mesh=Mesh([cuda] * 4))
+    bases = [rng.randrange(n2) for _ in range(10)]
+    assert be.powmod_batch(bases, key.n, n2) == [pow(b, key.n, n2) for b in bases]
+    parts = [(f"s{g}", [rng.randrange(1, n2) for _ in range(300 + g)]) for g in range(4)]
+    plane = be.resident_plane(256, 65536)
+    want = 1
+    for _, ops in parts:
+        for c in ops:
+            want = want * c % n2
+    assert plane.fold_groups(parts, n2) == want
+    before = mont_cuda.launches.value
+    assert plane.fold_groups(parts, n2) == want
+    torch.cuda.synchronize()
+    assert mont_cuda.launches.value - before == mesh_fold_launches([[300], [301], [302], [303]])
+    assert plane.stats()["mesh_devices"] == 4

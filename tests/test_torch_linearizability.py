@@ -22,7 +22,8 @@ module `random`, the supervisor's and the coordinator choice's rngs and
 the retry jitter are seeded alike. So each schedule's fault trace (the
 tuples ChaosNet appends for every fault it injects), its recorded
 history, its final register value and its replicas' repositories equal
-the reference's, tuple for tuple.
+the reference's, tuple for tuple. The reference runs with the port's one
+repair of its coordinator (ROADMAP §C 17, `reference_reply_key_repair`).
 """
 
 import asyncio
@@ -284,13 +285,49 @@ class Schedule:
                 "repos": self.c.repos(), **extra}
 
 
+@contextlib.contextmanager
+def reference_reply_key_repair():
+    """The port's repair of ROADMAP §C 17 applied to the reference's
+    coordinator for the twins: a TagReply or ReadReply that would join a
+    quorum for another key than its request's (a corrupted frame: the ABD
+    signature does not cover the key) is dropped, as
+    `dds_tpu_torch/core/replica.py` drops it. Without it the reference
+    writes to the corrupted key where the port does not, and the lossy,
+    corrupting schedule's twins part. The reference's own behaviour is
+    shown in tests/test_torch_reply_keys.py."""
+    m = mods("dds_tpu")
+    sigs = importlib.import_module("dds_tpu.utils.sigs")
+    node = m.rep.BFTABDNode
+    real = node._healthy
+    phase = {m.M.TagReply: m.M.IWrite, m.M.ReadReply: m.M.IRead}
+
+    async def healthy(self, sender, msg):
+        want = phase.get(type(msg))
+        if want is not None:
+            req = self.outgoing.get(msg.nonce)
+            if (req is not None and not req.expired and isinstance(req.call, want)
+                    and msg.key != req.call.key
+                    and sigs.validate_abd_signature(self.cfg.abd_mac_secret, msg.value,
+                                                    msg.tag, msg.nonce, msg.signature)):
+                return
+        await real(self, sender, msg)
+
+    node._healthy = healthy
+    try:
+        yield
+    finally:
+        node._healthy = real
+
+
 def twins(scenario, seed: int) -> dict:
     """Run `scenario(pkg)` in each package on the virtual clock with the
-    same seeds; the port's outcome must equal the reference's, and every
-    history must be atomic."""
+    same seeds, the reference with the port's reply-key repair; the
+    port's outcome must equal the reference's, and every history must be
+    atomic."""
     out = {}
     for pkg in PACKAGES:
-        with seeded(seed):
+        repair = reference_reply_key_repair() if pkg == "dds_tpu" else contextlib.nullcontext()
+        with seeded(seed), repair:
             out[pkg] = run_virtual(scenario(pkg))
         check_atomic_register(out[pkg]["ops"])
     ref, port = out["dds_tpu"], out["dds_tpu_torch"]

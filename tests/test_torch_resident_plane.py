@@ -32,9 +32,8 @@ from dds_tpu_torch.bench_key import bench_paillier_key
 from dds_tpu_torch.models.backend import CudaBackend
 from dds_tpu_torch.obs.metrics import Registry, metrics
 from dds_tpu_torch.ops import mont_cuda
-from dds_tpu_torch.parallel.mesh import combine_partials, group_sharding
+from dds_tpu_torch.parallel.mesh import combine_partials, group_sharding, mesh_fold_launches
 from dds_tpu_torch.resident import ResidentPlane, ResidentPool
-from dds_tpu_torch.resident.plane import fused_fold_launches
 
 rng = random.Random(0x10DE)
 MODULUS = rng.getrandbits(512) | (1 << 511) | 1  # L = 32
@@ -122,11 +121,11 @@ def test_fused_fold_launches_one_multiply_per_level(monkeypatch, mode):
     parts = [(f"s{g}", ciphers(g, 2048, n)) for g in range(4)]
     plane = port_plane(max_rows=4096)
     assert plane.fold_groups(parts, n) == pyfold([c for _, o in parts for c in o], n)
-    assert fused_fold_launches([2048] * 4) == 14 == len(calls)
+    assert mesh_fold_launches([[2048] * 4]) == 14 == len(calls)
     assert [w for w, _ in calls] == [4096 >> i for i in range(13)] + [1]
     assert {m for _, m in calls} == {{"0": False, "1": "k1", "2": "fused"}[mode]}
     assert mont_cuda.fold_launches(2048) * 4 == 48
-    assert fused_fold_launches([1]) == 1 and fused_fold_launches([3, 1, 1]) == 5
+    assert mesh_fold_launches([[1]]) == 1 and mesh_fold_launches([[3, 1, 1]]) == 5
 
 
 def test_lone_group_folds_run_the_backends_reduce():
