@@ -28,7 +28,10 @@ configs/sharded.toml reshaped live (Helmsman's merge of a cold group,
 an operator's split onto the warm standby through POST /_reshard, every
 SumAll exact on the card across both) and the device mesh (the sharded
 folds, the sharded modexp and the resident plane's multi-device fold over
-D slots of the card, a SumAll served through it) — and holds
+D slots of the card, a SumAll served through it) and
+configs/geo/wan_soak.toml's three regions (SumAlls exact on the card
+through the WAN matrix, lease-local reads, a region cut and a lease
+holder's crash) — and holds
 every CUDA kernel on them against its plain PyTorch version. The phases
 before `recovery` turn the audit and /slo off in the configs they build
 (EARLIER_OBS_CUTS), and every phase before `tenancy` runs with the
@@ -462,16 +465,37 @@ non-zero:
               Printed: each call's device, dispatch and wall ms beside the
               flat call's, the bound of its products, the phase's seconds
               beside its 45 s budget;
-26. kernels   one {"kernels": [...]} line (every kernel must have launched
+26. geo       configs/geo/wan_soak.toml as it stands (GEO_OVERRIDES,
+              GEO_STEPS printed): 3 span groups of 6 replicas (2 in each
+              of eu, us and ap), quorum 4, f = 1, the eu proxy's read
+              leases, the WAN matrix at scale 1.0, Nemesis's delay; 1,024
+              B3-blinded rows (cut from 8,192, DEPTH_CUTS) by PutSet 64 in
+              flight; a cold and 3 warm SumAlls; 64 GetSets from the eu
+              lease holders and /health's leases; the ap region cut under
+              32 PutSets, a SumAll and the writes read back during it, the
+              heal and the ap replicas pulled to the eu replicas' tags;
+              s0's eu holder crashed, a PutSet to s0 after its lease, a
+              SumAll, the lease on s0's other eu replica. Gates: every
+              SumAll the Python-int fold and decrypting to the total,
+              scattered with one B1 fold a group (`fold_launches` of each
+              group's rows), local reads served, every lease on an eu
+              replica, 0 ap keys behind after the heal, the holder's lease
+              gone within one TTL and moved, Watchtower verdicts no other
+              than `lease_staleness` with lease reads audited, B1 = the
+              SumAlls' + 2 and B3 1 on path "geo". Printed: each step's
+              seconds, the GetSets' p50 beside the eu<->us round trip, the
+              phase's seconds beside its 60 s budget;
+27. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
               launch; the analytics requests' launches are the path
               "analytics", the rowmod kernels' the
               path "decrypt", `decrypt_rows`' run, B1's the paths
               "recovery", "sumall_audited", "bulwark", "tenancy",
               "heliograph", "sharded" (its MatVec included), "stratum",
-              "chaos", "reshard", "mesh" and "mesh_sumall", B3's "client",
-              "tenancy", "heliograph", "sharded", "chaos", "reshard" and
-              "mesh", the Karatsuba kernels' also "sharded" and "mesh");
+              "chaos", "reshard", "mesh", "mesh_sumall" and "geo", B3's
+              "client", "tenancy", "heliograph", "sharded", "chaos",
+              "reshard", "mesh" and "geo", the Karatsuba kernels' also
+              "sharded" and "mesh");
               then one
               {"search": ...}
               line: each predicate op's calls on the indexed stack (gates,
@@ -486,8 +510,8 @@ non-zero:
               figures, the phase's seconds beside its 150 s budget; then
               one {"bulwark": ...}, one {"tenancy": ...}, one
               {"heliograph": ...}, one {"sharded": ...}, one
-              {"chaos": ...}, one {"reshard": ...} and one {"mesh": ...}
-              line with those phases' whole records;
+              {"chaos": ...}, one {"reshard": ...}, one {"mesh": ...} and
+              one {"geo": ...} line with those phases' whole records;
               then the card's name and power limit;
               then the result line.
 
@@ -503,6 +527,7 @@ non-zero:
     python3 chip_smoke.py --phases chaos
     python3 chip_smoke.py --phases reshard
     python3 chip_smoke.py --phases mesh
+    python3 chip_smoke.py --phases geo
         # on the card: the named phases alone at the card's sizes (each
         # --size changes one), each followed by its seconds; no result line
 
@@ -531,6 +556,7 @@ import argparse
 import asyncio
 import collections
 import concurrent.futures
+import itertools
 import json
 import math
 import random
@@ -1519,7 +1545,12 @@ DEPTH_CUTS = {"multall.K": "16384 -> 8192 records",
               # cold tags answered 503 36 times in 254.2 s (ROADMAP §C 5;
               # 4.7-23.4 s in PR 19's runs); half the rows halve that tag round,
               # the load and the read-back
-              "chaos.K": "2048 -> 1024 rows"}
+              "chaos.K": "2048 -> 1024 rows",
+              # the geo phase's load over the file's WAN at scale 1.0, for its
+              # 60 s budget: at 2,048 rows the phase took 49.8 s alone and
+              # 66.9 s in a full run (its load 21.6 s, the ap cut's 32 PutSets
+              # 22.3 s of retries; H100 80GB HBM3, 700.00 W)
+              "geo.K": "8192 -> 2048 -> 1024 rows"}
 
 
 def earlier_config():
@@ -6456,7 +6487,7 @@ async def phase_reshard(dev, sizes) -> dict:
             finally:
                 server._resident_min_fold = min_fold
             spans = tracer.summary()
-            memo = {g: len(ops) for g, ops in server._owner_memo[2]}
+            memo = {g: len(ops) for g, ops in server._owner_memo[-1]}
             sizes_ = [memo[g] for g in sorted(memo)]
             expected = (mesh_fold_launches([sizes_]) if route == "resident"
                         else sum(mont_cuda.fold_launches(k) for k in sizes_))
@@ -7030,7 +7061,7 @@ async def phase_mesh(dev, sizes) -> dict:
                     raise AssertionError("mesh: a served SumAll != the Python fold or total")
             counts = read_counts(dev)
             folds = tracer.summary().get("proxy.resident_fold", {}).get("count", 0)
-            memo = {g: len(ops) for g, ops in server._owner_memo[2]}
+            memo = {g: len(ops) for g, ops in server._owner_memo[-1]}
             slot_of = {g: plane._order[g] % D for g in memo}
             placed = {g: str(p.device) for (g, _, _), p in plane._pools.items()}
         finally:
@@ -7080,6 +7111,373 @@ async def phase_mesh(dev, sizes) -> dict:
     emit("mesh", what="summary", seconds=rec["seconds"], budget_s=MESH_BUDGET_S,
          launches=rec["launches"], modes=rec["modes"])
     return rec
+
+
+GEO_BUDGET_S = 60.0
+# configs/geo/wan_soak.toml's settings the phase overrides (printed);
+# everything else stands as the file says, its WAN matrix at its own
+# [chaos] scale = 1.0
+GEO_OVERRIDES = {
+    "proxy.crypto_backend": "cuda (the file's cpu is the reference's host backend)",
+    "proxy.port": "0 (an OS-assigned port for the file's 8443)",
+    "data": "bench_paillier_key(2048) (n^2, L = 256): rows of one column, seeded "
+            "plaintexts blinded on the card (B3, one pow_mod)",
+    "load": "1,024 rows by PutSet, 64 in flight (bft_sum's 8,192; DEPTH_CUTS)",
+    "attacks": "Nemesis's delay (the file's [attacks] type) on f of s0's replicas, "
+               "seeded, from the end of the load",
+}
+# the phase's steps, in order (printed)
+GEO_STEPS = (
+    "launch: 3 span groups of 6 replicas (2 each in eu, us, ap), quorum 4, f = 1, the "
+    "eu proxy's read leases (TTL 2.0 s), the WAN matrix, Nemesis armed",
+    "load: the rows blinded on the card, then PutSet 64 in flight",
+    "Nemesis delay; 1 cold and 3 warm SumAlls, each scattered one B1 fold a group",
+    "64 GetSets round-robin over the groups, read-local from the eu lease holders; "
+    "/health's leases",
+    "the ap region cut while 32 PutSets go on; a SumAll and the 32 read back during the "
+    "cut; heal; anti-entropy pulls the ap replicas to the eu replicas' tags",
+    "s0's eu lease holder crashes; a PutSet to s0 waits out the lease; a SumAll; "
+    "GetSets until the lease moves to s0's other eu replica",
+    "the Watchtower's verdicts",
+)
+
+
+async def phase_geo(dev, sizes) -> dict:
+    """configs/geo/wan_soak.toml served on the card through the port's
+    `launch` (GEO_OVERRIDES printed): one process hosting 3 span groups of
+    6 replicas (2 in each of eu, us and ap), quorum 4, f = 1, the proxy in
+    eu reading lease-locally (TTL 2.0 s), the file's WAN matrix at scale
+    1.0 (eu<->us wan-100, eu<->ap wan-200, us<->ap 110 ms +- 25 ms with
+    0.5 % drop), anti-entropy paired across regions and the Watchtower
+    auditing lease reads. `geo_K` rows blinded on the card (B3) and loaded
+    by PutSet `geo_inflight` at a time, then GEO_STEPS: Nemesis's delay;
+    one cold and `geo_sumalls` warm SumAlls; `geo_getsets` GetSets
+    reading back acknowledged values lease-locally (dds_geo_local_reads_
+    total rising, their p50 printed beside the eu<->us round trip) and
+    /health showing each group's lease on an eu replica; the ap region cut
+    (`region_partition`) while `geo_cut_writes` PutSets go on, a SumAll
+    and the writes read back during the cut, the heal and anti-entropy
+    bringing every ap replica to the eu replicas' tags; s0's eu lease
+    holder crashed, its table lease gone within one TTL, a PutSet to s0
+    acknowledged, a SumAll, and the lease on s0's other eu replica; the
+    Watchtower's verdicts no other than `lease_staleness`, lease reads
+    audited. Every SumAll is the Python-int fold of the acknowledged rows
+    and decrypts to their total, and on the card launched one B1 fold a
+    group (`fold_launches` of each group's rows: the file has no
+    [resident], so each SumAll scatters). A PutSet or GetSet answering 503
+    or 429 with Retry-After is retried after it (counted). Launch counts
+    are zeroed before the launch and read after the stop (path "geo"): B1
+    = the SumAlls' + the blinding's 2, B3 1. Printed: each step's seconds
+    and numbers, the phase's seconds beside its 60 s budget."""
+    import pathlib
+
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.core import messages as M
+    from dds_tpu_torch.core.chaos import ChaosNet
+    from dds_tpu_torch.http.miniserver import http_request_full
+    from dds_tpu_torch.malicious.trudy import Nemesis
+    from dds_tpu_torch.models.backend import get_backend
+    from dds_tpu_torch.obs.metrics import metrics
+    from dds_tpu_torch.obs.watchtower import watchtower
+    from dds_tpu_torch.ops import mont_cuda
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils import sigs
+    from dds_tpu_torch.utils.config import DDSConfig
+    from dds_tpu_torch.utils.trace import tracer
+
+    t_phase = time.perf_counter()
+    K, cut_writes = sizes["geo_K"], sizes["geo_cut_writes"]
+    key = bench_paillier_key(sizes["key_bits"])
+    pk = key.public
+    n2 = pk.nsquare
+    target = f"/SumAll?position=0&nsqr={n2}"
+    rec: dict = {"K": K, "key_bits": sizes["key_bits"], "overrides": GEO_OVERRIDES,
+                 "steps": GEO_STEPS, "budget_s": GEO_BUDGET_S}
+    answers: list[dict] = []
+
+    def step(name: str, **kw) -> None:
+        emit("geo_step", step=name, at_s=time.perf_counter() - t_phase, **kw)
+
+    def b1() -> int:
+        sync(dev)
+        return mont_cuda.LAUNCHES["mont_mul"].value
+
+    def served() -> float:
+        fam = metrics._families.get("dds_geo_local_reads_total")
+        return sum(v for k, v in fam.samples.items()
+                   if dict(k).get("result") == "served") if fam else 0.0
+
+    async def call(method: str, target_: str, obj=None, where: str = ""):
+        """One request, retried after a 503 or 429 with Retry-After
+        (counted); any other status than 200 fails the phase."""
+        t0 = time.perf_counter()
+        retries = 0
+        while True:
+            status, headers, data = await http_request_full(
+                "127.0.0.1", port, method, target_,
+                json.dumps(obj).encode() if obj is not None else None, timeout=600.0)
+            if status == 200:
+                break
+            if status not in (429, 503) or int(headers.get("retry-after", 0)) < 1:
+                raise AssertionError(f"geo: {method} {target_[:40]} at {where} answered "
+                                     f"{status} {headers} {data[:160]!r}")
+            retries += 1
+            await asyncio.sleep(int(headers["retry-after"]))
+        answers.append({"where": where, "retries": retries,
+                        "ms": (time.perf_counter() - t0) * 1e3})
+        return data
+
+    acked: dict[str, int] = {}  # acknowledged key -> ciphertext
+    plain_of: dict[int, int] = {}
+
+    async def put_rows(cts: list, where: str, inflight: int) -> dict:
+        sem = asyncio.Semaphore(inflight)
+
+        async def put(c) -> None:
+            async with sem:
+                data = await call("POST", "/PutSet", {"contents": [str(c)]}, where)
+                acked[data.decode()] = c
+
+        t = time.perf_counter()
+        n0 = len(answers)
+        await asyncio.gather(*(put(c) for c in cts))
+        return {"rows": len(cts), "s": time.perf_counter() - t,
+                "retries": sum(a["retries"] for a in answers[n0:])}
+
+    async def read_back(keys: list, where: str, inflight: int) -> dict:
+        sem = asyncio.Semaphore(inflight)
+        wrong = []
+
+        async def get(k: str) -> None:
+            async with sem:
+                data = await call("GET", f"/GetSet/{k}", where=where)
+                if json.loads(data)["contents"] != [str(acked[k])]:
+                    wrong.append(k)
+
+        n0 = len(answers)
+        t = time.perf_counter()
+        await asyncio.gather(*(get(k) for k in keys))
+        ms = [a["ms"] for a in answers[n0:]]
+        if wrong:
+            raise AssertionError(f"geo: {len(wrong)} acknowledged rows read back wrong "
+                                 f"at {where}")
+        return {"rows": len(keys), "s": time.perf_counter() - t, "p50_ms": pct(ms, 50),
+                "p95_ms": pct(ms, 95), "retries": sum(a["retries"] for a in answers[n0:])}
+
+    async def sumall(where: str) -> dict:
+        """One SumAll: the Python-int fold of the acknowledged rows,
+        decrypting to their total, scattered one B1 fold a group."""
+        want = host_product(list(acked.values()), n2)
+        sizes_ = sorted(collections.Counter(router.owner(k) for k in acked).items())
+        spans0 = tracer.summary().get("proxy.scatter_fold", {}).get("count", 0)
+        before = b1()
+        t0 = time.perf_counter()
+        result = int(json.loads(await call("GET", target, where=where))["result"])
+        out = {"ms": (time.perf_counter() - t0) * 1e3, "b1": b1() - before,
+               "b1_expected": sum(mont_cuda.fold_launches(k) for _, k in sizes_),
+               "groups": dict(sizes_),
+               "scatter_folds": tracer.summary().get("proxy.scatter_fold", {})
+               .get("count", 0) - spans0}
+        if result != want or key.decrypt(result) != sum(plain_of[c] for c in
+                                                         acked.values()):
+            raise AssertionError(f"geo: a SumAll at {where} is not the fold of the "
+                                 f"{len(acked)} acknowledged rows")
+        if out["scatter_folds"] != 1:
+            raise AssertionError(f"geo: the SumAll at {where} did not scatter {out}")
+        if dev.type == "cuda" and (min(k for _, k in sizes_) < min_batch or
+                                   out["b1"] != out["b1_expected"]):
+            raise AssertionError(f"geo: a SumAll at {where} launched {out['b1']} mont_mul, "
+                                 f"not one fold a group {out}")
+        return out
+
+    rng = random.Random(sizes["geo_seed"])
+    spare = 48  # candidates for the writes the holder's crash waits out
+    plain = [rng.randrange(1 << 30) for _ in range(K + cut_writes + spare)]
+    metrics.reset()
+    tracer.reset()
+    lease_spans = collections.Counter()
+
+    def count_lease(r) -> None:
+        if r.name == "abd.fetch" and r.meta.get("lease"):
+            lease_spans[r.meta.get("replica", "")] += 1
+
+    cfg = DDSConfig.load(pathlib.Path(__file__).resolve().parent / "configs" / "geo" /
+                         "wan_soak.toml")
+    cfg.proxy.crypto_backend = "cuda"
+    cfg.proxy.device = dev.type
+    cfg.proxy.port = 0
+    ttl = cfg.geo.lease_ttl
+    rec["config"] = {"groups": cfg.shard.count, "replicas": cfg.shard.replicas_per_group,
+                     "quorum": cfg.shard.quorum_size, "f": cfg.shard.max_faults,
+                     "regions": cfg.geo.regions, "placement": cfg.geo.placement,
+                     "lease_ttl": ttl, "proxy_region": cfg.fabric.region,
+                     "chaos_scale": cfg.chaos.scale, "profiles": cfg.chaos.profiles,
+                     "attack": cfg.attacks.type}
+    step("config", **rec["config"])
+    reset_counts()  # path "geo" starts here
+    t = time.perf_counter()
+    dep = await launch(cfg)
+    rec["launch_s"] = time.perf_counter() - t
+    port = dep.server.cfg.port
+    const, net, router = dep.constellation, dep.net, dep.constellation.router
+    min_batch = getattr(dep.server.backend, "min_device_batch", 0)
+    tracer.subscribe(count_lease)
+    try:
+        census = {g.gid: g.region_census() for g in const.groups}
+        if not (isinstance(net, ChaosNet) and isinstance(dep.trudy, Nemesis) and
+                watchtower.attached and net.region_links and
+                all(c == {"ap": 2, "eu": 2, "us": 2} for c in census.values()) and
+                all(g.lease_table is not None and g.quorum_size == 4 for g in const.groups)):
+            raise AssertionError(f"geo: the launch is not the file's geometry: {census}")
+        smap = const.manager.current()
+        rec["map"] = {"epoch": smap.epoch, "regions": [list(r) for r in smap.regions],
+                      "signed": smap.verify(cfg.security.abd_mac_secret.encode())}
+        step("launch", s=rec["launch_s"], census=census, **rec["map"])
+        dep.trudy._rng = random.Random(sizes["geo_seed"])  # the victims, seeded
+        # -- the rows: blinding on the card (B3), then PutSet
+        client_be = get_backend("cuda", device=dev.type)
+        t = time.perf_counter()
+        cts = pk.encrypt_batch(plain, client_be, min_batch=1)
+        sync(dev)
+        rec["blind"] = {"rows": len(cts), "s": time.perf_counter() - t}
+        plain_of.update(zip(cts, plain))
+        rec["load"] = await put_rows(cts[:K], "load", sizes["geo_inflight"])
+        rec["load"]["putsets_per_s"] = K / rec["load"]["s"]
+        step("load", **rec["load"], blind=rec["blind"])
+        # -- Nemesis's delay, then one cold and warm SumAlls
+        rec["delay_victims"] = dep.trudy.trigger(cfg.attacks.type)
+        runs = [await sumall("cold")] + [await sumall("warm")
+                                        for _ in range(sizes["geo_sumalls"])]
+        rec["sumalls"] = {"cold_ms": runs[0]["ms"], "warm_ms": [r["ms"] for r in runs[1:]],
+                          "warm_p50_ms": pct([r["ms"] for r in runs[1:]], 50),
+                          "b1": [r["b1"] for r in runs],
+                          "b1_expected": runs[-1]["b1_expected"], "groups": runs[-1]["groups"],
+                          "delay_victims": rec["delay_victims"]}
+        step("sumalls", **rec["sumalls"])
+        # -- GetSets from the eu lease holders, round-robin over the groups
+        by_group = collections.defaultdict(list)
+        for k in sorted(acked):
+            by_group[router.owner(k)].append(k)
+        picks = [by_group[g][i // len(by_group)] for i, g in
+                 zip(range(sizes["geo_getsets"]), itertools.cycle(sorted(by_group)))]
+        before = served()
+        rec["getsets"] = await read_back(picks, "getsets", sizes["geo_getset_inflight"])
+        rec["getsets"]["local_reads_served"] = served() - before
+        rec["getsets"]["eu_us_rtt_ms"] = 2e3 * net.region_links[("eu", "us")].delay
+        health = json.loads(await call("GET", "/health", where="health"))
+        leases = {g: s.get("lease") for g, s in health["shards"].items()}
+        regions_of = {e: r for g in const.groups for e, r in g.replica_regions.items()}
+        rec["getsets"]["leases"] = leases
+        rec["getsets"]["health_region"] = health.get("region")
+        step("getsets", **rec["getsets"])
+        if rec["getsets"]["local_reads_served"] <= 0 or health.get("region") != "eu" or \
+                not all(lease and regions_of.get(lease["replica"]) == "eu"
+                        for lease in leases.values()):
+            raise AssertionError(f"geo: no lease-local reads or a lease off eu: "
+                                 f"{rec['getsets']}")
+        # -- the ap region cut while writes go on
+        t = time.perf_counter()
+        part = net.region_partition("ap")
+        try:
+            cut = {"puts": await put_rows(cts[K:K + cut_writes], "cut", cut_writes)}
+            cut["sumall"] = await sumall("cut")
+            cut_keys = [sigs.key_from_set([str(c)]) for c in cts[K:K + cut_writes]]
+            cut["read_back"] = await read_back(cut_keys, "cut_read_back", cut_writes)
+        finally:
+            part.heal()
+        cut["s"] = time.perf_counter() - t
+        # the heal: each ap replica pulls from its group's eu replicas
+        t = time.perf_counter()
+        pulls = [(g, e, src) for g in const.groups
+                 for e, r in sorted(g.replica_regions.items()) if r == "ap"
+                 for src, r2 in sorted(g.replica_regions.items()) if r2 == "eu"]
+        repaired = await asyncio.gather(*(g.replicas[e].antientropy.sync_once(src)
+                                          for g, e, src in pulls))
+        behind = 0
+        for g in const.groups:
+            owned = [k for k in acked if router.owner(k) == g.gid]
+            eu = [n for e, n in g.replicas.items() if g.replica_regions[e] == "eu"]
+            for e, node in g.replicas.items():
+                if g.replica_regions[e] == "ap":
+                    behind += sum(1 for k in owned if node.repository.get(k, (None,))[0] !=
+                                  max(n.repository[k][0] for n in eu))
+        cut["heal"] = {"pulls": len(pulls), "repaired_keys": sum(repaired),
+                       "s": time.perf_counter() - t, "ap_keys_behind": behind}
+        rec["cut"] = cut
+        step("region_cut", **cut)
+        if behind or not sum(repaired):
+            raise AssertionError(f"geo: after the heal the ap replicas trail by {behind} "
+                                 f"keys ({sum(repaired)} repaired)")
+        # -- s0's eu lease holder crashes
+        g0 = const.group("s0")
+        await read_back(by_group["s0"][:1], "holder_lease", 1)  # a live lease
+        holder = g0.client.lease_state()["replica"]
+        other = next(e for e, r in sorted(g0.replica_regions.items())
+                     if r == "eu" and e != holder)
+        lease = g0.lease_table.active(cfg.fabric.region)
+        crash = {"holder": holder, "other_eu": other,
+                 "lease_left_s": lease.expires - g0.lease_table.clock() if lease else None}
+        t = time.perf_counter()
+        net.send("trudy", holder, M.Crash())
+        fresh = [c for c in cts[K + cut_writes:]
+                 if router.owner(sigs.key_from_set([str(c)])) == "s0"][:2]
+        crash["put"] = await put_rows(fresh[:1], "crash_put", 1)
+        crash["put_acked_s"] = time.perf_counter() - t
+        crash["table_lease_gone_within_ttl"] = holder not in g0.lease_table.holders()
+        crash["sumall"] = await sumall("after_crash")
+        moved, tries = None, 0
+        while time.perf_counter() - t < sizes["geo_lease_move_s"]:
+            tries += 1
+            await read_back(by_group["s0"][tries % len(by_group["s0"]):][:1],
+                            "lease_move", 1)
+            state = g0.client.lease_state()
+            if state and state["replica"] == other:
+                moved = state["replica"]
+                break
+        crash.update(lease_moved_to=moved, reads=tries, move_s=time.perf_counter() - t,
+                     table_holders=sorted(g0.lease_table.holders()))
+        rec["crash"] = crash
+        step("holder_crash", **crash)
+        # the holder's lease pins s0's quorums for what is left of it (at
+        # most one TTL); then the PutSet's round closes within its budget
+        # (one more attempt after a 503)
+        if crash["lease_left_s"] is None or crash["lease_left_s"] > ttl or \
+                not crash["table_lease_gone_within_ttl"] or crash["put_acked_s"] > \
+                crash["lease_left_s"] + 2 * dep.server.cfg.request_budget + 1 or \
+                moved != other:
+            raise AssertionError(f"geo: the holder's crash {crash}")
+        await net.quiesce()
+        rec["watchtower"] = watchtower.stats()
+        rec["violation_kinds"] = sorted({v.invariant for v in watchtower.verdicts()})
+        rec["lease_spans"] = dict(lease_spans)
+        rec["retries"] = sum(a["retries"] for a in answers)
+        rec["trace"] = dict(collections.Counter(e[4].split("=")[0] for e in net.trace))
+    finally:
+        tracer.unsubscribe(count_lease)
+        await dep.stop()
+    counts = read_counts(dev)
+    sumall_b1 = sum(rec["sumalls"]["b1"]) + rec["cut"]["sumall"]["b1"] + \
+        rec["crash"]["sumall"]["b1"]
+    rec["launches"] = {"mont_mul": counts["mont_mul"], "mont_exp": counts["mont_exp"],
+                       "mont_mul_sumalls": sumall_b1}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit("geo", **{k: rec[k] for k in (
+        "seconds", "budget_s", "launches", "launch_s", "map", "load", "blind", "sumalls",
+        "getsets", "cut", "crash", "watchtower", "violation_kinds", "lease_spans",
+        "retries", "trace")})
+    if rec["watchtower"]["ops_audited"] <= 0 or not rec["lease_spans"] or \
+            set(rec["violation_kinds"]) - {"lease_staleness"}:
+        raise AssertionError(f"geo: the Watchtower {rec['watchtower']} "
+                             f"{rec['violation_kinds']}, lease spans {rec['lease_spans']}")
+    if dev.type == "cuda" and (rec["launches"]["mont_exp"] != 1 or
+                               rec["launches"]["mont_mul"] != sumall_b1 + 2):
+        raise AssertionError(f"geo: B1 {rec['launches']['mont_mul']} launches (SumAlls "
+                             f"{sumall_b1} + 2 the blinding's), B3 "
+                             f"{rec['launches']['mont_exp']} (1)")
+    if watchtower.attached:
+        raise AssertionError("geo: stop left the Watchtower attached")
+    return rec
+
 
 
 def kernel_times(sizes) -> dict:
@@ -7334,6 +7732,13 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   mesh_pow_check=64, mesh_plane_S=4, mesh_plane_rows=2048,
                   mesh_plane_D=[2, 4, 3], mesh_sumall_K=2048, mesh_sumalls=3, mesh_reps=3,
                   mesh_seed=21,
+                  # the geo phase: 1,024 rows (DEPTH_CUTS) on wan_soak.toml as it
+                  # stands (GEO_OVERRIDES), 64 PutSets in flight; 3 warm SumAlls,
+                  # 64 GetSets 8 in flight, 32 PutSets through the ap cut; the
+                  # lease's move after the holder's crash within 20 s
+                  geo_K=1024, geo_inflight=64, geo_sumalls=3, geo_getsets=64,
+                  geo_getset_inflight=8, geo_cut_writes=32, geo_lease_move_s=20.0,
+                  geo_seed=22,
                   # the plain ladder of the exp timing on 1,024 of its 8,192
                   # columns, for the run's time (it took 83 s on all of them;
                   # 256 columns took as long as 1,024: the ladder's launches,
@@ -7422,7 +7827,10 @@ def main(argv=None) -> int:
                      reshard_read_inflight=16, reshard_seed=20, mesh_K=256,
                      mesh_D=[1, 2, 3, 4], mesh_B=16, mesh_B_backend=14, mesh_pow_check=4,
                      mesh_plane_S=4, mesh_plane_rows=64, mesh_plane_D=[2, 4, 3],
-                     mesh_sumall_K=64, mesh_sumalls=2, mesh_reps=1, mesh_seed=21)
+                     mesh_sumall_K=64, mesh_sumalls=2, mesh_reps=1, mesh_seed=21,
+                     geo_K=96, geo_inflight=32, geo_sumalls=1, geo_getsets=16,
+                     geo_getset_inflight=8, geo_cut_writes=8, geo_lease_move_s=20.0,
+                     geo_seed=22)
         card = {"name": "cpu (rehearsal)", **card_numbers(dev)}
     else:
         if not torch.cuda.is_available():
@@ -7443,7 +7851,7 @@ def main(argv=None) -> int:
          bulwark_overrides=BULWARK_OVERRIDES, tenancy_overrides=TENANCY_OVERRIDES,
          heliograph_overrides=HELIOGRAPH_OVERRIDES, sharded_overrides=SHARDED_OVERRIDES,
          chaos_overrides=CHAOS_OVERRIDES, reshard_overrides=RESHARD_OVERRIDES,
-         mesh_overrides=MESH_OVERRIDES,
+         mesh_overrides=MESH_OVERRIDES, geo_overrides=GEO_OVERRIDES,
          chronoscope_before_tenancy=CHRONOSCOPE_CUT, mixed=MIXED_CUT, depth=DEPTH_CUTS)
 
     from dds_tpu_torch.bench_key import bench_paillier_key
@@ -7496,6 +7904,7 @@ def main(argv=None) -> int:
     chaos = timed("chaos", asyncio.run, phase_chaos(dev, sizes))
     reshard = timed("reshard", asyncio.run, phase_reshard(dev, sizes))
     mesh = timed("mesh", asyncio.run, phase_mesh(dev, sizes))
+    geo = timed("geo", asyncio.run, phase_geo(dev, sizes))
     emit("run", phase_seconds=took, seconds=time.perf_counter() - t_run)
 
     path = tim["path"]
@@ -7524,7 +7933,8 @@ def main(argv=None) -> int:
                              "chaos": chaos["launches"]["mont_mul"],
                              "reshard": reshard["launches"]["mont_mul"],
                              "mesh": mesh["launches"]["mont_mul"],
-                             "mesh_sumall": mesh["sumall"]["launches"]},
+                             "mesh_sumall": mesh["sumall"]["launches"],
+                             "geo": geo["launches"]["mont_mul"]},
         "max_abs_err": par["max_abs_err"],
         "per": f"one K={path['K']} fold ({path['launches']} launches) on the device; "
                f"wall_ms: back to back, paced by the host's dispatch",
@@ -7547,7 +7957,8 @@ def main(argv=None) -> int:
                              "sharded": sharded["launches"]["mont_exp"],
                              "chaos": chaos["launches"]["mont_exp"],
                              "reshard": reshard["launches"]["mont_exp"],
-                             "mesh": mesh["launches"]["mont_exp"]},
+                             "mesh": mesh["launches"]["mont_exp"],
+                             "geo": geo["launches"]["mont_exp"]},
         "max_abs_err": max(par_exp["max_abs_err"], tim_exp["max_abs_err"]),
         "per": f"one launch, B={tim_exp['B']}, E={tim_exp['E']} "
                f"({tim_exp['exp_products_per_row']} products per row); plain_ms on "
@@ -7685,6 +8096,10 @@ def main(argv=None) -> int:
     print(json.dumps({"mesh": {**mesh, "card": card["smi"] if "smi" in card
                                else card["name"],
                                "run_seconds": time.perf_counter() - t_run}},
+                     default=str), flush=True)
+    print(json.dumps({"geo": {**geo, "card": card["smi"] if "smi" in card
+                              else card["name"],
+                              "run_seconds": time.perf_counter() - t_run}},
                      default=str), flush=True)
     if args.rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result", file=sys.stderr)

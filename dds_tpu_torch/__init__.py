@@ -11,3 +11,5 @@ obvious twin to be tested against.
 Entry points run on `cuda` unless the caller passes `device="cpu"`; on the
 CPU every kernel wrapper runs its plain PyTorch version instead.
 """
+
+__version__ = "0.1.0"

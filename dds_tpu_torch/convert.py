@@ -1,4 +1,5 @@
-"""Carry state across from `dds_tpu`: constants, resident rows, client keys.
+"""Carry state across from `dds_tpu`: constants, resident rows, client
+keys, shard maps.
 
 In this system what plays the role of weights is the per-modulus
 Montgomery constants, the device-resident ciphertext rows and the
@@ -8,7 +9,10 @@ uint32 of 16-bit little-endian limbs, the layout `dds_tpu`'s pools hold
 and its Stratum segment files persist — and the keys as `HEKeys` JSON,
 the format both packages write; a keyring crosses as each tenant's epochs
 `(version, HEKeys JSON, created_at, grace_until)`, newest first, plus the
-set of shredded tenants. Nothing here imports the reference.
+set of shredded tenants. A signed shard map, with or without Atlas region
+labels, crosses as its wire dict (`ShardMap.to_wire`), which both packages
+sign and parse the same way, so its signature verifies on either side.
+Nothing here imports the reference.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from dds_tpu_torch.models.tenancy import KeyEpoch, TenantKeyring, _TenantDomain
 from dds_tpu_torch.ops import bignum as bn
 from dds_tpu_torch.ops.montgomery import ModCtx
 from dds_tpu_torch.resident.pool import ResidentPool
+from dds_tpu_torch.shard.shardmap import ShardMap
 
 
 def ctx_from_numpy(n: int, N, R2, one_mont, n0inv) -> ModCtx:
@@ -199,3 +204,24 @@ def keyring_to_reference(keyring: TenantKeyring) -> tuple[dict, set]:
                 (e.version, keys_to_reference(e.keys), e.created_at, e.grace_until)
                 for e in eps])
     return epochs, shredded
+
+
+def shardmap_from_reference(wire: dict, secret: bytes) -> ShardMap:
+    """The port's `ShardMap` for a reference map's wire dict (its
+    `to_wire()`: epoch, groups, vnodes, signature and, when labelled, the
+    Atlas regions), checked against the intranet `secret` the reference
+    signed it with. Raises ValueError when the signature does not verify
+    or the groups do not match the vnodes."""
+    smap = ShardMap.from_wire(wire)
+    if set(smap.groups) != {g for _, g in smap.vnodes}:
+        raise ValueError("shard map groups do not match its vnodes")
+    if not smap.verify(secret):
+        raise ValueError("shard map signature does not verify")
+    return smap
+
+
+def shardmap_to_reference(smap: ShardMap) -> dict:
+    """The wire dict a reference `ShardMap.from_wire` reads, the inverse of
+    `shardmap_from_reference`: the signature travels as it stands, and
+    verifies on the reference's side under the same secret."""
+    return smap.to_wire()

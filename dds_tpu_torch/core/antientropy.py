@@ -1,8 +1,9 @@
 """Merkle anti-entropy: background convergence without client reads.
 
-Copy of `dds_tpu/core/antientropy.py` without the geo plane's
-cross-region peer pairing (every round pulls from one peer drawn from the
-agent's rng).
+Copy of `dds_tpu/core/antientropy.py`, with the Atlas geo plane's seeded
+cross-region peer pairing: a geo-aware agent (`regions` configured) pulls
+across regions with probability `cross_region_bias`, after an extra
+`cross_jitter` sleep, every draw from its one rng.
 
 The ABD protocol repairs stale replicas lazily — a read's write-back phase
 touches exactly the keys clients happen to read. A healed partition, a
@@ -151,18 +152,63 @@ class AntiEntropy:
         self._rng = random.Random()
         self._task: Optional[asyncio.Task] = None
         self._pending: dict[int, asyncio.Future] = {}
+        # Atlas cross-region pairing: endpoint -> region labels, a bias
+        # toward cross-region pulls (the links where divergence builds up
+        # after a WAN partition), and extra de-synchronising jitter ahead
+        # of a cross-region round so a region's loops never dogpile one
+        # WAN link at once
+        self.regions: dict = {}
+        self.cross_region_bias = 0.5
+        self.cross_jitter = 0.0
         # observability surface, exported via /health + scrape-time gauges
         self.rounds = 0
+        self.cross_rounds = 0
         self.repaired_total = 0
         self.last_divergence = 0   # divergent buckets seen in the last round
         self.last_sync: float | None = None  # monotonic ts of last completed round
 
     def configure(self, interval: float | None = None,
-                  jitter: float | None = None) -> None:
+                  jitter: float | None = None,
+                  sync_timeout: float | None = None,
+                  rng: random.Random | None = None,
+                  regions: dict | None = None,
+                  cross_region_bias: float | None = None,
+                  cross_jitter: float | None = None) -> None:
         if interval is not None:
             self.interval = interval
         if jitter is not None:
             self.jitter = jitter
+        if sync_timeout is not None:
+            self.sync_timeout = sync_timeout
+        if rng is not None:
+            self._rng = rng
+        if regions is not None:
+            self.regions = dict(regions)
+        if cross_region_bias is not None:
+            self.cross_region_bias = cross_region_bias
+        if cross_jitter is not None:
+            self.cross_jitter = cross_jitter
+
+    # -------------------------------------------------------- peer selection
+
+    def _region_of(self, endpoint: str) -> str:
+        return self.regions.get(
+            endpoint, self.regions.get(endpoint.rsplit("/", 1)[-1], ""))
+
+    def _pick_peer(self, peers: list[str]) -> tuple[str, bool]:
+        """(peer, is_cross_region). Geo-unaware agents draw uniformly;
+        geo-aware ones split peers by region and pull cross-region with
+        probability `cross_region_bias`, every draw from the one seeded
+        rng, so a seeded fleet pairs the same way every run."""
+        my_region = self._region_of(self.node.addr)
+        if not self.regions or not my_region:
+            return self._rng.choice(peers), False
+        local = [p for p in peers if self._region_of(p) == my_region]
+        remote = [p for p in peers if self._region_of(p) != my_region]
+        if remote and (not local
+                       or self._rng.random() < self.cross_region_bias):
+            return self._rng.choice(remote), True
+        return self._rng.choice(local or peers), False
 
     # ------------------------------------------------------------ lifecycle
 
@@ -192,7 +238,11 @@ class AntiEntropy:
             peers = [p for p in self.node.all_replicas if p != self.node.addr]
             if not peers:
                 continue
-            peer = self._rng.choice(peers)
+            peer, cross = self._pick_peer(peers)
+            if cross:
+                self.cross_rounds += 1
+                if self.cross_jitter > 0:
+                    await asyncio.sleep(self._rng.uniform(0, self.cross_jitter))
             try:
                 await self.sync_once(peer)
             except asyncio.TimeoutError:
@@ -405,6 +455,7 @@ class AntiEntropy:
         )
         return {
             "rounds": self.rounds,
+            "cross_region_rounds": self.cross_rounds,
             "repaired_keys": self.repaired_total,
             "divergent_buckets": self.last_divergence,
             "last_sync_age": age,

@@ -4,8 +4,8 @@ Trimmed copy of `dds_tpu/core/messages.py`: the messages the port's paths
 send over the in-memory transport — the ABD rounds, the supervisor's
 membership and recovery protocol, verified state transfer, Merkle
 anti-entropy, the shard fence's `WrongShard`, live resharding's
-`ShardMigrateBegin`/`ShardMigrateAck` and the fault-injection
-backdoors, with the reference's field names in its order — and its wire
+`ShardMigrateBegin`/`ShardMigrateAck`, the Atlas geo plane's read
+leases and region-local reads and the fault-injection backdoors, with the reference's field names in its order — and its wire
 codec, tagged canonical JSON (`dumps`/`loads`), which ChaosNet's corrupt
 fault flips a byte of. For every class here `dumps` gives the
 reference's bytes: the same names, field order and string annotations
@@ -388,6 +388,76 @@ class ShardMigrateAck:
 
 
 # --------------------------------------------------------------------------
+# Atlas geo plane: read leases + region-local reads (dds_tpu_torch/geo)
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LeaseRequest:
+    """Proxy -> the replica homed in the proxy's region: grant (or renew)
+    the region's read lease on yourself for `ttl` seconds. MACed with the
+    ABD secret over the (region, ttl) manifest: a forged grant would be a
+    free availability attack (every quorum would wait on the forger's
+    chosen replica)."""
+
+    region: str
+    ttl: float
+    nonce: int
+    signature: bytes
+
+
+@dataclass(frozen=True)
+class LeaseGrant:
+    """Replica -> proxy: the lease is installed in the group's shared
+    LeaseTable (ok=True) or refused (ok=False: no table wired). `token` is
+    the table-minted capability LocalRead must echo; `expires` is on the
+    granting side's clock, so the proxy derives its own horizon from the
+    `ttl` it asked for."""
+
+    region: str
+    replica: str
+    token: str
+    expires: float
+    ok: bool
+    nonce: int
+    signature: bytes
+
+
+@dataclass(frozen=True)
+class LeaseRevoke:
+    """Any group replica: drop `region`'s lease from the shared table.
+    The holder finds out when its next LocalRead is refused."""
+
+    region: str
+    nonce: int
+    signature: bytes
+
+
+@dataclass(frozen=True)
+class LocalRead:
+    """Proxy -> lease-holding replica: answer `key` from local state
+    under the lease capability `token`, with no quorum round. Refused
+    with ok=False unless (region, replica, token) is the active lease, so
+    the proxy falls back to a full quorum read at once."""
+
+    key: str
+    region: str
+    token: str
+    nonce: int
+    signature: bytes
+    epoch: int = -1
+
+
+@dataclass(frozen=True)
+class LocalReadReply:
+    tag: Optional[ABDTag]
+    key: str
+    value: Optional[DDSSet]
+    ok: bool
+    nonce: int
+    signature: bytes
+
+
+# --------------------------------------------------------------------------
 # fault injection backdoor (malicious/MaliciousAttack.scala:34)
 # --------------------------------------------------------------------------
 
@@ -422,6 +492,7 @@ _TYPES = {
         MerkleRootRequest, MerkleRoot, MerkleBucketRequest, MerkleBuckets,
         MerkleKeysRequest, MerkleKeys, RepairRequest, RepairReply,
         WrongShard, ShardMigrateBegin, ShardMigrateAck,
+        LeaseRequest, LeaseGrant, LeaseRevoke, LocalRead, LocalReadReply,
     )
 }
 

@@ -1,11 +1,11 @@
 """Proxy-side ABD access: nonce-challenged, HMAC-verified quorum reads/writes.
 
-Trimmed copy of `dds_tpu/core/quorum_client.py` (read leases are not
-ported). A point op picks a random trusted replica as
-coordinator (the supervisor's freshest half first), sends a signed
-`Envelope(IRead/IWrite)`, awaits the enveloped reply, and verifies (a) the
-challenge nonce is the request nonce + increment, (b) the proxy HMAC over
-the reply, (c) the echoed key. Every protocol violation adds a suspicion
+Trimmed copy of `dds_tpu/core/quorum_client.py`. A point op picks a
+random trusted replica as coordinator (the supervisor's freshest half
+first), sends a signed `Envelope(IRead/IWrite)`, awaits the enveloped
+reply, and verifies (a) the challenge nonce is the request nonce +
+increment, (b) the proxy HMAC over the reply, (c) the echoed key. Every
+protocol violation adds a suspicion
 strike on the coordinator (3 strikes exclude it) and raises a typed
 Byzantine exception; mere timeouts trip a per-coordinator circuit breaker
 that steers the next picks elsewhere and self-heals through half-open
@@ -18,6 +18,14 @@ proxy broadcasts itself. Callers pass a `Deadline` so each attempt's
 timeout shrinks to the remaining request budget. A verified reply
 annotates its `abd.fetch` / `abd.write` span with `ok`, `op`, `key`, `seq`
 and `tag_id`, the record the Watchtower audits (`obs/watchtower.py`).
+
+Atlas read-local leases (`lease_enabled`, set by the Constellation for a
+client homed in a region): a read first asks the in-region replica for
+the region's TTL read lease and then reads one hop from it (`LocalRead`),
+its span tagged `lease=True` and `replica=<holder>`; any refusal, timeout
+or invalid reply drops the lease session and the read takes the full
+quorum path. Lease replies correlate by request nonce only, so a late one
+never resolves an ABD round.
 
 A junk reply from the asked coordinator resolves the outstanding request
 and is then rejected by validation, rather than stalling until timeout.
@@ -33,6 +41,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -80,6 +89,19 @@ class AbdClientConfig:
     # Constellation shard label for this client's metric series (empty =
     # unsharded, series keep their label sets)
     shard: str = ""
+    # Atlas read-local leases (dds_tpu_torch/geo): when enabled and an
+    # in-region replica is known, reads first try a single-hop LocalRead
+    # against the TTL-leased holder; any refusal, timeout or validation
+    # failure drops the lease session and the read falls back to the full
+    # quorum path, so leases are a latency optimisation, never a
+    # correctness dependency
+    lease_enabled: bool = False
+    region: str = ""  # this proxy's home region ("" = geo-unaware)
+    # replica addr (or bare name) -> region label, as placed by shard.fabric
+    replica_regions: Optional[dict] = None
+    lease_ttl: float = 2.0
+    lease_renew_margin: float = 0.5  # renew when lease remaining < margin
+    local_read_timeout: float = 0.75  # LocalRead budget before fallback
 
 
 class AbdClient:
@@ -101,6 +123,16 @@ class AbdClient:
         # epoch, stamped on every Envelope/ReadTagBatch so replicas can
         # fence stale routes. None = -1 = unsharded
         self.shard_epoch = None
+        # Atlas lease session: {"target", "replica", "token", "renew_at",
+        # "expires"} while we hold an in-region read lease, else None.
+        # Client-side expiry counts from SEND time, so it is always
+        # conservative against the holder's table clock
+        self._lease: Optional[dict] = None
+        self._lease_retry_at = 0.0  # grant backoff after a refusal/timeout
+        # lease/local-read request nonce -> future (replies echo it)
+        self._pending_lease: dict[int, asyncio.Future] = {}
+        self._lease_grant: Optional[asyncio.Task] = None  # the grant in flight
+        self._now = time.monotonic  # test hook (fake-clock schedules)
         net.register(addr, self.handle)
 
     async def handle(self, sender: str, msg) -> None:
@@ -123,6 +155,15 @@ class AbdClient:
                     fut.set_result(msg)
             elif msg.nonce in self._pending_tags:
                 self._on_wrong_shard_batch(sender, msg)
+            return
+        if isinstance(msg, (M.LeaseGrant, M.LocalReadReply)):
+            # correlate by REQUEST nonce; an unmatched (late) lease reply is
+            # dropped HERE, never falling through to the junk-reply path,
+            # where it would resolve an ABD round in flight and strike an
+            # honest replica that also coordinates it
+            entry = self._pending_lease.get(msg.nonce)
+            if entry is not None and not entry.done():
+                entry.set_result(msg)
             return
         if isinstance(msg, M.ActiveReplicas):
             if self.cfg.supervisor is not None and sender != self.cfg.supervisor:
@@ -301,6 +342,14 @@ class AbdClient:
         sig = sigs.proxy_signature(self.cfg.proxy_mac_secret, key, nonce)
         cfg = self.cfg
         with tracer.span("abd.fetch") as span_meta:
+            # Atlas fast path: one hop to the in-region lease holder. Not
+            # when the caller steers coordinators (`exclude`: an audit wants
+            # an INDEPENDENT quorum read, not a lease echo); any miss falls
+            # through to the quorum round
+            if cfg.lease_enabled and not exclude:
+                local = await self._local_fetch(key, span_meta, deadline)
+                if local is not None:
+                    return local
             reply, coord, challenge = await self._ask(
                 M.IRead(key), nonce, sig, exclude, deadline, op="fetch"
             )
@@ -432,6 +481,195 @@ class AbdClient:
             votes[sender] = tuple(msg.tags)
         if len(votes) >= self.cfg.quorum_size:
             fut.set_result(list(votes.values()))
+
+    # ------------------------------------------------- Atlas read-local leases
+
+    def _local_replica(self) -> Optional[str]:
+        """The trusted in-region replica eligible to hold our read lease:
+        the first in trusted order (so seeded fleets pick the same one)
+        whose breaker lets traffic through. A lease-plane timeout counts
+        against the target's breaker, so once a dead holder's breaker
+        opens the lease moves to the region's next replica; the reference
+        takes the first in-region replica whatever its breaker says, and
+        keeps asking a dead holder (ROADMAP §C 18). None when no in-region
+        replica is eligible: the read takes the quorum path."""
+        cfg = self.cfg
+        if not cfg.lease_enabled or not cfg.region or not cfg.replica_regions:
+            return None
+        for addr in self.replicas.get_trusted():
+            name = addr.rsplit("/", 1)[-1]
+            region = cfg.replica_regions.get(
+                addr, cfg.replica_regions.get(name, ""))
+            if region == cfg.region:
+                b = self.breakers.get(addr)
+                if b is None or b.allow():
+                    return addr
+        return None
+
+    def lease_state(self) -> Optional[dict]:
+        """Current lease session for /health: {replica, region, remaining}
+        or None."""
+        lease = self._lease
+        if lease is None:
+            return None
+        remaining = lease["expires"] - self._now()
+        if remaining <= 0:
+            return None
+        return {"replica": lease["replica"], "region": self.cfg.region,
+                "remaining": round(remaining, 3)}
+
+    def invalidate_lease(self) -> None:
+        """Drop the lease session; the next read goes full-quorum (and may
+        re-acquire after the grant backoff)."""
+        self._lease = None
+
+    async def _ask_lease(self, target: str, msg, nonce: int, timeout: float):
+        """One lease-plane round trip, correlated by request nonce."""
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._pending_lease[nonce] = fut
+        try:
+            self.net.send(self.addr, target, msg)
+            return await asyncio.wait_for(fut, timeout)
+        finally:
+            self._pending_lease.pop(nonce, None)
+
+    async def _ensure_lease(self) -> Optional[dict]:
+        """Grant-or-renew the region read lease. None = no lease available
+        right now (no in-region replica, a refusal, or inside the
+        backoff). Concurrent reads share one grant round: every grant
+        mints a new token and kills the last, so the reference's one
+        round per read leaves all but the last reader's token refused and
+        those reads falling back to a full quorum (ROADMAP §C 19)."""
+        lease, now = self._lease, self._now()
+        if lease is not None and now < lease["renew_at"]:
+            return lease
+        if lease is None and now < self._lease_retry_at:
+            return None
+        if self._lease_grant is None or self._lease_grant.done():
+            self._lease_grant = asyncio.ensure_future(self._grant_lease(now))
+        return await asyncio.shield(self._lease_grant)
+
+    async def _grant_lease(self, sent_at: float) -> Optional[dict]:
+        """One grant round with the in-region replica: the new session, or
+        None after a refusal, a timeout or an invalid grant (the backoff
+        set and the failure counted)."""
+        cfg = self.cfg
+        target = self._local_replica()
+        if target is None:
+            self._lease = None
+            return None
+        nonce = sigs.generate_nonce()
+        sig = sigs.manifest_signature(
+            cfg.abd_mac_secret, "lease-request",
+            {"region": cfg.region, "ttl": cfg.lease_ttl}, nonce)
+        try:
+            grant = await self._ask_lease(
+                target, M.LeaseRequest(cfg.region, cfg.lease_ttl, nonce, sig),
+                nonce, cfg.local_read_timeout)
+        except asyncio.TimeoutError:
+            grant = None
+            self._breaker(target).record_failure()
+        if (
+            not isinstance(grant, M.LeaseGrant)
+            or not grant.ok
+            or grant.region != cfg.region
+            or not sigs.validate_manifest_signature(
+                cfg.abd_mac_secret, "lease-grant",
+                {"region": grant.region, "replica": grant.replica,
+                 "token": grant.token, "expires": grant.expires,
+                 "ok": grant.ok}, nonce, grant.signature)
+        ):
+            self._lease = None
+            self._lease_retry_at = self._now() + cfg.lease_renew_margin
+            metrics.inc(
+                "dds_geo_lease_failures_total", **self._mlabels(),
+                help="lease grant/renew attempts that were refused, "
+                     "timed out, or failed validation",
+            )
+            return None
+        self._breaker(target).record_success()
+        # expiry from SEND time: we stop using the token strictly before
+        # the holder stops honouring it
+        self._lease = {
+            "target": target,
+            "replica": grant.replica,
+            "token": grant.token,
+            "renew_at": sent_at + cfg.lease_ttl - cfg.lease_renew_margin,
+            "expires": sent_at + cfg.lease_ttl,
+        }
+        return self._lease
+
+    def _lease_fallback(self, reason: str, backoff: bool = True) -> None:
+        """Drop the lease session after a failed local read (with the grant
+        backoff unless `backoff` is False) and count the fallback."""
+        self._lease = None
+        if backoff:
+            self._lease_retry_at = self._now() + self.cfg.lease_renew_margin
+        metrics.inc(
+            "dds_geo_local_read_fallbacks_total", **self._mlabels(reason=reason),
+            help="lease reads that fell back to a full quorum round",
+        )
+
+    async def _local_fetch(self, key: str, span_meta: dict,
+                           deadline: Optional[Deadline]):
+        """Lease fast path for one read: a single hop to the in-region
+        holder. Returns (value, tag, holder) or None, which means "take
+        the full quorum path", never an error."""
+        cfg = self.cfg
+        lease = await self._ensure_lease()
+        if lease is None:
+            return None
+        timeout = cfg.local_read_timeout
+        if deadline is not None:
+            timeout = min(timeout, deadline.remaining())
+            if timeout <= 0:
+                return None
+        nonce = sigs.generate_nonce()
+        sig = sigs.proxy_signature(cfg.proxy_mac_secret, key, nonce,
+                                   ["local-read", cfg.region])
+        try:
+            reply = await self._ask_lease(
+                lease["target"],
+                M.LocalRead(key, cfg.region, lease["token"], nonce, sig,
+                            epoch=self._epoch()),
+                nonce, timeout)
+        except asyncio.TimeoutError:
+            # holder unreachable: the table-side TTL unpins the group's
+            # quorums on its own, and its breaker steers the next grant
+            self._breaker(lease["target"]).record_failure()
+            self._lease_fallback("timeout")
+            return None
+        if (
+            not isinstance(reply, M.LocalReadReply)
+            or reply.key != key
+            or not sigs.validate_proxy_signature(
+                cfg.proxy_mac_secret, reply.key, reply.nonce, reply.signature,
+                [reply.ok, reply.value,
+                 sigs.tag_payload(reply.tag) if reply.tag is not None
+                 else None])
+        ):
+            # a garbled or forged local reply is cryptographic evidence
+            # like any other protocol violation
+            self.replicas.increment_suspicion(lease["target"])
+            self._lease_fallback("invalid", backoff=False)
+            return None
+        if not reply.ok:
+            # typed refusal: the lease was revoked or expired table-side
+            # (or the key is fenced)
+            self._lease_fallback("refused")
+            return None
+        span_meta["ok"] = True
+        span_meta["op"] = "read"
+        span_meta["key"] = key
+        # the Watchtower reads these two: `lease` switches the span from
+        # the quorum-intersection bound to the lease-window invariant, and
+        # `replica` is what its lease_lookup checks
+        span_meta["lease"] = True
+        span_meta["replica"] = lease["replica"]
+        if reply.tag is not None:
+            span_meta["seq"] = reply.tag.seq
+            span_meta["tag_id"] = reply.tag.id
+        return reply.value, reply.tag, lease["target"]
 
     async def read_tags(self, keys: list[str], digest: str | None = None,
                         fingerprint: bytes | None = None,

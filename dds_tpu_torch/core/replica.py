@@ -6,8 +6,9 @@ Trimmed copy of `dds_tpu/core/replica.py`: the three behaviours
 reseed, `StateDigestRequest`, `Kill`), the Merkle index and anti-entropy
 agent, the fault-injection gate, the Constellation's shard fence and its
 migration ingest (`ShardMigrateBegin` + `StateChunk(kind="migrate")`,
-merged store-if-newer, and `drop_unowned` after a reshape activates).
-Leases and geo local reads are not ported.
+merged store-if-newer, and `drop_unowned` after a reshape activates),
+and the Atlas read-lease gate (`lease_table`, the holder-pinned
+`_quorum_met`, `LeaseRequest`/`LeaseRevoke`/`LocalRead`).
 
 Protocol summary:
 - proxy `Envelope(IWrite)` -> broadcast `ReadTag`; on a quorum of
@@ -18,6 +19,10 @@ Protocol summary:
   take the max (tag, value, signature); if the whole quorum agreed answer
   directly, else broadcast a write-back `Write` with the original
   signature and answer `IReadReply` on a quorum of `WriteAck`.
+- while the group's `lease_table` holds an active read lease, every write
+  and read quorum this coordinator closes must also contain the holders
+  (`_quorum_met`); the holder answers `LocalRead` from its own state under
+  the lease token, one hop for a proxy in its region.
 - proxy `ReadTagBatch` -> answer the tag vector (or "unchanged" when the
   proxy's fingerprint matches), MACed with the intranet secret.
 - a replica of a shard group (`shard`, the group's shared
@@ -128,6 +133,10 @@ class BFTABDNode:
         # last snapshot save/load bookkeeping (core/snapshot fills it;
         # /health and the scrape-time gauges read it)
         self.snapshot_meta: dict = {}
+        # Atlas read-lease geometry: the group's shared geo.LeaseTable
+        # (None = leases off). While any lease is active every quorum this
+        # coordinator closes must include the holders (dds_tpu_torch/geo)
+        self.lease_table = None
         net.register(addr, self.handle)
 
     # ------------------------------------------------------------------ util
@@ -179,6 +188,24 @@ class BFTABDNode:
         self._tagbatch_cache.clear()
         self.merkle.rebuild({})
         self._recovery_sessions.clear()
+
+    def _quorum_met(self, responders) -> bool:
+        """Quorum gate for the write and read rounds this coordinator
+        closes: plain `>= quorum_size`, except while read leases are out,
+        when the quorum must ALSO contain every active holder. A leased
+        replica then stores each acked write (and each value a read
+        returns) before the round completes, so its local reads never
+        trail an acked write. A dead holder stalls rounds at most one
+        lease TTL (expiry drops it from `holders()`)."""
+        if len(responders) < self.cfg.quorum_size:
+            return False
+        if self.lease_table is None:
+            return True
+        holders = self.lease_table.holders()
+        if not holders:
+            return True
+        names = {s.rsplit("/", 1)[-1] for s in responders}
+        return holders <= names
 
     def _shard_fenced(self, key: str) -> bool:
         """True when this group must NOT serve `key` under its current
@@ -435,7 +462,7 @@ class BFTABDNode:
                     self._suspect(sender)
                     return
                 req.write_quorum.add(sender)
-                if len(req.write_quorum) >= cfg.quorum_size:
+                if self._quorum_met(req.write_quorum):
                     req.write_quorum = set()
                     match req.call:
                         case M.IRead(k):
@@ -482,7 +509,7 @@ class BFTABDNode:
                     self._debug("ReadReply for another key")
                     return
                 req.read_quorum[sender] = (tag, value, signature)
-                if len(req.read_quorum) >= cfg.quorum_size:
+                if self._quorum_met(req.read_quorum):
                     entries = list(req.read_quorum.values())
                     max_tag, max_val, max_sig = max(entries, key=lambda e: e[0])
                     req.read_quorum = {}
@@ -499,6 +526,85 @@ class BFTABDNode:
                         return
                     # ABD write-back phase, re-using the original signature
                     self._broadcast(M.Write(max_tag, key, max_val, max_sig, nonce))
+
+            case M.LeaseRequest(region, ttl, nonce, signature):
+                if not sigs.validate_manifest_signature(
+                    cfg.abd_mac_secret, "lease-request",
+                    {"region": region, "ttl": ttl}, nonce, signature,
+                ):
+                    self._debug("invalid lease-request signature")
+                    return
+                if nonce in self.incoming:
+                    self._debug("invalid nonce - repeated (lease request)")
+                    self._suspect(sender)
+                    return
+                self.incoming[nonce] = True
+                ok = self.lease_table is not None
+                token, expires = "", 0.0
+                if ok:
+                    lease = self.lease_table.grant(region, self.name, float(ttl))
+                    token, expires = lease.token, lease.expires
+                    tracer.event("geo.lease_grant", replica=self.name,
+                                 region=region, ttl=float(ttl))
+                rsig = sigs.manifest_signature(
+                    cfg.abd_mac_secret, "lease-grant",
+                    {"region": region, "replica": self.name, "token": token,
+                     "expires": expires, "ok": ok}, nonce,
+                )
+                self._send(sender, M.LeaseGrant(region, self.name, token,
+                                                expires, ok, nonce, rsig))
+
+            case M.LeaseRevoke(region, nonce, signature):
+                if not sigs.validate_manifest_signature(
+                    cfg.abd_mac_secret, "lease-revoke",
+                    {"region": region}, nonce, signature,
+                ):
+                    self._debug("invalid lease-revoke signature")
+                    return
+                if nonce in self.incoming:
+                    self._debug("invalid nonce - repeated (lease revoke)")
+                    self._suspect(sender)
+                    return
+                self.incoming[nonce] = True
+                if self.lease_table is not None:
+                    self.lease_table.revoke(region)
+                    tracer.event("geo.lease_revoke", replica=self.name,
+                                 region=region)
+
+            case M.LocalRead(key, region, token, nonce, signature):
+                if not sigs.validate_proxy_signature(
+                    cfg.proxy_mac_secret, key, nonce, signature,
+                    ["local-read", region],
+                ):
+                    self._debug("invalid proxy signature (local read)")
+                    return
+                if nonce in self.incoming:
+                    self._debug("invalid nonce - repeated (local read)")
+                    self._suspect(sender)
+                    return
+                self.incoming[nonce] = True
+                served = (
+                    self.lease_table is not None
+                    and self.lease_table.valid(region, self.name, token)
+                    and not self._shard_fenced(key)
+                )
+                # a refusal (bad, expired or revoked lease, or a fence) is
+                # typed: the proxy falls back to a full quorum read at once
+                # instead of timing out a WAN round trip first
+                tag, value = self._state(key) if served else (None, None)
+                metrics.inc(
+                    "dds_geo_local_reads_total",
+                    result="served" if served else "refused",
+                    replica=self.name,
+                    help="lease-backed region-local reads by outcome",
+                )
+                rsig = sigs.proxy_signature(
+                    cfg.proxy_mac_secret, key, nonce,
+                    [served, value,
+                     sigs.tag_payload(tag) if tag is not None else None],
+                )
+                self._send(sender, M.LocalReadReply(tag, key, value, served,
+                                                    nonce, rsig))
 
             case M.Sleep(data, nonces):
                 # legacy unverified reseed (deployments that turn

@@ -3,11 +3,13 @@
 Copy of `dds_tpu/fleet/helmsman.py`: the same decision tick, restraint,
 override, records and series, so one signal sequence on one clock gives
 the same actions, reports and flight records in both packages. In-process
-(`run._launch_constellation`) the `source_ages` and `regions` feeds stay
-None, as the reference's launch leaves them: their sources (the fleet
-collector's heartbeats, geo labels) are multi-host planes the port does
-not serve, so only an injected `source_ages` (or a `canary_unreachable`
-feed with `regions`) reaches `_check_liveness` here.
+(`run._launch_constellation`) the `source_ages` feed stays None, as the
+reference's launch leaves it (its source, the fleet collector's
+heartbeats, is a multi-host plane the port does not serve), and with
+`[geo]` the `regions` feed is the groups' home regions, so an injected
+`source_ages` (or a `canary_unreachable` feed with `regions`) reaches
+`_check_liveness`, where a region whose every homed group aged out is
+declared `region_down` and its groups promoted.
 
 The reproduction's dependability story is proactive at the replica level
 (supervisor swaps in sentinent spares) and reactive at the proxy

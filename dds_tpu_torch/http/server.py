@@ -242,6 +242,9 @@ _ADMISSION_EXEMPT = frozenset({"health", "metrics", "slo", "shards", "profile",
 class ProxyConfig:
     host: str = "127.0.0.1"
     port: int = 0
+    # Atlas ([fabric] region): the region this proxy process runs in, on
+    # /health and the canary's loopback target
+    region: str = ""
     # one overall budget per request, minted at the REST edge; quorum
     # attempts and full-jitter backoffs retry inside it, and exhaustion
     # degrades to 503 + Retry-After
@@ -385,7 +388,8 @@ class DDSRestServer:
         # turns point routes into one-group ops and aggregates into
         # per-group folds; a plain AbdClient leaves every path as it was
         self._shards = getattr(abd, "shard_manager", None)
-        self._owner_memo: tuple | None = None  # pairs identity -> (gid, ops)
+        # (pairs identity, pos, map epoch) -> [(gid, ops)]
+        self._owner_memo: tuple | None = None
         # the resident plane: per-group device-resident pools + the fused
         # fold. A cuda backend builds it on its own device; a host backend
         # (`cpu`) gets the portable plane on `device`, the reference's
@@ -541,7 +545,7 @@ class DDSRestServer:
         host = self.cfg.host
         if host in ("0.0.0.0", "::", ""):
             host = "127.0.0.1"
-        targets = [CanaryTarget(host, self.cfg.port)]
+        targets = [CanaryTarget(host, self.cfg.port, region=self.cfg.region)]
         extra, bad = parse_canary_targets(getattr(hcfg, "targets", []))
         for entry in bad:
             log.warning("heliograph: skipping malformed target %r", entry)
@@ -1545,6 +1549,8 @@ class DDSRestServer:
             "stored_keys": len(self.stored_keys),
             "request_budget": self.cfg.request_budget,
         }
+        if self.cfg.region:
+            health["region"] = self.cfg.region
         if self._tenancy_enabled:
             # the ownership footprint and who is shedding itself (never
             # the fleet)
@@ -2250,17 +2256,22 @@ class DDSRestServer:
         """Aggregate operands partitioned by owning shard group, with the
         group id attached (the pool key); unsharded proxies get one
         anonymous group. Memoized per pairs identity like the flat operand
-        memo: the stable operand-list identities are what the pools'
-        row-index memos key on."""
+        memo (the stable operand-list identities are what the pools'
+        row-index memos key on) AND on the active map's epoch: a split,
+        merge or takeover keeps every tag, so the pairs list can outlive
+        it, and the next aggregate must group under the new owners. (The
+        reference keys on the pairs alone and keeps the old grouping,
+        `dds_tpu/http/server.py::_owner_operands`.)"""
+        epoch = self._shards.current().epoch if self._shards is not None else -1
         memo = self._owner_memo
-        if memo is not None and memo[0] is pairs and memo[1] == pos:
-            return memo[2]
+        if memo is not None and memo[0] is pairs and memo[1] == pos and memo[2] == epoch:
+            return memo[3]
         groups: dict[str, list[int]] = {}
         for k, v in pairs:
             if pos < len(v):
                 groups.setdefault(self._owner(k), []).append(int(v[pos]))
         out = [(gid, g) for gid, g in groups.items() if g]
-        self._owner_memo = (pairs, pos, out)
+        self._owner_memo = (pairs, pos, epoch, out)
         return out
 
     def _shard_operands(self, pairs, pos: int) -> list[list[int]]:

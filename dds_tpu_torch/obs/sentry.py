@@ -19,6 +19,11 @@ Each phase is optional per entry; a phase missing on either side is not
 compared. Keys carry the execution platform (`platform()`), so a row
 taken on one device is never compared with another's.
 
+`check_geo_records(root)` is the geo-latency row checker of the
+reference's `benchmarks/sentry.py` (`_check_geo_records`): the same rows
+of `<root>/benchmarks/results.json` and `results_quick.json` pass or
+raise ValueError in both.
+
 Two divergences from the reference:
 - `platform()` answers from torch: `cuda` once this process has used a
   card (the kernel spans then come from one), `cpu` otherwise; the
@@ -41,7 +46,7 @@ import time
 
 __all__ = [
     "collect", "load_baseline", "save_baseline", "compare",
-    "baseline_path", "persist_from_tracer", "platform",
+    "baseline_path", "persist_from_tracer", "platform", "check_geo_records",
 ]
 
 PHASES = ("dispatch", "execute", "compile")
@@ -209,3 +214,60 @@ def compare(baseline: dict, fresh: dict, threshold: float = 0.20,
                         "ratio": round(fv / bv, 3) if bv > 0 else None,
                     })
     return findings
+
+
+def _iter_result_rows(root: str):
+    """(file name, record) for every row of the result files under
+    `<root>/benchmarks`. An unreadable or mis-shaped file raises
+    ValueError."""
+    for name in ("results.json", "results_quick.json"):
+        path = os.path.join(root, "benchmarks", name)
+        if not os.path.exists(path):
+            continue
+        with open(path) as f:
+            try:
+                rows = json.load(f)
+            except json.JSONDecodeError as e:
+                raise ValueError(f"unreadable results file {name}: {e}") from e
+        if not isinstance(rows, list):
+            raise ValueError(f"malformed results file {name}: expected a list")
+        for row in rows:
+            yield name, row
+
+
+def check_geo_records(root: str) -> dict:
+    """Validate `geo latency` rows: a positive read-local-vs-quorum
+    speedup and a detail block proving where it came from (both p95s, a
+    leased-read count, the mid-run revocation flag, ZERO stale reads and a
+    named WAN preset). Returns {"rows": n}; a malformed row raises
+    ValueError."""
+    presets = {"wan-100", "wan-200", "wan-300"}
+
+    def positive(v) -> bool:
+        return isinstance(v, (int, float)) and v > 0
+
+    found = 0
+    for name, row in _iter_result_rows(root):
+        if not (isinstance(row, dict)
+                and str(row.get("metric", "")).startswith("geo latency")):
+            continue
+        detail = row.get("detail")
+        ok = (
+            positive(row.get("value"))
+            and isinstance(detail, dict)
+            and positive(detail.get("local_p95_ms"))
+            and positive(detail.get("quorum_p95_ms"))
+            and isinstance(detail.get("reads"), int) and detail["reads"] > 0
+            and isinstance(detail.get("leased_reads"), int)
+            and detail["leased_reads"] > 0
+            and isinstance(detail.get("fallbacks"), int)
+            and detail["fallbacks"] >= 0
+            and detail.get("revoked_mid_run") is True
+            and detail.get("stale_reads") == 0
+            and detail.get("wan_preset") in presets
+        )
+        if not ok:
+            raise ValueError(f"malformed geo-latency record in {name}: "
+                             f"{row.get('metric')!r}")
+        found += 1
+    return {"rows": found}

@@ -2,8 +2,9 @@
 
 Copy of `dds_tpu/obs/watchtower.py`: the same invariants, verdicts and
 bookkeeping, so the same records give the same verdicts in both packages.
-The lease checks never fire in the port, which emits no `lease=True` span
-(geo is not ported); they stay for that equality.
+The lease checks audit the geo plane's read-local reads: the quorum
+client tags each one `lease=True` with the serving `replica`, and `run`
+configures `lease_lookup` on the Constellation's lease tables.
 
 Telescope (obs/) records what happened — span trees per request, metrics,
 flight incidents — but nothing *consumes* it: a Byzantine coordinator that

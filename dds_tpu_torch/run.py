@@ -46,9 +46,10 @@ dormant); `Deployment.stop` detaches both and resets Chronoscope. A config
 that enables a plane the port does not serve (`unported_plane`) is refused
 with `NotImplementedError` naming it, so every file in `configs/` parses
 but none boots without what it asks for; `configs/default.toml`,
-`configs/tenancy.toml`, `configs/heliograph.toml`, `configs/sharded.toml`
-and `configs/stratum.toml` boot. `[shard] enabled` boots a Constellation
-(`_launch_constellation`, `shard/`): `count` quorum groups of
+`configs/tenancy.toml`, `configs/heliograph.toml`, `configs/sharded.toml`,
+`configs/stratum.toml` and `configs/geo/wan_soak.toml` boot. `[shard]
+enabled` boots a Constellation (`_launch_constellation`, `shard/`):
+`count` quorum groups of
 `replicas-per-group` replicas and `sentinent-per-group` spares, each with
 its own supervisor (proactive recovery with `[recovery] enabled`) and
 anti-entropy loops, on one in-memory transport, behind a `ShardRouter`
@@ -66,9 +67,17 @@ the breakers and the Rebalancer's moved bytes (with tenancy the tenants'
 burns, with Heliograph its unreachable regions, with Stratum the tier
 pressure), subscribed to admission and stopped with the deployment.
 Without `[shard]` a `[helmsman]` section boots no controller, as in the
-reference, whose only wiring is the Constellation's. `[chaos.profiles]`
-is refused (their WAN matrices key on the region labels geo placement
-registers).
+reference, whose only wiring is the Constellation's. `[geo] enabled`
+makes the Constellation geo-aware (Atlas, `geo/`): `regions` home the
+groups round-robin on the signed map and place each group's replicas by
+`placement`, `lease-ttl` arms per-group read leases for the proxy's
+`[fabric] region` (its clients read one hop from their region's holder,
+every quorum pinned on the holders), anti-entropy pairs across regions
+by `cross-region-bias`, Helmsman is fed the groups' home regions and the
+Watchtower audits lease reads against the live lease tables. With a
+ChaosNet, `[chaos.profiles]` installs its region-pair WAN matrix at
+`[chaos] scale`. `[fabric] region` also labels the process (the flight
+recorder's identity and the `dds_process_info` gauge) and `/health`.
 `load_provider(cfg)` builds the
 client's HE provider from the `[client]` section: its keys, its bulk
 encryption backend (`bulk-encrypt-backend = "cuda"` precomputes PSSE
@@ -112,8 +121,10 @@ import logging
 import os
 import pathlib
 import random
+import time
 from dataclasses import dataclass, field
 
+from dds_tpu_torch import __version__
 from dds_tpu_torch.clt.client import ClientConfig, DDSHttpClient
 from dds_tpu_torch.clt.generator import generate
 from dds_tpu_torch.clt.instructions import Digest
@@ -124,6 +135,7 @@ from dds_tpu_torch.core.replica import BFTABDNode, ReplicaConfig
 from dds_tpu_torch.core.supervisor import BFTSupervisor, SupervisorConfig
 from dds_tpu_torch.core.transport import InMemoryNet
 from dds_tpu_torch.fleet import Helmsman
+from dds_tpu_torch.geo import wan
 from dds_tpu_torch.http.server import DDSRestServer, ProxyConfig
 from dds_tpu_torch.malicious.trudy import Nemesis, Trudy
 from dds_tpu_torch.models.backend import get_backend
@@ -141,6 +153,7 @@ from dds_tpu_torch.utils.config import DDSConfig
 from dds_tpu_torch.utils.tasks import supervised_task
 from dds_tpu_torch.utils.trace import tracer
 
+_START_TS = time.time()  # the process's boot stamp on dds_process_info
 log = logging.getLogger("dds_torch.run")
 
 SUPERVISOR_NAME = "supervisor"
@@ -189,14 +202,10 @@ class Deployment:
 
 def unported_plane(cfg: DDSConfig) -> str | None:
     """The first plane `cfg` enables that the port does not serve, or
-    None: the multi-host fabric's roles and groups, geo and the WAN chaos
-    profiles, then the other serving surfaces of the reference that are
-    not ported."""
+    None: the multi-host fabric's roles and groups, then the other serving
+    surfaces of the reference that are not ported."""
     checks = (
         (cfg.fabric.role != "all" or bool(cfg.fabric.groups), "[fabric]: the shard fabric"),
-        (cfg.geo.enabled, "[geo] enabled: geo"),
-        (bool(cfg.chaos.profiles),
-         "[chaos.profiles]: WAN link profiles, which need geo region labels"),
         (cfg.obs.fleet.enabled, "[obs.fleet] enabled: fleet observability"),
         (cfg.transport.kind != "memory", f"[transport] kind = {cfg.transport.kind!r}: "
                                          "the TCP transport"),
@@ -252,6 +261,12 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
         # it, which drains the inner transport too
         net = ChaosNet(net, seed=cfg.attacks.chaos_seed)
         stoppables.append(net)
+        if cfg.chaos.profiles:
+            # Atlas [chaos.profiles]: the WAN link matrix between region
+            # pairs. Endpoints get their regions later (the Constellation
+            # labels its placements); links key on region names and
+            # resolve per send
+            wan.apply_profiles(net, cfg.chaos.profiles, scale=cfg.chaos.scale)
     if cfg.shard.enabled:
         return await _launch_constellation(cfg, net, stoppables, flight_dir)
     rcfg = ReplicaConfig(
@@ -367,6 +382,7 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
     trudy = attacker(net, active, cfg.replicas.byz_max_faults, addr="trudy")
     dep = Deployment(cfg, net, replicas, server, supervisor, trudy, stoppables,
                      flight_dir)
+    publish_identity(cfg, "single")
 
     if cfg.recovery.snapshot_dir and cfg.recovery.snapshot_interval > 0:
         async def _snapshot_loop():
@@ -411,6 +427,22 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
     return dep
 
 
+def publish_identity(cfg: DDSConfig, role: str) -> None:
+    """The process's identity, as the reference publishes it at launch:
+    the flight recorder's incident headers (host, role and, with `[fabric]
+    region`, the region) and the `dds_process_info` gauge on /metrics."""
+    identity = {"host": "local", "role": role}
+    if cfg.fabric.region:
+        identity["region"] = cfg.fabric.region
+    flight.configure(identity=identity)
+    metrics.set(
+        "dds_process_info", 1.0,
+        role=role, shard="-", region=cfg.fabric.region or "-",
+        pid=str(os.getpid()), start_ts=f"{_START_TS:.3f}", version=__version__,
+        help="process identity (value is always 1; the labels carry it)",
+    )
+
+
 def proxy_config(cfg: DDSConfig, supervisor: str) -> ProxyConfig:
     """The proxy's ProxyConfig from the config tree; `supervisor` is the
     one it refreshes its replica view from (a Constellation's router
@@ -419,6 +451,7 @@ def proxy_config(cfg: DDSConfig, supervisor: str) -> ProxyConfig:
     return ProxyConfig(
         host=p.host,
         port=p.port,
+        region=cfg.fabric.region,
         request_budget=p.request_budget,
         retry_backoff=p.retry_backoff,
         retry_max_delay=p.retry_max_delay,
@@ -487,6 +520,11 @@ def shard_configs(cfg: DDSConfig):
         breaker_threshold=cfg.proxy.breaker_threshold,
         breaker_reset=cfg.proxy.breaker_reset,
         fast_fail_all_open=cfg.admission.fast_fail,
+        # Atlas read-local lease knobs ([geo]); the region, the per-group
+        # lease_ttl and replica_regions are stamped by the Constellation
+        # builder, which also turns lease_enabled on
+        lease_renew_margin=cfg.geo.lease_renew_margin,
+        local_read_timeout=cfg.geo.local_read_timeout,
     )
     return rcfg, sup_cfg, abd_cfg
 
@@ -520,8 +558,9 @@ class ConstellationReshard:
 
 def start_helmsman(cfg: DDSConfig, const, server: DDSRestServer) -> Helmsman:
     """The Helmsman of `[helmsman]` on the Constellation and the proxy,
-    with the reference's feeds (`dds_tpu/run.py` `_launch_constellation`);
-    `source_ages` and `regions` stay None in-process, as there. Subscribed
+    with the reference's feeds (`dds_tpu/run.py` `_launch_constellation`):
+    with `[geo]` the groups' home regions (read live, so split-born and
+    promoted groups appear), `source_ages` None in-process, as there. Subscribed
     to admission, set on the server (its /health block and POST
     /_helmsman) and started."""
     admission = server.admission
@@ -540,6 +579,11 @@ def start_helmsman(cfg: DDSConfig, const, server: DDSRestServer) -> Helmsman:
         tenant_burns=(lambda s=server.slo: {
             t: max(b) for t, b in s.tenant_burns().items() if b
         }) if cfg.tenancy.enabled else None,
+        # Atlas: gid -> home region, read live so split-born groups (which
+        # inherit the victim's region) appear without rewiring
+        regions=(lambda c=const: {
+            g.gid: g.home_region for g in c.groups if g.home_region
+        }) if cfg.geo.enabled else None,
         # Heliograph: sustained canary unreachability from a region
         canary_unreachable=(lambda s=server: (
             s.heliograph.unreachable_regions()
@@ -566,7 +610,10 @@ async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet | ChaosNet,
     /_reshard through `ConstellationReshard`. With `plan-dir` a journaled
     plan is resolved before any traffic; with `[helmsman] enabled` the
     autoscaler starts. The Watchtower audits every group against its own
-    quorum geometry."""
+    quorum geometry and, with `[geo]` leases, lease reads against the live
+    lease tables. `[geo] enabled` passes its regions, placement and lease
+    TTL to the builder, with `[fabric] region` the proxy clients' home,
+    and pairs anti-entropy across regions."""
     sh = cfg.shard
     rcfg, sup_cfg, abd_cfg = shard_configs(cfg)
     const = build_constellation(
@@ -587,6 +634,13 @@ async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet | ChaosNet,
         sup_cfg=sup_cfg,
         abd_cfg=abd_cfg,
         chaos=cfg.attacks.chaos_enabled,
+        # Atlas: region-aware placement and read-local leases ([geo]); the
+        # builder signs the home regions onto the map and homes this
+        # process's proxy clients at [fabric] region
+        regions=list(cfg.geo.regions) if cfg.geo.enabled else None,
+        placement=cfg.geo.placement,
+        lease_ttl=cfg.geo.lease_ttl if cfg.geo.enabled else 0.0,
+        client_region=cfg.fabric.region,
     )
     if sh.plan_dir:
         # a previous process may have died mid-reshard: resolve the
@@ -600,12 +654,22 @@ async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet | ChaosNet,
         for g in const.groups:
             g.supervisor.start()
     if cfg.recovery.anti_entropy_enabled:
-        for node in replicas.values():
-            node.antientropy.configure(
-                interval=cfg.recovery.anti_entropy_interval,
-                jitter=cfg.recovery.anti_entropy_jitter,
-            )
-            node.antientropy.start()
+        for g in const.groups:
+            for node in g.replicas.values():
+                node.antientropy.configure(
+                    interval=cfg.recovery.anti_entropy_interval,
+                    jitter=cfg.recovery.anti_entropy_jitter,
+                )
+                if cfg.geo.enabled and g.replica_regions:
+                    # Atlas: a biased share of pull rounds reaches across
+                    # the WAN, extra-jittered so a region's loops do not
+                    # thunder over the slow links together
+                    node.antientropy.configure(
+                        regions=g.replica_regions,
+                        cross_region_bias=cfg.geo.cross_region_bias,
+                        cross_jitter=cfg.geo.cross_jitter,
+                    )
+                node.antientropy.start()
     server = DDSRestServer(
         const.router,
         proxy_config(cfg, const.groups[0].supervisor.addr),
@@ -622,6 +686,7 @@ async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet | ChaosNet,
         stoppables.append(start_helmsman(cfg, const, server))
     dep = Deployment(cfg, net, replicas, server, None, const.groups[0].trudy,
                      stoppables, flight_dir, constellation=const)
+    publish_identity(cfg, "constellation")
     if cfg.obs.audit_enabled:
         watchtower.reset()
         watchtower.configure(
@@ -630,6 +695,12 @@ async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet | ChaosNet,
             check_quorum=cfg.obs.audit_quorum_checks,
             group_geometry={g.gid: (g.quorum_size, len(g.active))
                             for g in const.groups},
+            # Atlas: lease-tagged single-hop reads are audited against the
+            # live lease tables instead of the quorum-size bound
+            lease_lookup=(lambda name, c=const: any(
+                g.lease_table is not None and g.lease_table.held_by(name)
+                for g in c.groups
+            )) if cfg.geo.enabled and cfg.geo.lease_ttl > 0 else None,
         )
         watchtower.attach(tracer)
     chronoscope.attach(tracer)

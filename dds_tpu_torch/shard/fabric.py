@@ -1,9 +1,12 @@
 """Constellation fabric: build S independent BFT-ABD quorum groups.
 
 Copy of `dds_tpu/shard/fabric.py` on the in-memory transport (or a
-ChaosNet over it), without Atlas (geo placement, leases, region labels:
-the reference's `_register_net_regions` labels a ChaosNet's endpoints
-for geo, and its standby acquisition prefers a region). One group is the
+ChaosNet over it), with Atlas: region-aware placement (`regions`, and
+`placement` span, home or a per-gid dict), the home regions signed onto
+the map, per-group read-lease tables (`lease_ttl`), proxy clients homed
+in `client_region`, every endpoint labelled on a ChaosNet so
+`[chaos.profiles]` matrices apply, and a takeover that prefers a standby
+homed in the dead group's region. One group is the
 single-group stack — replicas (+ sentinent spares), a supervisor,
 per-replica Merkle anti-entropy, an `AbdClient` and a Trudy (a Nemesis
 with `chaos`) — with namespaced endpoints (`s0-replica-3`,
@@ -24,6 +27,8 @@ from dataclasses import dataclass, field
 from dds_tpu_torch.core.quorum_client import AbdClient, AbdClientConfig
 from dds_tpu_torch.core.replica import BFTABDNode, ReplicaConfig
 from dds_tpu_torch.core.supervisor import BFTSupervisor, SupervisorConfig
+from dds_tpu_torch.geo.lease import LeaseTable
+from dds_tpu_torch.geo.placement import group_regions, spread
 from dds_tpu_torch.malicious.trudy import Nemesis, Trudy
 from dds_tpu_torch.obs.flight import flight
 from dds_tpu_torch.shard.rebalance import Rebalancer, _maybe_await
@@ -44,9 +49,21 @@ class ShardGroup:
     state: ShardState
     quorum_size: int
     trudy: object = None
+    # Atlas: replica endpoint -> region, the group's home region label,
+    # and the shared per-group read-lease table (None = leases off)
+    replica_regions: dict = field(default_factory=dict)
+    home_region: str = ""
+    lease_table: object = None
 
     def all_replicas(self) -> list[str]:
         return self.active + self.sentinent
+
+    def region_census(self) -> dict:
+        """region -> replica count, for /health and placement checks."""
+        out: dict = {}
+        for region in self.replica_regions.values():
+            out[region] = out.get(region, 0) + 1
+        return dict(sorted(out.items()))
 
     def export_from(self, endpoint: str) -> dict:
         """Export one replica's repository (migration seed DATA — every
@@ -75,6 +92,12 @@ class Constellation:
     # warm standbys: groups a merge retired (still running, pruned empty)
     # — the next split or takeover reuses one instead of building fresh
     standbys: list = field(default_factory=list)
+    # Atlas build parameters, kept so standby groups built later place
+    # the way the original fleet did
+    geo_regions: list = field(default_factory=list)
+    geo_placement: object = "span"
+    geo_lease_ttl: float = 0.0
+    geo_client_region: str = ""
 
     @property
     def gids(self) -> list[str]:
@@ -95,12 +118,29 @@ class Constellation:
             n += 1
         return f"s{n}"
 
-    def _acquire_standby(self, gid: str | None = None) -> ShardGroup:
+    def regions_of_endpoints(self) -> dict:
+        """Every fabric endpoint's region label (replicas per their
+        placement; supervisor and proxy client per the group home or the
+        client region): what ChaosNet region matrices key off."""
+        out: dict = {}
+        for g in self.groups + self.standbys:
+            out.update(g.replica_regions)
+            if g.home_region:
+                out[g.supervisor.addr] = g.home_region
+            region = self.geo_client_region or g.home_region
+            if region:
+                out[g.client.addr] = region
+        return out
+
+    def _acquire_standby(self, gid: str | None = None,
+                         prefer_region: str = "") -> ShardGroup:
         """A serving-capable group outside the active map: a warm standby
         a merge retired, else a freshly built one (fenced until a map
         gives it keys, so it can be brought up eagerly without traffic).
         A caller naming `gid` (an operator's replayable split target)
-        gets that standby, or a fresh group under that name."""
+        gets that standby, or a fresh group under that name.
+        `prefer_region` picks a standby homed there when one exists (the
+        Atlas takeover preference); a fresh group is homed there too."""
         if gid is not None:
             for i, g in enumerate(self.standbys):
                 if g.gid == gid:
@@ -109,10 +149,32 @@ class Constellation:
                 raise ValueError(f"target group {gid!r} is already active")
         else:
             if self.standbys:
+                if prefer_region:
+                    for i, g in enumerate(self.standbys):
+                        if g.home_region == prefer_region:
+                            return self.standbys.pop(i)
                 return self.standbys.pop(0)
             gid = self._fresh_gid()
         state = ShardState(gid, self.manager.current(), self.secret)
-        return build_group(self.net, gid, state, **self._build_kwargs)
+        kwargs = dict(self._build_kwargs)
+        if self.geo_regions:
+            mode = (self.geo_placement.get(gid, "span")
+                    if isinstance(self.geo_placement, dict)
+                    else self.geo_placement)
+            home = prefer_region or self.geo_regions[0]
+            kwargs["regions"] = ([home] if mode == "home"
+                                 else list(self.geo_regions))
+            kwargs["home_region"] = home
+            kwargs["lease_ttl"] = self.geo_lease_ttl
+        group = build_group(self.net, gid, state, **kwargs)
+        if self.geo_regions and hasattr(self.net, "set_regions"):
+            labels = dict(group.replica_regions)
+            if group.home_region:
+                labels[group.supervisor.addr] = group.home_region
+                labels[group.client.addr] = (self.geo_client_region
+                                             or group.home_region)
+            self.net.set_regions(labels)
+        return group
 
     def _adopt(self, group: ShardGroup) -> None:
         self.groups.append(group)
@@ -159,9 +221,11 @@ class Constellation:
         a standby group, which serves it at once. Availability over data:
         a whole-group loss is beyond the <= f fault model, so the slice
         restarts empty and refills from client writes. Announced like any
-        activation (`on_activate`)."""
+        activation (`on_activate`). A standby homed where the dead group
+        lived is preferred, so the slice keeps its geography (and its WAN
+        profile); the relabeled map carries the home region over."""
         dead = self.group(dead_gid)
-        standby = self._acquire_standby()
+        standby = self._acquire_standby(prefer_region=dead.home_region)
         new_map = (self.manager.current()
                    .relabel(dead_gid, standby.gid).sign(self.secret))
         self.groups.remove(dead)
@@ -196,18 +260,37 @@ def build_group(
     abd_cfg: AbdClientConfig | None = None,
     chaos: bool = False,
     rng: random.Random | None = None,
+    regions: list[str] | None = None,
+    home_region: str = "",
+    lease_ttl: float = 0.0,
 ) -> ShardGroup:
     """One namespaced quorum group over `net`, fencing under `state`;
     with `chaos` its attacker is a Nemesis (network attacks on a
-    ChaosNet `net`)."""
+    ChaosNet `net`).
+
+    Atlas: `regions` spreads the group's replicas round-robin across the
+    listed regions; `home_region` labels the group (default the first
+    region). `lease_ttl > 0` installs the group's shared read-lease table
+    on every replica, switching its coordinators to the holder-pinned
+    quorum geometry (dds_tpu_torch/geo)."""
     rcfg = rcfg or ReplicaConfig(quorum_size=quorum)
     endpoints = [f"{gid}-replica-{i}" for i in range(n_active + n_sentinent)]
     active, sentinent = endpoints[:n_active], endpoints[n_active:]
     sup_addr = f"{gid}-supervisor"
+    replica_regions = spread(endpoints, regions or [])
+    if regions and not home_region:
+        home_region = regions[0]
     replicas = {
         e: BFTABDNode(e, endpoints, sup_addr, net, rcfg, shard=state)
         for e in endpoints
     }
+    lease_table = None
+    if lease_ttl > 0 and regions:
+        # one table per group, shared by its replicas (the in-process
+        # config-push idiom of ShardState)
+        lease_table = LeaseTable(gid, state.secret)
+        for node in replicas.values():
+            node.lease_table = lease_table
     for e in sentinent:
         replicas[e].behavior = "sentinent"
     supervisor = BFTSupervisor(
@@ -222,11 +305,19 @@ def build_group(
         abd_cfg = dataclasses.replace(abd_cfg)
     abd_cfg.shard = gid
     abd_cfg.supervisor = sup_addr
+    if replica_regions:
+        abd_cfg.replica_regions = dict(replica_regions)
+        if lease_ttl > 0:
+            abd_cfg.lease_ttl = lease_ttl
+            if abd_cfg.region:
+                # a client without a home region stays on the quorum path
+                abd_cfg.lease_enabled = True
     client = AbdClient(f"{gid}-proxy", net, active, abd_cfg)
     attacker = Nemesis if chaos else Trudy
     trudy = attacker(net, active, max_faults, addr=f"{gid}-trudy", rng=rng)
     return ShardGroup(gid, active, sentinent, replicas, supervisor, client,
-                      state, quorum, trudy)
+                      state, quorum, trudy, replica_regions=replica_regions,
+                      home_region=home_region, lease_table=lease_table)
 
 
 def build_constellation(
@@ -242,26 +333,83 @@ def build_constellation(
     fence_lease: float = 0.0,
     journal_dir: str | None = None,
     seed: int | None = None,
+    regions: list[str] | None = None,
+    placement="span",
+    lease_ttl: float = 0.0,
+    client_region: str = "",
     **group_kwargs,
 ) -> Constellation:
     """S homogeneous groups + manager/router/rebalancer over one fabric.
     `seed` seeds each group's supervisor and Trudy from one rng, in group
     order, as the reference does; the reshard settings go to the
-    Rebalancer (`journal_dir` its plan journal, None in memory only)."""
+    Rebalancer (`journal_dir` its plan journal, None in memory only).
+
+    Atlas: `regions` makes the constellation geo-aware. Group homes are
+    assigned round-robin and signed onto the ShardMap, and each group's
+    replicas are placed per `placement`: "span" spreads every group across
+    all regions (the read-local lease shape), "home" packs a group into
+    its home region, and a dict gid -> mode mixes both. `lease_ttl > 0`
+    installs per-group read-lease tables; `client_region` homes every
+    group's proxy client (enabling its lease fast path) in one region. On
+    a ChaosNet every endpoint is labelled with its region, so
+    `[chaos.profiles]` WAN matrices apply unchanged."""
     gids = [f"s{i}" for i in range(shard_count)]
-    smap = ShardMap.build(gids, vnodes_per_group).sign(secret)
+    homes = group_regions(gids, regions or [])
+    smap = ShardMap.build(gids, vnodes_per_group,
+                          regions=homes or None).sign(secret)
     manager = ShardManager(smap, secret)
     rng = random.Random(seed) if seed is not None else None
     groups = []
     for gid in gids:
         state = ShardState(gid, smap, secret)
         grp_rng = random.Random(rng.getrandbits(64)) if rng else None
-        groups.append(build_group(net, gid, state, rng=grp_rng, **group_kwargs))
+        groups.append(build_group(
+            net, gid, state, rng=grp_rng,
+            **_geo_group_kwargs(group_kwargs, gid, regions, homes,
+                                placement, lease_ttl, client_region),
+        ))
     router = ShardRouter(manager, {g.gid: g.client for g in groups})
     rebalancer = Rebalancer(
         manager, net, secret, manifest_timeout=manifest_timeout,
         ack_timeout=ack_timeout, chunk_keys=chunk_keys, prune=prune,
         fence_lease=fence_lease, journal_dir=journal_dir,
     )
-    return Constellation(manager, router, groups, rebalancer, net=net,
-                         secret=secret, _build_kwargs=dict(group_kwargs))
+    constellation = Constellation(
+        manager, router, groups, rebalancer, net=net, secret=secret,
+        _build_kwargs=dict(group_kwargs),
+        geo_regions=list(regions or []), geo_placement=placement,
+        geo_lease_ttl=lease_ttl, geo_client_region=client_region,
+    )
+    if regions:
+        _register_net_regions(net, constellation)
+    return constellation
+
+
+def _geo_group_kwargs(group_kwargs: dict, gid: str, regions, homes: dict,
+                      placement, lease_ttl: float,
+                      client_region: str) -> dict:
+    """Per-group build kwargs with the Atlas placement resolved."""
+    kwargs = dict(group_kwargs)
+    if not regions:
+        return kwargs
+    mode = placement.get(gid, "span") if isinstance(placement, dict) \
+        else placement
+    home = homes.get(gid, regions[0])
+    kwargs["regions"] = [home] if mode == "home" else list(regions)
+    kwargs["home_region"] = home
+    kwargs["lease_ttl"] = lease_ttl
+    if client_region and lease_ttl > 0:
+        abd_cfg = kwargs.get("abd_cfg")
+        abd_cfg = dataclasses.replace(abd_cfg) if abd_cfg is not None \
+            else AbdClientConfig(quorum_size=kwargs.get("quorum", 3))
+        abd_cfg.region = client_region
+        kwargs["abd_cfg"] = abd_cfg
+    return kwargs
+
+
+def _register_net_regions(net, constellation: Constellation) -> None:
+    """Label every fabric endpoint with its region on a ChaosNet, so
+    `[chaos.profiles]` region-pair matrices and `region_partition` apply
+    to the constellation."""
+    if hasattr(net, "set_regions"):
+        net.set_regions(constellation.regions_of_endpoints())

@@ -5,7 +5,10 @@ manifests, migration frames, aborts and recovery, so one reshape gives
 the same map, repositories and acks in both packages. The group handles
 here are the in-process `shard.fabric.ShardGroup`s, which answer
 synchronously; `_maybe_await` keeps the reference's duck-typed surface
-for awaitable handles, and `on_activate` its hook for a broadcast.
+for awaitable handles, and `on_activate` its hook for a broadcast. One
+divergence: a receiver's migrate-ack quorum must also hold the group's
+active read-lease holders (Atlas), as its ABD quorums must, where the
+reference counts acks alone.
 
 Reshaping a shard group — splitting a hot one onto a standby, or merging
 a cold one back into its ring neighbors — is a five-step protocol built
@@ -153,6 +156,16 @@ class PlanJournal:
                 pass
 
 
+def _holders_in(group, acks: dict) -> bool:
+    """Whether the senders of `acks` include every active read-lease
+    holder of `group` (always, for a group without a lease table or with
+    no lease out; an expired lease no longer pins)."""
+    table = getattr(group, "lease_table", None)
+    if table is None:
+        return True
+    return table.holders() <= {s.rsplit("/", 1)[-1] for s in acks}
+
+
 class Rebalancer:
     def __init__(self, manager, net, abd_mac_secret: bytes,
                  addr: str = "rebalancer", manifest_timeout: float = 2.0,
@@ -219,9 +232,9 @@ class Rebalancer:
             coll = self._ack_collects.get(msg.session)
             if coll is None:
                 return
-            fut, acks, needed = coll
+            fut, acks, needed, pinned = coll
             acks[sender] = msg
-            if len(acks) >= needed and not fut.done():
+            if len(acks) >= needed and pinned(acks) and not fut.done():
                 fut.set_result(None)
 
     # -------------------------------------------------------------- phases
@@ -448,7 +461,11 @@ class Rebalancer:
             replicas = target.all_replicas()
             fut: asyncio.Future = asyncio.get_event_loop().create_future()
             acks: dict[str, M.ShardMigrateAck] = {}
-            self._ack_collects[session] = (fut, acks, target.quorum_size)
+            # the receiver's ack quorum, like every quorum a group closes,
+            # must hold its active read-lease holders (Atlas): a holder that
+            # missed the migrated keys would serve local reads without them
+            self._ack_collects[session] = (fut, acks, target.quorum_size,
+                                           lambda a, t=target: _holders_in(t, a))
             begin = M.ShardMigrateBegin(digests, session, len(chunks),
                                         support, new_map.epoch)
             for t in replicas:
@@ -467,8 +484,8 @@ class Rebalancer:
                 pass
             finally:
                 self._ack_collects.pop(session, None)
-            good = [a for a in acks.values() if a.accepted >= want]
-            return len(good) >= target.quorum_size
+            good = {s: a for s, a in acks.items() if a.accepted >= want}
+            return len(good) >= target.quorum_size and _holders_in(target, good)
 
         results = await asyncio.gather(
             *(stream_one(t, w, s) for t, w, s in sessions)

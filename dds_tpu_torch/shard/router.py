@@ -1,8 +1,9 @@
 """Shard-aware storage router: point ops to one group, batches scattered.
 
-Copy of `dds_tpu/shard/router.py` without the Atlas region and lease
-sections of `shards_health` (`[geo]` is not ported) and without the remote
-router's `refresh` hook (the port's manager is in-process).
+Copy of `dds_tpu/shard/router.py` without the remote router's `refresh`
+hook (the port's manager is in-process). `shards_health` carries each
+group's Atlas home region (from the signed map) and its client's live
+read-lease session when the group is geo-aware.
 
 Drop-in replacement for a single `AbdClient` at the REST proxy
 (`DDSRestServer(abd=ShardRouter(...))`): it exposes the same storage
@@ -298,6 +299,13 @@ class ShardRouter:
                 "degraded": len(reachable) < c.cfg.quorum_size,
                 "vnodes": sum(1 for _, g in smap.vnodes if g == gid),
             }
+            # Atlas: the home-region label (from the signed map) and this
+            # client's live lease session, when the group is geo-aware
+            region = smap.region_of(gid)
+            if region:
+                out[gid]["region"] = region
+            if c.cfg.lease_enabled:
+                out[gid]["lease"] = c.lease_state()
         return out
 
     def status(self) -> dict:

@@ -1,11 +1,10 @@
 """Constellation shard maps: epoch-versioned, HMAC-signed keyspace partitions.
 
-Copy of `dds_tpu/shard/shardmap.py` without the Atlas region labels
-(`[geo]` is not ported, so every map here is geo-unaware and signs the
-payload the reference signs for a map without regions): the same ring
-positions, owners, signatures, split/merge/relabel arithmetic, fencing
+Copy of `dds_tpu/shard/shardmap.py`: the same ring positions, owners,
+Atlas region labels, signatures, split/merge/relabel arithmetic, fencing
 state (with its fence lease) and routing authority, so one map resolves
-the same owner for the same key in both packages.
+the same owner for the same key in both packages, and a signed map,
+labelled or not, carries the same wire dict and signature in both.
 
 The ROADMAP's first scale lever. A `ShardMap` deterministically partitions
 the key->set keyspace across S independent BFT-ABD quorum groups with a
@@ -51,6 +50,14 @@ log = logging.getLogger("dds_torch.shard.map")
 _RING = 1 << 64  # ring positions are the first 8 bytes of sha256
 
 
+def _region_labels(mapping: dict | None) -> tuple:
+    """Canonical (gid, region) tuple for a labels dict (sorted, so equal
+    assignments sign identically)."""
+    if not mapping:
+        return ()
+    return tuple(sorted((str(g), str(r)) for g, r in mapping.items()))
+
+
 def _position(label: str) -> int:
     return int.from_bytes(hashlib.sha256(label.encode()).digest()[:8], "big")
 
@@ -62,13 +69,19 @@ class ShardMap:
     vnodes: tuple
     groups: tuple
     signature: bytes = b""
+    # Atlas: sorted (gid, home region) labels, () when geo-unaware. Signed
+    # when present (a forged label would steer lease grants and Helmsman's
+    # promotion) and left out of the payload when empty, so an unlabelled
+    # map signs exactly as it did before labels existed.
+    regions: tuple = ()
 
     # ------------------------------------------------------------ building
 
     @staticmethod
     def build(groups: list[str], vnodes_per_group: int = 16,
-              epoch: int = 1) -> "ShardMap":
-        """Fresh map over `groups`; deterministic for a given group list."""
+              epoch: int = 1, regions: dict | None = None) -> "ShardMap":
+        """Fresh map over `groups`; deterministic for a given group list.
+        `regions` (gid -> home region) attaches the Atlas labels."""
         if not groups:
             raise ValueError("a shard map needs at least one group")
         vnodes = []
@@ -81,7 +94,8 @@ class ShardMap:
                 seen.add(pos)
                 vnodes.append((pos, gid))
         vnodes.sort()
-        return ShardMap(epoch, tuple(vnodes), tuple(sorted(groups)))
+        return ShardMap(epoch, tuple(vnodes), tuple(sorted(groups)),
+                        regions=_region_labels(regions))
 
     def split(self, victim: str, new_gid: str) -> "ShardMap":
         """Epoch+1 map where `new_gid` takes ~half of `victim`'s keyspace:
@@ -110,8 +124,15 @@ class ShardMap:
         if not added:
             raise ValueError(f"victim {victim!r} has no splittable arc")
         vnodes = tuple(sorted(self.vnodes + tuple(added)))
+        # the carved-off group inherits the victim's home region: a split
+        # is a local capacity move, never a geography change
+        regions = self.regions
+        if regions:
+            regions = _region_labels(
+                dict(regions) | {new_gid: self.region_of(victim)})
         return ShardMap(self.epoch + 1, vnodes,
-                        tuple(sorted(self.groups + (new_gid,))))
+                        tuple(sorted(self.groups + (new_gid,))),
+                        regions=regions)
 
     def merge(self, victim: str) -> "ShardMap":
         """Epoch+1 map with `victim`'s vnodes RETIRED: every key the
@@ -127,7 +148,8 @@ class ShardMap:
             raise ValueError("cannot merge the last group away")
         vnodes = tuple((p, g) for p, g in self.vnodes if g != victim)
         groups = tuple(g for g in self.groups if g != victim)
-        return ShardMap(self.epoch + 1, vnodes, groups)
+        regions = tuple((g, r) for g, r in self.regions if g != victim)
+        return ShardMap(self.epoch + 1, vnodes, groups, regions=regions)
 
     def relabel(self, old_gid: str, new_gid: str) -> "ShardMap":
         """Epoch+1 map where `new_gid` takes over `old_gid`'s ring
@@ -145,7 +167,10 @@ class ShardMap:
         groups = tuple(sorted(
             new_gid if g == old_gid else g for g in self.groups
         ))
-        return ShardMap(self.epoch + 1, vnodes, groups)
+        regions = _region_labels({
+            (new_gid if g == old_gid else g): r for g, r in self.regions
+        })
+        return ShardMap(self.epoch + 1, vnodes, groups, regions=regions)
 
     def absorbers(self, victim: str) -> list[str]:
         """Groups that would receive keys if `victim` merged away: for
@@ -180,11 +205,27 @@ class ShardMap:
         idx = bisect.bisect_left(positions, self.key_position(key))
         return self.vnodes[idx % len(self.vnodes)][1]
 
+    def region_of(self, gid: str) -> str:
+        """Home region label of `gid` ("" = unlabelled / geo-unaware)."""
+        for g, r in self.regions:
+            if g == gid:
+                return r
+        return ""
+
+    def with_regions(self, mapping: dict) -> "ShardMap":
+        """Same map with the Atlas region labels replaced (unsigned:
+        callers sign the result before distributing it)."""
+        return dataclasses.replace(
+            self, regions=_region_labels(mapping), signature=b"")
+
     # ---------------------------------------------------------- signatures
 
     def _payload(self) -> dict:
-        return {"epoch": self.epoch,
-                "vnodes": [[p, g] for p, g in self.vnodes]}
+        payload = {"epoch": self.epoch,
+                   "vnodes": [[p, g] for p, g in self.vnodes]}
+        if self.regions:
+            payload["regions"] = [[g, r] for g, r in self.regions]
+        return payload
 
     def sign(self, secret: bytes) -> "ShardMap":
         sig = sigs.manifest_signature(secret, "shard-map", self._payload(),
@@ -199,12 +240,15 @@ class ShardMap:
     # ---------------------------------------------------------------- wire
 
     def to_wire(self) -> dict:
-        return {
+        wire = {
             "epoch": self.epoch,
             "groups": list(self.groups),
             "vnodes": [[p, g] for p, g in self.vnodes],
             "signature": self.signature.hex(),
         }
+        if self.regions:
+            wire["regions"] = [[g, r] for g, r in self.regions]
+        return wire
 
     @staticmethod
     def from_wire(d: dict) -> "ShardMap":
@@ -213,6 +257,9 @@ class ShardMap:
             tuple((int(p), str(g)) for p, g in d["vnodes"]),
             tuple(str(g) for g in d["groups"]),
             bytes.fromhex(d.get("signature", "")),
+            regions=tuple(
+                (str(g), str(r)) for g, r in d.get("regions", [])
+            ),
         )
 
 

@@ -4,8 +4,8 @@ Copy of `dds_tpu/utils/config.py`: every section, key and default of the
 reference, so every file in `configs/` parses here as it does there. A
 section parses whether or not its plane is ported; `run.launch` refuses
 to boot a config that enables a plane the port does not serve, naming it
-(shard, fabric, helmsman, geo, the attacks other than Trudy's crash
-and byzantine, and the other serving surfaces listed there), so nothing
+(the multi-host fabric, the fleet observability plane, TCP, TLS and node
+identity, listed there), so nothing
 runs without a plane its config asks for. `[client]
 failed-contact-attempts-threshold` is read by no client, so any value but
 the reference's default raises at parse.
@@ -597,8 +597,9 @@ class FabricConfig:
 
     role: str = "all"
     groups: dict = field(default_factory=dict)    # gid -> "host:port"
-    # Atlas (the reference's geo/): the region THIS process runs in. Surfaces as
-    # the `region` label on /health, /metrics, and Panopticon federation,
+    # Atlas (dds_tpu_torch/geo): the region THIS process runs in. Surfaces as
+    # the `region` label on /health and /metrics (and the reference's
+    # Panopticon federation),
     # homes this process's proxy for read-local leases, and keys the
     # [retry] per-region overrides. Empty = geo-unaware.
     region: str = ""
@@ -664,15 +665,15 @@ class HelmsmanConfig:
 
 @dataclass
 class GeoConfig:
-    """Atlas geo-distribution plane (the reference's geo/; not ported): region-aware replica
-    placement, TTL-leased read-local quorum geometry, and cross-region
-    anti-entropy pairing. With `enabled = true` the constellation build
+    """Atlas geo-distribution plane (`dds_tpu_torch/geo`, the in-process
+    Constellation): region-aware replica placement, TTL-leased read-local
+    quorum geometry, and cross-region anti-entropy pairing. With `enabled = true` the constellation build
     spreads each group's replicas across `regions` (placement = "span")
     or packs groups into round-robin home regions ("home"), carries the
     signed region assignment on the ShardMap, and — when `lease_ttl > 0`
     — installs per-group read-lease tables so an in-region replica can
     answer reads in one hop while every quorum its group closes includes
-    the lease holders (the safety argument in the reference's geo/).
+    the lease holders (the safety argument in `dds_tpu_torch/geo`).
     DEPLOY.md "Geo-distribution (Atlas)" is the runbook."""
 
     enabled: bool = False
@@ -744,7 +745,7 @@ class ChaosNetConfig:
     ("eu<->us") region pair to a WAN preset name ("wan-100" | "wan-200" |
     "wan-300", RTT milliseconds) or an explicit spec table (delay-ms /
     jitter-ms / drop / duplicate / reorder / corrupt) — parsed by
-    the reference's geo/wan.py, the ONE loader tests and benchmarks share so both
+    `dds_tpu_torch/geo/wan.py` (the reference's geo/wan.py), so both
     see the identical seeded WAN. `scale` shrinks every delay uniformly
     (tests run the same topology at a fraction of real time)."""
 

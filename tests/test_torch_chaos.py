@@ -579,6 +579,11 @@ def one_of_each(M) -> list:
         M.WrongShard("k", 2, 28, sig),
         M.ShardMigrateBegin([["r", {"k": [1, "r", "d"]}, 29, "00"]], 30, 2, 2, 3),
         M.ShardMigrateAck(30, 5, 1),
+        M.LeaseRequest("eu", 2.0, 31, sig),
+        M.LeaseGrant("eu", "replica-1", "tok", 1002.5, True, 32, sig),
+        M.LeaseRevoke("eu", 33, sig), M.LocalRead("k", "eu", "tok", 34, sig, epoch=2),
+        M.LocalReadReply(tag, "k", ["v"], True, 35, sig),
+        M.LocalReadReply(None, "k", None, False, 36, sig),
     ]
 
 

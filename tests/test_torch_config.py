@@ -66,7 +66,7 @@ PORT_ONLY = {"proxy.device": "cuda", "proxy.min_device_batch": None,
 FIRST_PLANE = {}
 # the files whose every enabled plane is ported: they boot
 LAUNCHES = {"configs/default.toml", "configs/tenancy.toml", "configs/heliograph.toml",
-            "configs/sharded.toml", "configs/stratum.toml"}
+            "configs/sharded.toml", "configs/stratum.toml", "configs/geo/wan_soak.toml"}
 
 
 def flat(obj, prefix: str = "") -> dict:
@@ -161,7 +161,7 @@ PLANES = [
     ("obs audit", {"obs": {"audit-enabled": True}}, False),
     ("fabric", {"fabric": {"role": "proxy"}}, True),
     ("helmsman", {"shard": {"enabled": True}, "helmsman": {"enabled": True}}, False),
-    ("geo", {"geo": {"enabled": True}}, True),
+    ("geo", {"geo": {"enabled": True}}, False),
     ("heliograph", {"heliograph": {"enabled": True}}, False),
     ("attacks", {"attacks": {"enabled": True}}, False),
     ("attacks", {"attacks": {"chaos-enabled": True}}, False),
@@ -181,7 +181,7 @@ PLANES = [
     ("partition", {"attacks": {"enabled": True, "chaos-enabled": True,
                                "type": "partition"}}, False),
     ("[chaos.profiles]", {"attacks": {"chaos-enabled": True},
-                          "chaos": {"profiles": {"eu<->us": "wan-100"}}}, True),
+                          "chaos": {"profiles": {"eu<->us": "wan-100"}}}, False),
     ("sharded chaos", {"shard": {"enabled": True}, "attacks": {"chaos-enabled": True}}, False),
     ("helmsman unsharded", {"helmsman": {"enabled": True}}, False),
 ]

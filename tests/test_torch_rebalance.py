@@ -14,10 +14,11 @@ live split of `tests/test_shard.py` under a ChaosNet partition that heals
 mid-reshard, on the virtual clock of `tests/test_torch_linearizability.py`
 (the reference's wall-clock test races the fence, so the twin compares
 the virtual run's outcomes and fault trace, not the race); and the
-proxy's owner memo across a reshape, which both packages key on the
-validated pairs list's identity: with no write since the last aggregate,
-a SumAll after a merge or split still groups its operands by the old
-owners, and its product is still exact.
+proxy's owner memo across a reshape: the reference keys it on the
+validated pairs list's identity, so with no write since the last
+aggregate a SumAll after a merge or split still groups its operands by
+the old owners; the port also keys it on the map's epoch and regroups by
+the new owners (ROADMAP §C 14); the product is the same exact integer.
 """
 
 import asyncio
@@ -432,15 +433,16 @@ def test_live_split_under_a_partition_healing_mid_reshard_twin():
 N2 = ((1 << 61) - 1) ** 2
 
 
-def test_owner_memo_keeps_the_old_grouping_across_a_reshape_in_both():
-    """Both proxies memoize the aggregate's owner partition on the
-    validated pairs list's identity and the operand position, not on the
-    map's epoch. A migration keeps every tag, so with no write since the
-    last SumAll the pairs list survives a merge and a split, and the next
-    SumAll (scattered, and on the fused resident tree) still groups its
-    operands by the owners of before: the same product in both packages,
-    exact, over the old groups' sizes. A write rebuilds the pairs and the
-    grouping follows the active map."""
+def test_owner_memo_regroups_by_the_new_owners_in_the_port_and_keeps_the_old_in_the_reference():
+    """ROADMAP §C 14, repaired in the port only. The reference memoizes
+    the aggregate's owner partition on the validated pairs list's identity
+    and the operand position; the port also keys it on the active map's
+    epoch. A migration keeps every tag, so with no write since the last
+    SumAll the pairs list survives a merge and a split in both packages.
+    The reference's next SumAll (scattered, and on the fused resident
+    tree) still groups its operands by the owners of before; the port's
+    groups them by the live map's owners. Both products are the same
+    exact integer."""
     async def go(pkg):
         const, net = constellation(pkg, S=3)
         server_mod, config, mini = (mod(pkg, "http.server"), mod(pkg, "utils.config"),
@@ -472,8 +474,9 @@ def test_owner_memo_keeps_the_old_grouping_across_a_reshape_in_both():
                 live: dict = {}
                 for k, _ in memo[0]:
                     live[const.router.owner(k)] = live.get(const.router.owner(k), 0) + 1
-                out.append((resident, label, st, int(json.loads(body)["result"]) == want,
-                            {g: len(ops) for g, ops in memo[2]}, live))
+                result = int(json.loads(body)["result"])
+                out.append((resident, label, st, result == want, result,
+                            {g: len(ops) for g, ops in memo[-1]}, live))
                 return memo[0]
 
             merged_away, split_from = ("s1", "s2") if resident else ("s2", "s0")
@@ -487,12 +490,23 @@ def test_owner_memo_keeps_the_old_grouping_across_a_reshape_in_both():
         await const.stop()
         return out
 
-    out = twin(go)
-    sumalls = [o for o in out if o[0] != "pairs survived"]
-    assert len(sumalls) == 6 and all(o[2] == 200 and o[3] for o in sumalls)
-    for resident in (False, True):
-        before, merged, split = [o for o in sumalls if o[0] is resident]
-        # the memo's grouping is the first SumAll's, whatever the live owners
-        assert before[4] == merged[4] == split[4] == before[5]
-        assert merged[5] != merged[4] and split[5] != split[4]
-        assert ("pairs survived", resident, True, True) in out
+    ref = asyncio.run(asyncio.wait_for(go("dds_tpu"), BOUND))
+    port = asyncio.run(asyncio.wait_for(go("dds_tpu_torch"), BOUND))
+    for pkg, out in (("dds_tpu", ref), ("dds_tpu_torch", port)):
+        sumalls = [o for o in out if o[0] != "pairs survived"]
+        assert len(sumalls) == 6 and all(o[2] == 200 and o[3] for o in sumalls)
+        for resident in (False, True):
+            before, merged, split = [o for o in sumalls if o[0] is resident]
+            assert before[5] == before[6]
+            assert merged[6] != before[6] and split[6] != merged[6]
+            if pkg == "dds_tpu":
+                # the memo's grouping is the first SumAll's, whatever the
+                # live owners
+                assert before[5] == merged[5] == split[5]
+            else:
+                # the grouping follows the active map
+                assert merged[5] == merged[6] and split[5] == split[6]
+            assert ("pairs survived", resident, True, True) in out
+    # the same integer from both packages, SumAll for SumAll
+    assert [o[4] for o in ref if o[0] != "pairs survived"] == \
+        [o[4] for o in port if o[0] != "pairs survived"]
