@@ -31,7 +31,10 @@ folds, the sharded modexp and the resident plane's multi-device fold over
 D slots of the card, a SumAll served through it) and
 configs/geo/wan_soak.toml's three regions (SumAlls exact on the card
 through the WAN matrix, lease-local reads, a region cut and a lease
-holder's crash) — and holds
+holder's crash) and DEPLOY.md's two-host deployment on the TCP
+transport (mutual TLS, node identities, HTTPS; host B a child process,
+SumAlls exact on the card, B's host fold the card's bit for bit, a
+cross-host redeploy) — and holds
 every CUDA kernel on them against its plain PyTorch version. The phases
 before `recovery` turn the audit and /slo off in the configs they build
 (EARLIER_OBS_CUTS), and every phase before `tenancy` runs with the
@@ -230,8 +233,8 @@ non-zero:
               chunks, anti-entropy at the reference's default, on) on
               `cuda`, /metrics on, the flight recorder in a
               temporary directory, Trudy armed; cut (printed): [admission],
-              the obs audit and the SLO route. K = 8,192 rows by quorum
-              PutSet; SumAlls until 2 proactive recoveries completed; Trudy
+              the obs audit and the SLO route. K = 8,192 rows (1,024 since
+              the tcp phase joined, DEPTH_CUTS) by quorum PutSet; SumAlls until 2 proactive recoveries completed; Trudy
               turns f = 2 active replicas byzantine (window "byzantine",
               until both are out of the active list); Trudy crashes the
               replica the proactive timer takes next, which is redeployed
@@ -256,7 +259,7 @@ non-zero:
               64/128, background 16/32, eval 1 s, shed-hold 3, max level 2,
               fast-fail, adaptive coalescing 2-20 ms at 8 folds), the audit
               with quorum checks and /slo with its per-route objectives.
-              K = 8,192 rows by PutSet through the admitted edge, 8 in
+              K = 8,192 rows (1,024, DEPTH_CUTS) by PutSet through the admitted edge, 8 in
               flight (within the file's 250 ms PutSet objective), each 429
               honoured by its Retry-After; steady SumAlls; then
               overload_goodput.py's open-loop schedule without ChaosNet
@@ -285,7 +288,7 @@ non-zero:
               /slo, the audit, Chronoscope. Four victims (gold, tenant-00,
               tenant-01, batch-etl) and a flooder, each with its own
               family from TenantKeyring(2048, 1024) (key generation
-              timed): 1,024 rows a victim and 256 for the flooder (cut
+              timed): 512 rows a victim and 128 for the flooder (cut
               from 2,048 and 512 for the run's time, DEPTH_CUTS), blinded
               on the card (one B3 pow_mod a tenant) and written by PutSet
               under the tenant's header, 8 in flight; one SumAll a victim,
@@ -485,6 +488,27 @@ non-zero:
               SumAlls' + 2 and B3 1 on path "geo". Printed: each step's
               seconds, the GetSets' p50 beside the eu<->us round trip, the
               phase's seconds beside its 60 s budget;
+26b. tcp      DEPLOY.md §§1-3 on loopback (TCP_DIFFERENCES, TCP_STEPS
+              printed): the CA, one cert and two node identities
+              (`mint_node_keys`) provisioned first; host B a child process
+              (`python -m dds_tpu_torch.run --config host_b.toml --serve
+              --ops 0 --device cpu --backend cpu`: replicas 3-4, the spare
+              4, a host-folding proxy), host A `launch()` here (replicas
+              0-2, the supervisor, a proxy on the card); intranet mutual
+              TLS, node signatures and HTTPS at both proxies, key sync
+              between them; 2,048 B3-blinded rows (cut from 8,192,
+              DEPTH_CUTS) by PutSet over HTTPS to A, 64 in flight, all read
+              back through B; a cold and 3 warm SumAlls through A, one
+              through B after key sync; Trudy's crash of replica-3 on B,
+              Suspect votes of A's replicas, replica-4 promoted and
+              replica-3 redeployed through B's nodehost, a SumAll. Gates:
+              every SumAll the Python-int fold and decrypting to the total,
+              B's host fold A's card fold bit for bit, the recovery within
+              30 s, 0 `dropping frame` warnings on A and in B's log, B1 =
+              the 5 SumAlls x `fold_launches(2048)` + 2 and B3 1 on path
+              "tcp". Printed: each step's seconds, PutSets/s, the SumAlls'
+              ms, the `serialize` share of /profile, A's frames sent, the
+              phase's seconds beside its 45 s budget;
 27. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
               launch; the analytics requests' launches are the path
@@ -492,9 +516,9 @@ non-zero:
               path "decrypt", `decrypt_rows`' run, B1's the paths
               "recovery", "sumall_audited", "bulwark", "tenancy",
               "heliograph", "sharded" (its MatVec included), "stratum",
-              "chaos", "reshard", "mesh", "mesh_sumall" and "geo", B3's
-              "client", "tenancy", "heliograph", "sharded", "chaos",
-              "reshard", "mesh" and "geo", the Karatsuba kernels' also
+              "chaos", "reshard", "mesh", "mesh_sumall", "geo" and "tcp",
+              B3's "client", "tenancy", "heliograph", "sharded", "chaos",
+              "reshard", "mesh", "geo" and "tcp", the Karatsuba kernels' also
               "sharded" and "mesh");
               then one
               {"search": ...}
@@ -510,8 +534,9 @@ non-zero:
               figures, the phase's seconds beside its 150 s budget; then
               one {"bulwark": ...}, one {"tenancy": ...}, one
               {"heliograph": ...}, one {"sharded": ...}, one
-              {"chaos": ...}, one {"reshard": ...}, one {"mesh": ...} and
-              one {"geo": ...} line with those phases' whole records;
+              {"chaos": ...}, one {"reshard": ...}, one {"mesh": ...}, one
+              {"geo": ...} and one {"tcp": ...} line with those phases'
+              whole records;
               then the card's name and power limit;
               then the result line.
 
@@ -528,6 +553,7 @@ non-zero:
     python3 chip_smoke.py --phases reshard
     python3 chip_smoke.py --phases mesh
     python3 chip_smoke.py --phases geo
+    python3 chip_smoke.py --phases tcp
         # on the card: the named phases alone at the card's sizes (each
         # --size changes one), each followed by its seconds; no result line
 
@@ -1516,10 +1542,16 @@ MIXED_CUT = {"preload": "4096 -> 2048 -> 1024 rows", "ops_per_client": "200 -> 2
 # configs/stratum.toml's launches there, which serve the same SumAlls,
 # MatVec and post-write ingest through the files' own planes
 DEPTH_CUTS = {"multall.K": "16384 -> 8192 records",
-              "recovery.K": "8192 -> 4096 -> 2048 rows",
-              "bulwark.K": "8192 -> 4096 -> 2048 rows", "resident.reps": "2 -> 1",
+              # recovery and bulwark 2,048 -> 1,024 once the tcp phase joined
+              # (PR 22's full run 846.5 s, recovery 76.2 s and bulwark 41.0 s
+              # of it; the tcp phase alone 97.4 s at 2,048 rows, H100 80GB
+              # HBM3, 700.00 W): half the rows halve their loads and read-backs
+              "recovery.K": "8192 -> 4096 -> 2048 -> 1024 rows",
+              "bulwark.K": "8192 -> 4096 -> 2048 -> 1024 rows", "resident.reps": "2 -> 1",
               "tiered.reps": "3 -> 2",
-              "tenancy.rows": "2048 -> 1024 a victim, 512 -> 256 the flooder",
+              # 1,024 -> 512 and 256 -> 128 once the tcp phase joined (with
+              # the recovery and bulwark cuts below)
+              "tenancy.rows": "2048 -> 1024 -> 512 a victim, 512 -> 256 -> 128 the flooder",
               # the phase took 73.1 s of its 90 s at 8,192 rows (sharded.toml
               # 56.2 s, its load 43.2 s of it; stratum.toml 16.9 s; H100 80GB
               # HBM3, 700 W); loads of one size ran up to 1.7x slower from one
@@ -1550,7 +1582,11 @@ DEPTH_CUTS = {"multall.K": "16384 -> 8192 records",
               # 60 s budget: at 2,048 rows the phase took 49.8 s alone and
               # 66.9 s in a full run (its load 21.6 s, the ap cut's 32 PutSets
               # 22.3 s of retries; H100 80GB HBM3, 700.00 W)
-              "geo.K": "8192 -> 2048 -> 1024 rows"}
+              "geo.K": "8192 -> 2048 -> 1024 rows",
+              # the tcp phase's load, for its 45 s budget: every frame of
+              # it is signed, verified, MAC'd, JSON-encoded and TLS-wrapped
+              # on the proxy's one loop
+              "tcp.K": "8192 -> 2048 rows"}
 
 
 def earlier_config():
@@ -7480,6 +7516,402 @@ async def phase_geo(dev, sizes) -> dict:
 
 
 
+TCP_BUDGET_S = 45.0
+# what the phase's two TOMLs change from DEPLOY.md §2's text (printed)
+TCP_DIFFERENCES = {
+    "hosts": "127.0.0.1 for both (DEPLOY.md: 10.0.0.1 and 10.0.0.2), so host B is a "
+             "child process on this machine",
+    "ports": "four free ports, the transports' and the proxies' (DEPLOY.md: 2552 and "
+             "8443 on each host)",
+    "security.tls-enabled": "true: the clients speak HTTPS to both proxies, and the "
+                            "proxies' key sync rides it (DEPLOY.md sets only the intranet's)",
+    "proxy.crypto-backend": "A cuda on the card (DEPLOY.md: tpu), B cpu (--backend cpu "
+                            "--device cpu, as DEPLOY.md says host B typically runs)",
+    "proxy.key-sync-warm-up, key-sync-interval": "1.0 s, 2.0 s (defaults 1.0, 5.0)",
+    "recovery.sentinent-awake-timeout, crashed-recovery-timeout": "2.0 s, 3.0 s "
+                                                                  "(defaults 5.0, 12.0)",
+    "attacks.enabled": "true on both, for Trudy's crash of replica-3",
+    "[client]": "left out: the phase blinds its rows itself on B3 with the bench key",
+    "ops": "--ops 0 on B, and no generated workload on A",
+}
+# the phase's steps, in order (printed)
+TCP_STEPS = (
+    "provision: the CA and one cert, two node identities by mint_node_keys, the two TOMLs",
+    "host B as a child process (replicas 3-4, a proxy on the host backend); host A by "
+    "launch() here (replicas 0-2, the supervisor, a proxy on the card)",
+    "load: the rows blinded on the card (B3), PutSet over HTTPS to A, 64 in flight; every "
+    "acknowledged row read back through B, 64 in flight",
+    "SumAlls: 1 cold and 3 warm through A; one through B once key sync gave it the keys, "
+    "its host fold the card's bit for bit",
+    "recovery: Trudy crashes replica-3 on B over the fabric, A's replicas vote Suspect, "
+    "spare replica-4 promoted, replica-3 redeployed through B's nodehost; a SumAll",
+    "stop: A's deployment, then B by SIGINT; the dropped-frame warnings of both",
+)
+
+
+def free_ports(n: int) -> list[int]:
+    """n ports free on 127.0.0.1 now (bound to 0, then closed)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def deploy_toml(me: str, hosts: dict, proxies: dict, local: dict, backend: str,
+                security: list, tmp) -> str:
+    """DEPLOY.md §2's per-host TOML for host `me` with TCP_DIFFERENCES."""
+    others = [f'"{r}" = "{hosts[o]}"' for o, names in local.items() if o != me
+              for r in names]
+    peer = next(p for h, p in proxies.items() if h != me)
+    return "\n".join([
+        "[transport]", 'kind = "tcp"', 'host = "127.0.0.1"', f"port = {hosts[me].split(':')[1]}",
+        "", "[replicas]",
+        "endpoints = " + json.dumps([f"replica-{i}" for i in range(5)]),
+        'sentinent = ["replica-4"]', "byz-quorum-size = 3",
+        "local = " + json.dumps(local[me]), f'supervisor-address = "{hosts["A"]}"',
+        "", "[replicas.addresses]", *others,
+        "", *security,
+        "", "[proxy]", 'host = "127.0.0.1"', f"port = {proxies[me].split(':')[1]}",
+        f'crypto-backend = "{backend}"', f'stored-keys-path = "{tmp}/keys_{me}.json"',
+        "key-sync-enabled = true", "key-sync-warm-up = 1.0", "key-sync-interval = 2.0",
+        f'remote-peers = ["{peer}"]',
+        "", "[recovery]", "sentinent-awake-timeout = 2.0", "crashed-recovery-timeout = 3.0",
+        "", "[attacks]", "enabled = true", ""])
+
+
+async def phase_tcp(dev, sizes) -> dict:
+    """DEPLOY.md §§1-3 on loopback: one quorum group over two processes on
+    the TCP transport, under intranet mutual TLS, Ed25519 node identities
+    and HTTPS at both proxies (TCP_DIFFERENCES printed). Host B is a child
+    OS process (`python -m dds_tpu_torch.run --config host_b.toml --serve
+    --ops 0 --device cpu --backend cpu`: replicas 3-4, 4 the spare, a
+    proxy folding on the host); host A is `launch()` in this process
+    (replicas 0-2, the supervisor, a proxy folding on the card). Every
+    quorum of 3 of the 4 active replicas spans both. TCP_STEPS: `tcp_K`
+    rows blinded on the card (B3) go by PutSet over HTTPS to A,
+    `tcp_inflight` at a time; every acknowledged row read back through
+    B (`tcp_readback_inflight` at a time; it fills B's aggregate cache);
+    one cold and `tcp_sumalls` warm SumAlls through A, each the Python-
+    int fold of the acknowledged rows and decrypting to their total; one
+    through B once key sync gave it the keys, its host fold A's card fold
+    bit for bit; Trudy crashes replica-3 on B over the fabric, A's replicas
+    vote Suspect, A's supervisor promotes replica-4 and redeploys replica-3
+    through B's nodehost (within `tcp_recovery_s`: replica-3 sentinent, 4
+    active), and a SumAll after it is exact. A logging handler on the
+    transport's logger counts `dropping frame` warnings on A, and B's log
+    is scanned for them: both must be 0. Launch counts are zeroed before
+    the launch and read after the stop (path "tcp"): B1 = the SumAlls
+    through A x `fold_launches(tcp_K)` + 2 the blinding's, B3 = 1. Without
+    the `cryptography` package the same steps run on a frame secret, with
+    no TLS and no node keys, and the record says so. Printed: each step's
+    seconds, PutSets/s, the SumAlls' ms, the `serialize` share of
+    Chronoscope's /profile, the frames A sent, the recovery's seconds, the
+    phase's beside its 45 s budget."""
+    import logging
+    import os
+    import pathlib
+    import signal
+    import tempfile
+    import tomllib
+
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.core import messages as M
+    from dds_tpu_torch.core.transport import TcpNet
+    from dds_tpu_torch.http.miniserver import http_request_full
+    from dds_tpu_torch.models.backend import get_backend
+    from dds_tpu_torch.obs.chronoscope import chronoscope
+    from dds_tpu_torch.obs.watchtower import watchtower
+    from dds_tpu_torch.ops import mont_cuda
+    from dds_tpu_torch.run import launch, mint_node_keys
+    from dds_tpu_torch.utils import tlsutil
+    from dds_tpu_torch.utils.config import DDSConfig
+
+    t_phase = time.perf_counter()
+    K = sizes["tcp_K"]
+    try:
+        import cryptography
+        identity = f"on: cryptography {cryptography.__version__}"
+    except ModuleNotFoundError:
+        identity = "not run: no cryptography on this host"
+    rec: dict = {"K": K, "budget_s": TCP_BUDGET_S, "identity": identity,
+                 "differences": TCP_DIFFERENCES, "steps": TCP_STEPS}
+
+    def step(name: str, **kw) -> None:
+        emit("tcp_step", step=name, at_s=time.perf_counter() - t_phase, **kw)
+
+    step("cryptography", identity=identity)
+
+    class Drops(logging.Handler):
+        """The transport's `dropping frame` and `dropping connection`
+        warnings: an honest frame dropped for its MAC, signature, counter
+        or dest pin leaves no other sign."""
+
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.lines: list[str] = []
+
+        def emit(self, record) -> None:
+            if record.getMessage().startswith("dropping"):
+                self.lines.append(record.getMessage()[:200])
+
+    # -- provision: the CA and cert, the node identities, the TOMLs
+    tmp = tempfile.TemporaryDirectory(prefix="dds_tcp_")
+    d = pathlib.Path(tmp.name)
+    t_a, t_b, p_a, p_b = free_ports(4)
+    hosts = {"A": f"127.0.0.1:{t_a}", "B": f"127.0.0.1:{t_b}"}
+    proxies = {"A": f"127.0.0.1:{p_a}", "B": f"127.0.0.1:{p_b}"}
+    local = {"A": ["replica-0", "replica-1", "replica-2"], "B": ["replica-3", "replica-4"]}
+    t = time.perf_counter()
+    ctx = None
+    if identity.startswith("on"):
+        paths = tlsutil.generate_ca_and_cert(d / "certs", hosts=("127.0.0.1", "localhost"))
+        stanza = mint_node_keys(2, str(d / "certs"), [hosts["A"], hosts["B"]])
+        registry = tomllib.loads(stanza)["security"]["node-public-keys"]
+        ctx = tlsutil.client_context(paths["ca"], paths["cert"], paths["key"])
+
+        def security(i: int) -> list:
+            return ["[security]", "intranet-tls-enabled = true", "tls-enabled = true",
+                    f'tls-ca = "{paths["ca"]}"', f'tls-cert = "{paths["cert"]}"',
+                    f'tls-key = "{paths["key"]}"',
+                    f'node-key-path = "{d / "certs" / f"node_{i}.key"}"',
+                    "", "[security.node-public-keys]",
+                    *(f'"{hp}" = "{pub}"' for hp, pub in registry.items())]
+    else:
+        def security(i: int) -> list:
+            return ["[security]", 'transport-frame-secret = "tcp-phase-frame-secret"']
+    tomls = {}
+    for i, (me, backend) in enumerate((("A", "cuda"), ("B", "cpu"))):
+        tomls[me] = d / f"host_{me.lower()}.toml"
+        tomls[me].write_text(deploy_toml(me, hosts, proxies, local, backend, security(i),
+                                         d))
+    rec["provision_s"] = time.perf_counter() - t
+    step("provision", s=rec["provision_s"], hosts=hosts, proxies=proxies)
+
+    async def call(port: int, method: str, target: str, obj=None, where: str = ""):
+        """One HTTPS request, retried after a 503 or 429 with Retry-After
+        (counted); any other status than 200 fails the phase."""
+        while True:
+            status, headers, data = await http_request_full(
+                "127.0.0.1", port, method, target,
+                json.dumps(obj).encode() if obj is not None else None, ssl_context=ctx,
+                timeout=600.0)
+            if status == 200:
+                return data
+            if status not in (429, 503) or int(headers.get("retry-after", 0)) < 1:
+                raise AssertionError(f"tcp: {method} {target[:40]} at {where} answered "
+                                     f"{status} {data[:160]!r}")
+            rec["retries"] = rec.get("retries", 0) + 1
+            await asyncio.sleep(int(headers["retry-after"]))
+
+    # -- host B: a child process; host A: launch() here
+    root = pathlib.Path(__file__).resolve().parent
+    out_b, err_b = open(d / "host_b.out", "w"), open(d / "host_b.err", "w")
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dds_tpu_torch.run", "--config", str(tomls["B"]), "--serve",
+         "--ops", "0", "--device", "cpu", "--backend", "cpu"],
+        cwd=root, stdout=out_b, stderr=err_b, env={**os.environ, "PYTHONUNBUFFERED": "1"})
+
+    def b_tail(n: int = 3000) -> str:
+        err_b.flush()
+        return (d / "host_b.err").read_text()[-n:]
+
+    drops = Drops()
+    tlog = logging.getLogger("dds_torch.transport")
+    tlog.addHandler(drops)
+    chronoscope_was = chronoscope.enabled
+    chronoscope.enabled = True  # the launch profiles (as the tenancy phase's)
+    dep = None
+    b_drops: list[str] = []
+    try:
+        cfg = DDSConfig.load(tomls["A"])
+        cfg.proxy.device = dev.type
+        reset_counts()  # path "tcp" starts here
+        dep = await launch(cfg)
+        rec["launch_a_s"] = time.perf_counter() - t
+        if not isinstance(dep.net, TcpNet) or dep.supervisor is None or \
+                sorted(dep.replicas) != [f"{hosts['A']}/{r}" for r in local["A"]]:
+            raise AssertionError(f"tcp: host A is not DEPLOY.md's: {sorted(dep.replicas)}")
+        while "serving on" not in (d / "host_b.out").read_text():
+            if proc.poll() is not None:
+                raise AssertionError(f"tcp: host B exited early ({proc.returncode}):\n"
+                                     f"{b_tail()}")
+            if time.perf_counter() - t > sizes["tcp_boot_s"]:
+                raise AssertionError(f"tcp: host B not serving after {sizes['tcp_boot_s']} "
+                                     f"s:\n{b_tail()}")
+            await asyncio.sleep(0.1)
+        health_b = json.loads(await call(p_b, "GET", "/health", where="b_health"))
+        rec["boot_s"] = time.perf_counter() - t
+        step("boot", s=rec["boot_s"], launch_a_s=rec["launch_a_s"],
+             health_b=health_b.get("status"))
+        # -- load: blinded on the card (B3), PutSet over HTTPS to A
+        key = bench_paillier_key(sizes["key_bits"])
+        pk, n2 = key.public, key.public.nsquare
+        rng = random.Random(sizes["tcp_seed"])
+        plain = [rng.randrange(1 << 30) for _ in range(K)]
+        t = time.perf_counter()
+        cts = pk.encrypt_batch(plain, get_backend("cuda", device=dev.type), min_batch=1)
+        sync(dev)
+        rec["blind_s"] = time.perf_counter() - t
+        plain_of = dict(zip(cts, plain))
+        acked: dict[str, int] = {}
+        sem = asyncio.Semaphore(sizes["tcp_inflight"])
+
+        async def put(c) -> None:
+            async with sem:
+                acked[(await call(p_a, "POST", "/PutSet", {"contents": [str(c)]},
+                                  "load")).decode()] = c
+
+        t = time.perf_counter()
+        await asyncio.gather(*(put(c) for c in cts))
+        load_s = time.perf_counter() - t
+        # every acknowledged row read back through B: this also fills B's
+        # aggregate cache, which its SumAll below validates by one tag round
+        # (uncached, its SumAll's concurrent full reads of every key time
+        # out together: ROADMAP §C 5)
+        sem_b = asyncio.Semaphore(sizes["tcp_readback_inflight"])
+
+        async def get(k: str) -> bool:
+            async with sem_b:
+                data = await call(p_b, "GET", f"/GetSet/{k}", where="readback")
+            return json.loads(data)["contents"] == [str(acked[k])]
+
+        t = time.perf_counter()
+        right = await asyncio.gather(*(get(k) for k in sorted(acked)))
+        readback_s = time.perf_counter() - t
+        rec["load"] = {"rows": K, "s": load_s, "putsets_per_s": K / load_s,
+                       "blind_s": rec["blind_s"], "readback_b": len(right),
+                       "readback_s": readback_s, "getsets_per_s": len(right) / readback_s,
+                       "wrong": right.count(False)}
+        step("load", **rec["load"])
+        if not all(right) or len(acked) != K:
+            raise AssertionError(f"tcp: {right.count(False)} of {K} rows read back wrong "
+                                 f"through B ({len(acked)} acknowledged)")
+        want = host_product(list(acked.values()), n2)
+        total = sum(plain_of[c] for c in acked.values())
+        target = f"/SumAll?position=0&nsqr={n2}"
+
+        async def sumall(port: int, where: str) -> dict:
+            sync(dev)
+            before = mont_cuda.LAUNCHES["mont_mul"].value
+            t0 = time.perf_counter()
+            result = int(json.loads(await call(port, "GET", target, where=where))["result"])
+            ms = (time.perf_counter() - t0) * 1e3
+            sync(dev)
+            b1 = mont_cuda.LAUNCHES["mont_mul"].value - before
+            if result != want or key.decrypt(result) != total:
+                raise AssertionError(f"tcp: the SumAll at {where} is not the fold of the "
+                                     f"{K} acknowledged rows")
+            return {"ms": ms, "b1": b1, "result": result}
+
+        # -- SumAlls through A, then through B once key sync gave it the keys
+        runs = [await sumall(p_a, "cold")] + [await sumall(p_a, "warm")
+                                             for _ in range(sizes["tcp_sumalls"])]
+        step("sumalls_a", cold_ms=runs[0]["ms"], warm_ms=[r["ms"] for r in runs[1:]])
+        t = time.perf_counter()
+        while True:
+            synced = json.loads(await call(p_b, "GET", "/_sync", where="b_sync"))["keyset"]
+            if set(acked) <= set(synced):
+                break
+            if time.perf_counter() - t > sizes["tcp_sync_s"]:
+                raise AssertionError(f"tcp: key sync gave B {len(synced)} of {K} keys")
+            await asyncio.sleep(0.25)
+        sync_s = time.perf_counter() - t
+        step("key_sync", s=sync_s, keys_b=len(synced))
+        via_b = await sumall(p_b, "via_b")
+        rec["sumalls"] = {"cold_ms": runs[0]["ms"], "warm_ms": [r["ms"] for r in runs[1:]],
+                          "b1": [r["b1"] for r in runs],
+                          "b1_expected": mont_cuda.fold_launches(K),
+                          "key_sync_wait_s": sync_s, "via_b_ms": via_b["ms"],
+                          "via_b_b1_on_a": via_b["b1"],
+                          "b_equals_card_fold": via_b["result"] == runs[0]["result"]}
+        step("sumalls", **rec["sumalls"])
+        if not rec["sumalls"]["b_equals_card_fold"] or via_b["b1"] != 0 or \
+                (dev.type == "cuda" and any(r["b1"] != mont_cuda.fold_launches(K)
+                                            for r in runs)):
+            raise AssertionError(f"tcp: SumAlls {rec['sumalls']}")
+        # -- cross-host recovery
+        victim = f"{hosts['B']}/replica-3"
+        sup = dep.supervisor
+        t = time.perf_counter()
+        dep.net.send(dep.trudy.addr, victim, M.Crash())
+        await asyncio.sleep(0.3)
+        for name in sorted(dep.replicas):
+            dep.replicas[name]._suspect(victim)
+        while not (victim in sup.sentinent and len(sup.active) == 4):
+            if time.perf_counter() - t > sizes["tcp_recovery_s"]:
+                raise AssertionError(f"tcp: no recovery of {victim} after "
+                                     f"{sizes['tcp_recovery_s']} s: active "
+                                     f"{[a for a, _ in sup.active]}, sentinent "
+                                     f"{sup.sentinent}")
+            await asyncio.sleep(0.1)
+        recovery_s = time.perf_counter() - t
+        dep.server.abd.refresh_from(dep.server.cfg.supervisor)
+        await asyncio.sleep(0.2)
+        after = await sumall(p_a, "after_recovery")
+        rec["recovery"] = {"s": recovery_s, "victim": victim,
+                           "active": sorted(a for a, _ in sup.active),
+                           "sentinent": sorted(sup.sentinent), "sumall_ms": after["ms"],
+                           "sumall_b1": after["b1"]}
+        runs.append(after)
+        step("recovery", **rec["recovery"])
+        # -- Chronoscope's serialize share, frames sent, the audit
+        profile = json.loads(await call(p_a, "GET", "/profile", where="profile"))
+        rec["serialize_share"] = {
+            route: r["stages"]["serialize"]["share"]
+            for route, r in profile["routes"].items() if "serialize" in r["stages"]}
+        rec["frames_sent_a"] = dep.net.frames_sent
+        rec["watchtower"] = watchtower.stats()
+        rec["violation_kinds"] = sorted({v.invariant for v in watchtower.verdicts()})
+    finally:
+        chronoscope.enabled = chronoscope_was
+        tlog.removeHandler(drops)
+        if dep is not None:
+            await dep.stop()
+        t = time.perf_counter()
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=15)
+        rec["stop_b_s"] = time.perf_counter() - t
+        rec["b_returncode"] = proc.returncode
+        out_b.close()
+        err_b.close()
+        b_drops = [line for line in (d / "host_b.err").read_text().splitlines()
+                   if "dropping" in line]
+        tmp.cleanup()
+    counts = read_counts(dev)
+    sumall_b1 = sum(r["b1"] for r in runs)
+    rec["launches"] = {"mont_mul": counts["mont_mul"], "mont_exp": counts["mont_exp"],
+                       "mont_mul_sumalls": sumall_b1}
+    rec["dropped_frames"] = {"a": drops.lines, "b": b_drops[:20], "b_count": len(b_drops)}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit("tcp", **{k: rec[k] for k in (
+        "seconds", "budget_s", "identity", "launches", "boot_s", "load", "sumalls",
+        "recovery", "serialize_share", "frames_sent_a", "dropped_frames", "watchtower",
+        "violation_kinds", "stop_b_s", "b_returncode")})
+    if drops.lines or b_drops:
+        raise AssertionError(f"tcp: dropped frames: A {drops.lines[:5]}, B {b_drops[:5]}")
+    if dev.type == "cuda" and (rec["launches"]["mont_exp"] != 1 or
+                               rec["launches"]["mont_mul"] != sumall_b1 + 2 or
+                               sumall_b1 != len(runs) * mont_cuda.fold_launches(K)):
+        raise AssertionError(f"tcp: B1 {rec['launches']['mont_mul']} launches (SumAlls "
+                             f"{sumall_b1} = {len(runs)} x {mont_cuda.fold_launches(K)} + 2 "
+                             f"the blinding's), B3 {rec['launches']['mont_exp']} (1)")
+    if watchtower.attached:
+        raise AssertionError("tcp: stop left the Watchtower attached")
+    return rec
+
+
 def kernel_times(sizes) -> dict:
     """CUDA-event ms of the B1, P, B3, B4, B5 and REDC launches at the
     timing phases' shapes (single launches with the stream held,
@@ -7666,24 +8098,25 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   # the plain ladder's columns
                   decrypt_bits=[1024, 2048], decrypt_B=256, decrypt_big=[4096, 8192],
                   decrypt_reps=3, rowmod_B=8192, rowmod_E=32, decrypt_plain_cols=64,
-                  # the recovery phase: bft_sum's K rows on default.toml's
+                  # the recovery phase: 1,024 rows (DEPTH_CUTS) on default.toml's
                   # topology, its timers as they stand, Trudy's seed
-                  recovery_K=2048, recovery_scale=1.0, recovery_seed=5,
-                  # the bulwark phase: bft_sum's K on default.toml as it
-                  # stands; overload_goodput.py's rates, seed and a 10 s
+                  recovery_K=1024, recovery_scale=1.0, recovery_seed=5,
+                  # the bulwark phase: 1,024 rows (DEPTH_CUTS) on default.toml as
+                  # it stands; overload_goodput.py's rates, seed and a 10 s
                   # window, then a 5 s tail
-                  bulwark_K=2048, bulwark_load_inflight=8, bulwark_flood_s=10.0,
+                  bulwark_K=1024, bulwark_load_inflight=8, bulwark_flood_s=10.0,
                   bulwark_tail_s=5.0,
                   bulwark_interactive_rate=30.0, bulwark_aggregate_rate=400.0,
                   bulwark_seed=11,
-                  # the tenancy phase: configs/tenancy.toml's key bits; 1,024
-                  # rows a victim, 256 for the flooder (2,048 and 512 before
-                  # the heliograph phase joined; DEPTH_CUTS); tenant_isolation.py's
+                  # the tenancy phase: configs/tenancy.toml's key bits; 512
+                  # rows a victim, 128 for the flooder (2,048 and 512 before
+                  # the heliograph phase joined, 1,024 and 256 before the tcp
+                  # phase; DEPTH_CUTS); tenant_isolation.py's
                   # Zipf s, victim rate and aggregate share, a 10 s window,
                   # the flood from 2 s before it at 4 x the file's aggregate
                   # rate of 64/s
-                  tenancy_paillier_bits=2048, tenancy_rsa_bits=1024, tenancy_rows=1024,
-                  tenancy_flood_rows=256, tenancy_load_inflight=8, tenancy_seed=15,
+                  tenancy_paillier_bits=2048, tenancy_rsa_bits=1024, tenancy_rows=512,
+                  tenancy_flood_rows=128, tenancy_load_inflight=8, tenancy_seed=15,
                   tenancy_zipf_s=1.2, tenancy_interactive_rate=40.0, tenancy_agg_frac=0.1,
                   tenancy_window_s=10.0, tenancy_lead_s=2.0, tenancy_flood_rate=256.0,
                   # the heliograph phase: bft_sum's K (cut to 4,096, DEPTH_CUTS)
@@ -7739,6 +8172,12 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   geo_K=1024, geo_inflight=64, geo_sumalls=3, geo_getsets=64,
                   geo_getset_inflight=8, geo_cut_writes=32, geo_lease_move_s=20.0,
                   geo_seed=22,
+                  # the tcp phase: 2,048 rows (DEPTH_CUTS) over HTTPS, 64 in
+                  # flight; all read back through B, 64 in flight; 3 warm SumAlls; host B's
+                  # boot, key sync's and the recovery's deadlines
+                  tcp_K=2048, tcp_inflight=64, tcp_readback_inflight=64, tcp_sumalls=3,
+                  tcp_seed=23,
+                  tcp_boot_s=90.0, tcp_sync_s=30.0, tcp_recovery_s=30.0,
                   # the plain ladder of the exp timing on 1,024 of its 8,192
                   # columns, for the run's time (it took 83 s on all of them;
                   # 256 columns took as long as 1,024: the ladder's launches,
@@ -7830,7 +8269,9 @@ def main(argv=None) -> int:
                      mesh_sumall_K=64, mesh_sumalls=2, mesh_reps=1, mesh_seed=21,
                      geo_K=96, geo_inflight=32, geo_sumalls=1, geo_getsets=16,
                      geo_getset_inflight=8, geo_cut_writes=8, geo_lease_move_s=20.0,
-                     geo_seed=22)
+                     geo_seed=22, tcp_K=64, tcp_inflight=32, tcp_readback_inflight=16,
+                     tcp_sumalls=1, tcp_seed=23, tcp_boot_s=90.0, tcp_sync_s=30.0,
+                     tcp_recovery_s=30.0)
         card = {"name": "cpu (rehearsal)", **card_numbers(dev)}
     else:
         if not torch.cuda.is_available():
@@ -7852,6 +8293,7 @@ def main(argv=None) -> int:
          heliograph_overrides=HELIOGRAPH_OVERRIDES, sharded_overrides=SHARDED_OVERRIDES,
          chaos_overrides=CHAOS_OVERRIDES, reshard_overrides=RESHARD_OVERRIDES,
          mesh_overrides=MESH_OVERRIDES, geo_overrides=GEO_OVERRIDES,
+         tcp_differences=TCP_DIFFERENCES,
          chronoscope_before_tenancy=CHRONOSCOPE_CUT, mixed=MIXED_CUT, depth=DEPTH_CUTS)
 
     from dds_tpu_torch.bench_key import bench_paillier_key
@@ -7905,6 +8347,7 @@ def main(argv=None) -> int:
     reshard = timed("reshard", asyncio.run, phase_reshard(dev, sizes))
     mesh = timed("mesh", asyncio.run, phase_mesh(dev, sizes))
     geo = timed("geo", asyncio.run, phase_geo(dev, sizes))
+    tcp = timed("tcp", asyncio.run, phase_tcp(dev, sizes))
     emit("run", phase_seconds=took, seconds=time.perf_counter() - t_run)
 
     path = tim["path"]
@@ -7934,7 +8377,8 @@ def main(argv=None) -> int:
                              "reshard": reshard["launches"]["mont_mul"],
                              "mesh": mesh["launches"]["mont_mul"],
                              "mesh_sumall": mesh["sumall"]["launches"],
-                             "geo": geo["launches"]["mont_mul"]},
+                             "geo": geo["launches"]["mont_mul"],
+                             "tcp": tcp["launches"]["mont_mul"]},
         "max_abs_err": par["max_abs_err"],
         "per": f"one K={path['K']} fold ({path['launches']} launches) on the device; "
                f"wall_ms: back to back, paced by the host's dispatch",
@@ -7958,7 +8402,8 @@ def main(argv=None) -> int:
                              "chaos": chaos["launches"]["mont_exp"],
                              "reshard": reshard["launches"]["mont_exp"],
                              "mesh": mesh["launches"]["mont_exp"],
-                             "geo": geo["launches"]["mont_exp"]},
+                             "geo": geo["launches"]["mont_exp"],
+                             "tcp": tcp["launches"]["mont_exp"]},
         "max_abs_err": max(par_exp["max_abs_err"], tim_exp["max_abs_err"]),
         "per": f"one launch, B={tim_exp['B']}, E={tim_exp['E']} "
                f"({tim_exp['exp_products_per_row']} products per row); plain_ms on "
@@ -8098,6 +8543,10 @@ def main(argv=None) -> int:
                                "run_seconds": time.perf_counter() - t_run}},
                      default=str), flush=True)
     print(json.dumps({"geo": {**geo, "card": card["smi"] if "smi" in card
+                              else card["name"],
+                              "run_seconds": time.perf_counter() - t_run}},
+                     default=str), flush=True)
+    print(json.dumps({"tcp": {**tcp, "card": card["smi"] if "smi" in card
                               else card["name"],
                               "run_seconds": time.perf_counter() - t_run}},
                      default=str), flush=True)

@@ -1,7 +1,6 @@
 """Heliograph's golden transactions: the client half of the canary plane.
 
-Copy of `dds_tpu/clt/canary.py`; the port serves no TLS, so the client
-takes no `ssl_context`.
+Copy of `dds_tpu/clt/canary.py`.
 
 A `CanaryClient` owns a private crypto domain (its own small-key
 `HomoProvider` — the prober measures the PIPE, not the modmul kernel) and
@@ -113,8 +112,9 @@ class CanaryClient:
     deadline also wraps the whole coroutine)."""
 
     def __init__(self, provider: HomoProvider, population: int = 4,
-                 timeout: float = 2.0):
+                 ssl_context=None, timeout: float = 2.0):
         self.provider = provider
+        self.ssl_context = ssl_context
         self.schema = list(DEFAULT_SCHEMA)
         if not aes_available():
             # AES-less environments (no `cryptography` package): the
@@ -174,7 +174,7 @@ class CanaryClient:
         body = json.dumps(payload).encode() if payload is not None else None
         return await http_request(
             target.host, target.port, method, route, body,
-            timeout=self.timeout, headers=headers,
+            ssl_context=self.ssl_context, timeout=self.timeout, headers=headers,
         )
 
     @staticmethod

@@ -38,6 +38,7 @@ class ClientConfig:
     request_timeout: float = 10.0
     fixed_columns: int = 8
     schema: list[str] = field(default_factory=lambda: list(DEFAULT_SCHEMA))
+    ssl_context: object = None  # HTTPS (mutual TLS) to the proxies
 
 
 @dataclass
@@ -73,6 +74,7 @@ class DDSHttpClient:
             try:
                 return await http_request(
                     host, int(port), method, target, body,
+                    ssl_context=self.cfg.ssl_context,
                     timeout=self.cfg.request_timeout,
                 )
             except (OSError, asyncio.TimeoutError) as e:

@@ -1,9 +1,10 @@
 """Tiny asyncio HTTP/1.1 server + client.
 
-Copy of `dds_tpu/http/miniserver.py` (TLS contexts wait with the rest of
-the security posture): request-line + headers + Content-Length bodies,
-query strings and keep-alive over asyncio streams — just enough HTTP/1.1
-for the REST routes, with no external dependency.
+Copy of `dds_tpu/http/miniserver.py`: request-line + headers +
+Content-Length bodies, query strings and keep-alive over asyncio streams —
+just enough HTTP/1.1 for the REST routes, with no external dependency.
+With an `ssl_context` the server serves HTTPS (mutual TLS when the context
+requires client certs) and the client speaks it.
 """
 
 from __future__ import annotations
@@ -60,15 +61,17 @@ class HttpServer:
     """`handler_timeout` (seconds, 0 = off) cancels a handler that outlives
     the REST layer's own budget; the client gets 503 + Retry-After."""
 
-    def __init__(self, host: str, port: int, handler: Handler,
+    def __init__(self, host: str, port: int, handler: Handler, ssl_context=None,
                  handler_timeout: float = 0.0):
         self.host, self.port = host, port
         self.handler = handler
+        self.ssl_context = ssl_context
         self.handler_timeout = handler_timeout
         self._server: Optional[asyncio.AbstractServer] = None
 
     async def start(self) -> None:
-        self._server = await asyncio.start_server(self._serve, self.host, self.port)
+        self._server = await asyncio.start_server(self._serve, self.host, self.port,
+                                                  ssl=self.ssl_context)
         if self.port == 0:  # resolve OS-assigned port
             self.port = self._server.sockets[0].getsockname()[1]
 
@@ -148,17 +151,21 @@ class HttpServer:
 async def http_request(host: str, port: int, method: str, target: str,
                        body: bytes | None = None,
                        content_type: str = "application/json",
+                       ssl_context=None,
                        timeout: float = 30.0,
                        headers: dict[str, str] | None = None) -> tuple[int, bytes]:
-    """One-shot HTTP client request; returns (status, body)."""
+    """One-shot HTTP client request (HTTPS with `ssl_context`); returns
+    (status, body)."""
     status, _, data = await http_request_full(host, port, method, target, body,
-                                              content_type, timeout, headers)
+                                              content_type, ssl_context, timeout,
+                                              headers)
     return status, data
 
 
 async def http_request_full(host: str, port: int, method: str, target: str,
                             body: bytes | None = None,
                             content_type: str = "application/json",
+                            ssl_context=None,
                             timeout: float = 30.0,
                             headers: dict[str, str] | None = None,
                             ) -> tuple[int, dict, bytes]:
@@ -167,7 +174,7 @@ async def http_request_full(host: str, port: int, method: str, target: str,
     headers (the tenant header)."""
 
     async def go():
-        reader, writer = await asyncio.open_connection(host, port)
+        reader, writer = await asyncio.open_connection(host, port, ssl=ssl_context)
         try:
             payload = body or b""
             extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())

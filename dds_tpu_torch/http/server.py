@@ -91,7 +91,9 @@ start, pushes its set to them (`POST /_sync`) every `key_sync_interval`
 seconds after `key_sync_warmup`, and serves `GET /_sync` (404 without
 key sync: the set reveals the workload's shape). The set only names the
 records an aggregate covers; their values still come from full quorum
-reads.
+reads. With `ssl_server_context` the edge serves HTTPS (mutual TLS when
+the context requires client certs); `ssl_client_context` reaches the key
+sync peers and the canary's targets.
 
 With `[heliograph] enabled` the proxy starts Heliograph's prober
 (`obs/heliograph.py`) once its listener is bound: golden transactions
@@ -172,6 +174,7 @@ import math
 import os
 import pathlib
 import random
+import ssl
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -324,6 +327,11 @@ class ProxyConfig:
     # keyspace): key ownership with typed 403s, tenant-scoped aggregates,
     # searches and plane stripes, weighted-fair admission and attribution
     tenancy: object = None
+    # TLS (`[security] tls-enabled`): the server context serves HTTPS
+    # (mutual auth); the client context reaches the key-sync peers and the
+    # canary's targets
+    ssl_server_context: object = None
+    ssl_client_context: object = None
 
 
 def _make_backend(cfg: ProxyConfig) -> CryptoBackend:
@@ -514,6 +522,7 @@ class DDSRestServer:
             float(getattr(hcfg, "burst", 40.0) or 40.0),
         )
         self._http = HttpServer(self.cfg.host, self.cfg.port, self.handle,
+                                self.cfg.ssl_server_context,
                                 handler_timeout=self.cfg.handler_timeout)
 
     async def start(self) -> None:
@@ -536,7 +545,8 @@ class DDSRestServer:
         if hcfg is not None and getattr(hcfg, "enabled", False):
             # after the bind: the loopback target needs the resolved port
             self.heliograph = Heliograph(hcfg, self._canary_targets(hcfg),
-                                         slo=self.slo, watchtower=watchtower)
+                                         slo=self.slo, watchtower=watchtower,
+                                         ssl_context=self.cfg.ssl_client_context)
             self.heliograph.start()
 
     def _canary_targets(self, hcfg) -> list[CanaryTarget]:
@@ -665,8 +675,9 @@ class DDSRestServer:
         async def pull(peer: str) -> None:
             host, _, port = peer.partition(":")
             try:
-                status, body = await http_request(host, int(port), "GET", "/_sync",
-                                                  timeout=5.0)
+                status, body = await http_request(
+                    host, int(port), "GET", "/_sync",
+                    ssl_context=self.cfg.ssl_client_context, timeout=5.0)
                 if status != 200:
                     return
                 before = len(self.stored_keys)
@@ -689,8 +700,13 @@ class DDSRestServer:
                     await http_request(
                         host, int(port), "POST", "/_sync",
                         json.dumps(J.keys_result(sorted(self.stored_keys))).encode(),
-                        timeout=5.0,
+                        ssl_context=self.cfg.ssl_client_context, timeout=5.0,
                     )
+                except ssl.SSLError as e:
+                    # loud: under mutual TLS this usually means the peer has
+                    # another CA (per-node dev certs on a multi-host
+                    # deployment: provision `tls-ca`)
+                    log.warning("key-sync peer %s TLS failure: %s", peer, e)
                 except OSError:
                     log.debug("key-sync peer %s unreachable", peer)
                 except asyncio.TimeoutError:

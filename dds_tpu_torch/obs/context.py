@@ -6,6 +6,10 @@ parent_id)`. The REST edge mints a root per request; every
 `contextvars.ContextVar`, so nested spans — including replica handlers
 scheduled as tasks by the in-memory transport, which copy contextvars at
 creation — link parent->child without threading a parameter through.
+Across a `TcpNet` hop the context travels as the frame's `tc` field
+(`to_wire`/`from_wire`): observability metadata only, outside the frame
+MAC and signature, so a forged id can mislabel telemetry and never a
+protocol decision.
 """
 
 from __future__ import annotations
@@ -57,3 +61,48 @@ def attach(ctx: Optional[SpanContext]) -> contextvars.Token:
 
 def detach(token: contextvars.Token) -> None:
     _current.reset(token)
+
+
+# ------------------------------------------------------------------- wire
+
+def to_wire(ctx: Optional[SpanContext] = None) -> Optional[dict]:
+    """The frame's `tc` field: (trace, span) of the sender's active span,
+    or None with nothing to propagate. The receiver's spans become its
+    children."""
+    ctx = ctx if ctx is not None else _current.get()
+    if ctx is None:
+        return None
+    return {"t": ctx.trace_id, "s": ctx.span_id}
+
+
+def _valid_id(v) -> bool:
+    """Ids minted here are 16 lowercase-hex chars; up to 32 (the W3C
+    traceparent width) are accepted from foreign tracers, but only hex: the
+    `tc` field is unauthenticated and its strings become collector keys,
+    metric labels and flight-incident headers."""
+    return (isinstance(v, str) and 0 < len(v) <= 32
+            and all(c in "0123456789abcdef" for c in v))
+
+
+def from_wire(d) -> Optional[SpanContext]:
+    """Parse a frame's `tc` field. Absence is None; garbage is refused
+    wholesale (and counted), never truncated into a plausible id, and never
+    drops the message it rode on."""
+    if d is None:
+        return None
+    if not isinstance(d, dict):
+        return _malformed()
+    t, s = d.get("t"), d.get("s")
+    if not _valid_id(t) or not _valid_id(s):
+        return _malformed()
+    return SpanContext(t, s)
+
+
+def _malformed() -> None:
+    """Count a present but garbled context, so a peer spraying hostile `tc`
+    fields shows on /metrics."""
+    from dds_tpu_torch.obs.metrics import metrics  # lazy: avoids an import cycle
+
+    metrics.inc("dds_trace_context_malformed_total",
+                help="hostile/garbled tc frame fields dropped at ingest")
+    return None

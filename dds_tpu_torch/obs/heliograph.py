@@ -1,8 +1,8 @@
 """Heliograph: the active canary plane — synthetic probes that decrypt.
 
-Copy of `dds_tpu/obs/heliograph.py`. The port has no Helmsman and no
-Panopticon yet: `unreachable_regions()` is kept for them, and no caller
-reads it; the port serves no TLS, so the prober takes no `ssl_context`.
+Copy of `dds_tpu/obs/heliograph.py`. Helmsman reads
+`unreachable_regions()` (the port has no Panopticon yet); the prober's
+`ssl_context` reaches targets that serve HTTPS.
 `stop()` is a coroutine here: it cancels the prober's task and awaits it,
 for the proxy's `stop`.
 
@@ -278,13 +278,14 @@ class Heliograph:
     `clock`/`rng`/`sleep` inject for deterministic tests."""
 
     def __init__(self, cfg, targets: list[CanaryTarget], *,
-                 slo=None, watchtower=None,
+                 slo=None, watchtower=None, ssl_context=None,
                  clock=time.monotonic, rng: random.Random | None = None,
                  sleep=asyncio.sleep, client: CanaryClient | None = None):
         self.cfg = cfg
         self.targets = list(targets) or [CanaryTarget("127.0.0.1", 0)]
         self.slo = slo
         self.watchtower = watchtower
+        self.ssl_context = ssl_context
         self.clock = clock
         self.rng = rng if rng is not None else random.Random()
         self.sleep = sleep
@@ -355,6 +356,7 @@ class Heliograph:
             )
             self.client = CanaryClient(
                 provider, population=getattr(self.cfg, "population", 4),
+                ssl_context=self.ssl_context,
                 timeout=float(self.cfg.deadline),
             )
         while True:

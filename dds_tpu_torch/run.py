@@ -9,7 +9,8 @@ comes up as the reference wires it: `[replicas] sentinent` spares start
 sentinent, the supervisor (`core/supervisor.py`) answers suspicion
 quorums and with `[recovery] enabled` proactively recovers the oldest
 active replica every `interval` seconds, redeploying a crashed one
-through the launch's factory; `[recovery] snapshot-dir` restores replica
+through the launch's factory (here, or through the owning host's
+`nodehost` agent); `[recovery] snapshot-dir` restores replica
 snapshots at boot (and saves every `snapshot-interval` seconds),
 `anti-entropy-enabled` starts each replica's Merkle sync loop, `[obs]
 flight-dir` arms the flight recorder and `[attacks] enabled` lets Trudy's
@@ -87,8 +88,23 @@ Sanctum handle that runs bulk decryption's CRT legs on the card.
 `[client] nr-of-local-clients` concurrent clients over digests the
 workload generator draws from `[client] proportions`, and with `[attacks]
 enabled` triggers Trudy 0.1 s in, her victims drawn from the same seeded
-rng (a Nemesis's network attacks fire the same way). The TCP transport
-waits for a later slice.
+rng (a Nemesis's network attacks fire the same way).
+
+`[transport] kind = "tcp"` puts every endpoint on a `TcpNet`
+(`core/transport.py`) under this process's advertised "host:port", with
+`[security] transport-frame-secret` MACs, `node-public-keys` Ed25519
+signatures (this process's key at `node-key-path`; a process whose
+advertised address the registry lacks is refused) and
+`intranet-tls-enabled` mutual TLS; `tls-enabled` serves HTTPS at the proxy
+(`Deployment.ssl_client` is the clients' context), from `tls-ca`/`tls-cert`/
+`tls-key` or a dev CA under `tls-dir`. The reference's multi-host topology
+(`Main.scala:90-99`, DEPLOY.md §§1-3): a process builds only its own
+replicas (`[replicas] local`, or the names `addresses` does not map
+elsewhere), a supervisor only where `supervisor-address` names it, and a
+`nodehost` agent that rebuilds a local replica on a remote supervisor's
+Redeploy; `mint_node_keys` (`--mint-node-keys`) provisions the identities.
+`[shard]` over TCP (Meridian) is refused, as are `[fabric]` roles and
+`[obs.fleet]`.
 
 Run the deployment and a generated workload, print each client's report,
 and with --serve keep serving until interrupted (on a host without a card,
@@ -104,10 +120,15 @@ reference's flag does):
     python -m dds_tpu_torch.run --config configs/stratum.toml --port 0 --backend cuda
     python -m dds_tpu_torch.run --config my_reshard.toml --port 0 --backend cuda --serve
     python -m dds_tpu_torch.run --config my_chaos.toml --device cpu --backend cpu
+    python -m dds_tpu_torch.run --mint-node-keys 2 --mint-dir certs \
+        --mint-hosts 10.0.0.1:2552,10.0.0.2:2552
+    python -m dds_tpu_torch.run --config host_a.toml --serve --backend cuda
+    python -m dds_tpu_torch.run --config host_b.toml --serve --ops 0 --device cpu --backend cpu
 
 where my_chaos.toml sets `[attacks] enabled = true`, `chaos-enabled =
 true`, `type = "partition"` and `[proxy] stored-keys-path =
-"keys/proxy_keys.json"`, and my_reshard.toml is configs/sharded.toml with
+"keys/proxy_keys.json"`, host_a.toml and host_b.toml are DEPLOY.md §2's,
+and my_reshard.toml is configs/sharded.toml with
 `[fabric] admin-routes = true`, `[shard] plan-dir = "reshard"` and
 `[helmsman] enabled = true` (then `POST /_reshard {"action": "split",
 "source": "s0"}` and `POST /_helmsman {"pin": true}` on the bound port).
@@ -128,12 +149,13 @@ from dds_tpu_torch import __version__
 from dds_tpu_torch.clt.client import ClientConfig, DDSHttpClient
 from dds_tpu_torch.clt.generator import generate
 from dds_tpu_torch.clt.instructions import Digest
+from dds_tpu_torch.core import messages as M
 from dds_tpu_torch.core import snapshot as snap
 from dds_tpu_torch.core.chaos import ChaosNet
 from dds_tpu_torch.core.quorum_client import AbdClient, AbdClientConfig
 from dds_tpu_torch.core.replica import BFTABDNode, ReplicaConfig
 from dds_tpu_torch.core.supervisor import BFTSupervisor, SupervisorConfig
-from dds_tpu_torch.core.transport import InMemoryNet
+from dds_tpu_torch.core.transport import InMemoryNet, TcpNet
 from dds_tpu_torch.fleet import Helmsman
 from dds_tpu_torch.geo import wan
 from dds_tpu_torch.http.server import DDSRestServer, ProxyConfig
@@ -149,7 +171,9 @@ from dds_tpu_torch.obs.watchtower import watchtower
 from dds_tpu_torch.ops.flags import secret_device
 from dds_tpu_torch.sanctum import SecretBackend
 from dds_tpu_torch.shard import build_constellation
+from dds_tpu_torch.utils import nodeauth, tlsutil
 from dds_tpu_torch.utils.config import DDSConfig
+from dds_tpu_torch.utils.sigs import generate_nonce
 from dds_tpu_torch.utils.tasks import supervised_task
 from dds_tpu_torch.utils.trace import tracer
 
@@ -162,18 +186,22 @@ SUPERVISOR_NAME = "supervisor"
 @dataclass
 class Deployment:
     cfg: DDSConfig
-    net: InMemoryNet | ChaosNet
+    net: InMemoryNet | TcpNet | ChaosNet
     replicas: dict[str, BFTABDNode]
     server: DDSRestServer
     supervisor: BFTSupervisor | None = None
     trudy: Trudy | None = None
-    # loops launch started (anti-entropy, snapshots): each has `stop()`
+    # what launch started that has `stop()`: the TCP transport, the chaos
+    # wrapper, the anti-entropy and snapshot loops, Helmsman
     _stoppables: list = field(default_factory=list)
     # the flight recorder's directory before launch configured it
     _flight_dir: str | None = None
     # the Constellation with `[shard]`: its groups' replicas, supervisors
     # and loops (`replicas` above is the merged view)
     constellation: object = None
+    # the HTTPS client context with `[security] tls-enabled` (the clients'
+    # side of the proxy's mutual TLS)
+    ssl_client: object = None
 
     async def stop(self) -> None:
         if self.constellation is not None:
@@ -183,7 +211,11 @@ class Deployment:
         await self.server.stop()
         for s in self._stoppables:
             await s.stop()
-        await self.net.quiesce()
+        # drain what the fabric still holds: the in-memory deliveries, or
+        # a chaos wrapper's own; a TcpNet was stopped above, with its tasks
+        quiesce = getattr(self.net, "quiesce", None)
+        if quiesce is not None:
+            await quiesce()
         if self.cfg.obs.audit_enabled:
             # the auditor was configured for THIS deployment's quorum
             # geometry; left attached it would audit a later deployment (or
@@ -202,19 +234,76 @@ class Deployment:
 
 def unported_plane(cfg: DDSConfig) -> str | None:
     """The first plane `cfg` enables that the port does not serve, or
-    None: the multi-host fabric's roles and groups, then the other serving
-    surfaces of the reference that are not ported."""
+    None: the multi-host shard fabric (Meridian: its roles and groups, and
+    `[shard]` over TCP, which the reference hands to it), then fleet
+    observability."""
+    tcp = cfg.transport.kind == "tcp"
     checks = (
         (cfg.fabric.role != "all" or bool(cfg.fabric.groups), "[fabric]: the shard fabric"),
+        (cfg.shard.enabled and tcp, '[shard] enabled with [transport] kind = "tcp": '
+                                    "Meridian, the shard fabric"),
         (cfg.obs.fleet.enabled, "[obs.fleet] enabled: fleet observability"),
-        (cfg.transport.kind != "memory", f"[transport] kind = {cfg.transport.kind!r}: "
-                                         "the TCP transport"),
-        (bool(cfg.replicas.addresses or cfg.replicas.local
-              or cfg.replicas.supervisor_address), "[replicas] addresses: multi-host"),
-        (cfg.security.tls_enabled or cfg.security.intranet_tls_enabled, "[security]: TLS"),
-        (bool(cfg.security.node_public_keys), "[security] node-public-keys: node identity"),
     )
     return next((name for on, name in checks if on), None)
+
+
+def tls_contexts(cfg: DDSConfig) -> tuple:
+    """(HTTPS server, HTTPS client, intranet server, intranet client)
+    contexts, each None where `[security]` leaves it off. The material is
+    `tls-ca`/`tls-cert`/`tls-key` or, when one is empty, a dev CA and cert
+    generated once under `tls-dir` (single-host only: two processes with
+    their own CAs cannot verify each other)."""
+    sec = cfg.security
+    if not (sec.tls_enabled or sec.intranet_tls_enabled):
+        return None, None, None, None
+    if sec.tls_ca and sec.tls_cert and sec.tls_key:
+        ca, cert, key = sec.tls_ca, sec.tls_cert, sec.tls_key
+    else:
+        paths = tlsutil.generate_ca_and_cert(
+            sec.tls_dir, hosts=(cfg.proxy.host, cfg.transport.host, "localhost"))
+        ca, cert, key = paths["ca"], paths["cert"], paths["key"]
+
+    def pair():
+        return (tlsutil.server_context(cert, key, ca),
+                tlsutil.client_context(ca, cert, key,
+                                       verify_hostname=sec.tls_verify_hostname))
+
+    https = pair() if sec.tls_enabled else (None, None)
+    # the replica fabric's mutual TLS, the reference's netty-SSL intranet:
+    # every hop presents a CA-signed cert in both directions
+    intranet = pair() if sec.intranet_tls_enabled else (None, None)
+    return https + intranet
+
+
+async def start_tcp(cfg: DDSConfig, ssl_server, ssl_client) -> TcpNet:
+    """The `[transport] kind = "tcp"` fabric, bound and listening, with the
+    frame secret and, with `node-public-keys`, this process's Ed25519 key
+    and the peers' registry. Port 0 resolves into `cfg.transport.port`.
+    With node identity on, a process whose advertised address is not in
+    the registry is refused (after its listener is stopped): no peer could
+    verify its frames."""
+    sec = cfg.security
+    node_key = peer_keys = None
+    if sec.node_public_keys:
+        if not sec.node_key_path:
+            raise ValueError("security.node_public_keys set but node_key_path empty")
+        node_key = nodeauth.load_or_create(sec.node_key_path)
+        peer_keys = nodeauth.registry(sec.node_public_keys)
+    net = TcpNet(cfg.transport.host, cfg.transport.port,
+                 ssl_server=ssl_server, ssl_client=ssl_client,
+                 frame_secret=sec.transport_frame_secret.encode() or None,
+                 node_key=node_key, peer_keys=peer_keys,
+                 advertise=cfg.transport.advertise)
+    await net.start()
+    cfg.transport.port = net.port
+    if peer_keys is not None and net.advertised not in sec.node_public_keys:
+        await net.stop()
+        raise ValueError(
+            f"per-node identity is on but this process's advertised address "
+            f"{net.advertised!r} is not in security.node_public_keys — peers could "
+            f"never verify its frames (set transport.advertise to the registered "
+            f"address, or register this one)")
+    return net
 
 
 async def launch(cfg: DDSConfig | None = None) -> Deployment:
@@ -224,8 +313,9 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
     (`unported_plane`). Then, with `[fabric] region` set, that region's
     `[retry.profiles]` overrides land on `cfg.proxy` before anything reads
     it, as in the reference. The rest boots as configured: the memory
-    transport (under ChaosNet with `[attacks] chaos-enabled`), the
-    replicas, supervisor and proxy, or the Constellation with `[shard]`."""
+    or TCP transport (under ChaosNet with `[attacks] chaos-enabled`), this
+    process's replicas, its supervisor and node agent and the proxy, or the
+    Constellation with `[shard]`."""
     cfg = cfg or DDSConfig()
     plane = unported_plane(cfg)
     if plane is not None:
@@ -253,12 +343,29 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             max_incidents=cfg.obs.flight_max_incidents,
             min_interval=cfg.obs.flight_min_interval,
         )
-    net = InMemoryNet()
+    ssl_server, ssl_client, intranet_server, intranet_client = tls_contexts(cfg)
     stoppables = []
+    if cfg.transport.kind == "tcp":
+        net = await start_tcp(cfg, intranet_server, intranet_client)
+        stoppables.append(net)
+        local_hostport = net.advertised
+
+        def full(name: str) -> str:
+            # every endpoint is a routable "host:port/name": names map
+            # through `[replicas] addresses`, the rest live in this process,
+            # under its advertised address (the src its frames are signed as)
+            return f"{cfg.replicas.addresses.get(name, local_hostport)}/{name}"
+    else:
+        net = InMemoryNet()
+        local_hostport = None
+
+        def full(name: str) -> str:
+            return name
     if cfg.attacks.chaos_enabled:
         # every send takes the seeded fault schedule. ChaosNet.stop cancels
         # only its own deferred deliveries; Deployment.stop then quiesces
-        # it, which drains the inner transport too
+        # it, which drains an in-memory inner transport too (a TcpNet stops
+        # through `stoppables`)
         net = ChaosNet(net, seed=cfg.attacks.chaos_seed)
         stoppables.append(net)
         if cfg.chaos.profiles:
@@ -268,7 +375,8 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             # resolve per send
             wan.apply_profiles(net, cfg.chaos.profiles, scale=cfg.chaos.scale)
     if cfg.shard.enabled:
-        return await _launch_constellation(cfg, net, stoppables, flight_dir)
+        return await _launch_constellation(cfg, net, stoppables, flight_dir,
+                                           ssl_server, ssl_client)
     rcfg = ReplicaConfig(
         quorum_size=cfg.replicas.byz_quorum_size,
         nonce_increment=cfg.security.nonce_challenge_increment,
@@ -277,15 +385,30 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
         debug=cfg.debug,
         allow_fault_injection=cfg.attacks.enabled,
     )
-    endpoints = list(cfg.replicas.endpoints)
-    spares = set(cfg.replicas.sentinent)
+    endpoints = [full(e) for e in cfg.replicas.endpoints]
+    spares = {full(e) for e in cfg.replicas.sentinent}
     sentinent = [e for e in endpoints if e in spares]
     active = [e for e in endpoints if e not in spares]
-    replicas = {
-        e: BFTABDNode(e, endpoints, SUPERVISOR_NAME, net, rcfg) for e in endpoints
-    }
+    # a process spawns only its own replicas; the rest of the quorum is
+    # reached over the fabric. By default every name this process hosts
+    # (on the memory transport: all of them)
+    if cfg.replicas.local:
+        local_names = set(cfg.replicas.local)
+    elif local_hostport is not None:
+        local_names = {n for n in cfg.replicas.endpoints
+                       if cfg.replicas.addresses.get(n, local_hostport) == local_hostport}
+    else:
+        local_names = set(cfg.replicas.endpoints)
+    # the supervisor lives where `supervisor-address` says (default here)
+    sup_host = cfg.replicas.supervisor_address
+    sup_local = local_hostport is None or not sup_host or sup_host == local_hostport
+    sup_addr = (SUPERVISOR_NAME if local_hostport is None
+                else f"{sup_host or local_hostport}/{SUPERVISOR_NAME}")
+    replicas = {full(e): BFTABDNode(full(e), endpoints, sup_addr, net, rcfg)
+                for e in cfg.replicas.endpoints if e in local_names}
     for e in sentinent:
-        replicas[e].behavior = "sentinent"
+        if e in replicas:
+            replicas[e].behavior = "sentinent"
 
     # optional snapshot restore: corrupt or forged files are quarantined
     # by load_all, never allowed to abort this boot
@@ -308,21 +431,62 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
         )
         node.antientropy.start()
 
-    async def redeploy(endpoint: str) -> None:
-        """The supervisor's factory for a crashed replica: a fresh node at
-        the same endpoint (one still on the transport is not rebuilt, so a
-        stray redeploy never wipes a live replica)."""
-        if net.has_endpoint(endpoint):
-            return
+    def _rebuild_local(endpoint: str) -> None:
         old = replicas.get(endpoint)
         if old is not None:
             old.antientropy.cancel()  # the replaced node's loop must die
-        replicas[endpoint] = BFTABDNode(endpoint, endpoints, SUPERVISOR_NAME, net, rcfg)
+        replicas[endpoint] = BFTABDNode(endpoint, endpoints, sup_addr, net, rcfg)
         if cfg.recovery.anti_entropy_enabled:
             _start_antientropy(replicas[endpoint])
 
-    supervisor = BFTSupervisor(
-        SUPERVISOR_NAME,
+    async def _nodehost(sender: str, msg) -> None:
+        """This process's node agent: honours the supervisor's Redeploy of a
+        replica it owns. One still on the transport is not rebuilt (a stray
+        or duplicate Redeploy must not wipe a live replica); either way it
+        acks, so the supervisor's reseed can go on."""
+        if isinstance(msg, M.Redeploy) and msg.endpoint in replicas:
+            if net.has_endpoint(msg.endpoint):
+                log.info("nodehost: %s is alive, not rebuilding", msg.endpoint)
+            else:
+                log.info("nodehost rebuilding %s (asked by %s)", msg.endpoint, sender)
+                _rebuild_local(msg.endpoint)
+            net.send(full("nodehost"), sender, M.Redeployed(msg.endpoint))
+
+    net.register(full("nodehost"), _nodehost)
+
+    async def redeploy(endpoint: str) -> None:
+        """The supervisor's factory for a crashed replica: rebuilt here when
+        this process owns it (one still on the transport is not rebuilt),
+        else by the owning host's node agent, whose Redeployed ack is
+        awaited; three tries, so a dropped frame does not leave the
+        supervisor reseeding a node that was never rebuilt."""
+        if endpoint in replicas:
+            if not net.has_endpoint(endpoint):
+                _rebuild_local(endpoint)
+            return
+        hostport = endpoint.rsplit("/", 1)[0]
+        ack: asyncio.Future = asyncio.get_running_loop().create_future()
+        tmp = full(f"redeploy-ack-{generate_nonce()}")
+
+        async def on_ack(sender: str, msg) -> None:
+            if isinstance(msg, M.Redeployed) and msg.endpoint == endpoint and not ack.done():
+                ack.set_result(True)
+
+        net.register(tmp, on_ack)
+        try:
+            for _ in range(3):
+                net.send(tmp, f"{hostport}/nodehost", M.Redeploy(endpoint))
+                try:
+                    await asyncio.wait_for(asyncio.shield(ack), 1.0)
+                    return
+                except asyncio.TimeoutError:
+                    continue
+            log.warning("redeploy of %s was never acknowledged", endpoint)
+        finally:
+            net.unregister(tmp)
+
+    supervisor = None if not sup_local else BFTSupervisor(
+        sup_addr,
         active,
         sentinent,
         net,
@@ -341,9 +505,10 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
         ),
         redeploy=redeploy,
     )
-    supervisor.start()
+    if supervisor is not None:
+        supervisor.start()
     abd = AbdClient(
-        "proxy-0",
+        full("proxy-0"),
         net,
         active,
         AbdClientConfig(
@@ -359,11 +524,18 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
     )
     server = DDSRestServer(
         abd,
-        proxy_config(cfg, SUPERVISOR_NAME),
+        proxy_config(cfg, sup_addr, ssl_server, ssl_client),
         local_replicas=replicas,
         slo=SloEngine.from_obs(cfg.obs),
     )
-    await server.start()
+    try:
+        await server.start()
+    except BaseException:
+        if supervisor is not None:
+            await supervisor.stop()
+        for s in stoppables:
+            await s.stop()
+        raise
 
     if cfg.recovery.anti_entropy_enabled:
         # one pull agent per replica, on a jittered timer so the rounds
@@ -379,10 +551,10 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
         stoppables.append(_AntiEntropyStopper())
 
     attacker = Nemesis if cfg.attacks.chaos_enabled else Trudy
-    trudy = attacker(net, active, cfg.replicas.byz_max_faults, addr="trudy")
+    trudy = attacker(net, active, cfg.replicas.byz_max_faults, addr=full("trudy"))
     dep = Deployment(cfg, net, replicas, server, supervisor, trudy, stoppables,
-                     flight_dir)
-    publish_identity(cfg, "single")
+                     flight_dir, ssl_client=ssl_client)
+    publish_identity(cfg, "single", host=local_hostport or "local")
 
     if cfg.recovery.snapshot_dir and cfg.recovery.snapshot_interval > 0:
         async def _snapshot_loop():
@@ -411,14 +583,16 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
     # the Watchtower rides the process tracer, attached last, once nothing
     # else in this launch can fail, so an aborted boot never leaves a
     # misconfigured auditor behind. It starts from a clean ledger, so its
-    # stats and verdicts are this deployment's. Every replica records its
-    # handler spans in this process, so the quorum checks are sound.
+    # stats and verdicts are this deployment's. The quorum checks are sound
+    # only when every replica records its handler spans in this process: a
+    # multi-host topology keeps the tag, repair and state-machine checks
     if cfg.obs.audit_enabled:
+        all_local = not cfg.replicas.addresses and not cfg.replicas.local
         watchtower.reset()
         watchtower.configure(
             quorum_size=cfg.replicas.byz_quorum_size,
             n_replicas=len(cfg.replicas.endpoints) - len(cfg.replicas.sentinent),
-            check_quorum=cfg.obs.audit_quorum_checks,
+            check_quorum=cfg.obs.audit_quorum_checks and all_local,
         )
         watchtower.attach(tracer)
     # Chronoscope rides the same tracer: every span is local in this
@@ -427,11 +601,12 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
     return dep
 
 
-def publish_identity(cfg: DDSConfig, role: str) -> None:
+def publish_identity(cfg: DDSConfig, role: str, host: str = "local") -> None:
     """The process's identity, as the reference publishes it at launch:
-    the flight recorder's incident headers (host, role and, with `[fabric]
-    region`, the region) and the `dds_process_info` gauge on /metrics."""
-    identity = {"host": "local", "role": role}
+    the flight recorder's incident headers (host — the advertised
+    "host:port" on the TCP transport —, role and, with `[fabric] region`,
+    the region) and the `dds_process_info` gauge on /metrics."""
+    identity = {"host": host, "role": role}
     if cfg.fabric.region:
         identity["region"] = cfg.fabric.region
     flight.configure(identity=identity)
@@ -443,10 +618,12 @@ def publish_identity(cfg: DDSConfig, role: str) -> None:
     )
 
 
-def proxy_config(cfg: DDSConfig, supervisor: str) -> ProxyConfig:
+def proxy_config(cfg: DDSConfig, supervisor: str, ssl_server=None,
+                 ssl_client=None) -> ProxyConfig:
     """The proxy's ProxyConfig from the config tree; `supervisor` is the
     one it refreshes its replica view from (a Constellation's router
-    refreshes every group from its own)."""
+    refreshes every group from its own); the TLS contexts serve HTTPS and
+    reach the peers' (key sync) and the canary's targets."""
     p = cfg.proxy
     return ProxyConfig(
         host=p.host,
@@ -483,6 +660,8 @@ def proxy_config(cfg: DDSConfig, supervisor: str) -> ProxyConfig:
         admission=cfg.admission,
         heliograph=cfg.heliograph,
         tenancy=cfg.tenancy,
+        ssl_server_context=ssl_server,
+        ssl_client_context=ssl_client,
     )
 
 
@@ -601,7 +780,8 @@ def start_helmsman(cfg: DDSConfig, const, server: DDSRestServer) -> Helmsman:
 
 
 async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet | ChaosNet,
-                                stoppables: list, flight_dir: str | None) -> Deployment:
+                                stoppables: list, flight_dir: str | None,
+                                ssl_server=None, ssl_client=None) -> Deployment:
     """`[shard] enabled`: S quorum groups behind a ShardRouter (the
     reference's `run._launch_constellation` on the in-memory transport).
     Each group mirrors the single-group stack with namespaced endpoints;
@@ -672,7 +852,7 @@ async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet | ChaosNet,
                 node.antientropy.start()
     server = DDSRestServer(
         const.router,
-        proxy_config(cfg, const.groups[0].supervisor.addr),
+        proxy_config(cfg, const.groups[0].supervisor.addr, ssl_server, ssl_client),
         local_replicas=replicas,
         slo=SloEngine.from_obs(cfg.obs),
         reshard=ConstellationReshard(const),
@@ -685,7 +865,8 @@ async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet | ChaosNet,
     if cfg.helmsman.enabled:
         stoppables.append(start_helmsman(cfg, const, server))
     dep = Deployment(cfg, net, replicas, server, None, const.groups[0].trudy,
-                     stoppables, flight_dir, constellation=const)
+                     stoppables, flight_dir, constellation=const,
+                     ssl_client=ssl_client)
     publish_identity(cfg, "constellation")
     if cfg.obs.audit_enabled:
         watchtower.reset()
@@ -707,13 +888,38 @@ async def _launch_constellation(cfg: DDSConfig, net: InMemoryNet | ChaosNet,
     return dep
 
 
-def _write_secret_file(path: pathlib.Path, content: str) -> None:
-    """Create a file born 0600 (O_EXCL): never world-readable, not even
-    for the instant before a chmod."""
-    path.parent.mkdir(parents=True, exist_ok=True)
-    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_EXCL, 0o600)
-    with os.fdopen(fd, "w") as f:
-        f.write(content)
+def mint_node_keys(count: int, directory: str = "certs",
+                   hosts: list[str] | None = None,
+                   host: str = "127.0.0.1", base_port: int = 2552) -> str:
+    """Provision per-process transport identities for an N-process fleet:
+    one Ed25519 key file per process (born 0600; an existing file is reused,
+    so a rerun never rotates keys under a live fleet) and the `[security]`
+    TOML stanza of the public-key registry — DEPLOY.md §1 as one command:
+
+        python -m dds_tpu_torch.run --mint-node-keys 2 --mint-dir certs \\
+            --mint-hosts 10.0.0.1:2552,10.0.0.2:2552
+
+    Returns (and `main` prints) the stanza: paste it into every process's
+    config and point each process's `node-key-path` at its own file."""
+    if hosts:
+        hostports = [hp if ":" in hp else f"{hp}:{base_port}" for hp in hosts]
+    else:
+        hostports = [f"{host}:{base_port + i}" for i in range(count)]
+    if count and hosts and len(hostports) != count:
+        raise ValueError(f"--mint-node-keys {count} but {len(hostports)} hosts given")
+    d = pathlib.Path(directory)
+    lines = ["# Meridian node identities — minted by --mint-node-keys.",
+             "# Per process: set security.node-key-path to ITS OWN file:"]
+    registry = []
+    for i, hp in enumerate(hostports):
+        path = d / f"node_{i}.key"
+        key = nodeauth.load_or_create(path)
+        lines.append(f"#   process {i} ({hp}): node-key-path = {str(path)!r}")
+        registry.append(f'"{hp}" = "{nodeauth.public_hex(key)}"')
+    lines.append("")
+    lines.append("[security.node-public-keys]")
+    lines.extend(registry)
+    return "\n".join(lines) + "\n"
 
 
 def load_provider(cfg: DDSConfig) -> HomoProvider:
@@ -738,7 +944,7 @@ def load_provider(cfg: DDSConfig) -> HomoProvider:
     else:
         keys = HEKeys.generate(c.paillier_bits, c.rsa_bits)
         if path is not None:
-            _write_secret_file(path, keys.to_json())
+            nodeauth.write_secret_file(path, keys.to_json())
     bulk = None
     if c.bulk_encrypt_backend:
         kwargs = {"device": c.device} if c.bulk_encrypt_backend == "cuda" else {}
@@ -774,6 +980,7 @@ async def run_workload(dep: Deployment, provider: HomoProvider | None = None,
                 request_timeout=cfg.client.http_requests_timeout,
                 fixed_columns=dt.fixed_nr_of_columns,
                 schema=dt.fixed_columns_hcrypt,
+                ssl_context=dep.ssl_client,
             ),
             rng=random.Random(rng.getrandbits(64)),
         )
@@ -801,9 +1008,21 @@ def main(argv=None) -> None:
     ap.add_argument("--device", choices=["cuda", "cpu"],
                     help="where the cuda backends fold and encrypt and the Sanctum "
                          "device plan decrypts (default cuda)")
+    ap.add_argument("--mint-node-keys", type=int, metavar="N",
+                    help="provision N per-process Ed25519 node keys + the "
+                         "security.node-public-keys TOML stanza, then exit")
+    ap.add_argument("--mint-dir", default="certs",
+                    help="directory for --mint-node-keys files")
+    ap.add_argument("--mint-hosts", default="",
+                    help="comma-separated host:port per process for "
+                         "--mint-node-keys (default 127.0.0.1:2552+i)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(name)s %(message)s")
+    if args.mint_node_keys is not None:
+        hosts = [h for h in args.mint_hosts.split(",") if h.strip()]
+        print(mint_node_keys(args.mint_node_keys, args.mint_dir, hosts or None), end="")
+        return
     cfg = DDSConfig.load(args.config) if args.config else DDSConfig()
     if args.ops is not None:
         cfg.client.nr_of_operations = args.ops

@@ -38,6 +38,7 @@ import pytest
 
 from dds_tpu.utils.config import DDSConfig as RefConfig
 from dds_tpu_torch.core.chaos import ChaosNet
+from dds_tpu_torch.core.transport import TcpNet
 from dds_tpu_torch.malicious.trudy import Nemesis
 from dds_tpu_torch.run import launch, unported_plane
 from dds_tpu_torch.utils.config import DDSConfig, SearchConfig
@@ -170,10 +171,10 @@ PLANES = [
     ("/_trace", {"obs": {"trace-route": True}}, False),
     ("flight recorder", {"obs": {"flight-dir": "incidents"}}, False),
     ("fleet observability", {"obs": {"fleet": {"enabled": True}}}, True),
-    ("TCP transport", {"transport": {"kind": "tcp"}}, True),
-    ("multi-host", {"replicas": {"addresses": {"replica-0": "h:1"}}}, True),
-    ("TLS", {"security": {"tls-enabled": True}}, True),
-    ("node identity", {"security": {"node-public-keys": {"h:1": "00"}}}, True),
+    ("TCP transport", {"transport": {"kind": "tcp", "port": 0}}, False),
+    ("multi-host", {"replicas": {"addresses": {"replica-0": "h:1"}}}, False),
+    ("TLS", {"security": {"tls-enabled": True}}, False),
+    ("node identity", {"security": {"node-public-keys": {"h:1": "00"}}}, False),
     ("key sync", {"proxy": {"device": "cpu", "key-sync-enabled": True}}, False),
     ("stored-keys", {"proxy": {"device": "cpu", "stored-keys-path": "keys.json"}}, False),
     ("admin-routes", {"shard": {"enabled": True}, "fabric": {"admin-routes": True}}, False),
@@ -184,6 +185,7 @@ PLANES = [
                           "chaos": {"profiles": {"eu<->us": "wan-100"}}}, False),
     ("sharded chaos", {"shard": {"enabled": True}, "attacks": {"chaos-enabled": True}}, False),
     ("helmsman unsharded", {"helmsman": {"enabled": True}}, False),
+    ("Meridian", {"shard": {"enabled": True}, "transport": {"kind": "tcp"}}, True),
 ]
 IDS = [f"{p}-{i}" for i, (p, _, _) in enumerate(PLANES)]
 REFUSALS = [(p, sec) for p, sec, refused in PLANES if refused]
@@ -264,6 +266,20 @@ def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
                 dep.trudy.trigger("heal")
             if plane == "key sync":
                 assert dep.server.cfg.key_sync_enabled
+            if plane == "TCP transport":
+                # bound on an OS-assigned port, every endpoint under it
+                assert isinstance(dep.net, TcpNet) and dep.net.port != 0
+                assert dep.net in dep._stoppables
+                assert set(dep.replicas) == {f"127.0.0.1:{dep.net.port}/replica-{i}"
+                                             for i in range(4)}
+            if plane == "multi-host":
+                # on the memory transport the address map names no other
+                # process, as in the reference; the quorum audit is off
+                assert set(dep.replicas) == {f"replica-{i}" for i in range(4)}
+                assert not watchtower.check_quorum
+            if plane == "TLS":
+                assert dep.ssl_client is not None
+                assert dep.server.cfg.ssl_server_context is not None
             if plane == "stored-keys":
                 assert dep.server.cfg.keys_path == "keys.json"
                 dep.server._note_stored("k-0")

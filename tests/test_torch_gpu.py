@@ -6,8 +6,10 @@ Sanctum decrypt's per-column-modulus product and ladder
 backend's planes on `[proxy] device`, `configs/default.toml` serving
 on the card with Bulwark, the SLO engine and the Watchtower, and
 `configs/tenancy.toml` folding two tenants' SumAlls under their own moduli,
-the kernel sentry naming `cuda`, and `configs/heliograph.toml`'s probes
-on the host beside a user's fold on the card.
+the kernel sentry naming `cuda`, `configs/heliograph.toml`'s probes
+on the host beside a user's fold on the card, and DEPLOY.md's two hosts
+on the TCP transport (host A folding on the card, host B's host fold the
+same ciphertext).
 
 Marked `gpu`: on a host without a CUDA device every test here skips (the
 decision is made inside the `cuda` fixture, never at import, so every
@@ -1220,3 +1222,109 @@ def test_mesh_backend_and_plane_on_card(cuda):
     torch.cuda.synchronize()
     assert mont_cuda.launches.value - before == mesh_fold_launches([[300], [301], [302], [303]])
     assert plane.stats()["mesh_devices"] == 4
+
+
+def _tcp_config(pkg_cfg, tmp_path, port: int, local: list, addresses: dict, sup: str,
+                backend: str, device: str):
+    """One process of a 5-replica (spare replica-4), quorum 3 group on the
+    TCP transport under intranet mutual TLS and HTTPS, with the material of
+    one CA under `tmp_path`."""
+    from dds_tpu_torch.utils import tlsutil
+
+    paths = tlsutil.generate_ca_and_cert(tmp_path / "certs", hosts=("127.0.0.1",))
+    cfg = pkg_cfg()
+    cfg.transport.kind = "tcp"
+    cfg.transport.port = port
+    cfg.replicas.endpoints = [f"replica-{i}" for i in range(5)]
+    cfg.replicas.sentinent = ["replica-4"]
+    cfg.replicas.local = local
+    cfg.replicas.addresses = addresses
+    cfg.replicas.supervisor_address = sup
+    cfg.security.intranet_tls_enabled = cfg.security.tls_enabled = True
+    cfg.security.tls_ca, cfg.security.tls_cert, cfg.security.tls_key = (
+        str(paths["ca"]), str(paths["cert"]), str(paths["key"]))
+    cfg.proxy.port = 0
+    cfg.proxy.crypto_backend = backend
+    cfg.proxy.device = cfg.client.device = device
+    cfg.proxy.min_device_batch = 0
+    return cfg
+
+
+def test_sumalls_through_a_two_process_tcp_deployment_on_the_card(cuda, tmp_path):
+    """DEPLOY.md's two hosts in one loop on the TCP transport, intranet
+    mutual TLS and HTTPS: host A (replicas 0-2, the supervisor, a proxy
+    folding on the card) and host B (replicas 3-4, a proxy folding on the
+    host). 256 PutSets over HTTPS to A, each read back through B; A's
+    SumAll is one B1 fold equal to the Python-int product, and B's host
+    fold of the same rows is the same ciphertext."""
+    pytest.importorskip("cryptography", reason="TLS certs need cryptography")
+    import asyncio
+    import json
+    import socket
+
+    from dds_tpu_torch.http.miniserver import http_request
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.utils.config import DDSConfig
+
+    key = bench_paillier_key(2048)
+    pk = key.public
+    blinds = [pk.blind() for _ in range(8)]
+    cts = [pk.encrypt(i + 1, rn=blinds[i % 8]) for i in range(256)]
+    fold = 1
+    for c in cts:
+        fold = fold * c % pk.nsquare
+    socks = [socket.socket() for _ in range(2)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    t_a, t_b = (s.getsockname()[1] for s in socks)
+    for s in socks:
+        s.close()
+    host_a, host_b = f"127.0.0.1:{t_a}", f"127.0.0.1:{t_b}"
+    cfg_a = _tcp_config(DDSConfig, tmp_path, t_a, ["replica-0", "replica-1", "replica-2"],
+                        {"replica-3": host_b, "replica-4": host_b}, host_a, "cuda", "cuda")
+    cfg_b = _tcp_config(DDSConfig, tmp_path, t_b, ["replica-3", "replica-4"],
+                        {f"replica-{i}": host_a for i in range(3)}, host_a, "cpu", "cpu")
+
+    async def go():
+        dep_a = await launch(cfg_a)
+        dep_b = await launch(cfg_b)
+        try:
+            async def call(dep, method, target, obj=None, want=200):
+                status, body = await http_request(
+                    "127.0.0.1", dep.server.cfg.port, method, target,
+                    json.dumps(obj).encode() if obj is not None else None,
+                    ssl_context=dep.ssl_client, timeout=120.0)
+                assert status == want, body[:200]
+                return body
+
+            keys = [(await call(dep_a, "POST", "/PutSet", {"contents": [str(c)]})).decode()
+                    for c in cts]
+            await call(dep_b, "POST", "/_sync", {"keyset": keys}, want=204)
+            # every row read through B first, which fills its aggregate
+            # cache: its SumAll's concurrent full reads of 256 uncached keys
+            # time out together on a shared loop (ROADMAP §C 5)
+            sem = asyncio.Semaphore(16)
+
+            async def get(k):
+                async with sem:
+                    return json.loads(await call(dep_b, "GET", f"/GetSet/{k}"))["contents"]
+
+            read = await asyncio.gather(*(get(k) for k in keys))
+            assert read == [[str(c)] for c in cts]
+            target = f"/SumAll?position=0&nsqr={pk.nsquare}"
+            for c in mont_cuda.LAUNCHES.values():
+                c.reset()
+            a = int(json.loads(await call(dep_a, "GET", target))["result"])
+            torch.cuda.synchronize()
+            launches = mont_cuda.LAUNCHES["mont_mul"].value
+            b = int(json.loads(await call(dep_b, "GET", target))["result"])
+            return a, b, launches, type(dep_a.server.backend).__name__, \
+                type(dep_b.server.backend).__name__
+        finally:
+            await dep_b.stop()
+            await dep_a.stop()
+
+    a, b, launches, dev_a, dev_b = asyncio.run(asyncio.wait_for(go(), 300))
+    assert a == b == fold and key.decrypt(a) == 256 * 257 // 2
+    assert launches == mont_cuda.fold_launches(256)
+    assert (dev_a, dev_b) == ("CudaBackend", "CpuBackend")

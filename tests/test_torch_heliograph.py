@@ -333,10 +333,49 @@ def test_seed_ciphertext_corruption_flips_the_same_bytes_twin():
 # -------------------------------------------- the client, keys pinned
 
 
+class SeededSecrets:
+    """A stand-in for the `secrets` module that draws from a seeded rng."""
+
+    def __init__(self, seed):
+        self._rng = random.Random(seed)
+
+    def randbelow(self, n: int) -> int:
+        return self._rng.randrange(n)
+
+    def randbits(self, k: int) -> int:
+        return self._rng.getrandbits(k)
+
+    def token_bytes(self, n: int) -> bytes:
+        return self._rng.randbytes(n)
+
+
+@contextlib.contextmanager
+def seeded_secrets(seed):
+    """The reference's key generation and encryption draw from `seed`, and
+    its DJN base is minted afresh: the same inputs give the same keys and
+    ciphertexts, and so the same content-addressed row keys, in every run
+    and whatever ran before in the process. The aggregate cache audit
+    samples from the sorted keys, so which rows it audits depends on them."""
+    mods = [mod("dds_tpu", f"models.{m}") for m in ("keys", "primes", "paillier", "rand")]
+    paillier = mods[2]
+    saved, b0 = [m.secrets for m in mods], paillier._B0_CACHE
+    fake = SeededSecrets(seed)
+    for m in mods:
+        m.secrets = fake
+    paillier._B0_CACHE = {}
+    try:
+        yield
+    finally:
+        for m, s in zip(mods, saved):
+            m.secrets = s
+        paillier._B0_CACHE = b0
+
+
 @pytest.fixture(scope="module")
 def keys_json():
     """One small key family, the reference's, for both packages."""
-    return mod("dds_tpu", "models.keys").HEKeys.generate(256, 512).to_json()
+    with seeded_secrets("keys"):
+        return mod("dds_tpu", "models.keys").HEKeys.generate(256, 512).to_json()
 
 
 def pin_salt(client, salt: str = "5a175a175a175a17") -> None:
@@ -364,7 +403,8 @@ class Pinned:
     def encrypt_row(self, row, until, schema):
         key = (json.dumps(row), until, tuple(schema))
         if key not in Pinned.table:
-            Pinned.table[key] = self._ref.encrypt_row(row, until, schema)
+            with seeded_secrets(json.dumps(key)):
+                Pinned.table[key] = self._ref.encrypt_row(row, until, schema)
         return list(Pinned.table[key])
 
     def __getattr__(self, name):

@@ -30,6 +30,21 @@ import pytest
 
 from dds_tpu_torch import convert
 
+
+@pytest.fixture(autouse=True)
+def reset_reference_audit():
+    """The reference's `launch` attaches its process-wide Watchtower without
+    a reset, so the verdicts these twins leave there (the same rows written
+    by launch after launch read as duplicate mints, or a drill's wrong
+    answer) would reach a later test of the worker that reads
+    `watchtower.verdicts()`. Reset it, and the port's, after each test."""
+    yield
+    from dds_tpu.obs.watchtower import watchtower
+    from dds_tpu_torch.obs.watchtower import watchtower as port_watchtower
+
+    watchtower.reset()
+    port_watchtower.reset()
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 BOUND = 90.0
 UNRESOLVED = ("proxy-east", "proxy-west")
