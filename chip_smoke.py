@@ -34,7 +34,9 @@ through the WAN matrix, lease-local reads, a region cut and a lease
 holder's crash) and DEPLOY.md's two-host deployment on the TCP
 transport (mutual TLS, node identities, HTTPS; host B a child process,
 SumAlls exact on the card, B's host fold the card's bit for bit, a
-cross-host redeploy) — and holds
+cross-host redeploy) and configs/multihost/'s four-process Meridian
+fleet (three group processes, the proxy on the card bootstrapping the
+signed map, a live cross-host split, a proxy relaunch) — and holds
 every CUDA kernel on them against its plain PyTorch version. The phases
 before `recovery` turn the audit and /slo off in the configs they build
 (EARLIER_OBS_CUTS), and every phase before `tenancy` runs with the
@@ -496,7 +498,7 @@ non-zero:
               4, a host-folding proxy), host A `launch()` here (replicas
               0-2, the supervisor, a proxy on the card); intranet mutual
               TLS, node signatures and HTTPS at both proxies, key sync
-              between them; 2,048 B3-blinded rows (cut from 8,192,
+              between them; 1,024 B3-blinded rows (cut from 8,192,
               DEPTH_CUTS) by PutSet over HTTPS to A, 64 in flight, all read
               back through B; a cold and 3 warm SumAlls through A, one
               through B after key sync; Trudy's crash of replica-3 on B,
@@ -505,10 +507,27 @@ non-zero:
               every SumAll the Python-int fold and decrypting to the total,
               B's host fold A's card fold bit for bit, the recovery within
               30 s, 0 `dropping frame` warnings on A and in B's log, B1 =
-              the 5 SumAlls x `fold_launches(2048)` + 2 and B3 1 on path
+              the 5 SumAlls x `fold_launches(1024)` + 2 and B3 1 on path
               "tcp". Printed: each step's seconds, PutSets/s, the SumAlls'
               ms, the `serialize` share of /profile, A's frames sent, the
               phase's seconds beside its 45 s budget;
+26c. meridian configs/multihost/'s four-process fleet on loopback
+              (MERIDIAN_DIFFERENCES, MERIDIAN_STEPS printed): node
+              identities by `mint_node_keys`, group0, group1 and the
+              standby s2 as child processes on the host backend, the proxy
+              `launch()` here on the card, its map bootstrapped from the
+              groups' GET /shards; 2,048 B3-blinded rows (cut from 8,192,
+              DEPTH_CUTS) by PutSet through the proxy; 3 SumAlls at S = 2,
+              POST /_reshard {"source": "s1"} under 32 concurrent
+              WriteElements, 3 SumAlls at S = 3, the proxy relaunched and
+              every row read back through it, the open-loop load at 20
+              ops/s for 5 s. Gates: every SumAll the Python-int fold, the
+              same ciphertext across the split; epoch 2 with s2 everywhere;
+              every acknowledged write and row read back; no 500; B1 =
+              each SumAll's `fold_launches` over its groups' printed row
+              counts + 2 and B3 1 on path "meridian". Printed: each step's
+              seconds, PutSets/s, the SumAlls' ms, the export frames' bytes,
+              the load report, the phase's seconds beside its 60 s budget;
 27. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
               launch; the analytics requests' launches are the path
@@ -516,9 +535,10 @@ non-zero:
               path "decrypt", `decrypt_rows`' run, B1's the paths
               "recovery", "sumall_audited", "bulwark", "tenancy",
               "heliograph", "sharded" (its MatVec included), "stratum",
-              "chaos", "reshard", "mesh", "mesh_sumall", "geo" and "tcp",
-              B3's "client", "tenancy", "heliograph", "sharded", "chaos",
-              "reshard", "mesh", "geo" and "tcp", the Karatsuba kernels' also
+              "chaos", "reshard", "mesh", "mesh_sumall", "geo", "tcp" and
+              "meridian", B3's "client", "tenancy", "heliograph", "sharded",
+              "chaos", "reshard", "mesh", "geo", "tcp" and "meridian", the
+              Karatsuba kernels' also
               "sharded" and "mesh");
               then one
               {"search": ...}
@@ -535,8 +555,8 @@ non-zero:
               one {"bulwark": ...}, one {"tenancy": ...}, one
               {"heliograph": ...}, one {"sharded": ...}, one
               {"chaos": ...}, one {"reshard": ...}, one {"mesh": ...}, one
-              {"geo": ...} and one {"tcp": ...} line with those phases'
-              whole records;
+              {"geo": ...}, one {"tcp": ...} and one {"meridian": ...} line
+              with those phases' whole records;
               then the card's name and power limit;
               then the result line.
 
@@ -554,6 +574,7 @@ non-zero:
     python3 chip_smoke.py --phases mesh
     python3 chip_smoke.py --phases geo
     python3 chip_smoke.py --phases tcp
+    python3 chip_smoke.py --phases meridian
         # on the card: the named phases alone at the card's sizes (each
         # --size changes one), each followed by its seconds; no result line
 
@@ -1585,8 +1606,14 @@ DEPTH_CUTS = {"multall.K": "16384 -> 8192 records",
               "geo.K": "8192 -> 2048 -> 1024 rows",
               # the tcp phase's load, for its 45 s budget: every frame of
               # it is signed, verified, MAC'd, JSON-encoded and TLS-wrapped
-              # on the proxy's one loop
-              "tcp.K": "8192 -> 2048 rows"}
+              # on the proxy's one loop; 2,048 -> 1,024 once the meridian
+              # phase joined (the full runs before it took 828.1 s and, on a
+              # slower host, 977.6 s against the 900 s mark, the tcp phase
+              # the longest at 82.0-97.4 s; H100 80GB HBM3, 700.00 W)
+              "tcp.K": "8192 -> 2048 -> 1024 rows",
+              # the meridian phase's load through the proxy's one loop, the
+              # same cut as the tcp phase's first
+              "meridian.K": "8192 -> 2048 rows"}
 
 
 def earlier_config():
@@ -7912,6 +7939,464 @@ async def phase_tcp(dev, sizes) -> dict:
     return rec
 
 
+MERIDIAN_BUDGET_S = 60.0
+# what the phase changes of configs/multihost/'s four files (printed)
+MERIDIAN_DIFFERENCES = {
+    "hosts": "127.0.0.1 for all four (the files: 10.0.0.1-4), so the three group "
+             "processes are children on this machine",
+    "ports": "free ports for the transports, the status listeners and the proxy's "
+             "REST listener (the files: 7101-7103 and 7110, 8081-8083, 8443)",
+    "[security.node-public-keys]": "the stanza --mint-node-keys 4 printed, pasted into "
+                                   "every file; each node-key-path its minted file",
+    "obs.fleet.enabled": "false (fleet observability is not ported)",
+    "proxy.crypto-backend": "cuda on the card (--backend cuda; the files: tpu); the "
+                            "groups host no proxy that folds",
+    "proxy.stored-keys-path": "a file of the phase's temporary directory "
+                              "(the file: keys/proxy_keys.json)",
+    "groups": "python -m dds_tpu_torch.run --config <file> --serve --ops 0 --device cpu "
+              "--backend cpu, with no CUDA device visible",
+}
+# the phase's steps, in order (printed)
+MERIDIAN_STEPS = (
+    "provision: four node identities by mint_node_keys, the four files rewritten",
+    "boot: group0, group1 and standby2 as child processes; the proxy by launch() here, "
+    "its map bootstrapped from the groups' GET /shards",
+    "load: the rows blinded on the card (B3), PutSet through the proxy, 64 in flight",
+    "sumalls: 3 through the proxy at S = 2, each one fold a group on the card",
+    "split: POST /_reshard {source: s1} under 32 concurrent WriteElements; epoch 2 "
+    "with s2 in the proxy and every group; every acknowledged write read back",
+    "sumalls: 3 at S = 3, each the ciphertext of before the split",
+    "relaunch: the proxy stopped and launched again; it bootstraps epoch 2 from the "
+    "groups; every row read back",
+    "load: OpenLoopLoad at 20 ops/s for 5 s; no 500",
+    "stop: the proxy, then each group by SIGINT",
+)
+
+
+def toml_text(doc: dict) -> str:
+    """A TOML document of `doc` (tables of strings, numbers, booleans and
+    lists of them), the way the fleet's files are written."""
+    def key(k: str) -> str:
+        return k if k.replace("-", "").replace("_", "").isalnum() else json.dumps(k)
+
+    def value(v) -> str:
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if isinstance(v, (int, float)):
+            return repr(v)
+        if isinstance(v, str):
+            return json.dumps(v)
+        return "[" + ", ".join(value(x) for x in v) + "]"
+
+    lines: list[str] = []
+
+    def table(name: str, d: dict) -> None:
+        leaves = [(k, v) for k, v in d.items() if not isinstance(v, dict)]
+        if name:
+            lines.append(f"[{name}]")
+        lines.extend(f"{key(k)} = {value(v)}" for k, v in leaves)
+        lines.append("")
+        for k, v in d.items():
+            if isinstance(v, dict):
+                table(f"{name}.{key(k)}" if name else key(k), v)
+
+    table("", doc)
+    return "\n".join(lines)
+
+
+MERIDIAN_FILES = ("group0", "group1", "standby2", "proxy")
+
+
+def meridian_files(d, ports: list[int], registry: dict) -> tuple[dict, dict]:
+    """configs/multihost/'s four files with MERIDIAN_DIFFERENCES, written
+    under `d`: name -> path, and name -> its loopback addresses. `ports`:
+    four transports, three status listeners and the REST listener, in the
+    files' order; `registry` the minted node-public-keys stanza, one key
+    a transport, `d`/certs/node_<i>.key the i-th file's."""
+    import pathlib
+    import tomllib
+
+    root = pathlib.Path(__file__).resolve().parent / "configs" / "multihost"
+    docs = {n: tomllib.loads((root / f"{n}.toml").read_text()) for n in MERIDIAN_FILES}
+    transport = dict(zip(MERIDIAN_FILES, ports[:4]))
+    status = dict(zip(MERIDIAN_FILES[:3], ports[4:7]))
+    rest = ports[7]
+    addr = {}  # the files' "host:port" -> loopback
+    for n, doc in docs.items():
+        addr[f"{doc['transport']['host']}:{doc['transport']['port']}"] = \
+            f"127.0.0.1:{transport[n]}"
+        fab = doc["fabric"]
+        if "status-port" in fab:
+            addr[f"{fab['status-host']}:{fab['status-port']}"] = f"127.0.0.1:{status[n]}"
+    paths, where = {}, {}
+    for i, n in enumerate(MERIDIAN_FILES):
+        doc = docs[n]
+        doc["transport"].update(host="127.0.0.1", port=transport[n])
+        doc["security"]["node-key-path"] = str(d / "certs" / f"node_{i}.key")
+        doc["security"]["node-public-keys"] = dict(registry)
+        fab = doc["fabric"]
+        if "status-port" in fab:
+            fab.update({"status-host": "127.0.0.1", "status-port": status[n]})
+        fab["bootstrap"] = [addr[hp] for hp in fab["bootstrap"]]
+        fab["groups"] = {g: addr[hp] for g, hp in fab["groups"].items()}
+        doc["obs"]["fleet"] = {"enabled": False}
+        if "proxy" in doc:
+            doc["proxy"].update({"host": "127.0.0.1", "port": rest, "crypto-backend": "cuda",
+                                 "stored-keys-path": str(d / "proxy_keys.json")})
+        paths[n] = d / f"{n}.toml"
+        paths[n].write_text(toml_text(doc))
+        where[n] = {"transport": transport[n], **({"status": status[n]} if n in status else
+                                                  {"rest": rest})}
+    return paths, where
+
+
+async def phase_meridian(dev, sizes) -> dict:
+    """configs/multihost/'s four-process fleet on loopback (Meridian, the
+    multi-host shard fabric; MERIDIAN_DIFFERENCES and MERIDIAN_STEPS
+    printed): S = 2 groups of 4 replicas and a spare (quorum 3, f = 1),
+    the standby s2, Paillier-2048, node identities minted by
+    `mint_node_keys`. group0, group1 and standby2 are child processes
+    (`python -m dds_tpu_torch.run --config <file> --serve --ops 0 --device
+    cpu --backend cpu`, no CUDA device visible); the proxy is `launch()`
+    here, folding on the card, its map bootstrapped from the groups' GET
+    /shards and kept fresh by epoch gossip. `meridian_K` rows blinded on
+    the card (B3) go by PutSet through the proxy, `meridian_inflight` at
+    a time; `meridian_sumalls` SumAlls at S = 2, each one fold a group on
+    the card merged by `combine_partials` (a host product); POST /_reshard
+    {"source": "s1"} splits s1 onto s2 across processes while
+    `meridian_writers` writers each rewrite position 1 of one row s1 owns
+    (the folded column untouched); `meridian_sumalls` SumAlls at S = 3;
+    the proxy stopped and launched again, bootstrapping epoch 2 from the
+    groups; every row read back, `meridian_readback_inflight` at a time;
+    `OpenLoopLoad.run` at `meridian_load_rate` ops/s for `meridian_load_s`
+    s. Gates: each SumAll the Python-int fold of the rows, decrypting to
+    their total, the same ciphertext before and after the split; epoch 2
+    with s2 on the proxy and on every group's /shards; every
+    acknowledged write read back; the relaunched proxy at epoch 2 from its
+    bootstrap and every row read back through it; no 500 in the load;
+    every child alive to the end. Launch counts are zeroed before the
+    proxy's launch and read after its last stop (path "meridian"): B1 =
+    each SumAll's `fold_launches` of its groups' row counts (each group
+    at or above the backend's `min_device_batch`; printed before the first
+    SumAll) + 2 the blinding's, B3 = 1. Printed: each step's seconds, the
+    per-group row counts and predicted launches, PutSets/s, the SumAlls'
+    ms, the export frames' bytes, the split's seconds, the relaunch's
+    bootstrap, the load report, the phase's seconds beside its budget."""
+    import os
+    import pathlib
+    import signal
+    import tempfile
+    import tomllib
+
+    from dds_tpu_torch.bench_key import bench_paillier_key
+    from dds_tpu_torch.core import messages as M
+    from dds_tpu_torch.core.transport import TcpNet
+    from dds_tpu_torch.fabric import loadgen
+    from dds_tpu_torch.http.miniserver import http_request_full
+    from dds_tpu_torch.models.backend import get_backend
+    from dds_tpu_torch.ops import mont_cuda
+    from dds_tpu_torch.run import launch, mint_node_keys
+    from dds_tpu_torch.utils.config import DDSConfig
+
+    t_phase = time.perf_counter()
+    K = sizes["meridian_K"]
+    rec: dict = {"K": K, "budget_s": MERIDIAN_BUDGET_S,
+                 "differences": MERIDIAN_DIFFERENCES, "steps": MERIDIAN_STEPS}
+
+    def step(name: str, **kw) -> None:
+        emit("meridian_step", step=name, at_s=time.perf_counter() - t_phase, **kw)
+
+    # -- provision: four identities (the files' --mint-node-keys 4), the files
+    tmp = tempfile.TemporaryDirectory(prefix="dds_meridian_")
+    d = pathlib.Path(tmp.name)
+    t = time.perf_counter()
+    ports = free_ports(8)
+    stanza = mint_node_keys(4, str(d / "certs"), [f"127.0.0.1:{p}" for p in ports[:4]])
+    paths, where = meridian_files(d, ports, tomllib.loads(stanza)["security"]
+                                  ["node-public-keys"])
+    rest = where["proxy"]["rest"]
+    rec["provision_s"] = time.perf_counter() - t
+    step("provision", s=rec["provision_s"], where=where)
+
+    async def call(port: int, method: str, target: str, obj=None, where: str = "",
+                   ok=(200,)):
+        """One request, retried after a 503 or 429 with Retry-After
+        (counted); a status outside `ok` fails the phase."""
+        while True:
+            status, headers, data = await http_request_full(
+                "127.0.0.1", port, method, target,
+                json.dumps(obj).encode() if obj is not None else None, timeout=600.0)
+            if status in ok:
+                return status, data
+            if status not in (429, 503) or int(headers.get("retry-after", 0)) < 1:
+                raise AssertionError(f"meridian: {method} {target[:40]} at {where} answered "
+                                     f"{status} {data[:160]!r}")
+            rec["retries"] = rec.get("retries", 0) + 1
+            await asyncio.sleep(int(headers["retry-after"]))
+
+    # -- the groups: child processes on the host backend, no card visible
+    root = pathlib.Path(__file__).resolve().parent
+    procs, logs = {}, {}
+    env = {**os.environ, "PYTHONUNBUFFERED": "1", "CUDA_VISIBLE_DEVICES": ""}
+    t = time.perf_counter()
+    for n in MERIDIAN_FILES[:3]:
+        logs[n] = open(d / f"{n}.log", "w")
+        procs[n] = subprocess.Popen(
+            [sys.executable, "-m", "dds_tpu_torch.run", "--config", str(paths[n]), "--serve",
+             "--ops", "0", "--device", "cpu", "--backend", "cpu"],
+            cwd=root, stdout=logs[n], stderr=subprocess.STDOUT, env=env)
+
+    def tail(n: str, size: int = 2000) -> str:
+        logs[n].flush()
+        return (d / f"{n}.log").read_text()[-size:]
+
+    def alive(at: str) -> None:
+        for n, p in procs.items():
+            if p.poll() is not None:
+                raise AssertionError(f"meridian: {n} exited ({p.returncode}) by {at}:\n"
+                                     f"{tail(n)}")
+
+    dep = None
+    runs: list = []
+    try:
+        for n in MERIDIAN_FILES[:3]:
+            while "serving on" not in (d / f"{n}.log").read_text():
+                alive("boot")
+                if time.perf_counter() - t > sizes["meridian_boot_s"]:
+                    raise AssertionError(f"meridian: {n} not serving after "
+                                         f"{sizes['meridian_boot_s']} s:\n{tail(n)}")
+                await asyncio.sleep(0.1)
+        rec["groups_boot_s"] = time.perf_counter() - t
+        cfg = DDSConfig.load(paths["proxy"])
+        cfg.proxy.device = dev.type
+        reset_counts()  # path "meridian" starts here
+        t = time.perf_counter()
+        dep = await launch(cfg)
+        rec["proxy_launch_s"] = time.perf_counter() - t
+        router, ctl = dep.server.abd, dep.server._reshard
+        _, body = await call(rest, "GET", "/shards", where="boot")
+        boot_map = json.loads(body)["map"]
+        step("boot", groups_s=rec["groups_boot_s"], proxy_s=rec["proxy_launch_s"],
+             epoch=boot_map["epoch"], groups=boot_map["groups"])
+        # -- load: blinded on the card (B3), PutSet through the proxy
+        key = bench_paillier_key(sizes["key_bits"])
+        pk, n2 = key.public, key.public.nsquare
+        rng = random.Random(sizes["meridian_seed"])
+        plain = [rng.randrange(1 << 30) for _ in range(K)]
+        t = time.perf_counter()
+        cts = pk.encrypt_batch(plain, get_backend("cuda", device=dev.type), min_batch=1)
+        sync(dev)
+        blind_s = time.perf_counter() - t
+        rows = {}  # key -> contents
+        sem = asyncio.Semaphore(sizes["meridian_inflight"])
+
+        async def put(i: int, c: int) -> None:
+            contents = [str(c), f"row-{i}"]
+            async with sem:
+                _, data = await call(rest, "POST", "/PutSet", {"contents": contents}, "load")
+            rows[data.decode()] = contents
+
+        t = time.perf_counter()
+        await asyncio.gather(*(put(i, c) for i, c in enumerate(cts)))
+        load_s = time.perf_counter() - t
+        alive("load")
+        if len(rows) != K:
+            raise AssertionError(f"meridian: {len(rows)} of {K} rows acknowledged")
+        want = host_product(cts, n2)
+        total = sum(plain)
+        rec["load"] = {"rows": K, "s": load_s, "putsets_per_s": K / load_s,
+                       "blind_s": blind_s}
+        step("load", **rec["load"])
+        target = f"/SumAll?position=0&nsqr={n2}"
+        min_batch = getattr(dep.server.backend, "min_device_batch", 0)
+
+        def predicted(smap) -> tuple[dict, int]:
+            counts = collections.Counter(smap.owner(k) for k in rows)
+            return dict(sorted(counts.items())), sum(
+                mont_cuda.fold_launches(c) for c in counts.values() if c >= min_batch)
+
+        async def sumall(where: str, expect_b1: int) -> dict:
+            sync(dev)
+            before = mont_cuda.LAUNCHES["mont_mul"].value
+            t0 = time.perf_counter()
+            _, data = await call(rest, "GET", target, where=where)
+            ms = (time.perf_counter() - t0) * 1e3
+            sync(dev)
+            result = int(json.loads(data)["result"])
+            b1 = mont_cuda.LAUNCHES["mont_mul"].value - before
+            if result != want or key.decrypt(result) != total:
+                raise AssertionError(f"meridian: the SumAll at {where} is not the fold of "
+                                     f"the {K} rows")
+            if dev.type == "cuda" and b1 != expect_b1:
+                raise AssertionError(f"meridian: the SumAll at {where} launched {b1} "
+                                     f"mont_mul, predicted {expect_b1}")
+            return {"where": where, "ms": ms, "b1": b1, "result": result}
+
+        # -- SumAlls at S = 2
+        groups2, b1_2 = predicted(router.shard_manager.current())
+        step("predicted", S=2, rows_by_group=groups2, b1_per_sumall=b1_2,
+             min_device_batch=min_batch)
+        runs += [await sumall("S2", b1_2) for _ in range(sizes["meridian_sumalls"])]
+        step("sumalls_s2", ms=[r["ms"] for r in runs], b1=[r["b1"] for r in runs])
+        # -- the cross-host split of s1 onto s2 under concurrent writes
+        m1 = router.shard_manager.current()
+        m2 = m1.split("s1", "s2")
+        s1_keys = sorted(k for k in rows if m1.owner(k) == "s1")
+        moving = [k for k in s1_keys if m2.owner(k) == "s2"]
+        staying = [k for k in s1_keys if m2.owner(k) != "s2"]
+        victims = (moving + staying)[:sizes["meridian_writers"]]
+        exports: list[int] = []
+        real_export = ctl.rpc.export
+
+        async def export(agent, endpoint, **kw):
+            entries = await real_export(agent, endpoint, **kw)
+            exports.append(len(M.dumps(M.ShardExport(0, entries))))
+            return entries
+
+        ctl.rpc.export = export
+        acked: dict[str, str] = {}
+        done = asyncio.Event()
+
+        async def writer(k: str) -> None:
+            # one writer a row, so its last write is the row's value: it
+            # stops after the split only on an acknowledged write
+            i, last_ok = 0, False
+            while not (done.is_set() and last_ok):
+                value = f"w{i}-{k[:8]}"
+                status, _ = await call(rest, "PUT", f"/WriteElement/{k}?position=1",
+                                       {"value": value}, "split_writes", ok=(200, 503))
+                last_ok = status == 200
+                if last_ok:
+                    acked[k] = value
+                i += 1
+
+        async def split() -> dict:
+            await asyncio.sleep(0.05)
+            try:
+                t0 = time.perf_counter()
+                _, data = await call(rest, "POST", "/_reshard", {"source": "s1"}, "split")
+                return {"s": time.perf_counter() - t0, **json.loads(data)}
+            finally:
+                done.set()
+
+        t = time.perf_counter()
+        *_, split_rec = await asyncio.gather(*(writer(k) for k in victims), split())
+        ctl.rpc.export = real_export
+        writes_s = time.perf_counter() - t
+        alive("split")
+        epochs = {}
+        for n in MERIDIAN_FILES[:3]:
+            _, data = await call(where[n]["status"], "GET", "/shards", where="epochs")
+            epochs[n] = json.loads(data)["map"]["epoch"]
+        wrong = []
+        for k, value in acked.items():
+            _, data = await call(rest, "GET", f"/GetSet/{k}", where="split_readback")
+            if json.loads(data)["contents"] != [rows[k][0], value]:
+                wrong.append(k)
+            rows[k] = [rows[k][0], value]
+        rec["split"] = {**split_rec, "writes_s": writes_s, "writers": len(victims),
+                        "writers_moving": len([k for k in victims if k in moving]),
+                        "acked": len(acked), "wrong": len(wrong),
+                        "moved_rows": len(moving), "export_frames": len(exports),
+                        "export_bytes": exports, "group_epochs": epochs,
+                        "max_frame_bytes": TcpNet.MAX_FRAME}
+        step("split", **rec["split"])
+        if split_rec.get("epoch") != 2 or "s2" not in split_rec.get("groups", []) or \
+                set(epochs.values()) != {2} or wrong or len(acked) != len(victims):
+            raise AssertionError(f"meridian: split {rec['split']}")
+        # -- SumAlls at S = 3
+        groups3, b1_3 = predicted(router.shard_manager.current())
+        step("predicted", S=3, rows_by_group=groups3, b1_per_sumall=b1_3)
+        after = [await sumall("S3", b1_3) for _ in range(sizes["meridian_sumalls"])]
+        runs += after
+        step("sumalls_s3", ms=[r["ms"] for r in after], b1=[r["b1"] for r in after])
+        # -- the proxy stopped and launched again: epoch 2 from the bootstrap
+        t = time.perf_counter()
+        await dep.stop()
+        dep = None
+        cfg = DDSConfig.load(paths["proxy"])
+        cfg.proxy.device = dev.type
+        dep = await launch(cfg)
+        relaunch_s = time.perf_counter() - t
+        boot_epoch = dep.server.abd.shard_manager.epoch
+        boot_groups = list(dep.server.abd.shard_manager.current().groups)
+        sem_r = asyncio.Semaphore(sizes["meridian_readback_inflight"])
+
+        async def get(k: str) -> bool:
+            async with sem_r:
+                _, data = await call(rest, "GET", f"/GetSet/{k}", where="readback")
+            return json.loads(data)["contents"] == rows[k]
+
+        t = time.perf_counter()
+        right = await asyncio.gather(*(get(k) for k in sorted(rows)))
+        readback_s = time.perf_counter() - t
+        rec["relaunch"] = {"s": relaunch_s, "epoch": boot_epoch, "groups": boot_groups,
+                           "readback_s": readback_s, "getsets_per_s": len(right) / readback_s,
+                           "wrong": right.count(False)}
+        step("relaunch", **rec["relaunch"])
+        if boot_epoch != 2 or "s2" not in boot_groups or not all(right):
+            raise AssertionError(f"meridian: relaunch {rec['relaunch']}")
+        # -- the open-loop load: no 500
+        statuses: collections.Counter = collections.Counter()
+        real_request = loadgen.http_request
+
+        async def counted(*a, **kw):
+            status, data = await real_request(*a, **kw)
+            statuses[status] += 1
+            return status, data
+
+        loadgen.http_request = counted
+        try:
+            load = loadgen.OpenLoopLoad([f"127.0.0.1:{rest}"], keys=sizes["meridian_load_keys"],
+                                        seed=sizes["meridian_seed"], timeout=10.0)
+            report = await load.run(sizes["meridian_load_rate"], sizes["meridian_load_s"])
+        finally:
+            loadgen.http_request = real_request
+        rec["open_loop"] = {**report.to_dict(), "statuses": dict(sorted(statuses.items()))}
+        step("open_loop", **rec["open_loop"])
+        alive("open_loop")
+        if statuses.get(500):
+            raise AssertionError(f"meridian: the open-loop load met {statuses[500]} 500s")
+    finally:
+        if dep is not None:
+            await dep.stop()
+        t = time.perf_counter()
+        for p in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGINT)
+        for p in procs.values():
+            try:
+                p.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=15)
+        rec["stop_groups_s"] = time.perf_counter() - t
+        rec["group_returncodes"] = {n: p.returncode for n, p in procs.items()}
+        for f in logs.values():
+            f.close()
+        tmp.cleanup()
+    counts = read_counts(dev)
+    sumall_b1 = sum(r["b1"] for r in runs)
+    rec["sumalls"] = {"ms": [r["ms"] for r in runs], "b1": [r["b1"] for r in runs],
+                      "rows_by_group": {"S2": groups2, "S3": groups3},
+                      "b1_predicted": {"S2": b1_2, "S3": b1_3},
+                      "same_before_and_after": len({r["result"] for r in runs}) == 1}
+    rec["launches"] = {"mont_mul": counts["mont_mul"], "mont_exp": counts["mont_exp"],
+                       "mont_mul_sumalls": sumall_b1}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit("meridian", **{k: rec[k] for k in (
+        "seconds", "budget_s", "launches", "load", "sumalls", "split", "relaunch",
+        "open_loop", "stop_groups_s", "group_returncodes")})
+    n_s = sizes["meridian_sumalls"]
+    if dev.type == "cuda" and (rec["launches"]["mont_exp"] != 1 or
+                               rec["launches"]["mont_mul"] != sumall_b1 + 2 or
+                               sumall_b1 != n_s * (b1_2 + b1_3)):
+        raise AssertionError(f"meridian: B1 {rec['launches']['mont_mul']} launches (SumAlls "
+                             f"{sumall_b1} = {n_s} x {b1_2} + {n_s} x {b1_3} + 2 the "
+                             f"blinding's), B3 {rec['launches']['mont_exp']} (1)")
+    return rec
+
+
 def kernel_times(sizes) -> dict:
     """CUDA-event ms of the B1, P, B3, B4, B5 and REDC launches at the
     timing phases' shapes (single launches with the stream held,
@@ -8175,9 +8660,18 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   # the tcp phase: 2,048 rows (DEPTH_CUTS) over HTTPS, 64 in
                   # flight; all read back through B, 64 in flight; 3 warm SumAlls; host B's
                   # boot, key sync's and the recovery's deadlines
-                  tcp_K=2048, tcp_inflight=64, tcp_readback_inflight=64, tcp_sumalls=3,
+                  tcp_K=1024, tcp_inflight=64, tcp_readback_inflight=64, tcp_sumalls=3,
                   tcp_seed=23,
                   tcp_boot_s=90.0, tcp_sync_s=30.0, tcp_recovery_s=30.0,
+                  # the meridian phase: 2,048 rows (DEPTH_CUTS) through the
+                  # proxy, 64 in flight; 3 SumAlls a side of the split, 32
+                  # writers through it; the read-back 64 in flight; the
+                  # open-loop load at 20 ops/s for 5 s over 64 seeded keys;
+                  # the groups' boot deadline
+                  meridian_K=2048, meridian_inflight=64, meridian_readback_inflight=64,
+                  meridian_sumalls=3, meridian_writers=32, meridian_load_rate=20.0,
+                  meridian_load_s=5.0, meridian_load_keys=64, meridian_seed=24,
+                  meridian_boot_s=90.0,
                   # the plain ladder of the exp timing on 1,024 of its 8,192
                   # columns, for the run's time (it took 83 s on all of them;
                   # 256 columns took as long as 1,024: the ladder's launches,
@@ -8271,7 +8765,10 @@ def main(argv=None) -> int:
                      geo_getset_inflight=8, geo_cut_writes=8, geo_lease_move_s=20.0,
                      geo_seed=22, tcp_K=64, tcp_inflight=32, tcp_readback_inflight=16,
                      tcp_sumalls=1, tcp_seed=23, tcp_boot_s=90.0, tcp_sync_s=30.0,
-                     tcp_recovery_s=30.0)
+                     tcp_recovery_s=30.0, meridian_K=64, meridian_inflight=32,
+                     meridian_readback_inflight=16, meridian_sumalls=1, meridian_writers=8,
+                     meridian_load_rate=10.0, meridian_load_s=2.0, meridian_load_keys=16,
+                     meridian_seed=24, meridian_boot_s=90.0)
         card = {"name": "cpu (rehearsal)", **card_numbers(dev)}
     else:
         if not torch.cuda.is_available():
@@ -8293,7 +8790,7 @@ def main(argv=None) -> int:
          heliograph_overrides=HELIOGRAPH_OVERRIDES, sharded_overrides=SHARDED_OVERRIDES,
          chaos_overrides=CHAOS_OVERRIDES, reshard_overrides=RESHARD_OVERRIDES,
          mesh_overrides=MESH_OVERRIDES, geo_overrides=GEO_OVERRIDES,
-         tcp_differences=TCP_DIFFERENCES,
+         tcp_differences=TCP_DIFFERENCES, meridian_differences=MERIDIAN_DIFFERENCES,
          chronoscope_before_tenancy=CHRONOSCOPE_CUT, mixed=MIXED_CUT, depth=DEPTH_CUTS)
 
     from dds_tpu_torch.bench_key import bench_paillier_key
@@ -8348,6 +8845,7 @@ def main(argv=None) -> int:
     mesh = timed("mesh", asyncio.run, phase_mesh(dev, sizes))
     geo = timed("geo", asyncio.run, phase_geo(dev, sizes))
     tcp = timed("tcp", asyncio.run, phase_tcp(dev, sizes))
+    meridian = timed("meridian", asyncio.run, phase_meridian(dev, sizes))
     emit("run", phase_seconds=took, seconds=time.perf_counter() - t_run)
 
     path = tim["path"]
@@ -8378,7 +8876,8 @@ def main(argv=None) -> int:
                              "mesh": mesh["launches"]["mont_mul"],
                              "mesh_sumall": mesh["sumall"]["launches"],
                              "geo": geo["launches"]["mont_mul"],
-                             "tcp": tcp["launches"]["mont_mul"]},
+                             "tcp": tcp["launches"]["mont_mul"],
+                             "meridian": meridian["launches"]["mont_mul"]},
         "max_abs_err": par["max_abs_err"],
         "per": f"one K={path['K']} fold ({path['launches']} launches) on the device; "
                f"wall_ms: back to back, paced by the host's dispatch",
@@ -8403,7 +8902,8 @@ def main(argv=None) -> int:
                              "reshard": reshard["launches"]["mont_exp"],
                              "mesh": mesh["launches"]["mont_exp"],
                              "geo": geo["launches"]["mont_exp"],
-                             "tcp": tcp["launches"]["mont_exp"]},
+                             "tcp": tcp["launches"]["mont_exp"],
+                             "meridian": meridian["launches"]["mont_exp"]},
         "max_abs_err": max(par_exp["max_abs_err"], tim_exp["max_abs_err"]),
         "per": f"one launch, B={tim_exp['B']}, E={tim_exp['E']} "
                f"({tim_exp['exp_products_per_row']} products per row); plain_ms on "
@@ -8549,6 +9049,10 @@ def main(argv=None) -> int:
     print(json.dumps({"tcp": {**tcp, "card": card["smi"] if "smi" in card
                               else card["name"],
                               "run_seconds": time.perf_counter() - t_run}},
+                     default=str), flush=True)
+    print(json.dumps({"meridian": {**meridian, "card": card["smi"] if "smi" in card
+                                   else card["name"],
+                                   "run_seconds": time.perf_counter() - t_run}},
                      default=str), flush=True)
     if args.rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result", file=sys.stderr)

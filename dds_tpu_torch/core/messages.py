@@ -4,8 +4,10 @@ Trimmed copy of `dds_tpu/core/messages.py`: the messages the port's paths
 send over the in-memory transport — the ABD rounds, the supervisor's
 membership and recovery protocol, verified state transfer, Merkle
 anti-entropy, the shard fence's `WrongShard`, live resharding's
-`ShardMigrateBegin`/`ShardMigrateAck`, the Atlas geo plane's read
-leases and region-local reads and the fault-injection backdoors, with the reference's field names in its order — and its wire
+`ShardMigrateBegin`/`ShardMigrateAck`, Meridian's cross-host reshape
+control frames (map install, activate and ack, export, prune), the Atlas
+geo plane's read leases and region-local reads and the fault-injection
+backdoors, with the reference's field names in its order — and its wire
 codec, tagged canonical JSON (`dumps`/`loads`), which ChaosNet's corrupt
 fault flips a byte of. For every class here `dumps` gives the
 reference's bytes: the same names, field order and string annotations
@@ -388,6 +390,81 @@ class ShardMigrateAck:
 
 
 # --------------------------------------------------------------------------
+# Meridian multi-host fabric control plane (dds_tpu_torch/fabric)
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShardMapInstall:
+    """Controller -> group fabric agent: install `map` (ShardMap wire
+    dict) into the group's fencing state, the cross-host freeze step of a
+    live reshard. The map is HMAC-signed with the intranet secret and
+    re-verified by the agent, so the frame only has to be delivered;
+    `force` permits the abort path's epoch rollback. `lease` > 0 installs
+    the map provisionally for that many seconds (the ShardState fence
+    lease): if the reshard controller dies before committing, the group
+    heals back to its last committed map."""
+
+    map: dict
+    force: bool
+    nonce: int
+    lease: float = 0.0
+
+
+@dataclass(frozen=True)
+class ShardMapActivate:
+    """Controller -> group fabric agent: adopt `map` as the active routing
+    map this process serves at GET /shards (and fences under, epoch-
+    forward). Broadcast to every group after a reshard activates, so
+    remote long-pollers see the bump at once."""
+
+    map: dict
+    nonce: int
+
+
+@dataclass(frozen=True)
+class ShardMapAck:
+    """Agent -> controller: install/activate outcome. `epoch` is the
+    agent's fencing epoch after the attempt; ok=False carries the reason
+    (bad signature, backwards epoch)."""
+
+    nonce: int
+    epoch: int
+    ok: bool
+    error: str = ""
+
+
+@dataclass(frozen=True)
+class ShardExportRequest:
+    """Controller -> agent: export replica `endpoint`'s repository as
+    migration seed data (one ShardExport frame, bounded by
+    TcpNet.MAX_FRAME; receivers re-verify every entry against the
+    attested manifest quorum)."""
+
+    endpoint: str
+    nonce: int
+
+
+@dataclass(frozen=True)
+class ShardExport:
+    nonce: int
+    entries: dict
+
+
+@dataclass(frozen=True)
+class ShardPruneRequest:
+    """Controller -> agent: drop repository entries the group no longer
+    owns under its current fencing map (post-activation cleanup)."""
+
+    nonce: int
+
+
+@dataclass(frozen=True)
+class ShardPruned:
+    nonce: int
+    dropped: int
+
+
+# --------------------------------------------------------------------------
 # Atlas geo plane: read leases + region-local reads (dds_tpu_torch/geo)
 # --------------------------------------------------------------------------
 
@@ -492,6 +569,8 @@ _TYPES = {
         MerkleRootRequest, MerkleRoot, MerkleBucketRequest, MerkleBuckets,
         MerkleKeysRequest, MerkleKeys, RepairRequest, RepairReply,
         WrongShard, ShardMigrateBegin, ShardMigrateAck,
+        ShardMapInstall, ShardMapActivate, ShardMapAck,
+        ShardExportRequest, ShardExport, ShardPruneRequest, ShardPruned,
         LeaseRequest, LeaseGrant, LeaseRevoke, LocalRead, LocalReadReply,
     )
 }

@@ -50,7 +50,8 @@ class Response:
 
 
 _REASONS = {
-    200: "OK", 400: "Bad Request", 404: "Not Found", 413: "Payload Too Large",
+    200: "OK", 304: "Not Modified", 400: "Bad Request", 404: "Not Found",
+    405: "Method Not Allowed", 413: "Payload Too Large",
     500: "Internal Server Error", 503: "Service Unavailable",
 }
 
@@ -59,7 +60,16 @@ Handler = Callable[[Request], Awaitable[Response]]
 
 class HttpServer:
     """`handler_timeout` (seconds, 0 = off) cancels a handler that outlives
-    the REST layer's own budget; the client gets 503 + Retry-After."""
+    the REST layer's own budget; the client gets 503 + Retry-After.
+
+    `stop()` closes the listener and every accepted connection: an idle
+    one at once, one whose handler is still running (a parked `/shards`
+    long-poll, a request in flight) after at most `STOP_GRACE` seconds,
+    cancelling the handler, so a held connection never holds the stop to
+    its own timeout (Python 3.12's `wait_closed` waits for every accepted
+    connection)."""
+
+    STOP_GRACE = 2.0
 
     def __init__(self, host: str, port: int, handler: Handler, ssl_context=None,
                  handler_timeout: float = 0.0):
@@ -68,6 +78,9 @@ class HttpServer:
         self.ssl_context = ssl_context
         self.handler_timeout = handler_timeout
         self._server: Optional[asyncio.AbstractServer] = None
+        # each accepted connection's serving task -> whether a handler runs
+        self._conns: dict[asyncio.Task, bool] = {}
+        self._closing = False
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(self._serve, self.host, self.port,
@@ -76,16 +89,29 @@ class HttpServer:
             self.port = self._server.sockets[0].getsockname()[1]
 
     async def stop(self) -> None:
-        if self._server:
-            self._server.close()
-            try:
-                await asyncio.wait_for(self._server.wait_closed(), 2)
-            except asyncio.TimeoutError:
-                pass
+        if not self._server:
+            return
+        self._closing = True
+        self._server.close()
+        for task, busy in list(self._conns.items()):
+            if not busy:
+                task.cancel()
+        running = list(self._conns)
+        if running:
+            _, late = await asyncio.wait(running, timeout=self.STOP_GRACE)
+            for task in late:
+                task.cancel()
+            await asyncio.gather(*running, return_exceptions=True)
+        try:
+            await asyncio.wait_for(self._server.wait_closed(), 2)
+        except asyncio.TimeoutError:
+            pass
 
     async def _serve(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+        task = asyncio.current_task()
+        self._conns[task] = False
         try:
-            while True:
+            while not self._closing:
                 line = await reader.readline()
                 if not line or line in (b"\r\n", b"\n"):
                     break
@@ -117,6 +143,7 @@ class HttpServer:
                     headers=headers,
                     body=body,
                 )
+                self._conns[task] = True
                 try:
                     if self.handler_timeout > 0:
                         resp = await asyncio.wait_for(
@@ -140,11 +167,13 @@ class HttpServer:
                     head += f"{k}: {v}\r\n"
                 writer.write(head.encode() + b"\r\n" + resp.body)
                 await writer.drain()
+                self._conns[task] = False
                 if headers.get("connection", "").lower() == "close":
                     break
         except (asyncio.IncompleteReadError, ConnectionResetError):
             pass
         finally:
+            self._conns.pop(task, None)
             writer.close()
 
 

@@ -150,7 +150,9 @@ partials with `parallel/mesh.combine_partials` (`proxy.scatter_fold`); the resid
 search planes keep a pool and an index a group, and Prism one weighted
 fold a group. `GET /shards` serves the signed active map, the reshard
 state and each group's replicas, with the epoch as its ETag (a matching
-`If-None-Match` answers 304); `/health` gains `shards`, `shard_epoch` and
+`If-None-Match` answers 304, and with a gossip hub (`gossip=`, Meridian's
+`fabric.gossip.EpochGossipHub`) `?wait=N` parks the request until the
+next epoch bump or `shards_wait_cap`); `/health` gains `shards`, `shard_epoch` and
 `reshard_state`, and `/metrics` the `dds_shard_*` gauges. With
 `reshard_route_enabled` (`[fabric] admin-routes`) and a reshard controller
 (`run.ConstellationReshard`), `POST /_reshard` drives a live split or
@@ -301,6 +303,9 @@ class ProxyConfig:
     # active-replica refresh from the supervisor (None = no supervisor)
     supervisor: Optional[str] = None
     replica_refresh_interval: float = 5.0
+    # the cap on the `wait` a GET /shards long-poll may ask for
+    # (If-None-Match + ?wait=N, parked on the server's gossip hub)
+    shards_wait_cap: float = 60.0
     # GET /_trace: per-span timing summary, the tracer's counters and the
     # store size. Off by default: it reveals workload shape; launch turns
     # it on with `debug` or `[obs] trace-route`
@@ -353,9 +358,13 @@ async def _cancel_task(task: asyncio.Task) -> None:
 class DDSRestServer:
     def __init__(self, abd: AbdClient, config: ProxyConfig | None = None,
                  local_replicas: dict | None = None,
-                 slo: SloEngine | None = None, reshard=None, helmsman=None):
+                 slo: SloEngine | None = None, reshard=None, helmsman=None,
+                 gossip=None):
         self.abd = abd
         self.cfg = config or ProxyConfig()
+        # Meridian: the EpochGossipHub parked GET /shards long-polls sleep
+        # on; a reshard activation wakes them, `stop` releases them
+        self._gossip = gossip
         # `reshard` is the controller behind POST /_reshard (async
         # split(source, target) and merge(source), `phase` and
         # `retry_after()` for the 409's Retry-After); `helmsman` the fleet
@@ -569,6 +578,8 @@ class DDSRestServer:
     async def stop(self) -> None:
         if self.heliograph is not None:
             await self.heliograph.stop()
+        if self._gossip is not None:
+            self._gossip.close()  # parked /shards long-polls answer now
         await self._http.stop()
         for task in self._tasks:
             await _cancel_task(task)
@@ -1283,9 +1294,11 @@ class DDSRestServer:
             _REQ_DEADLINE.reset(token)
             _REQ_TENANT.reset(ttoken)
             dur = time.perf_counter() - t0
-            if tenant != CANARY_TENANT:
-                # synthetic canary load never dilutes (or burns) the user
-                # routes' objectives
+            if status != 304 and tenant != CANARY_TENANT:
+                # a 304 is a parked gossip long-poll (or a free freshness
+                # probe): its held time is the design, not latency. Synthetic
+                # canary load never dilutes (or burns) the user routes'
+                # objectives
                 self.slo.observe(route or "root", status, dur,
                                  tenant=(tenant if self._tenancy_enabled else None))
             if self._tenancy_enabled and tenant != CANARY_TENANT:
@@ -1460,8 +1473,10 @@ class DDSRestServer:
                 # the ACTIVE signed map (epoch and HMAC, verifiable against
                 # the intranet secret), the reshard state and each group's
                 # replicas; on whenever sharded, like /health it reveals
-                # topology, not workload shape
-                return self._shards_route(req)
+                # topology, not workload shape. `If-None-Match` naming the
+                # epoch answers 304, and `?wait=N` parks it on the gossip
+                # hub, so remote routers get the next bump as a push
+                return await self._shards_route(req)
 
             case ("POST", "_reshard") if (
                 self.cfg.reshard_route_enabled and self._reshard is not None
@@ -1682,15 +1697,23 @@ class DDSRestServer:
         new_map = result if hasattr(result, "epoch") else self._shards.current()
         return Response.json({"epoch": new_map.epoch, "groups": list(new_map.groups)})
 
-    def _shards_route(self, req: Request) -> Response:
-        """GET /shards: the router's status with the epoch as its ETag; an
-        `If-None-Match` naming the current epoch answers 304."""
-        epoch = self._shards.epoch
+    async def _shards_route(self, req: Request) -> Response:
+        """GET /shards: the router's status with the epoch as its ETag. An
+        `If-None-Match` naming the current epoch answers 304; with `?wait=N`
+        and a gossip hub it first waits up to N s (at most
+        `shards_wait_cap`) for the epoch to move."""
         etag = req.headers.get("if-none-match", "").strip().strip('"')
-        if etag and etag == str(epoch):
-            return Response(304, headers={"ETag": f'"{epoch}"'})
+        if etag and etag == str(self._shards.epoch):
+            try:
+                wait = float(req.query.get("wait", 0) or 0)
+            except ValueError:
+                wait = 0.0
+            if wait > 0 and self._gossip is not None:
+                await self._gossip.wait_change(min(wait, self.cfg.shards_wait_cap))
+            if etag == str(self._shards.epoch):
+                return Response(304, headers={"ETag": f'"{self._shards.epoch}"'})
         resp = Response.json(self.abd.status())
-        resp.headers["ETag"] = f'"{epoch}"'
+        resp.headers["ETag"] = f'"{self._shards.epoch}"'
         return resp
 
     def _derive_retry_after(self, *candidates: float | None) -> int:

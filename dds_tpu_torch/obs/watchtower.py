@@ -4,7 +4,12 @@ Copy of `dds_tpu/obs/watchtower.py`: the same invariants, verdicts and
 bookkeeping, so the same records give the same verdicts in both packages.
 The lease checks audit the geo plane's read-local reads: the quorum
 client tags each one `lease=True` with the serving `replica`, and `run`
-configures `lease_lookup` on the Constellation's lease tables.
+configures `lease_lookup` on the Constellation's lease tables. One
+divergence: a trace evicted unaudited from the in-flight buffer (more
+than `max_traces` in flight) stays unaudited; its later spans are
+dropped, where the reference audits them from a fresh buffer as if the
+trace began there, so an overloaded proxy's evicted reads came out as
+`quorum_intersection` verdicts with no replica in their read phase.
 
 Telescope (obs/) records what happened — span trees per request, metrics,
 flight incidents — but nothing *consumes* it: a Byzantine coordinator that
@@ -150,6 +155,9 @@ class Watchtower:
         self.history_per_key = history_per_key
         # trace_id -> [SpanRecord] for traces still in flight
         self._traces: collections.OrderedDict = collections.OrderedDict()
+        # ids of traces evicted unaudited whose roots have not arrived yet
+        # (bounded): their later spans are dropped, never audited as a tree
+        self._evicted: collections.OrderedDict = collections.OrderedDict()
         self._verdicts: collections.deque = collections.deque(maxlen=max_verdicts)
         self._violation_counts: collections.Counter = collections.Counter()
         # key -> bounded [_Op] history (max-tag entry always retained)
@@ -234,6 +242,7 @@ class Watchtower:
         """Drop all audit state (tests; a fresh deployment in-process)."""
         with self._lock:
             self._traces.clear()
+            self._evicted.clear()
             self._verdicts.clear()
             self._violation_counts.clear()
             self._key_history.clear()
@@ -286,12 +295,21 @@ class Watchtower:
             return
         with self._lock:
             buf = self._traces.get(rec.trace_id)
+            if buf is None and rec.trace_id in self._evicted:
+                # the rest of an evicted trace: a tree missing its first
+                # spans would audit as a quorum of nobody
+                if rec.kind == "span" and rec.parent_id is None:
+                    del self._evicted[rec.trace_id]
+                return
             if buf is None:
                 buf = self._traces[rec.trace_id] = []
                 while len(self._traces) > self.max_traces:
                     # oldest in-flight trace is evicted unaudited (bounded
                     # memory beats a complete audit of a leaked trace id)
-                    self._traces.popitem(last=False)
+                    evicted, _ = self._traces.popitem(last=False)
+                    self._evicted[evicted] = None
+                    while len(self._evicted) > 8 * self.max_traces:
+                        self._evicted.popitem(last=False)
             if len(buf) < self.max_trace_spans:
                 buf.append(rec)
             complete = rec.kind == "span" and rec.parent_id is None

@@ -103,8 +103,13 @@ replicas (`[replicas] local`, or the names `addresses` does not map
 elsewhere), a supervisor only where `supervisor-address` names it, and a
 `nodehost` agent that rebuilds a local replica on a remote supervisor's
 Redeploy; `mint_node_keys` (`--mint-node-keys`) provisions the identities.
-`[shard]` over TCP (Meridian) is refused, as are `[fabric]` roles and
-`[obs.fleet]`.
+`[shard]` over TCP is Meridian (`fabric/deploy.launch_meridian`): by its
+`[fabric] role` (`--role` overrides it) the process hosts the whole
+constellation, one quorum group with its agent and `GET /shards` status
+listener, or a proxy that bootstraps the signed map from the groups and
+drives cross-host splits; a group process runs no workload.
+`[obs.fleet]` is refused (configs/multihost/ and the TCP files of
+configs/geo/ boot with it off).
 
 Run the deployment and a generated workload, print each client's report,
 and with --serve keep serving until interrupted (on a host without a card,
@@ -124,10 +129,14 @@ reference's flag does):
         --mint-hosts 10.0.0.1:2552,10.0.0.2:2552
     python -m dds_tpu_torch.run --config host_a.toml --serve --backend cuda
     python -m dds_tpu_torch.run --config host_b.toml --serve --ops 0 --device cpu --backend cpu
+    python -m dds_tpu_torch.run --config group0.toml --serve --ops 0 --device cpu --backend cpu
+    python -m dds_tpu_torch.run --config proxy.toml --serve --ops 0 --backend cuda
 
 where my_chaos.toml sets `[attacks] enabled = true`, `chaos-enabled =
 true`, `type = "partition"` and `[proxy] stored-keys-path =
 "keys/proxy_keys.json"`, host_a.toml and host_b.toml are DEPLOY.md §2's,
+group0.toml and proxy.toml are configs/multihost/'s with `[obs.fleet]
+enabled = false` (and group1.toml and standby2.toml started the same way),
 and my_reshard.toml is configs/sharded.toml with
 `[fabric] admin-routes = true`, `[shard] plan-dir = "reshard"` and
 `[helmsman] enabled = true` (then `POST /_reshard {"action": "split",
@@ -234,15 +243,14 @@ class Deployment:
 
 def unported_plane(cfg: DDSConfig) -> str | None:
     """The first plane `cfg` enables that the port does not serve, or
-    None: the multi-host shard fabric (Meridian: its roles and groups, and
-    `[shard]` over TCP, which the reference hands to it), then fleet
-    observability."""
-    tcp = cfg.transport.kind == "tcp"
+    None: fleet observability (Panopticon), then the stale-tag forgers of
+    `[attacks] type = "stale_tag"`, which only Panopticon's collector-fed
+    audit can catch."""
     checks = (
-        (cfg.fabric.role != "all" or bool(cfg.fabric.groups), "[fabric]: the shard fabric"),
-        (cfg.shard.enabled and tcp, '[shard] enabled with [transport] kind = "tcp": '
-                                    "Meridian, the shard fabric"),
         (cfg.obs.fleet.enabled, "[obs.fleet] enabled: fleet observability"),
+        (cfg.attacks.enabled and cfg.attacks.type == "stale_tag",
+         '[attacks] type = "stale_tag": the stale-tag forgers, which only fleet '
+         "observability's audit catches"),
     )
     return next((name for on, name in checks if on), None)
 
@@ -375,6 +383,25 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
             # resolve per send
             wan.apply_profiles(net, cfg.chaos.profiles, scale=cfg.chaos.scale)
     if cfg.shard.enabled:
+        if cfg.transport.kind == "tcp":
+            # Meridian (fabric/): by its [fabric] role this process hosts
+            # the whole constellation, one quorum group or a remote proxy,
+            # the signed shard map distributed by GET /shards bootstrap and
+            # epoch gossip
+            from dds_tpu_torch.fabric.deploy import launch_meridian
+
+            try:
+                return await launch_meridian(cfg, net, stoppables, flight_dir,
+                                             ssl_server, ssl_client)
+            except BaseException:
+                # fail-fast must not leak the bound listener (or a chaos
+                # wrapper's timers)
+                for s in reversed(stoppables):
+                    try:
+                        await s.stop()
+                    except Exception:
+                        pass
+                raise
         return await _launch_constellation(cfg, net, stoppables, flight_dir,
                                            ssl_server, ssl_client)
     rcfg = ReplicaConfig(
@@ -601,18 +628,22 @@ async def launch(cfg: DDSConfig | None = None) -> Deployment:
     return dep
 
 
-def publish_identity(cfg: DDSConfig, role: str, host: str = "local") -> None:
+def publish_identity(cfg: DDSConfig, role: str, host: str = "local",
+                     shard: str = "") -> None:
     """The process's identity, as the reference publishes it at launch:
     the flight recorder's incident headers (host — the advertised
-    "host:port" on the TCP transport —, role and, with `[fabric] region`,
-    the region) and the `dds_process_info` gauge on /metrics."""
+    "host:port" on the TCP transport —, role, a Meridian group's shard
+    and, with `[fabric] region`, the region) and the `dds_process_info`
+    gauge on /metrics."""
     identity = {"host": host, "role": role}
+    if shard:
+        identity["shard"] = shard
     if cfg.fabric.region:
         identity["region"] = cfg.fabric.region
     flight.configure(identity=identity)
     metrics.set(
         "dds_process_info", 1.0,
-        role=role, shard="-", region=cfg.fabric.region or "-",
+        role=role, shard=shard or "-", region=cfg.fabric.region or "-",
         pid=str(os.getpid()), start_ts=f"{_START_TS:.3f}", version=__version__,
         help="process identity (value is always 1; the labels carry it)",
     )
@@ -1005,6 +1036,7 @@ def main(argv=None) -> None:
     ap.add_argument("--port", type=int, help="proxy port (0 = auto)")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--serve", action="store_true", help="keep serving after workload")
+    ap.add_argument("--role", help="override [fabric] role (all | proxy | group:N)")
     ap.add_argument("--device", choices=["cuda", "cpu"],
                     help="where the cuda backends fold and encrypt and the Sanctum "
                          "device plan decrypts (default cuda)")
@@ -1032,11 +1064,21 @@ def main(argv=None) -> None:
         cfg.proxy.port = args.port
     if args.device:
         cfg.proxy.device = cfg.client.device = args.device
+    if args.role:
+        cfg.fabric.role = args.role
 
     async def go():
         dep = await launch(cfg)
         try:
-            if cfg.client.nr_of_operations > 0:
+            # a Meridian group process hosts replicas, not clients, and a
+            # proxy process (no Trudy) only serves, as in the reference
+            runs_workload = dep.trudy is not None and cfg.client.nr_of_operations > 0
+            if cfg.shard.enabled and cfg.transport.kind == "tcp":
+                from dds_tpu_torch.fabric.deploy import parse_role
+
+                if parse_role(cfg.fabric.role)[0] == "group":
+                    runs_workload = False
+            if runs_workload:
                 reports = await run_workload(dep, seed=args.seed)
                 for i, r in enumerate(reports):
                     print(

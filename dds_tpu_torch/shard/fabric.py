@@ -1,7 +1,8 @@
 """Constellation fabric: build S independent BFT-ABD quorum groups.
 
 Copy of `dds_tpu/shard/fabric.py` on the in-memory transport (or a
-ChaosNet over it), with Atlas: region-aware placement (`regions`, and
+ChaosNet over it, or, for the Meridian role "all", a TcpNet, every
+endpoint then named "host:port/name" by `namer`), with Atlas: region-aware placement (`regions`, and
 `placement` span, home or a per-gid dict), the home regions signed onto
 the map, per-group read-lease tables (`lease_ttl`), proxy clients homed
 in `client_region`, every endpoint labelled on a ChaosNet so
@@ -263,20 +264,25 @@ def build_group(
     regions: list[str] | None = None,
     home_region: str = "",
     lease_ttl: float = 0.0,
+    namer=None,
 ) -> ShardGroup:
     """One namespaced quorum group over `net`, fencing under `state`;
     with `chaos` its attacker is a Nemesis (network attacks on a
-    ChaosNet `net`).
+    ChaosNet `net`). `namer` maps a bare endpoint name to its transport
+    address: the identity on the in-memory fabric, `TcpNet.local_addr`
+    for a Meridian group process, so every endpoint is a routable
+    "host:port/name".
 
     Atlas: `regions` spreads the group's replicas round-robin across the
     listed regions; `home_region` labels the group (default the first
     region). `lease_ttl > 0` installs the group's shared read-lease table
     on every replica, switching its coordinators to the holder-pinned
     quorum geometry (dds_tpu_torch/geo)."""
+    namer = namer or (lambda name: name)
     rcfg = rcfg or ReplicaConfig(quorum_size=quorum)
-    endpoints = [f"{gid}-replica-{i}" for i in range(n_active + n_sentinent)]
+    endpoints = [namer(f"{gid}-replica-{i}") for i in range(n_active + n_sentinent)]
     active, sentinent = endpoints[:n_active], endpoints[n_active:]
-    sup_addr = f"{gid}-supervisor"
+    sup_addr = namer(f"{gid}-supervisor")
     replica_regions = spread(endpoints, regions or [])
     if regions and not home_region:
         home_region = regions[0]
@@ -312,9 +318,9 @@ def build_group(
             if abd_cfg.region:
                 # a client without a home region stays on the quorum path
                 abd_cfg.lease_enabled = True
-    client = AbdClient(f"{gid}-proxy", net, active, abd_cfg)
+    client = AbdClient(namer(f"{gid}-proxy"), net, active, abd_cfg)
     attacker = Nemesis if chaos else Trudy
-    trudy = attacker(net, active, max_faults, addr=f"{gid}-trudy", rng=rng)
+    trudy = attacker(net, active, max_faults, addr=namer(f"{gid}-trudy"), rng=rng)
     return ShardGroup(gid, active, sentinent, replicas, supervisor, client,
                       state, quorum, trudy, replica_regions=replica_regions,
                       home_region=home_region, lease_table=lease_table)
@@ -337,6 +343,7 @@ def build_constellation(
     placement="span",
     lease_ttl: float = 0.0,
     client_region: str = "",
+    namer=None,
     **group_kwargs,
 ) -> Constellation:
     """S homogeneous groups + manager/router/rebalancer over one fabric.
@@ -352,7 +359,8 @@ def build_constellation(
     installs per-group read-lease tables; `client_region` homes every
     group's proxy client (enabling its lease fast path) in one region. On
     a ChaosNet every endpoint is labelled with its region, so
-    `[chaos.profiles]` WAN matrices apply unchanged."""
+    `[chaos.profiles]` WAN matrices apply unchanged. `namer` names every
+    endpoint as `build_group` says (the Meridian role "all" over TCP)."""
     gids = [f"s{i}" for i in range(shard_count)]
     homes = group_regions(gids, regions or [])
     smap = ShardMap.build(gids, vnodes_per_group,
@@ -364,19 +372,20 @@ def build_constellation(
         state = ShardState(gid, smap, secret)
         grp_rng = random.Random(rng.getrandbits(64)) if rng else None
         groups.append(build_group(
-            net, gid, state, rng=grp_rng,
+            net, gid, state, rng=grp_rng, namer=namer,
             **_geo_group_kwargs(group_kwargs, gid, regions, homes,
                                 placement, lease_ttl, client_region),
         ))
     router = ShardRouter(manager, {g.gid: g.client for g in groups})
     rebalancer = Rebalancer(
-        manager, net, secret, manifest_timeout=manifest_timeout,
+        manager, net, secret, addr=(namer or (lambda n: n))("rebalancer"),
+        manifest_timeout=manifest_timeout,
         ack_timeout=ack_timeout, chunk_keys=chunk_keys, prune=prune,
         fence_lease=fence_lease, journal_dir=journal_dir,
     )
     constellation = Constellation(
         manager, router, groups, rebalancer, net=net, secret=secret,
-        _build_kwargs=dict(group_kwargs),
+        _build_kwargs=dict(group_kwargs, namer=namer),
         geo_regions=list(regions or []), geo_placement=placement,
         geo_lease_ttl=lease_ttl, geo_client_region=client_region,
     )

@@ -1,9 +1,8 @@
 """Shard-aware storage router: point ops to one group, batches scattered.
 
-Copy of `dds_tpu/shard/router.py` without the remote router's `refresh`
-hook (the port's manager is in-process). `shards_health` carries each
-group's Atlas home region (from the signed map) and its client's live
-read-lease session when the group is geo-aware.
+Copy of `dds_tpu/shard/router.py`. `shards_health` carries each group's
+Atlas home region (from the signed map) and its client's live read-lease
+session when the group is geo-aware.
 
 Drop-in replacement for a single `AbdClient` at the REST proxy
 (`DDSRestServer(abd=ShardRouter(...))`): it exposes the same storage
@@ -12,10 +11,11 @@ and /metrics routes read — but resolves each key's owning quorum group
 through the `ShardManager`'s active map and delegates to that group's
 `AbdClient`. Every delegated client stamps its messages with the map's
 epoch (AbdClient.shard_epoch), so replicas can fence stale routes; a
-fenced op surfaces as `WrongShardError` and the proxy's existing
-deadline-budgeted retry re-resolves the owner under the manager's current
-map on the next attempt. No silent misroutes, no new
-retry machinery.
+fenced op surfaces as `WrongShardError`, the router refreshes its map
+(`refresh`: a no-op when the manager is in-process, a poke of the
+Meridian map follower's /shards pull in a remote proxy) and the proxy's
+existing deadline-budgeted retry re-resolves the owner on the next
+attempt. No silent misroutes, no new retry machinery.
 
 `read_tags` — the aggregate cache's validation primitive — is
 scatter-gathered: keys partition by owner, each group runs its own
@@ -67,10 +67,13 @@ class _MergedTrust:
 
 
 class ShardRouter:
-    def __init__(self, manager, clients: dict[str, AbdClient]):
+    def __init__(self, manager, clients: dict[str, AbdClient], refresh=None):
         """`clients` maps group id -> that group's AbdClient (each built
-        with its own replica set, supervisor, and `cfg.shard` label)."""
+        with its own replica set, supervisor, and `cfg.shard` label).
+        `refresh` is called on every WrongShardError before the retry
+        re-resolves the owner."""
         self.shard_manager = manager
+        self._refresh = refresh
         self.clients = clients
         self.replicas = _MergedTrust(clients)
         # cumulative routed-op count per group id — the Helmsman
@@ -118,6 +121,8 @@ class ShardRouter:
         )
         tracer.event("shard.wrong_shard", shard=gid, key=err.key,
                      replica_epoch=err.replica_epoch)
+        if self._refresh is not None:
+            self._refresh()
 
     # ----------------------------------------------------------- point ops
 

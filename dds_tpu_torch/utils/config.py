@@ -323,8 +323,8 @@ class ObsConfig:
 
 @dataclass
 class ShardConfig:
-    """Constellation sharding plane (the reference's shard/; ported on the in-memory
-    transport, live resharding and the plan journal included): partition the
+    """Constellation sharding plane (the reference's shard/; ported, live resharding,
+    the plan journal and, over TCP, Meridian included): partition the
     keyspace across `count` independent BFT-ABD quorum groups, each with
     its own replicas, spares, supervisor, anti-entropy loop, and attack
     surface. Point ops route to one group; SumAll/MultAll scatter-gather
@@ -570,8 +570,8 @@ class CryptoConfig:
 
 @dataclass
 class FabricConfig:
-    """Meridian multi-host shard fabric (the reference's fabric/; not ported, but
-    `admin-routes` is: it gates POST /_reshard and /_helmsman on the proxy): spread a
+    """Meridian multi-host shard fabric (`dds_tpu_torch/fabric`; `admin-routes` also
+    gates POST /_reshard and /_helmsman on an in-process proxy): spread a
     Constellation's S quorum groups plus separate proxies across N OS
     processes/hosts over `TcpNet`, from one shared TOML that differs per
     process only in `role` (and transport bind). Active with
@@ -759,8 +759,9 @@ class AttackConfig:
     # crash | byzantine | partition | delay | flood | heal (the network
     # attacks need chaos_enabled so a ChaosNet fabric exists to drive).
     # "stale_tag" arms a Meridian group process's replicas as
-    # properly-MAC'd stale-read forgers (malicious/trudy.StaleTagForger)
-    # — the cross-host audit regression schedule.
+    # properly-MAC'd stale-read forgers in the reference (its
+    # malicious/trudy.StaleTagForger), the cross-host audit regression
+    # schedule; the port refuses it until fleet observability is ported.
     type: str = "byzantine"
     # wrap the transport in a seeded ChaosNet (core/chaos.py) and use the
     # Nemesis schedule, so deployments can soak under deterministic network

@@ -584,6 +584,11 @@ def one_of_each(M) -> list:
         M.LeaseRevoke("eu", 33, sig), M.LocalRead("k", "eu", "tok", 34, sig, epoch=2),
         M.LocalReadReply(tag, "k", ["v"], True, 35, sig),
         M.LocalReadReply(None, "k", None, False, 36, sig),
+        M.ShardMapInstall({"epoch": 2, "vnodes": [[1, "s0"]]}, True, 37, 1.5),
+        M.ShardMapActivate({"epoch": 2}, 38), M.ShardMapAck(39, 2, False, "bad"),
+        M.ShardExportRequest("h:1/s1-replica-0", 40),
+        M.ShardExport(41, {"k": {"tag": [1, "r"], "value": ["v"]}}),
+        M.ShardPruneRequest(42), M.ShardPruned(43, 3),
     ]
 
 

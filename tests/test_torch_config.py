@@ -160,7 +160,7 @@ PLANES = [
     ("admission", {"admission": {"enabled": True}}, False),
     ("tenancy", {"tenancy": {"enabled": True}}, False),
     ("obs audit", {"obs": {"audit-enabled": True}}, False),
-    ("fabric", {"fabric": {"role": "proxy"}}, True),
+    ("fabric", {"fabric": {"role": "proxy"}}, False),
     ("helmsman", {"shard": {"enabled": True}, "helmsman": {"enabled": True}}, False),
     ("geo", {"geo": {"enabled": True}}, False),
     ("heliograph", {"heliograph": {"enabled": True}}, False),
@@ -185,7 +185,9 @@ PLANES = [
                           "chaos": {"profiles": {"eu<->us": "wan-100"}}}, False),
     ("sharded chaos", {"shard": {"enabled": True}, "attacks": {"chaos-enabled": True}}, False),
     ("helmsman unsharded", {"helmsman": {"enabled": True}}, False),
-    ("Meridian", {"shard": {"enabled": True}, "transport": {"kind": "tcp"}}, True),
+    ("Meridian", {"shard": {"enabled": True}, "transport": {"kind": "tcp", "port": 0}},
+     False),
+    ("stale-tag forgers", {"attacks": {"enabled": True, "type": "stale_tag"}}, True),
 ]
 IDS = [f"{p}-{i}" for i, (p, _, _) in enumerate(PLANES)]
 REFUSALS = [(p, sec) for p, sec, refused in PLANES if refused]
@@ -224,7 +226,8 @@ def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
         dep = await launch(cfg)
         try:
             assert dep.trudy is not None
-            if plane in ("sharding", "sharded chaos", "helmsman", "admin-routes", "plan-dir"):
+            if plane in ("sharding", "sharded chaos", "helmsman", "admin-routes", "plan-dir",
+                         "Meridian"):
                 # one supervisor a group, no single-group supervisor
                 assert dep.supervisor is None
                 assert [g.gid for g in dep.constellation.groups] == ["s0", "s1"]
@@ -293,6 +296,16 @@ def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
             if plane == "admin-routes":
                 assert dep.server.cfg.reshard_route_enabled
                 assert dep.server._reshard is not None
+            if plane == "Meridian":
+                # role "all": the Constellation over this process's TcpNet,
+                # every endpoint "host:port/name", the map on GET /shards
+                # with gossip
+                assert isinstance(dep.net, TcpNet) and dep.server._gossip is not None
+                assert f"{dep.net.advertised}/s1-replica-4" in dep.replicas
+            if plane == "fabric":
+                # a [fabric] role without [shard] over TCP is the single-group
+                # launch, as in the reference
+                assert dep.constellation is None
             if plane == "plan-dir":
                 journal = dep.constellation.rebalancer.journal
                 assert journal.path == pathlib.Path("plans", "reshard_plan.json")

@@ -16,7 +16,10 @@ per-kind rate-limit stamps cleared before and after it (`fresh_flight`):
 the reference's keyring files its rotate and shred through `dds_tpu`'s
 process-wide recorder, and a stamp left there suppressed the next drill's
 incidents within a second, in either order; the two drills run back to
-back in one process, in both orders. The canary repair: with tenancy off the
+back in one process, in both orders, each step first owning both
+packages' process-wide audit state (`own_process_state`: an earlier
+file's verdict in the reference's Watchtower, which its `launch` does not
+reset, failed the reference drill in the 6-worker suite). The canary repair: with tenancy off the
 canary tenant's rows never enter another tenant's aggregate, search or
 analytics answer, nor theirs the canary's; the parent port folded all of
 them.
@@ -85,6 +88,23 @@ def cleared_flight_stamps():
 def fresh_flight():
     with cleared_flight_stamps():
         yield
+
+
+def own_process_state() -> None:
+    """Both packages' process-wide audit state as a fresh process has it:
+    each Watchtower detached and reset (its verdicts and its cross-trace
+    key, breaker and suspicion ledgers), each tracer's ring emptied and
+    each flight recorder's per-kind stamps cleared. The reference's
+    `launch` configures its Watchtower without a reset, so under `-n 6
+    --dist loadfile` a verdict or ledger entry an earlier file left in the
+    worker's reference Watchtower reached the reference drill's
+    `verdicts()`; a test that runs that drill owns this state first."""
+    for pkg in ("dds_tpu", "dds_tpu_torch"):
+        wt = mod(pkg, "obs.watchtower").watchtower
+        wt.detach()
+        wt.reset()
+        mod(pkg, "utils.trace").tracer.reset()
+        mod(pkg, "obs.flight").flight._last.clear()
 
 
 @pytest.fixture(scope="module")
@@ -650,4 +670,25 @@ def test_shred_drills_back_to_back_in_one_process(order, tmp_path, fresh_flight)
 
     steps = [twin, lambda: reference_drill(tmp_path / "ref")]
     for step in (steps if order == "twin-first" else steps[::-1]):
+        own_process_state()
+        step()
+
+
+@pytest.mark.parametrize("leftover", ["reference", "port"])
+def test_shred_drills_own_the_audit_state_an_earlier_test_left(leftover, tmp_path,
+                                                               fresh_flight):
+    """A verdict an earlier test left in a package's process-wide
+    Watchtower (as one from another file of the same xdist worker does)
+    does not reach the drills: the back-to-back steps own that state."""
+    from tests.test_tenant_isolation import (
+        test_shred_chaos_drill_other_tenants_linearizable_zero_verdicts as reference_drill)
+
+    pkg = "dds_tpu" if leftover == "reference" else "dds_tpu_torch"
+    mod(pkg, "obs.watchtower").watchtower._violate("quorum_intersection", "leftover-trace",
+                                                   key="leftover")
+    (tmp_path / "ref").mkdir()
+    (tmp_path / "twin").mkdir()
+    for step in (lambda: reference_drill(tmp_path / "ref"),
+                 lambda: shred_drill_twin(tmp_path / "twin")):
+        own_process_state()
         step()

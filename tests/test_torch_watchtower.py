@@ -187,6 +187,38 @@ def test_synthetic_traces_give_the_reference_verdicts(case, write, check_quorum,
         assert (stats["traces_audited"], stats["ops_audited"]) == (1, 1)
 
 
+def test_an_evicted_trace_stays_unaudited_in_the_port_and_yields_false_verdicts_in_the_reference():
+    """More traces in flight than `max_traces` (an overloaded proxy: the
+    chip run's tenancy flood): the oldest is evicted unaudited. Its later
+    spans and root then open a fresh buffer in the reference, which audits
+    the tail as a whole trace (a quorum op with no replica in its read
+    phase: a false `quorum_intersection`) and evicts the next trace in
+    turn; the port drops the evicted trace's tail and audits the others,
+    clean."""
+    from dds_tpu.utils.trace import Tracer
+
+    def records_of(key):
+        out = []
+        t = Tracer()
+        t.subscribe(out.append)
+        commit_op(t, "read", key, 1, "replica-0", read_replicas=R7[:5])
+        return out  # the replica spans, then the abd span, then the root
+
+    a, b, c = records_of("ka"), records_of("kb"), records_of("kc")
+    feed = a[:-2] + b[:-2] + c[:-2] + a[-2:] + b[-2:] + c[-2:]
+    out = {}
+    for pkg in ("dds_tpu", "dds_tpu_torch"):
+        wt = mod(pkg, "obs.watchtower").Watchtower(quorum_size=5, n_replicas=7,
+                                                   max_traces=2)
+        for rec in feed:
+            wt.on_record(rec)
+        out[pkg] = ([(v.invariant, v.detail["key"], v.detail["problems"])
+                     for v in wt.verdicts()], wt.stats()["traces_audited"])
+    assert out["dds_tpu"] == ([("quorum_intersection", "ka", ["read_phase=0<5"]),
+                               ("quorum_intersection", "kb", ["read_phase=0<5"])], 3)
+    assert out["dds_tpu_torch"] == ([], 2)
+
+
 def test_port_tracer_feeds_its_subscribers_and_guards_them():
     """The port's tracer hands each record to its subscribers after the
     append, swallows a subscriber's exception, and does not recurse into a
