@@ -35,8 +35,10 @@ holder's crash) and DEPLOY.md's two-host deployment on the TCP
 transport (mutual TLS, node identities, HTTPS; host B a child process,
 SumAlls exact on the card, B's host fold the card's bit for bit, a
 cross-host redeploy) and configs/multihost/'s four-process Meridian
-fleet (three group processes, the proxy on the card bootstrapping the
-signed map, a live cross-host split, a proxy relaunch) — and holds
+fleet as written (three group processes shipping their spans to the
+proxy's Panopticon collector, the proxy on the card bootstrapping the
+signed map and auditing the stitched traces, a live cross-host split, a
+proxy relaunch, and a forged stale read caught on a fleet of its own) — and holds
 every CUDA kernel on them against its plain PyTorch version. The phases
 before `recovery` turn the audit and /slo off in the configs they build
 (EARLIER_OBS_CUTS), and every phase before `tenancy` runs with the
@@ -335,12 +337,12 @@ non-zero:
               west stand at their streak of 3), the Watchtower's
               verdicts only canary_wrong_answer, one of them /canary's
               exemplar; then the row re-put by a putget and the sum probe
-              ok again); K = 4,096 rows (8,192 cut for the run's time,
+              ok again); K = 2,048 rows (8,192 cut for the run's time,
               DEPTH_CUTS) of the bench key blinded on the card
               (B3) and loaded by PutSet 64 in flight with the prober
               running; 6 user SumAlls, each the Python fold of exactly the
-              K rows (no canary row) and decrypting to the total, 13 B1
-              launches each (14 at 8,192); the kernel sentry's cuda:: rows of those folds
+              K rows (no canary row) and decrypting to the total, 12 B1
+              launches each (14 at 8,192, 13 at 4,096); the kernel sentry's cuda:: rows of those folds
               written as the baseline file (DDS_KERNEL_BASELINE, else the
               port's dds_tpu_torch/kernel_baseline.json) and 3 more
               SumAlls compared against it (printed, not gated);
@@ -361,10 +363,10 @@ non-zero:
               Constellation of 4 groups x (4 replicas + 1 spare), quorum 3,
               f = 1, proactive recovery and anti-entropy in each group,
               [resident] 256 / 65,536 rows, [analytics], the audit. K =
-              4,096 rows (cut from bft_sum's 8,192 for the phase's 90 s,
+              2,048 rows (cut from bft_sum's 8,192 for the run's time,
               DEPTH_CUTS) blinded on the card (B3) and loaded by PutSet 64
               in flight; 6 SumAlls through the fused S = 4 resident tree
-              (B1: the tree's levels, 14 a SumAll), 2 in each of the
+              (B1: the tree's levels, `mesh_fold_launches` a SumAll), 2 in each of the
               Karatsuba modes 1 and 2 (only that mode's kernels), then 6
               through the scatter fold (one device fold a group,
               combine_partials), each the Python-int fold of the K
@@ -512,22 +514,39 @@ non-zero:
               ms, the `serialize` share of /profile, A's frames sent, the
               phase's seconds beside its 45 s budget;
 26c. meridian configs/multihost/'s four-process fleet on loopback
-              (MERIDIAN_DIFFERENCES, MERIDIAN_STEPS printed): node
+              (MERIDIAN_DIFFERENCES, MERIDIAN_STEPS printed), `[obs.fleet]`
+              on as the files set it: node
               identities by `mint_node_keys`, group0, group1 and the
-              standby s2 as child processes on the host backend, the proxy
+              standby s2 as child processes on the host backend, each
+              shipping its spans to the proxy's collector, the proxy
               `launch()` here on the card, its map bootstrapped from the
               groups' GET /shards; 2,048 B3-blinded rows (cut from 8,192,
               DEPTH_CUTS) by PutSet through the proxy; 3 SumAlls at S = 2,
               POST /_reshard {"source": "s1"} under 32 concurrent
               WriteElements, 3 SumAlls at S = 3, the proxy relaunched and
               every row read back through it, the open-loop load at 20
-              ops/s for 5 s. Gates: every SumAll the Python-int fold, the
+              ops/s for 5 s, GET /fleet/*; then the forgery step: a proxy
+              on the card over group0 (armed by `[attacks] type =
+              "stale_tag"`) and group1 of a fleet of its own, two PutSets
+              of one s0-owned set and a GetSet. Gates: every SumAll the
+              Python-int fold, the
               same ciphertext across the split; epoch 2 with s2 everywhere;
               every acknowledged write and row read back; no 500; B1 =
               each SumAll's `fold_launches` over its groups' printed row
-              counts + 2 and B3 1 on path "meridian". Printed: each step's
-              seconds, PutSets/s, the SumAlls' ms, the export frames' bytes,
-              the load report, the phase's seconds beside its 60 s budget;
+              counts + 2 and B3 1 on path "meridian"; after the load no
+              verdict at /fleet/incidents (quorum checks on), traces
+              stitched, a stitched SumAll or PutSet with replica.handle
+              spans of >= 3 replicas of a group process, the proxy and
+              each group process a source by role and none stale, no batch
+              rejected, /fleet/slo, /profile and /canary 200; the forged
+              read answers ["stale"] with exactly tag_monotonicity and
+              quorum_intersection on its trace, tag [1, "forged"].
+              Printed: each step's
+              seconds, PutSets/s, the SumAlls' ms (beside the plane-off
+              run's, MERIDIAN_PLANE_OFF), the export frames' bytes, the
+              load report, the fleet's batches, spans, stitched trees,
+              drops, evictions and pending traces, the first proxy's
+              verdicts, the phase's seconds beside its 80 s budget;
 27. kernels   one {"kernels": [...]} line (every kernel must have launched
               on its path; the fold kernels also carry their L = 64
               launch; the analytics requests' launches are the path
@@ -1577,11 +1596,15 @@ DEPTH_CUTS = {"multall.K": "16384 -> 8192 records",
               # 56.2 s, its load 43.2 s of it; stratum.toml 16.9 s; H100 80GB
               # HBM3, 700 W); loads of one size ran up to 1.7x slower from one
               # host to another
-              "sharded.K": "8192 -> 4096 rows",
+              # 4,096 -> 2,048 (with heliograph.K) once the meridian phase
+              # gained [obs.fleet] and the forgery step: the full run took
+              # 1,025.6 s on a slower host, meridian 82.9 s, heliograph 51.6
+              # s and sharded 49.5 s of it (H100 80GB HBM3, 700.00 W)
+              "sharded.K": "8192 -> 4096 -> 2048 rows",
               # with the chaos phase the full run took 913.0 s, heliograph
               # 64.1 s of it; 4,096 rows took 33.1 s off the phase in a
               # paired run before (H100 80GB HBM3, 700 W)
-              "heliograph.K": "8192 -> 4096 rows",
+              "heliograph.K": "8192 -> 4096 -> 2048 rows",
               "resident.rest": "the REST stack (8192 rows) -> configs/sharded.toml's "
                                "launch in the sharded phase",
               "tiered.rest": "the REST stack (8192 rows) -> configs/stratum.toml's "
@@ -7939,7 +7962,7 @@ async def phase_tcp(dev, sizes) -> dict:
     return rec
 
 
-MERIDIAN_BUDGET_S = 60.0
+MERIDIAN_BUDGET_S = 80.0
 # what the phase changes of configs/multihost/'s four files (printed)
 MERIDIAN_DIFFERENCES = {
     "hosts": "127.0.0.1 for all four (the files: 10.0.0.1-4), so the three group "
@@ -7948,7 +7971,11 @@ MERIDIAN_DIFFERENCES = {
              "REST listener (the files: 7101-7103 and 7110, 8081-8083, 8443)",
     "[security.node-public-keys]": "the stanza --mint-node-keys 4 printed, pasted into "
                                    "every file; each node-key-path its minted file",
-    "obs.fleet.enabled": "false (fleet observability is not ported)",
+    "obs.fleet.collector": "each group's the proxy's loopback transport (the files: "
+                           "10.0.0.4:7110); [obs.fleet] stays on as the files set it",
+    "forgery": "a fleet of its own for the forgery step, from the same files: group0 with "
+               "[attacks] enabled = true, type = \"stale_tag\", group1 and the proxy (no "
+               "standby2), its own free ports and minted identities",
     "proxy.crypto-backend": "cuda on the card (--backend cuda; the files: tpu); the "
                             "groups host no proxy that folds",
     "proxy.stored-keys-path": "a file of the phase's temporary directory "
@@ -7969,7 +7996,15 @@ MERIDIAN_STEPS = (
     "relaunch: the proxy stopped and launched again; it bootstraps epoch 2 from the "
     "groups; every row read back",
     "load: OpenLoopLoad at 20 ops/s for 5 s; no 500",
+    "fleet: GET /fleet/* through the proxy's REST listener: no verdict with quorum checks "
+    "on, traces stitched, a stitched SumAll or PutSet with replica.handle spans of >= quorum "
+    "replicas of a group process, the proxy and every group process a source labelled by "
+    "role and none stale, no batch rejected, /fleet/slo, /profile and /canary answering",
     "stop: the proxy, then each group by SIGINT",
+    "forgery: the forgery fleet's proxy launched here on the card over its two group "
+    "processes (booted with the others); two PutSets of one s0-owned set, one GetSet: the "
+    "read answers [\"stale\"], exactly tag_monotonicity and quorum_intersection on one "
+    "trace, tag [1, \"forged\"]; then its groups stopped by SIGINT",
 )
 
 
@@ -8007,12 +8042,14 @@ def toml_text(doc: dict) -> str:
 MERIDIAN_FILES = ("group0", "group1", "standby2", "proxy")
 
 
-def meridian_files(d, ports: list[int], registry: dict) -> tuple[dict, dict]:
+def meridian_files(d, ports: list[int], registry: dict,
+                   extra: dict | None = None) -> tuple[dict, dict]:
     """configs/multihost/'s four files with MERIDIAN_DIFFERENCES, written
     under `d`: name -> path, and name -> its loopback addresses. `ports`:
     four transports, three status listeners and the REST listener, in the
     files' order; `registry` the minted node-public-keys stanza, one key
-    a transport, `d`/certs/node_<i>.key the i-th file's."""
+    a transport, `d`/certs/node_<i>.key the i-th file's; `extra` name ->
+    the sections added to that file."""
     import pathlib
     import tomllib
 
@@ -8039,7 +8076,10 @@ def meridian_files(d, ports: list[int], registry: dict) -> tuple[dict, dict]:
             fab.update({"status-host": "127.0.0.1", "status-port": status[n]})
         fab["bootstrap"] = [addr[hp] for hp in fab["bootstrap"]]
         fab["groups"] = {g: addr[hp] for g, hp in fab["groups"].items()}
-        doc["obs"]["fleet"] = {"enabled": False}
+        fleet = doc["obs"]["fleet"]
+        if fleet.get("collector"):
+            fleet["collector"] = addr[fleet["collector"]]
+        doc.update((extra or {}).get(n, {}))
         if "proxy" in doc:
             doc["proxy"].update({"host": "127.0.0.1", "port": rest, "crypto-backend": "cuda",
                                  "stored-keys-path": str(d / "proxy_keys.json")})
@@ -8048,6 +8088,126 @@ def meridian_files(d, ports: list[int], registry: dict) -> tuple[dict, dict]:
         where[n] = {"transport": transport[n], **({"status": status[n]} if n in status else
                                                   {"rest": rest})}
     return paths, where
+
+
+# the meridian phase's load and SumAlls with [obs.fleet] off, on an H100
+# 80GB HBM3 at 700 W (PERF.md §5), printed beside this run's
+MERIDIAN_PLANE_OFF = {"putsets_per_s": [69.7, 85.6], "sumall_ms": [115.4, 645.2]}
+
+
+async def meridian_fleet(call, rest: int, taps: list, quorum: int, roles: list) -> dict:
+    """The fleet plane's gates, read through the proxy's REST listener
+    after the open-loop load: `GET /fleet/incidents` without a verdict
+    (quorum checks on); traces stitched, and a stitched SumAll or PutSet
+    whose replica.handle spans name >= `quorum` replicas of a group
+    process (`taps`, the trees each proxy's collector replayed); on `GET
+    /fleet/metrics` a source labelled by role for each of `roles`, none
+    stale, and no batch rejected; `/fleet/slo`, `/fleet/profile` and
+    `/fleet/canary` answering 200. Printed: the batches, spans and trees,
+    drops by source and reason, evictions and the pending traces."""
+    from dds_tpu_torch.obs.panopticon import parse_samples
+
+    t = time.perf_counter()
+    _, data = await call(rest, "GET", "/fleet/incidents", where="fleet")
+    incidents = json.loads(data)
+    _, data = await call(rest, "GET", "/fleet/metrics", where="fleet")
+    text = data.decode()
+    for route in ("slo", "profile", "canary"):
+        await call(rest, "GET", f"/fleet/{route}", where="fleet")
+
+    def by(name: str, *keys: str) -> dict:
+        return {"/".join(lab.get(k, "-") for k in keys): v
+                for lab, v in parse_samples(text, name)}
+
+    ages = by("dds_fleet_source_age_seconds", "role", "host")
+    stale = by("dds_fleet_source_stale", "role", "host")
+    trees: collections.Counter = collections.Counter()
+    most: dict = {}
+    for tr, mo in taps:
+        trees.update(tr)
+        for route, n in mo.items():
+            most[route] = max(most.get(route, 0), n)
+    rec = {
+        "verdicts": incidents["verdicts"],
+        "incidents": incidents["count"],
+        "sources": {k: {"age_s": v, "stale": stale.get(k)} for k, v in ages.items()},
+        "stitched": sum(by("dds_fleet_traces_stitched_total", "role").values()),
+        "trees": dict(trees), "most_replicas": most,
+        "batches": by("dds_fleet_collect_batches_total", "role", "host"),
+        "rejected": sum(by("dds_fleet_collect_rejected_total", "role", "reason").values()),
+        "shipped_batches": by("dds_fleet_ship_batches_total", "role"),
+        "shipped_spans": by("dds_fleet_ship_spans_total", "role"),
+        "acked": by("dds_fleet_ship_acked_total", "role"),
+        "ship_dropped": by("dds_fleet_ship_dropped_total", "role", "reason"),
+        "dropped_by_source": by("dds_fleet_ship_dropped_by_source", "host"),
+        "evicted": sum(by("dds_fleet_collect_evicted_total", "role").values()),
+        "pending_traces": by("dds_fleet_pending_traces", "role"),
+        # ROADMAP §C 23, 24: keys reseeds pulled at once, by the manifests'
+        # or the signers' later listings, and splits that kept the prune
+        "holes_filled": by("dds_recovery_holes_filled_total", "role", "via"),
+        "prune_held": sum(by("dds_reshard_prune_held_total", "role").values()),
+        "read_s": time.perf_counter() - t,
+    }
+    stitched_op = max(most.get("http.POST.PutSet", 0), most.get("http.GET.SumAll", 0))
+    seen_roles = sorted({k.split("/", 1)[0] for k in ages})
+    if rec["verdicts"] or not rec["stitched"] or stitched_op < quorum or \
+            seen_roles != sorted(roles) or any(stale.values()) or rec["rejected"]:
+        raise AssertionError(f"meridian: the fleet plane {json.dumps(rec, default=str)[:2000]}")
+    return rec
+
+
+async def meridian_forgery(dev, proxy_path, call) -> dict:
+    """The forgery step: the proxy of the forgery fleet `launch()`ed here
+    over its group processes (group0's replicas stale-tag forgers); two
+    PutSets of one s0-owned set, then one GetSet. Gates: the read answers
+    the forged ["stale"], and the collector-fed Watchtower gives exactly
+    `tag_monotonicity` and `quorum_intersection`, on one trace, the tag
+    [1, "forged"], a stitch window after the first two land."""
+    from dds_tpu_torch.run import launch
+    from dds_tpu_torch.shard.shardmap import ShardMap
+    from dds_tpu_torch.utils import sigs
+    from dds_tpu_torch.utils.config import DDSConfig
+
+    cfg = DDSConfig.load(proxy_path)
+    cfg.proxy.device = dev.type
+    smap = ShardMap.build(["s0", "s1"], cfg.shard.vnodes_per_group)
+    contents = next(c for c in ([f"forgery-{i}"] for i in range(4096))
+                    if smap.owner(sigs.key_from_set(c)) == "s0")
+    key = sigs.key_from_set(contents)
+    t = time.perf_counter()
+    dep = await launch(cfg)
+    launch_s = time.perf_counter() - t
+    try:
+        rest = dep.server.cfg.port
+        for _ in range(2):  # the same contents, the same key: two commits on it
+            _, data = await call(rest, "POST", "/PutSet", {"contents": contents}, "forgery")
+            if data.decode() != key:
+                raise AssertionError(f"meridian: the forgery's PutSet answered {data[:80]!r}")
+            await asyncio.sleep(0.05)
+        _, data = await call(rest, "GET", f"/GetSet/{key}", where="forgery")
+        value = json.loads(data)["contents"]
+        t = time.perf_counter()
+        while True:
+            _, data = await call(rest, "GET", "/fleet/incidents", where="forgery")
+            verdicts = json.loads(data)["verdicts"]
+            if len(verdicts) >= 2 or time.perf_counter() - t > 30.0:
+                break
+            await asyncio.sleep(0.25)
+        wait_s = time.perf_counter() - t
+        await asyncio.sleep(cfg.obs.fleet.stitch_window + 0.5)  # nothing more lands
+        _, data = await call(rest, "GET", "/fleet/incidents", where="forgery")
+        verdicts = json.loads(data)["verdicts"]
+    finally:
+        await dep.stop()
+    by_inv = {v["invariant"]: v for v in verdicts}
+    rec = {"launch_s": launch_s, "value": value, "verdicts_s": wait_s,
+           "verdicts": [{k: v[k] for k in ("invariant", "trace_id", "detail")} for v in verdicts]}
+    if value != ["stale"] or len(verdicts) != 2 or \
+            set(by_inv) != {"tag_monotonicity", "quorum_intersection"} or \
+            by_inv["tag_monotonicity"]["detail"].get("tag") != [1, "forged"] or \
+            by_inv["tag_monotonicity"]["trace_id"] != by_inv["quorum_intersection"]["trace_id"]:
+        raise AssertionError(f"meridian: the forgery {json.dumps(rec, default=str)[:1500]}")
+    return rec
 
 
 async def phase_meridian(dev, sizes) -> dict:
@@ -8069,7 +8229,11 @@ async def phase_meridian(dev, sizes) -> dict:
     the proxy stopped and launched again, bootstrapping epoch 2 from the
     groups; every row read back, `meridian_readback_inflight` at a time;
     `OpenLoopLoad.run` at `meridian_load_rate` ops/s for `meridian_load_s`
-    s. Gates: each SumAll the Python-int fold of the rows, decrypting to
+    s. `[obs.fleet]` stays on as the files set it, each group's collector
+    the proxy's loopback transport: the fleet plane's gates
+    (`meridian_fleet`) read GET /fleet/* after the load, and the forgery
+    step (`meridian_forgery`) runs on a second fleet of the same files
+    whose two group processes boot with the first's. Gates: each SumAll the Python-int fold of the rows, decrypting to
     their total, the same ciphertext before and after the split; epoch 2
     with s2 on the proxy and on every group's /shards; every
     acknowledged write read back; the relaunched proxy at epoch 2 from its
@@ -8081,12 +8245,14 @@ async def phase_meridian(dev, sizes) -> dict:
     SumAll) + 2 the blinding's, B3 = 1. Printed: each step's seconds, the
     per-group row counts and predicted launches, PutSets/s, the SumAlls'
     ms, the export frames' bytes, the split's seconds, the relaunch's
-    bootstrap, the load report, the phase's seconds beside its budget."""
+    bootstrap, the load report, the fleet plane's record and the forgery's,
+    the phase's seconds beside its budget."""
     import os
     import pathlib
     import signal
     import tempfile
     import tomllib
+    import types
 
     from dds_tpu_torch.bench_key import bench_paillier_key
     from dds_tpu_torch.core import messages as M
@@ -8115,8 +8281,17 @@ async def phase_meridian(dev, sizes) -> dict:
     paths, where = meridian_files(d, ports, tomllib.loads(stanza)["security"]
                                   ["node-public-keys"])
     rest = where["proxy"]["rest"]
+    # the forgery step's fleet: the same files, its own ports and identities,
+    # group0's replicas armed as stale-tag forgers
+    df = d / "forgery"
+    df.mkdir()
+    ports_f = free_ports(8)
+    stanza_f = mint_node_keys(4, str(df / "certs"), [f"127.0.0.1:{p}" for p in ports_f[:4]])
+    paths_f, where_f = meridian_files(
+        df, ports_f, tomllib.loads(stanza_f)["security"]["node-public-keys"],
+        extra={"group0": {"attacks": {"enabled": True, "type": "stale_tag"}}})
     rec["provision_s"] = time.perf_counter() - t
-    step("provision", s=rec["provision_s"], where=where)
+    step("provision", s=rec["provision_s"], where=where, forgery=where_f)
 
     async def call(port: int, method: str, target: str, obj=None, where: str = "",
                    ok=(200,)):
@@ -8139,10 +8314,12 @@ async def phase_meridian(dev, sizes) -> dict:
     procs, logs = {}, {}
     env = {**os.environ, "PYTHONUNBUFFERED": "1", "CUDA_VISIBLE_DEVICES": ""}
     t = time.perf_counter()
-    for n in MERIDIAN_FILES[:3]:
+    children = {n: paths[n] for n in MERIDIAN_FILES[:3]}
+    children.update({f"forgery_{n}": paths_f[n] for n in MERIDIAN_FILES[:2]})
+    for n, path in children.items():
         logs[n] = open(d / f"{n}.log", "w")
         procs[n] = subprocess.Popen(
-            [sys.executable, "-m", "dds_tpu_torch.run", "--config", str(paths[n]), "--serve",
+            [sys.executable, "-m", "dds_tpu_torch.run", "--config", str(path), "--serve",
              "--ops", "0", "--device", "cpu", "--backend", "cpu"],
             cwd=root, stdout=logs[n], stderr=subprocess.STDOUT, env=env)
 
@@ -8158,8 +8335,33 @@ async def phase_meridian(dev, sizes) -> dict:
 
     dep = None
     runs: list = []
+    taps: list = []
+
+    def tap(dep) -> None:
+        """Each stitched tree the proxy's collector replays, seen at
+        Chronoscope's seat on its way there: per root route, the trees
+        and the most distinct replicas one tree's replica.handle spans
+        name (the proxy hosts no replica: every one was shipped)."""
+        col = dep.server._fleet
+        if col is None or dep.replicas:
+            raise AssertionError("meridian: the proxy has no fleet collector")
+        trees: collections.Counter = collections.Counter()
+        most: dict = {}
+        inner = col.profiler
+
+        def ingest_tree(records) -> None:
+            route = records[-1].name
+            n = len({r.meta.get("replica") for r in records if r.name == "replica.handle"})
+            trees[route] += 1
+            most[route] = max(most.get(route, 0), n)
+            if inner is not None:
+                inner.ingest_tree(records)
+
+        col.profiler = types.SimpleNamespace(ingest_tree=ingest_tree)
+        taps.append((trees, most))
+
     try:
-        for n in MERIDIAN_FILES[:3]:
+        for n in children:
             while "serving on" not in (d / f"{n}.log").read_text():
                 alive("boot")
                 if time.perf_counter() - t > sizes["meridian_boot_s"]:
@@ -8173,6 +8375,7 @@ async def phase_meridian(dev, sizes) -> dict:
         t = time.perf_counter()
         dep = await launch(cfg)
         rec["proxy_launch_s"] = time.perf_counter() - t
+        tap(dep)
         router, ctl = dep.server.abd, dep.server._reshard
         _, body = await call(rest, "GET", "/shards", where="boot")
         boot_map = json.loads(body)["map"]
@@ -8188,6 +8391,8 @@ async def phase_meridian(dev, sizes) -> dict:
         sync(dev)
         blind_s = time.perf_counter() - t
         rows = {}  # key -> contents
+        index_of = {}  # key -> the row's index
+        acked: dict[str, str] = {}  # a split writer's key -> its last acknowledged value
         sem = asyncio.Semaphore(sizes["meridian_inflight"])
 
         async def put(i: int, c: int) -> None:
@@ -8195,6 +8400,7 @@ async def phase_meridian(dev, sizes) -> dict:
             async with sem:
                 _, data = await call(rest, "POST", "/PutSet", {"contents": contents}, "load")
             rows[data.decode()] = contents
+            index_of[data.decode()] = i
 
         t = time.perf_counter()
         await asyncio.gather(*(put(i, c) for i, c in enumerate(cts)))
@@ -8215,6 +8421,39 @@ async def phase_meridian(dev, sizes) -> dict:
             return dict(sorted(counts.items())), sum(
                 mont_cuda.fold_launches(c) for c in counts.values() if c >= min_batch)
 
+        async def explain(result: int) -> dict:
+            """A wrong SumAll's decrypted difference from the rows' total;
+            the row whose plaintext it is (missing: -p, twice: +p) with its
+            owner, whether a split writer wrote it and the proxy's cached
+            tag; every row read back now that does not read as stored; the
+            warnings of the groups that took part in the split."""
+            n = key.public.n
+            diff = (key.decrypt(result) - total) % n
+            diff = diff - n if diff > n // 2 else diff
+            smap = router.shard_manager.current()
+            out = {"diff": diff, "rows": [], "unreadable": []}
+            for p_, sign in ((-diff, "missing"), (diff, "twice")):
+                k = next((k for k, i in index_of.items() if plain[i] == p_), None)
+                if k is not None:
+                    cached = dep.server._cache.get(k)
+                    out["rows"].append({"key": k[:16], "as": sign, "owner": smap.owner(k),
+                                        "written": k in acked,
+                                        "cached_tag": str(cached[0]) if cached else None})
+            sem_x = asyncio.Semaphore(32)
+
+            async def read(k: str) -> None:
+                async with sem_x:
+                    status, _, data = await http_request_full(
+                        "127.0.0.1", rest, "GET", f"/GetSet/{k}", None, timeout=60.0)
+                if status != 200 or json.loads(data)["contents"] != rows[k]:
+                    out["unreadable"].append([k[:16], smap.owner(k), status, k in acked])
+
+            await asyncio.gather(*(read(k) for k in rows))
+            out["logs"] = {g: [ln[-300:] for ln in tail(g, 200000).splitlines()
+                               if "WARNING" in ln or "rejected" in ln][-12:]
+                           for g in ("group1", "standby2")}
+            return out
+
         async def sumall(where: str, expect_b1: int) -> dict:
             sync(dev)
             before = mont_cuda.LAUNCHES["mont_mul"].value
@@ -8226,7 +8465,7 @@ async def phase_meridian(dev, sizes) -> dict:
             b1 = mont_cuda.LAUNCHES["mont_mul"].value - before
             if result != want or key.decrypt(result) != total:
                 raise AssertionError(f"meridian: the SumAll at {where} is not the fold of "
-                                     f"the {K} rows")
+                                     f"the {K} rows: {await explain(result)}")
             if dev.type == "cuda" and b1 != expect_b1:
                 raise AssertionError(f"meridian: the SumAll at {where} launched {b1} "
                                      f"mont_mul, predicted {expect_b1}")
@@ -8254,7 +8493,6 @@ async def phase_meridian(dev, sizes) -> dict:
             return entries
 
         ctl.rpc.export = export
-        acked: dict[str, str] = {}
         done = asyncio.Event()
 
         async def writer(k: str) -> None:
@@ -8310,6 +8548,9 @@ async def phase_meridian(dev, sizes) -> dict:
         after = [await sumall("S3", b1_3) for _ in range(sizes["meridian_sumalls"])]
         runs += after
         step("sumalls_s3", ms=[r["ms"] for r in after], b1=[r["b1"] for r in after])
+        # the first proxy's audit before it stops (printed)
+        _, data = await call(rest, "GET", "/fleet/incidents", where="relaunch")
+        rec["verdicts_before_relaunch"] = json.loads(data)["verdicts"]
         # -- the proxy stopped and launched again: epoch 2 from the bootstrap
         t = time.perf_counter()
         await dep.stop()
@@ -8318,6 +8559,7 @@ async def phase_meridian(dev, sizes) -> dict:
         cfg.proxy.device = dev.type
         dep = await launch(cfg)
         relaunch_s = time.perf_counter() - t
+        tap(dep)
         boot_epoch = dep.server.abd.shard_manager.epoch
         boot_groups = list(dep.server.abd.shard_manager.current().groups)
         sem_r = asyncio.Semaphore(sizes["meridian_readback_inflight"])
@@ -8357,6 +8599,18 @@ async def phase_meridian(dev, sizes) -> dict:
         alive("open_loop")
         if statuses.get(500):
             raise AssertionError(f"meridian: the open-loop load met {statuses[500]} 500s")
+        # -- the fleet plane, read through the proxy's REST listener
+        rec["fleet"] = await meridian_fleet(call, rest, taps, cfg.shard.quorum_size,
+                                            ["proxy"] + [f"group:s{i}" for i in range(3)])
+        step("fleet", **rec["fleet"])
+        await dep.stop()
+        dep = None
+        # -- the forgery step, on its own fleet
+        t = time.perf_counter()
+        rec["forgery"] = await meridian_forgery(dev, paths_f["proxy"], call)
+        rec["forgery"]["s"] = time.perf_counter() - t
+        step("forgery", **rec["forgery"])
+        alive("forgery")
     finally:
         if dep is not None:
             await dep.stop()
@@ -8386,7 +8640,9 @@ async def phase_meridian(dev, sizes) -> dict:
     rec["seconds"] = time.perf_counter() - t_phase
     emit("meridian", **{k: rec[k] for k in (
         "seconds", "budget_s", "launches", "load", "sumalls", "split", "relaunch",
-        "open_loop", "stop_groups_s", "group_returncodes")})
+        "open_loop", "verdicts_before_relaunch", "fleet", "forgery", "stop_groups_s",
+        "group_returncodes")},
+         plane_off=MERIDIAN_PLANE_OFF)
     n_s = sizes["meridian_sumalls"]
     if dev.type == "cuda" and (rec["launches"]["mont_exp"] != 1 or
                                rec["launches"]["mont_mul"] != sumall_b1 + 2 or
@@ -8604,24 +8860,24 @@ CARD_SIZES = dict(key_bits=2048, B=4096, K_big=65536, K_path=8192, reps_big=5,
                   tenancy_flood_rows=128, tenancy_load_inflight=8, tenancy_seed=15,
                   tenancy_zipf_s=1.2, tenancy_interactive_rate=40.0, tenancy_agg_frac=0.1,
                   tenancy_window_s=10.0, tenancy_lead_s=2.0, tenancy_flood_rate=256.0,
-                  # the heliograph phase: bft_sum's K (cut to 4,096, DEPTH_CUTS)
+                  # the heliograph phase: bft_sum's K (cut to 2,048, DEPTH_CUTS)
                   # on heliograph.toml as it stands, 64 PutSets in flight (the
                   # file arms no admission);
                   # canary_overhead.py's drill cadence (its --drill-cadence),
                   # at most 3 loopback cycles (the 4th re-puts the corrupted
                   # row); a 10 s open-loop window a side, GetSets at 30/s and
                   # SumAlls at 2/s
-                  helio_K=4096, helio_inflight=64, helio_sumalls=6, helio_sumalls_compare=3,
+                  helio_K=2048, helio_inflight=64, helio_sumalls=6, helio_sumalls_compare=3,
                   helio_drill_cadence=0.25, helio_drill_cycles=3, helio_window_s=10.0,
                   helio_getset_rate=30.0, helio_sumall_rate=2.0, helio_seed=16,
                   helio_first_wait_s=60.0,
-                  # the sharded phase: bft_sum's K (cut to 4,096, DEPTH_CUTS) on
+                  # the sharded phase: bft_sum's K (cut to 2,048, DEPTH_CUTS) on
                   # sharded.toml as it stands, 64 PutSets in flight, 6 SumAlls a
                   # route, 256 rows written once the pools exist,
                   # analytics_matvec.py's R = 16, 2 SumAlls in each Karatsuba
                   # mode; 2,048 rows on stratum.toml past a hot tier of 512
                   # rows a group (SHARDED_OVERRIDES), 3 SumAlls
-                  sharded_K=4096, sharded_inflight=64, sharded_sumalls=6, sharded_new=256,
+                  sharded_K=2048, sharded_inflight=64, sharded_sumalls=6, sharded_new=256,
                   sharded_R=16, sharded_seed=17, sharded_mode_sumalls=2, stratum_K=2048,
                   stratum_max_rows=512, stratum_sumalls=3,
                   # the chaos phase: 1,024 rows (DEPTH_CUTS) on default.toml as it stands

@@ -341,44 +341,7 @@ class AntiEntropy:
                         remote=[seq, tid, vd],
                     )
 
-            stale_keys = list(stale)
-            for i in range(0, len(stale_keys), self.REPAIR_BATCH):
-                batch = stale_keys[i:i + self.REPAIR_BATCH]
-                nonce = sigs.generate_nonce()
-                repair = await self._ask(peer, M.RepairRequest(batch, nonce))
-                if not isinstance(repair, M.RepairReply):
-                    continue
-                wanted = set(batch)
-                for key, e in repair.entries.items():
-                    if key not in wanted:
-                        continue
-                    try:
-                        tag = M.ABDTag(int(e["tag"][0]), str(e["tag"][1]))
-                        value = e["value"]
-                        sig = bytes.fromhex(e["sig"])
-                    except (KeyError, TypeError, ValueError, IndexError):
-                        continue
-                    if not sigs.validate_abd_signature(
-                            secret, value, tag, nonce, sig):
-                        metrics.inc(
-                            "dds_antientropy_rejected_repairs_total",
-                            replica=node.name,
-                            help="repair entries failing the ABD HMAC",
-                        )
-                        continue
-                    cur = node.repository.get(key)
-                    if cur is None or cur[0] < tag:
-                        node._store(key, tag, value)
-                        repaired += 1
-                        src = stale[key]
-                        # audit feed: installed vs advertised tag, checked
-                        # by Watchtower's repair_convergence invariant
-                        tracer.event(
-                            "audit.repair", replica=node.name,
-                            peer=peer.rsplit("/", 1)[-1], key=key,
-                            src_seq=src[0], src_id=src[1],
-                            seq=tag.seq, tag_id=tag.id,
-                        )
+            repaired = await self._pull(peer, stale)
             if repaired:
                 metrics.inc(
                     "dds_antientropy_repaired_keys_total", repaired,
@@ -387,6 +350,121 @@ class AntiEntropy:
                 )
             self._mark_round(meta, "repaired", repaired)
             return repaired
+
+    async def _pull(self, peer: str, wanted: dict, *, exact: bool = False) -> int:
+        """Ask `peer` for the keys of `wanted` (key -> the (seq, id, value
+        digest) the peer advertised or the manifests attested),
+        RepairRequest by RepairRequest, and store each entry under a valid
+        ABD HMAC that is newer than the local copy; with `exact`, only the
+        wanted version with its digest. A key taken (stored, or held newer
+        already) leaves `wanted`. Returns the stored count; a silent
+        peer's timeout propagates."""
+        node = self.node
+        secret = node.cfg.abd_mac_secret
+        repaired = 0
+        keys = list(wanted)
+        for i in range(0, len(keys), self.REPAIR_BATCH):
+            batch = keys[i:i + self.REPAIR_BATCH]
+            nonce = sigs.generate_nonce()
+            repair = await self._ask(peer, M.RepairRequest(batch, nonce))
+            if not isinstance(repair, M.RepairReply):
+                continue
+            asked = set(batch)
+            for key, e in repair.entries.items():
+                if key not in asked or key not in wanted:
+                    continue
+                try:
+                    tag = M.ABDTag(int(e["tag"][0]), str(e["tag"][1]))
+                    value = e["value"]
+                    sig = bytes.fromhex(e["sig"])
+                except (KeyError, TypeError, ValueError, IndexError):
+                    continue
+                if not sigs.validate_abd_signature(
+                        secret, value, tag, nonce, sig):
+                    metrics.inc(
+                        "dds_antientropy_rejected_repairs_total",
+                        replica=node.name,
+                        help="repair entries failing the ABD HMAC",
+                    )
+                    continue
+                src = wanted[key]
+                if exact and ((tag.seq, tag.id) != src[:2]
+                              or sigs.value_digest(value) != src[2]):
+                    continue
+                del wanted[key]
+                cur = node.repository.get(key)
+                if cur is None or cur[0] < tag:
+                    node._store(key, tag, value)
+                    repaired += 1
+                    # audit feed: installed vs advertised tag, checked
+                    # by Watchtower's repair_convergence invariant
+                    tracer.event(
+                        "audit.repair", replica=node.name,
+                        peer=peer.rsplit("/", 1)[-1], key=key,
+                        src_seq=src[0], src_id=src[1],
+                        seq=tag.seq, tag_id=tag.id,
+                    )
+        return repaired
+
+    async def fill_holes(self, wanted: dict, via: str = "manifest") -> int:
+        """Pull the keys a verified reseed should hold but lacks
+        (`wanted`: key -> (seq, id, value digest), from
+        `replica.reseed_holes`) from each peer in turn until every one is
+        in, each only in the exact version f + 1 signers attested, and
+        return how many were taken (counted by `via`, the seed's
+        manifests or `fill_from_listings`). A newer version is left to the
+        periodic loop: one Byzantine peer holds the ABD secret and could
+        sign a forged one (ROADMAP §C 23; the reference leaves every hole
+        to the periodic loop)."""
+        node = self.node
+        left = dict(wanted)
+        for peer in [p for p in node.all_replicas if p != node.addr]:
+            try:
+                await self._pull(peer, left, exact=True)
+            except asyncio.TimeoutError:
+                pass
+            if not left:
+                break
+        filled = len(wanted) - len(left)
+        tracer.event("recovery.holes_filled", replica=node.name, filled=filled,
+                     left=len(left), via=via)
+        metrics.inc("dds_recovery_holes_filled_total", filled, replica=node.name, via=via,
+                    help="keys a verified reseed missed, pulled from peers at once, "
+                         "by the seed's manifests or the signers' later listings")
+        return filled
+
+    async def fill_from_listings(self, peers: list[str], support: int) -> int:
+        """After a reseed, ask `peers` (its manifest signers) for their
+        whole key listings now and fill every entry that >= `support` of
+        them attest identically and this replica lacks or holds older, as
+        `fill_holes` does. A reseed whose manifests were taken while a
+        migration was landing rejects the migrated keys, which one signer
+        held then and every one holds a moment later (ROADMAP §C 24).
+        Returns the keys filled."""
+        from dds_tpu_torch.core.replica import _verified, reseed_holes
+
+        node = self.node
+        secret = node.cfg.abd_mac_secret
+        buckets = list(range(MerkleIndex.BUCKETS))
+        votes: dict[tuple, set] = {}
+        for peer in peers:
+            nonce = sigs.generate_nonce()
+            try:
+                reply = await self._ask(peer, M.MerkleKeysRequest(buckets, nonce))
+            except asyncio.TimeoutError:
+                continue
+            if not (isinstance(reply, M.MerkleKeys)
+                    and sigs.validate_antientropy_signature(
+                        secret, "keys", reply.entries, reply.nonce, reply.signature)):
+                continue
+            for key, ent in reply.entries.items():
+                try:
+                    attested = (str(key), int(ent[0]), str(ent[1]), str(ent[2]))
+                except (TypeError, ValueError, IndexError):
+                    continue
+                votes.setdefault(attested, set()).add(peer)
+        holes = reseed_holes(_verified(votes, support), node.repository)
+        return await self.fill_holes(holes, via="listing") if holes else 0
 
     def _mark_round(self, meta: dict, outcome: str, repaired: int) -> None:
         self.rounds += 1

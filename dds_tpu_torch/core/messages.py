@@ -6,7 +6,8 @@ membership and recovery protocol, verified state transfer, Merkle
 anti-entropy, the shard fence's `WrongShard`, live resharding's
 `ShardMigrateBegin`/`ShardMigrateAck`, Meridian's cross-host reshape
 control frames (map install, activate and ack, export, prune), the Atlas
-geo plane's read leases and region-local reads and the fault-injection
+geo plane's read leases and region-local reads, Panopticon's fleet
+telemetry (`TelemetryBatch`, `TelemetryAck`) and the fault-injection
 backdoors, with the reference's field names in its order — and its wire
 codec, tagged canonical JSON (`dumps`/`loads`), which ChaosNet's corrupt
 fault flips a byte of. For every class here `dumps` gives the
@@ -535,6 +536,52 @@ class LocalReadReply:
 
 
 # --------------------------------------------------------------------------
+# Panopticon fleet telemetry (obs/panopticon)
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TelemetryBatch:
+    """Shipper -> collector: one batch of fleet telemetry from a non-proxy
+    process. `spans` is a list of completed span trees (each a list of
+    `utils.trace.event_dict` dicts), `incidents` flight-recorder index
+    entries, `metrics_text` the source's full Prometheus exposition, and
+    `slo` its SloEngine report. `mac` is HMAC-SHA256 over the canonical
+    JSON of the payload with the fleet telemetry secret — an extra
+    integrity layer above the frame MAC, so a collector can accept
+    batches relayed through untrusted hops. Integrity only: a Byzantine
+    HOST can still sign lies about its own stats (DEPLOY.md "Fleet
+    observability"). The list/dict fields ride opaque on purpose — span
+    meta is workload-derived and must never decode as protocol objects."""
+
+    host: str
+    role: str
+    shard: str
+    seq: int
+    ts: float
+    spans: list
+    incidents: list
+    metrics_text: str
+    slo: dict
+    dropped: int          # spool drops at the SOURCE since process start
+    mac: bytes
+    # Atlas region label of the shipping process ("" = unplaced). Covered
+    # by the payload MAC like every other field; the collector surfaces
+    # it on federated metrics and incident correlation.
+    region: str = ""
+
+
+@dataclass(frozen=True)
+class TelemetryAck:
+    """Collector -> shipper: batch `seq` landed (ok=False = bad MAC or
+    malformed — the shipper counts rejects but never retries a reject:
+    a batch the collector refuses once will be refused again)."""
+
+    seq: int
+    ok: bool
+    error: str = ""
+
+
+# --------------------------------------------------------------------------
 # fault injection backdoor (malicious/MaliciousAttack.scala:34)
 # --------------------------------------------------------------------------
 
@@ -572,6 +619,7 @@ _TYPES = {
         ShardMapInstall, ShardMapActivate, ShardMapAck,
         ShardExportRequest, ShardExport, ShardPruneRequest, ShardPruned,
         LeaseRequest, LeaseGrant, LeaseRevoke, LocalRead, LocalReadReply,
+        TelemetryBatch, TelemetryAck,
     )
 }
 

@@ -39,6 +39,14 @@ Protocol summary:
 - a sentinent spare stores quorum Writes silently and answers `Awake`
   with its state; a byzantine node answers with garbage, replays, forged
   writes and omissions (its forged tags come from the node's own `_rng`).
+
+Two divergences from the reference, both in the verified reseed (ROADMAP
+§C 23, 24, where the reference loses acknowledged writes to proactive
+recovery): the reseed keeps what the replica stored since its Kill
+instead of replacing it, and pulls from the peers at once, in the exact
+version f + 1 of its manifest signers attest at the manifests' time or a
+moment later, every key it did not install (`reseed_holes`,
+`AntiEntropy.fill_holes`, `fill_from_listings`).
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from dds_tpu_torch.core.transport import Transport
 from dds_tpu_torch.obs.flight import flight
 from dds_tpu_torch.obs.metrics import metrics
 from dds_tpu_torch.utils import sigs
+from dds_tpu_torch.utils.tasks import supervised_task
 from dds_tpu_torch.utils.trace import tracer
 from dds_tpu_torch.utils.trust import TrustedNodesList
 
@@ -123,6 +132,9 @@ class BFTABDNode:
         # verified-reseed sessions in flight: session -> {begin, chunks}
         # (SleepBegin and StateChunks may arrive in any order)
         self._recovery_sessions: dict[int, dict] = {}
+        # set by a Kill's wipe, cleared by the reseed that follows it: the
+        # repository meanwhile holds only what arrived since (ROADMAP §C 23)
+        self._wiped = False
         # live-resharding migration sessions in flight (same shape; they
         # merge into the repository instead of replacing it)
         self._migrate_sessions: dict[int, dict] = {}
@@ -188,6 +200,7 @@ class BFTABDNode:
         self._tagbatch_cache.clear()
         self.merkle.rebuild({})
         self._recovery_sessions.clear()
+        self._wiped = True
 
     def _quorum_met(self, responders) -> bool:
         """Quorum gate for the write and read rounds this coordinator
@@ -810,6 +823,15 @@ class BFTABDNode:
                 else:
                     rejected.append(key)
         self._recovery_sessions.pop(session, None)
+        # keep what this replica stored since its Kill wiped it: quorum
+        # Writes it acknowledged and migration entries it verified while
+        # the seed was in flight. Replaced by the seed, each acknowledged
+        # write it held loses a copy (ROADMAP §C 23)
+        for key, (tag, value) in (self.repository.items() if self._wiped else ()):
+            cur = repository.get(key)
+            if MerkleIndex._tracked(tag, value) and (cur is None or cur[0] < tag):
+                repository[key] = (tag, value)
+        self._wiped = False
         self._install_repository(repository)
         for n in begin.nonces:
             self.incoming[int(n)] = True
@@ -836,6 +858,22 @@ class BFTABDNode:
         )
         self._send(sess["sender"], M.Complying())
         self.behavior = "sentinent"
+        # pull what the seed lacked now: left to the periodic loop, a hole
+        # outlives the next recovery, in which this replica, a spare by
+        # then, seeds the next victim without the key, until no read quorum
+        # holds a copy (ROADMAP §C 23, 24)
+        signers = sorted({str(d[0]) for d in begin.digests} - {self.addr})
+        supervised_task(
+            self._fill_after_reseed(reseed_holes(verified, repository), signers,
+                                    begin.support),
+            name="replica.fill_holes")
+
+    async def _fill_after_reseed(self, holes: dict, signers: list[str], support: int) -> None:
+        """The keys the manifests attested that the seed lacked, then the
+        ones the signers hold by now (`AntiEntropy.fill_from_listings`)."""
+        if holes:
+            await self.antientropy.fill_holes(holes)
+        await self.antientropy.fill_from_listings(signers, support)
 
     # -------------------------------------------------- shard migration
 
@@ -952,6 +990,13 @@ def verified_manifest(digests: list, support: int, secret: bytes) -> dict:
             except (TypeError, ValueError, IndexError):
                 continue
             votes.setdefault(attested, set()).add(str(signer))
+    return _verified(votes, support)
+
+
+def _verified(votes: dict, support: int) -> dict:
+    """key -> (seq, id, value digest), the newest version that >=
+    `support` distinct signers attest identically in `votes`
+    ((key, seq, id, value digest) -> signers)."""
     verified: dict[str, tuple] = {}
     for (key, seq, tid, vd), signers in votes.items():
         if len(signers) < support:
@@ -960,3 +1005,16 @@ def verified_manifest(digests: list, support: int, secret: bytes) -> dict:
         if cur is None or (seq, tid) > (cur[0], cur[1]):
             verified[key] = (seq, tid, vd)
     return verified
+
+
+def reseed_holes(verified: dict, repository: dict) -> dict:
+    """The `verified` entries (`_verified`) that `repository` lacks or
+    holds only older: key -> the exact (seq, id, value digest) to pull. A
+    key no version of which f + 1 signers attest is never asked for; the
+    periodic anti-entropy loop repairs it (ROADMAP §C 23)."""
+    holes = {}
+    for key, want in verified.items():
+        cur = repository.get(key)
+        if cur is None or (cur[0].seq, cur[0].id) < want[:2]:
+            holes[key] = want
+    return holes

@@ -1,9 +1,7 @@
 """Meridian role deployment: one TOML, N OS processes, one constellation.
 
-Copy of `dds_tpu/fabric/deploy.py` without fleet observability (the span
-shipper and the collector, Panopticon's, are refused at `launch` by
-`run.unported_plane`). `run.launch` lands here when `[shard] enabled`
-meets `[transport] kind = "tcp"`. `[fabric]` names every group's
+Copy of `dds_tpu/fabric/deploy.py`. `run.launch` lands here when
+`[shard] enabled` meets `[transport] kind = "tcp"`. `[fabric]` names every group's
 transport address and this process's `role`; the three roles compose a
 fleet:
 
@@ -20,6 +18,15 @@ fleet:
   fresh with epoch-gossip long-polls, derives every group's replica
   addresses from the shared config and hosts the `MeridianController`
   that drives cross-host splits (`POST /_reshard` with `admin-routes`).
+
+With `[obs.fleet] enabled` (Panopticon, `obs/panopticon.py`) each group
+process ships its span trees, incidents and metrics to the collector that
+`[obs.fleet] collector` names, the proxy's transport address; the proxy's
+collector stitches them into its own traces and feeds the Watchtower,
+with quorum checks on, and Chronoscope, serves `GET /fleet/*`, and gives
+Helmsman the groups' heartbeat ages and home regions. `[attacks] type =
+"stale_tag"` arms a group process's replicas as stale-tag forgers, which
+only that audit catches.
 
 Every process derives the same epoch-1 map (`ShardMap.build` is
 deterministic over the group list) and verifies every later map against
@@ -57,9 +64,11 @@ from dds_tpu_torch.fleet import Helmsman
 from dds_tpu_torch.geo.placement import group_regions
 from dds_tpu_torch.http.miniserver import HttpServer, Request, Response
 from dds_tpu_torch.http.server import DDSRestServer
+from dds_tpu_torch.malicious.trudy import arm_stale_tag_forgers
 from dds_tpu_torch.obs.chronoscope import chronoscope
 from dds_tpu_torch.obs.flight import flight
 from dds_tpu_torch.obs.metrics import metrics
+from dds_tpu_torch.obs.panopticon import FleetCollector, NullWatchtower, SpanShipper
 from dds_tpu_torch.obs.slo import SloEngine
 from dds_tpu_torch.obs.watchtower import watchtower
 from dds_tpu_torch.shard.fabric import build_constellation, build_group
@@ -306,12 +315,44 @@ def _namer(net):
     return fn
 
 
+def _fleet_secret(cfg) -> bytes:
+    """The telemetry batches' HMAC key: its own secret when configured,
+    else the intranet secret every fleet process already shares."""
+    return (cfg.obs.fleet.secret or cfg.security.abd_mac_secret).encode()
+
+
 def _identify(cfg, namer, role: str, shard: str = "") -> None:
     """This process's identity on the flight recorder and the
     `dds_process_info` gauge, its host the advertised "host:port"."""
     from dds_tpu_torch.run import publish_identity
 
     publish_identity(cfg, role, host=namer("_id").rsplit("/", 1)[0], shard=shard)
+
+
+def _start_shipper(cfg, net, namer, stoppables, *, role: str, shard: str = "",
+                   slo=None):
+    """This process's span shipper, aimed at the fleet's collector (none
+    unless `[obs.fleet]` is enabled and names one)."""
+    fl = cfg.obs.fleet
+    if not (fl.enabled and fl.collector):
+        return None
+    shipper = SpanShipper(
+        net,
+        collector=fl.collector,
+        secret=_fleet_secret(cfg),
+        host=namer("_id").rsplit("/", 1)[0],
+        role=role,
+        shard=shard,
+        region=cfg.fabric.region,
+        spool_max=fl.spool_max,
+        batch_max=fl.batch_max,
+        flush_interval=fl.flush_interval,
+        flight_dir=cfg.obs.flight_dir,
+        slo=slo,
+    )
+    shipper.start()
+    stoppables.append(_Stopper(shipper.stop))
+    return shipper
 
 
 def _attach_watchtower(cfg, *, check_quorum: bool, geometry: dict) -> None:
@@ -326,7 +367,7 @@ def _attach_watchtower(cfg, *, check_quorum: bool, geometry: dict) -> None:
 
 
 def _wire_helmsman(cfg, server, stoppables, *, load_census, breaker_census, split,
-                   merge, promote, rebalancer):
+                   merge, promote, rebalancer, source_ages=None, regions=None):
     """The Helmsman autoscaler on a proxy's server with `[helmsman]
     enabled`: SLO, admission and breaker signals from the server, load
     shares from the router, actions onto the reshard controller."""
@@ -339,6 +380,7 @@ def _wire_helmsman(cfg, server, stoppables, *, load_census, breaker_census, spli
         slo_alerts=server.slo.alerts,
         shed_level=(lambda a=admission: a.shed_level if a else 0),
         breaker_census=breaker_census,
+        source_ages=source_ages,
         split=split,
         merge=merge,
         promote=promote,
@@ -350,6 +392,7 @@ def _wire_helmsman(cfg, server, stoppables, *, load_census, breaker_census, spli
             s.heliograph.unreachable_regions()
             if s.heliograph is not None else set()
         )) if cfg.heliograph.enabled else None,
+        regions=regions,
     )
     if admission is not None:
         admission.subscribe(hm.on_admission)
@@ -495,6 +538,11 @@ async def _launch_group(cfg, net, stoppables, flight_dir, ssl_server, ssl_client
                                        jitter=cfg.recovery.anti_entropy_jitter)
             node.antientropy.start()
     stoppables.append(_Stopper(group.stop))
+    if cfg.attacks.enabled and cfg.attacks.type == "stale_tag":
+        # the cross-host audit's regression schedule: this group's replicas
+        # answer reads with properly MAC'd forged stale tags, which only
+        # the collector-fed Watchtower on the proxy can catch
+        arm_stale_tag_forgers(group.replicas)
 
     hub = EpochGossipHub()
     view = RemoteShardManager(smap, secret, hub=hub)
@@ -515,6 +563,7 @@ async def _launch_group(cfg, net, stoppables, flight_dir, ssl_server, ssl_client
     )
     await server.start()
     _identify(cfg, namer, f"group:{gid}", shard=gid)
+    _start_shipper(cfg, net, namer, stoppables, role=f"group:{gid}", shard=gid)
 
     # Heliograph on the group role: a standalone prober of the configured
     # [heliograph] targets (a group process has no REST edge of its own)
@@ -566,6 +615,25 @@ async def _launch_proxy(cfg, net, stoppables, flight_dir, ssl_server, ssl_client
 
     hub = EpochGossipHub()
     slo_engine = SloEngine.from_obs(cfg.obs)
+    # Panopticon: the fleet collector lives with the proxy role; the group
+    # processes' shipped spans stitch onto this process's, and the
+    # federated /fleet/* views serve from here
+    collector = None
+    if cfg.obs.fleet.enabled:
+        collector = FleetCollector(
+            net,
+            secret=_fleet_secret(cfg),
+            host=namer("_id").rsplit("/", 1)[0],
+            role="proxy",
+            region=fab.region,
+            stitch_window=cfg.obs.fleet.stitch_window,
+            staleness=cfg.obs.fleet.staleness,
+            flush_interval=cfg.obs.fleet.flush_interval,
+            slo=slo_engine,
+            # audits off: stitched traces are sunk, not judged against an
+            # unconfigured geometry
+            watchtower=watchtower if cfg.obs.audit_enabled else NullWatchtower(),
+        )
     # Atlas: a proxy homed in a region reads locally from the groups homed
     # there (placement "home": one group process, one region)
     homes = (group_regions(sorted(fab.groups), list(cfg.geo.regions))
@@ -630,6 +698,7 @@ async def _launch_proxy(cfg, net, stoppables, flight_dir, ssl_server, ssl_client
         slo=slo_engine,
         gossip=hub,
         reshard=controller,
+        fleet=collector,
     )
     await server.start()
     _wire_helmsman(cfg, server, stoppables,
@@ -638,12 +707,35 @@ async def _launch_proxy(cfg, net, stoppables, flight_dir, ssl_server, ssl_client
                    split=lambda gid, c=controller: c.split(gid),
                    merge=lambda gid, c=controller: c.merge(gid),
                    promote=lambda gid, c=controller: c.promote(gid),
-                   rebalancer=controller.rebalancer)
+                   rebalancer=controller.rebalancer,
+                   source_ages=collector.source_ages if collector is not None else None,
+                   regions=collector.source_regions if collector is not None else None)
     _identify(cfg, namer, "proxy")
     dep = Deployment(cfg, net, {}, server, None, None, stoppables, flight_dir,
                      ssl_client=ssl_client)
-    # no replica handler spans in this process: the tag, repair and state-
-    # machine audits stay on, the quorum-intersection ones cannot be sound
-    _attach_watchtower(cfg, check_quorum=False, geometry=_audit_geometry(smap))
-    chronoscope.attach(tracer)
+    if collector is None:
+        # no replica handler spans in this process: the tag, repair and
+        # state-machine audits stay on, the quorum-intersection ones cannot
+        # be sound
+        _attach_watchtower(cfg, check_quorum=False, geometry=_audit_geometry(smap))
+        chronoscope.attach(tracer)
+        return dep
+    collector.start()
+    stoppables.append(_Stopper(collector.stop))
+    if cfg.obs.audit_enabled:
+        # the collector replays stitched trace trees (the local proxy spans
+        # and the shipped replica handler spans), so the quorum-
+        # intersection audits are sound here again. The Watchtower is fed
+        # only through the collector, never attached to the tracer: each
+        # trace is audited once, complete
+        watchtower.reset()
+        watchtower.configure(quorum_size=sh.quorum_size,
+                             n_replicas=sh.replicas_per_group,
+                             check_quorum=cfg.obs.audit_quorum_checks,
+                             group_geometry=_audit_geometry(manager.current()))
+    # Chronoscope follows the same once-a-trace rule: fed only through the
+    # collector's stitched replay, so its critical paths include the remote
+    # replica-apply spans
+    chronoscope.detach()
+    collector.profiler = chronoscope
     return dep

@@ -2,14 +2,16 @@
 
 Copy of `dds_tpu/fleet/helmsman.py`: the same decision tick, restraint,
 override, records and series, so one signal sequence on one clock gives
-the same actions, reports and flight records in both packages. In-process
-(`run._launch_constellation`) the `source_ages` feed stays None, as the
-reference's launch leaves it (its source, the fleet collector's
-heartbeats, is a multi-host plane the port does not serve), and with
-`[geo]` the `regions` feed is the groups' home regions, so an injected
-`source_ages` (or a `canary_unreachable` feed with `regions`) reaches
-`_check_liveness`, where a region whose every homed group aged out is
-declared `region_down` and its groups promoted.
+the same actions, reports and flight records in both packages. On a
+Meridian proxy with `[obs.fleet]` (`fabric/deploy`) the `source_ages`
+feed is the Panopticon collector's per-group heartbeat ages and the
+`regions` feed its shipped home regions. In-process
+(`run._launch_constellation`) `source_ages` stays None, as the
+reference's launch leaves it, and with `[geo]` the `regions` feed is the
+groups' home regions, so an injected `source_ages` (or a
+`canary_unreachable` feed with `regions`) reaches `_check_liveness`,
+where a region whose every homed group aged out is declared
+`region_down` and its groups promoted.
 
 The reproduction's dependability story is proactive at the replica level
 (supervisor swaps in sentinent spares) and reactive at the proxy

@@ -162,7 +162,11 @@ flight answers 409 `{"busy"}` with a Retry-After from its phase, and an
 aborted plan 409 `{"aborted"}` with the old map in force. With a Helmsman
 (`fleet/`) as well, `POST /_helmsman {"pin": true|false}` freezes or
 resumes its autoscaling and `/health` carries its report. Both routes are
-exempt from admission, like /health.
+exempt from admission, like /health. With a Panopticon collector
+(`fleet=`, a Meridian proxy with `[obs.fleet]`, `obs/panopticon.py`),
+`GET /fleet/metrics`, `/fleet/slo`, `/fleet/incidents` (`?trace_id=`),
+`/fleet/profile` and `/fleet/canary` serve the federated fleet views,
+exempt from admission too.
 """
 
 from __future__ import annotations
@@ -237,9 +241,8 @@ _RETRYABLE = (ByzantineError, WrongShardError, asyncio.TimeoutError,
               NoTrustedNodesError, OSError)
 
 # observability and operator-control routes bypass admission, so operators
-# can see why the edge sheds, and reshape the fleet, while it sheds (the
-# reference exempts its unported fleet routes too)
-_ADMISSION_EXEMPT = frozenset({"health", "metrics", "slo", "shards", "profile",
+# can see why the edge sheds, and reshape the fleet, while it sheds
+_ADMISSION_EXEMPT = frozenset({"health", "metrics", "slo", "shards", "fleet", "profile",
                                "_trace", "_reshard", "_helmsman", "canary"})
 
 
@@ -359,9 +362,12 @@ class DDSRestServer:
     def __init__(self, abd: AbdClient, config: ProxyConfig | None = None,
                  local_replicas: dict | None = None,
                  slo: SloEngine | None = None, reshard=None, helmsman=None,
-                 gossip=None):
+                 gossip=None, fleet=None):
         self.abd = abd
         self.cfg = config or ProxyConfig()
+        # the Panopticon FleetCollector serving GET /fleet/* (None but on a
+        # fleet-enabled Meridian proxy: the routes 404)
+        self._fleet = fleet
         # Meridian: the EpochGossipHub parked GET /shards long-polls sleep
         # on; a reshard activation wakes them, `stop` releases them
         self._gossip = gossip
@@ -1508,6 +1514,41 @@ class DDSRestServer:
                 if self.heliograph is None:
                     return Response.json({"enabled": False})
                 return Response.json(self.heliograph.report())
+
+            case ("GET", "fleet") if self._fleet is not None and arg:
+                # Panopticon's federation: every fleet process's telemetry,
+                # served from the proxy's collector
+                if arg == "metrics":
+                    # every source's exposition relabelled host/role/shard,
+                    # with each source's age and staleness
+                    self._sample_state_gauges()
+                    self._fleet.sample_gauges()
+                    return Response(
+                        200,
+                        self._fleet.fleet_metrics().encode(),
+                        content_type="text/plain; version=0.0.4; charset=utf-8",
+                    )
+                if arg == "slo":
+                    # per-host reports and the fleet rollup: worst-of and
+                    # sum-of burn per route and window, resident-pool
+                    # pressure per group, shed level per host
+                    return Response.json(self._fleet.fleet_slo())
+                if arg == "incidents":
+                    # shipped flight incidents correlated by trace id, and
+                    # the collector-fed Watchtower's verdicts
+                    tid = req.query.get("trace_id") or None
+                    return Response.json(self._fleet.fleet_incidents(tid))
+                if arg == "profile":
+                    # every host's dds_pipe_* gauges rolled up into the
+                    # fleet-wide bottleneck stage
+                    self._sample_state_gauges()
+                    return Response.json(self._fleet.fleet_profile())
+                if arg == "canary":
+                    # every host's dds_canary_* gauges rolled up into per-
+                    # host verdicts and the fleet-wide worst-of view
+                    self._sample_state_gauges()
+                    return Response.json(self._fleet.fleet_canary())
+                return Response(404)
 
             case ("GET", "profile") if self.cfg.profile_route_enabled:
                 # Chronoscope's per-route, per-stage profile; ?fmt=folded

@@ -1,8 +1,8 @@
 """Trudy and Nemesis: the process- and network-level fault injectors.
 
-Copy of `dds_tpu/malicious/trudy.py` without the stale-tag forger (its
-only caller is the multi-host group process): the attack enum and
-parser; `Trudy`, which either crashes up to `max_faults` random replicas
+Copy of `dds_tpu/malicious/trudy.py`: the attack enum and parser; the
+stale-tag forger (`StaleTagForger`, armed in a Meridian group process by
+`[attacks] type = "stale_tag"` through `arm_stale_tag_forgers`); `Trudy`, which either crashes up to `max_faults` random replicas
 (the endpoint is torn off the transport so it goes silent) or flips them
 to the `byzantine` behaviour through the `Compromise` backdoor — replicas
 honour both only when their deployment enables `[attacks]`; and
@@ -24,9 +24,11 @@ import random
 
 from dds_tpu_torch.core import messages as M
 from dds_tpu_torch.core.chaos import ChaosNet, LinkFaults
+from dds_tpu_torch.core.replica import BFTABDNode
 from dds_tpu_torch.core.transport import Transport
 from dds_tpu_torch.obs.flight import flight
 from dds_tpu_torch.obs.metrics import metrics
+from dds_tpu_torch.utils import sigs
 from dds_tpu_torch.utils.trace import tracer
 
 log = logging.getLogger("dds_torch.trudy")
@@ -51,6 +53,60 @@ def parse_attack(name: str) -> AttackType:
             f"unknown attack type {name!r} "
             "(crash|byzantine|partition|delay|flood|heal)"
         )
+
+
+class StaleTagForger(BFTABDNode):
+    """A compromised coordinator that answers reads with a properly
+    proxy-MAC'd forged stale (tag, value) pair. The client's cryptographic
+    checks all pass (the forger holds the real secret), so the attack is
+    invisible in-band; only auditing the committed tag sequence across the
+    whole trace catches it. `[attacks] type = "stale_tag"` in a Meridian
+    group process arms its replicas with this class (fabric/deploy), and
+    the collector-fed Watchtower on the proxy must emit `tag_monotonicity`
+    and `quorum_intersection` verdicts for the offending trace.
+
+    Writes (and everything else) stay honest, so the committed history the
+    forgery contradicts is real."""
+
+    forged_tag = (1, "forged")
+    forged_value = ["stale"]
+    forging = True
+
+    def _healthy(self, sender, msg):
+        match msg:
+            case M.Envelope(M.IRead(key), nonce, _sig) if self.forging:
+                tag = M.ABDTag(*self.forged_tag)
+                challenge = nonce + self.cfg.nonce_increment
+                sig = sigs.proxy_signature(
+                    self.cfg.proxy_mac_secret, key, challenge,
+                    [self.forged_value, sigs.tag_payload(tag)],
+                )
+                self._send(sender, M.Envelope(
+                    M.IReadReply(key, self.forged_value, tag=tag),
+                    challenge, sig,
+                ))
+            case _:
+                super()._healthy(sender, msg)
+
+
+def arm_stale_tag_forgers(replicas: dict) -> list[str]:
+    """Flip a group's live BFTABDNode instances to StaleTagForger in place
+    (a `__class__` swap: `build_group` has no class hook, and the swap
+    keeps every bit of already-wired state — the transport registration,
+    the Merkle index, the anti-entropy agent). Arms every replica, because
+    a fleet harness cannot steer the coordinator choice through the HTTP
+    edge; reads forge, writes stay honest. Returns the armed names."""
+    armed = []
+    for node in replicas.values():
+        if isinstance(node, BFTABDNode) and type(node) is BFTABDNode:
+            node.__class__ = StaleTagForger
+            armed.append(node.name)
+    if armed:
+        log.warning("stale-tag forgers armed: %s", armed)
+        tracer.event("attack.stale_tag", victims=armed)
+        metrics.inc("dds_attacks_total", type="stale_tag",
+                    help="Trudy/Nemesis attacks triggered by type")
+    return armed
 
 
 class Trudy:

@@ -1,7 +1,10 @@
 """Observability of the port: trace context, metrics, kernel profiling,
 the flight recorder, the SLO engine, the Watchtower, Chronoscope, the
-kernel sentry (`obs.sentry`) and Heliograph's active canary
-(`obs.heliograph`).
+kernel sentry (`obs.sentry`), Heliograph's active canary
+(`obs.heliograph`) and Panopticon, the fleet-wide plane
+(`obs.panopticon`: cross-host span shipping, the proxy's collector that
+stitches and audits, federated metrics, SLO, profile and canary views,
+incident correlation).
 
 Only the leaf modules load eagerly; the rest resolve on first access
 (PEP 562), as in the reference, so the import graph stays acyclic and
@@ -13,10 +16,11 @@ from dds_tpu_torch.obs.metrics import Registry, metrics  # noqa: F401
 
 __all__ = [
     "context", "metrics", "Registry", "flight", "kprof", "watchtower", "slo",
-    "sentry", "chronoscope", "heliograph",
+    "sentry", "chronoscope", "heliograph", "panopticon",
 ]
 
-_LAZY = ("flight", "kprof", "watchtower", "slo", "sentry", "chronoscope", "heliograph")
+_LAZY = ("flight", "kprof", "watchtower", "slo", "sentry", "chronoscope", "heliograph",
+         "panopticon")
 
 
 def __getattr__(name):

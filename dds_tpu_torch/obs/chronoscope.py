@@ -19,8 +19,8 @@ to `ingest_tree`) and, per trace:
 
 With tenancy the REST edge also feeds every served request's wall time
 to `note_usage`, a bounded per-tenant ledger (`tenant_usage`). `profile`
-is the reference's `GET /profile` body (the route itself is not ported);
-`export_gauges` publishes the `dds_pipe_*` and `dds_tenant_usage_*`
+is the `GET /profile` body, `ingest_tree` Panopticon's collector feed
+(a stitched cross-host trace, analyzed whole); `export_gauges` publishes the `dds_pipe_*` and `dds_tenant_usage_*`
 gauges. `launch` attaches the process-wide `chronoscope` to the tracer
 and `Deployment.stop` detaches and resets it; `DDS_OBS_PIPE=0` keeps it
 dormant.

@@ -1,7 +1,8 @@
 """Heliograph: the active canary plane — synthetic probes that decrypt.
 
 Copy of `dds_tpu/obs/heliograph.py`. Helmsman reads
-`unreachable_regions()` (the port has no Panopticon yet); the prober's
+`unreachable_regions()`, Panopticon's `fleet_canary` the ledger's
+`dds_canary_*` gauges; the prober's
 `ssl_context` reaches targets that serve HTTPS.
 `stop()` is a coroutine here: it cancels the prober's task and awaits it,
 for the proxy's `stop`.

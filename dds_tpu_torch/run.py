@@ -43,12 +43,8 @@ configured for this topology (quorum `byz-quorum-size`, the endpoints less
 the spares, quorum checks as `audit-quorum-checks` says, every replica
 being local) and attached to the tracer last, then Chronoscope (always,
 as the reference's single-process launch does; `DDS_OBS_PIPE=0` keeps it
-dormant); `Deployment.stop` detaches both and resets Chronoscope. A config
-that enables a plane the port does not serve (`unported_plane`) is refused
-with `NotImplementedError` naming it, so every file in `configs/` parses
-but none boots without what it asks for; `configs/default.toml`,
-`configs/tenancy.toml`, `configs/heliograph.toml`, `configs/sharded.toml`,
-`configs/stratum.toml` and `configs/geo/wan_soak.toml` boot. `[shard]
+dormant); `Deployment.stop` detaches both and resets Chronoscope. Every
+file in `configs/` boots as written. `[shard]
 enabled` boots a Constellation (`_launch_constellation`, `shard/`):
 `count` quorum groups of
 `replicas-per-group` replicas and `sentinent-per-group` spares, each with
@@ -107,9 +103,12 @@ Redeploy; `mint_node_keys` (`--mint-node-keys`) provisions the identities.
 `[fabric] role` (`--role` overrides it) the process hosts the whole
 constellation, one quorum group with its agent and `GET /shards` status
 listener, or a proxy that bootstraps the signed map from the groups and
-drives cross-host splits; a group process runs no workload.
-`[obs.fleet]` is refused (configs/multihost/ and the TCP files of
-configs/geo/ boot with it off).
+drives cross-host splits; a group process runs no workload. `[obs.fleet]
+enabled` is Panopticon (`obs/panopticon.py`): each group process ships its
+span trees, incidents and metrics to the proxy's collector, which stitches
+them into the proxy's traces for the Watchtower and Chronoscope and serves
+`GET /fleet/*`; `[attacks] type = "stale_tag"` arms a group process's
+replicas as stale-tag forgers.
 
 Run the deployment and a generated workload, print each client's report,
 and with --serve keep serving until interrupted (on a host without a card,
@@ -135,8 +134,8 @@ reference's flag does):
 where my_chaos.toml sets `[attacks] enabled = true`, `chaos-enabled =
 true`, `type = "partition"` and `[proxy] stored-keys-path =
 "keys/proxy_keys.json"`, host_a.toml and host_b.toml are DEPLOY.md §2's,
-group0.toml and proxy.toml are configs/multihost/'s with `[obs.fleet]
-enabled = false` (and group1.toml and standby2.toml started the same way),
+group0.toml and proxy.toml are configs/multihost/'s (and group1.toml and
+standby2.toml started the same way),
 and my_reshard.toml is configs/sharded.toml with
 `[fabric] admin-routes = true`, `[shard] plan-dir = "reshard"` and
 `[helmsman] enabled = true` (then `POST /_reshard {"action": "split",
@@ -148,13 +147,10 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
-import os
 import pathlib
 import random
-import time
 from dataclasses import dataclass, field
 
-from dds_tpu_torch import __version__
 from dds_tpu_torch.clt.client import ClientConfig, DDSHttpClient
 from dds_tpu_torch.clt.generator import generate
 from dds_tpu_torch.clt.instructions import Digest
@@ -175,6 +171,7 @@ from dds_tpu_torch.models.keys import HEKeys
 from dds_tpu_torch.obs.chronoscope import chronoscope
 from dds_tpu_torch.obs.flight import flight
 from dds_tpu_torch.obs.metrics import metrics
+from dds_tpu_torch.obs.panopticon import process_info
 from dds_tpu_torch.obs.slo import SloEngine
 from dds_tpu_torch.obs.watchtower import watchtower
 from dds_tpu_torch.ops.flags import secret_device
@@ -186,7 +183,6 @@ from dds_tpu_torch.utils.sigs import generate_nonce
 from dds_tpu_torch.utils.tasks import supervised_task
 from dds_tpu_torch.utils.trace import tracer
 
-_START_TS = time.time()  # the process's boot stamp on dds_process_info
 log = logging.getLogger("dds_torch.run")
 
 SUPERVISOR_NAME = "supervisor"
@@ -239,20 +235,6 @@ class Deployment:
             # so a later deployment (or test) never files into this one's
             # directory
             flight.configure(dir=self._flight_dir or "")
-
-
-def unported_plane(cfg: DDSConfig) -> str | None:
-    """The first plane `cfg` enables that the port does not serve, or
-    None: fleet observability (Panopticon), then the stale-tag forgers of
-    `[attacks] type = "stale_tag"`, which only Panopticon's collector-fed
-    audit can catch."""
-    checks = (
-        (cfg.obs.fleet.enabled, "[obs.fleet] enabled: fleet observability"),
-        (cfg.attacks.enabled and cfg.attacks.type == "stale_tag",
-         '[attacks] type = "stale_tag": the stale-tag forgers, which only fleet '
-         "observability's audit catches"),
-    )
-    return next((name for on, name in checks if on), None)
 
 
 def tls_contexts(cfg: DDSConfig) -> tuple:
@@ -316,21 +298,14 @@ async def start_tcp(cfg: DDSConfig, ssl_server, ssl_client) -> TcpNet:
 
 async def launch(cfg: DDSConfig | None = None) -> Deployment:
     """Boot the deployment `cfg` describes (the defaults without one) and
-    return it serving; `Deployment.stop` takes it down. A config that
-    enables a plane the port does not serve is refused first
-    (`unported_plane`). Then, with `[fabric] region` set, that region's
+    return it serving; `Deployment.stop` takes it down. With `[fabric]
+    region` set, that region's
     `[retry.profiles]` overrides land on `cfg.proxy` before anything reads
     it, as in the reference. The rest boots as configured: the memory
     or TCP transport (under ChaosNet with `[attacks] chaos-enabled`), this
     process's replicas, its supervisor and node agent and the proxy, or the
     Constellation with `[shard]`."""
     cfg = cfg or DDSConfig()
-    plane = unported_plane(cfg)
-    if plane is not None:
-        raise NotImplementedError(
-            f"{plane} is not ported to dds_tpu_torch; the config enables it, "
-            "so the deployment is refused rather than served without it"
-        )
     if cfg.fabric.region:
         # [retry]: the per-region deadline and backoff overrides for this
         # process's region land on the effective [proxy] settings, so every
@@ -641,12 +616,7 @@ def publish_identity(cfg: DDSConfig, role: str, host: str = "local",
     if cfg.fabric.region:
         identity["region"] = cfg.fabric.region
     flight.configure(identity=identity)
-    metrics.set(
-        "dds_process_info", 1.0,
-        role=role, shard=shard or "-", region=cfg.fabric.region or "-",
-        pid=str(os.getpid()), start_ts=f"{_START_TS:.3f}", version=__version__,
-        help="process identity (value is always 1; the labels carry it)",
-    )
+    process_info(role=role, shard=shard, region=cfg.fabric.region)
 
 
 def proxy_config(cfg: DDSConfig, supervisor: str, ssl_server=None,

@@ -28,8 +28,9 @@ chunked streaming, >= f+1 distinct-signer attestation):
    unmoved keys see zero disruption. If the controller dies here, the lease
    expires and every participant heals back to the committed map on its
    own — no group is ever fenced forever.
-3. **attest** — collect a quorum of HMAC-signed state manifests from the
-   source group (the same frames recovery uses). Fewer than `support`
+3. **attest** — collect the HMAC-signed state manifests of every active
+   source replica, within the manifest timeout (the same frames recovery
+   uses; the reference waits for a quorum's). Fewer than `support`
    (= f+1) attestations aborts: an unverifiable migration never ships.
 4. **stream** — export the moving keys from the best-attested source
    replica (data, not truth) and stream ShardMigrateBegin + bounded
@@ -45,7 +46,10 @@ chunked streaming, >= f+1 distinct-signer attestation):
    WITHOUT a lease (the fencing point of no return, acked; failure still
    aborts safely), then the router's ShardManager adopts the new map,
    the source group prunes its moved keys, and the receivers' own Merkle
-   anti-entropy loops repair any replica that missed chunks.
+   anti-entropy loops repair any replica that missed chunks. A moving key
+   a signer listed that no f + 1 attest was not migrated; then the source
+   keeps its unowned keys (the reference prunes them, and the key is lost
+   in both groups, ROADMAP §C 24).
 
 Any failure before commit rolls the fencing state back to the old map
 (force install — and any participant the rollback cannot reach heals
@@ -399,8 +403,12 @@ class Rebalancer:
     async def _migrate(self, kind: str, source, targets, old_map,
                        new_map, support: int) -> int:
         self._enter("attest")
+        # every active's manifest, not the first quorum's: a key that an
+        # earlier reseed left a hole of on some replicas is attested by
+        # f + 1 of them all where a quorum's may hold one copy (ROADMAP
+        # §C 24)
         votes = await self._collect_manifests(source.active,
-                                              source.quorum_size)
+                                              len(source.active))
         if len(votes) < support:
             await self._abort(
                 kind, source, targets, old_map,
@@ -419,6 +427,13 @@ class Rebalancer:
         moving = {
             k: v for k, v in verified.items()
             if old_map.owner(k) == source.gid
+            and new_map.owner(k) in receiver_gids
+        }
+        # moving keys a signer holds in no version f + 1 attest: not
+        # migrated, so the prune must not drop them at the source either
+        unmigrated = {
+            k for d in votes.values() for k in d.manifest
+            if k not in moving and old_map.owner(k) == source.gid
             and new_map.owner(k) in receiver_gids
         }
 
@@ -525,7 +540,19 @@ class Rebalancer:
                          "resharding (the BTS cost model's currency)")
         if self.on_activate is not None:
             await _maybe_await(self.on_activate(new_map))
-        if self.prune:
+        if self.prune and unmigrated:
+            # the source keeps every key it no longer owns until a later
+            # prune: dropped, a key the attest did not migrate is lost in
+            # both groups (ROADMAP §C 24)
+            log.warning("%s: %s keeps its unowned keys unpruned, %d of them "
+                        "not migrated (no f + 1 attestation): %s", kind,
+                        source.gid, len(unmigrated), sorted(unmigrated)[:8])
+            tracer.event("shard.prune_held", source=source.gid,
+                         unmigrated=len(unmigrated))
+            metrics.inc("dds_reshard_prune_held_total",
+                        help="source prunes held back for keys the attest "
+                             "did not migrate")
+        elif self.prune:
             dropped = await _maybe_await(source.prune_unowned())
             tracer.event("shard.pruned", source=source.gid, dropped=dropped)
         log.info(

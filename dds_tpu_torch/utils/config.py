@@ -1,12 +1,8 @@
 """Typed configuration: one dataclass tree, loadable from TOML or JSON.
 
 Copy of `dds_tpu/utils/config.py`: every section, key and default of the
-reference, so every file in `configs/` parses here as it does there. A
-section parses whether or not its plane is ported; `run.launch` refuses
-to boot a config that enables a plane the port does not serve, naming it
-(the multi-host fabric, the fleet observability plane, TCP, TLS and node
-identity, listed there), so nothing
-runs without a plane its config asks for. `[client]
+reference, so every file in `configs/` parses here as it does there, and
+`run.launch` boots each of them as written. `[client]
 failed-contact-attempts-threshold` is read by no client, so any value but
 the reference's default raises at parse.
 
@@ -239,7 +235,7 @@ class ClientSettings:
 
 @dataclass
 class FleetObsConfig:
-    """Panopticon fleet observability plane (the reference's obs/panopticon; not ported):
+    """Panopticon fleet observability plane (dds_tpu_torch/obs/panopticon):
     every non-proxy Meridian process ships completed span trees, flight
     incidents, and metric/SLO snapshots to the proxy-role collector over
     the existing TcpNet fabric; the collector stitches cross-host traces
@@ -598,8 +594,8 @@ class FabricConfig:
     role: str = "all"
     groups: dict = field(default_factory=dict)    # gid -> "host:port"
     # Atlas (dds_tpu_torch/geo): the region THIS process runs in. Surfaces as
-    # the `region` label on /health and /metrics (and the reference's
-    # Panopticon federation),
+    # the `region` label on /health and /metrics (and Panopticon's
+    # federation),
     # homes this process's proxy for read-local leases, and keys the
     # [retry] per-region overrides. Empty = geo-unaware.
     region: str = ""

@@ -191,11 +191,13 @@ def test_corrupt_fault_mutates_or_drops_never_passes_verbatim_twin():
 
 def test_an_undecodable_corruption_degrades_to_a_drop():
     """A flip inside the class name (here the R of ReadTag) leaves a name
-    no package decodes, as does a class the port lacks: both drop."""
+    no package decodes, as does a class neither package has: both drop."""
     ref = importlib.import_module("dds_tpu.core.messages")
     port = importlib.import_module("dds_tpu_torch.core.messages")
-    with pytest.raises(KeyError):
-        port.loads(ref.dumps(ref.TelemetryAck(1, True)))
+    unknown = ref.dumps(ref.TelemetryAck(1, True)).replace(b"TelemetryAck", b"TelemetryAcq")
+    for pkg in (ref, port):
+        with pytest.raises(KeyError):
+            pkg.loads(unknown)
 
     async def go(pkg):
         m = mods(pkg)
@@ -589,6 +591,11 @@ def one_of_each(M) -> list:
         M.ShardExportRequest("h:1/s1-replica-0", 40),
         M.ShardExport(41, {"k": {"tag": [1, "r"], "value": ["v"]}}),
         M.ShardPruneRequest(42), M.ShardPruned(43, 3),
+        M.TelemetryBatch("h:1", "group:s0", "s0", 44, 1.5,
+                         [[{"ts": 1.0, "name": "replica.handle", "meta": {"__msg__": "IRead"}}]],
+                         [{"trace_id": "aa", "reason": "audit"}], "dds_up 1\n",
+                         {"routes": {}}, 2, sig, region="eu"),
+        M.TelemetryAck(45, False, "bad mac"),
     ]
 
 

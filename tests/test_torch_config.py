@@ -5,27 +5,25 @@ Both packages load each TOML file. Every key the file sets must read the
 same value in both trees; every other field must equal the reference's
 default, except the port's documented divergences (`DIVERGENCES`, the
 module docstring of `dds_tpu_torch/utils/config.py`) and the fields only
-the port has (`PORT_ONLY`). `launch` on each file either boots and stops
-(`configs/default.toml`, `configs/tenancy.toml`, `configs/heliograph.toml`,
-`configs/sharded.toml` and `configs/stratum.toml`: every plane they enable
-is ported) or refuses
-with `NotImplementedError` naming the first plane the port does not
-serve, never with an unknown-key error; each refusal is checked on its
-own. The planes ported since (recovery, anti-entropy, spares, snapshots,
+the port has (`PORT_ONLY`). `launch` accepts every file: it boots and
+stops on the CPU, the multi-process files of `configs/multihost/` and
+`configs/geo/` a role at a time with their hosts and ports rewritten to
+loopback. The planes ported since (recovery, anti-entropy, spares, snapshots,
 Trudy's attacks, /metrics, the flight recorder, admission, the obs audit,
 the SLO engine, tenancy, Heliograph's prober, /_trace, sharding, ChaosNet
 with Nemesis and its partition attack, key sync, the stored-keys
 snapshot, live resharding under `[shard]` with `[fabric] admin-routes`
 (POST /_reshard) and `[shard] plan-dir` (a journaled reshard plan),
 Helmsman with `[shard]` and, as in the reference, without it, where it
-boots no controller) each launch and stop cleanly, the prober's and
+boots no controller, `[obs.fleet]` and the stale-tag forgers, which a
+single-process launch leaves unwired, as the reference's does) each launch and stop cleanly, the prober's and
 Helmsman's tasks cancelled and awaited with the rest, and
 `DDSConfig()` with `[search] enabled` boots, as does `[crypto] secret-device` (Sanctum), whose provider
 decrypts through its device plan. `default.toml` boots with Bulwark, the
 SLO engine and the Watchtower armed as the file says, and the CLI's
 `--device cpu --backend cpu` launches it; `tenancy.toml` boots with
 Bastion's weights, 403s and `/health` section, and so does its CLI.
-`[chaos.profiles]` (geo's WAN matrices) is refused by name.
+`[chaos.profiles]` (geo's WAN matrices) boots with its ChaosNet.
 """
 
 import asyncio
@@ -40,7 +38,7 @@ from dds_tpu.utils.config import DDSConfig as RefConfig
 from dds_tpu_torch.core.chaos import ChaosNet
 from dds_tpu_torch.core.transport import TcpNet
 from dds_tpu_torch.malicious.trudy import Nemesis
-from dds_tpu_torch.run import launch, unported_plane
+from dds_tpu_torch.run import launch
 from dds_tpu_torch.utils.config import DDSConfig, SearchConfig
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -62,12 +60,21 @@ DIVERGENCES = {
 # fields the reference does not have
 PORT_ONLY = {"proxy.device": "cuda", "proxy.min_device_batch": None,
              "client.device": "cuda"}
-# the plane each top-level file's launch names first (every top-level
-# file launches now)
-FIRST_PLANE = {}
-# the files whose every enabled plane is ported: they boot
-LAUNCHES = {"configs/default.toml", "configs/tenancy.toml", "configs/heliograph.toml",
-            "configs/sharded.toml", "configs/stratum.toml", "configs/geo/wan_soak.toml"}
+# the files of one multi-process fleet each (their addresses name each
+# other): they launch a role at a time, rewritten to loopback
+FLEETS = {"configs/multihost": ["group0", "group1", "standby2", "proxy"],
+          "configs/geo": ["group0_eu", "group1_us", "group2_ap", "proxy_eu"]}
+
+
+def launch_accepts(cfg) -> bool:
+    """`launch` boots `cfg` and the deployment stops: what the refusal of
+    an unported plane used to decide."""
+    async def boot():
+        dep = await launch(cfg)
+        await dep.stop()
+
+    asyncio.run(asyncio.wait_for(boot(), 60))
+    return True
 
 
 def flat(obj, prefix: str = "") -> dict:
@@ -122,32 +129,30 @@ def test_defaults_equal_the_reference_except_the_divergences():
             assert port[p] == v, p
     assert DDSConfig().search == SearchConfig()
     assert dataclasses.asdict(DDSConfig().search) == dataclasses.asdict(RefConfig().search)
-    assert unported_plane(DDSConfig()) is None
+    cfg = DDSConfig()
+    cfg.proxy.device = "cpu"
+    assert launch_accepts(cfg)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_launch_refuses_each_config_naming_a_plane(name, tmp_path):
-    """Each file refuses naming its first unported plane, except the ones
-    in LAUNCHES, which boot and stop on the CPU."""
-    cfg = DDSConfig.load(ROOT / name)
+    """`launch` refuses no file: each boots and stops on the CPU as
+    written, a file of a multi-process fleet with every host and port
+    rewritten to loopback (its peers absent) and its keys file under the
+    test's directory."""
+    directory, stem = name.rsplit("/", 1)
+    stem = stem.removesuffix(".toml")
+    if stem in FLEETS.get(directory, ()):
+        from tests.test_torch_meridian_mixed import loopback_fleet
+
+        cfg = loopback_fleet(FLEETS[directory], directory, tmp_path)[stem]
+        assert cfg.obs.fleet.enabled
+    else:
+        cfg = DDSConfig.load(ROOT / name)
     cfg.proxy.device = "cpu"
     cfg.proxy.port = 0  # tenancy.toml's 8080 may be taken on the test host
     cfg.storage.dir = str(tmp_path / "stratum")  # stratum.toml's "./stratum"
-    if name in LAUNCHES:
-        assert unported_plane(cfg) is None
-
-        async def boot():
-            dep = await launch(cfg)
-            await dep.stop()
-
-        asyncio.run(asyncio.wait_for(boot(), 60))
-        return
-    with pytest.raises(NotImplementedError) as err:
-        asyncio.run(launch(cfg))
-    msg = str(err.value)
-    assert "not ported" in msg and "unknown config key" not in msg
-    if name in FIRST_PLANE:
-        assert FIRST_PLANE[name] in msg, msg
+    assert launch_accepts(cfg)
 
 
 # (plane, section, refused): the index of each case is its id's suffix
@@ -170,7 +175,7 @@ PLANES = [
     ("SLO engine", {"obs": {"slo-route": True}}, False),
     ("/_trace", {"obs": {"trace-route": True}}, False),
     ("flight recorder", {"obs": {"flight-dir": "incidents"}}, False),
-    ("fleet observability", {"obs": {"fleet": {"enabled": True}}}, True),
+    ("fleet observability", {"obs": {"fleet": {"enabled": True}}}, False),
     ("TCP transport", {"transport": {"kind": "tcp", "port": 0}}, False),
     ("multi-host", {"replicas": {"addresses": {"replica-0": "h:1"}}}, False),
     ("TLS", {"security": {"tls-enabled": True}}, False),
@@ -187,21 +192,10 @@ PLANES = [
     ("helmsman unsharded", {"helmsman": {"enabled": True}}, False),
     ("Meridian", {"shard": {"enabled": True}, "transport": {"kind": "tcp", "port": 0}},
      False),
-    ("stale-tag forgers", {"attacks": {"enabled": True, "type": "stale_tag"}}, True),
+    ("stale-tag forgers", {"attacks": {"enabled": True, "type": "stale_tag"}}, False),
 ]
 IDS = [f"{p}-{i}" for i, (p, _, _) in enumerate(PLANES)]
-REFUSALS = [(p, sec) for p, sec, refused in PLANES if refused]
 PORTED = [(p, sec) for p, sec, refused in PLANES if not refused]
-
-
-@pytest.mark.parametrize("plane,section", REFUSALS,
-                         ids=[i for i, (_, _, r) in zip(IDS, PLANES) if r])
-def test_each_unported_plane_is_refused_by_name(plane, section, monkeypatch):
-    monkeypatch.delenv("DDS_SECRET_DEVICE", raising=False)
-    cfg = DDSConfig.from_dict({"proxy": {"device": "cpu"}, **section})
-    assert plane in unported_plane(cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        asyncio.run(launch(cfg))
 
 
 @pytest.mark.parametrize("plane,section", PORTED,
@@ -219,7 +213,6 @@ def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
     monkeypatch.delenv("DDS_SECRET_DEVICE", raising=False)
     monkeypatch.chdir(tmp_path)
     cfg = DDSConfig.from_dict({"proxy": {"device": "cpu"}, **section})
-    assert unported_plane(cfg) is None
     before = flight.dir
 
     async def boot():
@@ -306,6 +299,13 @@ def test_each_ported_plane_launches_and_stops(plane, section, monkeypatch,
                 # a [fabric] role without [shard] over TCP is the single-group
                 # launch, as in the reference
                 assert dep.constellation is None
+            if plane == "fleet observability":
+                # the plane lives in Meridian's roles; a single-process
+                # launch has no collector, as in the reference
+                assert dep.server._fleet is None
+            if plane == "stale-tag forgers":
+                # only a Meridian group process arms its replicas
+                assert all(type(n).__name__ == "BFTABDNode" for n in dep.replicas.values())
             if plane == "plan-dir":
                 journal = dep.constellation.rebalancer.journal
                 assert journal.path == pathlib.Path("plans", "reshard_plan.json")
@@ -461,7 +461,6 @@ def test_a_secret_device_config_launches_and_its_provider_decrypts(monkeypatch):
                                "proxy": {"device": "cpu"},
                                "client": {"device": "cpu", "paillier-bits": 512,
                                           "rsa-bits": 512}})
-    assert unported_plane(cfg) is None
 
     async def boot():
         dep = await launch(cfg)

@@ -13,7 +13,7 @@ the quorum gate's decisions, the read-local single hop, lease safety, the
 holder-death stall bound, the Watchtower's three lease verdicts,
 Helmsman's `region_down` takeover, placement modes, the region-preferring
 standby, the seeded anti-entropy pairing and the sentry's geo records.
-Then `configs/geo/wan_soak.toml`: the port serves it (`unported_plane`),
+Then `configs/geo/wan_soak.toml`: the port's `launch` accepts it,
 and both packages launch it on `cpu` with the same region census, signed
 map wire dict and SumAll answer; `convert.shardmap_*` carries a signed,
 labelled map across both ways; and a short port-only region-death drill.
@@ -854,11 +854,11 @@ def wan_soak(pkg):
 
 
 def test_wan_soak_toml_is_a_plane_the_port_serves():
-    from dds_tpu_torch.run import unported_plane
+    from tests.test_torch_config import launch_accepts
 
     cfg = wan_soak("dds_tpu_torch")
     assert cfg.geo.enabled and cfg.chaos.profiles and cfg.attacks.chaos_enabled
-    assert unported_plane(cfg) is None
+    assert launch_accepts(cfg)
 
 
 def test_wan_soak_toml_launches_in_both_with_the_same_census_map_and_sumall():

@@ -13,12 +13,14 @@ proxy drives port groups:
   at S = 3;
 - the reverse, a reference proxy over port groups, bootstraps and folds
   one SumAll equal to the host product;
-- `unported_plane` names only `[obs.fleet]` for each of the four
-  `configs/multihost/` files and the four TCP files of `configs/geo/`;
-  with it off (and the files' hosts and ports rewritten to loopback),
-  each role launches on the port, and the geo fleet (`group{0_eu,1_us,
-  2_ap}` and `proxy_eu`) serves a SumAll and a GetSet read locally
-  through the eu group's read lease.
+- `launch` accepts each of the four `configs/multihost/` files and the
+  four TCP files of `configs/geo/` as written, `[obs.fleet]` on (only
+  the hosts and ports rewritten to loopback, the collector's too, and the
+  proxy folding on the host): a group role starts its span shipper, the
+  proxy its collector, whose `GET /fleet/*` answer; and both fleets,
+  every role in one loop, serve a SumAll, the geo fleet (`group{0_eu,
+  1_us,2_ap}` and `proxy_eu`) a GetSet read locally through the eu
+  group's read lease.
 """
 
 import asyncio
@@ -148,17 +150,48 @@ def test_reference_proxy_bootstraps_port_groups_and_folds(key):
 
 @pytest.mark.parametrize("path", [f"configs/multihost/{n}.toml" for n in MULTIHOST]
                          + [f"configs/geo/{n}.toml" for n in GEO])
-def test_unported_plane_names_only_fleet_observability(path):
-    cfg = mod("dds_tpu_torch", "utils.config").DDSConfig.load(ROOT / path)
-    run = mod("dds_tpu_torch", "run")
-    assert run.unported_plane(cfg) == "[obs.fleet] enabled: fleet observability"
-    cfg.obs.fleet.enabled = False
-    assert run.unported_plane(cfg) is None
+def test_unported_plane_names_only_fleet_observability(path, tmp_path):
+    """`launch` accepts the file as written, its fleet plane on: a group
+    role registers its span shipper at its transport, the proxy serves
+    its collector's `GET /fleet/*`; the stop unregisters both."""
+    directory, name = path.rsplit("/", 1)
+    name = name.removesuffix(".toml")
+    cfg = loopback_fleet(MULTIHOST if "multihost" in directory else GEO, directory,
+                         tmp_path)[name]
+    assert cfg.obs.fleet.enabled
+    pan = mod("dds_tpu_torch", "obs.panopticon")
+
+    async def go():
+        dep = await mod("dds_tpu_torch", "run").launch(cfg)
+        try:
+            net = dep.net
+            shipper = net.local_addr(pan.SHIPPER_ENDPOINT)
+            collector = net.local_addr(pan.COLLECTOR_ENDPOINT)
+            seen = (net.has_endpoint(shipper), net.has_endpoint(collector))
+            routes = []
+            if dep.cfg.fabric.role == "proxy":
+                assert isinstance(dep.server._fleet, pan.FleetCollector)
+                for arg in ("metrics", "slo", "incidents", "profile", "canary"):
+                    st, _, _ = await request("dds_tpu_torch", dep.server.cfg.port, "GET",
+                                             f"/fleet/{arg}")
+                    routes.append(st)
+        finally:
+            await dep.stop()
+        return dep.cfg.fabric.role, seen, routes, (net.has_endpoint(shipper),
+                                                   net.has_endpoint(collector))
+
+    role, seen, routes, after = asyncio.run(asyncio.wait_for(go(), 60.0))
+    if role == "proxy":
+        assert seen == (False, True) and routes == [200] * 5
+    else:
+        assert seen == (True, False)
+    assert after == (False, False)
 
 
 def loopback_fleet(names: list[str], directory: str, tmp_path) -> dict:
-    """The files' configs with `[obs.fleet]` off, every host 127.0.0.1 and
-    every port a free one, folding on the host: name -> DDSConfig."""
+    """The files' configs with every host 127.0.0.1 and every port a free
+    one (the collector's address among them), folding on the host:
+    name -> DDSConfig."""
     DDSConfig = mod("dds_tpu_torch", "utils.config").DDSConfig
     cfgs = {n: DDSConfig.load(ROOT / directory / f"{n}.toml") for n in names}
     t_ports = {n: free_port() for n in names}
@@ -170,17 +203,16 @@ def loopback_fleet(names: list[str], directory: str, tmp_path) -> dict:
             addr[f"{cfg.fabric.status_host}:{cfg.fabric.status_port}"] = \
                 f"127.0.0.1:{s_ports[n]}"
     for n, cfg in cfgs.items():
-        cfg.obs.fleet.enabled = False
         cfg.transport.host, cfg.transport.port = "127.0.0.1", t_ports[n]
         if cfg.fabric.status_port:
             cfg.fabric.status_host, cfg.fabric.status_port = "127.0.0.1", s_ports[n]
         cfg.fabric.groups = {g: addr[hp] for g, hp in cfg.fabric.groups.items()}
         cfg.fabric.bootstrap = [addr[hp] for hp in cfg.fabric.bootstrap]
-        cfg.fabric.gossip_wait = 2.0
+        if cfg.obs.fleet.collector:
+            cfg.obs.fleet.collector = addr[cfg.obs.fleet.collector]
         cfg.proxy.host, cfg.proxy.port = "127.0.0.1", 0
         cfg.proxy.crypto_backend, cfg.proxy.device = "cpu", "cpu"
         cfg.proxy.stored_keys_path = str(tmp_path / f"{n}_keys.json")
-        cfg.recovery.enabled = False
     return cfgs
 
 
@@ -194,6 +226,9 @@ def test_each_role_of_the_fleet_files_launches_and_serves(directory, names, key,
     async def go():
         run = mod("dds_tpu_torch", "run")
         cfgs = loopback_fleet(names, directory, tmp_path)
+        for cfg in cfgs.values():
+            cfg.fabric.gossip_wait = 2.0
+            cfg.recovery.enabled = False
         deps = {}
         try:
             for n in names:

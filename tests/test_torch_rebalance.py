@@ -510,3 +510,56 @@ def test_owner_memo_regroups_by_the_new_owners_in_the_port_and_keeps_the_old_in_
     # the same integer from both packages, SumAll for SumAll
     assert [o[4] for o in ref if o[0] != "pairs survived"] == \
         [o[4] for o in port if o[0] != "pairs survived"]
+
+
+def test_a_key_with_holes_on_the_source_is_migrated_by_the_port_and_lost_by_the_reference():
+    """ROADMAP §C 24, repaired in the port only. Before a split of s1, two
+    of its four replicas lack a moving key K (holes an earlier reseed
+    left) and three lack another, J (one copy left); replica-3, which
+    holds both, answers the rebalancer 0.3 s late (ChaosNet delay). The
+    reference's attest takes the first quorum's manifests (replicas 0-2),
+    where one signer holds K, so K is not migrated, and the prune then
+    drops it at s1: a write acknowledged before the split reads as
+    absent. The port waits for every active's manifest, where two signers
+    (f + 1) attest K, and migrates it; J, which no f + 1 attest, it does
+    not migrate, and it holds the prune back so the source keeps J."""
+    async def go(pkg):
+        chaos = mod(pkg, "core.chaos")
+        net = chaos.ChaosNet(mod(pkg, "core.transport").InMemoryNet(), seed=24)
+        const, _ = constellation(pkg, net=net, seed=5)
+        try:
+            old = const.manager.current()
+            new = old.split("s1", "s2")
+            k, j = [key for key in (f"M{i}" for i in range(256))
+                    if old.owner(key) == "s1" and new.owner(key) == "s2"][:2]
+            for key in (k, j):
+                await const.router.write_set(key, [key, "acked"])
+            src = const.group("s1")
+            for i, key in ((0, k), (1, k), (0, j), (1, j), (2, j)):
+                node = src.replicas[f"s1-replica-{i}"]
+                node._install_repository({x: v for x, v in node.repository.items() if x != key})
+            net.set_pair("s1-replica-3", "rebalancer", chaos.LinkFaults(delay=0.3))
+            await const.split("s1")
+            net.heal_all()
+
+            def holders(group, key):
+                return sorted(a for a, n in const.group(group).replicas.items()
+                              if n.repository.get(key, (None, None))[1] is not None)
+
+            return {"epoch": const.manager.current().epoch,
+                    "moved": const.rebalancer.last_moved_keys,
+                    "read": [await const.router.fetch_set(key) for key in (k, j)],
+                    "s1": [holders("s1", key) for key in (k, j)],
+                    "s2": [holders("s2", key) for key in (k, j)], "k": k}
+        finally:
+            net.heal_all()
+            await const.stop()
+
+    ref = asyncio.run(asyncio.wait_for(go("dds_tpu"), BOUND))
+    port = asyncio.run(asyncio.wait_for(go("dds_tpu_torch"), BOUND))
+    all4 = [f"s2-replica-{i}" for i in range(4)]
+    assert ref == {"epoch": 2, "moved": 0, "read": [None, None], "s1": [[], []],
+                   "s2": [[], []], "k": ref["k"]}
+    assert port == {"epoch": 2, "moved": 1, "read": [[port["k"], "acked"], None],
+                    "s1": [["s1-replica-2", "s1-replica-3"], ["s1-replica-3"]],
+                    "s2": [all4, []], "k": port["k"]}

@@ -458,6 +458,24 @@ def twins(fn):
     return out["dds_tpu_torch"]
 
 
+def both(fn) -> dict:
+    """Run the scenario `fn(cluster)` in both packages, settling the
+    fabric and the reseed's hole fill (ROADMAP §C 23) after it: pkg ->
+    (result, every replica's repository). For the cases where the port's
+    reseed repairs its holes and the reference's keeps them."""
+    out = {}
+    for pkg in ("dds_tpu", "dds_tpu_torch"):
+        async def go():
+            c = Cluster(pkg)
+            res = await fn(c)
+            for _ in range(3):
+                await c.net.quiesce()
+                await asyncio.sleep(0.05)
+            return res, c.repos()
+        out[pkg] = bounded(go())
+    return out
+
+
 def test_verified_transfer_streams_chunks_twin():
     async def go(c):
         c.supervisor.cfg.state_chunk_keys = 4
@@ -513,7 +531,10 @@ def test_verified_transfer_off_falls_back_to_legacy_sleep_twin():
 
 def test_forged_spare_entries_rejected_by_the_digest_quorum_twin():
     """A spare holding a fabricated high-tag key and a tampered value
-    seeds the recovering replica; the manifest quorum rejects both."""
+    seeds the recovering replica; the manifest quorum rejects both. The
+    tampered key stays a hole in the reference; the port pulls its
+    attested version from the peers at once (ROADMAP §C 23), never the
+    fabricated key, which no manifest quorum attests."""
 
     async def go(c):
         keys = [await c.write([i, "honest"]) for i in range(5)]
@@ -525,11 +546,18 @@ def test_forged_spare_entries_rejected_by_the_digest_quorum_twin():
             s._store(keys[0], tag, ["tampered"])
         await c.supervisor.recover("replica-0")
         await c.net.quiesce()
-        r0 = c.replicas["replica-0"]
-        return "FORGED-KEY" in r0.repository, sorted(r0.repository)
+        return keys
 
-    (forged, keys0), *_ = twins(go)
-    assert not forged and len(keys0) == 4  # the tampered key became a hole
+    out = both(go)
+    for pkg, holes in (("dds_tpu", 1), ("dds_tpu_torch", 0)):
+        keys, repos = out[pkg]
+        r0 = repos["replica-0"]
+        assert "FORGED-KEY" not in r0 and len(r0) == 5 - holes, pkg
+        assert all(r0[k][1] == [i, "honest"] for i, k in enumerate(keys) if k in r0)
+    # every other replica as the reference leaves it
+    ref, port = out["dds_tpu"][1], out["dds_tpu_torch"][1]
+    assert {a: r for a, r in port.items() if a != "replica-0"} == \
+        {a: r for a, r in ref.items() if a != "replica-0"}
 
 
 def test_f_attesters_cannot_smuggle_an_entry_through_the_seed_twin():
@@ -548,13 +576,124 @@ def test_f_attesters_cannot_smuggle_an_entry_through_the_seed_twin():
             r._store(keys[1], tag, ["tampered"])
         await c.supervisor.recover("replica-0")
         await c.net.quiesce()
-        r0 = c.replicas["replica-0"]
-        return c.supervisor._support(), sorted(r0.repository), \
-            [r0.repository[k][1] for k in keys if k in r0.repository]
+        return c.supervisor._support(), keys
 
-    (support, keys0, values), *_ = twins(go)
-    assert support == 3 and "SMUGGLED" not in keys0
-    assert ["tampered"] not in values and len(values) == 3
+    out = both(go)
+    # the tampered key is a hole in the reference; the port fills it with
+    # the attested honest version (ROADMAP §C 23)
+    for pkg, n in (("dds_tpu", 3), ("dds_tpu_torch", 4)):
+        (support, keys), repos = out[pkg]
+        r0 = repos["replica-0"]
+        values = [r0[k][1] for k in keys if k in r0]
+        assert support == 3 and "SMUGGLED" not in r0, pkg
+        assert ["tampered"] not in values and len(values) == n, pkg
+
+
+def test_a_byzantine_peer_serving_a_newer_forged_value_cannot_fill_the_hole():
+    """ROADMAP §C 23. The spares seed replica-0 with a tampered value of
+    one key, which the manifest quorum rejects. The first peer the port's
+    reseed asks for that hole, replica-1, is Byzantine: it holds the ABD
+    secret and answers at seq + 1 with a forged value, validly signed.
+    The port takes only the version f + 1 signers attested, from the next
+    peer; the reference leaves the hole to the periodic loop. Neither
+    installs the forgery."""
+
+    async def go(c):
+        keys = [await c.write([i, "honest"]) for i in range(5)]
+        await c.net.quiesce()
+        for spare in ("replica-7", "replica-8"):
+            s = c.replicas[spare]
+            tag, _ = s.repository[keys[0]]
+            s._store(keys[0], tag, ["tampered"])
+        byz = c.replicas["replica-1"]
+        honest = byz.antientropy.handle
+        asked = []
+
+        def handle(sender, msg):
+            if not (isinstance(msg, c.M.RepairRequest) and keys[0] in msg.keys):
+                return honest(sender, msg)
+            tag, _ = byz.repository[keys[0]]
+            newer = c.M.ABDTag(tag.seq + 1, tag.id)
+            sig = c.sigs.abd_signature(byz.cfg.abd_mac_secret, ["forged"], newer, msg.nonce)
+            byz._send(sender, c.M.RepairReply(
+                {keys[0]: {"tag": [newer.seq, newer.id], "value": ["forged"],
+                           "sig": sig.hex()}}, msg.nonce))
+            asked.append(sender)
+            return True
+
+        byz.antientropy.handle = handle
+        await c.supervisor.recover("replica-0")
+        await c.net.quiesce()
+        return keys, asked
+
+    out = both(go)
+    for pkg, asked, held in (("dds_tpu", [], None), ("dds_tpu_torch", ["replica-0"], [0, "honest"])):
+        (keys, got), repos = out[pkg]
+        assert got == asked, pkg
+        assert repos["replica-0"].get(keys[0], (None, None))[1] == held, pkg
+        assert all(r.get(keys[0], (None, None))[1] != ["forged"] for r in repos.values()), pkg
+
+
+def test_a_spares_hole_is_copied_into_the_reseed_in_the_reference_and_filled_in_the_port():
+    """ROADMAP §C 23. Both spares lack one key (a hole an earlier reseed
+    left, say of a key being written as its manifests were taken). The
+    recovery seeds replica-0 from a spare's state, so the reference's
+    replica-0 lacks the key too: each proactive recovery copies a spare's
+    holes into the next victim, until no read quorum holds a copy and an
+    acknowledged write reads as absent. The port's reseeded replica pulls
+    every attested key its seed lacked from the peers at once."""
+
+    async def go(c):
+        keys = [await c.write([i, "kept"]) for i in range(4)]
+        await c.net.quiesce()
+        for spare in ("replica-7", "replica-8"):
+            s = c.replicas[spare]
+            s._install_repository({k: v for k, v in s.repository.items() if k != keys[2]})
+        await c.supervisor.recover("replica-0")
+        await c.net.quiesce()
+        return keys
+
+    out = both(go)
+    holders = {}
+    for pkg, ((keys), repos) in out.items():
+        holders[pkg] = sorted(a for a, r in repos.items() if keys[2] in r)
+        assert repos["replica-0"].get(keys[2], (None, None))[1] in (None, [2, "kept"])
+    assert "replica-0" not in holders["dds_tpu"]
+    assert "replica-0" in holders["dds_tpu_torch"]
+    assert set(holders["dds_tpu_torch"]) - set(holders["dds_tpu"]) == {"replica-0"}
+
+
+def test_a_write_taken_during_the_reseed_is_dropped_by_the_reference_and_kept_by_the_port():
+    """ROADMAP §C 23. A write lands while replica-0 is between its Kill
+    (wiped, healthy) and its seed's completion, so replica-0 acknowledges
+    it as one of the quorum. The reference's reseed then replaces the
+    whole repository and the write loses that copy; the port's keeps
+    what the replica stored since its Kill."""
+
+    async def go(c):
+        keys = [await c.write([i, "before"]) for i in range(3)]
+        await c.net.quiesce()
+        real = c.supervisor._seed
+        late = {}
+
+        async def seed(*a, **kw):
+            late["key"] = await c.write([9, "during"])
+            await c.net.quiesce()
+            late["held"] = late["key"] in c.replicas["replica-0"].repository
+            return await real(*a, **kw)
+
+        c.supervisor._seed = seed
+        await c.supervisor.recover("replica-0")
+        await c.net.quiesce()
+        return keys, late
+
+    out = both(go)
+    for pkg, kept in (("dds_tpu", False), ("dds_tpu_torch", True)):
+        (keys, late), repos = out[pkg]
+        assert late["held"], pkg  # replica-0 stored the write before its seed
+        r0 = repos["replica-0"]
+        assert (late["key"] in r0) == kept, pkg
+        assert all(k in r0 for k in keys), pkg
 
 
 def test_antientropy_converges_stale_rejoined_replica_twin():

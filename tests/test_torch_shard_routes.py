@@ -257,7 +257,6 @@ def test_launch_serves_every_route_as_the_reference(name, keys, tmp_path, monkey
         cfg.storage.dir = str(tmp_path / pkg / "stratum")
         if pkg == "dds_tpu_torch":
             cfg.proxy.device = "cpu"
-            assert mod(pkg, "run").unported_plane(cfg) is None
         http = mod(pkg, "http.miniserver").http_request
         dep = await mod(pkg, "run").launch(cfg)
         try:
